@@ -1,0 +1,90 @@
+"""Server configuration (trimmed copy of semi_pd_tpu/config/server_args.py).
+
+Keeps the ServerArgs fields the main serving path reads (memory sizing,
+bucket tables, the colocated and semi-PD scheduling knobs, the overlap
+ring) with the JAX package's defaults and comments' meaning, and adds
+``device``. The CLI, HTTP, LoRA, speculation, parallelism, quantization and
+grammar flags belong to later slices of the port (ROADMAP queue A).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+
+@dataclasses.dataclass
+class ServerArgs:
+    model_path: str = ""
+    context_length: Optional[int] = None
+    allow_auto_truncate: bool = False
+    kv_cache_dtype: str = "auto"  # auto (model dtype) | bfloat16 | float32
+    random_weights: bool = False  # random-init from ``seed`` (tests/bench)
+    seed: int = 0
+    # Where the model, the KV pool and every step run: "cuda" unless the
+    # caller asks for "cpu" (the CPU tests). Never chosen by fallback.
+    device: str = "cuda"
+
+    # Memory / KV cache
+    mem_fraction_static: Optional[float] = None
+    max_total_tokens: Optional[int] = None  # KV pool size in tokens
+    page_size: int = 16
+    max_running_requests: Optional[int] = None
+
+    # Scheduling
+    schedule_policy: str = "lpm"  # lpm | fcfs | lof | random | dfs-weight
+    enable_mixed_chunk: bool = False
+    num_continuous_decode_steps: Optional[int] = None
+    disable_overlap_schedule: bool = False
+    # In-flight step ring: results are read back in one fused device->host
+    # copy every ``overlap_depth`` steps (see Scheduler._ring)
+    overlap_depth: int = 4
+    adaptive_overlap_depth: bool = True
+    max_overlap_depth: int = 256
+    max_stall_ms: Optional[float] = None
+    chunked_prefill_size: int = 2048
+    disable_radix_cache: bool = False
+    retract_decode_steps: int = 20
+
+    # Semi-PD (phase-disaggregated computation, unified storage); the
+    # meaning of each knob is documented on the JAX package's ServerArgs
+    enable_semi_pd: bool = False
+    decode_slo_ms: float = 50.0
+    prefill_chunk_budget_tokens: Optional[int] = None
+    semi_pd_prefill_share: float = 0.8
+    semi_pd_max_cycle_stretch: float = 1.35
+    semi_pd_stretch_grace_ms: float = 1.0
+    semi_pd_queue_relief_ms: float = 500.0
+    semi_pd_min_chunk_duty: float = 3.0
+
+    # Static shape buckets: bound the set of (T, B, maxP) shapes per step
+    decode_bs_buckets: Optional[List[int]] = None
+    prefill_token_buckets: Optional[List[int]] = None
+
+    decode_log_interval: float = 10.0  # seconds between decode-stats lines
+
+    def __post_init__(self):
+        if self.device not in ("cuda", "cpu") and not self.device.startswith("cuda:"):
+            raise ValueError(f"device must be 'cuda', 'cuda:N' or 'cpu', got {self.device!r}")
+        if self.kv_cache_dtype not in ("auto", "bfloat16", "float32"):
+            raise NotImplementedError(
+                f"kv_cache_dtype {self.kv_cache_dtype!r}: fp8 KV is ROADMAP A9")
+        if self.num_continuous_decode_steps is not None:
+            self.overlap_depth = max(1, int(self.num_continuous_decode_steps))
+            self.adaptive_overlap_depth = False  # user pinned the depth
+        if self.decode_bs_buckets is None:
+            self.decode_bs_buckets = [1, 2, 4, 8, 16, 32, 64, 128, 256]
+        if self.prefill_token_buckets is None:
+            buckets, b = [], 256
+            while b < self.chunked_prefill_size:
+                buckets.append(b)
+                b *= 2
+            buckets.append(self.chunked_prefill_size)
+            self.prefill_token_buckets = buckets
+        if self.page_size < 1:
+            raise ValueError("page_size must be >= 1")
+        if self.chunked_prefill_size % self.page_size != 0:
+            self.chunked_prefill_size = (
+                (self.chunked_prefill_size + self.page_size - 1)
+                // self.page_size * self.page_size
+            )

@@ -1,0 +1,206 @@
+// Paged decode attention over the chunked combined KV pool, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel semi_pd_tpu/ops/attention/rpa_packed.py
+// _rpa_kernel_chunked_packed (driver ragged_paged_attention_chunked_packed):
+// one query row per request, GQA with G = Hq / Hkv query heads per KV head,
+// float32 online softmax, optional logit softcap and sliding window.
+//
+// Bound on this card: bytes. Each call reads every live KV row once,
+// B * kv_len * 2 * Hkv * D * sizeof(T) bytes, and does only 4 * Hq * D
+// operations per KV position (about 1 operation per byte in bf16 with
+// G = 4, far below the ~295 the H100 needs before its tensor cores bind).
+//
+// Design: one block of 128 threads per (request, KV head). The block stages
+// its G query rows in shared memory once, then walks the request's pages
+// through the page table in tiles of 64 positions: each thread issues the
+// 16-byte loads of its share of the NEXT tile into registers before the
+// block computes on the current one (a two-deep pipeline without
+// cp.async), so a KV byte is read once and the load latency overlaps the
+// score / softmax / P.V work. K is read at chunk offset h*D of each slot row
+// and V at (Hkv + h)*D. Positions at or past kv_len are never read (the TPU
+// kernel gathered whole sections and relied on the dump page being finite);
+// rows with kv_len == 0 write zeros. Split-KV across blocks, TMA and wgmma
+// are later work: at B * Hkv blocks the card is filled only when
+// B * Hkv >= 132.
+#include "rpa_common.cuh"
+
+namespace rpa {
+
+constexpr int DEC_NT = 128;   // threads per block
+constexpr int DEC_TK = 64;    // KV positions per tile
+constexpr int DEC_MAXO = 8;   // outputs per thread: G * D <= DEC_MAXO * DEC_NT
+
+template <int D>
+__host__ __device__ constexpr int dec_ld() { return D + 4; }  // padded rows: no bank conflicts
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DEC_NT)
+rpa_decode_kernel(const T* __restrict__ q,           // [B, Hq, D]
+                  const T* __restrict__ pool,        // layer slice [S, CT*128]
+                  const int* __restrict__ page_table,  // [B, maxP]
+                  const int* __restrict__ kv_lens,   // [B]
+                  T* __restrict__ out,               // [B, Hq, D]
+                  int Hq, int Hkv, int row_stride, int maxP, int page_size,
+                  float scale, float cap, int window) {
+  constexpr int NT = DEC_NT, TK = DEC_TK, LD = dec_ld<D>();
+  using Tile = KVTile<T, D, TK, NT>;
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int G = Hq / Hkv;
+  float* sK = smem;           // [TK][LD]
+  float* sV = sK + TK * LD;   // [TK][LD]
+  float* sQ = sV + TK * LD;   // [G][D]
+  float* sS = sQ + G * D;     // [G][TK] scores, then probabilities
+  float* sM = sS + G * TK;    // [G] running max
+  float* sL = sM + G;         // [G] running sum
+  float* sC = sL + G;         // [G] this tile's correction factor
+
+  const int kv_len = kv_lens[b];
+  const int limit = min(kv_len, maxP * page_size);
+  const int n_out = G * D;
+  T* o = out + ((int64_t)b * Hq + (int64_t)h * G) * D;
+  if (limit <= 0) {  // padded batch row
+    for (int i = tid; i < n_out; i += NT) o[i] = from_f<T>(0.f);
+    return;
+  }
+  // the query sits at kv_len - 1 and sees positions > kv_len - 1 - window
+  const int lo = window > 0 ? max(kv_len - window, 0) : 0;
+
+  const T* qb = q + ((int64_t)b * Hq + (int64_t)h * G) * D;
+  for (int i = tid; i < n_out; i += NT) sQ[i] = to_f(qb[i]);
+  for (int g = tid; g < G; g += NT) {
+    sM[g] = NEG_INF;
+    sL[g] = 0.f;
+  }
+  float acc[DEC_MAXO];
+#pragma unroll
+  for (int k = 0; k < DEC_MAXO; ++k) acc[k] = 0.f;
+
+  const int* pt_row = page_table + (int64_t)b * maxP;
+  const int k_off = h * D, v_off = (Hkv + h) * D;
+  Tile tile;
+  tile.load(pool, pt_row, page_size, row_stride, k_off, v_off, lo, limit, tid);
+
+  for (int start = lo; start < limit; start += TK) {
+    __syncthreads();  // the previous tile is fully consumed
+    tile.template store<LD>(sK, sV, tid);
+    __syncthreads();
+    if (start + TK < limit)
+      tile.load(pool, pt_row, page_size, row_stride, k_off, v_off, start + TK, limit, tid);
+
+    // scores s[g][t] = q_g . k_t * scale (softcapped)
+    for (int i = tid; i < G * TK; i += NT) {
+      const int g = i / TK, t = i - g * TK;
+      float s = NEG_INF;
+      if (start + t < limit) {
+        const float4* kr = reinterpret_cast<const float4*>(sK + t * LD);
+        const float4* qr = reinterpret_cast<const float4*>(sQ + g * D);
+        float a = 0.f;
+#pragma unroll
+        for (int d = 0; d < D / 4; ++d) {
+          const float4 kk = kr[d], qq = qr[d];
+          a = fmaf(qq.x, kk.x, a);
+          a = fmaf(qq.y, kk.y, a);
+          a = fmaf(qq.z, kk.z, a);
+          a = fmaf(qq.w, kk.w, a);
+        }
+        s = a * scale;
+        if (cap > 0.f) s = cap * tanhf(s / cap);
+      }
+      sS[i] = s;
+    }
+    __syncthreads();
+
+    // online softmax update, one warp per query head
+    for (int g = warp; g < G; g += NT / 32) {
+      float mx = NEG_INF;
+      for (int t = lane; t < TK; t += 32) mx = fmaxf(mx, sS[g * TK + t]);
+      mx = warp_max(mx);
+      const float m_old = sM[g];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int t = lane; t < TK; t += 32) {
+        const float p = (start + t < limit) ? expf(sS[g * TK + t] - m_new) : 0.f;
+        sum += p;
+        sS[g * TK + t] = round_p<T>(p);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        sC[g] = corr;
+        sL[g] = sL[g] * corr + sum;
+        sM[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc[g][d] = acc * corr + sum_t p[g][t] * v[t][d]
+#pragma unroll
+    for (int k = 0; k < DEC_MAXO; ++k) {
+      const int i = tid + k * NT;
+      if (i < n_out) {
+        const int g = i / D, d = i - g * D;
+        const float* p = sS + g * TK;
+        float a = acc[k] * sC[g];
+#pragma unroll 8
+        for (int t = 0; t < TK; ++t) a = fmaf(p[t], sV[t * LD + d], a);
+        acc[k] = a;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < DEC_MAXO; ++k) {
+    const int i = tid + k * NT;
+    if (i < n_out) {
+      const float l = sL[i / D];
+      o[i] = from_f<T>(l > 0.f ? acc[k] / l : 0.f);
+    }
+  }
+}
+
+template <typename T, int D>
+static int launch_decode(const void* q, const void* pool, const void* pt, const void* kv_lens,
+                         void* out, int B, int Hq, int Hkv, int row_stride, int maxP,
+                         int page_size, float scale, float cap, int window,
+                         cudaStream_t stream) {
+  const int G = Hq / Hkv;
+  const size_t smem =
+      sizeof(float) * (2 * DEC_TK * dec_ld<D>() + G * D + G * DEC_TK + 3 * G);
+  auto kernel = rpa_decode_kernel<T, D>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<dim3(B, Hkv), DEC_NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pool), static_cast<const int*>(pt),
+      static_cast<const int*>(kv_lens), static_cast<T*>(out), Hq, Hkv, row_stride, maxP,
+      page_size, scale, cap, window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace rpa
+
+// C entry point (bound with ctypes by ops/attention/rpa_packed.py).
+// pool: the layer's [S, CT*128] slice; row_stride = CT*128 elements.
+// cap <= 0: no softcap; window <= 0: no sliding window. Returns cudaError_t.
+extern "C" int rpa_decode(const void* q, const void* pool, const void* page_table,
+                          const void* kv_lens, void* out, int B, int Hq, int Hkv, int D,
+                          int row_stride, int maxP, int page_size, float scale, float cap,
+                          int window, int is_bf16, void* stream) {
+  using namespace rpa;
+  if (B == 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RPA_DEC(T, DD)                                                                   \
+  return launch_decode<T, DD>(q, pool, page_table, kv_lens, out, B, Hq, Hkv, row_stride, \
+                              maxP, page_size, scale, cap, window, s)
+  if (D != 64) return (int)cudaErrorInvalidValue;  // the main path's head_dim only
+  if (is_bf16) RPA_DEC(__nv_bfloat16, 64);
+  RPA_DEC(float, 64);
+#undef RPA_DEC
+}

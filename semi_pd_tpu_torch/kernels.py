@@ -1,0 +1,146 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each kernel is one ``csrc/*.cu`` file with a plain C entry point. It is
+compiled at first use with ``nvcc -gencode arch=compute_90a,code=sm_90a
+-O3 -shared -Xcompiler -fPIC`` into ``semi_pd_tpu_torch/_build/`` (a
+directory git ignores) and loaded with ``ctypes``; the library's file name
+carries a hash of the source and the flags, so an edited source rebuilds.
+Pointers and the CUDA stream cross as ``c_void_p``; every entry returns
+``cudaGetLastError()`` and the Python wrapper raises when it is not 0.
+
+Importing this module builds nothing and needs no CUDA toolkit: the CPU
+tests import every module of the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Optional, Sequence, Tuple
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "semi_pd_tpu_torch are built from source at first use")
+
+
+class CudaKernel:
+    """One hand-written kernel: its source, the C entry point's signature,
+    the TPU kernel it replaces, and ``launches``, the number of times its
+    wrapper launched it (the wrapper adds one per launch and nowhere else)."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes: Sequence,
+                 replaces: str, defines: Sequence[str] = ()):
+        self.name = name
+        self.source = _PKG / source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.replaces = replaces
+        self.defines = tuple(defines)
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+
+    @property
+    def source_rel(self) -> str:
+        return str(self.source.relative_to(_PKG.parent))
+
+    def flags(self) -> Tuple[str, ...]:
+        return NVCC_FLAGS + tuple(f"-D{d}" for d in self.defines)
+
+    def lib_path(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(self.flags()).encode())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+
+    def start_build(self) -> Optional[Tuple[subprocess.Popen, Path]]:
+        """Start nvcc for this kernel unless its library is already built;
+        returns (process, temporary output path) or None."""
+        out = self.lib_path()
+        if out.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [find_nvcc(), *self.flags(), "-o", tmp, str(self.source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, Path(tmp)
+
+    def finish_build(self, started) -> None:
+        if started is None:
+            return
+        proc, tmp = started
+        log, _ = proc.communicate()
+        self.build_log = log
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {self.source_rel}:\n{log}")
+        os.replace(tmp, self.lib_path())  # atomic: concurrent builds agree
+
+    def fn(self):
+        """The loaded C entry point, building the library first if needed."""
+        if self._fn is None:
+            self.finish_build(self.start_build())
+            lib = ctypes.CDLL(str(self.lib_path()))
+            f = getattr(lib, self.symbol)
+            f.argtypes = self.argtypes
+            f.restype = ctypes.c_int
+            self._fn = f
+        return self._fn
+
+    def launch(self, *args) -> None:
+        err = self.fn()(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name}: CUDA launch failed with cudaError {err}")
+        self.launches += 1
+
+
+KERNELS: Dict[str, CudaKernel] = {}
+
+
+def register(kernel: CudaKernel) -> CudaKernel:
+    KERNELS[kernel.name] = kernel
+    return kernel
+
+
+def build_all() -> float:
+    """Build every registered kernel in parallel (one nvcc per source, all
+    started together) and load them. Returns the wall seconds taken."""
+    # the wrapper modules register their kernels when imported
+    import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
+
+    t0 = time.monotonic()
+    ks = list(KERNELS.values())
+    started = [(k, k.start_build()) for k in ks]
+    for k, s in started:
+        k.finish_build(s)
+    for k in ks:
+        k.fn()
+    return time.monotonic() - t0
+
+
+def cuda_stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,170 @@
+"""Llama-family causal LM (dense decoder, GQA, RoPE, SiLU-gated MLP): port of
+semi_pd_tpu/models/llama.py::LlamaForCausalLM for the main path.
+
+An ``nn.Module`` whose per-layer weights are stacked on a leading [L, ...]
+axis, leaf for leaf the JAX package's parameter tree: ``init_params(seed)``
+draws the same numbers as the JAX ``init_params`` (numpy
+``default_rng(seed)``, leaves in the JAX tree's sorted-key order, x0.02,
+then cast), and ``load_jax_params`` carries a JAX parameter tree (numpy
+leaves) into the module. Linear weights are [din, dout]. The forward pass
+updates the KV pool in place. qkv bias, q/k norms, LoRA, other families and
+tensor parallelism are ROADMAP A13-A15.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from semi_pd_tpu_torch.config.model_config import ModelConfig
+from semi_pd_tpu_torch.layers.attention import paged_attention
+from semi_pd_tpu_torch.layers.linear import apply_linear, lm_head_logits
+from semi_pd_tpu_torch.ops.attention.ragged_paged_attention import (
+    ragged_paged_attention_chunked,
+)
+from semi_pd_tpu_torch.ops.elementwise import ACT2FN, rms_norm
+from semi_pd_tpu_torch.ops.rope import RotaryEmbedding
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# JAX tree path -> module attribute
+_ATTR = {
+    "embed.w": "embed",
+    "final_norm": "final_norm",
+    "layers.down.w": "down",
+    "layers.gate_up.w": "gate_up",
+    "layers.input_norm": "input_norm",
+    "layers.o_proj.w": "o_proj",
+    "layers.post_norm": "post_norm",
+    "layers.qkv_proj.w": "qkv_proj",
+    "lm_head.w": "lm_head",
+}
+
+
+class LlamaForCausalLM(torch.nn.Module):
+    def __init__(self, config: ModelConfig, device):
+        super().__init__()
+        c = self.config = config
+        if c.attention_bias:
+            raise NotImplementedError("qkv bias (qwen2-style) is ROADMAP A14")
+        if c.hidden_act not in ACT2FN:
+            raise NotImplementedError(f"activation {c.hidden_act!r} is ROADMAP A14")
+        if c.dtype not in DTYPES:
+            raise ValueError(f"model dtype {c.dtype!r}: bfloat16 or float32")
+        self.num_heads = c.num_attention_heads
+        self.num_kv_heads = c.num_key_value_heads
+        self.head_dim = c.head_dim
+        self.q_size = self.num_heads * self.head_dim
+        self.kv_size = self.num_kv_heads * self.head_dim
+        self.scale = self.head_dim ** -0.5
+        self.dtype = DTYPES[c.dtype]
+        self.act = ACT2FN[c.hidden_act]
+        self.page_size = 16  # set by the runner: a property of the pool
+        self.rope = RotaryEmbedding(
+            head_dim=self.head_dim,
+            rotary_dim=int(self.head_dim * c.partial_rotary_factor),
+            max_position=c.context_length,
+            theta=c.rope_theta,
+            rope_scaling=c.rope_scaling,
+        ).to(device)
+        for path, shape in self.param_specs():
+            setattr(self, _ATTR[path], torch.nn.Parameter(
+                torch.zeros(shape, dtype=self.dtype, device=device),
+                requires_grad=False))
+        if c.tie_word_embeddings:
+            self.lm_head = None
+
+    # ------------------------------------------------------------- params
+    def param_specs(self) -> List[Tuple[str, Tuple[int, ...]]]:
+        """(JAX tree path, shape) of every leaf, in the order jax.tree.map
+        visits the JAX package's parameter tree (sorted dict keys)."""
+        c = self.config
+        L, H, I = c.num_hidden_layers, c.hidden_size, c.intermediate_size
+        specs = [
+            ("embed.w", (c.vocab_size, H)),
+            ("final_norm", (H,)),
+            ("layers.down.w", (L, I, H)),
+            ("layers.gate_up.w", (L, H, 2 * I)),
+            ("layers.input_norm", (L, H)),
+            ("layers.o_proj.w", (L, self.q_size, H)),
+            ("layers.post_norm", (L, H)),
+            ("layers.qkv_proj.w", (L, H, self.q_size + 2 * self.kv_size)),
+        ]
+        if not c.tie_word_embeddings:
+            specs.append(("lm_head.w", (H, c.vocab_size)))
+        return specs
+
+    @torch.no_grad()
+    def init_params(self, seed: int = 0) -> None:
+        """Random init drawing the JAX ``init_params(seed)`` numbers: one
+        numpy ``default_rng(seed)``, standard normals x0.02 per leaf in tree
+        order, cast to the model dtype (leaf by leaf, so the host holds one
+        float32 leaf at a time)."""
+        rng = np.random.default_rng(seed)
+        for path, shape in self.param_specs():
+            a = rng.standard_normal(shape, dtype=np.float32) * 0.02
+            getattr(self, _ATTR[path]).copy_(torch.from_numpy(a))
+
+    @torch.no_grad()
+    def load_jax_params(self, tree: Dict[str, Any]) -> None:
+        """Copy a JAX-package parameter tree ({"embed": {"w": ...}, "layers":
+        {...}, ...}, numpy or array-like leaves) into the module."""
+        for path, shape in self.param_specs():
+            node = tree
+            for key in path.split("."):
+                node = node[key]
+            a = np.asarray(node)
+            if a.dtype != np.float32 or not a.flags.writeable:
+                a = a.astype(np.float32)  # also copies read-only device views
+            if a.shape != shape:
+                raise ValueError(f"{path}: shape {a.shape} != {shape}")
+            getattr(self, _ATTR[path]).copy_(torch.from_numpy(a))
+
+    def params_tree(self) -> Dict[str, Any]:
+        """The parameters as a JAX-structured tree of float32 numpy arrays."""
+        tree: Dict[str, Any] = {}
+        for path, _ in self.param_specs():
+            keys = path.split(".")
+            node = tree
+            for key in keys[:-1]:
+                node = node.setdefault(key, {})
+            node[keys[-1]] = getattr(self, _ATTR[path]).detach().float().cpu().numpy()
+        return tree
+
+    # ------------------------------------------------------------- forward
+    def forward(self, fb, kv_cache: torch.Tensor,
+                attention=ragged_paged_attention_chunked) -> torch.Tensor:
+        """One step over the flat batch ``fb``; writes this step's K/V into
+        ``kv_cache`` [L, S, CT, 128] and returns float32 logits [B, V] of
+        each request's last token. ``attention`` runs over the pool after
+        each layer's KV write (default: the kernels)."""
+        c = self.config
+        h = self.embed[fb.input_ids.long()]
+        for layer in range(c.num_hidden_layers):
+            attn_in = rms_norm(h, self.input_norm[layer], c.rms_norm_eps)
+            h = h + self._attn(layer, attn_in, fb, kv_cache, attention)
+            mlp_in = rms_norm(h, self.post_norm[layer], c.rms_norm_eps)
+            h = h + apply_linear(self.act(apply_linear(mlp_in, self.gate_up[layer])),
+                                 self.down[layer])
+        h = rms_norm(h, self.final_norm, c.rms_norm_eps)
+        last_h = h[fb.logits_idx.long()]
+        head = self.lm_head if self.lm_head is not None else self.embed.t()
+        return lm_head_logits(last_h, head, c.logit_softcap)
+
+    def _attn(self, layer, attn_in, fb, kv_cache, attention):
+        c = self.config
+        T = attn_in.shape[0]
+        qkv = apply_linear(attn_in, self.qkv_proj[layer])
+        q, k, v = qkv.split([self.q_size, self.kv_size, self.kv_size], dim=-1)
+        q = q.reshape(T, self.num_heads, self.head_dim)
+        k = k.reshape(T, self.num_kv_heads, self.head_dim)
+        v = v.reshape(T, self.num_kv_heads, self.head_dim)
+        q, k = self.rope(fb.q_pos, q, k)
+        out = paged_attention(
+            q, k, v, kv_cache, layer, fb, page_size=self.page_size,
+            scale=self.scale, logit_cap=c.attn_logit_softcap,
+            sliding_window=c.sliding_window, attention=attention,
+        )
+        return apply_linear(out.reshape(T, self.q_size), self.o_proj[layer])

@@ -1,0 +1,221 @@
+"""Host-side batch assembly (trimmed port of semi_pd_tpu/runtime/batch.py).
+
+All bookkeeping is numpy on the controller; batches pad to static buckets.
+``HostBatch.pack()`` concatenates every per-step array into ONE int32 and
+ONE float32 vector (two host->device copies per step); the runner's
+``_unpack_fb`` re-slices them with the same layout. LoRA, multimodal,
+m-rope and speculative batches are later slices (ROADMAP A11, A14).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from semi_pd_tpu_torch.ops.sampling import SamplingArrays
+from semi_pd_tpu_torch.runtime.forward_batch import (
+    ForwardArrays,
+    ForwardMode,
+    build_attn_meta,
+    make_attn_meta_host,
+)
+from semi_pd_tpu_torch.runtime.req import Req
+
+
+def bucket_of(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+@dataclasses.dataclass
+class HostBatch:
+    mode: ForwardMode
+    reqs: List[Req]
+    extend_lens: Optional[List[int]] = None  # tokens prefilled per req (EXTEND)
+    input_ids: np.ndarray = None
+    q_req_idx: np.ndarray = None
+    q_pos: np.ndarray = None
+    out_slots: np.ndarray = None
+    page_table: np.ndarray = None
+    kv_lens: np.ndarray = None
+    logits_idx: np.ndarray = None
+    sampling: SamplingArrays = None
+    T: int = 0
+    B: int = 0
+    maxP: int = 0
+
+    def q_lens(self) -> np.ndarray:
+        q_lens = np.zeros(self.B, np.int32)
+        if self.mode == ForwardMode.DECODE:
+            q_lens[: len(self.reqs)] = 1
+        else:
+            q_lens[: len(self.reqs)] = self.extend_lens
+        return q_lens
+
+    def to_device(self, device) -> ForwardArrays:
+        import torch
+
+        t = lambda a: torch.as_tensor(a, device=device)
+        s = self.sampling
+        return ForwardArrays(
+            input_ids=t(self.input_ids), q_req_idx=t(self.q_req_idx),
+            q_pos=t(self.q_pos), out_slots=t(self.out_slots),
+            page_table=t(self.page_table), kv_lens=t(self.kv_lens),
+            logits_idx=t(self.logits_idx),
+            sampling=SamplingArrays(*[t(a) for a in s]),
+            num_reqs=len(self.reqs),
+            attn_meta=build_attn_meta(self.q_lens(), self.kv_lens, self.T, device),
+            all_greedy=bool(np.all(s.temperature[: len(self.reqs)] <= 0.0)),
+        )
+
+    def pack(self) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int, int, int]]:
+        """Pack every per-step array into ONE int32 vector and ONE float32
+        vector (layout of the JAX package's HostBatch.pack). The runner
+        re-slices them with the static layout (T, B, maxP, NQB)."""
+        T = self.T
+        q_lens = self.q_lens()
+        bs, br, bq = make_attn_meta_host(q_lens, T)
+        s = self.sampling
+        ints = np.concatenate([
+            self.input_ids, self.q_req_idx, self.q_pos, self.out_slots,
+            self.page_table.reshape(-1), self.kv_lens, self.logits_idx,
+            q_lens, self.kv_lens - q_lens, bs, br, bq, s.top_k,
+            np.array([len(self.reqs)], np.int32),
+        ]).astype(np.int32)
+        floats = np.concatenate([
+            s.temperature, s.top_p, s.min_p, s.presence_penalty,
+            s.frequency_penalty, s.repetition_penalty,
+        ]).astype(np.float32)
+        return ints, floats, (T, self.B, self.maxP, len(bs))
+
+
+def _sampling_arrays_np(reqs: List[Req], B: int) -> SamplingArrays:
+    def arr(f, dtype, pad):
+        a = np.full(B, pad, dtype=dtype)
+        for i, r in enumerate(reqs):
+            a[i] = f(r.sampling_params)
+        return a
+
+    return SamplingArrays(
+        temperature=arr(lambda s: s.temperature, np.float32, 0.0),
+        top_k=arr(lambda s: s.top_k, np.int32, 0),
+        top_p=arr(lambda s: s.top_p, np.float32, 1.0),
+        min_p=arr(lambda s: s.min_p, np.float32, 0.0),
+        presence_penalty=arr(lambda s: s.presence_penalty, np.float32, 0.0),
+        frequency_penalty=arr(lambda s: s.frequency_penalty, np.float32, 0.0),
+        repetition_penalty=arr(lambda s: s.repetition_penalty, np.float32, 1.0),
+    )
+
+
+def _page_table_block(
+    reqs: List[Req], B: int, maxP: int, page_table_host: np.ndarray
+) -> np.ndarray:
+    pt = np.zeros((B, maxP), dtype=np.int32)
+    for i, r in enumerate(reqs):
+        row = page_table_host[r.req_slot]
+        n = min(maxP, len(r.pages))
+        pt[i, :n] = row[:n]
+    return pt
+
+
+def build_extend_batch(
+    admitted: List[Tuple[Req, int]],
+    page_table_host: np.ndarray,
+    page_size: int,
+    t_buckets: Sequence[int],
+    b_buckets: Sequence[int],
+    p_buckets: Sequence[int],
+) -> HostBatch:
+    """Admitted = [(req, n_extend_tokens)]; page lists in req.pages already
+    cover prefilled_len + n_extend (the scheduler ran the allocator)."""
+    reqs = [r for r, _ in admitted]
+    lens = [n for _, n in admitted]
+    T = bucket_of(sum(lens), t_buckets)
+    B = bucket_of(len(reqs), b_buckets)
+    need_pages = max(
+        ((r.prefilled_len + n + page_size - 1) // page_size
+         for r, n in admitted),
+        default=1,
+    )
+    maxP = bucket_of(need_pages, p_buckets)
+
+    input_ids = np.zeros(T, np.int32)
+    q_req_idx = np.zeros(T, np.int32)
+    q_pos = np.zeros(T, np.int32)
+    out_slots = np.zeros(T, np.int32)
+    kv_lens = np.zeros(B, np.int32)
+    logits_idx = np.zeros(B, np.int32)
+
+    t = 0
+    for i, (r, n) in enumerate(admitted):
+        start = r.prefilled_len
+        input_ids[t : t + n] = r.input_ids[start : start + n]
+        q_req_idx[t : t + n] = i
+        q_pos[t : t + n] = np.arange(start, start + n, dtype=np.int32)
+        # slot = page[pos // P] * P + pos % P
+        pos = np.arange(start, start + n)
+        pages_arr = np.asarray(r.pages, dtype=np.int32)
+        out_slots[t : t + n] = pages_arr[pos // page_size] * page_size + pos % page_size
+        kv_lens[i] = start + n
+        logits_idx[i] = t + n - 1
+        t += n
+
+    return HostBatch(
+        mode=ForwardMode.EXTEND, reqs=reqs, extend_lens=lens,
+        input_ids=input_ids, q_req_idx=q_req_idx, q_pos=q_pos,
+        out_slots=out_slots,
+        page_table=_page_table_block(reqs, B, maxP, page_table_host),
+        kv_lens=kv_lens, logits_idx=logits_idx,
+        sampling=_sampling_arrays_np(reqs, B), T=T, B=B, maxP=maxP,
+    )
+
+
+def build_decode_batch(
+    reqs: List[Req],
+    page_table_host: np.ndarray,
+    page_size: int,
+    b_buckets: Sequence[int],
+    p_buckets: Sequence[int],
+    lag: int = 0,
+) -> HostBatch:
+    """One new token per request; the token to embed is the last sampled one.
+
+    ``lag=1`` builds the batch one step ahead of host bookkeeping (overlap
+    scheduling: the previous step's sampled tokens are still on the device
+    and replace the input_ids placeholders there)."""
+    B = bucket_of(len(reqs), b_buckets)
+    T = B
+    need_pages = max(
+        ((r.kv_len + lag + page_size) // page_size for r in reqs),
+        default=1,
+    )
+    maxP = bucket_of(need_pages, p_buckets)
+
+    input_ids = np.zeros(T, np.int32)
+    q_req_idx = np.zeros(T, np.int32)
+    q_pos = np.zeros(T, np.int32)
+    out_slots = np.zeros(T, np.int32)
+    kv_lens = np.zeros(B, np.int32)
+    logits_idx = np.arange(B, dtype=np.int32)
+
+    for i, r in enumerate(reqs):
+        pos = r.kv_len + lag  # writing token at this index (0-based)
+        if lag == 0:
+            input_ids[i] = r.output_ids[-1] if r.output_ids else r.input_ids[-1]
+        q_req_idx[i] = i
+        q_pos[i] = pos
+        out_slots[i] = r.pages[pos // page_size] * page_size + pos % page_size
+        kv_lens[i] = pos + 1
+
+    return HostBatch(
+        mode=ForwardMode.DECODE, reqs=list(reqs),  # snapshot: caller's list mutates
+        input_ids=input_ids, q_req_idx=q_req_idx, q_pos=q_pos,
+        out_slots=out_slots,
+        page_table=_page_table_block(reqs, B, maxP, page_table_host),
+        kv_lens=kv_lens, logits_idx=logits_idx,
+        sampling=_sampling_arrays_np(reqs, B), T=T, B=B, maxP=maxP,
+    )

@@ -1,0 +1,103 @@
+"""Device-side batch representation (port of
+semi_pd_tpu/runtime/forward_batch.py).
+
+One ragged layout serves both phases: query tokens of all requests
+concatenated to a flat, bucket-padded [T]; per-token arrays map tokens to
+requests and absolute positions. A decode batch is the special case
+T == B with one token per request.
+
+The extend work list (``make_attn_meta_host`` / ``num_q_blocks``, moved
+here from the JAX package's ``rpa_common.py``) is built with
+``EXTEND_Q_BLOCK``, the constant the extend kernel is compiled with, so the
+list and the kernel cannot disagree on the block height.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from semi_pd_tpu_torch.ops.attention.ragged_paged_attention import EXTEND_Q_BLOCK
+from semi_pd_tpu_torch.ops.sampling import SamplingArrays
+
+
+class ForwardMode(enum.Enum):
+    EXTEND = "extend"  # prefill / chunked prefill continuation
+    DECODE = "decode"
+
+
+class AttnMeta(NamedTuple):
+    """Ragged-attention metadata (int32 tensors). q_lens/q_start: per
+    sequence [B] — new (query) tokens and the absolute position of the first
+    one. block_*: the query-block work list [NQB] (padded with seq -1)."""
+
+    q_lens: torch.Tensor
+    q_start: torch.Tensor
+    block_seq: torch.Tensor
+    block_row: torch.Tensor
+    block_qofs: torch.Tensor
+
+
+class ForwardArrays(NamedTuple):
+    """Everything one step needs, as tensors on the step's device.
+
+    Padding convention: padded token rows have q_req_idx 0 and q_pos 0
+    (outputs ignored) and out_slots inside the dump page (page 0), so the KV
+    scatter is harmless. Padded batch rows have kv_lens 0.
+    """
+
+    input_ids: torch.Tensor  # [T] i32
+    q_req_idx: torch.Tensor  # [T] i32 — batch row of each token
+    q_pos: torch.Tensor  # [T] i32 — absolute position in its request
+    out_slots: torch.Tensor  # [T] i32 — KV slot this token's K/V is written to
+    page_table: torch.Tensor  # [B, maxP] i32
+    kv_lens: torch.Tensor  # [B] i32 — total kv length incl. this step's tokens
+    logits_idx: torch.Tensor  # [B] i32 — index into [T] of each request's last token
+    sampling: SamplingArrays  # per-request [B]
+    num_reqs: int  # actual (unpadded) request count
+    attn_meta: AttnMeta  # extend work list
+    all_greedy: bool = False  # every live row samples greedily (host-known)
+
+
+def num_q_blocks(T: int, B: int) -> int:
+    """Static upper bound on work-list length: every sequence contributes at
+    most one partial block; full blocks are bounded by T // EXTEND_Q_BLOCK."""
+    qb = EXTEND_Q_BLOCK
+    return min(T // qb + B, (T + qb - 1) // qb + B)
+
+
+def make_attn_meta_host(q_lens: np.ndarray, T: int):
+    """Build the work list on the host (numpy), in blocks of EXTEND_Q_BLOCK
+    rows. Returns (block_seq, block_row, block_qofs) padded to
+    ``num_q_blocks(T, B)``."""
+    B = len(q_lens)
+    nqb = num_q_blocks(T, B)
+    block_seq = np.full(nqb, -1, np.int32)
+    block_row = np.zeros(nqb, np.int32)
+    block_qofs = np.zeros(nqb, np.int32)
+    i = 0
+    row = 0
+    for b in range(B):
+        n = int(q_lens[b])
+        for ofs in range(0, n, EXTEND_Q_BLOCK):
+            block_seq[i] = b
+            block_row[i] = row + ofs
+            block_qofs[i] = ofs
+            i += 1
+        row += n
+    return block_seq, block_row, block_qofs
+
+
+def build_attn_meta(q_lens_np: np.ndarray, kv_lens_np: np.ndarray, T: int,
+                    device="cpu") -> AttnMeta:
+    """Numpy -> AttnMeta on ``device``."""
+    bs, br, bq = make_attn_meta_host(q_lens_np, T)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    return AttnMeta(
+        q_lens=t(q_lens_np),
+        q_start=t(np.asarray(kv_lens_np) - np.asarray(q_lens_np)),
+        block_seq=t(bs), block_row=t(br), block_qofs=t(bq),
+    )

@@ -1,0 +1,232 @@
+"""ModelRunner: device, model + weights, KV pool sizing, the step (port of
+semi_pd_tpu/runtime/model_runner.py for the main path).
+
+The runner exposes the surface the scheduler calls: ``page_allocator``,
+``req_pool``, ``max_context_len``, ``max_running_requests``,
+``model_config``, ``step_packed`` / ``step_packed_raw`` (with chained
+``prev_tokens``), ``step_host`` and ``read_results``. A step decodes the
+two packed host vectors of ``HostBatch.pack()`` (one host->device copy
+each), runs the model over the shared KV pool (updated in place: prefill
+and decode are two shapes of one step on one pool), samples on the device
+and returns device tensors without waiting for them. ``read_results``
+brings a whole flush of steps back in one device->host copy.
+
+The step runs eagerly; CUDA graphs per decode bucket are ROADMAP A6b.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from semi_pd_tpu_torch.config.model_config import ModelConfig
+from semi_pd_tpu_torch.config.server_args import ServerArgs
+from semi_pd_tpu_torch.mem.pool import KVCache, KVCacheSpec, PageAllocator, ReqToPagePool
+from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
+from semi_pd_tpu_torch.ops.sampling import SamplingArrays, compute_logprobs, sample
+from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, ForwardArrays, ForwardMode
+
+logger = logging.getLogger(__name__)
+
+ARCHITECTURES = ("LlamaForCausalLM",)
+
+
+def resolve_device(device: Optional[str]) -> torch.device:
+    """The step device: "cuda" unless the caller passes "cpu". No quiet
+    fallback: asking for CUDA without a GPU raises."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "semi_pd_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain CPU path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class ModelRunner:
+    def __init__(
+        self,
+        server_args: ServerArgs,
+        model_config: ModelConfig,
+        device: Optional[str] = None,
+    ):
+        self.server_args = server_args
+        self.device = resolve_device(device or server_args.device)
+        if model_config.architecture not in ARCHITECTURES:
+            raise NotImplementedError(
+                f"{model_config.architecture}: this slice serves {ARCHITECTURES}; "
+                f"other families are ROADMAP A12-A14")
+        if server_args.context_length:
+            model_config.context_length = server_args.context_length
+        self.model_config = model_config
+        self.model = LlamaForCausalLM(model_config, device=self.device)
+        self.model.page_size = server_args.page_size
+        self._load_weights()
+        self._init_memory_pool()
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(server_args.seed)
+        self._chain_tokens = None  # last decode step's device tokens
+        # steps run, by the attention route they took (T == B: decode)
+        self.step_counts = {"decode": 0, "extend": 0}
+
+    # ------------------------------------------------------------- weights
+    def _load_weights(self) -> None:
+        t0 = time.monotonic()
+        if self.server_args.model_path and not self.server_args.random_weights:
+            raise NotImplementedError("checkpoint loading is ROADMAP A13; use "
+                                      "random_weights or load_jax_params")
+        self.model.init_params(self.server_args.seed)
+        self.weight_bytes = sum(p.numel() * p.element_size()
+                                for p in self.model.parameters())
+        logger.info("weights ready: %.2f GiB in %.1fs", self.weight_bytes / 2**30,
+                    time.monotonic() - t0)
+
+    # ------------------------------------------------------------- memory
+    def _init_memory_pool(self) -> None:
+        args, mc = self.server_args, self.model_config
+        page_size = args.page_size
+        kv_dtype = (DTYPES[mc.dtype] if args.kv_cache_dtype == "auto"
+                    else DTYPES[args.kv_cache_dtype])
+        num_tokens = args.max_total_tokens or self._profile_kv_tokens(kv_dtype)
+        num_pages = max(num_tokens // page_size, 8) + 1  # +1 dump page
+        max_context = min(mc.context_length, num_tokens)
+        self.max_running_requests = args.max_running_requests or min(
+            max(num_tokens // 512, 16), 512)
+        self.kv_spec = KVCacheSpec(
+            num_layers=mc.num_hidden_layers, num_pages=num_pages,
+            page_size=page_size, num_kv_heads=mc.num_kv_heads_total,
+            head_dim=mc.kv_head_dim, dtype=kv_dtype,
+        )
+        self.kv_cache = KVCache(self.kv_spec, self.device)
+        self.page_allocator = PageAllocator(num_pages, page_size)
+        self.req_pool = ReqToPagePool(self.max_running_requests, max_context, page_size)
+        self.max_context_len = max_context
+        logger.info("KV pool: %d pages x %d tokens (%.2f GiB, %s), max_running=%d",
+                    num_pages, page_size, self.kv_spec.bytes_total() / 2**30,
+                    kv_dtype, self.max_running_requests)
+
+    def _profile_kv_tokens(self, kv_dtype: torch.dtype) -> int:
+        """Size the KV pool from free device memory."""
+        mc = self.model_config
+        per_token = (mc.num_hidden_layers * mc.num_kv_heads_total * mc.kv_head_dim
+                     * torch.tensor([], dtype=kv_dtype).element_size() * 2)
+        if self.device.type != "cuda":
+            return 32768  # CPU: a small pool for tests
+        free, _ = torch.cuda.mem_get_info(self.device)
+        frac = self.server_args.mem_fraction_static or 0.9
+        return max(int(free * frac // per_token), 4096)
+
+    # ------------------------------------------------------------- step
+    def _step(self, fb: ForwardArrays) -> Tuple[torch.Tensor, torch.Tensor]:
+        with torch.inference_mode():
+            logits = self.model(fb, self.kv_cache.buffer)
+            tokens = sample(logits, fb.sampling, self.generator, fb.all_greedy)
+            logprobs = compute_logprobs(logits, tokens)
+        self.step_counts["decode" if fb.input_ids.shape[0] == fb.kv_lens.shape[0]
+                         else "extend"] += 1
+        return tokens, logprobs
+
+    def _unpack_fb(self, ints: torch.Tensor, floats: torch.Tensor, T: int, B: int,
+                   maxP: int, NQB: int, num_reqs: int, all_greedy: bool,
+                   input_override: Optional[torch.Tensor] = None) -> ForwardArrays:
+        """Inverse of HostBatch.pack(): static-offset slices (views)."""
+        o = [0]
+
+        def take(n):
+            a = ints[o[0] : o[0] + n]
+            o[0] += n
+            return a
+
+        input_ids = take(T)
+        q_req_idx = take(T)
+        q_pos = take(T)
+        out_slots = take(T)
+        page_table = take(B * maxP).reshape(B, maxP)
+        kv_lens = take(B)
+        logits_idx = take(B)
+        q_lens = take(B)
+        q_start = take(B)
+        block_seq = take(NQB)
+        block_row = take(NQB)
+        block_qofs = take(NQB)
+        top_k = take(B)
+        f = [floats[i * B : (i + 1) * B] for i in range(6)]
+        if input_override is not None:
+            input_ids = input_override
+        return ForwardArrays(
+            input_ids=input_ids, q_req_idx=q_req_idx, q_pos=q_pos,
+            out_slots=out_slots, page_table=page_table, kv_lens=kv_lens,
+            logits_idx=logits_idx,
+            sampling=SamplingArrays(
+                temperature=f[0], top_k=top_k, top_p=f[1], min_p=f[2],
+                presence_penalty=f[3], frequency_penalty=f[4],
+                repetition_penalty=f[5],
+            ),
+            num_reqs=num_reqs,
+            attn_meta=AttnMeta(q_lens=q_lens, q_start=q_start, block_seq=block_seq,
+                               block_row=block_row, block_qofs=block_qofs),
+            all_greedy=all_greedy,
+        )
+
+    def step_packed(self, hb, prev_tokens=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Hot-loop step: two host->device copies total (the packed int and
+        float vectors of HostBatch.pack()). ``prev_tokens`` chains the
+        previous decode step's on-device tokens as this step's inputs
+        (overlap scheduling). Returns device (tokens [B] i32, logprobs [B]
+        f32); does not wait for the device."""
+        return self.step_packed_raw(
+            *hb.pack(), chained=prev_tokens is not None, prev_tokens=prev_tokens,
+            is_decode=hb.mode == ForwardMode.DECODE,
+        )
+
+    def step_packed_raw(self, ints_np: np.ndarray, floats_np: np.ndarray, shapes,
+                        chained: bool = False, prev_tokens=None,
+                        is_decode: bool = False):
+        T, B, maxP, NQB = shapes
+        num_reqs = int(ints_np[-1])
+        all_greedy = bool(np.all(floats_np[:num_reqs] <= 0.0))  # temperatures
+        ints = torch.from_numpy(ints_np).to(self.device, non_blocking=True)
+        floats = torch.from_numpy(floats_np).to(self.device, non_blocking=True)
+        if chained and prev_tokens is None:
+            prev_tokens = self._chain_tokens
+        fb = self._unpack_fb(ints, floats, T, B, maxP, NQB, num_reqs, all_greedy,
+                             input_override=prev_tokens if chained else None)
+        tok, lp = self._step(fb)
+        if is_decode:
+            self._chain_tokens = tok
+        return tok, lp
+
+    def step_host(self, hb, vocab_mask=None, penalties=None):
+        """Host-batch dispatch (one copy per array). Grammar masks and
+        penalties are ROADMAP A10."""
+        if vocab_mask is not None or penalties is not None:
+            raise NotImplementedError("vocab masks and penalties are ROADMAP A10")
+        tok, lp = self._step(hb.to_device(self.device))
+        if hb.mode == ForwardMode.DECODE:
+            self._chain_tokens = tok
+        return tok, lp
+
+    def read_results(self, toks: List[torch.Tensor], lps: List[torch.Tensor],
+                     want_logprobs: bool = True):
+        """Read back N steps' (tokens, logprobs) in ONE device->host copy.
+        Returns (list of np token vectors, list of np logprob vectors or
+        Nones)."""
+        lens = [int(t.shape[0]) for t in toks]
+        flat_t = torch.cat([t.to(torch.int32) for t in toks])
+        if want_logprobs:
+            flat_l = torch.cat([l.float() for l in lps]).view(torch.int32)
+            flat = torch.cat([flat_t, flat_l]).cpu().numpy()
+            ti, li = flat[: sum(lens)], flat[sum(lens):].view(np.float32)
+        else:
+            ti, li = flat_t.cpu().numpy(), None
+        out_t, out_l, o = [], [], 0
+        for n in lens:
+            out_t.append(ti[o : o + n])
+            out_l.append(li[o : o + n] if li is not None else None)
+            o += n
+        return out_t, out_l

@@ -1,0 +1,770 @@
+"""Continuous-batching scheduler with phase-wise disaggregated computation
+(trimmed copy of semi_pd_tpu/runtime/scheduler.py).
+
+The three semi-PD mechanisms, as the JAX package derives them:
+
+1. **Compute isolation as a cadence guarantee.** Every semi-PD tick
+   dispatches the decode step first, then at most one prefill chunk whose
+   size is bounded by an allowance banked from elapsed decode time
+   (``_prefill_chunk_budget``); a measured per-token prefill cost model
+   (EWMA) converts the time allowance into tokens.
+2. **Unified storage.** Prefill and decode are two shapes of one step over
+   the same KV pool and weights (runtime/model_runner.py).
+3. **Decode-owned admission.** PrefillAdder runs against the allocator
+   decode uses; slots and pages are allocated before the prefill step is
+   dispatched; retracted decodes re-queue at the head; finished prefills
+   join the running batch in FIFO order.
+
+Colocated mode (enable_semi_pd=False) is the inherited SGLang loop: a
+prefill batch runs whenever one can form and may stall decode.
+
+Kept from the JAX scheduler: both ticks, the in-flight ring with its
+split flush, chained decode, cost accounting, adaptive ring depth,
+``_prefill_chunk_budget``, radix prefix reuse, retraction and
+``check_memory``. Not in this slice: HiCache (ROADMAP A15), speculation
+(A11), grammar masks, jump-forward, penalties, top-k logprobs and logit
+processors (A10) — requests needing them are refused at ``add_request`` —
+and DP-attention partitions (A15).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from semi_pd_tpu_torch.config.server_args import ServerArgs
+from semi_pd_tpu_torch.mem.chunk_cache import ChunkCache
+from semi_pd_tpu_torch.mem.radix_cache import RadixCache
+from semi_pd_tpu_torch.runtime.batch import (
+    HostBatch,
+    build_decode_batch,
+    build_extend_batch,
+)
+from semi_pd_tpu_torch.runtime.forward_batch import ForwardMode
+from semi_pd_tpu_torch.runtime.req import FinishReason, Req
+from semi_pd_tpu_torch.runtime.schedule_policy import PrefillAdder, sort_waiting_queue
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class _RingEntry:
+    """One dispatched step awaiting readback (see Scheduler._ring)."""
+
+    kind: str  # "decode" | "extend"
+    hb: HostBatch
+    tokens: object  # device [B] i32
+    logprobs: object  # device [B] f32
+    epochs: List[int]
+    admitted: Optional[List[Tuple[Req, int]]] = None  # extend only
+    done_flags: Optional[List[bool]] = None  # extend only: prompt completed
+    t_dispatch: float = 0.0
+
+
+def unsupported_reason(req: Req) -> Optional[str]:
+    """Why this slice cannot serve ``req`` as asked, or None."""
+    sp = req.sampling_params
+    if sp.needs_penalties:
+        return "frequency/presence/repetition penalties are ROADMAP A10"
+    if sp.needs_grammar:
+        return "grammar-constrained decoding (json_schema/regex/ebnf/structural_tag) is ROADMAP A10"
+    if sp.custom_logit_processor is not None:
+        return "custom logit processors are ROADMAP A10"
+    if req.top_logprobs_num:
+        return "top_logprobs are ROADMAP A10"
+    return None
+
+
+class Scheduler:
+    def __init__(self, server_args: ServerArgs, runner):
+        self.args = server_args
+        self.runner = runner
+        self.page_size = server_args.page_size
+
+        self.waiting: deque[Req] = deque()
+        self.running: List[Req] = []
+        self.reqs_by_rid: Dict[str, Req] = {}
+
+        alloc = runner.page_allocator
+        if server_args.disable_radix_cache:
+            self.tree_cache = ChunkCache(self.page_size, alloc.free)
+        else:
+            self.tree_cache = RadixCache(self.page_size, alloc.free)
+
+        # Bucket tables
+        self.t_buckets = server_args.prefill_token_buckets
+        self.b_buckets = server_args.decode_bs_buckets
+        maxp = runner.req_pool.max_pages_per_req
+        self.p_buckets = []
+        p = 8
+        while p < maxp:
+            self.p_buckets.append(p)
+            p *= 4
+        self.p_buckets.append(maxp)
+
+        # Cost model for semi-PD chunk sizing (EWMA, seconds). Prefill cost
+        # is affine: chunk_time = overhead + cost_per_token * n.
+        self._prefill_cost_per_token = 50e-6
+        self._prefill_overhead = 3e-3
+        self._decode_cost = 5e-3
+        self._readback_cost = 5e-3
+        # Banked prefill interference allowance (seconds), seeded at one
+        # chunk overhead
+        self._prefill_deficit = self._prefill_overhead
+        self._now = time.monotonic  # injectable clock
+        self._last_budget_t = self._now()
+        self._recent_prefill_time = 0.0
+        # Full wall time of a decode-only flush cycle INCLUDING the readback
+        # wait (with asynchronous dispatch the device executes during it)
+        self._cycle_base = 30e-3
+        # Slew-limited EWMA: one stalled cycle moves an estimate at most
+        # 2x / 0.5x
+        self._ewma = lambda old, new: 0.8 * old + 0.2 * min(
+            max(new, 0.5 * old), 2.0 * old
+        )
+
+        # In-flight step ring: dispatched steps whose results have not been
+        # read back. Decode step N+1 is dispatched chained to step N's
+        # still-on-device tokens, and results are read in ONE device->host
+        # copy every overlap_depth steps.
+        self._ring: List[_RingEntry] = []
+        # Extend entries held across one flush (split flush): their device
+        # work runs under the next blocking readback instead of in it.
+        self._held: List[_RingEntry] = []
+        self._last_decode = None  # (hb, dev_tokens) of newest in-flight decode
+        self._decode_lag = 0  # in-flight decode steps ahead of host kv state
+        self._cycle_t0 = None  # dispatch time of the cycle's first entry
+        self.overlap_depth = max(1, server_args.overlap_depth)
+        self.enable_overlap = not server_args.disable_overlap_schedule
+        if not self.enable_overlap:
+            self.overlap_depth = 1
+        self._depth_floor = self.overlap_depth
+        self._adaptive_depth = (
+            server_args.adaptive_overlap_depth and self.enable_overlap
+        )
+        self._max_stall_s = (
+            server_args.max_stall_ms / 1e3 if server_args.max_stall_ms
+            else 4.0 * server_args.decode_slo_ms / 1e3
+        )
+
+        # Stats
+        self._last_stats_log = time.monotonic()
+        self.n_finished = 0
+        self.n_retracted = 0
+        self.n_cached_prefix_tokens = 0
+        self.n_prefill_tokens = 0
+        self.n_decode_tokens = 0
+
+    # ================================================================ API
+    def add_request(self, req: Req) -> None:
+        reason = unsupported_reason(req)
+        if reason is not None:
+            raise NotImplementedError(f"rid={req.rid}: {reason}")
+        if len(req.input_ids) >= self.runner.max_context_len:
+            if self.args.allow_auto_truncate:
+                keep = self.runner.max_context_len - 1
+                logger.warning(
+                    "rid=%s prompt %d > context %d: truncated to last %d tokens",
+                    req.rid, len(req.input_ids), self.runner.max_context_len, keep)
+                req.input_ids = req.input_ids[-keep:]
+                req.origin_prompt_len = len(req.input_ids)
+            else:
+                req.finish_reason = FinishReason.ABORT
+                return
+        self.reqs_by_rid[req.rid] = req
+        self.waiting.append(req)
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running or self._ring or self._held)
+
+    def drain(self) -> None:
+        """Read back in-flight steps whose requests have all finished."""
+        if (self._ring or self._held) and not (self.running or self.waiting):
+            self._flush_ring()
+
+    # ================================================================ tick
+    def tick(self) -> List[Tuple[Req, int]]:
+        """One scheduler iteration. Returns (req, new_token) pairs produced
+        this tick (token == -1 for non-final prefill chunks)."""
+        now = time.monotonic()
+        if (now - self._last_stats_log > self.args.decode_log_interval
+                and self.running):
+            alloc = self.runner.page_allocator
+            total = alloc.usable_pages
+            used = total - alloc.available_pages()
+            logger.info(
+                "decode stats: #running=%d #queue=%d kv=%.1f%% "
+                "gen=%d prefill=%d cached=%d retracted=%d",
+                len(self.running), len(self.waiting), 100 * used / max(total, 1),
+                self.n_decode_tokens, self.n_prefill_tokens,
+                self.n_cached_prefix_tokens, self.n_retracted,
+            )
+            self._last_stats_log = now
+        if self.args.enable_semi_pd:
+            return self._tick_semi_pd()
+        return self._tick_colocated()
+
+    def _tick_colocated(self) -> List[Tuple[Req, int]]:
+        """Run a prefill batch when one can form, else a decode batch — a
+        long prefill stalls decode for its duration. With enable_mixed_chunk
+        the tick also runs the decode step alongside the chunk."""
+        extend = self._form_extend_batch(self.args.chunked_prefill_size)
+        if extend is not None:
+            out = []
+            if self.args.enable_mixed_chunk and (self.running or self._ring):
+                out += self._run_decode()
+            return out + self._run_extend(extend)
+        if self.running or self._ring:
+            return self._run_decode()
+        return self._flush_ring()
+
+    def _tick_semi_pd(self) -> List[Tuple[Req, int]]:
+        """Decode first (cadence guaranteed), then at most one bounded
+        prefill chunk on the same unified storage."""
+        out = []
+        if self.running or self._ring:
+            out += self._run_decode()
+
+        budget = self._prefill_chunk_budget()
+        extend = self._form_extend_batch(budget) if budget > 0 else None
+        if extend is not None:
+            self._note_prefill_dispatch(sum(n for _, n in extend))
+            out += self._run_extend(extend)
+        if not out and not extend and self._held and not (
+                self.running or self._ring):
+            out += self._flush_ring()  # held extends are the only work left
+        return out
+
+    def _prefill_chunk_budget(self) -> int:
+        """Tokens of prefill allowed NOW (0 = skip prefill this tick and keep
+        banking allowance). The allowance accrues as a fraction of elapsed
+        pure-decode wall time, bounded by the cycle-stretch and SLO bounds,
+        ramping toward the prefill share under queue pressure, and is spent
+        only on chunks worth their fixed overhead (see the JAX scheduler's
+        docstring of the same method for the derivation)."""
+        if self.args.prefill_chunk_budget_tokens:
+            return min(
+                self.args.prefill_chunk_budget_tokens, self.args.chunked_prefill_size
+            )
+        if not self.running:
+            self._last_budget_t = self._now()
+            return self.args.chunked_prefill_size
+        depth = max(self.overlap_depth, 1)
+        per_tick_pure = max(self._cycle_base / depth, 1e-6)
+        now = self._now()
+        dt = min(max(now - self._last_budget_t, 0.0), 1.0)
+        self._last_budget_t = now
+        dt_pure = max(dt - self._recent_prefill_time, 0.0)
+        self._recent_prefill_time = 0.0
+        share = self.args.semi_pd_prefill_share
+        base_frac = max(self.args.semi_pd_max_cycle_stretch - 1.0, 0.0)
+        cap_frac = share / max(1.0 - share, 0.05)
+        slo_cycle = self.args.decode_slo_ms / 1e3 * depth
+        slo_slack = ((slo_cycle - self._cycle_base) / depth) * share
+        slo_frac = slo_slack / per_tick_pure
+        if slo_slack > 0:
+            frac = min(base_frac, max(slo_frac, 0.25 * base_frac))
+            relief_cap = min(cap_frac, max(slo_frac, base_frac))
+        else:
+            frac = base_frac
+            relief_cap = cap_frac
+        if self.waiting:
+            head_age = now - min(
+                r.queue_time for r in list(self.waiting)[:8])
+            relief_s = self.args.semi_pd_queue_relief_ms / 1e3
+            ramp = min(max((head_age - relief_s) / relief_s, 0.0), 1.0)
+            frac = frac + (max(relief_cap, frac) - frac) * ramp
+        hidden_frac = (
+            self._readback_cost / max(self._cycle_base, 1e-6)
+            if self.enable_overlap else 0.0
+        )
+        grace_frac = (
+            self.args.semi_pd_stretch_grace_ms / 1e3
+            / max(self._cycle_base, 1e-6)
+        )
+        allow = (frac + hidden_frac + grace_frac) * dt_pure
+        cost = max(self._prefill_cost_per_token, 1e-9)
+        bank_cap = (
+            self._prefill_overhead
+            + self.args.chunked_prefill_size * cost
+        )
+        self._prefill_deficit = min(self._prefill_deficit + allow, bank_cap)
+        ovh = min(self._prefill_overhead, 0.5 * self._prefill_deficit)
+        tokens = int((self._prefill_deficit - ovh) / cost)
+        tokens = (tokens // self.page_size) * self.page_size
+        min_tokens = max(
+            self.page_size,
+            min(
+                int(self.args.semi_pd_min_chunk_duty * self._prefill_overhead
+                    / cost) // self.page_size * self.page_size,
+                self.args.chunked_prefill_size,
+            ),
+        )
+        if self.waiting:
+            # a chunk that FINISHES a waiting prompt is worth dispatching
+            # below the duty floor
+            head_need = min(
+                max(r.prompt_len - r.prefilled_len, 1)
+                for r in list(self.waiting)[:8]
+            )
+            head_need = -(-head_need // self.page_size) * self.page_size
+            min_tokens = min(min_tokens, head_need)
+        if tokens < min_tokens:
+            return 0  # keep banking
+        return min(tokens, self.args.chunked_prefill_size)
+
+    def _note_prefill_dispatch(self, n_tokens: int) -> None:
+        """Spend the banked allowance for a dispatched chunk."""
+        if not self.running:
+            return  # free chunk: no decode cadence was at stake
+        spent = self._prefill_overhead + n_tokens * self._prefill_cost_per_token
+        self._prefill_deficit = max(0.0, self._prefill_deficit - spent)
+        self._recent_prefill_time += spent
+
+    # ================================================================ prefill
+    def _form_extend_batch(self, token_budget: int) -> Optional[List[Tuple[Req, int]]]:
+        if not self.waiting or token_budget <= 0:
+            return None
+        ordered = sort_waiting_queue(
+            self.args.schedule_policy, list(self.waiting), self.tree_cache
+        )
+        adder = PrefillAdder(
+            self.runner.page_allocator,
+            self.runner.req_pool,
+            token_budget,
+            self.page_size,
+            self.running,
+            retract_headroom_tokens=self.args.retract_decode_steps
+            * max(len(self.running), 1),
+            max_batch_rows=min(64, self.runner.max_running_requests),
+        )
+        admitted: List[Tuple[Req, int]] = []
+        for req in ordered:
+            if len(self.running) + len(admitted) >= self.runner.max_running_requests:
+                break
+            prefix_pages = self._attach_prefix(req)
+            n = adder.try_add(req, prefix_pages)
+            if n is None:
+                continue
+            admitted.append((req, n))
+        if not admitted:
+            return None
+        # Allocate slots + pages NOW (decode-owned pre-allocation)
+        final: List[Tuple[Req, int]] = []
+        for req, n in admitted:
+            if self._allocate_for_extend(req, n):
+                self.waiting.remove(req)
+                final.append((req, n))
+        return final or None
+
+    def _attach_prefix(self, req: Req) -> int:
+        """First-time admission: radix prefix reuse."""
+        if req.req_slot is not None or req.prefilled_len > 0 or req.pages:
+            return len(req.pages)
+        pages, node = self.tree_cache.match_prefix(req.input_ids)
+        # leave >= 1 uncached token to produce logits
+        max_pages = (req.prompt_len - 1) // self.page_size
+        n = min(len(pages), max_pages)
+        if n > 0:
+            req.pages = pages[:n].tolist()
+            req.n_prefix_pages = n
+            req.prefilled_len = n * self.page_size
+            req.last_node = node
+            req.cached_tokens = req.prefilled_len
+            self.tree_cache.inc_lock_ref(node)
+            self.n_cached_prefix_tokens += req.prefilled_len
+        else:
+            req.last_node = node
+        return n
+
+    def _allocate_for_extend(self, req: Req, n_tokens: int) -> bool:
+        if req.req_slot is None:
+            slot = self.runner.req_pool.alloc()
+            if slot is None:
+                return False
+            req.req_slot = slot
+            if req.pages:
+                self.runner.req_pool.write(
+                    slot, 0, np.asarray(req.pages, dtype=np.int32)
+                )
+        target_kv = req.prefilled_len + n_tokens
+        need = (
+            target_kv + self.page_size - 1
+        ) // self.page_size - len(req.pages)
+        if need > 0:
+            pages = self._alloc_pages(need)
+            if pages is None:
+                return False
+            self.runner.req_pool.write(req.req_slot, len(req.pages), pages)
+            req.pages.extend(pages.tolist())
+        return True
+
+    def _run_extend(self, admitted: List[Tuple[Req, int]]) -> List[Tuple[Req, int]]:
+        """Dispatch a prefill/extend step onto the in-flight ring."""
+        hb = build_extend_batch(
+            admitted,
+            self.runner.req_pool.page_table,
+            self.page_size,
+            self.t_buckets,
+            self.b_buckets,
+            self.p_buckets,
+        )
+        tokens, logprobs = self.runner.step_packed(hb)
+        self._note_dispatch()
+        self.n_prefill_tokens += sum(n for _, n in admitted)
+
+        # Chunked requests go back to the queue head at dispatch time so the
+        # next chunk can dispatch before this one's results are read.
+        done_flags = []
+        for req, n in admitted:
+            req.prefilled_len += n
+            done = req.prefilled_len >= req.prompt_len
+            done_flags.append(done)
+            if not done:
+                self.waiting.appendleft(req)
+        entry = _RingEntry(
+            kind="extend", hb=hb, tokens=tokens, logprobs=logprobs,
+            epochs=[r.epoch for r, _ in admitted], admitted=list(admitted),
+            done_flags=done_flags,
+        )
+        return self._push_entry(entry)
+
+    def _process_extend_entry(
+        self, e: _RingEntry, tokens: np.ndarray, logprobs: Optional[np.ndarray]
+    ) -> List[Tuple[Req, int]]:
+        out = []
+        for i, ((req, _n), done) in enumerate(zip(e.admitted, e.done_flags)):
+            if req.epoch != e.epochs[i]:
+                continue
+            if not done:
+                out.append((req, -1))
+                continue
+            tok = int(tokens[i])
+            req.output_ids.append(tok)
+            if req.return_logprob and logprobs is not None:
+                req.output_logprobs.append(float(logprobs[i]))
+            if req.first_token_time is None:
+                req.first_token_time = time.monotonic()
+            req.check_finished()
+            if req.finished:
+                self._release_finished(req)
+            else:
+                self.running.append(req)
+            out.append((req, tok))
+        return out
+
+    # ================================================================ ring
+    def _note_dispatch(self) -> None:
+        if self._cycle_t0 is None:
+            self._cycle_t0 = time.monotonic()
+
+    def _push_entry(self, e: _RingEntry) -> List[Tuple[Req, int]]:
+        """Append to the in-flight ring, flushing first if the ring is at
+        depth. Returns tokens produced by the flush (possibly none)."""
+        out = []
+        e.t_dispatch = time.monotonic()
+        if len(self._ring) >= self._ring_target():
+            out = self._flush_ring(hold_extends=True)
+            self._note_dispatch()
+            if e.kind == "decode":
+                # e was chained before the flush and stays in flight
+                self._last_decode = (e.hb, e.tokens)
+                self._decode_lag = 1
+        self._ring.append(e)
+        return out
+
+    def _flush_ring(self, hold_extends: bool = False) -> List[Tuple[Req, int]]:
+        """Read back in-flight steps in ONE device->host copy and process the
+        results in dispatch order. With hold_extends, this cycle's extend
+        entries are held for the next flush (split flush)."""
+        if not (self._ring or self._held):
+            return []
+        ring, self._ring = self._ring, []
+        entries = self._held + ring
+        self._held = []
+        if hold_extends:
+            tail = [e for e in ring if e.kind == "extend"]
+            if tail and len(tail) < len(entries):
+                self._held = tail
+                held_ids = {id(e) for e in tail}
+                entries = [e for e in entries if id(e) not in held_ids]
+        self._last_decode = None
+        self._decode_lag = 0
+        t_read0 = time.monotonic()
+        want_lps = any(r.return_logprob for e in entries for r in e.hb.reqs)
+        toks_np, lps_np = self.runner.read_results(
+            [e.tokens for e in entries], [e.logprobs for e in entries],
+            want_logprobs=want_lps,
+        )
+        now = time.monotonic()
+        self._readback_cost = self._ewma(self._readback_cost, now - t_read0)
+        if self._cycle_t0 is not None:
+            self._account_costs(entries, now - self._cycle_t0)
+        self._cycle_t0 = None
+        self._adapt_depth()
+        out = []
+        for e, t_np, l_np in zip(entries, toks_np, lps_np):
+            if e.kind == "decode":
+                out += self._process_decode_entry(e, t_np, l_np)
+            else:
+                out += self._process_extend_entry(e, t_np, l_np)
+        return out
+
+    def _account_costs(self, entries: List[_RingEntry], dt: float) -> None:
+        """Attribute a flush cycle's full wall time to the cost EWMAs that
+        drive the semi-PD chunk budget: decode-only cycles set the cycle
+        base; mixed cycles' surplus over it is the (affine) prefill cost."""
+        if dt <= 0:
+            return
+        n_dec = sum(1 for e in entries if e.kind == "decode")
+        exts = [e for e in entries if e.kind == "extend"]
+        pre_toks = sum(sum(n for _, n in e.admitted) for e in exts)
+        if n_dec and not pre_toks:
+            depth = max(self.overlap_depth, 1)
+            scaled = dt * depth / max(n_dec, 1)
+            self._cycle_base = self._ewma(self._cycle_base, scaled)
+            self._decode_cost = self._ewma(
+                self._decode_cost,
+                max(dt - self._readback_cost, 1e-4) / max(n_dec, 1),
+            )
+            self._adapt_depth()
+            return
+        if not exts:
+            return
+        base = self._cycle_base * n_dec / max(self.overlap_depth, 1)
+        est = dt - base
+        if est <= 0:
+            return
+        if pre_toks / len(exts) >= 256:
+            slope = (est - len(exts) * self._prefill_overhead) / pre_toks
+            if slope > 0:
+                self._prefill_cost_per_token = self._ewma(
+                    self._prefill_cost_per_token, slope
+                )
+        elif not n_dec:
+            # overhead only from pure-extend cycles
+            ovh = (est - self._prefill_cost_per_token * pre_toks) / len(exts)
+            self._prefill_overhead = self._ewma(
+                self._prefill_overhead, max(ovh, 0.0)
+            )
+
+    def _adapt_depth(self) -> None:
+        """Re-size the in-flight ring toward ceil(readback / step), capped by
+        the stall bound and max_overlap_depth, slew-limited to 2x."""
+        if not self._adaptive_depth:
+            return
+        step = max(self._decode_cost, 1e-5)
+        want = -(-self._readback_cost // step)  # ceil
+        stall_cap = (self._max_stall_s - self._readback_cost) / step
+        want = min(want, stall_cap, float(self.args.max_overlap_depth),
+                   2.0 * self.overlap_depth)
+        floor = min(self._depth_floor, self.args.max_overlap_depth)
+        self.overlap_depth = max(int(want), floor, 1)
+
+    def _ring_target(self) -> int:
+        """Flush threshold: the adaptive depth, capped by the most decode
+        tokens any running request still needs."""
+        d = max(self.overlap_depth, 1)
+        if self.running:
+            rem = max(
+                (r.sampling_params.max_new_tokens or d) - len(r.output_ids)
+                for r in self.running
+            )
+            d = max(1, min(d, rem))
+        return d
+
+    # ================================================================ decode
+    def _run_decode(self) -> List[Tuple[Req, int]]:
+        """When the running batch is unchanged since the newest in-flight
+        decode, dispatch the NEXT step chained to its on-device tokens;
+        otherwise flush, then dispatch fresh from host state."""
+        chained = self._try_dispatch_chained() if self.enable_overlap else None
+        if chained is not None:
+            return self._push_entry(chained)
+        out = self._flush_ring()
+        if self.running:
+            e = self._dispatch_decode()
+            if e is not None:
+                self._note_dispatch()
+                e.t_dispatch = time.monotonic()
+                self._ring.append(e)
+        return out
+
+    def _dispatch_decode(self) -> Optional[_RingEntry]:
+        """Build + dispatch a decode step from host state. Called with the
+        ring flushed."""
+        if not self._prepare_decode_pages(lag=0):
+            return None
+        hb = build_decode_batch(
+            self.running,
+            self.runner.req_pool.page_table,
+            self.page_size,
+            self.b_buckets,
+            self.p_buckets,
+        )
+        tokens, logprobs = self.runner.step_packed(hb)
+        self._last_decode = (hb, tokens)
+        self._decode_lag = 1
+        return _RingEntry(
+            kind="decode", hb=hb, tokens=tokens, logprobs=logprobs,
+            epochs=[r.epoch for r in hb.reqs],
+        )
+
+    def _try_dispatch_chained(self) -> Optional[_RingEntry]:
+        """Dispatch step N+1 with step N's device tokens as inputs, when the
+        batch is provably identical. ``lag`` is the number of in-flight
+        decode steps this batch is ahead of host state."""
+        if self._last_decode is None or not self.running:
+            return None
+        hb_prev, dev_tokens = self._last_decode
+        if hb_prev.mode != ForwardMode.DECODE or hb_prev.reqs != self.running:
+            return None
+        lag = self._decode_lag
+        if not self._prepare_decode_pages(lag=lag, allow_retract=False):
+            return None
+        hb = build_decode_batch(
+            self.running,
+            self.runner.req_pool.page_table,
+            self.page_size,
+            self.b_buckets,
+            self.p_buckets,
+            lag=lag,
+        )
+        if hb.B != hb_prev.B:
+            return None
+        tokens, logprobs = self.runner.step_packed(hb, prev_tokens=dev_tokens)
+        self._last_decode = (hb, tokens)
+        self._decode_lag = lag + 1
+        return _RingEntry(
+            kind="decode", hb=hb, tokens=tokens, logprobs=logprobs,
+            epochs=[r.epoch for r in hb.reqs],
+        )
+
+    def _process_decode_entry(
+        self, e: _RingEntry, tokens: np.ndarray, logprobs: Optional[np.ndarray]
+    ) -> List[Tuple[Req, int]]:
+        out = []
+        for i, req in enumerate(e.hb.reqs):
+            if req.epoch != e.epochs[i] or req.finished:
+                # finished/aborted/retracted at an earlier in-flight step:
+                # this step's token for it is discarded
+                continue
+            tok = int(tokens[i])
+            req.output_ids.append(tok)
+            self.n_decode_tokens += 1
+            if req.return_logprob and logprobs is not None:
+                req.output_logprobs.append(float(logprobs[i]))
+            req.check_finished()
+            out.append((req, tok))
+            if req.finished:
+                if req in self.running:
+                    self.running.remove(req)
+                self._release_finished(req)
+        return out
+
+    def _prepare_decode_pages(self, lag: int = 0, allow_retract: bool = True) -> bool:
+        """Allocate the page each request needs for its next token; on
+        exhaustion retract newest requests back to waiting."""
+        while self.running:
+            need_idx = [
+                i for i, r in enumerate(self.running)
+                if (r.kv_len + lag) % self.page_size == 0
+                and len(r.pages) * self.page_size <= r.kv_len + lag
+            ]
+            if not need_idx:
+                return True
+            pages = self._alloc_pages(len(need_idx))
+            if pages is not None:
+                for j, i in enumerate(need_idx):
+                    r = self.running[i]
+                    self.runner.req_pool.write(
+                        r.req_slot, len(r.pages), pages[j : j + 1]
+                    )
+                    r.pages.append(int(pages[j]))
+                return True
+            if not allow_retract:
+                return False
+            # Retract the newest request (LIFO — oldest keep making progress).
+            victim = self.running.pop()
+            self._retract(victim)
+            if not self.running:
+                # the whole pool is held by the radix cache: drop it
+                self.tree_cache.evict(10**9)
+        return bool(self.running)
+
+    def _retract(self, req: Req) -> None:
+        self.n_retracted += 1
+        self._free_req_memory(req)
+        req.reset_for_retract()
+        self.waiting.appendleft(req)
+
+    # ================================================================ memory
+    def _alloc_pages(self, n: int) -> Optional[np.ndarray]:
+        alloc = self.runner.page_allocator
+        pages = alloc.alloc(n)
+        if pages is None:
+            self.tree_cache.evict(n - alloc.available_pages())
+            pages = alloc.alloc(n)
+        return pages
+
+    def _free_req_memory(self, req: Req) -> None:
+        """Free owned pages; shared prefix pages return to the tree."""
+        own = req.pages[req.n_prefix_pages :]
+        if own:
+            self.runner.page_allocator.free(np.asarray(own, dtype=np.int32))
+        if req.last_node is not None and req.n_prefix_pages > 0:
+            self.tree_cache.dec_lock_ref(req.last_node)
+        if req.req_slot is not None:
+            self.runner.req_pool.free(req.req_slot)
+        req.pages = []
+        req.n_prefix_pages = 0
+        req.req_slot = None
+        req.last_node = None
+
+    def _release_finished(self, req: Req) -> None:
+        """Finished: re-insert KV into the prefix cache, release the rest."""
+        self.n_finished += 1
+        req.finish_time = time.monotonic()
+        if isinstance(self.tree_cache, ChunkCache):
+            self._free_req_memory(req)
+            return
+        n_full = req.kv_len // self.page_size
+        tokens = req.all_token_ids()[: n_full * self.page_size]
+        pages = np.asarray(req.pages[:n_full], dtype=np.int32)
+        dup, node = self.tree_cache.insert(tokens, pages)
+        # pages[:n_prefix] were always the tree's; pages[n_prefix:dup] are
+        # ours but identical content was inserted meanwhile — free ours
+        if dup > req.n_prefix_pages:
+            self.runner.page_allocator.free(
+                np.asarray(req.pages[req.n_prefix_pages : dup], dtype=np.int32)
+            )
+        tail = req.pages[max(n_full, req.n_prefix_pages) :]
+        if tail:
+            self.runner.page_allocator.free(np.asarray(tail, dtype=np.int32))
+        if req.last_node is not None and req.n_prefix_pages > 0:
+            self.tree_cache.dec_lock_ref(req.last_node)
+        if req.req_slot is not None:
+            self.runner.req_pool.free(req.req_slot)
+        req.pages = []
+        req.n_prefix_pages = 0
+        req.req_slot = None
+        req.last_node = None
+
+    def check_memory(self) -> None:
+        """Idle-state leak check."""
+        if self.running or self.waiting:
+            raise AssertionError("check_memory called with requests in flight")
+        cached = self.tree_cache.total_cached_pages()
+        avail = self.runner.page_allocator.available_pages()
+        total = self.runner.page_allocator.usable_pages
+        if cached + avail != total:
+            raise AssertionError(
+                f"KV page leak: {avail} free + {cached} cached != {total}"
+            )
+        if self.runner.req_pool.available_slots() != self.runner.req_pool.max_reqs:
+            raise AssertionError("req slot leak")

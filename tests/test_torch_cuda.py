@@ -1,0 +1,121 @@
+"""Card-only tests of the port: each CUDA kernel against its plain PyTorch
+version, and the Engine on its default CUDA device against the same Engine
+on the CPU. This file imports no JAX, so it also runs on a machine with a
+GPU and no JAX:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+Without a CUDA device every test skips.
+
+Tolerances: float32 1e-4 (online vs full softmax, another summation order);
+bfloat16 1e-2 (the kernels round P to bf16 before P.V, as the TPU kernels
+do). The softcap of 1.0 bends most scores, whose std is about 1 here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from semi_pd_tpu_torch.config.model_config import ModelConfig
+from semi_pd_tpu_torch.config.server_args import ServerArgs
+from semi_pd_tpu_torch.kernels import KERNELS
+from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
+from semi_pd_tpu_torch.ops.attention import rpa_packed
+from semi_pd_tpu_torch.runtime.engine import Engine
+from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, build_attn_meta
+from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+HQ, HKV, D, PS, L = 8, 2, 64, 16, 2
+CT = 2 * HKV * D // 128
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _unaligned(a: np.ndarray, dev) -> torch.Tensor:
+    """An int32 tensor that is a view at a 4-byte (not 16-byte) offset, as
+    the runner's slices of the packed step vector are."""
+    buf = torch.zeros(a.size + 1, dtype=torch.int32, device=dev)
+    view = buf[1:].view(a.shape)
+    view.copy_(torch.from_numpy(np.ascontiguousarray(a, np.int32)))
+    return view
+
+
+def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0):
+    rng = np.random.default_rng(seed)
+    B = len(kv_lens) + pad_B
+    n_pages = [-(-k // PS) for k in kv_lens]
+    total = sum(n_pages) + 2
+    perm = rng.permutation(np.arange(1, total))
+    pt = np.zeros((B, max(n_pages) + 1), np.int32)
+    used = 0
+    for b, n in enumerate(n_pages):
+        pt[b, :n] = perm[used:used + n]
+        used += n
+    T = sum(q_lens) + pad_T
+    ql = np.zeros(B, np.int32)
+    ql[: len(q_lens)] = q_lens
+    kl = np.zeros(B, np.int32)
+    kl[: len(kv_lens)] = kv_lens
+    pool = torch.from_numpy(rng.normal(size=(L, total * PS, CT, 128)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(T, HQ, D)).astype(np.float32))
+    m = build_attn_meta(ql, kl, T)
+    meta = AttnMeta(*[_unaligned(a.numpy(), dev) for a in m])
+    return (q.to(dev, dtype), pool.to(dev, dtype), _unaligned(pt, dev),
+            _unaligned(kl, dev), meta)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["decode", "extend"])
+@pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
+def test_kernel_matches_plain(cuda_device, kind, dtype, opt):
+    dt = getattr(torch, dtype)
+    if kind == "decode":
+        q, pool, pt, kvl, meta = _case(7, [1] * 6, [33, 0, 260, 9, 77, 1], cuda_device, dt)
+    else:
+        q, pool, pt, kvl, meta = _case(7, [140, 20, 1, 7], [140, 60, 9, 300], cuda_device,
+                                       dt, pad_T=9, pad_B=1)
+    kw = dict(page_size=PS, num_kv_heads=HKV, head_dim=D, scale=0.125,
+              logit_cap=1.0 if opt == "softcap" else None,
+              sliding_window=24 if opt == "window" else None)
+    k = KERNELS["rpa_" + kind]
+    before = k.launches
+    if kind == "decode":
+        out = rpa_packed.ragged_paged_attention_chunked_packed(q, pool, 1, pt, kvl, **kw)
+        ref = rpa_packed.ragged_paged_attention_chunked_packed_plain(q, pool, 1, pt, kvl, **kw)
+    else:
+        out = rpa.ragged_paged_attention_chunked_extend(q, pool, 1, pt, kvl, meta, **kw)
+        ref = rpa.ragged_paged_attention_chunked_extend_plain(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_engine_on_default_cuda_device_matches_cpu(cuda_device):
+    """The Engine with no device argument runs on the card, through both
+    kernels, and gives the greedy tokens of the same Engine on the CPU."""
+    cfg = dict(architecture="LlamaForCausalLM", vocab_size=512, hidden_size=256,
+               intermediate_size=512, num_hidden_layers=2, num_attention_heads=HQ,
+               num_key_value_heads=HKV, head_dim=D, context_length=512,
+               dtype="float32")
+    serve = dict(random_weights=True, page_size=PS, max_total_tokens=2048,
+                 chunked_prefill_size=64, enable_semi_pd=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (20, 100, 37)]
+    sp = SamplingParams(max_new_tokens=6, temperature=0.0, ignore_eos=True)
+    gpu = Engine(ServerArgs(**serve), ModelConfig(**cfg))
+    assert gpu.runner.device.type == "cuda"
+    for k in KERNELS.values():
+        k.launches = 0
+    got = gpu.generate(input_ids=prompts, sampling_params=sp)
+    assert all(k.launches > 0 for k in KERNELS.values())
+    cpu = Engine(ServerArgs(device="cpu", **serve), ModelConfig(**cfg), device="cpu")
+    want = cpu.generate(input_ids=prompts, sampling_params=sp)
+    assert [o["output_ids"] for o in got] == [o["output_ids"] for o in want]
+    assert gpu.flush_cache() and cpu.flush_cache()

@@ -1,0 +1,130 @@
+"""The port's Engine against the JAX Engine on the CPU, and the port's
+isolation rules.
+
+Both engines hold the same weights (the JAX engine's random parameters are
+carried into the port with ``load_jax_params``) and serve the same greedy
+requests: the output token ids must be identical, colocated and semi-PD,
+with a chunked-prefill size below the longest prompt and one prompt that
+hits the radix cache. ``check_memory()`` passes afterwards.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from semi_pd_tpu.config.model_config import ModelConfig as JaxModelConfig
+from semi_pd_tpu.config.server_args import ServerArgs as JaxServerArgs
+from semi_pd_tpu.runtime.engine import Engine as JaxEngine
+from semi_pd_tpu.sampling.sampling_params import SamplingParams as JaxSamplingParams
+
+from semi_pd_tpu_torch.config.model_config import ModelConfig
+from semi_pd_tpu_torch.config.server_args import ServerArgs
+from semi_pd_tpu_torch.runtime.engine import Engine
+from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CFG = dict(architecture="LlamaForCausalLM", vocab_size=512, hidden_size=256,
+           intermediate_size=512, num_hidden_layers=2, num_attention_heads=8,
+           num_key_value_heads=2, head_dim=64, max_position_embeddings=512,
+           context_length=512, rope_theta=10000.0, dtype="float32")
+SERVE = dict(page_size=16, max_total_tokens=2048, chunked_prefill_size=64)
+
+
+def _prompts():
+    rng = np.random.default_rng(0)
+    first = [rng.integers(0, 512, size=n).tolist() for n in (20, 100, 37)]
+    # second wave: shares the first 48 tokens (3 pages) of prompt 1 -> radix hit
+    second = [first[1][:48] + rng.integers(0, 512, size=30).tolist()]
+    return first, second
+
+
+@pytest.mark.parametrize("semi_pd", [False, True], ids=["colocated", "semi_pd"])
+def test_engine_greedy_tokens_match_jax(semi_pd):
+    jeng = JaxEngine(server_args=JaxServerArgs(model_path="", random_weights=True,
+                                               enable_semi_pd=semi_pd, **SERVE),
+                     model_config=JaxModelConfig(**CFG))
+    teng = Engine(ServerArgs(random_weights=True, enable_semi_pd=semi_pd, device="cpu",
+                             **SERVE), ModelConfig(**CFG), device="cpu")
+    teng.runner.model.load_jax_params(jax.tree.map(np.asarray, jeng.runner.params))
+
+    first, second = _prompts()
+    sp = dict(max_new_tokens=6, temperature=0.0, ignore_eos=True)
+    for wave in (first, second):
+        jout = jeng.generate(input_ids=wave, sampling_params=JaxSamplingParams(**sp))
+        tout = teng.generate(input_ids=wave, sampling_params=SamplingParams(**sp),
+                             return_logprob=True)
+        assert [o["output_ids"] for o in tout] == [o["output_ids"] for o in jout]
+        assert [o["meta_info"]["cached_tokens"] for o in tout] == \
+            [o["meta_info"]["cached_tokens"] for o in jout]
+        assert all(len(o["meta_info"]["output_logprobs"]) == 6 for o in tout)
+        assert set(tout[0]) == set(jout[0])
+        assert set(tout[0]["meta_info"]) <= set(jout[0]["meta_info"])
+    assert tout[0]["meta_info"]["cached_tokens"] == 48  # the radix hit
+    info = teng.get_server_info()
+    assert info["is_semi_pd"] == semi_pd and info["finished"] == 4
+    assert teng.flush_cache() and jeng.flush_cache()  # check_memory() inside
+
+
+def test_engine_refuses_unported_sampling():
+    teng = Engine(ServerArgs(random_weights=True, device="cpu", **SERVE),
+                  ModelConfig(**CFG), device="cpu")
+    for kw in ({"repetition_penalty": 1.2}, {"regex": "a+"},
+               {"custom_logit_processor": "logit_bias"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            teng.generate(input_ids=[1, 2, 3], sampling_params=SamplingParams(**kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        teng.generate(input_ids=[1, 2, 3], top_logprobs_num=2)
+    assert teng.flush_cache()
+
+
+def test_engine_without_device_needs_cuda():
+    """Entry points default to CUDA and never fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(ServerArgs(random_weights=True, **SERVE), ModelConfig(**CFG))
+    from semi_pd_tpu_torch.runtime.model_runner import ModelRunner
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelRunner(ServerArgs(random_weights=True, **SERVE), ModelConfig(**CFG))
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def test_port_imports_no_jax(target):
+    """No file of the port, and not chip_smoke.py, imports jax or anything
+    of the JAX package."""
+    files = (sorted((ROOT / "semi_pd_tpu_torch").rglob("*.py")) if target == "package"
+             else [ROOT / "chip_smoke.py"])
+    assert files
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "semi_pd_tpu"), f"{f}: imports {mod}"
+
+
+def test_kernel_registry_and_sources():
+    """Both main-path kernels are registered with a source in the checkout,
+    the TPU kernel they replace, and a launch count that starts at 0."""
+    from semi_pd_tpu_torch.kernels import KERNELS
+    import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
+
+    assert set(KERNELS) == {"rpa_decode", "rpa_extend"}
+    for k in KERNELS.values():
+        assert k.source.exists() and k.source.suffix == ".cu"
+        path, line = k.replaces.split()[0].split(":")
+        assert (ROOT / path).exists() and int(line) > 0
+        assert "sm_90a" in " ".join(k.flags())
+    assert "EXTEND_QBLK=128" in " ".join(KERNELS["rpa_extend"].flags())

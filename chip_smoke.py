@@ -7,22 +7,28 @@ It imports nothing of JAX or of the JAX package. Phases, one result line
 each (any failure raises and exits non-zero):
 
 1. setup   — the card, the toolchain, and the build of every CUDA kernel
-             from semi_pd_tpu_torch/csrc/ (one nvcc per source, in parallel).
+             from semi_pd_tpu_torch/csrc/ (one nvcc per kernel, in parallel).
 2. kernels — each kernel's wrapper on the card against its plain PyTorch
-             version on the same inputs, at main-path geometry (Hq 32, Hkv 8,
-             D 64, page 16, pool [L, S, 8, 128]), with its time, the plain
-             version's time, one PyTorch library call's time
-             (scaled_dot_product_attention over pre-gathered dense KV, a
-             yardstick the port never calls) and the least time the card
-             could take (bytes or operations over the card's peak rates).
-3. model   — the full-width Llama-3.2-1B-class model (random weights, seed
-             0, 131072-token pool): one extend step and two decode steps
-             through the kernels, against the same layers run with the plain
-             attention functions.
+             version on the same inputs, at the geometry of its path (Hq 32,
+             Hkv 8, page 16; chunked pool [1, S, 8, 128] at D 64, aligned
+             pool [1, 2, S, 8, 128] at D 128 with bf16, float32 and fp8 KV),
+             with its time, the plain version's time, one PyTorch library
+             call's time (scaled_dot_product_attention over pre-gathered
+             dense KV, upcast to bf16 for fp8 KV; a yardstick the port never
+             calls) and the least time the card could take (bytes or
+             operations over the card's peak rates).
+3. model   — the full-width models (random weights drawn on the card, seed
+             0, 131072-token pool): the Llama-3.2-1B-class model on the
+             chunked pool, and the Meta-Llama-3-8B geometry on the aligned
+             pool with bf16 KV, then with fp8_e4m3 KV. One extend step and
+             two decode steps each through the kernels, against the same
+             layers run with the plain attention functions.
 4. serve   — the Engine with the bench's server settings serves 32 greedy
              requests (prompts 256-3072 tokens, 64 new tokens each),
-             colocated and semi-PD; every launch counter is set to 0 just
-             before each mode and read just after.
+             colocated and semi-PD, with the 1B-class model (chunked pool)
+             and with the 8B model and fp8_e4m3 KV (aligned pool); every
+             launch counter is set to 0 just before each mode and read just
+             after, and only the path's own two kernels may have launched.
 
 Then one JSON line listing the kernels, the nvidia-smi name/power-limit line,
 and the result line {"ok": true, "device": {...}}.
@@ -30,6 +36,7 @@ and the result line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -39,9 +46,9 @@ import time
 
 import numpy as np
 
-HQ, HKV, D, PAGE = 32, 8, 64, 16
-CT = 2 * HKV * D // 128
-SCALE = D ** -0.5
+HQ, HKV, PAGE = 32, 8, 16
+# head_dim of each pool's path: the 1B-class model's and Llama-3-8B's
+HEAD_DIM = {"chunked": 64, "aligned": 128}
 
 # H100 SXM5 80GB dense peaks (NVIDIA H100 Tensor Core GPU data sheet):
 # HBM3 bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor
@@ -50,7 +57,9 @@ PEAKS = (3.35e12, 989e12, 67e12)
 
 # Kernel vs plain version: float32 differs only in summation order (online
 # vs full softmax); bf16 also rounds P to bf16 before P.V, as the TPU
-# kernels do, and has read at most 3.9e-3 at these shapes on an H100.
+# kernels do, and has read at most 3.9e-3 at these shapes on an H100. The
+# limit goes by q's dtype: with fp8 KV both versions read the same fp8
+# bytes and the kernel rounds P to bf16.
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
@@ -77,14 +86,16 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 # --------------------------------------------------------------- phase 2
-def make_case(gen, rng, q_lens, kv_lens, dtype):
-    """Random pool, queries and a SHUFFLED page table for requests with the
-    given new-token and total KV lengths (kv_len 0 = a padded row)."""
+def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype):
+    """Random pool (``pool``: "chunked" or "aligned", in ``kv_dtype``),
+    queries and a SHUFFLED page table for requests with the given new-token
+    and total KV lengths (kv_len 0 = a padded row)."""
     import torch
 
     from semi_pd_tpu_torch.runtime.forward_batch import build_attn_meta
 
     B = len(kv_lens)
+    D = HEAD_DIM[pool]
     n_pages = [-(-k // PAGE) for k in kv_lens]
     maxP = max(max(n_pages), 1)
     total = sum(n_pages) + 1  # + dump page 0
@@ -95,35 +106,46 @@ def make_case(gen, rng, q_lens, kv_lens, dtype):
         pt[b, :n] = perm[used:used + n]
         used += n
     dev = "cuda"
-    pool = torch.randn((1, total * PAGE, CT, 128), generator=gen, device=dev).to(dtype)
+    shape = ((1, total * PAGE, 2 * HKV * D // 128, 128) if pool == "chunked"
+             else (1, 2, total * PAGE, HKV, D))
+    kv = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
     T = int(sum(q_lens))
     q = torch.randn((T, HQ, D), generator=gen, device=dev).to(dtype)
     meta = build_attn_meta(np.asarray(q_lens), np.asarray(kv_lens), T, device=dev)
-    return (q, pool, torch.as_tensor(pt, device=dev),
+    return (q, kv, torch.as_tensor(pt, device=dev),
             torch.as_tensor(np.asarray(kv_lens, np.int32), device=dev), meta)
 
 
-def dense_kv(pool, pt, kv_lens):
-    """[B, Hkv, kvmax, D] K and V gathered for the library yardstick."""
+def dense_kv(kv, pt, kv_lens, D, dtype):
+    """[B, Hkv, kvmax, D] K and V gathered in ``dtype`` for the library
+    yardstick."""
     import torch
 
-    from semi_pd_tpu_torch.ops.attention.rpa_common import gather_kv, layer_kv5
+    from semi_pd_tpu_torch.ops.attention.rpa_common import gather_kv, layer_kv
 
-    kv5 = layer_kv5(pool, 0, HKV, D)
+    k_layer, v_layer = layer_kv(kv, 0, HKV, D)
     lens = kv_lens.tolist()
     kvmax = max(max(lens), 1)
     B = len(lens)
-    K = torch.zeros((B, kvmax, HKV, D), device=pool.device, dtype=pool.dtype)
+    K = torch.zeros((B, kvmax, HKV, D), device=kv.device, dtype=dtype)
     V = torch.zeros_like(K)
     for b, n in enumerate(lens):
         if n:
-            k, v = gather_kv(kv5, pt[b], n, PAGE)
-            K[b, :n], V[b, :n] = k.to(pool.dtype), v.to(pool.dtype)
+            k, v = gather_kv(k_layer, v_layer, pt[b], n, PAGE)
+            K[b, :n], V[b, :n] = k.to(dtype), v.to(dtype)
     return K.transpose(1, 2).contiguous(), V.transpose(1, 2).contiguous(), kvmax
 
 
-def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype,
-                    cap=None, window=None):
+def kernel_name(kind, pool):
+    return f"rpa_{kind}" + ("_aligned" if pool == "aligned" else "")
+
+
+def dtype_name(dt):
+    return str(dt).replace("torch.", "")
+
+
+def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked",
+                    kv_dtype=None, cap=None, window=None):
     import torch
     import torch.nn.functional as F
 
@@ -131,33 +153,45 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype,
     from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
     from semi_pd_tpu_torch.ops.attention import rpa_packed
 
-    q, pool, pt, kvl, meta = make_case(gen, rng, q_lens, kv_lens, dtype)
-    kw = dict(page_size=PAGE, num_kv_heads=HKV, head_dim=D, scale=SCALE,
-              logit_cap=cap, sliding_window=window)
-    if kind == "decode":
-        kern = lambda: rpa_packed.ragged_paged_attention_chunked_packed(q, pool, 0, pt, kvl, **kw)
-        plain = lambda: rpa_packed.ragged_paged_attention_chunked_packed_plain(q, pool, 0, pt, kvl, **kw)
+    kv_dtype = kv_dtype or dtype
+    D = HEAD_DIM[pool]
+    scale = D ** -0.5
+    q, kv, pt, kvl, meta = make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype)
+    kw = dict(page_size=PAGE, scale=scale, logit_cap=cap, sliding_window=window)
+    if pool == "chunked":
+        kw.update(num_kv_heads=HKV, head_dim=D)
+        fns = {"decode": (rpa_packed.ragged_paged_attention_chunked_packed,
+                          rpa_packed.decode_attention_plain),
+               "extend": (rpa.ragged_paged_attention_chunked_extend,
+                          rpa.extend_attention_plain)}
     else:
-        kern = lambda: rpa.ragged_paged_attention_chunked_extend(q, pool, 0, pt, kvl, meta, **kw)
-        plain = lambda: rpa.ragged_paged_attention_chunked_extend_plain(q, pool, 0, pt, kvl, meta, **kw)
+        fns = {"decode": (rpa_packed.ragged_paged_attention_packed,
+                          rpa_packed.ragged_paged_attention_packed_plain),
+               "extend": (rpa.ragged_paged_attention_extend,
+                          rpa.ragged_paged_attention_extend_plain)}
+    kfn, pfn = fns[kind]
+    args = (q, kv, 0, pt, kvl) if kind == "decode" else (q, kv, 0, pt, kvl, meta)
+    kern = lambda: kfn(*args, **kw)
+    plain = lambda: pfn(*args, **kw)
     out_k = kern()
     torch.cuda.synchronize()
     out_p = plain()
     err = (out_k.float() - out_p.float()).abs()
-    tol = TOL[str(dtype).replace("torch.", "")]
+    tol = TOL[dtype_name(dtype)]
     ok = bool((err <= tol + tol * out_p.float().abs()).all()) and bool(torch.isfinite(out_k).all())
     max_err = float(err.max())
     if not ok:
-        raise AssertionError(f"{name}: kernel disagrees with its plain version "
-                             f"(max abs err {max_err:.3g}, tol {tol})")
-    counter = KERNELS["rpa_" + kind]
+        raise AssertionError(f"{name} {pool} {dtype_name(dtype)}/{dtype_name(kv_dtype)}: kernel "
+                             f"disagrees with its plain version (max abs err {max_err:.3g}, "
+                             f"tol {tol})")
+    counter = KERNELS[kernel_name(kind, pool)]
     before = counter.launches
     ms = cuda_ms(kern, 20)
     launches = counter.launches - before + 1  # + the checked call
     plain_ms = cuda_ms(plain, 2)
 
-    # least time: bytes (each input once, output once) vs operations
-    esz = q.element_size()
+    # least time: bytes (each input once, output once; KV at its own width)
+    # vs operations
     lens = kvl.tolist()
     ql = meta.q_lens.tolist()
     qs = meta.q_start.tolist()
@@ -174,7 +208,7 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype,
             first = max(qs[b] + 1 - window, 0) if window else 0
             kv_rows += min(lens[b], qs[b] + ql[b]) - first
     flops = 4.0 * pairs * HQ * D
-    nbytes = (2 * q.numel() * esz + kv_rows * 2 * HKV * D * esz
+    nbytes = (2 * q.numel() * q.element_size() + kv_rows * 2 * HKV * D * kv.element_size()
               + pt.numel() * 4 + kvl.numel() * 4)
     bw, bf16_peak, f32_peak = PEAKS
     t_bytes = nbytes / bw * 1e3
@@ -182,9 +216,11 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype,
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
 
-    library_ms = None
+    library_ms, library = None, None
     if cap is None:
-        K, V, kvmax = dense_kv(pool, pt, kvl)
+        # SDPA over dense KV in q's dtype (fp8 KV upcast to bf16 first)
+        K, V, kvmax = dense_kv(kv, pt, kvl, D, dtype)
+        library = "sdpa" + ("_over_kv_upcast_to_bf16" if kv_dtype != dtype else "")
         B = len(lens)
         if kind == "decode":
             qd = q[:, :, None, :]  # [B, Hq, 1, D]
@@ -210,13 +246,13 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype,
                 mask[b, 0] = m
                 off += ql[b]
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qd, K, V, attn_mask=mask, scale=SCALE, enable_gqa=True), 20)
-    row = dict(case=name, kernel=kind, dtype=str(dtype).replace("torch.", ""),
-               max_abs_err=max_err, kernel_ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               launches=launches)
+            qd, K, V, attn_mask=mask, scale=scale, enable_gqa=True), 20)
+    row = dict(case=name, kernel=counter.name, pool=pool, dtype=dtype_name(dtype),
+               kv_dtype=dtype_name(kv_dtype), max_abs_err=max_err, kernel_ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, library=library,
+               bound_ms=bound_ms, bound_by=bound_by, launches=launches)
     print("kernel_case " + json.dumps(row), flush=True)
-    del q, pool
+    del q, kv
     torch.cuda.empty_cache()
     return row
 
@@ -228,6 +264,7 @@ def phase_kernels():
     gen.manual_seed(0)
     rng = np.random.default_rng(0)
     bf, f32 = torch.bfloat16, torch.float32
+    e4m3, e5m2 = torch.float8_e4m3fn, torch.float8_e5m2
     rows = []
 
     def ragged(b, kv):
@@ -236,26 +273,33 @@ def phase_kernels():
         lens[-1] = 0  # one padded row
         return lens.tolist()
 
-    for b, kv in ((16, 8192), (64, 1024), (128, 2048)):
-        lens = ragged(b, kv)
-        for dt in (bf, f32):
-            rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", "decode", gen, rng,
-                                        [1] * b, lens, dt))
     ext = {"extend_b8_q256_kv2048": ([256] * 8, [2048] * 8),
            "extend_ragged_kv1024": ([512, 256, 128, 64, 384, 448, 192, 64], [1024] * 8)}
-    for name, (ql, kl) in ext.items():
-        for dt in (bf, f32):
-            rows.append(run_kernel_case(name, "extend", gen, rng, ql, kl, dt))
-    # softcap 1.0: scores q.k * D**-0.5 have std ~1 here, so the cap bends
-    # most of them (tanh(2) = 0.96) and a kernel that ignored it would fail
-    dec = ("decode", [1] * 16, ragged(16, 2048), "decode_b16_kv2048")
-    ext = ("extend", [256] * 8, [2048] * 8, "extend_b8_q256_kv2048")
-    for kind, ql, kl, base in (dec, ext):
-        for dt in (bf, f32):
-            rows.append(run_kernel_case(f"{base}_softcap1", kind, gen, rng, ql, kl, dt,
-                                        cap=1.0))
-            rows.append(run_kernel_case(f"{base}_window512", kind, gen, rng, ql, kl, dt,
-                                        window=512))
+    # (pool, q dtype, KV dtype) of each path's cases
+    types = {"chunked": [(bf, bf), (f32, f32)],
+             "aligned": [(bf, bf), (f32, f32), (bf, e4m3)]}
+    for pool, pairs in types.items():
+        for b, kv in ((16, 8192), (64, 1024), (128, 2048)):
+            lens = ragged(b, kv)
+            for dt, kdt in pairs:
+                rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", "decode", gen, rng,
+                                            [1] * b, lens, dt, pool, kdt))
+            if pool == "aligned" and b == 64:
+                rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", "decode", gen, rng,
+                                            [1] * b, lens, bf, pool, e5m2))
+        for name, (ql, kl) in ext.items():
+            for dt, kdt in pairs:
+                rows.append(run_kernel_case(name, "extend", gen, rng, ql, kl, dt, pool, kdt))
+        # softcap 1.0: scores q.k * D**-0.5 have std ~1 here, so the cap bends
+        # most of them (tanh(2) = 0.96) and a kernel that ignored it would fail
+        dec = ("decode", [1] * 16, ragged(16, 2048), "decode_b16_kv2048")
+        ext1 = ("extend", [256] * 8, [2048] * 8, "extend_b8_q256_kv2048")
+        for kind, ql, kl, base in (dec, ext1):
+            for dt in (bf, f32):
+                rows.append(run_kernel_case(f"{base}_softcap1", kind, gen, rng, ql, kl, dt,
+                                            pool, cap=1.0))
+                rows.append(run_kernel_case(f"{base}_window512", kind, gen, rng, ql, kl, dt,
+                                            pool, window=512))
     return rows
 
 
@@ -271,7 +315,19 @@ def llama_1b_config():
     )
 
 
-def bench_server_args(semi_pd: bool):
+def llama3_8b_config():
+    """Meta-Llama-3-8B's published config.json geometry (8.03 B parameters)."""
+    from semi_pd_tpu_torch.config.model_config import ModelConfig
+
+    return ModelConfig(
+        architecture="LlamaForCausalLM", vocab_size=128256, hidden_size=4096,
+        intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+        num_key_value_heads=8, head_dim=128, rms_norm_eps=1e-5, rope_theta=500000.0,
+        max_position_embeddings=8192, context_length=8192, dtype="bfloat16",
+    )
+
+
+def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto"):
     """The bench's server settings (bench.py make_server_args) with a
     131072-token pool."""
     from semi_pd_tpu_torch.config.server_args import ServerArgs
@@ -280,8 +336,13 @@ def bench_server_args(semi_pd: bool):
         random_weights=True, seed=0, page_size=16, max_total_tokens=131072,
         chunked_prefill_size=4096, enable_semi_pd=semi_pd, decode_slo_ms=50.0,
         max_running_requests=64, decode_bs_buckets=[8, 32, 64],
-        prefill_token_buckets=[512, 2048, 4096],
+        prefill_token_buckets=[512, 2048, 4096], kv_cache_dtype=kv_cache_dtype,
     )
+
+
+# the two kernels each pool's path launches
+PATH_KERNELS = {"chunked": ("rpa_decode", "rpa_extend"),
+                "aligned": ("rpa_decode_aligned", "rpa_extend_aligned")}
 
 
 def phase_model(eng):
@@ -289,9 +350,7 @@ def phase_model(eng):
     layers with the plain attention functions."""
     import torch
 
-    from semi_pd_tpu_torch.ops.attention.ragged_paged_attention import (
-        ragged_paged_attention_chunked_plain,
-    )
+    from semi_pd_tpu_torch.layers.attention import pool_attention
     from semi_pd_tpu_torch.runtime.batch import build_decode_batch, build_extend_batch
     from semi_pd_tpu_torch.runtime.req import Req
     from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
@@ -309,6 +368,7 @@ def phase_model(eng):
         runner.req_pool.write(r.req_slot, 0, pages)
         reqs.append(r)
     pool = runner.kv_cache.buffer
+    plain = pool_attention(pool, plain=True)
     model = runner.model
     worst = 0.0
     steps = []
@@ -318,7 +378,7 @@ def phase_model(eng):
         for step in range(3):
             fb = hb.to_device(runner.device)
             lk = model(fb, pool)
-            lp = model(fb, pool, attention=ragged_paged_attention_chunked_plain)
+            lp = model(fb, pool, attention=plain)
             n = len(reqs)
             lk, lp = lk[:n].float(), lp[:n].float()
             if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
@@ -339,21 +399,21 @@ def phase_model(eng):
         runner.page_allocator.free(np.asarray(r.pages, np.int32))
         runner.req_pool.free(r.req_slot)
     # bf16 tolerance: the two paths differ only in attention (the kernel
-    # rounds P to bf16 before P.V and sums in another order); over 16 layers
-    # that stays within 5% of the logit range
+    # rounds P to bf16 before P.V and sums in another order); over 16 or 32
+    # layers that stays within 5% of the logit range
     if worst > 0.05:
         raise AssertionError(f"full-width logits: kernels vs plain rel err {worst:.3g} > 0.05")
     return dict(steps=steps, worst_rel_err=worst)
 
 
-def serve_mode(eng, semi_pd: bool, prompts, vocab):
+def serve_mode(eng, semi_pd: bool, prompts, vocab, pool):
     import torch
 
     from semi_pd_tpu_torch.kernels import KERNELS
     from semi_pd_tpu_torch.runtime.scheduler import Scheduler
     from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
-    args = bench_server_args(semi_pd)
+    args = bench_server_args(semi_pd, eng.server_args.kv_cache_dtype)
     if not eng.flush_cache():
         raise AssertionError("engine not idle before serving")
     eng.server_args = args
@@ -380,15 +440,20 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab):
         if not all(0 <= t < vocab for t in o["output_ids"]):
             raise AssertionError(f"request {o['rid']}: token out of range")
     L = eng.runner.model_config.num_hidden_layers
-    if launches["rpa_decode"] != L * steps["decode"] or steps["decode"] == 0:
-        raise AssertionError(f"decode launches {launches['rpa_decode']} != {L} x {steps['decode']} steps")
-    if launches["rpa_extend"] != L * steps["extend"] or steps["extend"] == 0:
-        raise AssertionError(f"extend launches {launches['rpa_extend']} != {L} x {steps['extend']} steps")
+    dec, ext = PATH_KERNELS[pool]
+    if launches[dec] != L * steps["decode"] or steps["decode"] == 0:
+        raise AssertionError(f"{dec} launches {launches[dec]} != {L} x {steps['decode']} steps")
+    if launches[ext] != L * steps["extend"] or steps["extend"] == 0:
+        raise AssertionError(f"{ext} launches {launches[ext]} != {L} x {steps['extend']} steps")
+    others = {k: n for k, n in launches.items() if k not in (dec, ext) and n}
+    if others:
+        raise AssertionError(f"the {pool} pool's path launched other kernels: {others}")
     if not eng.flush_cache():  # runs check_memory()
         raise AssertionError("engine not idle after serving")
     ttft = [r.first_token_time - r.queue_time for r in reqs]
     itl = [(r.finish_time - r.first_token_time) / (len(r.output_ids) - 1) for r in reqs]
-    res = dict(mode="semi_pd" if semi_pd else "colocated", requests=len(outs),
+    res = dict(pool=pool, kv_dtype=str(runner.kv_cache.buffer.dtype).replace("torch.", ""),
+               mode="semi_pd" if semi_pd else "colocated", requests=len(outs),
                wall_s=wall, tok_s=len(outs) * 64 / wall,
                ttft_p50_s=statistics.median(ttft), itl_p50_ms=1e3 * statistics.median(itl),
                steps=steps, launches=launches,
@@ -432,38 +497,62 @@ def main() -> int:
     print("kernels_phase " + json.dumps(dict(cases=len(rows), seconds=time.monotonic() - t0)),
           flush=True)
 
-    # 3. full-width model
-    t0 = time.monotonic()
-    cfg = llama_1b_config()
-    eng = Engine(bench_server_args(False), cfg)
-    init_s = time.monotonic() - t0
-    res = phase_model(eng)
-    print("model " + json.dumps(dict(res, init_s=init_s, seconds=time.monotonic() - t0)),
-          flush=True)
-
-    # 4. serving, both modes
-    t0 = time.monotonic()
+    # 3 and 4: full-width models and serving. Each path's launch counts are
+    # those of its own serving run, counters zeroed just before each mode
+    main_launches = {k: 0 for k in KERNELS}
     rng = np.random.default_rng(0)
     lens = rng.integers(256, 3073, size=32)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist() for n in lens]
-    main_launches = {k: 0 for k in KERNELS}
-    outputs = {}
-    for semi in (False, True):
-        r, outputs[semi] = serve_mode(eng, semi, prompts, cfg.vocab_size)
-        for k, v in r["launches"].items():
-            main_launches[k] += v
-        print("serve " + json.dumps(dict(r, gpu=smi)), flush=True)
-    same = np.mean([a == b for a, b in zip(outputs[False], outputs[True])])
-    print("serve_phase " + json.dumps(dict(
-        modes_same_tokens=float(same), seconds=time.monotonic() - t0)), flush=True)
+    prompts = [rng.integers(0, 128256, size=int(n)).tolist() for n in lens]
 
-    # 5. the kernels line: representative main-path cases (bf16)
-    rep = {"rpa_decode": "decode_b64_kv1024", "rpa_extend": "extend_b8_q256_kv2048"}
-    kind = {"rpa_decode": "decode", "rpa_extend": "extend"}
+    def model_phase(label, cfg, kv_dtype):
+        t0 = time.monotonic()
+        eng = Engine(bench_server_args(False, kv_dtype), cfg)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        res = phase_model(eng)
+        print("model " + json.dumps(dict(res, model=label, kv_dtype=kv_dtype, init_s=init_s,
+                                         seconds=time.monotonic() - t0)), flush=True)
+        return eng
+
+    def serve_phase(eng, label, pool):
+        t0 = time.monotonic()
+        outputs = {}
+        for semi in (False, True):
+            r, outputs[semi] = serve_mode(eng, semi, prompts, eng.runner.model_config.vocab_size,
+                                          pool)
+            for k, v in r["launches"].items():
+                main_launches[k] += v
+            print("serve " + json.dumps(dict(r, model=label, gpu=smi)), flush=True)
+        same = np.mean([a == b for a, b in zip(outputs[False], outputs[True])])
+        print("serve_phase " + json.dumps(dict(
+            model=label, modes_same_tokens=float(same), seconds=time.monotonic() - t0)),
+            flush=True)
+
+    def release(eng):
+        del eng.scheduler, eng.runner
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    eng = model_phase("llama-3.2-1b-class", llama_1b_config(), "auto")
+    serve_phase(eng, "llama-3.2-1b-class", "chunked")
+    release(eng)
+    release(model_phase("meta-llama-3-8b", llama3_8b_config(), "bfloat16"))
+    eng = model_phase("meta-llama-3-8b", llama3_8b_config(), "fp8_e4m3")
+    serve_phase(eng, "meta-llama-3-8b", "aligned")
+    release(eng)
+
+    # 5. the kernels line: each kernel's case at its path's representative
+    # shape and types (the 8B path serves with fp8_e4m3 KV)
+    rep = {"rpa_decode": ("decode_b64_kv1024", "bfloat16"),
+           "rpa_extend": ("extend_b8_q256_kv2048", "bfloat16"),
+           "rpa_decode_aligned": ("decode_b64_kv1024", "float8_e4m3fn"),
+           "rpa_extend_aligned": ("extend_b8_q256_kv2048", "float8_e4m3fn")}
     kernels = []
     for kname, k in KERNELS.items():
-        row = next(r for r in rows if r["case"] == rep[kname] and r["dtype"] == "bfloat16")
-        errs = [r["max_abs_err"] for r in rows if r["kernel"] == kind[kname]]
+        case, kv_dt = rep[kname]
+        row = next(r for r in rows if r["kernel"] == kname and r["case"] == case
+                   and r["dtype"] == "bfloat16" and r["kv_dtype"] == kv_dt)
+        errs = [r["max_abs_err"] for r in rows if r["kernel"] == kname]
         kernels.append(dict(
             name=kname, route="cuda", source=k.source_rel, replaces=k.replaces,
             launches=main_launches[kname], max_abs_err=max(errs),

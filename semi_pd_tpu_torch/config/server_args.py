@@ -2,9 +2,10 @@
 
 Keeps the ServerArgs fields the main serving path reads (memory sizing,
 bucket tables, the colocated and semi-PD scheduling knobs, the overlap
-ring) with the JAX package's defaults and comments' meaning, and adds
-``device``. The CLI, HTTP, LoRA, speculation, parallelism, quantization and
-grammar flags belong to later slices of the port (ROADMAP queue A).
+ring, the KV dtype and its fp8 scales) with the JAX package's defaults and
+comments' meaning, and adds ``device``. The CLI, HTTP, LoRA, speculation,
+parallelism, weight quantization and grammar flags belong to later slices
+of the port (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -12,13 +13,18 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
+KV_CACHE_DTYPES = ("auto", "bfloat16", "float32", "fp8_e4m3", "fp8_e5m2")
+
 
 @dataclasses.dataclass
 class ServerArgs:
     model_path: str = ""
     context_length: Optional[int] = None
     allow_auto_truncate: bool = False
-    kv_cache_dtype: str = "auto"  # auto (model dtype) | bfloat16 | float32
+    kv_cache_dtype: str = "auto"  # auto (model dtype) | bfloat16 | float32 | fp8_e4m3 | fp8_e5m2
+    # Calibrated per-layer fp8-KV scales (JSON; runtime/model_runner.py
+    # _load_kv_cache_scales), applied outside the kernels by linearity
+    quantization_param_path: Optional[str] = None
     random_weights: bool = False  # random-init from ``seed`` (tests/bench)
     seed: int = 0
     # Where the model, the KV pool and every step run: "cuda" unless the
@@ -66,9 +72,9 @@ class ServerArgs:
     def __post_init__(self):
         if self.device not in ("cuda", "cpu") and not self.device.startswith("cuda:"):
             raise ValueError(f"device must be 'cuda', 'cuda:N' or 'cpu', got {self.device!r}")
-        if self.kv_cache_dtype not in ("auto", "bfloat16", "float32"):
-            raise NotImplementedError(
-                f"kv_cache_dtype {self.kv_cache_dtype!r}: fp8 KV is ROADMAP A9")
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: one of "
+                             f"{KV_CACHE_DTYPES}")
         if self.num_continuous_decode_steps is not None:
             self.overlap_depth = max(1, int(self.num_continuous_decode_steps))
             self.adaptive_overlap_depth = False  # user pinned the depth

@@ -1,10 +1,12 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C entry point. It is
-compiled at first use with ``nvcc -gencode arch=compute_90a,code=sm_90a
--O3 -shared -Xcompiler -fPIC`` into ``semi_pd_tpu_torch/_build/`` (a
-directory git ignores) and loaded with ``ctypes``; the library's file name
-carries a hash of the source and the flags, so an edited source rebuilds.
+Each kernel is one build of a ``csrc/*.cu`` file, with its own defines
+(one source may serve two kernels, e.g. the chunked and the aligned pool's
+decode), and a plain C entry point. It is compiled at first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`` into ``semi_pd_tpu_torch/_build/`` (a directory git ignores) and
+loaded with ``ctypes``; the library's file name carries the kernel's name
+and a hash of the source and the flags, so an edited source rebuilds.
 Pointers and the CUDA stream cross as ``c_void_p``; every entry returns
 ``cudaGetLastError()`` and the Python wrapper raises when it is not 0.
 
@@ -129,6 +131,7 @@ def build_all() -> float:
     started together) and load them. Returns the wall seconds taken."""
     # the wrapper modules register their kernels when imported
     import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
+    import semi_pd_tpu_torch.ops.attention.rpa_packed  # noqa: F401
 
     t0 = time.monotonic()
     ks = list(KERNELS.values())

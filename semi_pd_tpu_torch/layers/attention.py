@@ -1,12 +1,15 @@
-"""Attention layer: KV-pool write + kernel dispatch (port of the chunked-pool
-branch of semi_pd_tpu/layers/attention.py::paged_attention).
+"""Attention layer: KV-pool write + kernel dispatch (port of
+semi_pd_tpu/layers/attention.py::paged_attention for the chunked and the
+aligned pool).
 
 Every model's attention calls ``paged_attention``, which (1) scatters the
 step's fresh K/V into the shared pool at the scheduler-assigned slots, in
 place (the JAX package's functional ``.at[].set``), and (2) runs the
-ragged paged attention over the pool: the CUDA kernels for CUDA tensors,
-their plain versions for CPU tensors (ops/attention/ragged_paged_attention.
-py). The aligned 5D pool and fp8-KV scales are ROADMAP A9.
+ragged paged attention of the pool's layout over it: the CUDA kernels for
+CUDA tensors, their plain versions for CPU tensors
+(ops/attention/ragged_paged_attention.py). Per-layer fp8-KV scales
+(``fb.kv_scales``) are applied outside the kernels by linearity, as the JAX
+layer does.
 """
 
 from __future__ import annotations
@@ -16,43 +19,77 @@ from typing import Optional
 import torch
 
 from semi_pd_tpu_torch.ops.attention.ragged_paged_attention import (
+    ragged_paged_attention,
     ragged_paged_attention_chunked,
+    ragged_paged_attention_chunked_plain,
+    ragged_paged_attention_plain,
 )
+from semi_pd_tpu_torch.ops.attention.rpa_common import pool_layout
 
 
 def write_kv(kv_cache: torch.Tensor, layer_idx: int, out_slots: torch.Tensor,
              k_new: torch.Tensor, v_new: torch.Tensor) -> None:
-    """Scatter K and V of T tokens into their slot rows of layer
-    ``layer_idx`` of the chunked pool [L, S, CT, 128] (K chunks, then V
-    chunks). Padded tokens carry slots in the dump page."""
+    """Scatter K and V of T tokens into their slots of layer ``layer_idx``:
+    one slot row of the chunked pool [L, S, CT, 128] (K chunks, then V
+    chunks), or the K and V planes of the aligned pool [L, 2, S, Hkv, D].
+    Padded tokens carry slots in the dump page."""
     T, Hkv, D = k_new.shape
-    val = torch.cat([k_new.reshape(T, Hkv * D // 128, 128),
-                     v_new.reshape(T, Hkv * D // 128, 128)], dim=1)
-    kv_cache[layer_idx][out_slots.long()] = val.to(kv_cache.dtype)
+    slots = out_slots.long()
+    if pool_layout(kv_cache) == "chunked":
+        val = torch.cat([k_new.reshape(T, Hkv * D // 128, 128),
+                         v_new.reshape(T, Hkv * D // 128, 128)], dim=1)
+        kv_cache[layer_idx][slots] = val.to(kv_cache.dtype)
+    else:
+        kv_cache[layer_idx, 0][slots] = k_new.to(kv_cache.dtype)
+        kv_cache[layer_idx, 1][slots] = v_new.to(kv_cache.dtype)
+
+
+def pool_attention(kv_cache: torch.Tensor, plain: bool = False):
+    """The attention function of the pool's layout: the routing to the
+    kernels, or with ``plain`` the same routing over their plain versions
+    on any device (to hold the kernels to them at full width)."""
+    if pool_layout(kv_cache) == "chunked":
+        return ragged_paged_attention_chunked_plain if plain else ragged_paged_attention_chunked
+    return ragged_paged_attention_plain if plain else ragged_paged_attention
 
 
 def paged_attention(
     q: torch.Tensor,  # [T, Hq, D]
     k_new: torch.Tensor,  # [T, Hkv, D]
     v_new: torch.Tensor,  # [T, Hkv, D]
-    kv_cache: torch.Tensor,  # [L, S, CT, 128] — the whole pool, updated in place
+    kv_cache: torch.Tensor,  # the whole pool, either layout, updated in place
     layer_idx: int,
     fb,  # runtime.forward_batch.ForwardArrays
     page_size: int,
     scale: float,
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
-    attention=ragged_paged_attention_chunked,
+    attention=None,
 ) -> torch.Tensor:
     """Returns attn_out [T, Hq, D]. ``attention`` is the function run over
-    the pool after the write; the default routes to the kernels."""
-    if kv_cache.dim() != 4:
-        raise NotImplementedError("only the chunked pool is ported; the aligned "
-                                  "5D pool is ROADMAP A9")
+    the pool after the write, with the signature of the pool layout's
+    routing function; the default (None) is that routing, to the kernels."""
+    # Per-layer fp8-KV scales: store k/k_s and v/v_s (so calibrated scales
+    # use the fp8 range), read with q*k_s (logits exact: (q*k_s).(k/k_s) =
+    # q.k) and out*v_s, in the JAX layer's order of casts
+    v_s = None
+    if fb.kv_scales is not None:
+        k_s = fb.kv_scales[layer_idx, 0].float()
+        v_s = fb.kv_scales[layer_idx, 1].float()
+        k_new = (k_new.float() / k_s).to(k_new.dtype)
+        v_new = (v_new.float() / v_s).to(v_new.dtype)
+        q = (q.float() * k_s).to(q.dtype)
     T, Hkv, D = k_new.shape
     write_kv(kv_cache, layer_idx, fb.out_slots, k_new, v_new)
-    return attention(
+    # the chunked pool's functions take Hkv and D; the aligned pool's read
+    # them from its shape
+    heads = (dict(num_kv_heads=Hkv, head_dim=D)
+             if pool_layout(kv_cache) == "chunked" else {})
+    out = (attention or pool_attention(kv_cache))(
         q.contiguous(), kv_cache, layer_idx, fb.page_table, fb.kv_lens,
-        fb.attn_meta, page_size=page_size, num_kv_heads=Hkv, head_dim=D,
-        scale=scale, logit_cap=logit_cap, sliding_window=sliding_window,
+        fb.attn_meta, page_size=page_size, scale=scale, logit_cap=logit_cap,
+        sliding_window=sliding_window, **heads,
     )
+    if v_s is not None:
+        out = (out.float() * v_s).to(out.dtype)
+    return out

@@ -3,13 +3,17 @@
 Copies of ``PageAllocator`` and ``ReqToPagePool`` from
 semi_pd_tpu/mem/pool.py (numpy, host side, single owner: the scheduler),
 trimmed to one partition (DP-attention partitions are ROADMAP A15), plus a
-torch ``KVCache`` holding the chunked combined pool the main path uses.
+torch ``KVCache`` holding one of the JAX package's two pool layouts:
 
-Layout: ``[L, S, CT, 128]`` with ``S = num_pages * page_size`` slots and
-``CT = 2 * Hkv * D / 128`` chunks per slot row, K chunks first, then V
-chunks (the JAX ``KVCache(chunked=True)`` layout). Slot = page_id *
-page_size + offset. Page 0 is the dump page: padded positions of a batch
-write there and padded page-table entries point there.
+- chunked ``[L, S, CT, 128]`` (``KVCacheSpec.chunked``): ``CT = 2 * Hkv * D
+  / 128`` chunks per slot row, K chunks first, then V chunks (the JAX
+  ``KVCache(chunked=True)`` layout; head_dim 64 models);
+- aligned ``[L, 2, S, Hkv, D]``: K and V each in their own plane (the JAX
+  default layout; head_dim 128 models, bf16, float32 or fp8 KV).
+
+``S = num_pages * page_size`` slots; slot = page_id * page_size + offset.
+Page 0 is the dump page: padded positions of a batch write there and padded
+page-table entries point there.
 """
 
 from __future__ import annotations
@@ -96,6 +100,11 @@ class KVCacheSpec:
     num_kv_heads: int
     head_dim: int
     dtype: torch.dtype = torch.bfloat16
+    # Chunked combined layout [L, S, CT, 128]: K chunks then V chunks per
+    # slot row; requires (2*Hkv*D) % 128 == 0. Otherwise the aligned
+    # [L, 2, S, Hkv, D]. Set by the runner's layout rule
+    # (runtime/model_runner.py::kv_pool_layout).
+    chunked: bool = False
 
     @property
     def num_slots(self) -> int:
@@ -106,25 +115,26 @@ class KVCacheSpec:
         return 2 * self.num_kv_heads * self.head_dim // 128
 
     def bytes_total(self) -> int:
-        per = torch.tensor([], dtype=self.dtype).element_size()
-        return 2 * self.num_layers * self.num_slots * self.num_kv_heads * self.head_dim * per
+        return (2 * self.num_layers * self.num_slots * self.num_kv_heads * self.head_dim
+                * self.dtype.itemsize)
 
 
 class KVCache:
-    """The chunked combined pool ``[L, S, CT, 128]`` as one device tensor,
-    updated in place by ``layers.attention.paged_attention``.
+    """The pool (chunked or aligned, per ``spec.chunked``) as one device
+    tensor, updated in place by ``layers.attention.paged_attention``.
 
     Allocated with ``torch.zeros``: page 0 (the dump page) is read by padded
     batch rows and must stay finite."""
 
     def __init__(self, spec: KVCacheSpec, device: torch.device):
-        if (2 * spec.num_kv_heads * spec.head_dim) % 128 or 128 % spec.head_dim:
-            raise NotImplementedError(
-                f"chunked KV pool needs 128 % head_dim == 0 and "
-                f"(2*Hkv*D) % 128 == 0 (Hkv={spec.num_kv_heads}, "
-                f"D={spec.head_dim}); the aligned 5D pool is ROADMAP A9")
+        if spec.chunked:
+            if (2 * spec.num_kv_heads * spec.head_dim) % 128:
+                raise ValueError(
+                    f"chunked KV pool needs (2*Hkv*D) % 128 == 0 "
+                    f"(Hkv={spec.num_kv_heads}, D={spec.head_dim})")
+            shape = (spec.num_layers, spec.num_slots, spec.chunks_total, 128)
+        else:
+            shape = (spec.num_layers, 2, spec.num_slots, spec.num_kv_heads,
+                     spec.head_dim)
         self.spec = spec
-        self.buffer = torch.zeros(
-            (spec.num_layers, spec.num_slots, spec.chunks_total, 128),
-            dtype=spec.dtype, device=device,
-        )
+        self.buffer = torch.zeros(shape, dtype=spec.dtype, device=device)

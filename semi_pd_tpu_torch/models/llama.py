@@ -6,8 +6,10 @@ axis, leaf for leaf the JAX package's parameter tree: ``init_params(seed)``
 draws the same numbers as the JAX ``init_params`` (numpy
 ``default_rng(seed)``, leaves in the JAX tree's sorted-key order, x0.02,
 then cast), and ``load_jax_params`` carries a JAX parameter tree (numpy
-leaves) into the module. Linear weights are [din, dout]. The forward pass
-updates the KV pool in place. qkv bias, q/k norms, LoRA, other families and
+leaves) into the module (the runner's random weights come from
+model_loader/loader.py::device_init_params instead). Linear weights are
+[din, dout]. The forward pass updates the KV pool, chunked or aligned, in
+place. qkv bias, q/k norms, LoRA, other families and
 tensor parallelism are ROADMAP A13-A15.
 """
 
@@ -21,9 +23,6 @@ import torch
 from semi_pd_tpu_torch.config.model_config import ModelConfig
 from semi_pd_tpu_torch.layers.attention import paged_attention
 from semi_pd_tpu_torch.layers.linear import apply_linear, lm_head_logits
-from semi_pd_tpu_torch.ops.attention.ragged_paged_attention import (
-    ragged_paged_attention_chunked,
-)
 from semi_pd_tpu_torch.ops.elementwise import ACT2FN, rms_norm
 from semi_pd_tpu_torch.ops.rope import RotaryEmbedding
 
@@ -96,6 +95,10 @@ class LlamaForCausalLM(torch.nn.Module):
             specs.append(("lm_head.w", (H, c.vocab_size)))
         return specs
 
+    def leaf(self, path: str) -> torch.nn.Parameter:
+        """The parameter of JAX tree path ``path`` (e.g. "layers.qkv_proj.w")."""
+        return getattr(self, _ATTR[path])
+
     @torch.no_grad()
     def init_params(self, seed: int = 0) -> None:
         """Random init drawing the JAX ``init_params(seed)`` numbers: one
@@ -105,7 +108,7 @@ class LlamaForCausalLM(torch.nn.Module):
         rng = np.random.default_rng(seed)
         for path, shape in self.param_specs():
             a = rng.standard_normal(shape, dtype=np.float32) * 0.02
-            getattr(self, _ATTR[path]).copy_(torch.from_numpy(a))
+            self.leaf(path).copy_(torch.from_numpy(a))
 
     @torch.no_grad()
     def load_jax_params(self, tree: Dict[str, Any]) -> None:
@@ -120,7 +123,7 @@ class LlamaForCausalLM(torch.nn.Module):
                 a = a.astype(np.float32)  # also copies read-only device views
             if a.shape != shape:
                 raise ValueError(f"{path}: shape {a.shape} != {shape}")
-            getattr(self, _ATTR[path]).copy_(torch.from_numpy(a))
+            self.leaf(path).copy_(torch.from_numpy(a))
 
     def params_tree(self) -> Dict[str, Any]:
         """The parameters as a JAX-structured tree of float32 numpy arrays."""
@@ -130,16 +133,16 @@ class LlamaForCausalLM(torch.nn.Module):
             node = tree
             for key in keys[:-1]:
                 node = node.setdefault(key, {})
-            node[keys[-1]] = getattr(self, _ATTR[path]).detach().float().cpu().numpy()
+            node[keys[-1]] = self.leaf(path).detach().float().cpu().numpy()
         return tree
 
     # ------------------------------------------------------------- forward
-    def forward(self, fb, kv_cache: torch.Tensor,
-                attention=ragged_paged_attention_chunked) -> torch.Tensor:
+    def forward(self, fb, kv_cache: torch.Tensor, attention=None) -> torch.Tensor:
         """One step over the flat batch ``fb``; writes this step's K/V into
-        ``kv_cache`` [L, S, CT, 128] and returns float32 logits [B, V] of
-        each request's last token. ``attention`` runs over the pool after
-        each layer's KV write (default: the kernels)."""
+        ``kv_cache`` (chunked [L, S, CT, 128] or aligned [L, 2, S, Hkv, D])
+        and returns float32 logits [B, V] of each request's last token.
+        ``attention`` runs over the pool after each layer's KV write
+        (default: the pool layout's routing to the kernels)."""
         c = self.config
         h = self.embed[fb.input_ids.long()]
         for layer in range(c.num_hidden_layers):

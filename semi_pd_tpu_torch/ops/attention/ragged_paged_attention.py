@@ -1,19 +1,28 @@
-"""Ragged paged EXTEND attention over the chunked combined pool: the CUDA
-kernel's wrapper, its plain PyTorch version, and the decode/extend routing.
+"""Ragged paged EXTEND attention over either KV pool: the CUDA kernels'
+wrappers, their plain PyTorch version, and the decode/extend routing.
 
-Port of semi_pd_tpu/ops/attention/ragged_paged_attention.py::
-ragged_paged_attention_chunked (TPU kernel _rpa_kernel_chunked,
-ragged_paged_attention.py:803): causal attention of the flat new tokens of
-every request over prefix + new tokens through the page table, driven by
-the host work list (block_seq / block_row / block_qofs), with softcap and
-sliding window. Routing is the JAX driver's: T == B goes to the decode
-kernel (rpa_packed.py), everything else to the extend kernel
-(ragged_paged_attention.py:1057,1100-1109). The TPU scheduling switches
-(RPA_DECODE_STREAM, the VMEM clamps, the block_first contiguity table) are
-not ported. The CUDA design is described in csrc/rpa_extend.cu.
+Ports of two TPU kernels of semi_pd_tpu/ops/attention/
+ragged_paged_attention.py:
 
-Wrappers launch the kernel for CUDA tensors and use the plain version only
-for tensors on the CPU; any other device raises. Nothing falls back.
+- ``ragged_paged_attention_chunked``: the chunked pool ``[L, S, CT, 128]``
+  (TPU kernel _rpa_kernel_chunked, :803);
+- ``ragged_paged_attention``: the aligned pool ``[L, 2, S, Hkv, D]`` with
+  bf16, float32 or fp8 KV (TPU kernel _rpa_kernel, :59, its GQA branch).
+
+Causal attention of the flat new tokens of every request over prefix + new
+tokens through the page table, driven by the host work list (block_seq /
+block_row / block_qofs), with softcap and sliding window. Routing is the
+JAX wrappers': T == B goes to the decode kernel of the pool (rpa_packed.py),
+everything else to its extend kernel (ragged_paged_attention.py:502,
+569-578, 1057, 1100-1109). Not ported: the MLA ``v_dim`` branch (ROADMAP
+A12), speculation-tree masks ``spec_anc`` (A11), the merged-lane kernel
+that ``force_merged`` selects (B4), and the TPU scheduling switches
+(RPA_DECODE_STREAM is B6; RPA_DECODE_PACKED, the VMEM clamps and the
+block_first table have no GPU meaning). The CUDA design is described in
+csrc/rpa_extend.cu.
+
+Wrappers launch their kernel for CUDA tensors and use the plain version
+only for tensors on the CPU; any other device raises. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -24,31 +33,46 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    F, I, P, check_cuda, check_pool_args, gather_kv, layer_kv5, layer_ptr,
+    F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kv_planes, layer_kv,
+    pool_heads,
 )
 from semi_pd_tpu_torch.ops.attention.rpa_packed import (
+    decode_attention_plain,
     ragged_paged_attention_chunked_packed,
-    ragged_paged_attention_chunked_packed_plain,
+    ragged_paged_attention_packed,
 )
 
 # Query rows per extend work-list entry. The host work list
-# (runtime/forward_batch.py::make_attn_meta_host) and the extend kernel
-# (compiled with -DEXTEND_QBLK from this constant) both use it.
+# (runtime/forward_batch.py::make_attn_meta_host) and the extend kernels
+# (compiled with -DEXTEND_QBLK from this constant) all use it.
 EXTEND_Q_BLOCK = 128
+
+_ARGTYPES = [P] * 11 + [I] * 7 + [F, F, I, I, I, P]
 
 EXTEND_KERNEL = register(CudaKernel(
     name="rpa_extend",
     source="csrc/rpa_extend.cu",
     symbol="rpa_extend",
-    argtypes=[P] * 10 + [I] * 7 + [F, F, I, I, P],
+    argtypes=_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:803 _rpa_kernel_chunked",
     defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}",),
 ))
 
+EXTEND_ALIGNED_KERNEL = register(CudaKernel(
+    name="rpa_extend_aligned",
+    source="csrc/rpa_extend.cu",
+    symbol="rpa_extend_aligned",
+    argtypes=_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel",
+    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_ALIGNED"),
+))
 
-def _no_spec(spec_anc, win_base):
+
+def _no_spec(spec_anc, win_base, v_dim=None):
     if spec_anc is not None or win_base is not None:
         raise NotImplementedError("speculation-tree masks (spec_anc) are ROADMAP A11")
+    if v_dim is not None:
+        raise NotImplementedError("MLA attention (v_dim) is ROADMAP A12")
 
 
 def ragged_paged_attention_chunked(
@@ -79,10 +103,78 @@ def ragged_paged_attention_chunked_plain(
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
     if q.shape[0] == page_table.shape[0]:
-        return ragged_paged_attention_chunked_packed_plain(
-            q, kv_cache, layer_idx, page_table, kv_lens, **kw)
-    return ragged_paged_attention_chunked_extend_plain(
-        q, kv_cache, layer_idx, page_table, kv_lens, meta, **kw)
+        return decode_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, **kw)
+    return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta, **kw)
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,  # [T, Hq, D] flat ragged
+    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D]
+    layer_idx: int,
+    page_table: torch.Tensor,  # [B, maxP] int32
+    kv_lens: torch.Tensor,  # [B] int32
+    meta,  # runtime.forward_batch.AttnMeta
+    *,
+    page_size: int,
+    scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    v_dim: Optional[int] = None,
+    spec_anc: Optional[tuple] = None,
+    win_base: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention of q [T, Hq, D] over the aligned pool (Hkv and D from its
+    shape): T == B batches take the decode kernel, all others the extend
+    kernel."""
+    _no_spec(spec_anc, win_base, v_dim)
+    kw = dict(page_size=page_size, scale=scale, logit_cap=logit_cap,
+              sliding_window=sliding_window)
+    if q.shape[0] == page_table.shape[0]:
+        return ragged_paged_attention_packed(q, kv_cache, layer_idx, page_table,
+                                             kv_lens, **kw)
+    return ragged_paged_attention_extend(q, kv_cache, layer_idx, page_table, kv_lens,
+                                         meta, **kw)
+
+
+def ragged_paged_attention_plain(
+    q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size, scale,
+    logit_cap=None, sliding_window=None, v_dim=None, spec_anc=None, win_base=None,
+) -> torch.Tensor:
+    """The aligned pool's routing over the two plain versions, on any device."""
+    _no_spec(spec_anc, win_base, v_dim)
+    Hkv, D = pool_heads(kv_cache)
+    return ragged_paged_attention_chunked_plain(
+        q, kv_cache, layer_idx, page_table, kv_lens, meta, page_size=page_size,
+        num_kv_heads=Hkv, head_dim=D, scale=scale, logit_cap=logit_cap,
+        sliding_window=sliding_window)
+
+
+def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size,
+            num_kv_heads, head_dim, scale, logit_cap, sliding_window):
+    check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim)
+    kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
+              scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
+    if q.device.type == "cpu":
+        return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta,
+                                      **kw)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no extend kernel for device {q.device}")
+    ints = (meta.q_lens, meta.q_start, meta.block_seq, meta.block_row, meta.block_qofs)
+    if any(a.dtype != torch.int32 for a in ints):
+        raise ValueError("work-list arrays must be int32")
+    check_cuda(q, kv_cache, page_table, kv_lens, *ints)
+    T, Hq, D = q.shape
+    k_ptr, v_ptr, row_stride = kv_planes(kv_cache, layer_idx, num_kv_heads, D)
+    # zeros: bucket-padding rows stay finite when their K/V are later
+    # scattered into the dump page
+    out = torch.zeros_like(q)
+    kernel.launch(
+        q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
+        *[a.data_ptr() for a in ints], out.data_ptr(), meta.block_seq.shape[0], Hq,
+        num_kv_heads, D, row_stride, page_table.shape[1], page_size, float(scale),
+        float(logit_cap or 0.0), int(sliding_window or 0), TYPE_CODES[q.dtype],
+        TYPE_CODES[kv_cache.dtype], cuda_stream_ptr(q.device))
+    return out
 
 
 def ragged_paged_attention_chunked_extend(
@@ -100,44 +192,57 @@ def ragged_paged_attention_chunked_extend(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Extend attention; rows no work-list entry owns stay 0."""
-    check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim)
-    if q.device.type == "cpu":
-        return ragged_paged_attention_chunked_extend_plain(
-            q, kv_cache, layer_idx, page_table, kv_lens, meta, page_size=page_size,
-            num_kv_heads=num_kv_heads, head_dim=head_dim, scale=scale,
-            logit_cap=logit_cap, sliding_window=sliding_window)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"no extend kernel for device {q.device}")
-    ints = (meta.q_lens, meta.q_start, meta.block_seq, meta.block_row, meta.block_qofs)
-    if any(a.dtype != torch.int32 for a in ints):
-        raise ValueError("work-list arrays must be int32")
-    check_cuda(q, kv_cache, page_table, kv_lens, *ints)
-    T, Hq, D = q.shape
-    # zeros: bucket-padding rows stay finite when their K/V are later
-    # scattered into the dump page
-    out = torch.zeros_like(q)
-    EXTEND_KERNEL.launch(
-        q.data_ptr(), layer_ptr(kv_cache, layer_idx), page_table.data_ptr(),
-        kv_lens.data_ptr(), *[a.data_ptr() for a in ints], out.data_ptr(),
-        meta.block_seq.shape[0], Hq, num_kv_heads, D, kv_cache.shape[2] * 128,
-        page_table.shape[1], page_size, float(scale), float(logit_cap or 0.0),
-        int(sliding_window or 0), int(q.dtype == torch.bfloat16),
-        cuda_stream_ptr(q.device))
-    return out
+    """Extend attention over the chunked pool; rows no work-list entry owns
+    stay 0."""
+    return _extend(EXTEND_KERNEL, q, kv_cache, layer_idx, page_table, kv_lens, meta,
+                   page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
+                   scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
 
 
-def ragged_paged_attention_chunked_extend_plain(
+def ragged_paged_attention_extend(
+    q: torch.Tensor,  # [T, Hq, D] flat new tokens
+    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D]
+    layer_idx: int,
+    page_table: torch.Tensor,  # [B, maxP] int32
+    kv_lens: torch.Tensor,  # [B] int32
+    meta,  # runtime.forward_batch.AttnMeta
+    *,
+    page_size: int,
+    scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Extend attention over the aligned pool; rows no work-list entry owns
+    stay 0."""
+    Hkv, D = pool_heads(kv_cache)
+    return _extend(EXTEND_ALIGNED_KERNEL, q, kv_cache, layer_idx, page_table, kv_lens,
+                   meta, page_size=page_size, num_kv_heads=Hkv, head_dim=D, scale=scale,
+                   logit_cap=logit_cap, sliding_window=sliding_window)
+
+
+def ragged_paged_attention_extend_plain(
+    q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size, scale,
+    logit_cap=None, sliding_window=None,
+) -> torch.Tensor:
+    """Plain version of the aligned extend kernel."""
+    Hkv, D = pool_heads(kv_cache)
+    return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta,
+                                  page_size=page_size, num_kv_heads=Hkv, head_dim=D,
+                                  scale=scale, logit_cap=logit_cap,
+                                  sliding_window=sliding_window)
+
+
+def extend_attention_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size,
     num_kv_heads, head_dim, scale, logit_cap=None, sliding_window=None,
 ) -> torch.Tensor:
-    """Plain version of the extend kernel: a loop over the work-list
-    entries, each gathering its request's pages up to its last row's
-    position, then a causal float32 softmax over them."""
+    """Plain version of both extend kernels, on either pool: a loop over
+    the work-list entries, each gathering its request's pages up to its
+    last row's position, then a causal float32 softmax over them."""
     T, Hq, D = q.shape
     Hkv = num_kv_heads
     G = Hq // Hkv
-    kv5 = layer_kv5(kv_cache, layer_idx, Hkv, D)
+    k_layer, v_layer = layer_kv(kv_cache, layer_idx, Hkv, D)
     seq, row, qofs = (meta.block_seq.tolist(), meta.block_row.tolist(),
                       meta.block_qofs.tolist())
     q_lens, q_start, lens = (meta.q_lens.tolist(), meta.q_start.tolist(),
@@ -152,7 +257,7 @@ def ragged_paged_attention_chunked_extend_plain(
         n = min(lens[b], q_start[b] + qofs[i] + n_rows, cap)
         if n <= 0:
             continue
-        k, v = gather_kv(kv5, page_table[b], n, page_size)
+        k, v = gather_kv(k_layer, v_layer, page_table[b], n, page_size)
         r0 = row[i]
         qb = q[r0 : r0 + n_rows].float().reshape(n_rows, Hkv, G, D)
         s = torch.einsum("rhgd,nhd->rhgn", qb, k) * scale
@@ -169,3 +274,4 @@ def ragged_paged_attention_chunked_extend_plain(
         o = torch.einsum("rhgn,nhd->rhgd", p, v).reshape(n_rows, Hq, D)
         out[r0 : r0 + n_rows] = o.to(q.dtype)
     return out
+

@@ -1,6 +1,13 @@
 """Shared helpers of the port's ragged paged attention wrappers: argument
-checks before a pointer reaches a kernel, the per-layer pool pointer, and
-the page gather the plain versions use."""
+checks before a pointer reaches a kernel, the per-layer K and V addresses
+of either pool, and the page gather the plain versions use.
+
+Two pool layouts (mem/pool.py): the chunked pool ``[L, S, CT, 128]`` (one
+row of ``2*Hkv*D`` elements per slot, K of all heads then V) and the
+aligned pool ``[L, 2, S, Hkv, D]`` (K and V each in their own plane). The
+kernels address both through a K base, a V base and one row stride
+(csrc/rpa_common.cuh).
+"""
 
 from __future__ import annotations
 
@@ -14,8 +21,35 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
-# head_dim the kernels are instantiated for: the main path's
-KERNEL_HEAD_DIM = 64
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+# Element type codes of the C entry points (csrc/rpa_common.cuh TypeCode)
+TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
+              torch.float8_e5m2: 3}
+
+# What each pool's kernels are instantiated for: the head_dim and the
+# (q, KV) dtype pairs of the paths that use them
+KERNEL_HEAD_DIM = {"chunked": 64, "aligned": 128}
+KERNEL_PAIRS = {
+    "chunked": {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)},
+    "aligned": {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                (torch.bfloat16, torch.float8_e4m3fn), (torch.bfloat16, torch.float8_e5m2)},
+}
+
+
+def pool_layout(kv_cache: torch.Tensor) -> str:
+    """"chunked" for [L, S, CT, 128], "aligned" for [L, 2, S, Hkv, D]."""
+    if kv_cache.dim() == 4 and kv_cache.shape[3] == 128:
+        return "chunked"
+    if kv_cache.dim() == 5 and kv_cache.shape[1] == 2:
+        return "aligned"
+    raise ValueError(f"kv_cache must be the chunked pool [L, S, CT, 128] or the "
+                     f"aligned pool [L, 2, S, Hkv, D], got {tuple(kv_cache.shape)}")
+
+
+def pool_heads(kv_cache: torch.Tensor) -> Tuple[int, int]:
+    """(Hkv, D) of the aligned pool."""
+    return kv_cache.shape[3], kv_cache.shape[4]
 
 
 def check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads,
@@ -28,17 +62,20 @@ def check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads,
         raise ValueError(f"q head_dim {D} != head_dim {head_dim}")
     if num_kv_heads <= 0 or Hq % num_kv_heads:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={num_kv_heads}")
-    if kv_cache.dim() != 4 or kv_cache.shape[3] != 128:
-        raise ValueError(f"kv_cache must be the chunked pool [L, S, CT, 128], "
-                         f"got {tuple(kv_cache.shape)}")
-    if kv_cache.shape[2] * 128 != 2 * num_kv_heads * D:
+    layout = pool_layout(kv_cache)
+    if layout == "chunked" and kv_cache.shape[2] * 128 != 2 * num_kv_heads * D:
         raise ValueError(f"pool rows hold {kv_cache.shape[2] * 128} elements, "
                          f"expected 2*Hkv*D = {2 * num_kv_heads * D}")
+    if layout == "aligned" and pool_heads(kv_cache) != (num_kv_heads, D):
+        raise ValueError(f"aligned pool holds (Hkv, D) = {pool_heads(kv_cache)}, "
+                         f"expected {(num_kv_heads, D)}")
     if not 0 <= int(layer_idx) < kv_cache.shape[0]:
         raise ValueError(f"layer {layer_idx} outside the pool's {kv_cache.shape[0]} layers")
-    if kv_cache.dtype != q.dtype:
-        raise ValueError(f"q dtype {q.dtype} != KV dtype {kv_cache.dtype} "
-                         f"(fp8 KV is ROADMAP A9)")
+    fp8_ok = (layout == "aligned" and kv_cache.dtype in FP8
+              and q.dtype in (torch.bfloat16, torch.float32))
+    if kv_cache.dtype != q.dtype and not fp8_ok:
+        raise ValueError(f"q dtype {q.dtype} does not go with KV dtype {kv_cache.dtype} "
+                         f"on the {layout} pool (fp8 KV on the chunked pool is ROADMAP A9)")
     if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
         raise ValueError("page_table and kv_lens must be int32")
     if page_table.dim() != 2 or kv_lens.shape != (page_table.shape[0],):
@@ -47,44 +84,62 @@ def check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads,
     return Hq, D, Hq // num_kv_heads
 
 
-def check_cuda(*tensors) -> None:
+def check_cuda(q, kv_cache, *ints) -> None:
     """Everything a kernel reads or writes: one CUDA device, contiguous, a
-    dtype the kernels were built for, and 16-byte aligned where the kernel
-    reads 16-byte vectors (q, the pool). The int32 arrays are read element
-    by element and may be views into the packed step vector."""
-    dev = tensors[0].device
-    for t in tensors:
+    head_dim and (q, KV) dtype pair the pool's kernels were built for, and
+    16-byte aligned where the kernel reads 16-byte vectors (q, the pool).
+    The int32 arrays are read element by element and may be views into
+    the packed step vector."""
+    dev = q.device
+    for t in (q, kv_cache, *ints):
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
-        if t.is_floating_point() and t.data_ptr() % 16:
-            raise ValueError("q and the KV pool must be 16-byte aligned")
-    if tensors[0].dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"kernels take bfloat16 or float32, got {tensors[0].dtype}")
-    if tensors[0].shape[-1] != KERNEL_HEAD_DIM:
+    if q.data_ptr() % 16 or kv_cache.data_ptr() % 16:
+        raise ValueError("q and the KV pool must be 16-byte aligned")
+    layout = pool_layout(kv_cache)
+    if (q.dtype, kv_cache.dtype) not in KERNEL_PAIRS[layout]:
+        raise ValueError(f"the {layout} pool's kernels take (q, KV) dtypes "
+                         f"{sorted(map(str, KERNEL_PAIRS[layout]))}, got "
+                         f"({q.dtype}, {kv_cache.dtype})")
+    if q.shape[-1] != KERNEL_HEAD_DIM[layout]:
         raise NotImplementedError(
-            f"head_dim {tensors[0].shape[-1]}: the kernels are built for "
-            f"{KERNEL_HEAD_DIM} only; other head dims are ROADMAP A9")
+            f"head_dim {q.shape[-1]}: the {layout} pool's kernels are built for "
+            f"{KERNEL_HEAD_DIM[layout]} only; other head dims are ROADMAP A9")
 
 
-def layer_ptr(kv_cache: torch.Tensor, layer_idx: int) -> int:
-    """Address of layer ``layer_idx`` of the pool (computed in Python ints:
-    a full pool can exceed 2**31 elements)."""
-    L, S, CT, W = kv_cache.shape
-    return kv_cache.data_ptr() + int(layer_idx) * S * CT * W * kv_cache.element_size()
+def kv_planes(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int,
+              head_dim: int) -> Tuple[int, int, int]:
+    """(K address, V address, row stride in elements) of layer
+    ``layer_idx``: K and V of slot s, head h sit at base + (s * row_stride
+    + h * D) elements. Computed in Python ints: a full pool can exceed
+    2**31 elements."""
+    esz = kv_cache.element_size()
+    if pool_layout(kv_cache) == "chunked":
+        L, S, CT, W = kv_cache.shape
+        k = kv_cache.data_ptr() + int(layer_idx) * S * CT * W * esz
+        return k, k + num_kv_heads * head_dim * esz, CT * W
+    L, _, S, Hkv, D = kv_cache.shape
+    plane = S * Hkv * D * esz
+    k = kv_cache.data_ptr() + int(layer_idx) * 2 * plane
+    return k, k + plane, Hkv * D
 
 
-def gather_kv(kv5: torch.Tensor, pt_row: torch.Tensor, n: int, page_size: int):
+def layer_kv(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int, head_dim: int):
+    """K and V of layer ``layer_idx`` of either pool, as [S, Hkv, D] views."""
+    if pool_layout(kv_cache) == "chunked":
+        S = kv_cache.shape[1]
+        kv = kv_cache[int(layer_idx)].reshape(S, 2, num_kv_heads, head_dim)
+        return kv[:, 0], kv[:, 1]
+    return kv_cache[int(layer_idx), 0], kv_cache[int(layer_idx), 1]
+
+
+def gather_kv(k_layer: torch.Tensor, v_layer: torch.Tensor, pt_row: torch.Tensor,
+              n: int, page_size: int):
     """K and V of positions [0, n) of one request, as float32 [n, Hkv, D],
-    read page by page through the request's page-table row. ``kv5`` is the
-    layer's pool viewed as [S, 2, Hkv, D]."""
-    pos = torch.arange(n, device=kv5.device)
+    read page by page through the request's page-table row from a layer's
+    [S, Hkv, D] views (``layer_kv``)."""
+    pos = torch.arange(n, device=k_layer.device)
     slots = pt_row.long()[pos // page_size] * page_size + pos % page_size
-    rows = kv5[slots]
-    return rows[:, 0].float(), rows[:, 1].float()
-
-
-def layer_kv5(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int, head_dim: int):
-    S = kv_cache.shape[1]
-    return kv_cache[int(layer_idx)].reshape(S, 2, num_kv_heads, head_dim)
+    return k_layer[slots].float(), v_layer[slots].float()

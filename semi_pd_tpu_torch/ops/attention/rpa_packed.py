@@ -1,17 +1,24 @@
-"""Paged DECODE attention over the chunked combined pool: the CUDA kernel's
-wrapper and its plain PyTorch version.
+"""Paged DECODE attention over either KV pool: the CUDA kernels' wrappers
+and their plain PyTorch version.
 
-Port of semi_pd_tpu/ops/attention/rpa_packed.py::
-ragged_paged_attention_chunked_packed (TPU kernel _rpa_kernel_chunked_packed,
-rpa_packed.py:32). One query row per request at position kv_len - 1; GQA,
-f32 online softmax, optional logit softcap and sliding window. The TPU
-kernel's rpb/SUB request packing and its RPA_DECODE_PACKED /
-RPA_PACKED_DIAG switches schedule work for the TPU and are not ported; the
-CUDA design (csrc/rpa_decode.cu) is described there.
+Ports of two TPU kernels of semi_pd_tpu/ops/attention/rpa_packed.py:
 
-``ragged_paged_attention_chunked_packed`` launches the kernel for CUDA
-tensors and uses ``..._plain`` only for tensors on the CPU; any other
-device raises. Nothing falls back.
+- ``ragged_paged_attention_chunked_packed``: the chunked pool
+  ``[L, S, CT, 128]`` (TPU kernel _rpa_kernel_chunked_packed, :32);
+- ``ragged_paged_attention_packed``: the aligned pool ``[L, 2, S, Hkv, D]``
+  with bf16, float32 or fp8 KV (TPU kernel _rpa_kernel_packed, :349, its
+  GQA branch; its MLA ``v_dim`` branch is ROADMAP A12).
+
+One query row per request at position kv_len - 1; GQA, f32 online softmax,
+optional logit softcap and sliding window. fp8 KV is upcast exactly, as the
+TPU kernel upcasts it to q's dtype. The TPU kernels' rpb/SUB request
+packing and their RPA_DECODE_PACKED / RPA_PACKED_DIAG switches schedule
+work for the TPU and are not ported; the CUDA design (csrc/rpa_decode.cu)
+is described there.
+
+The wrappers launch their kernel for CUDA tensors and use
+``decode_attention_plain`` only for tensors on the CPU; any other device
+raises. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -22,16 +29,51 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    F, I, P, check_cuda, check_pool_args, gather_kv, layer_kv5, layer_ptr,
+    F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kv_planes, layer_kv,
+    pool_heads,
 )
+
+_ARGTYPES = [P] * 6 + [I] * 7 + [F, F, I, I, I, P]
 
 DECODE_KERNEL = register(CudaKernel(
     name="rpa_decode",
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode",
-    argtypes=[P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, I, P],
+    argtypes=_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:32 _rpa_kernel_chunked_packed",
 ))
+
+DECODE_ALIGNED_KERNEL = register(CudaKernel(
+    name="rpa_decode_aligned",
+    source="csrc/rpa_decode.cu",
+    symbol="rpa_decode_aligned",
+    argtypes=_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed",
+    defines=("RPA_ALIGNED",),
+))
+
+
+def _decode(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_size,
+            num_kv_heads, head_dim, scale, logit_cap, sliding_window):
+    check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim)
+    if q.shape[0] != page_table.shape[0]:
+        raise ValueError("decode takes one query row per request (T == B)")
+    kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
+              scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, **kw)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no decode kernel for device {q.device}")
+    check_cuda(q, kv_cache, page_table, kv_lens)
+    B, Hq, D = q.shape
+    k_ptr, v_ptr, row_stride = kv_planes(kv_cache, layer_idx, num_kv_heads, D)
+    out = torch.empty_like(q)
+    kernel.launch(
+        q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
+        out.data_ptr(), B, Hq, num_kv_heads, D, row_stride, page_table.shape[1],
+        page_size, float(scale), float(logit_cap or 0.0), int(sliding_window or 0),
+        TYPE_CODES[q.dtype], TYPE_CODES[kv_cache.dtype], cuda_stream_ptr(q.device))
+    return out
 
 
 def ragged_paged_attention_chunked_packed(
@@ -48,39 +90,55 @@ def ragged_paged_attention_chunked_packed(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Decode attention: returns [B, Hq, D]; rows with kv_len == 0 are 0."""
-    check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim)
-    if q.shape[0] != page_table.shape[0]:
-        raise ValueError("decode takes one query row per request (T == B)")
-    if q.device.type == "cpu":
-        return ragged_paged_attention_chunked_packed_plain(
-            q, kv_cache, layer_idx, page_table, kv_lens, page_size=page_size,
-            num_kv_heads=num_kv_heads, head_dim=head_dim, scale=scale,
-            logit_cap=logit_cap, sliding_window=sliding_window)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"no decode kernel for device {q.device}")
-    check_cuda(q, kv_cache, page_table, kv_lens)
-    B, Hq, D = q.shape
-    out = torch.empty_like(q)
-    DECODE_KERNEL.launch(
-        q.data_ptr(), layer_ptr(kv_cache, layer_idx), page_table.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(), B, Hq, num_kv_heads, D,
-        kv_cache.shape[2] * 128, page_table.shape[1], page_size, float(scale),
-        float(logit_cap or 0.0), int(sliding_window or 0),
-        int(q.dtype == torch.bfloat16), cuda_stream_ptr(q.device))
-    return out
+    """Decode attention over the chunked pool: returns [B, Hq, D]; rows
+    with kv_len == 0 are 0."""
+    return _decode(DECODE_KERNEL, q, kv_cache, layer_idx, page_table, kv_lens,
+                   page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
+                   scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
 
 
-def ragged_paged_attention_chunked_packed_plain(
+def ragged_paged_attention_packed(
+    q: torch.Tensor,  # [B, Hq, D] one row per request
+    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D]
+    layer_idx: int,
+    page_table: torch.Tensor,  # [B, maxP] int32
+    kv_lens: torch.Tensor,  # [B] int32
+    *,
+    page_size: int,
+    scale: float,
+    logit_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Decode attention over the aligned pool (Hkv and D from its shape):
+    returns [B, Hq, D]; rows with kv_len == 0 are 0."""
+    Hkv, D = pool_heads(kv_cache)
+    return _decode(DECODE_ALIGNED_KERNEL, q, kv_cache, layer_idx, page_table, kv_lens,
+                   page_size=page_size, num_kv_heads=Hkv, head_dim=D, scale=scale,
+                   logit_cap=logit_cap, sliding_window=sliding_window)
+
+
+def ragged_paged_attention_packed_plain(
+    q, kv_cache, layer_idx, page_table, kv_lens, *, page_size, scale,
+    logit_cap=None, sliding_window=None,
+) -> torch.Tensor:
+    """Plain version of the aligned decode kernel."""
+    Hkv, D = pool_heads(kv_cache)
+    return decode_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens,
+                                  page_size=page_size, num_kv_heads=Hkv, head_dim=D,
+                                  scale=scale, logit_cap=logit_cap,
+                                  sliding_window=sliding_window)
+
+
+def decode_attention_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, *, page_size, num_kv_heads,
     head_dim, scale, logit_cap=None, sliding_window=None,
 ) -> torch.Tensor:
-    """Plain version of the decode kernel: a loop over requests, each
-    gathering its pages, then a full float32 softmax."""
+    """Plain version of both decode kernels, on either pool: a loop over
+    requests, each gathering its pages, then a full float32 softmax."""
     B, Hq, D = q.shape
     Hkv = num_kv_heads
     G = Hq // Hkv
-    kv5 = layer_kv5(kv_cache, layer_idx, Hkv, D)
+    k_layer, v_layer = layer_kv(kv_cache, layer_idx, Hkv, D)
     lens = kv_lens.tolist()
     cap = page_table.shape[1] * page_size
     out = torch.zeros_like(q)
@@ -88,7 +146,7 @@ def ragged_paged_attention_chunked_packed_plain(
         n = min(lens[b], cap)
         if n <= 0:
             continue
-        k, v = gather_kv(kv5, page_table[b], n, page_size)
+        k, v = gather_kv(k_layer, v_layer, page_table[b], n, page_size)
         s = torch.einsum("hgd,nhd->hgn", q[b].float().reshape(Hkv, G, D), k) * scale
         if logit_cap:
             s = logit_cap * torch.tanh(s / logit_cap)
@@ -98,3 +156,4 @@ def ragged_paged_attention_chunked_packed_plain(
         p = torch.softmax(s, dim=-1)
         out[b] = torch.einsum("hgn,nhd->hgd", p, v).reshape(Hq, D).to(q.dtype)
     return out
+

@@ -8,14 +8,14 @@ T == B with one token per request.
 
 The extend work list (``make_attn_meta_host`` / ``num_q_blocks``, moved
 here from the JAX package's ``rpa_common.py``) is built with
-``EXTEND_Q_BLOCK``, the constant the extend kernel is compiled with, so the
-list and the kernel cannot disagree on the block height.
+``EXTEND_Q_BLOCK``, the constant the extend kernels are compiled with, so
+the list and the kernels cannot disagree on the block height.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -60,6 +60,9 @@ class ForwardArrays(NamedTuple):
     num_reqs: int  # actual (unpadded) request count
     attn_meta: AttnMeta  # extend work list
     all_greedy: bool = False  # every live row samples greedily (host-known)
+    # [L, 2] f32 per-layer fp8-KV (k_scale, v_scale), stamped by the runner
+    # when it loaded a scales file (layers/attention.py applies them)
+    kv_scales: Optional[torch.Tensor] = None
 
 
 def num_q_blocks(T: int, B: int) -> int:

@@ -11,11 +11,18 @@ and decode are two shapes of one step on one pool), samples on the device
 and returns device tensors without waiting for them. ``read_results``
 brings a whole flush of steps back in one device->host copy.
 
+The KV pool's layout follows the model's geometry (``kv_pool_layout``):
+the chunked pool for head_dim 64-class models, the aligned pool for
+head_dim 128, the latter also with fp8 KV and calibrated per-layer scales
+(``quantization_param_path``). Random weights are drawn on the step device
+(model_loader/loader.py::device_init_params).
+
 The step runs eagerly; CUDA graphs per decode bucket are ROADMAP A6b.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import time
 from typing import List, Optional, Tuple
@@ -26,6 +33,7 @@ import torch
 from semi_pd_tpu_torch.config.model_config import ModelConfig
 from semi_pd_tpu_torch.config.server_args import ServerArgs
 from semi_pd_tpu_torch.mem.pool import KVCache, KVCacheSpec, PageAllocator, ReqToPagePool
+from semi_pd_tpu_torch.model_loader.loader import device_init_params
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
 from semi_pd_tpu_torch.ops.sampling import SamplingArrays, compute_logprobs, sample
 from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, ForwardArrays, ForwardMode
@@ -33,6 +41,54 @@ from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, ForwardArrays, For
 logger = logging.getLogger(__name__)
 
 ARCHITECTURES = ("LlamaForCausalLM",)
+
+KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
+
+
+def _load_kv_cache_scales(path: str, num_layers: int) -> np.ndarray:
+    """Parse a kv-cache-scales JSON (copy of the JAX package's parser, the
+    vLLM schema): either {"kv_cache": {"scaling_factor": {"0": {"0": s,
+    ...}}}} (per-TP-rank) or a flat {"0": s, ...}; per-layer dicts
+    {"k_scale": x, "v_scale": y} are also accepted. Returns float32 [L, 2]
+    (k_scale, v_scale)."""
+    with open(path) as f:
+        doc = json.load(f)
+    sf = doc.get("kv_cache", {}).get("scaling_factor", doc)
+    if sf and all(isinstance(v, dict) and all(k.isdigit() for k in v)
+                  for v in sf.values()):
+        sf = sf.get("0") or next(iter(sf.values()))  # TP-rank level
+    out = np.ones((num_layers, 2), np.float32)
+    for k, v in sf.items():
+        li = int(k)
+        if li >= num_layers:
+            continue
+        if isinstance(v, dict):
+            out[li, 0] = float(v.get("k_scale", 1.0))
+            out[li, 1] = float(v.get("v_scale", 1.0))
+        else:
+            out[li, :] = float(v)
+    return out
+
+
+def kv_pool_layout(num_kv_heads: int, head_dim: int) -> str:
+    """The KV pool layout of a geometry: "chunked" iff D % 128 != 0,
+    128 % D == 0 and (2*Hkv*D) % 128 == 0; "aligned" iff D % 128 == 0.
+    The JAX runner's rule (model_runner.py:304-314) without its backend
+    clause, so the CPU runs the card's layout. Raises where the port has no
+    kernels: head_dim 256 and other aligned widths, and the 5D pool at
+    D < 128."""
+    D, Hkv = head_dim, num_kv_heads
+    if D % 128 == 0:
+        if D != 128:
+            raise NotImplementedError(
+                f"head_dim {D} on the aligned pool: its kernels are built for 128; "
+                f"gemma2's 256 is ROADMAP A9")
+        return "aligned"
+    if 128 % D == 0 and (2 * Hkv * D) % 128 == 0:
+        return "chunked"
+    raise NotImplementedError(
+        f"Hkv={Hkv}, head_dim={D} fits neither the chunked nor the aligned pool; "
+        f"the 5D pool at head_dim < 128 (_rpa_kernel_merged) is ROADMAP B4")
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -66,6 +122,13 @@ class ModelRunner:
         self.model_config = model_config
         self.model = LlamaForCausalLM(model_config, device=self.device)
         self.model.page_size = server_args.page_size
+        self.kv_scales = None
+        if server_args.quantization_param_path:
+            self.kv_scales = torch.as_tensor(
+                _load_kv_cache_scales(server_args.quantization_param_path,
+                                      model_config.num_hidden_layers),
+                device=self.device)
+            logger.info("fp8-KV scales loaded for %d layers", len(self.kv_scales))
         self._load_weights()
         self._init_memory_pool()
         self.generator = torch.Generator(device=self.device)
@@ -80,7 +143,7 @@ class ModelRunner:
         if self.server_args.model_path and not self.server_args.random_weights:
             raise NotImplementedError("checkpoint loading is ROADMAP A13; use "
                                       "random_weights or load_jax_params")
-        self.model.init_params(self.server_args.seed)
+        device_init_params(self.model, self.server_args.seed, self.device)
         self.weight_bytes = sum(p.numel() * p.element_size()
                                 for p in self.model.parameters())
         logger.info("weights ready: %.2f GiB in %.1fs", self.weight_bytes / 2**30,
@@ -90,8 +153,12 @@ class ModelRunner:
     def _init_memory_pool(self) -> None:
         args, mc = self.server_args, self.model_config
         page_size = args.page_size
-        kv_dtype = (DTYPES[mc.dtype] if args.kv_cache_dtype == "auto"
-                    else DTYPES[args.kv_cache_dtype])
+        kv_dtype = KV_DTYPES[mc.dtype if args.kv_cache_dtype == "auto" else args.kv_cache_dtype]
+        layout = kv_pool_layout(mc.num_kv_heads_total, mc.kv_head_dim)
+        if layout == "chunked" and kv_dtype.itemsize == 1:
+            raise NotImplementedError(
+                f"{args.kv_cache_dtype} KV on the chunked pool (head_dim "
+                f"{mc.kv_head_dim}) is ROADMAP A9; fp8 KV runs on the aligned pool")
         num_tokens = args.max_total_tokens or self._profile_kv_tokens(kv_dtype)
         num_pages = max(num_tokens // page_size, 8) + 1  # +1 dump page
         max_context = min(mc.context_length, num_tokens)
@@ -100,21 +167,21 @@ class ModelRunner:
         self.kv_spec = KVCacheSpec(
             num_layers=mc.num_hidden_layers, num_pages=num_pages,
             page_size=page_size, num_kv_heads=mc.num_kv_heads_total,
-            head_dim=mc.kv_head_dim, dtype=kv_dtype,
+            head_dim=mc.kv_head_dim, dtype=kv_dtype, chunked=layout == "chunked",
         )
         self.kv_cache = KVCache(self.kv_spec, self.device)
         self.page_allocator = PageAllocator(num_pages, page_size)
         self.req_pool = ReqToPagePool(self.max_running_requests, max_context, page_size)
         self.max_context_len = max_context
-        logger.info("KV pool: %d pages x %d tokens (%.2f GiB, %s), max_running=%d",
-                    num_pages, page_size, self.kv_spec.bytes_total() / 2**30,
+        logger.info("KV pool: %s, %d pages x %d tokens (%.2f GiB, %s), max_running=%d",
+                    layout, num_pages, page_size, self.kv_spec.bytes_total() / 2**30,
                     kv_dtype, self.max_running_requests)
 
     def _profile_kv_tokens(self, kv_dtype: torch.dtype) -> int:
         """Size the KV pool from free device memory."""
         mc = self.model_config
         per_token = (mc.num_hidden_layers * mc.num_kv_heads_total * mc.kv_head_dim
-                     * torch.tensor([], dtype=kv_dtype).element_size() * 2)
+                     * kv_dtype.itemsize * 2)
         if self.device.type != "cuda":
             return 32768  # CPU: a small pool for tests
         free, _ = torch.cuda.mem_get_info(self.device)
@@ -123,6 +190,8 @@ class ModelRunner:
 
     # ------------------------------------------------------------- step
     def _step(self, fb: ForwardArrays) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.kv_scales is not None:  # this runner's own scales, every step
+            fb = fb._replace(kv_scales=self.kv_scales)
         with torch.inference_mode():
             logits = self.model(fb, self.kv_cache.buffer)
             tokens = sample(logits, fb.sampling, self.generator, fb.all_greedy)

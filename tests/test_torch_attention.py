@@ -186,9 +186,9 @@ def test_routing_decode_when_T_equals_B():
     kw = dict(page_size=PS, num_kv_heads=HKV, head_dim=D, scale=SCALE)
     a = rpa.ragged_paged_attention_chunked(_t(d["q"]), _t(d["pool"]), 0, _t(d["pt"]),
                                            kvl, meta, **kw)
-    b = rpa_packed.ragged_paged_attention_chunked_packed_plain(
+    b = rpa_packed.decode_attention_plain(
         _t(d["q"]), _t(d["pool"]), 0, _t(d["pt"]), kvl, **kw)
-    e = rpa.ragged_paged_attention_chunked_extend_plain(
+    e = rpa.extend_attention_plain(
         _t(d["q"]), _t(d["pool"]), 0, _t(d["pt"]), kvl, meta, **kw)
     assert torch.equal(a, b)
     torch.testing.assert_close(a, e, rtol=2e-5, atol=2e-5)

@@ -9,7 +9,8 @@ Without a CUDA device every test skips.
 
 Tolerances: float32 1e-4 (online vs full softmax, another summation order);
 bfloat16 1e-2 (the kernels round P to bf16 before P.V, as the TPU kernels
-do). The softcap of 1.0 bends most scores, whose std is about 1 here.
+do), also with fp8 KV, where kernel and plain version read the same fp8
+bytes. The softcap of 1.0 bends most scores, whose std is about 1 here.
 """
 
 import numpy as np
@@ -27,6 +28,7 @@ from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
 HQ, HKV, D, PS, L = 8, 2, 64, 16, 2
 CT = 2 * HKV * D // 128
+D_ALIGNED = 128
 
 
 @pytest.fixture
@@ -46,7 +48,10 @@ def _unaligned(a: np.ndarray, dev) -> torch.Tensor:
     return view
 
 
-def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0):
+def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
+          kv_dtype=None):
+    """Queries, a pool (chunked [L, S, CT, 128] or aligned [L, 2, S, Hkv,
+    128], in ``kv_dtype``, default ``dtype``) and a shuffled page table."""
     rng = np.random.default_rng(seed)
     B = len(kv_lens) + pad_B
     n_pages = [-(-k // PS) for k in kv_lens]
@@ -62,12 +67,29 @@ def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0):
     ql[: len(q_lens)] = q_lens
     kl = np.zeros(B, np.int32)
     kl[: len(kv_lens)] = kv_lens
-    pool = torch.from_numpy(rng.normal(size=(L, total * PS, CT, 128)).astype(np.float32))
-    q = torch.from_numpy(rng.normal(size=(T, HQ, D)).astype(np.float32))
+    d = D_ALIGNED if aligned else D
+    shape = (L, 2, total * PS, HKV, d) if aligned else (L, total * PS, CT, 128)
+    pool = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(T, HQ, d)).astype(np.float32))
     m = build_attn_meta(ql, kl, T)
     meta = AttnMeta(*[_unaligned(a.numpy(), dev) for a in m])
-    return (q.to(dev, dtype), pool.to(dev, dtype), _unaligned(pt, dev),
+    return (q.to(dev, dtype), pool.to(dev, kv_dtype or dtype), _unaligned(pt, dev),
             _unaligned(kl, dev), meta)
+
+
+def _decode_case(dev, dtype, **kw):
+    return _case(7, [1] * 6, [33, 0, 260, 9, 77, 1], dev, dtype, **kw)
+
+
+def _extend_case(dev, dtype, **kw):
+    return _case(7, [140, 20, 1, 7], [140, 60, 9, 300], dev, dtype, pad_T=9, pad_B=1,
+                 **kw)
+
+
+def _opts(opt, scale):
+    return dict(page_size=PS, scale=scale,
+                logit_cap=1.0 if opt == "softcap" else None,
+                sliding_window=24 if opt == "window" else None)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -75,34 +97,56 @@ def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0):
 @pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
 def test_kernel_matches_plain(cuda_device, kind, dtype, opt):
     dt = getattr(torch, dtype)
-    if kind == "decode":
-        q, pool, pt, kvl, meta = _case(7, [1] * 6, [33, 0, 260, 9, 77, 1], cuda_device, dt)
-    else:
-        q, pool, pt, kvl, meta = _case(7, [140, 20, 1, 7], [140, 60, 9, 300], cuda_device,
-                                       dt, pad_T=9, pad_B=1)
-    kw = dict(page_size=PS, num_kv_heads=HKV, head_dim=D, scale=0.125,
-              logit_cap=1.0 if opt == "softcap" else None,
-              sliding_window=24 if opt == "window" else None)
+    case = _decode_case if kind == "decode" else _extend_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt)
+    kw = dict(_opts(opt, 0.125), num_kv_heads=HKV, head_dim=D)
     k = KERNELS["rpa_" + kind]
     before = k.launches
     if kind == "decode":
         out = rpa_packed.ragged_paged_attention_chunked_packed(q, pool, 1, pt, kvl, **kw)
-        ref = rpa_packed.ragged_paged_attention_chunked_packed_plain(q, pool, 1, pt, kvl, **kw)
+        ref = rpa_packed.decode_attention_plain(q, pool, 1, pt, kvl, **kw)
     else:
         out = rpa.ragged_paged_attention_chunked_extend(q, pool, 1, pt, kvl, meta, **kw)
-        ref = rpa.ragged_paged_attention_chunked_extend_plain(q, pool, 1, pt, kvl, meta, **kw)
+        ref = rpa.extend_attention_plain(q, pool, 1, pt, kvl, meta, **kw)
     torch.cuda.synchronize()
     assert k.launches == before + 1
     tol = 1e-4 if dt == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-def test_engine_on_default_cuda_device_matches_cpu(cuda_device):
-    """The Engine with no device argument runs on the card, through both
-    kernels, and gives the greedy tokens of the same Engine on the CPU."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3"])
+@pytest.mark.parametrize("kind", ["decode", "extend"])
+@pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
+def test_aligned_kernel_matches_plain(cuda_device, kind, dtype, opt):
+    """The aligned pool's kernels (head_dim 128; fp8_e4m3 = bf16 q over an
+    fp8 pool) against their plain versions, on layer 1 of the pool."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    kv_dt = torch.float8_e4m3fn if dtype == "fp8_e4m3" else dt
+    case = _decode_case if kind == "decode" else _extend_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt, aligned=True, kv_dtype=kv_dt)
+    kw = _opts(opt, D_ALIGNED ** -0.5)
+    k = KERNELS[f"rpa_{kind}_aligned"]
+    before = k.launches
+    if kind == "decode":
+        out = rpa_packed.ragged_paged_attention_packed(q, pool, 1, pt, kvl, **kw)
+        ref = rpa_packed.ragged_paged_attention_packed_plain(q, pool, 1, pt, kvl, **kw)
+    else:
+        out = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, **kw)
+        ref = rpa.ragged_paged_attention_extend_plain(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _engines_agree(cuda_device, head_dim, pool_kernels):
+    """The Engine with no device argument runs on the card through the
+    given pool's two kernels (and no other) and gives the greedy tokens of
+    the same Engine on the CPU holding the same parameters (CUDA and CPU
+    generators draw different random weights)."""
     cfg = dict(architecture="LlamaForCausalLM", vocab_size=512, hidden_size=256,
                intermediate_size=512, num_hidden_layers=2, num_attention_heads=HQ,
-               num_key_value_heads=HKV, head_dim=D, context_length=512,
+               num_key_value_heads=HKV, head_dim=head_dim, context_length=512,
                dtype="float32")
     serve = dict(random_weights=True, page_size=PS, max_total_tokens=2048,
                  chunked_prefill_size=64, enable_semi_pd=True)
@@ -111,11 +155,20 @@ def test_engine_on_default_cuda_device_matches_cpu(cuda_device):
     sp = SamplingParams(max_new_tokens=6, temperature=0.0, ignore_eos=True)
     gpu = Engine(ServerArgs(**serve), ModelConfig(**cfg))
     assert gpu.runner.device.type == "cuda"
+    cpu = Engine(ServerArgs(device="cpu", **serve), ModelConfig(**cfg), device="cpu")
+    cpu.runner.model.load_jax_params(gpu.runner.model.params_tree())
     for k in KERNELS.values():
         k.launches = 0
     got = gpu.generate(input_ids=prompts, sampling_params=sp)
-    assert all(k.launches > 0 for k in KERNELS.values())
-    cpu = Engine(ServerArgs(device="cpu", **serve), ModelConfig(**cfg), device="cpu")
+    assert {n for n, k in KERNELS.items() if k.launches} == set(pool_kernels)
     want = cpu.generate(input_ids=prompts, sampling_params=sp)
     assert [o["output_ids"] for o in got] == [o["output_ids"] for o in want]
     assert gpu.flush_cache() and cpu.flush_cache()
+
+
+def test_engine_on_default_cuda_device_matches_cpu(cuda_device):
+    _engines_agree(cuda_device, D, ["rpa_decode", "rpa_extend"])
+
+
+def test_engine_aligned_pool_on_cuda_matches_cpu(cuda_device):
+    _engines_agree(cuda_device, D_ALIGNED, ["rpa_decode_aligned", "rpa_extend_aligned"])

@@ -116,15 +116,22 @@ def test_port_imports_no_jax(target):
 
 
 def test_kernel_registry_and_sources():
-    """Both main-path kernels are registered with a source in the checkout,
-    the TPU kernel they replace, and a launch count that starts at 0."""
+    """The four kernels (decode and extend on the chunked and the aligned
+    pool) are registered with a source in the checkout, the TPU kernel
+    they replace (a function that reaches pl.pallas_call), their own build
+    library and a launch count."""
     from semi_pd_tpu_torch.kernels import KERNELS
     import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
 
-    assert set(KERNELS) == {"rpa_decode", "rpa_extend"}
+    assert set(KERNELS) == {"rpa_decode", "rpa_extend", "rpa_decode_aligned",
+                            "rpa_extend_aligned"}
     for k in KERNELS.values():
         assert k.source.exists() and k.source.suffix == ".cu"
         path, line = k.replaces.split()[0].split(":")
-        assert (ROOT / path).exists() and int(line) > 0
+        src = (ROOT / path).read_text().splitlines()
+        assert src[int(line) - 1].startswith(f"def {k.replaces.split()[1]}(")
         assert "sm_90a" in " ".join(k.flags())
-    assert "EXTEND_QBLK=128" in " ".join(KERNELS["rpa_extend"].flags())
+        assert ("-DRPA_ALIGNED" in k.flags()) == k.name.endswith("_aligned")
+    assert len({k.lib_path() for k in KERNELS.values()}) == 4
+    for name in ("rpa_extend", "rpa_extend_aligned"):
+        assert "EXTEND_QBLK=128" in " ".join(KERNELS[name].flags())

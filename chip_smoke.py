@@ -9,26 +9,30 @@ each (any failure raises and exits non-zero):
 1. setup   — the card, the toolchain, and the build of every CUDA kernel
              from semi_pd_tpu_torch/csrc/ (one nvcc per kernel, in parallel).
 2. kernels — each kernel's wrapper on the card against its plain PyTorch
-             version on the same inputs, at the geometry of its path (Hq 32,
-             Hkv 8, page 16; chunked pool [1, S, 8, 128] at D 64, aligned
-             pool [1, 2, S, 8, 128] at D 128 with bf16, float32 and fp8 KV),
-             with its time, the plain version's time, one PyTorch library
-             call's time (scaled_dot_product_attention over pre-gathered
-             dense KV, upcast to bf16 for fp8 KV; a yardstick the port never
-             calls) and the least time the card could take (bytes or
-             operations over the card's peak rates).
+             version on the same inputs, at the geometry of its path (page
+             16; Hq 32, Hkv 8: chunked pool [1, S, 8, 128] at D 64, aligned
+             pool [1, 2, S, 8, 128] at D 128 with bf16, float32 and fp8 KV;
+             Hq 16: DeepSeek-V2-Lite's latent pool [1, 1, S, 1, 576], V its
+             first 512), with its time, the plain version's time, one
+             PyTorch library call's time (scaled_dot_product_attention over
+             pre-gathered dense KV, upcast to bf16 for fp8 KV; a yardstick
+             the port never calls) and the least time the card could take
+             (bytes or operations over the card's peak rates).
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
-             chunked pool, and the Meta-Llama-3-8B geometry on the aligned
-             pool with bf16 KV, then with fp8_e4m3 KV. One extend step and
-             two decode steps each through the kernels, against the same
-             layers run with the plain attention functions.
+             chunked pool, the Meta-Llama-3-8B geometry on the aligned pool
+             with bf16 KV, then with fp8_e4m3 KV, and DeepSeek-V2-Lite
+             (MLA + MoE, 15.7 B parameters) on the latent pool. One extend
+             step and two decode steps each through the kernels, against the
+             same layers run with the plain attention functions.
 4. serve   — the Engine with the bench's server settings serves 32 greedy
              requests (prompts 256-3072 tokens, 64 new tokens each),
-             colocated and semi-PD, with the 1B-class model (chunked pool)
-             and with the 8B model and fp8_e4m3 KV (aligned pool); every
-             launch counter is set to 0 just before each mode and read just
-             after, and only the path's own two kernels may have launched.
+             colocated and semi-PD, with the 1B-class model (chunked pool),
+             the 8B model with fp8_e4m3 KV (aligned pool) and
+             DeepSeek-V2-Lite (latent pool); every launch counter is set to
+             0 just before each mode and read just after, and only the
+             path's own two kernels may have launched, each L times per
+             step of its kind.
 
 Then one JSON line listing the kernels, the nvidia-smi name/power-limit line,
 and the result line {"ok": true, "device": {...}}.
@@ -46,9 +50,11 @@ import time
 
 import numpy as np
 
-HQ, HKV, PAGE = 32, 8, 16
-# head_dim of each pool's path: the 1B-class model's and Llama-3-8B's
-HEAD_DIM = {"chunked": 64, "aligned": 128}
+PAGE = 16
+# (Hq, Hkv, head_dim, V width) of each pool's path: the 1B-class model's,
+# Llama-3-8B's, and DeepSeek-V2-Lite's latent row (kv_lora 512 + rope 64)
+GEOMETRY = {"chunked": (32, 8, 64, 64), "aligned": (32, 8, 128, 128),
+            "latent": (16, 1, 576, 512)}
 
 # H100 SXM5 80GB dense peaks (NVIDIA H100 Tensor Core GPU data sheet):
 # HBM3 bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor
@@ -95,7 +101,7 @@ def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype):
     from semi_pd_tpu_torch.runtime.forward_batch import build_attn_meta
 
     B = len(kv_lens)
-    D = HEAD_DIM[pool]
+    HQ, HKV, D, _ = GEOMETRY[pool]
     n_pages = [-(-k // PAGE) for k in kv_lens]
     maxP = max(max(n_pages), 1)
     total = sum(n_pages) + 1  # + dump page 0
@@ -106,8 +112,9 @@ def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype):
         pt[b, :n] = perm[used:used + n]
         used += n
     dev = "cuda"
-    shape = ((1, total * PAGE, 2 * HKV * D // 128, 128) if pool == "chunked"
-             else (1, 2, total * PAGE, HKV, D))
+    shape = {"chunked": (1, total * PAGE, 2 * HKV * D // 128, 128),
+             "aligned": (1, 2, total * PAGE, HKV, D),
+             "latent": (1, 1, total * PAGE, 1, D)}[pool]
     kv = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
     T = int(sum(q_lens))
     q = torch.randn((T, HQ, D), generator=gen, device=dev).to(dtype)
@@ -116,19 +123,20 @@ def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype):
             torch.as_tensor(np.asarray(kv_lens, np.int32), device=dev), meta)
 
 
-def dense_kv(kv, pt, kv_lens, D, dtype):
-    """[B, Hkv, kvmax, D] K and V gathered in ``dtype`` for the library
-    yardstick."""
+def dense_kv(kv, pt, kv_lens, pool, dtype):
+    """[B, Hkv, kvmax, D] K and [B, Hkv, kvmax, Dv] V gathered in ``dtype``
+    for the library yardstick."""
     import torch
 
     from semi_pd_tpu_torch.ops.attention.rpa_common import gather_kv, layer_kv
 
-    k_layer, v_layer = layer_kv(kv, 0, HKV, D)
+    _, HKV, D, DV = GEOMETRY[pool]
+    k_layer, v_layer = layer_kv(kv, 0, HKV, D, DV if pool == "latent" else None)
     lens = kv_lens.tolist()
     kvmax = max(max(lens), 1)
     B = len(lens)
     K = torch.zeros((B, kvmax, HKV, D), device=kv.device, dtype=dtype)
-    V = torch.zeros_like(K)
+    V = torch.zeros((B, kvmax, HKV, DV), device=kv.device, dtype=dtype)
     for b, n in enumerate(lens):
         if n:
             k, v = gather_kv(k_layer, v_layer, pt[b], n, PAGE)
@@ -137,7 +145,7 @@ def dense_kv(kv, pt, kv_lens, D, dtype):
 
 
 def kernel_name(kind, pool):
-    return f"rpa_{kind}" + ("_aligned" if pool == "aligned" else "")
+    return f"rpa_{kind}" + {"chunked": "", "aligned": "_aligned", "latent": "_mla"}[pool]
 
 
 def dtype_name(dt):
@@ -154,10 +162,12 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
     from semi_pd_tpu_torch.ops.attention import rpa_packed
 
     kv_dtype = kv_dtype or dtype
-    D = HEAD_DIM[pool]
+    HQ, HKV, D, DV = GEOMETRY[pool]
     scale = D ** -0.5
     q, kv, pt, kvl, meta = make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype)
     kw = dict(page_size=PAGE, scale=scale, logit_cap=cap, sliding_window=window)
+    if pool == "latent":
+        kw.update(v_dim=DV)
     if pool == "chunked":
         kw.update(num_kv_heads=HKV, head_dim=D)
         fns = {"decode": (rpa_packed.ragged_paged_attention_chunked_packed,
@@ -207,8 +217,13 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
                 pairs += p - (max(p - window, 0) if window else 0)
             first = max(qs[b] + 1 - window, 0) if window else 0
             kv_rows += min(lens[b], qs[b] + ql[b]) - first
-    flops = 4.0 * pairs * HQ * D
-    nbytes = (2 * q.numel() * q.element_size() + kv_rows * 2 * HKV * D * kv.element_size()
+    # scores over D and P.V over DV per (row, head, visible position); bytes:
+    # q and the output once, each live KV row once (K and V, or the one
+    # latent row), the page table and lengths
+    flops = 2.0 * pairs * HQ * (D + DV)
+    ncomp = 1 if pool == "latent" else 2
+    nbytes = (q.numel() * q.element_size() + out_k.numel() * out_k.element_size()
+              + kv_rows * ncomp * HKV * D * kv.element_size()
               + pt.numel() * 4 + kvl.numel() * 4)
     bw, bf16_peak, f32_peak = PEAKS
     t_bytes = nbytes / bw * 1e3
@@ -219,7 +234,7 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
     library_ms, library = None, None
     if cap is None:
         # SDPA over dense KV in q's dtype (fp8 KV upcast to bf16 first)
-        K, V, kvmax = dense_kv(kv, pt, kvl, D, dtype)
+        K, V, kvmax = dense_kv(kv, pt, kvl, pool, dtype)
         library = "sdpa" + ("_over_kv_upcast_to_bf16" if kv_dtype != dtype else "")
         B = len(lens)
         if kind == "decode":
@@ -275,11 +290,15 @@ def phase_kernels():
 
     ext = {"extend_b8_q256_kv2048": ([256] * 8, [2048] * 8),
            "extend_ragged_kv1024": ([512, 256, 128, 64, 384, 448, 192, 64], [1024] * 8)}
-    # (pool, q dtype, KV dtype) of each path's cases
+    # (pool, q dtype, KV dtype) of each path's cases, and its decode shapes
     types = {"chunked": [(bf, bf), (f32, f32)],
-             "aligned": [(bf, bf), (f32, f32), (bf, e4m3)]}
+             "aligned": [(bf, bf), (f32, f32), (bf, e4m3)],
+             "latent": [(bf, bf), (f32, f32)]}
+    decode_shapes = {"chunked": ((16, 8192), (64, 1024), (128, 2048)),
+                     "aligned": ((16, 8192), (64, 1024), (128, 2048)),
+                     "latent": ((64, 1024), (16, 4096), (128, 2048))}
     for pool, pairs in types.items():
-        for b, kv in ((16, 8192), (64, 1024), (128, 2048)):
+        for b, kv in decode_shapes[pool]:
             lens = ragged(b, kv)
             for dt, kdt in pairs:
                 rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", "decode", gen, rng,
@@ -290,6 +309,8 @@ def phase_kernels():
         for name, (ql, kl) in ext.items():
             for dt, kdt in pairs:
                 rows.append(run_kernel_case(name, "extend", gen, rng, ql, kl, dt, pool, kdt))
+        if pool == "latent":  # masks: the card tests cover them at this width
+            continue
         # softcap 1.0: scores q.k * D**-0.5 have std ~1 here, so the cap bends
         # most of them (tanh(2) = 0.96) and a kernel that ignored it would fail
         dec = ("decode", [1] * 16, ragged(16, 2048), "decode_b16_kv2048")
@@ -327,6 +348,28 @@ def llama3_8b_config():
     )
 
 
+def deepseek_v2_lite_config():
+    """DeepSeek-V2-Lite's published config.json (15.7 B parameters; MLA with
+    kv_lora 512 + rope 64, one dense layer then 26 MoE layers of 64 routed
+    experts, top-6 softmax greedy, and 2 shared experts; yarn x40)."""
+    from semi_pd_tpu_torch.config.model_config import ModelConfig
+
+    return ModelConfig(
+        architecture="DeepseekV2ForCausalLM", vocab_size=102400, hidden_size=2048,
+        intermediate_size=10944, num_hidden_layers=27, num_attention_heads=16,
+        num_key_value_heads=16, head_dim=192, rms_norm_eps=1e-6, rope_theta=10000.0,
+        rope_scaling={"type": "yarn", "factor": 40, "original_max_position_embeddings": 4096,
+                      "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
+                      "mscale_all_dim": 0.707},
+        max_position_embeddings=163840, context_length=163840, use_mla=True,
+        q_lora_rank=None, kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, num_experts=64, num_experts_per_tok=6, moe_intermediate_size=1408,
+        num_shared_experts=2, first_k_dense_replace=1, moe_layer_freq=1,
+        topk_method="greedy", norm_topk_prob=False, routed_scaling_factor=1.0,
+        scoring_func="softmax", tie_word_embeddings=False, dtype="bfloat16",
+    )
+
+
 def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto"):
     """The bench's server settings (bench.py make_server_args) with a
     131072-token pool."""
@@ -342,7 +385,8 @@ def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto"):
 
 # the two kernels each pool's path launches
 PATH_KERNELS = {"chunked": ("rpa_decode", "rpa_extend"),
-                "aligned": ("rpa_decode_aligned", "rpa_extend_aligned")}
+                "aligned": ("rpa_decode_aligned", "rpa_extend_aligned"),
+                "latent": ("rpa_decode_mla", "rpa_extend_mla")}
 
 
 def phase_model(eng):
@@ -357,10 +401,11 @@ def phase_model(eng):
 
     runner = eng.runner
     sched = eng.scheduler
+    vocab = runner.model_config.vocab_size
     rng = np.random.default_rng(1)
     reqs = []
     for i, n in enumerate((700, 300, 1500, 37)):
-        r = Req(rid=f"m{i}", input_ids=rng.integers(0, 128256, size=n).tolist(),
+        r = Req(rid=f"m{i}", input_ids=rng.integers(0, vocab, size=n).tolist(),
                 sampling_params=SamplingParams(temperature=0.0))
         r.req_slot = runner.req_pool.alloc()
         pages = runner.page_allocator.alloc(-(-(n + 8) // PAGE))
@@ -399,7 +444,7 @@ def phase_model(eng):
         runner.page_allocator.free(np.asarray(r.pages, np.int32))
         runner.req_pool.free(r.req_slot)
     # bf16 tolerance: the two paths differ only in attention (the kernel
-    # rounds P to bf16 before P.V and sums in another order); over 16 or 32
+    # rounds P to bf16 before P.V and sums in another order); over 16 to 32
     # layers that stays within 5% of the logit range
     if worst > 0.05:
         raise AssertionError(f"full-width logits: kernels vs plain rel err {worst:.3g} > 0.05")
@@ -500,9 +545,11 @@ def main() -> int:
     # 3 and 4: full-width models and serving. Each path's launch counts are
     # those of its own serving run, counters zeroed just before each mode
     main_launches = {k: 0 for k in KERNELS}
-    rng = np.random.default_rng(0)
-    lens = rng.integers(256, 3073, size=32)
-    prompts = [rng.integers(0, 128256, size=int(n)).tolist() for n in lens]
+
+    def prompts_for(vocab):  # the same 32 lengths for every model
+        rng = np.random.default_rng(0)
+        lens = rng.integers(256, 3073, size=32)
+        return [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
 
     def model_phase(label, cfg, kv_dtype):
         t0 = time.monotonic()
@@ -517,9 +564,9 @@ def main() -> int:
     def serve_phase(eng, label, pool):
         t0 = time.monotonic()
         outputs = {}
+        vocab = eng.runner.model_config.vocab_size
         for semi in (False, True):
-            r, outputs[semi] = serve_mode(eng, semi, prompts, eng.runner.model_config.vocab_size,
-                                          pool)
+            r, outputs[semi] = serve_mode(eng, semi, prompts_for(vocab), vocab, pool)
             for k, v in r["launches"].items():
                 main_launches[k] += v
             print("serve " + json.dumps(dict(r, model=label, gpu=smi)), flush=True)
@@ -539,6 +586,9 @@ def main() -> int:
     release(model_phase("meta-llama-3-8b", llama3_8b_config(), "bfloat16"))
     eng = model_phase("meta-llama-3-8b", llama3_8b_config(), "fp8_e4m3")
     serve_phase(eng, "meta-llama-3-8b", "aligned")
+    release(eng)  # the 8B model's 16 GB go before V2-Lite's 31 GB arrive
+    eng = model_phase("deepseek-v2-lite", deepseek_v2_lite_config(), "auto")
+    serve_phase(eng, "deepseek-v2-lite", "latent")
     release(eng)
 
     # 5. the kernels line: each kernel's case at its path's representative
@@ -546,7 +596,9 @@ def main() -> int:
     rep = {"rpa_decode": ("decode_b64_kv1024", "bfloat16"),
            "rpa_extend": ("extend_b8_q256_kv2048", "bfloat16"),
            "rpa_decode_aligned": ("decode_b64_kv1024", "float8_e4m3fn"),
-           "rpa_extend_aligned": ("extend_b8_q256_kv2048", "float8_e4m3fn")}
+           "rpa_extend_aligned": ("extend_b8_q256_kv2048", "float8_e4m3fn"),
+           "rpa_decode_mla": ("decode_b64_kv1024", "bfloat16"),
+           "rpa_extend_mla": ("extend_b8_q256_kv2048", "bfloat16")}
     kernels = []
     for kname, k in KERNELS.items():
         case, kv_dt = rep[kname]

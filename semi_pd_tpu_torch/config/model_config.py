@@ -1,9 +1,12 @@
 """Model configuration (trimmed copy of semi_pd_tpu/config/model_config.py).
 
-Holds the ModelConfig fields a Llama-family dense decoder uses. HF-config
-parsing (``from_hf_config`` / ``from_model_path``) and the MoE / MLA /
-multimodal fields are not part of this slice of the port (ROADMAP A12-A14):
-configs are built directly, as ``bench.py`` and ``__graft_entry__.py`` do.
+Holds the ModelConfig fields a Llama-family dense decoder and a
+DeepSeek-V2/V3 (MLA + MoE) model use. HF-config parsing (``from_hf_config``
+/ ``from_model_path``) and the multimodal fields are not part of the port
+yet (ROADMAP A13-A14): configs are built directly, as ``bench.py`` and
+``__graft_entry__.py`` do; an MLA config sets ``use_mla`` and
+``head_dim = qk_nope_head_dim + qk_rope_head_dim`` itself, as
+``from_hf_config`` would.
 """
 
 from __future__ import annotations
@@ -41,13 +44,38 @@ class ModelConfig:
     # Context
     context_length: int = 4096
 
+    # MoE (None => dense)
+    num_experts: Optional[int] = None
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: Optional[int] = None
+    num_shared_experts: int = 0
+    moe_layer_freq: int = 1
+    first_k_dense_replace: int = 0
+    n_group: Optional[int] = None  # deepseek grouped routing
+    topk_group: Optional[int] = None
+    topk_method: Optional[str] = None  # greedy | group_limited_greedy | noaux_tc
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = False
+    scoring_func: str = "softmax"  # softmax | sigmoid (deepseek v3)
+
+    # MLA (None => standard MHA/GQA)
+    use_mla: bool = False
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
     dtype: str = "bfloat16"
 
     @property
     def kv_head_dim(self) -> int:
-        """Per-token per-head KV width as stored in the pool."""
+        """Per-token per-head KV width as stored in the pool: the latent
+        row [c_kv | k_pe] under MLA."""
+        if self.use_mla:
+            return self.kv_lora_rank + self.qk_rope_head_dim
         return self.head_dim
 
     @property
     def num_kv_heads_total(self) -> int:
-        return self.num_key_value_heads
+        return 1 if self.use_mla else self.num_key_value_heads

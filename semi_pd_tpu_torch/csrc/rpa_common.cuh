@@ -138,8 +138,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // One tile of TK consecutive KV positions [start, start + TK) of one request
-// and one KV head, K rows then V rows, spread over NT threads as 16-byte
-// vectors (neighbouring threads read neighbouring vectors of a row). load()
+// and one KV head, K rows then V rows (NCOMP 2), or the latent rows alone
+// (NCOMP 1, the MLA pool: V is a prefix of K), spread over NT threads as
+// 16-byte vectors (neighbouring threads read neighbouring vectors of a row). load()
 // issues the global reads into registers, so the next tile can be in flight
 // while the block computes on the current one; store() writes the tile to
 // shared memory as float32. Positions at or past `limit` are NOT read: they
@@ -147,11 +148,11 @@ __device__ __forceinline__ float warp_sum(float x) {
 // kb: K of this head at slot 0 (k_pool + h*D); V sits v_off elements after
 // K (v_pool - k_pool). One base and one offset: a second base pointer cost
 // the bf16 decode 14 registers and 22% at b64/kv1024 (PERF.md).
-template <typename T, int D, int TK, int NT>
+template <typename T, int D, int TK, int NT, int NCOMP = 2>
 struct KVTile {
   static constexpr int VE = Vec<T>::N;
-  static constexpr int VPR = D / VE;         // vectors per head row
-  static constexpr int NVEC = 2 * TK * VPR;  // K and V
+  static constexpr int VPR = D / VE;             // vectors per head row
+  static constexpr int NVEC = NCOMP * TK * VPR;  // K and V, or the latent rows
   static constexpr int NV = (NVEC + NT - 1) / NT;
   uint4 r[NV];
 

@@ -6,8 +6,8 @@
 //     ragged_paged_attention_chunked_packed);
 //   aligned pool, head_dim 128, fp8 KV (-DRPA_ALIGNED):
 //     semi_pd_tpu/ops/attention/rpa_packed.py _rpa_kernel_packed (called from
-//     ragged_paged_attention_packed; its GQA branch, the MLA v_dim branch is
-//     not ported).
+//     ragged_paged_attention_packed; its GQA branch, the MLA branch is
+//     rpa_decode_mla.cu).
 // One query row per request, GQA with G = Hq / Hkv query heads per KV head,
 // float32 online softmax, optional logit softcap and sliding window. fp8 KV
 // is widened to float32 exactly, as the TPU kernels upcast it to q's dtype.
@@ -203,18 +203,20 @@ static int launch_decode(const void* q, const void* k_pool, const void* v_pool, 
 
 // C entry point (bound with ctypes by ops/attention/rpa_packed.py).
 // k_pool / v_pool: K and V of the layer at slot 0; row_stride: elements
-// from one slot to the next (rpa_common.cuh). q_type / kv_type: TypeCode.
+// from one slot to the next (rpa_common.cuh). Dv: V's width, = D here (the
+// MLA kernels share this signature). q_type / kv_type: TypeCode.
 // cap <= 0: no softcap; window <= 0: no sliding window. Returns
 // cudaError_t; a head_dim or type pair this build lacks is
 // cudaErrorInvalidValue.
 extern "C" int RPA_DECODE_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                                 const void* page_table, const void* kv_lens, void* out, int B,
-                                int Hq, int Hkv, int D, int row_stride, int maxP,
+                                int Hq, int Hkv, int D, int Dv, int row_stride, int maxP,
                                 int page_size, float scale, float cap, int window, int q_type,
                                 int kv_type, void* stream) {
   using namespace rpa;
   if (B == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM)
+  if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM ||
+      Dv != D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RPA_DEC(QC, TQ, KC, TKV)                                                        \

@@ -1,0 +1,195 @@
+// Shared core of the MLA attention kernels over the latent pool
+// [L, 1, S, 1, Dlat] (rpa_decode_mla.cu, rpa_extend_mla.cu).
+//
+// MLA in its absorbed form (semi_pd_tpu/models/deepseek_v2.py): each slot
+// holds one latent row [c_kv | k_pe] of MLA_DL = 512 + 64 elements, shared
+// by all query heads (MQA with G = Hq). A query row is [q_nope . W_UK |
+// q_pe], also MLA_DL wide; scores run over all MLA_DL dims, and V is the
+// row's first MLA_DV = 512 elements, so the output is MLA_DV wide. Built
+// for DeepSeek-V2's latent geometry only; the wrappers refuse others.
+//
+// Bound on this card: at the main path's shapes decode reads kv_len *
+// MLA_DL elements per request and does 2 * Hq * (MLA_DL + MLA_DV) operations
+// per position, 30 per byte in bf16 with Hq 16 (above the ~20 the float32
+// CUDA cores sustain per byte, below the ~295 of the bf16 tensor cores);
+// extend does the same per (query row, visible position) and is bound by
+// operations. This first design runs in float32 on the CUDA cores.
+//
+// Design: a group of TPR threads holds RPT query rows. A row's 576-wide
+// query and 512-wide float32 accumulator do not fit one thread's
+// registers, so thread `part` of a group owns the float4 chunks
+// c = j * TPR + part of its rows: MLA_DL / (4 * TPR) of q and, because the
+// chunks below MLA_DV / 4 are exactly those with j < MLA_DV / (4 * TPR), the
+// same number of V chunks for every part (no thread idles on the rope
+// dims). Partial scores are summed over the group's lanes with
+// __shfl_xor_sync; the lanes of a group read neighbouring 16-byte words of
+// a latent row, and the other groups of the warp read the same words (a
+// broadcast), so shared-memory reads are conflict-free. The block walks
+// its request's KV positions [lo, limit) in tiles of MLA_TK latent rows,
+// staged once in shared memory as float32 (a padded row of MLA_LD floats)
+// and read as both K and V; the next tile's 16-byte loads are issued into
+// registers before the current one is computed (KVTile, rpa_common.cuh).
+// Positions at or past `limit` are never read. Online softmax in float32;
+// P is rounded to q's type before P.V, as in the other kernels.
+//
+// Shared-memory reads, not the arithmetic, set the pace (PERF.md, PR 3):
+// with one row per thread each float4 read feeds 4 FMAs per lane and the
+// extend ran at a fifth of the CUDA cores' peak; two rows per thread (the
+// extend's RPT) feed 8 and cut its time by 27%. More rows do not fit the
+// 255 registers while q and the accumulator live in registers.
+#pragma once
+
+#include "rpa_common.cuh"
+
+namespace rpa {
+
+constexpr int MLA_DL = 576;         // latent row: kv_lora_rank 512 + qk_rope 64
+constexpr int MLA_DV = 512;         // V: the row's first kv_lora_rank elements
+constexpr int MLA_TK = 16;          // KV positions per tile
+constexpr int MLA_LD = MLA_DL + 4;  // shared row stride in floats: no bank conflicts
+
+// One block's walk over the positions [lo, limit) of one request (lo and
+// limit are the same for the whole block; every thread calls this). This
+// thread works on RPT rows r = 0 .. RPT-1: query q0 + r * q_step, output
+// out0 + r * out_step, absolute position q_abs0 + r * q_abs_step; rows
+// r >= n_act are not the block's (their lanes still compute, so a row's
+// lanes always meet at the shuffles, but write nothing). Each row sees the
+// positions its causal and window masks allow; a row that sees none writes
+// zeros. RPT > 1 reuses each value read from shared memory for RPT rows.
+template <typename TQ, typename TKV, int TPR, int RPT, int NT>
+__device__ __forceinline__ void mla_attend(const TQ* __restrict__ q0, int64_t q_step,
+                                           TQ* __restrict__ out0, int64_t out_step,
+                                           int n_act, int q_abs0, int q_abs_step,
+                                           const TKV* __restrict__ lat,
+                                           const int* __restrict__ pt_row, int page_size,
+                                           int lo, int limit, float scale, float cap,
+                                           int window, float* sK, int tid) {
+  static_assert(MLA_DL % (4 * TPR) == 0 && MLA_DV % (4 * TPR) == 0 && 32 % TPR == 0,
+                "TPR must divide the row's chunks and a warp");
+  constexpr int NQC = MLA_DL / (4 * TPR);  // q chunks per thread
+  constexpr int NVC = MLA_DV / (4 * TPR);  // V chunks per thread: its first NVC
+  constexpr int TK = MLA_TK, LD = MLA_LD;
+  using Tile = KVTile<TKV, MLA_DL, TK, NT, 1>;
+  const int part = tid % TPR;
+  // the TPR lanes of this thread's rows (consecutive lanes of one warp)
+  const unsigned lane = tid % 32;
+  const unsigned row_mask = ((TPR >= 32) ? 0xffffffffu : ((1u << TPR) - 1u))
+                            << (lane & ~(unsigned)(TPR - 1));
+
+  float qr[RPT][4 * NQC], o[RPT][4 * NVC], m[RPT], l[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int d = 0; d < 4 * NVC; ++d) o[r][d] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NQC; ++j) {
+      const float4 v = r < n_act ? load4(q0 + r * q_step + (j * TPR + part) * 4)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      qr[r][4 * j] = v.x;
+      qr[r][4 * j + 1] = v.y;
+      qr[r][4 * j + 2] = v.z;
+      qr[r][4 * j + 3] = v.w;
+    }
+  }
+
+  Tile tile;
+  tile.load(lat, 0, pt_row, page_size, MLA_DL, lo, limit, tid);
+  for (int start = lo; start < limit; start += TK) {
+    __syncthreads();  // the previous tile is fully consumed
+    tile.template store<LD>(sK, sK, tid);
+    __syncthreads();
+    if (start + TK < limit) tile.load(lat, 0, pt_row, page_size, MLA_DL, start + TK, limit, tid);
+    if (n_act <= 0) continue;
+
+    float s[RPT][TK];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+#pragma unroll
+      for (int t = 0; t < TK; ++t) s[r][t] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NQC; ++j) {
+#pragma unroll
+      for (int t = 0; t < TK; ++t) {
+        const float4 kk = reinterpret_cast<const float4*>(sK + t * LD)[j * TPR + part];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          float a = s[r][t];
+          a = fmaf(qr[r][4 * j], kk.x, a);
+          a = fmaf(qr[r][4 * j + 1], kk.y, a);
+          a = fmaf(qr[r][4 * j + 2], kk.z, a);
+          a = fmaf(qr[r][4 * j + 3], kk.w, a);
+          s[r][t] = a;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+      for (int t = 0; t < TK; ++t)
+#pragma unroll
+        for (int x = TPR / 2; x > 0; x >>= 1) s[r][t] += __shfl_xor_sync(row_mask, s[r][t], x);
+      const int q_abs = q_abs0 + r * q_abs_step;
+      unsigned valid = 0u;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int t = 0; t < TK; ++t) {
+        const int pos = start + t;
+        const bool ok = pos < limit && pos <= q_abs && (window <= 0 || pos > q_abs - window);
+        float v = s[r][t] * scale;
+        if (cap > 0.f) v = cap * tanhf(v / cap);
+        s[r][t] = ok ? v : NEG_INF;
+        valid |= (ok ? 1u : 0u) << t;
+        mx = fmaxf(mx, s[r][t]);
+      }
+      const float m_new = fmaxf(m[r], mx);
+      const float corr = expf(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < TK; ++t) {
+        const float p = ((valid >> t) & 1u) ? expf(s[r][t] - m_new) : 0.f;
+        sum += p;
+        s[r][t] = round_p<TQ>(p);
+      }
+      l[r] = l[r] * corr + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int d = 0; d < 4 * NVC; ++d) o[r][d] *= corr;
+    }
+#pragma unroll
+    for (int t = 0; t < TK; ++t) {
+#pragma unroll
+      for (int j = 0; j < NVC; ++j) {
+        const float4 vv = reinterpret_cast<const float4*>(sK + t * LD)[j * TPR + part];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const float p = s[r][t];
+          o[r][4 * j] = fmaf(p, vv.x, o[r][4 * j]);
+          o[r][4 * j + 1] = fmaf(p, vv.y, o[r][4 * j + 1]);
+          o[r][4 * j + 2] = fmaf(p, vv.z, o[r][4 * j + 2]);
+          o[r][4 * j + 3] = fmaf(p, vv.w, o[r][4 * j + 3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    if (r >= n_act) continue;
+    const float ls = l[r] > 0.f ? l[r] : 1.f;  // a row that saw no position writes 0
+    TQ* dst = out0 + r * out_step;
+#pragma unroll
+    for (int j = 0; j < NVC; ++j)
+      store4(dst + (j * TPR + part) * 4,
+             make_float4(o[r][4 * j] / ls, o[r][4 * j + 1] / ls, o[r][4 * j + 2] / ls,
+                         o[r][4 * j + 3] / ls));
+  }
+}
+
+// What the MLA builds instantiate: (q, latent) = (bf16, bf16), (f32, f32).
+// fp8 latent KV is not ported. X(q code, q type, KV code, KV type).
+#define RPA_MLA_FOR_EACH_PAIR(X)              \
+  X(BF16, __nv_bfloat16, BF16, __nv_bfloat16) \
+  X(F32, float, F32, float)
+
+}  // namespace rpa

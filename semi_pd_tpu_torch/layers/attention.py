@@ -1,9 +1,10 @@
 """Attention layer: KV-pool write + kernel dispatch (port of
 semi_pd_tpu/layers/attention.py::paged_attention for the chunked and the
-aligned pool).
+aligned pool, and ::paged_attention_mla for the MLA latent pool).
 
-Every model's attention calls ``paged_attention``, which (1) scatters the
-step's fresh K/V into the shared pool at the scheduler-assigned slots, in
+Every model's attention calls ``paged_attention`` (MLA models
+``paged_attention_mla``), which (1) scatters the step's fresh K/V (the
+latent rows) into the shared pool at the scheduler-assigned slots, in
 place (the JAX package's functional ``.at[].set``), and (2) runs the
 ragged paged attention of the pool's layout over it: the CUDA kernels for
 CUDA tensors, their plain versions for CPU tensors
@@ -47,7 +48,9 @@ def write_kv(kv_cache: torch.Tensor, layer_idx: int, out_slots: torch.Tensor,
 def pool_attention(kv_cache: torch.Tensor, plain: bool = False):
     """The attention function of the pool's layout: the routing to the
     kernels, or with ``plain`` the same routing over their plain versions
-    on any device (to hold the kernels to them at full width)."""
+    on any device (to hold the kernels to them at full width). The aligned
+    and the latent pool share one routing function (``v_dim`` selects the
+    latent pool's kernels)."""
     if pool_layout(kv_cache) == "chunked":
         return ragged_paged_attention_chunked_plain if plain else ragged_paged_attention_chunked
     return ragged_paged_attention_plain if plain else ragged_paged_attention
@@ -93,3 +96,29 @@ def paged_attention(
     if v_s is not None:
         out = (out.float() * v_s).to(out.dtype)
     return out
+
+
+def paged_attention_mla(
+    q: torch.Tensor,  # [T, Hq, Dlat] = [q_absorbed | q_pe]
+    latent_new: torch.Tensor,  # [T, Dlat] = [c_kv | k_pe] of this step's tokens
+    kv_cache: torch.Tensor,  # the latent pool [L, 1, S, 1, Dpool], updated in place
+    layer_idx: int,
+    fb,  # runtime.forward_batch.ForwardArrays
+    page_size: int,
+    scale: float,
+    v_dim: int,  # = kv_lora_rank; V is the latent prefix of K
+    attention=None,
+) -> torch.Tensor:
+    """MLA (absorbed) attention over the latent pool: writes the step's
+    latent rows at ``fb.out_slots``, then runs the latent pool's routing.
+    Returns [T, Hq, v_dim]. The port's pool is exactly Dlat wide; q and the
+    rows are zero-padded only if a caller's pool is wider (zeros on both
+    sides leave the scores unchanged, and V is the prefix either way)."""
+    pad = kv_cache.shape[-1] - q.shape[-1]
+    if pad:
+        q = torch.nn.functional.pad(q, (0, pad))
+        latent_new = torch.nn.functional.pad(latent_new, (0, pad))
+    kv_cache[layer_idx, 0, fb.out_slots.long(), 0] = latent_new.to(kv_cache.dtype)
+    return (attention or pool_attention(kv_cache))(
+        q.contiguous(), kv_cache, layer_idx, fb.page_table, fb.kv_lens, fb.attn_meta,
+        page_size=page_size, scale=scale, v_dim=v_dim)

@@ -3,13 +3,18 @@
 Copies of ``PageAllocator`` and ``ReqToPagePool`` from
 semi_pd_tpu/mem/pool.py (numpy, host side, single owner: the scheduler),
 trimmed to one partition (DP-attention partitions are ROADMAP A15), plus a
-torch ``KVCache`` holding one of the JAX package's two pool layouts:
+torch ``KVCache`` holding one of the JAX package's three pool layouts
+(``KVCacheSpec.layout``):
 
-- chunked ``[L, S, CT, 128]`` (``KVCacheSpec.chunked``): ``CT = 2 * Hkv * D
-  / 128`` chunks per slot row, K chunks first, then V chunks (the JAX
-  ``KVCache(chunked=True)`` layout; head_dim 64 models);
+- chunked ``[L, S, CT, 128]``: ``CT = 2 * Hkv * D / 128`` chunks per slot
+  row, K chunks first, then V chunks (the JAX ``KVCache(chunked=True)``
+  layout; head_dim 64 models);
 - aligned ``[L, 2, S, Hkv, D]``: K and V each in their own plane (the JAX
-  default layout; head_dim 128 models, bf16, float32 or fp8 KV).
+  default layout; head_dim 128 models, bf16, float32 or fp8 KV);
+- latent ``[L, 1, S, 1, Dlat]``: one MLA latent row ``[c_kv | k_pe]`` per
+  slot, V being its first ``kv_lora_rank`` elements (the JAX
+  ``use_mla=True`` layout). The JAX runner pads Dlat to a multiple of 256
+  for Mosaic's lane tiling (576 -> 768); the port stores exactly Dlat.
 
 ``S = num_pages * page_size`` slots; slot = page_id * page_size + offset.
 Page 0 is the dump page: padded positions of a batch write there and padded
@@ -100,11 +105,11 @@ class KVCacheSpec:
     num_kv_heads: int
     head_dim: int
     dtype: torch.dtype = torch.bfloat16
-    # Chunked combined layout [L, S, CT, 128]: K chunks then V chunks per
-    # slot row; requires (2*Hkv*D) % 128 == 0. Otherwise the aligned
-    # [L, 2, S, Hkv, D]. Set by the runner's layout rule
+    # "chunked" [L, S, CT, 128] (K chunks then V chunks per slot row;
+    # requires (2*Hkv*D) % 128 == 0), "aligned" [L, 2, S, Hkv, D] or
+    # "latent" [L, 1, S, 1, D] (MLA, Hkv 1). Set by the runner's layout rule
     # (runtime/model_runner.py::kv_pool_layout).
-    chunked: bool = False
+    layout: str = "aligned"
 
     @property
     def num_slots(self) -> int:
@@ -114,27 +119,37 @@ class KVCacheSpec:
     def chunks_total(self) -> int:
         return 2 * self.num_kv_heads * self.head_dim // 128
 
+    @property
+    def num_components(self) -> int:
+        """K and V, or the one latent row of MLA."""
+        return 1 if self.layout == "latent" else 2
+
     def bytes_total(self) -> int:
-        return (2 * self.num_layers * self.num_slots * self.num_kv_heads * self.head_dim
-                * self.dtype.itemsize)
+        return (self.num_components * self.num_layers * self.num_slots
+                * self.num_kv_heads * self.head_dim * self.dtype.itemsize)
 
 
 class KVCache:
-    """The pool (chunked or aligned, per ``spec.chunked``) as one device
-    tensor, updated in place by ``layers.attention.paged_attention``.
+    """The pool (chunked, aligned or latent, per ``spec.layout``) as one
+    device tensor, updated in place by ``layers.attention.paged_attention``
+    (``paged_attention_mla`` for the latent pool).
 
     Allocated with ``torch.zeros``: page 0 (the dump page) is read by padded
     batch rows and must stay finite."""
 
     def __init__(self, spec: KVCacheSpec, device: torch.device):
-        if spec.chunked:
+        if spec.layout == "chunked":
             if (2 * spec.num_kv_heads * spec.head_dim) % 128:
                 raise ValueError(
                     f"chunked KV pool needs (2*Hkv*D) % 128 == 0 "
                     f"(Hkv={spec.num_kv_heads}, D={spec.head_dim})")
             shape = (spec.num_layers, spec.num_slots, spec.chunks_total, 128)
+        elif spec.layout in ("aligned", "latent"):
+            if spec.layout == "latent" and spec.num_kv_heads != 1:
+                raise ValueError("the latent (MLA) pool holds one latent head")
+            shape = (spec.num_layers, spec.num_components, spec.num_slots,
+                     spec.num_kv_heads, spec.head_dim)
         else:
-            shape = (spec.num_layers, 2, spec.num_slots, spec.num_kv_heads,
-                     spec.head_dim)
+            raise ValueError(f"unknown KV pool layout {spec.layout!r}")
         self.spec = spec
         self.buffer = torch.zeros(shape, dtype=spec.dtype, device=device)

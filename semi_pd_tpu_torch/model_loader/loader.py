@@ -7,8 +7,10 @@ it over: at 8 B parameters that is minutes and a 15 GB host array for one
 leaf. ``device_init_params`` draws ``0.02 * N(0, 1)`` in float32 where the
 parameters live, one ``torch.Generator`` per leaf seeded from
 ``(seed, leaf index)`` as the JAX version folds the leaf index into its key,
-and casts to the model dtype. Leaves with a leading layer axis are drawn
-one layer at a time, so the transient float32 stays at one layer of a leaf.
+and casts to the leaf's dtype. Leaves stacked on a leading layer axis
+(Llama's ``layers.<name>``) are drawn one layer at a time, so the transient
+float32 stays at one layer of a leaf; per-layer leaves (DeepSeek's
+``layers.<l>.<name>``) are one layer already and are drawn whole.
 
 The numbers differ from ``jax.random``'s (and between a CUDA and a CPU
 generator), as the JAX package's own ``device_init_params`` differs from
@@ -30,14 +32,16 @@ def leaf_seed(seed: int, index: int) -> int:
 @torch.no_grad()
 def device_init_params(model: torch.nn.Module, seed: int, device=None) -> None:
     """Fill every parameter of ``model`` (a module with ``param_specs()``
-    and its leaves as attributes, e.g. models/llama.py) with ``0.02 *
-    N(0, 1)`` drawn on ``device`` (default: where the parameters live)."""
+    and ``leaf(path)``, models/params.py) with ``0.02 * N(0, 1)`` drawn on
+    ``device`` (default: where the parameters live)."""
     for index, (path, _) in enumerate(model.param_specs()):
         param = model.leaf(path)
         dev = torch.device(device) if device is not None else param.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(leaf_seed(seed, index))
-        parts = param if path.startswith("layers.") else param[None]
+        keys = path.split(".")
+        stacked = keys[0] == "layers" and not keys[1].isdigit()
+        parts = param if stacked else param[None]
         for part in parts:  # one layer (or the whole leaf) at a time
             a = torch.randn(part.shape, generator=gen, dtype=torch.float32, device=dev)
             part.copy_(a.mul_(0.02))

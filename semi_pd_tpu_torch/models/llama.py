@@ -3,10 +3,9 @@ semi_pd_tpu/models/llama.py::LlamaForCausalLM for the main path.
 
 An ``nn.Module`` whose per-layer weights are stacked on a leading [L, ...]
 axis, leaf for leaf the JAX package's parameter tree: ``init_params(seed)``
-draws the same numbers as the JAX ``init_params`` (numpy
-``default_rng(seed)``, leaves in the JAX tree's sorted-key order, x0.02,
-then cast), and ``load_jax_params`` carries a JAX parameter tree (numpy
-leaves) into the module (the runner's random weights come from
+draws the same numbers as the JAX ``init_params``, and ``load_jax_params``
+carries a JAX parameter tree (numpy leaves) into the module
+(models/params.py; the runner's random weights come from
 model_loader/loader.py::device_init_params instead). Linear weights are
 [din, dout]. The forward pass updates the KV pool, chunked or aligned, in
 place. qkv bias, q/k norms, LoRA, other families and
@@ -15,14 +14,14 @@ tensor parallelism are ROADMAP A13-A15.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import List, Tuple
 
-import numpy as np
 import torch
 
 from semi_pd_tpu_torch.config.model_config import ModelConfig
 from semi_pd_tpu_torch.layers.attention import paged_attention
 from semi_pd_tpu_torch.layers.linear import apply_linear, lm_head_logits
+from semi_pd_tpu_torch.models.params import TreeParams
 from semi_pd_tpu_torch.ops.elementwise import ACT2FN, rms_norm
 from semi_pd_tpu_torch.ops.rope import RotaryEmbedding
 
@@ -42,7 +41,7 @@ _ATTR = {
 }
 
 
-class LlamaForCausalLM(torch.nn.Module):
+class LlamaForCausalLM(TreeParams):
     def __init__(self, config: ModelConfig, device):
         super().__init__()
         c = self.config = config
@@ -98,43 +97,6 @@ class LlamaForCausalLM(torch.nn.Module):
     def leaf(self, path: str) -> torch.nn.Parameter:
         """The parameter of JAX tree path ``path`` (e.g. "layers.qkv_proj.w")."""
         return getattr(self, _ATTR[path])
-
-    @torch.no_grad()
-    def init_params(self, seed: int = 0) -> None:
-        """Random init drawing the JAX ``init_params(seed)`` numbers: one
-        numpy ``default_rng(seed)``, standard normals x0.02 per leaf in tree
-        order, cast to the model dtype (leaf by leaf, so the host holds one
-        float32 leaf at a time)."""
-        rng = np.random.default_rng(seed)
-        for path, shape in self.param_specs():
-            a = rng.standard_normal(shape, dtype=np.float32) * 0.02
-            self.leaf(path).copy_(torch.from_numpy(a))
-
-    @torch.no_grad()
-    def load_jax_params(self, tree: Dict[str, Any]) -> None:
-        """Copy a JAX-package parameter tree ({"embed": {"w": ...}, "layers":
-        {...}, ...}, numpy or array-like leaves) into the module."""
-        for path, shape in self.param_specs():
-            node = tree
-            for key in path.split("."):
-                node = node[key]
-            a = np.asarray(node)
-            if a.dtype != np.float32 or not a.flags.writeable:
-                a = a.astype(np.float32)  # also copies read-only device views
-            if a.shape != shape:
-                raise ValueError(f"{path}: shape {a.shape} != {shape}")
-            self.leaf(path).copy_(torch.from_numpy(a))
-
-    def params_tree(self) -> Dict[str, Any]:
-        """The parameters as a JAX-structured tree of float32 numpy arrays."""
-        tree: Dict[str, Any] = {}
-        for path, _ in self.param_specs():
-            keys = path.split(".")
-            node = tree
-            for key in keys[:-1]:
-                node = node.setdefault(key, {})
-            node[keys[-1]] = self.leaf(path).detach().float().cpu().numpy()
-        return tree
 
     # ------------------------------------------------------------- forward
     def forward(self, fb, kv_cache: torch.Tensor, attention=None) -> torch.Tensor:

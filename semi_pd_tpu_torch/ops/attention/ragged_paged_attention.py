@@ -1,25 +1,30 @@
-"""Ragged paged EXTEND attention over either KV pool: the CUDA kernels'
+"""Ragged paged EXTEND attention over any KV pool: the CUDA kernels'
 wrappers, their plain PyTorch version, and the decode/extend routing.
 
-Ports of two TPU kernels of semi_pd_tpu/ops/attention/
+Ports of three TPU kernels (branches) of semi_pd_tpu/ops/attention/
 ragged_paged_attention.py:
 
 - ``ragged_paged_attention_chunked``: the chunked pool ``[L, S, CT, 128]``
   (TPU kernel _rpa_kernel_chunked, :803);
 - ``ragged_paged_attention``: the aligned pool ``[L, 2, S, Hkv, D]`` with
-  bf16, float32 or fp8 KV (TPU kernel _rpa_kernel, :59, its GQA branch).
+  bf16, float32 or fp8 KV (TPU kernel _rpa_kernel, :59, its GQA branch),
+  and with ``v_dim`` the MLA latent pool ``[L, 1, S, 1, Dlat]`` (the same
+  TPU kernel's MLA ``v_dim`` branch; output [T, Hq, v_dim]).
 
 Causal attention of the flat new tokens of every request over prefix + new
 tokens through the page table, driven by the host work list (block_seq /
 block_row / block_qofs), with softcap and sliding window. Routing is the
 JAX wrappers': T == B goes to the decode kernel of the pool (rpa_packed.py),
 everything else to its extend kernel (ragged_paged_attention.py:502,
-569-578, 1057, 1100-1109). Not ported: the MLA ``v_dim`` branch (ROADMAP
-A12), speculation-tree masks ``spec_anc`` (A11), the merged-lane kernel
-that ``force_merged`` selects (B4), and the TPU scheduling switches
-(RPA_DECODE_STREAM is B6; RPA_DECODE_PACKED, the VMEM clamps and the
-block_first table have no GPU meaning). The CUDA design is described in
-csrc/rpa_extend.cu.
+569-578, 1057, 1100-1109). The JAX MLA extend runs 64-row q-blocks against
+the 128-row work list and leaves rows 64-127 of each entry unwritten
+(ROADMAP C1); here every extend kernel, the MLA one included, is built
+with the work list's EXTEND_Q_BLOCK. Not ported: speculation-tree masks
+``spec_anc`` (ROADMAP A11), the merged-lane kernel that ``force_merged``
+selects (B4), and the TPU scheduling switches (RPA_DECODE_STREAM is B6;
+RPA_DECODE_PACKED, the VMEM clamps and the block_first table have no GPU
+meaning). The CUDA designs are described in csrc/rpa_extend.cu and
+csrc/rpa_mla.cuh.
 
 Wrappers launch their kernel for CUDA tensors and use the plain version
 only for tensors on the CPU; any other device raises. Nothing falls back.
@@ -34,12 +39,13 @@ import torch
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
     F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kv_planes, layer_kv,
-    pool_heads,
+    pool_heads, pool_layout,
 )
 from semi_pd_tpu_torch.ops.attention.rpa_packed import (
     decode_attention_plain,
     ragged_paged_attention_chunked_packed,
     ragged_paged_attention_packed,
+    ragged_paged_attention_packed_plain,
 )
 
 # Query rows per extend work-list entry. The host work list
@@ -47,7 +53,7 @@ from semi_pd_tpu_torch.ops.attention.rpa_packed import (
 # (compiled with -DEXTEND_QBLK from this constant) all use it.
 EXTEND_Q_BLOCK = 128
 
-_ARGTYPES = [P] * 11 + [I] * 7 + [F, F, I, I, I, P]
+_ARGTYPES = [P] * 11 + [I] * 8 + [F, F, I, I, I, P]
 
 EXTEND_KERNEL = register(CudaKernel(
     name="rpa_extend",
@@ -63,16 +69,24 @@ EXTEND_ALIGNED_KERNEL = register(CudaKernel(
     source="csrc/rpa_extend.cu",
     symbol="rpa_extend_aligned",
     argtypes=_ARGTYPES,
-    replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel",
+    replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel (GQA branch)",
     defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_ALIGNED"),
 ))
 
+EXTEND_MLA_KERNEL = register(CudaKernel(
+    name="rpa_extend_mla",
+    source="csrc/rpa_extend_mla.cu",
+    symbol="rpa_extend_mla",
+    argtypes=_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel "
+             "(MLA v_dim branch)",
+    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}",),
+))
 
-def _no_spec(spec_anc, win_base, v_dim=None):
+
+def _no_spec(spec_anc, win_base):
     if spec_anc is not None or win_base is not None:
         raise NotImplementedError("speculation-tree masks (spec_anc) are ROADMAP A11")
-    if v_dim is not None:
-        raise NotImplementedError("MLA attention (v_dim) is ROADMAP A12")
 
 
 def ragged_paged_attention_chunked(
@@ -109,7 +123,7 @@ def ragged_paged_attention_chunked_plain(
 
 def ragged_paged_attention(
     q: torch.Tensor,  # [T, Hq, D] flat ragged
-    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D]
+    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D], or [L, 1, S, 1, Dlat] with v_dim
     layer_idx: int,
     page_table: torch.Tensor,  # [B, maxP] int32
     kv_lens: torch.Tensor,  # [B] int32
@@ -124,11 +138,12 @@ def ragged_paged_attention(
     win_base: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention of q [T, Hq, D] over the aligned pool (Hkv and D from its
-    shape): T == B batches take the decode kernel, all others the extend
-    kernel."""
-    _no_spec(spec_anc, win_base, v_dim)
+    shape), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
+    v_dim]): T == B batches take the pool's decode kernel, all others its
+    extend kernel."""
+    _no_spec(spec_anc, win_base)
     kw = dict(page_size=page_size, scale=scale, logit_cap=logit_cap,
-              sliding_window=sliding_window)
+              sliding_window=sliding_window, v_dim=v_dim)
     if q.shape[0] == page_table.shape[0]:
         return ragged_paged_attention_packed(q, kv_cache, layer_idx, page_table,
                                              kv_lens, **kw)
@@ -140,20 +155,24 @@ def ragged_paged_attention_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size, scale,
     logit_cap=None, sliding_window=None, v_dim=None, spec_anc=None, win_base=None,
 ) -> torch.Tensor:
-    """The aligned pool's routing over the two plain versions, on any device."""
-    _no_spec(spec_anc, win_base, v_dim)
-    Hkv, D = pool_heads(kv_cache)
-    return ragged_paged_attention_chunked_plain(
-        q, kv_cache, layer_idx, page_table, kv_lens, meta, page_size=page_size,
-        num_kv_heads=Hkv, head_dim=D, scale=scale, logit_cap=logit_cap,
-        sliding_window=sliding_window)
+    """The aligned and the latent pool's routing over the two plain
+    versions, on any device."""
+    _no_spec(spec_anc, win_base)
+    kw = dict(page_size=page_size, scale=scale, logit_cap=logit_cap,
+              sliding_window=sliding_window, v_dim=v_dim)
+    if q.shape[0] == page_table.shape[0]:
+        return ragged_paged_attention_packed_plain(q, kv_cache, layer_idx, page_table,
+                                                   kv_lens, **kw)
+    return ragged_paged_attention_extend_plain(q, kv_cache, layer_idx, page_table,
+                                               kv_lens, meta, **kw)
 
 
 def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size,
-            num_kv_heads, head_dim, scale, logit_cap, sliding_window):
-    check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim)
+            num_kv_heads, head_dim, scale, logit_cap, sliding_window, v_dim=None):
+    check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
+                    v_dim)
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
-              scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
+              scale=scale, logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
     if q.device.type == "cpu":
         return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta,
                                       **kw)
@@ -162,16 +181,17 @@ def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_s
     ints = (meta.q_lens, meta.q_start, meta.block_seq, meta.block_row, meta.block_qofs)
     if any(a.dtype != torch.int32 for a in ints):
         raise ValueError("work-list arrays must be int32")
-    check_cuda(q, kv_cache, page_table, kv_lens, *ints)
+    check_cuda(q, kv_cache, page_table, kv_lens, *ints, v_dim=v_dim)
     T, Hq, D = q.shape
+    Dv = v_dim or D
     k_ptr, v_ptr, row_stride = kv_planes(kv_cache, layer_idx, num_kv_heads, D)
     # zeros: bucket-padding rows stay finite when their K/V are later
     # scattered into the dump page
-    out = torch.zeros_like(q)
+    out = q.new_zeros((T, Hq, Dv))
     kernel.launch(
         q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
         *[a.data_ptr() for a in ints], out.data_ptr(), meta.block_seq.shape[0], Hq,
-        num_kv_heads, D, row_stride, page_table.shape[1], page_size, float(scale),
+        num_kv_heads, D, Dv, row_stride, page_table.shape[1], page_size, float(scale),
         float(logit_cap or 0.0), int(sliding_window or 0), TYPE_CODES[q.dtype],
         TYPE_CODES[kv_cache.dtype], cuda_stream_ptr(q.device))
     return out
@@ -200,8 +220,8 @@ def ragged_paged_attention_chunked_extend(
 
 
 def ragged_paged_attention_extend(
-    q: torch.Tensor,  # [T, Hq, D] flat new tokens
-    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D]
+    q: torch.Tensor,  # [T, Hq, D] flat new tokens (D = Dlat with v_dim)
+    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D], or [L, 1, S, 1, Dlat] with v_dim
     layer_idx: int,
     page_table: torch.Tensor,  # [B, maxP] int32
     kv_lens: torch.Tensor,  # [B] int32
@@ -211,44 +231,48 @@ def ragged_paged_attention_extend(
     scale: float,
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
+    v_dim: Optional[int] = None,
 ) -> torch.Tensor:
-    """Extend attention over the aligned pool; rows no work-list entry owns
+    """Extend attention over the aligned pool, or with ``v_dim`` over the
+    MLA latent pool (output [T, Hq, v_dim]); rows no work-list entry owns
     stay 0."""
     Hkv, D = pool_heads(kv_cache)
-    return _extend(EXTEND_ALIGNED_KERNEL, q, kv_cache, layer_idx, page_table, kv_lens,
+    kernel = EXTEND_MLA_KERNEL if pool_layout(kv_cache) == "latent" else EXTEND_ALIGNED_KERNEL
+    return _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens,
                    meta, page_size=page_size, num_kv_heads=Hkv, head_dim=D, scale=scale,
-                   logit_cap=logit_cap, sliding_window=sliding_window)
+                   logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
 
 
 def ragged_paged_attention_extend_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size, scale,
-    logit_cap=None, sliding_window=None,
+    logit_cap=None, sliding_window=None, v_dim=None,
 ) -> torch.Tensor:
-    """Plain version of the aligned extend kernel."""
+    """Plain version of the aligned and the MLA extend kernels."""
     Hkv, D = pool_heads(kv_cache)
     return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta,
                                   page_size=page_size, num_kv_heads=Hkv, head_dim=D,
                                   scale=scale, logit_cap=logit_cap,
-                                  sliding_window=sliding_window)
+                                  sliding_window=sliding_window, v_dim=v_dim)
 
 
 def extend_attention_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size,
-    num_kv_heads, head_dim, scale, logit_cap=None, sliding_window=None,
+    num_kv_heads, head_dim, scale, logit_cap=None, sliding_window=None, v_dim=None,
 ) -> torch.Tensor:
-    """Plain version of both extend kernels, on either pool: a loop over
-    the work-list entries, each gathering its request's pages up to its
-    last row's position, then a causal float32 softmax over them."""
+    """Plain version of the extend kernels, on any pool: a loop over the
+    work-list entries, each gathering its request's pages up to its last
+    row's position, then a causal float32 softmax over them."""
     T, Hq, D = q.shape
     Hkv = num_kv_heads
     G = Hq // Hkv
-    k_layer, v_layer = layer_kv(kv_cache, layer_idx, Hkv, D)
+    Dv = v_dim or D
+    k_layer, v_layer = layer_kv(kv_cache, layer_idx, Hkv, D, v_dim)
     seq, row, qofs = (meta.block_seq.tolist(), meta.block_row.tolist(),
                       meta.block_qofs.tolist())
     q_lens, q_start, lens = (meta.q_lens.tolist(), meta.q_start.tolist(),
                              kv_lens.tolist())
     cap = page_table.shape[1] * page_size
-    out = torch.zeros_like(q)
+    out = q.new_zeros((T, Hq, Dv))
     for i, b in enumerate(seq):
         if b < 0:
             continue
@@ -271,7 +295,7 @@ def extend_attention_plain(
         p = torch.softmax(s, dim=-1)
         p = torch.where(valid.any(dim=-1)[:, None, None, None], p,
                         torch.zeros((), device=q.device))
-        o = torch.einsum("rhgn,nhd->rhgd", p, v).reshape(n_rows, Hq, D)
+        o = torch.einsum("rhgn,nhd->rhgd", p, v).reshape(n_rows, Hq, Dv)
         out[r0 : r0 + n_rows] = o.to(q.dtype)
     return out
 

@@ -26,7 +26,8 @@ def chunked_to_5d(kv_cache: torch.Tensor, num_kv_heads: int, head_dim: int) -> t
 
 def ragged_paged_attention_reference(
     q: torch.Tensor,  # [T, Hq, D]
-    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D] (component: K=0, V=1)
+    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D] (component: K=0, V=1), or
+                             # the latent pool [L, 1, S, 1, Dlat] with v_dim
     layer_idx: int,
     page_table: torch.Tensor,  # [B, maxP] int32 page ids
     q_req_idx: torch.Tensor,  # [T] i32 (padding rows -> row 0, masked out)
@@ -41,8 +42,9 @@ def ragged_paged_attention_reference(
     win_base: Optional[torch.Tensor] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    if v_dim is not None:
-        raise NotImplementedError("MLA (v_dim) attention is ROADMAP A12")
+    """``v_dim``: MLA mode. The pool has one component, the latent row
+    [c_kv | k_pe]; V is its first v_dim elements and the output is
+    [T, Hq, v_dim]."""
     if spec_anc is not None or win_base is not None:
         raise NotImplementedError("speculation-tree masks are ROADMAP A11")
     if alibi_slopes is not None:
@@ -58,7 +60,11 @@ def ragged_paged_attention_reference(
         + torch.arange(page_size, device=q.device)[None, None, :]
     ).reshape(B, max_kv)
     k = kv_cache[layer_idx, 0][slot_ids].float()  # [B, max_kv, Hkv, D]
-    v = kv_cache[layer_idx, 1][slot_ids].float()
+    if v_dim is not None:
+        v = k[..., :v_dim]
+    else:
+        v = kv_cache[layer_idx, 1][slot_ids].float()
+    Dv = v.shape[-1]
     ri = q_req_idx.long()
     k_t = k[ri]  # [T, max_kv, Hkv, D]
     v_t = v[ri]
@@ -78,4 +84,4 @@ def ragged_paged_attention_reference(
     probs = torch.where(valid.any(dim=-1)[:, None, None, None], probs,
                         torch.zeros((), device=q.device))
     out = torch.einsum("thgk,tkhd->thgd", probs, v_t)
-    return out.reshape(T, Hq, D).to(q.dtype)
+    return out.reshape(T, Hq, Dv).to(q.dtype)

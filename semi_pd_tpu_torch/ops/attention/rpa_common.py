@@ -2,11 +2,13 @@
 checks before a pointer reaches a kernel, the per-layer K and V addresses
 of either pool, and the page gather the plain versions use.
 
-Two pool layouts (mem/pool.py): the chunked pool ``[L, S, CT, 128]`` (one
-row of ``2*Hkv*D`` elements per slot, K of all heads then V) and the
-aligned pool ``[L, 2, S, Hkv, D]`` (K and V each in their own plane). The
-kernels address both through a K base, a V base and one row stride
-(csrc/rpa_common.cuh).
+Three pool layouts (mem/pool.py): the chunked pool ``[L, S, CT, 128]`` (one
+row of ``2*Hkv*D`` elements per slot, K of all heads then V), the aligned
+pool ``[L, 2, S, Hkv, D]`` (K and V each in their own plane) and the MLA
+latent pool ``[L, 1, S, 1, Dlat]`` (one latent row per slot; V is its first
+``v_dim`` elements). The kernels address all three through a K base, a V
+base and one row stride (csrc/rpa_common.cuh); on the latent pool the V
+base is the K base.
 """
 
 from __future__ import annotations
@@ -27,34 +29,44 @@ FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
               torch.float8_e5m2: 3}
 
-# What each pool's kernels are instantiated for: the head_dim and the
-# (q, KV) dtype pairs of the paths that use them
-KERNEL_HEAD_DIM = {"chunked": 64, "aligned": 128}
+# What each pool's kernels are instantiated for: the head_dim (the latent
+# width on the latent pool, DeepSeek-V2's 512 + 64) and the (q, KV) dtype
+# pairs of the paths that use them
+KERNEL_HEAD_DIM = {"chunked": 64, "aligned": 128, "latent": 576}
 KERNEL_PAIRS = {
     "chunked": {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)},
     "aligned": {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
                 (torch.bfloat16, torch.float8_e4m3fn), (torch.bfloat16, torch.float8_e5m2)},
+    "latent": {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)},
 }
+# The latent pool's kernels take V as the first 512 elements of the row
+KERNEL_V_DIM = 512
 
 
 def pool_layout(kv_cache: torch.Tensor) -> str:
-    """"chunked" for [L, S, CT, 128], "aligned" for [L, 2, S, Hkv, D]."""
+    """"chunked" for [L, S, CT, 128], "aligned" for [L, 2, S, Hkv, D],
+    "latent" for the MLA pool [L, 1, S, 1, Dlat]."""
     if kv_cache.dim() == 4 and kv_cache.shape[3] == 128:
         return "chunked"
     if kv_cache.dim() == 5 and kv_cache.shape[1] == 2:
         return "aligned"
-    raise ValueError(f"kv_cache must be the chunked pool [L, S, CT, 128] or the "
-                     f"aligned pool [L, 2, S, Hkv, D], got {tuple(kv_cache.shape)}")
+    if kv_cache.dim() == 5 and kv_cache.shape[1] == 1 and kv_cache.shape[3] == 1:
+        return "latent"
+    raise ValueError(f"kv_cache must be the chunked pool [L, S, CT, 128], the "
+                     f"aligned pool [L, 2, S, Hkv, D] or the latent pool "
+                     f"[L, 1, S, 1, Dlat], got {tuple(kv_cache.shape)}")
 
 
 def pool_heads(kv_cache: torch.Tensor) -> Tuple[int, int]:
-    """(Hkv, D) of the aligned pool."""
+    """(Hkv, D) of the aligned pool, (1, Dlat) of the latent pool."""
     return kv_cache.shape[3], kv_cache.shape[4]
 
 
 def check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads,
-                    head_dim) -> Tuple[int, int, int]:
-    """Validate what every wrapper passes on; returns (Hq, D, G)."""
+                    head_dim, v_dim=None) -> Tuple[int, int, int]:
+    """Validate what every wrapper passes on; returns (Hq, D, G). ``v_dim``
+    (MLA: V is the first v_dim elements of the latent row) goes with the
+    latent pool and only with it."""
     if q.dim() != 3:
         raise ValueError(f"q must be [rows, Hq, D], got {tuple(q.shape)}")
     _, Hq, D = q.shape
@@ -63,11 +75,16 @@ def check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads,
     if num_kv_heads <= 0 or Hq % num_kv_heads:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={num_kv_heads}")
     layout = pool_layout(kv_cache)
+    if (layout == "latent") != (v_dim is not None):
+        raise ValueError(f"v_dim={v_dim} on the {layout} pool: MLA attention (v_dim) "
+                         f"runs on the latent pool [L, 1, S, 1, Dlat] and only there")
+    if layout == "latent" and not 0 < v_dim <= D:
+        raise ValueError(f"v_dim {v_dim} outside the latent row's (0, {D}]")
     if layout == "chunked" and kv_cache.shape[2] * 128 != 2 * num_kv_heads * D:
         raise ValueError(f"pool rows hold {kv_cache.shape[2] * 128} elements, "
                          f"expected 2*Hkv*D = {2 * num_kv_heads * D}")
-    if layout == "aligned" and pool_heads(kv_cache) != (num_kv_heads, D):
-        raise ValueError(f"aligned pool holds (Hkv, D) = {pool_heads(kv_cache)}, "
+    if layout != "chunked" and pool_heads(kv_cache) != (num_kv_heads, D):
+        raise ValueError(f"{layout} pool holds (Hkv, D) = {pool_heads(kv_cache)}, "
                          f"expected {(num_kv_heads, D)}")
     if not 0 <= int(layer_idx) < kv_cache.shape[0]:
         raise ValueError(f"layer {layer_idx} outside the pool's {kv_cache.shape[0]} layers")
@@ -84,12 +101,12 @@ def check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads,
     return Hq, D, Hq // num_kv_heads
 
 
-def check_cuda(q, kv_cache, *ints) -> None:
+def check_cuda(q, kv_cache, *ints, v_dim=None) -> None:
     """Everything a kernel reads or writes: one CUDA device, contiguous, a
-    head_dim and (q, KV) dtype pair the pool's kernels were built for, and
-    16-byte aligned where the kernel reads 16-byte vectors (q, the pool).
-    The int32 arrays are read element by element and may be views into
-    the packed step vector."""
+    head_dim (and on the latent pool a v_dim) and (q, KV) dtype pair the
+    pool's kernels were built for, and 16-byte aligned where the kernel
+    reads 16-byte vectors (q, the pool). The int32 arrays are read element
+    by element and may be views into the packed step vector."""
     dev = q.device
     for t in (q, kv_cache, *ints):
         if t.device != dev:
@@ -103,6 +120,12 @@ def check_cuda(q, kv_cache, *ints) -> None:
         raise ValueError(f"the {layout} pool's kernels take (q, KV) dtypes "
                          f"{sorted(map(str, KERNEL_PAIRS[layout]))}, got "
                          f"({q.dtype}, {kv_cache.dtype})")
+    if layout == "latent" and (q.shape[-1], v_dim) != (KERNEL_HEAD_DIM["latent"],
+                                                        KERNEL_V_DIM):
+        raise NotImplementedError(
+            f"latent width {q.shape[-1]} with v_dim {v_dim}: the latent pool's "
+            f"kernels are built for DeepSeek-V2's 576 with v_dim 512; other MLA "
+            f"geometries (MiniCPM3's 288 / 256) are ROADMAP A12")
     if q.shape[-1] != KERNEL_HEAD_DIM[layout]:
         raise NotImplementedError(
             f"head_dim {q.shape[-1]}: the {layout} pool's kernels are built for "
@@ -120,26 +143,33 @@ def kv_planes(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int,
         L, S, CT, W = kv_cache.shape
         k = kv_cache.data_ptr() + int(layer_idx) * S * CT * W * esz
         return k, k + num_kv_heads * head_dim * esz, CT * W
-    L, _, S, Hkv, D = kv_cache.shape
+    L, ncomp, S, Hkv, D = kv_cache.shape
     plane = S * Hkv * D * esz
-    k = kv_cache.data_ptr() + int(layer_idx) * 2 * plane
-    return k, k + plane, Hkv * D
+    k = kv_cache.data_ptr() + int(layer_idx) * ncomp * plane
+    # the latent pool's V is the prefix of its one row
+    return k, (k + plane if ncomp == 2 else k), Hkv * D
 
 
-def layer_kv(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int, head_dim: int):
-    """K and V of layer ``layer_idx`` of either pool, as [S, Hkv, D] views."""
-    if pool_layout(kv_cache) == "chunked":
+def layer_kv(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int, head_dim: int,
+             v_dim=None):
+    """K and V of layer ``layer_idx`` of any pool, as [S, Hkv, D] and
+    [S, Hkv, Dv] views (on the latent pool V is K's first v_dim elements)."""
+    layout = pool_layout(kv_cache)
+    if layout == "chunked":
         S = kv_cache.shape[1]
         kv = kv_cache[int(layer_idx)].reshape(S, 2, num_kv_heads, head_dim)
         return kv[:, 0], kv[:, 1]
-    return kv_cache[int(layer_idx), 0], kv_cache[int(layer_idx), 1]
+    k = kv_cache[int(layer_idx), 0]
+    if layout == "latent":
+        return k, k[..., :v_dim]
+    return k, kv_cache[int(layer_idx), 1]
 
 
 def gather_kv(k_layer: torch.Tensor, v_layer: torch.Tensor, pt_row: torch.Tensor,
               n: int, page_size: int):
-    """K and V of positions [0, n) of one request, as float32 [n, Hkv, D],
-    read page by page through the request's page-table row from a layer's
-    [S, Hkv, D] views (``layer_kv``)."""
+    """K and V of positions [0, n) of one request, as float32 [n, Hkv, D]
+    and [n, Hkv, Dv], read page by page through the request's page-table
+    row from a layer's views (``layer_kv``)."""
     pos = torch.arange(n, device=k_layer.device)
     slots = pt_row.long()[pos // page_size] * page_size + pos % page_size
     return k_layer[slots].float(), v_layer[slots].float()

@@ -1,20 +1,23 @@
-"""Paged DECODE attention over either KV pool: the CUDA kernels' wrappers
-and their plain PyTorch version.
+"""Paged DECODE attention over any KV pool: the CUDA kernels' wrappers and
+their plain PyTorch version.
 
-Ports of two TPU kernels of semi_pd_tpu/ops/attention/rpa_packed.py:
+Ports of three TPU kernels (branches) of semi_pd_tpu/ops/attention/
+rpa_packed.py:
 
 - ``ragged_paged_attention_chunked_packed``: the chunked pool
   ``[L, S, CT, 128]`` (TPU kernel _rpa_kernel_chunked_packed, :32);
 - ``ragged_paged_attention_packed``: the aligned pool ``[L, 2, S, Hkv, D]``
   with bf16, float32 or fp8 KV (TPU kernel _rpa_kernel_packed, :349, its
-  GQA branch; its MLA ``v_dim`` branch is ROADMAP A12).
+  GQA branch), and with ``v_dim`` the MLA latent pool ``[L, 1, S, 1,
+  Dlat]`` (the same TPU kernel's MLA branch: one latent head shared by all
+  Hq query heads, V the first v_dim elements of each row).
 
 One query row per request at position kv_len - 1; GQA, f32 online softmax,
 optional logit softcap and sliding window. fp8 KV is upcast exactly, as the
 TPU kernel upcasts it to q's dtype. The TPU kernels' rpb/SUB request
 packing and their RPA_DECODE_PACKED / RPA_PACKED_DIAG switches schedule
-work for the TPU and are not ported; the CUDA design (csrc/rpa_decode.cu)
-is described there.
+work for the TPU and are not ported; the CUDA designs are described in
+csrc/rpa_decode.cu and csrc/rpa_mla.cuh.
 
 The wrappers launch their kernel for CUDA tensors and use
 ``decode_attention_plain`` only for tensors on the CPU; any other device
@@ -30,10 +33,10 @@ import torch
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
     F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kv_planes, layer_kv,
-    pool_heads,
+    pool_heads, pool_layout,
 )
 
-_ARGTYPES = [P] * 6 + [I] * 7 + [F, F, I, I, I, P]
+_ARGTYPES = [P] * 6 + [I] * 8 + [F, F, I, I, I, P]
 
 DECODE_KERNEL = register(CudaKernel(
     name="rpa_decode",
@@ -48,29 +51,39 @@ DECODE_ALIGNED_KERNEL = register(CudaKernel(
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode_aligned",
     argtypes=_ARGTYPES,
-    replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed",
+    replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (GQA branch)",
     defines=("RPA_ALIGNED",),
+))
+
+DECODE_MLA_KERNEL = register(CudaKernel(
+    name="rpa_decode_mla",
+    source="csrc/rpa_decode_mla.cu",
+    symbol="rpa_decode_mla",
+    argtypes=_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (MLA branch)",
 ))
 
 
 def _decode(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_size,
-            num_kv_heads, head_dim, scale, logit_cap, sliding_window):
-    check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim)
+            num_kv_heads, head_dim, scale, logit_cap, sliding_window, v_dim=None):
+    check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
+                    v_dim)
     if q.shape[0] != page_table.shape[0]:
         raise ValueError("decode takes one query row per request (T == B)")
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
-              scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
+              scale=scale, logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
     if q.device.type == "cpu":
         return decode_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, **kw)
     if q.device.type != "cuda":
         raise RuntimeError(f"no decode kernel for device {q.device}")
-    check_cuda(q, kv_cache, page_table, kv_lens)
+    check_cuda(q, kv_cache, page_table, kv_lens, v_dim=v_dim)
     B, Hq, D = q.shape
+    Dv = v_dim or D
     k_ptr, v_ptr, row_stride = kv_planes(kv_cache, layer_idx, num_kv_heads, D)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Hq, Dv))
     kernel.launch(
         q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
-        out.data_ptr(), B, Hq, num_kv_heads, D, row_stride, page_table.shape[1],
+        out.data_ptr(), B, Hq, num_kv_heads, D, Dv, row_stride, page_table.shape[1],
         page_size, float(scale), float(logit_cap or 0.0), int(sliding_window or 0),
         TYPE_CODES[q.dtype], TYPE_CODES[kv_cache.dtype], cuda_stream_ptr(q.device))
     return out
@@ -98,8 +111,8 @@ def ragged_paged_attention_chunked_packed(
 
 
 def ragged_paged_attention_packed(
-    q: torch.Tensor,  # [B, Hq, D] one row per request
-    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D]
+    q: torch.Tensor,  # [B, Hq, D] one row per request (D = Dlat with v_dim)
+    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, D], or [L, 1, S, 1, Dlat] with v_dim
     layer_idx: int,
     page_table: torch.Tensor,  # [B, maxP] int32
     kv_lens: torch.Tensor,  # [B] int32
@@ -108,40 +121,44 @@ def ragged_paged_attention_packed(
     scale: float,
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
+    v_dim: Optional[int] = None,
 ) -> torch.Tensor:
-    """Decode attention over the aligned pool (Hkv and D from its shape):
-    returns [B, Hq, D]; rows with kv_len == 0 are 0."""
+    """Decode attention over the aligned pool (Hkv and D from its shape),
+    or with ``v_dim`` over the MLA latent pool: returns [B, Hq, D] (or
+    [B, Hq, v_dim]); rows with kv_len == 0 are 0."""
     Hkv, D = pool_heads(kv_cache)
-    return _decode(DECODE_ALIGNED_KERNEL, q, kv_cache, layer_idx, page_table, kv_lens,
+    kernel = DECODE_MLA_KERNEL if pool_layout(kv_cache) == "latent" else DECODE_ALIGNED_KERNEL
+    return _decode(kernel, q, kv_cache, layer_idx, page_table, kv_lens,
                    page_size=page_size, num_kv_heads=Hkv, head_dim=D, scale=scale,
-                   logit_cap=logit_cap, sliding_window=sliding_window)
+                   logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
 
 
 def ragged_paged_attention_packed_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, *, page_size, scale,
-    logit_cap=None, sliding_window=None,
+    logit_cap=None, sliding_window=None, v_dim=None,
 ) -> torch.Tensor:
-    """Plain version of the aligned decode kernel."""
+    """Plain version of the aligned and the MLA decode kernels."""
     Hkv, D = pool_heads(kv_cache)
     return decode_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens,
                                   page_size=page_size, num_kv_heads=Hkv, head_dim=D,
                                   scale=scale, logit_cap=logit_cap,
-                                  sliding_window=sliding_window)
+                                  sliding_window=sliding_window, v_dim=v_dim)
 
 
 def decode_attention_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, *, page_size, num_kv_heads,
-    head_dim, scale, logit_cap=None, sliding_window=None,
+    head_dim, scale, logit_cap=None, sliding_window=None, v_dim=None,
 ) -> torch.Tensor:
-    """Plain version of both decode kernels, on either pool: a loop over
+    """Plain version of the decode kernels, on any pool: a loop over
     requests, each gathering its pages, then a full float32 softmax."""
     B, Hq, D = q.shape
     Hkv = num_kv_heads
     G = Hq // Hkv
-    k_layer, v_layer = layer_kv(kv_cache, layer_idx, Hkv, D)
+    Dv = v_dim or D
+    k_layer, v_layer = layer_kv(kv_cache, layer_idx, Hkv, D, v_dim)
     lens = kv_lens.tolist()
     cap = page_table.shape[1] * page_size
-    out = torch.zeros_like(q)
+    out = q.new_zeros((B, Hq, Dv))
     for b in range(B):
         n = min(lens[b], cap)
         if n <= 0:
@@ -154,6 +171,5 @@ def decode_attention_plain(
             pos = torch.arange(n, device=q.device)
             s = s.masked_fill(pos <= lens[b] - 1 - sliding_window, float("-inf"))
         p = torch.softmax(s, dim=-1)
-        out[b] = torch.einsum("hgn,nhd->hgd", p, v).reshape(Hq, D).to(q.dtype)
+        out[b] = torch.einsum("hgn,nhd->hgd", p, v).reshape(Hq, Dv).to(q.dtype)
     return out
-

@@ -1,9 +1,13 @@
-"""Rotary position embeddings (port of semi_pd_tpu/ops/rope.py, default and
-llama3 frequency families).
+"""Rotary position embeddings (port of semi_pd_tpu/ops/rope.py: the default,
+llama3 and yarn / deepseek_yarn frequency families).
 
 The float32 cos/sin table is computed once in float64 numpy, exactly as the
-JAX package does, and gathered by absolute position per step. yarn, linear,
-longrope and m-rope are ROADMAP A14.
+JAX package does, and gathered by absolute position per step. yarn scales
+the table by its ``mscale`` (DeepSeek-yarn: mscale / mscale_all_dim) and
+spans ``original_max_position_embeddings * factor`` positions. Rotation is
+GPT-NeoX style (two halves, Llama) or GPT-J interleaved
+(``is_neox_style=False``, DeepSeek). linear, longrope and m-rope are ROADMAP
+A14.
 """
 
 from __future__ import annotations
@@ -34,9 +38,42 @@ def _llama3_scale_inv_freq(inv_freq: np.ndarray, scaling: Dict[str, Any]) -> np.
     return np.where(mid, smoothed, out)
 
 
+def _yarn_find_dim(num_rot: float, rot_dim: int, theta: float, max_pos: int) -> float:
+    return (rot_dim * math.log(max_pos / (num_rot * 2 * math.pi))) / (2 * math.log(theta))
+
+
+def yarn_mscale(scale: float, m: float = 1.0) -> float:
+    """YaRN's attention scale 0.1 * m * ln(scale) + 1 (1 when scale <= 1)."""
+    return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+
+def _yarn_inv_freq(rot_dim: int, theta: float,
+                   scaling: Dict[str, Any]) -> Tuple[np.ndarray, float]:
+    factor = scaling.get("factor", 1.0)
+    orig_max = scaling.get("original_max_position_embeddings", 4096)
+    beta_fast = scaling.get("beta_fast", 32)
+    beta_slow = scaling.get("beta_slow", 1)
+    extrapolation = _default_inv_freq(rot_dim, theta)
+    interpolation = extrapolation / factor
+    low = max(math.floor(_yarn_find_dim(beta_fast, rot_dim, theta, orig_max)), 0)
+    high = min(math.ceil(_yarn_find_dim(beta_slow, rot_dim, theta, orig_max)), rot_dim - 1)
+    ramp = np.clip((np.arange(rot_dim // 2, dtype=np.float64) - low)
+                   / max(high - low, 0.001), 0, 1)
+    mask = 1.0 - ramp
+    inv_freq = interpolation * (1 - mask) + extrapolation * mask
+    mscale_all_dim = scaling.get("mscale_all_dim", 0.0)
+    if mscale_all_dim:  # DeepSeek-yarn attention scale adjustment
+        mscale = (yarn_mscale(factor, scaling.get("mscale", 1.0))
+                  / yarn_mscale(factor, mscale_all_dim))
+    else:
+        mscale = yarn_mscale(factor)
+    return inv_freq, mscale
+
+
 class RotaryEmbedding(torch.nn.Module):
     """Holds a precomputed cos/sin table; applied positionally per token to
-    the two halves of the rotary dims (GPT-NeoX style, as Llama uses)."""
+    the rotary dims, as two halves (GPT-NeoX, Llama) or interleaved pairs
+    (GPT-J, ``is_neox_style=False``)."""
 
     def __init__(
         self,
@@ -45,23 +82,33 @@ class RotaryEmbedding(torch.nn.Module):
         max_position: int = 8192,
         theta: float = 10000.0,
         rope_scaling: Optional[Dict[str, Any]] = None,
+        is_neox_style: bool = True,
     ):
         super().__init__()
         self.head_dim = head_dim
         self.rotary_dim = rotary_dim or head_dim
+        self.is_neox_style = is_neox_style
+        self.mscale = 1.0
         inv_freq = _default_inv_freq(self.rotary_dim, theta)
+        max_pos = max_position
         if rope_scaling:
             rtype = rope_scaling.get("rope_type", rope_scaling.get("type", ""))
             if rtype == "llama3":
                 inv_freq = _llama3_scale_inv_freq(inv_freq, rope_scaling)
+            elif rtype in ("yarn", "deepseek_yarn"):
+                inv_freq, self.mscale = _yarn_inv_freq(self.rotary_dim, theta, rope_scaling)
+                max_pos = int(rope_scaling.get("original_max_position_embeddings", max_pos)
+                              * rope_scaling.get("factor", 1.0))
             elif rtype not in ("default", "dynamic"):
                 raise NotImplementedError(f"rope_scaling {rtype!r} is ROADMAP A14")
-        t = np.arange(max_position, dtype=np.float64)
+        t = np.arange(max(max_pos, max_position), dtype=np.float64)
         freqs = np.outer(t, inv_freq)  # [max_pos, rot_dim/2]
-        self.register_buffer("cos", torch.from_numpy(np.cos(freqs).astype(np.float32)),
-                             persistent=False)
-        self.register_buffer("sin", torch.from_numpy(np.sin(freqs).astype(np.float32)),
-                             persistent=False)
+        self.register_buffer(
+            "cos", torch.from_numpy((np.cos(freqs) * self.mscale).astype(np.float32)),
+            persistent=False)
+        self.register_buffer(
+            "sin", torch.from_numpy((np.sin(freqs) * self.mscale).astype(np.float32)),
+            persistent=False)
 
     def forward(self, positions: torch.Tensor, q: torch.Tensor,
                 k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -69,16 +116,22 @@ class RotaryEmbedding(torch.nn.Module):
         p = positions.long()
         cos = self.cos[p][:, None, :]
         sin = self.sin[p][:, None, :]
-        return (_apply_rope(q, cos, sin, self.rotary_dim),
-                _apply_rope(k, cos, sin, self.rotary_dim))
+        return (_apply_rope(q, cos, sin, self.rotary_dim, self.is_neox_style),
+                _apply_rope(k, cos, sin, self.rotary_dim, self.is_neox_style))
 
 
-def _apply_rope(x, cos, sin, rotary_dim: int):
+def _apply_rope(x, cos, sin, rotary_dim: int, neox: bool = True):
     dtype = x.dtype
     rot = x[..., :rotary_dim].float()
     rest = x[..., rotary_dim:]
-    x1, x2 = rot.chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dtype)
+    if neox:
+        x1, x2 = rot.chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    else:  # GPT-J interleaved pairs (2i, 2i + 1)
+        x1, x2 = rot[..., 0::2], rot[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(rot.shape)
+    out = out.to(dtype)
     if rest.shape[-1]:
         out = torch.cat([out, rest.to(dtype)], dim=-1)
     return out

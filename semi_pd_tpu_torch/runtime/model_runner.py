@@ -11,10 +11,12 @@ and decode are two shapes of one step on one pool), samples on the device
 and returns device tensors without waiting for them. ``read_results``
 brings a whole flush of steps back in one device->host copy.
 
-The KV pool's layout follows the model's geometry (``kv_pool_layout``):
-the chunked pool for head_dim 64-class models, the aligned pool for
-head_dim 128, the latter also with fp8 KV and calibrated per-layer scales
-(``quantization_param_path``). Random weights are drawn on the step device
+The model class follows the architecture (``ARCHITECTURES``: Llama, and
+DeepSeek-V2/V3 with MLA + MoE). The KV pool's layout follows the model's
+geometry (``kv_pool_layout``): the chunked pool for head_dim 64-class
+models, the aligned pool for head_dim 128 (also with fp8 KV and calibrated
+per-layer scales, ``quantization_param_path``), the latent pool for MLA
+models. Random weights are drawn on the step device
 (model_loader/loader.py::device_init_params).
 
 The step runs eagerly; CUDA graphs per decode bucket are ROADMAP A6b.
@@ -34,13 +36,18 @@ from semi_pd_tpu_torch.config.model_config import ModelConfig
 from semi_pd_tpu_torch.config.server_args import ServerArgs
 from semi_pd_tpu_torch.mem.pool import KVCache, KVCacheSpec, PageAllocator, ReqToPagePool
 from semi_pd_tpu_torch.model_loader.loader import device_init_params
+from semi_pd_tpu_torch.models.deepseek_v2 import DeepseekV2ForCausalLM
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
 from semi_pd_tpu_torch.ops.sampling import SamplingArrays, compute_logprobs, sample
 from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, ForwardArrays, ForwardMode
 
 logger = logging.getLogger(__name__)
 
-ARCHITECTURES = ("LlamaForCausalLM",)
+ARCHITECTURES = {
+    "LlamaForCausalLM": LlamaForCausalLM,
+    "DeepseekV2ForCausalLM": DeepseekV2ForCausalLM,
+    "DeepseekV3ForCausalLM": DeepseekV2ForCausalLM,
+}
 
 KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
 
@@ -70,14 +77,17 @@ def _load_kv_cache_scales(path: str, num_layers: int) -> np.ndarray:
     return out
 
 
-def kv_pool_layout(num_kv_heads: int, head_dim: int) -> str:
-    """The KV pool layout of a geometry: "chunked" iff D % 128 != 0,
-    128 % D == 0 and (2*Hkv*D) % 128 == 0; "aligned" iff D % 128 == 0.
-    The JAX runner's rule (model_runner.py:304-314) without its backend
-    clause, so the CPU runs the card's layout. Raises where the port has no
-    kernels: head_dim 256 and other aligned widths, and the 5D pool at
-    D < 128."""
+def kv_pool_layout(num_kv_heads: int, head_dim: int, use_mla: bool = False) -> str:
+    """The KV pool layout of a geometry: "latent" for MLA models (one
+    latent row of head_dim = kv_lora_rank + qk_rope_head_dim per slot);
+    else "chunked" iff D % 128 != 0, 128 % D == 0 and (2*Hkv*D) % 128 == 0;
+    "aligned" iff D % 128 == 0. The JAX runner's rule
+    (model_runner.py:304-314) without its backend clause, so the CPU runs
+    the card's layout. Raises where the port has no kernels: head_dim 256
+    and other aligned widths, and the 5D pool at D < 128."""
     D, Hkv = head_dim, num_kv_heads
+    if use_mla:
+        return "latent"
     if D % 128 == 0:
         if D != 128:
             raise NotImplementedError(
@@ -115,14 +125,21 @@ class ModelRunner:
         self.device = resolve_device(device or server_args.device)
         if model_config.architecture not in ARCHITECTURES:
             raise NotImplementedError(
-                f"{model_config.architecture}: this slice serves {ARCHITECTURES}; "
-                f"other families are ROADMAP A12-A14")
+                f"{model_config.architecture}: the port serves {sorted(ARCHITECTURES)}; "
+                f"MiniCPM3 (MLA) is ROADMAP A12, other families A14")
         if server_args.context_length:
             model_config.context_length = server_args.context_length
         self.model_config = model_config
-        self.model = LlamaForCausalLM(model_config, device=self.device)
+        self.model = ARCHITECTURES[model_config.architecture](model_config, device=self.device)
         self.model.page_size = server_args.page_size
         self.kv_scales = None
+        if model_config.use_mla and (server_args.quantization_param_path
+                                     or server_args.kv_cache_dtype not in ("auto", model_config.dtype)):
+            # as the JAX runner refuses the scales (model_runner.py:161-165):
+            # the latent pool holds K and V in one row
+            raise NotImplementedError(
+                "MLA models keep the latent pool in the model dtype: fp8 latent KV "
+                "and per-layer KV scales are ROADMAP A9")
         if server_args.quantization_param_path:
             self.kv_scales = torch.as_tensor(
                 _load_kv_cache_scales(server_args.quantization_param_path,
@@ -154,7 +171,7 @@ class ModelRunner:
         args, mc = self.server_args, self.model_config
         page_size = args.page_size
         kv_dtype = KV_DTYPES[mc.dtype if args.kv_cache_dtype == "auto" else args.kv_cache_dtype]
-        layout = kv_pool_layout(mc.num_kv_heads_total, mc.kv_head_dim)
+        layout = kv_pool_layout(mc.num_kv_heads_total, mc.kv_head_dim, mc.use_mla)
         if layout == "chunked" and kv_dtype.itemsize == 1:
             raise NotImplementedError(
                 f"{args.kv_cache_dtype} KV on the chunked pool (head_dim "
@@ -167,7 +184,7 @@ class ModelRunner:
         self.kv_spec = KVCacheSpec(
             num_layers=mc.num_hidden_layers, num_pages=num_pages,
             page_size=page_size, num_kv_heads=mc.num_kv_heads_total,
-            head_dim=mc.kv_head_dim, dtype=kv_dtype, chunked=layout == "chunked",
+            head_dim=mc.kv_head_dim, dtype=kv_dtype, layout=layout,
         )
         self.kv_cache = KVCache(self.kv_spec, self.device)
         self.page_allocator = PageAllocator(num_pages, page_size)
@@ -181,7 +198,7 @@ class ModelRunner:
         """Size the KV pool from free device memory."""
         mc = self.model_config
         per_token = (mc.num_hidden_layers * mc.num_kv_heads_total * mc.kv_head_dim
-                     * kv_dtype.itemsize * 2)
+                     * kv_dtype.itemsize * (1 if mc.use_mla else 2))
         if self.device.type != "cuda":
             return 32768  # CPU: a small pool for tests
         free, _ = torch.cuda.mem_get_info(self.device)

@@ -160,9 +160,9 @@ def test_aligned_extend_plain_matches_jax_kernel(case):
 
 
 def test_aligned_routing_and_refusals():
-    """T == B goes to the decode path, as the JAX wrapper decides; MLA and
-    speculation masks raise with their ROADMAP items; fp8 KV is taken on the
-    aligned pool only."""
+    """T == B goes to the decode path, as the JAX wrapper decides; v_dim
+    (MLA) is refused on the aligned pool, speculation masks raise with their
+    ROADMAP item; fp8 KV is taken on the aligned pool only."""
     d = _setup(5, [1, 1, 1], [12, 40, 7])
     q, pool, pt = _t(d["q"]), d["tpool"], _t(d["pt"])
     kvl = _t(d["kv_lens"].astype(np.int32))
@@ -173,7 +173,7 @@ def test_aligned_routing_and_refusals():
     e = rpa.ragged_paged_attention_extend_plain(q, pool, 0, pt, kvl, meta, **kw)
     assert torch.equal(a, b)
     torch.testing.assert_close(a, e, rtol=2e-5, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="latent pool"):
         rpa.ragged_paged_attention(q, pool, 0, pt, kvl, meta, v_dim=64, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         rpa.ragged_paged_attention(q, pool, 0, pt, kvl, meta, spec_anc=(1,), **kw)

@@ -117,7 +117,7 @@ def test_reference_rejects_unported_features():
     d = _setup(2, [1], [5])
     args = (_t(d["q"]), chunked_to_5d(_t(d["pool"]), HKV, D), 0, _t(d["pt"]),
             _t(d["qri"]), _t(d["qpos"]), _t(d["kv_lens"].astype(np.int32)))
-    for kw in ({"v_dim": 32}, {"spec_anc": (1,)}, {"alibi_slopes": torch.ones(HQ)}):
+    for kw in ({"spec_anc": (1,)}, {"alibi_slopes": torch.ones(HQ)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ragged_paged_attention_reference(*args, page_size=PS, scale=SCALE, **kw)
 

@@ -1,7 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, and the Engine on its default CUDA device against the same Engine
-on the CPU. This file imports no JAX, so it also runs on a machine with a
-GPU and no JAX:
+version, the CUDA MoE path (torch._grouped_mm) against its plain loop, and
+the Engine on its default CUDA device against the same Engine on the CPU
+(Llama on the chunked and the aligned pool, DeepSeek-V2 on the latent
+pool). This file imports no JAX, so it also runs on a machine with a GPU
+and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
@@ -11,6 +13,8 @@ Tolerances: float32 1e-4 (online vs full softmax, another summation order);
 bfloat16 1e-2 (the kernels round P to bf16 before P.V, as the TPU kernels
 do), also with fp8 KV, where kernel and plain version read the same fp8
 bytes. The softcap of 1.0 bends most scores, whose std is about 1 here.
+MoE in bf16: 2e-2 relative to the output's scale (both paths round the
+same bf16 products; the grouped GEMM sums K in another order).
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ import torch
 from semi_pd_tpu_torch.config.model_config import ModelConfig
 from semi_pd_tpu_torch.config.server_args import ServerArgs
 from semi_pd_tpu_torch.kernels import KERNELS
+from semi_pd_tpu_torch.ops import moe
 from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
 from semi_pd_tpu_torch.ops.attention import rpa_packed
 from semi_pd_tpu_torch.runtime.engine import Engine
@@ -29,6 +34,8 @@ from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 HQ, HKV, D, PS, L = 8, 2, 64, 16, 2
 CT = 2 * HKV * D // 128
 D_ALIGNED = 128
+# the latent pool's kernels: DeepSeek-V2's latent row (512 + 64), V = 512
+HQ_MLA, DLAT, V_DIM = 16, 576, 512
 
 
 @pytest.fixture
@@ -49,9 +56,10 @@ def _unaligned(a: np.ndarray, dev) -> torch.Tensor:
 
 
 def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
-          kv_dtype=None):
-    """Queries, a pool (chunked [L, S, CT, 128] or aligned [L, 2, S, Hkv,
-    128], in ``kv_dtype``, default ``dtype``) and a shuffled page table."""
+          kv_dtype=None, latent=False):
+    """Queries, a pool (chunked [L, S, CT, 128], aligned [L, 2, S, Hkv,
+    128] or latent [L, 1, S, 1, 576], in ``kv_dtype``, default ``dtype``)
+    and a shuffled page table."""
     rng = np.random.default_rng(seed)
     B = len(kv_lens) + pad_B
     n_pages = [-(-k // PS) for k in kv_lens]
@@ -67,10 +75,14 @@ def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
     ql[: len(q_lens)] = q_lens
     kl = np.zeros(B, np.int32)
     kl[: len(kv_lens)] = kv_lens
-    d = D_ALIGNED if aligned else D
+    d, hq = D_ALIGNED if aligned else D, HQ
     shape = (L, 2, total * PS, HKV, d) if aligned else (L, total * PS, CT, 128)
-    pool = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-    q = torch.from_numpy(rng.normal(size=(T, HQ, d)).astype(np.float32))
+    scale = 1.0
+    if latent:
+        d, hq, shape = DLAT, HQ_MLA, (L, 1, total * PS, 1, DLAT)
+        scale = 0.3  # scores q.k * DLAT**-0.5 of std ~1, as at the other widths
+    pool = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale)
+    q = torch.from_numpy(rng.normal(size=(T, hq, d)).astype(np.float32) * scale)
     m = build_attn_meta(ql, kl, T)
     meta = AttnMeta(*[_unaligned(a.numpy(), dev) for a in m])
     return (q.to(dev, dtype), pool.to(dev, kv_dtype or dtype), _unaligned(pt, dev),
@@ -139,15 +151,61 @@ def test_aligned_kernel_matches_plain(cuda_device, kind, dtype, opt):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-def _engines_agree(cuda_device, head_dim, pool_kernels):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["decode", "extend"])
+@pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
+def test_mla_kernel_matches_plain(cuda_device, kind, dtype, opt):
+    """The latent pool's kernels (DeepSeek-V2's 576-wide latent row, V its
+    first 512 elements, 16 query heads) against their plain versions, on
+    layer 1 of the pool; the extend case has q_len 140 > 128 (two
+    work-list entries for one request) and a padded batch row."""
+    dt = getattr(torch, dtype)
+    case = _decode_case if kind == "decode" else _extend_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt, latent=True)
+    kw = dict(_opts(opt, DLAT ** -0.5), v_dim=V_DIM)
+    k = KERNELS[f"rpa_{kind}_mla"]
+    before = k.launches
+    if kind == "decode":
+        out = rpa_packed.ragged_paged_attention_packed(q, pool, 1, pt, kvl, **kw)
+        ref = rpa_packed.ragged_paged_attention_packed_plain(q, pool, 1, pt, kvl, **kw)
+    else:
+        out = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, **kw)
+        ref = rpa.ragged_paged_attention_extend_plain(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert out.shape == ref.shape == (q.shape[0], HQ_MLA, V_DIM)
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_moe_grouped_mm_matches_plain_loop(cuda_device):
+    """moe_ffn on the card in bf16 (torch._grouped_mm) against the same
+    function with the plain per-expert loop, at DeepSeek-V2-Lite's expert
+    shapes (64 experts, hidden 2048, expert width 1408, top-6), with some
+    experts receiving no row."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    T, d, E, F, K = 37, 2048, 64, 1408, 6
+    bf = torch.bfloat16
+    x = torch.randn((T, d), generator=g, device=cuda_device).to(bf)
+    gate_up = (torch.randn((E, d, 2 * F), generator=g, device=cuda_device) * 0.02).to(bf)
+    down = (torch.randn((E, F, d), generator=g, device=cuda_device) * 0.02).to(bf)
+    logits = torch.randn((T, E), generator=g, device=cuda_device)
+    logits[:, :8] -= 30.0  # experts 0-7 get no row
+    w, idx = moe.route_topk(logits, K)
+    got = moe.moe_ffn(x, gate_up, down, w, idx)
+    want = moe.moe_ffn(x, gate_up, down, w, idx, matmul=moe.grouped_matmul_plain)
+    torch.cuda.synchronize()
+    assert got.dtype == bf and got.shape == (T, d) and torch.isfinite(got).all()
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    assert err < 2e-2, err
+
+
+def _engines_agree(cuda_device, cfg, pool_kernels):
     """The Engine with no device argument runs on the card through the
     given pool's two kernels (and no other) and gives the greedy tokens of
     the same Engine on the CPU holding the same parameters (CUDA and CPU
     generators draw different random weights)."""
-    cfg = dict(architecture="LlamaForCausalLM", vocab_size=512, hidden_size=256,
-               intermediate_size=512, num_hidden_layers=2, num_attention_heads=HQ,
-               num_key_value_heads=HKV, head_dim=head_dim, context_length=512,
-               dtype="float32")
     serve = dict(random_weights=True, page_size=PS, max_total_tokens=2048,
                  chunked_prefill_size=64, enable_semi_pd=True)
     rng = np.random.default_rng(0)
@@ -166,9 +224,30 @@ def _engines_agree(cuda_device, head_dim, pool_kernels):
     assert gpu.flush_cache() and cpu.flush_cache()
 
 
+def _llama_cfg(head_dim):
+    return dict(architecture="LlamaForCausalLM", vocab_size=512, hidden_size=256,
+                intermediate_size=512, num_hidden_layers=2, num_attention_heads=HQ,
+                num_key_value_heads=HKV, head_dim=head_dim, context_length=512,
+                dtype="float32")
+
+
 def test_engine_on_default_cuda_device_matches_cpu(cuda_device):
-    _engines_agree(cuda_device, D, ["rpa_decode", "rpa_extend"])
+    _engines_agree(cuda_device, _llama_cfg(D), ["rpa_decode", "rpa_extend"])
 
 
 def test_engine_aligned_pool_on_cuda_matches_cpu(cuda_device):
-    _engines_agree(cuda_device, D_ALIGNED, ["rpa_decode_aligned", "rpa_extend_aligned"])
+    _engines_agree(cuda_device, _llama_cfg(D_ALIGNED),
+                   ["rpa_decode_aligned", "rpa_extend_aligned"])
+
+
+def test_engine_deepseek_latent_pool_on_cuda_matches_cpu(cuda_device):
+    """A small DeepSeek-V2 (a dense layer, then an MoE layer with a shared
+    expert; the kernels' latent width 512 + 64, 16 heads) in float32."""
+    cfg = dict(architecture="DeepseekV2ForCausalLM", vocab_size=512, hidden_size=256,
+               intermediate_size=512, num_hidden_layers=2, num_attention_heads=HQ_MLA,
+               num_key_value_heads=HQ_MLA, head_dim=192, context_length=512,
+               use_mla=True, kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+               v_head_dim=128, num_experts=8, num_experts_per_tok=2,
+               moe_intermediate_size=128, num_shared_experts=1, first_k_dense_replace=1,
+               dtype="float32")
+    _engines_agree(cuda_device, cfg, ["rpa_decode_mla", "rpa_extend_mla"])

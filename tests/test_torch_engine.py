@@ -116,15 +116,16 @@ def test_port_imports_no_jax(target):
 
 
 def test_kernel_registry_and_sources():
-    """The four kernels (decode and extend on the chunked and the aligned
-    pool) are registered with a source in the checkout, the TPU kernel
-    they replace (a function that reaches pl.pallas_call), their own build
-    library and a launch count."""
+    """The six kernels (decode and extend on the chunked, the aligned and
+    the latent pool) are registered with a source in the checkout, the TPU
+    kernel they replace (a function that reaches pl.pallas_call), their own
+    build library and a launch count; every extend kernel is built with the
+    work list's q-block."""
     from semi_pd_tpu_torch.kernels import KERNELS
     import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
 
     assert set(KERNELS) == {"rpa_decode", "rpa_extend", "rpa_decode_aligned",
-                            "rpa_extend_aligned"}
+                            "rpa_extend_aligned", "rpa_decode_mla", "rpa_extend_mla"}
     for k in KERNELS.values():
         assert k.source.exists() and k.source.suffix == ".cu"
         path, line = k.replaces.split()[0].split(":")
@@ -132,6 +133,6 @@ def test_kernel_registry_and_sources():
         assert src[int(line) - 1].startswith(f"def {k.replaces.split()[1]}(")
         assert "sm_90a" in " ".join(k.flags())
         assert ("-DRPA_ALIGNED" in k.flags()) == k.name.endswith("_aligned")
-    assert len({k.lib_path() for k in KERNELS.values()}) == 4
-    for name in ("rpa_extend", "rpa_extend_aligned"):
+    assert len({k.lib_path() for k in KERNELS.values()}) == 6
+    for name in ("rpa_extend", "rpa_extend_aligned", "rpa_extend_mla"):
         assert "EXTEND_QBLK=128" in " ".join(KERNELS[name].flags())

@@ -203,20 +203,18 @@ static int launch_decode(const void* q, const void* k_pool, const void* v_pool, 
 
 // C entry point (bound with ctypes by ops/attention/rpa_packed.py).
 // k_pool / v_pool: K and V of the layer at slot 0; row_stride: elements
-// from one slot to the next (rpa_common.cuh). Dv: V's width, = D here (the
-// MLA kernels share this signature). q_type / kv_type: TypeCode.
+// from one slot to the next (rpa_common.cuh). q_type / kv_type: TypeCode.
 // cap <= 0: no softcap; window <= 0: no sliding window. Returns
 // cudaError_t; a head_dim or type pair this build lacks is
 // cudaErrorInvalidValue.
 extern "C" int RPA_DECODE_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                                 const void* page_table, const void* kv_lens, void* out, int B,
-                                int Hq, int Hkv, int D, int Dv, int row_stride, int maxP,
+                                int Hq, int Hkv, int D, int row_stride, int maxP,
                                 int page_size, float scale, float cap, int window, int q_type,
                                 int kv_type, void* stream) {
   using namespace rpa;
   if (B == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM ||
-      Dv != D)
+  if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RPA_DEC(QC, TQ, KC, TKV)                                                        \

@@ -228,8 +228,7 @@ static int launch_extend(const void* q, const void* k_pool, const void* v_pool, 
 
 // C entry point (bound with ctypes by ops/attention/ragged_paged_attention.py).
 // k_pool / v_pool: K and V of the layer at slot 0; row_stride: elements
-// from one slot to the next (rpa_common.cuh). Dv: V's width, = D here (the
-// MLA kernels share this signature). q_type / kv_type: TypeCode.
+// from one slot to the next (rpa_common.cuh). q_type / kv_type: TypeCode.
 // `out` must be zero-filled by the caller: rows no entry owns (bucket
 // padding) are left untouched. cap <= 0: no softcap; window <= 0: no
 // window. Returns cudaError_t; a head_dim or type pair this build lacks is
@@ -238,12 +237,12 @@ extern "C" int RPA_EXTEND_ENTRY(const void* q, const void* k_pool, const void* v
                                 const void* page_table, const void* kv_lens, const void* q_lens,
                                 const void* q_start, const void* block_seq,
                                 const void* block_row, const void* block_qofs, void* out,
-                                int NQB, int Hq, int Hkv, int D, int Dv, int row_stride,
-                                int maxP, int page_size, float scale, float cap, int window,
-                                int q_type, int kv_type, void* stream) {
+                                int NQB, int Hq, int Hkv, int D, int row_stride, int maxP,
+                                int page_size, float scale, float cap, int window, int q_type,
+                                int kv_type, void* stream) {
   using namespace rpa;
   if (NQB == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv || D != RPA_HEAD_DIM || Dv != D) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv || D != RPA_HEAD_DIM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RPA_EXT(QC, TQ, KC, TKV)                                                             \
   if (q_type == QC && kv_type == KC)                                                         \

@@ -92,21 +92,21 @@ static int launch_extend_mla(const void* q, const void* lat, const void* pt,
 // C entry point (bound with ctypes by ops/attention/ragged_paged_attention.py),
 // with the signature of the other extend kernels: k_pool is the layer's
 // latent rows at slot 0 and v_pool must be the same address (V is the row's
-// prefix); Hkv 1, D = row_stride = MLA_DL, Dv = MLA_DV. q_type / kv_type:
-// TypeCode. `out` must be zero-filled by the caller: rows no entry owns
-// (bucket padding) are left untouched. cap <= 0: no softcap; window <= 0:
-// no window. Returns cudaError_t; another geometry or type pair is
-// cudaErrorInvalidValue.
+// prefix); Hkv 1, D = row_stride = MLA_DL; out is [T, Hq, MLA_DV] (the
+// wrapper holds v_dim to MLA_DV). q_type / kv_type: TypeCode. `out` must
+// be zero-filled by the caller: rows no entry owns (bucket padding) are left
+// untouched. cap <= 0: no softcap; window <= 0: no window. Returns
+// cudaError_t; another geometry or type pair is cudaErrorInvalidValue.
 extern "C" int rpa_extend_mla(const void* q, const void* k_pool, const void* v_pool,
                               const void* page_table, const void* kv_lens, const void* q_lens,
                               const void* q_start, const void* block_seq,
                               const void* block_row, const void* block_qofs, void* out,
-                              int NQB, int Hq, int Hkv, int D, int Dv, int row_stride,
+                              int NQB, int Hq, int Hkv, int D, int row_stride,
                               int maxP, int page_size, float scale, float cap, int window,
                               int q_type, int kv_type, void* stream) {
   using namespace rpa;
   if (NQB == 0) return 0;
-  if (Hq <= 0 || Hkv != 1 || D != MLA_DL || Dv != MLA_DV || row_stride != MLA_DL ||
+  if (Hq <= 0 || Hkv != 1 || D != MLA_DL || row_stride != MLA_DL ||
       v_pool != k_pool)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -53,7 +53,7 @@ from semi_pd_tpu_torch.ops.attention.rpa_packed import (
 # (compiled with -DEXTEND_QBLK from this constant) all use it.
 EXTEND_Q_BLOCK = 128
 
-_ARGTYPES = [P] * 11 + [I] * 8 + [F, F, I, I, I, P]
+_ARGTYPES = [P] * 11 + [I] * 7 + [F, F, I, I, I, P]
 
 EXTEND_KERNEL = register(CudaKernel(
     name="rpa_extend",
@@ -191,7 +191,7 @@ def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_s
     kernel.launch(
         q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
         *[a.data_ptr() for a in ints], out.data_ptr(), meta.block_seq.shape[0], Hq,
-        num_kv_heads, D, Dv, row_stride, page_table.shape[1], page_size, float(scale),
+        num_kv_heads, D, row_stride, page_table.shape[1], page_size, float(scale),
         float(logit_cap or 0.0), int(sliding_window or 0), TYPE_CODES[q.dtype],
         TYPE_CODES[kv_cache.dtype], cuda_stream_ptr(q.device))
     return out

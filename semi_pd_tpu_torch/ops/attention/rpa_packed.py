@@ -36,7 +36,7 @@ from semi_pd_tpu_torch.ops.attention.rpa_common import (
     pool_heads, pool_layout,
 )
 
-_ARGTYPES = [P] * 6 + [I] * 8 + [F, F, I, I, I, P]
+_ARGTYPES = [P] * 6 + [I] * 7 + [F, F, I, I, I, P]
 
 DECODE_KERNEL = register(CudaKernel(
     name="rpa_decode",
@@ -83,7 +83,7 @@ def _decode(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_size,
     out = q.new_empty((B, Hq, Dv))
     kernel.launch(
         q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
-        out.data_ptr(), B, Hq, num_kv_heads, D, Dv, row_stride, page_table.shape[1],
+        out.data_ptr(), B, Hq, num_kv_heads, D, row_stride, page_table.shape[1],
         page_size, float(scale), float(logit_cap or 0.0), int(sliding_window or 0),
         TYPE_CODES[q.dtype], TYPE_CODES[kv_cache.dtype], cuda_stream_ptr(q.device))
     return out

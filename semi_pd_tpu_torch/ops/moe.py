@@ -88,14 +88,18 @@ def moe_ffn(
     down: torch.Tensor,  # [E, f, d]
     weights: torch.Tensor,  # [T, K] float32 routing weights
     expert_idx: torch.Tensor,  # [T, K] int32
-    act=silu_and_mul,
     matmul=grouped_matmul,
 ) -> torch.Tensor:
-    """Sort-by-expert grouped MoE forward, [T, d] -> [T, d], in the JAX
-    order of casts: rows gathered in the experts' dtype, both products and
-    the weighted scatter-add in that dtype, cast back to x's. ``matmul``
-    is the grouped product (``grouped_matmul_plain`` holds the CUDA path
-    to the plain loop)."""
+    """Sort-by-expert grouped MoE forward with SiLU gating, [T, d] -> [T, d],
+    in the JAX order of casts: rows gathered in the experts' dtype, both
+    products and the weighted sum in that dtype, cast back to x's.
+    ``matmul`` is the grouped product (``grouped_matmul_plain`` holds the
+    CUDA path to the plain loop).
+
+    The weighted rows go back to (token, k) order and each token's K rows
+    are summed in one reduction, so a token's result is the same from run
+    to run; a scatter-add (JAX's ``.at[].add``, torch's ``index_add_``)
+    adds with atomics on a CUDA device, in an order that varies."""
     if isinstance(gate_up, dict) or isinstance(down, dict):
         raise NotImplementedError("quantized expert stacks are ROADMAP A13")
     T, d = x.shape
@@ -105,9 +109,9 @@ def moe_ffn(
     order = torch.argsort(flat, stable=True)
     token_of = order // K  # source token of each sorted row
     group_sizes = torch.bincount(flat, minlength=E)
-    h = act(matmul(x[token_of].to(gate_up.dtype), gate_up, group_sizes))
-    out_rows = matmul(h, down, group_sizes)  # [T*K, d]
+    h = silu_and_mul(matmul(x[token_of].to(gate_up.dtype), gate_up, group_sizes))
+    out_rows = matmul(h, down, group_sizes)  # [T*K, d], sorted by expert
     w_rows = weights.reshape(T * K)[order].to(out_rows.dtype)
-    out = torch.zeros((T, d), dtype=out_rows.dtype, device=x.device)
-    out.index_add_(0, token_of, out_rows * w_rows[:, None])
-    return out.to(x.dtype)
+    rows = torch.empty_like(out_rows)
+    rows[order] = out_rows * w_rows[:, None]  # row t*K + k: token t's k-th expert
+    return rows.view(T, K, d).sum(dim=1).to(x.dtype)

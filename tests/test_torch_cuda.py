@@ -201,6 +201,24 @@ def test_moe_grouped_mm_matches_plain_loop(cuda_device):
     assert err < 2e-2, err
 
 
+def test_moe_ffn_is_deterministic_on_the_card(cuda_device):
+    """The same bf16 inputs give bitwise the same moe_ffn output every call
+    (each token's K rows are summed in a fixed order, not scatter-added
+    with atomics), at DeepSeek-V2-Lite's expert shapes and a prefill
+    chunk's 2048 tokens."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(1)
+    T, d, E, F, K = 2048, 2048, 64, 1408, 6
+    bf = torch.bfloat16
+    x = torch.randn((T, d), generator=g, device=cuda_device).to(bf)
+    gate_up = (torch.randn((E, d, 2 * F), generator=g, device=cuda_device) * 0.02).to(bf)
+    down = (torch.randn((E, F, d), generator=g, device=cuda_device) * 0.02).to(bf)
+    w, idx = moe.route_topk(torch.randn((T, E), generator=g, device=cuda_device), K)
+    first = moe.moe_ffn(x, gate_up, down, w, idx)
+    for _ in range(3):
+        assert torch.equal(moe.moe_ffn(x, gate_up, down, w, idx), first)
+
+
 def _engines_agree(cuda_device, cfg, pool_kernels):
     """The Engine with no device argument runs on the card through the
     given pool's two kernels (and no other) and gives the greedy tokens of

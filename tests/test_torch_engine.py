@@ -102,12 +102,12 @@ def _imports(path: pathlib.Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "serve_witness"])
 def test_port_imports_no_jax(target):
-    """No file of the port, and not chip_smoke.py, imports jax or anything
-    of the JAX package."""
+    """No file of the port, and neither of its card scripts (chip_smoke.py,
+    serve_witness.py), imports jax or anything of the JAX package."""
     files = (sorted((ROOT / "semi_pd_tpu_torch").rglob("*.py")) if target == "package"
-             else [ROOT / "chip_smoke.py"])
+             else [ROOT / f"{target}.py"])
     assert files
     for f in files:
         for mod in _imports(f):

@@ -12,28 +12,39 @@ each (any failure raises and exits non-zero):
              version on the same inputs, at the geometry of its path (page
              16; Hq 32, Hkv 8: chunked pool [1, S, 8, 128] at D 64, aligned
              pool [1, 2, S, 8, 128] at D 128 with bf16, float32 and fp8 KV;
-             Hq 16: DeepSeek-V2-Lite's latent pool [1, 1, S, 1, 576], V its
-             first 512), with its time, the plain version's time, one
-             PyTorch library call's time (scaled_dot_product_attention over
-             pre-gathered dense KV, upcast to bf16 for fp8 KV; a yardstick
-             the port never calls) and the least time the card could take
-             (bytes or operations over the card's peak rates).
+             Hq 32, Hkv 4: TinyLlama's 5D pool [1, 2, S, 4, 64] for the
+             merged kernels, with the same types; Hq 16: DeepSeek-V2-Lite's
+             latent pool [1, 1, S, 1, 576], V its first 512; the streaming
+             decodes on the chunked, aligned and latent pools), with its
+             time, the plain version's time, one PyTorch library call's
+             time (scaled_dot_product_attention over pre-gathered dense KV,
+             upcast to bf16 for fp8 KV; a yardstick the port never calls)
+             and the least time the card could take (bytes or operations
+             over the card's peak rates).
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
              chunked pool, the Meta-Llama-3-8B geometry on the aligned pool
-             with bf16 KV, then with fp8_e4m3 KV, and DeepSeek-V2-Lite
-             (MLA + MoE, 15.7 B parameters) on the latent pool. One extend
-             step and two decode steps each through the kernels, against the
-             same layers run with the plain attention functions.
+             with bf16 KV, then with fp8_e4m3 KV, DeepSeek-V2-Lite (MLA +
+             MoE, 15.7 B parameters) on the latent pool, and
+             TinyLlama-1.1B on the 5D pool at head_dim 64 with fp8_e4m3 KV,
+             then with bf16 KV. One extend step and two decode steps each
+             through the kernels, against the same layers run with the
+             plain attention functions; after each of the first three
+             paths' serving, once more with the streaming decode.
 4. serve   — the Engine with the bench's server settings serves 32 greedy
-             requests (prompts 256-3072 tokens, 64 new tokens each),
+             requests (prompts 256-3072 tokens, 64 new tokens each;
+             TinyLlama's at most 1984 tokens, its context being 2048),
              colocated and semi-PD, with the 1B-class model (chunked pool),
-             the 8B model with fp8_e4m3 KV (aligned pool) and
-             DeepSeek-V2-Lite (latent pool); every launch counter is set to
-             0 just before each mode and read just after, and only the
-             path's own two kernels may have launched, each L times per
-             step of its kind. DeepSeek-V2-Lite serves colocated a second
-             time and must give the first run's tokens exactly.
+             the 8B model with fp8_e4m3 KV (aligned pool), DeepSeek-V2-Lite
+             (latent pool) and TinyLlama-1.1B (the merged kernels); every
+             launch counter is set to 0 just before each run and read just
+             after, and only the path's own two kernels may have launched,
+             each L times per step of its kind. DeepSeek-V2-Lite serves
+             colocated a second time and must give the first run's tokens
+             exactly. The first three paths then serve colocated once more
+             with ``decode_stream`` (the streaming decode), on the same
+             weights: their stream kernel launches L times per decode step
+             and the packed decode never.
 
 Then one JSON line listing the kernels, the nvidia-smi name/power-limit line,
 and the result line {"ok": true, "device": {...}}.
@@ -53,9 +64,10 @@ import numpy as np
 
 PAGE = 16
 # (Hq, Hkv, head_dim, V width) of each pool's path: the 1B-class model's,
-# Llama-3-8B's, and DeepSeek-V2-Lite's latent row (kv_lora 512 + rope 64)
+# Llama-3-8B's, TinyLlama-1.1B's (the 5D pool at head_dim 64: the merged
+# kernels), and DeepSeek-V2-Lite's latent row (kv_lora 512 + rope 64)
 GEOMETRY = {"chunked": (32, 8, 64, 64), "aligned": (32, 8, 128, 128),
-            "latent": (16, 1, 576, 512)}
+            "merged": (32, 4, 64, 64), "latent": (16, 1, 576, 512)}
 
 # H100 SXM5 80GB dense peaks (NVIDIA H100 Tensor Core GPU data sheet):
 # HBM3 bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor
@@ -64,9 +76,10 @@ PEAKS = (3.35e12, 989e12, 67e12)
 
 # Kernel vs plain version: float32 differs only in summation order (online
 # vs full softmax); bf16 also rounds P to bf16 before P.V, as the TPU
-# kernels do, and has read at most 3.9e-3 at these shapes on an H100. The
-# limit goes by q's dtype: with fp8 KV both versions read the same fp8
-# bytes and the kernel rounds P to bf16.
+# kernels do (not the merged and the MLA stream builds), and has read at
+# most 3.9e-3 at these shapes on an H100. The limit goes by q's dtype: with
+# fp8 KV both versions read the same fp8 bytes and the kernel rounds P to
+# bf16.
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
@@ -120,6 +133,7 @@ def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype):
     dev = "cuda"
     shape = {"chunked": (1, total * PAGE, 2 * HKV * D // 128, 128),
              "aligned": (1, 2, total * PAGE, HKV, D),
+             "merged": (1, 2, total * PAGE, HKV, D),
              "latent": (1, 1, total * PAGE, 1, D)}[pool]
     kv = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
     T = int(sum(q_lens))
@@ -151,7 +165,10 @@ def dense_kv(kv, pt, kv_lens, pool, dtype):
 
 
 def kernel_name(kind, pool):
-    return f"rpa_{kind}" + {"chunked": "", "aligned": "_aligned", "latent": "_mla"}[pool]
+    """kind: "decode", "extend" or "stream" (the streaming decode)."""
+    base = "rpa_decode_stream" if kind == "stream" else f"rpa_{kind}"
+    return base + {"chunked": "", "aligned": "_aligned", "merged": "_merged",
+                   "latent": "_mla"}[pool]
 
 
 def dtype_name(dt):
@@ -165,7 +182,7 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
 
     from semi_pd_tpu_torch.kernels import KERNELS
     from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
-    from semi_pd_tpu_torch.ops.attention import rpa_packed
+    from semi_pd_tpu_torch.ops.attention import rpa_packed, rpa_stream
 
     kv_dtype = kv_dtype or dtype
     HQ, HKV, D, DV = GEOMETRY[pool]
@@ -174,19 +191,25 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
     kw = dict(page_size=PAGE, scale=scale, logit_cap=cap, sliding_window=window)
     if pool == "latent":
         kw.update(v_dim=DV)
+    if kind == "stream":  # no sliding window: the routing keeps it on the packed decode
+        kw.pop("sliding_window")
     if pool == "chunked":
         kw.update(num_kv_heads=HKV, head_dim=D)
         fns = {"decode": (rpa_packed.ragged_paged_attention_chunked_packed,
+                          rpa_packed.decode_attention_plain),
+               "stream": (rpa_stream.ragged_paged_attention_chunked_stream,
                           rpa_packed.decode_attention_plain),
                "extend": (rpa.ragged_paged_attention_chunked_extend,
                           rpa.extend_attention_plain)}
     else:
         fns = {"decode": (rpa_packed.ragged_paged_attention_packed,
                           rpa_packed.ragged_paged_attention_packed_plain),
+               "stream": (rpa_stream.ragged_paged_attention_stream,
+                          rpa_packed.ragged_paged_attention_packed_plain),
                "extend": (rpa.ragged_paged_attention_extend,
                           rpa.ragged_paged_attention_extend_plain)}
     kfn, pfn = fns[kind]
-    args = (q, kv, 0, pt, kvl) if kind == "decode" else (q, kv, 0, pt, kvl, meta)
+    args = (q, kv, 0, pt, kvl) if kind != "extend" else (q, kv, 0, pt, kvl, meta)
     kern = lambda: kfn(*args, **kw)
     plain = lambda: pfn(*args, **kw)
     out_k = kern()
@@ -211,7 +234,7 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
     lens = kvl.tolist()
     ql = meta.q_lens.tolist()
     qs = meta.q_start.tolist()
-    if kind == "decode":  # the query sits at n - 1 and sees min(n, window) rows
+    if kind != "extend":  # the query sits at n - 1 and sees min(n, window) rows
         kv_rows = pairs = sum(min(n, window) if window else n for n in lens)
     else:
         pairs = kv_rows = 0
@@ -243,7 +266,7 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
         K, V, kvmax = dense_kv(kv, pt, kvl, pool, dtype)
         library = "sdpa" + ("_over_kv_upcast_to_bf16" if kv_dtype != dtype else "")
         B = len(lens)
-        if kind == "decode":
+        if kind != "extend":
             qd = q[:, :, None, :]  # [B, Hq, 1, D]
             pos = torch.arange(kvmax, device="cuda")[None, :]
             n = kvl[:, None].long()
@@ -299,19 +322,25 @@ def phase_kernels():
     # (pool, q dtype, KV dtype) of each path's cases, and its decode shapes
     types = {"chunked": [(bf, bf), (f32, f32)],
              "aligned": [(bf, bf), (f32, f32), (bf, e4m3)],
+             "merged": [(bf, bf), (f32, f32), (bf, e4m3)],
              "latent": [(bf, bf), (f32, f32)]}
     decode_shapes = {"chunked": ((16, 8192), (64, 1024), (128, 2048)),
                      "aligned": ((16, 8192), (64, 1024), (128, 2048)),
+                     "merged": ((16, 8192), (64, 1024), (128, 2048)),
                      "latent": ((64, 1024), (16, 4096), (128, 2048))}
+    fp8_pools = ("aligned", "merged")
     for pool, pairs in types.items():
         for b, kv in decode_shapes[pool]:
             lens = ragged(b, kv)
-            for dt, kdt in pairs:
-                rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", "decode", gen, rng,
-                                            [1] * b, lens, dt, pool, kdt))
-            if pool == "aligned" and b == 64:
-                rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", "decode", gen, rng,
-                                            [1] * b, lens, bf, pool, e5m2))
+            # the streaming decode on the pools that have one, same inputs' shapes
+            kinds = ("decode",) if pool == "merged" else ("decode", "stream")
+            for kind in kinds:
+                for dt, kdt in pairs:
+                    rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", kind, gen, rng,
+                                                [1] * b, lens, dt, pool, kdt))
+                if pool in fp8_pools and b == 64:
+                    rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", kind, gen, rng,
+                                                [1] * b, lens, bf, pool, e5m2))
         for name, (ql, kl) in ext.items():
             for dt, kdt in pairs:
                 rows.append(run_kernel_case(name, "extend", gen, rng, ql, kl, dt, pool, kdt))
@@ -354,6 +383,24 @@ def llama3_8b_config():
     )
 
 
+def tinyllama_config():
+    """TinyLlama-1.1B's published config.json (TinyLlama/TinyLlama-1.1B-Chat-v1.0:
+    LlamaForCausalLM, 22 layers, hidden 2048, 32 query and 4 KV heads of 64,
+    intermediate 5632, vocab 32000, rope theta 10000, rms eps 1e-5, untied
+    embeddings, context 2048). Its 2 * 4 * 64 = 512-wide slot row is no
+    multiple of 8 chunks of 128, so it is served from the 5D pool through
+    the merged kernels."""
+    from semi_pd_tpu_torch.config.model_config import ModelConfig
+
+    return ModelConfig(
+        architecture="LlamaForCausalLM", vocab_size=32000, hidden_size=2048,
+        intermediate_size=5632, num_hidden_layers=22, num_attention_heads=32,
+        num_key_value_heads=4, head_dim=64, rms_norm_eps=1e-5, rope_theta=10000.0,
+        max_position_embeddings=2048, context_length=2048, tie_word_embeddings=False,
+        dtype="bfloat16",
+    )
+
+
 def deepseek_v2_lite_config():
     """DeepSeek-V2-Lite's published config.json (15.7 B parameters; MLA with
     kv_lora 512 + rope 64, one dense layer then 26 MoE layers of 64 routed
@@ -376,7 +423,8 @@ def deepseek_v2_lite_config():
     )
 
 
-def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto"):
+def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto",
+                      decode_stream: bool = False):
     """The bench's server settings (bench.py make_server_args) with a
     131072-token pool."""
     from semi_pd_tpu_torch.config.server_args import ServerArgs
@@ -386,18 +434,25 @@ def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto"):
         chunked_prefill_size=4096, enable_semi_pd=semi_pd, decode_slo_ms=50.0,
         max_running_requests=64, decode_bs_buckets=[8, 32, 64],
         prefill_token_buckets=[512, 2048, 4096], kv_cache_dtype=kv_cache_dtype,
+        decode_stream=decode_stream,
     )
 
 
-# the two kernels each pool's path launches
+# the two kernels (decode, extend) each pool's path launches, and with
+# decode_stream
 PATH_KERNELS = {"chunked": ("rpa_decode", "rpa_extend"),
                 "aligned": ("rpa_decode_aligned", "rpa_extend_aligned"),
+                "merged": ("rpa_decode_merged", "rpa_extend_merged"),
                 "latent": ("rpa_decode_mla", "rpa_extend_mla")}
+STREAM_PATH_KERNELS = {"chunked": ("rpa_decode_stream", "rpa_extend"),
+                       "aligned": ("rpa_decode_stream_aligned", "rpa_extend_aligned"),
+                       "latent": ("rpa_decode_stream_mla", "rpa_extend_mla")}
 
 
-def phase_model(eng):
-    """One extend step + two decode steps at full width, kernels vs the same
-    layers with the plain attention functions."""
+def phase_model(eng, stream: bool = False):
+    """One extend step + two decode steps at full width, kernels (with
+    ``stream`` the streaming decode) vs the same layers with the plain
+    attention functions."""
     import torch
 
     from semi_pd_tpu_torch.layers.attention import pool_attention
@@ -419,6 +474,7 @@ def phase_model(eng):
         runner.req_pool.write(r.req_slot, 0, pages)
         reqs.append(r)
     pool = runner.kv_cache.buffer
+    kernels = pool_attention(pool, stream=stream)
     plain = pool_attention(pool, plain=True)
     model = runner.model
     worst = 0.0
@@ -428,7 +484,7 @@ def phase_model(eng):
                                 PAGE, sched.t_buckets, sched.b_buckets, sched.p_buckets)
         for step in range(3):
             fb = hb.to_device(runner.device)
-            lk = model(fb, pool)
+            lk = model(fb, pool, attention=kernels)
             lp = model(fb, pool, attention=plain)
             n = len(reqs)
             lk, lp = lk[:n].float(), lp[:n].float()
@@ -461,28 +517,32 @@ def phase_model(eng):
     return dict(steps=steps, worst_rel_err=worst)
 
 
-def prompts_for(vocab: int):
-    """The 32 prompts every path serves: the same lengths (256-3072) for
-    every model, tokens drawn from the model's vocabulary."""
+def prompts_for(vocab: int, max_len: int = 3072):
+    """The 32 prompts a path serves: lengths 256-``max_len`` (3072 for
+    every model whose context allows it), tokens drawn from the model's
+    vocabulary."""
     rng = np.random.default_rng(0)
-    lens = rng.integers(256, 3073, size=32)
+    lens = rng.integers(256, max_len + 1, size=32)
     return [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
 
 
-def serve_mode(eng, semi_pd: bool, prompts, vocab, pool):
+def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False):
     import torch
 
     from semi_pd_tpu_torch.kernels import KERNELS
+    from semi_pd_tpu_torch.layers.attention import pool_attention
     from semi_pd_tpu_torch.runtime.scheduler import Scheduler
     from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
-    args = bench_server_args(semi_pd, eng.server_args.kv_cache_dtype)
+    args = bench_server_args(semi_pd, eng.server_args.kv_cache_dtype, stream)
     if not eng.flush_cache():
         raise AssertionError("engine not idle before serving")
     eng.server_args = args
     eng.scheduler = Scheduler(args, eng.runner)
     sp = SamplingParams(max_new_tokens=64, temperature=0.0, ignore_eos=True)
     runner = eng.runner
+    # the same weights and pool, the runner's routing as decode_stream sets it
+    runner.attention = pool_attention(runner.kv_cache.buffer, stream=stream)
     runner.step_counts = {"decode": 0, "extend": 0}
     for k in KERNELS.values():
         k.launches = 0
@@ -503,7 +563,7 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab, pool):
         if not all(0 <= t < vocab for t in o["output_ids"]):
             raise AssertionError(f"request {o['rid']}: token out of range")
     L = eng.runner.model_config.num_hidden_layers
-    dec, ext = PATH_KERNELS[pool]
+    dec, ext = (STREAM_PATH_KERNELS if stream else PATH_KERNELS)[pool]
     if launches[dec] != L * steps["decode"] or steps["decode"] == 0:
         raise AssertionError(f"{dec} launches {launches[dec]} != {L} x {steps['decode']} steps")
     if launches[ext] != L * steps["extend"] or steps["extend"] == 0:
@@ -516,7 +576,8 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab, pool):
     ttft = [r.first_token_time - r.queue_time for r in reqs]
     itl = [(r.finish_time - r.first_token_time) / (len(r.output_ids) - 1) for r in reqs]
     res = dict(pool=pool, kv_dtype=str(runner.kv_cache.buffer.dtype).replace("torch.", ""),
-               mode="semi_pd" if semi_pd else "colocated", requests=len(outs),
+               mode="semi_pd" if semi_pd else "colocated", decode_stream=stream,
+               requests=len(outs),
                wall_s=wall, tok_s=len(outs) * 64 / wall,
                ttft_p50_s=statistics.median(ttft), itl_p50_ms=1e3 * statistics.median(itl),
                steps=steps, launches=launches,
@@ -564,24 +625,28 @@ def main() -> int:
     # those of its own serving run, counters zeroed just before each mode
     main_launches = {k: 0 for k in KERNELS}
 
-    def model_phase(label, cfg, kv_dtype):
+    def model_phase(label, cfg, kv_dtype, eng=None, stream=False):
+        """A new engine (or ``eng``, on its weights) and its model phase."""
         t0 = time.monotonic()
-        eng = Engine(bench_server_args(False, kv_dtype), cfg)
+        if eng is None:
+            eng = Engine(bench_server_args(False, kv_dtype), cfg)
         torch.cuda.synchronize()
         init_s = time.monotonic() - t0
-        res = phase_model(eng)
+        res = phase_model(eng, stream)
         print("model " + json.dumps(dict(res, model=label, kv_dtype=kv_dtype, init_s=init_s,
+                                         decode_stream=stream,
                                          seconds=time.monotonic() - t0)), flush=True)
         return eng
 
-    def serve_phase(eng, label, pool, repeat=False):
+    def serve_phase(eng, label, pool, repeat=False, max_len=3072):
         """Both modes; with ``repeat`` colocated once more, which must give
-        the first run's tokens exactly (serving is deterministic)."""
+        the first run's tokens exactly (serving is deterministic). Returns
+        the colocated run's tokens."""
         t0 = time.monotonic()
         outputs = []
         vocab = eng.runner.model_config.vocab_size
         for semi in (False, True) + ((False,) if repeat else ()):
-            r, out = serve_mode(eng, semi, prompts_for(vocab), vocab, pool)
+            r, out = serve_mode(eng, semi, prompts_for(vocab, max_len), vocab, pool)
             outputs.append(out)
             for k, v in r["launches"].items():
                 main_launches[k] += v
@@ -596,6 +661,20 @@ def main() -> int:
         if repeat and res["repeat_same_tokens"] != 1.0:
             raise AssertionError(f"{label}: colocated served twice gave different tokens "
                                  f"({res['repeat_same_tokens']:.3f} of requests the same)")
+        return outputs[0]
+
+    def stream_phase(eng, label, pool, kv_dtype, packed_tokens):
+        """Path S on the same weights: the model phase with the streaming
+        decode, then one colocated serve with decode_stream; prints the
+        share of requests whose tokens equal the packed colocated run's."""
+        model_phase(label, None, kv_dtype, eng=eng, stream=True)
+        vocab = eng.runner.model_config.vocab_size
+        r, out = serve_mode(eng, False, prompts_for(vocab), vocab, pool, stream=True)
+        for k, v in r["launches"].items():
+            main_launches[k] += v
+        same = float(np.mean([a == b for a, b in zip(out, packed_tokens)]))
+        print("serve " + json.dumps(dict(r, model=label, gpu=smi,
+                                         same_tokens_as_packed=same)), flush=True)
 
     def release(eng):
         del eng.scheduler, eng.runner
@@ -603,24 +682,40 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     eng = model_phase("llama-3.2-1b-class", llama_1b_config(), "auto")
-    serve_phase(eng, "llama-3.2-1b-class", "chunked")
+    packed = serve_phase(eng, "llama-3.2-1b-class", "chunked")
+    stream_phase(eng, "llama-3.2-1b-class", "chunked", "auto", packed)
     release(eng)
     release(model_phase("meta-llama-3-8b", llama3_8b_config(), "bfloat16"))
     eng = model_phase("meta-llama-3-8b", llama3_8b_config(), "fp8_e4m3")
-    serve_phase(eng, "meta-llama-3-8b", "aligned")
+    packed = serve_phase(eng, "meta-llama-3-8b", "aligned")
+    stream_phase(eng, "meta-llama-3-8b", "aligned", "fp8_e4m3", packed)
     release(eng)  # the 8B model's 16 GB go before V2-Lite's 31 GB arrive
     eng = model_phase("deepseek-v2-lite", deepseek_v2_lite_config(), "auto")
-    serve_phase(eng, "deepseek-v2-lite", "latent", repeat=True)
+    packed = serve_phase(eng, "deepseek-v2-lite", "latent", repeat=True)
+    stream_phase(eng, "deepseek-v2-lite", "latent", "auto", packed)
+    release(eng)
+    release(model_phase("tinyllama-1.1b", tinyllama_config(), "fp8_e4m3"))
+    eng = model_phase("tinyllama-1.1b", tinyllama_config(), "auto")
+    serve_phase(eng, "tinyllama-1.1b", "merged", max_len=2048 - 64)
     release(eng)
 
     # 5. the kernels line: each kernel's case at its path's representative
-    # shape and types (the 8B path serves with fp8_e4m3 KV)
+    # shape and types (the 8B path serves with fp8_e4m3 KV); every kernel
+    # must have launched in a serving run
     rep = {"rpa_decode": ("decode_b64_kv1024", "bfloat16"),
            "rpa_extend": ("extend_b8_q256_kv2048", "bfloat16"),
            "rpa_decode_aligned": ("decode_b64_kv1024", "float8_e4m3fn"),
            "rpa_extend_aligned": ("extend_b8_q256_kv2048", "float8_e4m3fn"),
+           "rpa_decode_merged": ("decode_b64_kv1024", "bfloat16"),
+           "rpa_extend_merged": ("extend_b8_q256_kv2048", "bfloat16"),
            "rpa_decode_mla": ("decode_b64_kv1024", "bfloat16"),
-           "rpa_extend_mla": ("extend_b8_q256_kv2048", "bfloat16")}
+           "rpa_extend_mla": ("extend_b8_q256_kv2048", "bfloat16"),
+           "rpa_decode_stream": ("decode_b64_kv1024", "bfloat16"),
+           "rpa_decode_stream_aligned": ("decode_b64_kv1024", "float8_e4m3fn"),
+           "rpa_decode_stream_mla": ("decode_b64_kv1024", "bfloat16")}
+    idle = [k for k in KERNELS if not main_launches[k]]
+    if idle:
+        raise AssertionError(f"kernels no serving run launched: {idle}")
     kernels = []
     for kname, k in KERNELS.items():
         case, kv_dt = rep[kname]

@@ -3,9 +3,10 @@
 Keeps the ServerArgs fields the main serving path reads (memory sizing,
 bucket tables, the colocated and semi-PD scheduling knobs, the overlap
 ring, the KV dtype and its fp8 scales) with the JAX package's defaults and
-comments' meaning, and adds ``device``. The CLI, HTTP, LoRA, speculation,
-parallelism, weight quantization and grammar flags belong to later slices
-of the port (ROADMAP queue A).
+comments' meaning, and adds ``device`` and ``decode_stream`` (the JAX
+package's RPA_DECODE_STREAM environment switch as an argument). The CLI,
+HTTP, LoRA, speculation, parallelism, weight quantization and grammar flags
+belong to later slices of the port (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -62,6 +63,12 @@ class ServerArgs:
     semi_pd_stretch_grace_ms: float = 1.0
     semi_pd_queue_relief_ms: float = 500.0
     semi_pd_min_chunk_duty: float = 3.0
+
+    # Decode batches take the pool's cross-request streaming decode
+    # (ops/attention/rpa_stream.py; the JAX package's RPA_DECODE_STREAM=1,
+    # with its default ring depth of 4 built in). A sliding window and the
+    # 5D pool below head_dim 128 keep their own decode, as in JAX.
+    decode_stream: bool = False
 
     # Static shape buckets: bound the set of (T, B, maxP) shapes per step
     decode_bs_buckets: Optional[List[int]] = None

@@ -1,17 +1,23 @@
 // Shared pieces of the ragged paged attention kernels (rpa_decode.cu,
-// rpa_extend.cu): element conversion, the (q, KV) type pairs and head_dim
-// each build instantiates, and the staging of one KV tile of either pool.
+// rpa_extend.cu, rpa_stream.cu): element conversion, the (q, KV) type pairs
+// and head_dim each build instantiates, and the staging of one KV tile of
+// any pool, into registers or, for the streaming decode, through a ring of
+// cp.async copies in shared memory.
 //
-// Both pools are addressed through two base pointers and one row stride:
+// The pools are addressed through two base pointers and one row stride:
 // K of slot s and head h sits at k_pool + s * row_stride + h * D, V at
 // v_pool + s * row_stride + h * D (semi_pd_tpu_torch/mem/pool.py).
 //   chunked [L, S, CT, 128]: one row of CT*128 = 2*Hkv*D elements per slot,
 //     K of all heads first, then V; v_pool = k_pool + Hkv*D, row_stride
 //     = CT*128.
-//   aligned [L, 2, S, Hkv, D]: K and V each in their own S x Hkv x D plane;
-//     v_pool = k_pool + S*Hkv*D, row_stride = Hkv*D.
+//   5D [L, 2, S, Hkv, D] (the "aligned" layout, at head_dim 128 or below):
+//     K and V each in their own S x Hkv x D plane; v_pool = k_pool +
+//     S*Hkv*D, row_stride = Hkv*D.
 // Slot = page * page_size + offset, with the page read from the request's
 // row of the page table.
+//
+// Every build names its C entry point with -DRPA_ENTRY=<symbol> (the
+// kernel's symbol in semi_pd_tpu_torch/kernels.py).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,19 +36,24 @@ constexpr float NEG_INF = -1e30f;
 // TYPE_CODES).
 enum TypeCode { F32 = 0, BF16 = 1, E4M3 = 2, E5M2 = 3 };
 
-// What a build instantiates: the aligned pool's kernels (-DRPA_ALIGNED) take
-// head_dim 128 with (q, KV) = (bf16, bf16), (f32, f32), (bf16, fp8 e4m3) and
-// (bf16, fp8 e5m2); the chunked pool's take head_dim 64 with the first two.
+// What a build instantiates: the 5D pool's kernels (-DRPA_ALIGNED) take
+// (q, KV) = (bf16, bf16), (f32, f32), (bf16, fp8 e4m3) and (bf16, fp8 e5m2)
+// at head_dim 128, or at the RPA_HEAD_DIM the build sets (64 for the merged
+// kernels); the chunked pool's take the first two at head_dim 64.
 // X(q code, q type, KV code, KV type).
 #ifdef RPA_ALIGNED
+#ifndef RPA_HEAD_DIM
 #define RPA_HEAD_DIM 128
+#endif
 #define RPA_FOR_EACH_PAIR(X)                   \
   X(BF16, __nv_bfloat16, BF16, __nv_bfloat16)  \
   X(F32, float, F32, float)                    \
   X(BF16, __nv_bfloat16, E4M3, __nv_fp8_e4m3)  \
   X(BF16, __nv_bfloat16, E5M2, __nv_fp8_e5m2)
 #else
+#ifndef RPA_HEAD_DIM
 #define RPA_HEAD_DIM 64
+#endif
 #define RPA_FOR_EACH_PAIR(X)                   \
   X(BF16, __nv_bfloat16, BF16, __nv_bfloat16)  \
   X(F32, float, F32, float)
@@ -65,10 +76,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 // P is rounded to q's type before P.V, as the TPU kernels do: they upcast
 // K and V to q's dtype (fp8 KV too) and cast p to that dtype for the MXU
-// dot. A no-op for float32.
+// dot. A no-op for float32. Builds with -DRPA_P_F32 keep P in float32, as
+// the TPU kernels that upcast q, K and V to float32 do (_rpa_kernel_merged,
+// and _rpa_kernel_stream's MLA branch).
+#ifdef RPA_P_F32
+template <typename TQ> __device__ __forceinline__ float round_p(float p) { return p; }
+#else
 template <typename TQ> __device__ __forceinline__ float round_p(float p) {
   return to_f(from_f<TQ>(p));
 }
+#endif
 
 // 16 bytes of T -> Vec<T>::N floats. fp8 widens exactly (every e4m3 and
 // e5m2 value is a half, and every half a float).
@@ -137,6 +154,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// 16 bytes global -> shared without registers (cp.async.cg: cached in L2
+// only). A thread's copies complete for it at cp_async_wait<N>() once at
+// most N of its committed groups are still pending.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // One tile of TK consecutive KV positions [start, start + TK) of one request
 // and one KV head, K rows then V rows (NCOMP 2), or the latent rows alone
 // (NCOMP 1, the MLA pool: V is a prefix of K), spread over NT threads as
@@ -156,6 +187,22 @@ struct KVTile {
   static constexpr int NV = (NVEC + NT - 1) / NT;
   uint4 r[NV];
 
+  // Vector v of the tile: its component (K or V), position and 16-byte chunk.
+  __device__ __forceinline__ static void locate(int v, int& comp, int& t, int& c) {
+    comp = v / (TK * VPR);
+    const int rem = v - comp * (TK * VPR);
+    t = rem / VPR;
+    c = rem - t * VPR;
+  }
+
+  __device__ __forceinline__ static const T* source(const T* __restrict__ kb, int64_t v_off,
+                                                    const int* __restrict__ pt_row,
+                                                    int page_size, int64_t row_stride,
+                                                    int pos, int comp, int c) {
+    const int64_t slot = (int64_t)pt_row[pos / page_size] * page_size + pos % page_size;
+    return kb + slot * row_stride + (comp ? v_off : 0) + c * VE;
+  }
+
   __device__ __forceinline__ void load(const T* __restrict__ kb, int64_t v_off,
                                        const int* __restrict__ pt_row, int page_size,
                                        int64_t row_stride, int start, int limit, int tid) {
@@ -164,17 +211,49 @@ struct KVTile {
       const int v = tid + k * NT;
       r[k] = make_uint4(0u, 0u, 0u, 0u);
       if (v < NVEC) {
-        const int comp = v / (TK * VPR);
-        const int rem = v - comp * (TK * VPR);
-        const int t = rem / VPR;
-        const int c = rem - t * VPR;
-        const int pos = start + t;
-        if (pos < limit) {
-          const int64_t slot =
-              (int64_t)pt_row[pos / page_size] * page_size + pos % page_size;
-          const T* src = kb + slot * row_stride + (comp ? v_off : 0) + c * VE;
-          r[k] = __ldg(reinterpret_cast<const uint4*>(src));
-        }
+        int comp, t, c;
+        locate(v, comp, t, c);
+        if (start + t < limit)
+          r[k] = __ldg(reinterpret_cast<const uint4*>(
+              source(kb, v_off, pt_row, page_size, row_stride, start + t, comp, c)));
+      }
+    }
+  }
+
+  // The streaming decode's ring (rpa_stream.cu): issue() copies the same
+  // vectors as load() with cp.async into `stage` (NVEC raw 16-byte
+  // vectors, vector v at stage[v]) instead of registers, reading nothing at
+  // or past `limit`; take() later reads this thread's vectors back into r
+  // (zeros at or past `limit`), so store() converts to float32 on the read
+  // side. A thread takes exactly the vectors it issued, so a stage needs no
+  // block barrier between its copies, its reads and its refill: the
+  // thread's own cp_async_wait orders them.
+  __device__ __forceinline__ void issue(const T* __restrict__ kb, int64_t v_off,
+                                        const int* __restrict__ pt_row, int page_size,
+                                        int64_t row_stride, int start, int limit, int tid,
+                                        uint4* stage) const {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int v = tid + k * NT;
+      if (v < NVEC) {
+        int comp, t, c;
+        locate(v, comp, t, c);
+        if (start + t < limit)
+          cp_async16(stage + v,
+                     source(kb, v_off, pt_row, page_size, row_stride, start + t, comp, c));
+      }
+    }
+  }
+
+  __device__ __forceinline__ void take(const uint4* stage, int start, int limit, int tid) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int v = tid + k * NT;
+      r[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (v < NVEC) {
+        int comp, t, c;
+        locate(v, comp, t, c);
+        if (start + t < limit) r[k] = stage[v];
       }
     }
   }
@@ -186,10 +265,8 @@ struct KVTile {
     for (int k = 0; k < NV; ++k) {
       const int v = tid + k * NT;
       if (v < NVEC) {
-        const int comp = v / (TK * VPR);
-        const int rem = v - comp * (TK * VPR);
-        const int t = rem / VPR;
-        const int c = rem - t * VPR;
+        int comp, t, c;
+        locate(v, comp, t, c);
         float f[VE];
         unpack<T>(r[k], f);
         float4* dst = reinterpret_cast<float4*>((comp ? sV : sK) + t * LD + c * VE);

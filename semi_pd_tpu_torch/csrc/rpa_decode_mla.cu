@@ -64,7 +64,7 @@ static int launch_decode_mla(const void* q, const void* lat, const void* pt, con
 // v_dim to MLA_DV). q_type / kv_type: TypeCode.
 // cap <= 0: no softcap; window <= 0: no sliding window. Returns
 // cudaError_t; another geometry or type pair is cudaErrorInvalidValue.
-extern "C" int rpa_decode_mla(const void* q, const void* k_pool, const void* v_pool,
+extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                               const void* page_table, const void* kv_lens, void* out, int B,
                               int Hq, int Hkv, int D, int row_stride, int maxP,
                               int page_size, float scale, float cap, int window, int q_type,

@@ -1,14 +1,18 @@
-// Ragged paged extend (chunked-prefill) attention over either KV pool, for
-// Hopper (sm_90a).
+// Ragged paged extend (chunked-prefill) attention over the chunked or the
+// 5D KV pool, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels, one build each (rpa_common.cuh):
-//   chunked pool, head_dim 64: semi_pd_tpu/ops/attention/
+// Replaces three TPU kernels (branches), one build each (rpa_common.cuh):
+//   chunked pool, head_dim 64 (rpa_extend): semi_pd_tpu/ops/attention/
 //     ragged_paged_attention.py _rpa_kernel_chunked (called from
 //     ragged_paged_attention_chunked);
-//   aligned pool, head_dim 128, fp8 KV (-DRPA_ALIGNED):
+//   5D pool, head_dim 128, fp8 KV (-DRPA_ALIGNED, rpa_extend_aligned):
 //     semi_pd_tpu/ops/attention/ragged_paged_attention.py _rpa_kernel
 //     (called from ragged_paged_attention; its GQA branch, the MLA v_dim branch
-//     is rpa_extend_mla.cu).
+//     is rpa_extend_mla.cu);
+//   5D pool, head_dim 64 (-DRPA_ALIGNED -DRPA_HEAD_DIM=64 -DRPA_P_F32,
+//     rpa_extend_merged): the extend of semi_pd_tpu/ops/attention/
+//     ragged_paged_attention.py _rpa_kernel_merged (D % 128 != 0 on that
+//     pool), which computes in float32 throughout, P included.
 // Causal attention of the flat new tokens [T, Hq, D] of every request over
 // its cached prefix plus the new tokens, through the page table, driven by
 // the host-built work list (block_seq / block_row / block_qofs), with
@@ -220,12 +224,6 @@ static int launch_extend(const void* q, const void* k_pool, const void* v_pool, 
 
 }  // namespace rpa
 
-#ifdef RPA_ALIGNED
-#define RPA_EXTEND_ENTRY rpa_extend_aligned
-#else
-#define RPA_EXTEND_ENTRY rpa_extend
-#endif
-
 // C entry point (bound with ctypes by ops/attention/ragged_paged_attention.py).
 // k_pool / v_pool: K and V of the layer at slot 0; row_stride: elements
 // from one slot to the next (rpa_common.cuh). q_type / kv_type: TypeCode.
@@ -233,7 +231,7 @@ static int launch_extend(const void* q, const void* k_pool, const void* v_pool, 
 // padding) are left untouched. cap <= 0: no softcap; window <= 0: no
 // window. Returns cudaError_t; a head_dim or type pair this build lacks is
 // cudaErrorInvalidValue.
-extern "C" int RPA_EXTEND_ENTRY(const void* q, const void* k_pool, const void* v_pool,
+extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                                 const void* page_table, const void* kv_lens, const void* q_lens,
                                 const void* q_start, const void* block_seq,
                                 const void* block_row, const void* block_qofs, void* out,

@@ -97,7 +97,7 @@ static int launch_extend_mla(const void* q, const void* lat, const void* pt,
 // be zero-filled by the caller: rows no entry owns (bucket padding) are left
 // untouched. cap <= 0: no softcap; window <= 0: no window. Returns
 // cudaError_t; another geometry or type pair is cudaErrorInvalidValue.
-extern "C" int rpa_extend_mla(const void* q, const void* k_pool, const void* v_pool,
+extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                               const void* page_table, const void* kv_lens, const void* q_lens,
                               const void* q_start, const void* block_seq,
                               const void* block_row, const void* block_qofs, void* out,

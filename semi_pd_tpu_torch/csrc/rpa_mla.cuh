@@ -1,5 +1,6 @@
 // Shared core of the MLA attention kernels over the latent pool
-// [L, 1, S, 1, Dlat] (rpa_decode_mla.cu, rpa_extend_mla.cu).
+// [L, 1, S, 1, Dlat] (rpa_decode_mla.cu, rpa_extend_mla.cu, and the
+// streaming decode's MLA build in rpa_stream.cu).
 //
 // MLA in its absorbed form (semi_pd_tpu/models/deepseek_v2.py): each slot
 // holds one latent row [c_kv | k_pe] of MLA_DL = 512 + 64 elements, shared
@@ -30,7 +31,8 @@
 // and read as both K and V; the next tile's 16-byte loads are issued into
 // registers before the current one is computed (KVTile, rpa_common.cuh).
 // Positions at or past `limit` are never read. Online softmax in float32;
-// P is rounded to q's type before P.V, as in the other kernels.
+// P is rounded to q's type before P.V, as in the other kernels (round_p;
+// the streaming decode's MLA build keeps it in float32, -DRPA_P_F32).
 //
 // Shared-memory reads, not the arithmetic, set the pace (PERF.md, PR 3):
 // with one row per thread each float4 read feeds 4 FMAs per lane and the
@@ -48,61 +50,50 @@ constexpr int MLA_DV = 512;         // V: the row's first kv_lora_rank elements
 constexpr int MLA_TK = 16;          // KV positions per tile
 constexpr int MLA_LD = MLA_DL + 4;  // shared row stride in floats: no bank conflicts
 
-// One block's walk over the positions [lo, limit) of one request (lo and
-// limit are the same for the whole block; every thread calls this). This
-// thread works on RPT rows r = 0 .. RPT-1: query q0 + r * q_step, output
-// out0 + r * out_step, absolute position q_abs0 + r * q_abs_step; rows
-// r >= n_act are not the block's (their lanes still compute, so a row's
-// lanes always meet at the shuffles, but write nothing). Each row sees the
-// positions its causal and window masks allow; a row that sees none writes
-// zeros. RPT > 1 reuses each value read from shared memory for RPT rows.
-template <typename TQ, typename TKV, int TPR, int RPT, int NT>
-__device__ __forceinline__ void mla_attend(const TQ* __restrict__ q0, int64_t q_step,
-                                           TQ* __restrict__ out0, int64_t out_step,
-                                           int n_act, int q_abs0, int q_abs_step,
-                                           const TKV* __restrict__ lat,
-                                           const int* __restrict__ pt_row, int page_size,
-                                           int lo, int limit, float scale, float cap,
-                                           int window, float* sK, int tid) {
+// The state of RPT query rows r = 0 .. RPT-1 held by one thread, lane
+// `part` of a group of TPR threads: its q chunks and output chunks (float4
+// chunk c = j * TPR + part) and each row's running max and sum. Row r's
+// query is q0 + r * q_step, its output out0 + r * out_step and its
+// absolute position q_abs0 + r * q_abs_step; rows r >= n_act are not the
+// block's (their lanes still compute, so a row's lanes always meet at the
+// shuffles, but write nothing). RPT > 1 reuses each value read from shared
+// memory for RPT rows.
+template <typename TQ, int TPR, int RPT>
+struct MlaRows {
   static_assert(MLA_DL % (4 * TPR) == 0 && MLA_DV % (4 * TPR) == 0 && 32 % TPR == 0,
                 "TPR must divide the row's chunks and a warp");
-  constexpr int NQC = MLA_DL / (4 * TPR);  // q chunks per thread
-  constexpr int NVC = MLA_DV / (4 * TPR);  // V chunks per thread: its first NVC
-  constexpr int TK = MLA_TK, LD = MLA_LD;
-  using Tile = KVTile<TKV, MLA_DL, TK, NT, 1>;
-  const int part = tid % TPR;
-  // the TPR lanes of this thread's rows (consecutive lanes of one warp)
-  const unsigned lane = tid % 32;
-  const unsigned row_mask = ((TPR >= 32) ? 0xffffffffu : ((1u << TPR) - 1u))
-                            << (lane & ~(unsigned)(TPR - 1));
-
+  static constexpr int NQC = MLA_DL / (4 * TPR);  // q chunks per thread
+  static constexpr int NVC = MLA_DV / (4 * TPR);  // V chunks per thread: its first NVC
   float qr[RPT][4 * NQC], o[RPT][4 * NVC], m[RPT], l[RPT];
+
+  __device__ __forceinline__ void begin(const TQ* __restrict__ q0, int64_t q_step, int n_act,
+                                        int part) {
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
+    for (int r = 0; r < RPT; ++r) {
+      m[r] = NEG_INF;
+      l[r] = 0.f;
 #pragma unroll
-    for (int d = 0; d < 4 * NVC; ++d) o[r][d] = 0.f;
+      for (int d = 0; d < 4 * NVC; ++d) o[r][d] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NQC; ++j) {
-      const float4 v = r < n_act ? load4(q0 + r * q_step + (j * TPR + part) * 4)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-      qr[r][4 * j] = v.x;
-      qr[r][4 * j + 1] = v.y;
-      qr[r][4 * j + 2] = v.z;
-      qr[r][4 * j + 3] = v.w;
+      for (int j = 0; j < NQC; ++j) {
+        const float4 v = r < n_act ? load4(q0 + r * q_step + (j * TPR + part) * 4)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        qr[r][4 * j] = v.x;
+        qr[r][4 * j + 1] = v.y;
+        qr[r][4 * j + 2] = v.z;
+        qr[r][4 * j + 3] = v.w;
+      }
     }
   }
 
-  Tile tile;
-  tile.load(lat, 0, pt_row, page_size, MLA_DL, lo, limit, tid);
-  for (int start = lo; start < limit; start += TK) {
-    __syncthreads();  // the previous tile is fully consumed
-    tile.template store<LD>(sK, sK, tid);
-    __syncthreads();
-    if (start + TK < limit) tile.load(lat, 0, pt_row, page_size, MLA_DL, start + TK, limit, tid);
-    if (n_act <= 0) continue;
-
+  // One staged tile of MLA_TK latent rows sK (float32, row stride MLA_LD)
+  // at positions [start, start + MLA_TK): each row sees the positions below
+  // `limit` that its causal and window masks allow. row_mask: the TPR lanes
+  // of this thread's rows (consecutive lanes of one warp).
+  __device__ __forceinline__ void tile(const float* sK, int start, int limit, int q_abs0,
+                                       int q_abs_step, float scale, float cap, int window,
+                                       int part, unsigned row_mask) {
+    constexpr int TK = MLA_TK, LD = MLA_LD;
     float s[RPT][TK];
 #pragma unroll
     for (int r = 0; r < RPT; ++r)
@@ -173,17 +164,61 @@ __device__ __forceinline__ void mla_attend(const TQ* __restrict__ q0, int64_t q_
       }
     }
   }
+
+  // out = o / l for the block's rows; a row that saw no position writes 0.
+  __device__ __forceinline__ void write(TQ* __restrict__ out0, int64_t out_step, int n_act,
+                                        int part) const {
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    if (r >= n_act) continue;
-    const float ls = l[r] > 0.f ? l[r] : 1.f;  // a row that saw no position writes 0
-    TQ* dst = out0 + r * out_step;
+    for (int r = 0; r < RPT; ++r) {
+      if (r >= n_act) continue;
+      const float ls = l[r] > 0.f ? l[r] : 1.f;
+      TQ* dst = out0 + r * out_step;
 #pragma unroll
-    for (int j = 0; j < NVC; ++j)
-      store4(dst + (j * TPR + part) * 4,
-             make_float4(o[r][4 * j] / ls, o[r][4 * j + 1] / ls, o[r][4 * j + 2] / ls,
-                         o[r][4 * j + 3] / ls));
+      for (int j = 0; j < NVC; ++j)
+        store4(dst + (j * TPR + part) * 4,
+               make_float4(o[r][4 * j] / ls, o[r][4 * j + 1] / ls, o[r][4 * j + 2] / ls,
+                           o[r][4 * j + 3] / ls));
+    }
   }
+};
+
+// The lanes of a group of TPR threads (consecutive lanes of one warp).
+template <int TPR>
+__device__ __forceinline__ unsigned mla_row_mask(int tid) {
+  const unsigned lane = tid % 32;
+  return ((TPR >= 32) ? 0xffffffffu : ((1u << TPR) - 1u)) << (lane & ~(unsigned)(TPR - 1));
+}
+
+// One block's walk over the positions [lo, limit) of one request (lo and
+// limit are the same for the whole block; every thread calls this), for
+// the RPT rows of MlaRows. Each row sees the positions its causal and
+// window masks allow; a row that sees none writes zeros.
+template <typename TQ, typename TKV, int TPR, int RPT, int NT>
+__device__ __forceinline__ void mla_attend(const TQ* __restrict__ q0, int64_t q_step,
+                                           TQ* __restrict__ out0, int64_t out_step,
+                                           int n_act, int q_abs0, int q_abs_step,
+                                           const TKV* __restrict__ lat,
+                                           const int* __restrict__ pt_row, int page_size,
+                                           int lo, int limit, float scale, float cap,
+                                           int window, float* sK, int tid) {
+  constexpr int TK = MLA_TK, LD = MLA_LD;
+  using Tile = KVTile<TKV, MLA_DL, TK, NT, 1>;
+  const int part = tid % TPR;
+  const unsigned row_mask = mla_row_mask<TPR>(tid);
+  MlaRows<TQ, TPR, RPT> rows;
+  rows.begin(q0, q_step, n_act, part);
+
+  Tile tile;
+  tile.load(lat, 0, pt_row, page_size, MLA_DL, lo, limit, tid);
+  for (int start = lo; start < limit; start += TK) {
+    __syncthreads();  // the previous tile is fully consumed
+    tile.template store<LD>(sK, sK, tid);
+    __syncthreads();
+    if (start + TK < limit) tile.load(lat, 0, pt_row, page_size, MLA_DL, start + TK, limit, tid);
+    if (n_act <= 0) continue;
+    rows.tile(sK, start, limit, q_abs0, q_abs_step, scale, cap, window, part, row_mask);
+  }
+  rows.write(out0, out_step, n_act, part);
 }
 
 // What the MLA builds instantiate: (q, latent) = (bf16, bf16), (f32, f32).

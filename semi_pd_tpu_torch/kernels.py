@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels.
 
 Each kernel is one build of a ``csrc/*.cu`` file, with its own defines
-(one source may serve two kernels, e.g. the chunked and the aligned pool's
-decode), and a plain C entry point. It is compiled at first use with
+(one source may serve several kernels, e.g. the chunked, the aligned and
+the merged pool's decode), and a plain C entry point named by the build
+(``-DRPA_ENTRY=<symbol>``). It is compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``semi_pd_tpu_torch/_build/`` (a directory git ignores) and
 loaded with ``ctypes``; the library's file name carries the kernel's name
@@ -65,7 +66,8 @@ class CudaKernel:
         return str(self.source.relative_to(_PKG.parent))
 
     def flags(self) -> Tuple[str, ...]:
-        return NVCC_FLAGS + tuple(f"-D{d}" for d in self.defines)
+        return NVCC_FLAGS + tuple(f"-D{d}" for d in (*self.defines,
+                                                      f"RPA_ENTRY={self.symbol}"))
 
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
@@ -132,6 +134,7 @@ def build_all() -> float:
     # the wrapper modules register their kernels when imported
     import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
     import semi_pd_tpu_torch.ops.attention.rpa_packed  # noqa: F401
+    import semi_pd_tpu_torch.ops.attention.rpa_stream  # noqa: F401
 
     t0 = time.monotonic()
     ks = list(KERNELS.values())

@@ -1,6 +1,6 @@
 """Attention layer: KV-pool write + kernel dispatch (port of
 semi_pd_tpu/layers/attention.py::paged_attention for the chunked and the
-aligned pool, and ::paged_attention_mla for the MLA latent pool).
+aligned (5D) pool, and ::paged_attention_mla for the MLA latent pool).
 
 Every model's attention calls ``paged_attention`` (MLA models
 ``paged_attention_mla``), which (1) scatters the step's fresh K/V (the
@@ -15,6 +15,7 @@ layer does.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -32,7 +33,8 @@ def write_kv(kv_cache: torch.Tensor, layer_idx: int, out_slots: torch.Tensor,
              k_new: torch.Tensor, v_new: torch.Tensor) -> None:
     """Scatter K and V of T tokens into their slots of layer ``layer_idx``:
     one slot row of the chunked pool [L, S, CT, 128] (K chunks, then V
-    chunks), or the K and V planes of the aligned pool [L, 2, S, Hkv, D].
+    chunks), or the K and V planes of the 5D pool [L, 2, S, Hkv, D] (at
+    head_dim 128 or below).
     Padded tokens carry slots in the dump page."""
     T, Hkv, D = k_new.shape
     slots = out_slots.long()
@@ -45,15 +47,20 @@ def write_kv(kv_cache: torch.Tensor, layer_idx: int, out_slots: torch.Tensor,
         kv_cache[layer_idx, 1][slots] = v_new.to(kv_cache.dtype)
 
 
-def pool_attention(kv_cache: torch.Tensor, plain: bool = False):
+def pool_attention(kv_cache: torch.Tensor, plain: bool = False, stream: bool = False):
     """The attention function of the pool's layout: the routing to the
     kernels, or with ``plain`` the same routing over their plain versions
     on any device (to hold the kernels to them at full width). The aligned
     and the latent pool share one routing function (``v_dim`` selects the
-    latent pool's kernels)."""
+    latent pool's kernels). ``stream``: decode batches take the pool's
+    streaming decode (ServerArgs.decode_stream, the JAX package's
+    RPA_DECODE_STREAM=1), under the JAX routing's exceptions; its plain
+    version is the decode's, so ``plain`` ignores it."""
     if pool_layout(kv_cache) == "chunked":
-        return ragged_paged_attention_chunked_plain if plain else ragged_paged_attention_chunked
-    return ragged_paged_attention_plain if plain else ragged_paged_attention
+        fn = ragged_paged_attention_chunked_plain if plain else ragged_paged_attention_chunked
+    else:
+        fn = ragged_paged_attention_plain if plain else ragged_paged_attention
+    return functools.partial(fn, stream=True) if stream and not plain else fn
 
 
 def paged_attention(

@@ -8,9 +8,10 @@ torch ``KVCache`` holding one of the JAX package's three pool layouts
 
 - chunked ``[L, S, CT, 128]``: ``CT = 2 * Hkv * D / 128`` chunks per slot
   row, K chunks first, then V chunks (the JAX ``KVCache(chunked=True)``
-  layout; head_dim 64 models);
+  layout; the runner picks it for head_dim 64 models with CT % 8 == 0);
 - aligned ``[L, 2, S, Hkv, D]``: K and V each in their own plane (the JAX
-  default layout; head_dim 128 models, bf16, float32 or fp8 KV);
+  default layout; head_dim 128 models, and head_dim 64 models with CT % 8
+  != 0; bf16, float32 or fp8 KV);
 - latent ``[L, 1, S, 1, Dlat]``: one MLA latent row ``[c_kv | k_pe]`` per
   slot, V being its first ``kv_lora_rank`` elements (the JAX
   ``use_mla=True`` layout). The JAX runner pads Dlat to a multiple of 256
@@ -105,8 +106,9 @@ class KVCacheSpec:
     num_kv_heads: int
     head_dim: int
     dtype: torch.dtype = torch.bfloat16
-    # "chunked" [L, S, CT, 128] (K chunks then V chunks per slot row;
-    # requires (2*Hkv*D) % 128 == 0), "aligned" [L, 2, S, Hkv, D] or
+    # "chunked" [L, S, CT, 128] (K chunks then V chunks per slot row; the
+    # pool needs whole chunks, (2*Hkv*D) % 128 == 0, and the runner picks it
+    # only at CT % 8 == 0), "aligned" [L, 2, S, Hkv, D] (the 5D pool) or
     # "latent" [L, 1, S, 1, D] (MLA, Hkv 1). Set by the runner's layout rule
     # (runtime/model_runner.py::kv_pool_layout).
     layout: str = "aligned"
@@ -141,7 +143,7 @@ class KVCache:
         if spec.layout == "chunked":
             if (2 * spec.num_kv_heads * spec.head_dim) % 128:
                 raise ValueError(
-                    f"chunked KV pool needs (2*Hkv*D) % 128 == 0 "
+                    f"chunked KV pool needs whole 128-wide chunks, (2*Hkv*D) % 128 == 0 "
                     f"(Hkv={spec.num_kv_heads}, D={spec.head_dim})")
             shape = (spec.num_layers, spec.num_slots, spec.chunks_total, 128)
         elif spec.layout in ("aligned", "latent"):

@@ -1,28 +1,31 @@
 """Ragged paged EXTEND attention over any KV pool: the CUDA kernels'
 wrappers, their plain PyTorch version, and the decode/extend routing.
 
-Ports of three TPU kernels (branches) of semi_pd_tpu/ops/attention/
+Ports of four TPU kernels (branches) of semi_pd_tpu/ops/attention/
 ragged_paged_attention.py:
 
 - ``ragged_paged_attention_chunked``: the chunked pool ``[L, S, CT, 128]``
   (TPU kernel _rpa_kernel_chunked, :803);
-- ``ragged_paged_attention``: the aligned pool ``[L, 2, S, Hkv, D]`` with
-  bf16, float32 or fp8 KV (TPU kernel _rpa_kernel, :59, its GQA branch),
-  and with ``v_dim`` the MLA latent pool ``[L, 1, S, 1, Dlat]`` (the same
-  TPU kernel's MLA ``v_dim`` branch; output [T, Hq, v_dim]).
+- ``ragged_paged_attention``: the aligned (5D) pool ``[L, 2, S, Hkv, D]``
+  with bf16, float32 or fp8 KV (TPU kernel _rpa_kernel, :59, its GQA
+  branch, at head_dim 128; below 128 the extend of _rpa_kernel_merged,
+  :300), and with ``v_dim`` the MLA latent pool ``[L, 1, S, 1, Dlat]`` (the
+  same TPU kernel's MLA ``v_dim`` branch; output [T, Hq, v_dim]).
 
 Causal attention of the flat new tokens of every request over prefix + new
 tokens through the page table, driven by the host work list (block_seq /
 block_row / block_qofs), with softcap and sliding window. Routing is the
-JAX wrappers': T == B goes to the decode kernel of the pool (rpa_packed.py),
-everything else to its extend kernel (ragged_paged_attention.py:502,
-569-578, 1057, 1100-1109). The JAX MLA extend runs 64-row q-blocks against
-the 128-row work list and leaves rows 64-127 of each entry unwritten
-(ROADMAP C1); here every extend kernel, the MLA one included, is built
-with the work list's EXTEND_Q_BLOCK. Not ported: speculation-tree masks
-``spec_anc`` (ROADMAP A11), the merged-lane kernel that ``force_merged``
-selects (B4), and the TPU scheduling switches (RPA_DECODE_STREAM is B6;
-RPA_DECODE_PACKED, the VMEM clamps and the block_first table have no GPU
+JAX wrappers': T == B goes to the decode kernel of the pool (rpa_packed.py)
+or, with ``stream``, to its streaming decode (rpa_stream.py; the JAX
+package's RPA_DECODE_STREAM=1), everything else to its extend kernel
+(ragged_paged_attention.py:502, 548-612, 1057, 1086-1122). The 5D pool
+below head_dim 128 takes its merged kernels for decode and extend alike,
+stream or not (:548 comes first). The JAX MLA extend runs 64-row q-blocks
+against the 128-row work list and leaves rows 64-127 of each entry
+unwritten (ROADMAP C1); here every extend kernel, the MLA one included, is
+built with the work list's EXTEND_Q_BLOCK. Not ported: speculation-tree
+masks ``spec_anc`` (ROADMAP A11) and the TPU scheduling switches
+(RPA_DECODE_PACKED, the VMEM clamps and the block_first table have no GPU
 meaning). The CUDA designs are described in csrc/rpa_extend.cu and
 csrc/rpa_mla.cuh.
 
@@ -38,14 +41,19 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kv_planes, layer_kv,
-    pool_heads, pool_layout,
+    F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kernel_family, kv_planes,
+    layer_kv, pool_heads,
 )
 from semi_pd_tpu_torch.ops.attention.rpa_packed import (
+    MERGED_DEFINES,
     decode_attention_plain,
     ragged_paged_attention_chunked_packed,
     ragged_paged_attention_packed,
     ragged_paged_attention_packed_plain,
+)
+from semi_pd_tpu_torch.ops.attention.rpa_stream import (
+    ragged_paged_attention_chunked_stream,
+    ragged_paged_attention_stream,
 )
 
 # Query rows per extend work-list entry. The host work list
@@ -83,23 +91,53 @@ EXTEND_MLA_KERNEL = register(CudaKernel(
     defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}",),
 ))
 
+EXTEND_MERGED_KERNEL = register(CudaKernel(
+    name="rpa_extend_merged",
+    source="csrc/rpa_extend.cu",
+    symbol="rpa_extend_merged",
+    argtypes=_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:300 _rpa_kernel_merged "
+             "(extend)",
+    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", *MERGED_DEFINES),
+))
+
+# The extend kernel of each kernel family of the 5D and the latent pool
+# (rpa_common.kernel_family)
+EXTEND_KERNELS = {"aligned": EXTEND_ALIGNED_KERNEL, "merged": EXTEND_MERGED_KERNEL,
+                  "latent": EXTEND_MLA_KERNEL}
+
 
 def _no_spec(spec_anc, win_base):
     if spec_anc is not None or win_base is not None:
         raise NotImplementedError("speculation-tree masks (spec_anc) are ROADMAP A11")
 
 
+def _streams(stream: bool, kv_cache, sliding_window) -> bool:
+    """Whether a decode batch takes the streaming decode: asked for, and
+    none of the JAX routing's exceptions (a sliding window keeps the packed
+    decode, ragged_paged_attention.py:589-594 and 1086-1110; the 5D pool
+    below head_dim 128 keeps its merged kernel, :548; ``spec_anc`` raises
+    before this)."""
+    return stream and not sliding_window and kernel_family(kv_cache) != "merged"
+
+
 def ragged_paged_attention_chunked(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size,
     num_kv_heads, head_dim, scale, logit_cap=None, sliding_window=None,
-    spec_anc=None, win_base=None,
+    spec_anc=None, win_base=None, stream=False,
 ) -> torch.Tensor:
     """Attention of q [T, Hq, D] over the chunked pool [L, S, CT, 128]:
-    T == B batches take the decode kernel, all others the extend kernel."""
+    T == B batches take the decode kernel (with ``stream`` the streaming
+    decode), all others the extend kernel."""
     _no_spec(spec_anc, win_base)
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
     if q.shape[0] == page_table.shape[0]:
+        if _streams(stream, kv_cache, sliding_window):
+            return ragged_paged_attention_chunked_stream(
+                q, kv_cache, layer_idx, page_table, kv_lens, page_size=page_size,
+                num_kv_heads=num_kv_heads, head_dim=head_dim, scale=scale,
+                logit_cap=logit_cap)
         return ragged_paged_attention_chunked_packed(
             q, kv_cache, layer_idx, page_table, kv_lens, **kw)
     return ragged_paged_attention_chunked_extend(
@@ -136,15 +174,21 @@ def ragged_paged_attention(
     v_dim: Optional[int] = None,
     spec_anc: Optional[tuple] = None,
     win_base: Optional[torch.Tensor] = None,
+    stream: bool = False,
 ) -> torch.Tensor:
     """Attention of q [T, Hq, D] over the aligned pool (Hkv and D from its
     shape), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
-    v_dim]): T == B batches take the pool's decode kernel, all others its
+    v_dim]): T == B batches take the pool's decode kernel (with ``stream``
+    its streaming decode, except below head_dim 128), all others its
     extend kernel."""
     _no_spec(spec_anc, win_base)
     kw = dict(page_size=page_size, scale=scale, logit_cap=logit_cap,
               sliding_window=sliding_window, v_dim=v_dim)
     if q.shape[0] == page_table.shape[0]:
+        if _streams(stream, kv_cache, sliding_window):
+            return ragged_paged_attention_stream(
+                q, kv_cache, layer_idx, page_table, kv_lens, page_size=page_size,
+                scale=scale, logit_cap=logit_cap, v_dim=v_dim)
         return ragged_paged_attention_packed(q, kv_cache, layer_idx, page_table,
                                              kv_lens, **kw)
     return ragged_paged_attention_extend(q, kv_cache, layer_idx, page_table, kv_lens,
@@ -233,21 +277,22 @@ def ragged_paged_attention_extend(
     sliding_window: Optional[int] = None,
     v_dim: Optional[int] = None,
 ) -> torch.Tensor:
-    """Extend attention over the aligned pool, or with ``v_dim`` over the
-    MLA latent pool (output [T, Hq, v_dim]); rows no work-list entry owns
-    stay 0."""
+    """Extend attention over the aligned pool (the merged kernel below
+    head_dim 128), or with ``v_dim`` over the MLA latent pool (output
+    [T, Hq, v_dim]); rows no work-list entry owns stay 0."""
     Hkv, D = pool_heads(kv_cache)
-    kernel = EXTEND_MLA_KERNEL if pool_layout(kv_cache) == "latent" else EXTEND_ALIGNED_KERNEL
-    return _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens,
-                   meta, page_size=page_size, num_kv_heads=Hkv, head_dim=D, scale=scale,
-                   logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
+    return _extend(EXTEND_KERNELS[kernel_family(kv_cache)], q, kv_cache, layer_idx,
+                   page_table, kv_lens, meta, page_size=page_size, num_kv_heads=Hkv,
+                   head_dim=D, scale=scale, logit_cap=logit_cap,
+                   sliding_window=sliding_window, v_dim=v_dim)
 
 
 def ragged_paged_attention_extend_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size, scale,
     logit_cap=None, sliding_window=None, v_dim=None,
 ) -> torch.Tensor:
-    """Plain version of the aligned and the MLA extend kernels."""
+    """Plain version of the aligned, the merged and the MLA extend
+    kernels."""
     Hkv, D = pool_heads(kv_cache)
     return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta,
                                   page_size=page_size, num_kv_heads=Hkv, head_dim=D,

@@ -4,11 +4,13 @@ of either pool, and the page gather the plain versions use.
 
 Three pool layouts (mem/pool.py): the chunked pool ``[L, S, CT, 128]`` (one
 row of ``2*Hkv*D`` elements per slot, K of all heads then V), the aligned
-pool ``[L, 2, S, Hkv, D]`` (K and V each in their own plane) and the MLA
-latent pool ``[L, 1, S, 1, Dlat]`` (one latent row per slot; V is its first
-``v_dim`` elements). The kernels address all three through a K base, a V
-base and one row stride (csrc/rpa_common.cuh); on the latent pool the V
-base is the K base.
+(5D) pool ``[L, 2, S, Hkv, D]`` (K and V each in their own plane) and the
+MLA latent pool ``[L, 1, S, 1, Dlat]`` (one latent row per slot; V is its
+first ``v_dim`` elements). The kernels address all three through a K base,
+a V base and one row stride (csrc/rpa_common.cuh); on the latent pool the V
+base is the K base. The 5D pool below head_dim 128 has kernels of its own,
+the "merged" family (the counterparts of the TPU kernel
+_rpa_kernel_merged).
 """
 
 from __future__ import annotations
@@ -29,14 +31,16 @@ FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
               torch.float8_e5m2: 3}
 
-# What each pool's kernels are instantiated for: the head_dim (the latent
-# width on the latent pool, DeepSeek-V2's 512 + 64) and the (q, KV) dtype
-# pairs of the paths that use them
-KERNEL_HEAD_DIM = {"chunked": 64, "aligned": 128, "latent": 576}
+# What each family of kernels is instantiated for (kernel_family): the
+# head_dim (the latent width on the latent pool, DeepSeek-V2's 512 + 64)
+# and the (q, KV) dtype pairs of the paths that use them
+_PAIRS_5D = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.bfloat16, torch.float8_e4m3fn), (torch.bfloat16, torch.float8_e5m2)}
+KERNEL_HEAD_DIM = {"chunked": 64, "aligned": 128, "merged": 64, "latent": 576}
 KERNEL_PAIRS = {
     "chunked": {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)},
-    "aligned": {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
-                (torch.bfloat16, torch.float8_e4m3fn), (torch.bfloat16, torch.float8_e5m2)},
+    "aligned": _PAIRS_5D,
+    "merged": _PAIRS_5D,
     "latent": {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)},
 }
 # The latent pool's kernels take V as the first 512 elements of the row
@@ -55,6 +59,17 @@ def pool_layout(kv_cache: torch.Tensor) -> str:
     raise ValueError(f"kv_cache must be the chunked pool [L, S, CT, 128], the "
                      f"aligned pool [L, 2, S, Hkv, D] or the latent pool "
                      f"[L, 1, S, 1, Dlat], got {tuple(kv_cache.shape)}")
+
+
+def kernel_family(kv_cache: torch.Tensor) -> str:
+    """Which kernels serve the pool: its layout, except that the 5D pool
+    below head_dim 128 is "merged" (the JAX dispatcher sends every
+    D % 128 != 0 batch on that pool to _rpa_kernel_merged,
+    ragged_paged_attention.py:548-561)."""
+    layout = pool_layout(kv_cache)
+    if layout == "aligned" and kv_cache.shape[-1] % 128:
+        return "merged"
+    return layout
 
 
 def pool_heads(kv_cache: torch.Tensor) -> Tuple[int, int]:
@@ -104,9 +119,9 @@ def check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads,
 def check_cuda(q, kv_cache, *ints, v_dim=None) -> None:
     """Everything a kernel reads or writes: one CUDA device, contiguous, a
     head_dim (and on the latent pool a v_dim) and (q, KV) dtype pair the
-    pool's kernels were built for, and 16-byte aligned where the kernel
-    reads 16-byte vectors (q, the pool). The int32 arrays are read element
-    by element and may be views into the packed step vector."""
+    pool's kernel family was built for, and 16-byte aligned where the
+    kernel reads 16-byte vectors (q, the pool). The int32 arrays are read
+    element by element and may be views into the packed step vector."""
     dev = q.device
     for t in (q, kv_cache, *ints):
         if t.device != dev:
@@ -115,21 +130,21 @@ def check_cuda(q, kv_cache, *ints, v_dim=None) -> None:
             raise ValueError("kernel inputs must be contiguous")
     if q.data_ptr() % 16 or kv_cache.data_ptr() % 16:
         raise ValueError("q and the KV pool must be 16-byte aligned")
-    layout = pool_layout(kv_cache)
-    if (q.dtype, kv_cache.dtype) not in KERNEL_PAIRS[layout]:
-        raise ValueError(f"the {layout} pool's kernels take (q, KV) dtypes "
-                         f"{sorted(map(str, KERNEL_PAIRS[layout]))}, got "
+    family = kernel_family(kv_cache)
+    if (q.dtype, kv_cache.dtype) not in KERNEL_PAIRS[family]:
+        raise ValueError(f"the {family} kernels take (q, KV) dtypes "
+                         f"{sorted(map(str, KERNEL_PAIRS[family]))}, got "
                          f"({q.dtype}, {kv_cache.dtype})")
-    if layout == "latent" and (q.shape[-1], v_dim) != (KERNEL_HEAD_DIM["latent"],
+    if family == "latent" and (q.shape[-1], v_dim) != (KERNEL_HEAD_DIM["latent"],
                                                         KERNEL_V_DIM):
         raise NotImplementedError(
             f"latent width {q.shape[-1]} with v_dim {v_dim}: the latent pool's "
             f"kernels are built for DeepSeek-V2's 576 with v_dim 512; other MLA "
             f"geometries (MiniCPM3's 288 / 256) are ROADMAP A12")
-    if q.shape[-1] != KERNEL_HEAD_DIM[layout]:
+    if q.shape[-1] != KERNEL_HEAD_DIM[family]:
         raise NotImplementedError(
-            f"head_dim {q.shape[-1]}: the {layout} pool's kernels are built for "
-            f"{KERNEL_HEAD_DIM[layout]} only; other head dims are ROADMAP A9")
+            f"head_dim {q.shape[-1]}: the {family} kernels are built for "
+            f"{KERNEL_HEAD_DIM[family]} only; other head dims are ROADMAP A9")
 
 
 def kv_planes(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int,

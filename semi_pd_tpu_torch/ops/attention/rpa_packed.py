@@ -1,16 +1,19 @@
 """Paged DECODE attention over any KV pool: the CUDA kernels' wrappers and
 their plain PyTorch version.
 
-Ports of three TPU kernels (branches) of semi_pd_tpu/ops/attention/
-rpa_packed.py:
+Ports of four TPU kernels (branches):
 
 - ``ragged_paged_attention_chunked_packed``: the chunked pool
-  ``[L, S, CT, 128]`` (TPU kernel _rpa_kernel_chunked_packed, :32);
+  ``[L, S, CT, 128]`` (TPU kernel rpa_packed.py:32
+  _rpa_kernel_chunked_packed);
 - ``ragged_paged_attention_packed``: the aligned pool ``[L, 2, S, Hkv, D]``
-  with bf16, float32 or fp8 KV (TPU kernel _rpa_kernel_packed, :349, its
-  GQA branch), and with ``v_dim`` the MLA latent pool ``[L, 1, S, 1,
-  Dlat]`` (the same TPU kernel's MLA branch: one latent head shared by all
-  Hq query heads, V the first v_dim elements of each row).
+  with bf16, float32 or fp8 KV (TPU kernel rpa_packed.py:349
+  _rpa_kernel_packed, its GQA branch, at head_dim 128; below 128 the decode
+  of ragged_paged_attention.py:300 _rpa_kernel_merged, which the JAX
+  dispatcher runs for every D % 128 != 0 batch on that pool), and with
+  ``v_dim`` the MLA latent pool ``[L, 1, S, 1, Dlat]`` (_rpa_kernel_packed's
+  MLA branch: one latent head shared by all Hq query heads, V the first
+  v_dim elements of each row).
 
 One query row per request at position kv_len - 1; GQA, f32 online softmax,
 optional logit softcap and sliding window. fp8 KV is upcast exactly, as the
@@ -32,17 +35,17 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kv_planes, layer_kv,
-    pool_heads, pool_layout,
+    F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kernel_family, kv_planes,
+    layer_kv, pool_heads,
 )
 
-_ARGTYPES = [P] * 6 + [I] * 7 + [F, F, I, I, I, P]
+DECODE_ARGTYPES = [P] * 6 + [I] * 7 + [F, F, I, I, I, P]
 
 DECODE_KERNEL = register(CudaKernel(
     name="rpa_decode",
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode",
-    argtypes=_ARGTYPES,
+    argtypes=DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:32 _rpa_kernel_chunked_packed",
 ))
 
@@ -50,7 +53,7 @@ DECODE_ALIGNED_KERNEL = register(CudaKernel(
     name="rpa_decode_aligned",
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode_aligned",
-    argtypes=_ARGTYPES,
+    argtypes=DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (GQA branch)",
     defines=("RPA_ALIGNED",),
 ))
@@ -59,12 +62,31 @@ DECODE_MLA_KERNEL = register(CudaKernel(
     name="rpa_decode_mla",
     source="csrc/rpa_decode_mla.cu",
     symbol="rpa_decode_mla",
-    argtypes=_ARGTYPES,
+    argtypes=DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (MLA branch)",
 ))
 
+# The 5D pool at head_dim 64: _rpa_kernel_merged computes in float32
+# throughout, P included, so this build keeps P in float32 (RPA_P_F32)
+MERGED_DEFINES = ("RPA_ALIGNED", "RPA_HEAD_DIM=64", "RPA_P_F32")
 
-def _decode(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_size,
+DECODE_MERGED_KERNEL = register(CudaKernel(
+    name="rpa_decode_merged",
+    source="csrc/rpa_decode.cu",
+    symbol="rpa_decode_merged",
+    argtypes=DECODE_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:300 _rpa_kernel_merged "
+             "(decode)",
+    defines=MERGED_DEFINES,
+))
+
+# The decode kernel of each kernel family of the 5D and the latent pool
+# (rpa_common.kernel_family)
+DECODE_KERNELS = {"aligned": DECODE_ALIGNED_KERNEL, "merged": DECODE_MERGED_KERNEL,
+                  "latent": DECODE_MLA_KERNEL}
+
+
+def decode_with(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_size,
             num_kv_heads, head_dim, scale, logit_cap, sliding_window, v_dim=None):
     check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
                     v_dim)
@@ -105,7 +127,7 @@ def ragged_paged_attention_chunked_packed(
 ) -> torch.Tensor:
     """Decode attention over the chunked pool: returns [B, Hq, D]; rows
     with kv_len == 0 are 0."""
-    return _decode(DECODE_KERNEL, q, kv_cache, layer_idx, page_table, kv_lens,
+    return decode_with(DECODE_KERNEL, q, kv_cache, layer_idx, page_table, kv_lens,
                    page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
                    scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
 
@@ -123,21 +145,23 @@ def ragged_paged_attention_packed(
     sliding_window: Optional[int] = None,
     v_dim: Optional[int] = None,
 ) -> torch.Tensor:
-    """Decode attention over the aligned pool (Hkv and D from its shape),
-    or with ``v_dim`` over the MLA latent pool: returns [B, Hq, D] (or
-    [B, Hq, v_dim]); rows with kv_len == 0 are 0."""
+    """Decode attention over the aligned pool (Hkv and D from its shape;
+    the merged kernel below head_dim 128), or with ``v_dim`` over the MLA
+    latent pool: returns [B, Hq, D] (or [B, Hq, v_dim]); rows with kv_len
+    == 0 are 0."""
     Hkv, D = pool_heads(kv_cache)
-    kernel = DECODE_MLA_KERNEL if pool_layout(kv_cache) == "latent" else DECODE_ALIGNED_KERNEL
-    return _decode(kernel, q, kv_cache, layer_idx, page_table, kv_lens,
-                   page_size=page_size, num_kv_heads=Hkv, head_dim=D, scale=scale,
-                   logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
+    return decode_with(DECODE_KERNELS[kernel_family(kv_cache)], q, kv_cache, layer_idx,
+                       page_table, kv_lens, page_size=page_size, num_kv_heads=Hkv, head_dim=D,
+                       scale=scale, logit_cap=logit_cap, sliding_window=sliding_window,
+                       v_dim=v_dim)
 
 
 def ragged_paged_attention_packed_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, *, page_size, scale,
     logit_cap=None, sliding_window=None, v_dim=None,
 ) -> torch.Tensor:
-    """Plain version of the aligned and the MLA decode kernels."""
+    """Plain version of the aligned, the merged and the MLA decode
+    kernels."""
     Hkv, D = pool_heads(kv_cache)
     return decode_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens,
                                   page_size=page_size, num_kv_heads=Hkv, head_dim=D,

@@ -13,10 +13,13 @@ brings a whole flush of steps back in one device->host copy.
 
 The model class follows the architecture (``ARCHITECTURES``: Llama, and
 DeepSeek-V2/V3 with MLA + MoE). The KV pool's layout follows the model's
-geometry (``kv_pool_layout``): the chunked pool for head_dim 64-class
-models, the aligned pool for head_dim 128 (also with fp8 KV and calibrated
-per-layer scales, ``quantization_param_path``), the latent pool for MLA
-models. Random weights are drawn on the step device
+geometry (``kv_pool_layout``, the JAX runner's rule): the chunked pool for
+head_dim 64 when a slot row holds a multiple of 8 chunks of 128 (e.g.
+Llama-3.2-1B's 8 KV heads), the 5D pool otherwise (head_dim 128, and
+head_dim 64 with fewer KV heads, e.g. TinyLlama's 4; also with fp8 KV and
+calibrated per-layer scales, ``quantization_param_path``), the latent pool
+for MLA models. ``ServerArgs.decode_stream`` sends decode batches to the
+pool's streaming decode. Random weights are drawn on the step device
 (model_loader/loader.py::device_init_params).
 
 The step runs eagerly; CUDA graphs per decode bucket are ROADMAP A6b.
@@ -34,6 +37,7 @@ import torch
 
 from semi_pd_tpu_torch.config.model_config import ModelConfig
 from semi_pd_tpu_torch.config.server_args import ServerArgs
+from semi_pd_tpu_torch.layers.attention import pool_attention
 from semi_pd_tpu_torch.mem.pool import KVCache, KVCacheSpec, PageAllocator, ReqToPagePool
 from semi_pd_tpu_torch.model_loader.loader import device_init_params
 from semi_pd_tpu_torch.models.deepseek_v2 import DeepseekV2ForCausalLM
@@ -78,27 +82,27 @@ def _load_kv_cache_scales(path: str, num_layers: int) -> np.ndarray:
 
 
 def kv_pool_layout(num_kv_heads: int, head_dim: int, use_mla: bool = False) -> str:
-    """The KV pool layout of a geometry: "latent" for MLA models (one
-    latent row of head_dim = kv_lora_rank + qk_rope_head_dim per slot);
-    else "chunked" iff D % 128 != 0, 128 % D == 0 and (2*Hkv*D) % 128 == 0;
-    "aligned" iff D % 128 == 0. The JAX runner's rule
-    (model_runner.py:304-314) without its backend clause, so the CPU runs
-    the card's layout. Raises where the port has no kernels: head_dim 256
-    and other aligned widths, and the 5D pool at D < 128."""
+    """The KV pool layout of a geometry, the JAX runner's rule
+    (model_runner.py:306-314) without its backend clause, so the CPU runs
+    the card's layout: "latent" for MLA models (one latent row of head_dim
+    = kv_lora_rank + qk_rope_head_dim per slot); "chunked" iff D % 128 != 0,
+    128 % D == 0 and (2*Hkv*D) % 1024 == 0 (a slot row of a multiple of 8
+    chunks of 128); otherwise "aligned", the 5D pool [L, 2, S, Hkv, D].
+    Below head_dim 128 the 5D pool runs the merged kernels, the
+    counterparts of _rpa_kernel_merged, Hkv*D == 128 included (the JAX
+    layer sends those to its reference attention for a TPU tiling limit
+    that has no meaning on the card). Raises for the geometries the port
+    has no kernels for: head_dim 256 and other widths (ROADMAP A9)."""
     D, Hkv = head_dim, num_kv_heads
     if use_mla:
         return "latent"
-    if D % 128 == 0:
-        if D != 128:
-            raise NotImplementedError(
-                f"head_dim {D} on the aligned pool: its kernels are built for 128; "
-                f"gemma2's 256 is ROADMAP A9")
-        return "aligned"
-    if 128 % D == 0 and (2 * Hkv * D) % 128 == 0:
+    if D % 128 and 128 % D == 0 and (2 * Hkv * D) % 1024 == 0:
         return "chunked"
-    raise NotImplementedError(
-        f"Hkv={Hkv}, head_dim={D} fits neither the chunked nor the aligned pool; "
-        f"the 5D pool at head_dim < 128 (_rpa_kernel_merged) is ROADMAP B4")
+    if D not in (64, 128):
+        raise NotImplementedError(
+            f"head_dim {D} on the 5D pool: its kernels are built for 128 and (merged) 64; "
+            f"other head dims, gemma2's 256 among them, are ROADMAP A9")
+    return "aligned"
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -148,6 +152,9 @@ class ModelRunner:
             logger.info("fp8-KV scales loaded for %d layers", len(self.kv_scales))
         self._load_weights()
         self._init_memory_pool()
+        # what every layer runs over the pool after its KV write: the pool's
+        # routing to the kernels, decode batches streamed on request
+        self.attention = pool_attention(self.kv_cache.buffer, stream=server_args.decode_stream)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(server_args.seed)
         self._chain_tokens = None  # last decode step's device tokens
@@ -174,8 +181,9 @@ class ModelRunner:
         layout = kv_pool_layout(mc.num_kv_heads_total, mc.kv_head_dim, mc.use_mla)
         if layout == "chunked" and kv_dtype.itemsize == 1:
             raise NotImplementedError(
-                f"{args.kv_cache_dtype} KV on the chunked pool (head_dim "
-                f"{mc.kv_head_dim}) is ROADMAP A9; fp8 KV runs on the aligned pool")
+                f"{args.kv_cache_dtype} KV on the chunked pool (Hkv "
+                f"{mc.num_kv_heads_total}, head_dim {mc.kv_head_dim}) is ROADMAP A9; "
+                f"fp8 KV runs on the 5D pool")
         num_tokens = args.max_total_tokens or self._profile_kv_tokens(kv_dtype)
         num_pages = max(num_tokens // page_size, 8) + 1  # +1 dump page
         max_context = min(mc.context_length, num_tokens)
@@ -210,7 +218,7 @@ class ModelRunner:
         if self.kv_scales is not None:  # this runner's own scales, every step
             fb = fb._replace(kv_scales=self.kv_scales)
         with torch.inference_mode():
-            logits = self.model(fb, self.kv_cache.buffer)
+            logits = self.model(fb, self.kv_cache.buffer, attention=self.attention)
             tokens = sample(logits, fb.sampling, self.generator, fb.all_greedy)
             logprobs = compute_logprobs(logits, tokens)
         self.step_counts["decode" if fb.input_ids.shape[0] == fb.kv_lens.shape[0]

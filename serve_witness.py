@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Do greedy tokens differ between serving modes because of near ties, or
-because of a fault? A witness run for DeepSeek-V2-Lite on one CUDA card.
+because of a fault? A witness run for one model on one CUDA card.
 
     python3 serve_witness.py                  # from the root of a checkout
     python3 serve_witness.py --f32-layers 0   # the bf16 part alone
+    python3 serve_witness.py --model llama-3.2-1b-class --f32-layers 8
 
 It serves chip_smoke.py's 32 greedy requests (prompts of 256-3072 tokens,
 64 new tokens each, the bench's server settings) four times with one
 engine: colocated, colocated again, semi-PD, semi-PD again. First in bf16
-at full width (27 layers, random weights, seed 0), then in float32 with
-the depth cut to ``--f32-layers`` (float32 weights of all 27 layers do not
-fit one 80 GB card beside the pool). For each pair of runs it prints the
+at full width (random weights, seed 0; DeepSeek-V2-Lite by default, or the
+Llama-3.2-1B-class model of the chunked pool), then in float32 with the
+depth cut to ``--f32-layers`` (float32 weights of all 27 DeepSeek-V2-Lite
+layers do not fit one 80 GB card beside the pool). For each pair of runs it prints the
 share of requests whose 64 tokens are identical, where the first
 difference falls, and the two runs' logprobs of their own chosen tokens
 there: at a near tie the two picks are almost equally likely, so the gap
@@ -34,7 +36,11 @@ import time
 
 import numpy as np
 
-from chip_smoke import bench_server_args, deepseek_v2_lite_config, prompts_for, smi_line
+from chip_smoke import (bench_server_args, deepseek_v2_lite_config, llama_1b_config,
+                        prompts_for, smi_line)
+
+MODELS = {"deepseek-v2-lite": deepseek_v2_lite_config,
+          "llama-3.2-1b-class": llama_1b_config}
 
 
 def serve(eng, semi_pd: bool, prompts):
@@ -109,6 +115,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="deepseek-v2-lite")
     ap.add_argument("--f32-layers", type=int, default=16,
                     help="depth of the float32 model (0: skip it)")
     args = ap.parse_args()
@@ -120,10 +127,10 @@ def main() -> int:
     from semi_pd_tpu_torch.kernels import build_all
 
     print("setup " + json.dumps(dict(gpu=smi_line(), build_s=build_all())), flush=True)
-    cfg = deepseek_v2_lite_config()
-    witness("deepseek-v2-lite", cfg)
+    cfg = MODELS[args.model]()
+    witness(args.model, cfg)
     if args.f32_layers:
-        witness("deepseek-v2-lite", dataclasses.replace(
+        witness(args.model, dataclasses.replace(
             cfg, dtype="float32", num_hidden_layers=args.f32_layers))
     print(smi_line())
     return 0

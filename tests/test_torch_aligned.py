@@ -297,21 +297,25 @@ def test_kv_cache_scales_parse_like_jax(tmp_path, schema):
 
 
 LAYOUTS = [
-    # (Hkv, D): the pool, or the ROADMAP item the geometry waits for
+    # (Hkv, D): the pool of the JAX runner's rule (chunked iff D % 128 != 0,
+    # 128 % D == 0 and (2*Hkv*D) % 1024 == 0; the 5D "aligned" pool
+    # otherwise), or the ROADMAP item the geometry waits for
     ((8, 64), "chunked"),  # Llama-3.2-1B
-    ((2, 64), "chunked"),
-    ((1, 64), "chunked"),
-    ((4, 32), "chunked"),
-    ((8, 16), "chunked"),
+    ((2, 64), "aligned"),  # Qwen2.5-0.5B: the merged kernels
+    ((1, 64), "aligned"),
+    ((4, 64), "aligned"),  # TinyLlama-1.1B
+    ((16, 64), "chunked"),
+    ((4, 32), "A9"),  # 5D pool at head_dim 32: no build
+    ((8, 16), "A9"),
     ((8, 128), "aligned"),  # Llama-3-8B, Qwen2.5-7B, Mistral-7B
     ((2, 128), "aligned"),
     ((1, 128), "aligned"),
     ((8, 256), "A9"),  # gemma2
     ((4, 512), "A9"),
-    ((1, 32), "B4"),  # 2*Hkv*D = 64: no whole 128-chunk
-    ((2, 16), "B4"),
-    ((8, 96), "B4"),  # 128 % D != 0
-    ((8, 80), "B4"),
+    ((1, 32), "A9"),
+    ((2, 16), "A9"),
+    ((8, 96), "A9"),  # 128 % D != 0
+    ((8, 80), "A9"),
 ]
 
 
@@ -325,9 +329,11 @@ def test_kv_pool_layout_rule(geometry, want):
 
 
 def test_fp8_kv_on_the_chunked_pool_raises():
+    """Hkv 8 at head_dim 64 is on the chunked pool (Hkv 2 would be on the
+    5D pool, where fp8 KV is served)."""
     cfg = ModelConfig(architecture="LlamaForCausalLM", vocab_size=64, hidden_size=128,
-                      intermediate_size=128, num_hidden_layers=1, num_attention_heads=4,
-                      num_key_value_heads=2, head_dim=64, context_length=128,
+                      intermediate_size=128, num_hidden_layers=1, num_attention_heads=8,
+                      num_key_value_heads=8, head_dim=64, context_length=128,
                       dtype="float32")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         Engine(ServerArgs(random_weights=True, device="cpu", max_total_tokens=256,

@@ -1,7 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, the CUDA MoE path (torch._grouped_mm) against its plain loop, and
-the Engine on its default CUDA device against the same Engine on the CPU
-(Llama on the chunked and the aligned pool, DeepSeek-V2 on the latent
+version (the streaming decodes also against themselves, bitwise, on a
+second run), the CUDA MoE path (torch._grouped_mm) against its plain loop,
+and the Engine on its default CUDA device against the same Engine on the
+CPU (Llama on the chunked, the aligned and the merged 5D pool at head_dim
+64, with and without the streaming decode; DeepSeek-V2 on the latent
 pool). This file imports no JAX, so it also runs on a machine with a GPU
 and no JAX:
 
@@ -11,8 +13,9 @@ Without a CUDA device every test skips.
 
 Tolerances: float32 1e-4 (online vs full softmax, another summation order);
 bfloat16 1e-2 (the kernels round P to bf16 before P.V, as the TPU kernels
-do), also with fp8 KV, where kernel and plain version read the same fp8
-bytes. The softcap of 1.0 bends most scores, whose std is about 1 here.
+do; the merged and the MLA stream builds keep P in float32), also with fp8
+KV, where kernel and plain version read the same fp8 bytes. The softcap of
+1.0 bends most scores, whose std is about 1 here.
 MoE in bf16: 2e-2 relative to the output's scale (both paths round the
 same bf16 products; the grouped GEMM sums K in another order).
 """
@@ -26,7 +29,7 @@ from semi_pd_tpu_torch.config.server_args import ServerArgs
 from semi_pd_tpu_torch.kernels import KERNELS
 from semi_pd_tpu_torch.ops import moe
 from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
-from semi_pd_tpu_torch.ops.attention import rpa_packed
+from semi_pd_tpu_torch.ops.attention import rpa_packed, rpa_stream
 from semi_pd_tpu_torch.runtime.engine import Engine
 from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, build_attn_meta
 from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
@@ -56,10 +59,10 @@ def _unaligned(a: np.ndarray, dev) -> torch.Tensor:
 
 
 def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
-          kv_dtype=None, latent=False):
+          kv_dtype=None, latent=False, merged=False):
     """Queries, a pool (chunked [L, S, CT, 128], aligned [L, 2, S, Hkv,
-    128] or latent [L, 1, S, 1, 576], in ``kv_dtype``, default ``dtype``)
-    and a shuffled page table."""
+    128], merged [L, 2, S, Hkv, 64] or latent [L, 1, S, 1, 576], in
+    ``kv_dtype``, default ``dtype``) and a shuffled page table."""
     rng = np.random.default_rng(seed)
     B = len(kv_lens) + pad_B
     n_pages = [-(-k // PS) for k in kv_lens]
@@ -77,6 +80,8 @@ def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
     kl[: len(kv_lens)] = kv_lens
     d, hq = D_ALIGNED if aligned else D, HQ
     shape = (L, 2, total * PS, HKV, d) if aligned else (L, total * PS, CT, 128)
+    if merged:
+        shape = (L, 2, total * PS, HKV, D)
     scale = 1.0
     if latent:
         d, hq, shape = DLAT, HQ_MLA, (L, 1, total * PS, 1, DLAT)
@@ -96,6 +101,15 @@ def _decode_case(dev, dtype, **kw):
 def _extend_case(dev, dtype, **kw):
     return _case(7, [140, 20, 1, 7], [140, 60, 9, 300], dev, dtype, pad_T=9, pad_B=1,
                  **kw)
+
+
+def _many_case(dev, dtype, **kw):
+    """200 decode rows (kv_len 0 to 300, some 0): more rows than the
+    streaming decode's persistent grid has blocks, so a block streams
+    several requests in a row."""
+    lens = np.random.default_rng(8).integers(0, 301, size=200)
+    lens[::17] = 0
+    return _case(9, [1] * 200, lens.tolist(), dev, dtype, **kw)
 
 
 def _opts(opt, scale):
@@ -178,6 +192,81 @@ def test_mla_kernel_matches_plain(cuda_device, kind, dtype, opt):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+FP8 = {"fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("kind", ["decode", "extend"])
+@pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
+def test_merged_kernel_matches_plain(cuda_device, kind, dtype, opt):
+    """The merged kernels (the 5D pool at head_dim 64, TinyLlama's path;
+    fp8 = bf16 q over an fp8 pool) against their plain versions, on layer 1
+    of the pool, for every type pair they are built for."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    case = _decode_case if kind == "decode" else _extend_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt, merged=True,
+                                  kv_dtype=FP8.get(dtype, dt))
+    kw = _opts(opt, D ** -0.5)
+    k = KERNELS[f"rpa_{kind}_merged"]
+    before = k.launches
+    if kind == "decode":
+        out = rpa_packed.ragged_paged_attention_packed(q, pool, 1, pt, kvl, **kw)
+        ref = rpa_packed.ragged_paged_attention_packed_plain(q, pool, 1, pt, kvl, **kw)
+    else:
+        out = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, **kw)
+        ref = rpa.ragged_paged_attention_extend_plain(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+STREAM_POOLS = {  # pool: (case options, kernel, head_dim, the build's type pairs)
+    "chunked": ({}, "rpa_decode_stream", D, ["float32", "bfloat16"]),
+    "aligned": ({"aligned": True}, "rpa_decode_stream_aligned", D_ALIGNED,
+                ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"]),
+    "latent": ({"latent": True}, "rpa_decode_stream_mla", DLAT, ["float32", "bfloat16"]),
+}
+STREAM_CASES = [(pool, dtype) for pool, spec in STREAM_POOLS.items() for dtype in spec[3]]
+
+
+@pytest.mark.parametrize("batch", ["few", "many"])
+@pytest.mark.parametrize("opt", ["plain", "softcap"])
+@pytest.mark.parametrize("pool,dtype", STREAM_CASES, ids=[f"{p}-{t}" for p, t in STREAM_CASES])
+def test_stream_kernel_matches_plain_and_repeats(cuda_device, pool, dtype, opt, batch):
+    """The streaming decodes against their plain version (the decode's), on
+    layer 1 of each pool and for every type pair they are built for, with a
+    batch of 6 (fewer rows than blocks) and of 200 (several requests per
+    block, kv_len-0 rows among them); a second run on the same inputs is
+    bitwise equal (the grid and each block's run depend on the shapes
+    only)."""
+    extra, name, width, _ = STREAM_POOLS[pool]
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    case = _decode_case if batch == "few" else _many_case
+    q, kv, pt, kvl, _ = case(cuda_device, dt, kv_dtype=FP8.get(dtype, dt), **extra)
+    kw = _opts(opt, width ** -0.5)
+    kw.pop("sliding_window")
+    k = KERNELS[name]
+    before = k.launches
+    if pool == "chunked":
+        kw.update(num_kv_heads=HKV, head_dim=D)
+        out = rpa_stream.ragged_paged_attention_chunked_stream(q, kv, 1, pt, kvl, **kw)
+        again = rpa_stream.ragged_paged_attention_chunked_stream(q, kv, 1, pt, kvl, **kw)
+        ref = rpa_packed.decode_attention_plain(q, kv, 1, pt, kvl, **kw)
+    else:
+        if pool == "latent":
+            kw["v_dim"] = V_DIM
+        out = rpa_stream.ragged_paged_attention_stream(q, kv, 1, pt, kvl, **kw)
+        again = rpa_stream.ragged_paged_attention_stream(q, kv, 1, pt, kvl, **kw)
+        ref = rpa_packed.ragged_paged_attention_packed_plain(q, kv, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 2
+    assert torch.equal(out, again)
+    assert not out[kvl == 0].any()
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
 def test_moe_grouped_mm_matches_plain_loop(cuda_device):
     """moe_ffn on the card in bf16 (torch._grouped_mm) against the same
     function with the plain per-expert loop, at DeepSeek-V2-Lite's expert
@@ -219,13 +308,13 @@ def test_moe_ffn_is_deterministic_on_the_card(cuda_device):
         assert torch.equal(moe.moe_ffn(x, gate_up, down, w, idx), first)
 
 
-def _engines_agree(cuda_device, cfg, pool_kernels):
+def _engines_agree(cuda_device, cfg, pool_kernels, decode_stream=False):
     """The Engine with no device argument runs on the card through the
     given pool's two kernels (and no other) and gives the greedy tokens of
     the same Engine on the CPU holding the same parameters (CUDA and CPU
     generators draw different random weights)."""
     serve = dict(random_weights=True, page_size=PS, max_total_tokens=2048,
-                 chunked_prefill_size=64, enable_semi_pd=True)
+                 chunked_prefill_size=64, enable_semi_pd=True, decode_stream=decode_stream)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 512, size=n).tolist() for n in (20, 100, 37)]
     sp = SamplingParams(max_new_tokens=6, temperature=0.0, ignore_eos=True)
@@ -242,15 +331,16 @@ def _engines_agree(cuda_device, cfg, pool_kernels):
     assert gpu.flush_cache() and cpu.flush_cache()
 
 
-def _llama_cfg(head_dim):
+def _llama_cfg(head_dim, num_kv_heads=HKV):
     return dict(architecture="LlamaForCausalLM", vocab_size=512, hidden_size=256,
                 intermediate_size=512, num_hidden_layers=2, num_attention_heads=HQ,
-                num_key_value_heads=HKV, head_dim=head_dim, context_length=512,
+                num_key_value_heads=num_kv_heads, head_dim=head_dim, context_length=512,
                 dtype="float32")
 
 
 def test_engine_on_default_cuda_device_matches_cpu(cuda_device):
-    _engines_agree(cuda_device, _llama_cfg(D), ["rpa_decode", "rpa_extend"])
+    """Hkv 8 at head_dim 64: the chunked pool (Hkv 2 is on the 5D pool)."""
+    _engines_agree(cuda_device, _llama_cfg(D, num_kv_heads=8), ["rpa_decode", "rpa_extend"])
 
 
 def test_engine_aligned_pool_on_cuda_matches_cpu(cuda_device):
@@ -258,9 +348,29 @@ def test_engine_aligned_pool_on_cuda_matches_cpu(cuda_device):
                    ["rpa_decode_aligned", "rpa_extend_aligned"])
 
 
-def test_engine_deepseek_latent_pool_on_cuda_matches_cpu(cuda_device):
+def test_engine_merged_pool_on_cuda_matches_cpu(cuda_device):
+    """Hkv 2 at head_dim 64: the 5D pool through the merged kernels, with
+    the streaming decode asked for too (the JAX routing keeps the merged
+    decode there)."""
+    _engines_agree(cuda_device, _llama_cfg(D), ["rpa_decode_merged", "rpa_extend_merged"],
+                   decode_stream=True)
+
+
+@pytest.mark.parametrize("head_dim,num_kv_heads,kernels", [
+    (D, 8, ["rpa_decode_stream", "rpa_extend"]),
+    (D_ALIGNED, HKV, ["rpa_decode_stream_aligned", "rpa_extend_aligned"]),
+], ids=["chunked", "aligned"])
+def test_engine_decode_stream_on_cuda_matches_cpu(cuda_device, head_dim, num_kv_heads,
+                                                  kernels):
+    _engines_agree(cuda_device, _llama_cfg(head_dim, num_kv_heads), kernels,
+                   decode_stream=True)
+
+
+@pytest.mark.parametrize("decode_stream", [False, True], ids=["packed", "stream"])
+def test_engine_deepseek_latent_pool_on_cuda_matches_cpu(cuda_device, decode_stream):
     """A small DeepSeek-V2 (a dense layer, then an MoE layer with a shared
-    expert; the kernels' latent width 512 + 64, 16 heads) in float32."""
+    expert; the kernels' latent width 512 + 64, 16 heads) in float32, with
+    the packed and with the streaming decode."""
     cfg = dict(architecture="DeepseekV2ForCausalLM", vocab_size=512, hidden_size=256,
                intermediate_size=512, num_hidden_layers=2, num_attention_heads=HQ_MLA,
                num_key_value_heads=HQ_MLA, head_dim=192, context_length=512,
@@ -268,4 +378,5 @@ def test_engine_deepseek_latent_pool_on_cuda_matches_cpu(cuda_device):
                v_head_dim=128, num_experts=8, num_experts_per_tok=2,
                moe_intermediate_size=128, num_shared_experts=1, first_k_dense_replace=1,
                dtype="float32")
-    _engines_agree(cuda_device, cfg, ["rpa_decode_mla", "rpa_extend_mla"])
+    dec = "rpa_decode_stream_mla" if decode_stream else "rpa_decode_mla"
+    _engines_agree(cuda_device, cfg, [dec, "rpa_extend_mla"], decode_stream=decode_stream)

@@ -5,7 +5,10 @@ Both engines hold the same weights (the JAX engine's random parameters are
 carried into the port with ``load_jax_params``) and serve the same greedy
 requests: the output token ids must be identical, colocated and semi-PD,
 with a chunked-prefill size below the longest prompt and one prompt that
-hits the radix cache. ``check_memory()`` passes afterwards.
+hits the radix cache, at two head_dim-64 geometries: Hkv 8 (the chunked
+pool, as Llama-3.2-1B) and Hkv 2 (the 5D pool and its merged kernels' path:
+the JAX runner's layout rule wants a slot row of 8 chunks of 128).
+``check_memory()`` passes afterwards.
 """
 
 import ast
@@ -43,14 +46,17 @@ def _prompts():
     return first, second
 
 
+@pytest.mark.parametrize("num_kv_heads,pool_dims", [(2, 5), (8, 4)], ids=["5d", "chunked"])
 @pytest.mark.parametrize("semi_pd", [False, True], ids=["colocated", "semi_pd"])
-def test_engine_greedy_tokens_match_jax(semi_pd):
+def test_engine_greedy_tokens_match_jax(semi_pd, num_kv_heads, pool_dims):
+    cfg = dict(CFG, num_key_value_heads=num_kv_heads)
     jeng = JaxEngine(server_args=JaxServerArgs(model_path="", random_weights=True,
                                                enable_semi_pd=semi_pd, **SERVE),
-                     model_config=JaxModelConfig(**CFG))
+                     model_config=JaxModelConfig(**cfg))
     teng = Engine(ServerArgs(random_weights=True, enable_semi_pd=semi_pd, device="cpu",
-                             **SERVE), ModelConfig(**CFG), device="cpu")
+                             **SERVE), ModelConfig(**cfg), device="cpu")
     teng.runner.model.load_jax_params(jax.tree.map(np.asarray, jeng.runner.params))
+    assert teng.runner.kv_cache.buffer.dim() == pool_dims
 
     first, second = _prompts()
     sp = dict(max_new_tokens=6, temperature=0.0, ignore_eos=True)
@@ -116,23 +122,36 @@ def test_port_imports_no_jax(target):
 
 
 def test_kernel_registry_and_sources():
-    """The six kernels (decode and extend on the chunked, the aligned and
-    the latent pool) are registered with a source in the checkout, the TPU
-    kernel they replace (a function that reaches pl.pallas_call), their own
-    build library and a launch count; every extend kernel is built with the
-    work list's q-block."""
+    """The eleven kernels (decode and extend on the chunked, the aligned,
+    the merged and the latent pool, and the three streaming decodes) are
+    registered with a source in the checkout, the TPU kernel they replace
+    (a function that reaches pl.pallas_call), their own build library, the
+    entry point the build names and a launch count; every extend kernel is
+    built with the work list's q-block; the 5D pool's builds (aligned and
+    merged) are -DRPA_ALIGNED, the merged ones at head_dim 64 with P in
+    float32, as _rpa_kernel_merged computes."""
     from semi_pd_tpu_torch.kernels import KERNELS
     import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
 
     assert set(KERNELS) == {"rpa_decode", "rpa_extend", "rpa_decode_aligned",
-                            "rpa_extend_aligned", "rpa_decode_mla", "rpa_extend_mla"}
+                            "rpa_extend_aligned", "rpa_decode_mla", "rpa_extend_mla",
+                            "rpa_decode_merged", "rpa_extend_merged", "rpa_decode_stream",
+                            "rpa_decode_stream_aligned", "rpa_decode_stream_mla"}
     for k in KERNELS.values():
         assert k.source.exists() and k.source.suffix == ".cu"
         path, line = k.replaces.split()[0].split(":")
         src = (ROOT / path).read_text().splitlines()
         assert src[int(line) - 1].startswith(f"def {k.replaces.split()[1]}(")
-        assert "sm_90a" in " ".join(k.flags())
-        assert ("-DRPA_ALIGNED" in k.flags()) == k.name.endswith("_aligned")
-    assert len({k.lib_path() for k in KERNELS.values()}) == 6
-    for name in ("rpa_extend", "rpa_extend_aligned", "rpa_extend_mla"):
+        flags = " ".join(k.flags())
+        assert "sm_90a" in flags and f"-DRPA_ENTRY={k.symbol}" in flags
+        five_d = k.name.endswith(("_aligned", "_merged"))
+        assert ("-DRPA_ALIGNED" in k.flags()) == five_d
+        assert ("-DRPA_P_F32" in k.flags()) == k.name.endswith(("_merged", "_stream_mla"))
+    assert len({k.lib_path() for k in KERNELS.values()}) == 11
+    for name in ("rpa_extend", "rpa_extend_aligned", "rpa_extend_mla", "rpa_extend_merged"):
         assert "EXTEND_QBLK=128" in " ".join(KERNELS[name].flags())
+    for name in ("rpa_decode_merged", "rpa_extend_merged"):
+        assert "-DRPA_HEAD_DIM=64" in KERNELS[name].flags()
+        assert "_rpa_kernel_merged" in KERNELS[name].replaces
+    assert KERNELS["rpa_decode_stream"].replaces.endswith("_rpa_kernel_chunked_stream")
+    assert "-DRPA_MLA" in KERNELS["rpa_decode_stream_mla"].flags()

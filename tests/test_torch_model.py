@@ -3,8 +3,10 @@ CPU, with the same numpy inputs: elementwise ops, RoPE, sampling, the
 attention layer's pool write, parameter init / loading, and the logits of
 one extend step and two decode steps.
 
-Test model: 2 layers, hidden 256, intermediate 512, Hq 8, Hkv 2, D 64
-(Hkv*D % 128 == 0, as the chunked pool needs), vocab 512, page 16, float32.
+Test model: 2 layers, hidden 256, intermediate 512, Hq 8, Hkv 2, D 64,
+vocab 512, page 16, float32. The JAX runner's layout rule puts Hkv 2 on the
+5D pool (the merged kernels' path) and Hkv 8 on the chunked pool (a slot
+row of 8 chunks of 128); the layer and logits twins run both.
 """
 
 import numpy as np
@@ -30,6 +32,7 @@ from semi_pd_tpu_torch.models.llama import LlamaForCausalLM
 from semi_pd_tpu_torch.ops import elementwise, rope, sampling
 from semi_pd_tpu_torch.ops.sampling import SamplingArrays
 from semi_pd_tpu_torch.runtime.batch import build_decode_batch, build_extend_batch
+from semi_pd_tpu_torch.runtime.model_runner import kv_pool_layout
 from semi_pd_tpu_torch.runtime.req import Req
 from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
@@ -156,13 +159,17 @@ def test_sampling_filters_keep_the_jax_support(filt):
 
 
 # ------------------------------------------------------------------ layer
-def test_paged_attention_layer_matches_jax():
-    """KV write + attention on the chunked pool: the pool after the write is
-    identical to the JAX layer's and the output matches within 1e-5."""
+@pytest.mark.parametrize("layout", ["chunked", "5d"])
+def test_paged_attention_layer_matches_jax(layout):
+    """KV write + attention on the chunked pool [L, S, CT, 128] and on the
+    5D pool [L, 2, S, Hkv, 64]: the pool after the write is identical to
+    the JAX layer's and the output matches within 1e-5."""
     rng = np.random.default_rng(4)
     T, B, Hq, Hkv, D, Lp = 24, 3, 8, 2, 64, 2
     S = 20 * PS
-    pool = rng.normal(size=(Lp, S, 2 * Hkv * D // 128, 128)).astype(np.float32)
+    shape = ((Lp, S, 2 * Hkv * D // 128, 128) if layout == "chunked"
+             else (Lp, 2, S, Hkv, D))
+    pool = rng.normal(size=shape).astype(np.float32)
     q = rng.normal(size=(T, Hq, D)).astype(np.float32)
     k = rng.normal(size=(T, Hkv, D)).astype(np.float32)
     v = rng.normal(size=(T, Hkv, D)).astype(np.float32)
@@ -243,18 +250,26 @@ def test_load_jax_params_round_trips(models):
         tm.load_jax_params(bad)
 
 
-def test_logits_extend_then_decode_match_jax(models):
+@pytest.mark.parametrize("num_kv_heads,layout", [(8, "chunked"), (2, "5d")])
+def test_logits_extend_then_decode_match_jax(num_kv_heads, layout):
     """One extend step (two prompts, one spanning two work-list blocks) and
-    two decode steps: the port's logits match JAX LlamaForCausalLM.forward
-    within 1e-4."""
-    jm, tm = models
+    two decode steps on the pool the layout rule gives the geometry: the
+    port's logits match JAX LlamaForCausalLM.forward within 1e-4."""
+    cfg = dict(CFG, num_key_value_heads=num_kv_heads)
+    jm = JaxLlama(JaxModelConfig(**cfg))
+    jm.page_size = PS
+    tm = LlamaForCausalLM(ModelConfig(**cfg), device="cpu")
+    tm.page_size = PS
+    assert kv_pool_layout(num_kv_heads, 64) == {"chunked": "chunked", "5d": "aligned"}[layout]
     jparams = jm.init_params(seed=11)
     tm.load_jax_params(jax.tree.map(np.asarray, jparams))
     jax_attention.set_attention_backend("reference")
     L = CFG["num_hidden_layers"]
     S = 40 * PS
-    jpool = jnp.zeros((L, 2, S, 2, 64), jnp.float32)  # JAX reference-backend pool
-    tpool = torch.zeros((L, S, 2, 128))  # the port's chunked pool
+    # the JAX reference-backend pool, and the port's pool of the layout rule
+    jpool = jnp.zeros((L, 2, S, num_kv_heads, 64), jnp.float32)
+    tpool = (torch.zeros((L, S, 2 * num_kv_heads * 64 // 128, 128)) if layout == "chunked"
+             else torch.zeros((L, 2, S, num_kv_heads, 64)))
     rng = np.random.default_rng(5)
     page_table = np.zeros((4, 16), np.int32)
     reqs = []

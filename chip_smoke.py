@@ -7,7 +7,10 @@ It imports nothing of JAX or of the JAX package. Phases, one result line
 each (any failure raises and exits non-zero):
 
 1. setup   — the card, the toolchain, and the build of every CUDA kernel
-             from semi_pd_tpu_torch/csrc/ (one nvcc per kernel, in parallel).
+             from semi_pd_tpu_torch/csrc/ (one nvcc per kernel, in parallel),
+             with nvcc's register and spill lines and each library's count
+             of tensor-core instructions (HMMA/HGMMA, from cuobjdump -sass;
+             the chunked and the aligned extend must have some).
 2. kernels — each kernel's wrapper on the card against its plain PyTorch
              version on the same inputs, at the geometry of its path (page
              16; Hq 32, Hkv 8: chunked pool [1, S, 8, 128] at D 64, aligned
@@ -15,7 +18,9 @@ each (any failure raises and exits non-zero):
              Hq 32, Hkv 4: TinyLlama's 5D pool [1, 2, S, 4, 64] for the
              merged kernels, with the same types; Hq 16: DeepSeek-V2-Lite's
              latent pool [1, 1, S, 1, 576], V its first 512; the streaming
-             decodes on the chunked, aligned and latent pools), with its
+             decodes on the chunked, aligned and latent pools; extend also
+             at b2 x q2048 / kv2048, two fresh prompts of one chunked
+             prefill step), with its
              time, the plain version's time, one PyTorch library call's
              time (scaled_dot_product_attention over pre-gathered dense KV,
              upcast to bf16 for fp8 KV; a yardstick the port never calls)
@@ -59,6 +64,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -356,6 +362,16 @@ def phase_kernels():
                                             pool, cap=1.0))
                 rows.append(run_kernel_case(f"{base}_window512", kind, gen, rng, ql, kl, dt,
                                             pool, window=512))
+    # after the cases above, so that those draw the same inputs as before:
+    # one chunked-prefill step of two fresh 2048-token prompts, where tiles
+    # above the diagonal are skipped, and e5m2 KV under the extend
+    for pool, pairs in types.items():
+        for dt, kdt in pairs:
+            rows.append(run_kernel_case("extend_b2_q2048_kv2048", "extend", gen, rng,
+                                        [2048] * 2, [2048] * 2, dt, pool, kdt))
+        if pool in fp8_pools:
+            rows.append(run_kernel_case("extend_b8_q256_kv2048", "extend", gen, rng,
+                                        *ext["extend_b8_q256_kv2048"], bf, pool, e5m2))
     return rows
 
 
@@ -592,7 +608,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a GPU",
               file=sys.stderr)
         return 2
-    from semi_pd_tpu_torch.kernels import KERNELS, build_all, find_nvcc
+    from semi_pd_tpu_torch.kernels import KERNELS, build_all, find_nvcc, sass_mma_counts
     from semi_pd_tpu_torch.runtime.engine import Engine
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 checks in full float32
@@ -605,10 +621,19 @@ def main() -> int:
     nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()
     build_s = build_all()
-    ptxas = [ln.strip() for k in KERNELS.values() for ln in k.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    for ln in ptxas:
-        print("ptxas " + ln)
+    for kname, k in KERNELS.items():  # each function's registers and spills
+        for ln in k.build_log.splitlines():
+            if "Function properties" in ln or "registers" in ln or "spill" in ln:
+                print(f"ptxas {kname} {ln.strip()}")
+    # tensor-core instructions per kernel library and function
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        sass = dict(zip(KERNELS, ex.map(sass_mma_counts, KERNELS.values())))
+    for kname, counts in sass.items():
+        print("sass " + json.dumps(dict(kernel=kname, mma=sum(counts.values()),
+                                        functions=counts)))
+    for kname in ("rpa_extend", "rpa_extend_aligned"):
+        if not sum(sass[kname].values()):
+            raise AssertionError(f"{kname}: no HMMA/HGMMA instruction in its library")
     print("setup " + json.dumps(dict(
         gpu=smi, kind=name, torch=torch.__version__,
         cuda=torch.version.cuda, nvcc=nvcc[-1] if nvcc else None,

@@ -1,8 +1,9 @@
 // Shared pieces of the ragged paged attention kernels (rpa_decode.cu,
 // rpa_extend.cu, rpa_stream.cu): element conversion, the (q, KV) type pairs
-// and head_dim each build instantiates, and the staging of one KV tile of
-// any pool, into registers or, for the streaming decode, through a ring of
-// cp.async copies in shared memory.
+// and head_dim each build instantiates, the staging of one KV tile of any
+// pool, into registers or, for the streaming decode, through a ring of
+// cp.async copies in shared memory, and the PTX of the extend's tensor-core
+// kernel (cp.async with zero fill, ldmatrix, mma.sync).
 //
 // The pools are addressed through two base pointers and one row stride:
 // K of slot s and head h sits at k_pool + s * row_stride + h * D, V at
@@ -122,6 +123,24 @@ template <> __device__ __forceinline__ void unpack<__nv_fp8_e5m2>(const uint4& v
   unpack_fp8<__NV_E5M2>(v, out);
 }
 
+// Two floats -> one register of bf16 (lo in the low half), round to nearest.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 16 fp8 values -> 16 bf16 (two 16-byte vectors), exactly: every e4m3 and
+// e5m2 value is a bf16 value too.
+template <typename T>
+__device__ __forceinline__ void widen_bf16(const uint4& v, uint4& lo, uint4& hi) {
+  float f[16];
+  unpack<T>(v, f);
+  lo = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                  pack_bf16(f[6], f[7]));
+  hi = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]), pack_bf16(f[12], f[13]),
+                  pack_bf16(f[14], f[15]));
+}
+
 // 4 consecutive elements of q's type <-> float4: one 16-byte access for
 // float32, one 8-byte access for bf16 (p 8-byte aligned).
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -166,6 +185,49 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// As cp_async16, but with ok false it reads nothing and fills the 16 bytes
+// with zeros (gmem must still be a valid address).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+               : "memory");
+}
+
+// Tensor-core pieces of the extend kernel (rpa_extend.cu). ldmatrix: four
+// 8x8 b16 matrices from shared memory (32-bit shared address s), lanes
+// 8j .. 8j + 7 giving the row addresses of matrix j; thread l receives row
+// l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of each (of its transpose with
+// .trans).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t s) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t s) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+// c[16 x 8] += a[16 x 16] . b[16 x 8]: bf16 operands, float32 accumulate.
+// With g = lane / 4 and t = lane % 4: a = {(g, 2t), (g + 8, 2t), (g, 2t + 8),
+// (g + 8, 2t + 8)}, each register two neighbouring columns; b = {(2t, g),
+// (2t + 8, g)}, each two neighbouring rows; c = {(g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 2^x on the special-function unit (relative error ~2^-22; 0 far below).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // One tile of TK consecutive KV positions [start, start + TK) of one request

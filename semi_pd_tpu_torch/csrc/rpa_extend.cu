@@ -16,44 +16,101 @@
 // Causal attention of the flat new tokens [T, Hq, D] of every request over
 // its cached prefix plus the new tokens, through the page table, driven by
 // the host-built work list (block_seq / block_row / block_qofs), with
-// optional logit softcap and sliding window. fp8 KV is widened to float32
-// exactly, as the TPU kernels upcast it to q's dtype.
+// optional logit softcap and sliding window. fp8 KV is widened exactly, as
+// the TPU kernels upcast it to q's dtype. EXTEND_QBLK, the rows of one
+// work-list entry, is passed in by the build from ops/attention/
+// ragged_paged_attention.py::EXTEND_Q_BLOCK, the constant the host work
+// list is built with, so the list and the kernel agree on it.
 //
-// Bound on this card: operations at the main path's shapes. A block of
-// q_len new tokens over kv_len positions does ~4 * q_len * kv_len * Hq * D
+// Bound on this card: operations at the main path's shapes. An entry of
+// q_len rows over kv_len positions does ~4 * q_len * kv_len * Hq * D
 // causal operations while reading the kv_len rows once, well above the
 // ~295 operations per byte where the H100's bf16 tensor cores bind.
 //
-// Design: one block per (work-list entry, query head), EXTEND_QBLK query
-// rows per block and TPR = D / 64 threads per row (1 at D 64, 2 at D 128):
-// each thread keeps 64 head dims of its row's query and float32 output in
-// registers (a whole row of both at D 128 would need 256 registers), and
-// the TPR partial dot products of a score are summed with __shfl_xor_sync
-// among the row's lanes. A thread's dims are float4 chunks j * TPR + part,
-// so the lanes of a row read neighbouring 16-byte words of a K or V row
-// (no bank conflicts). Measured on the H100 (PERF.md): 32 dims per
-// thread (2 threads per row at D 64, 4 at D 128) ran 9-31% slower at D 64
-// and 1.7x slower at D 128, with or without q in shared memory, though it
-// spilled less. EXTEND_QBLK is passed in
-// by the build from ops/attention/ragged_paged_attention.py::
-// EXTEND_Q_BLOCK, the same constant the host work list is built with, so
-// the list and the kernel agree on the block height. KV tiles go through
-// shared memory as float32, every row reading each K and V row as a
-// broadcast; the next tile's loads are issued into registers before the
-// current one is computed. The walk stops at min(kv_len, last row's
-// position + 1); rows mask causally, by kv_len and by the window. A block writes ONLY the n_rows = min(q_len - qofs, QBLK)
-// rows its entry owns (the TPU kernels wrote their whole block and relied
-// on grid order for the next sequence to overwrite the overrun; blocks here
-// run in parallel), and padding entries (block_seq == -1) write nothing.
-// The arithmetic runs on the CUDA cores in float32; a wgmma/TMA version is
-// later work.
+// Two kernels; the entry point picks one by q's type and the build, never
+// at run time otherwise:
+//
+// bf16 q, over bf16 or fp8 KV: rpa_extend_mma_kernel, on the tensor cores.
+//   What the TPU kernels compute is bf16 x bf16 -> float32 dots with P cast
+//   to q's dtype, which is exactly mma.sync m16n8k16 bf16 -> f32 (fp8
+//   widens to bf16 without loss). Packed rows, as the TPU kernel builds its
+//   QG = QBLK * G rows per KV head: packed row m = r * G + g is query row r
+//   of head h * G + g, so the G heads of a query row are one G * D run of q
+//   and every KV tile a block stages serves all G heads. Grid
+//   (ceil(EXTEND_QBLK * G / 64), Hkv, entries): one block of 4 warps per 64
+//   packed rows of one entry and one KV head; blocks of one (entry, head)
+//   are neighbours in launch order and share their KV tiles in L2. Warp w
+//   owns the m16 tile of packed rows 16w .. 16w + 15:
+//   - Q goes to shared memory once and from there, by ldmatrix, into the
+//     warp's A fragments (D / 16 k-steps, kept in registers);
+//   - per tile of 64 KV positions, S = Q K^T by mma.sync with K fragments
+//     by ldmatrix; then scale, softcap (tanh) and the mask: causal by each
+//     packed row's own query position, kv_len, window. Tiles a warp's rows
+//     cannot see (above the diagonal, below the window) are skipped, and
+//     tiles inside every row's range skip the mask;
+//   - the online softmax stays in registers: a row of the C fragment lives
+//     in the 4 lanes of a quad, so the row max takes two shuffles, and each
+//     lane's partial row sum is reduced once at the end. NEG_INF as on the
+//     TPU; a masked score gives p = 0 exactly;
+//   - P, rounded to bf16 as the TPU casts p to q's dtype, is reused straight
+//     from the S accumulators as the A operand of O += P V, with V fragments
+//     by ldmatrix.trans; O accumulates in float32 registers.
+//   KV tiles are bf16 in shared memory, rows padded to D + 8 elements so
+//   that the 8 row addresses of an ldmatrix fall in 8 different bank groups;
+//   ldmatrix takes 32-bit shared addresses whose tile offsets are
+//   immediates. bf16 KV goes global -> shared by cp.async, slot by slot
+//   through the page table, through three stages with one barrier per tile:
+//   two tiles are in flight while the block computes on the third. fp8 KV
+//   (e4m3, e5m2) is loaded into registers one tile ahead and widened to
+//   bf16 on its way into one of two bf16 tiles, exactly, as the TPU upcasts
+//   it to q's dtype; on the card this ran a few percent faster than cp.async
+//   of the raw bytes into shared memory with a widening pass there.
+//   Positions at or past the walk's end are zero-filled, never read (no slot
+//   past kv_len). Shared memory, dynamic with the opt-in above 48 KB: 102
+//   KB (bf16) and 68 KB (fp8) at D 128, 54 KB at D 64. Registers set the
+//   residency: 2 blocks per SM at D 128 (over 200 registers a thread), 4 at
+//   D 64 (128; the copy loop stays rolled so that nothing spills). The
+//   epilogue stages each warp's 16 output rows in shared memory and writes
+//   them as 16-byte vectors.
+//   What holds it back from the card's bf16 peak: mma.sync (not wgmma) on
+//   16-row tiles, so each K or V fragment read from shared memory feeds one
+//   m16 tile; 8 warps per SM at D 128; the softmax and O's rescale between
+//   the two products.
+//
+// float32 q, and every pair of the merged build (-DRPA_P_F32):
+//   rpa_extend_kernel, on the CUDA cores. TF32 mma would not be the float32
+//   dot the float32 pair computes, and a bf16 mma would round the P that the
+//   TPU's _rpa_kernel_merged keeps in float32. One block per (entry, query
+//   head), EXTEND_QBLK query rows per block and TPR = D / 64 threads per row
+//   (1 at D 64, 2 at D 128): each thread keeps 64 head dims of its row's
+//   query and float32 output in registers, and the TPR partial dot products
+//   of a score are summed with __shfl_xor_sync among the row's lanes. A
+//   thread's dims are float4 chunks j * TPR + part, so the lanes of a row
+//   read neighbouring 16-byte words of a K or V row. KV tiles of 32
+//   positions go through shared memory as float32, every row reading each K
+//   and V row as a broadcast; the next tile's loads are issued into
+//   registers before the current one is computed.
+//
+// Both walk [lo, min(kv_len, the block's last row's position + 1)), lo
+// from the window. A block writes ONLY the rows its entry owns (n_rows =
+// min(q_len - qofs, EXTEND_QBLK); the TPU kernels wrote their whole block
+// and relied on grid order for the next sequence to overwrite the overrun;
+// blocks here run in parallel), the tensor-core kernel only its own heads;
+// padding entries (block_seq == -1) write nothing, and a row that saw no
+// position writes 0.
+#include <type_traits>
+
 #include "rpa_common.cuh"
 
 #ifndef EXTEND_QBLK
 #error "EXTEND_QBLK must be defined by the build (EXTEND_Q_BLOCK)"
 #endif
 
+
 namespace rpa {
+
+// ------------------------------------------------------------------------
+// The CUDA-core kernel (float32 q; every pair of the merged build).
 
 constexpr int EXT_DPT = 64;  // head dims per thread
 constexpr int EXT_TK = 32;   // KV positions per tile
@@ -222,6 +279,376 @@ static int launch_extend(const void* q, const void* k_pool, const void* v_pool, 
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------
+// The tensor-core kernel (bf16 q).
+
+constexpr int MMA_NT = 128;   // 4 warps
+constexpr int MMA_ROWS = 64;  // packed rows per block: one m16 tile per warp
+constexpr int MMA_TK = 64;    // KV positions per tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <typename TKV, int D>
+struct MmaLayout {
+  static constexpr bool WIDEN = sizeof(TKV) == 1;  // fp8 KV: widened on the way in
+  static constexpr int LD = D + 8;                 // bf16 row stride of every tile
+  static constexpr int TILE = MMA_TK * LD;         // elements of one K or V tile
+  static constexpr int BF16_BYTES = 2 * TILE * 2;  // a K and a V tile in bf16
+  // bf16 tiles: three stages of bf16 KV (cp.async), two of widened fp8 KV
+  static constexpr int NBF = WIDEN ? 2 : 3;
+  static constexpr int SMEM = NBF * BF16_BYTES;
+  static constexpr int VE = 16 / (int)sizeof(TKV);    // KV elements per 16-byte vector
+  static constexpr int VPR = D / VE;                  // vectors per K or V row
+  static constexpr int NV = MMA_TK * VPR / MMA_NT;    // of K (and of V) per thread
+  static_assert(D % 16 == 0 && MMA_NT % VPR == 0 && (MMA_TK * VPR) % MMA_NT == 0,
+                "tile shape");
+  static_assert(MMA_ROWS * LD * 2 <= BF16_BYTES, "Q and O staging");
+};
+
+template <typename TKV, int D>
+__global__ void __launch_bounds__(MMA_NT, D <= 64 ? 4 : 2)
+rpa_extend_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
+                      const TKV* __restrict__ k_pool,       // K of this layer at slot 0
+                      const TKV* __restrict__ v_pool,       // V of this layer at slot 0
+                      const int* __restrict__ page_table,   // [B, maxP]
+                      const int* __restrict__ kv_lens,      // [B]
+                      const int* __restrict__ q_lens,       // [B]
+                      const int* __restrict__ q_start,      // [B]
+                      const int* __restrict__ block_seq,    // [NQB], -1 = padding
+                      const int* __restrict__ block_row,    // [NQB]
+                      const int* __restrict__ block_qofs,   // [NQB]
+                      __nv_bfloat16* __restrict__ out,      // [T, Hq, D]
+                      int Hq, int Hkv, int row_stride, int maxP, int page_size,
+                      float scale, float cap, int window) {
+  using bf16 = __nv_bfloat16;
+  using Lay = MmaLayout<TKV, D>;
+  constexpr int LD = Lay::LD, TK = MMA_TK, KS = D / 16, QV = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int slice = blockIdx.x, h = blockIdx.y, i = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = block_seq[i];
+  if (b < 0) return;  // padding entry: writes nothing
+  const int G = Hq / Hkv;
+  const int qofs = block_qofs[i];
+  const int n_rows = min(q_lens[b] - qofs, EXTEND_QBLK);
+  const int m_lo = slice * MMA_ROWS;  // the block's first packed row
+  if (m_lo / G >= n_rows) return;     // none of the entry's rows is here
+  const int row0 = block_row[i];
+  const int q_abs_lo = q_start[b] + qofs;
+  const int r_hi = min((m_lo + MMA_ROWS - 1) / G, n_rows - 1);
+  const int limit = min(min(kv_lens[b], q_abs_lo + r_hi + 1), maxP * page_size);
+  const int lo = window > 0 ? max(q_abs_lo + m_lo / G - window + 1, 0) : 0;
+  const int ntiles = limit > lo ? (limit - lo + TK - 1) / TK : 0;
+
+  // bf16 tile s (K, then V) at tiles + s * 2 TILE. Q is staged in the last
+  // one, which nothing refills before every warp has passed the first
+  // tile's barrier.
+  bf16* tiles = reinterpret_cast<bf16*>(smem);
+  bf16* sQ = tiles + (Lay::NBF - 1) * 2 * Lay::TILE;
+
+  // Q of the block's packed rows -> shared memory (zeros past n_rows)
+#pragma unroll
+  for (int k = 0; k < MMA_ROWS * QV / MMA_NT; ++k) {
+    const int v = tid + k * MMA_NT, m = v / QV, c = v % QV;
+    const int pm = m_lo + m, r = pm / G, g = pm - r * G;
+    bf16* dst = sQ + m * LD + c * 8;
+    if (r < n_rows)
+      cp_async16(dst, q + ((int64_t)(row0 + r) * Hq + h * G + g) * D + c * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  cp_async_commit();
+
+  // This thread's KV vectors of a tile: chunk vc of the rows vt0 + k VSTEP,
+  // of K and of V (neighbouring threads copy neighbouring 16 bytes of a row).
+  const int* pt_row = page_table + (int64_t)b * maxP;
+  const TKV* kb = k_pool + (int64_t)h * D;
+  const int64_t v_off = v_pool - k_pool;
+  const int pshift = (page_size & (page_size - 1)) ? -1 : __ffs(page_size) - 1;
+  constexpr int VSTEP = MMA_NT / Lay::VPR;
+  const int vc = tid % Lay::VPR, vt0 = tid / Lay::VPR;
+  // the source of this thread's k-th vector of tile t; ok is false past
+  // the walk's end, where nothing is read
+  auto source = [&](int t, int k, bool& ok) -> const TKV* {
+    const int pos = lo + t * TK + vt0 + k * VSTEP;
+    ok = pos < limit;
+    if (!ok) return kb;
+    const int page = pshift >= 0 ? pos >> pshift : pos / page_size;
+    return kb + ((int64_t)pt_row[page] * page_size + (pos - page * page_size)) * row_stride +
+           vc * Lay::VE;
+  };
+  // bf16 KV: copies tile t into stage s (zeros past the walk's end; nothing
+  // past the last tile) and commits a group either way, so that every wait
+  // counts the same groups
+  auto issue = [&](int t, int s) {
+    if constexpr (!Lay::WIDEN) {
+      if (t < ntiles) {
+#pragma unroll 1  // unrolled, the D 64 build spills at 4 blocks per SM
+        for (int k = 0; k < Lay::NV; ++k) {
+          bool ok;
+          const TKV* src = source(t, k, ok);
+          bf16* dk = tiles + s * 2 * Lay::TILE + (vt0 + k * VSTEP) * LD + vc * 8;
+          cp_async16_zfill(dk, src, ok);
+          cp_async16_zfill(dk + Lay::TILE, src + v_off, ok);
+        }
+      }
+      cp_async_commit();
+    }
+  };
+  // fp8 KV: fetch() loads tile t into registers (zeros past the walk's end),
+  // put() widens them to bf16 into tile s
+  uint4 rk[Lay::WIDEN ? Lay::NV : 1], rv[Lay::WIDEN ? Lay::NV : 1];
+  auto fetch = [&](int t) {
+    if constexpr (Lay::WIDEN) {
+#pragma unroll
+      for (int k = 0; k < Lay::NV; ++k) {
+        bool ok;
+        const TKV* src = source(t, k, ok);
+        rk[k] = rv[k] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok) {  // never past the last tile: its positions are past the walk's end
+          rk[k] = __ldg(reinterpret_cast<const uint4*>(src));
+          rv[k] = __ldg(reinterpret_cast<const uint4*>(src + v_off));
+        }
+      }
+    }
+  };
+  auto put = [&](int s) {
+    if constexpr (Lay::WIDEN) {
+#pragma unroll
+      for (int k = 0; k < Lay::NV; ++k) {
+        uint4* dk = reinterpret_cast<uint4*>(tiles + s * 2 * Lay::TILE +
+                                             (vt0 + k * VSTEP) * LD + vc * 16);
+        uint4* dv = dk + Lay::TILE / 8;
+        widen_bf16<TKV>(rk[k], dk[0], dk[1]);
+        widen_bf16<TKV>(rv[k], dv[0], dv[1]);
+      }
+    }
+  };
+
+  if constexpr (Lay::WIDEN) {
+    fetch(0);
+    put(0);
+    fetch(1);
+    cp_async_wait<0>();  // Q has landed
+  } else {
+    issue(0, 0);
+    issue(1, 1);
+    cp_async_wait<2>();  // Q has landed
+  }
+  __syncthreads();
+  // ldmatrix addresses: 32-bit shared addresses, each lane's row and
+  // column offset in bytes (A: rows of matrices 1 and 3 are 8 further down;
+  // B of S = Q K^T: matrices 2 and 3 are positions 8-15 of a pair of n8
+  // tiles, 1 and 3 the upper 8 dims; V by .trans: matrices 1 and 3 are
+  // positions 8-15, 2 and 3 the next 8 dims)
+  const uint32_t s_tiles = static_cast<uint32_t>(__cvta_generic_to_shared(tiles));
+  const int l7 = lane & 7, l8 = ((lane >> 3) & 1) * 8, l16 = ((lane >> 4) & 1) * 8;
+  const uint32_t a_lane = ((l7 + l8) * LD + l16) * 2;
+  const uint32_t k_lane = ((l7 + l16) * LD + l8) * 2;
+  const uint32_t v_lane = a_lane;
+  uint32_t qa[KS][4];  // the warp's A fragments of Q
+  {
+    const uint32_t p = s_tiles + (Lay::NBF - 1) * Lay::BF16_BYTES + warp * 16 * LD * 2 + a_lane;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qa[ks], p + ks * 32);
+  }
+
+  // this lane's two packed rows (C-fragment rows gid and gid + 8)
+  const int gid = lane >> 2, tig = lane & 3;
+  int qpos[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) qpos[j] = q_abs_lo + (m_lo + warp * 16 + gid + 8 * j) / G;
+  // the warp's query rows that the entry owns: positions wq_lo .. wq_hi
+  const int wr_lo = (m_lo + warp * 16) / G;
+  const bool warp_live = wr_lo < n_rows;
+  const int wq_lo = q_abs_lo + wr_lo;
+  const int wq_hi = q_abs_lo + min((m_lo + warp * 16 + 15) / G, n_rows - 1);
+  // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
+  const bool capped = cap > 0.f;
+  const float c = capped ? LOG2E : scale * LOG2E;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.f, 0.f};
+
+  // One barrier per tile: it makes tile t (in bf16 tile s) visible and
+  // tells every thread that the block is done with tile t - 1. bf16 KV then
+  // copies tile t + 2 into tile t - 1's stage, and has two tiles in flight
+  // while it computes; fp8 KV, after computing, widens tile t + 1 (in its
+  // registers since tile t - 1) into tile t - 1's bf16 tile and loads tile
+  // t + 2 into its registers.
+  for (int t = 0, s = 0; t < ntiles; ++t, s = s + 1 == Lay::NBF ? 0 : s + 1) {
+    const int st = lo + t * TK;
+    if constexpr (!Lay::WIDEN) cp_async_wait<1>();  // tile t has landed (this thread's copies)
+    __syncthreads();
+    issue(t + 2, s == 0 ? Lay::NBF - 1 : s - 1);
+    const uint32_t sK = s_tiles + s * Lay::BF16_BYTES, sV = sK + Lay::TILE * 2;
+    const bool skip = !warp_live || st > wq_hi || (window > 0 && st + TK - 1 <= wq_lo - window);
+    if (!skip) {
+      const bool masked = st + TK > limit || st + TK - 1 > wq_lo ||
+                          (window > 0 && st <= wq_hi - window);
+      // S = Q K^T: 8 n8 tiles of 8 positions
+      float sc[TK / 8][4];
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int np = 0; np < TK / 16; ++np) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, sK + k_lane + (np * 16 * LD + ks * 16) * 2);
+          mma_bf16_16816(sc[2 * np], qa[ks], kf[0], kf[1]);
+          mma_bf16_16816(sc[2 * np + 1], qa[ks], kf[2], kf[3]);
+        }
+      }
+      // softcap, mask and the row max (over the 4 lanes of a quad)
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = e >> 1;
+          float v = sc[j][e];
+          if (capped) v = cap * tanhf(v * scale / cap);
+          if (masked) {
+            const int pos = st + j * 8 + 2 * tig + (e & 1);
+            const bool ok = pos < limit && pos <= qpos[rr] &&
+                            (window <= 0 || pos > qpos[rr] - window);
+            v = ok ? v : NEG_INF;
+          }
+          sc[j][e] = v;
+          mx[rr] = fmaxf(mx[rr], v);
+        }
+      }
+      float corr[2], mc[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        const float m_new = fmaxf(mrow[rr], mx[rr]);
+        corr[rr] = fast_exp2((mrow[rr] - m_new) * c);
+        mrow[rr] = m_new;
+        // a row with nothing valid yet keeps m at NEG_INF: p = 2^(NEG_INF c) = 0
+        mc[rr] = (m_new == NEG_INF ? 0.f : m_new) * c;
+      }
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2(fmaf(sc[j][e], c, -mc[e >> 1]));
+          psum[e >> 1] += p;
+          sc[j][e] = p;
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) lrow[rr] = lrow[rr] * corr[rr] + psum[rr];
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d) {
+        o[d][0] *= corr[0];
+        o[d][1] *= corr[0];
+        o[d][2] *= corr[1];
+        o[d][3] *= corr[1];
+      }
+      // O += P V: P from the S accumulators, rounded to bf16, as A
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                                pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                                pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                                pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, sV + v_lane + (kk * 16 * LD + dp * 16) * 2);
+          mma_bf16_16816(o[2 * dp], pa, vf[0], vf[1]);
+          mma_bf16_16816(o[2 * dp + 1], pa, vf[2], vf[3]);
+        }
+      }
+    }
+    if constexpr (Lay::WIDEN) {
+      if (t + 1 < ntiles) put(s ^ 1);
+      fetch(t + 2);
+    }
+  }
+
+  // Epilogue: O / l (0 for a row that saw no position) staged per warp in
+  // shared memory, then written as 16-byte vectors to the rows the entry owns
+  cp_async_wait<0>();
+  __syncthreads();  // every tile is idle
+  float inv[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = lrow[rr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[rr] = l > 0.f ? 1.f / l : 0.f;
+  }
+  bf16* sO = tiles + warp * 16 * LD;
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) {
+    *reinterpret_cast<uint32_t*>(sO + gid * LD + d * 8 + 2 * tig) =
+        pack_bf16(o[d][0] * inv[0], o[d][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(sO + (gid + 8) * LD + d * 8 + 2 * tig) =
+        pack_bf16(o[d][2] * inv[1], o[d][3] * inv[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 16 * QV / 32; ++k) {
+    const int v = lane + k * 32, m = v / QV, cc = v % QV;
+    const int pm = m_lo + warp * 16 + m, r = pm / G, g = pm - r * G;
+    if (r < n_rows)
+      *reinterpret_cast<uint4*>(out + ((int64_t)(row0 + r) * Hq + h * G + g) * D + cc * 8) =
+          *reinterpret_cast<const uint4*>(sO + m * LD + cc * 8);
+  }
+}
+
+template <typename TKV, int D>
+static int launch_extend_mma(const void* q, const void* k_pool, const void* v_pool,
+                             const void* pt, const void* kv_lens, const void* q_lens,
+                             const void* q_start, const void* block_seq, const void* block_row,
+                             const void* block_qofs, void* out, int NQB, int Hq, int Hkv,
+                             int row_stride, int maxP, int page_size, float scale, float cap,
+                             int window, cudaStream_t stream) {
+  using Lay = MmaLayout<TKV, D>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      rpa_extend_mma_kernel<TKV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const int G = Hq / Hkv;
+  const dim3 grid((EXTEND_QBLK * G + MMA_ROWS - 1) / MMA_ROWS, Hkv, NQB);
+  rpa_extend_mma_kernel<TKV, D><<<grid, MMA_NT, Lay::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k_pool),
+      static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
+      static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
+      static_cast<const int*>(q_start), static_cast<const int*>(block_seq),
+      static_cast<const int*>(block_row), static_cast<const int*>(block_qofs),
+      static_cast<__nv_bfloat16*>(out), Hq, Hkv, row_stride, maxP, page_size, scale, cap,
+      window);
+  return (int)cudaGetLastError();
+}
+
+// The tensor cores for bf16 q, except in the merged build (P in float32);
+// the CUDA-core kernel otherwise.
+template <typename TQ, typename TKV, int D>
+static int launch(const void* q, const void* k_pool, const void* v_pool, const void* pt,
+                  const void* kv_lens, const void* q_lens, const void* q_start,
+                  const void* block_seq, const void* block_row, const void* block_qofs,
+                  void* out, int NQB, int Hq, int Hkv, int row_stride, int maxP,
+                  int page_size, float scale, float cap, int window, cudaStream_t stream) {
+#ifdef RPA_P_F32
+  constexpr bool tensor_cores = false;
+#else
+  constexpr bool tensor_cores = std::is_same<TQ, __nv_bfloat16>::value;
+#endif
+  if constexpr (tensor_cores)
+    return launch_extend_mma<TKV, D>(q, k_pool, v_pool, pt, kv_lens, q_lens, q_start,
+                                     block_seq, block_row, block_qofs, out, NQB, Hq, Hkv,
+                                     row_stride, maxP, page_size, scale, cap, window, stream);
+  else
+    return launch_extend<TQ, TKV, D>(q, k_pool, v_pool, pt, kv_lens, q_lens, q_start,
+                                     block_seq, block_row, block_qofs, out, NQB, Hq, Hkv,
+                                     row_stride, maxP, page_size, scale, cap, window, stream);
+}
+
 }  // namespace rpa
 
 // C entry point (bound with ctypes by ops/attention/ragged_paged_attention.py).
@@ -244,10 +671,10 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RPA_EXT(QC, TQ, KC, TKV)                                                             \
   if (q_type == QC && kv_type == KC)                                                         \
-    return launch_extend<TQ, TKV, RPA_HEAD_DIM>(q, k_pool, v_pool, page_table, kv_lens,      \
-                                                q_lens, q_start, block_seq, block_row,       \
-                                                block_qofs, out, NQB, Hq, Hkv, row_stride,   \
-                                                maxP, page_size, scale, cap, window, s);
+    return launch<TQ, TKV, RPA_HEAD_DIM>(q, k_pool, v_pool, page_table, kv_lens, q_lens,     \
+                                         q_start, block_seq, block_row, block_qofs, out, NQB, \
+                                         Hq, Hkv, row_stride, maxP, page_size, scale, cap,    \
+                                         window, s);
   RPA_FOR_EACH_PAIR(RPA_EXT)
 #undef RPA_EXT
   return (int)cudaErrorInvalidValue;

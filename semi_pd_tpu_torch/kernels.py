@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,6 +43,25 @@ def find_nvcc() -> str:
     raise RuntimeError(
         "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
         "semi_pd_tpu_torch are built from source at first use")
+
+
+def sass_mma_counts(kernel: "CudaKernel") -> Dict[str, int]:
+    """Tensor-core instructions (HMMA from mma.sync, HGMMA from wgmma) in
+    each function of the kernel's built library, by mangled name, read
+    from ``cuobjdump -sass`` (the CUDA toolkit's, beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(kernel.lib_path())], capture_output=True,
+                          text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHG?MMA\.", line):
+            counts[fn] += 1
+    return counts
 
 
 class CudaKernel:

@@ -1,6 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version (the streaming decodes also against themselves, bitwise, on a
-second run), the CUDA MoE path (torch._grouped_mm) against its plain loop,
+version (the streaming decodes and the tensor-core extend also against
+themselves, bitwise, on a second run; the tensor-core extend with 1, 2, 4
+and 8 query heads per KV head, and its libraries disassembled for HMMA
+instructions), the CUDA MoE path (torch._grouped_mm) against its plain loop,
 and the Engine on its default CUDA device against the same Engine on the
 CPU (Llama on the chunked, the aligned and the merged 5D pool at head_dim
 64, with and without the streaming decode; DeepSeek-V2 on the latent
@@ -35,7 +37,6 @@ from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, build_attn_meta
 from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
 HQ, HKV, D, PS, L = 8, 2, 64, 16, 2
-CT = 2 * HKV * D // 128
 D_ALIGNED = 128
 # the latent pool's kernels: DeepSeek-V2's latent row (512 + 64), V = 512
 HQ_MLA, DLAT, V_DIM = 16, 576, 512
@@ -59,10 +60,11 @@ def _unaligned(a: np.ndarray, dev) -> torch.Tensor:
 
 
 def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
-          kv_dtype=None, latent=False, merged=False):
+          kv_dtype=None, latent=False, merged=False, hq=HQ, hkv=HKV):
     """Queries, a pool (chunked [L, S, CT, 128], aligned [L, 2, S, Hkv,
     128], merged [L, 2, S, Hkv, 64] or latent [L, 1, S, 1, 576], in
-    ``kv_dtype``, default ``dtype``) and a shuffled page table."""
+    ``kv_dtype``, default ``dtype``; ``hq`` query and ``hkv`` KV heads
+    outside the latent pool) and a shuffled page table."""
     rng = np.random.default_rng(seed)
     B = len(kv_lens) + pad_B
     n_pages = [-(-k // PS) for k in kv_lens]
@@ -78,10 +80,10 @@ def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
     ql[: len(q_lens)] = q_lens
     kl = np.zeros(B, np.int32)
     kl[: len(kv_lens)] = kv_lens
-    d, hq = D_ALIGNED if aligned else D, HQ
-    shape = (L, 2, total * PS, HKV, d) if aligned else (L, total * PS, CT, 128)
+    d = D_ALIGNED if aligned else D
+    shape = (L, 2, total * PS, hkv, d) if aligned else (L, total * PS, 2 * hkv * D // 128, 128)
     if merged:
-        shape = (L, 2, total * PS, HKV, D)
+        shape = (L, 2, total * PS, hkv, D)
     scale = 1.0
     if latent:
         d, hq, shape = DLAT, HQ_MLA, (L, 1, total * PS, 1, DLAT)
@@ -219,6 +221,91 @@ def test_merged_kernel_matches_plain(cuda_device, kind, dtype, opt):
     assert k.launches == before + 1
     tol = 1e-4 if dt == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# The tensor-core extend (bf16 q): the G = Hq / Hkv query heads of a KV head
+# are packed into the rows of its m16 tiles. Hkv for each G at Hq 8.
+GROUPS = {1: 8, 2: 4, 4: 2, 8: 1}
+MMA_POOLS = {  # pool: (case options, kernel, head_dim, KV dtypes under bf16 q)
+    "chunked": ({}, "rpa_extend", D, ["bfloat16"]),
+    "aligned": ({"aligned": True}, "rpa_extend_aligned", D_ALIGNED,
+                ["bfloat16", "fp8_e4m3", "fp8_e5m2"]),
+}
+MMA_CASES = [(pool, kv) for pool, spec in MMA_POOLS.items() for kv in spec[3]]
+MMA_IDS = [f"{pool}-{kv}" for pool, kv in MMA_CASES]
+MMA_Q_LENS = [140, 20, 1, 7, 300]  # rows of the real requests; 9 padding rows follow
+
+
+def _mma_extend(dev, pool, kv, G, opt="plain"):
+    """The tensor-core extend's inputs on layer 1 of the pool, with q_lens
+    that are no multiple of 16 and span several 128-row entries, kv_lens
+    that are no multiple of 64, and bucket padding (9 rows, one batch
+    row); returns (inputs, kernel call, plain call, kernel name)."""
+    extra, name, width, _ = MMA_POOLS[pool]
+    bf = torch.bfloat16
+    q, kv_t, pt, kvl, meta = _case(11, MMA_Q_LENS, [203, 83, 1, 70, 365], dev, bf, pad_T=9,
+                                   pad_B=1, kv_dtype=FP8.get(kv, bf), hkv=GROUPS[G], **extra)
+    kw = _opts(opt, width ** -0.5)
+    if pool == "chunked":
+        kw.update(num_kv_heads=GROUPS[G], head_dim=D)
+        kern, plain = rpa.ragged_paged_attention_chunked_extend, rpa.extend_attention_plain
+    else:
+        kern = rpa.ragged_paged_attention_extend
+        plain = rpa.ragged_paged_attention_extend_plain
+    args = (q, kv_t, 1, pt, kvl, meta)
+    return q, (lambda: kern(*args, **kw)), (lambda: plain(*args, **kw)), name
+
+
+@pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
+@pytest.mark.parametrize("G", sorted(GROUPS))
+@pytest.mark.parametrize("pool,kv", MMA_CASES, ids=MMA_IDS)
+def test_extend_tensor_cores_match_plain(cuda_device, pool, kv, G, opt):
+    """The chunked and the aligned extend with bf16 q (the tensor-core
+    kernel; bf16, fp8 e4m3 and e5m2 KV) against their plain versions, with
+    1, 2, 4 and 8 query heads per KV head."""
+    _, kern, plain, name = _mma_extend(cuda_device, pool, kv, G, opt)
+    k = KERNELS[name]
+    before = k.launches
+    out = kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("pool,kv", MMA_CASES, ids=MMA_IDS)
+def test_extend_tensor_cores_repeat_bitwise(cuda_device, pool, kv):
+    """Two calls on the same inputs give bitwise equal outputs: each block
+    walks its tiles in a fixed order and nothing is summed with atomics."""
+    _, kern, _, _ = _mma_extend(cuda_device, pool, kv, 4)
+    first = kern()
+    assert torch.equal(kern(), first)
+
+
+@pytest.mark.parametrize("pool,kv", MMA_CASES, ids=MMA_IDS)
+def test_extend_tensor_cores_leave_unowned_rows_zero(cuda_device, pool, kv):
+    """The bucket-padding rows, which no work-list entry owns, stay 0,
+    while every owned row is written (none of them is 0 here)."""
+    q, kern, _, _ = _mma_extend(cuda_device, pool, kv, 4)
+    out = kern()
+    T = sum(MMA_Q_LENS)
+    assert out.shape == q.shape and not out[T:].any()
+    assert out[:T].abs().amax(dim=(1, 2)).gt(0).all()
+
+
+def test_extend_builds_run_on_the_tensor_cores(cuda_device):
+    """The disassembled libraries: every bf16-q instantiation of the
+    chunked and the aligned extend runs HMMA instructions; their float32
+    pair and the merged build (P in float32) stay on the CUDA cores."""
+    from semi_pd_tpu_torch.kernels import sass_mma_counts
+
+    expect = {"rpa_extend": 1, "rpa_extend_aligned": 3, "rpa_extend_merged": 0}
+    for name, n_mma in expect.items():
+        KERNELS[name].fn()
+        counts = sass_mma_counts(KERNELS[name])
+        mma = [n for f, n in counts.items() if "rpa_extend_mma_kernel" in f]
+        assert len(mma) == n_mma and all(mma), (name, counts)
+        assert not any(n for f, n in counts.items() if "rpa_extend_kernel" in f), counts
 
 
 STREAM_POOLS = {  # pool: (case options, kernel, head_dim, the build's type pairs)

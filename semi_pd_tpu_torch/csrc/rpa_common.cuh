@@ -2,8 +2,8 @@
 // rpa_extend.cu, rpa_stream.cu): element conversion, the (q, KV) type pairs
 // and head_dim each build instantiates, the staging of one KV tile of any
 // pool, into registers or, for the streaming decode, through a ring of
-// cp.async copies in shared memory, and the PTX of the extend's tensor-core
-// kernel (cp.async with zero fill, ldmatrix, mma.sync).
+// cp.async copies in shared memory, and the PTX of the tensor-core kernels
+// (cp.async with zero fill, ldmatrix, mma.sync, the bf16 split of P).
 //
 // The pools are addressed through two base pointers and one row stride:
 // K of slot s and head h sits at k_pool + s * row_stride + h * D, V at
@@ -75,14 +75,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// P is rounded to q's type before P.V, as the TPU kernels do: they upcast
-// K and V to q's dtype (fp8 KV too) and cast p to that dtype for the MXU
-// dot. A no-op for float32. Builds with -DRPA_P_F32 keep P in float32, as
-// the TPU kernels that upcast q, K and V to float32 do (_rpa_kernel_merged,
-// and _rpa_kernel_stream's MLA branch).
+// P is rounded to q's type before P.V, as the GQA branches of the TPU
+// kernels do: they upcast K and V to q's dtype (fp8 KV too) and cast p to
+// that dtype for the MXU dot. A no-op for float32. Builds with -DRPA_P_F32
+// keep P in float32, as the TPU kernels that upcast q, K and V to float32
+// do: _rpa_kernel_merged, and the MLA branches of _rpa_kernel,
+// _rpa_kernel_packed and _rpa_kernel_stream (every MLA build, and the
+// merged builds).
+// P_F32_BUILD also sends the bf16-q pairs of such a build to tensor-core
+// kernels that split P into two bf16 parts (split_bf16 below).
 #ifdef RPA_P_F32
+constexpr bool P_F32_BUILD = true;
 template <typename TQ> __device__ __forceinline__ float round_p(float p) { return p; }
 #else
+constexpr bool P_F32_BUILD = false;
 template <typename TQ> __device__ __forceinline__ float round_p(float p) {
   return to_f(from_f<TQ>(p));
 }
@@ -127,6 +133,18 @@ template <> __device__ __forceinline__ void unpack<__nv_fp8_e5m2>(const uint4& v
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats x -> their bf16 parts hi = bf16(x) and lo = bf16(x - hi),
+// each packed as pack_bf16 packs them (x - hi is exact in float32). hi + lo
+// is x to within 2^-18 |x|, so the two bf16 products hi.V + lo.V, summed in
+// float32, give P.V with P kept in float32 (the -DRPA_P_F32 builds on the
+// tensor cores), about 500 times below the bf16 step of the output.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
 // 16 fp8 values -> 16 bf16 (two 16-byte vectors), exactly: every e4m3 and
@@ -195,11 +213,11 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, b
                : "memory");
 }
 
-// Tensor-core pieces of the extend kernel (rpa_extend.cu). ldmatrix: four
-// 8x8 b16 matrices from shared memory (32-bit shared address s), lanes
-// 8j .. 8j + 7 giving the row addresses of matrix j; thread l receives row
-// l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of each (of its transpose with
-// .trans).
+// Tensor-core pieces of the extend kernel (rpa_extend.cu) and of the
+// merged decode (rpa_decode.cu). ldmatrix: four 8x8 b16 matrices from
+// shared memory (32-bit shared address s), lanes 8j .. 8j + 7 giving the
+// row addresses of matrix j; thread l receives row l / 4, columns 2 (l % 4)
+// and 2 (l % 4) + 1 of each (of its transpose with .trans).
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t s) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])

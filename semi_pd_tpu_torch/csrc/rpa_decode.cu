@@ -16,7 +16,7 @@
 //     to float32 and keeps P in float32, so this build does not round P.
 // One query row per request, GQA with G = Hq / Hkv query heads per KV head,
 // float32 online softmax, optional logit softcap and sliding window. fp8 KV
-// is widened to float32 exactly, as the TPU kernels upcast it to q's dtype.
+// is widened exactly, as the TPU kernels upcast it to q's dtype.
 //
 // Bound on this card: bytes. Each call reads every live KV row once,
 // B * kv_len * 2 * Hkv * D * sizeof(KV) bytes, and does only 4 * Hq * D
@@ -24,19 +24,56 @@
 // G = 4, 2 with fp8 KV, far below the ~295 the H100 needs before its
 // tensor cores bind).
 //
-// Design: one block of 128 threads per (request, KV head). The block stages
-// its G query rows in shared memory once, then walks the request's pages
-// through the page table in tiles of 4096 / D positions (64 at D 64, 32 at
-// D 128, so the float32 K and V tiles stay at ~34 KB of shared memory for
-// both): each thread issues the 16-byte loads of its share of the NEXT tile
-// into registers before the block computes on the current one (a two-deep
-// pipeline without cp.async), so a KV byte is read once and the load
-// latency overlaps the score / softmax / P.V work (rpa_decode.cuh).
+// Two kernels; the entry point picks one by q's type and the build, never
+// at run time otherwise: rpa_decode_kernel (below) for every pair of the
+// chunked and the aligned build and for the merged build's float32 pair,
+// and rpa_decode_mma_kernel (after it) for the merged build's bf16-q
+// pairs.
+//
+// rpa_decode_kernel: one block of 128 threads per (request, KV head). The
+// block stages its G query rows in shared memory once, then walks the
+// request's pages through the page table in tiles of 4096 / D positions
+// (64 at D 64, 32 at D 128, so the float32 K and V tiles stay at ~34 KB of
+// shared memory for both): each thread issues the 16-byte loads of its
+// share of the NEXT tile into registers before the block computes on the
+// current one (a two-deep pipeline without cp.async), so a KV byte is read
+// once and the load latency overlaps the score / softmax / P.V work
+// (rpa_decode.cuh).
 // Positions at or past kv_len are never read (the TPU kernels gathered
 // whole sections and relied on the dump page being finite); rows with
 // kv_len == 0 write zeros.
-// Split-KV across blocks, TMA and wgmma are later work: at B * Hkv blocks
-// the card is filled only when B * Hkv >= 132.
+// Split-KV across blocks, TMA and wgmma are later work for it: at B * Hkv
+// blocks the card is filled only when B * Hkv >= 132.
+//
+// rpa_decode_mma_kernel (the merged build, bf16 q over bf16 or fp8 KV):
+// per-position work on the tensor cores, and a split of each request's
+// positions over warps and blocks (flash-decoding).
+//   - The G <= 16 query heads of a KV head are the rows of one m16 tile
+//     (rows past G are zero and written nowhere). S = Q K^T is mma.sync
+//     m16n8k16 bf16 -> f32 with K fragments by ldmatrix: exact products, so
+//     float32 scores as _rpa_kernel_merged's. O += P V takes P as its two
+//     bf16 parts hi + lo (split_bf16, rpa_common.cuh) in two products
+//     against the same V fragments by ldmatrix.trans, so P stays float32 to
+//     2^-18 (one bf16 rounding of P would leave 2^-9).
+//   - Each warp owns its own run of tiles of SD_TK positions (warp w of a
+//     block takes tiles w, w + 4, ...) with its own online softmax, and its
+//     own ring of bf16 tiles in shared memory: bf16 KV by cp.async, three
+//     stages, two tiles in flight while it computes on the third; fp8 KV
+//     loaded into registers a tile ahead and widened exactly on its way into
+//     one of two bf16 tiles. A warp needs only __syncwarp, never the block.
+//   - Grid (n_split, Hkv, B): the host's split plan (rpa_packed.py
+//     decode_split_plan) cuts [0, maxP * page_size) into n_split ranges of
+//     split_len positions, from the shapes and the SM count only (no
+//     kv_lens on the host), so a small batch still fills the card. A block
+//     merges its four warps' (m, l, O) in shared memory in a fixed order;
+//     with one split it writes the output, else its float32 partial to the
+//     caller's scratch, and rpa_decode_combine_kernel merges the splits in
+//     log-sum-exp form, in split order. No atomics: two calls are bitwise
+//     equal.
+//   Positions outside [lo, kv_len) are zero-filled and never read; a row
+//   with no position (kv_len 0) writes zeros.
+#include <type_traits>
+
 #include "rpa_decode.cuh"
 
 namespace rpa {
@@ -89,6 +126,373 @@ rpa_decode_kernel(const TQ* __restrict__ q,            // [B, Hq, D]
   decode_end<TQ, D>(s, acc, o, G, tid);
 }
 
+// ------------------------------------------------------------------------
+// The merged build's tensor-core decode (bf16 q).
+
+constexpr int SD_NT = 128;  // 4 warps
+constexpr int SD_WARPS = SD_NT / 32;
+constexpr int SD_TK = 32;  // KV positions per warp tile
+constexpr int SD_STEP = SD_WARPS * SD_TK;  // split_len must be a multiple of this
+constexpr float SD_LOG2E = 1.4426950408889634f;
+
+template <typename TKV, int D>
+struct SdLayout {
+  static constexpr bool WIDEN = sizeof(TKV) == 1;  // fp8 KV: widened on the way in
+  static constexpr int LD = D + 8;                 // bf16 row stride: no ldmatrix conflicts
+  static constexpr int TILE = SD_TK * LD;          // elements of one K or V tile
+  static constexpr int STAGE_BYTES = 2 * TILE * 2;  // a K and a V tile in bf16
+  static constexpr int NST = WIDEN ? 2 : 3;         // bf16 tiles per warp
+  static constexpr int SMEM = SD_WARPS * NST * STAGE_BYTES;
+  static constexpr int VE = 16 / (int)sizeof(TKV);  // KV elements per 16-byte vector
+  static constexpr int VPR = D / VE;                // vectors per K or V row
+  static constexpr int NV = SD_TK * VPR / 32;       // of K (and of V) per lane
+  static constexpr int VSTEP = 32 / VPR;            // rows between a lane's vectors
+  static_assert(D % 16 == 0 && 32 % VPR == 0 && (SD_TK * VPR) % 32 == 0, "tile shape");
+  // the block's merge: each warp's 16 rows of O and (m, l)
+  static_assert(SD_WARPS * 16 * (D + 2) * 4 <= SMEM, "merge staging");
+};
+
+template <typename TKV, int D>
+__global__ void __launch_bounds__(SD_NT)
+rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
+                      const TKV* __restrict__ k_pool,       // K of this layer at slot 0
+                      const TKV* __restrict__ v_pool,       // V of this layer at slot 0
+                      const int* __restrict__ page_table,   // [B, maxP]
+                      const int* __restrict__ kv_lens,      // [B]
+                      __nv_bfloat16* __restrict__ out,      // [B, Hq, D]
+                      float* __restrict__ part,  // n_split > 1: O [n_split, B, Hq, D], ML [..., 2]
+                      int Hq, int Hkv, int row_stride, int maxP, int page_size, float scale,
+                      float cap, int window, int split_len) {
+  using bf16 = __nv_bfloat16;
+  using Lay = SdLayout<TKV, D>;
+  constexpr int LD = Lay::LD, TK = SD_TK, KS = D / 16;
+  extern __shared__ __align__(16) unsigned char sd_smem[];  // not rpa_decode_kernel's smem
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x, B = gridDim.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = Hq / Hkv;
+
+  const int kv_len = kv_lens[b];
+  const int limit = min(kv_len, maxP * page_size);
+  // the query sits at kv_len - 1 and sees positions > kv_len - 1 - window
+  const int lo = window > 0 ? max(kv_len - window, 0) : 0;
+  const int s0 = split * split_len;
+  const int s1 = min(s0 + split_len, limit);  // this block's positions: [max(s0, lo), s1)
+  const int first = max(s0, (lo / TK) * TK);  // tiles start at multiples of TK
+  const int ntiles = s1 > first ? (s1 - first + TK - 1) / TK : 0;
+  const int nw = ntiles > warp ? (ntiles - warp + SD_WARPS - 1) / SD_WARPS : 0;  // this warp's
+
+  // this warp's A fragments of Q: row g of the m16 tile is query head h G + g
+  const int gid = lane >> 2, tig = lane & 3;
+  const bf16* qb = q + ((int64_t)b * Hq + (int64_t)h * G) * D;
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = gid + 8 * (e & 1), c = ks * 16 + 8 * (e >> 1) + 2 * tig;
+      qa[ks][e] = r < G ? *reinterpret_cast<const uint32_t*>(qb + r * D + c) : 0u;
+    }
+
+  // this warp's bf16 tiles (stage s: K, then V)
+  bf16* wt = reinterpret_cast<bf16*>(sd_smem) + warp * Lay::NST * 2 * Lay::TILE;
+  const int* pt_row = page_table + (int64_t)b * maxP;
+  const TKV* kb = k_pool + (int64_t)h * D;
+  const int64_t v_off = v_pool - k_pool;
+  const int pshift = (page_size & (page_size - 1)) ? -1 : __ffs(page_size) - 1;
+  const int vc = lane % Lay::VPR, vt0 = lane / Lay::VPR;
+  // the start of this warp's i-th tile, and the source of this lane's k-th
+  // vector of it; ok is false outside [lo, s1), where nothing is read
+  auto tile_start = [&](int i) { return first + (warp + i * SD_WARPS) * TK; };
+  auto source = [&](int st, int k, bool& ok) -> const TKV* {
+    const int pos = st + vt0 + k * Lay::VSTEP;
+    ok = pos >= lo && pos < s1;
+    if (!ok) return kb;
+    const int page = pshift >= 0 ? pos >> pshift : pos / page_size;
+    return kb + ((int64_t)pt_row[page] * page_size + (pos - page * page_size)) * row_stride +
+           vc * Lay::VE;
+  };
+  // bf16 KV: copies tile i into stage s (zeros outside [lo, s1)) and commits
+  // a group either way, so that every wait counts the same groups
+  auto issue = [&](int i, int s) {
+    if constexpr (!Lay::WIDEN) {
+      if (i < nw) {
+        const int st = tile_start(i);
+#pragma unroll 1  // unrolled, the bf16 build spilled 12 bytes at 128 registers
+        for (int k = 0; k < Lay::NV; ++k) {
+          bool ok;
+          const TKV* src = source(st, k, ok);
+          bf16* dk = wt + s * 2 * Lay::TILE + (vt0 + k * Lay::VSTEP) * LD + vc * 8;
+          cp_async16_zfill(dk, src, ok);
+          cp_async16_zfill(dk + Lay::TILE, src + v_off, ok);
+        }
+      }
+      cp_async_commit();
+    }
+  };
+  // fp8 KV: fetch() loads tile i into registers (zeros outside [lo, s1)),
+  // put() widens them to bf16 into stage s
+  uint4 rk[Lay::WIDEN ? Lay::NV : 1], rv[Lay::WIDEN ? Lay::NV : 1];
+  auto fetch = [&](int i) {
+    if constexpr (Lay::WIDEN) {
+      const int st = tile_start(i);
+#pragma unroll
+      for (int k = 0; k < Lay::NV; ++k) {
+        bool ok;
+        const TKV* src = source(st, k, ok);
+        rk[k] = rv[k] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok && i < nw) {
+          rk[k] = __ldg(reinterpret_cast<const uint4*>(src));
+          rv[k] = __ldg(reinterpret_cast<const uint4*>(src + v_off));
+        }
+      }
+    }
+  };
+  auto put = [&](int s) {
+    if constexpr (Lay::WIDEN) {
+#pragma unroll
+      for (int k = 0; k < Lay::NV; ++k) {
+        uint4* dk = reinterpret_cast<uint4*>(wt + s * 2 * Lay::TILE +
+                                             (vt0 + k * Lay::VSTEP) * LD + vc * 16);
+        uint4* dv = dk + Lay::TILE / 8;
+        widen_bf16<TKV>(rk[k], dk[0], dk[1]);
+        widen_bf16<TKV>(rv[k], dv[0], dv[1]);
+      }
+    }
+  };
+
+  // ldmatrix lane offsets in bytes, as in rpa_extend.cu: K fragments of
+  // S = Q K^T (matrices 2 and 3 are positions 8-15, 1 and 3 the upper 8
+  // dims); V by .trans (matrices 1 and 3 are positions 8-15, 2 and 3 the
+  // next 8 dims)
+  const uint32_t s_w = static_cast<uint32_t>(__cvta_generic_to_shared(wt));
+  const int l7 = lane & 7, l8 = ((lane >> 3) & 1) * 8, l16 = ((lane >> 4) & 1) * 8;
+  const uint32_t k_lane = ((l7 + l16) * LD + l8) * 2;
+  const uint32_t v_lane = ((l7 + l8) * LD + l16) * 2;
+  // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
+  const bool capped = cap > 0.f;
+  const float c = capped ? SD_LOG2E : scale * SD_LOG2E;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.f, 0.f};
+
+  if constexpr (Lay::WIDEN) {
+    fetch(0);
+    put(0);
+    fetch(1);
+  } else {
+    issue(0, 0);
+    issue(1, 1);
+  }
+  // One __syncwarp per tile: it makes tile i visible to the warp and tells
+  // every lane that the warp is done with tile i - 1, whose stage bf16 KV
+  // then refills with tile i + 2; fp8 KV widens tile i + 1 into it after
+  // computing.
+  for (int i = 0, s = 0; i < nw; ++i, s = s + 1 == Lay::NST ? 0 : s + 1) {
+    if constexpr (!Lay::WIDEN) cp_async_wait<1>();  // tile i has landed (this lane's copies)
+    __syncwarp();
+    issue(i + 2, s == 0 ? Lay::NST - 1 : s - 1);
+    const int st = tile_start(i);
+    const uint32_t sK = s_w + s * Lay::STAGE_BYTES, sV = sK + Lay::TILE * 2;
+    // S = Q K^T: TK / 8 n8 tiles of 8 positions
+    float sc[TK / 8][4];
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < TK / 16; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, sK + k_lane + (np * 16 * LD + ks * 16) * 2);
+        mma_bf16_16816(sc[2 * np], qa[ks], kf[0], kf[1]);
+        mma_bf16_16816(sc[2 * np + 1], qa[ks], kf[2], kf[3]);
+      }
+    }
+    // softcap, mask (only a tile that crosses lo or s1) and the row max
+    const bool masked = st < lo || st + TK > s1;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = sc[j][e];
+        if (capped) v = cap * tanhf(v * scale / cap);
+        if (masked) {
+          const int pos = st + j * 8 + 2 * tig + (e & 1);
+          v = (pos >= lo && pos < s1) ? v : NEG_INF;
+        }
+        sc[j][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    }
+    float corr[2], mc[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_new = fmaxf(mrow[rr], mx[rr]);
+      corr[rr] = fast_exp2((mrow[rr] - m_new) * c);
+      mrow[rr] = m_new;
+      // a row with nothing valid yet keeps m at NEG_INF: p = 2^(NEG_INF c) = 0
+      mc[rr] = (m_new == NEG_INF ? 0.f : m_new) * c;
+    }
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(fmaf(sc[j][e], c, -mc[e >> 1]));
+        psum[e >> 1] += p;
+        sc[j][e] = p;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) lrow[rr] = lrow[rr] * corr[rr] + psum[rr];
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+      o[d][0] *= corr[0];
+      o[d][1] *= corr[0];
+      o[d][2] *= corr[1];
+      o[d][3] *= corr[1];
+    }
+    // O += P V with P as its bf16 parts pa + pl (P kept in float32)
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t pa[4], pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_bf16(sc[2 * kk + (e >> 1)][2 * (e & 1)], sc[2 * kk + (e >> 1)][2 * (e & 1) + 1],
+                   pa[e], pl[e]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, sV + v_lane + (kk * 16 * LD + dp * 16) * 2);
+        mma_bf16_16816(o[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16_16816(o[2 * dp + 1], pa, vf[2], vf[3]);
+        mma_bf16_16816(o[2 * dp], pl, vf[0], vf[1]);
+        mma_bf16_16816(o[2 * dp + 1], pl, vf[2], vf[3]);
+      }
+    }
+    if constexpr (Lay::WIDEN) {
+      if (i + 1 < nw) put(s ^ 1);
+      fetch(i + 2);
+    }
+  }
+
+  // The block's merge: each warp stages its rows' (m c, l) and O in shared
+  // memory; thread by thread over the G * D outputs, the warps are merged
+  // in order 0..3 in log-sum-exp form
+  cp_async_wait<0>();
+  __syncthreads();  // every tile is idle
+  float* sO = reinterpret_cast<float*>(sd_smem);  // [warp][16][D]
+  float* sML = sO + SD_WARPS * 16 * D;             // [warp][16][2]
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = lrow[rr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = gid + 8 * rr;
+    if (tig == 0) {
+      sML[(warp * 16 + r) * 2] = mrow[rr] * c;
+      sML[(warp * 16 + r) * 2 + 1] = l;
+    }
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d)
+      *reinterpret_cast<float2*>(sO + (warp * 16 + r) * D + d * 8 + 2 * tig) =
+          make_float2(o[d][2 * rr], o[d][2 * rr + 1]);
+  }
+  __syncthreads();
+  const int64_t row0 = (int64_t)b * Hq + (int64_t)h * G;  // the block's first output row
+  for (int idx = tid; idx < G * D; idx += SD_NT) {
+    const int r = idx / D, d = idx - r * D;
+    float m = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < SD_WARPS; ++w)
+      if (sML[(w * 16 + r) * 2 + 1] > 0.f) m = fmaxf(m, sML[(w * 16 + r) * 2]);
+    float l = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < SD_WARPS; ++w) {
+      const float lw = sML[(w * 16 + r) * 2 + 1];
+      if (lw > 0.f) {
+        const float f = fast_exp2(sML[(w * 16 + r) * 2] - m);
+        l = fmaf(lw, f, l);
+        acc = fmaf(sO[(w * 16 + r) * D + d], f, acc);
+      }
+    }
+    if (n_split == 1) {
+      out[(row0 + r) * D + d] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
+    } else {
+      const int64_t prow = (int64_t)split * B * Hq + row0 + r;
+      part[prow * D + d] = acc;
+      if (d == 0) {
+        float* ml = part + (int64_t)n_split * B * Hq * D + prow * 2;
+        ml[0] = m;
+        ml[1] = l;
+      }
+    }
+  }
+}
+
+// Merges the n_split partials of each output row (the layout above) in
+// split order: out = sum_s 2^(m_s - m) O_s / sum_s 2^(m_s - m) l_s, over
+// the splits that saw a position (0 where none did).
+template <int D>
+__global__ void __launch_bounds__(256)
+rpa_decode_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
+                          int n_split, int rows) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)rows * D) return;
+  const int64_t row = idx / D;
+  const float* ml = part + (int64_t)n_split * rows * D;
+  float m = NEG_INF;
+  for (int s = 0; s < n_split; ++s) {
+    const float* x = ml + ((int64_t)s * rows + row) * 2;
+    if (x[1] > 0.f) m = fmaxf(m, x[0]);
+  }
+  float l = 0.f, acc = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float* x = ml + ((int64_t)s * rows + row) * 2;
+    if (x[1] > 0.f) {
+      const float f = fast_exp2(x[0] - m);
+      l = fmaf(x[1], f, l);
+      acc = fmaf(part[(int64_t)s * rows * D + idx], f, acc);
+    }
+  }
+  out[idx] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
+}
+
+template <typename TKV, int D>
+static int launch_decode_mma(const void* q, const void* k_pool, const void* v_pool,
+                             const void* pt, const void* kv_lens, void* out, int B, int Hq,
+                             int Hkv, int row_stride, int maxP, int page_size, float scale,
+                             float cap, int window, int n_split, int split_len, void* scratch,
+                             cudaStream_t stream) {
+  using Lay = SdLayout<TKV, D>;
+  if (Hq / Hkv > 16 || n_split < 1 || split_len <= 0 || split_len % SD_STEP ||
+      (int64_t)n_split * split_len < (int64_t)maxP * page_size ||
+      (n_split > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = rpa_decode_mma_kernel<TKV, D>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<dim3(n_split, Hkv, B), SD_NT, Lay::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k_pool),
+      static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
+      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(scratch), Hq, Hkv, row_stride, maxP, page_size, scale, cap, window,
+      split_len);
+  if (n_split > 1) {
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const int64_t n = (int64_t)B * Hq * D;
+    rpa_decode_combine_kernel<D><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        static_cast<const float*>(scratch), static_cast<__nv_bfloat16*>(out), n_split, B * Hq);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename TQ, typename TKV, int D>
 static int launch_decode(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                          const void* kv_lens, void* out, int B, int Hq, int Hkv, int row_stride,
@@ -109,29 +513,70 @@ static int launch_decode(const void* q, const void* k_pool, const void* v_pool, 
   return (int)cudaGetLastError();
 }
 
+// The tensor-core decode for bf16 q in the merged build (P kept in
+// float32); the CUDA-core kernel otherwise.
+template <typename TQ, typename TKV, int D>
+static int launch(const void* q, const void* k_pool, const void* v_pool, const void* pt,
+                  const void* kv_lens, void* out, int B, int Hq, int Hkv, int row_stride,
+                  int maxP, int page_size, float scale, float cap, int window, int n_split,
+                  int split_len, void* scratch, cudaStream_t stream) {
+  if constexpr (P_F32_BUILD && std::is_same<TQ, __nv_bfloat16>::value)
+    return launch_decode_mma<TKV, D>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv,
+                                     row_stride, maxP, page_size, scale, cap, window, n_split,
+                                     split_len, scratch, stream);
+  else
+    return launch_decode<TQ, TKV, D>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv,
+                                     row_stride, maxP, page_size, scale, cap, window, stream);
+}
+
+static int decode_entry(const void* q, const void* k_pool, const void* v_pool,
+                        const void* page_table, const void* kv_lens, void* out, int B, int Hq,
+                        int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
+                        float cap, int window, int q_type, int kv_type, int n_split,
+                        int split_len, void* scratch, void* stream) {
+  if (B == 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RPA_DEC(QC, TQ, KC, TKV)                                                          \
+  if (q_type == QC && kv_type == KC)                                                      \
+    return launch<TQ, TKV, RPA_HEAD_DIM>(q, k_pool, v_pool, page_table, kv_lens, out, B, Hq, \
+                                         Hkv, row_stride, maxP, page_size, scale, cap,      \
+                                         window, n_split, split_len, scratch, s);
+  RPA_FOR_EACH_PAIR(RPA_DEC)
+#undef RPA_DEC
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace rpa
 
 // C entry point (bound with ctypes by ops/attention/rpa_packed.py).
 // k_pool / v_pool: K and V of the layer at slot 0; row_stride: elements
 // from one slot to the next (rpa_common.cuh). q_type / kv_type: TypeCode.
-// cap <= 0: no softcap; window <= 0: no sliding window. Returns
-// cudaError_t; a head_dim or type pair this build lacks is
-// cudaErrorInvalidValue.
+// cap <= 0: no softcap; window <= 0: no sliding window. The merged build
+// (-DRPA_P_F32) also takes the split plan of its bf16-q pairs (n_split
+// ranges of split_len positions, a multiple of SD_STEP, that cover
+// [0, maxP * page_size)) and, with n_split > 1, a float32 scratch of
+// n_split * B * Hq * (D + 2) elements; its float32 pair ignores them.
+// Returns cudaError_t; a head_dim, type pair or plan this build does not
+// take is cudaErrorInvalidValue.
+#ifdef RPA_P_F32
+extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
+                         const void* page_table, const void* kv_lens, void* out, int B, int Hq,
+                         int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
+                         float cap, int window, int q_type, int kv_type, int n_split,
+                         int split_len, void* scratch, void* stream) {
+  return rpa::decode_entry(q, k_pool, v_pool, page_table, kv_lens, out, B, Hq, Hkv, D,
+                           row_stride, maxP, page_size, scale, cap, window, q_type, kv_type,
+                           n_split, split_len, scratch, stream);
+}
+#else
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                          const void* page_table, const void* kv_lens, void* out, int B, int Hq,
                          int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
                          float cap, int window, int q_type, int kv_type, void* stream) {
-  using namespace rpa;
-  if (B == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RPA_DEC(QC, TQ, KC, TKV)                                                        \
-  if (q_type == QC && kv_type == KC)                                                    \
-    return launch_decode<TQ, TKV, RPA_HEAD_DIM>(q, k_pool, v_pool, page_table, kv_lens, \
-                                                out, B, Hq, Hkv, row_stride, maxP,      \
-                                                page_size, scale, cap, window, s);
-  RPA_FOR_EACH_PAIR(RPA_DEC)
-#undef RPA_DEC
-  return (int)cudaErrorInvalidValue;
+  return rpa::decode_entry(q, k_pool, v_pool, page_table, kv_lens, out, B, Hq, Hkv, D,
+                           row_stride, maxP, page_size, scale, cap, window, q_type, kv_type, 1,
+                           0, nullptr, stream);
 }
+#endif

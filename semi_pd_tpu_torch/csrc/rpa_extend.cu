@@ -12,7 +12,8 @@
 //   5D pool, head_dim 64 (-DRPA_ALIGNED -DRPA_HEAD_DIM=64 -DRPA_P_F32,
 //     rpa_extend_merged): the extend of semi_pd_tpu/ops/attention/
 //     ragged_paged_attention.py _rpa_kernel_merged (D % 128 != 0 on that
-//     pool), which computes in float32 throughout, P included.
+//     pool), which computes in float32 throughout, P included: its bf16-q
+//     pairs run the tensor-core kernel with P split into two bf16 parts.
 // Causal attention of the flat new tokens [T, Hq, D] of every request over
 // its cached prefix plus the new tokens, through the page table, driven by
 // the host-built work list (block_seq / block_row / block_qofs), with
@@ -27,13 +28,19 @@
 // causal operations while reading the kv_len rows once, well above the
 // ~295 operations per byte where the H100's bf16 tensor cores bind.
 //
-// Two kernels; the entry point picks one by q's type and the build, never
-// at run time otherwise:
+// Two kernels; the entry point picks one by q's type, never at run time
+// otherwise:
 //
 // bf16 q, over bf16 or fp8 KV: rpa_extend_mma_kernel, on the tensor cores.
-//   What the TPU kernels compute is bf16 x bf16 -> float32 dots with P cast
-//   to q's dtype, which is exactly mma.sync m16n8k16 bf16 -> f32 (fp8
-//   widens to bf16 without loss). Packed rows, as the TPU kernel builds its
+//   What the GQA branches of the TPU kernels compute is bf16 x bf16 ->
+//   float32 dots with P cast to q's dtype, which is exactly mma.sync
+//   m16n8k16 bf16 -> f32 (fp8 widens to bf16 without loss). The merged
+//   build (-DRPA_P_F32) keeps P in float32, as _rpa_kernel_merged does with
+//   q, K and V upcast to float32: its scores are the same mma (a product of
+//   two bf16 values is exact in float32), and its O += P V takes P as two
+//   bf16 parts, hi + lo (split_bf16, rpa_common.cuh), in two products
+//   against the same V fragments, which leaves P's error at 2^-18 where one
+//   bf16 rounding leaves 2^-9. Packed rows, as the TPU kernel builds its
 //   QG = QBLK * G rows per KV head: packed row m = r * G + g is query row r
 //   of head h * G + g, so the G heads of a query row are one G * D run of q
 //   and every KV tile a block stages serves all G heads. Grid
@@ -52,9 +59,10 @@
 //     in the 4 lanes of a quad, so the row max takes two shuffles, and each
 //     lane's partial row sum is reduced once at the end. NEG_INF as on the
 //     TPU; a masked score gives p = 0 exactly;
-//   - P, rounded to bf16 as the TPU casts p to q's dtype, is reused straight
-//     from the S accumulators as the A operand of O += P V, with V fragments
-//     by ldmatrix.trans; O accumulates in float32 registers.
+//   - P, rounded to bf16 as the TPU casts p to q's dtype (or split into hi
+//     and lo in the merged build), is reused straight from the S
+//     accumulators as the A operand of O += P V, with V fragments by
+//     ldmatrix.trans; O accumulates in float32 registers.
 //   KV tiles are bf16 in shared memory, rows padded to D + 8 elements so
 //   that the 8 row addresses of an ldmatrix fall in 8 different bank groups;
 //   ldmatrix takes 32-bit shared addresses whose tile offsets are
@@ -77,10 +85,8 @@
 //   m16 tile; 8 warps per SM at D 128; the softmax and O's rescale between
 //   the two products.
 //
-// float32 q, and every pair of the merged build (-DRPA_P_F32):
-//   rpa_extend_kernel, on the CUDA cores. TF32 mma would not be the float32
-//   dot the float32 pair computes, and a bf16 mma would round the P that the
-//   TPU's _rpa_kernel_merged keeps in float32. One block per (entry, query
+// float32 q: rpa_extend_kernel, on the CUDA cores. TF32 mma would not be
+//   the float32 dot the float32 pair computes. One block per (entry, query
 //   head), EXTEND_QBLK query rows per block and TPR = D / 64 threads per row
 //   (1 at D 64, 2 at D 128): each thread keeps 64 head dims of its row's
 //   query and float32 output in registers, and the TPR partial dot products
@@ -110,7 +116,7 @@
 namespace rpa {
 
 // ------------------------------------------------------------------------
-// The CUDA-core kernel (float32 q; every pair of the merged build).
+// The CUDA-core kernel (float32 q).
 
 constexpr int EXT_DPT = 64;  // head dims per thread
 constexpr int EXT_TK = 32;   // KV positions per tile
@@ -234,7 +240,7 @@ rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
     for (int t = 0; t < TK; ++t) {
       const float p = ((valid >> t) & 1u) ? expf(s[t] - m_new) : 0.f;
       sum += p;
-      s[t] = round_p<TQ>(p);
+      s[t] = p;  // float32 q: P is not rounded
     }
     l = l * corr + sum;
     m = m_new;
@@ -280,7 +286,8 @@ static int launch_extend(const void* q, const void* k_pool, const void* v_pool, 
 }
 
 // ------------------------------------------------------------------------
-// The tensor-core kernel (bf16 q).
+// The tensor-core kernel (bf16 q). P_SPLIT: P.V as hi.V + lo.V (P kept in
+// float32, the merged build) instead of one product with P rounded to bf16.
 
 constexpr int MMA_NT = 128;   // 4 warps
 constexpr int MMA_ROWS = 64;  // packed rows per block: one m16 tile per warp
@@ -304,7 +311,7 @@ struct MmaLayout {
   static_assert(MMA_ROWS * LD * 2 <= BF16_BYTES, "Q and O staging");
 };
 
-template <typename TKV, int D>
+template <typename TKV, int D, bool P_SPLIT>
 __global__ void __launch_bounds__(MMA_NT, D <= 64 ? 4 : 2)
 rpa_extend_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
                       const TKV* __restrict__ k_pool,       // K of this layer at slot 0
@@ -549,19 +556,30 @@ rpa_extend_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
         o[d][2] *= corr[1];
         o[d][3] *= corr[1];
       }
-      // O += P V: P from the S accumulators, rounded to bf16, as A
+      // O += P V: P from the S accumulators as A, rounded to bf16 (pa), or
+      // as its bf16 parts pa + pl with P_SPLIT
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                                pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                                pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                                pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+        uint32_t pa[4], pl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p0 = sc[2 * kk + (e >> 1)][2 * (e & 1)];
+          const float p1 = sc[2 * kk + (e >> 1)][2 * (e & 1) + 1];
+          if constexpr (P_SPLIT)
+            split_bf16(p0, p1, pa[e], pl[e]);
+          else
+            pa[e] = pack_bf16(p0, p1);
+        }
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t vf[4];
           ldmatrix_x4_trans(vf, sV + v_lane + (kk * 16 * LD + dp * 16) * 2);
           mma_bf16_16816(o[2 * dp], pa, vf[0], vf[1]);
           mma_bf16_16816(o[2 * dp + 1], pa, vf[2], vf[3]);
+          if constexpr (P_SPLIT) {
+            mma_bf16_16816(o[2 * dp], pl, vf[0], vf[1]);
+            mma_bf16_16816(o[2 * dp + 1], pl, vf[2], vf[3]);
+          }
         }
       }
     }
@@ -602,7 +620,7 @@ rpa_extend_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
   }
 }
 
-template <typename TKV, int D>
+template <typename TKV, int D, bool P_SPLIT>
 static int launch_extend_mma(const void* q, const void* k_pool, const void* v_pool,
                              const void* pt, const void* kv_lens, const void* q_lens,
                              const void* q_start, const void* block_seq, const void* block_row,
@@ -611,11 +629,12 @@ static int launch_extend_mma(const void* q, const void* k_pool, const void* v_po
                              int window, cudaStream_t stream) {
   using Lay = MmaLayout<TKV, D>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      rpa_extend_mma_kernel<TKV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::SMEM);
+      rpa_extend_mma_kernel<TKV, D, P_SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Lay::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const int G = Hq / Hkv;
   const dim3 grid((EXTEND_QBLK * G + MMA_ROWS - 1) / MMA_ROWS, Hkv, NQB);
-  rpa_extend_mma_kernel<TKV, D><<<grid, MMA_NT, Lay::SMEM, stream>>>(
+  rpa_extend_mma_kernel<TKV, D, P_SPLIT><<<grid, MMA_NT, Lay::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k_pool),
       static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
@@ -626,23 +645,18 @@ static int launch_extend_mma(const void* q, const void* k_pool, const void* v_po
   return (int)cudaGetLastError();
 }
 
-// The tensor cores for bf16 q, except in the merged build (P in float32);
-// the CUDA-core kernel otherwise.
+// The tensor cores for bf16 q (with P split in the merged build, which
+// keeps P in float32); the CUDA-core kernel for float32 q.
 template <typename TQ, typename TKV, int D>
 static int launch(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                   const void* kv_lens, const void* q_lens, const void* q_start,
                   const void* block_seq, const void* block_row, const void* block_qofs,
                   void* out, int NQB, int Hq, int Hkv, int row_stride, int maxP,
                   int page_size, float scale, float cap, int window, cudaStream_t stream) {
-#ifdef RPA_P_F32
-  constexpr bool tensor_cores = false;
-#else
-  constexpr bool tensor_cores = std::is_same<TQ, __nv_bfloat16>::value;
-#endif
-  if constexpr (tensor_cores)
-    return launch_extend_mma<TKV, D>(q, k_pool, v_pool, pt, kv_lens, q_lens, q_start,
-                                     block_seq, block_row, block_qofs, out, NQB, Hq, Hkv,
-                                     row_stride, maxP, page_size, scale, cap, window, stream);
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+    return launch_extend_mma<TKV, D, P_F32_BUILD>(
+        q, k_pool, v_pool, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out,
+        NQB, Hq, Hkv, row_stride, maxP, page_size, scale, cap, window, stream);
   else
     return launch_extend<TQ, TKV, D>(q, k_pool, v_pool, pt, kv_lens, q_lens, q_start,
                                      block_seq, block_row, block_qofs, out, NQB, Hq, Hkv,

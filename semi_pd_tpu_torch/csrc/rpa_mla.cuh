@@ -30,9 +30,10 @@
 // staged once in shared memory as float32 (a padded row of MLA_LD floats)
 // and read as both K and V; the next tile's 16-byte loads are issued into
 // registers before the current one is computed (KVTile, rpa_common.cuh).
-// Positions at or past `limit` are never read. Online softmax in float32;
-// P is rounded to q's type before P.V, as in the other kernels (round_p;
-// the streaming decode's MLA build keeps it in float32, -DRPA_P_F32).
+// Positions at or past `limit` are never read. Online softmax in float32,
+// and P stays float32 into P.V: the TPU kernels' MLA branches upcast q and
+// the latent rows to float32, so every MLA build is -DRPA_P_F32 (round_p,
+// rpa_common.cuh).
 //
 // Shared-memory reads, not the arithmetic, set the pace (PERF.md, PR 3):
 // with one row per thread each float4 read feeds 4 FMAs per lane and the

@@ -81,6 +81,8 @@ EXTEND_ALIGNED_KERNEL = register(CudaKernel(
     defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_ALIGNED"),
 ))
 
+# The TPU kernel's MLA branch upcasts q and the latent rows to float32 and
+# keeps P in float32 (RPA_P_F32)
 EXTEND_MLA_KERNEL = register(CudaKernel(
     name="rpa_extend_mla",
     source="csrc/rpa_extend_mla.cu",
@@ -88,7 +90,7 @@ EXTEND_MLA_KERNEL = register(CudaKernel(
     argtypes=_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel "
              "(MLA v_dim branch)",
-    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}",),
+    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_P_F32"),
 ))
 
 EXTEND_MERGED_KERNEL = register(CudaKernel(

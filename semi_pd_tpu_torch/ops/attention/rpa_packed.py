@@ -29,6 +29,7 @@ raises. Nothing falls back.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -58,23 +59,28 @@ DECODE_ALIGNED_KERNEL = register(CudaKernel(
     defines=("RPA_ALIGNED",),
 ))
 
+# The TPU kernel's MLA branch upcasts q and the latent rows to float32 and
+# keeps P in float32 (RPA_P_F32)
 DECODE_MLA_KERNEL = register(CudaKernel(
     name="rpa_decode_mla",
     source="csrc/rpa_decode_mla.cu",
     symbol="rpa_decode_mla",
     argtypes=DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (MLA branch)",
+    defines=("RPA_P_F32",),
 ))
 
 # The 5D pool at head_dim 64: _rpa_kernel_merged computes in float32
 # throughout, P included, so this build keeps P in float32 (RPA_P_F32)
 MERGED_DEFINES = ("RPA_ALIGNED", "RPA_HEAD_DIM=64", "RPA_P_F32")
 
+# Its entry also takes the split plan (decode_split_plan) and a scratch
+# pointer (csrc/rpa_decode.cu)
 DECODE_MERGED_KERNEL = register(CudaKernel(
     name="rpa_decode_merged",
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode_merged",
-    argtypes=DECODE_ARGTYPES,
+    argtypes=DECODE_ARGTYPES[:-1] + [I, I, P, P],
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:300 _rpa_kernel_merged "
              "(decode)",
     defines=MERGED_DEFINES,
@@ -84,6 +90,32 @@ DECODE_MERGED_KERNEL = register(CudaKernel(
 # (rpa_common.kernel_family)
 DECODE_KERNELS = {"aligned": DECODE_ALIGNED_KERNEL, "merged": DECODE_MERGED_KERNEL,
                   "latent": DECODE_MLA_KERNEL}
+
+# The merged decode's split plan: a block of its tensor-core kernel walks
+# SPLIT_STEP positions per round (4 warps x 32, csrc/rpa_decode.cu SD_STEP);
+# a split covers at least SPLIT_MIN positions; 2 blocks fit on an SM at
+# once (111 KB of shared memory each with bf16 KV).
+SPLIT_STEP, SPLIT_MIN, SPLIT_BLOCKS_PER_SM = 128, 512, 2
+
+
+def decode_split_plan(B: int, Hkv: int, max_kv: int, num_sms: int):
+    """(n_split, split_len) of the merged decode: [0, max_kv) cut in order
+    into n_split ranges [s * split_len, min((s + 1) * split_len, max_kv)).
+    From the shapes and the card's SM count only (max_kv = maxP *
+    page_size; no kv_lens), so the wrapper never waits for the card: enough
+    splits that the B * Hkv * n_split blocks fill the card once, split_len
+    at least SPLIT_MIN (unless max_kv is shorter) and a multiple of
+    SPLIT_STEP."""
+    want = max(1, SPLIT_BLOCKS_PER_SM * num_sms // max(B * Hkv, 1))
+    n = max(1, min(want, max_kv // SPLIT_MIN))
+    split_len = -(-max(max_kv, 1) // n)
+    split_len = -(-split_len // SPLIT_STEP) * SPLIT_STEP
+    return max(1, -(-max_kv // split_len)), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_with(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_size,
@@ -103,11 +135,19 @@ def decode_with(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_siz
     Dv = v_dim or D
     k_ptr, v_ptr, row_stride = kv_planes(kv_cache, layer_idx, num_kv_heads, D)
     out = q.new_empty((B, Hq, Dv))
+    maxP = page_table.shape[1]
+    split = ()
+    if kernel is DECODE_MERGED_KERNEL:  # float32 partials of each split, then merged
+        n_split, split_len = decode_split_plan(B, num_kv_heads, maxP * page_size,
+                                               _sm_count(q.device.index or 0))
+        scratch = (q.new_empty(n_split * B * Hq * (D + 2), dtype=torch.float32)
+                   if n_split > 1 else None)
+        split = (n_split, split_len, None if scratch is None else scratch.data_ptr())
     kernel.launch(
         q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
-        out.data_ptr(), B, Hq, num_kv_heads, D, row_stride, page_table.shape[1],
+        out.data_ptr(), B, Hq, num_kv_heads, D, row_stride, maxP,
         page_size, float(scale), float(logit_cap or 0.0), int(sliding_window or 0),
-        TYPE_CODES[q.dtype], TYPE_CODES[kv_cache.dtype], cuda_stream_ptr(q.device))
+        TYPE_CODES[q.dtype], TYPE_CODES[kv_cache.dtype], *split, cuda_stream_ptr(q.device))
     return out
 
 

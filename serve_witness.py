@@ -7,8 +7,9 @@ because of a fault? A witness run for one model on one CUDA card.
     python3 serve_witness.py --model llama-3.2-1b-class --f32-layers 8
 
 It serves chip_smoke.py's 32 greedy requests (prompts of 256-3072 tokens,
-64 new tokens each, the bench's server settings) four times with one
-engine: colocated, colocated again, semi-PD, semi-PD again. First in bf16
+64 new tokens each, the bench's server settings) five times with one
+engine: colocated, colocated again, semi-PD, semi-PD again, and colocated
+with the streaming decode (``decode_stream``). First in bf16
 at full width (random weights, seed 0; DeepSeek-V2-Lite by default, or the
 Llama-3.2-1B-class model of the chunked pool), then in float32 with the
 depth cut to ``--f32-layers`` (float32 weights of all 27 DeepSeek-V2-Lite
@@ -19,9 +20,10 @@ there: at a near tie the two picks are almost equally likely, so the gap
 is as small as the noise on the logprobs of tokens both runs agree on.
 
 A run that repeats its mode should give the same tokens (serving is
-deterministic); the modes batch requests differently, so bf16 rounding
-differs between them, and float32 shrinks that rounding by 2^16. A fault
-in a kernel at one mode's batch shapes would survive float32.
+deterministic); the modes batch requests differently, and the streaming
+decode sums in another order than the packed one, so bf16 rounding differs
+between them, and float32 shrinks that rounding by 2^16. A fault in a
+kernel at one mode's batch shapes would survive float32.
 """
 
 from __future__ import annotations
@@ -43,17 +45,20 @@ MODELS = {"deepseek-v2-lite": deepseek_v2_lite_config,
           "llama-3.2-1b-class": llama_1b_config}
 
 
-def serve(eng, semi_pd: bool, prompts):
-    """Tokens and their logprobs of every request, in prompt order."""
+def serve(eng, semi_pd: bool, prompts, stream: bool = False):
+    """Tokens and their logprobs of every request, in prompt order; with
+    ``stream`` decode batches take the pool's streaming decode."""
     import torch
 
+    from semi_pd_tpu_torch.layers.attention import pool_attention
     from semi_pd_tpu_torch.runtime.scheduler import Scheduler
     from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
     if not eng.flush_cache():
         raise AssertionError("engine not idle before serving")
-    eng.server_args = bench_server_args(semi_pd)
+    eng.server_args = bench_server_args(semi_pd, decode_stream=stream)
     eng.scheduler = Scheduler(eng.server_args, eng.runner)
+    eng.runner.attention = pool_attention(eng.runner.kv_cache.buffer, stream=stream)
     sp = SamplingParams(max_new_tokens=64, temperature=0.0, ignore_eos=True)
     t0 = time.monotonic()
     outs = eng.generate(input_ids=prompts, sampling_params=sp, return_logprob=True)
@@ -95,12 +100,14 @@ def witness(label, cfg):
     eng = Engine(bench_server_args(False), cfg)
     prompts = prompts_for(cfg.vocab_size)
     runs, walls = {}, {}
-    for name, semi in (("colocated", False), ("colocated_again", False),
-                       ("semi_pd", True), ("semi_pd_again", True)):
-        runs[name], walls[name] = serve(eng, semi, prompts)
+    for name, semi, stream in (("colocated", False, False), ("colocated_again", False, False),
+                               ("semi_pd", True, False), ("semi_pd_again", True, False),
+                               ("stream", False, True)):
+        runs[name], walls[name] = serve(eng, semi, prompts, stream)
     pairs = {"colocated_vs_again": ("colocated", "colocated_again"),
              "semi_pd_vs_again": ("semi_pd", "semi_pd_again"),
-             "colocated_vs_semi_pd": ("colocated", "semi_pd")}
+             "colocated_vs_semi_pd": ("colocated", "semi_pd"),
+             "colocated_vs_stream": ("colocated", "stream")}
     res = dict(model=label, dtype=cfg.dtype, layers=cfg.num_hidden_layers, wall_s=walls,
                seconds=time.monotonic() - t0,
                **{k: compare(runs[a], runs[b]) for k, (a, b) in pairs.items()})

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version (the streaming decodes and the tensor-core extend also against
-themselves, bitwise, on a second run; the tensor-core extend with 1, 2, 4
-and 8 query heads per KV head, and its libraries disassembled for HMMA
+version (the streaming decodes, the tensor-core extend and the merged
+decode also against themselves, bitwise, on a second run; the tensor-core
+extend with 1, 2, 4 and 8 query heads per KV head, the merged decode split
+over blocks at long KV, and the libraries disassembled for HMMA
 instructions), the CUDA MoE path (torch._grouped_mm) against its plain loop,
 and the Engine on its default CUDA device against the same Engine on the
 CPU (Llama on the chunked, the aligned and the merged 5D pool at head_dim
@@ -14,10 +15,15 @@ and no JAX:
 Without a CUDA device every test skips.
 
 Tolerances: float32 1e-4 (online vs full softmax, another summation order);
-bfloat16 1e-2 (the kernels round P to bf16 before P.V, as the TPU kernels
-do; the merged and the MLA stream builds keep P in float32), also with fp8
-KV, where kernel and plain version read the same fp8 bytes. The softcap of
-1.0 bends most scores, whose std is about 1 here.
+bfloat16 1e-2, also with fp8 KV, where kernel and plain version read the
+same fp8 bytes: the chunked and the aligned kernels round P to bf16 before
+P.V, as the GQA branches of the TPU kernels do, and 1e-2 absorbs that one
+rounding. The merged and the MLA kernels keep P in float32, as the TPU
+kernels they replace do, so with bf16 q they are also held closer
+(test_bf16_kernels_keep_p_float32): at least 99% of their outputs bitwise
+equal to the plain version's and none more than one bf16 step away, a
+share that the plain version with P rounded to bf16 misses on the same
+inputs. The softcap of 1.0 bends most scores, whose std is about 1 here.
 MoE in bf16: 2e-2 relative to the output's scale (both paths round the
 same bf16 products; the grouped GEMM sums K in another order).
 """
@@ -230,6 +236,8 @@ MMA_POOLS = {  # pool: (case options, kernel, head_dim, KV dtypes under bf16 q)
     "chunked": ({}, "rpa_extend", D, ["bfloat16"]),
     "aligned": ({"aligned": True}, "rpa_extend_aligned", D_ALIGNED,
                 ["bfloat16", "fp8_e4m3", "fp8_e5m2"]),
+    "merged": ({"merged": True}, "rpa_extend_merged", D,
+               ["bfloat16", "fp8_e4m3", "fp8_e5m2"]),
 }
 MMA_CASES = [(pool, kv) for pool, spec in MMA_POOLS.items() for kv in spec[3]]
 MMA_IDS = [f"{pool}-{kv}" for pool, kv in MMA_CASES]
@@ -260,9 +268,10 @@ def _mma_extend(dev, pool, kv, G, opt="plain"):
 @pytest.mark.parametrize("G", sorted(GROUPS))
 @pytest.mark.parametrize("pool,kv", MMA_CASES, ids=MMA_IDS)
 def test_extend_tensor_cores_match_plain(cuda_device, pool, kv, G, opt):
-    """The chunked and the aligned extend with bf16 q (the tensor-core
-    kernel; bf16, fp8 e4m3 and e5m2 KV) against their plain versions, with
-    1, 2, 4 and 8 query heads per KV head."""
+    """The chunked, the aligned and the merged extend with bf16 q (the
+    tensor-core kernel; bf16, fp8 e4m3 and e5m2 KV; P split into two bf16
+    parts in the merged build) against their plain versions, with 1, 2, 4
+    and 8 query heads per KV head."""
     _, kern, plain, name = _mma_extend(cuda_device, pool, kv, G, opt)
     k = KERNELS[name]
     before = k.launches
@@ -295,17 +304,117 @@ def test_extend_tensor_cores_leave_unowned_rows_zero(cuda_device, pool, kv):
 
 def test_extend_builds_run_on_the_tensor_cores(cuda_device):
     """The disassembled libraries: every bf16-q instantiation of the
-    chunked and the aligned extend runs HMMA instructions; their float32
-    pair and the merged build (P in float32) stay on the CUDA cores."""
+    chunked, the aligned and the merged extend, and of the merged decode,
+    runs HMMA instructions; their float32 pairs stay on the CUDA cores."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
-    expect = {"rpa_extend": 1, "rpa_extend_aligned": 3, "rpa_extend_merged": 0}
-    for name, n_mma in expect.items():
+    expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs)
+        "rpa_extend": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 1),
+        "rpa_extend_aligned": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 3),
+        "rpa_extend_merged": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 3),
+        "rpa_decode_merged": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
+    }
+    for name, (mma_fn, core_fn, n_mma) in expect.items():
         KERNELS[name].fn()
         counts = sass_mma_counts(KERNELS[name])
-        mma = [n for f, n in counts.items() if "rpa_extend_mma_kernel" in f]
+        mma = [n for f, n in counts.items() if mma_fn in f]
         assert len(mma) == n_mma and all(mma), (name, counts)
-        assert not any(n for f, n in counts.items() if "rpa_extend_kernel" in f), counts
+        core = [n for f, n in counts.items() if core_fn in f]
+        assert len(core) == 1 and not any(core), (name, counts)
+
+
+def _bf16_steps(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """|out - ref| in bf16 steps, element by element, each step taken at the
+    larger of |ref| and 2^-8 of the largest |ref| of its head's output
+    vector. Below that, cancellation leaves float32's own rounding several
+    steps of the element wide: at these inputs the plain version run in
+    float64 lies up to 20 bf16 steps from the float32 one, on elements
+    under 1e-6 (fidelity_witness.py)."""
+    r = ref.float()
+    a = torch.maximum(r.abs(), r.abs().amax(dim=-1, keepdim=True) * 2.0 ** -8)
+    step = torch.exp2(torch.floor(torch.log2(a)) - 7)  # bf16 spacing at a; 0 at a == 0
+    diff = (out.float() - r).abs()
+    return torch.where(diff == 0, torch.zeros_like(diff), diff / step)
+
+
+# (kind, pool, G, KV dtype): the merged kernels at TinyLlama's G = 8 (bf16
+# and fp8_e4m3 KV) and at G = 4, and the MLA kernels (G = Hq = 16 query heads
+# per latent row)
+P_F32_CASES = [(kind, "merged", G, kv) for kind in ("decode", "extend")
+               for G, kv in ((4, "bfloat16"), (8, "bfloat16"), (8, "fp8_e4m3"))]
+P_F32_CASES += [(kind, "latent", HQ_MLA, "bfloat16") for kind in ("decode", "extend")]
+
+
+@pytest.mark.parametrize("kind,pool,G,kv", P_F32_CASES,
+                         ids=[f"{k}-{p}-G{g}-{kv}" for k, p, g, kv in P_F32_CASES])
+def test_bf16_kernels_keep_p_float32(cuda_device, monkeypatch, kind, pool, G, kv):
+    """With bf16 q, the merged and the MLA kernels keep P in float32, as the
+    TPU kernels they replace do (_rpa_kernel_merged upcasts q, K and V, the
+    MLA branches q and the latent rows): at least 99% of their bf16 outputs
+    are bitwise equal to the plain version's, which computes in float32 and
+    rounds once at the end, and none is more than one bf16 step away
+    (_bf16_steps: near 0, a step at 2^-8 of the head's largest output). The
+    same plain version with P rounded to bf16 before P.V, as a kernel that
+    rounds P computes, stays below that share on the same inputs: the test
+    sees a rounded P. With fp8 KV both read the same fp8 bytes, widened
+    exactly. A second kernel call is bitwise equal."""
+    bf = torch.bfloat16
+    case = _decode_case if kind == "decode" else _extend_case
+    extra = {"latent": True} if pool == "latent" else {"merged": True, "hkv": HQ // G}
+    q, kv, pt, kvl, meta = case(cuda_device, bf, kv_dtype=FP8.get(kv, bf), **extra)
+    kw = _opts("plain", (DLAT if pool == "latent" else D) ** -0.5)
+    if pool == "latent":
+        kw["v_dim"] = V_DIM
+    if kind == "decode":
+        kern = lambda: rpa_packed.ragged_paged_attention_packed(q, kv, 1, pt, kvl, **kw)
+        plain = lambda: rpa_packed.ragged_paged_attention_packed_plain(q, kv, 1, pt, kvl, **kw)
+    else:
+        kern = lambda: rpa.ragged_paged_attention_extend(q, kv, 1, pt, kvl, meta, **kw)
+        plain = lambda: rpa.ragged_paged_attention_extend_plain(q, kv, 1, pt, kvl, meta,
+                                                                **kw)
+    out = kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    assert torch.equal(kern(), out)
+    share = float((out == ref).float().mean())
+    steps = float(_bf16_steps(out, ref).max())
+    assert steps <= 1 and share >= 0.99, (steps, share)
+    softmax = torch.softmax
+    monkeypatch.setattr(torch, "softmax",
+                        lambda x, dim: softmax(x, dim=dim).to(bf).float())
+    rounded = float((plain() == ref).float().mean())
+    assert rounded < 0.99, rounded
+
+
+@pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
+@pytest.mark.parametrize("kv", ["bfloat16", "fp8_e4m3"])
+def test_merged_decode_splits_long_kv(cuda_device, kv, opt):
+    """16 requests over 2048-4096 positions and one padded row: the merged
+    decode's plan splits each request's positions over several blocks,
+    whose float32 partials the combine pass merges; against the plain
+    version, bitwise against a second call, and zeros on the padded row.
+    The window (1000 positions) crosses split boundaries."""
+    bf = torch.bfloat16
+    lens = np.random.default_rng(3).integers(2048, 4097, size=16)
+    lens[0], lens[-1] = 4096, 0
+    q, kv_t, pt, kvl, _ = _case(5, [1] * 16, lens.tolist(), cuda_device, bf, merged=True,
+                                kv_dtype=FP8.get(kv, bf))
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n_split, _ = rpa_packed.decode_split_plan(16, HKV, pt.shape[1] * PS, sms)
+    assert n_split > 1
+    kw = _opts(opt, D ** -0.5)
+    if opt == "window":
+        kw["sliding_window"] = 1000
+    k = KERNELS["rpa_decode_merged"]
+    before = k.launches
+    out = rpa_packed.ragged_paged_attention_packed(q, kv_t, 1, pt, kvl, **kw)
+    again = rpa_packed.ragged_paged_attention_packed(q, kv_t, 1, pt, kvl, **kw)
+    ref = rpa_packed.ragged_paged_attention_packed_plain(q, kv_t, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 2
+    assert torch.equal(out, again)
+    assert not out[kvl == 0].any()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
 
 
 STREAM_POOLS = {  # pool: (case options, kernel, head_dim, the build's type pairs)

@@ -108,10 +108,12 @@ def _imports(path: pathlib.Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke", "serve_witness"])
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "serve_witness",
+                                    "fidelity_witness"])
 def test_port_imports_no_jax(target):
-    """No file of the port, and neither of its card scripts (chip_smoke.py,
-    serve_witness.py), imports jax or anything of the JAX package."""
+    """No file of the port, and none of its card scripts (chip_smoke.py,
+    serve_witness.py, fidelity_witness.py), imports jax or anything of the
+    JAX package."""
     files = (sorted((ROOT / "semi_pd_tpu_torch").rglob("*.py")) if target == "package"
              else [ROOT / f"{target}.py"])
     assert files
@@ -128,8 +130,9 @@ def test_kernel_registry_and_sources():
     (a function that reaches pl.pallas_call), their own build library, the
     entry point the build names and a launch count; every extend kernel is
     built with the work list's q-block; the 5D pool's builds (aligned and
-    merged) are -DRPA_ALIGNED, the merged ones at head_dim 64 with P in
-    float32, as _rpa_kernel_merged computes."""
+    merged) are -DRPA_ALIGNED, the merged ones at head_dim 64; the merged
+    and every MLA build keep P in float32 (-DRPA_P_F32), as
+    _rpa_kernel_merged and the MLA branches of the TPU kernels compute."""
     from semi_pd_tpu_torch.kernels import KERNELS
     import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
 
@@ -146,7 +149,7 @@ def test_kernel_registry_and_sources():
         assert "sm_90a" in flags and f"-DRPA_ENTRY={k.symbol}" in flags
         five_d = k.name.endswith(("_aligned", "_merged"))
         assert ("-DRPA_ALIGNED" in k.flags()) == five_d
-        assert ("-DRPA_P_F32" in k.flags()) == k.name.endswith(("_merged", "_stream_mla"))
+        assert ("-DRPA_P_F32" in k.flags()) == k.name.endswith(("_merged", "_mla"))
     assert len({k.lib_path() for k in KERNELS.values()}) == 11
     for name in ("rpa_extend", "rpa_extend_aligned", "rpa_extend_mla", "rpa_extend_merged"):
         assert "EXTEND_QBLK=128" in " ".join(KERNELS[name].flags())

@@ -195,6 +195,41 @@ def test_merged_routing_takes_the_merged_kernels(monkeypatch):
         check_cuda(torch.zeros((3, HQ, 32)), narrow)
 
 
+# (B, Hkv, maxP * page_size, SMs): TinyLlama's decode buckets on an H100's
+# 132 SMs, from one request to more pairs than the card holds, the long-KV
+# case of the card tests, a page table of one page, and none
+SPLIT_SHAPES = [(1, 4, 2048, 132), (8, 4, 2048, 132), (16, 4, 8192, 132),
+                (32, 4, 2048, 132), (64, 4, 1024, 132), (128, 4, 2048, 132),
+                (16, 2, 4112, 132), (3, 4, 65536, 132), (8, 4, 16, 132), (1, 1, 0, 132),
+                (5, 1, 1000, 7)]
+
+
+@pytest.mark.parametrize("B,Hkv,max_kv,sms", SPLIT_SHAPES,
+                         ids=[f"b{b}-h{h}-kv{k}-sm{s}" for b, h, k, s in SPLIT_SHAPES])
+def test_merged_decode_split_plan_covers_every_position_once(B, Hkv, max_kv, sms):
+    """The merged decode's split plan, a function of the shapes and the SM
+    count only: its ranges cover [0, maxP * page_size) exactly once and in
+    order, in whole rounds of the kernel's block (SPLIT_STEP positions),
+    no split is empty, and the blocks (B * Hkv * n_split) fill the card at
+    most once over."""
+    n, length = rpa_packed.decode_split_plan(B, Hkv, max_kv, sms)
+    assert n >= 1 and length > 0 and length % rpa_packed.SPLIT_STEP == 0
+    ranges = [(s * length, min((s + 1) * length, max_kv)) for s in range(n)]
+    assert [p for a, b in ranges for p in range(a, b)] == list(range(max_kv))
+    assert max_kv == 0 or all(b > a for a, b in ranges)
+    if n > 1:
+        assert B * Hkv * n <= rpa_packed.SPLIT_BLOCKS_PER_SM * sms
+        assert length >= rpa_packed.SPLIT_MIN
+
+
+def test_merged_decode_split_plan_fills_the_card_at_small_batch():
+    """At TinyLlama's b16 x kv8192 the 64 (request, KV head) pairs take 4
+    splits each (256 blocks on 132 SMs); at b64 x kv1024 the 256 pairs
+    already fill the card and take one."""
+    assert rpa_packed.decode_split_plan(16, 4, 8192, 132) == (4, 2048)
+    assert rpa_packed.decode_split_plan(64, 4, 1024, 132) == (1, 1024)
+
+
 # ------------------------------------------------------------------ engine
 TINYLLAMA = dict(architecture="LlamaForCausalLM", vocab_size=512, hidden_size=256,
                  intermediate_size=512, num_hidden_layers=L, num_attention_heads=32,

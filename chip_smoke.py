@@ -11,8 +11,12 @@ each (any failure raises and exits non-zero):
              with nvcc's register and spill lines and each library's count
              of tensor-core instructions (HMMA/HGMMA, from cuobjdump -sass):
              the bf16-q instantiations of the chunked, the aligned and the
-             merged extend and of the merged decode must have some, their
-             float32 pair none).
+             merged extend and decode must have some, their float32 pair
+             none). Every decode of those three builds runs bf16 q on the
+             tensor cores, split over warps and blocks by a plan the wrapper
+             computes from shapes (the chunked and aligned ones with P
+             rounded to bf16, the merged one with P kept float32); float32
+             q stays on the CUDA cores.
 2. kernels — each kernel's wrapper on the card against its plain PyTorch
              version on the same inputs, at the geometry of its path (page
              16; Hq 32, Hkv 8: chunked pool [1, S, 8, 128] at D 64, aligned
@@ -304,6 +308,11 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
                kv_dtype=dtype_name(kv_dtype), max_abs_err=max_err, kernel_ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, library=library,
                bound_ms=bound_ms, bound_by=bound_by, launches=launches)
+    if counter.name in rpa_packed.DECODE_SPLIT and dtype == torch.bfloat16:
+        # the (n_split, split_len) the wrapper gave the tensor-core kernel
+        row["split_plan"] = rpa_packed.decode_split_plan(
+            counter.name, len(lens), HKV, pt.shape[1] * PAGE,
+            torch.cuda.get_device_properties(0).multi_processor_count)
     print("kernel_case " + json.dumps(row), flush=True)
     del q, kv
     torch.cuda.empty_cache()
@@ -641,6 +650,8 @@ def main() -> int:
             ("rpa_extend", "rpa_extend_mma_kernel", "rpa_extend_kernel"),
             ("rpa_extend_aligned", "rpa_extend_mma_kernel", "rpa_extend_kernel"),
             ("rpa_extend_merged", "rpa_extend_mma_kernel", "rpa_extend_kernel"),
+            ("rpa_decode", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
+            ("rpa_decode_aligned", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
             ("rpa_decode_merged", "rpa_decode_mma_kernel", "rpa_decode_kernel")):
         mma = [n for f, n in sass[kname].items() if mma_fn in f]
         core = [n for f, n in sass[kname].items() if core_fn in f]

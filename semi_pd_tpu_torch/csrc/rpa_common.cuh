@@ -82,8 +82,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // do: _rpa_kernel_merged, and the MLA branches of _rpa_kernel,
 // _rpa_kernel_packed and _rpa_kernel_stream (every MLA build, and the
 // merged builds).
-// P_F32_BUILD also sends the bf16-q pairs of such a build to tensor-core
-// kernels that split P into two bf16 parts (split_bf16 below).
+// On the tensor cores (the extend's and the decode's bf16-q pairs) such a
+// build splits P into two bf16 parts (split_bf16 below) where the others
+// round it once.
 #ifdef RPA_P_F32
 constexpr bool P_F32_BUILD = true;
 template <typename TQ> __device__ __forceinline__ float round_p(float p) { return p; }
@@ -214,7 +215,7 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, b
 }
 
 // Tensor-core pieces of the extend kernel (rpa_extend.cu) and of the
-// merged decode (rpa_decode.cu). ldmatrix: four 8x8 b16 matrices from
+// decode (rpa_decode.cu). ldmatrix: four 8x8 b16 matrices from
 // shared memory (32-bit shared address s), lanes 8j .. 8j + 7 giving the
 // row addresses of matrix j; thread l receives row l / 4, columns 2 (l % 4)
 // and 2 (l % 4) + 1 of each (of its transpose with .trans).

@@ -14,6 +14,9 @@
 //     ragged_paged_attention.py _rpa_kernel_merged, which the JAX dispatcher
 //     runs for every D % 128 != 0 batch on that pool. It upcasts q, K and V
 //     to float32 and keeps P in float32, so this build does not round P.
+//     The first two widen K and V to q's dtype and cast p to it for the P.V
+//     dot, so their bf16-q pairs round P to bf16 once per position, while
+//     the running sum adds the unrounded p.
 // One query row per request, GQA with G = Hq / Hkv query heads per KV head,
 // float32 online softmax, optional logit softcap and sliding window. fp8 KV
 // is widened exactly, as the TPU kernels upcast it to q's dtype.
@@ -24,52 +27,52 @@
 // G = 4, 2 with fp8 KV, far below the ~295 the H100 needs before its
 // tensor cores bind).
 //
-// Two kernels; the entry point picks one by q's type and the build, never
-// at run time otherwise: rpa_decode_kernel (below) for every pair of the
-// chunked and the aligned build and for the merged build's float32 pair,
-// and rpa_decode_mma_kernel (after it) for the merged build's bf16-q
-// pairs.
+// Two kernels; the entry point picks one by q's type alone, in every build:
+// rpa_decode_kernel (below) for the float32 pair, and rpa_decode_mma_kernel
+// (after it) for the bf16-q pairs.
 //
-// rpa_decode_kernel: one block of 128 threads per (request, KV head). The
-// block stages its G query rows in shared memory once, then walks the
-// request's pages through the page table in tiles of 4096 / D positions
-// (64 at D 64, 32 at D 128, so the float32 K and V tiles stay at ~34 KB of
-// shared memory for both): each thread issues the 16-byte loads of its
-// share of the NEXT tile into registers before the block computes on the
-// current one (a two-deep pipeline without cp.async), so a KV byte is read
-// once and the load latency overlaps the score / softmax / P.V work
-// (rpa_decode.cuh).
-// Positions at or past kv_len are never read (the TPU kernels gathered
-// whole sections and relied on the dump page being finite); rows with
-// kv_len == 0 write zeros.
-// Split-KV across blocks, TMA and wgmma are later work for it: at B * Hkv
-// blocks the card is filled only when B * Hkv >= 132.
+// rpa_decode_kernel (float32 q): one block of 128 threads per (request, KV
+// head). The block stages its G query rows in shared memory once, then
+// walks the request's pages through the page table in tiles of 4096 / D
+// positions (64 at D 64, 32 at D 128, so the float32 K and V tiles stay at
+// ~34 KB of shared memory for both): each thread issues the 16-byte loads
+// of its share of the NEXT tile into registers before the block computes on
+// the current one (a two-deep pipeline without cp.async), so a KV byte is
+// read once and the load latency overlaps the score / softmax / P.V work
+// (rpa_decode.cuh). Positions at or past kv_len are never read (the TPU
+// kernels gathered whole sections and relied on the dump page being
+// finite); rows with kv_len == 0 write zeros.
 //
-// rpa_decode_mma_kernel (the merged build, bf16 q over bf16 or fp8 KV):
-// per-position work on the tensor cores, and a split of each request's
-// positions over warps and blocks (flash-decoding).
+// rpa_decode_mma_kernel (bf16 q over bf16 or fp8 KV): per-position work on
+// the tensor cores, and a split of each request's positions over warps and
+// blocks (flash-decoding).
 //   - The G <= 16 query heads of a KV head are the rows of one m16 tile
-//     (rows past G are zero and written nowhere). S = Q K^T is mma.sync
-//     m16n8k16 bf16 -> f32 with K fragments by ldmatrix: exact products, so
-//     float32 scores as _rpa_kernel_merged's. O += P V takes P as its two
-//     bf16 parts hi + lo (split_bf16, rpa_common.cuh) in two products
-//     against the same V fragments by ldmatrix.trans, so P stays float32 to
-//     2^-18 (one bf16 rounding of P would leave 2^-9).
+//     (rows past G are zero and written nowhere; G is 4 on the 1B-class and
+//     8B paths, and the kernel is bytes-bound, so the empty rows cost no
+//     time). S = Q K^T is mma.sync m16n8k16 bf16 -> f32 with K fragments by
+//     ldmatrix: exact products, float32 sums. O += P V against V fragments
+//     by ldmatrix.trans: the chunked and aligned builds take P rounded to
+//     bf16 (to nearest, as astype rounds it), one product, as their TPU
+//     kernels do; the merged build (P_F32_BUILD) takes P as its two bf16
+//     parts hi + lo (split_bf16, rpa_common.cuh) in two products, so P stays
+//     float32 to 2^-18 (one bf16 rounding would leave 2^-9).
 //   - Each warp owns its own run of tiles of SD_TK positions (warp w of a
 //     block takes tiles w, w + 4, ...) with its own online softmax, and its
 //     own ring of bf16 tiles in shared memory: bf16 KV by cp.async, three
 //     stages, two tiles in flight while it computes on the third; fp8 KV
 //     loaded into registers a tile ahead and widened exactly on its way into
 //     one of two bf16 tiles. A warp needs only __syncwarp, never the block.
+//     SD_TK is 32 positions at head_dim 64 and 16 at 128, so that a block's
+//     rings take about 105 KB at either width and two blocks share an SM.
 //   - Grid (n_split, Hkv, B): the host's split plan (rpa_packed.py
 //     decode_split_plan) cuts [0, maxP * page_size) into n_split ranges of
-//     split_len positions, from the shapes and the SM count only (no
-//     kv_lens on the host), so a small batch still fills the card. A block
-//     merges its four warps' (m, l, O) in shared memory in a fixed order;
-//     with one split it writes the output, else its float32 partial to the
-//     caller's scratch, and rpa_decode_combine_kernel merges the splits in
-//     log-sum-exp form, in split order. No atomics: two calls are bitwise
-//     equal.
+//     split_len positions, from the shapes, the build and the SM count only
+//     (no kv_lens on the host), so a small batch still fills the card. A
+//     block merges its four warps' (m, l, O) in shared memory in a fixed
+//     order; with one split it writes the output, else its float32 partial
+//     to the caller's scratch, and rpa_decode_combine_kernel merges the
+//     splits in log-sum-exp form, in split order. No atomics: two calls are
+//     bitwise equal.
 //   Positions outside [lo, kv_len) are zero-filled and never read; a row
 //   with no position (kv_len 0) writes zeros.
 #include <type_traits>
@@ -78,18 +81,18 @@
 
 namespace rpa {
 
-template <typename TQ, typename TKV, int D>
+template <int D>
 __global__ void __launch_bounds__(DEC_NT)
-rpa_decode_kernel(const TQ* __restrict__ q,            // [B, Hq, D]
-                  const TKV* __restrict__ k_pool,      // K of this layer at slot 0
-                  const TKV* __restrict__ v_pool,      // V of this layer at slot 0
+rpa_decode_kernel(const float* __restrict__ q,         // [B, Hq, D]
+                  const float* __restrict__ k_pool,    // K of this layer at slot 0
+                  const float* __restrict__ v_pool,    // V of this layer at slot 0
                   const int* __restrict__ page_table,  // [B, maxP]
                   const int* __restrict__ kv_lens,     // [B]
-                  TQ* __restrict__ out,                // [B, Hq, D]
+                  float* __restrict__ out,             // [B, Hq, D]
                   int Hq, int Hkv, int row_stride, int maxP, int page_size,
                   float scale, float cap, int window) {
   constexpr int NT = DEC_NT, TK = dec_tk<D>(), LD = dec_ld<D>();
-  using Tile = KVTile<TKV, D, TK, NT>;
+  using Tile = KVTile<float, D, TK, NT>;
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int G = Hq / Hkv;
@@ -97,19 +100,19 @@ rpa_decode_kernel(const TQ* __restrict__ q,            // [B, Hq, D]
 
   const int kv_len = kv_lens[b];
   const int limit = min(kv_len, maxP * page_size);
-  TQ* o = out + ((int64_t)b * Hq + (int64_t)h * G) * D;
+  float* o = out + ((int64_t)b * Hq + (int64_t)h * G) * D;
   if (limit <= 0) {  // padded batch row
-    for (int i = tid; i < G * D; i += NT) o[i] = from_f<TQ>(0.f);
+    for (int i = tid; i < G * D; i += NT) o[i] = 0.f;
     return;
   }
   // the query sits at kv_len - 1 and sees positions > kv_len - 1 - window
   const int lo = window > 0 ? max(kv_len - window, 0) : 0;
 
   float acc[DEC_MAXO];
-  decode_begin<TQ, D>(s, q + ((int64_t)b * Hq + (int64_t)h * G) * D, G, acc, tid);
+  decode_begin<float, D>(s, q + ((int64_t)b * Hq + (int64_t)h * G) * D, G, acc, tid);
 
   const int* pt_row = page_table + (int64_t)b * maxP;
-  const TKV* kb = k_pool + (int64_t)h * D;
+  const float* kb = k_pool + (int64_t)h * D;
   const int64_t v_off = v_pool - k_pool;
   Tile tile;
   tile.load(kb, v_off, pt_row, page_size, row_stride, lo, limit, tid);
@@ -120,19 +123,24 @@ rpa_decode_kernel(const TQ* __restrict__ q,            // [B, Hq, D]
     __syncthreads();
     if (start + TK < limit)
       tile.load(kb, v_off, pt_row, page_size, row_stride, start + TK, limit, tid);
-    decode_tile<TQ, D>(s, acc, G, start, limit, scale, cap, tid);
+    decode_tile<float, D>(s, acc, G, start, limit, scale, cap, tid);
   }
   __syncthreads();
-  decode_end<TQ, D>(s, acc, o, G, tid);
+  decode_end<float, D>(s, acc, o, G, tid);
 }
 
 // ------------------------------------------------------------------------
-// The merged build's tensor-core decode (bf16 q).
+// The tensor-core decode (bf16 q).
 
+// The split plan's constants for this build's head_dim; ops/attention/
+// rpa_packed.py DECODE_SPLIT states the same per build, and a CPU test
+// (tests/test_torch_decode_split.py) evaluates these lines to hold them
+// equal.
 constexpr int SD_NT = 128;  // 4 warps
 constexpr int SD_WARPS = SD_NT / 32;
-constexpr int SD_TK = 32;  // KV positions per warp tile
-constexpr int SD_STEP = SD_WARPS * SD_TK;  // split_len must be a multiple of this
+constexpr int SD_TK = 2048 / RPA_HEAD_DIM;  // KV positions per warp tile
+constexpr int SD_STEP = SD_WARPS * SD_TK;   // split_len must be a multiple of this
+constexpr int SD_BLOCKS_PER_SM = 2;         // blocks an SM holds with bf16 KV (SdLayout)
 constexpr float SD_LOG2E = 1.4426950408889634f;
 
 template <typename TKV, int D>
@@ -147,9 +155,15 @@ struct SdLayout {
   static constexpr int VPR = D / VE;                // vectors per K or V row
   static constexpr int NV = SD_TK * VPR / 32;       // of K (and of V) per lane
   static constexpr int VSTEP = 32 / VPR;            // rows between a lane's vectors
-  static_assert(D % 16 == 0 && 32 % VPR == 0 && (SD_TK * VPR) % 32 == 0, "tile shape");
+  static_assert(D == RPA_HEAD_DIM && D % 16 == 0 && SD_TK % 16 == 0, "tile shape");
+  static_assert(32 % VPR == 0 && (SD_TK * VPR) % 32 == 0, "tile shape");
   // the block's merge: each warp's 16 rows of O and (m, l)
   static_assert(SD_WARPS * 16 * (D + 2) * 4 <= SMEM, "merge staging");
+  // SD_BLOCKS_PER_SM blocks with bf16 KV fit in an SM's 228 KB of shared
+  // memory (1 KB of it reserved per block), one more does not
+  static_assert(WIDEN || (SD_BLOCKS_PER_SM * (SMEM + 1024) <= 233472 &&
+                          (SD_BLOCKS_PER_SM + 1) * (SMEM + 1024) > 233472),
+                "SD_BLOCKS_PER_SM");
 };
 
 template <typename TKV, int D>
@@ -356,22 +370,31 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
       o[d][2] *= corr[1];
       o[d][3] *= corr[1];
     }
-    // O += P V with P as its bf16 parts pa + pl (P kept in float32)
+    // O += P V: P rounded to bf16 (pa), or with P_F32_BUILD as its bf16
+    // parts pa + pl (P kept in float32)
 #pragma unroll
     for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t pa[4], pl[4];
+      uint32_t pa[4];
+      [[maybe_unused]] uint32_t pl[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split_bf16(sc[2 * kk + (e >> 1)][2 * (e & 1)], sc[2 * kk + (e >> 1)][2 * (e & 1) + 1],
-                   pa[e], pl[e]);
+      for (int e = 0; e < 4; ++e) {
+        const float p0 = sc[2 * kk + (e >> 1)][2 * (e & 1)];
+        const float p1 = sc[2 * kk + (e >> 1)][2 * (e & 1) + 1];
+        if constexpr (P_F32_BUILD)
+          split_bf16(p0, p1, pa[e], pl[e]);
+        else
+          pa[e] = pack_bf16(p0, p1);
+      }
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t vf[4];
         ldmatrix_x4_trans(vf, sV + v_lane + (kk * 16 * LD + dp * 16) * 2);
         mma_bf16_16816(o[2 * dp], pa, vf[0], vf[1]);
         mma_bf16_16816(o[2 * dp + 1], pa, vf[2], vf[3]);
-        mma_bf16_16816(o[2 * dp], pl, vf[0], vf[1]);
-        mma_bf16_16816(o[2 * dp + 1], pl, vf[2], vf[3]);
+        if constexpr (P_F32_BUILD) {
+          mma_bf16_16816(o[2 * dp], pl, vf[0], vf[1]);
+          mma_bf16_16816(o[2 * dp + 1], pl, vf[2], vf[3]);
+        }
       }
     }
     if constexpr (Lay::WIDEN) {
@@ -493,47 +516,64 @@ static int launch_decode_mma(const void* q, const void* k_pool, const void* v_po
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, int D>
+template <int D>
 static int launch_decode(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                          const void* kv_lens, void* out, int B, int Hq, int Hkv, int row_stride,
                          int maxP, int page_size, float scale, float cap, int window,
                          cudaStream_t stream) {
   const size_t smem = sizeof(float) * dec_smem_floats<D>(Hq / Hkv);
-  auto kernel = rpa_decode_kernel<TQ, TKV, D>;
+  auto kernel = rpa_decode_kernel<D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<dim3(B, Hkv), DEC_NT, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
-      static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
-      static_cast<const int*>(kv_lens), static_cast<TQ*>(out), Hq, Hkv, row_stride, maxP,
+      static_cast<const float*>(q), static_cast<const float*>(k_pool),
+      static_cast<const float*>(v_pool), static_cast<const int*>(pt),
+      static_cast<const int*>(kv_lens), static_cast<float*>(out), Hq, Hkv, row_stride, maxP,
       page_size, scale, cap, window);
   return (int)cudaGetLastError();
 }
 
-// The tensor-core decode for bf16 q in the merged build (P kept in
-// float32); the CUDA-core kernel otherwise.
+// The tensor-core decode for bf16 q, the CUDA-core kernel for float32 q
+// (which takes no plan).
 template <typename TQ, typename TKV, int D>
 static int launch(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                   const void* kv_lens, void* out, int B, int Hq, int Hkv, int row_stride,
                   int maxP, int page_size, float scale, float cap, int window, int n_split,
                   int split_len, void* scratch, cudaStream_t stream) {
-  if constexpr (P_F32_BUILD && std::is_same<TQ, __nv_bfloat16>::value)
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
     return launch_decode_mma<TKV, D>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv,
                                      row_stride, maxP, page_size, scale, cap, window, n_split,
                                      split_len, scratch, stream);
-  else
-    return launch_decode<TQ, TKV, D>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv,
-                                     row_stride, maxP, page_size, scale, cap, window, stream);
+  else {
+    static_assert(std::is_same<TQ, float>::value && std::is_same<TKV, float>::value,
+                  "the CUDA-core kernel takes the float32 pair only");
+    return launch_decode<D>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv, row_stride, maxP,
+                            page_size, scale, cap, window, stream);
+  }
 }
 
-static int decode_entry(const void* q, const void* k_pool, const void* v_pool,
-                        const void* page_table, const void* kv_lens, void* out, int B, int Hq,
-                        int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
-                        float cap, int window, int q_type, int kv_type, int n_split,
-                        int split_len, void* scratch, void* stream) {
+}  // namespace rpa
+
+// C entry point (bound with ctypes by ops/attention/rpa_packed.py), the
+// same for every build of this file. k_pool / v_pool: K and V of the layer
+// at slot 0; row_stride: elements from one slot to the next
+// (rpa_common.cuh). q_type / kv_type: TypeCode. cap <= 0: no softcap;
+// window <= 0: no sliding window. n_split, split_len: the split plan of the
+// bf16-q pairs (n_split ranges of split_len positions, a multiple of
+// SD_STEP, that cover [0, maxP * page_size)); scratch: with n_split > 1, a
+// float32 scratch of n_split * B * Hq * (D + 2) elements. The float32 pair
+// ignores the three.
+// Returns cudaError_t; a head_dim, type pair or plan this build does not
+// take is cudaErrorInvalidValue.
+extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
+                         const void* page_table, const void* kv_lens, void* out, int B, int Hq,
+                         int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
+                         float cap, int window, int q_type, int kv_type, int n_split,
+                         int split_len, void* scratch, void* stream) {
+  using namespace rpa;
   if (B == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM)
     return (int)cudaErrorInvalidValue;
@@ -547,36 +587,3 @@ static int decode_entry(const void* q, const void* k_pool, const void* v_pool,
 #undef RPA_DEC
   return (int)cudaErrorInvalidValue;
 }
-
-}  // namespace rpa
-
-// C entry point (bound with ctypes by ops/attention/rpa_packed.py).
-// k_pool / v_pool: K and V of the layer at slot 0; row_stride: elements
-// from one slot to the next (rpa_common.cuh). q_type / kv_type: TypeCode.
-// cap <= 0: no softcap; window <= 0: no sliding window. The merged build
-// (-DRPA_P_F32) also takes the split plan of its bf16-q pairs (n_split
-// ranges of split_len positions, a multiple of SD_STEP, that cover
-// [0, maxP * page_size)) and, with n_split > 1, a float32 scratch of
-// n_split * B * Hq * (D + 2) elements; its float32 pair ignores them.
-// Returns cudaError_t; a head_dim, type pair or plan this build does not
-// take is cudaErrorInvalidValue.
-#ifdef RPA_P_F32
-extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
-                         const void* page_table, const void* kv_lens, void* out, int B, int Hq,
-                         int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
-                         float cap, int window, int q_type, int kv_type, int n_split,
-                         int split_len, void* scratch, void* stream) {
-  return rpa::decode_entry(q, k_pool, v_pool, page_table, kv_lens, out, B, Hq, Hkv, D,
-                           row_stride, maxP, page_size, scale, cap, window, q_type, kv_type,
-                           n_split, split_len, scratch, stream);
-}
-#else
-extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
-                         const void* page_table, const void* kv_lens, void* out, int B, int Hq,
-                         int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
-                         float cap, int window, int q_type, int kv_type, void* stream) {
-  return rpa::decode_entry(q, k_pool, v_pool, page_table, kv_lens, out, B, Hq, Hkv, D,
-                           row_stride, maxP, page_size, scale, cap, window, q_type, kv_type, 1,
-                           0, nullptr, stream);
-}
-#endif

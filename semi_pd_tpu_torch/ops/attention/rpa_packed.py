@@ -40,13 +40,18 @@ from semi_pd_tpu_torch.ops.attention.rpa_common import (
     layer_kv, pool_heads,
 )
 
+# The MLA decode's and the streaming decodes' entry points
 DECODE_ARGTYPES = [P] * 6 + [I] * 7 + [F, F, I, I, I, P]
+# The GQA decode builds of csrc/rpa_decode.cu share one entry point, which
+# also takes the split plan of their tensor-core kernel (decode_split_plan)
+# and a scratch pointer
+GQA_DECODE_ARGTYPES = DECODE_ARGTYPES[:-1] + [I, I, P, P]
 
 DECODE_KERNEL = register(CudaKernel(
     name="rpa_decode",
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode",
-    argtypes=DECODE_ARGTYPES,
+    argtypes=GQA_DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:32 _rpa_kernel_chunked_packed",
 ))
 
@@ -54,7 +59,7 @@ DECODE_ALIGNED_KERNEL = register(CudaKernel(
     name="rpa_decode_aligned",
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode_aligned",
-    argtypes=DECODE_ARGTYPES,
+    argtypes=GQA_DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (GQA branch)",
     defines=("RPA_ALIGNED",),
 ))
@@ -74,13 +79,11 @@ DECODE_MLA_KERNEL = register(CudaKernel(
 # throughout, P included, so this build keeps P in float32 (RPA_P_F32)
 MERGED_DEFINES = ("RPA_ALIGNED", "RPA_HEAD_DIM=64", "RPA_P_F32")
 
-# Its entry also takes the split plan (decode_split_plan) and a scratch
-# pointer (csrc/rpa_decode.cu)
 DECODE_MERGED_KERNEL = register(CudaKernel(
     name="rpa_decode_merged",
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode_merged",
-    argtypes=DECODE_ARGTYPES[:-1] + [I, I, P, P],
+    argtypes=GQA_DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:300 _rpa_kernel_merged "
              "(decode)",
     defines=MERGED_DEFINES,
@@ -91,25 +94,32 @@ DECODE_MERGED_KERNEL = register(CudaKernel(
 DECODE_KERNELS = {"aligned": DECODE_ALIGNED_KERNEL, "merged": DECODE_MERGED_KERNEL,
                   "latent": DECODE_MLA_KERNEL}
 
-# The merged decode's split plan: a block of its tensor-core kernel walks
-# SPLIT_STEP positions per round (4 warps x 32, csrc/rpa_decode.cu SD_STEP);
-# a split covers at least SPLIT_MIN positions; 2 blocks fit on an SM at
-# once (111 KB of shared memory each with bf16 KV).
-SPLIT_STEP, SPLIT_MIN, SPLIT_BLOCKS_PER_SM = 128, 512, 2
+# The split plan's constants of each GQA decode build, as csrc/rpa_decode.cu
+# states them for the build's head_dim (tests/test_torch_decode_split.py
+# holds the two equal): (SD_STEP, the positions a block of its tensor-core
+# kernel walks per round, 4 warps x SD_TK = 2048 / head_dim; SD_BLOCKS_PER_SM,
+# the blocks an SM holds at once with bf16 KV, about 105 KB of shared memory
+# each at head_dim 64 and 128)
+DECODE_SPLIT = {DECODE_KERNEL.name: (128, 2), DECODE_ALIGNED_KERNEL.name: (64, 2),
+                DECODE_MERGED_KERNEL.name: (128, 2)}
+# a split covers at least SPLIT_MIN positions (unless the page table is shorter)
+SPLIT_MIN = 512
 
 
-def decode_split_plan(B: int, Hkv: int, max_kv: int, num_sms: int):
-    """(n_split, split_len) of the merged decode: [0, max_kv) cut in order
-    into n_split ranges [s * split_len, min((s + 1) * split_len, max_kv)).
-    From the shapes and the card's SM count only (max_kv = maxP *
+def decode_split_plan(build: str, B: int, Hkv: int, max_kv: int, num_sms: int):
+    """(n_split, split_len) of a GQA decode build's tensor-core kernel
+    (``build``: a key of DECODE_SPLIT): [0, max_kv) cut in order into
+    n_split ranges [s * split_len, min((s + 1) * split_len, max_kv)). From
+    the shapes, the build and the card's SM count only (max_kv = maxP *
     page_size; no kv_lens), so the wrapper never waits for the card: enough
-    splits that the B * Hkv * n_split blocks fill the card once, split_len
-    at least SPLIT_MIN (unless max_kv is shorter) and a multiple of
-    SPLIT_STEP."""
-    want = max(1, SPLIT_BLOCKS_PER_SM * num_sms // max(B * Hkv, 1))
+    splits that the B * Hkv * n_split blocks fill the card once at the
+    build's blocks per SM, split_len at least SPLIT_MIN (unless max_kv is
+    shorter) and a multiple of the build's step."""
+    step, blocks_per_sm = DECODE_SPLIT[build]
+    want = max(1, blocks_per_sm * num_sms // max(B * Hkv, 1))
     n = max(1, min(want, max_kv // SPLIT_MIN))
     split_len = -(-max(max_kv, 1) // n)
-    split_len = -(-split_len // SPLIT_STEP) * SPLIT_STEP
+    split_len = -(-split_len // step) * step
     return max(1, -(-max_kv // split_len)), split_len
 
 
@@ -137,9 +147,9 @@ def decode_with(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_siz
     out = q.new_empty((B, Hq, Dv))
     maxP = page_table.shape[1]
     split = ()
-    if kernel is DECODE_MERGED_KERNEL:  # float32 partials of each split, then merged
-        n_split, split_len = decode_split_plan(B, num_kv_heads, maxP * page_size,
-                                               _sm_count(q.device.index or 0))
+    if kernel.name in DECODE_SPLIT:  # float32 partials of each split, then merged
+        n_split, split_len = decode_split_plan(kernel.name, B, num_kv_heads,
+                                               maxP * page_size, _sm_count(q.device.index or 0))
         scratch = (q.new_empty(n_split * B * Hq * (D + 2), dtype=torch.float32)
                    if n_split > 1 else None)
         split = (n_split, split_len, None if scratch is None else scratch.data_ptr())

@@ -1,14 +1,14 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version (the streaming decodes, the tensor-core extend and the merged
+version (the streaming decodes, the tensor-core extend and the tensor-core
 decode also against themselves, bitwise, on a second run; the tensor-core
-extend with 1, 2, 4 and 8 query heads per KV head, the merged decode split
-over blocks at long KV, and the libraries disassembled for HMMA
-instructions), the CUDA MoE path (torch._grouped_mm) against its plain loop,
-and the Engine on its default CUDA device against the same Engine on the
-CPU (Llama on the chunked, the aligned and the merged 5D pool at head_dim
-64, with and without the streaming decode; DeepSeek-V2 on the latent
-pool). This file imports no JAX, so it also runs on a machine with a GPU
-and no JAX:
+extend with 1, 2, 4 and 8 query heads per KV head, the tensor-core decode
+of every GQA build split over blocks at long KV and refusing an invalid
+split plan, and the libraries disassembled for HMMA instructions), the
+CUDA MoE path (torch._grouped_mm) against its plain loop, and the Engine
+on its default CUDA device against the same Engine on the CPU (Llama on
+the chunked, the aligned and the merged 5D pool at head_dim 64, with and
+without the streaming decode; DeepSeek-V2 on the latent pool). This file
+imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
@@ -18,7 +18,8 @@ Tolerances: float32 1e-4 (online vs full softmax, another summation order);
 bfloat16 1e-2, also with fp8 KV, where kernel and plain version read the
 same fp8 bytes: the chunked and the aligned kernels round P to bf16 before
 P.V, as the GQA branches of the TPU kernels do, and 1e-2 absorbs that one
-rounding. The merged and the MLA kernels keep P in float32, as the TPU
+rounding (test_bf16_gqa_decodes_round_p shows that the decodes round it).
+The merged and the MLA kernels keep P in float32, as the TPU
 kernels they replace do, so with bf16 q they are also held closer
 (test_bf16_kernels_keep_p_float32): at least 99% of their outputs bitwise
 equal to the plain version's and none more than one bf16 step away, a
@@ -27,6 +28,8 @@ inputs. The softcap of 1.0 bends most scores, whose std is about 1 here.
 MoE in bf16: 2e-2 relative to the output's scale (both paths round the
 same bf16 products; the grouped GEMM sums K in another order).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -37,7 +40,7 @@ from semi_pd_tpu_torch.config.server_args import ServerArgs
 from semi_pd_tpu_torch.kernels import KERNELS
 from semi_pd_tpu_torch.ops import moe
 from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
-from semi_pd_tpu_torch.ops.attention import rpa_packed, rpa_stream
+from semi_pd_tpu_torch.ops.attention import rpa_common, rpa_packed, rpa_stream
 from semi_pd_tpu_torch.runtime.engine import Engine
 from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, build_attn_meta
 from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
@@ -304,14 +307,16 @@ def test_extend_tensor_cores_leave_unowned_rows_zero(cuda_device, pool, kv):
 
 def test_extend_builds_run_on_the_tensor_cores(cuda_device):
     """The disassembled libraries: every bf16-q instantiation of the
-    chunked, the aligned and the merged extend, and of the merged decode,
-    runs HMMA instructions; their float32 pairs stay on the CUDA cores."""
+    chunked, the aligned and the merged extend and decode runs HMMA
+    instructions; their float32 pairs stay on the CUDA cores."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs)
         "rpa_extend": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 1),
         "rpa_extend_aligned": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 3),
         "rpa_extend_merged": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 3),
+        "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 1),
+        "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
         "rpa_decode_merged": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
     }
     for name, (mma_fn, core_fn, n_mma) in expect.items():
@@ -386,35 +391,111 @@ def test_bf16_kernels_keep_p_float32(cuda_device, monkeypatch, kind, pool, G, kv
     assert rounded < 0.99, rounded
 
 
+# The bf16-q GQA decodes: the chunked and the aligned build round P to bf16,
+# as _rpa_kernel_chunked_packed and _rpa_kernel_packed do (they cast p to
+# the KV tile's dtype for the P.V dot), at G = 4, the 1B-class and 8B paths'
+@pytest.mark.parametrize("pool", ["chunked", "aligned"])
+def test_bf16_gqa_decodes_round_p(cuda_device, pool):
+    """With bf16 q the chunked and the aligned decode stay within the bf16
+    tolerance of the float32 plain version, but match it bitwise on fewer
+    than 99% of outputs (a rounded P reads 60-75% where a float32 P reads
+    99.8-100%): P is rounded once per position, as their TPU kernels round
+    it. A second call is bitwise equal."""
+    assert HQ // HKV == 4
+    head_dim = D if pool == "chunked" else D_ALIGNED
+    q, kv, pt, kvl, _ = _decode_case(cuda_device, torch.bfloat16, aligned=pool == "aligned")
+    fn, plain = _decode_fns("rpa_decode" if pool == "chunked" else "rpa_decode_aligned",
+                            head_dim)
+    kw = _opts("plain", head_dim ** -0.5)
+    out = fn(q, kv, 1, pt, kvl, **kw)
+    ref = plain(q, kv, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(fn(q, kv, 1, pt, kvl, **kw), out)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+    share = float((out == ref).float().mean())
+    assert share < 0.99, share
+
+
+# (build, pool case options, head_dim, KV dtype): the tensor-core decode of
+# every GQA build, split over blocks
+SPLIT_CASES = [("rpa_decode", {}, D, "bfloat16"),
+               ("rpa_decode_aligned", {"aligned": True}, D_ALIGNED, "bfloat16"),
+               ("rpa_decode_aligned", {"aligned": True}, D_ALIGNED, "fp8_e4m3"),
+               ("rpa_decode_merged", {"merged": True}, D, "bfloat16"),
+               ("rpa_decode_merged", {"merged": True}, D, "fp8_e4m3")]
+
+
+def _long_decode(dev, extra, kv):
+    """16 requests over 2048-4096 positions and one padded row."""
+    lens = np.random.default_rng(3).integers(2048, 4097, size=16)
+    lens[0], lens[-1] = 4096, 0
+    return _case(5, [1] * 16, lens.tolist(), dev, torch.bfloat16,
+                 kv_dtype=FP8.get(kv, torch.bfloat16), **extra)
+
+
+def _decode_fns(build, head_dim):
+    """The build's decode wrapper and its plain version."""
+    if build == "rpa_decode":
+        kw = dict(num_kv_heads=HKV, head_dim=head_dim)
+        return (functools.partial(rpa_packed.ragged_paged_attention_chunked_packed, **kw),
+                functools.partial(rpa_packed.decode_attention_plain, **kw))
+    return (rpa_packed.ragged_paged_attention_packed,
+            rpa_packed.ragged_paged_attention_packed_plain)
+
+
 @pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
-@pytest.mark.parametrize("kv", ["bfloat16", "fp8_e4m3"])
-def test_merged_decode_splits_long_kv(cuda_device, kv, opt):
-    """16 requests over 2048-4096 positions and one padded row: the merged
-    decode's plan splits each request's positions over several blocks,
+@pytest.mark.parametrize("build,extra,head_dim,kv", SPLIT_CASES,
+                         ids=[f"{b}-{kv}" for b, _, _, kv in SPLIT_CASES])
+def test_merged_decode_splits_long_kv(cuda_device, build, extra, head_dim, kv, opt):
+    """The tensor-core decode, first written for the merged build, on every
+    GQA build: 16 requests over 2048-4096 positions and one padded row, so
+    the build's plan splits each request's positions over several blocks,
     whose float32 partials the combine pass merges; against the plain
     version, bitwise against a second call, and zeros on the padded row.
     The window (1000 positions) crosses split boundaries."""
-    bf = torch.bfloat16
-    lens = np.random.default_rng(3).integers(2048, 4097, size=16)
-    lens[0], lens[-1] = 4096, 0
-    q, kv_t, pt, kvl, _ = _case(5, [1] * 16, lens.tolist(), cuda_device, bf, merged=True,
-                                kv_dtype=FP8.get(kv, bf))
+    q, kv_t, pt, kvl, _ = _long_decode(cuda_device, extra, kv)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    n_split, _ = rpa_packed.decode_split_plan(16, HKV, pt.shape[1] * PS, sms)
+    n_split, _ = rpa_packed.decode_split_plan(build, 16, HKV, pt.shape[1] * PS, sms)
     assert n_split > 1
-    kw = _opts(opt, D ** -0.5)
+    kw = _opts(opt, head_dim ** -0.5)
     if opt == "window":
         kw["sliding_window"] = 1000
-    k = KERNELS["rpa_decode_merged"]
+    fn, plain = _decode_fns(build, head_dim)
+    k = KERNELS[build]
     before = k.launches
-    out = rpa_packed.ragged_paged_attention_packed(q, kv_t, 1, pt, kvl, **kw)
-    again = rpa_packed.ragged_paged_attention_packed(q, kv_t, 1, pt, kvl, **kw)
-    ref = rpa_packed.ragged_paged_attention_packed_plain(q, kv_t, 1, pt, kvl, **kw)
+    out = fn(q, kv_t, 1, pt, kvl, **kw)
+    again = fn(q, kv_t, 1, pt, kvl, **kw)
+    ref = plain(q, kv_t, 1, pt, kvl, **kw)
     torch.cuda.synchronize()
     assert k.launches == before + 2
     assert torch.equal(out, again)
     assert not out[kvl == 0].any()
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("build", ["rpa_decode", "rpa_decode_aligned", "rpa_decode_merged"])
+def test_decode_refuses_an_invalid_split_plan(cuda_device, build):
+    """The tensor-core decode's entry checks the plan it is given: a
+    split_len that is no multiple of the build's step, ranges that do not
+    cover the page table, or several splits without a scratch make the
+    launch fail, and the wrapper raises; nothing falls back."""
+    _, extra, head_dim, kv = next(c for c in SPLIT_CASES if c[0] == build)
+    q, kv_t, pt, kvl, _ = _long_decode(cuda_device, extra, kv)
+    k = KERNELS[build]
+    step = rpa_packed.DECODE_SPLIT[build][0]
+    max_kv = pt.shape[1] * PS
+    k_ptr, v_ptr, row_stride = rpa_common.kv_planes(kv_t, 1, HKV, head_dim)
+    out = torch.empty_like(q)
+    scratch = torch.empty(16 * 16 * q.shape[1] * (head_dim + 2), device=cuda_device)
+    code = rpa_common.TYPE_CODES
+    for n_split, split_len, scr in ((1, max_kv + step // 2, scratch.data_ptr()),
+                                    (1, max_kv - max_kv % step - step, scratch.data_ptr()),
+                                    (16, -(-max_kv // 16 // step) * step, None)):
+        with pytest.raises(RuntimeError, match="cudaError 1$"):
+            k.launch(q.data_ptr(), k_ptr, v_ptr, pt.data_ptr(), kvl.data_ptr(), out.data_ptr(),
+                     16, q.shape[1], HKV, head_dim, row_stride, pt.shape[1], PS, 1.0, 0.0, 0,
+                     code[q.dtype], code[kv_t.dtype], n_split, split_len, scr,
+                     torch.cuda.current_stream().cuda_stream)
 
 
 STREAM_POOLS = {  # pool: (case options, kernel, head_dim, the build's type pairs)

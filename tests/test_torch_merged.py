@@ -209,16 +209,17 @@ SPLIT_SHAPES = [(1, 4, 2048, 132), (8, 4, 2048, 132), (16, 4, 8192, 132),
 def test_merged_decode_split_plan_covers_every_position_once(B, Hkv, max_kv, sms):
     """The merged decode's split plan, a function of the shapes and the SM
     count only: its ranges cover [0, maxP * page_size) exactly once and in
-    order, in whole rounds of the kernel's block (SPLIT_STEP positions),
+    order, in whole rounds of the kernel's block (its step in DECODE_SPLIT),
     no split is empty, and the blocks (B * Hkv * n_split) fill the card at
     most once over."""
-    n, length = rpa_packed.decode_split_plan(B, Hkv, max_kv, sms)
-    assert n >= 1 and length > 0 and length % rpa_packed.SPLIT_STEP == 0
+    step, blocks_per_sm = rpa_packed.DECODE_SPLIT["rpa_decode_merged"]
+    n, length = rpa_packed.decode_split_plan("rpa_decode_merged", B, Hkv, max_kv, sms)
+    assert n >= 1 and length > 0 and length % step == 0
     ranges = [(s * length, min((s + 1) * length, max_kv)) for s in range(n)]
     assert [p for a, b in ranges for p in range(a, b)] == list(range(max_kv))
     assert max_kv == 0 or all(b > a for a, b in ranges)
     if n > 1:
-        assert B * Hkv * n <= rpa_packed.SPLIT_BLOCKS_PER_SM * sms
+        assert B * Hkv * n <= blocks_per_sm * sms
         assert length >= rpa_packed.SPLIT_MIN
 
 
@@ -226,8 +227,8 @@ def test_merged_decode_split_plan_fills_the_card_at_small_batch():
     """At TinyLlama's b16 x kv8192 the 64 (request, KV head) pairs take 4
     splits each (256 blocks on 132 SMs); at b64 x kv1024 the 256 pairs
     already fill the card and take one."""
-    assert rpa_packed.decode_split_plan(16, 4, 8192, 132) == (4, 2048)
-    assert rpa_packed.decode_split_plan(64, 4, 1024, 132) == (1, 1024)
+    assert rpa_packed.decode_split_plan("rpa_decode_merged", 16, 4, 8192, 132) == (4, 2048)
+    assert rpa_packed.decode_split_plan("rpa_decode_merged", 64, 4, 1024, 132) == (1, 1024)
 
 
 # ------------------------------------------------------------------ engine

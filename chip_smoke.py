@@ -11,12 +11,15 @@ each (any failure raises and exits non-zero):
              with nvcc's register and spill lines and each library's count
              of tensor-core instructions (HMMA/HGMMA, from cuobjdump -sass):
              the bf16-q instantiations of the chunked, the aligned and the
-             merged extend and decode must have some, their float32 pair
-             none). Every decode of those three builds runs bf16 q on the
-             tensor cores, split over warps and blocks by a plan the wrapper
+             merged extend and decode, and of the chunked and the aligned
+             streaming decode, must have some, their float32 pair none).
+             Every decode of those three builds runs bf16 q on the tensor
+             cores, split over warps and blocks by a plan the wrapper
              computes from shapes (the chunked and aligned ones with P
-             rounded to bf16, the merged one with P kept float32); float32
-             q stays on the CUDA cores.
+             rounded to bf16, the merged one with P kept float32); the two
+             GQA streaming decodes run it on the same warp tile, each warp
+             an equal share of the batch's KV tiles; float32 q stays on the
+             CUDA cores.
 2. kernels — each kernel's wrapper on the card against its plain PyTorch
              version on the same inputs, at the geometry of its path (page
              16; Hq 32, Hkv 8: chunked pool [1, S, 8, 128] at D 64, aligned
@@ -31,7 +34,9 @@ each (any failure raises and exits non-zero):
              time (scaled_dot_product_attention over pre-gathered dense KV,
              upcast to bf16 for fp8 KV; a yardstick the port never calls)
              and the least time the card could take (bytes or operations
-             over the card's peak rates).
+             over the card's peak rates); beside each streaming decode's
+             row, the packed decode's time on the same case
+             (``packed_kernel_ms``) and, with bf16 q, its blocks per KV head.
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
              chunked pool, the Meta-Llama-3-8B geometry on the aligned pool
@@ -189,7 +194,8 @@ def dtype_name(dt):
 
 
 def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked",
-                    kv_dtype=None, cap=None, window=None):
+                    kv_dtype=None, cap=None, window=None, beside=None):
+    """One case of phase 2; ``beside``: more fields for its printed row."""
     import torch
     import torch.nn.functional as F
 
@@ -308,11 +314,16 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
                kv_dtype=dtype_name(kv_dtype), max_abs_err=max_err, kernel_ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, library=library,
                bound_ms=bound_ms, bound_by=bound_by, launches=launches)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if counter.name in rpa_packed.DECODE_SPLIT and dtype == torch.bfloat16:
         # the (n_split, split_len) the wrapper gave the tensor-core kernel
         row["split_plan"] = rpa_packed.decode_split_plan(
-            counter.name, len(lens), HKV, pt.shape[1] * PAGE,
-            torch.cuda.get_device_properties(0).multi_processor_count)
+            counter.name, len(lens), HKV, pt.shape[1] * PAGE, sms)
+    if counter.name in rpa_stream.STREAM_TILE and dtype == torch.bfloat16:
+        # the tensor-core stream's blocks per KV head
+        row["stream_blocks"] = rpa_stream.stream_blocks(
+            counter.name, len(lens), HKV, pt.shape[1] * PAGE, sms, fp8=kv.element_size() == 1)
+    row.update(beside or {})
     print("kernel_case " + json.dumps(row), flush=True)
     del q, kv
     torch.cuda.empty_cache()
@@ -351,14 +362,17 @@ def phase_kernels():
         for b, kv in decode_shapes[pool]:
             lens = ragged(b, kv)
             # the streaming decode on the pools that have one, same inputs' shapes
+            # beside each stream row, the packed decode's time on the same case
             kinds = ("decode",) if pool == "merged" else ("decode", "stream")
+            packed = {}
             for kind in kinds:
-                for dt, kdt in pairs:
+                cases = pairs + ([(bf, e5m2)] if pool in fp8_pools and b == 64 else [])
+                for dt, kdt in cases:
+                    beside = ({"packed_kernel_ms": packed[dt, kdt]} if kind == "stream"
+                              else None)
                     rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", kind, gen, rng,
-                                                [1] * b, lens, dt, pool, kdt))
-                if pool in fp8_pools and b == 64:
-                    rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", kind, gen, rng,
-                                                [1] * b, lens, bf, pool, e5m2))
+                                                [1] * b, lens, dt, pool, kdt, beside=beside))
+                    packed[dt, kdt] = rows[-1]["kernel_ms"]
         for name, (ql, kl) in ext.items():
             for dt, kdt in pairs:
                 rows.append(run_kernel_case(name, "extend", gen, rng, ql, kl, dt, pool, kdt))
@@ -652,7 +666,9 @@ def main() -> int:
             ("rpa_extend_merged", "rpa_extend_mma_kernel", "rpa_extend_kernel"),
             ("rpa_decode", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
             ("rpa_decode_aligned", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
-            ("rpa_decode_merged", "rpa_decode_mma_kernel", "rpa_decode_kernel")):
+            ("rpa_decode_merged", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
+            ("rpa_decode_stream", "rpa_stream_mma_kernel", "rpa_stream_kernel"),
+            ("rpa_decode_stream_aligned", "rpa_stream_mma_kernel", "rpa_stream_kernel")):
         mma = [n for f, n in sass[kname].items() if mma_fn in f]
         core = [n for f, n in sass[kname].items() if core_fn in f]
         if not mma or not all(mma) or any(core):

@@ -205,6 +205,10 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// Asks L2 for the 128-byte line at p (no registers, no wait).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
 // As cp_async16, but with ok false it reads nothing and fills the 16 bytes
 // with zeros (gmem must still be a valid address).
 __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool ok) {
@@ -215,7 +219,7 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, b
 }
 
 // Tensor-core pieces of the extend kernel (rpa_extend.cu) and of the
-// decode (rpa_decode.cu). ldmatrix: four 8x8 b16 matrices from
+// decodes (rpa_decode_mma.cuh). ldmatrix: four 8x8 b16 matrices from
 // shared memory (32-bit shared address s), lanes 8j .. 8j + 7 giving the
 // row addresses of matrix j; thread l receives row l / 4, columns 2 (l % 4)
 // and 2 (l % 4) + 1 of each (of its transpose with .trans).
@@ -241,6 +245,16 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c[16 x 8] += a[16 x 8] . b[8 x 8], the same types: a = {(g, 2t), (g + 8,
+// 2t)}, b = {(2t, g)}, each register two neighbouring elements; c as above.
+__device__ __forceinline__ void mma_bf16_1688(float (&c)[4], const uint32_t (&a)[2],
+                                              uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 // 2^x on the special-function unit (relative error ~2^-22; 0 far below).
 __device__ __forceinline__ float fast_exp2(float x) {

@@ -44,8 +44,9 @@
 // finite); rows with kv_len == 0 write zeros.
 //
 // rpa_decode_mma_kernel (bf16 q over bf16 or fp8 KV): per-position work on
-// the tensor cores, and a split of each request's positions over warps and
-// blocks (flash-decoding).
+// the tensor cores (the warp tile, shared with the streaming decode, is in
+// rpa_decode_mma.cuh), and a split of each request's positions over warps
+// and blocks (flash-decoding).
 //   - The G <= 16 query heads of a KV head are the rows of one m16 tile
 //     (rows past G are zero and written nowhere; G is 4 on the 1B-class and
 //     8B paths, and the kernel is bytes-bound, so the empty rows cost no
@@ -78,6 +79,7 @@
 #include <type_traits>
 
 #include "rpa_decode.cuh"
+#include "rpa_decode_mma.cuh"
 
 namespace rpa {
 
@@ -141,7 +143,6 @@ constexpr int SD_WARPS = SD_NT / 32;
 constexpr int SD_TK = 2048 / RPA_HEAD_DIM;  // KV positions per warp tile
 constexpr int SD_STEP = SD_WARPS * SD_TK;   // split_len must be a multiple of this
 constexpr int SD_BLOCKS_PER_SM = 2;         // blocks an SM holds with bf16 KV (SdLayout)
-constexpr float SD_LOG2E = 1.4426950408889634f;
 
 template <typename TKV, int D>
 struct SdLayout {
@@ -197,16 +198,9 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   const int nw = ntiles > warp ? (ntiles - warp + SD_WARPS - 1) / SD_WARPS : 0;  // this warp's
 
   // this warp's A fragments of Q: row g of the m16 tile is query head h G + g
-  const int gid = lane >> 2, tig = lane & 3;
-  const bf16* qb = q + ((int64_t)b * Hq + (int64_t)h * G) * D;
+  const int tig = lane & 3;
   uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = gid + 8 * (e & 1), c = ks * 16 + 8 * (e >> 1) + 2 * tig;
-      qa[ks][e] = r < G ? *reinterpret_cast<const uint32_t*>(qb + r * D + c) : 0u;
-    }
+  mma_load_q<D>(qa, q + ((int64_t)b * Hq + (int64_t)h * G) * D, G, lane);
 
   // this warp's bf16 tiles (stage s: K, then V)
   bf16* wt = reinterpret_cast<bf16*>(sd_smem) + warp * Lay::NST * 2 * Lay::TILE;
@@ -275,22 +269,15 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
     }
   };
 
-  // ldmatrix lane offsets in bytes, as in rpa_extend.cu: K fragments of
-  // S = Q K^T (matrices 2 and 3 are positions 8-15, 1 and 3 the upper 8
-  // dims); V by .trans (matrices 1 and 3 are positions 8-15, 2 and 3 the
-  // next 8 dims)
   const uint32_t s_w = static_cast<uint32_t>(__cvta_generic_to_shared(wt));
-  const int l7 = lane & 7, l8 = ((lane >> 3) & 1) * 8, l16 = ((lane >> 4) & 1) * 8;
-  const uint32_t k_lane = ((l7 + l16) * LD + l8) * 2;
-  const uint32_t v_lane = ((l7 + l8) * LD + l16) * 2;
+  uint32_t k_lane, v_lane;
+  mma_lanes<LD, TK>(lane, k_lane, v_lane);
   // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
   const bool capped = cap > 0.f;
-  const float c = capped ? SD_LOG2E : scale * SD_LOG2E;
+  const float c = capped ? MMA_LOG2E : scale * MMA_LOG2E;
 
-  float o[D / 8][4];
-#pragma unroll
-  for (int d = 0; d < D / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.f, 0.f};
+  MmaState<D> ms;
+  ms.reset();
 
   if constexpr (Lay::WIDEN) {
     fetch(0);
@@ -308,95 +295,9 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
     if constexpr (!Lay::WIDEN) cp_async_wait<1>();  // tile i has landed (this lane's copies)
     __syncwarp();
     issue(i + 2, s == 0 ? Lay::NST - 1 : s - 1);
-    const int st = tile_start(i);
     const uint32_t sK = s_w + s * Lay::STAGE_BYTES, sV = sK + Lay::TILE * 2;
-    // S = Q K^T: TK / 8 n8 tiles of 8 positions
-    float sc[TK / 8][4];
-#pragma unroll
-    for (int j = 0; j < TK / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < TK / 16; ++np) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, sK + k_lane + (np * 16 * LD + ks * 16) * 2);
-        mma_bf16_16816(sc[2 * np], qa[ks], kf[0], kf[1]);
-        mma_bf16_16816(sc[2 * np + 1], qa[ks], kf[2], kf[3]);
-      }
-    }
-    // softcap, mask (only a tile that crosses lo or s1) and the row max
-    const bool masked = st < lo || st + TK > s1;
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < TK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = sc[j][e];
-        if (capped) v = cap * tanhf(v * scale / cap);
-        if (masked) {
-          const int pos = st + j * 8 + 2 * tig + (e & 1);
-          v = (pos >= lo && pos < s1) ? v : NEG_INF;
-        }
-        sc[j][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    }
-    float corr[2], mc[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      const float m_new = fmaxf(mrow[rr], mx[rr]);
-      corr[rr] = fast_exp2((mrow[rr] - m_new) * c);
-      mrow[rr] = m_new;
-      // a row with nothing valid yet keeps m at NEG_INF: p = 2^(NEG_INF c) = 0
-      mc[rr] = (m_new == NEG_INF ? 0.f : m_new) * c;
-    }
-#pragma unroll
-    for (int j = 0; j < TK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(fmaf(sc[j][e], c, -mc[e >> 1]));
-        psum[e >> 1] += p;
-        sc[j][e] = p;
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) lrow[rr] = lrow[rr] * corr[rr] + psum[rr];
-#pragma unroll
-    for (int d = 0; d < D / 8; ++d) {
-      o[d][0] *= corr[0];
-      o[d][1] *= corr[0];
-      o[d][2] *= corr[1];
-      o[d][3] *= corr[1];
-    }
-    // O += P V: P rounded to bf16 (pa), or with P_F32_BUILD as its bf16
-    // parts pa + pl (P kept in float32)
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t pa[4];
-      [[maybe_unused]] uint32_t pl[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p0 = sc[2 * kk + (e >> 1)][2 * (e & 1)];
-        const float p1 = sc[2 * kk + (e >> 1)][2 * (e & 1) + 1];
-        if constexpr (P_F32_BUILD)
-          split_bf16(p0, p1, pa[e], pl[e]);
-        else
-          pa[e] = pack_bf16(p0, p1);
-      }
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, sV + v_lane + (kk * 16 * LD + dp * 16) * 2);
-        mma_bf16_16816(o[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16_16816(o[2 * dp + 1], pa, vf[2], vf[3]);
-        if constexpr (P_F32_BUILD) {
-          mma_bf16_16816(o[2 * dp], pl, vf[0], vf[1]);
-          mma_bf16_16816(o[2 * dp + 1], pl, vf[2], vf[3]);
-        }
-      }
-    }
+    mma_tile<D, LD, TK>(ms, qa, sK, sV, k_lane, v_lane, tile_start(i), lo, s1, scale, cap,
+                        capped, c, tig);
     if constexpr (Lay::WIDEN) {
       if (i + 1 < nw) put(s ^ 1);
       fetch(i + 2);
@@ -410,39 +311,20 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   __syncthreads();  // every tile is idle
   float* sO = reinterpret_cast<float*>(sd_smem);  // [warp][16][D]
   float* sML = sO + SD_WARPS * 16 * D;             // [warp][16][2]
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float l = lrow[rr];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int r = gid + 8 * rr;
-    if (tig == 0) {
-      sML[(warp * 16 + r) * 2] = mrow[rr] * c;
-      sML[(warp * 16 + r) * 2 + 1] = l;
-    }
-#pragma unroll
-    for (int d = 0; d < D / 8; ++d)
-      *reinterpret_cast<float2*>(sO + (warp * 16 + r) * D + d * 8 + 2 * tig) =
-          make_float2(o[d][2 * rr], o[d][2 * rr + 1]);
-  }
+  mma_stage(ms, sO, sML, warp * 16, c, lane);
   __syncthreads();
+  const float* po[SD_WARPS];
+  const float* pml[SD_WARPS];
+#pragma unroll
+  for (int w = 0; w < SD_WARPS; ++w) {
+    po[w] = sO + w * 16 * D;
+    pml[w] = sML + w * 32;
+  }
   const int64_t row0 = (int64_t)b * Hq + (int64_t)h * G;  // the block's first output row
   for (int idx = tid; idx < G * D; idx += SD_NT) {
     const int r = idx / D, d = idx - r * D;
-    float m = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < SD_WARPS; ++w)
-      if (sML[(w * 16 + r) * 2 + 1] > 0.f) m = fmaxf(m, sML[(w * 16 + r) * 2]);
-    float l = 0.f, acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < SD_WARPS; ++w) {
-      const float lw = sML[(w * 16 + r) * 2 + 1];
-      if (lw > 0.f) {
-        const float f = fast_exp2(sML[(w * 16 + r) * 2] - m);
-        l = fmaf(lw, f, l);
-        acc = fmaf(sO[(w * 16 + r) * D + d], f, acc);
-      }
-    }
+    float m, l, acc;
+    merge_partials<D, SD_WARPS>(po, pml, SD_WARPS, r, d, m, l, acc);
     if (n_split == 1) {
       out[(row0 + r) * D + d] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
     } else {

@@ -1,0 +1,272 @@
+// The warp tile of the tensor-core decodes: rpa_decode.cu's
+// rpa_decode_mma_kernel (the packed decode, each request's positions split
+// over warps and blocks) and rpa_stream.cu's rpa_stream_mma_kernel (the
+// streaming decode, each warp an equal share of the batch's KV tiles).
+//
+// One warp computes the G <= 16 query heads of one KV head, the rows of one
+// m16 tile (rows past G are zero and written nowhere), against tiles of TK
+// KV positions staged as bf16 in shared memory, rows LD elements apart:
+//   - S = Q K^T by mma.sync m16n8k16 bf16 -> f32, K fragments by ldmatrix:
+//     exact products, float32 sums;
+//   - the softcap, and the mask of a tile that crosses lo or hi;
+//   - a float32 online softmax in the log2 domain per query row;
+//   - O += P V, V fragments by ldmatrix.trans, with P rounded to bf16 (to
+//     nearest, as astype rounds it: one product), or with -DRPA_P_F32 as its
+//     two bf16 parts hi + lo (split_bf16, rpa_common.cuh: two products, P
+//     kept float32 to 2^-18). The running sum l adds the unrounded p.
+// A tile is 16, 32 or more positions (m16n8k16 for P V, k = 16 positions),
+// or 8 (m16n8k8): the streaming decode's tile at head_dim 128, which keeps
+// its four-deep rings at two blocks per SM.
+//
+// A warp's partial (m c, l, O) of its 16 rows is staged in shared memory
+// (mma_stage) and partials are merged in a fixed order in log-sum-exp form
+// (merge_partials): no atomics, so two calls are bitwise equal.
+#pragma once
+
+#include "rpa_common.cuh"
+
+namespace rpa {
+
+constexpr float MMA_LOG2E = 1.4426950408889634f;
+
+// ldmatrix lane offsets in bytes into a K and a V tile, as in rpa_extend.cu.
+// TK a multiple of 16: K fragments of S = Q K^T (matrices 2 and 3 are
+// positions 8-15, 1 and 3 the upper 8 dims); V by .trans (matrices 1 and 3
+// are positions 8-15, 2 and 3 the next 8 dims). TK 8: matrix j is positions
+// 0-7 at dims 8 j .. 8 j + 7 of a 32-dim block, for K and for V alike.
+template <int LD, int TK>
+__device__ __forceinline__ void mma_lanes(int lane, uint32_t& k_lane, uint32_t& v_lane) {
+  const int l7 = lane & 7;
+  if constexpr (TK % 16 == 0) {
+    const int l8 = ((lane >> 3) & 1) * 8, l16 = ((lane >> 4) & 1) * 8;
+    k_lane = ((l7 + l16) * LD + l8) * 2;
+    v_lane = ((l7 + l8) * LD + l16) * 2;
+  } else {
+    static_assert(TK == 8, "a warp tile is 8 positions or a multiple of 16");
+    k_lane = v_lane = (l7 * LD + (lane >> 3) * 8) * 2;
+  }
+}
+
+// The A fragments of Q for one warp: row g of the m16 tile is query row g
+// of qb (G rows of D), zero past G.
+template <int D>
+__device__ __forceinline__ void mma_load_q(uint32_t (&qa)[D / 16][4],
+                                           const __nv_bfloat16* __restrict__ qb, int G,
+                                           int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = gid + 8 * (e & 1), c = ks * 16 + 8 * (e >> 1) + 2 * tig;
+      qa[ks][e] = r < G ? *reinterpret_cast<const uint32_t*>(qb + r * D + c) : 0u;
+    }
+}
+
+// A warp's softmax state: O (rows gid and gid + 8, columns d * 8 + 2 tig
+// and + 1 of each 8-wide block d), the running max m (raw dot or capped
+// score) and sum l of its two rows.
+template <int D>
+struct MmaState {
+  float o[D / 8][4];
+  float mrow[2], lrow[2];
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+    mrow[0] = mrow[1] = NEG_INF;
+    lrow[0] = lrow[1] = 0.f;
+  }
+};
+
+// One tile of TK positions starting at position st, K and V at the shared
+// addresses sK and sV: positions outside [lo, hi) score nothing (only a
+// tile that crosses lo or hi is masked). p = 2^(v c - m c), v the raw dot
+// (c = scale log2 e) or, with cap > 0, the capped score (c = log2 e).
+template <int D, int LD, int TK>
+__device__ __forceinline__ void mma_tile(MmaState<D>& s, const uint32_t (&qa)[D / 16][4],
+                                         uint32_t sK, uint32_t sV, uint32_t k_lane,
+                                         uint32_t v_lane, int st, int lo, int hi, float scale,
+                                         float cap, bool capped, float c, int tig) {
+  constexpr int KS = D / 16, NJ = (TK + 7) / 8;
+  // S = Q K^T: TK / 8 n8 tiles of 8 positions
+  float sc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+  if constexpr (TK % 16 == 0) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < TK / 16; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, sK + k_lane + (np * 16 * LD + ks * 16) * 2);
+        mma_bf16_16816(sc[2 * np], qa[ks], kf[0], kf[1]);
+        mma_bf16_16816(sc[2 * np + 1], qa[ks], kf[2], kf[3]);
+      }
+    }
+  } else {  // TK 8: one x4 load covers two k16 steps of the dims
+#pragma unroll
+    for (int kp = 0; kp < KS / 2; ++kp) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, sK + k_lane + kp * 32 * 2);
+      mma_bf16_16816(sc[0], qa[2 * kp], kf[0], kf[1]);
+      mma_bf16_16816(sc[0], qa[2 * kp + 1], kf[2], kf[3]);
+    }
+  }
+  // softcap, mask (only a tile that crosses lo or hi) and the row max
+  const bool masked = st < lo || st + TK > hi;
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = sc[j][e];
+      if (capped) v = cap * tanhf(v * scale / cap);
+      if (masked) {
+        const int pos = st + j * 8 + 2 * tig + (e & 1);
+        v = (pos >= lo && pos < hi) ? v : NEG_INF;
+      }
+      sc[j][e] = v;
+      mx[e >> 1] = fmaxf(mx[e >> 1], v);
+    }
+  }
+  float corr[2], mc[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+    const float m_new = fmaxf(s.mrow[rr], mx[rr]);
+    corr[rr] = fast_exp2((s.mrow[rr] - m_new) * c);
+    s.mrow[rr] = m_new;
+    // a row with nothing valid yet keeps m at NEG_INF: p = 2^(NEG_INF c) = 0
+    mc[rr] = (m_new == NEG_INF ? 0.f : m_new) * c;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(sc[j][e], c, -mc[e >> 1]));
+      psum[e >> 1] += p;
+      sc[j][e] = p;
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) s.lrow[rr] = s.lrow[rr] * corr[rr] + psum[rr];
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) {
+    s.o[d][0] *= corr[0];
+    s.o[d][1] *= corr[0];
+    s.o[d][2] *= corr[1];
+    s.o[d][3] *= corr[1];
+  }
+  // O += P V: P rounded to bf16 (pa), or with P_F32_BUILD as its bf16
+  // parts pa + pl (P kept in float32)
+  if constexpr (TK % 16 == 0) {
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t pa[4];
+      [[maybe_unused]] uint32_t pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p0 = sc[2 * kk + (e >> 1)][2 * (e & 1)];
+        const float p1 = sc[2 * kk + (e >> 1)][2 * (e & 1) + 1];
+        if constexpr (P_F32_BUILD)
+          split_bf16(p0, p1, pa[e], pl[e]);
+        else
+          pa[e] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, sV + v_lane + (kk * 16 * LD + dp * 16) * 2);
+        mma_bf16_16816(s.o[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16_16816(s.o[2 * dp + 1], pa, vf[2], vf[3]);
+        if constexpr (P_F32_BUILD) {
+          mma_bf16_16816(s.o[2 * dp], pl, vf[0], vf[1]);
+          mma_bf16_16816(s.o[2 * dp + 1], pl, vf[2], vf[3]);
+        }
+      }
+    }
+  } else {  // TK 8: P is the m16 x k8 A fragment; one x4.trans load, 4 dim blocks
+    uint32_t pa[2];
+    [[maybe_unused]] uint32_t pl[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if constexpr (P_F32_BUILD)
+        split_bf16(sc[0][2 * e], sc[0][2 * e + 1], pa[e], pl[e]);
+      else
+        pa[e] = pack_bf16(sc[0][2 * e], sc[0][2 * e + 1]);
+    }
+#pragma unroll
+    for (int dq = 0; dq < D / 32; ++dq) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, sV + v_lane + dq * 32 * 2);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma_bf16_1688(s.o[4 * dq + j], pa, vf[j]);
+        if constexpr (P_F32_BUILD) mma_bf16_1688(s.o[4 * dq + j], pl, vf[j]);
+      }
+    }
+  }
+}
+
+// l of row rr, summed over the four lanes of a quad
+template <int D>
+__device__ __forceinline__ float mma_row_sum(const MmaState<D>& s, int rr) {
+  float l = s.lrow[rr];
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  return l;
+}
+
+// Stages the warp's partial of its 16 rows (with CLIP, of its first G) as
+// rows row0 .. row0 + 15 of sO ([.][D]: O) and sML ([.][2]: m c, l), in
+// shared or global memory.
+template <int D, bool CLIP = false>
+__device__ __forceinline__ void mma_stage(const MmaState<D>& s, float* sO, float* sML, int row0,
+                                          float c, int lane, int G = 16) {
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const float l = mma_row_sum(s, rr);
+    const int r = gid + 8 * rr;
+    if (CLIP && r >= G) continue;
+    if (tig == 0) {
+      sML[(row0 + r) * 2] = s.mrow[rr] * c;
+      sML[(row0 + r) * 2 + 1] = l;
+    }
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d)
+      *reinterpret_cast<float2*>(sO + (row0 + r) * D + d * 8 + 2 * tig) =
+          make_float2(s.o[d][2 * rr], s.o[d][2 * rr + 1]);
+  }
+}
+
+// Merges n <= N staged partials in the order given, output (row r, dim d):
+// m = max of their (m c) over those that saw a position (l > 0), l = sum
+// 2^(m_i - m) l_i, acc = sum 2^(m_i - m) O_i. The output is acc / l (0
+// where l is 0), or (acc, m, l) a partial again.
+template <int D, int N>
+__device__ __forceinline__ void merge_partials(const float* const (&po)[N],
+                                               const float* const (&pml)[N], int n, int r,
+                                               int d, float& m, float& l, float& acc) {
+  m = NEG_INF;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i < n && pml[i][r * 2 + 1] > 0.f) m = fmaxf(m, pml[i][r * 2]);
+  l = 0.f;
+  acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i < n) {
+      const float lw = pml[i][r * 2 + 1];
+      if (lw > 0.f) {
+        const float f = fast_exp2(pml[i][r * 2] - m);
+        l = fmaf(lw, f, l);
+        acc = fmaf(po[i][r * D + d], f, acc);
+      }
+    }
+  }
+}
+
+}  // namespace rpa

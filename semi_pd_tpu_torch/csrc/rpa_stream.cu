@@ -17,31 +17,55 @@
 // What carries over from the TPU design is the schedule, not its blocks:
 // the KV tiles of many requests form ONE sequence, fetched STREAM_NBUF deep
 // across request boundaries, so the next request's first tiles are in
-// flight while the block finishes the current one. The TPU kernel streamed
-// the whole batch on one core; here each block streams its own run.
+// flight while the current one finishes. The TPU kernel streamed the whole
+// batch on one core; here a persistent grid of (P, KV heads) blocks, or (P,
+// groups of 8 query heads) on the latent pool, shares it out. Each block
+// computes the prefix sum of ceil(kv_len / TK) over the batch from kv_lens
+// on the device (stream_scan: no host sync, no host plan). Rows with
+// kv_len 0 write zeros; no slot at or past kv_len is read.
 //
-// Design: a persistent grid of (P, KV heads) blocks, or (P, groups of 8
-// query heads) on the latent pool, with P = min(B, resident blocks per SM *
-// SMs / the second grid dimension), so the grid fills the card once. Each
-// block computes the prefix sum of ceil(kv_len / TK) over the batch from
-// kv_lens on the device (no host sync) and takes the contiguous run of
-// requests whose first tile falls in its 1/P share of all tiles: whole
-// requests per block, so no combine pass (split-KV with a combine is later
-// work). It walks the run's (request, tile) pairs through a ring of
-// STREAM_NBUF stages of raw KV bytes in shared memory, filled by 16-byte
-// cp.async.cg copies (one commit group per tile; cp.async.wait_group
-// STREAM_NBUF - 1 before a tile is read, so every issued tile is waited for
-// exactly once), widens each tile to float32 on the read side (KVTile::take
-// and store) and computes it as the decode kernels do (rpa_decode.cuh,
-// rpa_mla.cuh). The softmax state resets at a request's first tile and the
-// output is written at its last. No slot at or past kv_len is read; rows
-// with kv_len 0 write zeros.
+// bf16 q on the GQA pools: rpa_stream_mma_kernel, on the tensor cores with
+// the packed decode's warp tile (rpa_decode_mma.cuh: the G <= 16 query
+// heads of a KV head as the rows of one m16 tile, P rounded to bf16 as the
+// TPU kernels round it). P = STREAM_BLOCKS_PER_SM * SMs / Hkv blocks per KV
+// head (rpa_stream.py stream_blocks, from shapes, the KV type and the SM
+// count: two blocks per SM with bf16 KV, three with fp8 KV, the card filled
+// once), and the 4 P warps of a KV head's
+// column take equal contiguous shares of the tile sequence, cut at tile
+// boundaries (not whole requests, so one long request spreads over the
+// card). Each warp walks its share through its own ring of STREAM_NBUF
+// stages by cp.async (one commit group per tile, each waited for exactly
+// once; the ring does not drain at a request boundary): bf16 KV lands in
+// padded bf16 stages that ldmatrix reads in place, fp8 KV lands raw and is
+// widened exactly to bf16 from shared memory one tile ahead of the mma. A
+// warp needs only __syncwarp while it streams. Its softmax state resets at
+// a request's first tile; a request whole in one warp is written there, one
+// cut between warps of a block is merged in shared memory in warp order
+// (the partial of a request cut at a warp's first tile waits in the
+// caller's scratch until the ring is idle), one cut across blocks leaves
+// float32 partials in the scratch, which rpa_stream_combine_kernel merges
+// in block order. No atomics: two calls are bitwise equal. The warp tile is
+// STREAM_TK = 1024 / D positions (16 at head_dim 64, 8 at 128, where P V
+// takes mma m16n8k8), so that the four rings of two blocks (bf16 KV) or
+// three (fp8 KV) fit an SM at both widths (StreamLayout): the more tiles in
+// flight per SM, the closer to the bytes' time.
 //
-// Bound on this card: bytes, as the decode's (rpa_decode.cu). The ring
-// costs STREAM_NBUF * TK * 2 * D * sizeof(KV) bytes of shared memory (64 KB
-// in bf16 at D 64 and at D 128, 72 KB on the latent pool; twice that in
-// float32), which caps the blocks resident on an SM and so P.
+// float32 q (rpa_stream_kernel) and the latent pool (rpa_stream_mla_kernel)
+// stay on the CUDA cores, with P = min(B, resident blocks per SM * SMs /
+// the second grid dimension): each block takes the contiguous run of whole
+// requests whose first tile falls in its 1/P share of all tiles, walks
+// them through a ring of STREAM_NBUF stages of raw KV bytes (16-byte
+// cp.async.cg copies, one commit group per tile), widens each tile to
+// float32 on the read side (KVTile::take and store) and computes it as the
+// CUDA-core decode kernels do (rpa_decode.cuh, rpa_mla.cuh).
+//
+// Bound on this card: bytes, as the decode's (rpa_decode.cu): every live
+// KV row is read once; the tensor-core kernel does 4 * Hq * D operations
+// per position on bf16 tensor cores, far below the bytes' time.
+#include <type_traits>
+
 #include "rpa_decode.cuh"
+#include "rpa_decode_mma.cuh"
 #include "rpa_mla.cuh"
 
 namespace rpa {
@@ -56,23 +80,20 @@ __device__ __forceinline__ int stream_tiles(int kv_len, int max_len, int TK) {
   return n > 0 ? (n + TK - 1) / TK : 0;
 }
 
-// This block's run [r0, r1) of the batch. Request b goes to block
-// min(P - 1, first(b) * P / total), where first(b) is the prefix sum of the
-// tile counts of the requests before b and total the batch's tile count:
-// the owner never decreases with b, so each run is contiguous, and each
-// block gets about total / P tiles in whole requests. Each thread sums a
-// contiguous chunk of requests; the chunks' exclusive scan runs over the
-// warps in shared memory.
-__device__ __forceinline__ void stream_run(const int* __restrict__ kv_lens, int B, int max_len,
-                                           int TK, int& r0, int& r1) {
+// The batch's tile count `total`, and this thread's chunk [b0, b1) of
+// requests with its tile count `mine` and the tiles of the requests before
+// it, `first`: each thread sums a contiguous chunk of requests, and the
+// chunks' exclusive scan runs over the warps in shared memory.
+__device__ __forceinline__ void stream_scan(const int* __restrict__ kv_lens, int B, int max_len,
+                                            int TK, int& b0, int& b1, int& mine, int& first,
+                                            int& total) {
   constexpr int NW = STREAM_NT / 32;
   __shared__ int s_part[NW];
-  __shared__ int s_cnt[2][NW];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int p = blockIdx.x, P = gridDim.x;
   const int per = (B + STREAM_NT - 1) / STREAM_NT;
-  const int b0 = min(B, tid * per), b1 = min(B, b0 + per);
-  int mine = 0;
+  b0 = min(B, tid * per);
+  b1 = min(B, b0 + per);
+  mine = 0;
   for (int b = b0; b < b1; ++b) mine += stream_tiles(kv_lens[b], max_len, TK);
   int incl = mine;
 #pragma unroll
@@ -82,12 +103,28 @@ __device__ __forceinline__ void stream_run(const int* __restrict__ kv_lens, int 
   }
   if (lane == 31) s_part[warp] = incl;
   __syncthreads();
-  int first = incl - mine, total = 0;
+  first = incl - mine;
+  total = 0;
 #pragma unroll
   for (int w = 0; w < NW; ++w) {
     total += s_part[w];
     if (w < warp) first += s_part[w];
   }
+}
+
+// This block's run [r0, r1) of the batch (the CUDA-core kernels). Request b
+// goes to block min(P - 1, first(b) * P / total), where first(b) is the
+// prefix sum of the tile counts of the requests before b and total the
+// batch's tile count: the owner never decreases with b, so each run is
+// contiguous, and each block gets about total / P tiles in whole requests.
+__device__ __forceinline__ void stream_run(const int* __restrict__ kv_lens, int B, int max_len,
+                                           int TK, int& r0, int& r1) {
+  constexpr int NW = STREAM_NT / 32;
+  __shared__ int s_cnt[2][NW];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int p = blockIdx.x, P = gridDim.x;
+  int b0, b1, mine, first, total;
+  stream_scan(kv_lens, B, max_len, TK, b0, b1, mine, first, total);
   unsigned below = 0, upto = 0;
   for (int b = b0; b < b1; ++b) {
     const int own = total > 0 ? min(P - 1, (int)((int64_t)first * P / total)) : 0;
@@ -306,18 +343,470 @@ static int launch_stream_mla(const void* q, const void* lat, const void* pt, con
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------
+// The tensor-core stream (bf16 q over bf16 or fp8 KV).
+
+// The schedule's constants for this build's head_dim; ops/attention/
+// rpa_stream.py states the same (STREAM_TILE per build, STREAM_NBUF,
+// STREAM_WARPS, STREAM_BLOCKS_PER_SM and STREAM_BLOCKS_PER_SM_FP8), and a
+// CPU test (tests/test_torch_stream_split.py) evaluates these lines to hold
+// the two equal.
+constexpr int STREAM_TK = 1024 / RPA_HEAD_DIM;  // KV positions per warp tile
+constexpr int STREAM_WARPS = STREAM_NT / 32;
+constexpr int STREAM_BLOCKS_PER_SM = 2;      // blocks an SM holds with bf16 KV (StreamLayout)
+constexpr int STREAM_BLOCKS_PER_SM_FP8 = 3;  // and with fp8 KV
+
+// A warp's shared memory: its ring of STREAM_NBUF stages (bf16 KV: K and V
+// tiles in bf16 with padded rows, read by ldmatrix in place; fp8 KV: the
+// pool's raw bytes, then two bf16 tiles it is widened into). Once the ring
+// is idle it holds the warp's two partials for the block's merge: slot 1
+// (a request cut at the warp's last tile), then slot 0 (cut at its first
+// tile, kept in the scratch while the ring streams).
+template <typename TKV, int D>
+struct StreamLayout {
+  static constexpr bool WIDEN = sizeof(TKV) == 1;
+  static constexpr int TK = STREAM_TK;
+  static constexpr int LD = D + 8;                  // bf16 row stride: no ldmatrix conflicts
+  static constexpr int TILE = TK * LD;              // bf16 elements of one K or V tile
+  static constexpr int BF_BYTES = 2 * TILE * 2;     // a K and a V tile in bf16
+  static constexpr int STAGE_BYTES = WIDEN ? 2 * TK * D : BF_BYTES;  // one ring stage
+  static constexpr int RING_BYTES = STREAM_NBUF * STAGE_BYTES + (WIDEN ? 2 * BF_BYTES : 0);
+  static constexpr int PART = 16 * (D + 2);         // floats of a partial: O [16][D], (m c, l) [16][2]
+  static constexpr int SMEM = STREAM_WARPS * RING_BYTES;
+  static constexpr int BLOCKS = WIDEN ? STREAM_BLOCKS_PER_SM_FP8 : STREAM_BLOCKS_PER_SM;
+  static constexpr int VE = 16 / (int)sizeof(TKV);  // KV elements per 16-byte vector
+  static constexpr int VPR = D / VE;                // vectors per K or V row
+  static constexpr int NV = TK * VPR / 32;          // of K (and of V) per lane
+  static constexpr int VSTEP = 32 / VPR;            // rows between a lane's vectors
+  static_assert(D == RPA_HEAD_DIM && D % 32 == 0 && (TK == 8 || TK % 16 == 0), "tile shape");
+  static_assert(32 % VPR == 0 && (TK * VPR) % 32 == 0 && NV >= 1, "tile shape");
+  static_assert(2 * PART * 4 <= RING_BYTES && RING_BYTES % 16 == 0, "partials in the ring");
+  // BLOCKS blocks fit in an SM's 228 KB of shared memory (1 KB of it
+  // reserved per block, and the kernel's static shared memory). More
+  // blocks keep more tiles in flight: fp8 KV, at half the bytes per tile,
+  // gains from a third; bf16 KV, nearer the memory's rate, lost (PERF.md)
+  static_assert(BLOCKS * (SMEM + 1024 + 128) <= 233472, "blocks per SM");
+};
+
+// The caller's float32 scratch (P blocks per KV head, G query heads per KV
+// head): each warp's slot-0 partial, G rows per (KV head, warp) of O, then
+// of (m c, l); each block's two partials for the combine pass, G rows per
+// (KV head, block, slot), likewise; one int4 descriptor per (KV head,
+// block). P * (6 * Hq * (D + 2) + 4 * Hkv) floats in all.
+struct StreamScratch {
+  float *wo, *wml, *bo, *bml;
+  int4* desc;
+  __device__ __forceinline__ StreamScratch(float* part, int Hkv, int P, int G, int D) {
+    const int64_t nw = (int64_t)Hkv * STREAM_WARPS * P * G, nb = (int64_t)Hkv * P * 2 * G;
+    wo = part;
+    wml = wo + nw * D;
+    bo = wml + nw * 2;
+    bml = bo + nb * D;
+    desc = reinterpret_cast<int4*>(bml + nb * 2);
+  }
+};
+
+// Block (p, KV head h) of P x Hkv, warp w of 4: the batch's tiles of TK
+// positions, request-major (each request's ceil(min(kv_len, maxP *
+// page_size) / TK) tiles in order), form one sequence of T tiles; global
+// warp v = 4 p + w walks [s_v, s_v+1), s_v = floor(v T / (4 P)): equal
+// shares cut at tile boundaries, differing by at most one tile. A warp
+// resets its softmax at a request's first tile, or at its own first tile,
+// and ends a segment at the request's last tile or at its own last. A
+// request whole in one warp is written there. One cut between warps of this
+// block is merged in shared memory in warp order; one cut across blocks
+// leaves one float32 partial per block in `part` (slot 0: the request at
+// the block's first tile, begun in an earlier block; slot 1: the request
+// at its last tile, going on in a later one), and rpa_stream_combine_kernel
+// merges them in block order. Rows with no position are written as zeros
+// by block r % P.
+template <typename TKV, int D>
+__global__ void __launch_bounds__(STREAM_NT, StreamLayout<TKV, D>::BLOCKS)
+rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
+                      const TKV* __restrict__ k_pool,       // K of this layer at slot 0
+                      const TKV* __restrict__ v_pool,       // V of this layer at slot 0
+                      const int* __restrict__ page_table,   // [B, maxP]
+                      const int* __restrict__ kv_lens,      // [B]
+                      __nv_bfloat16* __restrict__ out,      // [B, Hq, D]
+                      float* __restrict__ part,  // StreamScratch
+                      int B, int Hq, int Hkv, int row_stride, int maxP, int page_size,
+                      float scale, float cap) {
+  using bf16 = __nv_bfloat16;
+  using Lay = StreamLayout<TKV, D>;
+  constexpr int TK = Lay::TK, LD = Lay::LD, NW = STREAM_WARPS;
+  extern __shared__ __align__(16) unsigned char st_smem[];
+  // boundary k of the block's shares, the request holding its tile and that
+  // request's first tile
+  __shared__ int sb[NW + 1], s_req[NW + 1], s_first[NW + 1];
+  const int p = blockIdx.x, P = gridDim.x, h = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gid = lane >> 2,
+            tig = lane & 3;
+  const int G = Hq / Hkv, max_len = maxP * page_size;
+
+  // the tile sequence and the block's boundaries s_k = s_(4 p + k), k = 0..4;
+  // the thread whose chunk holds tile s_k finds its request
+  int b0, b1, mine, first, T;
+  stream_scan(kv_lens, B, max_len, TK, b0, b1, mine, first, T);
+#pragma unroll
+  for (int k = 0; k <= NW; ++k) {
+    const int s = (int)((int64_t)(NW * p + k) * T / (NW * P));
+    if (tid == 0) sb[k] = s;
+    if (s >= T) {
+      if (tid == 0) {
+        s_req[k] = B;
+        s_first[k] = T;
+      }
+    } else if (s >= first && s < first + mine) {
+      int f = first;
+      for (int b = b0; b < b1; ++b) {
+        const int n = stream_tiles(kv_lens[b], max_len, TK);
+        if (s < f + n) {
+          s_req[k] = b;
+          s_first[k] = f;
+          break;
+        }
+        f += n;
+      }
+    }
+  }
+  __syncthreads();
+  // boundary k cuts its request when that request began before it
+  auto cut = [&](int k) { return sb[k] < T && s_first[k] < sb[k]; };
+  const StreamScratch scr(part, Hkv, P, G, D);
+
+  // this warp's ring, and its slot-0 partial in the scratch
+  unsigned char* wbase = st_smem + warp * Lay::RING_BYTES;
+  const int64_t wrow = ((int64_t)h * NW * P + NW * p + warp) * G;
+  const TKV* kb = k_pool + (int64_t)h * D;
+  const int64_t v_off = v_pool - k_pool;
+  const int pshift = (page_size & (page_size - 1)) ? -1 : __ffs(page_size) - 1;
+  const int vc = lane % Lay::VPR, vt0 = lane / Lay::VPR;
+  const int ntiles = sb[warp + 1] - sb[warp];
+
+  // The fetch side: the next tile to copy, tile ft of request fr (fn tiles
+  // within flim = min(kv_len, maxP * page_size)), and the page of each of
+  // this lane's rows of it, loaded a tile ahead so that no copy waits on the
+  // page table. One commit group per issue(), empty past the share's end,
+  // so that cp_async_wait<STREAM_NBUF - 2> before tile i always leaves tile
+  // i complete, across request boundaries too.
+  int fr = s_req[warp], ft = sb[warp] - s_first[warp], flim = 0, fn = 0, issued = 0;
+  int pg[Lay::NV];
+  auto page_of = [&](int pos) { return pshift >= 0 ? pos >> pshift : pos / page_size; };
+  auto next_pages = [&]() {
+    while (ft >= fn) {  // the next request with a tile; its q rows into L2
+      ++fr;
+      ft = 0;
+      flim = min(kv_lens[fr], max_len);
+      fn = flim > 0 ? (flim + TK - 1) / TK : 0;
+      if (lane * 32 < G * D * 2)
+        prefetch_l2(reinterpret_cast<const char*>(q + ((int64_t)fr * Hq + (int64_t)h * G) * D) +
+                    lane * 32);
+    }
+    const int* pt_row = page_table + (int64_t)fr * maxP;
+#pragma unroll
+    for (int k = 0; k < Lay::NV; ++k) {
+      const int pos = ft * TK + vt0 + k * Lay::VSTEP;
+      pg[k] = pos < flim ? pt_row[page_of(pos)] : 0;
+    }
+  };
+  if (ntiles > 0) {
+    flim = min(kv_lens[fr], max_len);
+    fn = (flim + TK - 1) / TK;
+    next_pages();
+  }
+  auto issue = [&]() {
+    if (issued < ntiles) {
+      unsigned char* stage = wbase + (issued % STREAM_NBUF) * Lay::STAGE_BYTES;
+#pragma unroll
+      for (int k = 0; k < Lay::NV; ++k) {
+        const int row = vt0 + k * Lay::VSTEP, pos = ft * TK + row;
+        const bool ok = pos < flim;  // nothing at or past kv_len is read
+        const TKV* src =
+            ok ? kb + ((int64_t)pg[k] * page_size + (pos - page_of(pos) * page_size)) *
+                          row_stride + vc * Lay::VE
+               : kb;
+        if constexpr (Lay::WIDEN) {  // raw bytes, vector (row, vc) of K, then of V
+          uint4* dk = reinterpret_cast<uint4*>(stage) + row * Lay::VPR + vc;
+          cp_async16_zfill(dk, src, ok);
+          cp_async16_zfill(dk + TK * Lay::VPR, src + v_off, ok);
+        } else {
+          bf16* dk = reinterpret_cast<bf16*>(stage) + row * LD + vc * 8;
+          cp_async16_zfill(dk, src, ok);
+          cp_async16_zfill(dk + Lay::TILE, src + v_off, ok);
+        }
+      }
+      ++ft;
+      if (++issued < ntiles) next_pages();
+    }
+    cp_async_commit();
+  };
+  // fp8 KV: the raw stage of tile i, widened exactly by the lanes that copied
+  // it into bf16 tile i % 2
+  bf16* wide = reinterpret_cast<bf16*>(wbase + STREAM_NBUF * Lay::STAGE_BYTES);
+  auto widen = [&](int i) {
+    if constexpr (Lay::WIDEN) {
+      const uint4* stage =
+          reinterpret_cast<const uint4*>(wbase + (i % STREAM_NBUF) * Lay::STAGE_BYTES);
+#pragma unroll
+      for (int k = 0; k < Lay::NV; ++k) {
+        const int row = vt0 + k * Lay::VSTEP;
+        uint4* dk = reinterpret_cast<uint4*>(wide + (i & 1) * 2 * Lay::TILE + row * LD + vc * 16);
+        uint4* dv = dk + Lay::TILE / 8;
+        widen_bf16<TKV>(stage[row * Lay::VPR + vc], dk[0], dk[1]);
+        widen_bf16<TKV>(stage[TK * Lay::VPR + row * Lay::VPR + vc], dv[0], dv[1]);
+      }
+    }
+  };
+
+  const uint32_t s_w = static_cast<uint32_t>(
+      __cvta_generic_to_shared(Lay::WIDEN ? static_cast<void*>(wide) : wbase));
+  uint32_t k_lane, v_lane;
+  mma_lanes<LD, TK>(lane, k_lane, v_lane);
+  // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
+  const bool capped = cap > 0.f;
+  const float c = capped ? MMA_LOG2E : scale * MMA_LOG2E;
+
+  // the compute side: request cr, tile ct of its cn, within kv_len climit;
+  // the segment began at tile ct0 of the request
+  int cr = fr, ct = ft, climit = flim, cn = fn, ct0 = 0;
+  bool staged0 = false, staged1 = false;
+  uint32_t qa[D / 16][4];
+  MmaState<D> ms;
+  // a whole request's rows go straight to the output
+  auto write_out = [&]() {
+    const int64_t row0 = (int64_t)cr * Hq + (int64_t)h * G;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float l = mma_row_sum(ms, rr);
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      const int r = gid + 8 * rr;
+      if (r < G) {
+#pragma unroll
+        for (int d = 0; d < D / 8; ++d)
+          *reinterpret_cast<uint32_t*>(out + (row0 + r) * D + d * 8 + 2 * tig) =
+              pack_bf16(ms.o[d][2 * rr] * inv, ms.o[d][2 * rr + 1] * inv);
+      }
+    }
+  };
+
+  for (int i = 0; i < STREAM_NBUF - 1; ++i) issue();
+  if constexpr (Lay::WIDEN) {
+    if (ntiles > 0) {
+      cp_async_wait<STREAM_NBUF - 2>();  // raw tile 0 has landed
+      widen(0);
+    }
+    issue();
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    if constexpr (!Lay::WIDEN) cp_async_wait<STREAM_NBUF - 2>();  // tile i has landed
+    // bf16 KV: tile i is visible to the warp and every lane is done with
+    // tile i - 1, whose stage takes tile i + STREAM_NBUF - 1; fp8 KV: bf16
+    // tile i is visible and every lane is done with bf16 tile i - 1
+    __syncwarp();
+    if constexpr (!Lay::WIDEN) issue();
+    while (ct >= cn) {
+      ++cr;
+      ct = 0;
+      climit = min(kv_lens[cr], max_len);
+      cn = climit > 0 ? (climit + TK - 1) / TK : 0;
+    }
+    if (i == 0 || ct == 0) {  // a segment begins
+      ct0 = ct;
+      mma_load_q<D>(qa, q + ((int64_t)cr * Hq + (int64_t)h * G) * D, G, lane);
+      ms.reset();
+    }
+    const uint32_t sK = s_w + (Lay::WIDEN ? (i & 1) * Lay::BF_BYTES
+                                          : (i % STREAM_NBUF) * Lay::STAGE_BYTES);
+    mma_tile<D, LD, TK>(ms, qa, sK, sK + Lay::TILE * 2, k_lane, v_lane, ct * TK, 0, climit,
+                        scale, cap, capped, c, tig);
+    ++ct;
+    if (ct == cn || i + 1 == ntiles) {  // a segment ends
+      if (ct0 == 0 && ct == cn)
+        write_out();
+      else if (ct0 > 0) {  // cut at the warp's first tile: to the scratch
+        mma_stage<D, true>(ms, scr.wo + wrow * D, scr.wml + wrow * 2, 0, c, lane, G);
+        staged0 = true;
+      } else {  // cut at the warp's last tile: staged once the ring is idle
+        staged1 = true;
+      }
+    }
+    if constexpr (Lay::WIDEN) {
+      cp_async_wait<STREAM_NBUF - 2>();  // raw tile i + 1 has landed
+      if (i + 1 < ntiles) widen(i + 1);
+      issue();
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left
+  __syncwarp();  // the ring is idle, and the scratch's slot 0 visible to the warp
+  float* slot1 = reinterpret_cast<float*>(wbase);
+  float* slot0 = slot1 + Lay::PART;
+  if (staged1) mma_stage(ms, slot1, slot1 + 16 * D, 0, c, lane);
+  if (staged0) {
+    for (int i = lane; i < G * D; i += 32) slot0[i] = scr.wo[wrow * D + i];
+    for (int i = lane; i < G * 2; i += 32) slot0[16 * D + i] = scr.wml[wrow * 2 + i];
+  }
+  __syncthreads();
+
+  // The block's merges, one per request cut at boundaries k_lo..k_hi: the
+  // slot-1 partial of warp k_lo - 1 (k_lo >= 1), then the slot-0 partials of
+  // warps k_lo..min(k_hi, 3) with a tile; the output if the request lies in
+  // the block (k_lo >= 1 and k_hi <= 3), else the block's partial slot
+  for (int k_lo = 0; k_lo <= NW; ++k_lo) {
+    if (!cut(k_lo)) continue;
+    const int r = s_req[k_lo];
+    int k_hi = k_lo;
+    while (k_hi < NW && cut(k_hi + 1) && s_req[k_hi + 1] == r) ++k_hi;
+    const float* po[NW];
+    const float* pml[NW];
+    int n = 0;
+    if (k_lo >= 1) {
+      po[n] = reinterpret_cast<const float*>(st_smem + (k_lo - 1) * Lay::RING_BYTES);
+      pml[n++] = po[0] + 16 * D;
+    }
+    for (int j = k_lo; j <= min(k_hi, NW - 1); ++j)
+      if (sb[j] < sb[j + 1]) {
+        po[n] = reinterpret_cast<const float*>(st_smem + j * Lay::RING_BYTES) + Lay::PART;
+        pml[n] = po[n] + 16 * D;
+        ++n;
+      }
+    if (n == 0) {  // a block without a tile
+      k_lo = k_hi;
+      continue;
+    }
+    const bool whole = k_lo >= 1 && k_hi < NW;
+    const int64_t row0 = (int64_t)r * Hq + (int64_t)h * G;
+    const int64_t brow = (((int64_t)h * P + p) * 2 + (k_lo == 0 ? 0 : 1)) * G;
+    for (int idx = tid; idx < G * D; idx += STREAM_NT) {
+      const int g = idx / D, d = idx - g * D;
+      float m, l, acc;
+      merge_partials<D, NW>(po, pml, n, g, d, m, l, acc);
+      if (whole) {
+        out[(row0 + g) * D + d] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
+      } else {
+        scr.bo[(brow + g) * D + d] = acc;
+        if (d == 0) {
+          scr.bml[(brow + g) * 2] = m;
+          scr.bml[(brow + g) * 2 + 1] = l;
+        }
+      }
+    }
+    k_lo = k_hi;
+  }
+
+  if (P > 1 && tid == 0) {
+    // the request cut at the block's first boundary, if its last tile is in
+    // this block: the combine pass merges it from its first block pf on
+    int4 dsc = make_int4(-1, 0, T, 0);
+    if (cut(0) && s_first[0] + stream_tiles(kv_lens[s_req[0]], max_len, TK) <= sb[NW]) {
+      const int f = s_first[0];
+      int pf = (int)((int64_t)f * P / T);
+      while (pf + 1 < P && (int)((int64_t)(pf + 1) * T / P) <= f) ++pf;
+      dsc.x = s_req[0];
+      dsc.y = pf;
+    }
+    scr.desc[(int64_t)h * P + p] = dsc;
+  }
+  for (int r = p; r < B; r += P)  // rows with no position
+    if (stream_tiles(kv_lens[r], max_len, TK) == 0)
+      for (int i = tid; i < G * D; i += STREAM_NT)
+        out[((int64_t)r * Hq + (int64_t)h * G) * D + i] = __float2bfloat16(0.f);
+}
+
+// Merges the partials of each request cut across blocks, block (p, h) the
+// request whose last tile lies in block p (rpa_stream_mma_kernel's
+// descriptor): slot 1 of its first block pf, then slot 0 of every later
+// block up to p that holds a tile, in block order, in log-sum-exp form. One
+// pass, a thread per output (G * D <= 512 on the 1B-class and 8B paths), so
+// that the loads of every block are in flight together.
+constexpr int STREAM_COMBINE_NT = 512;
+
+template <int D>
+__global__ void __launch_bounds__(STREAM_COMBINE_NT)
+rpa_stream_combine_kernel(float* __restrict__ part, __nv_bfloat16* __restrict__ out, int Hq,
+                          int Hkv) {
+  const int p = blockIdx.x, P = gridDim.x, h = blockIdx.y, G = Hq / Hkv;
+  const StreamScratch scr(part, Hkv, P, G, D);
+  const int4 dsc = scr.desc[(int64_t)h * P + p];
+  if (dsc.x < 0) return;
+  const int pf = dsc.y, T = dsc.z;
+  const int64_t row0 = (int64_t)dsc.x * Hq + (int64_t)h * G;
+  for (int idx = threadIdx.x; idx < G * D; idx += STREAM_COMBINE_NT) {
+    const int g = idx / D, d = idx - g * D;
+    float m = NEG_INF, l = 0.f, acc = 0.f;
+#pragma unroll 4
+    for (int b = pf; b <= p; ++b) {
+      const int64_t row = (((int64_t)h * P + b) * 2 + (b == pf ? 1 : 0)) * G + g;
+      const float mb = scr.bml[row * 2], lb = scr.bml[row * 2 + 1], ob = scr.bo[row * D + d];
+      const bool held = b == pf || (int64_t)b * T / P < (int64_t)(b + 1) * T / P;
+      if (held && lb > 0.f) {
+        const float m_new = fmaxf(m, mb);
+        const float f_old = fast_exp2(m - m_new), f_new = fast_exp2(mb - m_new);
+        l = fmaf(l, f_old, lb * f_new);
+        acc = fmaf(acc, f_old, ob * f_new);
+        m = m_new;
+      }
+    }
+    out[(row0 + g) * D + d] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
+  }
+}
+
+template <typename TKV, int D>
+static int launch_stream_mma(const void* q, const void* k_pool, const void* v_pool,
+                             const void* pt, const void* kv_lens, void* out, int B, int Hq,
+                             int Hkv, int row_stride, int maxP, int page_size, float scale,
+                             float cap, int n_blocks, void* scratch, cudaStream_t stream) {
+  using Lay = StreamLayout<TKV, D>;
+  if (Hq / Hkv > 16 || n_blocks < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  auto kernel = rpa_stream_mma_kernel<TKV, D>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<dim3(n_blocks, Hkv), STREAM_NT, Lay::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k_pool),
+      static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
+      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(scratch), B, Hq, Hkv, row_stride, maxP, page_size, scale, cap);
+  if (n_blocks > 1) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    rpa_stream_combine_kernel<D><<<dim3(n_blocks, Hkv), STREAM_COMBINE_NT, 0, stream>>>(
+        static_cast<float*>(scratch), static_cast<__nv_bfloat16*>(out), Hq, Hkv);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core stream for bf16 q, the CUDA-core kernel for float32 q
+// (which takes its own grid and no scratch).
+template <typename TQ, typename TKV, int D>
+static int launch_gqa(const void* q, const void* k_pool, const void* v_pool, const void* pt,
+                      const void* kv_lens, void* out, int B, int Hq, int Hkv, int row_stride,
+                      int maxP, int page_size, float scale, float cap, int n_blocks,
+                      void* scratch, cudaStream_t stream) {
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+    return launch_stream_mma<TKV, D>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv,
+                                     row_stride, maxP, page_size, scale, cap, n_blocks, scratch,
+                                     stream);
+  else
+    return launch_stream<TQ, TKV, D>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv,
+                                     row_stride, maxP, page_size, scale, cap, stream);
+}
+
 }  // namespace rpa
 
 // C entry point (bound with ctypes by ops/attention/rpa_stream.py), with
-// the signature of the decode kernels (rpa_decode.cu; on the latent pool
+// the arguments of the decode kernels (rpa_decode.cu; on the latent pool
 // rpa_decode_mla.cu's conventions: v_pool == k_pool, Hkv 1, D = row_stride
-// = MLA_DL, out [B, Hq, MLA_DV]). window must be <= 0: the stream has no
-// sliding window. Returns cudaError_t; another geometry or type pair is
+// = MLA_DL, out [B, Hq, MLA_DV]) and the tensor-core stream's plan: n_blocks
+// P >= 1 blocks per KV head (rpa_stream.py stream_blocks) and a float32
+// scratch of P * (6 * Hq * (D + 2) + 4 * Hkv) elements (StreamScratch). The
+// float32 pairs and the latent pool ignore both. window must be <= 0: the stream has no sliding window.
+// Returns cudaError_t; another geometry, type pair or plan is
 // cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                          const void* page_table, const void* kv_lens, void* out, int B, int Hq,
                          int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
-                         float cap, int window, int q_type, int kv_type, void* stream) {
+                         float cap, int window, int q_type, int kv_type, int n_blocks,
+                         void* scratch, void* stream) {
   using namespace rpa;
   if (B == 0) return 0;
   if (window > 0) return (int)cudaErrorInvalidValue;
@@ -333,11 +822,11 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
 #else
   if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM)
     return (int)cudaErrorInvalidValue;
-#define RPA_STREAM(QC, TQ, KC, TKV)                                                          \
-  if (q_type == QC && kv_type == KC)                                                         \
-    return launch_stream<TQ, TKV, RPA_HEAD_DIM>(q, k_pool, v_pool, page_table, kv_lens, out, \
-                                                B, Hq, Hkv, row_stride, maxP, page_size,     \
-                                                scale, cap, s);
+#define RPA_STREAM(QC, TQ, KC, TKV)                                                        \
+  if (q_type == QC && kv_type == KC)                                                       \
+    return launch_gqa<TQ, TKV, RPA_HEAD_DIM>(q, k_pool, v_pool, page_table, kv_lens, out, B, \
+                                             Hq, Hkv, row_stride, maxP, page_size, scale,   \
+                                             cap, n_blocks, scratch, s);
   RPA_FOR_EACH_PAIR(RPA_STREAM)
 #endif
 #undef RPA_STREAM

@@ -124,12 +124,30 @@ def decode_split_plan(build: str, B: int, Hkv: int, max_kv: int, num_sms: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def split_args(kernel, q, kv_dtype, num_kv_heads, max_kv):
+    """The split plan of a GQA decode build's tensor-core kernel as its entry
+    takes it, (n_split, split_len, scratch pointer), and the scratch tensor
+    (None with one split): float32 partials of each split, then merged."""
+    B, Hq, D = q.shape
+    n_split, split_len = decode_split_plan(kernel.name, B, num_kv_heads, max_kv,
+                                           sm_count(q.device.index or 0))
+    scratch = (q.new_empty(n_split * B * Hq * (D + 2), dtype=torch.float32)
+               if n_split > 1 else None)
+    return (n_split, split_len, None if scratch is None else scratch.data_ptr()), scratch
+
+
 def decode_with(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_size,
-            num_kv_heads, head_dim, scale, logit_cap, sliding_window, v_dim=None):
+                num_kv_heads, head_dim, scale, logit_cap, sliding_window, v_dim=None,
+                plan=None):
+    """Checks the arguments, then the plain version on the CPU or the
+    kernel on the card. ``plan(kernel, q, kv dtype, num_kv_heads, maxP *
+    page_size)`` gives the entry's arguments between the element types and
+    the stream, and a tensor to keep alive over the launch; GQA decode
+    builds default to their split plan."""
     check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
                     v_dim)
     if q.shape[0] != page_table.shape[0]:
@@ -146,18 +164,15 @@ def decode_with(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_siz
     k_ptr, v_ptr, row_stride = kv_planes(kv_cache, layer_idx, num_kv_heads, D)
     out = q.new_empty((B, Hq, Dv))
     maxP = page_table.shape[1]
-    split = ()
-    if kernel.name in DECODE_SPLIT:  # float32 partials of each split, then merged
-        n_split, split_len = decode_split_plan(kernel.name, B, num_kv_heads,
-                                               maxP * page_size, _sm_count(q.device.index or 0))
-        scratch = (q.new_empty(n_split * B * Hq * (D + 2), dtype=torch.float32)
-                   if n_split > 1 else None)
-        split = (n_split, split_len, None if scratch is None else scratch.data_ptr())
+    if plan is None and kernel.name in DECODE_SPLIT:
+        plan = split_args
+    extra, _scratch = (plan(kernel, q, kv_cache.dtype, num_kv_heads, maxP * page_size)
+                       if plan else ((), None))
     kernel.launch(
         q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
         out.data_ptr(), B, Hq, num_kv_heads, D, row_stride, maxP,
         page_size, float(scale), float(logit_cap or 0.0), int(sliding_window or 0),
-        TYPE_CODES[q.dtype], TYPE_CODES[kv_cache.dtype], *split, cuda_stream_ptr(q.device))
+        TYPE_CODES[q.dtype], TYPE_CODES[kv_cache.dtype], *extra, cuda_stream_ptr(q.device))
     return out
 
 

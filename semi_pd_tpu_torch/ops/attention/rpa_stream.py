@@ -14,10 +14,14 @@ computes (rpa_packed.py), one query row per request, with softcap and
 without a sliding window or a speculation mask (the routing keeps those
 batches on the packed decode, as the JAX routing does). The KV tiles of
 many requests form one sequence fetched a fixed depth ahead across request
-boundaries (csrc/rpa_stream.cu). The JAX package selects it with
-``RPA_DECODE_STREAM=1`` and sets the ring depth with ``RPA_STREAM_NBUF``;
-the port selects it with ``ServerArgs.decode_stream`` and builds the depth
-in (STREAM_NBUF = 4, the JAX default). Its plain version is the decode's,
+boundaries (csrc/rpa_stream.cu). With bf16 q the GQA builds cut that
+sequence into equal shares, one per warp of a persistent grid of
+``stream_blocks`` blocks per KV head, on the tensor cores; requests cut
+across blocks leave float32 partials in a scratch that a combine pass
+merges. The JAX package selects the stream with ``RPA_DECODE_STREAM=1`` and
+sets the ring depth with ``RPA_STREAM_NBUF``; the port selects it with
+``ServerArgs.decode_stream`` and builds the depth in (STREAM_NBUF = 4, the
+JAX default). Its plain version is the decode's,
 ``rpa_packed.decode_attention_plain``.
 
 The wrappers launch their kernel for CUDA tensors and use the plain version
@@ -32,14 +36,18 @@ from typing import Optional
 import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, register
-from semi_pd_tpu_torch.ops.attention.rpa_common import kernel_family, pool_heads
-from semi_pd_tpu_torch.ops.attention.rpa_packed import DECODE_ARGTYPES, decode_with
+from semi_pd_tpu_torch.ops.attention.rpa_common import FP8, I, P, kernel_family, pool_heads
+from semi_pd_tpu_torch.ops.attention.rpa_packed import DECODE_ARGTYPES, decode_with, sm_count
+
+# The streaming decodes' entry point: the decode's, then the tensor-core
+# stream's plan (blocks per KV head, scratch pointer) before the CUDA stream
+STREAM_ARGTYPES = DECODE_ARGTYPES[:-1] + [I, P, P]
 
 STREAM_KERNEL = register(CudaKernel(
     name="rpa_decode_stream",
     source="csrc/rpa_stream.cu",
     symbol="rpa_decode_stream",
-    argtypes=DECODE_ARGTYPES,
+    argtypes=STREAM_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_stream.py:241 _rpa_kernel_chunked_stream",
 ))
 
@@ -47,7 +55,7 @@ STREAM_ALIGNED_KERNEL = register(CudaKernel(
     name="rpa_decode_stream_aligned",
     source="csrc/rpa_stream.cu",
     symbol="rpa_decode_stream_aligned",
-    argtypes=DECODE_ARGTYPES,
+    argtypes=STREAM_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_stream.py:28 _rpa_kernel_stream (GQA branch)",
     defines=("RPA_ALIGNED",),
 ))
@@ -58,7 +66,7 @@ STREAM_MLA_KERNEL = register(CudaKernel(
     name="rpa_decode_stream_mla",
     source="csrc/rpa_stream.cu",
     symbol="rpa_decode_stream_mla",
-    argtypes=DECODE_ARGTYPES,
+    argtypes=STREAM_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_stream.py:28 _rpa_kernel_stream (MLA branch)",
     defines=("RPA_MLA", "RPA_P_F32"),
 ))
@@ -67,6 +75,53 @@ STREAM_MLA_KERNEL = register(CudaKernel(
 # the merged family (the 5D pool below head_dim 128) has none, as in JAX
 STREAM_KERNELS = {"chunked": STREAM_KERNEL, "aligned": STREAM_ALIGNED_KERNEL,
                   "latent": STREAM_MLA_KERNEL}
+
+
+# The tensor-core stream's schedule, as csrc/rpa_stream.cu states it for
+# each GQA build's head_dim (tests/test_torch_stream_split.py holds the two
+# equal): KV positions per warp tile (1024 / head_dim: 16 at 64, 8 at 128),
+# the ring depth of each warp, the warps of a block and the blocks an SM
+# holds at once, with bf16 KV and with fp8 KV
+STREAM_TILE = {STREAM_KERNEL.name: 16, STREAM_ALIGNED_KERNEL.name: 8}
+STREAM_NBUF = 4
+STREAM_WARPS = 4
+STREAM_BLOCKS_PER_SM = 2
+STREAM_BLOCKS_PER_SM_FP8 = 3
+
+
+def stream_blocks(build: str, B: int, Hkv: int, max_kv: int, num_sms: int,
+                  fp8: bool = False) -> int:
+    """P, the blocks per KV head of a GQA build's tensor-core stream
+    (``build``: a key of STREAM_TILE; ``fp8``: fp8 KV): as many as the card
+    holds at once beside the other KV heads' columns, but no more than a
+    batch of full page tables (max_kv = maxP * page_size positions each)
+    gives its 4 P warps a tile each. From the shapes, the build, the KV
+    type and the SM count only: the wrapper never reads kv_lens."""
+    per_sm = STREAM_BLOCKS_PER_SM_FP8 if fp8 else STREAM_BLOCKS_PER_SM
+    most = B * -(-max_kv // STREAM_TILE[build])
+    return max(1, min(per_sm * num_sms // max(Hkv, 1), -(-most // STREAM_WARPS)))
+
+
+def stream_scratch_floats(n_blocks: int, Hq: int, Hkv: int, D: int) -> int:
+    """Float32 elements of the tensor-core stream's scratch: one partial of
+    G rows (O, then m and l) per warp and KV head (a request cut at the
+    warp's first tile), two per block and KV head (requests cut across
+    blocks), then one int4 descriptor per block and KV head."""
+    return n_blocks * (6 * Hq * (D + 2) + 4 * Hkv)
+
+
+def stream_args(kernel, q, kv_dtype, num_kv_heads, max_kv):
+    """The stream entry's plan, (n_blocks, scratch pointer), and the scratch
+    tensor: a GQA build's with bf16 q; one block and no scratch for the
+    float32 pairs (the CUDA-core kernel takes its own grid) and the latent
+    pool."""
+    if kernel.name not in STREAM_TILE or q.dtype != torch.bfloat16:
+        return (1, None), None
+    B, Hq, D = q.shape
+    n = stream_blocks(kernel.name, B, num_kv_heads, max_kv, sm_count(q.device.index or 0),
+                      fp8=kv_dtype in FP8)
+    scratch = q.new_empty(stream_scratch_floats(n, Hq, num_kv_heads, D), dtype=torch.float32)
+    return (n, scratch.data_ptr()), scratch
 
 
 def _stream(q, kv_cache, layer_idx, page_table, kv_lens, *, page_size, num_kv_heads,
@@ -78,7 +133,8 @@ def _stream(q, kv_cache, layer_idx, page_table, kv_lens, *, page_size, num_kv_he
             f"128 decodes through its merged kernel, stream or not")
     return decode_with(STREAM_KERNELS[family], q, kv_cache, layer_idx, page_table, kv_lens,
                        page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
-                       scale=scale, logit_cap=logit_cap, sliding_window=None, v_dim=v_dim)
+                       scale=scale, logit_cap=logit_cap, sliding_window=None, v_dim=v_dim,
+                       plan=stream_args)
 
 
 def ragged_paged_attention_chunked_stream(

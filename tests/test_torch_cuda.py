@@ -3,7 +3,10 @@ version (the streaming decodes, the tensor-core extend and the tensor-core
 decode also against themselves, bitwise, on a second run; the tensor-core
 extend with 1, 2, 4 and 8 query heads per KV head, the tensor-core decode
 of every GQA build split over blocks at long KV and refusing an invalid
-split plan, and the libraries disassembled for HMMA instructions), the
+split plan, the streaming decodes over batches whose requests the
+tensor-core stream cuts across warps and blocks, with every slot past
+kv_len set to NaN, the tensor-core stream refusing an invalid plan, and
+the libraries disassembled for HMMA instructions), the
 CUDA MoE path (torch._grouped_mm) against its plain loop, and the Engine
 on its default CUDA device against the same Engine on the CPU (Llama on
 the chunked, the aligned and the merged 5D pool at head_dim 64, with and
@@ -505,22 +508,55 @@ STREAM_POOLS = {  # pool: (case options, kernel, head_dim, the build's type pair
     "latent": ({"latent": True}, "rpa_decode_stream_mla", DLAT, ["float32", "bfloat16"]),
 }
 STREAM_CASES = [(pool, dtype) for pool, spec in STREAM_POOLS.items() for dtype in spec[3]]
+# kv_lens of the stream's batches beside "few" (_decode_case) and "many"
+# (_many_case): one request over 16384 positions and three of 1, 9000 and 17
+# (the tensor-core stream cuts them across warps and blocks), kv_len-0 rows
+# around requests of whole tiles (where warps' shares begin and end), and
+# six requests of fewer tiles than the grid has warps
+STREAM_BATCHES = {"b1_kv16384": [16384], "b3_1_9000_17": [1, 9000, 17],
+                  "zero_rows_at_boundaries": [0, 64, 0, 0, 200, 0, 7, 0, 0, 48, 0, 16, 0],
+                  "b6_fewer_tiles_than_warps": [5, 9, 2, 1, 15, 4]}
 
 
-@pytest.mark.parametrize("batch", ["few", "many"])
+def _poison_dead_slots(pool, pt, kvl, layer):
+    """Sets every slot of the layer that holds no position below a request's
+    kv_len to NaN (the dump page 0, the spare page and the ends of the last
+    pages): a kernel that read one would put NaN in its output."""
+    live = torch.zeros(pool.shape[2] if pool.dim() == 5 else pool.shape[1], dtype=torch.bool)
+    for b, n in enumerate(kvl.tolist()):
+        pos = torch.arange(n)
+        live[pt[b].cpu().long()[pos // PS] * PS + pos % PS] = True
+    dead = (~live).nonzero().squeeze(1).to(pool.device)
+    if pool.dim() == 5:
+        pool[layer, :, dead] = float("nan")
+    else:
+        pool[layer, dead] = float("nan")
+
+
+@pytest.mark.parametrize("batch", ["few", "many", *STREAM_BATCHES])
 @pytest.mark.parametrize("opt", ["plain", "softcap"])
 @pytest.mark.parametrize("pool,dtype", STREAM_CASES, ids=[f"{p}-{t}" for p, t in STREAM_CASES])
 def test_stream_kernel_matches_plain_and_repeats(cuda_device, pool, dtype, opt, batch):
     """The streaming decodes against their plain version (the decode's), on
     layer 1 of each pool and for every type pair they are built for, with a
-    batch of 6 (fewer rows than blocks) and of 200 (several requests per
-    block, kv_len-0 rows among them); a second run on the same inputs is
-    bitwise equal (the grid and each block's run depend on the shapes
-    only)."""
+    batch of 6 (fewer rows than blocks), of 200 (several requests per block
+    of the CUDA-core kernels, kv_len-0 rows among them) and the
+    STREAM_BATCHES, whose requests the tensor-core kernel (bf16 q) cuts
+    across warps and blocks; every slot that holds no live position is NaN,
+    so none is read; kv_len-0 rows are zeros; a second run on the same
+    inputs is bitwise equal (the grid and each warp's share depend on the
+    shapes and kv_lens only, the merges run in a fixed order)."""
     extra, name, width, _ = STREAM_POOLS[pool]
     dt = torch.float32 if dtype == "float32" else torch.bfloat16
-    case = _decode_case if batch == "few" else _many_case
-    q, kv, pt, kvl, _ = case(cuda_device, dt, kv_dtype=FP8.get(dtype, dt), **extra)
+    kv_dt = FP8.get(dtype, dt)
+    if batch in STREAM_BATCHES:
+        lens = STREAM_BATCHES[batch]
+        q, kv, pt, kvl, _ = _case(11, [1] * len(lens), lens, cuda_device, dt, kv_dtype=kv_dt,
+                                  **extra)
+    else:
+        case = _decode_case if batch == "few" else _many_case
+        q, kv, pt, kvl, _ = case(cuda_device, dt, kv_dtype=kv_dt, **extra)
+    _poison_dead_slots(kv, pt, kvl, 1)
     kw = _opts(opt, width ** -0.5)
     kw.pop("sliding_window")
     k = KERNELS[name]
@@ -542,6 +578,44 @@ def test_stream_kernel_matches_plain_and_repeats(cuda_device, pool, dtype, opt, 
     assert not out[kvl == 0].any()
     tol = 1e-4 if dt == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_stream_builds_run_on_the_tensor_cores(cuda_device):
+    """The disassembled libraries of the streaming decodes: every bf16-q
+    instantiation of the chunked and the aligned build runs HMMA
+    instructions in rpa_stream_mma_kernel, their float32 pair's
+    rpa_stream_kernel none, and the latent build none at all."""
+    from semi_pd_tpu_torch.kernels import sass_mma_counts
+
+    for name, n_mma in (("rpa_decode_stream", 1), ("rpa_decode_stream_aligned", 3)):
+        KERNELS[name].fn()
+        counts = sass_mma_counts(KERNELS[name])
+        mma = [n for f, n in counts.items() if "rpa_stream_mma_kernel" in f]
+        assert len(mma) == n_mma and all(mma), (name, counts)
+        core = [n for f, n in counts.items() if "rpa_stream_kernel" in f]
+        assert len(core) == 1 and not any(core), (name, counts)
+    KERNELS["rpa_decode_stream_mla"].fn()
+    counts = sass_mma_counts(KERNELS["rpa_decode_stream_mla"])
+    assert counts and not any(counts.values()), counts
+
+
+@pytest.mark.parametrize("name", ["rpa_decode_stream", "rpa_decode_stream_aligned"])
+def test_stream_refuses_an_invalid_plan(cuda_device, name):
+    """The tensor-core stream's entry checks its plan: no block, or several
+    blocks without a scratch, make the launch fail, and the wrapper raises;
+    nothing falls back."""
+    extra, _, head_dim, _ = STREAM_POOLS["aligned" if name.endswith("aligned") else "chunked"]
+    q, kv_t, pt, kvl, _ = _decode_case(cuda_device, torch.bfloat16, **extra)
+    k = KERNELS[name]
+    k_ptr, v_ptr, row_stride = rpa_common.kv_planes(kv_t, 1, HKV, head_dim)
+    out = torch.empty_like(q)
+    code = rpa_common.TYPE_CODES
+    for n_blocks in (0, 4):
+        with pytest.raises(RuntimeError, match="cudaError 1$"):
+            k.launch(q.data_ptr(), k_ptr, v_ptr, pt.data_ptr(), kvl.data_ptr(), out.data_ptr(),
+                     q.shape[0], q.shape[1], HKV, head_dim, row_stride, pt.shape[1], PS, 1.0,
+                     0.0, 0, code[q.dtype], code[kv_t.dtype], n_blocks, None,
+                     torch.cuda.current_stream().cuda_stream)
 
 
 def test_moe_grouped_mm_matches_plain_loop(cuda_device):

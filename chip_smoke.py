@@ -10,10 +10,13 @@ each (any failure raises and exits non-zero):
              from semi_pd_tpu_torch/csrc/ (one nvcc per kernel, in parallel),
              with nvcc's register and spill lines and each library's count
              of tensor-core instructions (HMMA/HGMMA, from cuobjdump -sass):
-             the bf16-q instantiations of the chunked, the aligned and the
-             merged extend and decode, and of the chunked and the aligned
-             streaming decode, must have some, their float32 pair none).
-             Every decode of those three builds runs bf16 q on the tensor
+             the bf16-q instantiations of every extend, of the chunked, the
+             aligned and the merged decode, and of the chunked and the
+             aligned streaming decode must have some, their float32 pair
+             none. The aligned extend (head_dim 128) and the latent
+             extend run bf16 q on Hopper's warpgroup tensor cores (wgmma):
+             their registers, spills and HGMMA count get a line each.
+             The chunked, aligned and merged decodes run bf16 q on the tensor
              cores, split over warps and blocks by a plan the wrapper
              computes from shapes (the chunked and aligned ones with P
              rounded to bf16, the merged one with P kept float32); the two
@@ -71,6 +74,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -106,6 +110,25 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes of each function in an nvcc -Xptxas -v log,
+    by mangled name."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -650,7 +673,8 @@ def main() -> int:
     build_s = build_all()
     for kname, k in KERNELS.items():  # each function's registers and spills
         for ln in k.build_log.splitlines():
-            if "Function properties" in ln or "registers" in ln or "spill" in ln:
+            if ("Function properties" in ln or "registers" in ln or "spill" in ln
+                    or "wgmma" in ln):
                 print(f"ptxas {kname} {ln.strip()}")
     # tensor-core instructions per kernel library and function
     with ThreadPoolExecutor(len(KERNELS)) as ex:
@@ -658,11 +682,22 @@ def main() -> int:
     for kname, counts in sass.items():
         print("sass " + json.dumps(dict(kernel=kname, mma=sum(counts.values()),
                                         functions=counts)))
-    # the tensor-core kernel of each library that has one: HMMA in each of
-    # its bf16-q instantiations, none in the CUDA-core kernel's float32 pair
+    # the two warpgroup (wgmma) kernels: registers, spills and HGMMA count of
+    # each instantiation
+    for kname, wg_fn in (("rpa_extend_aligned", "rpa_extend_wgmma_kernel"),
+                         ("rpa_extend_mla", "rpa_extend_mla_wgmma_kernel")):
+        hgmma = sass_mma_counts(KERNELS[kname], op="HGMMA")
+        for fn, props in ptxas_summary(KERNELS[kname].build_log).items():
+            if wg_fn in fn:
+                print("wgmma " + json.dumps(dict(kernel=kname, function=fn, **props,
+                                                 hgmma=hgmma.get(fn))))
+    # the tensor-core kernel of each library that has one: HMMA (HGMMA in the
+    # warpgroup kernels) in each of its bf16-q instantiations, none in the
+    # CUDA-core kernel's float32 pair
     for kname, mma_fn, core_fn in (
             ("rpa_extend", "rpa_extend_mma_kernel", "rpa_extend_kernel"),
-            ("rpa_extend_aligned", "rpa_extend_mma_kernel", "rpa_extend_kernel"),
+            ("rpa_extend_aligned", "rpa_extend_wgmma_kernel", "rpa_extend_kernel"),
+            ("rpa_extend_mla", "rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel"),
             ("rpa_extend_merged", "rpa_extend_mma_kernel", "rpa_extend_kernel"),
             ("rpa_decode", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
             ("rpa_decode_aligned", "rpa_decode_mma_kernel", "rpa_decode_kernel"),

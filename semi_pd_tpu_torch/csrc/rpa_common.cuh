@@ -32,6 +32,8 @@ namespace rpa {
 // Finite "minus infinity" of the online softmax, as in the TPU kernels: a
 // running max that starts here never turns exp(m_old - m_new) into NaN.
 constexpr float NEG_INF = -1e30f;
+// log2(e): the tensor-core kernels take exp(x) as 2^(x log2 e).
+constexpr float LOG2E = 1.4426950408889634f;
 
 // Element type codes of the C entry points (ops/attention/rpa_common.py
 // TYPE_CODES).

@@ -27,8 +27,6 @@
 
 namespace rpa {
 
-constexpr float MMA_LOG2E = 1.4426950408889634f;
-
 // ldmatrix lane offsets in bytes into a K and a V tile, as in rpa_extend.cu.
 // TK a multiple of 16: K fragments of S = Q K^T (matrices 2 and 3 are
 // positions 8-15, 1 and 3 the upper 8 dims); V by .trans (matrices 1 and 3

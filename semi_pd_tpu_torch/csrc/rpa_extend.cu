@@ -28,11 +28,49 @@
 // causal operations while reading the kv_len rows once, well above the
 // ~295 operations per byte where the H100's bf16 tensor cores bind.
 //
-// Two kernels; the entry point picks one by q's type, never at run time
-// otherwise:
+// Three kernels; the entry point picks one by q's type and the build, never
+// at run time otherwise:
 //
-// bf16 q, over bf16 or fp8 KV: rpa_extend_mma_kernel, on the tensor cores.
-//   What the GQA branches of the TPU kernels compute is bf16 x bf16 ->
+// bf16 q at head_dim 128 (the aligned build's bf16, e4m3 and e5m2 KV):
+//   rpa_extend_wgmma_kernel, on Hopper's warpgroup tensor cores (wgmma;
+//   layout, descriptors, forms and the mbarrier ring in rpa_wgmma.cuh).
+//   What the GQA branch of _rpa_kernel computes is bf16 x bf16 -> float32
+//   dots with P cast to V's dtype (fp8 widens to bf16 without loss). Packed
+//   rows as below; grid (ceil(EXTEND_QBLK * G / 128), Hkv, entries), one
+//   block of three warpgroups per 128 packed rows (32 query positions at
+//   G = 4), one block per SM, the FlashAttention-3 arrangement (named as
+//   prior art):
+//   - a producer warpgroup keeps a ring of four KV stages full: K and V of
+//     a 64-position tile, bf16, 128-byte swizzled (bf16 KV by cp.async at
+//     the swizzled offsets, its arrival on the stage's full barrier fired
+//     by the copies' completion; fp8 KV copied raw and widened by the same
+//     thread two tiles later, rpa_wgmma.cuh's widen_fp8); it refills a
+//     stage once every consumer warp has released it (empty barrier);
+//   - two consumer warpgroups of 64 packed rows (wgmma's M) each: Q goes
+//     to shared memory once and, by ldmatrix, into the warps' A fragments
+//     (D / 16 k-steps, kept in registers); per tile, S = Q K^T by 8
+//     m64n64k16 with K read K-major; scale, softcap, the masks and the
+//     online softmax on the S accumulators in registers as below; O += P V
+//     by 4 m64n128k16, P rounded to bf16 straight from the S accumulators
+//     as the register A, V read MN-major from the same tile through the
+//     transpose bit (no transposition pass); O in float32 registers;
+//   - P V lags one tile: iteration t issues S_t, then P_{t-1} V_{t-1}, and
+//     runs tile t's softmax on the CUDA cores while the tensor cores run
+//     P V; the two consumers meet only at the ring's barriers, so one's
+//     softmax and waits overlap the other's products (a block barrier per
+//     tile, which kept them in step, cost more than the loads);
+//   - setmaxnreg moves registers from the producer (56) to the consumers
+//     (224) of the 168 a thread the launch gives;
+//   - each warpgroup walks every tile of the block's range (wgmma is
+//     warpgroup-wide); a warp masks what its rows cannot see.
+//   Not TMA: a TMA box of a page would read the page's slots past kv_len,
+//   which no kernel here reads. Shared memory 163 KB (bf16 KV), 211 KB
+//   (fp8: three raw tiles more). Each K or V byte read from shared memory
+//   feeds 64 rows (16 with mma.sync), and each tile copied serves 128.
+//
+// bf16 q below head_dim 128 (the chunked build; the merged build with P
+// split): rpa_extend_mma_kernel, on the tensor cores by mma.sync.
+//   What the chunked TPU kernel computes is bf16 x bf16 ->
 //   float32 dots with P cast to q's dtype, which is exactly mma.sync
 //   m16n8k16 bf16 -> f32 (fp8 widens to bf16 without loss). The merged
 //   build (-DRPA_P_F32) keeps P in float32, as _rpa_kernel_merged does with
@@ -74,16 +112,14 @@
 //   it to q's dtype; on the card this ran a few percent faster than cp.async
 //   of the raw bytes into shared memory with a widening pass there.
 //   Positions at or past the walk's end are zero-filled, never read (no slot
-//   past kv_len). Shared memory, dynamic with the opt-in above 48 KB: 102
-//   KB (bf16) and 68 KB (fp8) at D 128, 54 KB at D 64. Registers set the
-//   residency: 2 blocks per SM at D 128 (over 200 registers a thread), 4 at
-//   D 64 (128; the copy loop stays rolled so that nothing spills). The
-//   epilogue stages each warp's 16 output rows in shared memory and writes
-//   them as 16-byte vectors.
+//   past kv_len). Shared memory, dynamic with the opt-in above 48 KB: 54 KB
+//   (bf16) and 36 KB (fp8). Registers set the residency: 4 blocks per SM
+//   (128 registers a thread; the copy loop stays rolled so that nothing
+//   spills). The epilogue stages each warp's 16 output rows in shared
+//   memory and writes them as 16-byte vectors.
 //   What holds it back from the card's bf16 peak: mma.sync (not wgmma) on
 //   16-row tiles, so each K or V fragment read from shared memory feeds one
-//   m16 tile; 8 warps per SM at D 128; the softmax and O's rescale between
-//   the two products.
+//   m16 tile; the softmax and O's rescale between the two products.
 //
 // float32 q: rpa_extend_kernel, on the CUDA cores. TF32 mma would not be
 //   the float32 dot the float32 pair computes. One block per (entry, query
@@ -97,16 +133,17 @@
 //   and V row as a broadcast; the next tile's loads are issued into
 //   registers before the current one is computed.
 //
-// Both walk [lo, min(kv_len, the block's last row's position + 1)), lo
+// All three walk [lo, min(kv_len, the block's last row's position + 1)), lo
 // from the window. A block writes ONLY the rows its entry owns (n_rows =
 // min(q_len - qofs, EXTEND_QBLK); the TPU kernels wrote their whole block
 // and relied on grid order for the next sequence to overwrite the overrun;
-// blocks here run in parallel), the tensor-core kernel only its own heads;
+// blocks here run in parallel), the tensor-core kernels only their own heads;
 // padding entries (block_seq == -1) write nothing, and a row that saw no
 // position writes 0.
 #include <type_traits>
 
 #include "rpa_common.cuh"
+#include "rpa_wgmma.cuh"
 
 #ifndef EXTEND_QBLK
 #error "EXTEND_QBLK must be defined by the build (EXTEND_Q_BLOCK)"
@@ -292,7 +329,6 @@ static int launch_extend(const void* q, const void* k_pool, const void* v_pool, 
 constexpr int MMA_NT = 128;   // 4 warps
 constexpr int MMA_ROWS = 64;  // packed rows per block: one m16 tile per warp
 constexpr int MMA_TK = 64;    // KV positions per tile
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename TKV, int D>
 struct MmaLayout {
@@ -309,10 +345,11 @@ struct MmaLayout {
   static_assert(D % 16 == 0 && MMA_NT % VPR == 0 && (MMA_TK * VPR) % MMA_NT == 0,
                 "tile shape");
   static_assert(MMA_ROWS * LD * 2 <= BF16_BYTES, "Q and O staging");
+  static_assert(D == 64, "head_dim 128 runs the warpgroup kernel");
 };
 
 template <typename TKV, int D, bool P_SPLIT>
-__global__ void __launch_bounds__(MMA_NT, D <= 64 ? 4 : 2)
+__global__ void __launch_bounds__(MMA_NT, 4)
 rpa_extend_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
                       const TKV* __restrict__ k_pool,       // K of this layer at slot 0
                       const TKV* __restrict__ v_pool,       // V of this layer at slot 0
@@ -645,15 +682,403 @@ static int launch_extend_mma(const void* q, const void* k_pool, const void* v_po
   return (int)cudaGetLastError();
 }
 
-// The tensor cores for bf16 q (with P split in the merged build, which
-// keeps P in float32); the CUDA-core kernel for float32 q.
+// ------------------------------------------------------------------------
+// The warpgroup kernel (bf16 q at head_dim 128: the aligned build's three
+// bf16-q pairs). rpa_wgmma.cuh has the layout, the descriptors, the wgmma
+// forms and the mbarrier ring.
+
+constexpr int WG_NT = 384;       // two consumer warpgroups, then one producer warpgroup
+constexpr int WG_ROWS = 128;     // packed rows per block: 64 (wgmma's M) per consumer
+constexpr int WG_TK = 64;        // KV positions per tile: the N of S = Q K^T
+constexpr int WG_STAGES = 4;     // KV tiles (K and V) in the ring
+constexpr int WG_LAG = 2;        // fp8: tiles copied raw ahead of the one being widened
+constexpr int WG_PRODUCER_REGS = 56;   // registers a thread after setmaxnreg: the launch
+constexpr int WG_CONSUMER_REGS = 224;  // gives 168 (65536 / 384), 2 x 56 move across
+
+template <typename TKV, int D>
+struct WgLayout {
+  static constexpr bool WIDEN = sizeof(TKV) == 1;  // fp8 KV: widened by the producer
+  static constexpr int TILE = WG_TK * D * 2;       // bytes of a K or a V tile (bf16, swizzled)
+  static constexpr int STAGE = 2 * TILE;           // K, then V
+  static constexpr int RAW = WG_TK * D * 2;        // bytes of a raw fp8 K and V tile
+  static constexpr int NRAW = WIDEN ? WG_LAG + 1 : 0;  // raw tiles in flight
+  static constexpr int RAW0 = WG_STAGES * STAGE;
+  static constexpr int Q0 = RAW0 + NRAW * RAW;       // Q (then O) staging
+  static constexpr int QLD = D + 8;                  // its row stride, padded for ldmatrix
+  static constexpr int BAR0 = Q0 + WG_ROWS * QLD * 2;  // full[WG_STAGES], empty[WG_STAGES]
+  static constexpr int SMEM = BAR0 + 2 * WG_STAGES * 8 + 1024;  // + the atoms' alignment
+  static constexpr int VE = 16 / (int)sizeof(TKV);   // KV elements per 16-byte vector
+  static constexpr int VPR = D / VE;                 // vectors per K or V row
+  static constexpr int VSTEP = 128 / VPR;            // rows between a producer thread's vectors
+  static constexpr int NV = WG_TK / VSTEP;           // of K (and of V) per producer thread
+  static_assert(D % 64 == 0 && VSTEP % 8 == 0 && WG_TK % VSTEP == 0, "tile shape");
+  static_assert(2 * (WG_CONSUMER_REGS - 168) <= 168 - WG_PRODUCER_REGS, "register moves");
+};
+
+template <typename TKV, int D>
+__global__ void __launch_bounds__(WG_NT, 1)
+rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
+                        const TKV* __restrict__ k_pool,       // K of this layer at slot 0
+                        const TKV* __restrict__ v_pool,       // V of this layer at slot 0
+                        const int* __restrict__ page_table,   // [B, maxP]
+                        const int* __restrict__ kv_lens,      // [B]
+                        const int* __restrict__ q_lens,       // [B]
+                        const int* __restrict__ q_start,      // [B]
+                        const int* __restrict__ block_seq,    // [NQB], -1 = padding
+                        const int* __restrict__ block_row,    // [NQB]
+                        const int* __restrict__ block_qofs,   // [NQB]
+                        __nv_bfloat16* __restrict__ out,      // [T, Hq, D]
+                        int Hq, int Hkv, int row_stride, int maxP, int page_size,
+                        float scale, float cap, int window) {
+  using bf16 = __nv_bfloat16;
+  using Lay = WgLayout<TKV, D>;
+  constexpr int TK = WG_TK, KS = D / 16, QV = D / 8, QLD = Lay::QLD;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = wg::align1024(smem_raw);
+  // entries in reverse launch order: a request's later entries walk more
+  // positions, and starting them first leaves the short walks to the last,
+  // partial wave of blocks
+  const int slice = blockIdx.x, h = blockIdx.y, i = gridDim.z - 1 - blockIdx.z;
+  const int tid = threadIdx.x;
+  const int b = block_seq[i];
+  if (b < 0) return;  // padding entry: writes nothing
+  const int G = Hq / Hkv;
+  const int qofs = block_qofs[i];
+  const int n_rows = min(q_lens[b] - qofs, EXTEND_QBLK);
+  const int m_lo = slice * WG_ROWS;  // the block's first packed row
+  if (m_lo / G >= n_rows) return;    // none of the entry's rows is here
+  const int row0 = block_row[i];
+  const int q_abs_lo = q_start[b] + qofs;
+  const int r_hi = min((m_lo + WG_ROWS - 1) / G, n_rows - 1);
+  const int limit = min(min(kv_lens[b], q_abs_lo + r_hi + 1), maxP * page_size);
+  const int lo = window > 0 ? max(q_abs_lo + m_lo / G - window + 1, 0) : 0;
+  const int ntiles = limit > lo ? (limit - lo + TK - 1) / TK : 0;
+  if (ntiles == 0) return;  // its rows see no position: they stay 0 (out is zero-filled)
+
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Lay::BAR0);
+  uint64_t* empty = full + WG_STAGES;
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      wg::mbar_init(full + s, 128);  // the producer's threads
+      wg::mbar_init(empty + s, 8);   // the consumers' warps
+    }
+    wg::mbar_init_fence();
+  }
+  // Q of the block's packed rows (zeros past n_rows), in padded rows for
+  // ldmatrix, copied by the whole block
+  bf16* sQ = reinterpret_cast<bf16*>(smem + Lay::Q0);
+  for (int v = tid; v < WG_ROWS * QV; v += WG_NT) {
+    const int m = v / QV, c = v % QV;
+    const int pm = m_lo + m, r = pm / G, g = pm - r * G;
+    bf16* dst = sQ + m * QLD + c * 8;
+    if (r < n_rows)
+      cp_async16(dst, q + ((int64_t)(row0 + r) * Hq + h * G + g) * D + c * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const uint32_t s_smem = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  if (tid >= 256) {
+    // ---- The producer warpgroup: keeps the ring full. Thread p copies
+    // chunk vc of the rows vt0 + k VSTEP of K and, from the same slot, of V
+    // (neighbouring threads copy neighbouring 16 bytes of a row; VSTEP is a
+    // multiple of 8, so all of a thread's rows sit at the same row of their
+    // swizzle atoms). Tile t goes to stage t % WG_STAGES once the consumers
+    // have released the tile before it there. bf16 KV is copied by cp.async
+    // straight to its swizzled offsets, and the thread's arrival on full
+    // fires when its copies land. fp8 KV is copied raw into one of NRAW raw
+    // tiles; WG_LAG tiles later the same thread (it reads only what it
+    // copied) widens it into the stage and arrives. Zeros past the walk's
+    // end, where nothing is read.
+    wg::regs_dec<WG_PRODUCER_REGS>();
+    const int p = tid - 256;
+    const int* pt_row = page_table + (int64_t)b * maxP;
+    const TKV* kb = k_pool + (int64_t)h * D;
+    const int64_t v_off = v_pool - k_pool;
+    const int pshift = (page_size & (page_size - 1)) ? -1 : __ffs(page_size) - 1;
+    // fp8: bits 2 and 3 of the thread swapped, so that lanes 4-7 of a
+    // quarter warp widen the next row, whose swizzle phase differs: their
+    // 16-byte stores then fall in other banks than lanes 0-3's
+    const int pq = Lay::WIDEN ? (p & ~12) | ((p & 4) << 1) | ((p & 8) >> 1) : p;
+    const int vc = pq % Lay::VPR, vt0 = pq / Lay::VPR;
+    // the source of this thread's k-th vector of tile t (kb past the walk's end)
+    auto source = [&](int t, int k, bool& ok) -> const TKV* {
+      const int pos = lo + t * TK + vt0 + k * Lay::VSTEP;
+      ok = pos < limit;
+      return ok ? kb + wg::slot_of(pt_row, pos, page_size, pshift) * row_stride + vc * Lay::VE
+                : kb;
+    };
+    if constexpr (!Lay::WIDEN) {
+      for (int t = 0; t < ntiles; ++t) {
+        if (t >= WG_STAGES) wg::mbar_wait(empty + t % WG_STAGES, (t / WG_STAGES - 1) & 1);
+        unsigned char* st = smem + (t % WG_STAGES) * Lay::STAGE;
+#pragma unroll
+        for (int k = 0; k < Lay::NV; ++k) {
+          bool ok;
+          const TKV* src = source(t, k, ok);
+          const int off = wg::sw128(TK, vt0 + k * Lay::VSTEP, vc);
+          cp_async16_zfill(st + off, src, ok);
+          cp_async16_zfill(st + Lay::TILE + off, src + v_off, ok);
+        }
+        wg::mbar_arrive_cp_async(full + t % WG_STAGES);
+      }
+    } else {
+      uint4* raw = reinterpret_cast<uint4*>(smem + Lay::RAW0);
+      for (int t = 0; t < ntiles + WG_LAG; ++t) {
+        if (t < ntiles) {
+          uint4* rw = raw + (t % Lay::NRAW) * (Lay::RAW / 16);
+#pragma unroll
+          for (int k = 0; k < Lay::NV; ++k) {
+            bool ok;
+            const TKV* src = source(t, k, ok);
+            cp_async16_zfill(rw + k * 128 + p, src, ok);
+            cp_async16_zfill(rw + (Lay::NV + k) * 128 + p, src + v_off, ok);
+          }
+        }
+        cp_async_commit();  // a group every round, so that every wait counts the same
+        const int u = t - WG_LAG;
+        if (u >= 0) {
+          cp_async_wait<WG_LAG>();  // the raw tile u has landed
+          if (u >= WG_STAGES) wg::mbar_wait(empty + u % WG_STAGES, (u / WG_STAGES - 1) & 1);
+          unsigned char* st = smem + (u % WG_STAGES) * Lay::STAGE;
+          const uint4* rw = raw + (u % Lay::NRAW) * (Lay::RAW / 16);
+#pragma unroll
+          for (int k = 0; k < Lay::NV; ++k) {
+            const int row = vt0 + k * Lay::VSTEP;
+            const int o0 = wg::sw128(TK, row, 2 * vc), o1 = wg::sw128(TK, row, 2 * vc + 1);
+            uint4 x, y;
+            wg::widen_fp8<TKV>(rw[k * 128 + p], x, y);
+            *reinterpret_cast<uint4*>(st + o0) = x;
+            *reinterpret_cast<uint4*>(st + o1) = y;
+            wg::widen_fp8<TKV>(rw[(Lay::NV + k) * 128 + p], x, y);
+            *reinterpret_cast<uint4*>(st + Lay::TILE + o0) = x;
+            *reinterpret_cast<uint4*>(st + Lay::TILE + o1) = y;
+          }
+          wg::mbar_arrive(full + u % WG_STAGES);
+        }
+      }
+    }
+    cp_async_wait<0>();
+  } else {
+    // ---- The two consumer warpgroups: warps 0-3 own the block's packed
+    // rows 0-63, warps 4-7 rows 64-127, each warp 16 of them.
+    wg::regs_inc<WG_CONSUMER_REGS>();
+    const int warp = tid / 32, lane = tid % 32;
+    // the warp's A fragments of Q, by ldmatrix as in the mma.sync kernel:
+    // wgmma's register A is that fragment
+    const int l7 = lane & 7, l8 = ((lane >> 3) & 1) * 8, l16 = ((lane >> 4) & 1) * 8;
+    uint32_t qa[KS][4];
+    {
+      const uint32_t a = s_smem + Lay::Q0 + warp * 16 * QLD * 2 + ((l7 + l8) * QLD + l16) * 2;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qa[ks], a + ks * 32);
+    }
+    // this lane's two packed rows (accumulator rows gid and gid + 8 of the warp)
+    const int gid = lane >> 2, tig = lane & 3;
+    int qpos[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) qpos[j] = q_abs_lo + (m_lo + warp * 16 + gid + 8 * j) / G;
+    // the warp's query positions wq_lo .. wq_hi (its rows the entry owns)
+    const int wq_lo = q_abs_lo + (m_lo + warp * 16) / G;
+    const int wq_hi = q_abs_lo + min((m_lo + warp * 16 + 15) / G, n_rows - 1);
+    // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
+    const bool capped = cap > 0.f;
+    const float c = capped ? LOG2E : scale * LOG2E;
+
+    float sc[TK / 2], o[D / 2];  // S and O accumulators (rpa_wgmma.cuh's fragment)
+    uint32_t pa[TK / 16][4];     // P of the previous tile: the A of its P V
+#pragma unroll
+    for (int e = 0; e < TK / 2; ++e) sc[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+    float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.f, 0.f};
+
+    // Iteration t waits for tile t, issues S_t = Q K_t^T (8 m64n64k16, K
+    // read K-major), then O += P_{t-1} V_{t-1} (4 m64n128k16, P rounded to
+    // bf16 as the TPU casts p to V's dtype, from registers; V read MN-major
+    // through the transpose bit), waits for S_t alone and runs the softmax
+    // of tile t on the CUDA cores while the tensor cores run P V; then waits
+    // for P V, releases tile t - 1's stage, rescales O and packs P_t. The
+    // two warpgroups meet only at the ring's barriers, so one's softmax
+    // and waits overlap the other's products. Each walks every tile of
+    // [lo, limit) (wgmma is warpgroup-wide); a warp whose rows see none of
+    // a tile masks all of it.
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = lo + t * TK;
+      wg::mbar_wait(full + t % WG_STAGES, (t / WG_STAGES) & 1);
+      // the producer wrote the tile through the generic proxy (cp.async, or
+      // the widening stores): fenced here, after the barrier, for wgmma's
+      // async proxy. A fence in the producer would wait for its copies in
+      // flight (fence.proxy.async includes a MEMBAR); here none are.
+      wg::fence_proxy_async();
+      const uint32_t sK = s_smem + (t % WG_STAGES) * Lay::STAGE;
+      // P V of tile t - 1; at t = 0, P = 0 times the (finite) K_0 tile, so
+      // that no wgmma sits under a branch (ptxas then serializes them)
+      const uint32_t sV =
+          t > 0 ? s_smem + ((t - 1) % WG_STAGES) * Lay::STAGE + Lay::TILE : sK;
+      const bool masked = st + TK > limit || st + TK - 1 > wq_lo ||
+                          (window > 0 && st <= wq_hi - window);
+      wg::fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) wg::mma_rs<0>(sc, qa[ks], wg::desc_k(sK, TK, ks), ks);
+      wg::commit();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) wg::mma_rs<1>(o, pa[kk], wg::desc_mn(sV, TK, kk), 1);
+      wg::commit();
+      wg::wait<1>();  // S_t is done; P V may still run
+      wg::fence_regs(sc);
+      // softcap, mask and the row max (over the 4 lanes of a quad)
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int e = 0; e < TK / 2; ++e) {
+        const int rr = (e >> 1) & 1;
+        float v = sc[e];
+        if (capped) v = cap * tanhf(v * scale / cap);
+        if (masked) {
+          const int pos = st + 8 * (e >> 2) + 2 * tig + (e & 1);
+          const bool ok = pos < limit && pos <= qpos[rr] &&
+                          (window <= 0 || pos > qpos[rr] - window);
+          v = ok ? v : NEG_INF;
+        }
+        sc[e] = v;
+        mx[rr] = fmaxf(mx[rr], v);
+      }
+      float corr[2], mc[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        const float m_new = fmaxf(mrow[rr], mx[rr]);
+        corr[rr] = fast_exp2((mrow[rr] - m_new) * c);
+        mrow[rr] = m_new;
+        // a row with nothing valid yet keeps m at NEG_INF: p = 2^(NEG_INF c) = 0
+        mc[rr] = (m_new == NEG_INF ? 0.f : m_new) * c;
+      }
+#pragma unroll
+      for (int e = 0; e < TK / 2; ++e) {
+        const float pe = fast_exp2(fmaf(sc[e], c, -mc[(e >> 1) & 1]));
+        psum[(e >> 1) & 1] += pe;
+        sc[e] = pe;
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) lrow[rr] = lrow[rr] * corr[rr] + psum[rr];
+      wg::wait<0>();  // P_{t-1} V_{t-1} is done
+      wg::fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) wg::fence_regs(pa[kk]);
+      if (t > 0 && lane == 0) wg::mbar_arrive(empty + (t - 1) % WG_STAGES);
+      // O's rescale, unless no row max of the warp moved (corr is then 1
+      // exactly, the common case once the first tiles are in)
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+      }
+      // P_t as the register A of each k-step of 16 positions
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * (2 * kk + (e >> 1)) + 2 * (e & 1);
+          pa[kk][e] = pack_bf16(sc[x], sc[x + 1]);
+        }
+    }
+    // the last tile's P V (its stage is not refilled: no release)
+    {
+      const uint32_t sV = s_smem + ((ntiles - 1) % WG_STAGES) * Lay::STAGE + Lay::TILE;
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) wg::mma_rs<1>(o, pa[kk], wg::desc_mn(sV, TK, kk), 1);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(o);
+    }
+
+    // Epilogue: O / l (0 for a row that saw no position) staged per warp in
+    // the Q staging (each warp its own 16 rows), then written as 16-byte
+    // vectors to the rows the entry owns
+    float inv[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float l = lrow[rr];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[rr] = l > 0.f ? 1.f / l : 0.f;
+    }
+    bf16* sO = sQ + warp * 16 * QLD;
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+      *reinterpret_cast<uint32_t*>(sO + gid * QLD + d * 8 + 2 * tig) =
+          pack_bf16(o[4 * d] * inv[0], o[4 * d + 1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(sO + (gid + 8) * QLD + d * 8 + 2 * tig) =
+          pack_bf16(o[4 * d + 2] * inv[1], o[4 * d + 3] * inv[1]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 16 * QV / 32; ++k) {
+      const int v = lane + k * 32, m = v / QV, cc = v % QV;
+      const int pm = m_lo + warp * 16 + m, r = pm / G, g = pm - r * G;
+      if (r < n_rows)
+        *reinterpret_cast<uint4*>(out + ((int64_t)(row0 + r) * Hq + h * G + g) * D + cc * 8) =
+            *reinterpret_cast<const uint4*>(sO + m * QLD + cc * 8);
+    }
+  }
+}
+
+template <typename TKV, int D>
+static int launch_extend_wgmma(const void* q, const void* k_pool, const void* v_pool,
+                               const void* pt, const void* kv_lens, const void* q_lens,
+                               const void* q_start, const void* block_seq, const void* block_row,
+                               const void* block_qofs, void* out, int NQB, int Hq, int Hkv,
+                               int row_stride, int maxP, int page_size, float scale, float cap,
+                               int window, cudaStream_t stream) {
+  using Lay = WgLayout<TKV, D>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      rpa_extend_wgmma_kernel<TKV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  // setmaxnreg.inc waits until the producer has given its registers back:
+  // launched with fewer than the moves need, the consumers would wait for
+  // ever, so such a build is refused instead
+  static const int launch_regs = [] {
+    cudaFuncAttributes fa{};
+    return cudaFuncGetAttributes(&fa, rpa_extend_wgmma_kernel<TKV, D>) == cudaSuccess
+               ? fa.numRegs
+               : 0;
+  }();
+  if (2 * (WG_CONSUMER_REGS - launch_regs) > launch_regs - WG_PRODUCER_REGS)
+    return (int)cudaErrorLaunchOutOfResources;
+  const int G = Hq / Hkv;
+  const dim3 grid((EXTEND_QBLK * G + WG_ROWS - 1) / WG_ROWS, Hkv, NQB);
+  rpa_extend_wgmma_kernel<TKV, D><<<grid, WG_NT, Lay::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k_pool),
+      static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
+      static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
+      static_cast<const int*>(q_start), static_cast<const int*>(block_seq),
+      static_cast<const int*>(block_row), static_cast<const int*>(block_qofs),
+      static_cast<__nv_bfloat16*>(out), Hq, Hkv, row_stride, maxP, page_size, scale, cap,
+      window);
+  return (int)cudaGetLastError();
+}
+
+// The tensor cores for bf16 q: warpgroups (wgmma) at head_dim 128, where P
+// is rounded to bf16 (the aligned build), mma.sync below it (with P split
+// in the merged build, which keeps P in float32); the CUDA-core kernel for
+// float32 q.
 template <typename TQ, typename TKV, int D>
 static int launch(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                   const void* kv_lens, const void* q_lens, const void* q_start,
                   const void* block_seq, const void* block_row, const void* block_qofs,
                   void* out, int NQB, int Hq, int Hkv, int row_stride, int maxP,
                   int page_size, float scale, float cap, int window, cudaStream_t stream) {
-  if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value && D == 128 && !P_F32_BUILD)
+    return launch_extend_wgmma<TKV, D>(q, k_pool, v_pool, pt, kv_lens, q_lens, q_start,
+                                       block_seq, block_row, block_qofs, out, NQB, Hq, Hkv,
+                                       row_stride, maxP, page_size, scale, cap, window, stream);
+  else if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
     return launch_extend_mma<TKV, D, P_F32_BUILD>(
         q, k_pool, v_pool, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out,
         NQB, Hq, Hkv, row_stride, maxP, page_size, scale, cap, window, stream);

@@ -14,7 +14,9 @@
 // per position, 30 per byte in bf16 with Hq 16 (above the ~20 the float32
 // CUDA cores sustain per byte, below the ~295 of the bf16 tensor cores);
 // extend does the same per (query row, visible position) and is bound by
-// operations. This first design runs in float32 on the CUDA cores.
+// operations. The design below runs in float32 on the CUDA cores: every
+// decode, and the float32 extend (the bf16 extend runs on the warpgroup
+// tensor cores, rpa_extend_mla.cu).
 //
 // Design: a group of TPR threads holds RPT query rows. A row's 576-wide
 // query and 512-wide float32 accumulator do not fit one thread's

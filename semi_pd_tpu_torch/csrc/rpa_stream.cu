@@ -564,7 +564,7 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   mma_lanes<LD, TK>(lane, k_lane, v_lane);
   // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
   const bool capped = cap > 0.f;
-  const float c = capped ? MMA_LOG2E : scale * MMA_LOG2E;
+  const float c = capped ? LOG2E : scale * LOG2E;
 
   // the compute side: request cr, tile ct of its cn, within kv_len climit;
   // the segment began at tile ct0 of the request

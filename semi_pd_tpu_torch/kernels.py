@@ -45,10 +45,11 @@ def find_nvcc() -> str:
         "semi_pd_tpu_torch are built from source at first use")
 
 
-def sass_mma_counts(kernel: "CudaKernel") -> Dict[str, int]:
-    """Tensor-core instructions (HMMA from mma.sync, HGMMA from wgmma) in
-    each function of the kernel's built library, by mangled name, read
-    from ``cuobjdump -sass`` (the CUDA toolkit's, beside nvcc)."""
+def sass_mma_counts(kernel: "CudaKernel", op: str = r"HG?MMA") -> Dict[str, int]:
+    """Tensor-core instructions (HMMA from mma.sync, HGMMA from wgmma; ``op``
+    "HGMMA" counts the latter alone) in each function of the kernel's built
+    library, by mangled name, read from ``cuobjdump -sass`` (the CUDA
+    toolkit's, beside nvcc)."""
     cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(kernel.lib_path())], capture_output=True,
                           text=True, check=True).stdout
@@ -59,7 +60,7 @@ def sass_mma_counts(kernel: "CudaKernel") -> Dict[str, int]:
         if m:
             fn = m.group(1)
             counts[fn] = 0
-        elif fn is not None and re.search(r"\bHG?MMA\.", line):
+        elif fn is not None and re.search(rf"\b{op}\.", line):
             counts[fn] += 1
     return counts
 

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version (the streaming decodes, the tensor-core extend and the tensor-core
+version (the streaming decodes, the tensor-core extends and the tensor-core
 decode also against themselves, bitwise, on a second run; the tensor-core
-extend with 1, 2, 4 and 8 query heads per KV head, the tensor-core decode
+extend with 1, 2, 4 and 8 query heads per KV head, the latent extend's
+warpgroup kernel over several entries per request, the tensor-core decode
 of every GQA build split over blocks at long KV and refusing an invalid
 split plan, the streaming decodes over batches whose requests the
 tensor-core stream cuts across warps and blocks, with every slot past
@@ -244,9 +245,15 @@ MMA_POOLS = {  # pool: (case options, kernel, head_dim, KV dtypes under bf16 q)
                 ["bfloat16", "fp8_e4m3", "fp8_e5m2"]),
     "merged": ({"merged": True}, "rpa_extend_merged", D,
                ["bfloat16", "fp8_e4m3", "fp8_e5m2"]),
+    # the latent pool's warpgroup kernel: 16 query heads per latent row
+    "latent": ({"latent": True}, "rpa_extend_mla", DLAT, ["bfloat16"]),
 }
-MMA_CASES = [(pool, kv) for pool, spec in MMA_POOLS.items() for kv in spec[3]]
+MMA_CASES = [(pool, kv) for pool, spec in MMA_POOLS.items() if pool != "latent"
+             for kv in spec[3]]
 MMA_IDS = [f"{pool}-{kv}" for pool, kv in MMA_CASES]
+# the tensor-core extends, the latent pool's included
+TC_CASES = MMA_CASES + [("latent", "bfloat16")]
+TC_IDS = MMA_IDS + ["latent-bfloat16"]
 MMA_Q_LENS = [140, 20, 1, 7, 300]  # rows of the real requests; 9 padding rows follow
 
 
@@ -260,6 +267,8 @@ def _mma_extend(dev, pool, kv, G, opt="plain"):
     q, kv_t, pt, kvl, meta = _case(11, MMA_Q_LENS, [203, 83, 1, 70, 365], dev, bf, pad_T=9,
                                    pad_B=1, kv_dtype=FP8.get(kv, bf), hkv=GROUPS[G], **extra)
     kw = _opts(opt, width ** -0.5)
+    if pool == "latent":
+        kw["v_dim"] = V_DIM
     if pool == "chunked":
         kw.update(num_kv_heads=GROUPS[G], head_dim=D)
         kern, plain = rpa.ragged_paged_attention_chunked_extend, rpa.extend_attention_plain
@@ -288,7 +297,23 @@ def test_extend_tensor_cores_match_plain(cuda_device, pool, kv, G, opt):
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("pool,kv", MMA_CASES, ids=MMA_IDS)
+@pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
+def test_mla_extend_warpgroups_match_plain(cuda_device, opt):
+    """The latent pool's extend with bf16 q (the warpgroup kernel: 4 tokens
+    x 16 heads per 64-row tile, S split over two warpgroups, P kept float32
+    as hi + lo) against its plain version, at q_lens that span several
+    128-row entries and leave tiles of 4 tokens partly owned."""
+    _, kern, plain, name = _mma_extend(cuda_device, "latent", "bfloat16", 4, opt)
+    k = KERNELS[name]
+    before = k.launches
+    out = kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("pool,kv", TC_CASES, ids=TC_IDS)
 def test_extend_tensor_cores_repeat_bitwise(cuda_device, pool, kv):
     """Two calls on the same inputs give bitwise equal outputs: each block
     walks its tiles in a fixed order and nothing is summed with atomics."""
@@ -297,26 +322,63 @@ def test_extend_tensor_cores_repeat_bitwise(cuda_device, pool, kv):
     assert torch.equal(kern(), first)
 
 
-@pytest.mark.parametrize("pool,kv", MMA_CASES, ids=MMA_IDS)
+@pytest.mark.parametrize("pool,kv", TC_CASES, ids=TC_IDS)
 def test_extend_tensor_cores_leave_unowned_rows_zero(cuda_device, pool, kv):
     """The bucket-padding rows, which no work-list entry owns, stay 0,
     while every owned row is written (none of them is 0 here)."""
     q, kern, _, _ = _mma_extend(cuda_device, pool, kv, 4)
     out = kern()
     T = sum(MMA_Q_LENS)
-    assert out.shape == q.shape and not out[T:].any()
+    width = V_DIM if pool == "latent" else q.shape[2]
+    assert out.shape == (*q.shape[:2], width) and not out[T:].any()
     assert out[:T].abs().amax(dim=(1, 2)).gt(0).all()
+
+
+@pytest.mark.parametrize("kv", ["fp8_e4m3", "fp8_e5m2"])
+def test_aligned_extend_widens_every_fp8_value_exactly(cuda_device, kv):
+    """The aligned extend widens fp8 KV to bf16 exactly, as the TPU kernel
+    upcasts it, for all 256 byte values: V rows 0 and 1 hold the patterns
+    0-127 and 128-255, keys and queries are one-hot at 448, so each query
+    row's score at its own position is ~1.8e4 above the other's and that
+    weight underflows to 0 in both versions: output row r is V row r in
+    bf16 wherever both rows are finite (0 times a NaN or Inf pattern is NaN
+    in the kernel as in the plain version, which it equals bitwise)."""
+    G = 4
+    dt = FP8[kv]
+    pool = torch.zeros((1, 2, 2 * PS, 1, D_ALIGNED), dtype=dt, device=cuda_device)
+    k = torch.zeros((2, D_ALIGNED), device=cuda_device)
+    k[0, 0] = k[1, 1] = 448.0
+    pool[0, 0, PS:PS + 2, 0] = k.to(dt)
+    pool[0, 1, PS:PS + 2, 0] = (torch.arange(256, dtype=torch.uint8, device=cuda_device)
+                                .view(dt).reshape(2, D_ALIGNED))
+    q = torch.zeros((2, G, D_ALIGNED), dtype=torch.bfloat16, device=cuda_device)
+    q[0, :, 0] = q[1, :, 1] = 448.0
+    pt = torch.ones((1, 1), dtype=torch.int32, device=cuda_device)  # page 1
+    kvl = torch.tensor([2], dtype=torch.int32, device=cuda_device)
+    meta = build_attn_meta(np.array([2]), np.array([2]), 2, device=cuda_device)
+    kw = _opts("plain", D_ALIGNED ** -0.5)
+    out = rpa.ragged_paged_attention_extend(q, pool, 0, pt, kvl, meta, **kw)
+    ref = rpa.ragged_paged_attention_extend_plain(q, pool, 0, pt, kvl, meta, **kw)
+    v = pool[0, 1, PS:PS + 2, 0].to(torch.bfloat16)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+    finite = torch.isfinite(v).all(dim=0)
+    assert int(finite.sum()) >= D_ALIGNED - 8
+    for r in range(2):
+        assert torch.equal(out[r][:, finite], v[r][finite].expand(G, -1))
 
 
 def test_extend_builds_run_on_the_tensor_cores(cuda_device):
     """The disassembled libraries: every bf16-q instantiation of the
-    chunked, the aligned and the merged extend and decode runs HMMA
-    instructions; their float32 pairs stay on the CUDA cores."""
+    chunked, the aligned and the merged extend and decode, and of the latent
+    extend, runs tensor-core instructions (HGMMA in the aligned and the
+    latent extend's warpgroup kernels, HMMA in the others); their float32
+    pairs stay on the CUDA cores."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs)
         "rpa_extend": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 1),
-        "rpa_extend_aligned": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 3),
+        "rpa_extend_aligned": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 3),
+        "rpa_extend_mla": ("rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel", 1),
         "rpa_extend_merged": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 3),
         "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 1),
         "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
@@ -327,6 +389,9 @@ def test_extend_builds_run_on_the_tensor_cores(cuda_device):
         counts = sass_mma_counts(KERNELS[name])
         mma = [n for f, n in counts.items() if mma_fn in f]
         assert len(mma) == n_mma and all(mma), (name, counts)
+        if "wgmma" in mma_fn:
+            hgmma = sass_mma_counts(KERNELS[name], op="HGMMA")
+            assert all(hgmma[f] == n for f, n in counts.items() if mma_fn in f), (name, counts)
         core = [n for f, n in counts.items() if core_fn in f]
         assert len(core) == 1 and not any(core), (name, counts)
 

@@ -1,0 +1,384 @@
+"""The schedules of the two warpgroup (wgmma) extend kernels, on the CPU:
+``rpa_extend_wgmma_kernel`` (csrc/rpa_extend.cu, the aligned build at
+head_dim 128) and ``rpa_extend_mla_wgmma_kernel`` (csrc/rpa_extend_mla.cu,
+the latent pool). Each schedule is stated here in Python: which packed rows
+a block and each of its consumer warpgroups own, which KV positions a block
+walks, how the MLA kernel splits the 576 score dims and V's 512 columns
+between its two warpgroups, and the producer/consumer ring of the GQA kernel
+(its stages, the lag of the fp8 widening, the barriers' phases). The tests
+then hold that, at shapes with q_len 1 to 2048, padding entries, windows and
+1, 2, 4 or 8 query heads per KV head, every (token, head) a work-list entry
+owns is written exactly once and nothing else is, that every position a row
+may see is walked, and that the ring neither deadlocks nor refills a stage
+still being read. They also pin the 128-byte swizzle of the shared-memory
+tiles (csrc/rpa_wgmma.cuh) against the rule the hardware applies, and the
+constants Python and the sources share, by parsing the sources (as
+tests/test_torch_decode_split.py does). This file imports no JAX.
+"""
+
+import random
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from semi_pd_tpu_torch.kernels import KERNELS
+from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
+from semi_pd_tpu_torch.runtime.forward_batch import make_attn_meta_host
+
+CSRC = Path(rpa.__file__).resolve().parents[2] / "csrc"
+SMEM_PER_BLOCK = 232448  # an H100 block's most shared memory (227 KB)
+
+
+def _constants(*files, **env) -> dict:
+    """The ``constexpr int NAME = expr;`` lines of the given sources, in
+    order, evaluated with C's integer division (``env`` seeds the build's
+    defines)."""
+    for f in files:
+        for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);",
+                                     (CSRC / f).read_text(), re.M):
+            env[name] = eval(expr.replace("/", "//"), {}, dict(env))  # noqa: S307
+    return env
+
+
+GQA = _constants("rpa_extend.cu", EXTEND_QBLK=rpa.EXTEND_Q_BLOCK)
+MLA = _constants("rpa_mla.cuh", "rpa_extend_mla.cu", EXTEND_QBLK=rpa.EXTEND_Q_BLOCK)
+
+
+def _sw128():
+    """rpa_wgmma.cuh's sw128(rows, r, c), read from the source."""
+    src = (CSRC / "rpa_wgmma.cuh").read_text()
+    expr = re.search(r"constexpr int sw128\(int rows, int r, int c\) \{\s*return ([^;]+);",
+                     src).group(1)
+    return lambda rows, r, c: eval(expr, {}, dict(rows=rows, r=r, c=c))  # noqa: S307
+
+
+SW128 = _sw128()
+
+
+# ---------------------------------------------------------------- swizzle
+@pytest.mark.parametrize("rows,width", [(64, 128), (48, 576), (64, 576), (128, 128)],
+                         ids=["gqa-kv-tile", "mla-latent-tile", "mla-q-tile", "gqa-128-rows"])
+def test_sw128_is_the_hardware_swizzle_and_a_bijection(rows, width):
+    """Every 16-byte chunk c of row r lands where 128-byte swizzling puts it:
+    column block c // 8 (rows x 128 bytes each, so each block starts on a
+    1024-byte atom), row r at 128 r in it, and address bits 4-6 equal to
+    the chunk's bits XOR address bits 7-9 (the rule of a TMA map with
+    SWIZZLE_128B and of a wgmma descriptor in swizzle mode 1). The chunks
+    of the tile fill its rows * width * 2 bytes exactly once."""
+    assert rows % 8 == 0
+    seen = set()
+    for r in range(rows):
+        for c in range(width // 8):
+            off = SW128(rows, r, c)
+            block, inner = divmod(off, rows * 128)
+            assert block == c // 8 and inner // 128 == r and off % 16 == 0
+            assert (off >> 4) & 7 == (c & 7) ^ ((off >> 7) & 7)
+            seen.add(off)
+    assert seen == set(range(0, rows * width * 2, 16))
+
+
+@pytest.mark.parametrize("rows", [48, 64])
+def test_descriptor_steps_address_the_swizzled_chunks(rows):
+    """The descriptors' arithmetic (desc_k, desc_mn) reaches the chunks the
+    copies wrote. K-major: k-step ks starts 32 ks bytes into its column
+    block's row (32 (ks % 4) past block ks // 4), and the hardware, XORing
+    the address of row r's chunk j (start + 128 r + 16 j) by (r % 8), lands
+    on sw128(rows, r, 2 ks + j). MN-major (V through the transpose bit):
+    k-step kk starts 2048 kk bytes on, 8-row groups 1024 bytes apart (SBO),
+    64-column blocks rows * 128 apart (LBO)."""
+    def hw(start, r, j):  # the address the hardware reads, in a 1024-aligned tile
+        a = start + 128 * r + 16 * j
+        return a ^ (((a >> 7) & 7) << 4)
+
+    for ks in range(576 // 16):
+        start = (ks >> 2) * rows * 128 + (ks & 3) * 32
+        for r in range(rows):
+            for j in range(2):
+                assert hw(start, r, j) == SW128(rows, r, 2 * ks + j)
+    sbo, lbo = 1024, rows * 128
+    for kk in range(rows // 16):
+        for p in range(16):  # positions of the k-step
+            for n in range(0, 512, 8):  # chunks of V's columns
+                start = kk * 2048 + (n // 64) * lbo + (p // 8) * sbo
+                assert hw(start, p % 8, (n % 64) // 8) == SW128(rows, 16 * kk + p, n // 8)
+
+
+# ---------------------------------------------------------------- shapes
+# (q_lens, kv_lens, Hq, Hkv or None for the latent pool, window): q_len 1,
+# 100, 140, 200 and 2048, prefixes, a padded batch row (kv_len 0), windows,
+# G = 1, 2, 4, 8
+SHAPES = [
+    ([1], [1], 8, 8, 0),
+    ([100], [100], 8, 4, 0),
+    ([140, 20, 1, 7], [140, 60, 9, 300], 8, 2, 0),
+    ([200], [712], 8, 1, 0),
+    ([2048], [2048], 32, 8, 0),
+    ([140, 20, 1, 7, 0], [140, 60, 9, 300, 0], 8, 2, 24),
+    ([200, 1], [1000, 1], 32, 4, 512),
+    ([256] * 8, [2048] * 8, 32, 8, 0),
+    ([2048, 2048], [2048, 2048], 32, 8, 0),
+    ([37, 300], [37, 365], 16, 8, 64),
+    ([140, 20, 1, 7], [140, 60, 9, 300], 16, None, 0),
+    ([2048], [2048], 16, None, 0),
+    ([256] * 8, [2048] * 8, 16, None, 0),
+    ([200, 1], [1000, 1], 16, None, 100),
+]
+IDS = [f"{'mla' if h is None else f'g{hq // h}'}-q{'_'.join(map(str, q))}-w{w}"
+       for q, _, hq, h, w in SHAPES]
+
+
+def _work_list(q_lens, kv_lens):
+    T = int(sum(q_lens)) + 9  # bucket padding rows after the real ones
+    bs, br, bq = make_attn_meta_host(np.asarray(q_lens), T)
+    q_start = [k - q for q, k in zip(q_lens, kv_lens)]
+    return T, list(zip(bs.tolist(), br.tolist(), bq.tolist())), q_start
+
+
+def _walk(q_lens, kv_lens, q_start, b, qofs, r_lo, r_hi, window, tk, cap):
+    """A block's walk as the kernels compute it: [lo, limit) for the rows
+    r_lo .. r_hi of an entry (0 tiles: the block returns early)."""
+    n_rows = min(q_lens[b] - qofs, rpa.EXTEND_Q_BLOCK)
+    q_abs_lo = q_start[b] + qofs
+    limit = min(kv_lens[b], q_abs_lo + min(r_hi, n_rows - 1) + 1, cap)
+    lo = max(q_abs_lo + r_lo - window + 1, 0) if window > 0 else 0
+    return lo, limit, (limit - lo + tk - 1) // tk if limit > lo else 0
+
+
+def _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window):
+    """rpa_extend_wgmma_kernel's blocks: grid (ceil(EXTEND_QBLK G / WG_ROWS),
+    Hkv, entries); packed row m = r G + g is query row r of head h G + g;
+    consumer warpgroup w owns the block's packed rows 64 w .. 64 w + 63,
+    warp v of it 16 of them. Yields (entry, rows written as (token, head),
+    walk, rows' positions)."""
+    G = Hq // Hkv
+    T, entries, q_start = _work_list(q_lens, kv_lens)
+    rows, consumers = GQA["WG_ROWS"], (GQA["WG_NT"] - 128) // 128
+    assert rows == 64 * consumers
+    cap = 10 ** 9
+    for i, (b, row0, qofs) in enumerate(entries):
+        for slice_ in range(-(-GQA["EXTEND_QBLK"] * G // rows)):
+            for h in range(Hkv):
+                if b < 0:
+                    continue
+                n_rows = min(q_lens[b] - qofs, rpa.EXTEND_Q_BLOCK)
+                m_lo = slice_ * rows
+                if m_lo // G >= n_rows:
+                    continue
+                lo, limit, ntiles = _walk(q_lens, kv_lens, q_start, b, qofs, m_lo // G,
+                                          (m_lo + rows - 1) // G, window, GQA["WG_TK"], cap)
+                if ntiles == 0:
+                    continue
+                written = []
+                for w in range(consumers):
+                    for pm in range(m_lo + 64 * w, m_lo + 64 * w + 64):
+                        r, g = divmod(pm, G)
+                        if r < n_rows:
+                            written.append((row0 + r, h * G + g, q_start[b] + qofs + r))
+                yield b, written, (lo, limit, ntiles)
+
+
+def _mla_blocks(q_lens, kv_lens, Hq, window):
+    """rpa_extend_mla_wgmma_kernel's blocks: grid (ceil(EXTEND_QBLK Hq /
+    64), entries); packed row m = r Hq + g (consecutive in q and out); both
+    warpgroups hold all 64 rows, warpgroup w scores dims 288 w .. 288 w + 287
+    and writes V columns 256 w .. 256 w + 255."""
+    T, entries, q_start = _work_list(q_lens, kv_lens)
+    rows = MLA["MLA_WG_ROWS"]
+    for i, (b, row0, qofs) in enumerate(entries):
+        for slice_ in range(-(-MLA["EXTEND_QBLK"] * Hq // rows)):
+            if b < 0:
+                continue
+            n_rows = min(q_lens[b] - qofs, rpa.EXTEND_Q_BLOCK)
+            m_lo = slice_ * rows
+            if m_lo // Hq >= n_rows:
+                continue
+            lo, limit, ntiles = _walk(q_lens, kv_lens, q_start, b, qofs, m_lo // Hq,
+                                      (m_lo + rows - 1) // Hq, window, MLA["MLA_WG_TK"], 10 ** 9)
+            written = []
+            for w in range(MLA["MLA_WG_NT"] // 128):
+                cols = range(MLA["MLA_WG_DV"] * w, MLA["MLA_WG_DV"] * (w + 1))
+                for pm in range(m_lo, m_lo + rows):
+                    r, g = divmod(pm, Hq)
+                    if r < n_rows:
+                        written.append((row0 + r, g, q_start[b] + qofs + r, cols))
+            yield b, written, (lo, limit, ntiles)
+
+
+@pytest.mark.parametrize("q_lens,kv_lens,Hq,Hkv,window", SHAPES, ids=IDS)
+def test_every_owned_row_is_written_once_and_sees_its_positions(q_lens, kv_lens, Hq, Hkv,
+                                                                window):
+    """Every (token, head) of every request is written by exactly one block
+    (with the MLA kernel, each of its 512 columns by exactly one
+    warpgroup), nothing in the bucket padding rows is, and the block's walk
+    [lo, limit) holds every position the row may see (causal, kv_len,
+    window): tiles above the block's last row or below its first row's
+    window are never walked."""
+    T = int(sum(q_lens)) + 9
+    q_start = [k - q for q, k in zip(q_lens, kv_lens)]
+    if Hkv is None:
+        count = np.zeros((T, Hq, MLA["MLA_DV"]), np.int64)
+        blocks = _mla_blocks(q_lens, kv_lens, Hq, window)
+    else:
+        count = np.zeros((T, Hq, 1), np.int64)
+        blocks = _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window)
+    for b, written, (lo, limit, ntiles) in blocks:
+        for item in written:
+            t, hq, pos = item[:3]
+            cols = item[3] if Hkv is None else [0]
+            count[t, hq, list(cols)] += 1
+            first = max(pos - window + 1, 0) if window > 0 else 0
+            last = min(pos + 1, kv_lens[b])
+            if last > first:
+                assert lo <= first and last <= limit <= lo + ntiles * (
+                    MLA["MLA_WG_TK"] if Hkv is None else GQA["WG_TK"])
+    real = int(sum(q_lens))
+    assert (count[:real] == 1).all()
+    assert not count[real:].any()
+
+
+@pytest.mark.parametrize("q_lens,kv_lens,Hq,Hkv,window", SHAPES[:10], ids=IDS[:10])
+def test_gqa_warps_mask_the_tiles_their_rows_cannot_see(q_lens, kv_lens, Hq, Hkv, window):
+    """A warp's 16 packed rows span query positions wq_lo .. wq_hi; a tile
+    of the walk at st is left unmasked only if every one of those rows sees
+    all of it (st + TK <= limit, st + TK - 1 <= wq_lo, st > wq_hi - window),
+    and a tile none of them sees is masked whole (its scores are NEG_INF)."""
+    G, TK = Hq // Hkv, GQA["WG_TK"]
+    for b, written, (lo, limit, ntiles) in _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window):
+        positions = sorted({pos for _, _, pos in written})
+        for t in range(ntiles):
+            st = lo + t * TK
+            for w0 in range(0, len(positions), max(16 // G, 1)):
+                wq = positions[w0:w0 + max(16 // G, 1)]
+                wq_lo, wq_hi = wq[0], wq[-1]
+                masked = (st + TK > limit or st + TK - 1 > wq_lo
+                          or (window > 0 and st <= wq_hi - window))
+                sees = [[lo_p <= p < hi_p for p in range(st, st + TK)]
+                        for q in wq
+                        for lo_p, hi_p in [((max(q - window + 1, 0) if window else 0),
+                                            min(q + 1, limit))]]
+                if not masked:
+                    assert all(all(s) for s in sees)
+
+
+def test_mla_warpgroups_split_the_dims_and_the_columns():
+    """The two warpgroups of the MLA kernel score disjoint halves of the 576
+    dims (18 k-steps of 16 each) whose sum is S, and write disjoint halves
+    of V's 512 columns (a 64 x 256 float32 accumulator, 128 registers a
+    thread); the tile of 48 positions is 3 k-steps of P V."""
+    assert MLA["MLA_DL"] == 576 and MLA["MLA_DV"] == 512
+    ks = [set(range(w * MLA["MLA_WG_KS"], (w + 1) * MLA["MLA_WG_KS"])) for w in range(2)]
+    assert ks[0] | ks[1] == set(range(MLA["MLA_DL"] // 16)) and not ks[0] & ks[1]
+    assert 2 * MLA["MLA_WG_DV"] == MLA["MLA_DV"] and MLA["MLA_WG_DV"] % 64 == 0
+    assert MLA["MLA_WG_ROWS"] * MLA["MLA_WG_DV"] // 128 == 128  # accumulators a thread
+    assert MLA["MLA_WG_TK"] % 16 == 0 and MLA["MLA_WG_TK"] % 8 == 0
+    assert MLA["MLA_WG_NT"] == 256 and rpa.EXTEND_Q_BLOCK * 16 % MLA["MLA_WG_ROWS"] == 0
+
+
+# ---------------------------------------------------------------- the ring
+def _ring(ntiles, widen, stages, lag, seed):
+    """rpa_extend_wgmma_kernel's producer and its two consumer warpgroups as
+    programs of barrier operations, run in a random interleaving. Stage s
+    holds tile t = s (mod stages); consumers wait for full[s] in phase t //
+    stages, read K_t in iteration t and V_t in iteration t + 1, then each
+    warp (4 a warpgroup) arrives on empty; the producer waits for empty's
+    phase t // stages - 1 before refilling. bf16 KV: the arrival on full
+    follows the copy; fp8: tile u is widened (and arrives) lag rounds after
+    its raw copy. Returns the number of steps, or raises on a deadlock or a
+    stage written while a consumer may still read it."""
+    rng = random.Random(seed)
+    full = [[0, 0] for _ in range(stages)]  # [completed phases, arrivals]
+    empty = [[0, 0] for _ in range(stages)]
+
+    def done(bar, s, parity):  # try_wait.parity: that phase has completed
+        return bar[s][0] > 0 and (bar[s][0] - 1) & 1 == parity
+
+    def arrive(bar, s, count):
+        bar[s][1] += 1
+        if bar[s][1] == count:
+            bar[s][0], bar[s][1] = bar[s][0] + 1, 0
+
+    prod = []
+    for t in range(ntiles + (lag if widen else 0)):
+        if not widen:
+            if t >= stages:
+                prod.append(("wait", empty, t % stages, (t // stages - 1) & 1))
+            prod += [("write", t % stages, t), ("arrive", full, t % stages, 1)]
+            continue
+        u = t - lag
+        if u >= 0:
+            if u >= stages:
+                prod.append(("wait", empty, u % stages, (u // stages - 1) & 1))
+            prod += [("write", u % stages, u), ("arrive", full, u % stages, 1)]
+    cons = []
+    for t in range(ntiles):
+        cons += [("wait", full, t % stages, (t // stages) & 1), ("read", t % stages, t)]
+        if t > 0:
+            cons += [("read", (t - 1) % stages, t - 1), ("release", (t - 1) % stages)]
+    programs, pcs = [prod, list(cons), list(cons)], [0, 0, 0]
+    holds, reading = [None] * stages, [set() for _ in range(stages)]
+    steps = 0
+    while any(pc < len(p) for pc, p in zip(pcs, programs)):
+        ready = [a for a, p in enumerate(programs) if pcs[a] < len(p) and not (
+            p[pcs[a]][0] == "wait" and not done(*p[pcs[a]][1:]))]
+        assert ready, f"deadlock at {pcs}"
+        a = rng.choice(ready)
+        op = programs[a][pcs[a]]
+        if op[0] == "write":
+            assert not reading[op[1]], f"stage {op[1]} refilled while read"
+            holds[op[1]] = op[2]
+        elif op[0] == "arrive":
+            arrive(op[1], op[2], op[3])
+        elif op[0] == "read":
+            assert holds[op[1]] == op[2], "a consumer read another tile"
+            reading[op[1]].add(a)
+        elif op[0] == "release":
+            reading[op[1]].discard(a)
+            for _ in range(4):
+                arrive(empty, op[1], 8)
+        pcs[a] += 1
+        steps += 1
+    return steps
+
+
+@pytest.mark.parametrize("ntiles", [1, 2, 3, 4, 5, 9, 33])
+@pytest.mark.parametrize("widen", [False, True], ids=["bf16", "fp8"])
+def test_ring_neither_deadlocks_nor_refills_a_stage_in_use(ntiles, widen):
+    """The ring of the GQA kernel with its source's stage count and lag, in
+    200 random interleavings of the producer and the two consumers."""
+    for seed in range(200):
+        assert _ring(ntiles, widen, GQA["WG_STAGES"], GQA["WG_LAG"], seed) > 0
+
+
+def test_gqa_kernel_constants_and_budgets():
+    """The GQA kernel's constants as the sources state them: two consumer
+    warpgroups of 64 packed rows and a producer warpgroup; setmaxnreg moves
+    no more registers to the consumers than the producer gives back from the
+    launch's 65536 / 384 (rounded down to 8); each layout's shared memory
+    (bf16 KV: the ring and the Q staging; fp8 adds the raw tiles) and the
+    MLA kernel's fit one block."""
+    launch = 65536 // GQA["WG_NT"] // 8 * 8
+    assert GQA["WG_NT"] == 384 and GQA["WG_ROWS"] == 128 and launch == 168
+    assert 2 * (GQA["WG_CONSUMER_REGS"] - launch) <= launch - GQA["WG_PRODUCER_REGS"]
+    assert GQA["WG_CONSUMER_REGS"] % 8 == 0 and GQA["WG_PRODUCER_REGS"] % 8 == 0
+    D, TK = 128, GQA["WG_TK"]
+    for fp8 in (False, True):
+        ring = GQA["WG_STAGES"] * 2 * TK * D * 2
+        raw = (GQA["WG_LAG"] + 1) * TK * D * 2 if fp8 else 0
+        smem = ring + raw + GQA["WG_ROWS"] * (D + 8) * 2 + 2 * GQA["WG_STAGES"] * 8 + 1024
+        assert smem <= SMEM_PER_BLOCK, (fp8, smem)
+    assert MLA["MLA_WG_SMEM"] <= SMEM_PER_BLOCK
+
+
+def test_builds_name_their_warpgroup_kernels():
+    """The aligned build (head_dim 128) and the MLA build launch the
+    warpgroup kernels for bf16 q; their sources hold them, and the builds'
+    defines are the ones their schedules here assume."""
+    aligned, mla = KERNELS["rpa_extend_aligned"], KERNELS["rpa_extend_mla"]
+    assert "RPA_ALIGNED" in aligned.defines and not any(
+        d.startswith("RPA_HEAD_DIM") for d in aligned.defines)
+    assert f"EXTEND_QBLK={rpa.EXTEND_Q_BLOCK}" in aligned.defines
+    assert f"EXTEND_QBLK={rpa.EXTEND_Q_BLOCK}" in mla.defines and "RPA_P_F32" in mla.defines
+    assert "rpa_extend_wgmma_kernel" in aligned.source.read_text()
+    assert "rpa_extend_mla_wgmma_kernel" in mla.source.read_text()

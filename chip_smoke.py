@@ -13,9 +13,11 @@ each (any failure raises and exits non-zero):
              the bf16-q instantiations of every extend, of the chunked, the
              aligned and the merged decode, and of the chunked and the
              aligned streaming decode must have some, their float32 pair
-             none. The aligned extend (head_dim 128) and the latent
-             extend run bf16 q on Hopper's warpgroup tensor cores (wgmma):
-             their registers, spills and HGMMA count get a line each.
+             none. Every extend runs bf16 q on Hopper's warpgroup tensor
+             cores (wgmma; the chunked, the aligned and the merged build in
+             one kernel, the latent build in its own): each warpgroup
+             kernel's registers, spills and HGMMA count get a line, and it
+             must have HGMMA instructions.
              The chunked, aligned and merged decodes run bf16 q on the tensor
              cores, split over warps and blocks by a plan the wrapper
              computes from shapes (the chunked and aligned ones with P
@@ -682,23 +684,28 @@ def main() -> int:
     for kname, counts in sass.items():
         print("sass " + json.dumps(dict(kernel=kname, mma=sum(counts.values()),
                                         functions=counts)))
-    # the two warpgroup (wgmma) kernels: registers, spills and HGMMA count of
+    # the warpgroup (wgmma) kernels: registers, spills and HGMMA count of
     # each instantiation
-    for kname, wg_fn in (("rpa_extend_aligned", "rpa_extend_wgmma_kernel"),
+    for kname, wg_fn in (("rpa_extend", "rpa_extend_wgmma_kernel"),
+                         ("rpa_extend_aligned", "rpa_extend_wgmma_kernel"),
+                         ("rpa_extend_merged", "rpa_extend_wgmma_kernel"),
                          ("rpa_extend_mla", "rpa_extend_mla_wgmma_kernel")):
         hgmma = sass_mma_counts(KERNELS[kname], op="HGMMA")
         for fn, props in ptxas_summary(KERNELS[kname].build_log).items():
             if wg_fn in fn:
                 print("wgmma " + json.dumps(dict(kernel=kname, function=fn, **props,
                                                  hgmma=hgmma.get(fn))))
+        if not [n for f, n in hgmma.items() if wg_fn in f] or not all(
+                n for f, n in hgmma.items() if wg_fn in f):
+            raise AssertionError(f"{kname}: HGMMA per function {hgmma}")
     # the tensor-core kernel of each library that has one: HMMA (HGMMA in the
     # warpgroup kernels) in each of its bf16-q instantiations, none in the
     # CUDA-core kernel's float32 pair
     for kname, mma_fn, core_fn in (
-            ("rpa_extend", "rpa_extend_mma_kernel", "rpa_extend_kernel"),
+            ("rpa_extend", "rpa_extend_wgmma_kernel", "rpa_extend_kernel"),
             ("rpa_extend_aligned", "rpa_extend_wgmma_kernel", "rpa_extend_kernel"),
             ("rpa_extend_mla", "rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel"),
-            ("rpa_extend_merged", "rpa_extend_mma_kernel", "rpa_extend_kernel"),
+            ("rpa_extend_merged", "rpa_extend_wgmma_kernel", "rpa_extend_kernel"),
             ("rpa_decode", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
             ("rpa_decode_aligned", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
             ("rpa_decode_merged", "rpa_decode_mma_kernel", "rpa_decode_kernel"),

@@ -150,6 +150,18 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
+// As split_bf16, but hi is x truncated to bf16 (its top 16 bits, taken by a
+// byte permute) and only lo is converted: one conversion per pair where
+// split_bf16 has two, for the warpgroup extend, whose softmax shares the
+// conversions' pipe (4% of the merged build's time on the card). x - hi is
+// exact in float32 and below 2^-7 |x|, so hi + lo is x to within 2^-15 |x|,
+// still 128 times below the bf16 step of the output (2^-8 relative).
+__device__ __forceinline__ void split_bf16_trunc(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
+  hi = __byte_perm(ua, ub, 0x7632u);
+  lo = pack_bf16(a - __uint_as_float(ua & 0xffff0000u), b - __uint_as_float(ub & 0xffff0000u));
+}
+
 // 16 fp8 values -> 16 bf16 (two 16-byte vectors), exactly: every e4m3 and
 // e5m2 value is a bf16 value too.
 template <typename T>

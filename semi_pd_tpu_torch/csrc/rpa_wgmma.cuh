@@ -1,9 +1,10 @@
 // Hopper's warpgroup tensor cores (wgmma) for the extend kernels
-// (rpa_extend.cu's rpa_extend_wgmma_kernel, the 5D pool at head_dim 128, and
-// rpa_extend_mla.cu's rpa_extend_mla_wgmma_kernel, the latent pool): the
-// 128-byte swizzled shared-memory layout, wgmma's matrix descriptors of it,
-// the fences, and the wgmma.mma_async m64nNk16 bf16 x bf16 -> float32 forms
-// the two kernels issue. sm_90a only (wgmma does not exist on plain sm_90).
+// (rpa_extend.cu's rpa_extend_wgmma_kernel, every GQA pool at head_dim 64 and
+// 128, and rpa_extend_mla.cu's rpa_extend_mla_wgmma_kernel, the latent
+// pool): the 128-byte swizzled shared-memory layout, wgmma's matrix
+// descriptors of it, the fences, and the wgmma.mma_async
+// m64nNk16 bf16 x bf16 -> float32 forms the two kernels issue. sm_90a only
+// (wgmma does not exist on plain sm_90).
 //
 // The layout. A tile of `rows` rows of 16-bit elements is stored as column
 // blocks of 64 elements (one 128-byte row each), block after block, each
@@ -57,6 +58,19 @@ namespace wg {
 // chunk c of row r (elements 8 c .. 8 c + 7 of the row).
 __host__ __device__ constexpr int sw128(int rows, int r, int c) {
   return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// The fp8 producer's thread map (rpa_extend.cu): with l = fp8_lane(p, vpr),
+// producer thread p copies and widens the 16-byte raw vector l % vpr of
+// the rows l / vpr + k 128 / vpr of a tile, each into two bf16 chunks
+// (vpr: raw vectors per row). At vpr 8 (head_dim 128) a quarter warp
+// would hold one row, whose chunks 2 c of both column blocks share banks
+// after the swizzle: swapping bits 2 and 3 of p puts the next row, of the
+// other swizzle phase, in lanes 4-7. At vpr 4 (head_dim 64) a quarter warp
+// already holds two neighbouring rows, and the swap would give it rows r
+// and r + 2, a 2-way conflict: the map is p.
+__host__ __device__ constexpr int fp8_lane(int p, int vpr) {
+  return p ^ (12 * (((p >> 2) ^ (p >> 3)) & 1) * (vpr == 8));
 }
 
 // The slot of position pos through a request's page-table row. The page is

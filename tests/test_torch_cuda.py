@@ -22,7 +22,8 @@ Tolerances: float32 1e-4 (online vs full softmax, another summation order);
 bfloat16 1e-2, also with fp8 KV, where kernel and plain version read the
 same fp8 bytes: the chunked and the aligned kernels round P to bf16 before
 P.V, as the GQA branches of the TPU kernels do, and 1e-2 absorbs that one
-rounding (test_bf16_gqa_decodes_round_p shows that the decodes round it).
+rounding (test_bf16_gqa_decodes_round_p and test_bf16_gqa_extends_round_p
+show that the decodes and the extends round it).
 The merged and the MLA kernels keep P in float32, as the TPU
 kernels they replace do, so with bf16 q they are also held closer
 (test_bf16_kernels_keep_p_float32): at least 99% of their outputs bitwise
@@ -334,6 +335,37 @@ def test_extend_tensor_cores_leave_unowned_rows_zero(cuda_device, pool, kv):
     assert out[:T].abs().amax(dim=(1, 2)).gt(0).all()
 
 
+def _widen_every_fp8_value(dev, kv, head_dim):
+    """The 5D pool's extend at head_dim (the aligned build at 128, the
+    merged one at 64) over fp8 KV whose V rows hold the 256 byte patterns,
+    head_dim to a row, one query row per V row; see the tests below."""
+    G = 4
+    dt = FP8[kv]
+    n = 256 // head_dim
+    pool = torch.zeros((1, 2, 2 * PS, 1, head_dim), dtype=dt, device=dev)
+    k = torch.zeros((n, head_dim), device=dev)
+    k[range(n), range(n)] = 448.0
+    pool[0, 0, PS:PS + n, 0] = k.to(dt)
+    pool[0, 1, PS:PS + n, 0] = (torch.arange(256, dtype=torch.uint8, device=dev)
+                                .view(dt).reshape(n, head_dim))
+    q = torch.zeros((n, G, head_dim), dtype=torch.bfloat16, device=dev)
+    for r in range(n):
+        q[r, :, r] = 448.0
+    pt = torch.ones((1, 1), dtype=torch.int32, device=dev)  # page 1
+    kvl = torch.tensor([n], dtype=torch.int32, device=dev)
+    meta = build_attn_meta(np.array([n]), np.array([n]), n, device=dev)
+    kw = _opts("plain", head_dim ** -0.5)
+    out = rpa.ragged_paged_attention_extend(q, pool, 0, pt, kvl, meta, **kw)
+    ref = rpa.ragged_paged_attention_extend_plain(q, pool, 0, pt, kvl, meta, **kw)
+    v = pool[0, 1, PS:PS + n, 0].to(torch.bfloat16)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+    finite = torch.isfinite(v).all(dim=0)
+    assert int(finite.sum()) >= head_dim - 8
+    for r in range(n):
+        # row r sees positions 0 .. r: its own one at weight 1, the others 0
+        assert torch.equal(out[r][:, finite], v[r][finite].expand(G, -1))
+
+
 @pytest.mark.parametrize("kv", ["fp8_e4m3", "fp8_e5m2"])
 def test_aligned_extend_widens_every_fp8_value_exactly(cuda_device, kv):
     """The aligned extend widens fp8 KV to bf16 exactly, as the TPU kernel
@@ -343,43 +375,32 @@ def test_aligned_extend_widens_every_fp8_value_exactly(cuda_device, kv):
     weight underflows to 0 in both versions: output row r is V row r in
     bf16 wherever both rows are finite (0 times a NaN or Inf pattern is NaN
     in the kernel as in the plain version, which it equals bitwise)."""
-    G = 4
-    dt = FP8[kv]
-    pool = torch.zeros((1, 2, 2 * PS, 1, D_ALIGNED), dtype=dt, device=cuda_device)
-    k = torch.zeros((2, D_ALIGNED), device=cuda_device)
-    k[0, 0] = k[1, 1] = 448.0
-    pool[0, 0, PS:PS + 2, 0] = k.to(dt)
-    pool[0, 1, PS:PS + 2, 0] = (torch.arange(256, dtype=torch.uint8, device=cuda_device)
-                                .view(dt).reshape(2, D_ALIGNED))
-    q = torch.zeros((2, G, D_ALIGNED), dtype=torch.bfloat16, device=cuda_device)
-    q[0, :, 0] = q[1, :, 1] = 448.0
-    pt = torch.ones((1, 1), dtype=torch.int32, device=cuda_device)  # page 1
-    kvl = torch.tensor([2], dtype=torch.int32, device=cuda_device)
-    meta = build_attn_meta(np.array([2]), np.array([2]), 2, device=cuda_device)
-    kw = _opts("plain", D_ALIGNED ** -0.5)
-    out = rpa.ragged_paged_attention_extend(q, pool, 0, pt, kvl, meta, **kw)
-    ref = rpa.ragged_paged_attention_extend_plain(q, pool, 0, pt, kvl, meta, **kw)
-    v = pool[0, 1, PS:PS + 2, 0].to(torch.bfloat16)
-    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
-    finite = torch.isfinite(v).all(dim=0)
-    assert int(finite.sum()) >= D_ALIGNED - 8
-    for r in range(2):
-        assert torch.equal(out[r][:, finite], v[r][finite].expand(G, -1))
+    _widen_every_fp8_value(cuda_device, kv, D_ALIGNED)
+
+
+@pytest.mark.parametrize("kv", ["fp8_e4m3", "fp8_e5m2"])
+def test_merged_extend_widens_every_fp8_value_exactly(cuda_device, kv):
+    """As the aligned test above, at head_dim 64 (the merged build, whose
+    fp8 producer maps its threads to the raw vectors differently, and which
+    splits P into hi + lo: here P is 1 or 0, so lo is 0): V rows 0-3 hold
+    the byte patterns 0-63, 64-127, 128-191 and 192-255, and output row r
+    is V row r in bf16 wherever the columns are finite."""
+    _widen_every_fp8_value(cuda_device, kv, D)
 
 
 def test_extend_builds_run_on_the_tensor_cores(cuda_device):
     """The disassembled libraries: every bf16-q instantiation of the
     chunked, the aligned and the merged extend and decode, and of the latent
-    extend, runs tensor-core instructions (HGMMA in the aligned and the
-    latent extend's warpgroup kernels, HMMA in the others); their float32
-    pairs stay on the CUDA cores."""
+    extend, runs tensor-core instructions (HGMMA in the extends' warpgroup
+    kernels, HMMA in the decodes'); their float32 pairs stay on the CUDA
+    cores."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs)
-        "rpa_extend": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 1),
+        "rpa_extend": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 1),
         "rpa_extend_aligned": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 3),
         "rpa_extend_mla": ("rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel", 1),
-        "rpa_extend_merged": ("rpa_extend_mma_kernel", "rpa_extend_kernel", 3),
+        "rpa_extend_merged": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 3),
         "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 1),
         "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
         "rpa_decode_merged": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
@@ -479,6 +500,34 @@ def test_bf16_gqa_decodes_round_p(cuda_device, pool):
     ref = plain(q, kv, 1, pt, kvl, **kw)
     torch.cuda.synchronize()
     assert torch.equal(fn(q, kv, 1, pt, kvl, **kw), out)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+    share = float((out == ref).float().mean())
+    assert share < 0.99, share
+
+
+@pytest.mark.parametrize("pool", ["chunked", "aligned"])
+def test_bf16_gqa_extends_round_p(cuda_device, pool):
+    """With bf16 q the chunked and the aligned extend (the warpgroup kernel
+    without P_SPLIT) stay within the bf16 tolerance of the float32 plain
+    version, but match it bitwise on fewer than 99% of outputs, a share that
+    P kept in float32 reaches (test_bf16_kernels_keep_p_float32): P is
+    rounded to bf16 once per position, as _rpa_kernel_chunked and
+    _rpa_kernel's GQA branch cast p to the KV tile's dtype for the P.V dot.
+    G = 4, the 1B-class and 8B paths'. A second call is bitwise equal."""
+    assert HQ // HKV == 4
+    q, kv, pt, kvl, meta = _extend_case(cuda_device, torch.bfloat16, aligned=pool == "aligned")
+    head_dim = D if pool == "chunked" else D_ALIGNED
+    kw = _opts("plain", head_dim ** -0.5)
+    if pool == "chunked":
+        kw.update(num_kv_heads=HKV, head_dim=D)
+        fn, plain = rpa.ragged_paged_attention_chunked_extend, rpa.extend_attention_plain
+    else:
+        fn = rpa.ragged_paged_attention_extend
+        plain = rpa.ragged_paged_attention_extend_plain
+    out = fn(q, kv, 1, pt, kvl, meta, **kw)
+    ref = plain(q, kv, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(fn(q, kv, 1, pt, kvl, meta, **kw), out)
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
     share = float((out == ref).float().mean())
     assert share < 0.99, share

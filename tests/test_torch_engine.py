@@ -109,11 +109,11 @@ def _imports(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke", "serve_witness",
-                                    "fidelity_witness", "decode_trace"])
+                                    "fidelity_witness", "decode_trace", "extend_shapes"])
 def test_port_imports_no_jax(target):
     """No file of the port, and none of its card scripts (chip_smoke.py,
-    serve_witness.py, fidelity_witness.py, decode_trace.py), imports jax or
-    anything of the JAX package."""
+    serve_witness.py, fidelity_witness.py, decode_trace.py,
+    extend_shapes.py), imports jax or anything of the JAX package."""
     files = (sorted((ROOT / "semi_pd_tpu_torch").rglob("*.py")) if target == "package"
              else [ROOT / f"{target}.py"])
     assert files

@@ -1,19 +1,22 @@
 """The schedules of the two warpgroup (wgmma) extend kernels, on the CPU:
-``rpa_extend_wgmma_kernel`` (csrc/rpa_extend.cu, the aligned build at
-head_dim 128) and ``rpa_extend_mla_wgmma_kernel`` (csrc/rpa_extend_mla.cu,
-the latent pool). Each schedule is stated here in Python: which packed rows
-a block and each of its consumer warpgroups own, which KV positions a block
-walks, how the MLA kernel splits the 576 score dims and V's 512 columns
-between its two warpgroups, and the producer/consumer ring of the GQA kernel
-(its stages, the lag of the fp8 widening, the barriers' phases). The tests
-then hold that, at shapes with q_len 1 to 2048, padding entries, windows and
-1, 2, 4 or 8 query heads per KV head, every (token, head) a work-list entry
-owns is written exactly once and nothing else is, that every position a row
-may see is walked, and that the ring neither deadlocks nor refills a stage
-still being read. They also pin the 128-byte swizzle of the shared-memory
-tiles (csrc/rpa_wgmma.cuh) against the rule the hardware applies, and the
-constants Python and the sources share, by parsing the sources (as
-tests/test_torch_decode_split.py does). This file imports no JAX.
+``rpa_extend_wgmma_kernel`` (csrc/rpa_extend.cu: every bf16-q pair of the
+GQA builds, the aligned build at head_dim 128 and the chunked and merged
+builds at head_dim 64, each head_dim with its own block shape) and
+``rpa_extend_mla_wgmma_kernel`` (csrc/rpa_extend_mla.cu, the latent pool).
+Each schedule is stated here in Python: which packed rows a block and each
+of its consumer warpgroups own, which KV positions a block walks, how the
+MLA kernel splits the 576 score dims and V's 512 columns between its two
+warpgroups, the producer/consumer ring of the GQA kernel (its stages, the
+lag of the fp8 widening, the barriers' phases), and the fp8 producer's
+thread map. The tests then hold that, at shapes with q_len 1 to
+2048, padding entries, windows and 1, 2, 4 or 8 query heads per KV head,
+every (token, head) a work-list entry owns is written exactly once and
+nothing else is, that every position a row may see is walked, that the
+ring neither deadlocks nor refills a stage still being read. They also pin the
+128-byte swizzle of the shared-memory tiles (csrc/rpa_wgmma.cuh) against
+the rule the hardware applies, and the constants Python and the sources
+share, by parsing the sources (as tests/test_torch_decode_split.py does).
+This file imports no JAX.
 """
 
 import random
@@ -46,20 +49,32 @@ GQA = _constants("rpa_extend.cu", EXTEND_QBLK=rpa.EXTEND_Q_BLOCK)
 MLA = _constants("rpa_mla.cuh", "rpa_extend_mla.cu", EXTEND_QBLK=rpa.EXTEND_Q_BLOCK)
 
 
-def _sw128():
-    """rpa_wgmma.cuh's sw128(rows, r, c), read from the source."""
+def _layout(head_dim: int) -> dict:
+    """rpa_extend.cu's WgLayout<TKV, head_dim> block shape: the WG_*
+    constants at head_dim 128, the WG64_* ones at head_dim 64."""
+    pre = {128: "WG_", 64: "WG64_"}[head_dim]
+    keys = ("NCW", "NT", "ROWS", "TK", "STAGES", "LAG", "PRODUCER_REGS", "CONSUMER_REGS")
+    return {k: GQA[pre + k] for k in keys}
+
+
+def _wgmma_fn(name: str, args: str):
+    """A ``constexpr int name(args) { return expr; }`` of rpa_wgmma.cuh,
+    read from the source as a Python function of the same arguments."""
     src = (CSRC / "rpa_wgmma.cuh").read_text()
-    expr = re.search(r"constexpr int sw128\(int rows, int r, int c\) \{\s*return ([^;]+);",
-                     src).group(1)
-    return lambda rows, r, c: eval(expr, {}, dict(rows=rows, r=r, c=c))  # noqa: S307
+    sig = r",\s*".join(rf"int {a}" for a in args.split())
+    expr = re.search(rf"constexpr int {name}\({sig}\) \{{\s*return ([^;]+);", src).group(1)
+    return lambda *v: eval(expr, {}, dict(zip(args.split(), v)))  # noqa: S307
 
 
-SW128 = _sw128()
+SW128 = _wgmma_fn("sw128", "rows r c")
+FP8_LANE = _wgmma_fn("fp8_lane", "p vpr")
 
 
 # ---------------------------------------------------------------- swizzle
-@pytest.mark.parametrize("rows,width", [(64, 128), (48, 576), (64, 576), (128, 128)],
-                         ids=["gqa-kv-tile", "mla-latent-tile", "mla-q-tile", "gqa-128-rows"])
+@pytest.mark.parametrize("rows,width", [(64, 128), (48, 576), (64, 576), (128, 128), (64, 64),
+                                        (128, 64)],
+                         ids=["gqa-kv-tile", "mla-latent-tile", "mla-q-tile", "gqa-128-rows",
+                              "gqa-d64-kv-tile", "gqa-d64-128-rows"])
 def test_sw128_is_the_hardware_swizzle_and_a_bijection(rows, width):
     """Every 16-byte chunk c of row r lands where 128-byte swizzling puts it:
     column block c // 8 (rows x 128 bytes each, so each block starts on a
@@ -105,28 +120,71 @@ def test_descriptor_steps_address_the_swizzled_chunks(rows):
                 assert hw(start, p % 8, (n % 64) // 8) == SW128(rows, 16 * kk + p, n // 8)
 
 
+@pytest.mark.parametrize("rows", [64, 128])
+def test_head_dim_64_descriptors_stay_in_one_column_block(rows):
+    """At head_dim 64 a bf16 K or V row is 128 bytes, exactly one swizzle
+    column block: the 4 k-steps of S = Q K^T (desc_k) start 32 ks bytes into
+    the block's first row and every chunk they read lies in that block, and
+    O += P V (desc_mn, N = 64) reads a single N block, so the descriptors'
+    LBO, the step to the next column block, is never used. Each k-step of
+    P V reads 16 whole rows, chunk n of row 16 kk + p where the copies
+    wrote it."""
+    def hw(start, r, j):
+        a = start + 128 * r + 16 * j
+        return a ^ (((a >> 7) & 7) << 4)
+
+    block = rows * 128  # bytes of a column block = of the whole tile
+    for ks in range(64 // 16):
+        start = (ks >> 2) * rows * 128 + (ks & 3) * 32
+        assert start == 32 * ks
+        for r in range(rows):
+            for j in range(2):
+                assert hw(start, r, j) < block
+                assert hw(start, r, j) == SW128(rows, r, 2 * ks + j)
+    for kk in range(rows // 16):
+        for p in range(16):
+            for n in range(64 // 8):
+                start = kk * 2048 + (p // 8) * 1024
+                assert hw(start, p % 8, n) < block
+                assert hw(start, p % 8, n) == SW128(rows, 16 * kk + p, n)
+
+
 # ---------------------------------------------------------------- shapes
-# (q_lens, kv_lens, Hq, Hkv or None for the latent pool, window): q_len 1,
-# 100, 140, 200 and 2048, prefixes, a padded batch row (kv_len 0), windows,
-# G = 1, 2, 4, 8
+# (q_lens, kv_lens, Hq, Hkv or None for the latent pool, window, head_dim):
+# q_len 1, 100, 140, 200 and 2048, prefixes, a padded batch row (kv_len 0),
+# windows, G = 1, 2, 4, 8; at head_dim 128 (the aligned build's block), 64
+# (the chunked build's G 4 over Hkv 8 and the merged build's G 8 over Hkv 4,
+# TinyLlama's, share the head_dim-64 block) and the latent width
 SHAPES = [
-    ([1], [1], 8, 8, 0),
-    ([100], [100], 8, 4, 0),
-    ([140, 20, 1, 7], [140, 60, 9, 300], 8, 2, 0),
-    ([200], [712], 8, 1, 0),
-    ([2048], [2048], 32, 8, 0),
-    ([140, 20, 1, 7, 0], [140, 60, 9, 300, 0], 8, 2, 24),
-    ([200, 1], [1000, 1], 32, 4, 512),
-    ([256] * 8, [2048] * 8, 32, 8, 0),
-    ([2048, 2048], [2048, 2048], 32, 8, 0),
-    ([37, 300], [37, 365], 16, 8, 64),
-    ([140, 20, 1, 7], [140, 60, 9, 300], 16, None, 0),
-    ([2048], [2048], 16, None, 0),
-    ([256] * 8, [2048] * 8, 16, None, 0),
-    ([200, 1], [1000, 1], 16, None, 100),
+    ([1], [1], 8, 8, 0, 128),
+    ([100], [100], 8, 4, 0, 128),
+    ([140, 20, 1, 7], [140, 60, 9, 300], 8, 2, 0, 128),
+    ([200], [712], 8, 1, 0, 128),
+    ([2048], [2048], 32, 8, 0, 128),
+    ([140, 20, 1, 7, 0], [140, 60, 9, 300, 0], 8, 2, 24, 128),
+    ([200, 1], [1000, 1], 32, 4, 512, 128),
+    ([256] * 8, [2048] * 8, 32, 8, 0, 128),
+    ([2048, 2048], [2048, 2048], 32, 8, 0, 128),
+    ([37, 300], [37, 365], 16, 8, 64, 128),
+    ([1], [1], 8, 8, 0, 64),
+    ([100], [100], 8, 4, 0, 64),
+    ([140, 20, 1, 7], [140, 60, 9, 300], 32, 8, 0, 64),
+    ([200], [712], 32, 4, 0, 64),
+    ([2048], [2048], 32, 4, 0, 64),
+    ([140, 20, 1, 7, 0], [140, 60, 9, 300, 0], 16, 8, 24, 64),
+    ([200, 1], [1000, 1], 32, 4, 512, 64),
+    ([256] * 8, [2048] * 8, 32, 8, 0, 64),
+    ([256] * 8, [2048] * 8, 32, 4, 0, 64),
+    ([2048, 2048], [2048, 2048], 32, 8, 0, 64),
+    ([37, 300], [37, 365], 32, 8, 64, 64),
+    ([140, 20, 1, 7], [140, 60, 9, 300], 16, None, 0, 576),
+    ([2048], [2048], 16, None, 0, 576),
+    ([256] * 8, [2048] * 8, 16, None, 0, 576),
+    ([200, 1], [1000, 1], 16, None, 100, 576),
 ]
-IDS = [f"{'mla' if h is None else f'g{hq // h}'}-q{'_'.join(map(str, q))}-w{w}"
-       for q, _, hq, h, w in SHAPES]
+IDS = [f"{'d64-' if d == 64 else ''}{'mla' if h is None else f'g{hq // h}'}"
+       f"-q{'_'.join(map(str, q))}-w{w}" for q, _, hq, h, w, d in SHAPES]
+GQA_SHAPES = [(sh, i) for sh, i in zip(SHAPES, IDS) if sh[3] is not None]
 
 
 def _work_list(q_lens, kv_lens):
@@ -146,16 +204,17 @@ def _walk(q_lens, kv_lens, q_start, b, qofs, r_lo, r_hi, window, tk, cap):
     return lo, limit, (limit - lo + tk - 1) // tk if limit > lo else 0
 
 
-def _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window):
-    """rpa_extend_wgmma_kernel's blocks: grid (ceil(EXTEND_QBLK G / WG_ROWS),
-    Hkv, entries); packed row m = r G + g is query row r of head h G + g;
-    consumer warpgroup w owns the block's packed rows 64 w .. 64 w + 63,
-    warp v of it 16 of them. Yields (entry, rows written as (token, head),
-    walk, rows' positions)."""
+def _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window, head_dim):
+    """rpa_extend_wgmma_kernel's blocks at head_dim's block shape: grid
+    (ceil(EXTEND_QBLK G / ROWS), Hkv, entries); packed row m = r G + g is
+    query row r of head h G + g; consumer warpgroup w owns the block's
+    packed rows 64 w .. 64 w + 63, warp v of it 16 of them. Yields (entry,
+    rows written as (token, head), walk, rows' positions)."""
     G = Hq // Hkv
     T, entries, q_start = _work_list(q_lens, kv_lens)
-    rows, consumers = GQA["WG_ROWS"], (GQA["WG_NT"] - 128) // 128
-    assert rows == 64 * consumers
+    lay = _layout(head_dim)
+    rows, consumers = lay["ROWS"], (lay["NT"] - 128) // 128
+    assert rows == 64 * consumers == 64 * lay["NCW"]
     cap = 10 ** 9
     for i, (b, row0, qofs) in enumerate(entries):
         for slice_ in range(-(-GQA["EXTEND_QBLK"] * G // rows)):
@@ -167,7 +226,7 @@ def _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window):
                 if m_lo // G >= n_rows:
                     continue
                 lo, limit, ntiles = _walk(q_lens, kv_lens, q_start, b, qofs, m_lo // G,
-                                          (m_lo + rows - 1) // G, window, GQA["WG_TK"], cap)
+                                          (m_lo + rows - 1) // G, window, lay["TK"], cap)
                 if ntiles == 0:
                     continue
                 written = []
@@ -206,9 +265,9 @@ def _mla_blocks(q_lens, kv_lens, Hq, window):
             yield b, written, (lo, limit, ntiles)
 
 
-@pytest.mark.parametrize("q_lens,kv_lens,Hq,Hkv,window", SHAPES, ids=IDS)
+@pytest.mark.parametrize("q_lens,kv_lens,Hq,Hkv,window,head_dim", SHAPES, ids=IDS)
 def test_every_owned_row_is_written_once_and_sees_its_positions(q_lens, kv_lens, Hq, Hkv,
-                                                                window):
+                                                                window, head_dim):
     """Every (token, head) of every request is written by exactly one block
     (with the MLA kernel, each of its 512 columns by exactly one
     warpgroup), nothing in the bucket padding rows is, and the block's walk
@@ -222,7 +281,8 @@ def test_every_owned_row_is_written_once_and_sees_its_positions(q_lens, kv_lens,
         blocks = _mla_blocks(q_lens, kv_lens, Hq, window)
     else:
         count = np.zeros((T, Hq, 1), np.int64)
-        blocks = _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window)
+        blocks = _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window, head_dim)
+    tk = MLA["MLA_WG_TK"] if Hkv is None else _layout(head_dim)["TK"]
     for b, written, (lo, limit, ntiles) in blocks:
         for item in written:
             t, hq, pos = item[:3]
@@ -231,21 +291,23 @@ def test_every_owned_row_is_written_once_and_sees_its_positions(q_lens, kv_lens,
             first = max(pos - window + 1, 0) if window > 0 else 0
             last = min(pos + 1, kv_lens[b])
             if last > first:
-                assert lo <= first and last <= limit <= lo + ntiles * (
-                    MLA["MLA_WG_TK"] if Hkv is None else GQA["WG_TK"])
+                assert lo <= first and last <= limit <= lo + ntiles * tk
     real = int(sum(q_lens))
     assert (count[:real] == 1).all()
     assert not count[real:].any()
 
 
-@pytest.mark.parametrize("q_lens,kv_lens,Hq,Hkv,window", SHAPES[:10], ids=IDS[:10])
-def test_gqa_warps_mask_the_tiles_their_rows_cannot_see(q_lens, kv_lens, Hq, Hkv, window):
+@pytest.mark.parametrize("q_lens,kv_lens,Hq,Hkv,window,head_dim", [s for s, _ in GQA_SHAPES],
+                         ids=[i for _, i in GQA_SHAPES])
+def test_gqa_warps_mask_the_tiles_their_rows_cannot_see(q_lens, kv_lens, Hq, Hkv, window,
+                                                        head_dim):
     """A warp's 16 packed rows span query positions wq_lo .. wq_hi; a tile
     of the walk at st is left unmasked only if every one of those rows sees
     all of it (st + TK <= limit, st + TK - 1 <= wq_lo, st > wq_hi - window),
     and a tile none of them sees is masked whole (its scores are NEG_INF)."""
-    G, TK = Hq // Hkv, GQA["WG_TK"]
-    for b, written, (lo, limit, ntiles) in _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window):
+    G, TK = Hq // Hkv, _layout(head_dim)["TK"]
+    for b, written, (lo, limit, ntiles) in _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window,
+                                                       head_dim):
         positions = sorted({pos for _, _, pos in written})
         for t in range(ntiles):
             st = lo + t * TK
@@ -277,8 +339,8 @@ def test_mla_warpgroups_split_the_dims_and_the_columns():
 
 
 # ---------------------------------------------------------------- the ring
-def _ring(ntiles, widen, stages, lag, seed):
-    """rpa_extend_wgmma_kernel's producer and its two consumer warpgroups as
+def _ring(ntiles, widen, stages, lag, seed, ncw=2):
+    """rpa_extend_wgmma_kernel's producer and its ncw consumer warpgroups as
     programs of barrier operations, run in a random interleaving. Stage s
     holds tile t = s (mod stages); consumers wait for full[s] in phase t //
     stages, read K_t in iteration t and V_t in iteration t + 1, then each
@@ -311,12 +373,13 @@ def _ring(ntiles, widen, stages, lag, seed):
             if u >= stages:
                 prod.append(("wait", empty, u % stages, (u // stages - 1) & 1))
             prod += [("write", u % stages, u), ("arrive", full, u % stages, 1)]
+    programs = [prod]
     cons = []
     for t in range(ntiles):
         cons += [("wait", full, t % stages, (t // stages) & 1), ("read", t % stages, t)]
         if t > 0:
             cons += [("read", (t - 1) % stages, t - 1), ("release", (t - 1) % stages)]
-    programs, pcs = [prod, list(cons), list(cons)], [0, 0, 0]
+    programs, pcs = [prod] + [list(cons) for _ in range(ncw)], [0] * (ncw + 1)
     holds, reading = [None] * stages, [set() for _ in range(stages)]
     steps = 0
     while any(pc < len(p) for pc, p in zip(pcs, programs)):
@@ -336,7 +399,7 @@ def _ring(ntiles, widen, stages, lag, seed):
         elif op[0] == "release":
             reading[op[1]].discard(a)
             for _ in range(4):
-                arrive(empty, op[1], 8)
+                arrive(empty, op[1], 4 * ncw)
         pcs[a] += 1
         steps += 1
     return steps
@@ -348,7 +411,28 @@ def test_ring_neither_deadlocks_nor_refills_a_stage_in_use(ntiles, widen):
     """The ring of the GQA kernel with its source's stage count and lag, in
     200 random interleavings of the producer and the two consumers."""
     for seed in range(200):
-        assert _ring(ntiles, widen, GQA["WG_STAGES"], GQA["WG_LAG"], seed) > 0
+        assert _ring(ntiles, widen, GQA["WG_STAGES"], GQA["WG_LAG"], seed, GQA["WG_NCW"]) > 0
+
+
+@pytest.mark.parametrize("ntiles", [1, 2, 3, 4, 5, 7, 9, 33])
+@pytest.mark.parametrize("widen", [False, True], ids=["bf16", "fp8"])
+def test_head_dim_64_ring_neither_deadlocks_nor_refills_a_stage_in_use(ntiles, widen):
+    """The ring of the head_dim-64 block, with its stage count, lag and
+    consumer warpgroups, in 200 random interleavings."""
+    lay = _layout(64)
+    for seed in range(200):
+        assert _ring(ntiles, widen, lay["STAGES"], lay["LAG"], seed, lay["NCW"]) > 0
+
+
+def _budget(head_dim: int, fp8: bool) -> dict:
+    """Registers and shared memory of the block at head_dim (WgLayout)."""
+    lay = _layout(head_dim)
+    launch = 65536 // lay["NT"] // 8 * 8  # a thread's registers at one block per SM
+    tk, d = lay["TK"], head_dim
+    ring = lay["STAGES"] * 2 * tk * d * 2
+    raw = (lay["LAG"] + 1) * tk * d * 2 if fp8 else 0
+    smem = ring + raw + lay["ROWS"] * (d + 8) * 2 + 2 * lay["STAGES"] * 8 + 1024
+    return dict(lay, launch=launch, smem=smem, per_sm=65536 // (lay["NT"] * launch))
 
 
 def test_gqa_kernel_constants_and_budgets():
@@ -362,23 +446,98 @@ def test_gqa_kernel_constants_and_budgets():
     assert GQA["WG_NT"] == 384 and GQA["WG_ROWS"] == 128 and launch == 168
     assert 2 * (GQA["WG_CONSUMER_REGS"] - launch) <= launch - GQA["WG_PRODUCER_REGS"]
     assert GQA["WG_CONSUMER_REGS"] % 8 == 0 and GQA["WG_PRODUCER_REGS"] % 8 == 0
-    D, TK = 128, GQA["WG_TK"]
     for fp8 in (False, True):
-        ring = GQA["WG_STAGES"] * 2 * TK * D * 2
-        raw = (GQA["WG_LAG"] + 1) * TK * D * 2 if fp8 else 0
-        smem = ring + raw + GQA["WG_ROWS"] * (D + 8) * 2 + 2 * GQA["WG_STAGES"] * 8 + 1024
-        assert smem <= SMEM_PER_BLOCK, (fp8, smem)
+        assert _budget(128, fp8)["smem"] <= SMEM_PER_BLOCK, fp8
     assert MLA["MLA_WG_SMEM"] <= SMEM_PER_BLOCK
 
 
+@pytest.mark.parametrize("fp8", [False, True], ids=["bf16", "fp8"])
+def test_head_dim_64_constants_and_budgets(fp8):
+    """The head_dim-64 block (the chunked and the merged build): NCW
+    consumer warpgroups of 64 packed rows and a producer warpgroup, one
+    block per SM; setmaxnreg moves no more registers to the consumers than
+    the producer gives back from the launch's 65536 / NT (rounded down to
+    8), and the producer keeps at least setmaxnreg's floor of 24; shared
+    memory (the ring, the fp8 raw tiles, the Q staging, the barriers, the
+    atoms' alignment) times blocks per SM within one SM's 227 KB; a tile
+    is whole 16-position k-steps, and the packed rows of an entry (128 G)
+    at G 4 and 8 fill whole 64-row warpgroups."""
+    b = _budget(64, fp8)
+    assert b["NT"] == 128 * (b["NCW"] + 1) and b["ROWS"] == 64 * b["NCW"]
+    assert b["per_sm"] == 1 and b["NT"] * b["launch"] <= 65536
+    assert b["NCW"] * (b["CONSUMER_REGS"] - b["launch"]) <= b["launch"] - b["PRODUCER_REGS"]
+    assert b["PRODUCER_REGS"] >= 24 and b["CONSUMER_REGS"] <= 256
+    assert b["CONSUMER_REGS"] % 8 == 0 and b["PRODUCER_REGS"] % 8 == 0
+    assert b["smem"] * b["per_sm"] <= SMEM_PER_BLOCK, b
+    assert b["TK"] % 16 == 0 and b["TK"] in (64, 128) and b["STAGES"] >= 2
+    assert b["LAG"] + 1 <= b["STAGES"]
+    for G in (4, 8):
+        assert rpa.EXTEND_Q_BLOCK * G % 64 == 0
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("fp8", [False, True], ids=["bf16", "fp8"])
+def test_producer_thread_map_covers_the_tile_once(head_dim, fp8):
+    """The producer's 128 threads copy every 16-byte vector of a K (and a V)
+    tile exactly once: thread p the vector l % VPR of the rows l / VPR + k
+    VSTEP, k < NV (l = fp8_lane(p, VPR) with fp8 KV, else p; VPR vectors a
+    row, 8 with bf16 KV at head_dim 64, 4 with fp8 there, 16 and 8 at 128).
+    With fp8, the widening stores of each quarter warp (8 lanes, one
+    128-byte wavefront) land in 8 different 16-byte bank groups after the
+    swizzle, both of a thread's two stores: the map fp8_lane gives is free
+    of bank conflicts at VPR 4 and 8, where the plain map p at 8 and the
+    bit swap at 4 are not."""
+    tk = _layout(head_dim)["TK"]
+    vpr = head_dim // (16 if fp8 else 8)
+    vstep = 128 // vpr
+    nv = tk // vstep
+    assert vstep % 8 == 0 and tk % vstep == 0
+
+    def chunks(lane_of):
+        return [[((lane_of(p) // vpr) + k * vstep, lane_of(p) % vpr) for k in range(nv)]
+                for p in range(128)]
+
+    lane = (lambda p: FP8_LANE(p, vpr)) if fp8 else (lambda p: p)
+    got = sorted(x for per in chunks(lane) for x in per)
+    assert got == sorted((r, c) for r in range(tk) for c in range(vpr))
+    if not fp8:
+        return
+
+    def conflict_free(lane_of):
+        per = chunks(lane_of)
+        for k in range(nv):
+            for half in (0, 1):  # the stores of bf16 chunks 2 vc and 2 vc + 1
+                for q0 in range(0, 128, 8):
+                    banks = {(SW128(tk, *(lambda r, v: (r, 2 * v + half))(*per[p][k])) >> 4) & 7
+                             for p in range(q0, q0 + 8)}
+                    if len(banks) < 8:
+                        return False
+        return True
+
+    assert conflict_free(lane)
+    swap = lambda p: p ^ (12 * (((p >> 2) ^ (p >> 3)) & 1))  # noqa: E731
+    assert not conflict_free(lambda p: p if vpr == 8 else swap(p))
+
+
 def test_builds_name_their_warpgroup_kernels():
-    """The aligned build (head_dim 128) and the MLA build launch the
-    warpgroup kernels for bf16 q; their sources hold them, and the builds'
-    defines are the ones their schedules here assume."""
+    """Every GQA extend build (the chunked and the merged one at head_dim
+    64, the aligned one at 128) and the MLA build launch the warpgroup
+    kernels for bf16 q: their sources hold them, the entry passes the
+    build's P_F32_BUILD (the merged build's -DRPA_P_F32) as the kernel's
+    P_SPLIT, the mma.sync extend kernel is gone, and the builds' defines
+    are the ones their schedules here assume."""
     aligned, mla = KERNELS["rpa_extend_aligned"], KERNELS["rpa_extend_mla"]
+    chunked, merged = KERNELS["rpa_extend"], KERNELS["rpa_extend_merged"]
     assert "RPA_ALIGNED" in aligned.defines and not any(
         d.startswith("RPA_HEAD_DIM") for d in aligned.defines)
-    assert f"EXTEND_QBLK={rpa.EXTEND_Q_BLOCK}" in aligned.defines
-    assert f"EXTEND_QBLK={rpa.EXTEND_Q_BLOCK}" in mla.defines and "RPA_P_F32" in mla.defines
-    assert "rpa_extend_wgmma_kernel" in aligned.source.read_text()
+    assert "RPA_ALIGNED" not in chunked.defines and "RPA_P_F32" not in chunked.defines
+    assert {"RPA_ALIGNED", "RPA_HEAD_DIM=64", "RPA_P_F32"} <= set(merged.defines)
+    for k in (aligned, mla, chunked, merged):
+        assert f"EXTEND_QBLK={rpa.EXTEND_Q_BLOCK}" in k.defines
+    assert "RPA_P_F32" in mla.defines
+    src = aligned.source.read_text()
+    assert chunked.source == merged.source == aligned.source
+    assert "rpa_extend_wgmma_kernel" in src and "rpa_extend_mma_kernel" not in src
+    assert "MmaLayout" not in src and "launch_extend_mma" not in src
+    assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD>", src)
     assert "rpa_extend_mla_wgmma_kernel" in mla.source.read_text()

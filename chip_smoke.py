@@ -10,9 +10,8 @@ each (any failure raises and exits non-zero):
              from semi_pd_tpu_torch/csrc/ (one nvcc per kernel, in parallel),
              with nvcc's register and spill lines and each library's count
              of tensor-core instructions (HMMA/HGMMA, from cuobjdump -sass):
-             the bf16-q instantiations of every extend, of the chunked, the
-             aligned and the merged decode, and of the chunked and the
-             aligned streaming decode must have some, their float32 pair
+             the bf16-q instantiations of every extend, of every decode and
+             of every streaming decode must have some, their float32 pair
              none. Every extend runs bf16 q on Hopper's warpgroup tensor
              cores (wgmma; the chunked, the aligned and the merged build in
              one kernel, the latent build in its own): each warpgroup
@@ -23,7 +22,15 @@ each (any failure raises and exits non-zero):
              computes from shapes (the chunked and aligned ones with P
              rounded to bf16, the merged one with P kept float32); the two
              GQA streaming decodes run it on the same warp tile, each warp
-             an equal share of the batch's KV tiles; float32 q stays on the
+             an equal share of the batch's KV tiles. The two latent decodes
+             run it on a block tile (the 16 query heads as one m16 tile, the
+             four warps of a block sharing each latent tile, P kept float32),
+             each request walked in fixed chunks of 256 positions, the
+             packed one a block per chunk, the streaming one each block an
+             equal share of the batch's chunks, so that the two give the
+             same bits; each of
+             their kernels gets a line with its registers, spills and HMMA
+             count, and must have HMMA and no spill. float32 q stays on the
              CUDA cores.
 2. kernels — each kernel's wrapper on the card against its plain PyTorch
              version on the same inputs, at the geometry of its path (page
@@ -34,7 +41,8 @@ each (any failure raises and exits non-zero):
              latent pool [1, 1, S, 1, 576], V its first 512; the streaming
              decodes on the chunked, aligned and latent pools; extend also
              at b2 x q2048 / kv2048, two fresh prompts of one chunked
-             prefill step), with its
+             prefill step; last, the latent decodes with softcap 1.0 and
+             the packed one with window 512), with its
              time, the plain version's time, one PyTorch library call's
              time (scaled_dot_product_attention over pre-gathered dense KV,
              upcast to bf16 for fp8 KV; a yardstick the port never calls)
@@ -65,7 +73,9 @@ each (any failure raises and exits non-zero):
              exactly. The first three paths then serve colocated once more
              with ``decode_stream`` (the streaming decode), on the same
              weights: their stream kernel launches L times per decode step
-             and the packed decode never.
+             and the packed decode never. DeepSeek-V2-Lite's must give the
+             packed serve's tokens exactly: its two decodes give the same
+             bits.
 
 Then one JSON line listing the kernels, the nvidia-smi name/power-limit line,
 and the result line {"ok": true, "device": {...}}.
@@ -401,7 +411,7 @@ def phase_kernels():
         for name, (ql, kl) in ext.items():
             for dt, kdt in pairs:
                 rows.append(run_kernel_case(name, "extend", gen, rng, ql, kl, dt, pool, kdt))
-        if pool == "latent":  # masks: the card tests cover them at this width
+        if pool == "latent":  # its mask cases come after every other case, below
             continue
         # softcap 1.0: scores q.k * D**-0.5 have std ~1 here, so the cap bends
         # most of them (tanh(2) = 0.96) and a kernel that ignored it would fail
@@ -423,6 +433,17 @@ def phase_kernels():
         if pool in fp8_pools:
             rows.append(run_kernel_case("extend_b8_q256_kv2048", "extend", gen, rng,
                                         *ext["extend_b8_q256_kv2048"], bf, pool, e5m2))
+    # after every case above: the latent decodes with softcap 1.0 and the
+    # packed one with window 512 (the stream takes no window), whose low
+    # edge falls inside the tensor-core decode's splits
+    lens = ragged(16, 2048)
+    for kind in ("decode", "stream"):
+        for dt in (bf, f32):
+            rows.append(run_kernel_case("decode_b16_kv2048_softcap1", kind, gen, rng, [1] * 16,
+                                        lens, dt, "latent", cap=1.0))
+            if kind == "decode":
+                rows.append(run_kernel_case("decode_b16_kv2048_window512", kind, gen, rng,
+                                            [1] * 16, lens, dt, "latent", window=512))
     return rows
 
 
@@ -698,6 +719,16 @@ def main() -> int:
         if not [n for f, n in hgmma.items() if wg_fn in f] or not all(
                 n for f, n in hgmma.items() if wg_fn in f):
             raise AssertionError(f"{kname}: HGMMA per function {hgmma}")
+    # the latent decodes' block tile (mma.sync): registers, spills and HMMA
+    # count of each instantiation; a spill fails the run
+    for kname, mma_fn in (("rpa_decode_mla", "rpa_decode_mla_mma_kernel"),
+                          ("rpa_decode_stream_mla", "rpa_stream_mla_mma_kernel")):
+        for fn, props in ptxas_summary(KERNELS[kname].build_log).items():
+            if mma_fn in fn:
+                print("mla_mma " + json.dumps(dict(kernel=kname, function=fn, **props,
+                                                   hmma=sass[kname].get(fn))))
+                if props.get("spill_stores") or props.get("spill_loads"):
+                    raise AssertionError(f"{kname}: {fn} spills: {props}")
     # the tensor-core kernel of each library that has one: HMMA (HGMMA in the
     # warpgroup kernels) in each of its bf16-q instantiations, none in the
     # CUDA-core kernel's float32 pair
@@ -710,7 +741,9 @@ def main() -> int:
             ("rpa_decode_aligned", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
             ("rpa_decode_merged", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
             ("rpa_decode_stream", "rpa_stream_mma_kernel", "rpa_stream_kernel"),
-            ("rpa_decode_stream_aligned", "rpa_stream_mma_kernel", "rpa_stream_kernel")):
+            ("rpa_decode_stream_aligned", "rpa_stream_mma_kernel", "rpa_stream_kernel"),
+            ("rpa_decode_mla", "rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel"),
+            ("rpa_decode_stream_mla", "rpa_stream_mla_mma_kernel", "rpa_stream_mla_kernel")):
         mma = [n for f, n in sass[kname].items() if mma_fn in f]
         core = [n for f, n in sass[kname].items() if core_fn in f]
         if not mma or not all(mma) or any(core):
@@ -781,6 +814,9 @@ def main() -> int:
         same = float(np.mean([a == b for a, b in zip(out, packed_tokens)]))
         print("serve " + json.dumps(dict(r, model=label, gpu=smi,
                                          same_tokens_as_packed=same)), flush=True)
+        if pool == "latent" and same != 1.0:  # the two latent decodes give the same bits
+            raise AssertionError(f"{label}: the streaming decode's serve gave other tokens than "
+                                 f"the packed decode's ({same:.3f} of requests the same)")
 
     def release(eng):
         del eng.scheduler, eng.runner

@@ -77,40 +77,21 @@ struct MmaState {
   }
 };
 
-// One tile of TK positions starting at position st, K and V at the shared
-// addresses sK and sV: positions outside [lo, hi) score nothing (only a
-// tile that crosses lo or hi is masked). p = 2^(v c - m c), v the raw dot
-// (c = scale log2 e) or, with cap > 0, the capped score (c = log2 e).
+// The second half of a tile of TK positions starting at position st, given
+// its scores sc (the C fragments of S = Q K^T: TK / 8 n8 tiles of 8
+// positions): the softcap, the mask, the online softmax and O += P V, with
+// V at the shared address sV (rows LD elements apart, its first D columns
+// O's). Positions outside [lo, hi) score nothing (only a tile that crosses
+// lo or hi is masked). p = 2^(v c - m c), v the raw dot (c = scale log2 e)
+// or, with cap > 0, the capped score (c = log2 e). The MLA decodes' block
+// tile (rpa_mla_mma.cuh) runs it on the scores its warps add up, with D
+// the 128 of V's columns a warp owns.
 template <int D, int LD, int TK>
-__device__ __forceinline__ void mma_tile(MmaState<D>& s, const uint32_t (&qa)[D / 16][4],
-                                         uint32_t sK, uint32_t sV, uint32_t k_lane,
-                                         uint32_t v_lane, int st, int lo, int hi, float scale,
-                                         float cap, bool capped, float c, int tig) {
-  constexpr int KS = D / 16, NJ = (TK + 7) / 8;
-  // S = Q K^T: TK / 8 n8 tiles of 8 positions
-  float sc[NJ][4];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-  if constexpr (TK % 16 == 0) {
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < TK / 16; ++np) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, sK + k_lane + (np * 16 * LD + ks * 16) * 2);
-        mma_bf16_16816(sc[2 * np], qa[ks], kf[0], kf[1]);
-        mma_bf16_16816(sc[2 * np + 1], qa[ks], kf[2], kf[3]);
-      }
-    }
-  } else {  // TK 8: one x4 load covers two k16 steps of the dims
-#pragma unroll
-    for (int kp = 0; kp < KS / 2; ++kp) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, sK + k_lane + kp * 32 * 2);
-      mma_bf16_16816(sc[0], qa[2 * kp], kf[0], kf[1]);
-      mma_bf16_16816(sc[0], qa[2 * kp + 1], kf[2], kf[3]);
-    }
-  }
+__device__ __forceinline__ void mma_softmax_pv(MmaState<D>& s, float (&sc)[(TK + 7) / 8][4],
+                                               uint32_t sV, uint32_t v_lane, int st, int lo,
+                                               int hi, float scale, float cap, bool capped,
+                                               float c, int tig) {
+  constexpr int NJ = (TK + 7) / 8;
   // softcap, mask (only a tile that crosses lo or hi) and the row max
   const bool masked = st < lo || st + TK > hi;
   float mx[2] = {NEG_INF, NEG_INF};
@@ -206,6 +187,41 @@ __device__ __forceinline__ void mma_tile(MmaState<D>& s, const uint32_t (&qa)[D 
       }
     }
   }
+}
+
+// One tile of TK positions starting at position st, K and V at the shared
+// addresses sK and sV: S = Q K^T, then mma_softmax_pv.
+template <int D, int LD, int TK>
+__device__ __forceinline__ void mma_tile(MmaState<D>& s, const uint32_t (&qa)[D / 16][4],
+                                         uint32_t sK, uint32_t sV, uint32_t k_lane,
+                                         uint32_t v_lane, int st, int lo, int hi, float scale,
+                                         float cap, bool capped, float c, int tig) {
+  constexpr int KS = D / 16, NJ = (TK + 7) / 8;
+  // S = Q K^T: TK / 8 n8 tiles of 8 positions
+  float sc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+  if constexpr (TK % 16 == 0) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < TK / 16; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, sK + k_lane + (np * 16 * LD + ks * 16) * 2);
+        mma_bf16_16816(sc[2 * np], qa[ks], kf[0], kf[1]);
+        mma_bf16_16816(sc[2 * np + 1], qa[ks], kf[2], kf[3]);
+      }
+    }
+  } else {  // TK 8: one x4 load covers two k16 steps of the dims
+#pragma unroll
+    for (int kp = 0; kp < KS / 2; ++kp) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, sK + k_lane + kp * 32 * 2);
+      mma_bf16_16816(sc[0], qa[2 * kp], kf[0], kf[1]);
+      mma_bf16_16816(sc[0], qa[2 * kp + 1], kf[2], kf[3]);
+    }
+  }
+  mma_softmax_pv<D, LD, TK>(s, sc, sV, v_lane, st, lo, hi, scale, cap, capped, c, tig);
 }
 
 // l of row rr, summed over the four lanes of a quad

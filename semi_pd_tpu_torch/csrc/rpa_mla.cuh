@@ -14,9 +14,10 @@
 // per position, 30 per byte in bf16 with Hq 16 (above the ~20 the float32
 // CUDA cores sustain per byte, below the ~295 of the bf16 tensor cores);
 // extend does the same per (query row, visible position) and is bound by
-// operations. The design below runs in float32 on the CUDA cores: every
-// decode, and the float32 extend (the bf16 extend runs on the warpgroup
-// tensor cores, rpa_extend_mla.cu).
+// operations. The design below runs in float32 on the CUDA cores: the
+// float32 decodes and extend (with bf16 q the decodes run on the tensor
+// cores, rpa_mla_mma.cuh, and the extend on the warpgroup tensor cores,
+// rpa_extend_mla.cu).
 //
 // Design: a group of TPR threads holds RPT query rows. A row's 576-wide
 // query and 512-wide float32 accumulator do not fit one thread's

@@ -18,11 +18,11 @@
 // the KV tiles of many requests form ONE sequence, fetched STREAM_NBUF deep
 // across request boundaries, so the next request's first tiles are in
 // flight while the current one finishes. The TPU kernel streamed the whole
-// batch on one core; here a persistent grid of (P, KV heads) blocks, or (P,
-// groups of 8 query heads) on the latent pool, shares it out. Each block
-// computes the prefix sum of ceil(kv_len / TK) over the batch from kv_lens
-// on the device (stream_scan: no host sync, no host plan). Rows with
-// kv_len 0 write zeros; no slot at or past kv_len is read.
+// batch on one core; here a persistent grid of (P, KV heads) blocks, or on
+// the latent pool (P, head groups), shares it out. Each block computes the
+// prefix sum of ceil(kv_len / TK) over the batch from kv_lens on the device
+// (stream_scan: no host sync, no host plan). Rows with kv_len 0 write
+// zeros; no slot at or past kv_len is read.
 //
 // bf16 q on the GQA pools: rpa_stream_mma_kernel, on the tensor cores with
 // the packed decode's warp tile (rpa_decode_mma.cuh: the G <= 16 query
@@ -50,23 +50,37 @@
 // three (fp8 KV) fit an SM at both widths (StreamLayout): the more tiles in
 // flight per SM, the closer to the bytes' time.
 //
-// float32 q (rpa_stream_kernel) and the latent pool (rpa_stream_mla_kernel)
-// stay on the CUDA cores, with P = min(B, resident blocks per SM * SMs /
-// the second grid dimension): each block takes the contiguous run of whole
-// requests whose first tile falls in its 1/P share of all tiles, walks
-// them through a ring of STREAM_NBUF stages of raw KV bytes (16-byte
-// cp.async.cg copies, one commit group per tile), widens each tile to
-// float32 on the read side (KVTile::take and store) and computes it as the
-// CUDA-core decode kernels do (rpa_decode.cuh, rpa_mla.cuh).
+// bf16 q on the latent pool: rpa_stream_mla_mma_kernel, on the tensor cores
+// with the packed MLA decode's block tile (rpa_mla_mma.cuh: the query heads
+// as the rows of one m16 tile, the four warps of a block sharing each latent
+// tile, P as hi + lo). The schedule is the one above with the block, not the
+// warp, as the unit that takes a share, and the share cut at the tile's
+// fixed chunks of 256 positions: P = MLA_MMA_BLOCKS_PER_SM * SMs / HG blocks
+// per head group (two per SM; one group of 16 heads on DeepSeek-V2-Lite),
+// each an equal contiguous share of the batch's chunks through its own
+// ring, the chunks of a request merged from the scratch by
+// rpa_mla_combine_kernel as the packed decode merges them, so that the two
+// give the same bits.
 //
-// Bound on this card: bytes, as the decode's (rpa_decode.cu): every live
-// KV row is read once; the tensor-core kernel does 4 * Hq * D operations
-// per position on bf16 tensor cores, far below the bytes' time.
+// float32 q (rpa_stream_kernel, rpa_stream_mla_kernel) stays on the CUDA
+// cores, with P = min(B, resident blocks per SM * SMs / the second grid
+// dimension, groups of 8 query heads on the latent pool): each block takes
+// the contiguous run of whole requests whose first tile falls in its 1/P
+// share of all tiles, walks them through a ring of STREAM_NBUF stages of
+// raw KV bytes (16-byte cp.async.cg copies, one commit group per tile),
+// widens each tile to float32 on the read side (KVTile::take and store)
+// and computes it as the CUDA-core decode kernels do (rpa_decode.cuh,
+// rpa_mla.cuh).
+//
+// Bound on this card: bytes, as the decode's (rpa_decode.cu,
+// rpa_mla_mma.cuh): every live KV row is read once; the tensor-core kernels
+// do 4 * Hq * D operations per position (2 Hq (576 + 512) on the latent
+// pool) on bf16 tensor cores, far below the bytes' time.
 #include <type_traits>
 
 #include "rpa_decode.cuh"
 #include "rpa_decode_mma.cuh"
-#include "rpa_mla.cuh"
+#include "rpa_mla_mma.cuh"
 
 namespace rpa {
 
@@ -791,17 +805,216 @@ static int launch_gqa(const void* q, const void* k_pool, const void* v_pool, con
                                      row_stride, maxP, page_size, scale, cap, stream);
 }
 
+#ifdef RPA_MLA
+// ------------------------------------------------------------------------
+// The tensor-core MLA stream (bf16 q over bf16 latent rows), on the packed
+// MLA decode's block tile (rpa_mla_mma.cuh): the four warps of a block share
+// each latent tile, so the unit that takes a share is the block, and the
+// share is cut at the tile's fixed chunks (MLA_MMA_CHUNK = 256 positions),
+// so that every chunk is computed as the packed decode computes it.
+//
+// Block (p, head group h) of P x HG: the batch's chunks, request-major (each
+// request's ceil(min(kv_len, maxP * page_size) / MLA_MMA_CHUNK) in order),
+// form one sequence of C chunks; block p walks [c_p, c_p+1), c_p = floor(p C
+// / P): equal shares of whole chunks, differing by at most one. The block's
+// ring runs ahead over the share's tiles across chunk and request
+// boundaries without draining. Its softmax state resets at each chunk;
+// at a chunk's end a request of one chunk is written (O / l), any other
+// chunk leaves its float32 (m c, l, O) in the scratch at its index, and
+// rpa_mla_combine_kernel<false> merges the chunks of those requests in
+// chunk order, as the packed decode's merge does. Rows with no position
+// are written as zeros by block r % P. No atomics: two calls are bitwise
+// equal, and equal to the packed decode's.
+template <typename TKV>
+__global__ void __launch_bounds__(MLA_MMA_NT, MLA_MMA_BLOCKS_PER_SM)
+rpa_stream_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_DL]
+                          const TKV* __restrict__ lat,  // latent rows of this layer at slot 0
+                          const int* __restrict__ page_table,  // [B, maxP]
+                          const int* __restrict__ kv_lens,     // [B]
+                          __nv_bfloat16* __restrict__ out,     // [B, Hq, MLA_DV]
+                          float* __restrict__ part,  // O [n_chunk, B, Hq, MLA_DV], then (m c, l)
+                          int B, int Hq, int maxP, int page_size, float scale, float cap) {
+  static_assert(std::is_same<TKV, __nv_bfloat16>::value, "bf16 latent rows");
+  static_assert(MLA_MMA_NT == STREAM_NT, "stream_scan's block");
+  constexpr int TK = MLA_MMA_TK, NST = MLA_MMA_NST, CT = MLA_MMA_CHUNK / MLA_MMA_TK;
+  extern __shared__ __align__(16) unsigned char mla_smem[];
+  __shared__ int s_req, s_first;  // the request holding the block's first chunk, its first chunk
+  const int p = blockIdx.x, P = gridDim.x, h = blockIdx.y, HG = gridDim.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = Hq / HG, max_len = maxP * page_size;
+  const int n_chunk = (max_len + MLA_MMA_CHUNK - 1) / MLA_MMA_CHUNK;  // the scratch's chunks
+
+  // the chunk sequence and the block's share [c0, c1); the thread whose
+  // chunk of requests holds chunk c0 finds its request
+  int b0, b1, mine, first, C;
+  stream_scan(kv_lens, B, max_len, MLA_MMA_CHUNK, b0, b1, mine, first, C);
+  const int c0 = (int)((int64_t)p * C / P), c1 = (int)((int64_t)(p + 1) * C / P);
+  if (c0 < C && c0 >= first && c0 < first + mine) {
+    int f = first;
+    for (int b = b0; b < b1; ++b) {
+      const int n = mla_chunks(kv_lens[b], max_len);
+      if (c0 < f + n) {
+        s_req = b;
+        s_first = f;
+        break;
+      }
+      f += n;
+    }
+  }
+  __syncthreads();
+  // the share's tiles, walked from tile CT (c0 - s_first) of request s_req
+  int ntiles = 0, req0 = 0, t0 = 0;
+  if (c1 > c0) {
+    req0 = s_req;
+    t0 = CT * (c0 - s_first);
+    for (int r = req0, c = c0 - s_first, left = c1 - c0; left > 0;) {
+      const int n = min(kv_lens[r], max_len);
+      if (c >= mla_chunks(n, max_len)) {
+        ++r;
+        c = 0;
+        continue;
+      }
+      ntiles += min(CT, (n - c * MLA_MMA_CHUNK + TK - 1) / TK);
+      ++c;
+      --left;
+    }
+  }
+
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(mla_smem);
+  float4* xs = reinterpret_cast<float4*>(mla_smem + NST * MLA_MMA_STAGE);
+  const uint32_t s_ring = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+  const int pshift = (page_size & (page_size - 1)) ? -1 : __ffs(page_size) - 1;
+  // The fetch side: the next tile to copy, tile ft of request fr (fn tiles
+  // within flim = min(kv_len, maxP * page_size)); one commit group per
+  // issue(), empty past the share's end, so that the waits count the same
+  // groups across chunk and request boundaries too.
+  int fr = req0, ft = t0, flim = 0, fn = 0, issued = 0;
+  if (ntiles > 0) {
+    flim = min(kv_lens[fr], max_len);
+    fn = (flim + TK - 1) / TK;
+  }
+  auto issue = [&]() {
+    if (issued < ntiles) {
+      while (ft >= fn) {  // the next request with a tile; its q rows into L2
+        ++fr;
+        ft = 0;
+        flim = min(kv_lens[fr], max_len);
+        fn = flim > 0 ? (flim + TK - 1) / TK : 0;
+        const __nv_bfloat16* qr = q + ((int64_t)fr * Hq + (int64_t)h * G) * MLA_DL;
+        for (int o = tid * 64; o < G * MLA_DL; o += MLA_MMA_NT * 64) prefetch_l2(qr + o);
+      }
+      mla_issue(ring + (issued % NST) * TK * MLA_MMA_LD, lat, page_table + (int64_t)fr * maxP,
+                page_size, pshift, ft * TK, 0, flim, tid);
+      ++ft;
+      ++issued;
+    }
+    cp_async_commit();
+  };
+  uint32_t k_lane, v_lane;
+  mma_lanes<MLA_MMA_LD, TK>(lane, k_lane, v_lane);
+  // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
+  const bool capped = cap > 0.f;
+  const float c = capped ? LOG2E : scale * LOG2E;
+
+  // the compute side: request cr, tile ct of its cn, within kv_len climit
+  int cr = fr, ct = ft, climit = flim, cn = fn;
+  uint32_t qa[MLA_MMA_KS][4];
+  MlaState ms;
+  for (int i = 0; i < NST - 1; ++i) issue();
+  cp_async_wait<NST - 2>();  // tile 0 (this thread's copies)
+  __syncthreads();
+  for (int i = 0; i < ntiles; ++i) {
+    while (ct >= cn) {
+      ++cr;
+      ct = 0;
+      climit = min(kv_lens[cr], max_len);
+      cn = climit > 0 ? (climit + TK - 1) / TK : 0;
+    }
+    const int64_t row0 = (int64_t)cr * Hq + (int64_t)h * G;
+    if (i == 0 || ct == 0) mla_load_q(qa, q + row0 * MLA_DL, G, warp, lane);  // a new request
+    if (ct % CT == 0) ms.reset();  // a chunk begins
+    const uint32_t sT = s_ring + (i % NST) * MLA_MMA_STAGE;
+    float4* x = xs + (i & 1) * MLA_MMA_WARPS * 2 * 32;
+    mla_partial(x, qa, sT, k_lane, warp, lane);
+    cp_async_wait<NST - 3>();  // tile i + 1 (this thread's copies)
+    __syncthreads();
+    issue();  // tile i + NST - 1, into tile i - 1's stage
+    mla_combine_pv(ms, x, sT + warp * MLA_MMA_DW * 2, v_lane, ct * TK, 0, climit, scale, cap,
+                   capped, c, lane);
+    ++ct;
+    if (ct % CT == 0 || ct == cn) {  // a chunk ends
+      if (cn <= CT) {
+        mla_write_out(ms, out + row0 * MLA_DV, G, warp, lane);
+      } else {
+        const int64_t prow = (int64_t)((ct - 1) / CT) * B * Hq + row0;
+        float* ml = part + (int64_t)n_chunk * B * Hq * MLA_DV;
+        mla_write_partial(ms, part + prow * MLA_DV, ml + prow * 2, G, c, warp, lane);
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left
+  for (int r = p; r < B; r += P)  // rows with no position
+    if (mla_chunks(kv_lens[r], max_len) == 0)
+      for (int i = tid; i < G * MLA_DV; i += MLA_MMA_NT)
+        out[((int64_t)r * Hq + (int64_t)h * G) * MLA_DV + i] = __float2bfloat16(0.f);
+}
+
+template <typename TKV>
+static int launch_stream_mla_mma(const void* q, const void* lat, const void* pt,
+                                 const void* kv_lens, void* out, int B, int Hq, int maxP,
+                                 int page_size, float scale, float cap, int n_blocks,
+                                 void* scratch, cudaStream_t stream) {
+  const int HG = (Hq + MLA_MMA_ROWS - 1) / MLA_MMA_ROWS;  // head groups of at most 16
+  if (Hq % HG || n_blocks < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  auto kernel = rpa_stream_mla_mma_kernel<TKV>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MLA_MMA_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<dim3(n_blocks, HG), MLA_MMA_NT, MLA_MMA_SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(lat),
+      static_cast<const int*>(pt), static_cast<const int*>(kv_lens),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(scratch), B, Hq, maxP, page_size,
+      scale, cap);
+  const int n_chunk = (maxP * page_size + MLA_MMA_CHUNK - 1) / MLA_MMA_CHUNK;
+  if (n_chunk > 1) {  // requests of several chunks
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const int64_t n = (int64_t)B * Hq * MLA_DV;
+    rpa_mla_combine_kernel<false><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        static_cast<const float*>(scratch), static_cast<__nv_bfloat16*>(out),
+        static_cast<const int*>(kv_lens), n_chunk, B, Hq, maxP * page_size);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core MLA stream for bf16 q, the CUDA-core kernel for float32 q
+// (which takes its own grid and no scratch).
+template <typename TQ, typename TKV>
+static int launch_mla(const void* q, const void* lat, const void* pt, const void* kv_lens,
+                      void* out, int B, int Hq, int maxP, int page_size, float scale, float cap,
+                      int n_blocks, void* scratch, cudaStream_t stream) {
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+    return launch_stream_mla_mma<TKV>(q, lat, pt, kv_lens, out, B, Hq, maxP, page_size, scale,
+                                      cap, n_blocks, scratch, stream);
+  else
+    return launch_stream_mla<TQ, TKV>(q, lat, pt, kv_lens, out, B, Hq, maxP, page_size, scale,
+                                      cap, stream);
+}
+#endif  // RPA_MLA
+
 }  // namespace rpa
 
 // C entry point (bound with ctypes by ops/attention/rpa_stream.py), with
 // the arguments of the decode kernels (rpa_decode.cu; on the latent pool
 // rpa_decode_mla.cu's conventions: v_pool == k_pool, Hkv 1, D = row_stride
 // = MLA_DL, out [B, Hq, MLA_DV]) and the tensor-core stream's plan: n_blocks
-// P >= 1 blocks per KV head (rpa_stream.py stream_blocks) and a float32
-// scratch of P * (6 * Hq * (D + 2) + 4 * Hkv) elements (StreamScratch). The
-// float32 pairs and the latent pool ignore both. window must be <= 0: the stream has no sliding window.
-// Returns cudaError_t; another geometry, type pair or plan is
-// cudaErrorInvalidValue.
+// P >= 1 blocks per KV head, or per head group on the latent pool
+// (rpa_stream.py stream_blocks), and a float32 scratch of P * (6 * Hq * (D
+// + 2) + 4 * Hkv) elements (StreamScratch), or on the latent pool n_chunk *
+// B * Hq * (MLA_DV + 2), n_chunk = ceil(maxP * page_size / MLA_MMA_CHUNK).
+// The float32 pairs ignore both. window must be <= 0: the stream has no
+// sliding window. Returns cudaError_t; another geometry, type pair or plan
+// is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                          const void* page_table, const void* kv_lens, void* out, int B, int Hq,
                          int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
@@ -814,10 +1027,10 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
 #ifdef RPA_MLA
   if (Hq <= 0 || Hkv != 1 || D != MLA_DL || row_stride != MLA_DL || v_pool != k_pool)
     return (int)cudaErrorInvalidValue;
-#define RPA_STREAM(QC, TQ, KC, TKV)                                                        \
-  if (q_type == QC && kv_type == KC)                                                       \
-    return launch_stream_mla<TQ, TKV>(q, k_pool, page_table, kv_lens, out, B, Hq, maxP,    \
-                                      page_size, scale, cap, s);
+#define RPA_STREAM(QC, TQ, KC, TKV)                                                          \
+  if (q_type == QC && kv_type == KC)                                                         \
+    return launch_mla<TQ, TKV>(q, k_pool, page_table, kv_lens, out, B, Hq, maxP, page_size,  \
+                               scale, cap, n_blocks, scratch, s);
   RPA_MLA_FOR_EACH_PAIR(RPA_STREAM)
 #else
   if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM)

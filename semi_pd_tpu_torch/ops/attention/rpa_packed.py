@@ -20,7 +20,7 @@ optional logit softcap and sliding window. fp8 KV is upcast exactly, as the
 TPU kernel upcasts it to q's dtype. The TPU kernels' rpb/SUB request
 packing and their RPA_DECODE_PACKED / RPA_PACKED_DIAG switches schedule
 work for the TPU and are not ported; the CUDA designs are described in
-csrc/rpa_decode.cu and csrc/rpa_mla.cuh.
+csrc/rpa_decode.cu, csrc/rpa_mla.cuh and csrc/rpa_mla_mma.cuh.
 
 The wrappers launch their kernel for CUDA tensors and use
 ``decode_attention_plain`` only for tensors on the CPU; any other device
@@ -40,18 +40,19 @@ from semi_pd_tpu_torch.ops.attention.rpa_common import (
     layer_kv, pool_heads,
 )
 
-# The MLA decode's and the streaming decodes' entry points
+# The decode kernels' arguments up to the CUDA stream (the streaming
+# decodes append their plan, rpa_stream.py)
 DECODE_ARGTYPES = [P] * 6 + [I] * 7 + [F, F, I, I, I, P]
-# The GQA decode builds of csrc/rpa_decode.cu share one entry point, which
-# also takes the split plan of their tensor-core kernel (decode_split_plan)
-# and a scratch pointer
-GQA_DECODE_ARGTYPES = DECODE_ARGTYPES[:-1] + [I, I, P, P]
+# The packed decode builds (csrc/rpa_decode.cu, csrc/rpa_decode_mla.cu)
+# share one entry point, which also takes the split plan of their
+# tensor-core kernel (decode_split_plan) and a scratch pointer
+SPLIT_DECODE_ARGTYPES = DECODE_ARGTYPES[:-1] + [I, I, P, P]
 
 DECODE_KERNEL = register(CudaKernel(
     name="rpa_decode",
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode",
-    argtypes=GQA_DECODE_ARGTYPES,
+    argtypes=SPLIT_DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:32 _rpa_kernel_chunked_packed",
 ))
 
@@ -59,7 +60,7 @@ DECODE_ALIGNED_KERNEL = register(CudaKernel(
     name="rpa_decode_aligned",
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode_aligned",
-    argtypes=GQA_DECODE_ARGTYPES,
+    argtypes=SPLIT_DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (GQA branch)",
     defines=("RPA_ALIGNED",),
 ))
@@ -70,7 +71,7 @@ DECODE_MLA_KERNEL = register(CudaKernel(
     name="rpa_decode_mla",
     source="csrc/rpa_decode_mla.cu",
     symbol="rpa_decode_mla",
-    argtypes=DECODE_ARGTYPES,
+    argtypes=SPLIT_DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (MLA branch)",
     defines=("RPA_P_F32",),
 ))
@@ -83,7 +84,7 @@ DECODE_MERGED_KERNEL = register(CudaKernel(
     name="rpa_decode_merged",
     source="csrc/rpa_decode.cu",
     symbol="rpa_decode_merged",
-    argtypes=GQA_DECODE_ARGTYPES,
+    argtypes=SPLIT_DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:300 _rpa_kernel_merged "
              "(decode)",
     defines=MERGED_DEFINES,
@@ -94,28 +95,52 @@ DECODE_MERGED_KERNEL = register(CudaKernel(
 DECODE_KERNELS = {"aligned": DECODE_ALIGNED_KERNEL, "merged": DECODE_MERGED_KERNEL,
                   "latent": DECODE_MLA_KERNEL}
 
-# The split plan's constants of each GQA decode build, as csrc/rpa_decode.cu
-# states them for the build's head_dim (tests/test_torch_decode_split.py
-# holds the two equal): (SD_STEP, the positions a block of its tensor-core
-# kernel walks per round, 4 warps x SD_TK = 2048 / head_dim; SD_BLOCKS_PER_SM,
-# the blocks an SM holds at once with bf16 KV, about 105 KB of shared memory
-# each at head_dim 64 and 128)
+# The split plan's constants of each packed decode build's tensor-core
+# kernel, as its source states them (tests/test_torch_decode_split.py and
+# tests/test_torch_mla_decode_split.py hold the two equal): (the positions
+# split_len must be a multiple of; the blocks an SM holds at once with bf16
+# KV). The GQA builds (csrc/rpa_decode.cu, for the build's head_dim):
+# SD_STEP, the positions a block walks per round, 4 warps x SD_TK = 2048 /
+# head_dim, and SD_BLOCKS_PER_SM, about 105 KB of shared memory a block at
+# head_dim 64 and 128. The latent build (csrc/rpa_mla_mma.cuh):
+# MLA_MMA_CHUNK, the fixed chunk it splits every request at, and
+# MLA_MMA_BLOCKS_PER_SM, 81 KB a block.
 DECODE_SPLIT = {DECODE_KERNEL.name: (128, 2), DECODE_ALIGNED_KERNEL.name: (64, 2),
-                DECODE_MERGED_KERNEL.name: (128, 2)}
-# a split covers at least SPLIT_MIN positions (unless the page table is shorter)
+                DECODE_MERGED_KERNEL.name: (128, 2), DECODE_MLA_KERNEL.name: (256, 2)}
+# a GQA build's split covers at least SPLIT_MIN positions (unless the page
+# table is shorter)
 SPLIT_MIN = 512
+# query heads per block of the latent build's tensor-core kernels (the rows
+# of one m16 tile, csrc/rpa_mla_mma.cuh MLA_MMA_ROWS)
+MLA_ROWS = 16
+
+
+def head_groups(kernel, Hq: int, num_kv_heads: int) -> int:
+    """The second grid dimension of a tensor-core decode: the KV heads of a
+    GQA build, or on the latent pool (one latent head) the groups of at most
+    MLA_ROWS query heads, one for DeepSeek-V2-Lite's 16."""
+    if kernel.name.endswith("_mla"):
+        return -(-Hq // MLA_ROWS)
+    return num_kv_heads
 
 
 def decode_split_plan(build: str, B: int, Hkv: int, max_kv: int, num_sms: int):
-    """(n_split, split_len) of a GQA decode build's tensor-core kernel
-    (``build``: a key of DECODE_SPLIT): [0, max_kv) cut in order into
-    n_split ranges [s * split_len, min((s + 1) * split_len, max_kv)). From
-    the shapes, the build and the card's SM count only (max_kv = maxP *
-    page_size; no kv_lens), so the wrapper never waits for the card: enough
-    splits that the B * Hkv * n_split blocks fill the card once at the
-    build's blocks per SM, split_len at least SPLIT_MIN (unless max_kv is
-    shorter) and a multiple of the build's step."""
+    """(n_split, split_len) of a packed decode build's tensor-core kernel
+    (``build``: a key of DECODE_SPLIT; ``Hkv``: its head_groups): [0,
+    max_kv) cut in order into n_split ranges [s * split_len, min((s + 1) *
+    split_len, max_kv)). From the shapes, the build and the card's SM count
+    only (max_kv = maxP * page_size; no kv_lens), so the wrapper never waits
+    for the card. A GQA build takes enough splits that the B * Hkv *
+    n_split blocks fill the card once at its blocks per SM, split_len at
+    least SPLIT_MIN (unless max_kv is shorter) and a multiple of its step.
+    The latent build splits at its fixed chunk (its step), whatever the
+    batch, so that a request's output does not depend on the batch around
+    it and equals the streaming decode's (csrc/rpa_mla_mma.cuh); at
+    DeepSeek-V2-Lite's phase-2 shapes that is also the plan that fills the
+    card (two blocks an SM at b64 / kv1024 and b16 / kv4096)."""
     step, blocks_per_sm = DECODE_SPLIT[build]
+    if build == DECODE_MLA_KERNEL.name:
+        return max(1, -(-max_kv // step)), step
     want = max(1, blocks_per_sm * num_sms // max(B * Hkv, 1))
     n = max(1, min(want, max_kv // SPLIT_MIN))
     split_len = -(-max(max_kv, 1) // n)
@@ -128,14 +153,15 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_args(kernel, q, kv_dtype, num_kv_heads, max_kv):
-    """The split plan of a GQA decode build's tensor-core kernel as its entry
-    takes it, (n_split, split_len, scratch pointer), and the scratch tensor
-    (None with one split): float32 partials of each split, then merged."""
-    B, Hq, D = q.shape
-    n_split, split_len = decode_split_plan(kernel.name, B, num_kv_heads, max_kv,
-                                           sm_count(q.device.index or 0))
-    scratch = (q.new_empty(n_split * B * Hq * (D + 2), dtype=torch.float32)
+def split_args(kernel, q, kv_dtype, num_kv_heads, max_kv, dv):
+    """The split plan of a packed decode build's tensor-core kernel as its
+    entry takes it, (n_split, split_len, scratch pointer), and the scratch
+    tensor (None with one split): each split's float32 partial, dv wide
+    (the output's width: the latent pool's V), then merged."""
+    B, Hq, _ = q.shape
+    n_split, split_len = decode_split_plan(kernel.name, B, head_groups(kernel, Hq, num_kv_heads),
+                                           max_kv, sm_count(q.device.index or 0))
+    scratch = (q.new_empty(n_split * B * Hq * (dv + 2), dtype=torch.float32)
                if n_split > 1 else None)
     return (n_split, split_len, None if scratch is None else scratch.data_ptr()), scratch
 
@@ -145,9 +171,9 @@ def decode_with(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_siz
                 plan=None):
     """Checks the arguments, then the plain version on the CPU or the
     kernel on the card. ``plan(kernel, q, kv dtype, num_kv_heads, maxP *
-    page_size)`` gives the entry's arguments between the element types and
-    the stream, and a tensor to keep alive over the launch; GQA decode
-    builds default to their split plan."""
+    page_size, output width)`` gives the entry's arguments between the
+    element types and the stream, and a tensor to keep alive over the
+    launch; packed decode builds default to their split plan."""
     check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
                     v_dim)
     if q.shape[0] != page_table.shape[0]:
@@ -166,7 +192,7 @@ def decode_with(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_siz
     maxP = page_table.shape[1]
     if plan is None and kernel.name in DECODE_SPLIT:
         plan = split_args
-    extra, _scratch = (plan(kernel, q, kv_cache.dtype, num_kv_heads, maxP * page_size)
+    extra, _scratch = (plan(kernel, q, kv_cache.dtype, num_kv_heads, maxP * page_size, Dv)
                        if plan else ((), None))
     kernel.launch(
         q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),

@@ -15,13 +15,14 @@ without a sliding window or a speculation mask (the routing keeps those
 batches on the packed decode, as the JAX routing does). The KV tiles of
 many requests form one sequence fetched a fixed depth ahead across request
 boundaries (csrc/rpa_stream.cu). With bf16 q the GQA builds cut that
-sequence into equal shares, one per warp of a persistent grid of
-``stream_blocks`` blocks per KV head, on the tensor cores; requests cut
-across blocks leave float32 partials in a scratch that a combine pass
-merges. The JAX package selects the stream with ``RPA_DECODE_STREAM=1`` and
-sets the ring depth with ``RPA_STREAM_NBUF``; the port selects it with
-``ServerArgs.decode_stream`` and builds the depth in (STREAM_NBUF = 4, the
-JAX default). Its plain version is the decode's,
+sequence into equal shares of tiles, one per warp of a persistent grid of
+``stream_blocks`` blocks per KV head, on the tensor cores, and the latent
+build into shares of whole 256-position chunks, one per block (its four
+warps share each latent tile); requests cut across blocks leave float32
+partials in a scratch that a combine pass merges. The JAX package selects
+the stream with ``RPA_DECODE_STREAM=1`` and sets the ring depth with
+``RPA_STREAM_NBUF``; the port selects it with ``ServerArgs.decode_stream``
+and builds the depth in (STREAM_NBUF = 4, the JAX default). Its plain version is the decode's,
 ``rpa_packed.decode_attention_plain``.
 
 The wrappers launch their kernel for CUDA tensors and use the plain version
@@ -37,7 +38,10 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import FP8, I, P, kernel_family, pool_heads
-from semi_pd_tpu_torch.ops.attention.rpa_packed import DECODE_ARGTYPES, decode_with, sm_count
+from semi_pd_tpu_torch.ops.attention.rpa_packed import (
+    DECODE_ARGTYPES, DECODE_MLA_KERNEL, DECODE_SPLIT, decode_split_plan, decode_with,
+    head_groups, sm_count,
+)
 
 # The streaming decodes' entry point: the decode's, then the tensor-core
 # stream's plan (blocks per KV head, scratch pointer) before the CUDA stream
@@ -77,12 +81,16 @@ STREAM_KERNELS = {"chunked": STREAM_KERNEL, "aligned": STREAM_ALIGNED_KERNEL,
                   "latent": STREAM_MLA_KERNEL}
 
 
-# The tensor-core stream's schedule, as csrc/rpa_stream.cu states it for
-# each GQA build's head_dim (tests/test_torch_stream_split.py holds the two
-# equal): KV positions per warp tile (1024 / head_dim: 16 at 64, 8 at 128),
-# the ring depth of each warp, the warps of a block and the blocks an SM
-# holds at once, with bf16 KV and with fp8 KV
-STREAM_TILE = {STREAM_KERNEL.name: 16, STREAM_ALIGNED_KERNEL.name: 8}
+# The tensor-core streams' schedules (tests/test_torch_stream_split.py and
+# tests/test_torch_mla_decode_split.py hold them equal to the sources'
+# constants): the KV positions of the unit a share is cut in, a warp tile
+# of 1024 / head_dim in the GQA builds (16 at 64, 8 at 128; csrc/rpa_stream.cu
+# STREAM_TK) and the packed MLA decode's fixed chunk in the latent build
+# (csrc/rpa_mla_mma.cuh MLA_MMA_CHUNK); the ring depth of each GQA warp,
+# the warps of a block and the blocks an SM holds at once, with bf16 KV and
+# with fp8 KV (the latent build's: rpa_packed.DECODE_SPLIT)
+STREAM_TILE = {STREAM_KERNEL.name: 16, STREAM_ALIGNED_KERNEL.name: 8,
+               STREAM_MLA_KERNEL.name: DECODE_SPLIT[DECODE_MLA_KERNEL.name][0]}
 STREAM_NBUF = 4
 STREAM_WARPS = 4
 STREAM_BLOCKS_PER_SM = 2
@@ -91,36 +99,50 @@ STREAM_BLOCKS_PER_SM_FP8 = 3
 
 def stream_blocks(build: str, B: int, Hkv: int, max_kv: int, num_sms: int,
                   fp8: bool = False) -> int:
-    """P, the blocks per KV head of a GQA build's tensor-core stream
+    """P, the blocks per KV head (per head group on the latent pool:
+    ``Hkv`` is rpa_packed.head_groups) of a build's tensor-core stream
     (``build``: a key of STREAM_TILE; ``fp8``: fp8 KV): as many as the card
-    holds at once beside the other KV heads' columns, but no more than a
-    batch of full page tables (max_kv = maxP * page_size positions each)
-    gives its 4 P warps a tile each. From the shapes, the build, the KV
+    holds at once beside the other columns, but no more than a batch of
+    full page tables (max_kv = maxP * page_size positions each) gives each
+    of its shares a unit of STREAM_TILE: a tile to each of a GQA block's 4
+    warps, a chunk to a latent block. From the shapes, the build, the KV
     type and the SM count only: the wrapper never reads kv_lens."""
-    per_sm = STREAM_BLOCKS_PER_SM_FP8 if fp8 else STREAM_BLOCKS_PER_SM
+    if build == STREAM_MLA_KERNEL.name:
+        per_sm, shares = DECODE_SPLIT[DECODE_MLA_KERNEL.name][1], 1
+    else:
+        per_sm = STREAM_BLOCKS_PER_SM_FP8 if fp8 else STREAM_BLOCKS_PER_SM
+        shares = STREAM_WARPS
     most = B * -(-max_kv // STREAM_TILE[build])
-    return max(1, min(per_sm * num_sms // max(Hkv, 1), -(-most // STREAM_WARPS)))
+    return max(1, min(per_sm * num_sms // max(Hkv, 1), -(-most // shares)))
 
 
 def stream_scratch_floats(n_blocks: int, Hq: int, Hkv: int, D: int) -> int:
-    """Float32 elements of the tensor-core stream's scratch: one partial of
-    G rows (O, then m and l) per warp and KV head (a request cut at the
-    warp's first tile), two per block and KV head (requests cut across
-    blocks), then one int4 descriptor per block and KV head."""
+    """Float32 elements of a GQA build's tensor-core stream scratch: one
+    partial of G rows (O, D wide, then m and l) per warp and KV head (a
+    request cut at the warp's first tile), two per block and KV head
+    (requests cut across blocks), then one int4 descriptor per block and KV
+    head."""
     return n_blocks * (6 * Hq * (D + 2) + 4 * Hkv)
 
 
-def stream_args(kernel, q, kv_dtype, num_kv_heads, max_kv):
+def stream_args(kernel, q, kv_dtype, num_kv_heads, max_kv, dv):
     """The stream entry's plan, (n_blocks, scratch pointer), and the scratch
-    tensor: a GQA build's with bf16 q; one block and no scratch for the
-    float32 pairs (the CUDA-core kernel takes its own grid) and the latent
-    pool."""
+    tensor, with bf16 q (partials dv wide, the output's width): the latent
+    build's holds a partial per chunk and row, laid out as the packed
+    decode's splits; one block and no scratch for the float32 pairs (the
+    CUDA-core kernels take their own grid)."""
     if kernel.name not in STREAM_TILE or q.dtype != torch.bfloat16:
         return (1, None), None
-    B, Hq, D = q.shape
-    n = stream_blocks(kernel.name, B, num_kv_heads, max_kv, sm_count(q.device.index or 0),
-                      fp8=kv_dtype in FP8)
-    scratch = q.new_empty(stream_scratch_floats(n, Hq, num_kv_heads, D), dtype=torch.float32)
+    B, Hq, _ = q.shape
+    heads = head_groups(kernel, Hq, num_kv_heads)
+    sms = sm_count(q.device.index or 0)
+    n = stream_blocks(kernel.name, B, heads, max_kv, sms, fp8=kv_dtype in FP8)
+    if kernel is STREAM_MLA_KERNEL:
+        n_chunk, _ = decode_split_plan(DECODE_MLA_KERNEL.name, B, heads, max_kv, sms)
+        floats = n_chunk * B * Hq * (dv + 2)
+    else:
+        floats = stream_scratch_floats(n, Hq, heads, dv)
+    scratch = q.new_empty(floats, dtype=torch.float32)
     return (n, scratch.data_ptr()), scratch
 
 

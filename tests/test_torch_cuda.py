@@ -3,7 +3,7 @@ version (the streaming decodes, the tensor-core extends and the tensor-core
 decode also against themselves, bitwise, on a second run; the tensor-core
 extend with 1, 2, 4 and 8 query heads per KV head, the latent extend's
 warpgroup kernel over several entries per request, the tensor-core decode
-of every GQA build split over blocks at long KV and refusing an invalid
+of every build split over blocks at long KV and refusing an invalid
 split plan, the streaming decodes over batches whose requests the
 tensor-core stream cuts across warps and blocks, with every slot past
 kv_len set to NaN, the tensor-core stream refusing an invalid plan, and
@@ -390,10 +390,9 @@ def test_merged_extend_widens_every_fp8_value_exactly(cuda_device, kv):
 
 def test_extend_builds_run_on_the_tensor_cores(cuda_device):
     """The disassembled libraries: every bf16-q instantiation of the
-    chunked, the aligned and the merged extend and decode, and of the latent
-    extend, runs tensor-core instructions (HGMMA in the extends' warpgroup
-    kernels, HMMA in the decodes'); their float32 pairs stay on the CUDA
-    cores."""
+    chunked, the aligned, the merged and the latent extend and decode runs
+    tensor-core instructions (HGMMA in the extends' warpgroup kernels, HMMA
+    in the decodes'); their float32 pairs stay on the CUDA cores."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs)
@@ -404,6 +403,7 @@ def test_extend_builds_run_on_the_tensor_cores(cuda_device):
         "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 1),
         "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
         "rpa_decode_merged": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
+        "rpa_decode_mla": ("rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel", 1),
     }
     for name, (mma_fn, core_fn, n_mma) in expect.items():
         KERNELS[name].fn()
@@ -534,12 +534,13 @@ def test_bf16_gqa_extends_round_p(cuda_device, pool):
 
 
 # (build, pool case options, head_dim, KV dtype): the tensor-core decode of
-# every GQA build, split over blocks
+# every build, split over blocks (the latent pool: one latent head, DLAT wide)
 SPLIT_CASES = [("rpa_decode", {}, D, "bfloat16"),
                ("rpa_decode_aligned", {"aligned": True}, D_ALIGNED, "bfloat16"),
                ("rpa_decode_aligned", {"aligned": True}, D_ALIGNED, "fp8_e4m3"),
                ("rpa_decode_merged", {"merged": True}, D, "bfloat16"),
-               ("rpa_decode_merged", {"merged": True}, D, "fp8_e4m3")]
+               ("rpa_decode_merged", {"merged": True}, D, "fp8_e4m3"),
+               ("rpa_decode_mla", {"latent": True}, DLAT, "bfloat16")]
 
 
 def _long_decode(dev, extra, kv):
@@ -565,18 +566,25 @@ def _decode_fns(build, head_dim):
                          ids=[f"{b}-{kv}" for b, _, _, kv in SPLIT_CASES])
 def test_merged_decode_splits_long_kv(cuda_device, build, extra, head_dim, kv, opt):
     """The tensor-core decode, first written for the merged build, on every
-    GQA build: 16 requests over 2048-4096 positions and one padded row, so
-    the build's plan splits each request's positions over several blocks,
-    whose float32 partials the combine pass merges; against the plain
-    version, bitwise against a second call, and zeros on the padded row.
-    The window (1000 positions) crosses split boundaries."""
+    build: 16 requests over 2048-4096 positions and one padded row, so the
+    build's plan splits each request's positions over several blocks, whose
+    float32 partials the combine pass merges; against the plain version,
+    bitwise against a second call, and zeros on the padded row. The window
+    (1000 positions) crosses split boundaries. On the latent pool (its one
+    latent head in the plan) every slot that holds no live position is NaN,
+    so none is read."""
     q, kv_t, pt, kvl, _ = _long_decode(cuda_device, extra, kv)
+    latent = "latent" in extra
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    n_split, _ = rpa_packed.decode_split_plan(build, 16, HKV, pt.shape[1] * PS, sms)
+    n_split, _ = rpa_packed.decode_split_plan(build, 16, 1 if latent else HKV,
+                                              pt.shape[1] * PS, sms)
     assert n_split > 1
     kw = _opts(opt, head_dim ** -0.5)
     if opt == "window":
         kw["sliding_window"] = 1000
+    if latent:
+        kw["v_dim"] = V_DIM
+        _poison_dead_slots(kv_t, pt, kvl, 1)
     fn, plain = _decode_fns(build, head_dim)
     k = KERNELS[build]
     before = k.launches
@@ -590,7 +598,8 @@ def test_merged_decode_splits_long_kv(cuda_device, build, extra, head_dim, kv, o
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("build", ["rpa_decode", "rpa_decode_aligned", "rpa_decode_merged"])
+@pytest.mark.parametrize("build", ["rpa_decode", "rpa_decode_aligned", "rpa_decode_merged",
+                                   "rpa_decode_mla"])
 def test_decode_refuses_an_invalid_split_plan(cuda_device, build):
     """The tensor-core decode's entry checks the plan it is given: a
     split_len that is no multiple of the build's step, ranges that do not
@@ -598,10 +607,11 @@ def test_decode_refuses_an_invalid_split_plan(cuda_device, build):
     launch fail, and the wrapper raises; nothing falls back."""
     _, extra, head_dim, kv = next(c for c in SPLIT_CASES if c[0] == build)
     q, kv_t, pt, kvl, _ = _long_decode(cuda_device, extra, kv)
+    hkv = 1 if "latent" in extra else HKV
     k = KERNELS[build]
     step = rpa_packed.DECODE_SPLIT[build][0]
     max_kv = pt.shape[1] * PS
-    k_ptr, v_ptr, row_stride = rpa_common.kv_planes(kv_t, 1, HKV, head_dim)
+    k_ptr, v_ptr, row_stride = rpa_common.kv_planes(kv_t, 1, hkv, head_dim)
     out = torch.empty_like(q)
     scratch = torch.empty(16 * 16 * q.shape[1] * (head_dim + 2), device=cuda_device)
     code = rpa_common.TYPE_CODES
@@ -610,7 +620,7 @@ def test_decode_refuses_an_invalid_split_plan(cuda_device, build):
                                     (16, -(-max_kv // 16 // step) * step, None)):
         with pytest.raises(RuntimeError, match="cudaError 1$"):
             k.launch(q.data_ptr(), k_ptr, v_ptr, pt.data_ptr(), kvl.data_ptr(), out.data_ptr(),
-                     16, q.shape[1], HKV, head_dim, row_stride, pt.shape[1], PS, 1.0, 0.0, 0,
+                     16, q.shape[1], hkv, head_dim, row_stride, pt.shape[1], PS, 1.0, 0.0, 0,
                      code[q.dtype], code[kv_t.dtype], n_split, split_len, scr,
                      torch.cuda.current_stream().cuda_stream)
 
@@ -694,40 +704,76 @@ def test_stream_kernel_matches_plain_and_repeats(cuda_device, pool, dtype, opt, 
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("batch", ["few", "many", *STREAM_BATCHES])
+@pytest.mark.parametrize("opt", ["plain", "softcap"])
+def test_mla_decodes_agree_bit_for_bit_whatever_the_batch(cuda_device, opt, batch):
+    """With bf16 q the packed and the streaming latent decode walk each
+    request in the same fixed chunks of 256 positions and merge them in the
+    same order, so they give the same bits, and a request decoded alone,
+    with a page table of its own pages only, gives the bits it gets in the
+    batch: the result does not depend on the batch, the split plan or the
+    stream's block shares."""
+    if batch in STREAM_BATCHES:
+        lens = STREAM_BATCHES[batch]
+        q, kv, pt, kvl, _ = _case(11, [1] * len(lens), lens, cuda_device, torch.bfloat16,
+                                  latent=True)
+    else:
+        case = _decode_case if batch == "few" else _many_case
+        q, kv, pt, kvl, _ = case(cuda_device, torch.bfloat16, latent=True)
+    kw = dict(_opts(opt, DLAT ** -0.5), v_dim=V_DIM)
+    kw.pop("sliding_window")
+    packed = rpa_packed.ragged_paged_attention_packed(q, kv, 1, pt, kvl, **kw)
+    stream = rpa_stream.ragged_paged_attention_stream(q, kv, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, stream)
+    lens = kvl.tolist()
+    for b in sorted({0, len(lens) // 2, int(np.argmax(lens))}):
+        pages = max(1, -(-lens[b] // PS))
+        alone = rpa_packed.ragged_paged_attention_packed(
+            q[b:b + 1].contiguous(), kv, 1, pt[b:b + 1, :pages].contiguous(),
+            kvl[b:b + 1].contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], packed[b]), (b, lens[b])
+
+
 def test_stream_builds_run_on_the_tensor_cores(cuda_device):
     """The disassembled libraries of the streaming decodes: every bf16-q
     instantiation of the chunked and the aligned build runs HMMA
-    instructions in rpa_stream_mma_kernel, their float32 pair's
-    rpa_stream_kernel none, and the latent build none at all."""
+    instructions in rpa_stream_mma_kernel, and the latent build's in
+    rpa_stream_mla_mma_kernel; their float32 pair's CUDA-core kernel
+    (rpa_stream_kernel, rpa_stream_mla_kernel) none."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
-    for name, n_mma in (("rpa_decode_stream", 1), ("rpa_decode_stream_aligned", 3)):
+    for name, mma_fn, core_fn, n_mma in (
+            ("rpa_decode_stream", "rpa_stream_mma_kernel", "rpa_stream_kernel", 1),
+            ("rpa_decode_stream_aligned", "rpa_stream_mma_kernel", "rpa_stream_kernel", 3),
+            ("rpa_decode_stream_mla", "rpa_stream_mla_mma_kernel", "rpa_stream_mla_kernel", 1)):
         KERNELS[name].fn()
         counts = sass_mma_counts(KERNELS[name])
-        mma = [n for f, n in counts.items() if "rpa_stream_mma_kernel" in f]
+        mma = [n for f, n in counts.items() if mma_fn in f]
         assert len(mma) == n_mma and all(mma), (name, counts)
-        core = [n for f, n in counts.items() if "rpa_stream_kernel" in f]
+        core = [n for f, n in counts.items() if core_fn in f]
         assert len(core) == 1 and not any(core), (name, counts)
-    KERNELS["rpa_decode_stream_mla"].fn()
-    counts = sass_mma_counts(KERNELS["rpa_decode_stream_mla"])
-    assert counts and not any(counts.values()), counts
 
 
-@pytest.mark.parametrize("name", ["rpa_decode_stream", "rpa_decode_stream_aligned"])
+@pytest.mark.parametrize("name", ["rpa_decode_stream", "rpa_decode_stream_aligned",
+                                  "rpa_decode_stream_mla"])
 def test_stream_refuses_an_invalid_plan(cuda_device, name):
     """The tensor-core stream's entry checks its plan: no block, or several
     blocks without a scratch, make the launch fail, and the wrapper raises;
     nothing falls back."""
-    extra, _, head_dim, _ = STREAM_POOLS["aligned" if name.endswith("aligned") else "chunked"]
+    pool = next(p for p, spec in STREAM_POOLS.items() if spec[1] == name)
+    extra, _, head_dim, _ = STREAM_POOLS[pool]
+    hkv = 1 if pool == "latent" else HKV
     q, kv_t, pt, kvl, _ = _decode_case(cuda_device, torch.bfloat16, **extra)
     k = KERNELS[name]
-    k_ptr, v_ptr, row_stride = rpa_common.kv_planes(kv_t, 1, HKV, head_dim)
+    k_ptr, v_ptr, row_stride = rpa_common.kv_planes(kv_t, 1, hkv, head_dim)
     out = torch.empty_like(q)
     code = rpa_common.TYPE_CODES
     for n_blocks in (0, 4):
         with pytest.raises(RuntimeError, match="cudaError 1$"):
             k.launch(q.data_ptr(), k_ptr, v_ptr, pt.data_ptr(), kvl.data_ptr(), out.data_ptr(),
-                     q.shape[0], q.shape[1], HKV, head_dim, row_stride, pt.shape[1], PS, 1.0,
+                     q.shape[0], q.shape[1], hkv, head_dim, row_stride, pt.shape[1], PS, 1.0,
                      0.0, 0, code[q.dtype], code[kv_t.dtype], n_blocks, None,
                      torch.cuda.current_stream().cuda_stream)
 

@@ -18,7 +18,8 @@ import pytest
 from semi_pd_tpu_torch.kernels import KERNELS
 from semi_pd_tpu_torch.ops.attention import rpa_packed
 
-BUILDS = sorted(rpa_packed.DECODE_SPLIT)
+# the GQA builds (the latent build's plan: tests/test_torch_mla_decode_split.py)
+BUILDS = sorted(b for b in rpa_packed.DECODE_SPLIT if KERNELS[b].source.name == "rpa_decode.cu")
 
 # (B, Hkv, maxP * page_size, SMs): the decode buckets 8/32/64 of the 1B-class
 # and 8B paths at their 8192-token context on an H100's 132 SMs, b16 x
@@ -95,8 +96,8 @@ def test_gqa_decode_builds_share_one_entry_and_the_source_constants():
     of SD_TK = 2048 / head_dim positions."""
     kernels = [KERNELS[b] for b in BUILDS]
     assert {k.source.name for k in kernels} == {"rpa_decode.cu"}
-    assert all(k.argtypes == rpa_packed.GQA_DECODE_ARGTYPES for k in kernels)
-    assert rpa_packed.GQA_DECODE_ARGTYPES[:-4] == rpa_packed.DECODE_ARGTYPES[:-1]
+    assert all(k.argtypes == rpa_packed.SPLIT_DECODE_ARGTYPES for k in kernels)
+    assert rpa_packed.SPLIT_DECODE_ARGTYPES[:-4] == rpa_packed.DECODE_ARGTYPES[:-1]
     for k in kernels:
         c = _source_constants(k)
         assert c["SD_TK"] == 2048 // _head_dim(k) and c["SD_WARPS"] == 4

@@ -109,11 +109,13 @@ def _imports(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke", "serve_witness",
-                                    "fidelity_witness", "decode_trace", "extend_shapes"])
+                                    "fidelity_witness", "decode_trace", "extend_shapes",
+                                    "mla_decode_plans"])
 def test_port_imports_no_jax(target):
     """No file of the port, and none of its card scripts (chip_smoke.py,
     serve_witness.py, fidelity_witness.py, decode_trace.py,
-    extend_shapes.py), imports jax or anything of the JAX package."""
+    extend_shapes.py, mla_decode_plans.py), imports jax or anything of the
+    JAX package."""
     files = (sorted((ROOT / "semi_pd_tpu_torch").rglob("*.py")) if target == "package"
              else [ROOT / f"{target}.py"])
     assert files

@@ -27,7 +27,8 @@ import pytest
 from semi_pd_tpu_torch.kernels import KERNELS
 from semi_pd_tpu_torch.ops.attention import rpa_stream
 
-BUILDS = sorted(rpa_stream.STREAM_TILE)
+# the GQA builds (the latent build's schedule: tests/test_torch_mla_decode_split.py)
+BUILDS = sorted(b for b in rpa_stream.STREAM_TILE if b != "rpa_decode_stream_mla")
 # (build, fp8 KV): the chunked pool takes bf16 KV only
 PLANS = [("rpa_decode_stream", False), ("rpa_decode_stream_aligned", False),
          ("rpa_decode_stream_aligned", True)]

@@ -60,6 +60,19 @@ each (any failure raises and exits non-zero):
              through the kernels, against the same layers run with the
              plain attention functions; after each of the first three
              paths' serving, once more with the streaming decode.
+3g. graphs — after each path's model phase (and its streaming one), at full
+             width: one decode batch of 64 requests (kv 520-1000, shuffled
+             pages) through the eager step (``decode_graphs`` off) and
+             through a replay of its CUDA graph, then a second batch of the
+             same key (other lengths and pages, input ids chained from the
+             first step's tokens) the same way: tokens and log-probs must
+             be bitwise equal in both, and the second must not capture
+             again. One eager decode step and one replay run under
+             ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).
+             One ``graphs`` line per decode path (seven): captures,
+             capture seconds, the graph pool's bytes, and the eager and the
+             replayed step's wall at B = 64 (20 steps per turn, turns
+             eager, graph, graph, eager).
 4. serve   — the Engine with the bench's server settings serves 32 greedy
              requests (prompts 256-3072 tokens, 64 new tokens each;
              TinyLlama's at most 1984 tokens, its context being 2048),
@@ -68,9 +81,15 @@ each (any failure raises and exits non-zero):
              (latent pool) and TinyLlama-1.1B (the merged kernels); every
              launch counter is set to 0 just before each run and read just
              after, and only the path's own two kernels may have launched,
-             each L times per step of its kind. DeepSeek-V2-Lite serves
-             colocated a second time and must give the first run's tokens
-             exactly. The first three paths then serve colocated once more
+             each L times per step of its kind. Every decode step is
+             replayed from a CUDA graph (replays == decode steps; a replay
+             counts its L launches, a capture none; graphs are kept from
+             one serve to the next on one routing). The 1B-class model and
+             DeepSeek-V2-Lite serve colocated a second time (their graphs
+             captured), which must give the first run's tokens exactly,
+             then once more with the decode steps run eagerly, which must
+             give them too. The first three paths then serve colocated
+             once more
              with ``decode_stream`` (the streaming decode), on the same
              weights: their stream kernel launches L times per decode step
              and the packed decode never. DeepSeek-V2-Lite's must give the
@@ -606,6 +625,119 @@ def phase_model(eng, stream: bool = False):
     return dict(steps=steps, worst_rel_err=worst)
 
 
+def graph_batch(eng, seed: int):
+    """The packed decode step of 64 requests of 520-1000 KV positions
+    (pages from the allocator, random last tokens), and the requests."""
+    from semi_pd_tpu_torch.runtime.batch import build_decode_batch
+    from semi_pd_tpu_torch.runtime.req import Req
+    from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner, sched = eng.runner, eng.scheduler
+    rng = np.random.default_rng(seed)
+    vocab = runner.model_config.vocab_size
+    reqs = []
+    for i, n in enumerate(rng.integers(520, 1001, size=64)):
+        r = Req(rid=f"g{seed}-{i}", input_ids=[1] * int(n),
+                sampling_params=SamplingParams(temperature=0.0))
+        r.req_slot = runner.req_pool.alloc()
+        pages = runner.page_allocator.alloc(-(-(int(n) + 1) // PAGE))
+        r.pages = pages.tolist()
+        runner.req_pool.write(r.req_slot, 0, pages)
+        r.prefilled_len = r.prompt_len
+        r.output_ids.append(int(rng.integers(0, vocab)))
+        reqs.append(r)
+    hb = build_decode_batch(reqs, runner.req_pool.page_table, PAGE, sched.b_buckets,
+                            sched.p_buckets)
+    return hb.pack(), reqs
+
+
+def graph_phase(eng, label, pool, stream: bool = False):
+    """Replay vs eager step on one decode path at full width (phase 3g):
+    bitwise on two batches of one key, no host sync, and the step wall of
+    each at B = 64."""
+    import torch
+
+    from semi_pd_tpu_torch.layers.attention import pool_attention
+
+    t0 = time.monotonic()
+    runner = eng.runner
+    if not eng.flush_cache():
+        raise AssertionError("engine not idle before the graph phase")
+    runner.attention = pool_attention(runner.kv_cache.buffer, stream=stream)
+    runner.graphs.clear()  # this phase counts its own capture
+    graphs = runner.graphs
+    stats0 = dict(graphs.stats)
+
+    def eager(*args, **kw):
+        runner.graphs = None
+        try:
+            return runner.step_packed_raw(*args, is_decode=True, **kw)
+        finally:
+            runner.graphs = graphs
+
+    def graph(*args, **kw):
+        return runner.step_packed_raw(*args, is_decode=True, **kw)
+
+    results, reqs, steps = [], [], []
+    for seed in (1, 2):  # the second batch chained to the first's tokens
+        step, batch = graph_batch(eng, seed)
+        kw = dict(chained=True, prev_tokens=results[0][0][0]) if results else {}
+        want = eager(*step, **kw)
+        got = graph(*step, **kw)
+        torch.cuda.synchronize()
+        results.append((want, got))
+        steps.append(step)
+        reqs += batch
+        for r in batch:  # the request slots go to the next batch; the pages stay
+            runner.req_pool.free(r.req_slot)
+    step1, step2 = steps
+    if step1[2] != step2[2]:
+        raise AssertionError(f"the two graph batches have other keys: {step1[2]} {step2[2]}")
+    checks = []
+    for i, (want, got) in enumerate(results):
+        same_t = bool(torch.equal(want[0], got[0]))
+        same_l = bool(torch.equal(want[1], got[1]))
+        checks.append(dict(batch=i + 1, tokens_bitwise=same_t, logprobs_bitwise=same_l,
+                           tokens_agree=float((want[0] == got[0]).float().mean()),
+                           logprob_max_abs_diff=float((want[1] - got[1]).abs().max())))
+        if not torch.isfinite(got[1]).all():
+            raise AssertionError(f"{label}: non-finite log-probs from a replay")
+    captures = graphs.stats["captures"] - stats0["captures"]
+    # no host sync in an eager decode step or a replay
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager(*step2)
+        graph(*step2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        fn = eager if mode == "eager" else graph
+        fn(*step1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            fn(*step1)
+        torch.cuda.synchronize()
+        wall[mode].append(1e3 * (time.perf_counter() - t1) / 20)
+    for r in reqs:
+        runner.page_allocator.free(np.asarray(r.pages, np.int32))
+    res = dict(model=label, pool=pool, decode_stream=stream, key=list(step1[2][1:]),
+               checks=checks, captures=captures,
+               capture_s=graphs.stats["capture_s"] - stats0["capture_s"],
+               graph_pool_bytes=graphs.pool_bytes(),
+               eager_step_ms=wall["eager"], graph_step_ms=wall["graph"],
+               seconds=time.monotonic() - t0)
+    print("graphs " + json.dumps(res), flush=True)
+    bad = [c for c in checks if not (c["tokens_bitwise"] and c["logprobs_bitwise"])]
+    if bad:
+        raise AssertionError(f"{label}: replays differ from the eager step: {bad}")
+    if captures != 1:
+        raise AssertionError(f"{label}: {captures} captures for one key")
+    return res
+
+
 def prompts_for(vocab: int, max_len: int = 3072):
     """The 32 prompts a path serves: lengths 256-``max_len`` (3072 for
     every model whose context allows it), tokens drawn from the model's
@@ -615,7 +747,10 @@ def prompts_for(vocab: int, max_len: int = 3072):
     return [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
 
 
-def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False):
+def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False,
+               eager: bool = False):
+    """One serve of the 32 prompts; ``eager``: the decode steps run eagerly
+    instead of replaying the runner's graphs."""
     import torch
 
     from semi_pd_tpu_torch.kernels import KERNELS
@@ -632,16 +767,27 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False):
     runner = eng.runner
     # the same weights and pool, the runner's routing as decode_stream sets it
     runner.attention = pool_attention(runner.kv_cache.buffer, stream=stream)
+    graphs = runner.graphs
+    if eager:
+        runner.graphs = None
+    stats0 = dict(graphs.stats)
     runner.step_counts = {"decode": 0, "extend": 0}
     for k in KERNELS.values():
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    outs = eng.generate(input_ids=prompts, sampling_params=sp, return_logprob=True)
-    torch.cuda.synchronize()
+    try:
+        outs = eng.generate(input_ids=prompts, sampling_params=sp, return_logprob=True)
+        torch.cuda.synchronize()
+    finally:
+        runner.graphs = graphs
     wall = time.monotonic() - t0
     launches = {name: k.launches for name, k in KERNELS.items()}
     steps = dict(runner.step_counts)
+    graph_run = {k: graphs.stats[k] - stats0[k] for k in stats0}
+    if graph_run["replays"] != (0 if eager else steps["decode"]):
+        raise AssertionError(f"{pool}: {graph_run['replays']} decode steps replayed of "
+                             f"{steps['decode']} (eager: {eager})")
     reqs = [eng.scheduler.reqs_by_rid[o["rid"]] for o in outs]
     for o in outs:
         if o["meta_info"]["finish_reason"] != "length" or len(o["output_ids"]) != 64:
@@ -666,10 +812,10 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False):
     itl = [(r.finish_time - r.first_token_time) / (len(r.output_ids) - 1) for r in reqs]
     res = dict(pool=pool, kv_dtype=str(runner.kv_cache.buffer.dtype).replace("torch.", ""),
                mode="semi_pd" if semi_pd else "colocated", decode_stream=stream,
-               requests=len(outs),
+               decode_graphs=not eager, requests=len(outs),
                wall_s=wall, tok_s=len(outs) * 64 / wall,
                ttft_p50_s=statistics.median(ttft), itl_p50_ms=1e3 * statistics.median(itl),
-               steps=steps, launches=launches,
+               steps=steps, launches=launches, graphs=graph_run,
                retracted=eng.scheduler.n_retracted)
     return res, [o["output_ids"] for o in outs]
 
@@ -777,15 +923,19 @@ def main() -> int:
                                          seconds=time.monotonic() - t0)), flush=True)
         return eng
 
-    def serve_phase(eng, label, pool, repeat=False, max_len=3072):
+    def serve_phase(eng, label, pool, repeat=False, max_len=3072, eager=False):
         """Both modes; with ``repeat`` colocated once more, which must give
-        the first run's tokens exactly (serving is deterministic). Returns
-        the colocated run's tokens."""
+        the first run's tokens exactly (serving is deterministic); with
+        ``eager`` colocated once more with the decode steps run eagerly,
+        which must give the graph serve's tokens exactly. Returns the
+        colocated run's tokens."""
         t0 = time.monotonic()
         outputs = []
         vocab = eng.runner.model_config.vocab_size
-        for semi in (False, True) + ((False,) if repeat else ()):
-            r, out = serve_mode(eng, semi, prompts_for(vocab, max_len), vocab, pool)
+        runs = [(False, False), (True, False)] + ([(False, False)] if repeat else [])
+        for semi, run_eager in runs + ([(False, True)] if eager else []):
+            r, out = serve_mode(eng, semi, prompts_for(vocab, max_len), vocab, pool,
+                                eager=run_eager)
             outputs.append(out)
             for k, v in r["launches"].items():
                 main_launches[k] += v
@@ -795,11 +945,17 @@ def main() -> int:
         if repeat:
             res["repeat_same_tokens"] = float(np.mean(
                 [a == b for a, b in zip(outputs[0], outputs[2])]))
+        if eager:
+            res["eager_same_tokens"] = float(np.mean(
+                [a == b for a, b in zip(outputs[0], outputs[-1])]))
         print("serve_phase " + json.dumps(dict(res, seconds=time.monotonic() - t0)),
               flush=True)
         if repeat and res["repeat_same_tokens"] != 1.0:
             raise AssertionError(f"{label}: colocated served twice gave different tokens "
                                  f"({res['repeat_same_tokens']:.3f} of requests the same)")
+        if eager and res["eager_same_tokens"] != 1.0:
+            raise AssertionError(f"{label}: the eager colocated serve gave other tokens than "
+                                 f"the graph serve ({res['eager_same_tokens']:.3f} the same)")
         return outputs[0]
 
     def stream_phase(eng, label, pool, kv_dtype, packed_tokens):
@@ -807,6 +963,7 @@ def main() -> int:
         decode, then one colocated serve with decode_stream; prints the
         share of requests whose tokens equal the packed colocated run's."""
         model_phase(label, None, kv_dtype, eng=eng, stream=True)
+        graph_phase(eng, label, pool, stream=True)
         vocab = eng.runner.model_config.vocab_size
         r, out = serve_mode(eng, False, prompts_for(vocab), vocab, pool, stream=True)
         for k, v in r["launches"].items():
@@ -824,20 +981,24 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     eng = model_phase("llama-3.2-1b-class", llama_1b_config(), "auto")
-    packed = serve_phase(eng, "llama-3.2-1b-class", "chunked")
+    graph_phase(eng, "llama-3.2-1b-class", "chunked")
+    packed = serve_phase(eng, "llama-3.2-1b-class", "chunked", repeat=True, eager=True)
     stream_phase(eng, "llama-3.2-1b-class", "chunked", "auto", packed)
     release(eng)
     release(model_phase("meta-llama-3-8b", llama3_8b_config(), "bfloat16"))
     eng = model_phase("meta-llama-3-8b", llama3_8b_config(), "fp8_e4m3")
+    graph_phase(eng, "meta-llama-3-8b", "aligned")
     packed = serve_phase(eng, "meta-llama-3-8b", "aligned")
     stream_phase(eng, "meta-llama-3-8b", "aligned", "fp8_e4m3", packed)
     release(eng)  # the 8B model's 16 GB go before V2-Lite's 31 GB arrive
     eng = model_phase("deepseek-v2-lite", deepseek_v2_lite_config(), "auto")
-    packed = serve_phase(eng, "deepseek-v2-lite", "latent", repeat=True)
+    graph_phase(eng, "deepseek-v2-lite", "latent")
+    packed = serve_phase(eng, "deepseek-v2-lite", "latent", repeat=True, eager=True)
     stream_phase(eng, "deepseek-v2-lite", "latent", "auto", packed)
     release(eng)
     release(model_phase("tinyllama-1.1b", tinyllama_config(), "fp8_e4m3"))
     eng = model_phase("tinyllama-1.1b", tinyllama_config(), "auto")
+    graph_phase(eng, "tinyllama-1.1b", "merged")
     serve_phase(eng, "tinyllama-1.1b", "merged", max_len=2048 - 64)
     release(eng)
 

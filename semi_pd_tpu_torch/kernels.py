@@ -11,12 +11,19 @@ and a hash of the source and the flags, so an edited source rebuilds.
 Pointers and the CUDA stream cross as ``c_void_p``; every entry returns
 ``cudaGetLastError()`` and the Python wrapper raises when it is not 0.
 
+A kernel's ``launches`` counts the launches that ran on the card. Under
+a CUDA-graph capture (``record_launches``) a launch only records itself in
+the capture's tally; each replay of the graph adds that tally
+(``add_launches``), so a capture adds nothing and a replay adds what it
+runs.
+
 Importing this module builds nothing and needs no CUDA toolkit: the CPU
 tests import every module of the package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -138,10 +145,34 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA launch failed with cudaError {err}")
-        self.launches += 1
+        if _tally is not None:
+            _tally[self.name] = _tally.get(self.name, 0) + 1
+        else:
+            self.launches += 1
 
 
 KERNELS: Dict[str, CudaKernel] = {}
+# launches recorded instead of counted, while a graph is captured
+_tally: Optional[Dict[str, int]] = None
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Within the block, each launch adds one to the yielded tally (kernel
+    name -> launches) and nothing to its kernel's ``launches``: a CUDA-graph
+    capture records launches without running them."""
+    global _tally
+    outer, _tally = _tally, {}
+    try:
+        yield _tally
+    finally:
+        _tally = outer
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Count a recorded tally as run (one replay of a captured graph)."""
+    for name, n in tally.items():
+        KERNELS[name].launches += n
 
 
 def register(kernel: CudaKernel) -> CudaKernel:

@@ -5,9 +5,14 @@ The JAX package has no Pallas kernel here: it sorts the (token, expert)
 rows by expert and runs ``jax.lax.ragged_dot``, an XLA grouped matmul. The
 port does the same sort and hands the two grouped products to
 ``grouped_matmul``: on a CUDA device in bf16 one ``torch._grouped_mm`` call
-per product, with the group ends as a device tensor (no host sync);
-anywhere else (the CPU, float32) the plain version, a loop over experts
-that reads the group sizes on the host once per product.
+per product, with the group ends as a device tensor (no host sync); on a
+CUDA device in float32, where no grouped product exists, every row times
+every expert in one batched product (``grouped_matmul_dense``, E times the
+work, also without a host sync) up to DENSE_MAX_ELEMENTS of output, else
+the plain version; on the CPU the plain version, a loop over experts that
+reads the group sizes on the host once per product. The experts' row
+counts are made on the device (``expert_counts``), so a decode step with
+MoE layers never waits for the card and can be captured in a CUDA graph.
 
 Routing: softmax top-k (DeepSeek-V2 "greedy"), sigmoid scoring with a
 score-correction bias and grouped selection (DeepSeek-V3 noaux_tc, V2's
@@ -50,7 +55,10 @@ def route_topk(
         else:
             group_score = gs.topk(min(2, E // n_group), dim=-1).values.sum(dim=-1)
         thresh = group_score.topk(topk_group, dim=-1).values[:, -1:]
-        keep = (group_score >= thresh).repeat_interleave(E // n_group, dim=1)
+        # each group's verdict over its E // n_group experts (an expand, not
+        # repeat_interleave: nothing to size on the host)
+        keep = (group_score >= thresh)[:, :, None].expand(T, n_group, E // n_group)
+        keep = keep.reshape(T, E)
         select = select.masked_fill(~keep, float("-inf"))
     idx = select.topk(top_k, dim=-1).indices
     w = scores.gather(1, idx)  # weights from the unbiased scores
@@ -72,14 +80,43 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+# the most output elements (experts x rows x width) grouped_matmul_dense
+# makes: 1 GiB in float32, above a decode step of DeepSeek-V2-Lite's 64
+# experts at 64 requests (64 x 384 x 2816)
+DENSE_MAX_ELEMENTS = 1 << 28
+
+
+def grouped_matmul_dense(x: torch.Tensor, w: torch.Tensor,
+                         group_sizes: torch.Tensor) -> torch.Tensor:
+    """The plain version's result from one batched product of every row
+    with every group's ``w[g]``, each row keeping its own group's: E times
+    the work, and nothing read on the host."""
+    N, n = x.shape[0], w.shape[2]
+    ends = torch.cumsum(group_sizes, dim=0)
+    group_of = torch.searchsorted(ends, torch.arange(N, device=x.device), right=True)
+    full = torch.matmul(x[None], w)  # [E, N, n]
+    return full.gather(0, group_of[None, :, None].expand(1, N, n))[0]
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    group_sizes: torch.Tensor) -> torch.Tensor:
     """``jax.lax.ragged_dot(x, w, group_sizes)``: ``torch._grouped_mm`` for
-    bf16 on a CUDA device, the plain loop otherwise."""
+    bf16 on a CUDA device, ``grouped_matmul_dense`` for other dtypes there
+    (up to DENSE_MAX_ELEMENTS), the plain loop otherwise."""
     if x.is_cuda and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
         offs = torch.cumsum(group_sizes, dim=0).to(torch.int32)
         return torch._grouped_mm(x, w, offs=offs)
+    if x.is_cuda and w.shape[0] * x.shape[0] * w.shape[2] <= DENSE_MAX_ELEMENTS:
+        return grouped_matmul_dense(x, w, group_sizes)
     return grouped_matmul_plain(x, w, group_sizes)
+
+
+def expert_counts(flat_idx: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Rows per expert, ``jnp.bincount(flat_idx, length=num_experts)``, as
+    int64 [num_experts] made on the device: ``torch.bincount`` reads its
+    input's max back to the host, a sync on a CUDA tensor."""
+    counts = torch.zeros(num_experts, dtype=torch.int64, device=flat_idx.device)
+    return counts.scatter_add_(0, flat_idx.long(), torch.ones_like(flat_idx, dtype=torch.int64))
 
 
 def moe_ffn(
@@ -108,7 +145,7 @@ def moe_ffn(
     flat = expert_idx.reshape(T * K).long()
     order = torch.argsort(flat, stable=True)
     token_of = order // K  # source token of each sorted row
-    group_sizes = torch.bincount(flat, minlength=E)
+    group_sizes = expert_counts(flat, E)
     h = silu_and_mul(matmul(x[token_of].to(gate_up.dtype), gate_up, group_sizes))
     out_rows = matmul(h, down, group_sizes)  # [T*K, d], sorted by expert
     w_rows = weights.reshape(T * K)[order].to(out_rows.dtype)

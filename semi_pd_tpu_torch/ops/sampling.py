@@ -6,6 +6,11 @@ logits with noise from an explicit ``torch.Generator``. A generator cannot
 reproduce ``jax.random``'s streams, so only greedy rows are comparable
 token for token with the JAX package.
 
+On the card a decode step's sampling is captured in its CUDA graph
+(runtime/cuda_graph_runner.py): the runner's generator is registered with
+every graph, so each replay draws new numbers and advances it as an eager
+step does, and ``all_greedy`` is part of the graph's key.
+
 Penalties, top-k logprobs and grammar vocab masks are ROADMAP A10.
 """
 

@@ -28,15 +28,20 @@ class Engine:
         server_args: Optional[ServerArgs] = None,
         model_config: Optional[ModelConfig] = None,
         device: Optional[str] = None,
+        decode_graphs: bool = True,
         **kwargs,
     ):
+        """``decode_graphs``: ModelRunner's (on a CUDA device, decode steps
+        replay CUDA graphs; False runs them eagerly); other keywords build
+        the ServerArgs when none is given."""
         if model_config is None:
             raise NotImplementedError("loading a ModelConfig from a checkpoint "
                                       "path is ROADMAP A13; pass model_config")
         if server_args is None:
             server_args = ServerArgs(**kwargs)
         self.server_args = server_args
-        self.runner = ModelRunner(server_args, model_config, device=device)
+        self.runner = ModelRunner(server_args, model_config, device=device,
+                                  decode_graphs=decode_graphs)
         self.scheduler = Scheduler(server_args, self.runner)
         self._eos_ids: List[int] = []  # no tokenizer / HF config in this slice
         self._lock = threading.Lock()

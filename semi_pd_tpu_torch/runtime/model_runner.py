@@ -22,7 +22,12 @@ for MLA models. ``ServerArgs.decode_stream`` sends decode batches to the
 pool's streaming decode. Random weights are drawn on the step device
 (model_loader/loader.py::device_init_params).
 
-The step runs eagerly; CUDA graphs per decode bucket are ROADMAP A6b.
+On a CUDA device every decode step (T == B) of ``step_packed_raw`` is
+replayed from a CUDA graph, one per decode shape key, captured at the key's
+first use (runtime/cuda_graph_runner.py), as the JAX runner compiles one
+program per static shape; ``decode_graphs=False`` runs them eagerly, to
+hold replays against the eager step. Extend steps, ``step_host`` and every
+step of a CPU runner run eagerly.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from semi_pd_tpu_torch.model_loader.loader import device_init_params
 from semi_pd_tpu_torch.models.deepseek_v2 import DeepseekV2ForCausalLM
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
 from semi_pd_tpu_torch.ops.sampling import SamplingArrays, compute_logprobs, sample
+from semi_pd_tpu_torch.runtime.cuda_graph_runner import CudaGraphBackend, DecodeGraphs
 from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, ForwardArrays, ForwardMode
 
 logger = logging.getLogger(__name__)
@@ -54,6 +60,10 @@ ARCHITECTURES = {
 }
 
 KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
+# the decode graphs' memory left out of the KV pool, in float32 logits of
+# the largest decode bucket (the runner reports what the pool took:
+# ``graphs.pool_bytes()``)
+GRAPH_POOL_LOGITS = 8
 
 
 def _load_kv_cache_scales(path: str, num_layers: int) -> np.ndarray:
@@ -124,9 +134,13 @@ class ModelRunner:
         server_args: ServerArgs,
         model_config: ModelConfig,
         device: Optional[str] = None,
+        decode_graphs: bool = True,
     ):
+        """``decode_graphs``: on a CUDA device, replay decode steps from
+        CUDA graphs (False: run them eagerly, for comparisons)."""
         self.server_args = server_args
         self.device = resolve_device(device or server_args.device)
+        self._graphs_on = decode_graphs and self.device.type == "cuda"
         if model_config.architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"{model_config.architecture}: the port serves {sorted(ARCHITECTURES)}; "
@@ -158,8 +172,29 @@ class ModelRunner:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(server_args.seed)
         self._chain_tokens = None  # last decode step's device tokens
-        # steps run, by the attention route they took (T == B: decode)
+        # steps run, by the attention route they took (T == B: decode),
+        # replayed ones included
         self.step_counts = {"decode": 0, "extend": 0}
+        # the decode graphs (None: decode runs eagerly)
+        self.graphs = (DecodeGraphs(self, CudaGraphBackend(self.device, self.generator))
+                       if self._graphs_on else None)
+
+    @property
+    def attention(self):
+        """What every layer runs over the pool after its KV write; setting
+        it to another routing drops the decode graphs, which captured the
+        old one's launches."""
+        return self._attention
+
+    @attention.setter
+    def attention(self, fn) -> None:
+        def routing(f):  # a function, or a partial of one (the stream's)
+            return getattr(f, "func", f), sorted(getattr(f, "keywords", {}).items())
+
+        old = getattr(self, "_attention", None)
+        self._attention = fn
+        if getattr(self, "graphs", None) is not None and routing(old) != routing(fn):
+            self.graphs.clear()
 
     # ------------------------------------------------------------- weights
     def _load_weights(self) -> None:
@@ -203,27 +238,35 @@ class ModelRunner:
                     kv_dtype, self.max_running_requests)
 
     def _profile_kv_tokens(self, kv_dtype: torch.dtype) -> int:
-        """Size the KV pool from free device memory."""
+        """Size the KV pool from free device memory, less the decode graphs'
+        pool (sized before any graph exists: GRAPH_POOL_LOGITS float32
+        logits of the largest decode bucket, the sampler's copies of them
+        being the largest tensors a decode step makes)."""
         mc = self.model_config
         per_token = (mc.num_hidden_layers * mc.num_kv_heads_total * mc.kv_head_dim
                      * kv_dtype.itemsize * (1 if mc.use_mla else 2))
         if self.device.type != "cuda":
             return 32768  # CPU: a small pool for tests
         free, _ = torch.cuda.mem_get_info(self.device)
+        if self._graphs_on:
+            free -= (GRAPH_POOL_LOGITS * max(self.server_args.decode_bs_buckets)
+                     * mc.vocab_size * 4)
         frac = self.server_args.mem_fraction_static or 0.9
         return max(int(free * frac // per_token), 4096)
 
     # ------------------------------------------------------------- step
     def _step(self, fb: ForwardArrays) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eager step (and the body a decode graph captures)."""
         if self.kv_scales is not None:  # this runner's own scales, every step
             fb = fb._replace(kv_scales=self.kv_scales)
         with torch.inference_mode():
             logits = self.model(fb, self.kv_cache.buffer, attention=self.attention)
             tokens = sample(logits, fb.sampling, self.generator, fb.all_greedy)
             logprobs = compute_logprobs(logits, tokens)
-        self.step_counts["decode" if fb.input_ids.shape[0] == fb.kv_lens.shape[0]
-                         else "extend"] += 1
         return tokens, logprobs
+
+    def _count(self, T: int, B: int) -> None:
+        self.step_counts["decode" if T == B else "extend"] += 1
 
     def _unpack_fb(self, ints: torch.Tensor, floats: torch.Tensor, T: int, B: int,
                    maxP: int, NQB: int, num_reqs: int, all_greedy: bool,
@@ -281,26 +324,34 @@ class ModelRunner:
     def step_packed_raw(self, ints_np: np.ndarray, floats_np: np.ndarray, shapes,
                         chained: bool = False, prev_tokens=None,
                         is_decode: bool = False):
+        """A packed step; on a CUDA device a decode step (T == B) replays its
+        key's graph."""
         T, B, maxP, NQB = shapes
         num_reqs = int(ints_np[-1])
         all_greedy = bool(np.all(floats_np[:num_reqs] <= 0.0))  # temperatures
-        ints = torch.from_numpy(ints_np).to(self.device, non_blocking=True)
-        floats = torch.from_numpy(floats_np).to(self.device, non_blocking=True)
         if chained and prev_tokens is None:
             prev_tokens = self._chain_tokens
-        fb = self._unpack_fb(ints, floats, T, B, maxP, NQB, num_reqs, all_greedy,
-                             input_override=prev_tokens if chained else None)
-        tok, lp = self._step(fb)
+        if self.graphs is not None and T == B:
+            tok, lp = self.graphs.step(ints_np, floats_np, shapes, all_greedy,
+                                       prev_tokens if chained else None)
+        else:
+            ints = torch.from_numpy(ints_np).to(self.device, non_blocking=True)
+            floats = torch.from_numpy(floats_np).to(self.device, non_blocking=True)
+            fb = self._unpack_fb(ints, floats, T, B, maxP, NQB, num_reqs, all_greedy,
+                                 input_override=prev_tokens if chained else None)
+            tok, lp = self._step(fb)
+        self._count(T, B)
         if is_decode:
             self._chain_tokens = tok
         return tok, lp
 
     def step_host(self, hb, vocab_mask=None, penalties=None):
-        """Host-batch dispatch (one copy per array). Grammar masks and
-        penalties are ROADMAP A10."""
+        """Host-batch dispatch (one copy per array), always eager. Grammar
+        masks and penalties are ROADMAP A10."""
         if vocab_mask is not None or penalties is not None:
             raise NotImplementedError("vocab masks and penalties are ROADMAP A10")
         tok, lp = self._step(hb.to_device(self.device))
+        self._count(hb.T, hb.B)
         if hb.mode == ForwardMode.DECODE:
             self._chain_tokens = tok
         return tok, lp

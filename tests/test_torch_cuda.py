@@ -11,7 +11,9 @@ the libraries disassembled for HMMA instructions), the
 CUDA MoE path (torch._grouped_mm) against its plain loop, and the Engine
 on its default CUDA device against the same Engine on the CPU (Llama on
 the chunked, the aligned and the merged 5D pool at head_dim 64, with and
-without the streaming decode; DeepSeek-V2 on the latent pool). This file
+without the streaming decode; DeepSeek-V2 on the latent pool), and the
+decode steps replayed from CUDA graphs against the eager step, bitwise, on
+each of the seven decode paths (with no host sync in either). This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -801,6 +803,34 @@ def test_moe_grouped_mm_matches_plain_loop(cuda_device):
     assert err < 2e-2, err
 
 
+@pytest.mark.parametrize("grouped", [False, True], ids=["greedy", "grouped"])
+def test_moe_routes_and_sums_without_a_host_sync(cuda_device, grouped):
+    """route_topk (DeepSeek-V2's greedy softmax, and V3's sigmoid grouped
+    selection with its score bias) and moe_ffn in bf16 at a decode batch
+    make no host sync: the experts' row counts stay on the card."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(2)
+    T, d, E, F, K = 64, 256, 64, 128, 6
+    bf = torch.bfloat16
+    x = torch.randn((T, d), generator=g, device=cuda_device).to(bf)
+    gate_up = (torch.randn((E, d, 2 * F), generator=g, device=cuda_device) * 0.05).to(bf)
+    down = (torch.randn((E, F, d), generator=g, device=cuda_device) * 0.05).to(bf)
+    logits = torch.randn((T, E), generator=g, device=cuda_device)
+    kw = (dict(scoring="sigmoid", n_group=8, topk_group=4,
+               e_score_bias=torch.randn(E, generator=g, device=cuda_device))
+          if grouped else {})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w, idx = moe.route_topk(logits, K, **kw)
+        out = moe.moe_ffn(x, gate_up, down, w, idx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = moe.moe_ffn(x, gate_up, down, w, idx, matmul=moe.grouped_matmul_plain)
+    err = float((out.float() - want.float()).abs().max() / want.float().abs().max())
+    assert err < 2e-2, err
+
+
 def test_moe_ffn_is_deterministic_on_the_card(cuda_device):
     """The same bf16 inputs give bitwise the same moe_ffn output every call
     (each token's K rows are summed in a fixed order, not scatter-added
@@ -882,12 +912,170 @@ def test_engine_deepseek_latent_pool_on_cuda_matches_cpu(cuda_device, decode_str
     """A small DeepSeek-V2 (a dense layer, then an MoE layer with a shared
     expert; the kernels' latent width 512 + 64, 16 heads) in float32, with
     the packed and with the streaming decode."""
-    cfg = dict(architecture="DeepseekV2ForCausalLM", vocab_size=512, hidden_size=256,
-               intermediate_size=512, num_hidden_layers=2, num_attention_heads=HQ_MLA,
-               num_key_value_heads=HQ_MLA, head_dim=192, context_length=512,
-               use_mla=True, kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
-               v_head_dim=128, num_experts=8, num_experts_per_tok=2,
-               moe_intermediate_size=128, num_shared_experts=1, first_k_dense_replace=1,
-               dtype="float32")
+    cfg = _deepseek_cfg()
     dec = "rpa_decode_stream_mla" if decode_stream else "rpa_decode_mla"
     _engines_agree(cuda_device, cfg, [dec, "rpa_extend_mla"], decode_stream=decode_stream)
+
+
+# ---------------------------------------------------------------- decode graphs
+def _deepseek_cfg(dtype="float32"):
+    return dict(architecture="DeepseekV2ForCausalLM", vocab_size=512, hidden_size=256,
+                intermediate_size=512, num_hidden_layers=2, num_attention_heads=HQ_MLA,
+                num_key_value_heads=HQ_MLA, head_dim=192, context_length=512,
+                use_mla=True, kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+                v_head_dim=128, num_experts=8, num_experts_per_tok=2,
+                moe_intermediate_size=128, num_shared_experts=1, first_k_dense_replace=1,
+                dtype=dtype)
+
+
+# the seven decode paths at a tiny depth in bf16: (model config, ServerArgs
+# fields, the decode kernel)
+GRAPH_PATHS = {
+    "chunked": (dict(_llama_cfg(D, num_kv_heads=8), dtype="bfloat16"), {}, "rpa_decode"),
+    "aligned_fp8": (dict(_llama_cfg(D_ALIGNED), dtype="bfloat16"),
+                    {"kv_cache_dtype": "fp8_e4m3"}, "rpa_decode_aligned"),
+    "latent_moe": (_deepseek_cfg("bfloat16"), {}, "rpa_decode_mla"),
+    "merged": (dict(_llama_cfg(D), dtype="bfloat16"), {}, "rpa_decode_merged"),
+    "stream_chunked": (dict(_llama_cfg(D, num_kv_heads=8), dtype="bfloat16"),
+                       {"decode_stream": True}, "rpa_decode_stream"),
+    "stream_aligned": (dict(_llama_cfg(D_ALIGNED), dtype="bfloat16"),
+                       {"decode_stream": True, "kv_cache_dtype": "fp8_e4m3"},
+                       "rpa_decode_stream_aligned"),
+    "stream_latent": (_deepseek_cfg("bfloat16"), {"decode_stream": True},
+                      "rpa_decode_stream_mla"),
+}
+
+
+def _graph_engine(dev, path, seed=0):
+    """An Engine on the card on one decode path, its pool filled with
+    random values."""
+    cfg, extra, _ = GRAPH_PATHS[path]
+    eng = Engine(ServerArgs(random_weights=True, page_size=PS, max_total_tokens=4096,
+                            chunked_prefill_size=64, **extra), ModelConfig(**cfg))
+    assert eng.runner.graphs is not None
+    _fill_pool(eng, dev, seed)
+    return eng
+
+
+def _fill_pool(eng, dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    buf = eng.runner.kv_cache.buffer
+    buf.copy_(torch.randn(buf.shape, generator=g, device=dev).to(buf.dtype))
+
+
+def _graph_batch(eng, lens, seed):
+    """The packed decode step of requests with the given KV lengths, pages
+    from the allocator, random last tokens."""
+    from semi_pd_tpu_torch.runtime.batch import build_decode_batch
+    from semi_pd_tpu_torch.runtime.req import Req
+
+    runner, sched = eng.runner, eng.scheduler
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, n in enumerate(lens):
+        r = Req(rid=f"g{seed}-{i}", input_ids=[1] * int(n),
+                sampling_params=SamplingParams(temperature=0.0))
+        r.req_slot = runner.req_pool.alloc()
+        pages = runner.page_allocator.alloc(-(-(int(n) + 1) // PS))
+        r.pages = pages.tolist()
+        runner.req_pool.write(r.req_slot, 0, pages)
+        r.prefilled_len = r.prompt_len
+        r.output_ids.append(int(rng.integers(0, 512)))
+        reqs.append(r)
+    return build_decode_batch(reqs, runner.req_pool.page_table, PS, sched.b_buckets,
+                              sched.p_buckets).pack()
+
+
+def _eager_step(runner, *args, **kw):
+    graphs, runner.graphs = runner.graphs, None
+    try:
+        return runner.step_packed_raw(*args, **kw)
+    finally:
+        runner.graphs = graphs
+
+
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_decode_graph_replays_the_eager_step_bitwise(cuda_device, path):
+    """On each decode path a replay gives the eager step's tokens and
+    log-probs bitwise, then again on another batch of the same key (other
+    lengths and pages, a refilled pool, input ids chained from the first
+    step's tokens); the capture counts no launch, each replay the path's
+    L decode launches; neither the eager step nor a replay syncs the
+    host."""
+    eng = _graph_engine(cuda_device, path)
+    runner = eng.runner
+    dec = GRAPH_PATHS[path][2]
+    L = runner.model_config.num_hidden_layers
+    for k in KERNELS.values():
+        k.launches = 0
+    step1 = _graph_batch(eng, [33, 260, 9, 77, 1, 140], seed=1)
+    want = _eager_step(runner, *step1, is_decode=True)
+    got = runner.step_packed_raw(*step1, is_decode=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isfinite(got[1]).all()
+    (g,) = runner.graphs.graphs.values()
+    assert g.tally == {dec: L} and KERNELS[dec].launches == 2 * L
+    _fill_pool(eng, cuda_device, seed=2)
+    step2 = _graph_batch(eng, [300, 17, 64, 2, 199], seed=2)
+    assert step2[2] == step1[2]  # the same key
+    kw = dict(chained=True, prev_tokens=want[0], is_decode=True)
+    want2 = _eager_step(runner, *step2, **kw)
+    got2 = runner.step_packed_raw(*step2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got2[0], want2[0]) and torch.equal(got2[1], want2[1])
+    assert not torch.equal(got2[1], got[1])
+    assert runner.graphs.stats["captures"] == 1 and KERNELS[dec].launches == 4 * L
+    assert runner.graphs.pool_bytes() > 0
+    assert {n for n, k in KERNELS.items() if k.launches} == {dec}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _eager_step(runner, *step2, is_decode=True)
+        runner.step_packed_raw(*step2, is_decode=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_sampling_replays_advance_the_generator(cuda_device):
+    """With every row sampling, two replays of one step draw different
+    tokens (the registered generator advances), and each equals the eager
+    step run from the same generator state."""
+    eng = _graph_engine(cuda_device, "chunked")
+    runner = eng.runner
+    ints, floats, shapes = _graph_batch(eng, [33, 260, 9, 77, 1, 140], seed=3)
+    floats = floats.copy()
+    floats[: shapes[1]] = 1.0  # temperature
+    got, want = [], []
+    for _ in range(2):
+        state = runner.generator.get_state()
+        want.append(_eager_step(runner, ints, floats, shapes, is_decode=True))
+        runner.generator.set_state(state)
+        got.append(runner.step_packed_raw(ints, floats, shapes, is_decode=True))
+    torch.cuda.synchronize()
+    for (gt, gl), (wt, wl) in zip(got, want):
+        assert torch.equal(gt, wt) and torch.equal(gl, wl)
+    assert not torch.equal(got[0][0], got[1][0])
+    assert [k[3] for k in runner.graphs.graphs] == [False]
+
+
+def test_engine_serves_the_same_tokens_on_graphs_and_eagerly(cuda_device):
+    """The Engine on graphs (the default) and with decode_graphs=False give
+    the same greedy tokens, with every decode step replayed."""
+    cfg = dict(_llama_cfg(D, num_kv_heads=8), dtype="bfloat16")
+    serve = dict(random_weights=True, page_size=PS, max_total_tokens=2048,
+                 chunked_prefill_size=64, enable_semi_pd=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (20, 100, 37)]
+    sp = SamplingParams(max_new_tokens=12, temperature=0.0, ignore_eos=True)
+    outs = []
+    for graphs in (True, False):
+        eng = Engine(ServerArgs(**serve), ModelConfig(**cfg), decode_graphs=graphs)
+        outs.append([o["output_ids"] for o in eng.generate(input_ids=prompts,
+                                                            sampling_params=sp)])
+        if graphs:
+            assert eng.runner.graphs.stats["replays"] == eng.runner.step_counts["decode"] > 0
+        else:
+            assert eng.runner.graphs is None
+    assert outs[0] == outs[1]

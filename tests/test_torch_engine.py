@@ -110,12 +110,16 @@ def _imports(path: pathlib.Path):
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke", "serve_witness",
                                     "fidelity_witness", "decode_trace", "extend_shapes",
-                                    "mla_decode_plans"])
+                                    "mla_decode_plans",
+                                    "semi_pd_tpu_torch/runtime/cuda_graph_runner",
+                                    "semi_pd_tpu_torch/utils/warmup",
+                                    "semi_pd_tpu_torch/bench_one_batch"])
 def test_port_imports_no_jax(target):
-    """No file of the port, and none of its card scripts (chip_smoke.py,
-    serve_witness.py, fidelity_witness.py, decode_trace.py,
-    extend_shapes.py, mla_decode_plans.py), imports jax or anything of the
-    JAX package."""
+    """No file of the port (the decode graphs, the warmup registry and
+    bench_one_batch named on their own), and none of its card scripts
+    (chip_smoke.py, serve_witness.py, fidelity_witness.py,
+    decode_trace.py, extend_shapes.py, mla_decode_plans.py), imports jax
+    or anything of the JAX package."""
     files = (sorted((ROOT / "semi_pd_tpu_torch").rglob("*.py")) if target == "package"
              else [ROOT / f"{target}.py"])
     assert files

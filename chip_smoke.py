@@ -41,8 +41,11 @@ each (any failure raises and exits non-zero):
              latent pool [1, 1, S, 1, 576], V its first 512; the streaming
              decodes on the chunked, aligned and latent pools; extend also
              at b2 x q2048 / kv2048, two fresh prompts of one chunked
-             prefill step; last, the latent decodes with softcap 1.0 and
-             the packed one with window 512), with its
+             prefill step; then the latent decodes with softcap 1.0 and
+             the packed one with window 512; last, bf16 q over fp8 KV on
+             the chunked pool and over fp8 latent rows: e4m3 at every
+             decode, stream and extend shape, e5m2 at b64 and under the
+             b8 x q256 extend), with its
              time, the plain version's time, one PyTorch library call's
              time (scaled_dot_product_attention over pre-gathered dense KV,
              upcast to bf16 for fp8 KV; a yardstick the port never calls)
@@ -52,14 +55,16 @@ each (any failure raises and exits non-zero):
              (``packed_kernel_ms``) and, with bf16 q, its blocks per KV head.
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
-             chunked pool, the Meta-Llama-3-8B geometry on the aligned pool
-             with bf16 KV, then with fp8_e4m3 KV, DeepSeek-V2-Lite (MLA +
-             MoE, 15.7 B parameters) on the latent pool, and
-             TinyLlama-1.1B on the 5D pool at head_dim 64 with fp8_e4m3 KV,
-             then with bf16 KV. One extend step and two decode steps each
-             through the kernels, against the same layers run with the
-             plain attention functions; after each of the first three
-             paths' serving, once more with the streaming decode.
+             chunked pool with bf16 KV, then with fp8_e4m3 KV, the
+             Meta-Llama-3-8B geometry on the aligned pool with bf16 KV,
+             then with fp8_e4m3 KV, DeepSeek-V2-Lite (MLA + MoE, 15.7 B
+             parameters) on the latent pool with bf16 latent rows, then
+             with fp8_e4m3 rows, and TinyLlama-1.1B on the 5D pool at
+             head_dim 64 with fp8_e4m3 KV, then with bf16 KV. One extend
+             step and two decode steps each through the kernels, against
+             the same layers run with the plain attention functions; after
+             each path's serving but TinyLlama's (and the 8B bf16 one,
+             which does not serve), once more with the streaming decode.
 3g. graphs — after each path's model phase (and its streaming one), at full
              width: one decode batch of 64 requests (kv 520-1000, shuffled
              pages) through the eager step (``decode_graphs`` off) and
@@ -69,32 +74,33 @@ each (any failure raises and exits non-zero):
              be bitwise equal in both, and the second must not capture
              again. One eager decode step and one replay run under
              ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).
-             One ``graphs`` line per decode path (seven): captures,
+             One ``graphs`` line per decode path (eleven): captures,
              capture seconds, the graph pool's bytes, and the eager and the
              replayed step's wall at B = 64 (20 steps per turn, turns
              eager, graph, graph, eager).
 4. serve   — the Engine with the bench's server settings serves 32 greedy
              requests (prompts 256-3072 tokens, 64 new tokens each;
              TinyLlama's at most 1984 tokens, its context being 2048),
-             colocated and semi-PD, with the 1B-class model (chunked pool),
-             the 8B model with fp8_e4m3 KV (aligned pool), DeepSeek-V2-Lite
-             (latent pool) and TinyLlama-1.1B (the merged kernels); every
+             colocated and semi-PD, with the 1B-class model (chunked pool,
+             bf16 and fp8_e4m3 KV), the 8B model with fp8_e4m3 KV (aligned
+             pool), DeepSeek-V2-Lite (latent pool, bf16 and fp8_e4m3 rows)
+             and TinyLlama-1.1B (the merged kernels); every
              launch counter is set to 0 just before each run and read just
              after, and only the path's own two kernels may have launched,
              each L times per step of its kind. Every decode step is
              replayed from a CUDA graph (replays == decode steps; a replay
              counts its L launches, a capture none; graphs are kept from
-             one serve to the next on one routing). The 1B-class model and
-             DeepSeek-V2-Lite serve colocated a second time (their graphs
+             one serve to the next on one routing). The bf16 1B-class and
+             DeepSeek-V2-Lite paths serve colocated a second time (their graphs
              captured), which must give the first run's tokens exactly,
              then once more with the decode steps run eagerly, which must
-             give them too. The first three paths then serve colocated
-             once more
-             with ``decode_stream`` (the streaming decode), on the same
-             weights: their stream kernel launches L times per decode step
-             and the packed decode never. DeepSeek-V2-Lite's must give the
-             packed serve's tokens exactly: its two decodes give the same
-             bits.
+             give them too. Every path but TinyLlama's then serves
+             colocated once more with ``decode_stream``
+             (the streaming decode), on the same weights: their stream
+             kernel launches L times per decode step and the packed decode
+             never. DeepSeek-V2-Lite's must give the packed serve's tokens
+             exactly, with bf16 and with fp8 rows: its two decodes give the
+             same bits.
 
 Then one JSON line listing the kernels, the nvidia-smi name/power-limit line,
 and the result line {"ok": true, "device": {...}}.
@@ -463,6 +469,24 @@ def phase_kernels():
             if kind == "decode":
                 rows.append(run_kernel_case("decode_b16_kv2048_window512", kind, gen, rng,
                                             [1] * 16, lens, dt, "latent", window=512))
+    # after every case above, so that those draw the same inputs as before:
+    # fp8 KV on the chunked pool and fp8 latent rows, bf16 q, e4m3 at every
+    # decode, stream and extend shape, e5m2 at b64 and under the b8 x q256
+    # extend (as the aligned and merged pools take them above)
+    for pool in ("chunked", "latent"):
+        for b, kv in decode_shapes[pool]:
+            lens = ragged(b, kv)
+            packed = {}
+            for kind in ("decode", "stream"):
+                for kdt in (e4m3, e5m2) if b == 64 else (e4m3,):
+                    beside = {"packed_kernel_ms": packed[kdt]} if kind == "stream" else None
+                    rows.append(run_kernel_case(f"decode_b{b}_kv{kv}", kind, gen, rng,
+                                                [1] * b, lens, bf, pool, kdt, beside=beside))
+                    packed[kdt] = rows[-1]["kernel_ms"]
+        for name, (ql, kl) in {**ext, "extend_b2_q2048_kv2048": ([2048] * 2,
+                                                                 [2048] * 2)}.items():
+            for kdt in (e4m3, e5m2) if name == "extend_b8_q256_kv2048" else (e4m3,):
+                rows.append(run_kernel_case(name, "extend", gen, rng, ql, kl, bf, pool, kdt))
     return rows
 
 
@@ -985,6 +1009,13 @@ def main() -> int:
     packed = serve_phase(eng, "llama-3.2-1b-class", "chunked", repeat=True, eager=True)
     stream_phase(eng, "llama-3.2-1b-class", "chunked", "auto", packed)
     release(eng)
+    # the 1B-class model with fp8_e4m3 KV on the chunked pool
+    label = "llama-3.2-1b-class fp8_e4m3"
+    eng = model_phase(label, llama_1b_config(), "fp8_e4m3")
+    graph_phase(eng, label, "chunked")
+    packed = serve_phase(eng, label, "chunked")
+    stream_phase(eng, label, "chunked", "fp8_e4m3", packed)
+    release(eng)
     release(model_phase("meta-llama-3-8b", llama3_8b_config(), "bfloat16"))
     eng = model_phase("meta-llama-3-8b", llama3_8b_config(), "fp8_e4m3")
     graph_phase(eng, "meta-llama-3-8b", "aligned")
@@ -995,6 +1026,13 @@ def main() -> int:
     graph_phase(eng, "deepseek-v2-lite", "latent")
     packed = serve_phase(eng, "deepseek-v2-lite", "latent", repeat=True, eager=True)
     stream_phase(eng, "deepseek-v2-lite", "latent", "auto", packed)
+    release(eng)  # the bf16 latent pool and weights go before the fp8 twin's arrive
+    # DeepSeek-V2-Lite with fp8_e4m3 latent rows, packed and streamed
+    label = "deepseek-v2-lite fp8_e4m3"
+    eng = model_phase(label, deepseek_v2_lite_config(), "fp8_e4m3")
+    graph_phase(eng, label, "latent")
+    packed = serve_phase(eng, label, "latent")
+    stream_phase(eng, label, "latent", "fp8_e4m3", packed)
     release(eng)
     release(model_phase("tinyllama-1.1b", tinyllama_config(), "fp8_e4m3"))
     eng = model_phase("tinyllama-1.1b", tinyllama_config(), "auto")

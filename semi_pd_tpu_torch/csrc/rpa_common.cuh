@@ -39,28 +39,23 @@ constexpr float LOG2E = 1.4426950408889634f;
 // TYPE_CODES).
 enum TypeCode { F32 = 0, BF16 = 1, E4M3 = 2, E5M2 = 3 };
 
-// What a build instantiates: the 5D pool's kernels (-DRPA_ALIGNED) take
-// (q, KV) = (bf16, bf16), (f32, f32), (bf16, fp8 e4m3) and (bf16, fp8 e5m2)
-// at head_dim 128, or at the RPA_HEAD_DIM the build sets (64 for the merged
-// kernels); the chunked pool's take the first two at head_dim 64.
-// X(q code, q type, KV code, KV type).
-#ifdef RPA_ALIGNED
+// What a build instantiates: (q, KV) = (bf16, bf16), (f32, f32), (bf16,
+// fp8 e4m3) and (bf16, fp8 e5m2), fp8 KV widened exactly to bf16, at the
+// head_dim of its pool: 128 for the 5D pool's kernels (-DRPA_ALIGNED), or
+// the RPA_HEAD_DIM the build sets (64 for the merged kernels), and 64 for
+// the chunked pool's. X(q code, q type, KV code, KV type).
 #ifndef RPA_HEAD_DIM
+#ifdef RPA_ALIGNED
 #define RPA_HEAD_DIM 128
+#else
+#define RPA_HEAD_DIM 64
+#endif
 #endif
 #define RPA_FOR_EACH_PAIR(X)                   \
   X(BF16, __nv_bfloat16, BF16, __nv_bfloat16)  \
   X(F32, float, F32, float)                    \
   X(BF16, __nv_bfloat16, E4M3, __nv_fp8_e4m3)  \
   X(BF16, __nv_bfloat16, E5M2, __nv_fp8_e5m2)
-#else
-#ifndef RPA_HEAD_DIM
-#define RPA_HEAD_DIM 64
-#endif
-#define RPA_FOR_EACH_PAIR(X)                   \
-  X(BF16, __nv_bfloat16, BF16, __nv_bfloat16)  \
-  X(F32, float, F32, float)
-#endif
 
 template <typename T> struct Vec;  // elements of T in one 16-byte vector
 template <> struct Vec<float> { static constexpr int N = 4; };
@@ -172,6 +167,15 @@ __device__ __forceinline__ void widen_bf16(const uint4& v, uint4& lo, uint4& hi)
                   pack_bf16(f[6], f[7]));
   hi = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]), pack_bf16(f[12], f[13]),
                   pack_bf16(f[14], f[15]));
+}
+
+// 8 fp8 values (8 bytes) -> 8 bf16 (one 16-byte vector), exactly: the low
+// half of widen_bf16 (the compiler drops the unused high half).
+template <typename T>
+__device__ __forceinline__ uint4 widen8_bf16(const uint2& v) {
+  uint4 lo, hi;
+  widen_bf16<T>(make_uint4(v.x, v.y, 0u, 0u), lo, hi);
+  return lo;
 }
 
 // 4 consecutive elements of q's type <-> float4: one 16-byte access for

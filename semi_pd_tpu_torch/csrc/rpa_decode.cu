@@ -1,11 +1,13 @@
 // Paged decode attention over the chunked or the 5D KV pool, for Hopper
 // (sm_90a).
 //
-// Replaces three TPU kernels (branches), one build each (rpa_common.cuh):
+// Replaces three TPU kernels (branches), one build each (rpa_common.cuh;
+// every build takes bf16 and fp8 e4m3 / e5m2 KV under bf16 q, float32 KV
+// under float32 q):
 //   chunked pool, head_dim 64 (rpa_decode): semi_pd_tpu/ops/attention/
 //     rpa_packed.py _rpa_kernel_chunked_packed (called from
 //     ragged_paged_attention_chunked_packed);
-//   5D pool, head_dim 128, fp8 KV (-DRPA_ALIGNED, rpa_decode_aligned):
+//   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_decode_aligned):
 //     semi_pd_tpu/ops/attention/rpa_packed.py _rpa_kernel_packed (called from
 //     ragged_paged_attention_packed; its GQA branch, the MLA branch is
 //     rpa_decode_mla.cu);
@@ -160,11 +162,12 @@ struct SdLayout {
   static_assert(32 % VPR == 0 && (SD_TK * VPR) % 32 == 0, "tile shape");
   // the block's merge: each warp's 16 rows of O and (m, l)
   static_assert(SD_WARPS * 16 * (D + 2) * 4 <= SMEM, "merge staging");
-  // SD_BLOCKS_PER_SM blocks with bf16 KV fit in an SM's 228 KB of shared
-  // memory (1 KB of it reserved per block), one more does not
-  static_assert(WIDEN || (SD_BLOCKS_PER_SM * (SMEM + 1024) <= 233472 &&
-                          (SD_BLOCKS_PER_SM + 1) * (SMEM + 1024) > 233472),
-                "SD_BLOCKS_PER_SM");
+  // SD_BLOCKS_PER_SM blocks fit in an SM's 228 KB of shared memory (1 KB
+  // of it reserved per block); with bf16 KV one more does not (fp8 KV's two
+  // bf16 tiles a warp, 68-72 KB a block, leave room for a
+  // third block, which the split plan does not count on)
+  static_assert(SD_BLOCKS_PER_SM * (SMEM + 1024) <= 233472, "SD_BLOCKS_PER_SM");
+  static_assert(WIDEN || (SD_BLOCKS_PER_SM + 1) * (SMEM + 1024) > 233472, "SD_BLOCKS_PER_SM");
 };
 
 template <typename TKV, int D>

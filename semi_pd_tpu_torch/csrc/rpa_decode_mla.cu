@@ -9,7 +9,8 @@
 // computes and its bound are in rpa_mla.cuh; the entry picks one of two
 // kernels by q's type.
 //
-// rpa_decode_mla_mma_kernel (bf16 q over bf16 latent rows): on the tensor
+// rpa_decode_mla_mma_kernel (bf16 q over bf16, fp8 e4m3 or fp8 e5m2 latent
+// rows, fp8 widened exactly to bf16 on its way into the tile): on the tensor
 // cores, the block tile of rpa_mla_mma.cuh (the query heads as the rows of
 // one m16 tile, the four warps of a block sharing each latent tile: S cut
 // over the 576 dims, V's 512 columns cut over the warps, P as hi + lo), and
@@ -93,7 +94,6 @@ rpa_decode_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
                           float* __restrict__ part,  // n_split > 1: O [n_split, B, Hq, MLA_DV], ML
                           int Hq, int maxP, int page_size, float scale, float cap, int window,
                           int split_len) {
-  static_assert(std::is_same<TKV, __nv_bfloat16>::value, "bf16 latent rows");
   constexpr int TK = MLA_MMA_TK, NST = MLA_MMA_NST;
   extern __shared__ __align__(16) unsigned char mla_smem[];
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -122,17 +122,22 @@ rpa_decode_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
     const int* pt_row = page_table + (int64_t)b * maxP;
     const int pshift = (page_size & (page_size - 1)) ? -1 : __ffs(page_size) - 1;
     // tile i into its stage (zeros outside [lo, s1)), and a commit group
-    // either way, so that every wait counts the same groups
+    // either way, so that every wait counts the same groups; fp8 rows land
+    // in the stage at the next cp.land()
+    MlaCopy<TKV> cp;
     auto issue = [&](int i) {
       if (i < ntiles)
-        mla_issue(ring + (i % NST) * TK * MLA_MMA_LD, lat, pt_row, page_size, pshift,
-                  first + i * TK, lo, s1, tid);
+        cp.issue(ring + (i % NST) * TK * MLA_MMA_LD, lat, pt_row, page_size, pshift,
+                 first + i * TK, lo, s1, tid);
       cp_async_commit();
     };
     uint32_t k_lane, v_lane;
     mma_lanes<MLA_MMA_LD, TK>(lane, k_lane, v_lane);
 
-    for (int i = 0; i < NST - 1; ++i) issue(i);
+    for (int i = 0; i < NST - 1; ++i) {
+      cp.land(tid);  // fp8: tile i - 1
+      issue(i);
+    }
     uint32_t qa[MLA_MMA_KS][4];  // loaded while the first tiles are in flight
     mla_load_q(qa, q + row0 * MLA_DL, G, warp, lane);
     cp_async_wait<NST - 2>();  // tile 0 (this thread's copies)
@@ -143,6 +148,7 @@ rpa_decode_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
       mla_partial(x, qa, sT, k_lane, warp, lane);
       cp_async_wait<NST - 3>();  // tile i + 1 (this thread's copies)
       __syncthreads();
+      cp.land(tid);        // fp8: tile i + NST - 2, into tile i - 2's stage
       issue(i + NST - 1);  // into tile i - 1's stage
       mla_combine_pv(ms, x, sT + warp * MLA_MMA_DW * 2, v_lane, first + i * TK, lo, s1, scale,
                      cap, capped, c, lane);
@@ -211,7 +217,7 @@ static int launch(const void* q, const void* lat, const void* pt, const void* kv
 // row's prefix); Hkv 1, D = row_stride = MLA_DL; out is [B, Hq, MLA_DV]
 // (the wrapper holds v_dim to MLA_DV). q_type / kv_type: TypeCode.
 // cap <= 0: no softcap; window <= 0: no sliding window. n_split, split_len:
-// the split plan of the bf16-q pair (n_split ranges of split_len =
+// the split plan of the bf16-q pairs (n_split ranges of split_len =
 // MLA_MMA_CHUNK positions that cover [0, maxP * page_size)); scratch: with
 // n_split > 1, a float32 scratch of n_split * B * Hq * (MLA_DV + 2)
 // elements. The float32 pair ignores the three. Returns cudaError_t;
@@ -230,7 +236,7 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
   if (q_type == QC && kv_type == KC)                                                         \
     return launch<TQ, TKV>(q, k_pool, page_table, kv_lens, out, B, Hq, maxP, page_size, scale, \
                            cap, window, n_split, split_len, scratch, s);
-  RPA_MLA_FOR_EACH_PAIR(RPA_DEC)
+  RPA_FOR_EACH_PAIR(RPA_DEC)
 #undef RPA_DEC
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
 // Ragged paged extend (chunked-prefill) attention over the chunked or the
 // 5D KV pool, for Hopper (sm_90a).
 //
-// Replaces three TPU kernels (branches), one build each (rpa_common.cuh):
+// Replaces three TPU kernels (branches), one build each (rpa_common.cuh;
+// every build takes bf16 and fp8 e4m3 / e5m2 KV under bf16 q, float32 KV
+// under float32 q):
 //   chunked pool, head_dim 64 (rpa_extend): semi_pd_tpu/ops/attention/
 //     ragged_paged_attention.py _rpa_kernel_chunked (called from
 //     ragged_paged_attention_chunked);
-//   5D pool, head_dim 128, fp8 KV (-DRPA_ALIGNED, rpa_extend_aligned):
+//   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_extend_aligned):
 //     semi_pd_tpu/ops/attention/ragged_paged_attention.py _rpa_kernel
 //     (called from ragged_paged_attention; its GQA branch, the MLA v_dim branch
 //     is rpa_extend_mla.cu);

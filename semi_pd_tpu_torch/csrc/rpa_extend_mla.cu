@@ -19,7 +19,8 @@
 // entry it owns; padding entries (block_seq == -1) and blocks past the
 // entry's rows write nothing; a row that saw no position writes 0.
 //
-// bf16 q and latent rows: rpa_extend_mla_wgmma_kernel, on Hopper's
+// bf16 q over bf16 or fp8 (e4m3, e5m2) latent rows, fp8 widened exactly to
+// bf16 on its way into the tile: rpa_extend_mla_wgmma_kernel, on Hopper's
 //   warpgroup tensor cores (wgmma; rpa_wgmma.cuh). The 16 query heads of a
 //   token share its latent row and its causal position, so the packed rows
 //   are (token, head) pairs m = r * Hq + g, consecutive in q and in out, and
@@ -124,8 +125,9 @@ static int launch_extend_mla(const void* q, const void* lat, const void* pt,
 }
 
 // ------------------------------------------------------------------------
-// The warpgroup kernel (bf16 q, bf16 latent rows), P kept float32 as hi +
-// lo. rpa_wgmma.cuh has the layout, the descriptors and the wgmma forms.
+// The warpgroup kernel (bf16 q over bf16 or fp8 latent rows), P kept
+// float32 as hi + lo. rpa_wgmma.cuh has the layout, the descriptors and the
+// wgmma forms.
 
 constexpr int MLA_WG_ROWS = 64;            // packed (token, head) rows per block: wgmma's M
 constexpr int MLA_WG_TK = 48;              // latent positions per tile
@@ -140,9 +142,29 @@ constexpr int MLA_WG_OLD = MLA_DV + 8;    // row stride of the O staging (in the
 static_assert(MLA_WG_ROWS * MLA_WG_OLD * 2 <= MLA_WG_Q, "O staging");
 static_assert(MLA_WG_Q % 1024 == 0 && MLA_WG_TILE % 1024 == 0, "swizzle atoms");
 
+// fp8 rows: a raw stage of 48 x 576 = 27,648 bytes does not fit beside the
+// two bf16 stages (237,568 bytes of a block's 232,448), so the rows pass
+// through registers: a tile is 1728 16-byte vectors, 6.75 for each of the
+// 256 threads, so thread tid takes vectors tid + 256 k for k < 7, the
+// last round only below 1728 (threads 192-255 idle in it). 16-byte loads
+// are the fewest instructions, and each widens to two whole 16-byte
+// chunks of the swizzled stage (wg::widen_fp8); a map that divides (4-byte
+// loads, 27 a thread) would take four times the loads and write half
+// chunks. Tile t + 1's 28 registers of loads are issued after the barrier
+// that hands tile t to wgmma, in flight during tile t's S and softmax, and
+// widened into the free stage before P V, whose hi and lo fragments would
+// not fit beside them in the 255 registers a thread (the bf16 build takes
+// 230).
+constexpr int MLA_WG_RV = MLA_DL / 16;  // raw 16-byte fp8 vectors a row
+constexpr int MLA_WG_NRV = (MLA_WG_TK * MLA_WG_RV + MLA_WG_NT - 1) / MLA_WG_NT;  // a thread's
+static_assert(MLA_WG_NRV * MLA_WG_NT >= MLA_WG_TK * MLA_WG_RV &&
+                  (MLA_WG_NRV - 1) * MLA_WG_NT < MLA_WG_TK * MLA_WG_RV,
+              "the fp8 copy: every vector once, the last round partial");
+
+template <typename TKV>
 __global__ void __launch_bounds__(MLA_WG_NT, 1)
 rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, MLA_DL]
-                            const __nv_bfloat16* __restrict__ lat,  // latent rows at slot 0
+                            const TKV* __restrict__ lat,            // latent rows at slot 0
                             const int* __restrict__ page_table,     // [B, maxP]
                             const int* __restrict__ kv_lens,        // [B]
                             const int* __restrict__ q_lens,         // [B]
@@ -154,6 +176,8 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
                             int Hq, int maxP, int page_size, float scale, float cap,
                             int window) {
   using bf16 = __nv_bfloat16;
+  constexpr bool WIDEN = sizeof(TKV) == 1;  // fp8 rows, widened through registers
+  static_assert(WIDEN || std::is_same<TKV, bf16>::value, "bf16 or fp8 latent rows");
   constexpr int TK = MLA_WG_TK, QV = MLA_DL / 8, OV = MLA_DV / 8;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = wg::align1024(smem_raw);
@@ -190,25 +214,65 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
   }
   cp_async_commit();
 
-  // tile t -> stage s at its swizzled offsets: neighbouring threads copy
-  // neighbouring 16 bytes of a latent row; nothing at or past the walk's end
-  // is read (zeros); one group committed either way
+  // bf16 rows: tile t -> stage s at its swizzled offsets by cp.async;
+  // neighbouring threads copy neighbouring 16 bytes of a latent row;
+  // nothing at or past the walk's end is read (zeros); one group committed
+  // either way. fp8 rows: fetch(t) loads the thread's raw vectors of tile t
+  // into registers (zeros past the walk's end), put(s) widens them into
+  // stage s.
   const int* pt_row = page_table + (int64_t)b * maxP;
   const int pshift = (page_size & (page_size - 1)) ? -1 : __ffs(page_size) - 1;
   auto issue = [&](int t, int s) {
-    if (t < ntiles) {
-      unsigned char* st = tiles + s * MLA_WG_TILE;
-      for (int v = tid; v < TK * QV; v += MLA_WG_NT) {
-        const int p = v / QV, c = v % QV, pos = lo + t * TK + p;
-        const bool ok = pos < limit;
-        const bf16* src = ok ? lat + wg::slot_of(pt_row, pos, page_size, pshift) * MLA_DL + c * 8
-                             : lat;
-        cp_async16_zfill(st + wg::sw128(TK, p, c), src, ok);
+    if constexpr (!WIDEN) {
+      if (t < ntiles) {
+        unsigned char* st = tiles + s * MLA_WG_TILE;
+        for (int v = tid; v < TK * QV; v += MLA_WG_NT) {
+          const int p = v / QV, c = v % QV, pos = lo + t * TK + p;
+          const bool ok = pos < limit;
+          const TKV* src =
+              ok ? lat + wg::slot_of(pt_row, pos, page_size, pshift) * MLA_DL + c * 8 : lat;
+          cp_async16_zfill(st + wg::sw128(TK, p, c), src, ok);
+        }
+      }
+      cp_async_commit();
+    }
+  };
+  uint4 raw[WIDEN ? MLA_WG_NRV : 1];
+  auto fetch = [&](int t) {
+    if constexpr (WIDEN) {
+#pragma unroll
+      for (int k = 0; k < MLA_WG_NRV; ++k) {
+        const int v = tid + k * MLA_WG_NT;
+        const int p = v / MLA_WG_RV, c = v - p * MLA_WG_RV, pos = lo + t * TK + p;
+        raw[k] = make_uint4(0u, 0u, 0u, 0u);
+        if (v < TK * MLA_WG_RV && pos < limit)
+          raw[k] = __ldg(reinterpret_cast<const uint4*>(
+              lat + wg::slot_of(pt_row, pos, page_size, pshift) * MLA_DL + c * 16));
       }
     }
-    cp_async_commit();
   };
-  issue(0, 0);
+  auto put = [&](int s) {
+    if constexpr (WIDEN) {
+      unsigned char* st = tiles + s * MLA_WG_TILE;
+#pragma unroll
+      for (int k = 0; k < MLA_WG_NRV; ++k) {
+        const int v = tid + k * MLA_WG_NT;
+        const int p = v / MLA_WG_RV, c = v - p * MLA_WG_RV;
+        if (v < TK * MLA_WG_RV) {
+          uint4 x, y;
+          wg::widen_fp8<TKV>(raw[k], x, y);
+          *reinterpret_cast<uint4*>(st + wg::sw128(TK, p, 2 * c)) = x;
+          *reinterpret_cast<uint4*>(st + wg::sw128(TK, p, 2 * c + 1)) = y;
+        }
+      }
+    }
+  };
+  if constexpr (WIDEN) {
+    fetch(0);
+    put(0);
+  } else {
+    issue(0, 0);
+  }
 
   // this lane's two packed rows (accumulator rows gid and gid + 8 of its warp)
   const int gid = lane >> 2, tig = lane & 3;
@@ -240,7 +304,11 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
     cp_async_wait<0>();  // tile t has landed (this thread's copies)
     wg::fence_proxy_async();
     __syncthreads();
-    issue(t + 1, s ^ 1);
+    if constexpr (WIDEN) {
+      if (t + 1 < ntiles) fetch(t + 1);
+    } else {
+      issue(t + 1, s ^ 1);
+    }
     const uint32_t sK = s_tiles + s * MLA_WG_TILE;
     wg::fence();
 #pragma unroll
@@ -301,6 +369,13 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
     for (int rr = 0; rr < 2; ++rr) lrow[rr] = lrow[rr] * corr[rr] + psum[rr];
 #pragma unroll
     for (int e = 0; e < MLA_WG_DV / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+    // fp8: tile t + 1 into the stage tile t - 1 left (every warpgroup was
+    // done with it at this iteration's barrier), before P's hi and lo take
+    // registers; the next barrier, after the async-proxy fence, hands it to
+    // wgmma
+    if constexpr (WIDEN) {
+      if (t + 1 < ntiles) put(s ^ 1);
+    }
     // O += P V with P kept float32 as its bf16 parts hi + lo (two products
     // against the same V), P straight from the S accumulators; V = the same
     // tile's columns 256 w .. 256 w + 255, read MN-major (the transpose bit)
@@ -359,18 +434,20 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
   }
 }
 
+template <typename TKV>
 static int launch_extend_mla_wgmma(const void* q, const void* lat, const void* pt,
                                    const void* kv_lens, const void* q_lens, const void* q_start,
                                    const void* block_seq, const void* block_row,
                                    const void* block_qofs, void* out, int NQB, int Hq, int maxP,
                                    int page_size, float scale, float cap, int window,
                                    cudaStream_t stream) {
-  const cudaError_t attr = cudaFuncSetAttribute(
-      rpa_extend_mla_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MLA_WG_SMEM);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(rpa_extend_mla_wgmma_kernel<TKV>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, MLA_WG_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((EXTEND_QBLK * Hq + MLA_WG_ROWS - 1) / MLA_WG_ROWS, NQB);
-  rpa_extend_mla_wgmma_kernel<<<grid, MLA_WG_NT, MLA_WG_SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(lat),
+  rpa_extend_mla_wgmma_kernel<TKV><<<grid, MLA_WG_NT, MLA_WG_SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(lat),
       static_cast<const int*>(pt), static_cast<const int*>(kv_lens),
       static_cast<const int*>(q_lens), static_cast<const int*>(q_start),
       static_cast<const int*>(block_seq), static_cast<const int*>(block_row),
@@ -379,8 +456,8 @@ static int launch_extend_mla_wgmma(const void* q, const void* lat, const void* p
   return (int)cudaGetLastError();
 }
 
-// bf16 q and latent on the warpgroups; float32 on the CUDA cores (TF32
-// would not be the float32 dot the float32 pair computes).
+// bf16 q over bf16 or fp8 latent rows on the warpgroups; float32 on the
+// CUDA cores (TF32 would not be the float32 dot the float32 pair computes).
 template <typename TQ, typename TKV>
 static int launch(const void* q, const void* lat, const void* pt, const void* kv_lens,
                   const void* q_lens, const void* q_start, const void* block_seq,
@@ -388,9 +465,9 @@ static int launch(const void* q, const void* lat, const void* pt, const void* kv
                   int maxP, int page_size, float scale, float cap, int window,
                   cudaStream_t stream) {
   if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
-    return launch_extend_mla_wgmma(q, lat, pt, kv_lens, q_lens, q_start, block_seq, block_row,
-                                   block_qofs, out, NQB, Hq, maxP, page_size, scale, cap,
-                                   window, stream);
+    return launch_extend_mla_wgmma<TKV>(q, lat, pt, kv_lens, q_lens, q_start, block_seq,
+                                        block_row, block_qofs, out, NQB, Hq, maxP, page_size,
+                                        scale, cap, window, stream);
   else
     return launch_extend_mla<TQ, TKV>(q, lat, pt, kv_lens, q_lens, q_start, block_seq,
                                       block_row, block_qofs, out, NQB, Hq, maxP, page_size,
@@ -425,7 +502,7 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
     return launch<TQ, TKV>(q, k_pool, page_table, kv_lens, q_lens, q_start,     \
                                       block_seq, block_row, block_qofs, out, NQB, Hq, maxP, \
                                       page_size, scale, cap, window, s);
-  RPA_MLA_FOR_EACH_PAIR(RPA_EXT)
+  RPA_FOR_EACH_PAIR(RPA_EXT)
 #undef RPA_EXT
   return (int)cudaErrorInvalidValue;
 }

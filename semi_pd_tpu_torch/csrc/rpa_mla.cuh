@@ -14,10 +14,14 @@
 // per position, 30 per byte in bf16 with Hq 16 (above the ~20 the float32
 // CUDA cores sustain per byte, below the ~295 of the bf16 tensor cores);
 // extend does the same per (query row, visible position) and is bound by
-// operations. The design below runs in float32 on the CUDA cores: the
-// float32 decodes and extend (with bf16 q the decodes run on the tensor
-// cores, rpa_mla_mma.cuh, and the extend on the warpgroup tensor cores,
-// rpa_extend_mla.cu).
+// operations. The MLA builds instantiate rpa_common.cuh's four (q, latent)
+// pairs. The design below runs in float32 on the CUDA cores: the float32
+// pair's decodes and extend. With bf16 q over bf16 or fp8 (e4m3, e5m2)
+// latent rows the decodes run on the tensor cores (rpa_mla_mma.cuh) and
+// the extend on the warpgroup tensor cores (rpa_extend_mla.cu), fp8 rows
+// widened exactly to bf16 on their way into shared memory, as the TPU
+// kernels' MLA branches upcast the rows whatever their dtype; an fp8 row
+// is 576 bytes against bf16's 1152, so the decodes' bound halves.
 //
 // Design: a group of TPR threads holds RPT query rows. A row's 576-wide
 // query and 512-wide float32 accumulator do not fit one thread's
@@ -224,11 +228,5 @@ __device__ __forceinline__ void mla_attend(const TQ* __restrict__ q0, int64_t q_
   }
   rows.write(out0, out_step, n_act, part);
 }
-
-// What the MLA builds instantiate: (q, latent) = (bf16, bf16), (f32, f32).
-// fp8 latent KV is not ported. X(q code, q type, KV code, KV type).
-#define RPA_MLA_FOR_EACH_PAIR(X)              \
-  X(BF16, __nv_bfloat16, BF16, __nv_bfloat16) \
-  X(F32, float, F32, float)
 
 }  // namespace rpa

@@ -1,4 +1,5 @@
-// The block tile of the tensor-core MLA decodes (bf16 q and latent rows):
+// The block tile of the tensor-core MLA decodes (bf16 q over bf16 or fp8
+// latent rows):
 // rpa_decode_mla.cu's rpa_decode_mla_mma_kernel (the packed decode, one
 // block per chunk of a request) and rpa_stream.cu's
 // rpa_stream_mla_mma_kernel (the streaming decode, each block an equal
@@ -43,15 +44,20 @@
 // the latent rows again; the entries refuse an Hq that HG does not divide.
 //
 // The tile: MLA_MMA_TK = 16 positions of 1152 bytes, 18 KB, copied by
-// cp.async (9 16-byte vectors a thread) into bf16 rows padded to
+// cp.async (9 16-byte vectors a thread; fp8 rows, 576 bytes, through
+// registers and widened, MlaCopy) into bf16 rows padded to
 // MLA_MMA_LD = 584 elements: 1168 bytes, 16 mod 128, so the 8 rows of an
 // ldmatrix fall on 8 different 16-byte groups of banks (no conflicts). A
 // ring of MLA_MMA_NST = 4 stages with one block barrier per tile: tile i's
 // partial S, each thread's wait for its copies of tile i + 1, the barrier
 // (tile i's partials complete, tile i + 1 visible, every warp done with
 // tile i - 1), the refill of tile i - 1's stage with tile i + 3, then tile
-// i's sum, softmax and P V. The partials alternate between two buffers, so
-// the barrier of tile i + 1 also frees tile i's. Two tiles are in flight
+// i's sum, softmax and P V. fp8 rows take the same ring: after the barrier
+// each thread first widens the tile i + 2 it loaded a tile earlier into
+// its stage (free since the barrier of tile i - 1; visible at the barrier
+// of tile i + 1), then loads tile i + 3 into its registers (MlaCopy). The
+// partials alternate between two buffers, so the barrier of tile i + 1 also
+// frees tile i's. Two tiles are in flight (bf16 rows; one with fp8 rows)
 // while a block computes, and a block holds 82,944 bytes of shared memory:
 // two blocks an SM (three would need 251,904 of the 233,472 bytes), so an
 // SM has about 112 KB of latent rows requested or landed ahead of its
@@ -62,12 +68,14 @@
 // 0.0467 with 5 stages and 0.0488 with 3 stages at three blocks an SM.
 //
 // Bound on this card: bytes. A position costs 2 Hq (576 + 512) = 34,816
-// operations on 1,152 bytes at Hq 16, 30 a byte (44 with P as hi + lo),
-// far below the ~295 where the bf16 tensor cores would bind, and above the
-// ~20 the float32 CUDA cores sustain (the CUDA-core kernels of rpa_mla.cuh,
-// which the float32 pairs keep). Per tile and warp: 18 mma for S, 32 for P
+// operations on 1,152 bytes at Hq 16, 30 a byte (44 with P as hi + lo; 60
+// and 88 on the 576 bytes of an fp8 row), far below the ~295 where the bf16
+// tensor cores would bind, and above the ~20 the float32 CUDA cores sustain
+// (the CUDA-core kernels of rpa_mla.cuh, which the float32 pairs keep). Per tile and warp: 18 mma for S, 32 for P
 // V (hi and lo), 9 ldmatrix of K and 8 of V.
 #pragma once
+
+#include <type_traits>
 
 #include "rpa_decode_mma.cuh"
 #include "rpa_mla.cuh"
@@ -122,30 +130,72 @@ __device__ __forceinline__ void mla_load_q(uint32_t (&qa)[MLA_MMA_KS][4],
     }
 }
 
-// This thread's cp.async copies of the latent rows of positions [st, st +
-// MLA_MMA_TK) into a stage: vector v = tid + k MLA_MMA_NT of the tile is
-// chunk v % 72 of row v / 72. Positions outside [lo, hi) are zero-filled
-// and never read. The caller commits the group. pt_row: the request's row
-// of the page table; pshift: log2(page_size), or -1.
-__device__ __forceinline__ void mla_issue(__nv_bfloat16* stage,
-                                          const __nv_bfloat16* __restrict__ lat,
-                                          const int* __restrict__ pt_row, int page_size,
-                                          int pshift, int st, int lo, int hi, int tid) {
+// A thread's copies of the latent rows of positions [st, st + MLA_MMA_TK)
+// into a bf16 stage: vector v = tid + k MLA_MMA_NT of the tile is chunk
+// v % 72 (elements 8 c .. 8 c + 7) of row v / 72. Positions outside [lo,
+// hi) stage as zeros and are never read. pt_row: the request's row of the
+// page table; pshift: log2(page_size), or -1.
+//   - bf16 rows (TKV = __nv_bfloat16): issue() copies the 16-byte chunks by
+//     cp.async (the caller commits the group and waits for it); land() does
+//     nothing.
+//   - fp8 rows (e4m3, e5m2): cp.async cannot convert, so the rows pass
+//     through registers. In 16-byte vectors a 576-byte row is 36, a tile
+//     576, 4.5 a thread: no whole map. In 8-byte vectors it is 72 a row, the
+//     bf16 map's count, and vector c widens to exactly the 16-byte bf16
+//     chunk c the bf16 map copies: so issue() loads the same map's vectors
+//     of 8 bytes (9 a thread, 18 registers) and land() widens them exactly
+//     into the stage issue() was given. The stages stay bf16 and the block's
+//     82,944 bytes do not grow. A tile's loads are in flight from its
+//     issue() to its land() one tile later (cp.async keeps bf16 tiles two
+//     tiles in flight).
+template <typename TKV>
+struct MlaCopy {
+  static constexpr bool WIDEN = sizeof(TKV) == 1;
+  static_assert(WIDEN || std::is_same<TKV, __nv_bfloat16>::value, "bf16 or fp8 latent rows");
+  static_assert(MLA_DL / 8 == MLA_MMA_VPR, "an fp8 row's 8-byte vectors are its bf16 chunks");
+  uint2 raw[WIDEN ? MLA_MMA_NV : 1];
+  __nv_bfloat16* held = nullptr;  // fp8: the stage the loaded tile goes to
+
+  __device__ __forceinline__ void issue(__nv_bfloat16* stage, const TKV* __restrict__ lat,
+                                        const int* __restrict__ pt_row, int page_size,
+                                        int pshift, int st, int lo, int hi, int tid) {
 #pragma unroll
-  for (int k = 0; k < MLA_MMA_NV; ++k) {
-    const int v = tid + k * MLA_MMA_NT;
-    const int row = v / MLA_MMA_VPR, chunk = v - row * MLA_MMA_VPR;
-    const int pos = st + row;
-    const bool ok = pos >= lo && pos < hi;
-    const __nv_bfloat16* src = lat;
-    if (ok) {
-      const int page = pshift >= 0 ? pos >> pshift : pos / page_size;
-      src = lat + ((int64_t)pt_row[page] * page_size + (pos - page * page_size)) * MLA_DL +
-            chunk * 8;
+    for (int k = 0; k < MLA_MMA_NV; ++k) {
+      const int v = tid + k * MLA_MMA_NT;
+      const int row = v / MLA_MMA_VPR, chunk = v - row * MLA_MMA_VPR;
+      const int pos = st + row;
+      const bool ok = pos >= lo && pos < hi;
+      const TKV* src = lat;
+      if (ok) {
+        const int page = pshift >= 0 ? pos >> pshift : pos / page_size;
+        src = lat + ((int64_t)pt_row[page] * page_size + (pos - page * page_size)) * MLA_DL +
+              chunk * 8;
+      }
+      if constexpr (WIDEN)
+        raw[k] = ok ? __ldg(reinterpret_cast<const uint2*>(src)) : make_uint2(0u, 0u);
+      else
+        cp_async16_zfill(stage + row * MLA_MMA_LD + chunk * 8, src, ok);
     }
-    cp_async16_zfill(stage + row * MLA_MMA_LD + chunk * 8, src, ok);
+    if constexpr (WIDEN) held = stage;
   }
-}
+
+  // fp8: the tile of the last issue() into its stage (nothing if none is
+  // held). The stage must be free and the block barrier that publishes it
+  // must follow.
+  __device__ __forceinline__ void land(int tid) {
+    if constexpr (WIDEN) {
+      if (held == nullptr) return;
+#pragma unroll
+      for (int k = 0; k < MLA_MMA_NV; ++k) {
+        const int v = tid + k * MLA_MMA_NT;
+        const int row = v / MLA_MMA_VPR, chunk = v - row * MLA_MMA_VPR;
+        *reinterpret_cast<uint4*>(held + row * MLA_MMA_LD + chunk * 8) =
+            widen8_bf16<TKV>(raw[k]);
+      }
+      held = nullptr;
+    }
+  }
+};
 
 // This warp's partial S of the tile at shared address sK, over its dims,
 // into its slots of xs (one float4 per lane and n8 tile of positions).

@@ -1,10 +1,12 @@
 // Cross-request streaming decode attention over the chunked, the 5D or the
 // MLA latent KV pool, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels (three branches), one build each:
+// Replaces two TPU kernels (three branches), one build each (every build
+// takes bf16 and fp8 e4m3 / e5m2 KV or latent rows under bf16 q, float32
+// under float32 q):
 //   chunked pool, head_dim 64 (rpa_decode_stream): semi_pd_tpu/ops/attention/
 //     rpa_stream.py _rpa_kernel_chunked_stream;
-//   5D pool, head_dim 128, fp8 KV (-DRPA_ALIGNED, rpa_decode_stream_aligned):
+//   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_decode_stream_aligned):
 //     rpa_stream.py _rpa_kernel_stream, its GQA branch;
 //   latent pool, DeepSeek-V2's 512 + 64 with V its first 512 (-DRPA_MLA
 //     -DRPA_P_F32, rpa_decode_stream_mla): the same kernel's MLA branch,
@@ -807,7 +809,7 @@ static int launch_gqa(const void* q, const void* k_pool, const void* v_pool, con
 
 #ifdef RPA_MLA
 // ------------------------------------------------------------------------
-// The tensor-core MLA stream (bf16 q over bf16 latent rows), on the packed
+// The tensor-core MLA stream (bf16 q over bf16 or fp8 latent rows), on the packed
 // MLA decode's block tile (rpa_mla_mma.cuh): the four warps of a block share
 // each latent tile, so the unit that takes a share is the block, and the
 // share is cut at the tile's fixed chunks (MLA_MMA_CHUNK = 256 positions),
@@ -834,7 +836,6 @@ rpa_stream_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
                           __nv_bfloat16* __restrict__ out,     // [B, Hq, MLA_DV]
                           float* __restrict__ part,  // O [n_chunk, B, Hq, MLA_DV], then (m c, l)
                           int B, int Hq, int maxP, int page_size, float scale, float cap) {
-  static_assert(std::is_same<TKV, __nv_bfloat16>::value, "bf16 latent rows");
   static_assert(MLA_MMA_NT == STREAM_NT, "stream_scan's block");
   constexpr int TK = MLA_MMA_TK, NST = MLA_MMA_NST, CT = MLA_MMA_CHUNK / MLA_MMA_TK;
   extern __shared__ __align__(16) unsigned char mla_smem[];
@@ -887,7 +888,9 @@ rpa_stream_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
   // The fetch side: the next tile to copy, tile ft of request fr (fn tiles
   // within flim = min(kv_len, maxP * page_size)); one commit group per
   // issue(), empty past the share's end, so that the waits count the same
-  // groups across chunk and request boundaries too.
+  // groups across chunk and request boundaries too; fp8 rows land in their
+  // stage at the next cp.land().
+  MlaCopy<TKV> cp;
   int fr = req0, ft = t0, flim = 0, fn = 0, issued = 0;
   if (ntiles > 0) {
     flim = min(kv_lens[fr], max_len);
@@ -903,8 +906,8 @@ rpa_stream_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
         const __nv_bfloat16* qr = q + ((int64_t)fr * Hq + (int64_t)h * G) * MLA_DL;
         for (int o = tid * 64; o < G * MLA_DL; o += MLA_MMA_NT * 64) prefetch_l2(qr + o);
       }
-      mla_issue(ring + (issued % NST) * TK * MLA_MMA_LD, lat, page_table + (int64_t)fr * maxP,
-                page_size, pshift, ft * TK, 0, flim, tid);
+      cp.issue(ring + (issued % NST) * TK * MLA_MMA_LD, lat, page_table + (int64_t)fr * maxP,
+               page_size, pshift, ft * TK, 0, flim, tid);
       ++ft;
       ++issued;
     }
@@ -920,7 +923,10 @@ rpa_stream_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
   int cr = fr, ct = ft, climit = flim, cn = fn;
   uint32_t qa[MLA_MMA_KS][4];
   MlaState ms;
-  for (int i = 0; i < NST - 1; ++i) issue();
+  for (int i = 0; i < NST - 1; ++i) {
+    cp.land(tid);  // fp8: tile i - 1
+    issue();
+  }
   cp_async_wait<NST - 2>();  // tile 0 (this thread's copies)
   __syncthreads();
   for (int i = 0; i < ntiles; ++i) {
@@ -938,7 +944,8 @@ rpa_stream_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
     mla_partial(x, qa, sT, k_lane, warp, lane);
     cp_async_wait<NST - 3>();  // tile i + 1 (this thread's copies)
     __syncthreads();
-    issue();  // tile i + NST - 1, into tile i - 1's stage
+    cp.land(tid);  // fp8: tile i + NST - 2, into tile i - 2's stage
+    issue();       // tile i + NST - 1, into tile i - 1's stage
     mla_combine_pv(ms, x, sT + warp * MLA_MMA_DW * 2, v_lane, ct * TK, 0, climit, scale, cap,
                    capped, c, lane);
     ++ct;
@@ -1031,7 +1038,7 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
   if (q_type == QC && kv_type == KC)                                                         \
     return launch_mla<TQ, TKV>(q, k_pool, page_table, kv_lens, out, B, Hq, maxP, page_size,  \
                                scale, cap, n_blocks, scratch, s);
-  RPA_MLA_FOR_EACH_PAIR(RPA_STREAM)
+  RPA_FOR_EACH_PAIR(RPA_STREAM)
 #else
   if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM)
     return (int)cudaErrorInvalidValue;

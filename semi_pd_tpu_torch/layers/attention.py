@@ -35,7 +35,9 @@ def write_kv(kv_cache: torch.Tensor, layer_idx: int, out_slots: torch.Tensor,
     one slot row of the chunked pool [L, S, CT, 128] (K chunks, then V
     chunks), or the K and V planes of the 5D pool [L, 2, S, Hkv, D] (at
     head_dim 128 or below).
-    Padded tokens carry slots in the dump page."""
+    Padded tokens carry slots in the dump page. Into an fp8 pool the cast
+    rounds to nearest as JAX's does, but saturates above 448 in magnitude
+    where JAX gives NaN (ROADMAP C5)."""
     T, Hkv, D = k_new.shape
     slots = out_slots.long()
     if pool_layout(kv_cache) == "chunked":
@@ -117,7 +119,8 @@ def paged_attention_mla(
     attention=None,
 ) -> torch.Tensor:
     """MLA (absorbed) attention over the latent pool: writes the step's
-    latent rows at ``fb.out_slots``, then runs the latent pool's routing.
+    latent rows at ``fb.out_slots`` (in the pool's dtype, fp8 included),
+    then runs the latent pool's routing.
     Returns [T, Hq, v_dim]. The port's pool is exactly Dlat wide; q and the
     rows are zero-padded only if a caller's pool is wider (zeros on both
     sides leave the scores unchanged, and V is the prefix either way)."""
@@ -125,6 +128,8 @@ def paged_attention_mla(
     if pad:
         q = torch.nn.functional.pad(q, (0, pad))
         latent_new = torch.nn.functional.pad(latent_new, (0, pad))
+    # into an fp8 pool the cast saturates above 448 where JAX gives NaN
+    # (ROADMAP C5), for the latent rows as for write_kv's K and V
     kv_cache[layer_idx, 0, fb.out_slots.long(), 0] = latent_new.to(kv_cache.dtype)
     return (attention or pool_attention(kv_cache))(
         q.contiguous(), kv_cache, layer_idx, fb.page_table, fb.kv_lens, fb.attn_meta,

@@ -11,11 +11,13 @@ torch ``KVCache`` holding one of the JAX package's three pool layouts
   layout; the runner picks it for head_dim 64 models with CT % 8 == 0);
 - aligned ``[L, 2, S, Hkv, D]``: K and V each in their own plane (the JAX
   default layout; head_dim 128 models, and head_dim 64 models with CT % 8
-  != 0; bf16, float32 or fp8 KV);
+  != 0);
 - latent ``[L, 1, S, 1, Dlat]``: one MLA latent row ``[c_kv | k_pe]`` per
   slot, V being its first ``kv_lora_rank`` elements (the JAX
   ``use_mla=True`` layout). The JAX runner pads Dlat to a multiple of 256
   for Mosaic's lane tiling (576 -> 768); the port stores exactly Dlat.
+
+Each layout holds bf16, float32 or fp8 (e4m3, e5m2) elements.
 
 ``S = num_pages * page_size`` slots; slot = page_id * page_size + offset.
 Page 0 is the dump page: padded positions of a batch write there and padded

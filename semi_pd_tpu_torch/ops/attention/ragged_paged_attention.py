@@ -7,10 +7,15 @@ ragged_paged_attention.py:
 - ``ragged_paged_attention_chunked``: the chunked pool ``[L, S, CT, 128]``
   (TPU kernel _rpa_kernel_chunked, :803);
 - ``ragged_paged_attention``: the aligned (5D) pool ``[L, 2, S, Hkv, D]``
-  with bf16, float32 or fp8 KV (TPU kernel _rpa_kernel, :59, its GQA
-  branch, at head_dim 128; below 128 the extend of _rpa_kernel_merged,
-  :300), and with ``v_dim`` the MLA latent pool ``[L, 1, S, 1, Dlat]`` (the
-  same TPU kernel's MLA ``v_dim`` branch; output [T, Hq, v_dim]).
+  (TPU kernel _rpa_kernel, :59, its GQA branch, at head_dim 128; below 128
+  the extend of _rpa_kernel_merged, :300), and with ``v_dim`` the MLA
+  latent pool ``[L, 1, S, 1, Dlat]`` (the same TPU kernel's MLA ``v_dim``
+  branch; output [T, Hq, v_dim]).
+
+Every pool holds bf16, float32 or fp8 (e4m3, e5m2) KV; fp8 is widened
+exactly, to bf16 in the kernels (bf16 q) and to float32 in the plain
+versions, as the TPU kernels widen it to q's dtype (GQA) or to float32
+(the MLA branches). No wrapper converts the pool before a launch.
 
 Causal attention of the flat new tokens of every request over prefix + new
 tokens through the page table, driven by the host work list (block_seq /

@@ -32,17 +32,14 @@ TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
               torch.float8_e5m2: 3}
 
 # What each family of kernels is instantiated for (kernel_family): the
-# head_dim (the latent width on the latent pool, DeepSeek-V2's 512 + 64)
-# and the (q, KV) dtype pairs of the paths that use them
-_PAIRS_5D = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
-             (torch.bfloat16, torch.float8_e4m3fn), (torch.bfloat16, torch.float8_e5m2)}
+# head_dim (the latent width on the latent pool, DeepSeek-V2's 512 + 64),
+# and the (q, KV) dtype pairs of every build (csrc/rpa_common.cuh
+# RPA_FOR_EACH_PAIR): fp8 KV (the latent rows on the latent pool) goes with
+# bf16 q, widened exactly to bf16 inside the kernels
 KERNEL_HEAD_DIM = {"chunked": 64, "aligned": 128, "merged": 64, "latent": 576}
-KERNEL_PAIRS = {
-    "chunked": {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)},
-    "aligned": _PAIRS_5D,
-    "merged": _PAIRS_5D,
-    "latent": {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)},
-}
+KERNEL_PAIRS = frozenset({(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                          (torch.bfloat16, torch.float8_e4m3fn),
+                          (torch.bfloat16, torch.float8_e5m2)})
 # The latent pool's kernels take V as the first 512 elements of the row
 KERNEL_V_DIM = 512
 
@@ -103,11 +100,13 @@ def check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads,
                          f"expected {(num_kv_heads, D)}")
     if not 0 <= int(layer_idx) < kv_cache.shape[0]:
         raise ValueError(f"layer {layer_idx} outside the pool's {kv_cache.shape[0]} layers")
-    fp8_ok = (layout == "aligned" and kv_cache.dtype in FP8
-              and q.dtype in (torch.bfloat16, torch.float32))
+    # fp8 KV is read widened, under bf16 q on the card and float32 q in the
+    # plain versions
+    fp8_ok = kv_cache.dtype in FP8 and q.dtype in (torch.bfloat16, torch.float32)
     if kv_cache.dtype != q.dtype and not fp8_ok:
         raise ValueError(f"q dtype {q.dtype} does not go with KV dtype {kv_cache.dtype} "
-                         f"on the {layout} pool (fp8 KV on the chunked pool is ROADMAP A9)")
+                         f"on the {layout} pool (KV in q's dtype, or fp8 under bf16 or "
+                         f"float32 q)")
     if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
         raise ValueError("page_table and kv_lens must be int32")
     if page_table.dim() != 2 or kv_lens.shape != (page_table.shape[0],):
@@ -131,9 +130,9 @@ def check_cuda(q, kv_cache, *ints, v_dim=None) -> None:
     if q.data_ptr() % 16 or kv_cache.data_ptr() % 16:
         raise ValueError("q and the KV pool must be 16-byte aligned")
     family = kernel_family(kv_cache)
-    if (q.dtype, kv_cache.dtype) not in KERNEL_PAIRS[family]:
+    if (q.dtype, kv_cache.dtype) not in KERNEL_PAIRS:
         raise ValueError(f"the {family} kernels take (q, KV) dtypes "
-                         f"{sorted(map(str, KERNEL_PAIRS[family]))}, got "
+                         f"{sorted(map(str, KERNEL_PAIRS))}, got "
                          f"({q.dtype}, {kv_cache.dtype})")
     if family == "latent" and (q.shape[-1], v_dim) != (KERNEL_HEAD_DIM["latent"],
                                                         KERNEL_V_DIM):
@@ -152,7 +151,11 @@ def kv_planes(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int,
     """(K address, V address, row stride in elements) of layer
     ``layer_idx``: K and V of slot s, head h sit at base + (s * row_stride
     + h * D) elements. Computed in Python ints: a full pool can exceed
-    2**31 elements."""
+    2**31 elements. The kernels' 16-byte loads stay aligned for every KV
+    dtype, fp8 included: at the head dims they are built for (64, 128, 576)
+    the V offset, the row stride and a head's offset are multiples of 16
+    bytes (on the chunked pool at Hkv 8, D 64 and fp8, V sits 512 bytes into
+    the slot's 1024-byte row)."""
     esz = kv_cache.element_size()
     if pool_layout(kv_cache) == "chunked":
         L, S, CT, W = kv_cache.shape

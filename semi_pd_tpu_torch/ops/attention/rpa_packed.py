@@ -7,8 +7,8 @@ Ports of four TPU kernels (branches):
   ``[L, S, CT, 128]`` (TPU kernel rpa_packed.py:32
   _rpa_kernel_chunked_packed);
 - ``ragged_paged_attention_packed``: the aligned pool ``[L, 2, S, Hkv, D]``
-  with bf16, float32 or fp8 KV (TPU kernel rpa_packed.py:349
-  _rpa_kernel_packed, its GQA branch, at head_dim 128; below 128 the decode
+  (TPU kernel rpa_packed.py:349 _rpa_kernel_packed, its GQA branch, at
+  head_dim 128; below 128 the decode
   of ragged_paged_attention.py:300 _rpa_kernel_merged, which the JAX
   dispatcher runs for every D % 128 != 0 batch on that pool), and with
   ``v_dim`` the MLA latent pool ``[L, 1, S, 1, Dlat]`` (_rpa_kernel_packed's
@@ -16,8 +16,9 @@ Ports of four TPU kernels (branches):
   v_dim elements of each row).
 
 One query row per request at position kv_len - 1; GQA, f32 online softmax,
-optional logit softcap and sliding window. fp8 KV is upcast exactly, as the
-TPU kernel upcasts it to q's dtype. The TPU kernels' rpb/SUB request
+optional logit softcap and sliding window. Every pool takes bf16, float32
+or fp8 (e4m3, e5m2) KV; fp8 is upcast exactly, as the TPU kernels upcast
+it to q's dtype (to float32 in the MLA branch). The TPU kernels' rpb/SUB request
 packing and their RPA_DECODE_PACKED / RPA_PACKED_DIAG switches schedule
 work for the TPU and are not ported; the CUDA designs are described in
 csrc/rpa_decode.cu, csrc/rpa_mla.cuh and csrc/rpa_mla_mma.cuh.

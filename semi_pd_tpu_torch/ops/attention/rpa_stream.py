@@ -5,9 +5,11 @@ Ports of the two TPU kernels of semi_pd_tpu/ops/attention/rpa_stream.py:
 - ``ragged_paged_attention_chunked_stream``: the chunked pool
   ``[L, S, CT, 128]`` (TPU kernel _rpa_kernel_chunked_stream, :241);
 - ``ragged_paged_attention_stream``: the aligned pool ``[L, 2, S, Hkv, D]``
-  at head_dim 128 with bf16, float32 or fp8 KV (TPU kernel
-  _rpa_kernel_stream, :28, its GQA branch), and with ``v_dim`` the MLA
-  latent pool (the same kernel's MLA branch).
+  at head_dim 128 (TPU kernel _rpa_kernel_stream, :28, its GQA branch),
+  and with ``v_dim`` the MLA latent pool (the same kernel's MLA branch).
+
+Each pool takes bf16, float32 or fp8 (e4m3, e5m2) KV, as the packed
+decode does.
 
 The stream is a decode SCHEDULE: it computes what the packed decode
 computes (rpa_packed.py), one query row per request, with softcap and

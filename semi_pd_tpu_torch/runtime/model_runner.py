@@ -16,9 +16,11 @@ DeepSeek-V2/V3 with MLA + MoE). The KV pool's layout follows the model's
 geometry (``kv_pool_layout``, the JAX runner's rule): the chunked pool for
 head_dim 64 when a slot row holds a multiple of 8 chunks of 128 (e.g.
 Llama-3.2-1B's 8 KV heads), the 5D pool otherwise (head_dim 128, and
-head_dim 64 with fewer KV heads, e.g. TinyLlama's 4; also with fp8 KV and
-calibrated per-layer scales, ``quantization_param_path``), the latent pool
-for MLA models. ``ServerArgs.decode_stream`` sends decode batches to the
+head_dim 64 with fewer KV heads, e.g. TinyLlama's 4), the latent pool for
+MLA models. Every pool holds KV in the model dtype or in fp8 (e4m3, e5m2;
+``ServerArgs.kv_cache_dtype``); calibrated per-layer KV scales
+(``quantization_param_path``) apply to the GQA pools and are refused for
+MLA, as in JAX. ``ServerArgs.decode_stream`` sends decode batches to the
 pool's streaming decode. Random weights are drawn on the step device
 (model_loader/loader.py::device_init_params).
 
@@ -101,8 +103,10 @@ def kv_pool_layout(num_kv_heads: int, head_dim: int, use_mla: bool = False) -> s
     Below head_dim 128 the 5D pool runs the merged kernels, the
     counterparts of _rpa_kernel_merged, Hkv*D == 128 included (the JAX
     layer sends those to its reference attention for a TPU tiling limit
-    that has no meaning on the card). Raises for the geometries the port
-    has no kernels for: head_dim 256 and other widths (ROADMAP A9)."""
+    that has no meaning on the card). The KV dtype does not enter the rule:
+    fp8 KV takes the layout of the model dtype. Raises for the geometries
+    the port has no kernels for: head_dim 256 and other widths (ROADMAP
+    A9)."""
     D, Hkv = head_dim, num_kv_heads
     if use_mla:
         return "latent"
@@ -151,13 +155,13 @@ class ModelRunner:
         self.model = ARCHITECTURES[model_config.architecture](model_config, device=self.device)
         self.model.page_size = server_args.page_size
         self.kv_scales = None
-        if model_config.use_mla and (server_args.quantization_param_path
-                                     or server_args.kv_cache_dtype not in ("auto", model_config.dtype)):
-            # as the JAX runner refuses the scales (model_runner.py:161-165):
-            # the latent pool holds K and V in one row
-            raise NotImplementedError(
-                "MLA models keep the latent pool in the model dtype: fp8 latent KV "
-                "and per-layer KV scales are ROADMAP A9")
+        if model_config.use_mla and server_args.quantization_param_path:
+            # as the JAX runner refuses them (model_runner.py:161-165): the
+            # latent pool holds K and V in one row, so a separate k_scale and
+            # v_scale do not apply (fp8 latent rows are served, unscaled)
+            raise ValueError(
+                "per-layer KV scales (quantization_param_path) are not supported for "
+                "MLA models: the latent pool holds K and V in one row")
         if server_args.quantization_param_path:
             self.kv_scales = torch.as_tensor(
                 _load_kv_cache_scales(server_args.quantization_param_path,
@@ -214,11 +218,6 @@ class ModelRunner:
         page_size = args.page_size
         kv_dtype = KV_DTYPES[mc.dtype if args.kv_cache_dtype == "auto" else args.kv_cache_dtype]
         layout = kv_pool_layout(mc.num_kv_heads_total, mc.kv_head_dim, mc.use_mla)
-        if layout == "chunked" and kv_dtype.itemsize == 1:
-            raise NotImplementedError(
-                f"{args.kv_cache_dtype} KV on the chunked pool (Hkv "
-                f"{mc.num_kv_heads_total}, head_dim {mc.kv_head_dim}) is ROADMAP A9; "
-                f"fp8 KV runs on the 5D pool")
         num_tokens = args.max_total_tokens or self._profile_kv_tokens(kv_dtype)
         num_pages = max(num_tokens // page_size, 8) + 1  # +1 dump page
         max_context = min(mc.context_length, num_tokens)

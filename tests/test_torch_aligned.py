@@ -162,7 +162,9 @@ def test_aligned_extend_plain_matches_jax_kernel(case):
 def test_aligned_routing_and_refusals():
     """T == B goes to the decode path, as the JAX wrapper decides; v_dim
     (MLA) is refused on the aligned pool, speculation masks raise with their
-    ROADMAP item; fp8 KV is taken on the aligned pool only."""
+    ROADMAP item; fp8 KV is taken on the aligned pool and on the chunked
+    pool alike, under float32 q (and bf16 q on the card), never under
+    another q dtype."""
     d = _setup(5, [1, 1, 1], [12, 40, 7])
     q, pool, pt = _t(d["q"]), d["tpool"], _t(d["pt"])
     kvl = _t(d["kv_lens"].astype(np.int32))
@@ -180,11 +182,11 @@ def test_aligned_routing_and_refusals():
     fp8 = pool.to(torch.float8_e4m3fn)
     out = rpa_packed.ragged_paged_attention_packed(q, fp8, 0, pt, kvl, **kw)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
-    chunked = torch.zeros((L, pool.shape[2], 2 * HKV * D // 128, 128),
-                          dtype=torch.float8_e4m3fn)
-    with pytest.raises(ValueError, match="ROADMAP A9"):
-        rpa_packed.ragged_paged_attention_chunked_packed(
-            q, chunked, 0, pt, kvl, num_kv_heads=HKV, head_dim=D, **kw)
+    # the same fp8 values as the chunked pool's slot rows (K heads, then V)
+    chunked = fp8.permute(0, 2, 1, 3, 4).reshape(L, pool.shape[2], 2 * HKV * D // 128, 128)
+    out_c = rpa_packed.ragged_paged_attention_chunked_packed(
+        q, chunked.contiguous(), 0, pt, kvl, num_kv_heads=HKV, head_dim=D, **kw)
+    assert out_c.dtype == torch.float32 and torch.equal(out_c, out)
     with pytest.raises(ValueError, match="dtype"):
         rpa_packed.ragged_paged_attention_packed(q.double(), fp8, 0, pt, kvl, **kw)
     with pytest.raises(RuntimeError, match="no decode kernel"):
@@ -328,16 +330,25 @@ def test_kv_pool_layout_rule(geometry, want):
             kv_pool_layout(*geometry)
 
 
-def test_fp8_kv_on_the_chunked_pool_raises():
+@pytest.mark.parametrize("kv", ["fp8_e4m3", "fp8_e5m2"])
+def test_fp8_kv_on_the_chunked_pool_is_served(kv):
     """Hkv 8 at head_dim 64 is on the chunked pool (Hkv 2 would be on the
-    5D pool, where fp8 KV is served)."""
+    5D pool): with fp8 KV the runner builds it as [L, S, 8, 128] in the fp8
+    dtype, sized in 1-byte slots, and serves greedy tokens."""
     cfg = ModelConfig(architecture="LlamaForCausalLM", vocab_size=64, hidden_size=128,
                       intermediate_size=128, num_hidden_layers=1, num_attention_heads=8,
                       num_key_value_heads=8, head_dim=64, context_length=128,
                       dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        Engine(ServerArgs(random_weights=True, device="cpu", max_total_tokens=256,
-                          kv_cache_dtype="fp8_e4m3"), cfg, device="cpu")
+    eng = Engine(ServerArgs(random_weights=True, device="cpu", max_total_tokens=256,
+                            kv_cache_dtype=kv), cfg, device="cpu")
+    buf = eng.runner.kv_cache.buffer
+    assert eng.runner.kv_spec.layout == "chunked" and buf.shape[2:] == (8, 128)
+    assert buf.dtype == TORCH_FP8[kv]
+    assert eng.runner.kv_spec.bytes_total() == buf.numel()
+    (out,) = eng.generate(input_ids=[[1, 2, 3, 4, 5]],
+                          sampling_params=SamplingParams(max_new_tokens=3, temperature=0.0,
+                                                         ignore_eos=True))
+    assert len(out["output_ids"]) == 3 and eng.flush_cache()
 
 
 def test_device_init_params_is_seeded_and_scaled():

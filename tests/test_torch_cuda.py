@@ -11,9 +11,12 @@ the libraries disassembled for HMMA instructions), the
 CUDA MoE path (torch._grouped_mm) against its plain loop, and the Engine
 on its default CUDA device against the same Engine on the CPU (Llama on
 the chunked, the aligned and the merged 5D pool at head_dim 64, with and
-without the streaming decode; DeepSeek-V2 on the latent pool), and the
-decode steps replayed from CUDA graphs against the eager step, bitwise, on
-each of the seven decode paths (with no host sync in either). This file
+without the streaming decode; DeepSeek-V2 on the latent pool; in bf16
+with fp8 KV on the chunked and the latent pool, greedy tokens equal up to
+a near tie), and the decode steps replayed from CUDA graphs against the
+eager step, bitwise, on each decode path, the fp8 ones included (with no
+host sync in either). Every kernel is held with each (q, KV) pair it is
+built for, fp8 e4m3 and e5m2 under bf16 q included. This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -136,13 +139,20 @@ def _opts(opt, scale):
                 sliding_window=24 if opt == "window" else None)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+FP8 = {"fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"])
 @pytest.mark.parametrize("kind", ["decode", "extend"])
 @pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
 def test_kernel_matches_plain(cuda_device, kind, dtype, opt):
-    dt = getattr(torch, dtype)
+    """The chunked pool's kernels (head_dim 64; fp8 = bf16 q over an fp8
+    pool) against their plain versions, on layer 1 of the pool: the decode
+    with a padded row, the extend with q_len 140 over two work-list
+    entries."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
     case = _decode_case if kind == "decode" else _extend_case
-    q, pool, pt, kvl, meta = case(cuda_device, dt)
+    q, pool, pt, kvl, meta = case(cuda_device, dt, kv_dtype=FP8.get(dtype, dt))
     kw = dict(_opts(opt, 0.125), num_kv_heads=HKV, head_dim=D)
     k = KERNELS["rpa_" + kind]
     before = k.launches
@@ -183,17 +193,18 @@ def test_aligned_kernel_matches_plain(cuda_device, kind, dtype, opt):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"])
 @pytest.mark.parametrize("kind", ["decode", "extend"])
 @pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
 def test_mla_kernel_matches_plain(cuda_device, kind, dtype, opt):
     """The latent pool's kernels (DeepSeek-V2's 576-wide latent row, V its
-    first 512 elements, 16 query heads) against their plain versions, on
-    layer 1 of the pool; the extend case has q_len 140 > 128 (two
-    work-list entries for one request) and a padded batch row."""
-    dt = getattr(torch, dtype)
+    first 512 elements, 16 query heads; fp8 = bf16 q over fp8 latent rows)
+    against their plain versions, on layer 1 of the pool; the extend case
+    has q_len 140 > 128 (two work-list entries for one request) and a
+    padded batch row."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
     case = _decode_case if kind == "decode" else _extend_case
-    q, pool, pt, kvl, meta = case(cuda_device, dt, latent=True)
+    q, pool, pt, kvl, meta = case(cuda_device, dt, latent=True, kv_dtype=FP8.get(dtype, dt))
     kw = dict(_opts(opt, DLAT ** -0.5), v_dim=V_DIM)
     k = KERNELS[f"rpa_{kind}_mla"]
     before = k.launches
@@ -208,9 +219,6 @@ def test_mla_kernel_matches_plain(cuda_device, kind, dtype, opt):
     assert out.shape == ref.shape == (q.shape[0], HQ_MLA, V_DIM)
     tol = 1e-4 if dt == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
-
-
-FP8 = {"fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"])
@@ -243,20 +251,21 @@ def test_merged_kernel_matches_plain(cuda_device, kind, dtype, opt):
 # are packed into the rows of its m16 tiles. Hkv for each G at Hq 8.
 GROUPS = {1: 8, 2: 4, 4: 2, 8: 1}
 MMA_POOLS = {  # pool: (case options, kernel, head_dim, KV dtypes under bf16 q)
-    "chunked": ({}, "rpa_extend", D, ["bfloat16"]),
+    "chunked": ({}, "rpa_extend", D, ["bfloat16", "fp8_e4m3", "fp8_e5m2"]),
     "aligned": ({"aligned": True}, "rpa_extend_aligned", D_ALIGNED,
                 ["bfloat16", "fp8_e4m3", "fp8_e5m2"]),
     "merged": ({"merged": True}, "rpa_extend_merged", D,
                ["bfloat16", "fp8_e4m3", "fp8_e5m2"]),
     # the latent pool's warpgroup kernel: 16 query heads per latent row
-    "latent": ({"latent": True}, "rpa_extend_mla", DLAT, ["bfloat16"]),
+    "latent": ({"latent": True}, "rpa_extend_mla", DLAT, ["bfloat16", "fp8_e4m3", "fp8_e5m2"]),
 }
 MMA_CASES = [(pool, kv) for pool, spec in MMA_POOLS.items() if pool != "latent"
              for kv in spec[3]]
 MMA_IDS = [f"{pool}-{kv}" for pool, kv in MMA_CASES]
 # the tensor-core extends, the latent pool's included
-TC_CASES = MMA_CASES + [("latent", "bfloat16")]
-TC_IDS = MMA_IDS + ["latent-bfloat16"]
+LATENT_KV = MMA_POOLS["latent"][3]
+TC_CASES = MMA_CASES + [("latent", kv) for kv in LATENT_KV]
+TC_IDS = MMA_IDS + [f"latent-{kv}" for kv in LATENT_KV]
 MMA_Q_LENS = [140, 20, 1, 7, 300]  # rows of the real requests; 9 padding rows follow
 
 
@@ -300,13 +309,15 @@ def test_extend_tensor_cores_match_plain(cuda_device, pool, kv, G, opt):
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("kv", LATENT_KV)
 @pytest.mark.parametrize("opt", ["plain", "softcap", "window"])
-def test_mla_extend_warpgroups_match_plain(cuda_device, opt):
+def test_mla_extend_warpgroups_match_plain(cuda_device, opt, kv):
     """The latent pool's extend with bf16 q (the warpgroup kernel: 4 tokens
     x 16 heads per 64-row tile, S split over two warpgroups, P kept float32
-    as hi + lo) against its plain version, at q_lens that span several
-    128-row entries and leave tiles of 4 tokens partly owned."""
-    _, kern, plain, name = _mma_extend(cuda_device, "latent", "bfloat16", 4, opt)
+    as hi + lo; fp8 rows widened through registers) against its plain
+    version, at q_lens that span several 128-row entries and leave tiles of
+    4 tokens partly owned."""
+    _, kern, plain, name = _mma_extend(cuda_device, "latent", kv, 4, opt)
     k = KERNELS[name]
     before = k.launches
     out = kern()
@@ -391,21 +402,22 @@ def test_merged_extend_widens_every_fp8_value_exactly(cuda_device, kv):
 
 
 def test_extend_builds_run_on_the_tensor_cores(cuda_device):
-    """The disassembled libraries: every bf16-q instantiation of the
-    chunked, the aligned, the merged and the latent extend and decode runs
-    tensor-core instructions (HGMMA in the extends' warpgroup kernels, HMMA
-    in the decodes'); their float32 pairs stay on the CUDA cores."""
+    """The disassembled libraries: every bf16-q instantiation (bf16, e4m3
+    and e5m2 KV) of the chunked, the aligned, the merged and the latent
+    extend and decode runs tensor-core instructions (HGMMA in the extends'
+    warpgroup kernels, HMMA in the decodes'); their float32 pairs stay on
+    the CUDA cores."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs)
-        "rpa_extend": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 1),
+        "rpa_extend": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 3),
         "rpa_extend_aligned": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 3),
-        "rpa_extend_mla": ("rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel", 1),
+        "rpa_extend_mla": ("rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel", 3),
         "rpa_extend_merged": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 3),
-        "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 1),
+        "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
         "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
         "rpa_decode_merged": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
-        "rpa_decode_mla": ("rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel", 1),
+        "rpa_decode_mla": ("rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel", 3),
     }
     for name, (mma_fn, core_fn, n_mma) in expect.items():
         KERNELS[name].fn()
@@ -538,11 +550,13 @@ def test_bf16_gqa_extends_round_p(cuda_device, pool):
 # (build, pool case options, head_dim, KV dtype): the tensor-core decode of
 # every build, split over blocks (the latent pool: one latent head, DLAT wide)
 SPLIT_CASES = [("rpa_decode", {}, D, "bfloat16"),
+               ("rpa_decode", {}, D, "fp8_e4m3"),
                ("rpa_decode_aligned", {"aligned": True}, D_ALIGNED, "bfloat16"),
                ("rpa_decode_aligned", {"aligned": True}, D_ALIGNED, "fp8_e4m3"),
                ("rpa_decode_merged", {"merged": True}, D, "bfloat16"),
                ("rpa_decode_merged", {"merged": True}, D, "fp8_e4m3"),
-               ("rpa_decode_mla", {"latent": True}, DLAT, "bfloat16")]
+               ("rpa_decode_mla", {"latent": True}, DLAT, "bfloat16"),
+               ("rpa_decode_mla", {"latent": True}, DLAT, "fp8_e4m3")]
 
 
 def _long_decode(dev, extra, kv):
@@ -628,10 +642,11 @@ def test_decode_refuses_an_invalid_split_plan(cuda_device, build):
 
 
 STREAM_POOLS = {  # pool: (case options, kernel, head_dim, the build's type pairs)
-    "chunked": ({}, "rpa_decode_stream", D, ["float32", "bfloat16"]),
+    "chunked": ({}, "rpa_decode_stream", D, ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"]),
     "aligned": ({"aligned": True}, "rpa_decode_stream_aligned", D_ALIGNED,
                 ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"]),
-    "latent": ({"latent": True}, "rpa_decode_stream_mla", DLAT, ["float32", "bfloat16"]),
+    "latent": ({"latent": True}, "rpa_decode_stream_mla", DLAT,
+               ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"]),
 }
 STREAM_CASES = [(pool, dtype) for pool, spec in STREAM_POOLS.items() for dtype in spec[3]]
 # kv_lens of the stream's batches beside "few" (_decode_case) and "many"
@@ -706,22 +721,24 @@ def test_stream_kernel_matches_plain_and_repeats(cuda_device, pool, dtype, opt, 
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "fp8_e4m3", "fp8_e5m2"])
 @pytest.mark.parametrize("batch", ["few", "many", *STREAM_BATCHES])
 @pytest.mark.parametrize("opt", ["plain", "softcap"])
-def test_mla_decodes_agree_bit_for_bit_whatever_the_batch(cuda_device, opt, batch):
+def test_mla_decodes_agree_bit_for_bit_whatever_the_batch(cuda_device, opt, batch, kv_dtype):
     """With bf16 q the packed and the streaming latent decode walk each
     request in the same fixed chunks of 256 positions and merge them in the
-    same order, so they give the same bits, and a request decoded alone,
-    with a page table of its own pages only, gives the bits it gets in the
-    batch: the result does not depend on the batch, the split plan or the
-    stream's block shares."""
+    same order, so they give the same bits, over bf16 and over fp8 latent
+    rows, and a request decoded alone, with a page table of its own pages
+    only, gives the bits it gets in the batch: the result does not depend
+    on the batch, the split plan or the stream's block shares."""
+    bf = torch.bfloat16
+    extra = dict(latent=True, kv_dtype=FP8.get(kv_dtype, bf))
     if batch in STREAM_BATCHES:
         lens = STREAM_BATCHES[batch]
-        q, kv, pt, kvl, _ = _case(11, [1] * len(lens), lens, cuda_device, torch.bfloat16,
-                                  latent=True)
+        q, kv, pt, kvl, _ = _case(11, [1] * len(lens), lens, cuda_device, bf, **extra)
     else:
         case = _decode_case if batch == "few" else _many_case
-        q, kv, pt, kvl, _ = case(cuda_device, torch.bfloat16, latent=True)
+        q, kv, pt, kvl, _ = case(cuda_device, bf, **extra)
     kw = dict(_opts(opt, DLAT ** -0.5), v_dim=V_DIM)
     kw.pop("sliding_window")
     packed = rpa_packed.ragged_paged_attention_packed(q, kv, 1, pt, kvl, **kw)
@@ -740,16 +757,16 @@ def test_mla_decodes_agree_bit_for_bit_whatever_the_batch(cuda_device, opt, batc
 
 def test_stream_builds_run_on_the_tensor_cores(cuda_device):
     """The disassembled libraries of the streaming decodes: every bf16-q
-    instantiation of the chunked and the aligned build runs HMMA
-    instructions in rpa_stream_mma_kernel, and the latent build's in
-    rpa_stream_mla_mma_kernel; their float32 pair's CUDA-core kernel
-    (rpa_stream_kernel, rpa_stream_mla_kernel) none."""
+    instantiation (bf16, e4m3 and e5m2 KV) of the chunked and the aligned
+    build runs HMMA instructions in rpa_stream_mma_kernel, and the latent
+    build's in rpa_stream_mla_mma_kernel; their float32 pair's CUDA-core
+    kernel (rpa_stream_kernel, rpa_stream_mla_kernel) none."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     for name, mma_fn, core_fn, n_mma in (
-            ("rpa_decode_stream", "rpa_stream_mma_kernel", "rpa_stream_kernel", 1),
+            ("rpa_decode_stream", "rpa_stream_mma_kernel", "rpa_stream_kernel", 3),
             ("rpa_decode_stream_aligned", "rpa_stream_mma_kernel", "rpa_stream_kernel", 3),
-            ("rpa_decode_stream_mla", "rpa_stream_mla_mma_kernel", "rpa_stream_mla_kernel", 1)):
+            ("rpa_decode_stream_mla", "rpa_stream_mla_mma_kernel", "rpa_stream_mla_kernel", 3)):
         KERNELS[name].fn()
         counts = sass_mma_counts(KERNELS[name])
         mma = [n for f, n in counts.items() if mma_fn in f]
@@ -917,6 +934,73 @@ def test_engine_deepseek_latent_pool_on_cuda_matches_cpu(cuda_device, decode_str
     _engines_agree(cuda_device, cfg, [dec, "rpa_extend_mla"], decode_stream=decode_stream)
 
 
+def _last_logits(eng, ids):
+    """The engine's model logits after ``ids`` (float32 [vocab]), from one
+    prefill of them through its runner's model and attention routing."""
+    from semi_pd_tpu_torch.runtime.batch import build_extend_batch
+    from semi_pd_tpu_torch.runtime.req import Req
+
+    runner, sched = eng.runner, eng.scheduler
+    r = Req(rid="tf", input_ids=list(ids), sampling_params=SamplingParams(temperature=0.0))
+    r.req_slot = runner.req_pool.alloc()
+    pages = runner.page_allocator.alloc(-(-len(ids) // PS))
+    r.pages = pages.tolist()
+    runner.req_pool.write(r.req_slot, 0, pages)
+    hb = build_extend_batch([(r, len(ids))], runner.req_pool.page_table, PS, sched.t_buckets,
+                            sched.b_buckets, sched.p_buckets)
+    try:
+        with torch.inference_mode():
+            logits = runner.model(hb.to_device(runner.device), runner.kv_cache.buffer,
+                                  attention=runner.attention)
+        return logits[0].float().cpu()
+    finally:
+        runner.page_allocator.free(pages)
+        runner.req_pool.free(r.req_slot)
+
+
+@pytest.mark.parametrize("pool,kernels", [
+    ("chunked", ["rpa_decode", "rpa_extend"]),
+    ("latent", ["rpa_decode_mla", "rpa_extend_mla"]),
+])
+@pytest.mark.parametrize("kv", ["fp8_e4m3", "fp8_e5m2"])
+def test_engine_fp8_pools_on_cuda_match_cpu(cuda_device, pool, kernels, kv):
+    """fp8 KV on the chunked pool (Hkv 8, head_dim 64) and fp8 latent rows
+    (the kernels' 512 + 64) served on the card through the pool's two
+    kernels, against the same Engine on the CPU holding the same bf16
+    parameters (the card's kernels take fp8 under bf16 q). Unit final-norm
+    weights spread the logits; each request's greedy tokens must equal the
+    CPU's up to a first difference, which may only fall at a near tie: the
+    CPU's logit for the card's token within 2% of its logit range of its
+    own argmax (bf16 products summed in another order on two devices may
+    move a K or V value to the next fp8 step)."""
+    cfg = dict((_llama_cfg(D, num_kv_heads=8) if pool == "chunked" else _deepseek_cfg()),
+               dtype="bfloat16")
+    serve = dict(random_weights=True, page_size=PS, max_total_tokens=2048,
+                 chunked_prefill_size=64, enable_semi_pd=True, kv_cache_dtype=kv)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (20, 100, 37, 64)]
+    sp = SamplingParams(max_new_tokens=6, temperature=0.0, ignore_eos=True)
+    gpu = Engine(ServerArgs(**serve), ModelConfig(**cfg))
+    assert gpu.runner.kv_cache.buffer.dtype == FP8[kv]
+    gpu.runner.model.leaf("final_norm").fill_(1.0)
+    cpu = Engine(ServerArgs(device="cpu", **serve), ModelConfig(**cfg), device="cpu")
+    cpu.runner.model.load_jax_params(gpu.runner.model.params_tree())
+    for k in KERNELS.values():
+        k.launches = 0
+    got = [o["output_ids"] for o in gpu.generate(input_ids=prompts, sampling_params=sp)]
+    assert {n for n, k in KERNELS.items() if k.launches} == set(kernels)
+    want = [o["output_ids"] for o in cpu.generate(input_ids=prompts, sampling_params=sp)]
+    assert gpu.flush_cache() and cpu.flush_cache()
+    for prompt, g, w in zip(prompts, got, want):
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            continue
+        logits = _last_logits(cpu, prompt + w[:j])
+        assert int(logits.argmax()) == w[j]
+        gap = float(logits[w[j]] - logits[g[j]])
+        assert gap <= 0.02 * float(logits.max() - logits.min()), (j, gap)
+
+
 # ---------------------------------------------------------------- decode graphs
 def _deepseek_cfg(dtype="float32"):
     return dict(architecture="DeepseekV2ForCausalLM", vocab_size=512, hidden_size=256,
@@ -928,7 +1012,7 @@ def _deepseek_cfg(dtype="float32"):
                 dtype=dtype)
 
 
-# the seven decode paths at a tiny depth in bf16: (model config, ServerArgs
+# the decode paths at a tiny depth in bf16: (model config, ServerArgs
 # fields, the decode kernel)
 GRAPH_PATHS = {
     "chunked": (dict(_llama_cfg(D, num_kv_heads=8), dtype="bfloat16"), {}, "rpa_decode"),
@@ -943,6 +1027,11 @@ GRAPH_PATHS = {
                        "rpa_decode_stream_aligned"),
     "stream_latent": (_deepseek_cfg("bfloat16"), {"decode_stream": True},
                       "rpa_decode_stream_mla"),
+    # fp8 KV on the chunked pool, fp8 latent rows
+    "chunked_fp8": (dict(_llama_cfg(D, num_kv_heads=8), dtype="bfloat16"),
+                    {"kv_cache_dtype": "fp8_e4m3"}, "rpa_decode"),
+    "latent_fp8": (_deepseek_cfg("bfloat16"), {"kv_cache_dtype": "fp8_e4m3"},
+                   "rpa_decode_mla"),
 }
 
 

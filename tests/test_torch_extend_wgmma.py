@@ -338,6 +338,35 @@ def test_mla_warpgroups_split_the_dims_and_the_columns():
     assert MLA["MLA_WG_NT"] == 256 and rpa.EXTEND_Q_BLOCK * 16 % MLA["MLA_WG_ROWS"] == 0
 
 
+def test_mla_fp8_rows_cover_the_tile_once():
+    """fp8 latent rows reach the MLA extend's swizzled bf16 stage through
+    registers: a raw fp8 stage (48 x 576 bytes) beside the two bf16 stages
+    would exceed a block's shared memory. A tile's 1728 16-byte vectors are
+    6.75 for each of the 256 threads, so thread tid takes vectors tid + 256
+    k, k < MLA_WG_NRV = 7, the last round only below 1728; each widens to
+    the two bf16 chunks 2 c and 2 c + 1 of its row, and together they write
+    every 16-byte chunk of the 48 x 576 bf16 tile once, inside the stage."""
+    tk, nt, rv, nrv = MLA["MLA_WG_TK"], MLA["MLA_WG_NT"], MLA["MLA_WG_RV"], MLA["MLA_WG_NRV"]
+    assert rv == MLA["MLA_DL"] // 16 == 36 and nrv == 7
+    assert MLA["MLA_WG_SMEM"] + tk * MLA["MLA_DL"] > SMEM_PER_BLOCK >= MLA["MLA_WG_SMEM"]
+    seen, idle = {}, 0
+    for tid in range(nt):
+        for k in range(nrv):
+            v = tid + k * nt
+            if v >= tk * rv:
+                idle += 1
+                continue
+            p, c = divmod(v, rv)
+            for chunk in (2 * c, 2 * c + 1):
+                off = SW128(tk, p, chunk)
+                assert off % 16 == 0 and off + 16 <= MLA["MLA_WG_TILE"]
+                seen[off] = seen.get(off, 0) + 1
+    assert idle == nrv * nt - tk * rv == 64
+    assert sorted(seen) == sorted(SW128(tk, p, c) for p in range(tk)
+                                  for c in range(MLA["MLA_DL"] // 8))
+    assert set(seen.values()) == {1}
+
+
 # ---------------------------------------------------------------- the ring
 def _ring(ntiles, widen, stages, lag, seed, ncw=2):
     """rpa_extend_wgmma_kernel's producer and its ncw consumer warpgroups as

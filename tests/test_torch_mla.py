@@ -496,6 +496,20 @@ def test_kv_pool_layout_rule_for_mla():
                                    {"quantization_param_path": "scales.json"}],
                          ids=["fp8_latent_kv", "kv_scales"])
 def test_runner_refuses_fp8_and_scales_for_mla(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        Engine(ServerArgs(random_weights=True, device="cpu", **SERVE, **extra),
-               ModelConfig(**_cfg("v2")), device="cpu")
+    """fp8 latent rows are served (the latent pool in the fp8 dtype, as the
+    JAX runner sizes it); per-layer KV scales stay refused, as the JAX
+    runner refuses them: the latent pool holds K and V in one row."""
+    if "quantization_param_path" in extra:
+        with pytest.raises(ValueError, match="MLA models"):
+            Engine(ServerArgs(random_weights=True, device="cpu", **SERVE, **extra),
+                   ModelConfig(**_cfg("v2")), device="cpu")
+        return
+    eng = Engine(ServerArgs(random_weights=True, device="cpu", **SERVE, **extra),
+                 ModelConfig(**_cfg("v2")), device="cpu")
+    buf = eng.runner.kv_cache.buffer
+    assert buf.dtype == torch.float8_e4m3fn and buf.shape[-1] == DLAT
+    assert eng.runner.kv_spec.bytes_total() == buf.numel()
+    (out,) = eng.generate(input_ids=[[3, 1, 4, 1, 5, 9, 2, 6]],
+                          sampling_params=SamplingParams(max_new_tokens=3, temperature=0.0,
+                                                         ignore_eos=True))
+    assert len(out["output_ids"]) == 3 and eng.flush_cache()

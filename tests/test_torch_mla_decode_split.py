@@ -165,6 +165,41 @@ def test_padded_rows_are_free_of_ldmatrix_bank_conflicts():
     assert _conflicts(DL) == 8
 
 
+def test_fp8_rows_take_the_bf16_copy_map_in_8_byte_vectors():
+    """fp8 latent rows (576 bytes) are 36 16-byte vectors, 576 a tile: 4.5
+    for each of the 128 threads, no whole map. In 8-byte vectors a row is
+    72, the bf16 map's count, so MlaCopy runs the bf16 map (vector v = tid +
+    128 k, k < MLA_MMA_NV, is chunk v % 72 of row v / 72): it reads every 8
+    bytes of the 16 fp8 rows once, at 8-byte aligned addresses, and writes
+    each widened 16-byte bf16 chunk to the place the bf16 copy puts it, 18
+    registers of loads a thread; the source holds that map (8-byte __ldg
+    loads, widen8_bf16) beside the bf16 one (cp.async)."""
+    vpr, nv, nt = C["MLA_MMA_VPR"], C["MLA_MMA_NV"], C["MLA_MMA_NT"]
+    assert (TK * DL // 16) % nt and (TK * DL // 16) / nt == 4.5
+    assert DL // 8 == vpr and nv * nt == TK * vpr
+    read = np.zeros((TK, DL), int)
+    dst = set()
+    for tid in range(nt):
+        for kk in range(nv):
+            row, chunk = divmod(tid + kk * nt, vpr)
+            src = row * DL + chunk * 8  # bytes of the tile's fp8 rows
+            assert src % 8 == 0
+            read[row, chunk * 8:chunk * 8 + 8] += 1
+            dst.add(row * LD * 2 + chunk * 16)
+    assert (read == 1).all()
+    assert dst == {r * LD * 2 + c * 16 for r in range(TK) for c in range(vpr)}
+    # the loads take registers, not shared memory: the block keeps the bf16
+    # budget (test_shared_memory_budget), and with the 255 registers a thread
+    # may take at MLA_MMA_BLOCKS_PER_SM blocks of 128 threads (the launch
+    # bounds) two blocks still fit an SM's 65536
+    assert nv * 8 // 4 == 18  # registers of a thread's loads
+    assert C["MLA_MMA_BLOCKS_PER_SM"] * nt * 255 <= 65536
+    src = (KERNELS[DECODE].source.parent / "rpa_mla_mma.cuh").read_text()
+    assert "uint2 raw[WIDEN ? MLA_MMA_NV : 1]" in src
+    assert "__ldg(reinterpret_cast<const uint2*>(src))" in src
+    assert "widen8_bf16<TKV>(raw[k])" in src and "cp_async16_zfill(stage" in src
+
+
 def test_shared_memory_budget():
     """A block's 4 stages of 16 padded rows and its two buffers of S partials
     (a float4 per lane, n8 tile and warp) fit MLA_MMA_BLOCKS_PER_SM = 2

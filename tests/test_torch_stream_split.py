@@ -11,7 +11,7 @@ in block order.
 
 The statement is checked at the shapes of the card tests and of
 chip_smoke.py's decode phase, with the block counts the wrapper computes
-(``stream_blocks``, 132 SMs, bf16 and fp8 KV): every tile falls in exactly one share, shares
+(``stream_blocks``, 132 SMs, bf16 and fp8 KV on both pools): every tile falls in exactly one share, shares
 differ by at most one tile, each warp and block uses each of its two
 partial slots at most once, and the wrapper's scratch holds every slot.
 Then its merges, replayed in float64 on random scores, give each request's
@@ -29,9 +29,9 @@ from semi_pd_tpu_torch.ops.attention import rpa_stream
 
 # the GQA builds (the latent build's schedule: tests/test_torch_mla_decode_split.py)
 BUILDS = sorted(b for b in rpa_stream.STREAM_TILE if b != "rpa_decode_stream_mla")
-# (build, fp8 KV): the chunked pool takes bf16 KV only
-PLANS = [("rpa_decode_stream", False), ("rpa_decode_stream_aligned", False),
-         ("rpa_decode_stream_aligned", True)]
+# (build, fp8 KV): both pools take bf16 and fp8 KV
+PLANS = [("rpa_decode_stream", False), ("rpa_decode_stream", True),
+         ("rpa_decode_stream_aligned", False), ("rpa_decode_stream_aligned", True)]
 WARPS = rpa_stream.STREAM_WARPS
 
 
@@ -287,10 +287,13 @@ def test_stream_merges_give_the_full_softmax(build, fp8, name, kv_lens, max_kv, 
     ("rpa_decode_stream_aligned", False, 6, 2, 272, 51),
     ("rpa_decode_stream", False, 1, 8, 16, 1),
     ("rpa_decode_stream_aligned", True, 3, 8, 16, 2),
+    ("rpa_decode_stream", True, 64, 8, 1024, 49),
+    ("rpa_decode_stream", True, 1, 8, 16, 1),
 ])
 def test_stream_blocks_at_the_paths_shapes(build, fp8, B, hkv, max_kv, P):
     """With 8 KV heads on 132 SMs the grid is 33 x 8 blocks with bf16 KV
-    (two per SM) and 49 x 8 with fp8 KV (three per SM), whatever the batch;
+    (two per SM) and 49 x 8 with fp8 KV (three per SM), on either pool,
+    whatever the batch;
     a batch whose page tables hold fewer tiles than 4 P warps takes fewer
     blocks."""
     assert rpa_stream.stream_blocks(build, B, hkv, max_kv, 132, fp8) == P

@@ -53,6 +53,15 @@ each (any failure raises and exits non-zero):
              over the card's peak rates); beside each streaming decode's
              row, the packed decode's time on the same case
              (``packed_kernel_ms``) and, with bf16 q, its blocks per KV head.
+             Then the speculation cases (``spec_tree`` in their rows): the
+             tree verify (b64 x N = 29 rows of default_tree_template(4, 4),
+             prefixes 520-1000 on shuffled pages, every dead slot NaN)
+             through rpa_extend (bf16, float32) and rpa_extend_aligned
+             (bf16, float32, e4m3 KV), the tree's level-1 draft step (b64 x
+             4 rows of q_len 1 over the tiled page table) through
+             rpa_extend_merged at the draft pool's Hq 32 / Hkv 8, and
+             rpa_decode_merged at that geometry, b64 / kv1024; the library
+             call of a masked case is SDPA with the boolean tree mask.
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
              chunked pool with bf16 KV, then with fp8_e4m3 KV, the
@@ -102,8 +111,32 @@ each (any failure raises and exits non-zero):
              exactly, with bf16 and with fp8 rows: its two decodes give the
              same bits.
 
-Then one JSON line listing the kernels, the nvidia-smi name/power-limit line,
-and the result line {"ok": true, "device": {...}}.
+3s. spec model — the 1B-class model speculating (EAGLE, tree of topk 4 and
+             4 draft tokens; the draft drawn from seed + 1): one tree round
+             and one chain round over 4 prefilled requests through the
+             kernels and again through the plain attention (target and
+             draft pool), the target's logits within 5% on the rows both
+             verified alike; accept_len and next_tok of both printed.
+4s. spec serve — that engine serves the 32 prompts (64 greedy tokens,
+             the bench's settings, bf16 KV) with NGRAM, EAGLE chain and
+             EAGLE tree, colocated and semi-PD: only the speculating
+             path's builds launch (rpa_extend L times per prefill chunk
+             and per verify; rpa_decode_merged once per chain draft or
+             refresh step, rpa_extend_merged once per tree draft step;
+             rpa_decode never); rounds, accepted tokens per round, tok/s,
+             TTFT and ITL p50 and the prefill chunks printed. The tree
+             serve runs again and must give its own tokens exactly. Then a
+             non-speculating serve on the same weights; each speculating
+             serve's share of requests with its tokens, and the log-prob
+             gap at each first difference, are printed, not gated.
+4f. f32 gate — the 1B-class model in float32 (8 requests x 32 tokens)
+             served with the EAGLE tree and without speculation: the tokens
+             must be equal.
+
+Then one JSON line listing the kernels (the three GQA extends with
+``masked_max_abs_err``, the largest error of their masked cases), the
+nvidia-smi name/power-limit line, and the result line {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -125,7 +158,10 @@ PAGE = 16
 # Llama-3-8B's, TinyLlama-1.1B's (the 5D pool at head_dim 64: the merged
 # kernels), and DeepSeek-V2-Lite's latent row (kv_lora 512 + rope 64)
 GEOMETRY = {"chunked": (32, 8, 64, 64), "aligned": (32, 8, 128, 128),
-            "merged": (32, 4, 64, 64), "latent": (16, 1, 576, 512)}
+            "merged": (32, 4, 64, 64), "latent": (16, 1, 576, 512),
+            # the 1B-class model's EAGLE draft pool: its 5D pool at head_dim
+            # 64 with Hkv 8 takes the merged kernels
+            "draft": (32, 8, 64, 64)}
 
 # H100 SXM5 80GB dense peaks (NVIDIA H100 Tensor Core GPU data sheet):
 # HBM3 bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor
@@ -212,6 +248,7 @@ def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype):
     shape = {"chunked": (1, total * PAGE, 2 * HKV * D // 128, 128),
              "aligned": (1, 2, total * PAGE, HKV, D),
              "merged": (1, 2, total * PAGE, HKV, D),
+             "draft": (1, 2, total * PAGE, HKV, D),
              "latent": (1, 1, total * PAGE, 1, D)}[pool]
     kv = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
     T = int(sum(q_lens))
@@ -246,7 +283,7 @@ def kernel_name(kind, pool):
     """kind: "decode", "extend" or "stream" (the streaming decode)."""
     base = "rpa_decode_stream" if kind == "stream" else f"rpa_{kind}"
     return base + {"chunked": "", "aligned": "_aligned", "merged": "_merged",
-                   "latent": "_mla"}[pool]
+                   "draft": "_merged", "latent": "_mla"}[pool]
 
 
 def dtype_name(dt):
@@ -487,6 +524,189 @@ def phase_kernels():
                                                                  [2048] * 2)}.items():
             for kdt in (e4m3, e5m2) if name == "extend_b8_q256_kv2048" else (e4m3,):
                 rows.append(run_kernel_case(name, "extend", gen, rng, ql, kl, bf, pool, kdt))
+    return rows
+
+
+# ------------------------------------------------------- phase 2, the tree
+def tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level=None, B=64):
+    """A speculation tree's attention on the card: B requests of 520-1000
+    committed positions on SHUFFLED pages, each followed by the window of
+    the tree's N nodes (slot-order positions prefix + j). Without
+    ``draft_level``: the tree verify, N rows per request (q_start = prefix).
+    With it: that level's draft step, B * n rows of q_len 1 over the page
+    table tiled n times (kv_len = the node's slot + 1). Every slot no live
+    position holds is NaN (C2). Returns the wrapper's arguments and what
+    the bound and the library call need."""
+    import torch
+
+    from semi_pd_tpu_torch.runtime.forward_batch import build_attn_meta
+    from semi_pd_tpu_torch.speculative.eagle import _decode_meta
+
+    HQ, HKV, D, _ = GEOMETRY[pool]
+    N = tree.num_nodes
+    prefix = rng.integers(520, 1001, size=B)
+    lens = prefix + N
+    n_pages = [-(-int(k) // PAGE) for k in lens]
+    total = sum(n_pages) + 1
+    perm = rng.permutation(np.arange(1, total))
+    pt = np.zeros((B, max(n_pages)), np.int32)
+    live = np.zeros(total * PAGE, bool)
+    used = 0
+    for b, n in enumerate(n_pages):
+        pt[b, :n] = perm[used:used + n]
+        used += n
+        pos = np.arange(lens[b])
+        live[pt[b, pos // PAGE] * PAGE + pos % PAGE] = True
+    shape = ((1, total * PAGE, 2 * HKV * D // 128, 128) if pool == "chunked"
+             else (1, 2, total * PAGE, HKV, D))
+    kv = torch.randn(shape, generator=gen, device="cuda")
+    dead = torch.as_tensor(~live, device="cuda")
+    if pool == "chunked":
+        kv[:, dead] = float("nan")
+    else:
+        kv[:, :, dead] = float("nan")
+    kv = kv.to(kv_dtype)
+    if draft_level is None:
+        q_lens = np.full(B, N)
+        kv_lens = lens
+        q_abs = (prefix[:, None] + np.arange(N)[None]).reshape(-1)
+        meta = build_attn_meta(q_lens, kv_lens, B * N, device="cuda")
+        req, win = np.repeat(np.arange(B), N), prefix
+        window_rows = N
+    else:
+        level = tree.level_nodes[draft_level]
+        # a draft step reads the window's nodes some row of its level sees:
+        # the union of their ancestor masks (the root and the 4 nodes at level 1)
+        window_rows = bin(int(np.bitwise_or.reduce([tree.anc_bits[j] for j in level]))).count("1")
+        q_abs = np.concatenate([prefix + j for j in level])
+        kv_lens = q_abs + 1
+        meta = _decode_meta(torch.as_tensor(q_abs.astype(np.int32), device="cuda"))
+        req, pt, win = np.tile(np.arange(B), len(level)), np.tile(pt, (len(level), 1)), \
+            np.tile(prefix, len(level))
+    T = len(q_abs)
+    q = torch.randn((T, HQ, D), generator=gen, device="cuda").to(dtype)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device="cuda")
+    return dict(q=q, kv=kv, pt=t(pt), kvl=t(kv_lens), meta=meta, win_base=t(win),
+                q_abs=q_abs, req=req, prefix=prefix,
+                unique_rows=int(prefix.sum()) + B * window_rows)
+
+
+def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None):
+    """One masked case of phase 2: the GQA extend of ``pool`` with the
+    tree's masks against its plain version, timed beside the plain version,
+    one scaled_dot_product_attention over pre-gathered KV with the boolean
+    tree mask (upcast to bf16 for fp8 KV), and the bound. Its row is a
+    ``kernel_case`` line with ``spec_tree`` set."""
+    import torch
+    import torch.nn.functional as F
+
+    from semi_pd_tpu_torch.kernels import KERNELS
+    from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
+    from semi_pd_tpu_torch.ops.attention.rpa_common import spec_tree_mask
+
+    HQ, HKV, D, DV = GEOMETRY[pool]
+    c = tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level)
+    anc = tuple(int(a) for a in tree.anc_bits)
+    kw = dict(page_size=PAGE, scale=D ** -0.5, spec_anc=anc, win_base=c["win_base"])
+    args = (c["q"], c["kv"], 0, c["pt"], c["kvl"], c["meta"])
+    if pool == "chunked":
+        kern = lambda: rpa.ragged_paged_attention_chunked_extend(
+            *args, num_kv_heads=HKV, head_dim=D, **kw)
+        plain = lambda: rpa.extend_attention_plain(*args, num_kv_heads=HKV, head_dim=D, **kw)
+    else:
+        kern = lambda: rpa.ragged_paged_attention_extend(*args, **kw)
+        plain = lambda: rpa.ragged_paged_attention_extend_plain(*args, **kw)
+    counter = KERNELS[kernel_name("extend", pool)]
+    out_k = kern()
+    torch.cuda.synchronize()
+    out_p = plain()
+    err = (out_k.float() - out_p.float()).abs()
+    tol = TOL[dtype_name(dtype)]
+    max_err = float(err.max())
+    if not (bool((err <= tol + tol * out_p.float().abs()).all())
+            and bool(torch.isfinite(out_k).all())):
+        raise AssertionError(f"{name} {pool} {dtype_name(dtype)}/{dtype_name(kv_dtype)}: the "
+                             f"masked kernel disagrees with its plain version (max abs err "
+                             f"{max_err:.3g}, tol {tol})")
+    before = counter.launches
+    ms = cuda_ms(kern, 20)
+    launches = counter.launches - before + 1
+    plain_ms = cuda_ms(plain, 2)
+
+    # the work these inputs need: each row sees the prefix before its window
+    # and its ancestors in it; the KV rows some row sees, read once per request
+    popc = np.array([bin(a).count("1") for a in anc])
+    pairs = int(sum(int(c["prefix"][r]) + popc[qa - c["prefix"][r]]
+                    for r, qa in zip(c["req"], c["q_abs"])))
+    flops = 2.0 * pairs * HQ * (D + DV)
+    q, kv = c["q"], c["kv"]
+    nbytes = (2 * q.numel() * q.element_size() + c["unique_rows"] * 2 * HKV * D * kv.element_size()
+              + c["pt"].numel() * 4 + c["kvl"].numel() * 4 + c["win_base"].numel() * 4)
+    bw, bf16_peak, f32_peak = PEAKS
+    t_bytes = nbytes / bw * 1e3
+    t_ops = flops / (bf16_peak if dtype == torch.bfloat16 else f32_peak) * 1e3
+
+    # library yardstick: SDPA over dense KV gathered per row group (a
+    # request's N verify rows, or each draft row over its tiled table) with
+    # the boolean causal-and-tree mask
+    K, V, kvmax = dense_kv(kv, c["pt"], c["kvl"], pool, dtype)
+    pos = torch.arange(kvmax, device="cuda")
+    if draft_level is None:
+        B, N = len(c["prefix"]), tree.num_nodes
+        qd = q.reshape(B, N, HQ, D).transpose(1, 2)
+        qa = torch.as_tensor(c["q_abs"], device="cuda").reshape(B, N, 1)
+        wb = torch.as_tensor(c["prefix"], device="cuda")[:, None, None]
+    else:
+        qd = q[:, :, None, :]
+        qa = torch.as_tensor(c["q_abs"], device="cuda")[:, None, None]
+        wb = c["win_base"].long()[:, None, None]
+    mask = spec_tree_mask((pos[None, None] <= qa) & (pos[None, None] < c["kvl"].long()[:, None, None]),
+                          anc, wb, qa, pos[None, None])[:, None]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qd, K, V, attn_mask=mask, scale=D ** -0.5, enable_gqa=True), 20)
+    row = dict(case=name, kernel=counter.name, pool=pool, dtype=dtype_name(dtype),
+               kv_dtype=dtype_name(kv_dtype), spec_tree=list(tree.branching),
+               draft_level=draft_level, rows=int(q.shape[0]), max_abs_err=max_err,
+               kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               library="sdpa_tree_mask" + ("_over_kv_upcast_to_bf16" if kv_dtype != dtype else ""),
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+               launches=launches)
+    print("kernel_case " + json.dumps(row), flush=True)
+    del c, K, V, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_spec_kernels():
+    """Phase 2's speculation cases, after every other case (so that those
+    draw the inputs they drew before): the tree verify (b64 x N = 29,
+    default_tree_template(4, 4)) through rpa_extend at the 1B-class
+    geometry and through rpa_extend_aligned at the 8B's (bf16, float32 and
+    e4m3 KV), the tree's level-1 draft step (b64 x 4 rows) through
+    rpa_extend_merged at the draft pool's Hq 32 / Hkv 8, and rpa_decode_merged
+    at that geometry (the chain's draft steps), b64 / kv1024."""
+    import torch
+
+    from semi_pd_tpu_torch.speculative.tree import default_tree_template
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    rng = np.random.default_rng(14)
+    tree = default_tree_template(4, 4)
+    bf, f32, e4m3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+    rows = []
+    for pool, pairs in (("chunked", [(bf, bf), (f32, f32)]),
+                        ("aligned", [(bf, bf), (f32, f32), (bf, e4m3)])):
+        for dt, kdt in pairs:
+            rows.append(run_tree_case("tree_verify_b64_n29", gen, rng, pool, dt, kdt, tree))
+    for dt in (bf, f32):
+        rows.append(run_tree_case("tree_draft_b64x4", gen, rng, "draft", dt, dt, tree,
+                                  draft_level=1))
+    lens = rng.integers(512, 1025, size=64)
+    lens[0] = 1024
+    for dt in (bf, f32):
+        rows.append(run_kernel_case("decode_b64_kv1024_draft", "decode", gen, rng, [1] * 64,
+                                    lens.tolist(), dt, "draft"))
     return rows
 
 
@@ -844,6 +1064,270 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False,
     return res, [o["output_ids"] for o in outs]
 
 
+# ------------------------------------------------------- speculative decoding
+SPEC_ALGOS = {"ngram": dict(speculative_algorithm="NGRAM", speculative_num_draft_tokens=4),
+              "chain": dict(speculative_algorithm="EAGLE", speculative_num_draft_tokens=4),
+              "tree": dict(speculative_algorithm="EAGLE", speculative_num_draft_tokens=4,
+                           speculative_eagle_topk=4)}
+
+
+def spec_server_args(semi_pd: bool, algo: str, **kw):
+    """The bench's server settings with speculative decoding: NGRAM with 4
+    draft tokens, EAGLE chain with 4, EAGLE tree with topk 4 and 4 draft
+    tokens (default_tree_template(4, 4): branching (4, 2, 1, 1), 29 nodes)."""
+    import dataclasses
+
+    return dataclasses.replace(bench_server_args(semi_pd), **SPEC_ALGOS[algo], **kw)
+
+
+# the embedding's gain in make_predictive: a larger gain lets the last
+# token decide more of the target's argmax, so more drafts are accepted,
+# but hides more of attention from the token gates (too large, and a
+# broken tree mask no longer changes a token); 1 leaves the 16-layer,
+# 128256-token model's drafts seldom accepted. NGRAM drafts from a
+# request's own repeats, which a gain of 3 breaks up (the target's greedy
+# tokens then follow the last token alone, in no short loop), so its
+# engine, and the plain one it is compared with, keep 1.
+EMBED_GAIN = 3.0
+SPEC_GAIN = {"ngram": 1.0, "chain": EMBED_GAIN, "tree": EMBED_GAIN}
+
+
+def make_predictive(runner, gain=EMBED_GAIN):
+    """Make the random weights predictive, as the CPU tests do, so that
+    EAGLE's drafts are accepted and its rounds run their accepted paths (the
+    compaction and the refresh after acceptance): the target's final norm
+    ones, so its argmax is the head's over its last hidden state, which the
+    last token's embedding (times ``gain``) dominates at the 0.02 init;
+    the draft's fc passing the token embedding through (and 0.01 of the fed
+    hidden state), so the draft's head sees mostly that embedding. Every
+    engine whose tokens are compared with another's gets it, NGRAM's and
+    the plain one's too."""
+    import torch
+
+    H = runner.model_config.hidden_size
+    with torch.no_grad():
+        runner.model.leaf("final_norm").fill_(1.0)
+        runner.model.leaf("embed.w").mul_(gain)
+        if runner.draft_model is not None:
+            fc = runner.draft_model.leaf("fc.w")
+            fc[H:] *= 0.01
+            fc[:H] = torch.eye(H, dtype=fc.dtype, device=fc.device)
+            runner.set_spec_thresholds()
+
+
+def phase_spec_model(eng, label):
+    """One tree round and one chain round of the speculating engine at full
+    width through the kernels and again through the plain attention (target
+    and draft pool), from the same state: 4 requests (700, 300, 1500 and 37
+    prompt tokens) prefilled through the kernels with their hidden states.
+    A verify row is compared where both runs verified the same tokens on
+    its path (a draft's top-k may flip at a near tie); the target's logits
+    there must stay within 5% of the logit range, and the root rows always
+    compare."""
+    import torch
+
+    from semi_pd_tpu_torch.layers.attention import pool_attention
+    from semi_pd_tpu_torch.runtime.batch import (
+        build_extend_batch, build_spec_verify_batch, build_tree_verify_batch,
+    )
+    from semi_pd_tpu_torch.runtime.req import Req
+    from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+    from semi_pd_tpu_torch.speculative.eagle import eagle_round, eagle_tree_round
+
+    t0 = time.monotonic()
+    runner, sched = eng.runner, eng.scheduler
+    if not eng.flush_cache():
+        raise AssertionError("engine not idle before the speculation model phase")
+    vocab = runner.model_config.vocab_size
+    rng = np.random.default_rng(5)
+    reqs = []
+    for i, n in enumerate((700, 300, 1500, 37)):
+        r = Req(rid=f"s{i}", input_ids=rng.integers(0, vocab, size=n).tolist(),
+                sampling_params=SamplingParams(temperature=0.0))
+        r.req_slot = runner.req_pool.alloc()
+        pages = runner.page_allocator.alloc(-(-(n + 40) // PAGE))
+        r.pages = pages.tolist()
+        runner.req_pool.write(r.req_slot, 0, pages)
+        reqs.append(r)
+    hb = build_extend_batch([(r, r.prompt_len) for r in reqs], runner.req_pool.page_table,
+                            PAGE, sched.t_buckets, sched.b_buckets, sched.p_buckets)
+    tok, _, hidden = runner.step_with_hidden_host(hb)
+    for i, r in enumerate(reqs):
+        r.prefilled_len = r.prompt_len
+        r.output_ids.append(int(tok[i]))
+    prev = hidden.float()
+    routes = {"kernels": (runner.attention, runner.draft_attention),
+              "plain": (pool_attention(runner.kv_cache.buffer, plain=True),
+                        pool_attention(runner.draft_kv.buffer, plain=True))}
+    tree, g = runner.tree_template, sched.spec_gamma
+    anc = np.array(tree.anc_bits)
+    out = []
+    for kind in ("tree", "chain"):
+        if kind == "tree":
+            hb = build_tree_verify_batch(reqs, tree, runner.req_pool.page_table, PAGE,
+                                         sched.b_buckets, sched.p_buckets)
+        else:
+            hb, _, _ = build_spec_verify_batch(reqs, [[0] * g] * len(reqs), g,
+                                               runner.req_pool.page_table, PAGE,
+                                               sched.b_buckets, sched.p_buckets)
+        res = {}
+        for route, (att, datt) in routes.items():
+            fb = hb.to_device(runner.device)
+            kw = dict(attention=att, draft_attention=datt)
+            if kind == "tree":
+                res[route] = eagle_tree_round(runner.model, runner.draft_model,
+                                              runner.kv_cache.buffer, runner.draft_kv.buffer,
+                                              fb, prev[: hb.B], tree, **kw)
+            else:
+                res[route] = eagle_round(runner.model, runner.draft_model,
+                                         runner.kv_cache.buffer, runner.draft_kv.buffer, fb,
+                                         prev[: hb.B], g, runner.generator, **kw)
+        torch.cuda.synchronize()
+        k, p = res["kernels"], res["plain"]
+        n, W = len(reqs), k.window.shape[1]
+        wk, wp = k.window[:n].cpu().numpy(), p.window[:n].cpu().numpy()
+        # row j compares where the tokens on its path agree: its ancestors
+        # in the tree, the window's first j + 1 in the chain
+        path = (np.array([[(a >> i) & 1 for i in range(W)] for a in anc], bool)
+                if kind == "tree" else np.tril(np.ones((W, W), bool)))
+        same = ~((wk != wp)[:, None, :] & path[None]).any(-1)  # [n, W]
+        lk = k.logits.reshape(-1, W, vocab)[:n][torch.as_tensor(same, device="cuda")]
+        lp = p.logits.reshape(-1, W, vocab)[:n][torch.as_tensor(same, device="cuda")]
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            raise AssertionError(f"{label} {kind} round: non-finite logits")
+        rel = float((lk - lp).abs().max() / lp.abs().max())
+        row = dict(model=label, round=kind, rows_compared=int(same.sum()), rows=n * W,
+                   rel_err=rel, argmax_agree=float((lk.argmax(-1) == lp.argmax(-1)).float().mean()),
+                   accept_len={r: x.accept_len[:n].tolist() for r, x in res.items()},
+                   next_tok={r: x.next_tok[:n].tolist() for r, x in res.items()})
+        print("spec_model " + json.dumps(row), flush=True)
+        out.append(row)
+        if not same[:, 0].all() or rel > 0.05:
+            raise AssertionError(f"{label} {kind} round: kernels vs plain rel err {rel:.3g} "
+                                 f"over {int(same.sum())} rows (root rows compared: "
+                                 f"{bool(same[:, 0].all())})")
+    for r in reqs:
+        runner.page_allocator.free(np.asarray(r.pages, np.int32))
+        runner.req_pool.free(r.req_slot)
+    print("spec_model_phase " + json.dumps(dict(model=label, seconds=time.monotonic() - t0)),
+          flush=True)
+    return out
+
+
+def spec_serve(eng, algo, semi_pd, prompts, max_new=64):
+    """One speculating serve of ``prompts`` (greedy, ``max_new`` tokens) on
+    ``eng``, an Engine built for ``algo`` (spec_server_args); launch
+    counters set to 0 just before and read just after. Only the builds of
+    the speculating path may launch, each L times per step of its kind: the
+    target's extend per prefill chunk and per verify (L layers), the draft
+    pool's decode per chain draft or refresh step and its extend per tree
+    draft step (one layer); never the target's decode."""
+    import torch
+
+    from semi_pd_tpu_torch.kernels import KERNELS
+    from semi_pd_tpu_torch.ops.attention.rpa_common import kernel_family
+    from semi_pd_tpu_torch.runtime.scheduler import Scheduler
+    from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner = eng.runner
+    if not eng.flush_cache():
+        raise AssertionError("engine not idle before a speculating serve")
+    if ((runner.draft_model is None) != (algo == "ngram")
+            or (runner.tree_template is None) == (algo == "tree")):
+        raise AssertionError(f"{algo} serve on an engine built for "
+                             f"{eng.server_args.speculative_algorithm}")
+    args = spec_server_args(semi_pd, algo, kv_cache_dtype=eng.server_args.kv_cache_dtype,
+                            max_total_tokens=eng.server_args.max_total_tokens)
+    eng.server_args = args
+    eng.scheduler = Scheduler(args, runner)
+    runner.step_counts = {"decode": 0, "extend": 0}
+    runner.spec_counts = {k: 0 for k in runner.spec_counts}
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    outs = eng.generate(input_ids=prompts, sampling_params=SamplingParams(
+        max_new_tokens=max_new, temperature=0.0, ignore_eos=True))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    steps, spec = dict(runner.step_counts), dict(runner.spec_counts)
+    s = eng.scheduler
+    vocab = runner.model_config.vocab_size
+    reqs = [s.reqs_by_rid[o["rid"]] for o in outs]
+    for o in outs:
+        if o["meta_info"]["finish_reason"] != "length" or len(o["output_ids"]) != max_new:
+            raise AssertionError(f"{algo}: request {o['rid']} did not complete")
+        if not all(0 <= t < vocab for t in o["output_ids"]):
+            raise AssertionError(f"{algo}: request {o['rid']}: token out of range")
+    L = runner.model_config.num_hidden_layers
+    pool = PATH_KERNELS[kernel_family(runner.kv_cache.buffer)]
+    want = {pool[1]: L * (steps["extend"] + spec["verify"])}
+    if algo != "ngram":
+        want["rpa_decode_merged"] = spec["draft_decode"]
+        want["rpa_extend_merged"] = spec["draft_tree"]
+    bad = {k: (n, want.get(k, 0)) for k, n in launches.items() if n != want.get(k, 0)}
+    if (bad or steps["decode"] or not spec["verify"] or not steps["extend"]
+            or (algo == "tree" and not spec["draft_tree"])
+            or (algo == "chain" and (spec["draft_tree"] or not spec["draft_decode"]))):
+        raise AssertionError(f"{algo} serve: launches (got, want) {bad}, steps {steps}, "
+                             f"speculation steps {spec}")
+    if not s.n_spec_accepted:  # the rounds' accepted paths must run
+        raise AssertionError(f"{algo} serve: no draft accepted in {s.n_spec_steps} rounds")
+    if not eng.flush_cache():  # runs check_memory()
+        raise AssertionError("engine not idle after a speculating serve")
+    ttft = [r.first_token_time - r.queue_time for r in reqs]
+    itl = [(r.finish_time - r.first_token_time) / (len(r.output_ids) - 1) for r in reqs]
+    res = dict(algo=algo, mode="semi_pd" if semi_pd else "colocated",
+               kv_dtype=str(runner.kv_cache.buffer.dtype).replace("torch.", ""),
+               requests=len(outs), wall_s=wall, tok_s=len(outs) * max_new / wall,
+               ttft_p50_s=statistics.median(ttft), itl_p50_ms=1e3 * statistics.median(itl),
+               rounds=s.n_spec_steps, accepted=s.n_spec_accepted,
+               accepted_per_round=s.n_spec_accepted / max(s.n_spec_steps, 1),
+               prefill_chunks=steps["extend"], steps=steps, spec_steps=spec,
+               launches={k: n for k, n in launches.items() if n})
+    return res, [o["output_ids"] for o in outs]
+
+
+def first_diffs(eng, prompts, a_runs, b_runs):
+    """Share of requests with identical tokens in two serves, and for each
+    other request its first differing position and the target's log-prob
+    gap there between the two picks, from one extend over the prompt and
+    the shared tokens (the kernels' routing; serve_witness.py reads the
+    gap from each serve's own log-probs, which a speculating serve does not
+    keep)."""
+    import torch
+
+    from semi_pd_tpu_torch.runtime.batch import build_extend_batch
+    from semi_pd_tpu_torch.runtime.req import Req
+    from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner, sched = eng.runner, eng.scheduler
+    if not eng.flush_cache():
+        raise AssertionError("engine not idle before the gap extends")
+    diffs = []
+    for i, (a, b) in enumerate(zip(a_runs, b_runs)):
+        d = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None:
+            continue
+        r = Req(rid=f"gap{i}", input_ids=prompts[i] + a[:d],
+                sampling_params=SamplingParams(temperature=0.0))
+        r.req_slot = runner.req_pool.alloc()
+        pages = runner.page_allocator.alloc(-(-r.prompt_len // PAGE))
+        r.pages = pages.tolist()
+        runner.req_pool.write(r.req_slot, 0, pages)
+        hb = build_extend_batch([(r, r.prompt_len)], runner.req_pool.page_table, PAGE,
+                                sched.t_buckets, sched.b_buckets, sched.p_buckets)
+        with torch.inference_mode():
+            logits = runner.model(hb.to_device(runner.device), runner.kv_cache.buffer,
+                                  attention=runner.attention)
+        lp = torch.log_softmax(logits[0].float(), -1)
+        diffs.append(dict(req=i, first_diff=d, logprob_gap=float(abs(lp[a[d]] - lp[b[d]]))))
+        runner.page_allocator.free(pages)
+        runner.req_pool.free(r.req_slot)
+    return dict(same_requests=1 - len(diffs) / len(a_runs), diffs=diffs)
+
+
 def main() -> int:
     import torch
 
@@ -927,8 +1411,13 @@ def main() -> int:
     # 2. kernels against their plain versions
     t0 = time.monotonic()
     rows = phase_kernels()
-    print("kernels_phase " + json.dumps(dict(cases=len(rows), seconds=time.monotonic() - t0)),
-          flush=True)
+    # the speculation cases: the three GQA extends with the tree's masks
+    # (spec_rows) and the draft pool's decode
+    spec = phase_spec_kernels()
+    spec_rows = [r for r in spec if "spec_tree" in r]
+    rows += [r for r in spec if "spec_tree" not in r]
+    print("kernels_phase " + json.dumps(dict(cases=len(rows) + len(spec_rows),
+                                             seconds=time.monotonic() - t0)), flush=True)
 
     # 3 and 4: full-width models and serving. Each path's launch counts are
     # those of its own serving run, counters zeroed just before each mode
@@ -1004,11 +1493,106 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    def spec_engine(algo, cfg=None, gain=EMBED_GAIN, **kw):
+        """An Engine of its own for ``algo`` (spec_server_args; None: the
+        bench's settings without speculation) on predictive weights: every
+        one draws the same target weights from the seed, and EAGLE's draft
+        from the seed + 1."""
+        import dataclasses
+
+        args = (spec_server_args(False, algo, **kw) if algo
+                else dataclasses.replace(bench_server_args(False), **kw))
+        eng = Engine(args, cfg or llama_1b_config())
+        make_predictive(eng.runner, gain)
+        return eng
+
+    def spec_phase(label):
+        """The speculating serves (phase 4s), each algorithm on an Engine
+        built for it: NGRAM, EAGLE chain and EAGLE tree, colocated and
+        semi-PD, the tree colocated once more (its own tokens exactly; the
+        tree engine first runs the speculation model phase), then the
+        non-speculating serve on an Engine of its own for each embedding
+        gain (SPEC_GAIN), which the serves on its weights are compared with
+        (printed, not gated)."""
+        t0 = time.monotonic()
+        vocab = llama_1b_config().vocab_size
+        prompts = prompts_for(vocab)
+        runs = {}
+        for algo in SPEC_ALGOS:
+            eng = spec_engine(algo, gain=SPEC_GAIN[algo])
+            if algo == "tree":
+                phase_spec_model(eng, label)
+            for semi in (False, True) + ((False,) if algo == "tree" else ()):
+                r, out = spec_serve(eng, algo, semi, prompts)
+                for k, v in r["launches"].items():
+                    main_launches[k] += v
+                key = f"{algo}_{r['mode']}"
+                print("spec_serve " + json.dumps(dict(r, model=label, gpu=smi,
+                                                      embed_gain=SPEC_GAIN[algo],
+                                                      repeat=key in runs)), flush=True)
+                if key in runs:
+                    again = float(np.mean([a == b for a, b in zip(runs[key], out)]))
+                else:
+                    runs[key] = out
+            release(eng)
+        witness = {}
+        for gain in sorted(set(SPEC_GAIN.values())):
+            eng = spec_engine(None, gain=gain)
+            r, plain = serve_mode(eng, False, prompts, vocab, "chunked")
+            for k, v in r["launches"].items():
+                main_launches[k] += v
+            print("serve " + json.dumps(dict(r, model=label + " (no speculation)", gpu=smi,
+                                             embed_gain=gain)), flush=True)
+            witness.update({k: first_diffs(eng, prompts, plain, out) for k, out in runs.items()
+                            if SPEC_GAIN[k.split("_")[0]] == gain})
+            release(eng)
+        print("spec_serve_phase " + json.dumps(dict(
+            model=label, tree_repeat_same_tokens=again,
+            same_as_plain={k: w["same_requests"] for k, w in witness.items()},
+            first_diffs={k: w["diffs"] for k, w in witness.items()},
+            seconds=time.monotonic() - t0)), flush=True)
+        if again != 1.0:
+            raise AssertionError(f"{label}: the tree serve repeated gave other tokens "
+                                 f"({again:.3f} of requests the same)")
+
+    def spec_f32_gate():
+        """Phase 4f: the float32 1B-class model (8 requests x 32 tokens,
+        prompts 256-1024) on predictive weights, served with the EAGLE tree
+        (drafts accepted) and, on an Engine of its own, without
+        speculation: the tokens must be equal."""
+        from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+        t0 = time.monotonic()
+        cfg = llama_1b_config()
+        cfg.dtype = "float32"
+        prompts = prompts_for(cfg.vocab_size, 1024)[:8]
+        eng = spec_engine("tree", cfg, max_total_tokens=32768)
+        r, spec_out = spec_serve(eng, "tree", False, prompts, max_new=32)
+        for k, v in r["launches"].items():
+            main_launches[k] += v
+        release(eng)
+        eng = spec_engine(None, cfg, max_total_tokens=32768)
+        outs = eng.generate(input_ids=prompts, sampling_params=SamplingParams(
+            max_new_tokens=32, temperature=0.0, ignore_eos=True))
+        plain = [o["output_ids"] for o in outs]
+        release(eng)
+        same = float(np.mean([a == b for a, b in zip(spec_out, plain)]))
+        print("spec_f32 " + json.dumps(dict(r, model="llama-3.2-1b-class float32", gpu=smi,
+                                            same_as_plain=same,
+                                            seconds=time.monotonic() - t0)), flush=True)
+        if same != 1.0:
+            raise AssertionError(f"float32: the tree serve's tokens differ from the plain "
+                                 f"serve's ({same:.3f} of requests the same)")
+
     eng = model_phase("llama-3.2-1b-class", llama_1b_config(), "auto")
     graph_phase(eng, "llama-3.2-1b-class", "chunked")
     packed = serve_phase(eng, "llama-3.2-1b-class", "chunked", repeat=True, eager=True)
     stream_phase(eng, "llama-3.2-1b-class", "chunked", "auto", packed)
     release(eng)
+    # the speculating engines on the 1B-class model: NGRAM, EAGLE chain and
+    # EAGLE tree (topk 4, 4 draft tokens), the draft drawn from the seed + 1
+    spec_phase("llama-3.2-1b-class spec")
+    spec_f32_gate()
     # the 1B-class model with fp8_e4m3 KV on the chunked pool
     label = "llama-3.2-1b-class fp8_e4m3"
     eng = model_phase(label, llama_1b_config(), "fp8_e4m3")
@@ -1068,6 +1652,9 @@ def main() -> int:
             launches=main_launches[kname], max_abs_err=max(errs),
             ms=row["kernel_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+        masked = [r["max_abs_err"] for r in spec_rows if r["kernel"] == kname]
+        if masked:  # the three GQA extends' cases with a speculation tree
+            kernels[-1]["masked_max_abs_err"] = max(masked)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

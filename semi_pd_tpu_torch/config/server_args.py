@@ -2,11 +2,13 @@
 
 Keeps the ServerArgs fields the main serving path reads (memory sizing,
 bucket tables, the colocated and semi-PD scheduling knobs, the overlap
-ring, the KV dtype and its fp8 scales) with the JAX package's defaults and
-comments' meaning, and adds ``device`` and ``decode_stream`` (the JAX
-package's RPA_DECODE_STREAM environment switch as an argument). The CLI,
-HTTP, LoRA, speculation, parallelism, weight quantization and grammar flags
-belong to later slices of the port (ROADMAP queue A).
+ring, the KV dtype and its fp8 scales, speculative decoding: NGRAM and
+EAGLE chain and tree) with the JAX package's defaults and comments'
+meaning, and adds ``device`` and ``decode_stream`` (the JAX package's
+RPA_DECODE_STREAM environment switch as an argument). NEXTN and a draft
+checkpoint are refused by the runner (ROADMAP A11's rest, A13). The CLI,
+HTTP, LoRA, parallelism, weight quantization and grammar flags belong to
+later slices of the port (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import dataclasses
 from typing import List, Optional
 
 KV_CACHE_DTYPES = ("auto", "bfloat16", "float32", "fp8_e4m3", "fp8_e5m2")
+SPECULATIVE_ALGORITHMS = (None, "EAGLE", "NEXTN", "NGRAM")
 
 
 @dataclasses.dataclass
@@ -76,9 +79,39 @@ class ServerArgs:
 
     decode_log_interval: float = 10.0  # seconds between decode-stats lines
 
+    # Speculative decoding
+    speculative_algorithm: Optional[str] = None  # EAGLE | NEXTN | NGRAM
+    # drafts a round verifies: the chain's gamma, the tree's depth
+    speculative_num_draft_tokens: int = 4
+    # EAGLE tree drafting: >1 enables top-k tree speculation (greedy
+    # requests; sampled requests fall back to chain drafts). The tree shape
+    # is static: see speculative/tree.py default_tree_template.
+    speculative_eagle_topk: int = 1
+    # Skip the post-verify draft-extend refresh; outputs stay exact either
+    # way, acceptance drops
+    speculative_disable_draft_refresh: bool = False
+    speculative_draft_model_path: Optional[str] = None
+    # FR-Spec hot-token map (.pt/.json/.npy list of token ids): the EAGLE
+    # draft head is sliced to this subset
+    speculative_token_map: Optional[str] = None
+    # Relaxed acceptance for sampled requests: a draft is also accepted
+    # outright when its target probability exceeds threshold_single, and
+    # the rejection-sampling accept probability is raised from p to
+    # min(1, p / threshold_acc). Defaults (1.0) keep exact rejection
+    # sampling; < 1.0 trades unbiasedness for speed.
+    speculative_accept_threshold_single: float = 1.0
+    speculative_accept_threshold_acc: float = 1.0
+
     def __post_init__(self):
         if self.device not in ("cuda", "cpu") and not self.device.startswith("cuda:"):
             raise ValueError(f"device must be 'cuda', 'cuda:N' or 'cpu', got {self.device!r}")
+        if self.speculative_algorithm not in SPECULATIVE_ALGORITHMS:
+            raise ValueError(f"speculative_algorithm {self.speculative_algorithm!r}: one of "
+                             f"{SPECULATIVE_ALGORITHMS}")
+        if not (0.0 < self.speculative_accept_threshold_single <= 1.0):
+            raise ValueError("speculative_accept_threshold_single in (0, 1]")
+        if not (0.0 < self.speculative_accept_threshold_acc <= 1.0):
+            raise ValueError("speculative_accept_threshold_acc in (0, 1]")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: one of "
                              f"{KV_CACHE_DTYPES}")

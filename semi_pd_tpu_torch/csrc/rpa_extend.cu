@@ -118,6 +118,23 @@
 //   and V row as a broadcast; the next tile's loads are issued into
 //   registers before the current one is computed.
 //
+// The speculation tree (SpecTree below; ops/attention/ragged_paged_attention.py
+// spec_anc / win_base): the TPU kernels' _spec_tree_mask (rpa_common.py). A
+// query row at slot-order position q_abs = q_start + qofs + r sits at window
+// offset q_abs - win_base[b]; a position inside the window [win_base[b],
+// win_base[b] + W) stays visible only if its bit (position - win_base[b]) is
+// set in that row's ancestor mask (0 for a row outside the window), and
+// outside the window the causal mask stands. The table (at most 31 masks)
+// travels by value in the kernel's parameters, so it needs no device buffer;
+// win_base is a device array [B]. W == 0 is no tree: the launch picks each
+// kernel's TREE = false instantiation, the code without any of this (the
+// tree's registers and tests cost the others nothing). In the warpgroup kernel
+// a packed row m = r * G + g takes query row r's mask, each lane computing
+// its two rows' masks once; a tile that meets the window takes the mask
+// pass, whatever else it skips. Masked scores are NEG_INF (finite) as the
+// others, so p = 0 exactly, and no row's max meets NEG_INF - NEG_INF as a
+// NaN: every row sees its own root and the causal prefix before it.
+//
 // Both walk [lo, min(kv_len, the block's last row's position + 1)), lo from
 // the window; entries launch in reverse in the warpgroup kernel (a
 // request's later entries walk more positions: started first, they leave
@@ -140,6 +157,26 @@
 
 namespace rpa {
 
+constexpr int SPEC_MAX_NODES = 31;  // speculative/tree.py MAX_TREE_NODES
+
+// The speculation tree's ancestor masks, by value in the kernel's parameters
+struct SpecTree {
+  int w;                        // window nodes; 0: no tree
+  unsigned anc[SPEC_MAX_NODES];  // node i's ancestors (itself and the root included)
+};
+
+// The ancestor mask of a query row at window offset wq (0 outside the window)
+__device__ __forceinline__ unsigned spec_bits(const SpecTree& tree, int wq) {
+  return (wq >= 0 && wq < tree.w) ? tree.anc[wq] : 0u;
+}
+
+// Whether the tree leaves position pos visible to a row of mask bits (the
+// window starting at wb): positions outside the window always
+__device__ __forceinline__ bool spec_ok(const SpecTree& tree, int wb, unsigned bits, int pos) {
+  const int wk = pos - wb;
+  return wk < 0 || wk >= tree.w || ((bits >> wk) & 1u);
+}
+
 // ------------------------------------------------------------------------
 // The CUDA-core kernel (float32 q).
 
@@ -151,7 +188,7 @@ __host__ __device__ constexpr int ext_tpr() { return D / EXT_DPT; }  // threads 
 template <int D>
 __host__ __device__ constexpr int ext_nt() { return EXTEND_QBLK * ext_tpr<D>(); }
 
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, bool TREE>
 __global__ void __launch_bounds__(ext_nt<D>())
 rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
                   const TKV* __restrict__ k_pool,         // K of this layer at slot 0
@@ -165,7 +202,9 @@ rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
                   const int* __restrict__ block_qofs,     // [NQB]
                   TQ* __restrict__ out,                   // [T, Hq, D]
                   int Hq, int Hkv, int row_stride, int maxP, int page_size,
-                  float scale, float cap, int window) {
+                  float scale, float cap, int window,
+                  const int* __restrict__ win_base,       // [B], read when tree.w > 0
+                  const SpecTree tree) {
   constexpr int TPR = ext_tpr<D>(), NT = ext_nt<D>(), TK = EXT_TK;
   constexpr int NC = EXT_DPT / 4;  // float4 chunks per thread
   using Tile = KVTile<TKV, D, TK, NT>;
@@ -185,6 +224,8 @@ rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
   const bool active = row < n_rows;
   const int q_abs = q_abs_lo + row;
   const int lo = window > 0 ? max(q_abs_lo - window + 1, 0) : 0;
+  const int wb = TREE ? win_base[b] : 0;
+  const unsigned bits = TREE ? spec_bits(tree, q_abs - wb) : 0u;
   // the TPR lanes of this row (consecutive lanes of one warp); a row is
   // active or not as a whole, so its lanes meet at every shuffle
   const unsigned lane = tid % 32;
@@ -251,7 +292,8 @@ rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
 #pragma unroll
     for (int t = 0; t < TK; ++t) {
       const int pos = start + t;
-      const bool ok = pos < limit && pos <= q_abs && (window <= 0 || pos > q_abs - window);
+      const bool ok = pos < limit && pos <= q_abs && (window <= 0 || pos > q_abs - window) &&
+                      (!TREE || spec_ok(tree, wb, bits, pos));
       float v = s[t] * scale;
       if (cap > 0.f) v = cap * tanhf(v / cap);
       s[t] = ok ? v : NEG_INF;
@@ -293,20 +335,21 @@ rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
                                                    o[4 * j + 2] / ls, o[4 * j + 3] / ls));
 }
 
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, bool TREE>
 static int launch_extend(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                          const void* kv_lens, const void* q_lens, const void* q_start,
                          const void* block_seq, const void* block_row, const void* block_qofs,
                          void* out, int NQB, int Hq, int Hkv, int row_stride, int maxP,
                          int page_size, float scale, float cap, int window,
-                         cudaStream_t stream) {
-  rpa_extend_kernel<TQ, TKV, D><<<dim3(NQB, Hq), ext_nt<D>(), 0, stream>>>(
+                         const void* win_base, const SpecTree& tree, cudaStream_t stream) {
+  rpa_extend_kernel<TQ, TKV, D, TREE><<<dim3(NQB, Hq), ext_nt<D>(), 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
       static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
       static_cast<const int*>(q_start), static_cast<const int*>(block_seq),
       static_cast<const int*>(block_row), static_cast<const int*>(block_qofs),
-      static_cast<TQ*>(out), Hq, Hkv, row_stride, maxP, page_size, scale, cap, window);
+      static_cast<TQ*>(out), Hq, Hkv, row_stride, maxP, page_size, scale, cap, window,
+      static_cast<const int*>(win_base), tree);
   return (int)cudaGetLastError();
 }
 
@@ -368,7 +411,7 @@ struct WgLayout {
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
-template <typename TKV, int D, bool P_SPLIT>
+template <typename TKV, int D, bool P_SPLIT, bool TREE>
 __global__ void __launch_bounds__(WgLayout<TKV, D>::NT, 1)
 rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
                         const TKV* __restrict__ k_pool,       // K of this layer at slot 0
@@ -382,7 +425,9 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
                         const int* __restrict__ block_qofs,   // [NQB]
                         __nv_bfloat16* __restrict__ out,      // [T, Hq, D]
                         int Hq, int Hkv, int row_stride, int maxP, int page_size,
-                        float scale, float cap, int window) {
+                        float scale, float cap, int window,
+                        const int* __restrict__ win_base,     // [B], read when tree.w > 0
+                        const SpecTree tree) {
   using bf16 = __nv_bfloat16;
   using Lay = WgLayout<TKV, D>;
   constexpr int TK = Lay::TK, NS = Lay::STAGES, KS = D / 16, QV = D / 8, QLD = Lay::QLD;
@@ -535,6 +580,13 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
     // the warp's query positions wq_lo .. wq_hi (its rows the entry owns)
     const int wq_lo = q_abs_lo + (m_lo + warp * 16) / G;
     const int wq_hi = q_abs_lo + min((m_lo + warp * 16 + 15) / G, n_rows - 1);
+    // the tree: its window's start and this lane's two rows' ancestor masks
+    const int wb = TREE ? win_base[b] : 0;
+    unsigned sbits[2] = {0u, 0u};
+    if constexpr (TREE) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) sbits[j] = spec_bits(tree, qpos[j] - wb);
+    }
     // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
     const bool capped = cap > 0.f;
     const float c = capped ? LOG2E : scale * LOG2E;
@@ -573,7 +625,8 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
       // that no wgmma sits under a branch (ptxas then serializes them)
       const uint32_t sV = t > 0 ? s_smem + ((t - 1) % NS) * Lay::STAGE + Lay::TILE : sK;
       const bool masked = st + TK > limit || st + TK - 1 > wq_lo ||
-                          (window > 0 && st <= wq_hi - window);
+                          (window > 0 && st <= wq_hi - window) ||
+                          (TREE && st < wb + tree.w && st + TK > wb);
       wg::fence();
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) wg::mma_rs<0>(sc, qa[ks], wg::desc_k(sK, TK, ks), ks);
@@ -601,7 +654,8 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
           const int rr = (e >> 1) & 1;
           const int pos = st + 8 * (e >> 2) + 2 * tig + (e & 1);
           const bool ok = pos < limit && pos <= qpos[rr] &&
-                          (window <= 0 || pos > qpos[rr] - window);
+                          (window <= 0 || pos > qpos[rr] - window) &&
+                          (!TREE || spec_ok(tree, wb, sbits[rr], pos));
           sc[e] = ok ? sc[e] : NEG_INF;
         }
       }
@@ -699,15 +753,16 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
   }
 }
 
-template <typename TKV, int D, bool P_SPLIT>
+template <typename TKV, int D, bool P_SPLIT, bool TREE>
 static int launch_extend_wgmma(const void* q, const void* k_pool, const void* v_pool,
                                const void* pt, const void* kv_lens, const void* q_lens,
                                const void* q_start, const void* block_seq, const void* block_row,
                                const void* block_qofs, void* out, int NQB, int Hq, int Hkv,
                                int row_stride, int maxP, int page_size, float scale, float cap,
-                               int window, cudaStream_t stream) {
+                               int window, const void* win_base, const SpecTree& tree,
+                               cudaStream_t stream) {
   using Lay = WgLayout<TKV, D>;
-  const cudaError_t attr = cudaFuncSetAttribute(rpa_extend_wgmma_kernel<TKV, D, P_SPLIT>,
+  const cudaError_t attr = cudaFuncSetAttribute(rpa_extend_wgmma_kernel<TKV, D, P_SPLIT, TREE>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                 Lay::SMEM);
   if (attr != cudaSuccess) return (int)attr;
@@ -716,7 +771,8 @@ static int launch_extend_wgmma(const void* q, const void* k_pool, const void* v_
   // ever, so such a build is refused instead
   static const int launch_regs = [] {
     cudaFuncAttributes fa{};
-    return cudaFuncGetAttributes(&fa, rpa_extend_wgmma_kernel<TKV, D, P_SPLIT>) == cudaSuccess
+    return cudaFuncGetAttributes(&fa, rpa_extend_wgmma_kernel<TKV, D, P_SPLIT, TREE>) ==
+                   cudaSuccess
                ? fa.numRegs
                : 0;
   }();
@@ -724,34 +780,37 @@ static int launch_extend_wgmma(const void* q, const void* k_pool, const void* v_
     return (int)cudaErrorLaunchOutOfResources;
   const int G = Hq / Hkv;
   const dim3 grid((EXTEND_QBLK * G + Lay::ROWS - 1) / Lay::ROWS, Hkv, NQB);
-  rpa_extend_wgmma_kernel<TKV, D, P_SPLIT><<<grid, Lay::NT, Lay::SMEM, stream>>>(
+  rpa_extend_wgmma_kernel<TKV, D, P_SPLIT, TREE><<<grid, Lay::NT, Lay::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k_pool),
       static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
       static_cast<const int*>(q_start), static_cast<const int*>(block_seq),
       static_cast<const int*>(block_row), static_cast<const int*>(block_qofs),
       static_cast<__nv_bfloat16*>(out), Hq, Hkv, row_stride, maxP, page_size, scale, cap,
-      window);
+      window, static_cast<const int*>(win_base), tree);
   return (int)cudaGetLastError();
 }
 
 // bf16 q: the warpgroup kernel, with P split into hi + lo in the builds
 // that keep P in float32 (-DRPA_P_F32: the merged build); float32 q: the
-// CUDA-core kernel.
+// CUDA-core kernel. Each in its TREE instantiation only with a tree.
 template <typename TQ, typename TKV, int D>
 static int launch(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                   const void* kv_lens, const void* q_lens, const void* q_start,
                   const void* block_seq, const void* block_row, const void* block_qofs,
                   void* out, int NQB, int Hq, int Hkv, int row_stride, int maxP,
-                  int page_size, float scale, float cap, int window, cudaStream_t stream) {
+                  int page_size, float scale, float cap, int window, const void* win_base,
+                  const SpecTree& tree, cudaStream_t stream) {
+#define RPA_EXT_ARGS                                                                     \
+  q, k_pool, v_pool, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out, NQB, \
+      Hq, Hkv, row_stride, maxP, page_size, scale, cap, window, win_base, tree, stream
   if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
-    return launch_extend_wgmma<TKV, D, P_F32_BUILD>(
-        q, k_pool, v_pool, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out,
-        NQB, Hq, Hkv, row_stride, maxP, page_size, scale, cap, window, stream);
+    return tree.w > 0 ? launch_extend_wgmma<TKV, D, P_F32_BUILD, true>(RPA_EXT_ARGS)
+                      : launch_extend_wgmma<TKV, D, P_F32_BUILD, false>(RPA_EXT_ARGS);
   else
-    return launch_extend<TQ, TKV, D>(q, k_pool, v_pool, pt, kv_lens, q_lens, q_start,
-                                     block_seq, block_row, block_qofs, out, NQB, Hq, Hkv,
-                                     row_stride, maxP, page_size, scale, cap, window, stream);
+    return tree.w > 0 ? launch_extend<TQ, TKV, D, true>(RPA_EXT_ARGS)
+                      : launch_extend<TQ, TKV, D, false>(RPA_EXT_ARGS);
+#undef RPA_EXT_ARGS
 }
 
 }  // namespace rpa
@@ -761,25 +820,34 @@ static int launch(const void* q, const void* k_pool, const void* v_pool, const v
 // from one slot to the next (rpa_common.cuh). q_type / kv_type: TypeCode.
 // `out` must be zero-filled by the caller: rows no entry owns (bucket
 // padding) are left untouched. cap <= 0: no softcap; window <= 0: no
-// window. Returns cudaError_t; a head_dim or type pair this build lacks is
-// cudaErrorInvalidValue.
+// window. spec_w: the speculation tree's node count (0: no tree), spec_anc
+// its masks in HOST memory (spec_w of them, copied here into the kernel's
+// parameters), win_base its window start per request on the card. Returns
+// cudaError_t; a head_dim or type pair this build lacks, or a tree of more
+// than SPEC_MAX_NODES nodes, is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                                 const void* page_table, const void* kv_lens, const void* q_lens,
                                 const void* q_start, const void* block_seq,
                                 const void* block_row, const void* block_qofs, void* out,
                                 int NQB, int Hq, int Hkv, int D, int row_stride, int maxP,
                                 int page_size, float scale, float cap, int window, int q_type,
-                                int kv_type, void* stream) {
+                                int kv_type, int spec_w, const void* spec_anc,
+                                const void* win_base, void* stream) {
   using namespace rpa;
   if (NQB == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv || D != RPA_HEAD_DIM) return (int)cudaErrorInvalidValue;
+  if (spec_w < 0 || spec_w > SPEC_MAX_NODES || (spec_w > 0 && (!spec_anc || !win_base)))
+    return (int)cudaErrorInvalidValue;
+  SpecTree tree{};
+  tree.w = spec_w;
+  for (int i = 0; i < spec_w; ++i) tree.anc[i] = static_cast<const unsigned*>(spec_anc)[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RPA_EXT(QC, TQ, KC, TKV)                                                             \
   if (q_type == QC && kv_type == KC)                                                         \
     return launch<TQ, TKV, RPA_HEAD_DIM>(q, k_pool, v_pool, page_table, kv_lens, q_lens,     \
                                          q_start, block_seq, block_row, block_qofs, out, NQB, \
                                          Hq, Hkv, row_stride, maxP, page_size, scale, cap,    \
-                                         window, s);
+                                         window, win_base, tree, s);
   RPA_FOR_EACH_PAIR(RPA_EXT)
 #undef RPA_EXT
   return (int)cudaErrorInvalidValue;

@@ -10,7 +10,10 @@ ragged paged attention of the pool's layout over it: the CUDA kernels for
 CUDA tensors, their plain versions for CPU tensors
 (ops/attention/ragged_paged_attention.py). Per-layer fp8-KV scales
 (``fb.kv_scales``) are applied outside the kernels by linearity, as the JAX
-layer does.
+layer does. A speculation tree's masks travel on the batch (``fb.spec_anc``
+with ``fb.win_base``; the JAX layer's ``spec_tree_context`` module global):
+``paged_attention`` passes them to the routing, which sends such a batch to
+the extend kernel.
 """
 
 from __future__ import annotations
@@ -97,6 +100,8 @@ def paged_attention(
     # them from its shape
     heads = (dict(num_kv_heads=Hkv, head_dim=D)
              if pool_layout(kv_cache) == "chunked" else {})
+    if fb.spec_anc is not None:  # a speculation tree's draft or verify step
+        heads.update(spec_anc=fb.spec_anc, win_base=fb.win_base)
     out = (attention or pool_attention(kv_cache))(
         q.contiguous(), kv_cache, layer_idx, fb.page_table, fb.kv_lens,
         fb.attn_meta, page_size=page_size, scale=scale, logit_cap=logit_cap,
@@ -131,6 +136,10 @@ def paged_attention_mla(
     # into an fp8 pool the cast saturates above 448 where JAX gives NaN
     # (ROADMAP C5), for the latent rows as for write_kv's K and V
     kv_cache[layer_idx, 0, fb.out_slots.long(), 0] = latent_new.to(kv_cache.dtype)
+    # a speculation tree reaches the routing, which refuses it on the latent
+    # pool (ROADMAP A11, with NextN)
+    tree = ({} if fb.spec_anc is None
+            else dict(spec_anc=fb.spec_anc, win_base=fb.win_base))
     return (attention or pool_attention(kv_cache))(
         q.contiguous(), kv_cache, layer_idx, fb.page_table, fb.kv_lens, fb.attn_meta,
-        page_size=page_size, scale=scale, v_dim=v_dim)
+        page_size=page_size, scale=scale, v_dim=v_dim, **tree)

@@ -99,12 +99,16 @@ class LlamaForCausalLM(TreeParams):
         return getattr(self, _ATTR[path])
 
     # ------------------------------------------------------------- forward
-    def forward(self, fb, kv_cache: torch.Tensor, attention=None) -> torch.Tensor:
+    def forward(self, fb, kv_cache: torch.Tensor, attention=None, return_hidden: bool = False):
         """One step over the flat batch ``fb``; writes this step's K/V into
         ``kv_cache`` (chunked [L, S, CT, 128] or aligned [L, 2, S, Hkv, D])
-        and returns float32 logits [B, V] of each request's last token.
-        ``attention`` runs over the pool after each layer's KV write
-        (default: the pool layout's routing to the kernels)."""
+        and returns float32 logits [B, V] of the rows ``fb.logits_idx``
+        picks (each request's last token; every row of a speculative verify
+        batch). ``attention`` runs over the pool after each layer's KV write
+        (default: the pool layout's routing to the kernels).
+        ``return_hidden``: also return those rows' final-normed hidden
+        states [B, H] in the model dtype, (logits, hidden), the state that
+        seeds the EAGLE draft (JAX ``return_hidden``)."""
         c = self.config
         h = self.embed[fb.input_ids.long()]
         for layer in range(c.num_hidden_layers):
@@ -115,8 +119,12 @@ class LlamaForCausalLM(TreeParams):
                                  self.down[layer])
         h = rms_norm(h, self.final_norm, c.rms_norm_eps)
         last_h = h[fb.logits_idx.long()]
-        head = self.lm_head if self.lm_head is not None else self.embed.t()
-        return lm_head_logits(last_h, head, c.logit_softcap)
+        logits = lm_head_logits(last_h, self.head(), c.logit_softcap)
+        return (logits, last_h) if return_hidden else logits
+
+    def head(self) -> torch.Tensor:
+        """The lm_head [H, V] (the embedding's transpose when tied)."""
+        return self.lm_head if self.lm_head is not None else self.embed.t()
 
     def _attn(self, layer, attn_in, fb, kv_cache, attention):
         c = self.config

@@ -28,11 +28,19 @@ below head_dim 128 takes its merged kernels for decode and extend alike,
 stream or not (:548 comes first). The JAX MLA extend runs 64-row q-blocks
 against the 128-row work list and leaves rows 64-127 of each entry
 unwritten (ROADMAP C1); here every extend kernel, the MLA one included, is
-built with the work list's EXTEND_Q_BLOCK. Not ported: speculation-tree
-masks ``spec_anc`` (ROADMAP A11) and the TPU scheduling switches
-(RPA_DECODE_PACKED, the VMEM clamps and the block_first table have no GPU
-meaning). The CUDA designs are described in csrc/rpa_extend.cu and
-csrc/rpa_mla.cuh.
+built with the work list's EXTEND_Q_BLOCK.
+
+Speculation trees: ``spec_anc`` (the static ancestor masks of the tree's
+nodes, speculative/tree.py) with ``win_base`` [B] (each request's window
+start) refine the causal mask in the three GQA extends and their plain
+version (rpa_common.spec_tree_mask, the TPU kernels' _spec_tree_mask). A
+batch with ``spec_anc`` always takes the extend kernel, a decode-shaped one
+(T == B, the tree's draft steps) included, as the JAX routing does
+(:569, :1092-1101); the work list's q_start is then the slot-order start
+the causal test compares. The MLA extend does not take it (ROADMAP A11,
+with NextN). Not ported: the TPU scheduling switches (RPA_DECODE_PACKED,
+the VMEM clamps and the block_first table have no GPU meaning). The CUDA
+designs are described in csrc/rpa_extend.cu and csrc/rpa_mla.cuh.
 
 Wrappers launch their kernel for CUDA tensors and use the plain version
 only for tensors on the CPU; any other device raises. Nothing falls back.
@@ -40,14 +48,15 @@ only for tensors on the CPU; any other device raises. Nothing falls back.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kernel_family, kv_planes,
-    layer_kv, pool_heads,
+    F, I, P, TYPE_CODES, check_cuda, check_pool_args, check_spec, gather_kv,
+    kernel_family, kv_planes, layer_kv, pool_heads, spec_tree_mask,
 )
 from semi_pd_tpu_torch.ops.attention.rpa_packed import (
     MERGED_DEFINES,
@@ -60,13 +69,20 @@ from semi_pd_tpu_torch.ops.attention.rpa_stream import (
     ragged_paged_attention_chunked_stream,
     ragged_paged_attention_stream,
 )
+from semi_pd_tpu_torch.speculative.tree import MAX_TREE_NODES
 
 # Query rows per extend work-list entry. The host work list
 # (runtime/forward_batch.py::make_attn_meta_host) and the extend kernels
 # (compiled with -DEXTEND_QBLK from this constant) all use it.
 EXTEND_Q_BLOCK = 128
 
-_ARGTYPES = [P] * 11 + [I] * 7 + [F, F, I, I, I, P]
+# the pointers, the shapes, scale and cap, window and the types, then the
+# speculation tree (its node count W, its masks as a host array of
+# MAX_TREE_NODES int32 the C entry copies into the kernel's parameters,
+# win_base on the card) and the stream
+_ARGTYPES = [P] * 11 + [I] * 7 + [F, F, I, I, I, I, P, P, P]
+# the MLA extend's entry takes no tree
+_MLA_ARGTYPES = [P] * 11 + [I] * 7 + [F, F, I, I, I, P]
 
 EXTEND_KERNEL = register(CudaKernel(
     name="rpa_extend",
@@ -92,7 +108,7 @@ EXTEND_MLA_KERNEL = register(CudaKernel(
     name="rpa_extend_mla",
     source="csrc/rpa_extend_mla.cu",
     symbol="rpa_extend_mla",
-    argtypes=_ARGTYPES,
+    argtypes=_MLA_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel "
              "(MLA v_dim branch)",
     defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_P_F32"),
@@ -114,17 +130,26 @@ EXTEND_KERNELS = {"aligned": EXTEND_ALIGNED_KERNEL, "merged": EXTEND_MERGED_KERN
                   "latent": EXTEND_MLA_KERNEL}
 
 
-def _no_spec(spec_anc, win_base):
-    if spec_anc is not None or win_base is not None:
-        raise NotImplementedError("speculation-tree masks (spec_anc) are ROADMAP A11")
+def _no_latent_spec(spec_anc, v_dim) -> None:
+    if spec_anc is not None and v_dim is not None:
+        raise NotImplementedError(
+            "speculation-tree masks (spec_anc) on the MLA latent pool come with NextN "
+            "(ROADMAP A11, rest): rpa_extend_mla has no tree mask")
+
+
+def _decodes(q, page_table, spec_anc) -> bool:
+    """Whether a batch takes the pool's decode: decode-shaped (T == B) and
+    no speculation tree (a tree's draft step is decode-shaped and takes the
+    extend, as in JAX)."""
+    return q.shape[0] == page_table.shape[0] and spec_anc is None
 
 
 def _streams(stream: bool, kv_cache, sliding_window) -> bool:
     """Whether a decode batch takes the streaming decode: asked for, and
     none of the JAX routing's exceptions (a sliding window keeps the packed
     decode, ragged_paged_attention.py:589-594 and 1086-1110; the 5D pool
-    below head_dim 128 keeps its merged kernel, :548; ``spec_anc`` raises
-    before this)."""
+    below head_dim 128 keeps its merged kernel, :548; a batch with
+    ``spec_anc`` is no decode, ``_decodes``)."""
     return stream and not sliding_window and kernel_family(kv_cache) != "merged"
 
 
@@ -134,12 +159,12 @@ def ragged_paged_attention_chunked(
     spec_anc=None, win_base=None, stream=False,
 ) -> torch.Tensor:
     """Attention of q [T, Hq, D] over the chunked pool [L, S, CT, 128]:
-    T == B batches take the decode kernel (with ``stream`` the streaming
-    decode), all others the extend kernel."""
-    _no_spec(spec_anc, win_base)
+    T == B batches without ``spec_anc`` take the decode kernel (with
+    ``stream`` the streaming decode), all others the extend kernel."""
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
-    if q.shape[0] == page_table.shape[0]:
+    if _decodes(q, page_table, spec_anc):
+        check_spec(None, win_base, page_table.shape[0])
         if _streams(stream, kv_cache, sliding_window):
             return ragged_paged_attention_chunked_stream(
                 q, kv_cache, layer_idx, page_table, kv_lens, page_size=page_size,
@@ -148,7 +173,8 @@ def ragged_paged_attention_chunked(
         return ragged_paged_attention_chunked_packed(
             q, kv_cache, layer_idx, page_table, kv_lens, **kw)
     return ragged_paged_attention_chunked_extend(
-        q, kv_cache, layer_idx, page_table, kv_lens, meta, **kw)
+        q, kv_cache, layer_idx, page_table, kv_lens, meta, spec_anc=spec_anc,
+        win_base=win_base, **kw)
 
 
 def ragged_paged_attention_chunked_plain(
@@ -158,12 +184,13 @@ def ragged_paged_attention_chunked_plain(
 ) -> torch.Tensor:
     """The same routing over the two plain versions, on any device (used to
     hold the kernels to their plain versions at full width)."""
-    _no_spec(spec_anc, win_base)
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
-    if q.shape[0] == page_table.shape[0]:
+    check_spec(spec_anc, win_base, page_table.shape[0])
+    if _decodes(q, page_table, spec_anc):
         return decode_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, **kw)
-    return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta, **kw)
+    return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta,
+                                  spec_anc=spec_anc, win_base=win_base, **kw)
 
 
 def ragged_paged_attention(
@@ -185,13 +212,15 @@ def ragged_paged_attention(
 ) -> torch.Tensor:
     """Attention of q [T, Hq, D] over the aligned pool (Hkv and D from its
     shape), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
-    v_dim]): T == B batches take the pool's decode kernel (with ``stream``
-    its streaming decode, except below head_dim 128), all others its
-    extend kernel."""
-    _no_spec(spec_anc, win_base)
+    v_dim]): T == B batches without ``spec_anc`` take the pool's decode
+    kernel (with ``stream`` its streaming decode, except below head_dim
+    128), all others its extend kernel. The latent pool takes no
+    ``spec_anc`` (ROADMAP A11)."""
+    _no_latent_spec(spec_anc, v_dim)
     kw = dict(page_size=page_size, scale=scale, logit_cap=logit_cap,
               sliding_window=sliding_window, v_dim=v_dim)
-    if q.shape[0] == page_table.shape[0]:
+    if _decodes(q, page_table, spec_anc):
+        check_spec(None, win_base, page_table.shape[0])
         if _streams(stream, kv_cache, sliding_window):
             return ragged_paged_attention_stream(
                 q, kv_cache, layer_idx, page_table, kv_lens, page_size=page_size,
@@ -199,7 +228,7 @@ def ragged_paged_attention(
         return ragged_paged_attention_packed(q, kv_cache, layer_idx, page_table,
                                              kv_lens, **kw)
     return ragged_paged_attention_extend(q, kv_cache, layer_idx, page_table, kv_lens,
-                                         meta, **kw)
+                                         meta, spec_anc=spec_anc, win_base=win_base, **kw)
 
 
 def ragged_paged_attention_plain(
@@ -208,43 +237,57 @@ def ragged_paged_attention_plain(
 ) -> torch.Tensor:
     """The aligned and the latent pool's routing over the two plain
     versions, on any device."""
-    _no_spec(spec_anc, win_base)
+    _no_latent_spec(spec_anc, v_dim)
     kw = dict(page_size=page_size, scale=scale, logit_cap=logit_cap,
               sliding_window=sliding_window, v_dim=v_dim)
-    if q.shape[0] == page_table.shape[0]:
+    check_spec(spec_anc, win_base, page_table.shape[0])
+    if _decodes(q, page_table, spec_anc):
         return ragged_paged_attention_packed_plain(q, kv_cache, layer_idx, page_table,
                                                    kv_lens, **kw)
     return ragged_paged_attention_extend_plain(q, kv_cache, layer_idx, page_table,
-                                               kv_lens, meta, **kw)
+                                               kv_lens, meta, spec_anc=spec_anc,
+                                               win_base=win_base, **kw)
 
 
 def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size,
-            num_kv_heads, head_dim, scale, logit_cap, sliding_window, v_dim=None):
+            num_kv_heads, head_dim, scale, logit_cap, sliding_window, v_dim=None,
+            spec_anc=None, win_base=None):
     check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
                     v_dim)
+    _no_latent_spec(spec_anc, v_dim)
+    check_spec(spec_anc, win_base, page_table.shape[0])
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
     if q.device.type == "cpu":
         return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta,
-                                      **kw)
+                                      spec_anc=spec_anc, win_base=win_base, **kw)
     if q.device.type != "cuda":
         raise RuntimeError(f"no extend kernel for device {q.device}")
     ints = (meta.q_lens, meta.q_start, meta.block_seq, meta.block_row, meta.block_qofs)
     if any(a.dtype != torch.int32 for a in ints):
         raise ValueError("work-list arrays must be int32")
-    check_cuda(q, kv_cache, page_table, kv_lens, *ints, v_dim=v_dim)
+    check_cuda(q, kv_cache, page_table, kv_lens, *ints,
+               *(() if win_base is None else (win_base,)), v_dim=v_dim)
     T, Hq, D = q.shape
     Dv = v_dim or D
     k_ptr, v_ptr, row_stride = kv_planes(kv_cache, layer_idx, num_kv_heads, D)
     # zeros: bucket-padding rows stay finite when their K/V are later
     # scattered into the dump page
     out = q.new_zeros((T, Hq, Dv))
-    kernel.launch(
-        q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
-        *[a.data_ptr() for a in ints], out.data_ptr(), meta.block_seq.shape[0], Hq,
-        num_kv_heads, D, row_stride, page_table.shape[1], page_size, float(scale),
-        float(logit_cap or 0.0), int(sliding_window or 0), TYPE_CODES[q.dtype],
-        TYPE_CODES[kv_cache.dtype], cuda_stream_ptr(q.device))
+    args = [q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
+            *[a.data_ptr() for a in ints], out.data_ptr(), meta.block_seq.shape[0], Hq,
+            num_kv_heads, D, row_stride, page_table.shape[1], page_size, float(scale),
+            float(logit_cap or 0.0), int(sliding_window or 0), TYPE_CODES[q.dtype],
+            TYPE_CODES[kv_cache.dtype]]
+    if v_dim is None:
+        # the tree's masks cross as a host array (kept alive through the
+        # call); W == 0 is no tree
+        if spec_anc:
+            anc = (ctypes.c_int * MAX_TREE_NODES)(*spec_anc)
+            args += [len(spec_anc), ctypes.addressof(anc), win_base.data_ptr()]
+        else:
+            args += [0, None, None]
+    kernel.launch(*args, cuda_stream_ptr(q.device))
     return out
 
 
@@ -262,12 +305,16 @@ def ragged_paged_attention_chunked_extend(
     scale: float,
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
+    spec_anc: Optional[tuple] = None,
+    win_base: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Extend attention over the chunked pool; rows no work-list entry owns
+    """Extend attention over the chunked pool (with ``spec_anc`` /
+    ``win_base`` a speculation tree's mask); rows no work-list entry owns
     stay 0."""
     return _extend(EXTEND_KERNEL, q, kv_cache, layer_idx, page_table, kv_lens, meta,
                    page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
-                   scale=scale, logit_cap=logit_cap, sliding_window=sliding_window)
+                   scale=scale, logit_cap=logit_cap, sliding_window=sliding_window,
+                   spec_anc=spec_anc, win_base=win_base)
 
 
 def ragged_paged_attention_extend(
@@ -283,20 +330,24 @@ def ragged_paged_attention_extend(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     v_dim: Optional[int] = None,
+    spec_anc: Optional[tuple] = None,
+    win_base: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Extend attention over the aligned pool (the merged kernel below
-    head_dim 128), or with ``v_dim`` over the MLA latent pool (output
-    [T, Hq, v_dim]); rows no work-list entry owns stay 0."""
+    head_dim 128; with ``spec_anc`` / ``win_base`` a speculation tree's
+    mask), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
+    v_dim]; no tree there); rows no work-list entry owns stay 0."""
     Hkv, D = pool_heads(kv_cache)
     return _extend(EXTEND_KERNELS[kernel_family(kv_cache)], q, kv_cache, layer_idx,
                    page_table, kv_lens, meta, page_size=page_size, num_kv_heads=Hkv,
                    head_dim=D, scale=scale, logit_cap=logit_cap,
-                   sliding_window=sliding_window, v_dim=v_dim)
+                   sliding_window=sliding_window, v_dim=v_dim, spec_anc=spec_anc,
+                   win_base=win_base)
 
 
 def ragged_paged_attention_extend_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size, scale,
-    logit_cap=None, sliding_window=None, v_dim=None,
+    logit_cap=None, sliding_window=None, v_dim=None, spec_anc=None, win_base=None,
 ) -> torch.Tensor:
     """Plain version of the aligned, the merged and the MLA extend
     kernels."""
@@ -304,16 +355,20 @@ def ragged_paged_attention_extend_plain(
     return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta,
                                   page_size=page_size, num_kv_heads=Hkv, head_dim=D,
                                   scale=scale, logit_cap=logit_cap,
-                                  sliding_window=sliding_window, v_dim=v_dim)
+                                  sliding_window=sliding_window, v_dim=v_dim,
+                                  spec_anc=spec_anc, win_base=win_base)
 
 
 def extend_attention_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size,
     num_kv_heads, head_dim, scale, logit_cap=None, sliding_window=None, v_dim=None,
+    spec_anc=None, win_base=None,
 ) -> torch.Tensor:
     """Plain version of the extend kernels, on any pool: a loop over the
     work-list entries, each gathering its request's pages up to its last
-    row's position, then a causal float32 softmax over them."""
+    row's position, then a causal float32 softmax over them (with
+    ``spec_anc`` refined by the speculation tree's ancestor masks inside the
+    request's window from ``win_base``)."""
     T, Hq, D = q.shape
     Hkv = num_kv_heads
     G = Hq // Hkv
@@ -324,6 +379,7 @@ def extend_attention_plain(
     q_lens, q_start, lens = (meta.q_lens.tolist(), meta.q_start.tolist(),
                              kv_lens.tolist())
     cap = page_table.shape[1] * page_size
+    bases = win_base.tolist() if spec_anc is not None else None
     out = q.new_zeros((T, Hq, Dv))
     for i, b in enumerate(seq):
         if b < 0:
@@ -343,6 +399,8 @@ def extend_attention_plain(
         valid = pos <= q_abs[:, None]
         if sliding_window:
             valid &= pos > q_abs[:, None] - sliding_window
+        if spec_anc is not None:
+            valid = spec_tree_mask(valid, spec_anc, bases[b], q_abs[:, None], pos)
         s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
         p = torch.softmax(s, dim=-1)
         p = torch.where(valid.any(dim=-1)[:, None, None, None], p,

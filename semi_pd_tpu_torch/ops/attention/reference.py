@@ -7,6 +7,9 @@ each query row to its request and absolute position; KV is read from the
 paged pool through the page table. Query token t (request r = q_req_idx[t],
 position p = q_pos[t]) attends to KV positions j of request r with j <= p
 and j < kv_lens[r] (and j > p - sliding_window when a window is set).
+With a speculation tree (``spec_anc`` / ``win_base``), ``q_pos`` holds
+slot-order positions (the JAX layer passes ``fb.mask_pos``) and positions
+inside a request's window also need the query row's ancestor bit.
 """
 
 from __future__ import annotations
@@ -44,9 +47,14 @@ def ragged_paged_attention_reference(
 ) -> torch.Tensor:
     """``v_dim``: MLA mode. The pool has one component, the latent row
     [c_kv | k_pe]; V is its first v_dim elements and the output is
-    [T, Hq, v_dim]."""
-    if spec_anc is not None or win_base is not None:
-        raise NotImplementedError("speculation-tree masks are ROADMAP A11")
+    [T, Hq, v_dim].
+
+    ``spec_anc``: static speculation-tree ancestor masks (one int per window
+    node; speculative/tree.py) with ``win_base`` [B], the window start of
+    each request. ``q_pos`` must then be SLOT-ORDER positions (window node
+    index + win_base), and KV positions inside the window [win_base,
+    win_base + W) also need the matching ancestor bit. A row's node index
+    is clipped into the window, as the JAX reference does."""
     if alibi_slopes is not None:
         raise NotImplementedError("ALiBi attention is ROADMAP A14")
     T, Hq, D = q.shape
@@ -78,6 +86,16 @@ def ragged_paged_attention_reference(
     valid = (kv_pos <= qp) & (kv_pos < kv_lens.long()[ri][:, None])
     if sliding_window is not None and sliding_window > 0:
         valid &= kv_pos > (qp - sliding_window)
+    if spec_anc is not None and win_base is not None:
+        W = len(spec_anc)
+        anc = torch.as_tensor([int(a) & 0xFFFFFFFF for a in spec_anc], dtype=torch.int64,
+                              device=q.device)
+        wb = win_base.long()[ri][:, None]  # [T, 1]
+        bits = anc[(qp - wb).clamp(0, W - 1)]  # [T, 1]: the row's node
+        win_kv = kv_pos - wb  # [T, max_kv]
+        in_win = (win_kv >= 0) & (win_kv < W)
+        tree_ok = ((bits >> win_kv.clamp(0, 31)) & 1) == 1
+        valid &= torch.where(in_win, tree_ok, torch.ones_like(tree_ok))
     scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     # fully-masked (padding) rows give NaN from softmax over -inf; zero them

@@ -10,7 +10,8 @@ first ``v_dim`` elements). The kernels address all three through a K base,
 a V base and one row stride (csrc/rpa_common.cuh); on the latent pool the V
 base is the K base. The 5D pool below head_dim 128 has kernels of its own,
 the "merged" family (the counterparts of the TPU kernel
-_rpa_kernel_merged).
+_rpa_kernel_merged). ``spec_tree_mask`` is the speculation-tree mask the
+extend kernels and their plain versions apply (``spec_anc``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import ctypes
 from typing import Tuple
 
 import torch
+
+from semi_pd_tpu_torch.speculative.tree import MAX_TREE_NODES
 
 # argtypes pieces of the C entry points
 P = ctypes.c_void_p
@@ -42,6 +45,46 @@ KERNEL_PAIRS = frozenset({(torch.bfloat16, torch.bfloat16), (torch.float32, torc
                           (torch.bfloat16, torch.float8_e5m2)})
 # The latent pool's kernels take V as the first 512 elements of the row
 KERNEL_V_DIM = 512
+
+
+def spec_tree_mask(valid: torch.Tensor, spec_anc, win_base, q_abs: torch.Tensor,
+                   kv_pos: torch.Tensor) -> torch.Tensor:
+    """Refine the causal mask ``valid`` with the static speculation-tree
+    ancestor masks (port of semi_pd_tpu/ops/attention/rpa_common.py:61
+    _spec_tree_mask): a KV position inside the window [win_base, win_base +
+    W) stays visible to a query row only if the row's ancestor mask has its
+    bit set; outside the window the causal mask stands. ``q_abs`` are
+    SLOT-ORDER positions (window node index + win_base); a row outside the
+    window has mask 0, as the TPU kernel's select chain gives. ``win_base``
+    is an int or a tensor broadcasting against ``q_abs`` and ``kv_pos``."""
+    W = len(spec_anc)
+    anc = torch.as_tensor(list(spec_anc), dtype=torch.int64, device=q_abs.device)
+    win_q = q_abs - win_base
+    in_q = (win_q >= 0) & (win_q < W)
+    bits = torch.where(in_q, anc[win_q.clamp(0, W - 1)], torch.zeros_like(win_q))
+    win_kv = kv_pos - win_base
+    in_win = (win_kv >= 0) & (win_kv < W)
+    tree_ok = ((bits >> win_kv.clamp(0, 31)) & 1) > 0
+    return valid & (~in_win | tree_ok)
+
+
+def check_spec(spec_anc, win_base, batch: int) -> None:
+    """The speculation-tree arguments: both or neither; at most
+    MAX_TREE_NODES masks, each a positive int32 with its own bit set (a
+    node sees itself); ``win_base`` int32 [B]."""
+    if (spec_anc is None) != (win_base is None):
+        raise ValueError("spec_anc and win_base go together")
+    if spec_anc is None:
+        return
+    if not 0 < len(spec_anc) <= MAX_TREE_NODES:
+        raise ValueError(f"a speculation tree has 1 to {MAX_TREE_NODES} nodes, "
+                         f"got {len(spec_anc)}")
+    for i, a in enumerate(spec_anc):
+        if not 0 < int(a) < 2 ** 31 or not (int(a) >> i) & 1:
+            raise ValueError(f"spec_anc[{i}] = {a}: a positive int32 with bit {i} set")
+    if win_base.dtype != torch.int32 or win_base.shape != (batch,):
+        raise ValueError(f"win_base must be int32 [{batch}], got {win_base.dtype} "
+                         f"{tuple(win_base.shape)}")
 
 
 def pool_layout(kv_cache: torch.Tensor) -> str:

@@ -3,8 +3,10 @@
 All bookkeeping is numpy on the controller; batches pad to static buckets.
 ``HostBatch.pack()`` concatenates every per-step array into ONE int32 and
 ONE float32 vector (two host->device copies per step); the runner's
-``_unpack_fb`` re-slices them with the same layout. LoRA, multimodal,
-m-rope and speculative batches are later slices (ROADMAP A11, A14).
+``_unpack_fb`` re-slices them with the same layout. The speculative verify
+batches (``build_spec_verify_batch``, ``build_tree_verify_batch``) go to the
+device with ``to_device``. LoRA, multimodal and m-rope batches are later
+slices (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -47,6 +49,11 @@ class HostBatch:
     T: int = 0
     B: int = 0
     maxP: int = 0
+    mask_pos: np.ndarray = None  # [T] slot-order positions (tree verify)
+    win_base: np.ndarray = None  # [B] tree window start
+    # [B] slot-order position of each request's first row, where it is not
+    # kv_lens - q_lens (a verify's rows past a short draft)
+    q_start: np.ndarray = None
 
     def q_lens(self) -> np.ndarray:
         q_lens = np.zeros(self.B, np.int32)
@@ -56,10 +63,14 @@ class HostBatch:
             q_lens[: len(self.reqs)] = self.extend_lens
         return q_lens
 
+    def q_starts(self) -> np.ndarray:
+        return self.kv_lens - self.q_lens() if self.q_start is None else self.q_start
+
     def to_device(self, device) -> ForwardArrays:
         import torch
 
         t = lambda a: torch.as_tensor(a, device=device)
+        opt = lambda a: None if a is None else t(a)
         s = self.sampling
         return ForwardArrays(
             input_ids=t(self.input_ids), q_req_idx=t(self.q_req_idx),
@@ -68,8 +79,10 @@ class HostBatch:
             logits_idx=t(self.logits_idx),
             sampling=SamplingArrays(*[t(a) for a in s]),
             num_reqs=len(self.reqs),
-            attn_meta=build_attn_meta(self.q_lens(), self.kv_lens, self.T, device),
+            attn_meta=build_attn_meta(self.q_lens(), self.kv_lens, self.T, device,
+                                      self.q_starts()),
             all_greedy=bool(np.all(s.temperature[: len(self.reqs)] <= 0.0)),
+            mask_pos=opt(self.mask_pos), win_base=opt(self.win_base),
         )
 
     def pack(self) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int, int, int]]:
@@ -83,7 +96,7 @@ class HostBatch:
         ints = np.concatenate([
             self.input_ids, self.q_req_idx, self.q_pos, self.out_slots,
             self.page_table.reshape(-1), self.kv_lens, self.logits_idx,
-            q_lens, self.kv_lens - q_lens, bs, br, bq, s.top_k,
+            q_lens, self.q_starts(), bs, br, bq, s.top_k,
             np.array([len(self.reqs)], np.int32),
         ]).astype(np.int32)
         floats = np.concatenate([
@@ -218,4 +231,137 @@ def build_decode_batch(
         page_table=_page_table_block(reqs, B, maxP, page_table_host),
         kv_lens=kv_lens, logits_idx=logits_idx,
         sampling=_sampling_arrays_np(reqs, B), T=T, B=B, maxP=maxP,
+    )
+
+
+def build_spec_verify_batch(
+    reqs: List[Req],
+    drafts: List[List[int]],
+    gamma: int,
+    page_table_host: np.ndarray,
+    page_size: int,
+    b_buckets: Sequence[int],
+    p_buckets: Sequence[int],
+) -> Tuple[HostBatch, np.ndarray, np.ndarray]:
+    """Speculative verify batch: each request contributes exactly gamma+1
+    query rows = [last sampled token, draft_1..draft_d, padding...]. Returns
+    (HostBatch, drafts_padded [B, gamma], draft_lens [B]). Padding rows write
+    to the dump page and their outputs are ignored on device. The work
+    list's q_start is each request's kv_len (its row 0's slot), not kv_lens
+    - (gamma + 1): a draft shorter than gamma would otherwise hide the
+    newest positions, the row's own among them, from every row."""
+    B = bucket_of(len(reqs), b_buckets)
+    W = gamma + 1
+    T = B * W
+    need_pages = max(
+        (r.kv_len + 1 + len(d) + page_size - 1) // page_size + 1
+        for r, d in zip(reqs, drafts)
+    )
+    maxP = bucket_of(need_pages, p_buckets)
+
+    input_ids = np.zeros(T, np.int32)
+    q_req_idx = np.zeros(T, np.int32)
+    q_pos = np.zeros(T, np.int32)
+    out_slots = np.zeros(T, np.int32)
+    kv_lens = np.zeros(B, np.int32)
+    logits_idx = np.arange(T, dtype=np.int32)
+    q_start = np.zeros(B, np.int32)
+    drafts_padded = np.full((B, gamma), -1, np.int32)
+    draft_lens = np.zeros(B, np.int32)
+
+    for i, (r, d) in enumerate(zip(reqs, drafts)):
+        base = i * W
+        last_tok = r.output_ids[-1] if r.output_ids else r.input_ids[-1]
+        window = [last_tok] + list(d)
+        start_pos = r.kv_len
+        for j in range(W):
+            row = base + j
+            q_req_idx[row] = i
+            if j < len(window):
+                input_ids[row] = window[j]
+                pos = start_pos + j
+            else:
+                input_ids[row] = 0
+                pos = start_pos + len(window) - 1  # harmless duplicate pos
+            q_pos[row] = pos
+            out_slots[row] = (
+                r.pages[pos // page_size] * page_size + pos % page_size
+                if j < len(window) else 0  # dump page
+            )
+        kv_lens[i] = start_pos + len(window)
+        q_start[i] = start_pos
+        drafts_padded[i, : len(d)] = d
+        draft_lens[i] = len(d)
+
+    hb = HostBatch(
+        mode=ForwardMode.EXTEND, reqs=list(reqs),
+        extend_lens=[W] * len(reqs),
+        input_ids=input_ids, q_req_idx=q_req_idx, q_pos=q_pos,
+        out_slots=out_slots,
+        page_table=_page_table_block(reqs, B, maxP, page_table_host),
+        kv_lens=kv_lens, logits_idx=logits_idx,
+        sampling=_sampling_arrays_np(reqs, B), T=T, B=B, maxP=maxP, q_start=q_start,
+    )
+    return hb, drafts_padded, draft_lens
+
+
+def build_tree_verify_batch(
+    reqs: List[Req],
+    tree,  # speculative.tree.TreeTemplate
+    page_table_host: np.ndarray,
+    page_size: int,
+    b_buckets: Sequence[int],
+    p_buckets: Sequence[int],
+) -> HostBatch:
+    """EAGLE-tree verify batch: every request contributes N rows, one per
+    tree node in BFS order. Node i occupies KV slot (kv_len + i) but its
+    ROPE position is (kv_len + depth(i)): q_pos carries rope, mask_pos the
+    slot order, win_base the window start; the work list's q_start (kv_lens
+    - N = kv_len) is the slot-order start the kernels' causal test compares.
+    Pages covering kv_len + N positions must already be allocated.
+    input_ids row 0 holds the last committed token; the other rows are
+    substituted by the round's draft phase (speculative/eagle.py
+    eagle_tree_round)."""
+    N = tree.num_nodes
+    B = bucket_of(len(reqs), b_buckets)
+    T = B * N
+    need_pages = max(
+        (r.kv_len + N + page_size - 1) // page_size + 1 for r in reqs
+    )
+    maxP = bucket_of(need_pages, p_buckets)
+
+    input_ids = np.zeros(T, np.int32)
+    q_req_idx = np.zeros(T, np.int32)
+    q_pos = np.zeros(T, np.int32)
+    mask_pos = np.zeros(T, np.int32)
+    out_slots = np.zeros(T, np.int32)
+    kv_lens = np.zeros(B, np.int32)
+    win_base = np.zeros(B, np.int32)
+    logits_idx = np.arange(T, dtype=np.int32)
+
+    for i, r in enumerate(reqs):
+        rbase = i * N
+        start = r.kv_len
+        input_ids[rbase] = r.output_ids[-1] if r.output_ids else r.input_ids[-1]
+        for j in range(N):
+            row = rbase + j
+            q_req_idx[row] = i
+            q_pos[row] = start + int(tree.depths[j])
+            mask_pos[row] = start + j
+            pos = start + j
+            out_slots[row] = (
+                r.pages[pos // page_size] * page_size + pos % page_size
+            )
+        kv_lens[i] = start + N
+        win_base[i] = start
+
+    return HostBatch(
+        mode=ForwardMode.EXTEND, reqs=list(reqs),
+        extend_lens=[N] * len(reqs),
+        input_ids=input_ids, q_req_idx=q_req_idx, q_pos=q_pos,
+        out_slots=out_slots,
+        page_table=_page_table_block(reqs, B, maxP, page_table_host),
+        kv_lens=kv_lens, logits_idx=logits_idx,
+        sampling=_sampling_arrays_np(reqs, B), T=T, B=B, maxP=maxP,
+        mask_pos=mask_pos, win_base=win_base,
     )

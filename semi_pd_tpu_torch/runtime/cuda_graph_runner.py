@@ -39,6 +39,7 @@ runs the eager step in its place.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -84,10 +85,22 @@ class CudaGraphBackend:
         current.wait_stream(self.stream)
 
     def capture(self, body: Callable):
+        """Capture ``body``. A dropped runner's graphs live in a reference
+        cycle (the runner holds its ``DecodeGraphs``, which hold the
+        runner) until the collector frees them, and freeing a graph's
+        memory inside another capture invalidates that capture: collect
+        first, and hold the collector off until the capture ends."""
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            outputs = body()
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                outputs = body()
+        finally:
+            if enabled:
+                gc.enable()
         return graph, outputs
 
     def replay(self, graph) -> None:

@@ -141,6 +141,18 @@ class Engine:
         self.scheduler.check_memory()
         return True
 
+    def release_memory_occupation(self) -> bool:
+        """Free the KV pools' device memory between rollout phases (the
+        draft pool's too); only when idle, like flush_cache."""
+        if not self.flush_cache():
+            return False
+        self.runner.release_kv_memory()
+        return True
+
+    def resume_memory_occupation(self) -> bool:
+        self.runner.resume_kv_memory()
+        return True
+
     def get_server_info(self) -> Dict[str, Any]:
         s = self.scheduler
         return {

@@ -63,6 +63,14 @@ class ForwardArrays(NamedTuple):
     # [L, 2] f32 per-layer fp8-KV (k_scale, v_scale), stamped by the runner
     # when it loaded a scales file (layers/attention.py applies them)
     kv_scales: Optional[torch.Tensor] = None
+    # Speculation-tree batches (speculative/tree.py): slot-order positions
+    # (q_pos keeps the ROPE position, base + depth; the work list's q_start
+    # is the slot-order start) and the window start per request; spec_anc,
+    # the tree's static ancestor masks, is carried here in place of the JAX
+    # layer's spec_tree_context global. None outside tree rounds.
+    mask_pos: Optional[torch.Tensor] = None  # [T] i32
+    win_base: Optional[torch.Tensor] = None  # [B] i32
+    spec_anc: Optional[tuple] = None  # [W] python ints
 
 
 def num_q_blocks(T: int, B: int) -> int:
@@ -95,12 +103,15 @@ def make_attn_meta_host(q_lens: np.ndarray, T: int):
 
 
 def build_attn_meta(q_lens_np: np.ndarray, kv_lens_np: np.ndarray, T: int,
-                    device="cpu") -> AttnMeta:
-    """Numpy -> AttnMeta on ``device``."""
+                    device="cpu", q_start_np: Optional[np.ndarray] = None) -> AttnMeta:
+    """Numpy -> AttnMeta on ``device``. ``q_start_np`` defaults to kv_lens -
+    q_lens: a sequence's query rows are its last positions."""
     bs, br, bq = make_attn_meta_host(q_lens_np, T)
     t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    if q_start_np is None:
+        q_start_np = np.asarray(kv_lens_np) - np.asarray(q_lens_np)
     return AttnMeta(
         q_lens=t(q_lens_np),
-        q_start=t(np.asarray(kv_lens_np) - np.asarray(q_lens_np)),
+        q_start=t(q_start_np),
         block_seq=t(bs), block_row=t(br), block_qofs=t(bq),
     )

@@ -30,6 +30,18 @@ first use (runtime/cuda_graph_runner.py), as the JAX runner compiles one
 program per static shape; ``decode_graphs=False`` runs them eagerly, to
 hold replays against the eager step. Extend steps, ``step_host`` and every
 step of a CPU runner run eagerly.
+
+Speculative decoding (``ServerArgs.speculative_algorithm``): NGRAM verifies
+host-drafted chains (``spec_step``); EAGLE (``_init_eagle``) adds the
+one-layer draft model, drawn from the seed + 1 as the JAX runner draws it,
+and its draft pool: one layer of the target's geometry in the 5D layout,
+sharing the target's slot space and page table (at head_dim 64 the merged
+kernels serve it), re-made with the target pool (``resume_kv_memory``).
+``eagle_step`` runs a chain round and ``eagle_tree_step`` a tree round
+(speculative/eagle.py), eagerly, never through the decode graphs;
+``step_with_hidden`` is the extend step that also returns the hidden state
+seeding the draft. NEXTN, and EAGLE on an MLA target, are ROADMAP A11's
+rest.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
 from semi_pd_tpu_torch.ops.sampling import SamplingArrays, compute_logprobs, sample
 from semi_pd_tpu_torch.runtime.cuda_graph_runner import CudaGraphBackend, DecodeGraphs
 from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, ForwardArrays, ForwardMode
+from semi_pd_tpu_torch.runtime.speculative import verify_and_accept
 
 logger = logging.getLogger(__name__)
 
@@ -179,9 +192,18 @@ class ModelRunner:
         # steps run, by the attention route they took (T == B: decode),
         # replayed ones included
         self.step_counts = {"decode": 0, "extend": 0}
+        # speculative rounds' steps: target verifies (the pool's extend),
+        # decode-shaped draft steps (chain drafts and refreshes: the draft
+        # pool's decode) and tree draft steps (the draft pool's extend)
+        self.spec_counts = {"verify": 0, "draft_decode": 0, "draft_tree": 0}
         # the decode graphs (None: decode runs eagerly)
         self.graphs = (DecodeGraphs(self, CudaGraphBackend(self.device, self.generator))
                        if self._graphs_on else None)
+        self.draft_model = None
+        self.draft_kv = None
+        self.tree_template = None
+        if server_args.speculative_algorithm in ("EAGLE", "NEXTN"):
+            self._init_eagle()
 
     @property
     def attention(self):
@@ -253,16 +275,183 @@ class ModelRunner:
         frac = self.server_args.mem_fraction_static or 0.9
         return max(int(free * frac // per_token), 4096)
 
-    # ------------------------------------------------------------- step
-    def _step(self, fb: ForwardArrays) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The eager step (and the body a decode graph captures)."""
-        if self.kv_scales is not None:  # this runner's own scales, every step
-            fb = fb._replace(kv_scales=self.kv_scales)
+    def release_kv_memory(self) -> None:
+        """Free the KV pool's (and the draft pool's) device memory between
+        rollout phases; the caller has flushed every request. The decode
+        graphs captured the old pool and go with it."""
+        if self.graphs is not None:
+            self.graphs.clear()
+        self.kv_cache.buffer = None
+        if self.draft_kv is not None:
+            self.draft_kv.buffer = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def resume_kv_memory(self) -> None:
+        """Re-make the pools ``release_kv_memory`` freed (zeros), the draft
+        pool with the target's."""
+        if self.kv_cache.buffer is not None:
+            return  # not released
+        self.kv_cache = KVCache(self.kv_spec, self.device)
+        if self.draft_model is not None:
+            self._init_draft_pool()
+
+    # ------------------------------------------------------------- speculation
+    def _init_eagle(self) -> None:
+        """EAGLE draft net + draft KV pool sharing the target's slot space
+        (speculative/eagle.py), the JAX runner's _init_eagle."""
+        from semi_pd_tpu_torch.speculative.eagle import EagleDraftModel, load_token_map
+        from semi_pd_tpu_torch.speculative.tree import default_tree_template
+
+        args, mc = self.server_args, self.model_config
+        if args.speculative_algorithm == "NEXTN":
+            raise NotImplementedError(
+                "NEXTN (DeepSeek's multi-token-prediction draft) is ROADMAP A11 (rest)")
+        if mc.use_mla or not isinstance(self.model, LlamaForCausalLM):
+            raise NotImplementedError(
+                f"EAGLE on a {mc.architecture} target drafts with NextN over the latent "
+                f"pool: ROADMAP A11 (rest)")
+        if args.speculative_draft_model_path:
+            raise NotImplementedError("a draft checkpoint needs checkpoint loading "
+                                      "(ROADMAP A13); the draft draws random weights")
+        self.draft_model = EagleDraftModel(mc, self.device)
+        self.draft_model.page_size = args.page_size
+        self.draft_model.init_params(args.seed + 1)
+        self._init_draft_pool()
+        self.spec_refresh = not args.speculative_disable_draft_refresh
+        self.spec_hot_ids = None
+        if args.speculative_token_map:
+            # FR-Spec: the draft head runs over the hot-vocab subset only
+            hot = load_token_map(args.speculative_token_map)
+            self.spec_hot_ids = torch.as_tensor(hot, device=self.device)
+            logger.info("FR-Spec hot vocab: %d of %d tokens", hot.size, mc.vocab_size)
+        self._slice_hot_head()
+        if args.speculative_eagle_topk > 1:
+            self.tree_template = default_tree_template(
+                args.speculative_eagle_topk, args.speculative_num_draft_tokens)
+
+    def _init_draft_pool(self) -> None:
+        """The draft pool: one layer of the target's geometry in the 5D
+        layout (at head_dim 64 the merged kernels' pool), the target pool's
+        slots and dtype."""
+        spec = KVCacheSpec(
+            num_layers=1, num_pages=self.kv_spec.num_pages, page_size=self.kv_spec.page_size,
+            num_kv_heads=self.draft_model.num_kv_heads, head_dim=self.draft_model.head_dim,
+            dtype=self.kv_spec.dtype, layout="aligned")
+        self.draft_kv = KVCache(spec, self.device)
+        self.draft_attention = pool_attention(self.draft_kv.buffer)
+
+    def _slice_hot_head(self) -> None:
+        """Slice the lm_head to the FR-Spec hot vocab ONCE (a gather inside
+        every round would re-read the whole [H, V] head); again after the
+        target's weights change, as the JAX runner re-slices when it
+        rebuilds its round."""
+        from semi_pd_tpu_torch.speculative.eagle import _hot_head
+
+        self.spec_hot_head = (None if self.spec_hot_ids is None
+                              else _hot_head(self.model.head(), self.spec_hot_ids))
+
+    def set_spec_thresholds(self, single=None, acc=None) -> None:
+        """Update the relaxed-acceptance thresholds (an eager round reads
+        them at each call) and re-slice the hot head, as the JAX runner's
+        rebuild of its round does."""
+        if single is not None:
+            self.server_args.speculative_accept_threshold_single = float(single)
+        if acc is not None:
+            self.server_args.speculative_accept_threshold_acc = float(acc)
+        if self.draft_model is not None:
+            self._slice_hot_head()
+
+    def _stamp(self, fb: ForwardArrays) -> ForwardArrays:
+        """This runner's own fp8-KV scales on a target step's batch."""
+        return fb if self.kv_scales is None else fb._replace(kv_scales=self.kv_scales)
+
+    def eagle_step(self, fb: ForwardArrays, prev_hidden, gamma: int):
+        """EAGLE chain round. Returns device (accept_len [B], next_tok [B],
+        drafts [B, gamma], next_hidden [B, H])."""
+        from semi_pd_tpu_torch.speculative.eagle import eagle_round
+
+        args = self.server_args
+        res = eagle_round(
+            self.model, self.draft_model, self.kv_cache.buffer, self.draft_kv.buffer,
+            self._stamp(fb), self._hidden_in(prev_hidden), gamma, self.generator,
+            refresh=self.spec_refresh,
+            threshold_single=args.speculative_accept_threshold_single,
+            threshold_acc=args.speculative_accept_threshold_acc,
+            hot_ids=self.spec_hot_ids, hot_head=self.spec_hot_head,
+            attention=self.attention, draft_attention=self.draft_attention)
+        self.spec_counts["verify"] += 1
+        self.spec_counts["draft_decode"] += gamma * (2 if self.spec_refresh else 1)
+        return res.accept_len, res.next_tok, res.tokens, res.next_hidden
+
+    def eagle_tree_step(self, fb: ForwardArrays, prev_hidden):
+        """EAGLE tree round over ``tree_template``. Returns device
+        (accept_len [B], next_tok [B], path_tokens [B, depth], next_hidden
+        [B, H])."""
+        from semi_pd_tpu_torch.speculative.eagle import eagle_tree_round
+
+        tree = self.tree_template
+        res = eagle_tree_round(
+            self.model, self.draft_model, self.kv_cache.buffer, self.draft_kv.buffer,
+            self._stamp(fb), self._hidden_in(prev_hidden), tree, refresh=self.spec_refresh,
+            hot_ids=self.spec_hot_ids, hot_head=self.spec_hot_head,
+            attention=self.attention, draft_attention=self.draft_attention)
+        self.spec_counts["verify"] += 1
+        self.spec_counts["draft_tree"] += len(tree.level_nodes)
+        self.spec_counts["draft_decode"] += tree.depth if self.spec_refresh else 0
+        return res.accept_len, res.next_tok, res.tokens, res.next_hidden
+
+    def _hidden_in(self, prev_hidden) -> torch.Tensor:
+        return torch.as_tensor(prev_hidden, device=self.device).to(self.model.dtype)
+
+    def step_with_hidden(self, fb: ForwardArrays):
+        """Like the step, and also returns the last tokens' hidden states
+        [B, H] (seeding the EAGLE draft after a prefill)."""
+        tokens, logprobs, hidden = self._step(fb, return_hidden=True)
+        self._count(fb.input_ids.shape[0], fb.page_table.shape[0])
+        return tokens, logprobs, hidden
+
+    def spec_step(self, fb: ForwardArrays, drafts, draft_lens, gamma: int):
+        """Speculative verify step (runtime/speculative.py). Returns device
+        (accept_len [B], next_token [B])."""
+        args = self.server_args
         with torch.inference_mode():
-            logits = self.model(fb, self.kv_cache.buffer, attention=self.attention)
+            logits = self.model(self._stamp(fb), self.kv_cache.buffer,
+                                attention=self.attention)  # logits_idx covers all rows
+            accept_len, next_tok = verify_and_accept(
+                logits, torch.as_tensor(drafts, device=self.device),
+                torch.as_tensor(draft_lens, device=self.device), fb.sampling,
+                self.generator, gamma,
+                threshold_single=args.speculative_accept_threshold_single,
+                threshold_acc=args.speculative_accept_threshold_acc)
+        self.spec_counts["verify"] += 1
+        return accept_len, next_tok
+
+    # host-batch forms of the four (one copy per array, as step_host)
+    def step_with_hidden_host(self, hb):
+        return self.step_with_hidden(hb.to_device(self.device))
+
+    def eagle_step_host(self, hb, prev_hidden, gamma: int):
+        return self.eagle_step(hb.to_device(self.device), prev_hidden, gamma)
+
+    def eagle_tree_step_host(self, hb, prev_hidden):
+        return self.eagle_tree_step(hb.to_device(self.device), prev_hidden)
+
+    def spec_step_host(self, hb, drafts, draft_lens, gamma: int):
+        return self.spec_step(hb.to_device(self.device), drafts, draft_lens, gamma)
+
+    # ------------------------------------------------------------- step
+    def _step(self, fb: ForwardArrays, return_hidden: bool = False):
+        """The eager step (and the body a decode graph captures); with
+        ``return_hidden`` also the rows' hidden states."""
+        fb = self._stamp(fb)  # this runner's own scales, every step
+        with torch.inference_mode():
+            out = self.model(fb, self.kv_cache.buffer, attention=self.attention,
+                             **({"return_hidden": True} if return_hidden else {}))
+            logits, hidden = out if return_hidden else (out, None)
             tokens = sample(logits, fb.sampling, self.generator, fb.all_greedy)
             logprobs = compute_logprobs(logits, tokens)
-        return tokens, logprobs
+        return (tokens, logprobs, hidden) if return_hidden else (tokens, logprobs)
 
     def _count(self, T: int, B: int) -> None:
         self.step_counts["decode" if T == B else "extend"] += 1

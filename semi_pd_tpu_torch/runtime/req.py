@@ -2,8 +2,9 @@
 semi_pd_tpu/runtime/req.py).
 
 Host-side only: tokens and page lists are python/numpy; device state lives
-in the shared KV pool addressed through ``pages``. The grammar, LoRA,
-speculation, multimodal and DP-attention fields are not in this slice.
+in the shared KV pool addressed through ``pages``. ``spec_hidden`` seeds
+EAGLE's draft. The grammar, LoRA, multimodal and DP-attention fields are
+not in this slice.
 """
 
 from __future__ import annotations
@@ -60,6 +61,11 @@ class Req:  # batch membership by object, and dicts key on rid
     finish_time: Optional[float] = None
 
     decoded_text: str = ""
+
+    # EAGLE: the target's hidden state [H] (float32 numpy) at the last
+    # committed token, which seeds the next round's draft; None until the
+    # prompt's last chunk ran with the hidden state returned
+    spec_hidden: Any = None
 
     # Original prompt length (input_ids grows when retraction folds generated
     # tokens back into the prefill input).
@@ -126,4 +132,5 @@ class Req:  # batch membership by object, and dicts key on rid
         self.n_prefix_pages = 0
         self.req_slot = None
         self.last_node = None
+        self.spec_hidden = None
         self.epoch += 1

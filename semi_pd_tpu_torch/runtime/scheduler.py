@@ -20,11 +20,15 @@ prefill batch runs whenever one can form and may stall decode.
 
 Kept from the JAX scheduler: both ticks, the in-flight ring with its
 split flush, chained decode, cost accounting, adaptive ring depth,
-``_prefill_chunk_budget``, radix prefix reuse, retraction and
-``check_memory``. Not in this slice: HiCache (ROADMAP A15), speculation
-(A11), grammar masks, jump-forward, penalties, top-k logprobs and logit
-processors (A10) — requests needing them are refused at ``add_request`` —
-and DP-attention partitions (A15).
+``_prefill_chunk_budget``, radix prefix reuse, retraction,
+``check_memory`` and speculative decoding (``speculative_algorithm``):
+NGRAM and EAGLE chain and tree rounds, each decode tick flushing the ring
+and then speculating for the whole running batch, EAGLE's extends
+returning the hidden state that seeds the draft. Not in this slice: HiCache
+(ROADMAP A15), NEXTN (A11's rest, refused by the runner), grammar masks,
+jump-forward, penalties, top-k logprobs and logit processors (A10) —
+requests needing them are refused at ``add_request`` — and DP-attention
+partitions (A15).
 """
 
 from __future__ import annotations
@@ -44,10 +48,13 @@ from semi_pd_tpu_torch.runtime.batch import (
     HostBatch,
     build_decode_batch,
     build_extend_batch,
+    build_spec_verify_batch,
+    build_tree_verify_batch,
 )
 from semi_pd_tpu_torch.runtime.forward_batch import ForwardMode
 from semi_pd_tpu_torch.runtime.req import FinishReason, Req
 from semi_pd_tpu_torch.runtime.schedule_policy import PrefillAdder, sort_waiting_queue
+from semi_pd_tpu_torch.runtime.speculative import ngram_draft
 
 logger = logging.getLogger(__name__)
 
@@ -64,6 +71,7 @@ class _RingEntry:
     admitted: Optional[List[Tuple[Req, int]]] = None  # extend only
     done_flags: Optional[List[bool]] = None  # extend only: prompt completed
     t_dispatch: float = 0.0
+    hidden: Optional[np.ndarray] = None  # EAGLE extend: [B, H] hidden states
 
 
 def unsupported_reason(req: Req) -> Optional[str]:
@@ -151,6 +159,16 @@ class Scheduler:
             server_args.max_stall_ms / 1e3 if server_args.max_stall_ms
             else 4.0 * server_args.decode_slo_ms / 1e3
         )
+
+        # Speculative decoding (NGRAM: runtime/speculative.py; EAGLE:
+        # speculative/eagle.py rounds); the runner refuses NEXTN
+        self.spec_algo = server_args.speculative_algorithm
+        self.spec_gamma = (
+            server_args.speculative_num_draft_tokens
+            if self.spec_algo in ("NGRAM", "EAGLE") else 0
+        )
+        self.n_spec_steps = 0
+        self.n_spec_accepted = 0
 
         # Stats
         self._last_stats_log = time.monotonic()
@@ -405,7 +423,8 @@ class Scheduler:
         return True
 
     def _run_extend(self, admitted: List[Tuple[Req, int]]) -> List[Tuple[Req, int]]:
-        """Dispatch a prefill/extend step onto the in-flight ring."""
+        """Dispatch a prefill/extend step onto the in-flight ring; under
+        EAGLE synchronously, with the hidden states that seed the draft."""
         hb = build_extend_batch(
             admitted,
             self.runner.req_pool.page_table,
@@ -414,7 +433,14 @@ class Scheduler:
             self.b_buckets,
             self.p_buckets,
         )
-        tokens, logprobs = self.runner.step_packed(hb)
+        out = []
+        hidden = None
+        if self.spec_algo == "EAGLE":
+            out += self._flush_ring()  # keep the token stream in order
+            tokens, logprobs, hidden = self.runner.step_with_hidden_host(hb)
+            hidden = hidden.float().cpu().numpy()
+        else:
+            tokens, logprobs = self.runner.step_packed(hb)
         self._note_dispatch()
         self.n_prefill_tokens += sum(n for _, n in admitted)
 
@@ -430,8 +456,11 @@ class Scheduler:
         entry = _RingEntry(
             kind="extend", hb=hb, tokens=tokens, logprobs=logprobs,
             epochs=[r.epoch for r, _ in admitted], admitted=list(admitted),
-            done_flags=done_flags,
+            done_flags=done_flags, hidden=hidden,
         )
+        if hidden is not None:
+            toks, lps = self.runner.read_results([tokens], [logprobs])
+            return out + self._process_extend_entry(entry, toks[0], lps[0])
         return self._push_entry(entry)
 
     def _process_extend_entry(
@@ -446,6 +475,8 @@ class Scheduler:
                 continue
             tok = int(tokens[i])
             req.output_ids.append(tok)
+            if e.hidden is not None:
+                req.spec_hidden = e.hidden[i]
             if req.return_logprob and logprobs is not None:
                 req.output_logprobs.append(float(logprobs[i]))
             if req.first_token_time is None:
@@ -582,7 +613,16 @@ class Scheduler:
     def _run_decode(self) -> List[Tuple[Req, int]]:
         """When the running batch is unchanged since the newest in-flight
         decode, dispatch the NEXT step chained to its on-device tokens;
-        otherwise flush, then dispatch fresh from host state."""
+        otherwise flush, then dispatch fresh from host state. Speculating,
+        flush, then run one speculative round for the running batch."""
+        if self.spec_gamma > 0:
+            out = self._flush_ring()
+            if self.running:
+                if self.spec_algo == "EAGLE":
+                    out += self._run_eagle_decode()
+                else:
+                    out += self._run_spec_decode()
+            return out
         chained = self._try_dispatch_chained() if self.enable_overlap else None
         if chained is not None:
             return self._push_entry(chained)
@@ -594,6 +634,130 @@ class Scheduler:
                 e.t_dispatch = time.monotonic()
                 self._ring.append(e)
         return out
+
+    def _run_eagle_decode(self) -> List[Tuple[Req, int]]:
+        """EAGLE round (speculative/eagle.py). Same batch geometry as the
+        NGRAM verify window; drafts are generated on the device. A tree
+        round when the runner has a tree and every request is greedy."""
+        g = self.spec_gamma
+        if any(r.spec_hidden is None for r in self.running):
+            return self._fallback_plain_decode()
+
+        tree = self.runner.tree_template
+        if tree is not None and all(
+            r.sampling_params.temperature <= 0.0 for r in self.running
+        ):
+            return self._run_eagle_tree_decode(tree)
+
+        if not self._alloc_spec_pages([r.kv_len + 1 + g for r in self.running]):
+            return self._fallback_plain_decode()
+        hb, _, _ = build_spec_verify_batch(
+            self.running, [[0] * g for _ in self.running], g,
+            self.runner.req_pool.page_table, self.page_size,
+            self.b_buckets, self.p_buckets,
+        )
+        accept_len, next_tok, drafts, next_hidden = self.runner.eagle_step_host(
+            hb, self._prev_hidden(hb), g)
+        return self._commit_spec(hb.reqs, accept_len, next_tok, drafts, next_hidden)
+
+    def _run_eagle_tree_decode(self, tree) -> List[Tuple[Req, int]]:
+        """EAGLE top-k TREE round (speculative/eagle.py eagle_tree_round):
+        drafts a static token tree, verifies every node with the target,
+        accepts the deepest matching path and compacts its KV into slot
+        order. Greedy only (the caller checked)."""
+        if not self._alloc_spec_pages([r.kv_len + tree.num_nodes for r in self.running]):
+            return self._fallback_plain_decode()
+        hb = build_tree_verify_batch(
+            self.running, tree,
+            self.runner.req_pool.page_table, self.page_size,
+            self.b_buckets, self.p_buckets,
+        )
+        accept_len, next_tok, path_tokens, next_hidden = (
+            self.runner.eagle_tree_step_host(hb, self._prev_hidden(hb)))
+        return self._commit_spec(hb.reqs, accept_len, next_tok, path_tokens, next_hidden)
+
+    def _prev_hidden(self, hb: HostBatch) -> np.ndarray:
+        prev = np.zeros((hb.B, self.runner.model_config.hidden_size), np.float32)
+        for i, r in enumerate(hb.reqs):
+            prev[i] = r.spec_hidden
+        return prev
+
+    def _alloc_spec_pages(self, targets: List[int]) -> bool:
+        """Pages covering each running request's KV up to ``targets[i]``
+        positions (its verify window); False when the pool runs out."""
+        for r, target in zip(self.running, targets):
+            need = (target + self.page_size - 1) // self.page_size - len(r.pages)
+            if need > 0:
+                pages = self._alloc_pages(need)
+                if pages is None:
+                    return False
+                self.runner.req_pool.write(r.req_slot, len(r.pages), pages)
+                r.pages.extend(pages.tolist())
+        return True
+
+    def _commit_spec(self, reqs: List[Req], accept_len, next_tok, drafts,
+                     next_hidden=None) -> List[Tuple[Req, int]]:
+        """Append each request's accepted drafts and its correction/bonus
+        token (stopping at a finish), then release the finished. One
+        device->host copy of the round's results."""
+        accept_len = accept_len.cpu().numpy()
+        next_tok = next_tok.cpu().numpy()
+        drafts = np.asarray(drafts.cpu().numpy() if hasattr(drafts, "cpu") else drafts)
+        if next_hidden is not None:
+            next_hidden = next_hidden.float().cpu().numpy()
+        out = []
+        still = []
+        for i, req in enumerate(reqs):
+            toks = list(drafts[i][: int(accept_len[i])]) + [int(next_tok[i])]
+            self.n_spec_steps += 1
+            self.n_spec_accepted += int(accept_len[i])
+            if next_hidden is not None:
+                req.spec_hidden = next_hidden[i]
+            for tok in toks:
+                req.output_ids.append(int(tok))
+                self.n_decode_tokens += 1
+                req.check_finished()
+                out.append((req, int(tok)))
+                if req.finished:
+                    break
+            if req.finished:
+                self._release_finished(req)
+            else:
+                still.append(req)
+        self.running = still
+        return out
+
+    def _fallback_plain_decode(self) -> List[Tuple[Req, int]]:
+        """Synchronous plain decode step (the speculative paths' fallback):
+        the ring is flushed when these run, so dispatch + flush reads just
+        this one step."""
+        e = self._dispatch_decode()
+        if e is None:
+            return []
+        self._note_dispatch()
+        e.t_dispatch = time.monotonic()
+        self._ring.append(e)
+        return self._flush_ring()
+
+    def _run_spec_decode(self) -> List[Tuple[Req, int]]:
+        """NGRAM speculative step: draft, verify in one forward, accept up to
+        gamma+1 tokens per request (chain drafts, no tree, no draft
+        model)."""
+        g = self.spec_gamma
+        drafts = [ngram_draft(r, g) for r in self.running]
+        # pages covering the last token + the drafts; even an empty draft
+        # needs a page for the bonus token at a page boundary: plain decode
+        # allocates it (and can retract)
+        if not self._alloc_spec_pages([r.kv_len + 1 + len(d)
+                                       for r, d in zip(self.running, drafts)]):
+            return self._fallback_plain_decode()
+        hb, drafts_np, draft_lens = build_spec_verify_batch(
+            self.running, drafts, g,
+            self.runner.req_pool.page_table, self.page_size,
+            self.b_buckets, self.p_buckets,
+        )
+        accept_len, next_tok = self.runner.spec_step_host(hb, drafts_np, draft_lens, g)
+        return self._commit_spec(hb.reqs, accept_len, next_tok, drafts_np)
 
     def _dispatch_decode(self) -> Optional[_RingEntry]:
         """Build + dispatch a decode step from host state. Called with the

@@ -177,7 +177,9 @@ def test_aligned_routing_and_refusals():
     torch.testing.assert_close(a, e, rtol=2e-5, atol=2e-5)
     with pytest.raises(ValueError, match="latent pool"):
         rpa.ragged_paged_attention(q, pool, 0, pt, kvl, meta, v_dim=64, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    # a speculation tree needs its window starts (the tree itself is
+    # tests/test_torch_spec_mask.py's)
+    with pytest.raises(ValueError, match="go together"):
         rpa.ragged_paged_attention(q, pool, 0, pt, kvl, meta, spec_anc=(1,), **kw)
     fp8 = pool.to(torch.float8_e4m3fn)
     out = rpa_packed.ragged_paged_attention_packed(q, fp8, 0, pt, kvl, **kw)

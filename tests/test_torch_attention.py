@@ -117,9 +117,15 @@ def test_reference_rejects_unported_features():
     d = _setup(2, [1], [5])
     args = (_t(d["q"]), chunked_to_5d(_t(d["pool"]), HKV, D), 0, _t(d["pt"]),
             _t(d["qri"]), _t(d["qpos"]), _t(d["kv_lens"].astype(np.int32)))
-    for kw in ({"spec_anc": (1,)}, {"alibi_slopes": torch.ones(HQ)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ragged_paged_attention_reference(*args, page_size=PS, scale=SCALE, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ragged_paged_attention_reference(*args, page_size=PS, scale=SCALE,
+                                         alibi_slopes=torch.ones(HQ))
+    # speculation trees are served: a one-node tree whose window starts at
+    # the row's own position leaves the causal answer unchanged
+    plain = ragged_paged_attention_reference(*args, page_size=PS, scale=SCALE)
+    tree = ragged_paged_attention_reference(*args, page_size=PS, scale=SCALE, spec_anc=(1,),
+                                            win_base=_t(d["qpos"]))
+    assert torch.equal(plain, tree)
 
 
 DECODE_CASES = {
@@ -224,7 +230,7 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="Hkv"):
         rpa_packed.ragged_paged_attention_chunked_packed(
             q, pool, 0, pt, kvl, **dict(kw, num_kv_heads=3))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(ValueError, match="go together"):  # a tree needs its window starts
         rpa.ragged_paged_attention_chunked(q, pool, 0, pt, kvl, None, spec_anc=(1,), **kw)
     with pytest.raises(RuntimeError, match="no decode kernel"):
         rpa_packed.ragged_paged_attention_chunked_packed(

@@ -406,20 +406,21 @@ def test_extend_builds_run_on_the_tensor_cores(cuda_device):
     and e5m2 KV) of the chunked, the aligned, the merged and the latent
     extend and decode runs tensor-core instructions (HGMMA in the extends'
     warpgroup kernels, HMMA in the decodes'); their float32 pairs stay on
-    the CUDA cores."""
+    the CUDA cores. The three GQA extends hold each kernel twice: with a
+    speculation tree (TREE) and without."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
-    expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs)
-        "rpa_extend": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 3),
-        "rpa_extend_aligned": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 3),
-        "rpa_extend_mla": ("rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel", 3),
-        "rpa_extend_merged": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 3),
-        "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
-        "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
-        "rpa_decode_merged": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3),
-        "rpa_decode_mla": ("rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel", 3),
+    expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs, float32 ones)
+        "rpa_extend": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 6, 2),
+        "rpa_extend_aligned": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 6, 2),
+        "rpa_extend_mla": ("rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel", 3, 1),
+        "rpa_extend_merged": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 6, 2),
+        "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3, 1),
+        "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3, 1),
+        "rpa_decode_merged": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3, 1),
+        "rpa_decode_mla": ("rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel", 3, 1),
     }
-    for name, (mma_fn, core_fn, n_mma) in expect.items():
+    for name, (mma_fn, core_fn, n_mma, n_core) in expect.items():
         KERNELS[name].fn()
         counts = sass_mma_counts(KERNELS[name])
         mma = [n for f, n in counts.items() if mma_fn in f]
@@ -428,7 +429,7 @@ def test_extend_builds_run_on_the_tensor_cores(cuda_device):
             hgmma = sass_mma_counts(KERNELS[name], op="HGMMA")
             assert all(hgmma[f] == n for f, n in counts.items() if mma_fn in f), (name, counts)
         core = [n for f, n in counts.items() if core_fn in f]
-        assert len(core) == 1 and not any(core), (name, counts)
+        assert len(core) == n_core and not any(core), (name, counts)
 
 
 def _bf16_steps(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -1168,3 +1169,231 @@ def test_engine_serves_the_same_tokens_on_graphs_and_eagerly(cuda_device):
         else:
             assert eng.runner.graphs is None
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------------------------ speculation trees
+SPEC_BUILDS = {  # build: (pool layout, Hq, Hkv, head_dim)
+    "rpa_extend": ("chunked", 16, 8, D),
+    "rpa_extend_aligned": ("aligned", 8, 2, D_ALIGNED),
+    "rpa_extend_merged": ("aligned", 32, 8, D),  # the 1B-class draft pool's geometry
+}
+SPEC_TYPES = {"rpa_extend": ["float32", "bfloat16"],
+              "rpa_extend_aligned": ["float32", "bfloat16", "fp8_e4m3"],
+              "rpa_extend_merged": ["float32", "bfloat16", "fp8_e4m3"]}
+SPEC_CASES = [(b, t) for b, ts in SPEC_TYPES.items() for t in ts]
+
+
+def _tree_case(dev, build, dtype, draft_level=None, prefix=(40, 17, 3, 130)):
+    """A speculation tree's attention on the card: requests with ``prefix``
+    committed positions, each followed by the window of the (4, 2, 1, 1)
+    tree's 29 nodes, on shuffled pages, every slot no live position holds
+    NaN. Without ``draft_level``: the verify (29 rows per request); with
+    it: that level's draft step (B * n rows of q_len 1 over the page table
+    tiled n times, kv_len = the node's slot + 1)."""
+    from semi_pd_tpu_torch.speculative.eagle import _decode_meta
+    from semi_pd_tpu_torch.speculative.tree import default_tree_template
+
+    tree = default_tree_template(4, 4)
+    layout, hq, hkv, d = SPEC_BUILDS[build]
+    N, B = tree.num_nodes, len(prefix)
+    rng = np.random.default_rng(21)
+    lens = np.asarray(prefix) + N
+    n_pages = [-(-int(k) // PS) for k in lens]
+    total = sum(n_pages) + 1
+    perm = rng.permutation(np.arange(1, total))
+    pt = np.zeros((B, max(n_pages)), np.int32)
+    live = np.zeros(total * PS, bool)
+    used = 0
+    for b, n in enumerate(n_pages):
+        pt[b, :n] = perm[used:used + n]
+        used += n
+        pos = np.arange(lens[b])
+        live[pt[b, pos // PS] * PS + pos % PS] = True
+    shape = ((L, total * PS, 2 * hkv * d // 128, 128) if layout == "chunked"
+             else (L, 2, total * PS, hkv, d))
+    pool = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    if layout == "chunked":
+        pool[:, torch.from_numpy(~live)] = float("nan")
+    else:
+        pool[:, :, torch.from_numpy(~live)] = float("nan")
+    win = np.asarray(prefix, np.int32)
+    if draft_level is None:
+        T = B * N
+        m = build_attn_meta(np.full(B, N), lens, T)
+        meta = AttnMeta(*[_unaligned(a.numpy(), dev) for a in m])
+    else:
+        level = tree.level_nodes[draft_level]
+        mpos = np.concatenate([win + j for j in level]).astype(np.int32)
+        T, lens = len(mpos), mpos + 1
+        meta = _decode_meta(torch.from_numpy(mpos).to(dev))
+        pt, win = np.tile(pt, (len(level), 1)), np.tile(win, len(level))
+    q = torch.from_numpy(rng.normal(size=(T, hq, d)).astype(np.float32))
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    return dict(q=q.to(dev, dt), pool=pool.to(dev, FP8.get(dtype, dt)),
+                pt=_unaligned(pt, dev), kvl=_unaligned(lens.astype(np.int32), dev), meta=meta,
+                win_base=_unaligned(win, dev), anc=tuple(int(a) for a in tree.anc_bits),
+                tol=1e-4 if dt == torch.float32 else 1e-2)
+
+
+def _tree_fns(build, c):
+    layout, _, hkv, d = SPEC_BUILDS[build]
+    args = (c["q"], c["pool"], 1, c["pt"], c["kvl"], c["meta"])
+    kw = dict(page_size=PS, scale=d ** -0.5, spec_anc=c["anc"], win_base=c["win_base"])
+    if layout == "chunked":
+        return (lambda **o: rpa.ragged_paged_attention_chunked_extend(
+                    *args, num_kv_heads=hkv, head_dim=d, **{**kw, **o}),
+                lambda **o: rpa.extend_attention_plain(
+                    *args, num_kv_heads=hkv, head_dim=d, **{**kw, **o}))
+    return (lambda **o: rpa.ragged_paged_attention_extend(*args, **{**kw, **o}),
+            lambda **o: rpa.ragged_paged_attention_extend_plain(*args, **{**kw, **o}))
+
+
+@pytest.mark.parametrize("draft_level", [None, 1, 3], ids=["verify", "draft1", "draft3"])
+@pytest.mark.parametrize("build,dtype", SPEC_CASES, ids=[f"{b}-{t}" for b, t in SPEC_CASES])
+def test_tree_masked_extend_matches_plain(cuda_device, build, dtype, draft_level):
+    """The three GQA extends with a speculation tree's masks against their
+    plain version: the verify and two draft steps (decode-shaped, taken by
+    the extend), on layer 1, every dead slot NaN; the tree changes the
+    answer (a chain over the same window gives another), and the kernel
+    with the chain matches its plain version too."""
+    c = _tree_case(cuda_device, build, dtype, draft_level)
+    kern, plain = _tree_fns(build, c)
+    k = KERNELS[build]
+    before = k.launches
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=c["tol"], atol=c["tol"])
+    chain = tuple((1 << (j + 1)) - 1 for j in range(len(c["anc"])))
+    other = kern(spec_anc=chain)
+    torch.testing.assert_close(other.float(), plain(spec_anc=chain).float(), rtol=c["tol"],
+                               atol=c["tol"])
+    assert (other.float() - out.float()).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("build", sorted(SPEC_BUILDS))
+def test_tree_masked_extend_repeats_bitwise(cuda_device, build):
+    c = _tree_case(cuda_device, build, "bfloat16")
+    kern, _ = _tree_fns(build, c)
+    assert torch.equal(kern(), kern())
+
+
+def test_tree_refused_by_the_mla_extend_and_unpaired(cuda_device):
+    c = _tree_case(cuda_device, "rpa_extend", "bfloat16")
+    kern, _ = _tree_fns("rpa_extend", c)
+    with pytest.raises(ValueError, match="go together"):
+        kern(win_base=None)
+    q = torch.zeros((2, HQ_MLA, DLAT), device=cuda_device, dtype=torch.bfloat16)
+    pool = torch.zeros((1, 1, 64, 1, DLAT), device=cuda_device, dtype=torch.bfloat16)
+    pt = torch.ones((2, 2), dtype=torch.int32, device=cuda_device)
+    kvl = torch.full((2,), 8, dtype=torch.int32, device=cuda_device)
+    m = build_attn_meta(np.array([1, 1]), np.array([8, 8]), 2, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        rpa.ragged_paged_attention_extend(q, pool, 0, pt, kvl, m, page_size=PS, scale=0.1,
+                                          v_dim=V_DIM, spec_anc=(1, 3),
+                                          win_base=torch.zeros(2, dtype=torch.int32,
+                                                               device=cuda_device))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3"])
+@pytest.mark.parametrize("kind", ["decode", "extend"])
+def test_merged_pair_at_hkv8_matches_plain(cuda_device, kind, dtype):
+    """The merged decode and extend at the 1B-class draft pool's geometry
+    (Hq 32, Hkv 8: G 4, which the merged builds serve only for the draft)
+    against their plain versions."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    case = _decode_case if kind == "decode" else _extend_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt, kv_dtype=FP8.get(dtype, dt), merged=True,
+                                  hq=32, hkv=8)
+    kw = _opts("plain", 0.125)
+    k = KERNELS["rpa_" + kind + "_merged"]
+    before = k.launches
+    if kind == "decode":
+        out = rpa_packed.ragged_paged_attention_packed(q, pool, 1, pt, kvl, **kw)
+        ref = rpa_packed.ragged_paged_attention_packed_plain(q, pool, 1, pt, kvl, **kw)
+    else:
+        out = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, **kw)
+        ref = rpa.ragged_paged_attention_extend_plain(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("algo", ["NGRAM", "EAGLE", "EAGLE-tree"])
+def test_spec_engine_on_cuda_matches_cpu(cuda_device, algo):
+    """A speculating Engine on the card (float32, the chunked pool and the
+    draft's 5D pool at Hkv 8) gives the greedy tokens and the accepted
+    drafts of the same Engine on the CPU holding the same target and draft
+    parameters, and launches only the speculating path's builds (never the
+    target's decode). The weights are made predictive (the target's final
+    norm ones, the draft's fc passing the token embedding), so that drafts
+    are accepted and the rounds run their accepted paths."""
+    spec = dict(speculative_algorithm=algo.split("-")[0], speculative_num_draft_tokens=4,
+                speculative_eagle_topk=4 if algo.endswith("tree") else 1)
+    serve = dict(random_weights=True, page_size=PS, max_total_tokens=2048,
+                 chunked_prefill_size=64, **spec)
+    cfg = dict(_llama_cfg(D, num_kv_heads=8), vocab_size=64)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 64, size=n).tolist() for n in (20, 100, 37)]
+    sp = SamplingParams(max_new_tokens=16, temperature=0.0, ignore_eos=True)
+    gpu = Engine(ServerArgs(**serve), ModelConfig(**cfg))
+    cpu = Engine(ServerArgs(device="cpu", **serve), ModelConfig(**cfg), device="cpu")
+    params = gpu.runner.model.params_tree()
+    params["final_norm"] = np.ones_like(params["final_norm"])
+    for eng in (gpu, cpu):
+        eng.runner.model.load_jax_params(params)
+    if gpu.runner.draft_model is not None:
+        H = cfg["hidden_size"]
+        draft = gpu.runner.draft_model.params_tree()
+        draft["fc"]["w"][H:] *= 0.01
+        draft["fc"]["w"][:H] = np.eye(H)
+        for eng in (gpu, cpu):
+            eng.runner.draft_model.load_jax_params(draft)
+    for k in KERNELS.values():
+        k.launches = 0
+    got = gpu.generate(input_ids=prompts, sampling_params=sp)
+    launched = {n for n, k in KERNELS.items() if k.launches}
+    want = {"NGRAM": {"rpa_extend"}, "EAGLE": {"rpa_extend", "rpa_decode_merged"},
+            "EAGLE-tree": {"rpa_extend", "rpa_decode_merged", "rpa_extend_merged"}}[algo]
+    assert launched == want
+    ref = cpu.generate(input_ids=prompts, sampling_params=sp)
+    assert [o["output_ids"] for o in got] == [o["output_ids"] for o in ref]
+    assert gpu.scheduler.n_spec_accepted == cpu.scheduler.n_spec_accepted > 0
+    assert gpu.flush_cache() and cpu.flush_cache()
+
+
+def test_graph_capture_collects_first_and_holds_the_collector_off(cuda_device):
+    """A dropped runner's graphs live in a reference cycle until the
+    collector frees them, and freeing a graph's memory inside another
+    capture invalidates that capture (an fp8 engine twin above met it once
+    in four runs): the backend collects before a capture and holds the
+    collector off during it."""
+    import gc
+    import weakref
+
+    from semi_pd_tpu_torch.runtime.cuda_graph_runner import CudaGraphBackend
+
+    gen = torch.Generator(device=cuda_device)
+    x = torch.arange(1024, device=cuda_device, dtype=torch.float32)
+    old_graph, _ = CudaGraphBackend(cuda_device, gen).capture(lambda: x + 1)
+
+    class Holder:
+        pass
+
+    h = Holder()
+    h.graph, h.me = old_graph, h  # a dead cycle holding a captured graph
+    alive = weakref.ref(h)
+    del h, old_graph
+    seen = []
+
+    def body():
+        seen.append((gc.isenabled(), alive() is None))
+        return x * 2
+
+    graph, out = CudaGraphBackend(cuda_device, gen).capture(body)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert seen == [(False, True)] and gc.isenabled()
+    assert torch.equal(out, x * 2)

@@ -553,7 +553,8 @@ def test_builds_name_their_warpgroup_kernels():
     64, the aligned one at 128) and the MLA build launch the warpgroup
     kernels for bf16 q: their sources hold them, the entry passes the
     build's P_F32_BUILD (the merged build's -DRPA_P_F32) as the kernel's
-    P_SPLIT, the mma.sync extend kernel is gone, and the builds' defines
+    P_SPLIT (to the instantiation with a speculation tree and the one
+    without), the mma.sync extend kernel is gone, and the builds' defines
     are the ones their schedules here assume."""
     aligned, mla = KERNELS["rpa_extend_aligned"], KERNELS["rpa_extend_mla"]
     chunked, merged = KERNELS["rpa_extend"], KERNELS["rpa_extend_merged"]
@@ -568,5 +569,7 @@ def test_builds_name_their_warpgroup_kernels():
     assert chunked.source == merged.source == aligned.source
     assert "rpa_extend_wgmma_kernel" in src and "rpa_extend_mma_kernel" not in src
     assert "MmaLayout" not in src and "launch_extend_mma" not in src
-    assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD>", src)
+    # both instantiations, with a speculation tree and without (TREE)
+    assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD, true>", src)
+    assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD, false>", src)
     assert "rpa_extend_mla_wgmma_kernel" in mla.source.read_text()

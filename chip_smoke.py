@@ -60,8 +60,14 @@ each (any failure raises and exits non-zero):
              (bf16, float32, e4m3 KV), the tree's level-1 draft step (b64 x
              4 rows of q_len 1 over the tiled page table) through
              rpa_extend_merged at the draft pool's Hq 32 / Hkv 8, and
-             rpa_decode_merged at that geometry, b64 / kv1024; the library
-             call of a masked case is SDPA with the boolean tree mask.
+             rpa_decode_merged at that geometry, b64 / kv1024; then NextN's
+             on DeepSeek-V2-Lite's latent pool: the tree verify through
+             rpa_extend_mla (bf16 and e4m3 rows under bf16 q, float32; its
+             row also times the same inputs without the tree, the
+             unmasked instantiation, as ``causal_ms``) and the level-1 draft
+             step on the one-layer latent draft pool (bf16, float32); the
+             library call of a masked case is SDPA with the boolean tree
+             mask.
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
              chunked pool with bf16 KV, then with fp8_e4m3 KV, the
@@ -132,8 +138,23 @@ each (any failure raises and exits non-zero):
 4f. f32 gate — the 1B-class model in float32 (8 requests x 32 tokens)
              served with the EAGLE tree and without speculation: the tokens
              must be equal.
+4n. nextn   — DeepSeek-V2-Lite at full width speculating with its NextN
+             draft (one MoE layer mirroring the last, drawn from seed + 1,
+             over a one-layer latent pool [1, 1, S, 1, 576]): one tree and
+             one chain round kernels vs plain attention (``spec_model``
+             lines), then NEXTN chain and tree (topk 4, 4 draft tokens)
+             serving the 32 prompts colocated and semi-PD, each on an
+             Engine of its own on predictive weights (final norm ones,
+             embedding x3, eh_proj passing the normed embedding, NextN's
+             norms ones): rpa_extend_mla launches L times per prefill
+             chunk and per verify and once per tree draft step,
+             rpa_decode_mla once per chain draft or refresh step, nothing
+             else; every serve fails if no draft was accepted.
+4nf. nextn f32 gate — V2-Lite in float32 at 4 layers (8 requests x 32
+             tokens) served with the NextN tree and without speculation:
+             the tokens must be equal.
 
-Then one JSON line listing the kernels (the three GQA extends with
+Then one JSON line listing the kernels (the four extends with
 ``masked_max_abs_err``, the largest error of their masked cases), the
 nvidia-smi name/power-limit line, and the result line {"ok": true,
 "device": {...}}.
@@ -557,8 +578,8 @@ def tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level=None, B=64):
         used += n
         pos = np.arange(lens[b])
         live[pt[b, pos // PAGE] * PAGE + pos % PAGE] = True
-    shape = ((1, total * PAGE, 2 * HKV * D // 128, 128) if pool == "chunked"
-             else (1, 2, total * PAGE, HKV, D))
+    shape = {"chunked": (1, total * PAGE, 2 * HKV * D // 128, 128),
+             "latent": (1, 1, total * PAGE, 1, D)}.get(pool, (1, 2, total * PAGE, HKV, D))
     kv = torch.randn(shape, generator=gen, device="cuda")
     dead = torch.as_tensor(~live, device="cuda")
     if pool == "chunked":
@@ -592,11 +613,14 @@ def tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level=None, B=64):
 
 
 def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None):
-    """One masked case of phase 2: the GQA extend of ``pool`` with the
-    tree's masks against its plain version, timed beside the plain version,
-    one scaled_dot_product_attention over pre-gathered KV with the boolean
-    tree mask (upcast to bf16 for fp8 KV), and the bound. Its row is a
-    ``kernel_case`` line with ``spec_tree`` set."""
+    """One masked case of phase 2: the extend of ``pool`` (a GQA build, or
+    on the latent pool the MLA one) with the tree's masks against its plain
+    version, timed beside the plain version, one
+    scaled_dot_product_attention over pre-gathered KV with the boolean tree
+    mask (upcast to bf16 for fp8 KV), and the bound; on the latent pool
+    also the same inputs without the tree (the unmasked instantiation:
+    ``causal_ms``). Its row is a ``kernel_case`` line with ``spec_tree``
+    set."""
     import torch
     import torch.nn.functional as F
 
@@ -608,6 +632,8 @@ def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None)
     c = tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level)
     anc = tuple(int(a) for a in tree.anc_bits)
     kw = dict(page_size=PAGE, scale=D ** -0.5, spec_anc=anc, win_base=c["win_base"])
+    if pool == "latent":
+        kw["v_dim"] = DV
     args = (c["q"], c["kv"], 0, c["pt"], c["kvl"], c["meta"])
     if pool == "chunked":
         kern = lambda: rpa.ragged_paged_attention_chunked_extend(
@@ -632,6 +658,11 @@ def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None)
     ms = cuda_ms(kern, 20)
     launches = counter.launches - before + 1
     plain_ms = cuda_ms(plain, 2)
+    beside = {}
+    if pool == "latent":  # the tree-less instantiation on the same inputs
+        causal = lambda: rpa.ragged_paged_attention_extend(
+            *args, **{k: v for k, v in kw.items() if k not in ("spec_anc", "win_base")})
+        beside["causal_ms"] = cuda_ms(causal, 20)
 
     # the work these inputs need: each row sees the prefix before its window
     # and its ancestors in it; the KV rows some row sees, read once per request
@@ -640,7 +671,9 @@ def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None)
                     for r, qa in zip(c["req"], c["q_abs"])))
     flops = 2.0 * pairs * HQ * (D + DV)
     q, kv = c["q"], c["kv"]
-    nbytes = (2 * q.numel() * q.element_size() + c["unique_rows"] * 2 * HKV * D * kv.element_size()
+    ncomp = 1 if pool == "latent" else 2  # the latent row is K and V at once
+    nbytes = (q.numel() * q.element_size() + q.shape[0] * HQ * DV * q.element_size()
+              + c["unique_rows"] * ncomp * HKV * D * kv.element_size()
               + c["pt"].numel() * 4 + c["kvl"].numel() * 4 + c["win_base"].numel() * 4)
     bw, bf16_peak, f32_peak = PEAKS
     t_bytes = nbytes / bw * 1e3
@@ -670,7 +703,7 @@ def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None)
                kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                library="sdpa_tree_mask" + ("_over_kv_upcast_to_bf16" if kv_dtype != dtype else ""),
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-               launches=launches)
+               launches=launches, **beside)
     print("kernel_case " + json.dumps(row), flush=True)
     del c, K, V, mask
     torch.cuda.empty_cache()
@@ -684,7 +717,11 @@ def phase_spec_kernels():
     geometry and through rpa_extend_aligned at the 8B's (bf16, float32 and
     e4m3 KV), the tree's level-1 draft step (b64 x 4 rows) through
     rpa_extend_merged at the draft pool's Hq 32 / Hkv 8, and rpa_decode_merged
-    at that geometry (the chain's draft steps), b64 / kv1024."""
+    at that geometry (the chain's draft steps), b64 / kv1024; then, after
+    those, NextN's on DeepSeek-V2-Lite's latent pool: the tree verify
+    through rpa_extend_mla (bf16 and e4m3 rows under bf16 q, float32) and
+    the tree's level-1 draft step on the one-layer draft pool (bf16,
+    float32; its chain draft steps are phase 2's latent decode)."""
     import torch
 
     from semi_pd_tpu_torch.speculative.tree import default_tree_template
@@ -707,6 +744,11 @@ def phase_spec_kernels():
     for dt in (bf, f32):
         rows.append(run_kernel_case("decode_b64_kv1024_draft", "decode", gen, rng, [1] * 64,
                                     lens.tolist(), dt, "draft"))
+    for dt, kdt in ((bf, bf), (bf, e4m3), (f32, f32)):
+        rows.append(run_tree_case("tree_verify_b64_n29", gen, rng, "latent", dt, kdt, tree))
+    for dt in (bf, f32):
+        rows.append(run_tree_case("tree_draft_b64x4", gen, rng, "latent", dt, dt, tree,
+                                  draft_level=1))
     return rows
 
 
@@ -1068,13 +1110,20 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False,
 SPEC_ALGOS = {"ngram": dict(speculative_algorithm="NGRAM", speculative_num_draft_tokens=4),
               "chain": dict(speculative_algorithm="EAGLE", speculative_num_draft_tokens=4),
               "tree": dict(speculative_algorithm="EAGLE", speculative_num_draft_tokens=4,
-                           speculative_eagle_topk=4)}
+                           speculative_eagle_topk=4),
+              # DeepSeek's NextN draft (the runner picks it for a DeepSeek target)
+              "nextn_chain": dict(speculative_algorithm="NEXTN", speculative_num_draft_tokens=4),
+              "nextn_tree": dict(speculative_algorithm="NEXTN", speculative_num_draft_tokens=4,
+                                 speculative_eagle_topk=4)}
+# the 1B-class model's speculating serves (phase 4s)
+LLAMA_SPEC_ALGOS = ("ngram", "chain", "tree")
 
 
 def spec_server_args(semi_pd: bool, algo: str, **kw):
     """The bench's server settings with speculative decoding: NGRAM with 4
-    draft tokens, EAGLE chain with 4, EAGLE tree with topk 4 and 4 draft
-    tokens (default_tree_template(4, 4): branching (4, 2, 1, 1), 29 nodes)."""
+    draft tokens, EAGLE and NEXTN chains with 4, EAGLE and NEXTN trees with
+    topk 4 and 4 draft tokens (default_tree_template(4, 4): branching (4, 2,
+    1, 1), 29 nodes)."""
     import dataclasses
 
     return dataclasses.replace(bench_server_args(semi_pd), **SPEC_ALGOS[algo], **kw)
@@ -1090,28 +1139,40 @@ def spec_server_args(semi_pd: bool, algo: str, **kw):
 # engine, and the plain one it is compared with, keep 1.
 EMBED_GAIN = 3.0
 SPEC_GAIN = {"ngram": 1.0, "chain": EMBED_GAIN, "tree": EMBED_GAIN}
+# the float32 V2-Lite gate's depth: its dense layer and three MoE layers
+NEXTN_F32_LAYERS = 4
 
 
 def make_predictive(runner, gain=EMBED_GAIN):
     """Make the random weights predictive, as the CPU tests do, so that
-    EAGLE's drafts are accepted and its rounds run their accepted paths (the
-    compaction and the refresh after acceptance): the target's final norm
-    ones, so its argmax is the head's over its last hidden state, which the
-    last token's embedding (times ``gain``) dominates at the 0.02 init;
-    the draft's fc passing the token embedding through (and 0.01 of the fed
-    hidden state), so the draft's head sees mostly that embedding. Every
-    engine whose tokens are compared with another's gets it, NGRAM's and
-    the plain one's too."""
+    EAGLE's and NextN's drafts are accepted and their rounds run their
+    accepted paths (the compaction and the refresh after acceptance): the
+    target's final norm ones, so its argmax is the head's over its last
+    hidden state, which the last token's embedding (times ``gain``)
+    dominates at the 0.02 init; the draft's fc (NextN: its eh_proj, behind
+    its enorm and hnorm, then ones) passing the token embedding through
+    (and 0.01 of the fed hidden state), and NextN's head norm ones, so the
+    draft's head sees mostly that embedding. The untied lm_head stays: both
+    the target and the draft read it from that embedding, so their argmaxes
+    meet. Every engine whose tokens are compared with another's gets it,
+    NGRAM's and the plain one's too."""
     import torch
+
+    from semi_pd_tpu_torch.speculative.nextn import NextNDraftModel
 
     H = runner.model_config.hidden_size
     with torch.no_grad():
         runner.model.leaf("final_norm").fill_(1.0)
         runner.model.leaf("embed.w").mul_(gain)
-        if runner.draft_model is not None:
-            fc = runner.draft_model.leaf("fc.w")
+        draft = runner.draft_model
+        if draft is not None:
+            nextn = isinstance(draft, NextNDraftModel)
+            fc = draft.leaf("eh_proj.w" if nextn else "fc.w")
             fc[H:] *= 0.01
             fc[:H] = torch.eye(H, dtype=fc.dtype, device=fc.device)
+            if nextn:
+                for k in ("enorm", "hnorm", "head_norm"):
+                    draft.leaf(k).fill_(1.0)
             runner.set_spec_thresholds()
 
 
@@ -1232,8 +1293,9 @@ def spec_serve(eng, algo, semi_pd, prompts, max_new=64):
     runner = eng.runner
     if not eng.flush_cache():
         raise AssertionError("engine not idle before a speculating serve")
+    tree = algo.endswith("tree")
     if ((runner.draft_model is None) != (algo == "ngram")
-            or (runner.tree_template is None) == (algo == "tree")):
+            or (runner.tree_template is None) == tree):
         raise AssertionError(f"{algo} serve on an engine built for "
                              f"{eng.server_args.speculative_algorithm}")
     args = spec_server_args(semi_pd, algo, kv_cache_dtype=eng.server_args.kv_cache_dtype,
@@ -1264,12 +1326,16 @@ def spec_serve(eng, algo, semi_pd, prompts, max_new=64):
     pool = PATH_KERNELS[kernel_family(runner.kv_cache.buffer)]
     want = {pool[1]: L * (steps["extend"] + spec["verify"])}
     if algo != "ngram":
-        want["rpa_decode_merged"] = spec["draft_decode"]
-        want["rpa_extend_merged"] = spec["draft_tree"]
+        # the draft pool's decode and extend: the merged builds for EAGLE's
+        # 5D pool, the MLA ones (the extend shared with the target) for
+        # NextN's latent pool
+        draft_dec, draft_ext = PATH_KERNELS[kernel_family(runner.draft_kv.buffer)]
+        want[draft_dec] = want.get(draft_dec, 0) + spec["draft_decode"]
+        want[draft_ext] = want.get(draft_ext, 0) + spec["draft_tree"]
     bad = {k: (n, want.get(k, 0)) for k, n in launches.items() if n != want.get(k, 0)}
     if (bad or steps["decode"] or not spec["verify"] or not steps["extend"]
-            or (algo == "tree" and not spec["draft_tree"])
-            or (algo == "chain" and (spec["draft_tree"] or not spec["draft_decode"]))):
+            or (tree and not spec["draft_tree"])
+            or (algo.endswith("chain") and (spec["draft_tree"] or not spec["draft_decode"]))):
         raise AssertionError(f"{algo} serve: launches (got, want) {bad}, steps {steps}, "
                              f"speculation steps {spec}")
     if not s.n_spec_accepted:  # the rounds' accepted paths must run
@@ -1518,7 +1584,7 @@ def main() -> int:
         vocab = llama_1b_config().vocab_size
         prompts = prompts_for(vocab)
         runs = {}
-        for algo in SPEC_ALGOS:
+        for algo in LLAMA_SPEC_ALGOS:
             eng = spec_engine(algo, gain=SPEC_GAIN[algo])
             if algo == "tree":
                 phase_spec_model(eng, label)
@@ -1584,6 +1650,67 @@ def main() -> int:
             raise AssertionError(f"float32: the tree serve's tokens differ from the plain "
                                  f"serve's ({same:.3f} of requests the same)")
 
+    def nextn_phase():
+        """Phase 4n: DeepSeek-V2-Lite at full width speculating with NextN
+        (one MoE layer, its latent draft pool), each algorithm on an Engine
+        of its own on predictive weights: the tree engine first runs the
+        speculation model phase (a tree and a chain round, kernels vs plain
+        attention), then the chain and the tree serve colocated and
+        semi-PD; every serve fails if no draft was accepted."""
+        t0 = time.monotonic()
+        label = "deepseek-v2-lite nextn"
+        cfg = deepseek_v2_lite_config()
+        prompts = prompts_for(cfg.vocab_size)
+        for algo in ("nextn_tree", "nextn_chain"):
+            t1 = time.monotonic()
+            eng = spec_engine(algo, cfg)
+            torch.cuda.synchronize()
+            init_s = time.monotonic() - t1
+            if algo == "nextn_tree":
+                phase_spec_model(eng, label)
+            for semi in (False, True):
+                r, _ = spec_serve(eng, algo, semi, prompts)
+                for k, v in r["launches"].items():
+                    main_launches[k] += v
+                print("spec_serve " + json.dumps(dict(r, model=label, gpu=smi,
+                                                      embed_gain=EMBED_GAIN, init_s=init_s,
+                                                      draft_gib=eng.runner.draft_weight_bytes
+                                                      / 2 ** 30)), flush=True)
+            release(eng)
+        print("nextn_phase " + json.dumps(dict(model=label, seconds=time.monotonic() - t0)),
+              flush=True)
+
+    def nextn_f32_gate():
+        """Phase 4nf: DeepSeek-V2-Lite in float32 at NEXTN_F32_LAYERS layers
+        (8 requests x 32 tokens, prompts 256-1024) on predictive weights,
+        served with the NextN tree (drafts accepted) and, on an Engine of
+        its own, without speculation: the tokens must be equal."""
+        from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+        t0 = time.monotonic()
+        cfg = deepseek_v2_lite_config()
+        cfg.dtype = "float32"
+        cfg.num_hidden_layers = NEXTN_F32_LAYERS
+        prompts = prompts_for(cfg.vocab_size, 1024)[:8]
+        eng = spec_engine("nextn_tree", cfg, max_total_tokens=32768)
+        r, spec_out = spec_serve(eng, "nextn_tree", False, prompts, max_new=32)
+        for k, v in r["launches"].items():
+            main_launches[k] += v
+        release(eng)
+        eng = spec_engine(None, cfg, max_total_tokens=32768)
+        outs = eng.generate(input_ids=prompts, sampling_params=SamplingParams(
+            max_new_tokens=32, temperature=0.0, ignore_eos=True))
+        plain = [o["output_ids"] for o in outs]
+        release(eng)
+        same = float(np.mean([a == b for a, b in zip(spec_out, plain)]))
+        print("spec_f32 " + json.dumps(dict(r, model=f"deepseek-v2-lite float32 "
+                                            f"{NEXTN_F32_LAYERS} layers", gpu=smi,
+                                            same_as_plain=same,
+                                            seconds=time.monotonic() - t0)), flush=True)
+        if same != 1.0:
+            raise AssertionError(f"float32 V2-Lite: the NextN tree serve's tokens differ from "
+                                 f"the plain serve's ({same:.3f} of requests the same)")
+
     eng = model_phase("llama-3.2-1b-class", llama_1b_config(), "auto")
     graph_phase(eng, "llama-3.2-1b-class", "chunked")
     packed = serve_phase(eng, "llama-3.2-1b-class", "chunked", repeat=True, eager=True)
@@ -1618,6 +1745,9 @@ def main() -> int:
     packed = serve_phase(eng, label, "latent")
     stream_phase(eng, label, "latent", "fp8_e4m3", packed)
     release(eng)
+    # DeepSeek-V2-Lite speculating with its NextN draft (phases 4n, 4nf)
+    nextn_phase()
+    nextn_f32_gate()
     release(model_phase("tinyllama-1.1b", tinyllama_config(), "fp8_e4m3"))
     eng = model_phase("tinyllama-1.1b", tinyllama_config(), "auto")
     graph_phase(eng, "tinyllama-1.1b", "merged")

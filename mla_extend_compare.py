@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""Times the MLA extend (``rpa_extend_mla``) of this checkout against other
+checkouts' on one GPU, and its tree-masked instantiation against its
+unmasked one.
+
+    python3 mla_extend_compare.py                        # this checkout only
+    python3 mla_extend_compare.py --source parent=DIR    # and DIR's sources
+
+Each source (this checkout as "this", and every ``--source NAME=DIR``: DIR's
+semi_pd_tpu_torch/csrc, unchanged) is built as ``rpa_extend_mla`` with the
+build's own flags, one nvcc each, all started together; a source whose C
+entry takes no speculation tree (an older one) is called with its own
+signature. ``chip_smoke.py``'s phase-2 MLA extend cases then run through the
+port's wrapper with each library loaded in turn, on the same inputs for
+every source, each held against the plain version at ``chip_smoke.py``'s
+tolerance: b8 x q256 / kv2048 with bf16, e4m3 and float32 latent rows
+(float32 q for float32 rows), and the ragged q 64-512 / kv1024 case in
+bf16. Every case is timed in the order of the sources, then in reverse
+(this, parent, parent, this). Last, on this checkout alone, the NextN tree
+verify (b64 x 29 rows of default_tree_template(4, 4) over prefixes 520-1000
+on shuffled pages) with and without the tree, in bf16 and e4m3.
+
+Prints the card's nvidia-smi name and power limit, one ``mla_build`` JSON
+line per source and function (registers and spills from ``nvcc -Xptxas
+-v``), one ``mla_case`` line per source and case (kernel_ms of both passes,
+bound_ms and library_ms as chip_smoke.py computes them, max_abs_err) and one
+``mla_tree`` line per tree case (tree_ms and causal_ms of both passes).
+Exits 2 without a GPU. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def entry_argtypes(source: Path):
+    """The ctypes of the parameters of ``extern "C" int RPA_ENTRY(...)``."""
+    params = re.search(r'extern "C" int RPA_ENTRY\(([^)]*)\)', source.read_text()).group(1)
+    kinds = []
+    for prm in params.split(","):
+        prm = " ".join(prm.split())
+        kinds.append(ctypes.c_void_p if "*" in prm else
+                     ctypes.c_float if prm.startswith("float") else ctypes.c_int)
+    return kinds
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--source", nargs="*", default=[],
+                    help="NAME=DIR: another checkout's rpa_extend_mla, timed as NAME")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("mla_extend_compare: torch.cuda.is_available() is false; this needs a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from semi_pd_tpu_torch.kernels import KERNELS, CudaKernel, build_all
+    from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
+    from semi_pd_tpu_torch.speculative.tree import default_tree_template
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.smi_line(), flush=True)
+    build_all()  # this checkout's libraries: the wrappers' defaults
+    base = KERNELS["rpa_extend_mla"]
+    libs = {"this": base}
+    for item in args.source:
+        name, _, d = item.partition("=")
+        src = Path(d).resolve() / "semi_pd_tpu_torch" / "csrc" / "rpa_extend_mla.cu"
+        libs[name] = CudaKernel(f"rpa_extend_mla-{name}", str(src), base.symbol,
+                                entry_argtypes(src), base.replaces, base.defines)
+    started = [(k, k.start_build()) for k in libs.values()]
+    for k, st in started:
+        k.finish_build(st)
+    calls = {}
+    for name, k in libs.items():
+        fn = k.fn()
+        n_own = len(k.argtypes)
+        if n_own == len(base.argtypes):
+            calls[name] = fn
+        else:  # an entry without the tree's three arguments before the stream
+            calls[name] = (lambda f, n: lambda *a: f(*a[:n - 1], a[-1]))(fn, n_own)
+        for fname, props in cs.ptxas_summary(k.build_log).items():
+            print("mla_build " + json.dumps(dict(source=name, function=fname, **props)),
+                  flush=True)
+
+    order = list(libs)
+    bf, f32, e4m3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+    cases = [("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, bf, bf),
+             ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, bf, e4m3),
+             ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, f32, f32),
+             ("extend_ragged_kv1024", [512, 256, 128, 64, 384, 448, 192, 64], [1024] * 8, bf, bf)]
+    tol = cs.TOL
+    failed = False
+    try:
+        for ci, (case, ql, kl, dt, kdt) in enumerate(cases):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(ci)
+            lib = cs.run_kernel_case(case, "extend", gen, np.random.default_rng(ci), ql, kl, dt,
+                                     "latent", kdt)
+            gen.manual_seed(ci)
+            q, kv, pt, kvl, meta = cs.make_case(gen, np.random.default_rng(ci), ql, kl, dt,
+                                                "latent", kdt)
+            kw = dict(page_size=cs.PAGE, scale=cs.GEOMETRY["latent"][2] ** -0.5,
+                      v_dim=cs.GEOMETRY["latent"][3])
+            ref = rpa.ragged_paged_attention_extend_plain(q, kv, 0, pt, kvl, meta, **kw).float()
+            t = tol[cs.dtype_name(dt)]
+            ms, errs = {}, {}
+            for name in order + order[::-1]:
+                base._fn = calls[name]
+                call = lambda: rpa.ragged_paged_attention_extend(q, kv, 0, pt, kvl, meta, **kw)
+                err = (call().float() - ref).abs()
+                torch.cuda.synchronize()
+                errs[name] = float(err.max())
+                if not bool((err <= t + t * ref.abs()).all()):
+                    print(f"mla_case_failed {name} {case}: max abs err {errs[name]:.3g}",
+                          flush=True)
+                    failed = True
+                ms.setdefault(name, []).append(cs.cuda_ms(call, 20))
+            for name, v in ms.items():
+                print("mla_case " + json.dumps(dict(
+                    source=name, case=case, dtype=cs.dtype_name(dt), kv_dtype=cs.dtype_name(kdt),
+                    kernel_ms=v, bound_ms=lib["bound_ms"], library_ms=lib["library_ms"],
+                    max_abs_err=errs[name])), flush=True)
+            del q, kv, ref
+            torch.cuda.empty_cache()
+    finally:
+        base._fn = calls["this"]
+
+    # the tree verify against the unmasked extend on the same inputs
+    tree = default_tree_template(4, 4)
+    anc = tuple(int(a) for a in tree.anc_bits)
+    for ci, kdt in enumerate((bf, e4m3)):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(100 + ci)
+        c = cs.tree_case(gen, np.random.default_rng(100 + ci), "latent", bf, kdt, tree)
+        args_ = (c["q"], c["kv"], 0, c["pt"], c["kvl"], c["meta"])
+        kw = dict(page_size=cs.PAGE, scale=cs.GEOMETRY["latent"][2] ** -0.5,
+                  v_dim=cs.GEOMETRY["latent"][3])
+        fns = {"tree_ms": lambda: rpa.ragged_paged_attention_extend(
+                   *args_, spec_anc=anc, win_base=c["win_base"], **kw),
+               "causal_ms": lambda: rpa.ragged_paged_attention_extend(*args_, **kw)}
+        ms = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            ms[k].append(cs.cuda_ms(fns[k], 20))
+        print("mla_tree " + json.dumps(dict(case="tree_verify_b64_n29",
+                                            kv_dtype=cs.dtype_name(kdt), rows=int(c["q"].shape[0]),
+                                            **ms)), flush=True)
+    print(cs.smi_line())
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,11 +2,11 @@
 
 Keeps the ServerArgs fields the main serving path reads (memory sizing,
 bucket tables, the colocated and semi-PD scheduling knobs, the overlap
-ring, the KV dtype and its fp8 scales, speculative decoding: NGRAM and
-EAGLE chain and tree) with the JAX package's defaults and comments'
-meaning, and adds ``device`` and ``decode_stream`` (the JAX package's
-RPA_DECODE_STREAM environment switch as an argument). NEXTN and a draft
-checkpoint are refused by the runner (ROADMAP A11's rest, A13). The CLI,
+ring, the KV dtype and its fp8 scales, speculative decoding: NGRAM, and
+EAGLE and NEXTN chain and tree) with the JAX package's defaults and
+comments' meaning, and adds ``device`` and ``decode_stream`` (the JAX
+package's RPA_DECODE_STREAM environment switch as an argument). A draft
+checkpoint is refused by the runner (ROADMAP A13). The CLI,
 HTTP, LoRA, parallelism, weight quantization and grammar flags belong to
 later slices of the port (ROADMAP queue A).
 """

@@ -57,6 +57,47 @@ enum TypeCode { F32 = 0, BF16 = 1, E4M3 = 2, E5M2 = 3 };
   X(BF16, __nv_bfloat16, E4M3, __nv_fp8_e4m3)  \
   X(BF16, __nv_bfloat16, E5M2, __nv_fp8_e5m2)
 
+// The speculation tree of the extend kernels (rpa_extend.cu,
+// rpa_extend_mla.cu): the TPU kernels' _spec_tree_mask (rpa_common.py). A
+// query row at slot-order position q_abs sits at window offset q_abs -
+// win_base[b]; a position inside the window [win_base[b], win_base[b] + W)
+// stays visible only if its bit (position - win_base[b]) is set in that
+// row's ancestor mask (0 for a row outside the window), and outside the
+// window the causal mask stands. The table (at most SPEC_MAX_NODES masks)
+// travels by value in the kernel's parameters; win_base is a device array
+// [B]. w == 0 is no tree.
+constexpr int SPEC_MAX_NODES = 31;  // speculative/tree.py MAX_TREE_NODES
+
+struct SpecTree {
+  int w;                         // window nodes; 0: no tree
+  unsigned anc[SPEC_MAX_NODES];  // node i's ancestors (itself and the root included)
+};
+
+// The ancestor mask of a query row at window offset wq (0 outside the window)
+__device__ __forceinline__ unsigned spec_bits(const SpecTree& tree, int wq) {
+  return (wq >= 0 && wq < tree.w) ? tree.anc[wq] : 0u;
+}
+
+// Whether the tree leaves position pos visible to a row of mask bits (the
+// window starting at wb): positions outside the window always
+__device__ __forceinline__ bool spec_ok(const SpecTree& tree, int wb, unsigned bits, int pos) {
+  const int wk = pos - wb;
+  return wk < 0 || wk >= tree.w || ((bits >> wk) & 1u);
+}
+
+// The C entries' tree arguments (spec_w masks in HOST memory at spec_anc,
+// win_base on the card) as the kernels' SpecTree; false for a tree of more
+// than SPEC_MAX_NODES nodes or a missing array.
+inline bool spec_tree_from(int spec_w, const void* spec_anc, const void* win_base,
+                           SpecTree& tree) {
+  if (spec_w < 0 || spec_w > SPEC_MAX_NODES || (spec_w > 0 && (!spec_anc || !win_base)))
+    return false;
+  tree = SpecTree{};
+  tree.w = spec_w;
+  for (int i = 0; i < spec_w; ++i) tree.anc[i] = static_cast<const unsigned*>(spec_anc)[i];
+  return true;
+}
+
 template <typename T> struct Vec;  // elements of T in one 16-byte vector
 template <> struct Vec<float> { static constexpr int N = 4; };
 template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };

@@ -118,18 +118,14 @@
 //   and V row as a broadcast; the next tile's loads are issued into
 //   registers before the current one is computed.
 //
-// The speculation tree (SpecTree below; ops/attention/ragged_paged_attention.py
-// spec_anc / win_base): the TPU kernels' _spec_tree_mask (rpa_common.py). A
-// query row at slot-order position q_abs = q_start + qofs + r sits at window
-// offset q_abs - win_base[b]; a position inside the window [win_base[b],
-// win_base[b] + W) stays visible only if its bit (position - win_base[b]) is
-// set in that row's ancestor mask (0 for a row outside the window), and
-// outside the window the causal mask stands. The table (at most 31 masks)
-// travels by value in the kernel's parameters, so it needs no device buffer;
-// win_base is a device array [B]. W == 0 is no tree: the launch picks each
-// kernel's TREE = false instantiation, the code without any of this (the
-// tree's registers and tests cost the others nothing). In the warpgroup kernel
-// a packed row m = r * G + g takes query row r's mask, each lane computing
+// The speculation tree (SpecTree and its rule in rpa_common.cuh; ops/
+// attention/ragged_paged_attention.py spec_anc / win_base): a query row's
+// slot-order position is q_abs = q_start + qofs + r. The table travels by
+// value in the kernel's parameters, so it needs no device buffer. W == 0 is
+// no tree: the launch picks each kernel's TREE = false instantiation, the
+// code without any of this (the tree's registers and tests cost the others
+// nothing). In the warpgroup kernel a packed row m = r * G + g takes query
+// row r's mask, each lane computing
 // its two rows' masks once; a tile that meets the window takes the mask
 // pass, whatever else it skips. Masked scores are NEG_INF (finite) as the
 // others, so p = 0 exactly, and no row's max meets NEG_INF - NEG_INF as a
@@ -156,26 +152,6 @@
 
 
 namespace rpa {
-
-constexpr int SPEC_MAX_NODES = 31;  // speculative/tree.py MAX_TREE_NODES
-
-// The speculation tree's ancestor masks, by value in the kernel's parameters
-struct SpecTree {
-  int w;                        // window nodes; 0: no tree
-  unsigned anc[SPEC_MAX_NODES];  // node i's ancestors (itself and the root included)
-};
-
-// The ancestor mask of a query row at window offset wq (0 outside the window)
-__device__ __forceinline__ unsigned spec_bits(const SpecTree& tree, int wq) {
-  return (wq >= 0 && wq < tree.w) ? tree.anc[wq] : 0u;
-}
-
-// Whether the tree leaves position pos visible to a row of mask bits (the
-// window starting at wb): positions outside the window always
-__device__ __forceinline__ bool spec_ok(const SpecTree& tree, int wb, unsigned bits, int pos) {
-  const int wk = pos - wb;
-  return wk < 0 || wk >= tree.w || ((bits >> wk) & 1u);
-}
 
 // ------------------------------------------------------------------------
 // The CUDA-core kernel (float32 q).
@@ -836,11 +812,8 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
   using namespace rpa;
   if (NQB == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv || D != RPA_HEAD_DIM) return (int)cudaErrorInvalidValue;
-  if (spec_w < 0 || spec_w > SPEC_MAX_NODES || (spec_w > 0 && (!spec_anc || !win_base)))
-    return (int)cudaErrorInvalidValue;
-  SpecTree tree{};
-  tree.w = spec_w;
-  for (int i = 0; i < spec_w; ++i) tree.anc[i] = static_cast<const unsigned*>(spec_anc)[i];
+  SpecTree tree;
+  if (!spec_tree_from(spec_w, spec_anc, win_base, tree)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RPA_EXT(QC, TQ, KC, TKV)                                                             \
   if (q_type == QC && kv_type == KC)                                                         \

@@ -8,6 +8,13 @@
 // page table, driven by the host-built work list (block_seq / block_row /
 // block_qofs), with optional logit softcap and sliding window; output
 // [T, Hq, MLA_DV]. What it computes and its bound are in rpa_mla.cuh.
+// With a speculation tree (spec_anc / win_base: the TPU kernel's
+// _spec_tree_mask, which it applies after the MLA branch loads the latent
+// rows, so to GQA and MLA alike; SpecTree in rpa_common.cuh) a position
+// inside a request's window stays visible to a query row only if its bit
+// is set in the row's ancestor mask. Each kernel is a template on TREE,
+// and the C entry launches the TREE = true instantiation only for a tree
+// (W > 0): the tree-less one is the code without any of it.
 //
 // Two kernels; the entry point picks one by q's type. Both share the
 // work list's EXTEND_QBLK (the build passes it from ops/attention/
@@ -73,7 +80,7 @@ constexpr int MLA_EXT_TPR = 16;  // threads per row (group of rows)
 constexpr int MLA_EXT_NT = MLA_EXT_NR / MLA_EXT_RPT * MLA_EXT_TPR;
 static_assert(EXTEND_QBLK % MLA_EXT_NR == 0, "a work-list entry splits into whole sub-tiles");
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool TREE>
 __global__ void __launch_bounds__(MLA_EXT_NT)
 rpa_extend_mla_kernel(const TQ* __restrict__ q,               // [T, Hq, MLA_DL]
                       const TKV* __restrict__ lat,            // latent rows of this layer at slot 0
@@ -85,7 +92,9 @@ rpa_extend_mla_kernel(const TQ* __restrict__ q,               // [T, Hq, MLA_DL]
                       const int* __restrict__ block_row,      // [NQB]
                       const int* __restrict__ block_qofs,     // [NQB]
                       TQ* __restrict__ out,                   // [T, Hq, MLA_DV]
-                      int Hq, int maxP, int page_size, float scale, float cap, int window) {
+                      int Hq, int maxP, int page_size, float scale, float cap, int window,
+                      const int* __restrict__ win_base,       // [B], read with TREE
+                      const SpecTree tree) {
   __shared__ __align__(16) float sK[MLA_TK * MLA_LD];
   const int i = blockIdx.x, hq = blockIdx.y, tid = threadIdx.x;
   const int b = block_seq[i];
@@ -101,26 +110,28 @@ rpa_extend_mla_kernel(const TQ* __restrict__ q,               // [T, Hq, MLA_DL]
   const int lo = window > 0 ? max(q_abs_lo - window + 1, 0) : 0;
   const int row = tid / MLA_EXT_TPR * MLA_EXT_RPT;  // this thread's first row
   const int64_t t = (int64_t)block_row[i] + r0 + min(row, rows - 1);
-  mla_attend<TQ, TKV, MLA_EXT_TPR, MLA_EXT_RPT, MLA_EXT_NT>(
+  mla_attend<TQ, TKV, MLA_EXT_TPR, MLA_EXT_RPT, MLA_EXT_NT, TREE>(
       q + (t * Hq + hq) * MLA_DL, (int64_t)Hq * MLA_DL, out + (t * Hq + hq) * MLA_DV,
       (int64_t)Hq * MLA_DV, min(max(rows - row, 0), MLA_EXT_RPT), q_abs_lo + row, 1, lat,
-      page_table + (int64_t)b * maxP, page_size, lo, limit, scale, cap, window, sK, tid);
+      page_table + (int64_t)b * maxP, page_size, lo, limit, scale, cap, window, sK, tid,
+      &tree, TREE ? win_base[b] : 0);
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool TREE>
 static int launch_extend_mla(const void* q, const void* lat, const void* pt,
                              const void* kv_lens, const void* q_lens, const void* q_start,
                              const void* block_seq, const void* block_row,
                              const void* block_qofs, void* out, int NQB, int Hq, int maxP,
                              int page_size, float scale, float cap, int window,
-                             cudaStream_t stream) {
+                             const void* win_base, const SpecTree& tree, cudaStream_t stream) {
   const dim3 grid(NQB, Hq, EXTEND_QBLK / MLA_EXT_NR);
-  rpa_extend_mla_kernel<TQ, TKV><<<grid, MLA_EXT_NT, 0, stream>>>(
+  rpa_extend_mla_kernel<TQ, TKV, TREE><<<grid, MLA_EXT_NT, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(lat), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
       static_cast<const int*>(q_start), static_cast<const int*>(block_seq),
       static_cast<const int*>(block_row), static_cast<const int*>(block_qofs),
-      static_cast<TQ*>(out), Hq, maxP, page_size, scale, cap, window);
+      static_cast<TQ*>(out), Hq, maxP, page_size, scale, cap, window,
+      static_cast<const int*>(win_base), tree);
   return (int)cudaGetLastError();
 }
 
@@ -161,7 +172,7 @@ static_assert(MLA_WG_NRV * MLA_WG_NT >= MLA_WG_TK * MLA_WG_RV &&
                   (MLA_WG_NRV - 1) * MLA_WG_NT < MLA_WG_TK * MLA_WG_RV,
               "the fp8 copy: every vector once, the last round partial");
 
-template <typename TKV>
+template <typename TKV, bool TREE>
 __global__ void __launch_bounds__(MLA_WG_NT, 1)
 rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, MLA_DL]
                             const TKV* __restrict__ lat,            // latent rows at slot 0
@@ -174,7 +185,9 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
                             const int* __restrict__ block_qofs,     // [NQB]
                             __nv_bfloat16* __restrict__ out,        // [T, Hq, MLA_DV]
                             int Hq, int maxP, int page_size, float scale, float cap,
-                            int window) {
+                            int window,
+                            const int* __restrict__ win_base,       // [B], read with TREE
+                            const SpecTree tree) {
   using bf16 = __nv_bfloat16;
   constexpr bool WIDEN = sizeof(TKV) == 1;  // fp8 rows, widened through registers
   static_assert(WIDEN || std::is_same<TKV, bf16>::value, "bf16 or fp8 latent rows");
@@ -281,6 +294,14 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
   for (int j = 0; j < 2; ++j) qpos[j] = q_abs_lo + (m_lo + warp * 16 + gid + 8 * j) / Hq;
   const int wq_lo = q_abs_lo + (m_lo + warp * 16) / Hq;
   const int wq_hi = q_abs_lo + min((m_lo + warp * 16 + 15) / Hq, n_rows - 1);
+  // the tree: its window's start and this lane's two rows' ancestor masks
+  // (packed row m = r Hq + g takes token r's)
+  const int wb = TREE ? win_base[b] : 0;
+  unsigned sbits[2] = {0u, 0u};
+  if constexpr (TREE) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) sbits[j] = spec_bits(tree, qpos[j] - wb);
+  }
   const bool capped = cap > 0.f;
   const float c = capped ? LOG2E : scale * LOG2E;
 
@@ -332,8 +353,11 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
       sc[4 * j + 2] += x.z;
       sc[4 * j + 3] += x.w;
     }
+    // both warpgroups decide alike (the same rows, the same tile), so both
+    // hold the same S; a tile that meets the tree's window takes the pass
     const bool masked = st + TK > limit || st + TK - 1 > wq_lo ||
-                        (window > 0 && st <= wq_hi - window);
+                        (window > 0 && st <= wq_hi - window) ||
+                        (TREE && st < wb + tree.w && st + TK > wb);
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int e = 0; e < TK / 2; ++e) {
@@ -343,7 +367,8 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
       if (masked) {
         const int pos = st + 8 * (e >> 2) + 2 * tig + (e & 1);
         const bool ok = pos < limit && pos <= qpos[rr] &&
-                        (window <= 0 || pos > qpos[rr] - window);
+                        (window <= 0 || pos > qpos[rr] - window) &&
+                        (!TREE || spec_ok(tree, wb, sbits[rr], pos));
         v = ok ? v : NEG_INF;
       }
       sc[e] = v;
@@ -434,74 +459,84 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
   }
 }
 
-template <typename TKV>
+template <typename TKV, bool TREE>
 static int launch_extend_mla_wgmma(const void* q, const void* lat, const void* pt,
                                    const void* kv_lens, const void* q_lens, const void* q_start,
                                    const void* block_seq, const void* block_row,
                                    const void* block_qofs, void* out, int NQB, int Hq, int maxP,
                                    int page_size, float scale, float cap, int window,
+                                   const void* win_base, const SpecTree& tree,
                                    cudaStream_t stream) {
   const cudaError_t attr =
-      cudaFuncSetAttribute(rpa_extend_mla_wgmma_kernel<TKV>,
+      cudaFuncSetAttribute(rpa_extend_mla_wgmma_kernel<TKV, TREE>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, MLA_WG_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((EXTEND_QBLK * Hq + MLA_WG_ROWS - 1) / MLA_WG_ROWS, NQB);
-  rpa_extend_mla_wgmma_kernel<TKV><<<grid, MLA_WG_NT, MLA_WG_SMEM, stream>>>(
+  rpa_extend_mla_wgmma_kernel<TKV, TREE><<<grid, MLA_WG_NT, MLA_WG_SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(lat),
       static_cast<const int*>(pt), static_cast<const int*>(kv_lens),
       static_cast<const int*>(q_lens), static_cast<const int*>(q_start),
       static_cast<const int*>(block_seq), static_cast<const int*>(block_row),
       static_cast<const int*>(block_qofs), static_cast<__nv_bfloat16*>(out), Hq, maxP,
-      page_size, scale, cap, window);
+      page_size, scale, cap, window, static_cast<const int*>(win_base), tree);
   return (int)cudaGetLastError();
 }
 
 // bf16 q over bf16 or fp8 latent rows on the warpgroups; float32 on the
 // CUDA cores (TF32 would not be the float32 dot the float32 pair computes).
+// Each in its TREE instantiation only with a tree.
 template <typename TQ, typename TKV>
 static int launch(const void* q, const void* lat, const void* pt, const void* kv_lens,
                   const void* q_lens, const void* q_start, const void* block_seq,
                   const void* block_row, const void* block_qofs, void* out, int NQB, int Hq,
                   int maxP, int page_size, float scale, float cap, int window,
-                  cudaStream_t stream) {
+                  const void* win_base, const SpecTree& tree, cudaStream_t stream) {
+#define RPA_MLA_ARGS                                                                          \
+  q, lat, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out, NQB, Hq, maxP, \
+      page_size, scale, cap, window, win_base, tree, stream
   if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
-    return launch_extend_mla_wgmma<TKV>(q, lat, pt, kv_lens, q_lens, q_start, block_seq,
-                                        block_row, block_qofs, out, NQB, Hq, maxP, page_size,
-                                        scale, cap, window, stream);
+    return tree.w > 0 ? launch_extend_mla_wgmma<TKV, true>(RPA_MLA_ARGS)
+                      : launch_extend_mla_wgmma<TKV, false>(RPA_MLA_ARGS);
   else
-    return launch_extend_mla<TQ, TKV>(q, lat, pt, kv_lens, q_lens, q_start, block_seq,
-                                      block_row, block_qofs, out, NQB, Hq, maxP, page_size,
-                                      scale, cap, window, stream);
+    return tree.w > 0 ? launch_extend_mla<TQ, TKV, true>(RPA_MLA_ARGS)
+                      : launch_extend_mla<TQ, TKV, false>(RPA_MLA_ARGS);
+#undef RPA_MLA_ARGS
 }
 
 }  // namespace rpa
 
 // C entry point (bound with ctypes by ops/attention/ragged_paged_attention.py),
-// with the signature of the other extend kernels: k_pool is the layer's
-// latent rows at slot 0 and v_pool must be the same address (V is the row's
-// prefix); Hkv 1, D = row_stride = MLA_DL; out is [T, Hq, MLA_DV] (the
-// wrapper holds v_dim to MLA_DV). q_type / kv_type: TypeCode. `out` must
-// be zero-filled by the caller: rows no entry owns (bucket padding) are left
-// untouched. cap <= 0: no softcap; window <= 0: no window. Returns
-// cudaError_t; another geometry or type pair is cudaErrorInvalidValue.
+// with the signature of the other extend kernels (rpa_extend.cu): k_pool is
+// the layer's latent rows at slot 0 and v_pool must be the same address (V
+// is the row's prefix); Hkv 1, D = row_stride = MLA_DL; out is [T, Hq,
+// MLA_DV] (the wrapper holds v_dim to MLA_DV). q_type / kv_type: TypeCode.
+// `out` must be zero-filled by the caller: rows no entry owns (bucket
+// padding) are left untouched. cap <= 0: no softcap; window <= 0: no
+// window. spec_w: the speculation tree's node count (0: no tree), spec_anc
+// its masks in HOST memory, win_base its window start per request on the
+// card. Returns cudaError_t; another geometry or type pair, or a tree of
+// more than SPEC_MAX_NODES nodes, is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                               const void* page_table, const void* kv_lens, const void* q_lens,
                               const void* q_start, const void* block_seq,
                               const void* block_row, const void* block_qofs, void* out,
                               int NQB, int Hq, int Hkv, int D, int row_stride,
                               int maxP, int page_size, float scale, float cap, int window,
-                              int q_type, int kv_type, void* stream) {
+                              int q_type, int kv_type, int spec_w, const void* spec_anc,
+                              const void* win_base, void* stream) {
   using namespace rpa;
   if (NQB == 0) return 0;
   if (Hq <= 0 || Hkv != 1 || D != MLA_DL || row_stride != MLA_DL ||
       v_pool != k_pool)
     return (int)cudaErrorInvalidValue;
+  SpecTree tree;
+  if (!spec_tree_from(spec_w, spec_anc, win_base, tree)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RPA_EXT(QC, TQ, KC, TKV)                                                           \
   if (q_type == QC && kv_type == KC)                                                       \
     return launch<TQ, TKV>(q, k_pool, page_table, kv_lens, q_lens, q_start,     \
                                       block_seq, block_row, block_qofs, out, NQB, Hq, maxP, \
-                                      page_size, scale, cap, window, s);
+                                      page_size, scale, cap, window, win_base, tree, s);
   RPA_FOR_EACH_PAIR(RPA_EXT)
 #undef RPA_EXT
   return (int)cudaErrorInvalidValue;

@@ -96,11 +96,16 @@ struct MlaRows {
 
   // One staged tile of MLA_TK latent rows sK (float32, row stride MLA_LD)
   // at positions [start, start + MLA_TK): each row sees the positions below
-  // `limit` that its causal and window masks allow. row_mask: the TPR lanes
-  // of this thread's rows (consecutive lanes of one warp).
+  // `limit` that its causal and window masks allow, and with TREE those the
+  // speculation tree (window start wb) leaves to its ancestor mask bits[r].
+  // row_mask: the TPR lanes of this thread's rows (consecutive lanes of one
+  // warp).
+  template <bool TREE = false>
   __device__ __forceinline__ void tile(const float* sK, int start, int limit, int q_abs0,
                                        int q_abs_step, float scale, float cap, int window,
-                                       int part, unsigned row_mask) {
+                                       int part, unsigned row_mask,
+                                       const SpecTree* tree = nullptr, int wb = 0,
+                                       const unsigned* bits = nullptr) {
     constexpr int TK = MLA_TK, LD = MLA_LD;
     float s[RPT][TK];
 #pragma unroll
@@ -135,7 +140,8 @@ struct MlaRows {
 #pragma unroll
       for (int t = 0; t < TK; ++t) {
         const int pos = start + t;
-        const bool ok = pos < limit && pos <= q_abs && (window <= 0 || pos > q_abs - window);
+        const bool ok = pos < limit && pos <= q_abs && (window <= 0 || pos > q_abs - window) &&
+                        (!TREE || spec_ok(*tree, wb, bits[r], pos));
         float v = s[r][t] * scale;
         if (cap > 0.f) v = cap * tanhf(v / cap);
         s[r][t] = ok ? v : NEG_INF;
@@ -200,21 +206,27 @@ __device__ __forceinline__ unsigned mla_row_mask(int tid) {
 // One block's walk over the positions [lo, limit) of one request (lo and
 // limit are the same for the whole block; every thread calls this), for
 // the RPT rows of MlaRows. Each row sees the positions its causal and
-// window masks allow; a row that sees none writes zeros.
-template <typename TQ, typename TKV, int TPR, int RPT, int NT>
+// window masks allow (with TREE, refined by the speculation tree whose
+// window starts at wb); a row that sees none writes zeros.
+template <typename TQ, typename TKV, int TPR, int RPT, int NT, bool TREE = false>
 __device__ __forceinline__ void mla_attend(const TQ* __restrict__ q0, int64_t q_step,
                                            TQ* __restrict__ out0, int64_t out_step,
                                            int n_act, int q_abs0, int q_abs_step,
                                            const TKV* __restrict__ lat,
                                            const int* __restrict__ pt_row, int page_size,
                                            int lo, int limit, float scale, float cap,
-                                           int window, float* sK, int tid) {
+                                           int window, float* sK, int tid,
+                                           const SpecTree* tree = nullptr, int wb = 0) {
   constexpr int TK = MLA_TK, LD = MLA_LD;
   using Tile = KVTile<TKV, MLA_DL, TK, NT, 1>;
   const int part = tid % TPR;
   const unsigned row_mask = mla_row_mask<TPR>(tid);
   MlaRows<TQ, TPR, RPT> rows;
   rows.begin(q0, q_step, n_act, part);
+  unsigned bits[RPT];  // each row's ancestor mask (with TREE)
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+    bits[r] = TREE ? spec_bits(*tree, q_abs0 + r * q_abs_step - wb) : 0u;
 
   Tile tile;
   tile.load(lat, 0, pt_row, page_size, MLA_DL, lo, limit, tid);
@@ -224,7 +236,8 @@ __device__ __forceinline__ void mla_attend(const TQ* __restrict__ q0, int64_t q_
     __syncthreads();
     if (start + TK < limit) tile.load(lat, 0, pt_row, page_size, MLA_DL, start + TK, limit, tid);
     if (n_act <= 0) continue;
-    rows.tile(sK, start, limit, q_abs0, q_abs_step, scale, cap, window, part, row_mask);
+    rows.template tile<TREE>(sK, start, limit, q_abs0, q_abs_step, scale, cap, window, part,
+                             row_mask, tree, wb, bits);
   }
   rows.write(out0, out_step, n_act, part);
 }

@@ -12,8 +12,8 @@ CUDA tensors, their plain versions for CPU tensors
 (``fb.kv_scales``) are applied outside the kernels by linearity, as the JAX
 layer does. A speculation tree's masks travel on the batch (``fb.spec_anc``
 with ``fb.win_base``; the JAX layer's ``spec_tree_context`` module global):
-``paged_attention`` passes them to the routing, which sends such a batch to
-the extend kernel.
+``paged_attention`` and ``paged_attention_mla`` pass them to the routing,
+which sends such a batch to the pool's extend kernel.
 """
 
 from __future__ import annotations
@@ -136,8 +136,10 @@ def paged_attention_mla(
     # into an fp8 pool the cast saturates above 448 where JAX gives NaN
     # (ROADMAP C5), for the latent rows as for write_kv's K and V
     kv_cache[layer_idx, 0, fb.out_slots.long(), 0] = latent_new.to(kv_cache.dtype)
-    # a speculation tree reaches the routing, which refuses it on the latent
-    # pool (ROADMAP A11, with NextN)
+    # a speculation tree's draft or verify step (NextN's): the routing sends
+    # it to the latent pool's extend with the tree's masks, a decode-shaped
+    # draft step included; its work list starts at the slot-order positions
+    # (``fb.mask_pos``, which the JAX layer passes to its reference)
     tree = ({} if fb.spec_anc is None
             else dict(spec_anc=fb.spec_anc, win_base=fb.win_base))
     return (attention or pool_attention(kv_cache))(

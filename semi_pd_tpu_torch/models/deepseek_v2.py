@@ -91,41 +91,46 @@ class DeepseekV2ForCausalLM(TreeParams):
         return (c.num_experts is not None and l >= c.first_k_dense_replace
                 and l % c.moe_layer_freq == 0)
 
+    def layer_spec(self, l: int) -> Dict[str, Any]:
+        """Layer ``l``'s subtree of leaf shapes (the JAX tree's
+        ``layers[l]``; NextN's draft layer mirrors the last one's)."""
+        c = self.config
+        H, Hq = c.hidden_size, c.num_attention_heads
+        lp: Dict[str, Any] = {
+            "input_norm": (H,),
+            "kv_a": {"w": (H, self.kv_lora + self.dr)},
+            "kv_norm": (self.kv_lora,),
+            "w_uk": (Hq, self.dn, self.kv_lora),
+            "w_uv": (Hq, self.kv_lora, self.dv),
+            "o_proj": {"w": (Hq * self.dv, H)},
+            "post_norm": (H,),
+        }
+        if self.q_lora:
+            lp["q_a"] = {"w": (H, self.q_lora)}
+            lp["q_norm"] = (self.q_lora,)
+            lp["q_b"] = {"w": (self.q_lora, Hq * (self.dn + self.dr))}
+        else:
+            lp["q_proj"] = {"w": (H, Hq * (self.dn + self.dr))}
+        if self.is_moe_layer(l):
+            E, F = c.num_experts, c.moe_intermediate_size
+            lp["router"] = {"w": (H, E)}
+            if self.is_v3:
+                lp["e_bias"] = (E,)
+            lp["experts"] = {"gate_up": (E, H, 2 * F), "down": (E, F, H)}
+            if c.num_shared_experts:
+                FS = c.num_shared_experts * F
+                lp["shared"] = {"gate_up": {"w": (H, 2 * FS)}, "down": {"w": (FS, H)}}
+        else:
+            I = c.intermediate_size
+            lp["gate_up"] = {"w": (H, 2 * I)}
+            lp["down"] = {"w": (I, H)}
+        return lp
+
     def param_specs(self) -> List[Tuple[str, Tuple[int, ...]]]:
         """(JAX tree path, shape) of every leaf, in jax.tree order."""
         c = self.config
-        H, Hq = c.hidden_size, c.num_attention_heads
-        layers = []
-        for l in range(c.num_hidden_layers):
-            lp: Dict[str, Any] = {
-                "input_norm": (H,),
-                "kv_a": {"w": (H, self.kv_lora + self.dr)},
-                "kv_norm": (self.kv_lora,),
-                "w_uk": (Hq, self.dn, self.kv_lora),
-                "w_uv": (Hq, self.kv_lora, self.dv),
-                "o_proj": {"w": (Hq * self.dv, H)},
-                "post_norm": (H,),
-            }
-            if self.q_lora:
-                lp["q_a"] = {"w": (H, self.q_lora)}
-                lp["q_norm"] = (self.q_lora,)
-                lp["q_b"] = {"w": (self.q_lora, Hq * (self.dn + self.dr))}
-            else:
-                lp["q_proj"] = {"w": (H, Hq * (self.dn + self.dr))}
-            if self.is_moe_layer(l):
-                E, F = c.num_experts, c.moe_intermediate_size
-                lp["router"] = {"w": (H, E)}
-                if self.is_v3:
-                    lp["e_bias"] = (E,)
-                lp["experts"] = {"gate_up": (E, H, 2 * F), "down": (E, F, H)}
-                if c.num_shared_experts:
-                    FS = c.num_shared_experts * F
-                    lp["shared"] = {"gate_up": {"w": (H, 2 * FS)}, "down": {"w": (FS, H)}}
-            else:
-                I = c.intermediate_size
-                lp["gate_up"] = {"w": (H, 2 * I)}
-                lp["down"] = {"w": (I, H)}
-            layers.append(lp)
+        H = c.hidden_size
+        layers = [self.layer_spec(l) for l in range(c.num_hidden_layers)]
         tree: Dict[str, Any] = {"embed": {"w": (c.vocab_size, H)}, "layers": layers,
                                 "final_norm": (H,)}
         if not c.tie_word_embeddings:
@@ -137,23 +142,41 @@ class DeepseekV2ForCausalLM(TreeParams):
         return getattr(self, path.replace(".", "__"))
 
     # ------------------------------------------------------------- forward
-    def forward(self, fb, kv_cache: torch.Tensor, attention=None) -> torch.Tensor:
+    def forward(self, fb, kv_cache: torch.Tensor, attention=None, return_hidden: bool = False):
         """One step over the flat batch ``fb``; writes this step's latent
         rows into ``kv_cache`` (the latent pool [L, 1, S, 1, Dlat]) and
-        returns float32 logits [B, V] of each request's last token.
-        ``attention`` runs over the pool after each layer's write (default:
-        the latent pool's routing to the kernels)."""
+        returns float32 logits [B, V] of the rows ``fb.logits_idx`` picks
+        (each request's last token; every row of a speculative verify
+        batch). ``attention`` runs over the pool after each layer's write
+        (default: the latent pool's routing to the kernels).
+        ``return_hidden``: also return those rows' hidden states [B, H]
+        AFTER the final norm, (logits, hidden), the state that seeds the
+        NextN draft (JAX ``return_hidden``'s ``last_h``; NextN normalises it
+        again with its ``hnorm``)."""
         c = self.config
         h = self.embed__w[fb.input_ids.long()]
         for l in range(c.num_hidden_layers):
-            h = self._layer(l, h, fb, kv_cache, attention)
+            h = self._layer(self.lp[l], l, h, fb, kv_cache, attention)
         h = rms_norm(h, self.final_norm, c.rms_norm_eps)
         last_h = h[fb.logits_idx.long()]
-        head = self.lm_head__w if not c.tie_word_embeddings else self.embed__w.t()
-        return lm_head_logits(last_h, head, c.logit_softcap)
+        logits = lm_head_logits(last_h, self.head(), c.logit_softcap)
+        return (logits, last_h) if return_hidden else logits
 
-    def _layer(self, l, h, fb, kv_cache, attention):
-        c, lp = self.config, self.lp[l]
+    @property
+    def embed(self) -> torch.nn.Parameter:
+        """The token embedding [V, H] (shared with the NextN draft)."""
+        return self.embed__w
+
+    def head(self) -> torch.Tensor:
+        """The lm_head [H, V] (the embedding's transpose when tied)."""
+        return self.embed__w.t() if self.config.tie_word_embeddings else self.lm_head__w
+
+    def _layer(self, lp, l, h, fb, kv_cache, attention):
+        """One decoder layer with the leaves ``lp`` ({"kv_a.w": ...}, the
+        JAX ``_ds_layer(lp, l, ...)``) over pool layer ``l``: the target's
+        layer l, or NextN's draft layer at layer 0 of its one-layer pool.
+        MoE or dense is read from the leaves, as JAX reads it."""
+        c = self.config
         T, Hq = h.shape[0], self.num_heads
         eps = c.rms_norm_eps
         x = rms_norm(h, lp["input_norm"], eps)

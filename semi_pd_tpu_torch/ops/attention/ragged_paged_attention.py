@@ -32,13 +32,15 @@ built with the work list's EXTEND_Q_BLOCK.
 
 Speculation trees: ``spec_anc`` (the static ancestor masks of the tree's
 nodes, speculative/tree.py) with ``win_base`` [B] (each request's window
-start) refine the causal mask in the three GQA extends and their plain
-version (rpa_common.spec_tree_mask, the TPU kernels' _spec_tree_mask). A
-batch with ``spec_anc`` always takes the extend kernel, a decode-shaped one
-(T == B, the tree's draft steps) included, as the JAX routing does
-(:569, :1092-1101); the work list's q_start is then the slot-order start
-the causal test compares. The MLA extend does not take it (ROADMAP A11,
-with NextN). Not ported: the TPU scheduling switches (RPA_DECODE_PACKED,
+start) refine the causal mask in every extend kernel, the three GQA builds
+and the MLA one, and in their plain version (rpa_common.spec_tree_mask, the
+TPU kernels' _spec_tree_mask, which _rpa_kernel applies to its GQA and MLA
+branches alike). A batch with ``spec_anc`` always takes the extend kernel,
+a decode-shaped one (T == B, the tree's draft steps) included, as the JAX
+routing does (:569, :1092-1101), on the latent pool too: never a decode or
+a stream; the work list's q_start is then the slot-order start the causal
+test compares (the JAX reference's ``mask_pos``). Not ported: the TPU
+scheduling switches (RPA_DECODE_PACKED,
 the VMEM clamps and the block_first table have no GPU meaning). The CUDA
 designs are described in csrc/rpa_extend.cu and csrc/rpa_mla.cuh.
 
@@ -79,10 +81,9 @@ EXTEND_Q_BLOCK = 128
 # the pointers, the shapes, scale and cap, window and the types, then the
 # speculation tree (its node count W, its masks as a host array of
 # MAX_TREE_NODES int32 the C entry copies into the kernel's parameters,
-# win_base on the card) and the stream
+# win_base on the card) and the stream: every extend build, the MLA one
+# included
 _ARGTYPES = [P] * 11 + [I] * 7 + [F, F, I, I, I, I, P, P, P]
-# the MLA extend's entry takes no tree
-_MLA_ARGTYPES = [P] * 11 + [I] * 7 + [F, F, I, I, I, P]
 
 EXTEND_KERNEL = register(CudaKernel(
     name="rpa_extend",
@@ -108,7 +109,7 @@ EXTEND_MLA_KERNEL = register(CudaKernel(
     name="rpa_extend_mla",
     source="csrc/rpa_extend_mla.cu",
     symbol="rpa_extend_mla",
-    argtypes=_MLA_ARGTYPES,
+    argtypes=_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel "
              "(MLA v_dim branch)",
     defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_P_F32"),
@@ -128,13 +129,6 @@ EXTEND_MERGED_KERNEL = register(CudaKernel(
 # (rpa_common.kernel_family)
 EXTEND_KERNELS = {"aligned": EXTEND_ALIGNED_KERNEL, "merged": EXTEND_MERGED_KERNEL,
                   "latent": EXTEND_MLA_KERNEL}
-
-
-def _no_latent_spec(spec_anc, v_dim) -> None:
-    if spec_anc is not None and v_dim is not None:
-        raise NotImplementedError(
-            "speculation-tree masks (spec_anc) on the MLA latent pool come with NextN "
-            "(ROADMAP A11, rest): rpa_extend_mla has no tree mask")
 
 
 def _decodes(q, page_table, spec_anc) -> bool:
@@ -214,9 +208,8 @@ def ragged_paged_attention(
     shape), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
     v_dim]): T == B batches without ``spec_anc`` take the pool's decode
     kernel (with ``stream`` its streaming decode, except below head_dim
-    128), all others its extend kernel. The latent pool takes no
-    ``spec_anc`` (ROADMAP A11)."""
-    _no_latent_spec(spec_anc, v_dim)
+    128), all others, a tree's decode-shaped draft steps included, its
+    extend kernel."""
     kw = dict(page_size=page_size, scale=scale, logit_cap=logit_cap,
               sliding_window=sliding_window, v_dim=v_dim)
     if _decodes(q, page_table, spec_anc):
@@ -237,7 +230,6 @@ def ragged_paged_attention_plain(
 ) -> torch.Tensor:
     """The aligned and the latent pool's routing over the two plain
     versions, on any device."""
-    _no_latent_spec(spec_anc, v_dim)
     kw = dict(page_size=page_size, scale=scale, logit_cap=logit_cap,
               sliding_window=sliding_window, v_dim=v_dim)
     check_spec(spec_anc, win_base, page_table.shape[0])
@@ -254,7 +246,6 @@ def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_s
             spec_anc=None, win_base=None):
     check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
                     v_dim)
-    _no_latent_spec(spec_anc, v_dim)
     check_spec(spec_anc, win_base, page_table.shape[0])
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
@@ -279,14 +270,13 @@ def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_s
             num_kv_heads, D, row_stride, page_table.shape[1], page_size, float(scale),
             float(logit_cap or 0.0), int(sliding_window or 0), TYPE_CODES[q.dtype],
             TYPE_CODES[kv_cache.dtype]]
-    if v_dim is None:
-        # the tree's masks cross as a host array (kept alive through the
-        # call); W == 0 is no tree
-        if spec_anc:
-            anc = (ctypes.c_int * MAX_TREE_NODES)(*spec_anc)
-            args += [len(spec_anc), ctypes.addressof(anc), win_base.data_ptr()]
-        else:
-            args += [0, None, None]
+    # the tree's masks cross as a host array (kept alive through the call);
+    # W == 0 is no tree
+    if spec_anc:
+        anc = (ctypes.c_int * MAX_TREE_NODES)(*spec_anc)
+        args += [len(spec_anc), ctypes.addressof(anc), win_base.data_ptr()]
+    else:
+        args += [0, None, None]
     kernel.launch(*args, cuda_stream_ptr(q.device))
     return out
 
@@ -336,7 +326,8 @@ def ragged_paged_attention_extend(
     """Extend attention over the aligned pool (the merged kernel below
     head_dim 128; with ``spec_anc`` / ``win_base`` a speculation tree's
     mask), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
-    v_dim]; no tree there); rows no work-list entry owns stay 0."""
+    v_dim]; the tree's mask there too); rows no work-list entry owns stay
+    0."""
     Hkv, D = pool_heads(kv_cache)
     return _extend(EXTEND_KERNELS[kernel_family(kv_cache)], q, kv_cache, layer_idx,
                    page_table, kv_lens, meta, page_size=page_size, num_kv_heads=Hkv,

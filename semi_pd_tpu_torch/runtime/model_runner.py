@@ -32,20 +32,27 @@ hold replays against the eager step. Extend steps, ``step_host`` and every
 step of a CPU runner run eagerly.
 
 Speculative decoding (``ServerArgs.speculative_algorithm``): NGRAM verifies
-host-drafted chains (``spec_step``); EAGLE (``_init_eagle``) adds the
-one-layer draft model, drawn from the seed + 1 as the JAX runner draws it,
-and its draft pool: one layer of the target's geometry in the 5D layout,
-sharing the target's slot space and page table (at head_dim 64 the merged
-kernels serve it), re-made with the target pool (``resume_kv_memory``).
-``eagle_step`` runs a chain round and ``eagle_tree_step`` a tree round
-(speculative/eagle.py), eagerly, never through the decode graphs;
-``step_with_hidden`` is the extend step that also returns the hidden state
-seeding the draft. NEXTN, and EAGLE on an MLA target, are ROADMAP A11's
-rest.
+host-drafted chains (``spec_step``); EAGLE and NEXTN (``_init_draft_model``,
+``_init_eagle``) add the one-layer draft model, drawn from the seed + 1 as
+the JAX runner draws it, by the target's architecture as the JAX runner
+picks it: DeepSeek's NextN head (speculative/nextn.py) for a DeepSeek
+target under either name, the llama EAGLE draft otherwise. Its draft pool
+is one layer of the target pool's layout, sharing the target's slot space,
+page table and KV dtype: the 5D pool for a Llama target (at head_dim 64
+the merged kernels serve it), the latent pool ``[1, 1, S, 1, Dlat]`` for
+a DeepSeek target (its chain draft and refresh steps take
+``rpa_decode_mla``, its tree draft steps ``rpa_extend_mla`` with the
+tree's masks); it is re-made with the target pool (``resume_kv_memory``).
+The draft's weights are made, and its pool's bytes per token counted,
+before the target pool is sized from free memory. ``eagle_step`` runs a
+chain round and ``eagle_tree_step`` a tree round (speculative/eagle.py),
+eagerly, never through the decode graphs; ``step_with_hidden`` is the
+extend step that also returns the hidden state seeding the draft.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import time
@@ -182,6 +189,12 @@ class ModelRunner:
                 device=self.device)
             logger.info("fp8-KV scales loaded for %d layers", len(self.kv_scales))
         self._load_weights()
+        # the draft's weights before the target pool is sized from what is free
+        self.draft_model = None
+        self.draft_kv = None
+        self.tree_template = None
+        if server_args.speculative_algorithm in ("EAGLE", "NEXTN"):
+            self._init_draft_model()
         self._init_memory_pool()
         # what every layer runs over the pool after its KV write: the pool's
         # routing to the kernels, decode batches streamed on request
@@ -199,10 +212,7 @@ class ModelRunner:
         # the decode graphs (None: decode runs eagerly)
         self.graphs = (DecodeGraphs(self, CudaGraphBackend(self.device, self.generator))
                        if self._graphs_on else None)
-        self.draft_model = None
-        self.draft_kv = None
-        self.tree_template = None
-        if server_args.speculative_algorithm in ("EAGLE", "NEXTN"):
+        if self.draft_model is not None:
             self._init_eagle()
 
     @property
@@ -262,9 +272,13 @@ class ModelRunner:
         """Size the KV pool from free device memory, less the decode graphs'
         pool (sized before any graph exists: GRAPH_POOL_LOGITS float32
         logits of the largest decode bucket, the sampler's copies of them
-        being the largest tensors a decode step makes)."""
+        being the largest tensors a decode step makes). A speculating
+        runner's draft weights are already made (they are not free), and
+        its draft pool, one more layer of the target's per slot, is counted
+        in each token's bytes."""
         mc = self.model_config
-        per_token = (mc.num_hidden_layers * mc.num_kv_heads_total * mc.kv_head_dim
+        layers = mc.num_hidden_layers + (1 if self.draft_model is not None else 0)
+        per_token = (layers * mc.num_kv_heads_total * mc.kv_head_dim
                      * kv_dtype.itemsize * (1 if mc.use_mla else 2))
         if self.device.type != "cuda":
             return 32768  # CPU: a small pool for tests
@@ -297,26 +311,37 @@ class ModelRunner:
             self._init_draft_pool()
 
     # ------------------------------------------------------------- speculation
-    def _init_eagle(self) -> None:
-        """EAGLE draft net + draft KV pool sharing the target's slot space
-        (speculative/eagle.py), the JAX runner's _init_eagle."""
-        from semi_pd_tpu_torch.speculative.eagle import EagleDraftModel, load_token_map
-        from semi_pd_tpu_torch.speculative.tree import default_tree_template
+    def _init_draft_model(self) -> None:
+        """The draft net of EAGLE or NEXTN, by the target's architecture as
+        the JAX runner's _init_eagle picks it: NextN (DeepSeek's
+        multi-token-prediction head, one MoE layer) for a DeepSeek target,
+        the llama EAGLE draft for a Llama target; drawn from the seed + 1."""
+        from semi_pd_tpu_torch.speculative.eagle import EagleDraftModel
+        from semi_pd_tpu_torch.speculative.nextn import NextNDraftModel
 
         args, mc = self.server_args, self.model_config
-        if args.speculative_algorithm == "NEXTN":
-            raise NotImplementedError(
-                "NEXTN (DeepSeek's multi-token-prediction draft) is ROADMAP A11 (rest)")
-        if mc.use_mla or not isinstance(self.model, LlamaForCausalLM):
-            raise NotImplementedError(
-                f"EAGLE on a {mc.architecture} target drafts with NextN over the latent "
-                f"pool: ROADMAP A11 (rest)")
         if args.speculative_draft_model_path:
             raise NotImplementedError("a draft checkpoint needs checkpoint loading "
                                       "(ROADMAP A13); the draft draws random weights")
-        self.draft_model = EagleDraftModel(mc, self.device)
+        if isinstance(self.model, DeepseekV2ForCausalLM):
+            self.draft_model = NextNDraftModel(self.model, self.device)
+        else:
+            self.draft_model = EagleDraftModel(mc, self.device)
         self.draft_model.page_size = args.page_size
         self.draft_model.init_params(args.seed + 1)
+        self.draft_weight_bytes = sum(p.numel() * p.element_size()
+                                      for p in self.draft_model.parameters())
+        logger.info("%s draft ready: %.2f GiB", type(self.draft_model).__name__,
+                    self.draft_weight_bytes / 2**30)
+
+    def _init_eagle(self) -> None:
+        """The draft KV pool sharing the target's slot space, the rounds'
+        options and the tree (speculative/eagle.py), the rest of the JAX
+        runner's _init_eagle."""
+        from semi_pd_tpu_torch.speculative.eagle import load_token_map
+        from semi_pd_tpu_torch.speculative.tree import default_tree_template
+
+        args, mc = self.server_args, self.model_config
         self._init_draft_pool()
         self.spec_refresh = not args.speculative_disable_draft_refresh
         self.spec_hot_ids = None
@@ -331,13 +356,12 @@ class ModelRunner:
                 args.speculative_eagle_topk, args.speculative_num_draft_tokens)
 
     def _init_draft_pool(self) -> None:
-        """The draft pool: one layer of the target's geometry in the 5D
-        layout (at head_dim 64 the merged kernels' pool), the target pool's
-        slots and dtype."""
-        spec = KVCacheSpec(
-            num_layers=1, num_pages=self.kv_spec.num_pages, page_size=self.kv_spec.page_size,
-            num_kv_heads=self.draft_model.num_kv_heads, head_dim=self.draft_model.head_dim,
-            dtype=self.kv_spec.dtype, layout="aligned")
+        """The draft pool: one layer of the target pool's geometry, slots
+        and dtype (fp8 included), in the latent layout for a latent target
+        and the 5D layout otherwise (at head_dim 64 the merged kernels'
+        pool)."""
+        layout = "latent" if self.kv_spec.layout == "latent" else "aligned"
+        spec = dataclasses.replace(self.kv_spec, num_layers=1, layout=layout)
         self.draft_kv = KVCache(spec, self.device)
         self.draft_attention = pool_attention(self.draft_kv.buffer)
 

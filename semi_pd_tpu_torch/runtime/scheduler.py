@@ -22,10 +22,11 @@ Kept from the JAX scheduler: both ticks, the in-flight ring with its
 split flush, chained decode, cost accounting, adaptive ring depth,
 ``_prefill_chunk_budget``, radix prefix reuse, retraction,
 ``check_memory`` and speculative decoding (``speculative_algorithm``):
-NGRAM and EAGLE chain and tree rounds, each decode tick flushing the ring
-and then speculating for the whole running batch, EAGLE's extends
+NGRAM and EAGLE chain and tree rounds (NEXTN taken as EAGLE, with the
+runner's NextN draft on a DeepSeek target), each decode tick flushing the
+ring and then speculating for the whole running batch, EAGLE's extends
 returning the hidden state that seeds the draft. Not in this slice: HiCache
-(ROADMAP A15), NEXTN (A11's rest, refused by the runner), grammar masks,
+(ROADMAP A15), grammar masks,
 jump-forward, penalties, top-k logprobs and logit processors (A10) —
 requests needing them are refused at ``add_request`` — and DP-attention
 partitions (A15).
@@ -161,8 +162,12 @@ class Scheduler:
         )
 
         # Speculative decoding (NGRAM: runtime/speculative.py; EAGLE:
-        # speculative/eagle.py rounds); the runner refuses NEXTN
+        # speculative/eagle.py rounds)
         self.spec_algo = server_args.speculative_algorithm
+        if self.spec_algo == "NEXTN":
+            # NextN/MTP (DeepSeek) rides the EAGLE round machinery; the
+            # runner picked the NextN draft module by target architecture
+            self.spec_algo = "EAGLE"
         self.spec_gamma = (
             server_args.speculative_num_draft_tokens
             if self.spec_algo in ("NGRAM", "EAGLE") else 0

@@ -15,22 +15,29 @@ A round, as the JAX package's fused program computes it:
      target's hidden states (the reference's draft-extend after decode).
 
 The JAX round is one jitted program; here a round runs eagerly, launch by
-launch (one CUDA graph per round key is ROADMAP A11's rest). Which kernel
-each step takes on the card: the verify goes to the target pool's extend
-(with the tree's ``spec_anc`` for a tree); the draft pool is one layer of
-the target's slot space in the 5D layout at the target's head_dim, so at
-head_dim 64 a chain draft or refresh step (decode-shaped) takes
-``rpa_decode_merged`` and a tree draft step (decode-shaped, with
-``spec_anc``) ``rpa_extend_merged``.
+launch (one CUDA graph per round key is ROADMAP A11's rest). The rounds
+take any draft with ``step`` and ``pre_head`` (``DraftModel``): the llama
+EAGLE draft below, or DeepSeek's NextN (speculative/nextn.py). Which
+kernel each step takes on the card: the verify goes to the target pool's
+extend (with the tree's ``spec_anc`` for a tree, and unmasked for a
+chain); the draft pool is one layer of the target's slot space:
+- EAGLE (a Llama target): the 5D layout at the target's head_dim, so at
+  head_dim 64 a chain draft or refresh step (decode-shaped) takes
+  ``rpa_decode_merged`` and a tree draft step (decode-shaped, with
+  ``spec_anc``) ``rpa_extend_merged``;
+- NextN (a DeepSeek target): the latent layout ``[1, 1, S, 1, Dlat]``, so
+  a chain draft or refresh step takes ``rpa_decode_mla`` and a tree draft
+  step ``rpa_extend_mla`` with the tree's masks, as the target's tree
+  verify does.
 
-Unified storage extends to the draft: the draft pool ``[1, 2, S, Hkv, D]``
-uses the SAME slot space and page table as the target pool, so allocation,
-retraction and radix bookkeeping stay single-owner.
+Unified storage extends to the draft: the draft pool uses the SAME slot
+space and page table as the target pool, so allocation, retraction and
+radix bookkeeping stay single-owner.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Protocol
 
 import numpy as np
 import torch
@@ -44,6 +51,17 @@ from semi_pd_tpu_torch.ops.elementwise import rms_norm, silu_and_mul
 from semi_pd_tpu_torch.ops.rope import RotaryEmbedding
 from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, ForwardArrays
 from semi_pd_tpu_torch.runtime.speculative import verify_and_accept
+
+
+class DraftModel(Protocol):
+    """What the rounds need of a draft: one step over its pool, and the
+    map from its hidden state to the shared lm_head's input."""
+
+    def step(self, tok_embed, hidden_feed, draft_kv, positions, out_slots, page_table,
+             kv_lens, attn_meta, mask_positions=None, win_base=None, spec_anc=None,
+             attention=None) -> torch.Tensor: ...
+
+    def pre_head(self, h: torch.Tensor) -> torch.Tensor: ...
 
 
 class EagleDraftModel(TreeParams):
@@ -193,9 +211,9 @@ def _decode_meta(q_start: torch.Tensor) -> AttnMeta:
 @torch.inference_mode()
 def eagle_round(
     target,
-    draft: EagleDraftModel,
+    draft: DraftModel,
     kv: torch.Tensor,  # the target pool, updated in place
-    draft_kv: torch.Tensor,  # [1, 2, S, Hkv, D], updated in place
+    draft_kv: torch.Tensor,  # the one-layer draft pool, updated in place
     fb: ForwardArrays,  # spec-verify batch (B*(gamma+1) rows; input_ids row 0 = last token)
     prev_hidden: torch.Tensor,  # [B, H] target hidden seeding the draft
     gamma: int,
@@ -258,7 +276,7 @@ def eagle_round(
 @torch.inference_mode()
 def eagle_tree_round(
     target,
-    draft: EagleDraftModel,
+    draft: DraftModel,
     kv: torch.Tensor,
     draft_kv: torch.Tensor,
     fb: ForwardArrays,  # tree-verify batch (B*N rows; runtime/batch.py build_tree_verify_batch)
@@ -379,7 +397,8 @@ def eagle_tree_round(
 def _compact_slots(pool: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> None:
     """Copy KV rows src -> dst on the slot axis, in place (every source row
     read before any is written). Pool layouts: 5D [L, C, S, H, D] (slot axis
-    2) or the chunked [L, S, CT, 128] (axis 1)."""
+    2; the latent pool [L, 1, S, 1, Dlat] among them) or the chunked
+    [L, S, CT, 128] (axis 1)."""
     if pool.dim() == 5:
         pool[:, :, dst] = pool[:, :, src]
     else:

@@ -15,7 +15,10 @@ without the streaming decode; DeepSeek-V2 on the latent pool; in bf16
 with fp8 KV on the chunked and the latent pool, greedy tokens equal up to
 a near tie), and the decode steps replayed from CUDA graphs against the
 eager step, bitwise, on each decode path, the fp8 ones included (with no
-host sync in either). Every kernel is held with each (q, KV) pair it is
+host sync in either); the four extends with a speculation tree's masks
+(the MLA one's TREE and tree-less instantiations on the same inputs), and
+the speculating Engines (NGRAM, EAGLE chain and tree on a Llama target,
+NEXTN chain and tree on a DeepSeek-V2 one) against the CPU. Every kernel is held with each (q, KV) pair it is
 built for, fp8 e4m3 and e5m2 under bf16 q included. This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
@@ -406,14 +409,14 @@ def test_extend_builds_run_on_the_tensor_cores(cuda_device):
     and e5m2 KV) of the chunked, the aligned, the merged and the latent
     extend and decode runs tensor-core instructions (HGMMA in the extends'
     warpgroup kernels, HMMA in the decodes'); their float32 pairs stay on
-    the CUDA cores. The three GQA extends hold each kernel twice: with a
+    the CUDA cores. The four extends hold each kernel twice: with a
     speculation tree (TREE) and without."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs, float32 ones)
         "rpa_extend": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 6, 2),
         "rpa_extend_aligned": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 6, 2),
-        "rpa_extend_mla": ("rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel", 3, 1),
+        "rpa_extend_mla": ("rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel", 6, 2),
         "rpa_extend_merged": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 6, 2),
         "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3, 1),
         "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3, 1),
@@ -1176,10 +1179,12 @@ SPEC_BUILDS = {  # build: (pool layout, Hq, Hkv, head_dim)
     "rpa_extend": ("chunked", 16, 8, D),
     "rpa_extend_aligned": ("aligned", 8, 2, D_ALIGNED),
     "rpa_extend_merged": ("aligned", 32, 8, D),  # the 1B-class draft pool's geometry
+    "rpa_extend_mla": ("latent", HQ_MLA, 1, DLAT),  # DeepSeek-V2's latent row, NextN's
 }
 SPEC_TYPES = {"rpa_extend": ["float32", "bfloat16"],
               "rpa_extend_aligned": ["float32", "bfloat16", "fp8_e4m3"],
-              "rpa_extend_merged": ["float32", "bfloat16", "fp8_e4m3"]}
+              "rpa_extend_merged": ["float32", "bfloat16", "fp8_e4m3"],
+              "rpa_extend_mla": ["float32", "bfloat16", "fp8_e4m3"]}
 SPEC_CASES = [(b, t) for b, ts in SPEC_TYPES.items() for t in ts]
 
 
@@ -1209,8 +1214,8 @@ def _tree_case(dev, build, dtype, draft_level=None, prefix=(40, 17, 3, 130)):
         used += n
         pos = np.arange(lens[b])
         live[pt[b, pos // PS] * PS + pos % PS] = True
-    shape = ((L, total * PS, 2 * hkv * d // 128, 128) if layout == "chunked"
-             else (L, 2, total * PS, hkv, d))
+    shape = {"chunked": (L, total * PS, 2 * hkv * d // 128, 128),
+             "aligned": (L, 2, total * PS, hkv, d), "latent": (L, 1, total * PS, 1, d)}[layout]
     pool = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
     if layout == "chunked":
         pool[:, torch.from_numpy(~live)] = float("nan")
@@ -1239,6 +1244,8 @@ def _tree_fns(build, c):
     layout, _, hkv, d = SPEC_BUILDS[build]
     args = (c["q"], c["pool"], 1, c["pt"], c["kvl"], c["meta"])
     kw = dict(page_size=PS, scale=d ** -0.5, spec_anc=c["anc"], win_base=c["win_base"])
+    if layout == "latent":
+        kw["v_dim"] = V_DIM
     if layout == "chunked":
         return (lambda **o: rpa.ragged_paged_attention_chunked_extend(
                     *args, num_kv_heads=hkv, head_dim=d, **{**kw, **o}),
@@ -1251,11 +1258,12 @@ def _tree_fns(build, c):
 @pytest.mark.parametrize("draft_level", [None, 1, 3], ids=["verify", "draft1", "draft3"])
 @pytest.mark.parametrize("build,dtype", SPEC_CASES, ids=[f"{b}-{t}" for b, t in SPEC_CASES])
 def test_tree_masked_extend_matches_plain(cuda_device, build, dtype, draft_level):
-    """The three GQA extends with a speculation tree's masks against their
-    plain version: the verify and two draft steps (decode-shaped, taken by
-    the extend), on layer 1, every dead slot NaN; the tree changes the
-    answer (a chain over the same window gives another), and the kernel
-    with the chain matches its plain version too."""
+    """The four extends (the three GQA builds and the MLA one, NextN's) with
+    a speculation tree's masks against their plain version: the verify and
+    two draft steps (decode-shaped, taken by the extend), on layer 1, every
+    dead slot NaN; the tree changes the answer (a chain over the same
+    window gives another), and the kernel with the chain matches its plain
+    version too."""
     c = _tree_case(cuda_device, build, dtype, draft_level)
     kern, plain = _tree_fns(build, c)
     k = KERNELS[build]
@@ -1279,21 +1287,32 @@ def test_tree_masked_extend_repeats_bitwise(cuda_device, build):
     assert torch.equal(kern(), kern())
 
 
-def test_tree_refused_by_the_mla_extend_and_unpaired(cuda_device):
-    c = _tree_case(cuda_device, "rpa_extend", "bfloat16")
-    kern, _ = _tree_fns("rpa_extend", c)
+@pytest.mark.parametrize("build", ["rpa_extend", "rpa_extend_mla"])
+def test_tree_refused_unpaired(cuda_device, build):
+    c = _tree_case(cuda_device, build, "bfloat16")
+    kern, _ = _tree_fns(build, c)
     with pytest.raises(ValueError, match="go together"):
         kern(win_base=None)
-    q = torch.zeros((2, HQ_MLA, DLAT), device=cuda_device, dtype=torch.bfloat16)
-    pool = torch.zeros((1, 1, 64, 1, DLAT), device=cuda_device, dtype=torch.bfloat16)
-    pt = torch.ones((2, 2), dtype=torch.int32, device=cuda_device)
-    kvl = torch.full((2,), 8, dtype=torch.int32, device=cuda_device)
-    m = build_attn_meta(np.array([1, 1]), np.array([8, 8]), 2, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        rpa.ragged_paged_attention_extend(q, pool, 0, pt, kvl, m, page_size=PS, scale=0.1,
-                                          v_dim=V_DIM, spec_anc=(1, 3),
-                                          win_base=torch.zeros(2, dtype=torch.int32,
-                                                               device=cuda_device))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3"])
+def test_mla_extend_tree_and_treeless_instantiations(cuda_device, dtype):
+    """rpa_extend_mla's two instantiations on the same tree verify inputs
+    (every dead slot NaN): without the tree its TREE = false code matches
+    the plain causal extend, with it the TREE = true code matches the plain
+    masked one, one launch each, and the two answers differ."""
+    c = _tree_case(cuda_device, "rpa_extend_mla", dtype)
+    kern, plain = _tree_fns("rpa_extend_mla", c)
+    k = KERNELS["rpa_extend_mla"]
+    before = k.launches
+    causal, masked = kern(spec_anc=None, win_base=None), kern()
+    torch.cuda.synchronize()
+    assert k.launches == before + 2
+    assert torch.isfinite(causal).all() and torch.isfinite(masked).all()
+    torch.testing.assert_close(causal.float(), plain(spec_anc=None, win_base=None).float(),
+                               rtol=c["tol"], atol=c["tol"])
+    torch.testing.assert_close(masked.float(), plain().float(), rtol=c["tol"], atol=c["tol"])
+    assert (causal.float() - masked.float()).abs().max() > 1e-2
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3"])
@@ -1321,20 +1340,24 @@ def test_merged_pair_at_hkv8_matches_plain(cuda_device, kind, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("algo", ["NGRAM", "EAGLE", "EAGLE-tree"])
+@pytest.mark.parametrize("algo", ["NGRAM", "EAGLE", "EAGLE-tree", "NEXTN", "NEXTN-tree"])
 def test_spec_engine_on_cuda_matches_cpu(cuda_device, algo):
-    """A speculating Engine on the card (float32, the chunked pool and the
-    draft's 5D pool at Hkv 8) gives the greedy tokens and the accepted
-    drafts of the same Engine on the CPU holding the same target and draft
-    parameters, and launches only the speculating path's builds (never the
-    target's decode). The weights are made predictive (the target's final
-    norm ones, the draft's fc passing the token embedding), so that drafts
-    are accepted and the rounds run their accepted paths."""
+    """A speculating Engine on the card (float32; a Llama target on the
+    chunked pool with the EAGLE draft's 5D pool at Hkv 8, or for NEXTN a
+    DeepSeek-V2 target on the latent pool with NextN's one-layer latent
+    pool) gives the greedy tokens and the accepted drafts of the same
+    Engine on the CPU holding the same target and draft parameters, and
+    launches only the speculating path's builds (never the target's
+    decode). The weights are made predictive (the target's final norm ones,
+    the draft's fc or eh_proj passing the token embedding, NextN's norms
+    ones), so that drafts are accepted and the rounds run their accepted
+    paths."""
     spec = dict(speculative_algorithm=algo.split("-")[0], speculative_num_draft_tokens=4,
                 speculative_eagle_topk=4 if algo.endswith("tree") else 1)
     serve = dict(random_weights=True, page_size=PS, max_total_tokens=2048,
                  chunked_prefill_size=64, **spec)
-    cfg = dict(_llama_cfg(D, num_kv_heads=8), vocab_size=64)
+    nextn = algo.startswith("NEXTN")
+    cfg = dict(_deepseek_cfg() if nextn else _llama_cfg(D, num_kv_heads=8), vocab_size=64)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 64, size=n).tolist() for n in (20, 100, 37)]
     sp = SamplingParams(max_new_tokens=16, temperature=0.0, ignore_eos=True)
@@ -1347,8 +1370,12 @@ def test_spec_engine_on_cuda_matches_cpu(cuda_device, algo):
     if gpu.runner.draft_model is not None:
         H = cfg["hidden_size"]
         draft = gpu.runner.draft_model.params_tree()
-        draft["fc"]["w"][H:] *= 0.01
-        draft["fc"]["w"][:H] = np.eye(H)
+        fc = draft["eh_proj" if nextn else "fc"]["w"]
+        fc[H:] *= 0.01
+        fc[:H] = np.eye(H)
+        if nextn:
+            for k in ("enorm", "hnorm", "head_norm"):
+                draft[k] = np.ones_like(draft[k])
         for eng in (gpu, cpu):
             eng.runner.draft_model.load_jax_params(draft)
     for k in KERNELS.values():
@@ -1356,7 +1383,11 @@ def test_spec_engine_on_cuda_matches_cpu(cuda_device, algo):
     got = gpu.generate(input_ids=prompts, sampling_params=sp)
     launched = {n for n, k in KERNELS.items() if k.launches}
     want = {"NGRAM": {"rpa_extend"}, "EAGLE": {"rpa_extend", "rpa_decode_merged"},
-            "EAGLE-tree": {"rpa_extend", "rpa_decode_merged", "rpa_extend_merged"}}[algo]
+            "EAGLE-tree": {"rpa_extend", "rpa_decode_merged", "rpa_extend_merged"},
+            # the target's verify and NextN's tree draft steps share the MLA
+            # extend; its chain draft and refresh steps take the MLA decode
+            "NEXTN": {"rpa_extend_mla", "rpa_decode_mla"},
+            "NEXTN-tree": {"rpa_extend_mla", "rpa_decode_mla"}}[algo]
     assert launched == want
     ref = cpu.generate(input_ids=prompts, sampling_params=sp)
     assert [o["output_ids"] for o in got] == [o["output_ids"] for o in ref]

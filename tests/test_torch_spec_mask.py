@@ -13,7 +13,8 @@ inputs:
   (decode-shaped: B * n rows of q_len 1, the page table tiled), float32 and
   bf16; the port's pool has NaN in every slot no live position holds (C2);
 - the routing: a decode-shaped batch with ``spec_anc`` takes the extend,
-  never the packed or the streaming decode; the MLA pool refuses a tree;
+  never the packed or the streaming decode; the MLA pool refuses an
+  ill-formed tree and takes a well-formed one;
 - the reference attention against the JAX reference with slot-order
   positions;
 - the warpgroup kernel's per-tile mask decision, replayed: a tile it leaves
@@ -268,16 +269,45 @@ def test_decode_shaped_tree_batch_takes_the_extend(monkeypatch):
 
 
 def test_latent_pool_refuses_a_tree():
-    q = torch.zeros((2, 16, 576))
-    pool = torch.zeros((1, 1, 64, 1, 576))
-    pt = torch.ones((2, 2), dtype=torch.int32)
-    kvl = torch.full((2,), 8, dtype=torch.int32)
-    meta = build_attn_meta(np.array([1, 1]), np.array([8, 8]), 2)
-    for fn in (rpa.ragged_paged_attention, rpa.ragged_paged_attention_plain,
-               rpa.ragged_paged_attention_extend):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            fn(q, pool, 0, pt, kvl, meta, page_size=PS, scale=0.1, v_dim=512,
-               spec_anc=(1, 3), win_base=torch.zeros(2, dtype=torch.int32))
+    """The latent pool refuses an ill-formed tree in its routing, its plain
+    routing and its extend (spec_anc without win_base, more than 31 nodes,
+    a node that does not see itself, win_base of another length) and takes
+    a well-formed one: a decode-shaped batch with the tree goes to the MLA
+    extend's plain version (NextN's tree draft step; the JAX reference is
+    held to it in test_torch_nextn.py)."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(2, 16, 576)).astype(np.float32))
+    pool = torch.from_numpy(rng.normal(size=(1, 1, 64, 1, 576)).astype(np.float32))
+    pt = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+    kvl = torch.tensor([20, 9], dtype=torch.int32)
+    meta = AttnMeta(q_lens=torch.ones(2, dtype=torch.int32),
+                    q_start=torch.tensor([19, 8], dtype=torch.int32),
+                    block_seq=torch.arange(2, dtype=torch.int32),
+                    block_row=torch.arange(2, dtype=torch.int32),
+                    block_qofs=torch.zeros(2, dtype=torch.int32))
+    wb = torch.tensor([18, 7], dtype=torch.int32)
+    kw = dict(page_size=PS, scale=0.1, v_dim=512)
+    bad = [((1, 3), None, "together"), (tuple(range(1, 40)), wb, "1 to 31"),
+           ((1, 1), wb, "bit 1"), ((1, 3), wb[:1], "int32")]
+    fns = (rpa.ragged_paged_attention, rpa.ragged_paged_attention_plain,
+           rpa.ragged_paged_attention_extend)
+    for fn in fns:
+        for anc, base, msg in bad:
+            with pytest.raises(ValueError, match=msg):
+                fn(q, pool, 0, pt, kvl, meta, spec_anc=anc, win_base=base, **kw)
+    # a two-node chain window at [18, 20) and [7, 9): each row's node 1 sees
+    # its root and itself
+    outs = [fn(q, pool, 0, pt, kvl, meta, spec_anc=(1, 3), win_base=wb, **kw) for fn in fns]
+    want = rpa.extend_attention_plain(q, pool, 0, pt, kvl, meta, page_size=PS,
+                                      num_kv_heads=1, head_dim=576, scale=0.1, v_dim=512,
+                                      spec_anc=(1, 3), win_base=wb)
+    for out in outs:
+        assert out.shape == (2, 16, 512)
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
+    # the mask matters: a node 1 that does not see its root sees another set
+    other = rpa.ragged_paged_attention(q, pool, 0, pt, kvl, meta, spec_anc=(1, 2),
+                                       win_base=wb, **kw)
+    assert (other - want).abs().max() > 1e-3
 
 
 @pytest.mark.parametrize("level", [None, 3])
@@ -369,10 +399,9 @@ def test_extend_entry_argtypes_match_the_c_signature(name):
 
     k = KERNELS[name]
     assert k.argtypes == _c_entry_types(k.source_rel.split("/", 1)[1])
-    if name != "rpa_extend_mla":
-        assert len(k.argtypes) == 27 and k.argtypes[-4] is __import__("ctypes").c_int
-        # the kernel's parameter struct holds as many masks as a tree has nodes
-        import re
+    assert len(k.argtypes) == 27 and k.argtypes[-4] is __import__("ctypes").c_int
+    # the kernels' parameter struct holds as many masks as a tree has nodes
+    import re
 
-        cap = re.search(r"constexpr int SPEC_MAX_NODES = (\d+);", _csrc("csrc/rpa_extend.cu"))
-        assert int(cap.group(1)) == port_tree.MAX_TREE_NODES
+    cap = re.search(r"constexpr int SPEC_MAX_NODES = (\d+);", _csrc("csrc/rpa_common.cuh"))
+    assert int(cap.group(1)) == port_tree.MAX_TREE_NODES

@@ -19,7 +19,8 @@ the JAX package on the CPU, with the same numpy inputs and weights:
   an accepted run; chunked prefill with a radix hit; an FR-Spec map file;
   the refresh off; sampled requests under a tree (chain rounds);
   ``check_memory`` after each serve; releasing and re-making the pools;
-- the refusals: NEXTN and EAGLE on an MLA target (ROADMAP A11).
+- the refusals (a draft checkpoint, an unknown algorithm), and the draft
+  NEXTN picks on a Llama target and EAGLE on a DeepSeek one.
 
 The EAGLE weights are made predictive (the target's final norm set to ones,
 the draft's fc passing the token embedding through), so that rounds accept
@@ -487,18 +488,33 @@ def test_sampled_requests_under_a_tree_take_chain_rounds():
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11 \(rest\)"):
-        Engine(ServerArgs(random_weights=True, device="cpu", speculative_algorithm="NEXTN",
-                          **SERVE), ModelConfig(**CFG), device="cpu")
+    """What the runner refuses, and what runs in place of the old refusals:
+    NEXTN on a Llama target drafts with the llama EAGLE draft (as the JAX
+    runner picks it), EAGLE on a DeepSeek target with NextN over a
+    one-layer latent pool (speculative/nextn.py; test_torch_nextn.py holds
+    it to JAX); a draft checkpoint (ROADMAP A13) and an unknown algorithm
+    stay refused."""
+    from semi_pd_tpu_torch.speculative.nextn import NextNDraftModel
+
+    eng = Engine(ServerArgs(random_weights=True, device="cpu", speculative_algorithm="NEXTN",
+                            **SERVE), ModelConfig(**CFG), device="cpu")
+    assert isinstance(eng.runner.draft_model, port_eagle.EagleDraftModel)
+    assert eng.scheduler.spec_algo == "EAGLE"
     mla = ModelConfig(
         architecture="DeepseekV2ForCausalLM", vocab_size=64, hidden_size=64,
         intermediate_size=128, num_hidden_layers=1, num_attention_heads=2,
         num_key_value_heads=2, head_dim=192, max_position_embeddings=512,
         context_length=512, use_mla=True, kv_lora_rank=512, qk_nope_head_dim=128,
         qk_rope_head_dim=64, v_head_dim=128, dtype="float32")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11 \(rest\)"):
+    eng = Engine(ServerArgs(random_weights=True, device="cpu", speculative_algorithm="EAGLE",
+                            **SERVE), mla, device="cpu")
+    assert isinstance(eng.runner.draft_model, NextNDraftModel)
+    assert tuple(eng.runner.draft_kv.buffer.shape) == (
+        1, 1, eng.runner.kv_cache.buffer.shape[2], 1, 576)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         Engine(ServerArgs(random_weights=True, device="cpu", speculative_algorithm="EAGLE",
-                          **SERVE), mla, device="cpu")
+                          speculative_draft_model_path="draft", **SERVE), ModelConfig(**CFG),
+               device="cpu")
     with pytest.raises(ValueError, match="speculative_algorithm"):
         ServerArgs(speculative_algorithm="MEDUSA")
 

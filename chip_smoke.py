@@ -22,9 +22,11 @@ each (any failure raises and exits non-zero):
              computes from shapes (the chunked and aligned ones with P
              rounded to bf16, the merged one with P kept float32); the two
              GQA streaming decodes run it on the same warp tile, each warp
-             an equal share of the batch's KV tiles. The two latent decodes
-             run it on a block tile (the 16 query heads as one m16 tile, the
-             four warps of a block sharing each latent tile, P kept float32),
+             an equal share of the batch's KV tiles. The latent decodes
+             (576 and 288 builds) run it on a block tile (up to 16 query
+             heads as one m16 tile, groups of 16 with an uneven last one,
+             the four warps of a block sharing each latent tile, P kept
+             float32),
              each request walked in fixed chunks of 256 positions, the
              packed one a block per chunk, the streaming one each block an
              equal share of the batch's chunks, so that the two give the
@@ -67,14 +69,21 @@ each (any failure raises and exits non-zero):
              unmasked instantiation, as ``causal_ms``) and the level-1 draft
              step on the one-layer latent draft pool (bf16, float32); the
              library call of a masked case is SDPA with the boolean tree
-             mask.
+             mask. Last, the _288 builds at MiniCPM3-4B's geometry (latent
+             pool [1, 1, S, 1, 288], V its first 256, Hq 40): decode b64 /
+             kv1024 (packed and streamed) and extend b8 x q256 / kv2048,
+             bf16, e4m3 and e5m2 rows under bf16 q and float32, every dead
+             slot NaN, each row with its function's registers and spills.
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
              chunked pool with bf16 KV, then with fp8_e4m3 KV, the
              Meta-Llama-3-8B geometry on the aligned pool with bf16 KV,
              then with fp8_e4m3 KV, DeepSeek-V2-Lite (MLA + MoE, 15.7 B
              parameters) on the latent pool with bf16 latent rows, then
-             with fp8_e4m3 rows, and TinyLlama-1.1B on the 5D pool at
+             with fp8_e4m3 rows, MiniCPM3-4B (MLA, dense, 62 layers, 40
+             heads; its longrope factor lists stand-ins, printed as such) on
+             the 288-wide latent pool with bf16 rows, then with fp8_e4m3
+             rows, and TinyLlama-1.1B on the 5D pool at
              head_dim 64 with fp8_e4m3 KV, then with bf16 KV. One extend
              step and two decode steps each through the kernels, against
              the same layers run with the plain attention functions; after
@@ -89,7 +98,7 @@ each (any failure raises and exits non-zero):
              be bitwise equal in both, and the second must not capture
              again. One eager decode step and one replay run under
              ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).
-             One ``graphs`` line per decode path (eleven): captures,
+             One ``graphs`` line per decode path (fifteen): captures,
              capture seconds, the graph pool's bytes, and the eager and the
              replayed step's wall at B = 64 (20 steps per turn, turns
              eager, graph, graph, eager).
@@ -98,7 +107,8 @@ each (any failure raises and exits non-zero):
              TinyLlama's at most 1984 tokens, its context being 2048),
              colocated and semi-PD, with the 1B-class model (chunked pool,
              bf16 and fp8_e4m3 KV), the 8B model with fp8_e4m3 KV (aligned
-             pool), DeepSeek-V2-Lite (latent pool, bf16 and fp8_e4m3 rows)
+             pool), DeepSeek-V2-Lite (latent pool, bf16 and fp8_e4m3 rows),
+             MiniCPM3-4B (the 288 latent builds, bf16 and fp8_e4m3 rows)
              and TinyLlama-1.1B (the merged kernels); every
              launch counter is set to 0 just before each run and read just
              after, and only the path's own two kernels may have launched,
@@ -113,9 +123,9 @@ each (any failure raises and exits non-zero):
              colocated once more with ``decode_stream``
              (the streaming decode), on the same weights: their stream
              kernel launches L times per decode step and the packed decode
-             never. DeepSeek-V2-Lite's must give the packed serve's tokens
-             exactly, with bf16 and with fp8 rows: its two decodes give the
-             same bits.
+             never. DeepSeek-V2-Lite's and MiniCPM3-4B's must give the
+             packed serve's tokens exactly, with bf16 and with fp8 rows:
+             their two decodes give the same bits.
 
 3s. spec model — the 1B-class model speculating (EAGLE, tree of topk 4 and
              4 draft tokens; the draft drawn from seed + 1): one tree round
@@ -177,12 +187,17 @@ import numpy as np
 PAGE = 16
 # (Hq, Hkv, head_dim, V width) of each pool's path: the 1B-class model's,
 # Llama-3-8B's, TinyLlama-1.1B's (the 5D pool at head_dim 64: the merged
-# kernels), and DeepSeek-V2-Lite's latent row (kv_lora 512 + rope 64)
+# kernels), DeepSeek-V2-Lite's latent row (kv_lora 512 + rope 64) and
+# MiniCPM3-4B's (kv_lora 256 + rope 32, 40 heads: the _288 builds)
 GEOMETRY = {"chunked": (32, 8, 64, 64), "aligned": (32, 8, 128, 128),
             "merged": (32, 4, 64, 64), "latent": (16, 1, 576, 512),
+            "latent288": (40, 1, 288, 256),
             # the 1B-class model's EAGLE draft pool: its 5D pool at head_dim
             # 64 with Hkv 8 takes the merged kernels
             "draft": (32, 8, 64, 64)}
+
+# the latent pools' paths
+LATENT = ("latent", "latent288")
 
 # H100 SXM5 80GB dense peaks (NVIDIA H100 Tensor Core GPU data sheet):
 # HBM3 bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor
@@ -246,10 +261,11 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 # --------------------------------------------------------------- phase 2
-def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype):
-    """Random pool (``pool``: "chunked" or "aligned", in ``kv_dtype``),
-    queries and a SHUFFLED page table for requests with the given new-token
-    and total KV lengths (kv_len 0 = a padded row)."""
+def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype, nan_dead=False):
+    """Random pool (``pool``: a key of GEOMETRY, in ``kv_dtype``), queries
+    and a SHUFFLED page table for requests with the given new-token and
+    total KV lengths (kv_len 0 = a padded row); with ``nan_dead`` every
+    slot that no live position holds is NaN."""
     import torch
 
     from semi_pd_tpu_torch.runtime.forward_batch import build_attn_meta
@@ -270,8 +286,20 @@ def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype):
              "aligned": (1, 2, total * PAGE, HKV, D),
              "merged": (1, 2, total * PAGE, HKV, D),
              "draft": (1, 2, total * PAGE, HKV, D),
-             "latent": (1, 1, total * PAGE, 1, D)}[pool]
-    kv = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+             "latent": (1, 1, total * PAGE, 1, D),
+             "latent288": (1, 1, total * PAGE, 1, D)}[pool]
+    kv = torch.randn(shape, generator=gen, device=dev)
+    if nan_dead:
+        live = np.zeros(total * PAGE, bool)
+        for b, n in enumerate(kv_lens):
+            pos = np.arange(n)
+            live[pt[b, pos // PAGE] * PAGE + pos % PAGE] = True
+        dead = torch.as_tensor(~live, device=dev)
+        if pool == "chunked":
+            kv[:, dead] = float("nan")
+        else:
+            kv[:, :, dead] = float("nan")
+    kv = kv.to(kv_dtype)
     T = int(sum(q_lens))
     q = torch.randn((T, HQ, D), generator=gen, device=dev).to(dtype)
     meta = build_attn_meta(np.asarray(q_lens), np.asarray(kv_lens), T, device=dev)
@@ -287,7 +315,7 @@ def dense_kv(kv, pt, kv_lens, pool, dtype):
     from semi_pd_tpu_torch.ops.attention.rpa_common import gather_kv, layer_kv
 
     _, HKV, D, DV = GEOMETRY[pool]
-    k_layer, v_layer = layer_kv(kv, 0, HKV, D, DV if pool == "latent" else None)
+    k_layer, v_layer = layer_kv(kv, 0, HKV, D, DV if pool in LATENT else None)
     lens = kv_lens.tolist()
     kvmax = max(max(lens), 1)
     B = len(lens)
@@ -304,7 +332,7 @@ def kernel_name(kind, pool):
     """kind: "decode", "extend" or "stream" (the streaming decode)."""
     base = "rpa_decode_stream" if kind == "stream" else f"rpa_{kind}"
     return base + {"chunked": "", "aligned": "_aligned", "merged": "_merged",
-                   "draft": "_merged", "latent": "_mla"}[pool]
+                   "draft": "_merged", "latent": "_mla", "latent288": "_mla_288"}[pool]
 
 
 def dtype_name(dt):
@@ -312,8 +340,9 @@ def dtype_name(dt):
 
 
 def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked",
-                    kv_dtype=None, cap=None, window=None, beside=None):
-    """One case of phase 2; ``beside``: more fields for its printed row."""
+                    kv_dtype=None, cap=None, window=None, beside=None, nan_dead=False):
+    """One case of phase 2; ``beside``: more fields for its printed row;
+    ``nan_dead``: every dead slot of the pool NaN."""
     import torch
     import torch.nn.functional as F
 
@@ -324,9 +353,10 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
     kv_dtype = kv_dtype or dtype
     HQ, HKV, D, DV = GEOMETRY[pool]
     scale = D ** -0.5
-    q, kv, pt, kvl, meta = make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype)
+    q, kv, pt, kvl, meta = make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype,
+                                     nan_dead)
     kw = dict(page_size=PAGE, scale=scale, logit_cap=cap, sliding_window=window)
-    if pool == "latent":
+    if pool in LATENT:
         kw.update(v_dim=DV)
     if kind == "stream":  # no sliding window: the routing keeps it on the packed decode
         kw.pop("sliding_window")
@@ -387,7 +417,7 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
     # q and the output once, each live KV row once (K and V, or the one
     # latent row), the page table and lengths
     flops = 2.0 * pairs * HQ * (D + DV)
-    ncomp = 1 if pool == "latent" else 2
+    ncomp = 1 if pool in LATENT else 2
     nbytes = (q.numel() * q.element_size() + out_k.numel() * out_k.element_size()
               + kv_rows * ncomp * HKV * D * kv.element_size()
               + pt.numel() * 4 + kvl.numel() * 4)
@@ -433,14 +463,18 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
                plain_ms=plain_ms, library_ms=library_ms, library=library,
                bound_ms=bound_ms, bound_by=bound_by, launches=launches)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the tensor-core kernels' second grid dimension: KV heads, or the
+    # latent pool's head groups
+    groups = rpa_packed.head_groups(counter, HQ, HKV)
     if counter.name in rpa_packed.DECODE_SPLIT and dtype == torch.bfloat16:
         # the (n_split, split_len) the wrapper gave the tensor-core kernel
         row["split_plan"] = rpa_packed.decode_split_plan(
-            counter.name, len(lens), HKV, pt.shape[1] * PAGE, sms)
+            counter.name, len(lens), groups, pt.shape[1] * PAGE, sms)
     if counter.name in rpa_stream.STREAM_TILE and dtype == torch.bfloat16:
-        # the tensor-core stream's blocks per KV head
+        # the tensor-core stream's blocks per KV head (per head group)
         row["stream_blocks"] = rpa_stream.stream_blocks(
-            counter.name, len(lens), HKV, pt.shape[1] * PAGE, sms, fp8=kv.element_size() == 1)
+            counter.name, len(lens), groups, pt.shape[1] * PAGE, sms,
+            fp8=kv.element_size() == 1)
     row.update(beside or {})
     print("kernel_case " + json.dumps(row), flush=True)
     del q, kv
@@ -752,6 +786,64 @@ def phase_spec_kernels():
     return rows
 
 
+# -------------------------------------------- phase 2, the latent 288 builds
+# each (kind, q dtype)'s kernel function in the latent builds, and the
+# mangled template arguments of its latent row type (TREE = false in the
+# extends), to read its registers and spills from nvcc's log
+LATENT_FUNCTIONS = {("decode", "bfloat16"): "rpa_decode_mla_mma_kernel",
+                    ("stream", "bfloat16"): "rpa_stream_mla_mma_kernel",
+                    ("extend", "bfloat16"): "rpa_extend_mla_wgmma_kernel",
+                    ("decode", "float32"): "rpa_decode_mla_kernel",
+                    ("stream", "float32"): "rpa_stream_mla_kernel",
+                    ("extend", "float32"): "rpa_extend_mla_kernel"}
+MANGLED_ROWS = {"bfloat16": "I13__nv_bfloat16", "float8_e4m3fn": "I13__nv_fp8_e4m3",
+                "float8_e5m2": "I13__nv_fp8_e5m2", "float32": "Iff"}
+
+
+def latent_function_props(kname, kind, dtype, kv_dtype):
+    """Registers and spill bytes (nvcc -Xptxas -v) of the function the
+    latent build ``kname`` runs for ``kind`` with q ``dtype`` over rows of
+    ``kv_dtype``."""
+    from semi_pd_tpu_torch.kernels import KERNELS
+
+    fn = LATENT_FUNCTIONS[kind, dtype_name(dtype)]
+    want = fn + MANGLED_ROWS[dtype_name(kv_dtype)] + ("Lb0E" if kind == "extend" else "E")
+    props = ptxas_summary(KERNELS[kname].build_log)
+    return next((dict(function=f, **p) for f, p in props.items() if want in f), {})
+
+
+def phase_kernels_288():
+    """Phase 2 at MiniCPM3-4B's attention geometry (the _288 builds: latent
+    rows of 288, V their first 256, 40 query heads in head groups of 16 /
+    16 / 8), after every other case (so that those draw the inputs they
+    drew before): decode b64 / kv1024 through the packed and the streaming
+    decode, extend b8 x q256 / kv2048, each with bf16 rows, e4m3 and e5m2
+    rows under bf16 q, and float32, on shuffled pages with every dead slot
+    NaN; each row with its function's registers and spills."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    rng = np.random.default_rng(16)
+    bf, f32 = torch.bfloat16, torch.float32
+    pairs = [(bf, bf), (bf, torch.float8_e4m3fn), (bf, torch.float8_e5m2), (f32, f32)]
+    lens = rng.integers(512, 1025, size=64)
+    lens[0], lens[-1] = 1024, 0  # one padded row
+    rows, packed = [], {}
+    for kind, name, ql, kl in (("decode", "decode_b64_kv1024", [1] * 64, lens.tolist()),
+                               ("stream", "decode_b64_kv1024", [1] * 64, lens.tolist()),
+                               ("extend", "extend_b8_q256_kv2048", [256] * 8, [2048] * 8)):
+        for dt, kdt in pairs:
+            beside = latent_function_props(kernel_name(kind, "latent288"), kind, dt, kdt)
+            if kind == "stream":
+                beside["packed_kernel_ms"] = packed[dt, kdt]
+            rows.append(run_kernel_case(name, kind, gen, rng, ql, kl, dt, "latent288", kdt,
+                                        beside=beside, nan_dead=True))
+            if kind == "decode":
+                packed[dt, kdt] = rows[-1]["kernel_ms"]
+    return rows
+
+
 # --------------------------------------------------------------- phase 3/4
 def llama_1b_config():
     from semi_pd_tpu_torch.config.model_config import ModelConfig
@@ -816,6 +908,42 @@ def deepseek_v2_lite_config():
     )
 
 
+# Stand-ins for MiniCPM3-4B's two 16-entry longrope factor lists: the
+# published lists are in openbmb/MiniCPM3-4B's config.json, which this
+# repository does not hold. With max_position_embeddings equal to
+# original_max_position_embeddings (32768) only the short list is used and
+# the mscale is 1; no shape and no kernel depends on the values.
+MINICPM3_STANDIN_SHORT = [round(1.0 + 0.05 * i, 2) for i in range(16)]
+MINICPM3_STANDIN_LONG = [round(1.0 + 0.5 * i, 2) for i in range(16)]
+
+
+def minicpm3_4b_config():
+    """MiniCPM3-4B's published config.json widths (openbmb/MiniCPM3-4B:
+    MiniCPM3ForCausalLM, vocab 73448, hidden 2560, intermediate 6400, 62
+    layers, 40 attention and 40 KV heads, q_lora 768, kv_lora 256, qk_nope
+    64, qk_rope 32, v_head 64, max_position 32768, rope theta 10000, rms eps
+    1e-5, scale_emb 12, scale_depth 1.4, dim_model_base 256, untied
+    embeddings, SiLU; about 4.26 B parameters). Its latent row is 256 + 32
+    = 288 wide, V its first 256: the latent kernels' _288 builds. The rope
+    is longrope with original_max_position_embeddings 32768 and two
+    16-entry factor lists, which here are STAND-INS
+    (MINICPM3_STANDIN_SHORT / _LONG), not the published values."""
+    from semi_pd_tpu_torch.config.model_config import ModelConfig
+
+    return ModelConfig(
+        architecture="MiniCPM3ForCausalLM", vocab_size=73448, hidden_size=2560,
+        intermediate_size=6400, num_hidden_layers=62, num_attention_heads=40,
+        num_key_value_heads=40, head_dim=96, rms_norm_eps=1e-5, rope_theta=10000.0,
+        rope_scaling={"type": "longrope", "original_max_position_embeddings": 32768,
+                      "short_factor": list(MINICPM3_STANDIN_SHORT),
+                      "long_factor": list(MINICPM3_STANDIN_LONG)},
+        max_position_embeddings=32768, context_length=32768, use_mla=True,
+        q_lora_rank=768, kv_lora_rank=256, qk_nope_head_dim=64, qk_rope_head_dim=32,
+        v_head_dim=64, scale_emb=12.0, scale_depth=1.4, dim_model_base=256.0,
+        tie_word_embeddings=False, dtype="bfloat16",
+    )
+
+
 def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto",
                       decode_stream: bool = False):
     """The bench's server settings (bench.py make_server_args) with a
@@ -836,10 +964,12 @@ def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto",
 PATH_KERNELS = {"chunked": ("rpa_decode", "rpa_extend"),
                 "aligned": ("rpa_decode_aligned", "rpa_extend_aligned"),
                 "merged": ("rpa_decode_merged", "rpa_extend_merged"),
-                "latent": ("rpa_decode_mla", "rpa_extend_mla")}
+                "latent": ("rpa_decode_mla", "rpa_extend_mla"),
+                "latent288": ("rpa_decode_mla_288", "rpa_extend_mla_288")}
 STREAM_PATH_KERNELS = {"chunked": ("rpa_decode_stream", "rpa_extend"),
                        "aligned": ("rpa_decode_stream_aligned", "rpa_extend_aligned"),
-                       "latent": ("rpa_decode_stream_mla", "rpa_extend_mla")}
+                       "latent": ("rpa_decode_stream_mla", "rpa_extend_mla"),
+                       "latent288": ("rpa_decode_stream_mla_288", "rpa_extend_mla_288")}
 
 
 def phase_model(eng, stream: bool = False):
@@ -1430,7 +1560,8 @@ def main() -> int:
     for kname, wg_fn in (("rpa_extend", "rpa_extend_wgmma_kernel"),
                          ("rpa_extend_aligned", "rpa_extend_wgmma_kernel"),
                          ("rpa_extend_merged", "rpa_extend_wgmma_kernel"),
-                         ("rpa_extend_mla", "rpa_extend_mla_wgmma_kernel")):
+                         ("rpa_extend_mla", "rpa_extend_mla_wgmma_kernel"),
+                         ("rpa_extend_mla_288", "rpa_extend_mla_wgmma_kernel")):
         hgmma = sass_mma_counts(KERNELS[kname], op="HGMMA")
         for fn, props in ptxas_summary(KERNELS[kname].build_log).items():
             if wg_fn in fn:
@@ -1442,7 +1573,9 @@ def main() -> int:
     # the latent decodes' block tile (mma.sync): registers, spills and HMMA
     # count of each instantiation; a spill fails the run
     for kname, mma_fn in (("rpa_decode_mla", "rpa_decode_mla_mma_kernel"),
-                          ("rpa_decode_stream_mla", "rpa_stream_mla_mma_kernel")):
+                          ("rpa_decode_stream_mla", "rpa_stream_mla_mma_kernel"),
+                          ("rpa_decode_mla_288", "rpa_decode_mla_mma_kernel"),
+                          ("rpa_decode_stream_mla_288", "rpa_stream_mla_mma_kernel")):
         for fn, props in ptxas_summary(KERNELS[kname].build_log).items():
             if mma_fn in fn:
                 print("mla_mma " + json.dumps(dict(kernel=kname, function=fn, **props,
@@ -1463,7 +1596,11 @@ def main() -> int:
             ("rpa_decode_stream", "rpa_stream_mma_kernel", "rpa_stream_kernel"),
             ("rpa_decode_stream_aligned", "rpa_stream_mma_kernel", "rpa_stream_kernel"),
             ("rpa_decode_mla", "rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel"),
-            ("rpa_decode_stream_mla", "rpa_stream_mla_mma_kernel", "rpa_stream_mla_kernel")):
+            ("rpa_decode_stream_mla", "rpa_stream_mla_mma_kernel", "rpa_stream_mla_kernel"),
+            ("rpa_extend_mla_288", "rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel"),
+            ("rpa_decode_mla_288", "rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel"),
+            ("rpa_decode_stream_mla_288", "rpa_stream_mla_mma_kernel",
+             "rpa_stream_mla_kernel")):
         mma = [n for f, n in sass[kname].items() if mma_fn in f]
         core = [n for f, n in sass[kname].items() if core_fn in f]
         if not mma or not all(mma) or any(core):
@@ -1482,6 +1619,8 @@ def main() -> int:
     spec = phase_spec_kernels()
     spec_rows = [r for r in spec if "spec_tree" in r]
     rows += [r for r in spec if "spec_tree" not in r]
+    # the _288 builds at MiniCPM3-4B's geometry
+    rows += phase_kernels_288()
     print("kernels_phase " + json.dumps(dict(cases=len(rows) + len(spec_rows),
                                              seconds=time.monotonic() - t0)), flush=True)
 
@@ -1550,7 +1689,7 @@ def main() -> int:
         same = float(np.mean([a == b for a, b in zip(out, packed_tokens)]))
         print("serve " + json.dumps(dict(r, model=label, gpu=smi,
                                          same_tokens_as_packed=same)), flush=True)
-        if pool == "latent" and same != 1.0:  # the two latent decodes give the same bits
+        if pool in LATENT and same != 1.0:  # the two latent decodes give the same bits
             raise AssertionError(f"{label}: the streaming decode's serve gave other tokens than "
                                  f"the packed decode's ({same:.3f} of requests the same)")
 
@@ -1745,6 +1884,17 @@ def main() -> int:
     packed = serve_phase(eng, label, "latent")
     stream_phase(eng, label, "latent", "fp8_e4m3", packed)
     release(eng)
+    # MiniCPM3-4B on the 288-wide latent pool (the _288 builds), bf16 and
+    # fp8_e4m3 rows, packed and streamed; its longrope factors are stand-ins
+    print("minicpm3_rope " + json.dumps(dict(minicpm3_4b_config().rope_scaling,
+                                             factor_lists="stand-ins")), flush=True)
+    for kv_dtype in ("auto", "fp8_e4m3"):
+        label = "minicpm3-4b" + ("" if kv_dtype == "auto" else f" {kv_dtype}")
+        eng = model_phase(label, minicpm3_4b_config(), kv_dtype)
+        graph_phase(eng, label, "latent288")
+        packed = serve_phase(eng, label, "latent288")
+        stream_phase(eng, label, "latent288", kv_dtype, packed)
+        release(eng)
     # DeepSeek-V2-Lite speculating with its NextN draft (phases 4n, 4nf)
     nextn_phase()
     nextn_f32_gate()
@@ -1767,7 +1917,10 @@ def main() -> int:
            "rpa_extend_mla": ("extend_b8_q256_kv2048", "bfloat16"),
            "rpa_decode_stream": ("decode_b64_kv1024", "bfloat16"),
            "rpa_decode_stream_aligned": ("decode_b64_kv1024", "float8_e4m3fn"),
-           "rpa_decode_stream_mla": ("decode_b64_kv1024", "bfloat16")}
+           "rpa_decode_stream_mla": ("decode_b64_kv1024", "bfloat16"),
+           "rpa_decode_mla_288": ("decode_b64_kv1024", "bfloat16"),
+           "rpa_extend_mla_288": ("extend_b8_q256_kv2048", "bfloat16"),
+           "rpa_decode_stream_mla_288": ("decode_b64_kv1024", "bfloat16")}
     idle = [k for k in KERNELS if not main_launches[k]]
     if idle:
         raise AssertionError(f"kernels no serving run launched: {idle}")

@@ -50,10 +50,12 @@ def cdiv(a: int, b: int) -> int:
 
 
 def header_constants(csrc: Path) -> dict:
-    """The chunk and the blocks per SM a copy of the sources builds with."""
-    text = (csrc / "rpa_mla_mma.cuh").read_text()
-    return {k: int(re.search(rf"^constexpr int {k} = (\d+);", text, re.M).group(1))
-            for k in ("MLA_MMA_CHUNK", "MLA_MMA_BLOCKS_PER_SM")}
+    """The chunk and the blocks per SM a copy of the sources builds with
+    (the 576 geometry, the default of the latent builds these time)."""
+    from semi_pd_tpu_torch.kernels import source_constants
+
+    c = source_constants([csrc / "rpa_mla.cuh", csrc / "rpa_mla_mma.cuh"])
+    return {k: c[k] for k in ("MLA_MMA_CHUNK", "MLA_MMA_BLOCKS_PER_SM")}
 
 
 def variant_kernels(name: str, consts: dict):

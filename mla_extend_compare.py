@@ -1,31 +1,37 @@
 #!/usr/bin/env python3
-"""Times the MLA extend (``rpa_extend_mla``) of this checkout against other
-checkouts' on one GPU, and its tree-masked instantiation against its
-unmasked one.
+"""Times the latent pool's DeepSeek-V2 (576-wide) builds of this checkout
+against other checkouts' on one GPU: the MLA extend (``rpa_extend_mla``),
+and with ``--kernels`` the packed and the streaming latent decode; and the
+extend's tree-masked instantiation against its unmasked one.
 
     python3 mla_extend_compare.py                        # this checkout only
     python3 mla_extend_compare.py --source parent=DIR    # and DIR's sources
+    python3 mla_extend_compare.py --source parent=DIR \
+        --kernels rpa_extend_mla rpa_decode_mla rpa_decode_stream_mla
 
 Each source (this checkout as "this", and every ``--source NAME=DIR``: DIR's
-semi_pd_tpu_torch/csrc, unchanged) is built as ``rpa_extend_mla`` with the
-build's own flags, one nvcc each, all started together; a source whose C
-entry takes no speculation tree (an older one) is called with its own
-signature. ``chip_smoke.py``'s phase-2 MLA extend cases then run through the
+semi_pd_tpu_torch/csrc, unchanged) is built as each kernel with the build's
+own flags, one nvcc each, all started together; a source whose C entry
+takes no speculation tree (an older extend) is called with its own
+signature. ``chip_smoke.py``'s phase-2 latent cases then run through the
 port's wrapper with each library loaded in turn, on the same inputs for
 every source, each held against the plain version at ``chip_smoke.py``'s
-tolerance: b8 x q256 / kv2048 with bf16, e4m3 and float32 latent rows
-(float32 q for float32 rows), and the ragged q 64-512 / kv1024 case in
-bf16. Every case is timed in the order of the sources, then in reverse
-(this, parent, parent, this). Last, on this checkout alone, the NextN tree
-verify (b64 x 29 rows of default_tree_template(4, 4) over prefixes 520-1000
-on shuffled pages) with and without the tree, in bf16 and e4m3.
+tolerance: for the extend b8 x q256 / kv2048 with bf16, e4m3 and float32
+latent rows (float32 q for float32 rows), and the ragged q 64-512 / kv1024
+case in bf16; for each decode b64 x kv1024 with bf16, e4m3 and float32
+rows and b16 x kv4096 in bf16. Every case is timed in the order of the
+sources, then in reverse (this, parent, parent, this). Last, with the
+extend, on this checkout alone, the NextN tree verify (b64 x 29 rows of
+default_tree_template(4, 4) over prefixes 520-1000 on shuffled pages) with
+and without the tree, in bf16 and e4m3.
 
 Prints the card's nvidia-smi name and power limit, one ``mla_build`` JSON
-line per source and function (registers and spills from ``nvcc -Xptxas
--v``), one ``mla_case`` line per source and case (kernel_ms of both passes,
-bound_ms and library_ms as chip_smoke.py computes them, max_abs_err) and one
-``mla_tree`` line per tree case (tree_ms and causal_ms of both passes).
-Exits 2 without a GPU. Imports nothing of JAX.
+line per kernel, source and function (registers and spills from ``nvcc
+-Xptxas -v``), one ``mla_case`` line per kernel, source and case
+(kernel_ms of both passes, bound_ms and library_ms as chip_smoke.py
+computes them, max_abs_err) and one ``mla_tree`` line per tree case
+(tree_ms and causal_ms of both passes). Exits 2 without a GPU. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -51,10 +57,28 @@ def entry_argtypes(source: Path):
     return kinds
 
 
+# each kernel's kind (chip_smoke.py's) and its cases: (case, q_lens,
+# kv_lens or the ragged batch's (B, kv), q dtype, latent row dtype)
+def kernel_cases(kname, bf, f32, e4m3):
+    if kname == "rpa_extend_mla":
+        return "extend", [("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, bf, bf),
+                          ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, bf, e4m3),
+                          ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, f32, f32),
+                          ("extend_ragged_kv1024", [512, 256, 128, 64, 384, 448, 192, 64],
+                           [1024] * 8, bf, bf)]
+    kind = "stream" if kname == "rpa_decode_stream_mla" else "decode"
+    return kind, [("decode_b64_kv1024", [1] * 64, (64, 1024), bf, bf),
+                  ("decode_b64_kv1024", [1] * 64, (64, 1024), bf, e4m3),
+                  ("decode_b64_kv1024", [1] * 64, (64, 1024), f32, f32),
+                  ("decode_b16_kv4096", [1] * 16, (16, 4096), bf, bf)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", nargs="*", default=[],
-                    help="NAME=DIR: another checkout's rpa_extend_mla, timed as NAME")
+                    help="NAME=DIR: another checkout's latent builds, timed as NAME")
+    ap.add_argument("--kernels", nargs="*", default=["rpa_extend_mla"],
+                    choices=["rpa_extend_mla", "rpa_decode_mla", "rpa_decode_stream_mla"])
     args = ap.parse_args()
 
     import numpy as np
@@ -68,75 +92,90 @@ def main() -> int:
     import chip_smoke as cs
     from semi_pd_tpu_torch.kernels import KERNELS, CudaKernel, build_all
     from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
+    from semi_pd_tpu_torch.ops.attention import rpa_packed, rpa_stream
     from semi_pd_tpu_torch.speculative.tree import default_tree_template
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.smi_line(), flush=True)
     build_all()  # this checkout's libraries: the wrappers' defaults
-    base = KERNELS["rpa_extend_mla"]
-    libs = {"this": base}
-    for item in args.source:
-        name, _, d = item.partition("=")
-        src = Path(d).resolve() / "semi_pd_tpu_torch" / "csrc" / "rpa_extend_mla.cu"
-        libs[name] = CudaKernel(f"rpa_extend_mla-{name}", str(src), base.symbol,
-                                entry_argtypes(src), base.replaces, base.defines)
-    started = [(k, k.start_build()) for k in libs.values()]
-    for k, st in started:
-        k.finish_build(st)
-    calls = {}
-    for name, k in libs.items():
-        fn = k.fn()
-        n_own = len(k.argtypes)
-        if n_own == len(base.argtypes):
-            calls[name] = fn
-        else:  # an entry without the tree's three arguments before the stream
-            calls[name] = (lambda f, n: lambda *a: f(*a[:n - 1], a[-1]))(fn, n_own)
-        for fname, props in cs.ptxas_summary(k.build_log).items():
-            print("mla_build " + json.dumps(dict(source=name, function=fname, **props)),
-                  flush=True)
-
-    order = list(libs)
     bf, f32, e4m3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
-    cases = [("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, bf, bf),
-             ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, bf, e4m3),
-             ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, f32, f32),
-             ("extend_ragged_kv1024", [512, 256, 128, 64, 384, 448, 192, 64], [1024] * 8, bf, bf)]
-    tol = cs.TOL
+    wrappers = {"extend": (rpa.ragged_paged_attention_extend,
+                           rpa.ragged_paged_attention_extend_plain),
+                "decode": (rpa_packed.ragged_paged_attention_packed,
+                           rpa_packed.ragged_paged_attention_packed_plain),
+                "stream": (rpa_stream.ragged_paged_attention_stream,
+                           rpa_packed.ragged_paged_attention_packed_plain)}
     failed = False
-    try:
-        for ci, (case, ql, kl, dt, kdt) in enumerate(cases):
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(ci)
-            lib = cs.run_kernel_case(case, "extend", gen, np.random.default_rng(ci), ql, kl, dt,
-                                     "latent", kdt)
-            gen.manual_seed(ci)
-            q, kv, pt, kvl, meta = cs.make_case(gen, np.random.default_rng(ci), ql, kl, dt,
-                                                "latent", kdt)
-            kw = dict(page_size=cs.PAGE, scale=cs.GEOMETRY["latent"][2] ** -0.5,
-                      v_dim=cs.GEOMETRY["latent"][3])
-            ref = rpa.ragged_paged_attention_extend_plain(q, kv, 0, pt, kvl, meta, **kw).float()
-            t = tol[cs.dtype_name(dt)]
-            ms, errs = {}, {}
-            for name in order + order[::-1]:
-                base._fn = calls[name]
-                call = lambda: rpa.ragged_paged_attention_extend(q, kv, 0, pt, kvl, meta, **kw)
-                err = (call().float() - ref).abs()
-                torch.cuda.synchronize()
-                errs[name] = float(err.max())
-                if not bool((err <= t + t * ref.abs()).all()):
-                    print(f"mla_case_failed {name} {case}: max abs err {errs[name]:.3g}",
-                          flush=True)
-                    failed = True
-                ms.setdefault(name, []).append(cs.cuda_ms(call, 20))
-            for name, v in ms.items():
-                print("mla_case " + json.dumps(dict(
-                    source=name, case=case, dtype=cs.dtype_name(dt), kv_dtype=cs.dtype_name(kdt),
-                    kernel_ms=v, bound_ms=lib["bound_ms"], library_ms=lib["library_ms"],
-                    max_abs_err=errs[name])), flush=True)
-            del q, kv, ref
-            torch.cuda.empty_cache()
-    finally:
-        base._fn = calls["this"]
+    for kname in args.kernels:
+        base = KERNELS[kname]
+        src_name = base.source.name
+        libs = {"this": base}
+        for item in args.source:
+            name, _, d = item.partition("=")
+            src = Path(d).resolve() / "semi_pd_tpu_torch" / "csrc" / src_name
+            libs[name] = CudaKernel(f"{kname}-{name}", str(src), base.symbol,
+                                    entry_argtypes(src), base.replaces, base.defines)
+        started = [(k, k.start_build()) for k in libs.values()]
+        for k, st in started:
+            k.finish_build(st)
+        calls = {}
+        for name, k in libs.items():
+            fn = k.fn()
+            n_own = len(k.argtypes)
+            if n_own == len(base.argtypes):
+                calls[name] = fn
+            else:  # an entry without the tree's three arguments before the stream
+                calls[name] = (lambda f, n: lambda *a: f(*a[:n - 1], a[-1]))(fn, n_own)
+            for fname, props in cs.ptxas_summary(k.build_log).items():
+                print("mla_build " + json.dumps(dict(kernel=kname, source=name, function=fname,
+                                                     **props)), flush=True)
+
+        order = list(libs)
+        kind, cases = kernel_cases(kname, bf, f32, e4m3)
+        kfn, pfn = wrappers[kind]
+        try:
+            for ci, (case, ql, kl, dt, kdt) in enumerate(cases):
+                if kind != "extend":  # chip_smoke.py's ragged lengths, one padded row
+                    b, kv = kl
+                    lens = np.random.default_rng(50 + ci).integers(kv // 2, kv + 1, size=b)
+                    lens[0], lens[-1] = kv, 0
+                    kl = lens.tolist()
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(ci)
+                lib = cs.run_kernel_case(case, kind, gen, np.random.default_rng(ci), ql, kl, dt,
+                                         "latent", kdt)
+                gen.manual_seed(ci)
+                q, kv, pt, kvl, meta = cs.make_case(gen, np.random.default_rng(ci), ql, kl, dt,
+                                                    "latent", kdt)
+                kw = dict(page_size=cs.PAGE, scale=cs.GEOMETRY["latent"][2] ** -0.5,
+                          v_dim=cs.GEOMETRY["latent"][3])
+                a = (q, kv, 0, pt, kvl) + ((meta,) if kind == "extend" else ())
+                ref = pfn(*a, **kw).float()
+                t = cs.TOL[cs.dtype_name(dt)]
+                ms, errs = {}, {}
+                for name in order + order[::-1]:
+                    base._fn = calls[name]
+                    call = lambda: kfn(*a, **kw)
+                    err = (call().float() - ref).abs()
+                    torch.cuda.synchronize()
+                    errs[name] = float(err.max())
+                    if not bool((err <= t + t * ref.abs()).all()):
+                        print(f"mla_case_failed {kname} {name} {case}: max abs err "
+                              f"{errs[name]:.3g}", flush=True)
+                        failed = True
+                    ms.setdefault(name, []).append(cs.cuda_ms(call, 20))
+                for name, v in ms.items():
+                    print("mla_case " + json.dumps(dict(
+                        kernel=kname, source=name, case=case, dtype=cs.dtype_name(dt),
+                        kv_dtype=cs.dtype_name(kdt), kernel_ms=v, bound_ms=lib["bound_ms"],
+                        library_ms=lib["library_ms"], max_abs_err=errs[name])), flush=True)
+                del q, kv, ref
+                torch.cuda.empty_cache()
+        finally:
+            base._fn = calls["this"]
+    if "rpa_extend_mla" not in args.kernels:
+        print(cs.smi_line())
+        return 1 if failed else 0
 
     # the tree verify against the unmasked extend on the same inputs
     tree = default_tree_template(4, 4)

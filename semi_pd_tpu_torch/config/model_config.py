@@ -1,7 +1,8 @@
 """Model configuration (trimmed copy of semi_pd_tpu/config/model_config.py).
 
-Holds the ModelConfig fields a Llama-family dense decoder and a
-DeepSeek-V2/V3 (MLA + MoE) model use. HF-config parsing (``from_hf_config``
+Holds the ModelConfig fields a Llama-family dense decoder, a
+DeepSeek-V2/V3 (MLA + MoE) model and MiniCPM3 (MLA, dense, with its three
+scalings) use. HF-config parsing (``from_hf_config``
 / ``from_model_path``) and the multimodal fields are not part of the port
 yet (ROADMAP A13-A14): configs are built directly, as ``bench.py`` and
 ``__graft_entry__.py`` do; an MLA config sets ``use_mla`` and
@@ -65,6 +66,15 @@ class ModelConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
+
+    # MiniCPM3's scalings (None: not applied), which the JAX package reads
+    # from the HF config (semi_pd_tpu/models/llama_variants.py:356-364):
+    # the embedding times scale_emb, each residual branch times
+    # scale_depth / sqrt(num_hidden_layers), logits divided by
+    # hidden_size / dim_model_base
+    scale_emb: Optional[float] = None
+    scale_depth: Optional[float] = None
+    dim_model_base: Optional[float] = None
 
     dtype: str = "bfloat16"
 

@@ -7,19 +7,23 @@
 // sliding window. The TPU kernel upcasts q and the latent rows to float32
 // and keeps P in float32, so this build does too (-DRPA_P_F32). What it
 // computes and its bound are in rpa_mla.cuh; the entry picks one of two
-// kernels by q's type.
+// kernels by q's type. Two builds: rpa_decode_mla at DeepSeek-V2's latent
+// 576 / V 512, rpa_decode_mla_288 (-DRPA_MLA_DL=288 -DRPA_MLA_DV=256) at
+// MiniCPM3's 288 / 256.
 //
 // rpa_decode_mla_mma_kernel (bf16 q over bf16, fp8 e4m3 or fp8 e5m2 latent
 // rows, fp8 widened exactly to bf16 on its way into the tile): on the tensor
 // cores, the block tile of rpa_mla_mma.cuh (the query heads as the rows of
-// one m16 tile, the four warps of a block sharing each latent tile: S cut
-// over the 576 dims, V's 512 columns cut over the warps, P as hi + lo), and
-// each request's positions split over blocks (flash-decoding) at the
-// tile's fixed chunks. Grid (n_split, HG, B): the host's plan (rpa_packed.py
-// decode_split_plan) is n_split = ceil(maxP * page_size / MLA_MMA_CHUNK)
-// splits of split_len = MLA_MMA_CHUNK positions, from the shapes only (no
-// kv_lens on the host): B x n_split blocks for DeepSeek-V2-Lite's one head
-// group of 16, 256 at b64 / kv1024 and at b16 / kv4096, two an SM. With
+// one m16 tile, groups of 16 heads with an uneven last one, the four warps
+// of a block sharing each latent tile: S cut over the MLA_DL dims, V's
+// MLA_DV columns cut over the warps, P as hi + lo), and each request's
+// positions split over blocks (flash-decoding) at the tile's fixed chunks.
+// Grid (n_split, HG, B): the host's plan (rpa_packed.py decode_split_plan)
+// is n_split = ceil(maxP * page_size / MLA_MMA_CHUNK) splits of split_len =
+// MLA_MMA_CHUNK positions, from the shapes only (no kv_lens on the host):
+// B x n_split blocks for DeepSeek-V2-Lite's one head group of 16, 256 at
+// b64 / kv1024 and at b16 / kv4096, two an SM; three times as many for
+// MiniCPM3's 40 heads (16 / 16 / 8), four an SM. With
 // one split a block writes its rows' output; else its float32 partial (m
 // c, l, O) goes to the caller's scratch and rpa_mla_combine_kernel merges
 // the chunks in chunk order. The result does not depend on the batch, and
@@ -29,9 +33,10 @@
 // chunk); a row with no position writes zeros.
 //
 // rpa_decode_mla_kernel (float32 q and latent rows): on the CUDA cores
-// (TF32 would not be the float32 dot it computes). One block per (request,
-// group of MLA_DEC_HB query heads), the heads as the block's rows, 16
-// threads per head (rpa_mla.cuh's MlaRows); each group stages the
+// (TF32 would not be the float32 dot it computes). One block of 128
+// threads per (request, group of MLA_DEC_HB query heads), the heads as the
+// block's rows, MLA_TPR threads per head (rpa_mla.cuh's MlaRows: 16 at
+// 576, so 8 heads a block; 8 at 288, so 16); each group stages the
 // request's latent rows itself, and there is no split.
 #include <type_traits>
 
@@ -39,9 +44,9 @@
 
 namespace rpa {
 
-constexpr int MLA_DEC_HB = 8;    // query heads per block
-constexpr int MLA_DEC_TPR = 16;  // threads per head
-constexpr int MLA_DEC_NT = MLA_DEC_HB * MLA_DEC_TPR;
+constexpr int MLA_DEC_NT = 128;                      // threads per block
+constexpr int MLA_DEC_TPR = MLA_TPR;                 // threads per head
+constexpr int MLA_DEC_HB = MLA_DEC_NT / MLA_DEC_TPR;  // query heads per block
 
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(MLA_DEC_NT)
@@ -79,11 +84,11 @@ static int launch_decode_mla(const void* q, const void* lat, const void* pt, con
 // ------------------------------------------------------------------------
 // The tensor-core decode (bf16 q).
 
-// Block (split, head group h, request b): the G = Hq / HG query heads h G
-// .. h G + G - 1 over positions [max(s0, lo), s1) of request b, s0 = split
-// split_len, s1 = min(s0 + split_len, kv_len), in tiles of MLA_MMA_TK from
-// the multiple of MLA_MMA_TK at or below them (rpa_mla_mma.cuh's ring;
-// without a window, from the chunk's start).
+// Block (split, head group h, request b): the G = min(16, Hq - 16 h) query
+// heads 16 h .. 16 h + G - 1 over positions [max(s0, lo), s1) of request b,
+// s0 = split split_len, s1 = min(s0 + split_len, kv_len), in tiles of
+// MLA_MMA_TK from the multiple of MLA_MMA_TK at or below them
+// (rpa_mla_mma.cuh's ring; without a window, from the chunk's start).
 template <typename TKV>
 __global__ void __launch_bounds__(MLA_MMA_NT, MLA_MMA_BLOCKS_PER_SM)
 rpa_decode_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_DL]
@@ -97,7 +102,7 @@ rpa_decode_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
   constexpr int TK = MLA_MMA_TK, NST = MLA_MMA_NST;
   extern __shared__ __align__(16) unsigned char mla_smem[];
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_split = gridDim.x, G = Hq / gridDim.y, B = gridDim.z;
+  const int n_split = gridDim.x, G = min(MLA_MMA_ROWS, Hq - h * MLA_MMA_ROWS), B = gridDim.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   const int kv_len = kv_lens[b];
@@ -111,7 +116,7 @@ rpa_decode_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
   // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
   const bool capped = cap > 0.f;
   const float c = capped ? LOG2E : scale * LOG2E;
-  const int64_t row0 = (int64_t)b * Hq + (int64_t)h * G;  // the block's first output row
+  const int64_t row0 = (int64_t)b * Hq + (int64_t)h * MLA_MMA_ROWS;  // its first output row
 
   MlaState ms;
   ms.reset();
@@ -171,7 +176,7 @@ static int launch_decode_mla_mma(const void* q, const void* lat, const void* pt,
                                  int page_size, float scale, float cap, int window, int n_split,
                                  int split_len, void* scratch, cudaStream_t stream) {
   const int HG = (Hq + MLA_MMA_ROWS - 1) / MLA_MMA_ROWS;  // head groups of at most 16
-  if (Hq % HG || n_split < 1 || split_len != MLA_MMA_CHUNK ||
+  if (n_split < 1 || split_len != MLA_MMA_CHUNK ||
       (int64_t)n_split * split_len < (int64_t)maxP * page_size ||
       (n_split > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -7,7 +7,11 @@
 // every request over its cached prefix plus the new tokens, through the
 // page table, driven by the host-built work list (block_seq / block_row /
 // block_qofs), with optional logit softcap and sliding window; output
-// [T, Hq, MLA_DV]. What it computes and its bound are in rpa_mla.cuh.
+// [T, Hq, MLA_DV]. What it computes and its bound are in rpa_mla.cuh. Two
+// builds: rpa_extend_mla at DeepSeek-V2's latent 576 / V 512, and
+// rpa_extend_mla_288 (-DRPA_MLA_DL=288 -DRPA_MLA_DV=256) at MiniCPM3's 288 /
+// 256, whose wrapper refuses a speculation tree (MiniCPM3 has no NextN
+// draft; the TREE instantiations are not compiled there, -DRPA_MLA_NO_TREE).
 // With a speculation tree (spec_anc / win_base: the TPU kernel's
 // _spec_tree_mask, which it applies after the MLA branch loads the latent
 // rows, so to GQA and MLA alike; SpecTree in rpa_common.cuh) a position
@@ -28,41 +32,55 @@
 //
 // bf16 q over bf16 or fp8 (e4m3, e5m2) latent rows, fp8 widened exactly to
 // bf16 on its way into the tile: rpa_extend_mla_wgmma_kernel, on Hopper's
-//   warpgroup tensor cores (wgmma; rpa_wgmma.cuh). The 16 query heads of a
+//   warpgroup tensor cores (wgmma; rpa_wgmma.cuh). The Hq query heads of a
 //   token share its latent row and its causal position, so the packed rows
 //   are (token, head) pairs m = r * Hq + g, consecutive in q and in out, and
-//   a 64-row tile (wgmma's M) is 4 tokens x 16 heads: MQA as the GQA
-//   kernels pack it, with G = Hq. Grid (ceil(EXTEND_QBLK * Hq / 64),
-//   entries), one block of two warpgroups per 64 rows, one block per SM.
-//   Per tile of MLA_WG_TK = 48 latent positions, staged once by cp.async
-//   into a 128-byte swizzled tile and read as both K and V (V is the
-//   row's first 512 values, as the TPU kernel reads k2[:, 0:v_dim]):
-//   - S = Q K^T over the 576 dims, split between the warpgroups: each runs
-//     18 m64n48k16 with Q (72 KB, swizzled, read K-major from shared memory
-//     for the whole walk) and the tile as operands; the two halves cross
-//     through shared memory and both warpgroups add them, so both hold the
-//     same S (a + b = b + a exactly) and run the same softmax on it: no P,
-//     no rescale factor and no row max has to cross between them;
-//   - O += P V for half of V's columns each (256: a 64 x 256 float32
+//   a 64-row tile (wgmma's M) is 4 tokens x 16 heads (DeepSeek-V2-Lite), or
+//   1.6 tokens of MiniCPM3's 40 (a tile's rows may start and end inside a
+//   token; each lane's two rows take their own token's position): MQA as
+//   the GQA kernels pack it, with G = Hq. Grid (ceil(EXTEND_QBLK * Hq /
+//   64), entries), one block of two warpgroups per 64 rows, one block per
+//   SM. Per tile of MLA_WG_TK = 48 latent positions, staged once by
+//   cp.async into a 128-byte swizzled tile and read as both K and V (V is
+//   the row's first MLA_DV values, as the TPU kernel reads k2[:, 0:v_dim]):
+//   - S = Q K^T over the MLA_DL dims, split between the warpgroups: each
+//     runs MLA_DL / 32 m64n48k16 (18 at 576, 9 at 288) with Q (swizzled,
+//     read K-major from shared memory for the whole walk) and the tile as
+//     operands; the two halves cross through shared memory and both
+//     warpgroups add them, so both hold the same S (a + b = b + a exactly)
+//     and run the same softmax on it: no P, no rescale factor and no row
+//     max has to cross between them;
+//   - O += P V for half of V's columns each (256 at 512: a 64 x 256 float32
 //     accumulator is 128 registers a thread, where all 512 columns would
-//     need 256): P kept float32 as its bf16 parts hi + lo (split_bf16), as
-//     the TPU's MLA branch keeps P in float32 (-DRPA_P_F32), in two
-//     m64n256k16 per k-step of 16 positions, straight from the S
-//     accumulators as the register A; V read MN-major through the transpose
-//     bit.
-//   Shared memory: Q 72 KB, two stages of 54 KB, the S halves 24 KB: 205
-//   KB. Two 64-position stages (72 KB each) with Q do not fit beside the
-//   S halves (or P's hi and lo); three 32-position stages would, but a
-//   32-position S gives each k-step half the work per byte that wgmma
-//   reads from shared memory. Bound: operations (rpa_mla.cuh); the hi + lo
-//   product makes the tensor-core work 3200 rather than 2176 operations per
-//   (row, position).
+//     need 256; 128 at 256, 64 registers): P kept float32 as its bf16 parts
+//     hi + lo (split_bf16), as the TPU's MLA branch keeps P in float32
+//     (-DRPA_P_F32), in two m64n256k16 (m64n128k16 at 256) per k-step of
+//     16 positions, straight from the S accumulators as the register A; V
+//     read MN-major through the transpose bit.
+//   The 288-wide row is 4.5 of the swizzle's 64-element column blocks.
+//   Its Q and latent tiles are laid out in MLA_WG_CB = 5 whole column
+//   blocks, a row staged 320 wide: the fifth block's first four chunks hold
+//   elements 256-287 and its last four, never written, are never read (S's
+//   k-steps 16 and 17 read the block's 32-byte steps 0 and 1, each within
+//   the atom; V's 256 columns are blocks 0-3). So the descriptors, the
+//   swizzle and the wgmma forms are the 576 build's, the second
+//   warpgroup's k-steps (9-17) start mid-atom as every k-step but the
+//   first of an atom does, and no 64-byte-swizzled tail is needed.
+//   Shared memory at 576: Q 72 KB, two stages of 54 KB, the S halves 24
+//   KB: 205 KB. Two 64-position stages (72 KB each) with Q do not fit
+//   beside the S halves (or P's hi and lo); three 32-position stages
+//   would, but a 32-position S gives each k-step half the work per byte
+//   that wgmma reads from shared memory. At 288: Q 40 KB and stages of 30
+//   KB (36 and 27 KB without the fifth block's unused half), the S halves
+//   24 KB: 125 KB, still one block an SM. Bound: operations (rpa_mla.cuh);
+//   the hi + lo product makes the tensor-core work 3200 rather than 2176
+//   operations per (row, position) at 576, 1600 rather than 1088 at 288.
 //
 // float32 q: rpa_extend_mla_kernel, on the CUDA cores (TF32 would not be the
 //   float32 dot the float32 pair computes). One block per (work-list entry,
-//   query head, sub-tile of MLA_EXT_NR rows of the entry); 16 threads share
-//   two consecutive rows, so each latent value read from shared memory feeds
-//   both (the shared design is rpa_mla.cuh's).
+//   query head, sub-tile of MLA_EXT_NR rows of the entry); MLA_TPR threads
+//   (16 at 576, 8 at 288) share two consecutive rows, so each latent value
+//   read from shared memory feeds both (the shared design is rpa_mla.cuh's).
 #include <type_traits>
 
 #include "rpa_mla.cuh"
@@ -76,7 +94,7 @@ namespace rpa {
 
 constexpr int MLA_EXT_NR = 32;   // query rows per block
 constexpr int MLA_EXT_RPT = 2;   // rows per thread
-constexpr int MLA_EXT_TPR = 16;  // threads per row (group of rows)
+constexpr int MLA_EXT_TPR = MLA_TPR;  // threads per row (group of rows)
 constexpr int MLA_EXT_NT = MLA_EXT_NR / MLA_EXT_RPT * MLA_EXT_TPR;
 static_assert(EXTEND_QBLK % MLA_EXT_NR == 0, "a work-list entry splits into whole sub-tiles");
 
@@ -143,29 +161,34 @@ static int launch_extend_mla(const void* q, const void* lat, const void* pt,
 constexpr int MLA_WG_ROWS = 64;            // packed (token, head) rows per block: wgmma's M
 constexpr int MLA_WG_TK = 48;              // latent positions per tile
 constexpr int MLA_WG_NT = 256;             // two warpgroups
-constexpr int MLA_WG_KS = MLA_DL / 32;     // S k-steps per warpgroup: half of the 576 dims each
+constexpr int MLA_WG_KS = MLA_DL / 32;     // S k-steps per warpgroup: half of the dims each
 constexpr int MLA_WG_DV = MLA_DV / 2;      // V columns (O's) per warpgroup
-constexpr int MLA_WG_Q = MLA_WG_ROWS * MLA_DL * 2;   // bytes of the Q tile (swizzled)
-constexpr int MLA_WG_TILE = MLA_WG_TK * MLA_DL * 2;  // bytes of a latent tile (swizzled)
+constexpr int MLA_WG_CB = (MLA_DL + 63) / 64;        // 64-element column blocks of a row
+constexpr int MLA_WG_Q = MLA_WG_ROWS * MLA_WG_CB * 128;   // bytes of the Q tile (swizzled)
+constexpr int MLA_WG_TILE = MLA_WG_TK * MLA_WG_CB * 128;  // bytes of a latent tile (swizzled)
 constexpr int MLA_WG_X = MLA_WG_NT * MLA_WG_TK / 2 * 4;  // S halves exchanged, float32
 constexpr int MLA_WG_SMEM = MLA_WG_Q + 2 * MLA_WG_TILE + MLA_WG_X + 1024;
 constexpr int MLA_WG_OLD = MLA_DV + 8;    // row stride of the O staging (in the Q tile)
 static_assert(MLA_WG_ROWS * MLA_WG_OLD * 2 <= MLA_WG_Q, "O staging");
 static_assert(MLA_WG_Q % 1024 == 0 && MLA_WG_TILE % 1024 == 0, "swizzle atoms");
+static_assert(MLA_DL % 32 == 0 && MLA_WG_DV % 64 == 0 && (MLA_WG_DV == 256 || MLA_WG_DV == 128),
+              "two warpgroups' halves of S's k-steps; wgmma's N for O (its mma_rs forms)");
+static_assert(MLA_WG_SMEM <= 232448, "a block's shared memory");
 
 // fp8 rows: a raw stage of 48 x 576 = 27,648 bytes does not fit beside the
 // two bf16 stages (237,568 bytes of a block's 232,448), so the rows pass
 // through registers: a tile is 1728 16-byte vectors, 6.75 for each of the
 // 256 threads, so thread tid takes vectors tid + 256 k for k < 7, the
-// last round only below 1728 (threads 192-255 idle in it). 16-byte loads
-// are the fewest instructions, and each widens to two whole 16-byte
-// chunks of the swizzled stage (wg::widen_fp8); a map that divides (4-byte
-// loads, 27 a thread) would take four times the loads and write half
-// chunks. Tile t + 1's 28 registers of loads are issued after the barrier
-// that hands tile t to wgmma, in flight during tile t's S and softmax, and
-// widened into the free stage before P V, whose hi and lo fragments would
-// not fit beside them in the 255 registers a thread (the bf16 build takes
-// 230).
+// last round only below 1728 (threads 192-255 idle in it); at 288 864
+// vectors, 3.375 a thread, 4 rounds (threads 96-255 idle in the last).
+// 16-byte loads are the fewest instructions, and each widens to two whole
+// 16-byte chunks of the swizzled stage (wg::widen_fp8); a map that divides
+// (4-byte loads, 27 a thread) would take four times the loads and write
+// half chunks. Tile t + 1's 28 registers of loads (16 at 288) are issued
+// after the barrier that hands tile t to wgmma, in flight during tile t's
+// S and softmax, and widened into the free stage before P V, whose hi and
+// lo fragments would not fit beside them in the 255 registers a thread
+// (the bf16 build takes 230 at 576).
 constexpr int MLA_WG_RV = MLA_DL / 16;  // raw 16-byte fp8 vectors a row
 constexpr int MLA_WG_NRV = (MLA_WG_TK * MLA_WG_RV + MLA_WG_NT - 1) / MLA_WG_NT;  // a thread's
 static_assert(MLA_WG_NRV * MLA_WG_NT >= MLA_WG_TK * MLA_WG_RV &&
@@ -316,10 +339,10 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
 
   // Per tile: one barrier hands tile t (and, first, Q) to wgmma and frees
   // tile t - 1's stage for tile t + 1; warpgroup w computes S over its half
-  // of the 576 dims; the halves cross through shared memory (each thread
+  // of the MLA_DL dims; the halves cross through shared memory (each thread
   // reads the other warpgroup's same fragment: one barrier) and both
   // warpgroups add them (a + b = b + a exactly, so both hold the same S),
-  // run the same softmax, and each computes O for its 256 of V's columns.
+  // run the same softmax, and each computes O for its MLA_WG_DV of V's columns.
   for (int t = 0, s = 0; t < ntiles; ++t, s ^= 1) {
     const int st = lo + t * TK;
     cp_async_wait<0>();  // tile t has landed (this thread's copies)
@@ -403,7 +426,8 @@ rpa_extend_mla_wgmma_kernel(const __nv_bfloat16* __restrict__ q,    // [T, Hq, M
     }
     // O += P V with P kept float32 as its bf16 parts hi + lo (two products
     // against the same V), P straight from the S accumulators; V = the same
-    // tile's columns 256 w .. 256 w + 255, read MN-major (the transpose bit)
+    // tile's columns MLA_WG_DV w .. MLA_WG_DV (w + 1) - 1, read MN-major
+    // (the transpose bit)
     uint32_t pa[TK / 16][4], pl[TK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < TK / 16; ++kk)
@@ -482,9 +506,18 @@ static int launch_extend_mla_wgmma(const void* q, const void* lat, const void* p
   return (int)cudaGetLastError();
 }
 
+// Whether this build holds the TREE instantiations (not at 288: no draft
+// model of that geometry speculates over a tree).
+#ifdef RPA_MLA_NO_TREE
+constexpr bool MLA_TREE_BUILT = false;
+#else
+constexpr bool MLA_TREE_BUILT = true;
+#endif
+
 // bf16 q over bf16 or fp8 latent rows on the warpgroups; float32 on the
 // CUDA cores (TF32 would not be the float32 dot the float32 pair computes).
-// Each in its TREE instantiation only with a tree.
+// Each in its TREE instantiation only with a tree; a tree is refused by a
+// build without them.
 template <typename TQ, typename TKV>
 static int launch(const void* q, const void* lat, const void* pt, const void* kv_lens,
                   const void* q_lens, const void* q_start, const void* block_seq,
@@ -494,12 +527,18 @@ static int launch(const void* q, const void* lat, const void* pt, const void* kv
 #define RPA_MLA_ARGS                                                                          \
   q, lat, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out, NQB, Hq, maxP, \
       page_size, scale, cap, window, win_base, tree, stream
+  if (tree.w > 0) {
+    if constexpr (!MLA_TREE_BUILT)
+      return (int)cudaErrorInvalidValue;
+    else if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+      return launch_extend_mla_wgmma<TKV, true>(RPA_MLA_ARGS);
+    else
+      return launch_extend_mla<TQ, TKV, true>(RPA_MLA_ARGS);
+  }
   if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
-    return tree.w > 0 ? launch_extend_mla_wgmma<TKV, true>(RPA_MLA_ARGS)
-                      : launch_extend_mla_wgmma<TKV, false>(RPA_MLA_ARGS);
+    return launch_extend_mla_wgmma<TKV, false>(RPA_MLA_ARGS);
   else
-    return tree.w > 0 ? launch_extend_mla<TQ, TKV, true>(RPA_MLA_ARGS)
-                      : launch_extend_mla<TQ, TKV, false>(RPA_MLA_ARGS);
+    return launch_extend_mla<TQ, TKV, false>(RPA_MLA_ARGS);
 #undef RPA_MLA_ARGS
 }
 
@@ -514,8 +553,9 @@ static int launch(const void* q, const void* lat, const void* pt, const void* kv
 // padding) are left untouched. cap <= 0: no softcap; window <= 0: no
 // window. spec_w: the speculation tree's node count (0: no tree), spec_anc
 // its masks in HOST memory, win_base its window start per request on the
-// card. Returns cudaError_t; another geometry or type pair, or a tree of
-// more than SPEC_MAX_NODES nodes, is cudaErrorInvalidValue.
+// card. Returns cudaError_t; another geometry or type pair, a tree of more
+// than SPEC_MAX_NODES nodes, or a tree in a build without the TREE
+// instantiations (-DRPA_MLA_NO_TREE), is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                               const void* page_table, const void* kv_lens, const void* q_lens,
                               const void* q_start, const void* block_seq,

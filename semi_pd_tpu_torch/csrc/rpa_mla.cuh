@@ -3,44 +3,49 @@
 // streaming decode's MLA build in rpa_stream.cu).
 //
 // MLA in its absorbed form (semi_pd_tpu/models/deepseek_v2.py): each slot
-// holds one latent row [c_kv | k_pe] of MLA_DL = 512 + 64 elements, shared
-// by all query heads (MQA with G = Hq). A query row is [q_nope . W_UK |
-// q_pe], also MLA_DL wide; scores run over all MLA_DL dims, and V is the
-// row's first MLA_DV = 512 elements, so the output is MLA_DV wide. Built
-// for DeepSeek-V2's latent geometry only; the wrappers refuse others.
+// holds one latent row [c_kv | k_pe] of MLA_DL elements, shared by all
+// query heads (MQA with G = Hq). A query row is [q_nope . W_UK | q_pe],
+// also MLA_DL wide; scores run over all MLA_DL dims, and V is the row's
+// first MLA_DV elements, so the output is MLA_DV wide. The latent geometry
+// is a build parameter (-DRPA_MLA_DL, -DRPA_MLA_DV): DeepSeek-V2's 512 + 64
+// with V its first 512 by default, MiniCPM3's 256 + 32 with V its first
+// 256 in the _288 builds; the wrappers refuse a width no build has.
 //
 // Bound on this card: at the main path's shapes decode reads kv_len *
 // MLA_DL elements per request and does 2 * Hq * (MLA_DL + MLA_DV) operations
-// per position, 30 per byte in bf16 with Hq 16 (above the ~20 the float32
-// CUDA cores sustain per byte, below the ~295 of the bf16 tensor cores);
-// extend does the same per (query row, visible position) and is bound by
-// operations. The MLA builds instantiate rpa_common.cuh's four (q, latent)
-// pairs. The design below runs in float32 on the CUDA cores: the float32
-// pair's decodes and extend. With bf16 q over bf16 or fp8 (e4m3, e5m2)
-// latent rows the decodes run on the tensor cores (rpa_mla_mma.cuh) and
-// the extend on the warpgroup tensor cores (rpa_extend_mla.cu), fp8 rows
-// widened exactly to bf16 on their way into shared memory, as the TPU
-// kernels' MLA branches upcast the rows whatever their dtype; an fp8 row
-// is 576 bytes against bf16's 1152, so the decodes' bound halves.
+// per position, 30 per byte in bf16 with Hq 16 at 576 and 76 with Hq 40
+// at 288 (above the ~20 the float32 CUDA cores sustain per byte, below the
+// ~295 of the bf16 tensor cores); extend does the same per (query row,
+// visible position) and is bound by operations. The MLA builds
+// instantiate rpa_common.cuh's four (q, latent) pairs. The design below
+// runs in float32 on the CUDA cores: the float32 pair's decodes and
+// extend. With bf16 q over bf16 or fp8 (e4m3, e5m2) latent rows the
+// decodes run on the tensor cores (rpa_mla_mma.cuh) and the extend on the
+// warpgroup tensor cores (rpa_extend_mla.cu), fp8 rows widened exactly to
+// bf16 on their way into shared memory, as the TPU kernels' MLA branches
+// upcast the rows whatever their dtype; an fp8 row is half a bf16 row's
+// bytes, so the decodes' bound halves.
 //
-// Design: a group of TPR threads holds RPT query rows. A row's 576-wide
-// query and 512-wide float32 accumulator do not fit one thread's
-// registers, so thread `part` of a group owns the float4 chunks
-// c = j * TPR + part of its rows: MLA_DL / (4 * TPR) of q and, because the
-// chunks below MLA_DV / 4 are exactly those with j < MLA_DV / (4 * TPR), the
-// same number of V chunks for every part (no thread idles on the rope
-// dims). Partial scores are summed over the group's lanes with
-// __shfl_xor_sync; the lanes of a group read neighbouring 16-byte words of
-// a latent row, and the other groups of the warp read the same words (a
-// broadcast), so shared-memory reads are conflict-free. The block walks
-// its request's KV positions [lo, limit) in tiles of MLA_TK latent rows,
-// staged once in shared memory as float32 (a padded row of MLA_LD floats)
-// and read as both K and V; the next tile's 16-byte loads are issued into
-// registers before the current one is computed (KVTile, rpa_common.cuh).
-// Positions at or past `limit` are never read. Online softmax in float32,
-// and P stays float32 into P.V: the TPU kernels' MLA branches upcast q and
-// the latent rows to float32, so every MLA build is -DRPA_P_F32 (round_p,
-// rpa_common.cuh).
+// Design: a group of MLA_TPR threads holds RPT query rows. A row's query
+// and float32 accumulator do not fit one thread's registers, so thread
+// `part` of a group owns the float4 chunks c = j * TPR + part of its rows:
+// MLA_DL / (4 * TPR) of q and, because the chunks below MLA_DV / 4 are
+// exactly those with j < MLA_DV / (4 * TPR), the same number of V chunks
+// for every part (no thread idles on the rope dims). That needs 4 TPR to
+// divide both widths: TPR 16 at 576 / 512, TPR 8 at 288 / 256 (288 is not
+// a multiple of 64), which leaves a thread the same 9 q chunks and 8 V
+// chunks at both widths. Partial scores are summed over the group's lanes
+// with __shfl_xor_sync; the lanes of a group read neighbouring 16-byte
+// words of a latent row, and the other groups of the warp read the same
+// words (a broadcast), so shared-memory reads are conflict-free. The block
+// walks its request's KV positions [lo, limit) in tiles of MLA_TK latent
+// rows, staged once in shared memory as float32 (a padded row of MLA_LD
+// floats) and read as both K and V; the next tile's 16-byte loads are
+// issued into registers before the current one is computed (KVTile,
+// rpa_common.cuh). Positions at or past `limit` are never read. Online
+// softmax in float32, and P stays float32 into P.V: the TPU kernels' MLA
+// branches upcast q and the latent rows to float32, so every MLA build is
+// -DRPA_P_F32 (round_p, rpa_common.cuh).
 //
 // Shared-memory reads, not the arithmetic, set the pace (PERF.md, PR 3):
 // with one row per thread each float4 read feeds 4 FMAs per lane and the
@@ -51,15 +56,23 @@
 
 #include "rpa_common.cuh"
 
+#ifndef RPA_MLA_DL
+#define RPA_MLA_DL 576
+#endif
+#ifndef RPA_MLA_DV
+#define RPA_MLA_DV 512
+#endif
+
 namespace rpa {
 
-constexpr int MLA_DL = 576;         // latent row: kv_lora_rank 512 + qk_rope 64
-constexpr int MLA_DV = 512;         // V: the row's first kv_lora_rank elements
+constexpr int MLA_DL = RPA_MLA_DL;  // latent row: kv_lora_rank + qk_rope
+constexpr int MLA_DV = RPA_MLA_DV;  // V: the row's first kv_lora_rank elements
+constexpr int MLA_TPR = 8 * (1 + (MLA_DL % 64 == 0));  // threads per row: 16, or 8 at 288
 constexpr int MLA_TK = 16;          // KV positions per tile
 constexpr int MLA_LD = MLA_DL + 4;  // shared row stride in floats: no bank conflicts
 
 // The state of RPT query rows r = 0 .. RPT-1 held by one thread, lane
-// `part` of a group of TPR threads: its q chunks and output chunks (float4
+// `part` of a group of TPR (MLA_TPR) threads: its q chunks and output chunks (float4
 // chunk c = j * TPR + part) and each row's running max and sum. Row r's
 // query is q0 + r * q_step, its output out0 + r * out_step and its
 // absolute position q_abs0 + r * q_abs_step; rows r >= n_act are not the

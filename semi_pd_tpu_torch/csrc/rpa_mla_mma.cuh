@@ -5,8 +5,10 @@
 // rpa_stream_mla_mma_kernel (the streaming decode, each block an equal
 // share of the batch's chunks). What they compute is rpa_mla.cuh's: the
 // query heads of a request against its latent rows, scores over all
-// MLA_DL = 576 dims, V the rows' first MLA_DV = 512, P kept in float32
-// (-DRPA_P_F32, as the TPU kernels' MLA branches upcast to float32).
+// MLA_DL dims, V the rows' first MLA_DV, P kept in float32 (-DRPA_P_F32,
+// as the TPU kernels' MLA branches upcast to float32). Built at
+// DeepSeek-V2's 576 / 512 and MiniCPM3's 288 / 256 (-DRPA_MLA_DL,
+// -DRPA_MLA_DV); every constant below follows from the two widths.
 //
 // Both walk a request's positions in the same fixed chunks of MLA_MMA_CHUNK
 // = 256 (16 tiles), whatever the batch: a chunk's (m c, l, O) is computed
@@ -26,27 +28,40 @@
 // 16 x 576 bf16 (144 registers a thread) and 16 x 512 float32 (256), more
 // than a thread has. So the four warps of a block share each latent tile,
 // which they stage and read once, and both cuts are exact:
-//   - S = Q K^T: warp w scores the dims [144 w, 144 w + 144), 9 k-steps of
-//     mma.sync m16n8k16 with its 36 registers of Q (mla_partial). The four
-//     partials cross through shared memory, a float4 per lane and n8 tile,
-//     and every warp adds them in warp order 0, 1, 2, 3 (mla_combine_pv),
-//     so all four hold the same S, bit for bit, and run the same float32
-//     online softmax on it: no max, sum or P crosses between them.
-//   - O += P V: warp w owns V's columns [128 w, 128 w + 128), 16 n8 blocks
-//     (64 registers), with P as its two bf16 parts hi + lo (split_bf16: P
-//     kept float32 to 2^-18), the running sum adding the unrounded p. The
-//     softmax and P V are the GQA warp tile's own (mma_softmax_pv, with D
-//     the warp's 128 columns and the latent row's stride).
+//   - S = Q K^T: the row's MLA_DL / 16 k-steps of mma.sync m16n8k16 are cut
+//     in order over the warps, warp w taking [mla_ks0(w), mla_ks0(w + 1)):
+//     9 each at 576 (dims [144 w, 144 w + 144), 36 registers of Q); at 288
+//     the 18 k-steps do not divide by four, and the warps take 4, 5, 4 and
+//     5 (at most MLA_MMA_KS = 5, 20 registers; a warp skips its fifth step
+//     by a warp-uniform test that the 576 build does not compile). The
+//     four partials cross through shared memory, a float4 per lane and n8
+//     tile, and every warp adds them in warp order 0, 1, 2, 3
+//     (mla_combine_pv), so all four hold the same S, bit for bit, and run
+//     the same float32 online softmax on it: no max, sum or P crosses
+//     between them.
+//   - O += P V: warp w owns V's columns [DW w, DW w + DW), DW = MLA_DV / 4
+//     (128 at 512, 64 at 256: 16 or 8 n8 blocks, 64 or 32 registers), with
+//     P as its two bf16 parts hi + lo (split_bf16: P kept float32 to
+//     2^-18), the running sum adding the unrounded p. The softmax and P V
+//     are the GQA warp tile's own (mma_softmax_pv, with D the warp's
+//     columns and the latent row's stride).
 // The query heads of a block are the rows of the m16 tile: DeepSeek-V2-
-// Lite's 16 fill it, fewer leave rows of zeros that are written nowhere.
-// More heads form HG = ceil(Hq / 16) groups of Hq / HG (the grid's second
-// dimension, where the GQA decodes put the KV heads), each group reading
-// the latent rows again; the entries refuse an Hq that HG does not divide.
+// Lite's 16 fill it. More heads form HG = ceil(Hq / 16) groups (the grid's
+// second dimension, where the GQA decodes put the KV heads), group h the
+// heads [16 h, min(16 h + 16, Hq)): every group but the last full, the
+// last one's missing rows zeros that are written nowhere. MiniCPM3's 40
+// heads make 16 / 16 / 8. Each group reads the latent rows again (the
+// groups of one chunk run close together in the grid, so the second and
+// third reads can hit L2); equal groups (4 x 10) would read them 4 times
+// and run 4 blocks of mma.sync where the uneven cut runs 3, so the cut
+// keeps whole m16 tiles and leaves the waste to the last.
 //
-// The tile: MLA_MMA_TK = 16 positions of 1152 bytes, 18 KB, copied by
-// cp.async (9 16-byte vectors a thread; fp8 rows, 576 bytes, through
-// registers and widened, MlaCopy) into bf16 rows padded to
-// MLA_MMA_LD = 584 elements: 1168 bytes, 16 mod 128, so the 8 rows of an
+// The tile: MLA_MMA_TK = 16 positions of 2 MLA_DL bytes (18 KB at 576, 9
+// KB at 288), copied by cp.async (MLA_MMA_NV 16-byte vectors a thread: 9
+// at 576; 4.5 at 288, so 5 rounds with the last one's upper half idle;
+// fp8 rows, half the bytes, through registers and widened, MlaCopy) into
+// bf16 rows padded to MLA_MMA_LD = MLA_DL + 8 elements: 1168 bytes at 576,
+// 16 mod 128, and 592 at 288, 80 mod 128, so in both the 8 rows of an
 // ldmatrix fall on 8 different 16-byte groups of banks (no conflicts). A
 // ring of MLA_MMA_NST = 4 stages with one block barrier per tile: tile i's
 // partial S, each thread's wait for its copies of tile i + 1, the barrier
@@ -58,21 +73,28 @@
 // of tile i + 1), then loads tile i + 3 into its registers (MlaCopy). The
 // partials alternate between two buffers, so the barrier of tile i + 1 also
 // frees tile i's. Two tiles are in flight (bf16 rows; one with fp8 rows)
-// while a block computes, and a block holds 82,944 bytes of shared memory:
-// two blocks an SM (three would need 251,904 of the 233,472 bytes), so an
-// SM has about 112 KB of latent rows requested or landed ahead of its
-// mma. 16 positions is one k-step of P V; a 32-position tile would make
-// a stage 37 KB and leave one block an SM at three stages. On an H100
-// (mla_decode_plans.py) the packed decode at b64 / kv1024 took 0.0465 ms
-// with these constants, 0.0545 with chunks of 128 and 0.0648 with 512,
-// 0.0467 with 5 stages and 0.0488 with 3 stages at three blocks an SM.
+// while a block computes. A block holds 82,944 bytes of shared memory at
+// 576: two blocks an SM (three would need 251,904 of the 233,472 bytes),
+// so an SM has about 112 KB of latent rows requested or landed ahead of
+// its mma; at 288 46,080 bytes, four blocks an SM (MLA_MMA_BLOCKS_PER_SM:
+// as many as the shared memory holds), which caps a thread at 128
+// registers. 16 positions is one k-step of P V; a 32-position tile would
+// make a stage 37 KB at 576 and leave one block an SM at three stages. On
+// an H100 (mla_decode_plans.py) the packed decode at b64 / kv1024 took
+// 0.0465 ms with these constants at 576, 0.0545 with chunks of 128 and
+// 0.0648 with 512, 0.0467 with 5 stages and 0.0488 with 3 stages at three
+// blocks an SM.
 //
-// Bound on this card: bytes. A position costs 2 Hq (576 + 512) = 34,816
-// operations on 1,152 bytes at Hq 16, 30 a byte (44 with P as hi + lo; 60
-// and 88 on the 576 bytes of an fp8 row), far below the ~295 where the bf16
-// tensor cores would bind, and above the ~20 the float32 CUDA cores sustain
-// (the CUDA-core kernels of rpa_mla.cuh, which the float32 pairs keep). Per tile and warp: 18 mma for S, 32 for P
-// V (hi and lo), 9 ldmatrix of K and 8 of V.
+// Bound on this card: bytes. A position costs 2 Hq (MLA_DL + MLA_DV)
+// operations on 2 MLA_DL bytes: 34,816 on 1,152 at 576 with Hq 16, 30 a
+// byte (44 with P as hi + lo; 60 and 88 on the 576 bytes of an fp8 row),
+// and 43,520 on 576 at 288 with Hq 40, 76 a byte (the tensor cores run 48
+// rows of m16 tiles for the 40 heads: 91 a byte, 121 with P as hi + lo),
+// all below the ~295 where the bf16 tensor cores would bind, and above the
+// ~20 the float32 CUDA cores sustain (the CUDA-core kernels of
+// rpa_mla.cuh, which the float32 pairs keep). Per tile and warp at 576:
+// 18 mma for S, 32 for P V (hi and lo), 9 ldmatrix of K and 8 of V; at 288
+// 8 or 10 for S, 16 for P V, 4 or 5 ldmatrix of K and 4 of V.
 #pragma once
 
 #include <type_traits>
@@ -93,19 +115,28 @@ constexpr int MLA_MMA_ROWS = 16;  // query heads per block: the m16 tile's rows
 constexpr int MLA_MMA_TK = 16;    // latent positions per tile
 constexpr int MLA_MMA_NST = 4;    // ring stages
 constexpr int MLA_MMA_LD = MLA_DL + 8;                   // bf16 row stride of a stage
-constexpr int MLA_MMA_KS = MLA_DL / 16 / MLA_MMA_WARPS;  // k-steps of S per warp
+constexpr int MLA_MMA_KSTEPS = MLA_DL / 16;              // k-steps of S over a row
+constexpr int MLA_MMA_KS = (MLA_MMA_KSTEPS + MLA_MMA_WARPS - 1) / MLA_MMA_WARPS;  // a warp's most
 constexpr int MLA_MMA_DW = MLA_DV / MLA_MMA_WARPS;       // V columns per warp
 constexpr int MLA_MMA_VPR = MLA_DL * 2 / 16;             // 16-byte vectors per latent row
-constexpr int MLA_MMA_NV = MLA_MMA_TK * MLA_MMA_VPR / MLA_MMA_NT;  // vectors a thread copies
+constexpr int MLA_MMA_NVEC = MLA_MMA_TK * MLA_MMA_VPR;   // 16-byte vectors of a tile
+constexpr int MLA_MMA_NV = (MLA_MMA_NVEC + MLA_MMA_NT - 1) / MLA_MMA_NT;  // a thread's copies
 constexpr int MLA_MMA_STAGE = MLA_MMA_TK * MLA_MMA_LD * 2;          // bytes of a stage
 constexpr int MLA_MMA_XCHG = 2 * MLA_MMA_WARPS * MLA_MMA_TK / 8 * 32 * 16;  // 2 S buffers
 constexpr int MLA_MMA_SMEM = MLA_MMA_NST * MLA_MMA_STAGE + MLA_MMA_XCHG;
-constexpr int MLA_MMA_BLOCKS_PER_SM = 2;  // blocks an SM holds
-constexpr int MLA_MMA_CHUNK = 256;        // positions of a chunk, a block's unit of work
+constexpr int MLA_MMA_BLOCKS_PER_SM = 233472 / (MLA_MMA_SMEM + 1024 + 128);  // blocks an SM holds
+constexpr int MLA_MMA_CHUNK = 256;  // positions of a chunk, a block's unit of work
+// the warps divide the k-steps of S (576) or not (288); the threads a
+// tile's vectors (576) or not (288): each uneven cut compiles a
+// warp-uniform test the even one does not
+constexpr bool MLA_MMA_EVEN_S = MLA_MMA_KSTEPS % MLA_MMA_WARPS == 0;
+constexpr bool MLA_MMA_EVEN_COPY = MLA_MMA_NVEC % MLA_MMA_NT == 0;
 
-static_assert(MLA_MMA_KS * 16 * MLA_MMA_WARPS == MLA_DL && MLA_MMA_DW * MLA_MMA_WARPS == MLA_DV,
+static_assert(MLA_DL % 16 == 0 && MLA_MMA_DW * MLA_MMA_WARPS == MLA_DV && MLA_MMA_DW % 16 == 0,
               "the warps' cuts of S's dims and V's columns");
-static_assert(MLA_MMA_NV * MLA_MMA_NT == MLA_MMA_TK * MLA_MMA_VPR, "the copy of a tile");
+static_assert(MLA_MMA_NV * MLA_MMA_NT >= MLA_MMA_NVEC &&
+                  (MLA_MMA_NV - 1) * MLA_MMA_NT < MLA_MMA_NVEC,
+              "the copy of a tile: every vector once, the last round whole or partial");
 static_assert(MLA_MMA_TK == 16 && MLA_MMA_NST >= 3, "one k-step of P V; a tile ahead");
 static_assert(MLA_MMA_CHUNK % MLA_MMA_TK == 0, "whole tiles a chunk");
 static_assert(MLA_MMA_BLOCKS_PER_SM * (MLA_MMA_SMEM + 1024 + 128) <= 233472 &&
@@ -114,8 +145,22 @@ static_assert(MLA_MMA_BLOCKS_PER_SM * (MLA_MMA_SMEM + 1024 + 128) <= 233472 &&
 
 using MlaState = MmaState<MLA_MMA_DW>;  // a warp's O columns and its rows' (m, l)
 
+// Warp w's k-steps of S are [mla_ks0(w), mla_ks0(w + 1)): MLA_MMA_KS each
+// where the warps divide the row, else MLA_MMA_KS or one fewer.
+__device__ __forceinline__ int mla_ks0(int warp) {
+  return MLA_MMA_EVEN_S ? warp * MLA_MMA_KS : warp * MLA_MMA_KSTEPS / MLA_MMA_WARPS;
+}
+// Whether this warp has a k-step ks (< MLA_MMA_KS) of its own.
+__device__ __forceinline__ bool mla_has_ks(int warp, int ks) {
+  return MLA_MMA_EVEN_S || ks < mla_ks0(warp + 1) - mla_ks0(warp);
+}
+// Whether vector v of a tile (v < MLA_MMA_NV MLA_MMA_NT) exists.
+__device__ __forceinline__ bool mla_has_vec(int v) {
+  return MLA_MMA_EVEN_COPY || v < MLA_MMA_NVEC;
+}
+
 // This warp's A fragments of Q for its dims: row g of the m16 tile is query
-// head g of qb (G rows of MLA_DL), zero past G.
+// head g of qb (G rows of MLA_DL), zero past G and past the warp's k-steps.
 __device__ __forceinline__ void mla_load_q(uint32_t (&qa)[MLA_MMA_KS][4],
                                            const __nv_bfloat16* __restrict__ qb, int G, int warp,
                                            int lane) {
@@ -125,15 +170,18 @@ __device__ __forceinline__ void mla_load_q(uint32_t (&qa)[MLA_MMA_KS][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = gid + 8 * (e & 1);
-      const int c = (warp * MLA_MMA_KS + ks) * 16 + 8 * (e >> 1) + 2 * tig;
-      qa[ks][e] = r < G ? *reinterpret_cast<const uint32_t*>(qb + r * MLA_DL + c) : 0u;
+      const int c = (mla_ks0(warp) + ks) * 16 + 8 * (e >> 1) + 2 * tig;
+      qa[ks][e] = r < G && mla_has_ks(warp, ks)
+                      ? *reinterpret_cast<const uint32_t*>(qb + r * MLA_DL + c)
+                      : 0u;
     }
 }
 
 // A thread's copies of the latent rows of positions [st, st + MLA_MMA_TK)
-// into a bf16 stage: vector v = tid + k MLA_MMA_NT of the tile is chunk
-// v % 72 (elements 8 c .. 8 c + 7) of row v / 72. Positions outside [lo,
-// hi) stage as zeros and are never read. pt_row: the request's row of the
+// into a bf16 stage: vector v = tid + k MLA_MMA_NT of the tile (v <
+// MLA_MMA_NVEC) is chunk v % VPR (elements 8 c .. 8 c + 7) of row v / VPR,
+// VPR = MLA_MMA_VPR (72 at 576, 36 at 288). Positions outside [lo, hi)
+// stage as zeros and are never read. pt_row: the request's row of the
 // page table; pshift: log2(page_size), or -1.
 //   - bf16 rows (TKV = __nv_bfloat16): issue() copies the 16-byte chunks by
 //     cp.async (the caller commits the group and waits for it); land() does
@@ -143,9 +191,10 @@ __device__ __forceinline__ void mla_load_q(uint32_t (&qa)[MLA_MMA_KS][4],
 //     576, 4.5 a thread: no whole map. In 8-byte vectors it is 72 a row, the
 //     bf16 map's count, and vector c widens to exactly the 16-byte bf16
 //     chunk c the bf16 map copies: so issue() loads the same map's vectors
-//     of 8 bytes (9 a thread, 18 registers) and land() widens them exactly
-//     into the stage issue() was given. The stages stay bf16 and the block's
-//     82,944 bytes do not grow. A tile's loads are in flight from its
+//     of 8 bytes (9 a thread at 576, 18 registers; 5 rounds at 288, the
+//     last one half idle as the bf16 map's, 10 registers) and land() widens
+//     them exactly into the stage issue() was given. The stages stay bf16
+//     and the block's shared memory does not grow. A tile's loads are in flight from its
 //     issue() to its land() one tile later (cp.async keeps bf16 tiles two
 //     tiles in flight).
 template <typename TKV>
@@ -162,6 +211,7 @@ struct MlaCopy {
 #pragma unroll
     for (int k = 0; k < MLA_MMA_NV; ++k) {
       const int v = tid + k * MLA_MMA_NT;
+      if (!mla_has_vec(v)) continue;
       const int row = v / MLA_MMA_VPR, chunk = v - row * MLA_MMA_VPR;
       const int pos = st + row;
       const bool ok = pos >= lo && pos < hi;
@@ -188,6 +238,7 @@ struct MlaCopy {
 #pragma unroll
       for (int k = 0; k < MLA_MMA_NV; ++k) {
         const int v = tid + k * MLA_MMA_NT;
+        if (!mla_has_vec(v)) continue;
         const int row = v / MLA_MMA_VPR, chunk = v - row * MLA_MMA_VPR;
         *reinterpret_cast<uint4*>(held + row * MLA_MMA_LD + chunk * 8) =
             widen8_bf16<TKV>(raw[k]);
@@ -197,7 +248,7 @@ struct MlaCopy {
   }
 };
 
-// This warp's partial S of the tile at shared address sK, over its dims,
+// This warp's partial S of the tile at shared address sK, over its k-steps,
 // into its slots of xs (one float4 per lane and n8 tile of positions).
 __device__ __forceinline__ void mla_partial(float4* xs, const uint32_t (&qa)[MLA_MMA_KS][4],
                                             uint32_t sK, uint32_t k_lane, int warp, int lane) {
@@ -206,8 +257,9 @@ __device__ __forceinline__ void mla_partial(float4* xs, const uint32_t (&qa)[MLA
   for (int j = 0; j < 2; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < MLA_MMA_KS; ++ks) {
+    if (!mla_has_ks(warp, ks)) continue;
     uint32_t kf[4];
-    ldmatrix_x4(kf, sK + k_lane + (warp * MLA_MMA_KS + ks) * 16 * 2);
+    ldmatrix_x4(kf, sK + k_lane + (mla_ks0(warp) + ks) * 16 * 2);
     mma_bf16_16816(sc[0], qa[ks], kf[0], kf[1]);
     mma_bf16_16816(sc[1], qa[ks], kf[2], kf[3]);
   }

@@ -9,8 +9,10 @@
 //   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_decode_stream_aligned):
 //     rpa_stream.py _rpa_kernel_stream, its GQA branch;
 //   latent pool, DeepSeek-V2's 512 + 64 with V its first 512 (-DRPA_MLA
-//     -DRPA_P_F32, rpa_decode_stream_mla): the same kernel's MLA branch,
-//     which computes in float32, P included.
+//     -DRPA_P_F32, rpa_decode_stream_mla), and MiniCPM3's 256 + 32 with V
+//     its first 256 (also -DRPA_MLA_DL=288 -DRPA_MLA_DV=256,
+//     rpa_decode_stream_mla_288): the same kernel's MLA branch, which
+//     computes in float32, P included.
 // They compute the decode of rpa_decode.cu and rpa_decode_mla.cu with
 // softcap and without a sliding window (the routing keeps windowed batches
 // on the packed decode, as the JAX routing does). P is rounded as the TPU
@@ -58,7 +60,8 @@
 // tile, P as hi + lo). The schedule is the one above with the block, not the
 // warp, as the unit that takes a share, and the share cut at the tile's
 // fixed chunks of 256 positions: P = MLA_MMA_BLOCKS_PER_SM * SMs / HG blocks
-// per head group (two per SM; one group of 16 heads on DeepSeek-V2-Lite),
+// per head group (two per SM at 576, four at 288; one group of 16 heads on
+// DeepSeek-V2-Lite, 16 / 16 / 8 on MiniCPM3's 40),
 // each an equal contiguous share of the batch's chunks through its own
 // ring, the chunks of a request merged from the scratch by
 // rpa_mla_combine_kernel as the packed decode merges them, so that the two
@@ -66,7 +69,8 @@
 //
 // float32 q (rpa_stream_kernel, rpa_stream_mla_kernel) stays on the CUDA
 // cores, with P = min(B, resident blocks per SM * SMs / the second grid
-// dimension, groups of 8 query heads on the latent pool): each block takes
+// dimension, groups of MLA_STREAM_HB query heads on the latent pool): each
+// block takes
 // the contiguous run of whole requests whose first tile falls in its 1/P
 // share of all tiles, walks them through a ring of STREAM_NBUF stages of
 // raw KV bytes (16-byte cp.async.cg copies, one commit group per tile),
@@ -77,7 +81,8 @@
 // Bound on this card: bytes, as the decode's (rpa_decode.cu,
 // rpa_mla_mma.cuh): every live KV row is read once; the tensor-core kernels
 // do 4 * Hq * D operations per position (2 Hq (576 + 512) on the latent
-// pool) on bf16 tensor cores, far below the bytes' time.
+// pool, 2 Hq (288 + 256) at 288) on bf16 tensor cores, far below the
+// bytes' time.
 #include <type_traits>
 
 #include "rpa_decode.cuh"
@@ -253,9 +258,9 @@ rpa_stream_kernel(const TQ* __restrict__ q,            // [B, Hq, D]
 }
 
 // MLA over the latent pool: block (p, group g of MLA_STREAM_HB query heads)
-// streams its run, the heads as rows of 16 threads each (MlaRows, as in
-// rpa_decode_mla.cu).
-constexpr int MLA_STREAM_HB = 8;  // query heads per block
+// streams its run, the heads as rows of MLA_TPR threads each (MlaRows, as
+// in rpa_decode_mla.cu: 8 heads a block at 576, 16 at 288).
+constexpr int MLA_STREAM_HB = STREAM_NT / MLA_TPR;  // query heads per block
 
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(STREAM_NT)
@@ -815,7 +820,8 @@ static int launch_gqa(const void* q, const void* k_pool, const void* v_pool, con
 // share is cut at the tile's fixed chunks (MLA_MMA_CHUNK = 256 positions),
 // so that every chunk is computed as the packed decode computes it.
 //
-// Block (p, head group h) of P x HG: the batch's chunks, request-major (each
+// Block (p, head group h) of P x HG, the heads [16 h, 16 h + G), G = min(16,
+// Hq - 16 h) (rpa_mla_mma.cuh's groups): the batch's chunks, request-major (each
 // request's ceil(min(kv_len, maxP * page_size) / MLA_MMA_CHUNK) in order),
 // form one sequence of C chunks; block p walks [c_p, c_p+1), c_p = floor(p C
 // / P): equal shares of whole chunks, differing by at most one. The block's
@@ -840,9 +846,10 @@ rpa_stream_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
   constexpr int TK = MLA_MMA_TK, NST = MLA_MMA_NST, CT = MLA_MMA_CHUNK / MLA_MMA_TK;
   extern __shared__ __align__(16) unsigned char mla_smem[];
   __shared__ int s_req, s_first;  // the request holding the block's first chunk, its first chunk
-  const int p = blockIdx.x, P = gridDim.x, h = blockIdx.y, HG = gridDim.y;
+  const int p = blockIdx.x, P = gridDim.x, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int G = Hq / HG, max_len = maxP * page_size;
+  const int h0 = h * MLA_MMA_ROWS;  // the group's first head
+  const int G = min(MLA_MMA_ROWS, Hq - h0), max_len = maxP * page_size;
   const int n_chunk = (max_len + MLA_MMA_CHUNK - 1) / MLA_MMA_CHUNK;  // the scratch's chunks
 
   // the chunk sequence and the block's share [c0, c1); the thread whose
@@ -903,7 +910,7 @@ rpa_stream_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
         ft = 0;
         flim = min(kv_lens[fr], max_len);
         fn = flim > 0 ? (flim + TK - 1) / TK : 0;
-        const __nv_bfloat16* qr = q + ((int64_t)fr * Hq + (int64_t)h * G) * MLA_DL;
+        const __nv_bfloat16* qr = q + ((int64_t)fr * Hq + h0) * MLA_DL;
         for (int o = tid * 64; o < G * MLA_DL; o += MLA_MMA_NT * 64) prefetch_l2(qr + o);
       }
       cp.issue(ring + (issued % NST) * TK * MLA_MMA_LD, lat, page_table + (int64_t)fr * maxP,
@@ -936,7 +943,7 @@ rpa_stream_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
       climit = min(kv_lens[cr], max_len);
       cn = climit > 0 ? (climit + TK - 1) / TK : 0;
     }
-    const int64_t row0 = (int64_t)cr * Hq + (int64_t)h * G;
+    const int64_t row0 = (int64_t)cr * Hq + h0;
     if (i == 0 || ct == 0) mla_load_q(qa, q + row0 * MLA_DL, G, warp, lane);  // a new request
     if (ct % CT == 0) ms.reset();  // a chunk begins
     const uint32_t sT = s_ring + (i % NST) * MLA_MMA_STAGE;
@@ -963,7 +970,7 @@ rpa_stream_mla_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, MLA_D
   for (int r = p; r < B; r += P)  // rows with no position
     if (mla_chunks(kv_lens[r], max_len) == 0)
       for (int i = tid; i < G * MLA_DV; i += MLA_MMA_NT)
-        out[((int64_t)r * Hq + (int64_t)h * G) * MLA_DV + i] = __float2bfloat16(0.f);
+        out[((int64_t)r * Hq + h0) * MLA_DV + i] = __float2bfloat16(0.f);
 }
 
 template <typename TKV>
@@ -972,7 +979,7 @@ static int launch_stream_mla_mma(const void* q, const void* lat, const void* pt,
                                  int page_size, float scale, float cap, int n_blocks,
                                  void* scratch, cudaStream_t stream) {
   const int HG = (Hq + MLA_MMA_ROWS - 1) / MLA_MMA_ROWS;  // head groups of at most 16
-  if (Hq % HG || n_blocks < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (n_blocks < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
   auto kernel = rpa_stream_mla_mma_kernel<TKV>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MLA_MMA_SMEM);

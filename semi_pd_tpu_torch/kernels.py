@@ -97,6 +97,12 @@ class CudaKernel:
         return NVCC_FLAGS + tuple(f"-D{d}" for d in (*self.defines,
                                                       f"RPA_ENTRY={self.symbol}"))
 
+    def constants(self, *files: str) -> Dict[str, int]:
+        """The ``constexpr int`` constants of ``files`` (names in the
+        source's directory, in order) as this build compiles them
+        (source_constants)."""
+        return source_constants([self.source.parent / f for f in files], self.defines)
+
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
         for header in sorted(self.source.parent.glob("*.cuh")):
@@ -149,6 +155,30 @@ class CudaKernel:
             _tally[self.name] = _tally.get(self.name, 0) + 1
         else:
             self.launches += 1
+
+
+def source_constants(files: Sequence, defines: Sequence[str] = ()) -> Dict[str, int]:
+    """The ``constexpr int NAME = expr;`` lines of the source ``files``
+    (paths, in order), evaluated as a build with ``defines`` (``NAME=value``
+    strings, nvcc's -D) compiles them: the defines first, then each
+    ``#define NAME value`` default a file states (behind ``#ifndef``), with
+    C's integer division: the constants the tests and the tuning scripts
+    hold the wrappers' plans to."""
+    env: Dict[str, int] = {}
+    for d in defines:
+        name, _, value = d.partition("=")
+        env[name] = int(value) if value.lstrip("-").isdigit() else 1
+    for f in files:
+        for line in Path(f).read_text().splitlines():
+            m = re.match(r"#define (\w+) (-?\d+)$", line.strip())
+            if m:
+                env.setdefault(m.group(1), int(m.group(2)))
+                continue
+            m = re.match(r"constexpr int (\w+) = ([^;]+);", line)
+            if m:
+                env[m.group(1)] = eval(m.group(2).replace("/", "//"),  # noqa: S307
+                                       {}, dict(env))
+    return env
 
 
 KERNELS: Dict[str, CudaKernel] = {}

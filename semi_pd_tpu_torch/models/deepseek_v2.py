@@ -7,8 +7,13 @@ one [c_kv | k_pe] latent row per token (mem/pool.py's latent layout), V is
 the latent prefix of K, and W_UV is applied after attention. Prefill and
 decode run the same path through ``layers.attention.paged_attention_mla``
 (the latent pool's CUDA kernels on the card). The rope over the decoupled
-q_pe / k_pe dims is GPT-J interleaved, with DeepSeek-yarn frequencies, and
-the softmax scale gets the yarn mscale^2 correction.
+q_pe / k_pe dims is GPT-J interleaved (``rope_neox``: NeoX halves, as
+MiniCPM3's), with DeepSeek-yarn frequencies, and the softmax scale gets the
+yarn mscale^2 correction. Three scalings are off (None) for DeepSeek and
+set by MiniCPM3's wrapper (models/minicpm3.py), at the JAX sites
+(deepseek_v2.py:248-259, 307-308, 337-338): the embedding times
+``embed_scale``, each residual branch times ``residual_mult``, the logits
+divided by ``logits_div``.
 
 Layers are heterogeneous (``first_k_dense_replace`` dense layers, then MoE
 layers with shared experts), so parameters are per layer: leaf for leaf the
@@ -19,8 +24,7 @@ greedy (V2), grouped (V2 group_limited_greedy) or sigmoid grouped with a
 score-correction bias (V3); the experts run through ops/moe.py.
 
 Not ported: checkpoint loading and the kv_b_proj -> (W_UK, W_UV) split of
-``postprocess_weight`` (ROADMAP A13), MiniCPM3's wrapper (its scale_emb,
-residual and logit scalings; A12), tensor parallelism (A15).
+``postprocess_weight`` (ROADMAP A13), tensor parallelism (A15).
 """
 
 from __future__ import annotations
@@ -49,8 +53,15 @@ def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix[:-1], tree)]
 
 
+def dtype_scalar(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as JAX's ``jnp.asarray(v, x.dtype)`` rounds
+    a scale before multiplying a tensor of that dtype by it."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
 class DeepseekV2ForCausalLM(TreeParams):
-    def __init__(self, config: ModelConfig, device):
+    def __init__(self, config: ModelConfig, device, *, embed_scale=None, residual_mult=None,
+                 logits_div=None, rope_neox: bool = False):
         super().__init__()
         c = self.config = config
         if not c.use_mla:
@@ -71,8 +82,14 @@ class DeepseekV2ForCausalLM(TreeParams):
             self.scale = self.scale * m * m
         self.rope = RotaryEmbedding(
             head_dim=self.dr, rotary_dim=self.dr, max_position=c.context_length,
-            theta=c.rope_theta, rope_scaling=c.rope_scaling, is_neox_style=False,
+            theta=c.rope_theta, rope_scaling=c.rope_scaling, is_neox_style=rope_neox,
         ).to(device)
+        # the scalings, each rounded to the dtype it multiplies (None: off)
+        self.embed_scale = None if embed_scale is None else dtype_scalar(embed_scale, self.dtype)
+        self.residual_mult = (None if residual_mult is None
+                              else dtype_scalar(residual_mult, self.dtype))
+        self.logits_div = (None if logits_div is None
+                           else dtype_scalar(logits_div, torch.float32))
         # each leaf is the parameter "<path with . -> __>"; per-layer views
         # self.lp[l]["kv_a.w"] for the forward pass
         self.lp: List[Dict[str, torch.nn.Parameter]] = [{} for _ in range(c.num_hidden_layers)]
@@ -155,11 +172,15 @@ class DeepseekV2ForCausalLM(TreeParams):
         again with its ``hnorm``)."""
         c = self.config
         h = self.embed__w[fb.input_ids.long()]
+        if self.embed_scale is not None:
+            h = h * self.embed_scale
         for l in range(c.num_hidden_layers):
             h = self._layer(self.lp[l], l, h, fb, kv_cache, attention)
         h = rms_norm(h, self.final_norm, c.rms_norm_eps)
         last_h = h[fb.logits_idx.long()]
         logits = lm_head_logits(last_h, self.head(), c.logit_softcap)
+        if self.logits_div is not None:
+            logits = logits / self.logits_div
         return (logits, last_h) if return_hidden else logits
 
     @property
@@ -206,7 +227,10 @@ class DeepseekV2ForCausalLM(TreeParams):
                                        v_dim=self.kv_lora, attention=attention)
         attn = torch.einsum("thk,hkv->thv", attn_lat.float(),
                             lp["w_uv"].float()).to(h.dtype)  # [T, Hq, dv]
-        h = h + apply_linear(attn.reshape(T, Hq * self.dv), lp["o_proj.w"])
+        attn_out = apply_linear(attn.reshape(T, Hq * self.dv), lp["o_proj.w"])
+        if self.residual_mult is not None:
+            attn_out = attn_out * self.residual_mult
+        h = h + attn_out
 
         # MLP / MoE
         y = rms_norm(h, lp["post_norm"], eps)
@@ -230,4 +254,6 @@ class DeepseekV2ForCausalLM(TreeParams):
                                          lp["shared.down.w"])
         else:
             mlp = apply_linear(silu_and_mul(apply_linear(y, lp["gate_up.w"])), lp["down.w"])
+        if self.residual_mult is not None:
+            mlp = mlp * self.residual_mult
         return h + mlp

@@ -58,7 +58,8 @@ import torch
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
     F, I, P, TYPE_CODES, check_cuda, check_pool_args, check_spec, gather_kv,
-    kernel_family, kv_planes, layer_kv, pool_heads, spec_tree_mask,
+    kernel_family, kv_planes, latent_defines, layer_kv, pick_kernel, pool_heads,
+    spec_tree_mask,
 )
 from semi_pd_tpu_torch.ops.attention.rpa_packed import (
     MERGED_DEFINES,
@@ -115,6 +116,23 @@ EXTEND_MLA_KERNEL = register(CudaKernel(
     defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_P_F32"),
 ))
 
+# MiniCPM3's latent geometry (rpa_common.LATENT_BUILDS), without the
+# speculation tree's instantiations: no draft of that geometry speculates
+# over a tree (the port's tree drafts are EAGLE's on the 5D pool and
+# NextN's at DeepSeek's 576), so the wrapper refuses a tree there
+EXTEND_MLA_288_KERNEL = register(CudaKernel(
+    name="rpa_extend_mla_288",
+    source="csrc/rpa_extend_mla.cu",
+    symbol="rpa_extend_mla_288",
+    argtypes=_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel "
+             "(MLA v_dim branch, latent 288 / v_dim 256)",
+    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_P_F32", *latent_defines(288),
+             "RPA_MLA_NO_TREE"),
+))
+# the latent extends by latent width
+EXTEND_MLA_KERNELS = {576: EXTEND_MLA_KERNEL, 288: EXTEND_MLA_288_KERNEL}
+
 EXTEND_MERGED_KERNEL = register(CudaKernel(
     name="rpa_extend_merged",
     source="csrc/rpa_extend.cu",
@@ -126,9 +144,9 @@ EXTEND_MERGED_KERNEL = register(CudaKernel(
 ))
 
 # The extend kernel of each kernel family of the 5D and the latent pool
-# (rpa_common.kernel_family)
+# (rpa_common.kernel_family; rpa_common.pick_kernel)
 EXTEND_KERNELS = {"aligned": EXTEND_ALIGNED_KERNEL, "merged": EXTEND_MERGED_KERNEL,
-                  "latent": EXTEND_MLA_KERNEL}
+                  "latent": EXTEND_MLA_KERNELS}
 
 
 def _decodes(q, page_table, spec_anc) -> bool:
@@ -247,6 +265,12 @@ def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_s
     check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
                     v_dim)
     check_spec(spec_anc, win_base, page_table.shape[0])
+    if spec_anc and "RPA_MLA_NO_TREE" in kernel.defines:
+        # on every device, so that the CPU runs what the card runs
+        raise NotImplementedError(
+            f"{kernel.name}: a speculation tree over the latent width {q.shape[-1]}; this "
+            f"build has no tree instantiations (no draft of that geometry speculates "
+            f"over a tree: NextN's tree runs at DeepSeek's 576)")
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
     if q.device.type == "cpu":
@@ -329,7 +353,7 @@ def ragged_paged_attention_extend(
     v_dim]; the tree's mask there too); rows no work-list entry owns stay
     0."""
     Hkv, D = pool_heads(kv_cache)
-    return _extend(EXTEND_KERNELS[kernel_family(kv_cache)], q, kv_cache, layer_idx,
+    return _extend(pick_kernel(EXTEND_KERNELS, kv_cache), q, kv_cache, layer_idx,
                    page_table, kv_lens, meta, page_size=page_size, num_kv_heads=Hkv,
                    head_dim=D, scale=scale, logit_cap=logit_cap,
                    sliding_window=sliding_window, v_dim=v_dim, spec_anc=spec_anc,

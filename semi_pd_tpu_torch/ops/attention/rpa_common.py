@@ -35,16 +35,35 @@ TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
               torch.float8_e5m2: 3}
 
 # What each family of kernels is instantiated for (kernel_family): the
-# head_dim (the latent width on the latent pool, DeepSeek-V2's 512 + 64),
-# and the (q, KV) dtype pairs of every build (csrc/rpa_common.cuh
-# RPA_FOR_EACH_PAIR): fp8 KV (the latent rows on the latent pool) goes with
-# bf16 q, widened exactly to bf16 inside the kernels
-KERNEL_HEAD_DIM = {"chunked": 64, "aligned": 128, "merged": 64, "latent": 576}
+# head_dim of the GQA families, and the (q, KV) dtype pairs of every build
+# (csrc/rpa_common.cuh RPA_FOR_EACH_PAIR): fp8 KV (the latent rows on the
+# latent pool) goes with bf16 q, widened exactly to bf16 inside the kernels
+KERNEL_HEAD_DIM = {"chunked": 64, "aligned": 128, "merged": 64}
 KERNEL_PAIRS = frozenset({(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
                           (torch.bfloat16, torch.float8_e4m3fn),
                           (torch.bfloat16, torch.float8_e5m2)})
-# The latent pool's kernels take V as the first 512 elements of the row
-KERNEL_V_DIM = 512
+# The latent pool's builds, one per geometry: latent width -> V's width (V
+# is the row's first elements; csrc/rpa_mla.cuh RPA_MLA_DL / RPA_MLA_DV):
+# DeepSeek-V2's 512 + 64 with V 512, MiniCPM3's 256 + 32 with V 256
+LATENT_BUILDS = {576: 512, 288: 256}
+
+
+def latent_defines(width: int) -> tuple:
+    """The nvcc defines of the latent build of ``width`` (none at 576, the
+    sources' default geometry)."""
+    if width == 576:
+        return ()
+    return (f"RPA_MLA_DL={width}", f"RPA_MLA_DV={LATENT_BUILDS[width]}")
+
+
+def pick_kernel(kernels: dict, kv_cache: torch.Tensor):
+    """The build serving the pool from ``kernels`` (kernel_family -> kernel,
+    or on the latent pool -> {latent width: kernel}). A latent width with no
+    build gets DeepSeek-V2's (576) build: the CPU runs the plain version at
+    any width, and on the card check_cuda refuses the width before any
+    launch."""
+    k = kernels.get(kernel_family(kv_cache))
+    return k.get(kv_cache.shape[-1], k[576]) if isinstance(k, dict) else k
 
 
 def spec_tree_mask(valid: torch.Tensor, spec_anc, win_base, q_abs: torch.Tensor,
@@ -177,13 +196,13 @@ def check_cuda(q, kv_cache, *ints, v_dim=None) -> None:
         raise ValueError(f"the {family} kernels take (q, KV) dtypes "
                          f"{sorted(map(str, KERNEL_PAIRS))}, got "
                          f"({q.dtype}, {kv_cache.dtype})")
-    if family == "latent" and (q.shape[-1], v_dim) != (KERNEL_HEAD_DIM["latent"],
-                                                        KERNEL_V_DIM):
-        raise NotImplementedError(
-            f"latent width {q.shape[-1]} with v_dim {v_dim}: the latent pool's "
-            f"kernels are built for DeepSeek-V2's 576 with v_dim 512; other MLA "
-            f"geometries (MiniCPM3's 288 / 256) are ROADMAP A12")
-    if q.shape[-1] != KERNEL_HEAD_DIM[family]:
+    if family == "latent":
+        if LATENT_BUILDS.get(q.shape[-1]) != v_dim:
+            raise NotImplementedError(
+                f"latent width {q.shape[-1]} with v_dim {v_dim}: the latent pool's "
+                f"kernels are built for (width, v_dim) {sorted(LATENT_BUILDS.items())} "
+                f"(DeepSeek-V2's, MiniCPM3's); other MLA geometries are ROADMAP B9.4")
+    elif q.shape[-1] != KERNEL_HEAD_DIM[family]:
         raise NotImplementedError(
             f"head_dim {q.shape[-1]}: the {family} kernels are built for "
             f"{KERNEL_HEAD_DIM[family]} only; other head dims are ROADMAP A9")
@@ -195,7 +214,8 @@ def kv_planes(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int,
     ``layer_idx``: K and V of slot s, head h sit at base + (s * row_stride
     + h * D) elements. Computed in Python ints: a full pool can exceed
     2**31 elements. The kernels' 16-byte loads stay aligned for every KV
-    dtype, fp8 included: at the head dims they are built for (64, 128, 576)
+    dtype, fp8 included: at the head dims they are built for (64, 128, and
+    the latent 576 and 288)
     the V offset, the row stride and a head's offset are multiples of 16
     bytes (on the chunked pool at Hkv 8, D 64 and fp8, V sits 512 bytes into
     the slot's 1024-byte row)."""

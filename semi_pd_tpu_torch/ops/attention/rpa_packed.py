@@ -37,8 +37,8 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kernel_family, kv_planes,
-    layer_kv, pool_heads,
+    F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kv_planes, latent_defines,
+    layer_kv, pick_kernel, pool_heads,
 )
 
 # The decode kernels' arguments up to the CUDA stream (the streaming
@@ -67,7 +67,9 @@ DECODE_ALIGNED_KERNEL = register(CudaKernel(
 ))
 
 # The TPU kernel's MLA branch upcasts q and the latent rows to float32 and
-# keeps P in float32 (RPA_P_F32)
+# keeps P in float32 (RPA_P_F32). One build per latent geometry
+# (rpa_common.LATENT_BUILDS): DeepSeek-V2's 576 / 512 and MiniCPM3's 288 /
+# 256, the TPU branch's width-generic code (it zero-pads q and the rows)
 DECODE_MLA_KERNEL = register(CudaKernel(
     name="rpa_decode_mla",
     source="csrc/rpa_decode_mla.cu",
@@ -76,6 +78,18 @@ DECODE_MLA_KERNEL = register(CudaKernel(
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (MLA branch)",
     defines=("RPA_P_F32",),
 ))
+
+DECODE_MLA_288_KERNEL = register(CudaKernel(
+    name="rpa_decode_mla_288",
+    source="csrc/rpa_decode_mla.cu",
+    symbol="rpa_decode_mla_288",
+    argtypes=SPLIT_DECODE_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed "
+             "(MLA branch, latent 288 / v_dim 256)",
+    defines=("RPA_P_F32", *latent_defines(288)),
+))
+# the latent decodes by latent width
+DECODE_MLA_KERNELS = {576: DECODE_MLA_KERNEL, 288: DECODE_MLA_288_KERNEL}
 
 # The 5D pool at head_dim 64: _rpa_kernel_merged computes in float32
 # throughout, P included, so this build keeps P in float32 (RPA_P_F32)
@@ -92,9 +106,9 @@ DECODE_MERGED_KERNEL = register(CudaKernel(
 ))
 
 # The decode kernel of each kernel family of the 5D and the latent pool
-# (rpa_common.kernel_family)
+# (rpa_common.kernel_family; rpa_common.pick_kernel)
 DECODE_KERNELS = {"aligned": DECODE_ALIGNED_KERNEL, "merged": DECODE_MERGED_KERNEL,
-                  "latent": DECODE_MLA_KERNEL}
+                  "latent": DECODE_MLA_KERNELS}
 
 # The split plan's constants of each packed decode build's tensor-core
 # kernel, as its source states them (tests/test_torch_decode_split.py and
@@ -103,15 +117,19 @@ DECODE_KERNELS = {"aligned": DECODE_ALIGNED_KERNEL, "merged": DECODE_MERGED_KERN
 # KV). The GQA builds (csrc/rpa_decode.cu, for the build's head_dim):
 # SD_STEP, the positions a block walks per round, 4 warps x SD_TK = 2048 /
 # head_dim, and SD_BLOCKS_PER_SM, about 105 KB of shared memory a block at
-# head_dim 64 and 128. The latent build (csrc/rpa_mla_mma.cuh):
-# MLA_MMA_CHUNK, the fixed chunk it splits every request at, and
-# MLA_MMA_BLOCKS_PER_SM, 81 KB a block.
+# head_dim 64 and 128. The latent builds (csrc/rpa_mla_mma.cuh):
+# MLA_MMA_CHUNK, the fixed chunk they split every request at, and
+# MLA_MMA_BLOCKS_PER_SM, as many blocks as the shared memory holds (81 KB a
+# block at 576, 45 KB at 288).
 DECODE_SPLIT = {DECODE_KERNEL.name: (128, 2), DECODE_ALIGNED_KERNEL.name: (64, 2),
-                DECODE_MERGED_KERNEL.name: (128, 2), DECODE_MLA_KERNEL.name: (256, 2)}
+                DECODE_MERGED_KERNEL.name: (128, 2), DECODE_MLA_KERNEL.name: (256, 2),
+                DECODE_MLA_288_KERNEL.name: (256, 4)}
+# the latent builds' names (their plan is the fixed chunk)
+MLA_DECODES = frozenset(k.name for k in DECODE_MLA_KERNELS.values())
 # a GQA build's split covers at least SPLIT_MIN positions (unless the page
 # table is shorter)
 SPLIT_MIN = 512
-# query heads per block of the latent build's tensor-core kernels (the rows
+# query heads per block of the latent builds' tensor-core kernels (the rows
 # of one m16 tile, csrc/rpa_mla_mma.cuh MLA_MMA_ROWS)
 MLA_ROWS = 16
 
@@ -119,8 +137,9 @@ MLA_ROWS = 16
 def head_groups(kernel, Hq: int, num_kv_heads: int) -> int:
     """The second grid dimension of a tensor-core decode: the KV heads of a
     GQA build, or on the latent pool (one latent head) the groups of at most
-    MLA_ROWS query heads, one for DeepSeek-V2-Lite's 16."""
-    if kernel.name.endswith("_mla"):
+    MLA_ROWS query heads, group h the heads [16 h, min(16 h + 16, Hq)): one
+    for DeepSeek-V2-Lite's 16, three (16 / 16 / 8) for MiniCPM3's 40."""
+    if "_mla" in kernel.name:
         return -(-Hq // MLA_ROWS)
     return num_kv_heads
 
@@ -134,13 +153,15 @@ def decode_split_plan(build: str, B: int, Hkv: int, max_kv: int, num_sms: int):
     for the card. A GQA build takes enough splits that the B * Hkv *
     n_split blocks fill the card once at its blocks per SM, split_len at
     least SPLIT_MIN (unless max_kv is shorter) and a multiple of its step.
-    The latent build splits at its fixed chunk (its step), whatever the
-    batch, so that a request's output does not depend on the batch around
-    it and equals the streaming decode's (csrc/rpa_mla_mma.cuh); at
-    DeepSeek-V2-Lite's phase-2 shapes that is also the plan that fills the
-    card (two blocks an SM at b64 / kv1024 and b16 / kv4096)."""
+    The latent builds split at their fixed chunk (their step), whatever the
+    batch and the head groups, so that a request's output does not depend
+    on the batch around it and equals the streaming decode's
+    (csrc/rpa_mla_mma.cuh); at DeepSeek-V2-Lite's phase-2 shapes that is
+    also the plan that fills the card (two blocks an SM at b64 / kv1024 and
+    b16 / kv4096; MiniCPM3's three head groups at four an SM, 768 blocks,
+    fill it 1.45 times)."""
     step, blocks_per_sm = DECODE_SPLIT[build]
-    if build == DECODE_MLA_KERNEL.name:
+    if build in MLA_DECODES:
         return max(1, -(-max_kv // step)), step
     want = max(1, blocks_per_sm * num_sms // max(B * Hkv, 1))
     n = max(1, min(want, max_kv // SPLIT_MIN))
@@ -242,7 +263,7 @@ def ragged_paged_attention_packed(
     latent pool: returns [B, Hq, D] (or [B, Hq, v_dim]); rows with kv_len
     == 0 are 0."""
     Hkv, D = pool_heads(kv_cache)
-    return decode_with(DECODE_KERNELS[kernel_family(kv_cache)], q, kv_cache, layer_idx,
+    return decode_with(pick_kernel(DECODE_KERNELS, kv_cache), q, kv_cache, layer_idx,
                        page_table, kv_lens, page_size=page_size, num_kv_heads=Hkv, head_dim=D,
                        scale=scale, logit_cap=logit_cap, sliding_window=sliding_window,
                        v_dim=v_dim)

@@ -39,9 +39,11 @@ from typing import Optional
 import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, register
-from semi_pd_tpu_torch.ops.attention.rpa_common import FP8, I, P, kernel_family, pool_heads
+from semi_pd_tpu_torch.ops.attention.rpa_common import (
+    FP8, I, P, kernel_family, latent_defines, pick_kernel, pool_heads,
+)
 from semi_pd_tpu_torch.ops.attention.rpa_packed import (
-    DECODE_ARGTYPES, DECODE_MLA_KERNEL, DECODE_SPLIT, decode_split_plan, decode_with,
+    DECODE_ARGTYPES, DECODE_MLA_KERNELS, DECODE_SPLIT, decode_split_plan, decode_with,
     head_groups, sm_count,
 )
 
@@ -67,7 +69,8 @@ STREAM_ALIGNED_KERNEL = register(CudaKernel(
 ))
 
 # The TPU kernel's MLA branch upcasts q and the latent rows to float32 and
-# keeps P in float32 (RPA_P_F32)
+# keeps P in float32 (RPA_P_F32); one build per latent geometry, as the
+# packed decode's
 STREAM_MLA_KERNEL = register(CudaKernel(
     name="rpa_decode_stream_mla",
     source="csrc/rpa_stream.cu",
@@ -77,10 +80,26 @@ STREAM_MLA_KERNEL = register(CudaKernel(
     defines=("RPA_MLA", "RPA_P_F32"),
 ))
 
-# The streaming decode of each kernel family (rpa_common.kernel_family);
-# the merged family (the 5D pool below head_dim 128) has none, as in JAX
+STREAM_MLA_288_KERNEL = register(CudaKernel(
+    name="rpa_decode_stream_mla_288",
+    source="csrc/rpa_stream.cu",
+    symbol="rpa_decode_stream_mla_288",
+    argtypes=STREAM_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/rpa_stream.py:28 _rpa_kernel_stream "
+             "(MLA branch, latent 288 / v_dim 256)",
+    defines=("RPA_MLA", "RPA_P_F32", *latent_defines(288)),
+))
+# the latent streams by latent width, and each one's packed decode (whose
+# chunks and blocks per SM it shares)
+STREAM_MLA_KERNELS = {576: STREAM_MLA_KERNEL, 288: STREAM_MLA_288_KERNEL}
+STREAM_MLA_DECODE = {STREAM_MLA_KERNELS[w].name: DECODE_MLA_KERNELS[w].name
+                     for w in STREAM_MLA_KERNELS}
+
+# The streaming decode of each kernel family (rpa_common.kernel_family;
+# rpa_common.pick_kernel); the merged family (the 5D pool below head_dim
+# 128) has none, as in JAX
 STREAM_KERNELS = {"chunked": STREAM_KERNEL, "aligned": STREAM_ALIGNED_KERNEL,
-                  "latent": STREAM_MLA_KERNEL}
+                  "latent": STREAM_MLA_KERNELS}
 
 
 # The tensor-core streams' schedules (tests/test_torch_stream_split.py and
@@ -92,7 +111,7 @@ STREAM_KERNELS = {"chunked": STREAM_KERNEL, "aligned": STREAM_ALIGNED_KERNEL,
 # the warps of a block and the blocks an SM holds at once, with bf16 KV and
 # with fp8 KV (the latent build's: rpa_packed.DECODE_SPLIT)
 STREAM_TILE = {STREAM_KERNEL.name: 16, STREAM_ALIGNED_KERNEL.name: 8,
-               STREAM_MLA_KERNEL.name: DECODE_SPLIT[DECODE_MLA_KERNEL.name][0]}
+               **{s: DECODE_SPLIT[d][0] for s, d in STREAM_MLA_DECODE.items()}}
 STREAM_NBUF = 4
 STREAM_WARPS = 4
 STREAM_BLOCKS_PER_SM = 2
@@ -109,8 +128,8 @@ def stream_blocks(build: str, B: int, Hkv: int, max_kv: int, num_sms: int,
     of its shares a unit of STREAM_TILE: a tile to each of a GQA block's 4
     warps, a chunk to a latent block. From the shapes, the build, the KV
     type and the SM count only: the wrapper never reads kv_lens."""
-    if build == STREAM_MLA_KERNEL.name:
-        per_sm, shares = DECODE_SPLIT[DECODE_MLA_KERNEL.name][1], 1
+    if build in STREAM_MLA_DECODE:
+        per_sm, shares = DECODE_SPLIT[STREAM_MLA_DECODE[build]][1], 1
     else:
         per_sm = STREAM_BLOCKS_PER_SM_FP8 if fp8 else STREAM_BLOCKS_PER_SM
         shares = STREAM_WARPS
@@ -139,8 +158,8 @@ def stream_args(kernel, q, kv_dtype, num_kv_heads, max_kv, dv):
     heads = head_groups(kernel, Hq, num_kv_heads)
     sms = sm_count(q.device.index or 0)
     n = stream_blocks(kernel.name, B, heads, max_kv, sms, fp8=kv_dtype in FP8)
-    if kernel is STREAM_MLA_KERNEL:
-        n_chunk, _ = decode_split_plan(DECODE_MLA_KERNEL.name, B, heads, max_kv, sms)
+    if kernel.name in STREAM_MLA_DECODE:
+        n_chunk, _ = decode_split_plan(STREAM_MLA_DECODE[kernel.name], B, heads, max_kv, sms)
         floats = n_chunk * B * Hq * (dv + 2)
     else:
         floats = stream_scratch_floats(n, Hq, heads, dv)
@@ -155,7 +174,8 @@ def _stream(q, kv_cache, layer_idx, page_table, kv_lens, *, page_size, num_kv_he
         raise NotImplementedError(
             f"no streaming decode for the {family} kernels: the 5D pool below head_dim "
             f"128 decodes through its merged kernel, stream or not")
-    return decode_with(STREAM_KERNELS[family], q, kv_cache, layer_idx, page_table, kv_lens,
+    return decode_with(pick_kernel(STREAM_KERNELS, kv_cache), q, kv_cache, layer_idx,
+                       page_table, kv_lens,
                        page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
                        scale=scale, logit_cap=logit_cap, sliding_window=None, v_dim=v_dim,
                        plan=stream_args)

@@ -1,13 +1,18 @@
 """Rotary position embeddings (port of semi_pd_tpu/ops/rope.py: the default,
-llama3 and yarn / deepseek_yarn frequency families).
+llama3, yarn / deepseek_yarn and longrope / su frequency families).
 
 The float32 cos/sin table is computed once in float64 numpy, exactly as the
 JAX package does, and gathered by absolute position per step. yarn scales
 the table by its ``mscale`` (DeepSeek-yarn: mscale / mscale_all_dim) and
-spans ``original_max_position_embeddings * factor`` positions. Rotation is
-GPT-NeoX style (two halves, Llama) or GPT-J interleaved
-(``is_neox_style=False``, DeepSeek). linear, longrope and m-rope are ROADMAP
-A14.
+spans ``original_max_position_embeddings * factor`` positions. longrope
+(Phi-3's, MiniCPM3's; "su" is Phi-3-small's spelling) divides the
+frequencies by a per-channel short factor below
+``original_max_position_embeddings`` and a long one from there on, and
+scales the table by sqrt(1 + ln(s) / ln(orig)) when the table reaches past
+orig (s = its length / orig), or by explicit ``short_mscale`` /
+``long_mscale`` per position. Rotation is GPT-NeoX style (two halves,
+Llama, MiniCPM3's pe head) or GPT-J interleaved (``is_neox_style=False``,
+DeepSeek). linear and m-rope are ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -91,6 +96,7 @@ class RotaryEmbedding(torch.nn.Module):
         self.mscale = 1.0
         inv_freq = _default_inv_freq(self.rotary_dim, theta)
         max_pos = max_position
+        freqs = pos_mscale = None
         if rope_scaling:
             rtype = rope_scaling.get("rope_type", rope_scaling.get("type", ""))
             if rtype == "llama3":
@@ -99,16 +105,42 @@ class RotaryEmbedding(torch.nn.Module):
                 inv_freq, self.mscale = _yarn_inv_freq(self.rotary_dim, theta, rope_scaling)
                 max_pos = int(rope_scaling.get("original_max_position_embeddings", max_pos)
                               * rope_scaling.get("factor", 1.0))
+            elif rtype in ("longrope", "su"):
+                freqs, pos_mscale = self._longrope(inv_freq, max_pos, max_position,
+                                                   rope_scaling)
             elif rtype not in ("default", "dynamic"):
                 raise NotImplementedError(f"rope_scaling {rtype!r} is ROADMAP A14")
+        if freqs is None:
+            t = np.arange(max(max_pos, max_position), dtype=np.float64)
+            freqs = np.outer(t, inv_freq)  # [max_pos, rot_dim/2]
+        scale = self.mscale if pos_mscale is None else pos_mscale
+        self.register_buffer(
+            "cos", torch.from_numpy((np.cos(freqs) * scale).astype(np.float32)),
+            persistent=False)
+        self.register_buffer(
+            "sin", torch.from_numpy((np.sin(freqs) * scale).astype(np.float32)),
+            persistent=False)
+
+    def _longrope(self, inv_freq, max_pos, max_position, scaling):
+        """longrope's table (semi_pd_tpu/ops/rope.py:118-145): positions
+        below orig take inv_freq / short_factor, the rest inv_freq /
+        long_factor; returns (freqs, per-position scale or None). Sets
+        ``mscale`` to sqrt(1 + ln(s) / ln(orig)) when the table reaches past
+        orig; explicit short_mscale / long_mscale replace it."""
+        orig = int(scaling.get("original_max_position_embeddings", max_pos))
+        short = np.asarray(scaling["short_factor"], np.float64)
+        longf = np.asarray(scaling["long_factor"], np.float64)
+        scale = max(max_pos, max_position) / orig
+        if scale > 1.0:
+            self.mscale = math.sqrt(1 + math.log(scale) / math.log(orig))
         t = np.arange(max(max_pos, max_position), dtype=np.float64)
-        freqs = np.outer(t, inv_freq)  # [max_pos, rot_dim/2]
-        self.register_buffer(
-            "cos", torch.from_numpy((np.cos(freqs) * self.mscale).astype(np.float32)),
-            persistent=False)
-        self.register_buffer(
-            "sin", torch.from_numpy((np.sin(freqs) * self.mscale).astype(np.float32)),
-            persistent=False)
+        freqs = np.where(t[:, None] < orig, np.outer(t, inv_freq / short),
+                         np.outer(t, inv_freq / longf))
+        if "short_mscale" in scaling or "long_mscale" in scaling:
+            sm = float(scaling.get("short_mscale") or 1.0)
+            lm = float(scaling.get("long_mscale") or sm)
+            return freqs, np.where(t[:, None] < orig, sm, lm)
+        return freqs, None
 
     def forward(self, positions: torch.Tensor, q: torch.Tensor,
                 k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -11,8 +11,9 @@ and decode are two shapes of one step on one pool), samples on the device
 and returns device tensors without waiting for them. ``read_results``
 brings a whole flush of steps back in one device->host copy.
 
-The model class follows the architecture (``ARCHITECTURES``: Llama, and
-DeepSeek-V2/V3 with MLA + MoE). The KV pool's layout follows the model's
+The model class follows the architecture (``ARCHITECTURES``: Llama,
+DeepSeek-V2/V3 with MLA + MoE, and MiniCPM3, MLA with a dense MLP, whose
+288-wide latent rows take the latent kernels' _288 builds). The KV pool's layout follows the model's
 geometry (``kv_pool_layout``, the JAX runner's rule): the chunked pool for
 head_dim 64 when a slot row holds a multiple of 8 chunks of 128 (e.g.
 Llama-3.2-1B's 8 KV heads), the 5D pool otherwise (head_dim 128, and
@@ -68,6 +69,7 @@ from semi_pd_tpu_torch.mem.pool import KVCache, KVCacheSpec, PageAllocator, ReqT
 from semi_pd_tpu_torch.model_loader.loader import device_init_params
 from semi_pd_tpu_torch.models.deepseek_v2 import DeepseekV2ForCausalLM
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
+from semi_pd_tpu_torch.models.minicpm3 import MiniCPM3ForCausalLM
 from semi_pd_tpu_torch.ops.sampling import SamplingArrays, compute_logprobs, sample
 from semi_pd_tpu_torch.runtime.cuda_graph_runner import CudaGraphBackend, DecodeGraphs
 from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, ForwardArrays, ForwardMode
@@ -79,6 +81,7 @@ ARCHITECTURES = {
     "LlamaForCausalLM": LlamaForCausalLM,
     "DeepseekV2ForCausalLM": DeepseekV2ForCausalLM,
     "DeepseekV3ForCausalLM": DeepseekV2ForCausalLM,
+    "MiniCPM3ForCausalLM": MiniCPM3ForCausalLM,
 }
 
 KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
@@ -168,7 +171,7 @@ class ModelRunner:
         if model_config.architecture not in ARCHITECTURES:
             raise NotImplementedError(
                 f"{model_config.architecture}: the port serves {sorted(ARCHITECTURES)}; "
-                f"MiniCPM3 (MLA) is ROADMAP A12, other families A14")
+                f"other families are ROADMAP A14")
         if server_args.context_length:
             model_config.context_length = server_args.context_length
         self.model_config = model_config

@@ -82,11 +82,13 @@ def _unaligned(a: np.ndarray, dev) -> torch.Tensor:
 
 
 def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
-          kv_dtype=None, latent=False, merged=False, hq=HQ, hkv=HKV):
+          kv_dtype=None, latent=False, merged=False, hq=HQ, hkv=HKV, dlat=DLAT,
+          hq_mla=HQ_MLA):
     """Queries, a pool (chunked [L, S, CT, 128], aligned [L, 2, S, Hkv,
-    128], merged [L, 2, S, Hkv, 64] or latent [L, 1, S, 1, 576], in
+    128], merged [L, 2, S, Hkv, 64] or latent [L, 1, S, 1, dlat], in
     ``kv_dtype``, default ``dtype``; ``hq`` query and ``hkv`` KV heads
-    outside the latent pool) and a shuffled page table."""
+    outside the latent pool, ``hq_mla`` on it) and a shuffled page
+    table."""
     rng = np.random.default_rng(seed)
     B = len(kv_lens) + pad_B
     n_pages = [-(-k // PS) for k in kv_lens]
@@ -108,8 +110,9 @@ def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
         shape = (L, 2, total * PS, hkv, D)
     scale = 1.0
     if latent:
-        d, hq, shape = DLAT, HQ_MLA, (L, 1, total * PS, 1, DLAT)
-        scale = 0.3  # scores q.k * DLAT**-0.5 of std ~1, as at the other widths
+        d, hq, shape = dlat, hq_mla, (L, 1, total * PS, 1, dlat)
+        # scores q.k * dlat**-0.5 of std ~1, as at the other widths
+        scale = 0.3 if dlat == DLAT else 0.35
     pool = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale)
     q = torch.from_numpy(rng.normal(size=(T, hq, d)).astype(np.float32) * scale)
     m = build_attn_meta(ql, kl, T)
@@ -1016,6 +1019,20 @@ def _deepseek_cfg(dtype="float32"):
                 dtype=dtype)
 
 
+def _minicpm3_cfg(dtype="float32"):
+    """A small MiniCPM3 at the kernels' latent width (kv_lora 256 + rope 32,
+    V 256) with 40 heads, its scalings and a longrope table."""
+    return dict(architecture="MiniCPM3ForCausalLM", vocab_size=512, hidden_size=256,
+                intermediate_size=512, num_hidden_layers=2, num_attention_heads=40,
+                num_key_value_heads=40, head_dim=96, context_length=512,
+                rope_scaling={"type": "longrope", "original_max_position_embeddings": 256,
+                              "short_factor": [1.0 + 0.1 * i for i in range(16)],
+                              "long_factor": [2.0 + 0.5 * i for i in range(16)]},
+                use_mla=True, q_lora_rank=96, kv_lora_rank=256, qk_nope_head_dim=64,
+                qk_rope_head_dim=32, v_head_dim=64, scale_emb=12.0, scale_depth=1.4,
+                dim_model_base=64.0, dtype=dtype)
+
+
 # the decode paths at a tiny depth in bf16: (model config, ServerArgs
 # fields, the decode kernel)
 GRAPH_PATHS = {
@@ -1036,6 +1053,12 @@ GRAPH_PATHS = {
                     {"kv_cache_dtype": "fp8_e4m3"}, "rpa_decode"),
     "latent_fp8": (_deepseek_cfg("bfloat16"), {"kv_cache_dtype": "fp8_e4m3"},
                    "rpa_decode_mla"),
+    # MiniCPM3's 288-wide latent rows: the _288 builds
+    "latent288": (_minicpm3_cfg("bfloat16"), {}, "rpa_decode_mla_288"),
+    "latent288_fp8": (_minicpm3_cfg("bfloat16"), {"kv_cache_dtype": "fp8_e4m3"},
+                      "rpa_decode_mla_288"),
+    "stream_latent288": (_minicpm3_cfg("bfloat16"), {"decode_stream": True},
+                         "rpa_decode_stream_mla_288"),
 }
 
 
@@ -1428,3 +1451,184 @@ def test_graph_capture_collects_first_and_holds_the_collector_off(cuda_device):
     torch.cuda.synchronize()
     assert seen == [(False, True)] and gc.isenabled()
     assert torch.equal(out, x * 2)
+
+
+# ------------------------------------------- MiniCPM3's latent geometry (288)
+# the _288 builds: MiniCPM3's latent row (256 + 32), V its first 256; its
+# 40 query heads in groups of 16 / 16 / 8, and DeepSeek-V2-Lite's 16
+DLAT288, V288 = 288, 256
+BUILDS288 = {"decode": "rpa_decode_mla_288", "stream": "rpa_decode_stream_mla_288",
+             "extend": "rpa_extend_mla_288"}
+CASES288 = [(kind, opt) for kind in BUILDS288 for opt in ("plain", "softcap", "window")
+            if not (kind == "stream" and opt == "window")]
+
+
+def _case288(case, dev, dtype, kv_dtype, hq):
+    return case(dev, dtype, latent=True, dlat=DLAT288, hq_mla=hq, kv_dtype=kv_dtype)
+
+
+def _fns288(kind):
+    """The wrapper and its plain version for one kind on the latent pool."""
+    if kind == "extend":
+        return rpa.ragged_paged_attention_extend, rpa.ragged_paged_attention_extend_plain
+    fn = (rpa_packed.ragged_paged_attention_packed if kind == "decode"
+          else rpa_stream.ragged_paged_attention_stream)
+    return (lambda q, kv, layer, pt, kvl, meta, **kw: fn(q, kv, layer, pt, kvl, **kw),
+            lambda q, kv, layer, pt, kvl, meta, **kw:
+            rpa_packed.ragged_paged_attention_packed_plain(q, kv, layer, pt, kvl, **kw))
+
+
+@pytest.mark.parametrize("hq", [40, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("kind,opt", CASES288, ids=[f"{k}-{o}" for k, o in CASES288])
+def test_mla288_kernel_matches_plain(cuda_device, kind, opt, dtype, hq):
+    """The three _288 builds (fp8 = bf16 q over fp8 latent rows) against
+    their plain versions on layer 1 of the pool, at MiniCPM3's 40 heads and
+    at 16, every dead slot NaN (none is read); one launch of the build
+    named for the width; the extend case has q_len 140 > 128 and a padded
+    batch row; rows with kv_len 0 are zeros."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    case = _extend_case if kind == "extend" else _decode_case
+    q, pool, pt, kvl, meta = _case288(case, cuda_device, dt, FP8.get(dtype, dt), hq)
+    _poison_dead_slots(pool, pt, kvl, 1)
+    kw = dict(_opts(opt, DLAT288 ** -0.5), v_dim=V288)
+    if kind == "stream":
+        kw.pop("sliding_window")
+    fn, plain = _fns288(kind)
+    k = KERNELS[BUILDS288[kind]]
+    before = k.launches
+    out = fn(q, pool, 1, pt, kvl, meta, **kw)
+    ref = plain(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert out.shape == ref.shape == (q.shape[0], hq, V288)
+    assert torch.isfinite(out).all()
+    if kind != "extend":
+        assert not out[kvl == 0].any()
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hq", [40, 16])
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("batch", ["few", "many", *STREAM_BATCHES])
+def test_mla288_decodes_agree_bit_for_bit_whatever_the_batch(cuda_device, batch, kv_dtype, hq):
+    """With bf16 q the _288 packed and streaming decodes give the same bits,
+    over bf16 and over fp8 latent rows, at both head counts (the uneven
+    third group of 8 at 40 included), and a request decoded alone gives the
+    bits it gets in the batch."""
+    bf = torch.bfloat16
+    extra = dict(latent=True, dlat=DLAT288, hq_mla=hq, kv_dtype=FP8.get(kv_dtype, bf))
+    if batch in STREAM_BATCHES:
+        lens = STREAM_BATCHES[batch]
+        q, kv, pt, kvl, _ = _case(11, [1] * len(lens), lens, cuda_device, bf, **extra)
+    else:
+        case = _decode_case if batch == "few" else _many_case
+        q, kv, pt, kvl, _ = case(cuda_device, bf, **extra)
+    _poison_dead_slots(kv, pt, kvl, 1)
+    kw = dict(page_size=PS, scale=DLAT288 ** -0.5, v_dim=V288)
+    packed = rpa_packed.ragged_paged_attention_packed(q, kv, 1, pt, kvl, **kw)
+    stream = rpa_stream.ragged_paged_attention_stream(q, kv, 1, pt, kvl, **kw)
+    again = rpa_packed.ragged_paged_attention_packed(q, kv, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, stream) and torch.equal(packed, again)
+    lens = kvl.tolist()
+    for b in sorted({0, len(lens) // 2, int(np.argmax(lens))}):
+        pages = max(1, -(-lens[b] // PS))
+        alone = rpa_packed.ragged_paged_attention_packed(
+            q[b:b + 1].contiguous(), kv, 1, pt[b:b + 1, :pages].contiguous(),
+            kvl[b:b + 1].contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], packed[b]), (b, lens[b])
+
+
+@pytest.mark.parametrize("hq", [40, 16])
+@pytest.mark.parametrize("kv", ["bfloat16", "fp8_e4m3"])
+def test_mla288_extend_repeats_bitwise_and_leaves_unowned_rows_zero(cuda_device, kv, hq):
+    """The _288 extend's warpgroup kernel (bf16 q): a second run on the same
+    inputs is bitwise equal, and the bucket-padding rows no work-list entry
+    owns stay zero, with 40 heads packed 1.6 tokens to a 64-row tile."""
+    q, pool, pt, kvl, meta = _case288(_extend_case, cuda_device, torch.bfloat16,
+                                      FP8.get(kv, torch.bfloat16), hq)
+    kw = dict(page_size=PS, scale=DLAT288 ** -0.5, v_dim=V288)
+    a = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, **kw)
+    b = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    n = int(meta.q_lens.sum())
+    assert a[:n].abs().sum() > 0 and not a[n:].any()
+
+
+def test_mla288_builds_run_on_the_tensor_cores(cuda_device):
+    """The _288 libraries disassembled: the packed and the streaming
+    decode's bf16-q instantiations (bf16, e4m3 and e5m2 rows) run HMMA in
+    their block-tile kernels and their float32 pair's CUDA-core kernel
+    none; the extend's three run HGMMA in its warpgroup kernel, and the
+    build holds no speculation-tree instantiation (-DRPA_MLA_NO_TREE)."""
+    from semi_pd_tpu_torch.kernels import sass_mma_counts
+
+    for name, mma_fn, core_fn, op in (
+            ("rpa_decode_mla_288", "rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel",
+             r"HG?MMA"),
+            ("rpa_decode_stream_mla_288", "rpa_stream_mla_mma_kernel", "rpa_stream_mla_kernel",
+             r"HG?MMA"),
+            ("rpa_extend_mla_288", "rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel",
+             "HGMMA")):
+        KERNELS[name].fn()
+        counts = sass_mma_counts(KERNELS[name], op=op)
+        mma = [n for f, n in counts.items() if mma_fn in f]
+        assert len(mma) == 3 and all(mma), (name, counts)
+        core = [n for f, n in counts.items() if core_fn in f]
+        assert len(core) == 1 and not any(core), (name, counts)
+        if name == "rpa_extend_mla_288":
+            assert not [f for f in counts if "Lb1E" in f], counts  # no TREE = true
+
+
+def test_mla288_extend_refuses_a_tree(cuda_device):
+    """A speculation tree on the 288 extend is refused before any launch,
+    with its reason."""
+    q, pool, pt, kvl, meta = _case288(_extend_case, cuda_device, torch.bfloat16,
+                                      torch.bfloat16, 40)
+    k = KERNELS["rpa_extend_mla_288"]
+    before = k.launches
+    win = torch.zeros(pt.shape[0], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="no tree instantiations"):
+        rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, page_size=PS,
+                                          scale=DLAT288 ** -0.5, v_dim=V288,
+                                          spec_anc=(1, 3), win_base=win)
+    assert k.launches == before
+
+
+@pytest.mark.parametrize("kind", ["decode", "stream"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "fp8_e4m3"])
+def test_mla576_decodes_take_uneven_head_groups(cuda_device, kind, dtype):
+    """The 576 latent decodes at 40 query heads (groups 16 / 16 / 8, which
+    they refused before the groups became uneven) against their plain
+    version, and the packed equal to the stream bitwise; at 16 heads they
+    are the tests above, unchanged."""
+    dt = torch.bfloat16
+    q, pool, pt, kvl, _ = _decode_case(cuda_device, dt, latent=True, hq_mla=40,
+                                       kv_dtype=FP8.get(dtype, dt))
+    _poison_dead_slots(pool, pt, kvl, 1)
+    kw = dict(page_size=PS, scale=DLAT ** -0.5, v_dim=V_DIM)
+    k = KERNELS["rpa_decode_mla" if kind == "decode" else "rpa_decode_stream_mla"]
+    before = k.launches
+    fn = (rpa_packed.ragged_paged_attention_packed if kind == "decode"
+          else rpa_stream.ragged_paged_attention_stream)
+    out = fn(q, pool, 1, pt, kvl, **kw)
+    other = (rpa_stream.ragged_paged_attention_stream if kind == "decode"
+             else rpa_packed.ragged_paged_attention_packed)(q, pool, 1, pt, kvl, **kw)
+    ref = rpa_packed.ragged_paged_attention_packed_plain(q, pool, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1 and torch.equal(out, other)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("decode_stream", [False, True], ids=["packed", "stream"])
+def test_engine_minicpm3_latent288_on_cuda_matches_cpu(cuda_device, decode_stream):
+    """The small MiniCPM3 in float32 on the card through the _288 builds
+    (and no other kernel) gives the CPU Engine's greedy tokens, with the
+    packed and with the streaming decode."""
+    dec = "rpa_decode_stream_mla_288" if decode_stream else "rpa_decode_mla_288"
+    _engines_agree(cuda_device, _minicpm3_cfg(), [dec, "rpa_extend_mla_288"],
+                   decode_stream=decode_stream)

@@ -130,22 +130,26 @@ def test_port_imports_no_jax(target):
 
 
 def test_kernel_registry_and_sources():
-    """The eleven kernels (decode and extend on the chunked, the aligned,
-    the merged and the latent pool, and the three streaming decodes) are
+    """The fourteen kernels (decode and extend on the chunked, the aligned,
+    the merged and the latent pool, and the three streaming decodes; the
+    latent pool's three again at MiniCPM3's 288 / 256) are
     registered with a source in the checkout, the TPU kernel they replace
     (a function that reaches pl.pallas_call), their own build library, the
     entry point the build names and a launch count; every extend kernel is
     built with the work list's q-block; the 5D pool's builds (aligned and
     merged) are -DRPA_ALIGNED, the merged ones at head_dim 64; the merged
     and every MLA build keep P in float32 (-DRPA_P_F32), as
-    _rpa_kernel_merged and the MLA branches of the TPU kernels compute."""
+    _rpa_kernel_merged and the MLA branches of the TPU kernels compute;
+    the _288 builds name their latent geometry."""
     from semi_pd_tpu_torch.kernels import KERNELS
     import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
 
     assert set(KERNELS) == {"rpa_decode", "rpa_extend", "rpa_decode_aligned",
                             "rpa_extend_aligned", "rpa_decode_mla", "rpa_extend_mla",
                             "rpa_decode_merged", "rpa_extend_merged", "rpa_decode_stream",
-                            "rpa_decode_stream_aligned", "rpa_decode_stream_mla"}
+                            "rpa_decode_stream_aligned", "rpa_decode_stream_mla",
+                            "rpa_decode_mla_288", "rpa_extend_mla_288",
+                            "rpa_decode_stream_mla_288"}
     for k in KERNELS.values():
         assert k.source.exists() and k.source.suffix == ".cu"
         path, line = k.replaces.split()[0].split(":")
@@ -155,12 +159,15 @@ def test_kernel_registry_and_sources():
         assert "sm_90a" in flags and f"-DRPA_ENTRY={k.symbol}" in flags
         five_d = k.name.endswith(("_aligned", "_merged"))
         assert ("-DRPA_ALIGNED" in k.flags()) == five_d
-        assert ("-DRPA_P_F32" in k.flags()) == k.name.endswith(("_merged", "_mla"))
-    assert len({k.lib_path() for k in KERNELS.values()}) == 11
-    for name in ("rpa_extend", "rpa_extend_aligned", "rpa_extend_mla", "rpa_extend_merged"):
+        assert ("-DRPA_P_F32" in k.flags()) == (k.name.endswith("_merged") or "_mla" in k.name)
+        assert ("-DRPA_MLA_DL=288" in k.flags()) == k.name.endswith("_288")
+    assert len({k.lib_path() for k in KERNELS.values()}) == 14
+    for name in ("rpa_extend", "rpa_extend_aligned", "rpa_extend_mla", "rpa_extend_merged",
+                 "rpa_extend_mla_288"):
         assert "EXTEND_QBLK=128" in " ".join(KERNELS[name].flags())
     for name in ("rpa_decode_merged", "rpa_extend_merged"):
         assert "-DRPA_HEAD_DIM=64" in KERNELS[name].flags()
         assert "_rpa_kernel_merged" in KERNELS[name].replaces
     assert KERNELS["rpa_decode_stream"].replaces.endswith("_rpa_kernel_chunked_stream")
-    assert "-DRPA_MLA" in KERNELS["rpa_decode_stream_mla"].flags()
+    for name in ("rpa_decode_stream_mla", "rpa_decode_stream_mla_288"):
+        assert "-DRPA_MLA" in KERNELS[name].flags()

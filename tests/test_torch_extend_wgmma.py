@@ -46,7 +46,11 @@ def _constants(*files, **env) -> dict:
 
 
 GQA = _constants("rpa_extend.cu", EXTEND_QBLK=rpa.EXTEND_Q_BLOCK)
-MLA = _constants("rpa_mla.cuh", "rpa_extend_mla.cu", EXTEND_QBLK=rpa.EXTEND_Q_BLOCK)
+# the latent builds' constants by latent width, as each build compiles them
+# (DeepSeek-V2's 576 / 512, MiniCPM3's 288 / 256: -DRPA_MLA_DL=288)
+MLA_C = {w: k.constants("rpa_mla.cuh", "rpa_extend_mla.cu")
+         for w, k in rpa.EXTEND_MLA_KERNELS.items()}
+MLA = MLA_C[576]
 
 
 def _layout(head_dim: int) -> dict:
@@ -72,16 +76,18 @@ FP8_LANE = _wgmma_fn("fp8_lane", "p vpr")
 
 # ---------------------------------------------------------------- swizzle
 @pytest.mark.parametrize("rows,width", [(64, 128), (48, 576), (64, 576), (128, 128), (64, 64),
-                                        (128, 64)],
+                                        (128, 64), (48, 320), (64, 320)],
                          ids=["gqa-kv-tile", "mla-latent-tile", "mla-q-tile", "gqa-128-rows",
-                              "gqa-d64-kv-tile", "gqa-d64-128-rows"])
+                              "gqa-d64-kv-tile", "gqa-d64-128-rows", "mla288-latent-tile",
+                              "mla288-q-tile"])
 def test_sw128_is_the_hardware_swizzle_and_a_bijection(rows, width):
     """Every 16-byte chunk c of row r lands where 128-byte swizzling puts it:
     column block c // 8 (rows x 128 bytes each, so each block starts on a
     1024-byte atom), row r at 128 r in it, and address bits 4-6 equal to
     the chunk's bits XOR address bits 7-9 (the rule of a TMA map with
     SWIZZLE_128B and of a wgmma descriptor in swizzle mode 1). The chunks
-    of the tile fill its rows * width * 2 bytes exactly once."""
+    of the tile fill its rows * width * 2 bytes exactly once (the 288-wide
+    latent rows are staged in tiles of 5 whole column blocks, 320 wide)."""
     assert rows % 8 == 0
     seen = set()
     for r in range(rows):
@@ -94,20 +100,22 @@ def test_sw128_is_the_hardware_swizzle_and_a_bijection(rows, width):
     assert seen == set(range(0, rows * width * 2, 16))
 
 
+@pytest.mark.parametrize("width", [576, 288])
 @pytest.mark.parametrize("rows", [48, 64])
-def test_descriptor_steps_address_the_swizzled_chunks(rows):
+def test_descriptor_steps_address_the_swizzled_chunks(rows, width):
     """The descriptors' arithmetic (desc_k, desc_mn) reaches the chunks the
-    copies wrote. K-major: k-step ks starts 32 ks bytes into its column
-    block's row (32 (ks % 4) past block ks // 4), and the hardware, XORing
-    the address of row r's chunk j (start + 128 r + 16 j) by (r % 8), lands
-    on sw128(rows, r, 2 ks + j). MN-major (V through the transpose bit):
-    k-step kk starts 2048 kk bytes on, 8-row groups 1024 bytes apart (SBO),
-    64-column blocks rows * 128 apart (LBO)."""
+    copies wrote, in both latent builds. K-major: k-step ks starts 32 ks
+    bytes into its column block's row (32 (ks % 4) past block ks // 4), and
+    the hardware, XORing the address of row r's chunk j (start + 128 r + 16
+    j) by (r % 8), lands on sw128(rows, r, 2 ks + j). MN-major (V through
+    the transpose bit): k-step kk starts 2048 kk bytes on, 8-row groups 1024
+    bytes apart (SBO), 64-column blocks rows * 128 apart (LBO)."""
     def hw(start, r, j):  # the address the hardware reads, in a 1024-aligned tile
         a = start + 128 * r + 16 * j
         return a ^ (((a >> 7) & 7) << 4)
 
-    for ks in range(576 // 16):
+    c = MLA_C[width]
+    for ks in range(c["MLA_DL"] // 16):
         start = (ks >> 2) * rows * 128 + (ks & 3) * 32
         for r in range(rows):
             for j in range(2):
@@ -115,9 +123,51 @@ def test_descriptor_steps_address_the_swizzled_chunks(rows):
     sbo, lbo = 1024, rows * 128
     for kk in range(rows // 16):
         for p in range(16):  # positions of the k-step
-            for n in range(0, 512, 8):  # chunks of V's columns
+            for n in range(0, c["MLA_DV"], 8):  # chunks of V's columns
                 start = kk * 2048 + (n // 64) * lbo + (p // 8) * sbo
                 assert hw(start, p % 8, (n % 64) // 8) == SW128(rows, 16 * kk + p, n // 8)
+
+
+@pytest.mark.parametrize("rows", [48, 64])
+def test_288_rows_take_five_column_blocks_half_of_the_last_unused(rows):
+    """MiniCPM3's 288-wide latent row is 4.5 of the swizzle's 64-element
+    column blocks. The Q tile (64 rows) and a latent tile (48) are laid out
+    in MLA_WG_CB = 5 whole blocks (rows x 640 bytes): the copies write
+    chunks 0-35 of each row, once; S's 18 k-steps (9 a warpgroup, the
+    second's starting at k-step 9, 32 bytes into block 2's atom) read
+    exactly those chunks, k-steps 16 and 17 the fifth block's logical
+    chunks 0-3; V (columns 0-255) reads blocks 0-3 only; the chunks the
+    copies leave unwritten (logical 4-7 of the fifth block) are read by
+    nothing."""
+    def hw(start, r, j):
+        a = start + 128 * r + 16 * j
+        return a ^ (((a >> 7) & 7) << 4)
+
+    c = MLA_C[288]
+    assert (c["MLA_DL"], c["MLA_DV"], c["MLA_WG_CB"], c["MLA_WG_KS"]) == (288, 256, 5, 9)
+    tile = rows * c["MLA_WG_CB"] * 128
+    assert tile == {64: c["MLA_WG_Q"], 48: c["MLA_WG_TILE"]}[rows] and tile % 1024 == 0
+    written = {SW128(rows, r, ch) for r in range(rows) for ch in range(c["MLA_DL"] // 8)}
+    unwritten = {SW128(rows, r, ch) for r in range(rows) for ch in range(36, 40)}
+    assert len(written) == rows * 36 and not written & unwritten
+    assert max(written | unwritten) + 16 == tile
+    read_s = set()
+    for w in range(2):
+        for k in range(c["MLA_WG_KS"]):
+            ks = w * c["MLA_WG_KS"] + k
+            start = (ks >> 2) * rows * 128 + (ks & 3) * 32
+            for r in range(rows):
+                for j in range(2):
+                    read_s.add(hw(start, r, j))
+    assert read_s == written
+    read_v = set()
+    for kk in range(rows // 16):
+        for p in range(16):
+            for n in range(0, c["MLA_DV"], 8):
+                read_v.add(hw(kk * 2048 + (n // 64) * rows * 128 + (p // 8) * 1024, p % 8,
+                              (n % 64) // 8))
+    assert read_v < written and not read_v & unwritten
+    assert max(read_v) < 4 * rows * 128
 
 
 @pytest.mark.parametrize("rows", [64, 128])
@@ -181,8 +231,14 @@ SHAPES = [
     ([2048], [2048], 16, None, 0, 576),
     ([256] * 8, [2048] * 8, 16, None, 0, 576),
     ([200, 1], [1000, 1], 16, None, 100, 576),
+    ([140, 20, 1, 7], [140, 60, 9, 300], 40, None, 0, 288),
+    ([2048], [2048], 40, None, 0, 288),
+    ([256] * 8, [2048] * 8, 40, None, 0, 288),
+    ([200, 1], [1000, 1], 40, None, 100, 288),
+    ([3, 5, 1], [3, 70, 1], 40, None, 0, 288),
 ]
-IDS = [f"{'d64-' if d == 64 else ''}{'mla' if h is None else f'g{hq // h}'}"
+IDS = [f"{'d64-' if d == 64 else ''}{'mla288-' if d == 288 else ''}"
+       f"{'mla' if h is None else f'g{hq // h}'}"
        f"-q{'_'.join(map(str, q))}-w{w}" for q, _, hq, h, w, d in SHAPES]
 GQA_SHAPES = [(sh, i) for sh, i in zip(SHAPES, IDS) if sh[3] is not None]
 
@@ -238,11 +294,13 @@ def _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window, head_dim):
                 yield b, written, (lo, limit, ntiles)
 
 
-def _mla_blocks(q_lens, kv_lens, Hq, window):
-    """rpa_extend_mla_wgmma_kernel's blocks: grid (ceil(EXTEND_QBLK Hq /
-    64), entries); packed row m = r Hq + g (consecutive in q and out); both
-    warpgroups hold all 64 rows, warpgroup w scores dims 288 w .. 288 w + 287
-    and writes V columns 256 w .. 256 w + 255."""
+def _mla_blocks(q_lens, kv_lens, Hq, window, MLA=MLA):
+    """rpa_extend_mla_wgmma_kernel's blocks (``MLA``: the build's
+    constants): grid (ceil(EXTEND_QBLK Hq / 64), entries); packed row m = r
+    Hq + g (consecutive in q and out; at Hq 40 a block's 64 rows start and
+    end inside tokens); both warpgroups hold all 64 rows, warpgroup w scores
+    dims DL/2 w .. DL/2 (w + 1) - 1 and writes V columns DV/2 w .. DV/2 (w
+    + 1) - 1."""
     T, entries, q_start = _work_list(q_lens, kv_lens)
     rows = MLA["MLA_WG_ROWS"]
     for i, (b, row0, qofs) in enumerate(entries):
@@ -269,16 +327,17 @@ def _mla_blocks(q_lens, kv_lens, Hq, window):
 def test_every_owned_row_is_written_once_and_sees_its_positions(q_lens, kv_lens, Hq, Hkv,
                                                                 window, head_dim):
     """Every (token, head) of every request is written by exactly one block
-    (with the MLA kernel, each of its 512 columns by exactly one
-    warpgroup), nothing in the bucket padding rows is, and the block's walk
+    (with the MLA kernels, each of its 512 or 256 columns by exactly one
+    warpgroup, MiniCPM3's 40 heads packed 1.6 tokens a block), nothing in the bucket padding rows is, and the block's walk
     [lo, limit) holds every position the row may see (causal, kv_len,
     window): tiles above the block's last row or below its first row's
     window are never walked."""
     T = int(sum(q_lens)) + 9
     q_start = [k - q for q, k in zip(q_lens, kv_lens)]
     if Hkv is None:
-        count = np.zeros((T, Hq, MLA["MLA_DV"]), np.int64)
-        blocks = _mla_blocks(q_lens, kv_lens, Hq, window)
+        mla = MLA_C[head_dim]
+        count = np.zeros((T, Hq, mla["MLA_DV"]), np.int64)
+        blocks = _mla_blocks(q_lens, kv_lens, Hq, window, mla)
     else:
         count = np.zeros((T, Hq, 1), np.int64)
         blocks = _gqa_blocks(q_lens, kv_lens, Hq, Hkv, window, head_dim)
@@ -324,31 +383,42 @@ def test_gqa_warps_mask_the_tiles_their_rows_cannot_see(q_lens, kv_lens, Hq, Hkv
                     assert all(all(s) for s in sees)
 
 
-def test_mla_warpgroups_split_the_dims_and_the_columns():
+@pytest.mark.parametrize("width", [576, 288])
+def test_mla_warpgroups_split_the_dims_and_the_columns(width):
     """The two warpgroups of the MLA kernel score disjoint halves of the 576
-    dims (18 k-steps of 16 each) whose sum is S, and write disjoint halves
-    of V's 512 columns (a 64 x 256 float32 accumulator, 128 registers a
-    thread); the tile of 48 positions is 3 k-steps of P V."""
-    assert MLA["MLA_DL"] == 576 and MLA["MLA_DV"] == 512
+    dims (18 k-steps of 16 each; 9 each of 288) whose sum is S, and write
+    disjoint halves of V's 512 columns (a 64 x 256 float32 accumulator, 128
+    registers a thread; 64 x 128, 64 registers, of 256); the tile of 48
+    positions is 3 k-steps of P V."""
+    MLA = MLA_C[width]
+    assert (MLA["MLA_DL"], MLA["MLA_DV"]) == {576: (576, 512), 288: (288, 256)}[width]
     ks = [set(range(w * MLA["MLA_WG_KS"], (w + 1) * MLA["MLA_WG_KS"])) for w in range(2)]
     assert ks[0] | ks[1] == set(range(MLA["MLA_DL"] // 16)) and not ks[0] & ks[1]
     assert 2 * MLA["MLA_WG_DV"] == MLA["MLA_DV"] and MLA["MLA_WG_DV"] % 64 == 0
-    assert MLA["MLA_WG_ROWS"] * MLA["MLA_WG_DV"] // 128 == 128  # accumulators a thread
+    # accumulators a thread
+    assert MLA["MLA_WG_ROWS"] * MLA["MLA_WG_DV"] // 128 == {576: 128, 288: 64}[width]
     assert MLA["MLA_WG_TK"] % 16 == 0 and MLA["MLA_WG_TK"] % 8 == 0
     assert MLA["MLA_WG_NT"] == 256 and rpa.EXTEND_Q_BLOCK * 16 % MLA["MLA_WG_ROWS"] == 0
 
 
-def test_mla_fp8_rows_cover_the_tile_once():
+@pytest.mark.parametrize("width", [576, 288])
+def test_mla_fp8_rows_cover_the_tile_once(width):
     """fp8 latent rows reach the MLA extend's swizzled bf16 stage through
-    registers: a raw fp8 stage (48 x 576 bytes) beside the two bf16 stages
-    would exceed a block's shared memory. A tile's 1728 16-byte vectors are
-    6.75 for each of the 256 threads, so thread tid takes vectors tid + 256
-    k, k < MLA_WG_NRV = 7, the last round only below 1728; each widens to
-    the two bf16 chunks 2 c and 2 c + 1 of its row, and together they write
-    every 16-byte chunk of the 48 x 576 bf16 tile once, inside the stage."""
+    registers: at 576 a raw fp8 stage (48 x 576 bytes) beside the two bf16
+    stages would exceed a block's shared memory (the 288 build keeps the
+    same code). A tile's 1728 16-byte vectors are 6.75 for each of the 256
+    threads (864, 3.375, at 288), so thread tid takes vectors tid + 256 k,
+    k < MLA_WG_NRV = 7 (4), the last round only below the tile's count;
+    each widens to the two bf16 chunks 2 c and 2 c + 1 of its row, and
+    together they write every 16-byte chunk of the 48-row bf16 tile once,
+    inside the stage."""
+    MLA = MLA_C[width]
     tk, nt, rv, nrv = MLA["MLA_WG_TK"], MLA["MLA_WG_NT"], MLA["MLA_WG_RV"], MLA["MLA_WG_NRV"]
-    assert rv == MLA["MLA_DL"] // 16 == 36 and nrv == 7
-    assert MLA["MLA_WG_SMEM"] + tk * MLA["MLA_DL"] > SMEM_PER_BLOCK >= MLA["MLA_WG_SMEM"]
+    assert rv == MLA["MLA_DL"] // 16 == {576: 36, 288: 18}[width]
+    assert nrv == {576: 7, 288: 4}[width]
+    assert SMEM_PER_BLOCK >= MLA["MLA_WG_SMEM"]
+    if width == 576:
+        assert MLA["MLA_WG_SMEM"] + tk * MLA["MLA_DL"] > SMEM_PER_BLOCK
     seen, idle = {}, 0
     for tid in range(nt):
         for k in range(nrv):
@@ -361,7 +431,7 @@ def test_mla_fp8_rows_cover_the_tile_once():
                 off = SW128(tk, p, chunk)
                 assert off % 16 == 0 and off + 16 <= MLA["MLA_WG_TILE"]
                 seen[off] = seen.get(off, 0) + 1
-    assert idle == nrv * nt - tk * rv == 64
+    assert idle == nrv * nt - tk * rv == {576: 64, 288: 160}[width]
     assert sorted(seen) == sorted(SW128(tk, p, c) for p in range(tk)
                                   for c in range(MLA["MLA_DL"] // 8))
     assert set(seen.values()) == {1}
@@ -477,7 +547,9 @@ def test_gqa_kernel_constants_and_budgets():
     assert GQA["WG_CONSUMER_REGS"] % 8 == 0 and GQA["WG_PRODUCER_REGS"] % 8 == 0
     for fp8 in (False, True):
         assert _budget(128, fp8)["smem"] <= SMEM_PER_BLOCK, fp8
-    assert MLA["MLA_WG_SMEM"] <= SMEM_PER_BLOCK
+    for mla in MLA_C.values():
+        assert mla["MLA_WG_SMEM"] <= SMEM_PER_BLOCK
+    assert (MLA_C[576]["MLA_WG_SMEM"], MLA_C[288]["MLA_WG_SMEM"]) == (209920, 128000)
 
 
 @pytest.mark.parametrize("fp8", [False, True], ids=["bf16", "fp8"])
@@ -565,6 +637,10 @@ def test_builds_name_their_warpgroup_kernels():
     for k in (aligned, mla, chunked, merged):
         assert f"EXTEND_QBLK={rpa.EXTEND_Q_BLOCK}" in k.defines
     assert "RPA_P_F32" in mla.defines
+    mla288 = KERNELS["rpa_extend_mla_288"]
+    assert mla288.source == mla.source and rpa.EXTEND_MLA_KERNELS == {576: mla, 288: mla288}
+    assert set(mla.defines) < set(mla288.defines)
+    assert {"RPA_MLA_DL=288", "RPA_MLA_DV=256", "RPA_MLA_NO_TREE"} <= set(mla288.defines)
     src = aligned.source.read_text()
     assert chunked.source == merged.source == aligned.source
     assert "rpa_extend_wgmma_kernel" in src and "rpa_extend_mma_kernel" not in src

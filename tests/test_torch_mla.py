@@ -217,7 +217,7 @@ def test_mla_routing_and_refusals():
                                    v_dim=DLAT + 1)
     from semi_pd_tpu_torch.ops.attention.rpa_common import check_cuda
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B9.4"):
         check_cuda(q, pool, pt, kvl, v_dim=LORA)  # 192 / 128, not 576 / 512
 
 

@@ -27,8 +27,8 @@ import pytest
 from semi_pd_tpu_torch.kernels import KERNELS
 from semi_pd_tpu_torch.ops.attention import rpa_stream
 
-# the GQA builds (the latent build's schedule: tests/test_torch_mla_decode_split.py)
-BUILDS = sorted(b for b in rpa_stream.STREAM_TILE if b != "rpa_decode_stream_mla")
+# the GQA builds (the latent builds' schedule: tests/test_torch_mla_decode_split.py)
+BUILDS = sorted(b for b in rpa_stream.STREAM_TILE if b not in rpa_stream.STREAM_MLA_DECODE)
 # (build, fp8 KV): both pools take bf16 and fp8 KV
 PLANS = [("rpa_decode_stream", False), ("rpa_decode_stream", True),
          ("rpa_decode_stream_aligned", False), ("rpa_decode_stream_aligned", True)]
@@ -43,8 +43,9 @@ def _head_dim(kernel) -> int:
 
 def _source_constants(kernel) -> dict:
     """The ``constexpr int NAME = expr;`` lines of the kernel's source,
-    evaluated in order for the build's head_dim (C's integer division)."""
-    env = {"RPA_HEAD_DIM": _head_dim(kernel)}
+    evaluated in order for the build's head_dim (C's integer division),
+    after the latent geometry's (rpa_mla.cuh, which the source includes)."""
+    env = {**kernel.constants("rpa_mla.cuh"), "RPA_HEAD_DIM": _head_dim(kernel)}
     for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);",
                                  kernel.source.read_text(), re.M):
         env[name] = eval(expr.replace("/", "//"), {}, dict(env))  # noqa: S307

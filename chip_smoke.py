@@ -33,7 +33,10 @@ each (any failure raises and exits non-zero):
              same bits; each of
              their kernels gets a line with its registers, spills and HMMA
              count, and must have HMMA and no spill. float32 q stays on the
-             CUDA cores.
+             CUDA cores. The three _256 builds (Gemma-2's head_dim 256 on
+             the 5D pool) are among them: the extend's HGMMA, the packed
+             and the streaming decode's HMMA, with their registers and
+             spills (the warpgroup extend gets a ``wgmma`` line).
 2. kernels — each kernel's wrapper on the card against its plain PyTorch
              version on the same inputs, at the geometry of its path (page
              16; Hq 32, Hkv 8: chunked pool [1, S, 8, 128] at D 64, aligned
@@ -74,6 +77,15 @@ each (any failure raises and exits non-zero):
              kv1024 (packed and streamed) and extend b8 x q256 / kv2048,
              bf16, e4m3 and e5m2 rows under bf16 q and float32, every dead
              slot NaN, each row with its function's registers and spills.
+             Then the _256 builds at Gemma-2-9B's geometry (5D pool [1, 2,
+             S, 8, 256], Hq 16, scale 256 ** -0.5, every dead slot NaN):
+             decode b64 / kv1024 (packed and streamed), extend b8 x q256 /
+             kv2048 and b2 x q2048 / kv2048, bf16, e4m3 and e5m2 KV under
+             bf16 q and float32; softcap 50 on all three; window 4096
+             where it cuts, on the packed decode (b64, kv 4500-6000) and the
+             extend (b2 x q2048 over kv 6000); each row with its
+             function's registers and spills, and SDPA uncapped and
+             unwindowed as its library time.
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
              chunked pool with bf16 KV, then with fp8_e4m3 KV, the
@@ -83,8 +95,12 @@ each (any failure raises and exits non-zero):
              with fp8_e4m3 rows, MiniCPM3-4B (MLA, dense, 62 layers, 40
              heads; its longrope factor lists stand-ins, printed as such) on
              the 288-wide latent pool with bf16 rows, then with fp8_e4m3
-             rows, and TinyLlama-1.1B on the 5D pool at
-             head_dim 64 with fp8_e4m3 KV, then with bf16 KV. One extend
+             rows, TinyLlama-1.1B on the 5D pool at
+             head_dim 64 with fp8_e4m3 KV, then with bf16 KV, and
+             Gemma-2-9B (9.24 B parameters, 42 layers, the 5D pool at
+             head_dim 256 through the _256 builds, softcaps 50 / 30, a
+             window of 4096 on its even layers) with bf16 KV, then with
+             fp8_e4m3 KV. One extend
              step and two decode steps each through the kernels, against
              the same layers run with the plain attention functions; after
              each path's serving but TinyLlama's (and the 8B bf16 one,
@@ -109,10 +125,13 @@ each (any failure raises and exits non-zero):
              bf16 and fp8_e4m3 KV), the 8B model with fp8_e4m3 KV (aligned
              pool), DeepSeek-V2-Lite (latent pool, bf16 and fp8_e4m3 rows),
              MiniCPM3-4B (the 288 latent builds, bf16 and fp8_e4m3 rows)
-             and TinyLlama-1.1B (the merged kernels); every
+             TinyLlama-1.1B (the merged kernels) and Gemma-2-9B (the _256
+             builds, bf16 and fp8_e4m3 KV); every
              launch counter is set to 0 just before each run and read just
              after, and only the path's own two kernels may have launched,
-             each L times per step of its kind. Every decode step is
+             each L times per step of its kind (Gemma-2 with decode_stream:
+             the stream on its 21 full-attention layers, the packed decode
+             on its 21 windowed ones, per decode step). Every decode step is
              replayed from a CUDA graph (replays == decode steps; a replay
              counts its L launches, a capture none; graphs are kept from
              one serve to the next on one routing). The bf16 1B-class and
@@ -163,6 +182,15 @@ each (any failure raises and exits non-zero):
 4nf. nextn f32 gate — V2-Lite in float32 at 4 layers (8 requests x 32
              tokens) served with the NextN tree and without speculation:
              the tokens must be equal.
+4l. long    — Gemma-2-9B (bf16 KV) serves 8 requests of 4500-7000 prompt
+             tokens, 64 greedy new tokens each, colocated and semi-PD: the
+             windowed layers cut in each prompt's second 4096-token
+             prefill chunk and in decode; TTFT, ITL and tok/s per mode
+             (``serve_long`` lines).
+4g. gemma2 f32 gate — Gemma-2-9B in float32 at 4 layers (full widths;
+             8 requests of 4500-6000 prompt tokens x 32 greedy tokens)
+             through the _256 kernels, then on the same engine through the
+             plain attention: the tokens must be equal.
 
 Then one JSON line listing the kernels (the four extends with
 ``masked_max_abs_err``, the largest error of their masked cases), the
@@ -192,6 +220,8 @@ PAGE = 16
 GEOMETRY = {"chunked": (32, 8, 64, 64), "aligned": (32, 8, 128, 128),
             "merged": (32, 4, 64, 64), "latent": (16, 1, 576, 512),
             "latent288": (40, 1, 288, 256),
+            # Gemma-2-9B's 5D pool at head_dim 256: the _256 builds
+            "aligned256": (16, 8, 256, 256),
             # the 1B-class model's EAGLE draft pool: its 5D pool at head_dim
             # 64 with Hkv 8 takes the merged kernels
             "draft": (32, 8, 64, 64)}
@@ -284,6 +314,7 @@ def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype, nan_dead=False):
     dev = "cuda"
     shape = {"chunked": (1, total * PAGE, 2 * HKV * D // 128, 128),
              "aligned": (1, 2, total * PAGE, HKV, D),
+             "aligned256": (1, 2, total * PAGE, HKV, D),
              "merged": (1, 2, total * PAGE, HKV, D),
              "draft": (1, 2, total * PAGE, HKV, D),
              "latent": (1, 1, total * PAGE, 1, D),
@@ -332,7 +363,8 @@ def kernel_name(kind, pool):
     """kind: "decode", "extend" or "stream" (the streaming decode)."""
     base = "rpa_decode_stream" if kind == "stream" else f"rpa_{kind}"
     return base + {"chunked": "", "aligned": "_aligned", "merged": "_merged",
-                   "draft": "_merged", "latent": "_mla", "latent288": "_mla_288"}[pool]
+                   "draft": "_merged", "latent": "_mla", "latent288": "_mla_288",
+                   "aligned256": "_aligned_256"}[pool]
 
 
 def dtype_name(dt):
@@ -340,9 +372,12 @@ def dtype_name(dt):
 
 
 def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked",
-                    kv_dtype=None, cap=None, window=None, beside=None, nan_dead=False):
+                    kv_dtype=None, cap=None, window=None, beside=None, nan_dead=False,
+                    library_always=False):
     """One case of phase 2; ``beside``: more fields for its printed row;
-    ``nan_dead``: every dead slot of the pool NaN."""
+    ``nan_dead``: every dead slot of the pool NaN; ``library_always``: the
+    library call's time also for a capped or windowed case, SDPA uncapped
+    and unwindowed over the same inputs (else a capped case has none)."""
     import torch
     import torch.nn.functional as F
 
@@ -428,10 +463,13 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
 
     library_ms, library = None, None
-    if cap is None:
+    if cap is None or library_always:
         # SDPA over dense KV in q's dtype (fp8 KV upcast to bf16 first)
         K, V, kvmax = dense_kv(kv, pt, kvl, pool, dtype)
         library = "sdpa" + ("_over_kv_upcast_to_bf16" if kv_dtype != dtype else "")
+        if library_always and (cap or window):  # the yardstick uncapped and unwindowed
+            library += "_uncapped_unwindowed"
+            window = None
         B = len(lens)
         if kind != "extend":
             qd = q[:, :, None, :]  # [B, Hq, 1, D]
@@ -844,6 +882,83 @@ def phase_kernels_288():
     return rows
 
 
+# ---------------------------------------- phase 2, the head_dim-256 builds
+# each (kind, q dtype)'s kernel function in the GQA builds (its mangled
+# name holds the KV type after it with bf16 q; TREE = false in the extend)
+GQA_FUNCTIONS = {("decode", "bfloat16"): "rpa_decode_mma_kernel",
+                 ("stream", "bfloat16"): "rpa_stream_mma_kernel",
+                 ("extend", "bfloat16"): "rpa_extend_wgmma_kernel",
+                 ("decode", "float32"): "rpa_decode_kernel",
+                 ("stream", "float32"): "rpa_stream_kernel",
+                 ("extend", "float32"): "rpa_extend_kernel"}
+
+
+def gqa_function_props(kname, kind, dtype, kv_dtype):
+    """Registers and spill bytes (nvcc -Xptxas -v) of the function the GQA
+    build ``kname`` runs for ``kind`` with q ``dtype`` over ``kv_dtype``."""
+    from semi_pd_tpu_torch.kernels import KERNELS
+
+    fn = GQA_FUNCTIONS[kind, dtype_name(dtype)]
+    # with bf16 q the KV type is the template's first argument
+    want = fn + ("I" if dtype_name(dtype) == "float32" else MANGLED_ROWS[dtype_name(kv_dtype)])
+    props = ptxas_summary(KERNELS[kname].build_log)
+    return next((dict(function=f, **p) for f, p in props.items()
+                 if want in f and (kind != "extend" or "Lb0E" in f)), {})
+
+
+def phase_kernels_256():
+    """Phase 2 at Gemma-2-9B's attention geometry (the _256 builds: the 5D
+    pool [1, 2, S, 8, 256], 16 query heads, scale 256 ** -0.5, which its
+    query_pre_attn_scalar of 256 gives), after every
+    other case (so that those draw the inputs they drew before), every dead
+    slot NaN: decode b64 / kv1024 through the packed and the streaming
+    decode, extend b8 x q256 / kv2048 and b2 x q2048 / kv2048, each with
+    bf16, e4m3 and e5m2 KV under bf16 q and float32; then softcap 50 on all
+    three, and Gemma-2's window of 4096 where it cuts, on the packed decode
+    (b64, kv 4500-6000) and the extend (b2 x q2048 over kv 6000: the second
+    prefill chunk of two long prompts), bf16 and float32. Each row carries
+    its function's registers and spills, and SDPA's time (uncapped and
+    unwindowed) as the library's."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    rng = np.random.default_rng(17)
+    bf, f32 = torch.bfloat16, torch.float32
+    pairs = [(bf, bf), (bf, torch.float8_e4m3fn), (bf, torch.float8_e5m2), (f32, f32)]
+    lens = rng.integers(512, 1025, size=64)
+    lens[0], lens[-1] = 1024, 0  # one padded row
+    long_lens = rng.integers(4500, 6001, size=64)
+    long_lens[0] = 6000
+    dec = ("decode_b64_kv1024", [1] * 64, lens.tolist())
+    ext = ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8)
+    ext2 = ("extend_b2_q2048_kv2048", [2048] * 2, [2048] * 2)
+    cases = [("decode", *dec, pairs, None, None), ("stream", *dec, pairs, None, None),
+             ("extend", *ext, pairs, None, None), ("extend", *ext2, pairs, None, None)]
+    for dt in (bf, f32):
+        cases += [("decode", *dec, [(dt, dt)], 50.0, None),
+                  ("stream", *dec, [(dt, dt)], 50.0, None),
+                  ("extend", *ext, [(dt, dt)], 50.0, None),
+                  ("decode", "decode_b64_kv4500_6000", [1] * 64, long_lens.tolist(), [(dt, dt)],
+                   None, 4096),
+                  ("extend", "extend_b2_q2048_kv6000", [2048] * 2, [6000] * 2, [(dt, dt)],
+                   None, 4096)]
+    rows, packed = [], {}
+    for kind, name, ql, kl, prs, cap, window in cases:
+        for dt, kdt in prs:
+            beside = gqa_function_props(kernel_name(kind, "aligned256"), kind, dt, kdt)
+            case = name + (f"_softcap{cap:g}" if cap else "") + (
+                f"_window{window}" if window else "")
+            if kind == "stream":
+                beside["packed_kernel_ms"] = packed[case, dt, kdt]
+            rows.append(run_kernel_case(case, kind, gen, rng, ql, kl, dt, "aligned256", kdt,
+                                        cap=cap, window=window, beside=beside, nan_dead=True,
+                                        library_always=True))
+            if kind == "decode":
+                packed[case, dt, kdt] = rows[-1]["kernel_ms"]
+    return rows
+
+
 # --------------------------------------------------------------- phase 3/4
 def llama_1b_config():
     from semi_pd_tpu_torch.config.model_config import ModelConfig
@@ -944,6 +1059,28 @@ def minicpm3_4b_config():
     )
 
 
+def gemma2_9b_config(**kw):
+    """Gemma-2-9B's published config.json widths (google/gemma-2-9b:
+    Gemma2ForCausalLM, 42 layers, hidden 3584, intermediate 14336, 16 query
+    and 8 KV heads of 256, query_pre_attn_scalar 256, vocab 256000, tied
+    embeddings, sliding_window 4096 on the even layers, attn_logit_softcapping
+    50, final_logit_softcapping 30, max_position 8192, rope theta 10000, rms
+    eps 1e-6, gelu_pytorch_tanh; 9.24 B parameters, 18.5 GB in bf16). Its KV
+    is 42 x 2 x 8 x 256 x 2 B = 344 KB a token: the 131072-token pool is
+    45.1 GB in bf16. ``kw`` overrides fields (the float32 gate's depth)."""
+    from semi_pd_tpu_torch.config.model_config import ModelConfig
+
+    cfg = dict(
+        architecture="Gemma2ForCausalLM", vocab_size=256000, hidden_size=3584,
+        intermediate_size=14336, num_hidden_layers=42, num_attention_heads=16,
+        num_key_value_heads=8, head_dim=256, rms_norm_eps=1e-6, rope_theta=10000.0,
+        max_position_embeddings=8192, context_length=8192, hidden_act="gelu_pytorch_tanh",
+        tie_word_embeddings=True, sliding_window=4096, query_pre_attn_scalar=256,
+        attn_logit_softcap=50.0, logit_softcap=30.0, dtype="bfloat16")
+    cfg.update(kw)
+    return ModelConfig(**cfg)
+
+
 def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto",
                       decode_stream: bool = False):
     """The bench's server settings (bench.py make_server_args) with a
@@ -960,16 +1097,40 @@ def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto",
 
 
 # the two kernels (decode, extend) each pool's path launches, and with
-# decode_stream
+# decode_stream (a model's windowed layers keep the packed decode there:
+# expected_launches)
 PATH_KERNELS = {"chunked": ("rpa_decode", "rpa_extend"),
                 "aligned": ("rpa_decode_aligned", "rpa_extend_aligned"),
+                "aligned256": ("rpa_decode_aligned_256", "rpa_extend_aligned_256"),
                 "merged": ("rpa_decode_merged", "rpa_extend_merged"),
                 "latent": ("rpa_decode_mla", "rpa_extend_mla"),
                 "latent288": ("rpa_decode_mla_288", "rpa_extend_mla_288")}
 STREAM_PATH_KERNELS = {"chunked": ("rpa_decode_stream", "rpa_extend"),
                        "aligned": ("rpa_decode_stream_aligned", "rpa_extend_aligned"),
+                       "aligned256": ("rpa_decode_stream_aligned_256",
+                                      "rpa_extend_aligned_256"),
                        "latent": ("rpa_decode_stream_mla", "rpa_extend_mla"),
                        "latent288": ("rpa_decode_stream_mla_288", "rpa_extend_mla_288")}
+
+
+def expected_launches(runner, pool, stream, steps):
+    """Each kernel's launches in a serve of ``steps`` (decode and extend
+    steps): the path's extend L times per extend step, its decode L times
+    per decode step; with ``stream`` the streaming decode on the layers
+    without a window and the packed decode on the windowed ones (Gemma-2's
+    even layers: 21 + 21 of 42), as the routing keeps a windowed batch on
+    the packed decode."""
+    L = runner.model_config.num_hidden_layers
+    dec, ext = PATH_KERNELS[pool]
+    want = {ext: L * steps["extend"]}
+    windowed = sum(w is not None for w in getattr(runner.model, "layer_windows", ()))
+    if stream:
+        want[STREAM_PATH_KERNELS[pool][0]] = (L - windowed) * steps["decode"]
+        if windowed:
+            want[dec] = windowed * steps["decode"]
+    else:
+        want[dec] = L * steps["decode"]
+    return want
 
 
 def phase_model(eng, stream: bool = False):
@@ -1213,13 +1374,13 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False,
             raise AssertionError(f"request {o['rid']}: missing or NaN logprobs")
         if not all(0 <= t < vocab for t in o["output_ids"]):
             raise AssertionError(f"request {o['rid']}: token out of range")
-    L = eng.runner.model_config.num_hidden_layers
-    dec, ext = (STREAM_PATH_KERNELS if stream else PATH_KERNELS)[pool]
-    if launches[dec] != L * steps["decode"] or steps["decode"] == 0:
-        raise AssertionError(f"{dec} launches {launches[dec]} != {L} x {steps['decode']} steps")
-    if launches[ext] != L * steps["extend"] or steps["extend"] == 0:
-        raise AssertionError(f"{ext} launches {launches[ext]} != {L} x {steps['extend']} steps")
-    others = {k: n for k, n in launches.items() if k not in (dec, ext) and n}
+    want = expected_launches(runner, pool, stream, steps)
+    if not steps["decode"] or not steps["extend"]:
+        raise AssertionError(f"{pool}: a serve without decode or extend steps: {steps}")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"{k} launches {launches[k]} != {n} ({steps} steps)")
+    others = {k: n for k, n in launches.items() if k not in want and n}
     if others:
         raise AssertionError(f"the {pool} pool's path launched other kernels: {others}")
     if not eng.flush_cache():  # runs check_memory()
@@ -1561,7 +1722,8 @@ def main() -> int:
                          ("rpa_extend_aligned", "rpa_extend_wgmma_kernel"),
                          ("rpa_extend_merged", "rpa_extend_wgmma_kernel"),
                          ("rpa_extend_mla", "rpa_extend_mla_wgmma_kernel"),
-                         ("rpa_extend_mla_288", "rpa_extend_mla_wgmma_kernel")):
+                         ("rpa_extend_mla_288", "rpa_extend_mla_wgmma_kernel"),
+                         ("rpa_extend_aligned_256", "rpa_extend_wgmma_kernel")):
         hgmma = sass_mma_counts(KERNELS[kname], op="HGMMA")
         for fn, props in ptxas_summary(KERNELS[kname].build_log).items():
             if wg_fn in fn:
@@ -1600,7 +1762,10 @@ def main() -> int:
             ("rpa_extend_mla_288", "rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel"),
             ("rpa_decode_mla_288", "rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel"),
             ("rpa_decode_stream_mla_288", "rpa_stream_mla_mma_kernel",
-             "rpa_stream_mla_kernel")):
+             "rpa_stream_mla_kernel"),
+            ("rpa_extend_aligned_256", "rpa_extend_wgmma_kernel", "rpa_extend_kernel"),
+            ("rpa_decode_aligned_256", "rpa_decode_mma_kernel", "rpa_decode_kernel"),
+            ("rpa_decode_stream_aligned_256", "rpa_stream_mma_kernel", "rpa_stream_kernel")):
         mma = [n for f, n in sass[kname].items() if mma_fn in f]
         core = [n for f, n in sass[kname].items() if core_fn in f]
         if not mma or not all(mma) or any(core):
@@ -1621,6 +1786,8 @@ def main() -> int:
     rows += [r for r in spec if "spec_tree" not in r]
     # the _288 builds at MiniCPM3-4B's geometry
     rows += phase_kernels_288()
+    # the _256 builds at Gemma-2-9B's geometry
+    rows += phase_kernels_256()
     print("kernels_phase " + json.dumps(dict(cases=len(rows) + len(spec_rows),
                                              seconds=time.monotonic() - t0)), flush=True)
 
@@ -1638,6 +1805,7 @@ def main() -> int:
         res = phase_model(eng, stream)
         print("model " + json.dumps(dict(res, model=label, kv_dtype=kv_dtype, init_s=init_s,
                                          decode_stream=stream,
+                                         kv_pool_gib=eng.runner.kv_spec.bytes_total() / 2 ** 30,
                                          seconds=time.monotonic() - t0)), flush=True)
         return eng
 
@@ -1850,6 +2018,74 @@ def main() -> int:
             raise AssertionError(f"float32 V2-Lite: the NextN tree serve's tokens differ from "
                                  f"the plain serve's ({same:.3f} of requests the same)")
 
+    def long_serve(eng, label):
+        """Phase 4l: 8 requests of 4500-7000 prompt tokens, 64 greedy new
+        tokens each, colocated and semi-PD: the prefill takes two chunks of
+        up to 4096 a request, so the windowed layers cut in the second
+        chunk and in every decode step; TTFT, ITL and tok/s per mode."""
+        t0 = time.monotonic()
+        vocab = eng.runner.model_config.vocab_size
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, vocab, size=int(n)).tolist()
+                   for n in rng.integers(4500, 7001, size=8)]
+        outs = []
+        for semi in (False, True):
+            r, out = serve_mode(eng, semi, prompts, vocab, "aligned256")
+            outs.append(out)
+            for k, v in r["launches"].items():
+                main_launches[k] += v
+            print("serve_long " + json.dumps(dict(
+                r, model=label, gpu=smi, prompt_tokens=[len(p) for p in prompts])), flush=True)
+        same = float(np.mean([a == b for a, b in zip(*outs)]))
+        print("serve_long_phase " + json.dumps(dict(model=label, modes_same_tokens=same,
+                                                    seconds=time.monotonic() - t0)), flush=True)
+
+    def gemma2_f32_gate():
+        """Phase 4g: Gemma-2-9B in float32 at 4 layers, full widths (8
+        requests x 32 greedy tokens, prompts of 4500-6000: the windowed
+        layers cut in the second prefill chunk and in decode), served
+        through the kernels (decode replayed from graphs), then on the same
+        weights and engine through the plain attention (eagerly): the
+        tokens must be equal."""
+        import dataclasses
+
+        from semi_pd_tpu_torch.layers.attention import pool_attention
+        from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+        t0 = time.monotonic()
+        cfg = gemma2_9b_config(num_hidden_layers=4, dtype="float32")
+        eng = Engine(dataclasses.replace(bench_server_args(False), max_total_tokens=65536), cfg)
+        runner = eng.runner
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+                   for n in rng.integers(4500, 6001, size=8)]
+        sp = SamplingParams(max_new_tokens=32, temperature=0.0, ignore_eos=True)
+        for k in KERNELS.values():
+            k.launches = 0
+        outs = eng.generate(input_ids=prompts, sampling_params=sp)
+        launches = {k: n.launches for k, n in KERNELS.items() if n.launches}
+        for k, v in launches.items():
+            main_launches[k] += v
+        kern = [o["output_ids"] for o in outs]
+        graphs = runner.graphs
+        runner.attention = pool_attention(runner.kv_cache.buffer, plain=True)
+        runner.graphs = None
+        try:
+            outs = eng.generate(input_ids=prompts, sampling_params=sp)
+        finally:
+            runner.graphs = graphs
+        plain = [o["output_ids"] for o in outs]
+        release(eng)
+        same = float(np.mean([a == b for a, b in zip(kern, plain)]))
+        print("gemma2_f32 " + json.dumps(dict(
+            model="gemma-2-9b float32 4 layers", gpu=smi, launches=launches,
+            same_as_plain=same, seconds=time.monotonic() - t0)), flush=True)
+        if set(launches) != {"rpa_decode_aligned_256", "rpa_extend_aligned_256"}:
+            raise AssertionError(f"float32 Gemma-2: other kernels launched: {launches}")
+        if same != 1.0:
+            raise AssertionError(f"float32 Gemma-2: the kernels' tokens differ from the plain "
+                                 f"attention's ({same:.3f} of requests the same)")
+
     eng = model_phase("llama-3.2-1b-class", llama_1b_config(), "auto")
     graph_phase(eng, "llama-3.2-1b-class", "chunked")
     packed = serve_phase(eng, "llama-3.2-1b-class", "chunked", repeat=True, eager=True)
@@ -1903,6 +2139,22 @@ def main() -> int:
     graph_phase(eng, "tinyllama-1.1b", "merged")
     serve_phase(eng, "tinyllama-1.1b", "merged", max_len=2048 - 64)
     release(eng)
+    # Gemma-2-9B on the 5D pool at head_dim 256 (the _256 builds): bf16 KV
+    # with its graphs, both modes, decode_stream and the long prompts; then
+    # fp8_e4m3 KV; then the float32 gate at 4 layers
+    label = "gemma-2-9b"
+    eng = model_phase(label, gemma2_9b_config(), "auto")
+    graph_phase(eng, label, "aligned256")
+    packed = serve_phase(eng, label, "aligned256")
+    stream_phase(eng, label, "aligned256", "auto", packed)
+    long_serve(eng, label)
+    release(eng)
+    label = "gemma-2-9b fp8_e4m3"
+    eng = model_phase(label, gemma2_9b_config(), "fp8_e4m3")
+    graph_phase(eng, label, "aligned256")
+    serve_phase(eng, label, "aligned256")
+    release(eng)
+    gemma2_f32_gate()
 
     # 5. the kernels line: each kernel's case at its path's representative
     # shape and types (the 8B path serves with fp8_e4m3 KV); every kernel
@@ -1920,7 +2172,10 @@ def main() -> int:
            "rpa_decode_stream_mla": ("decode_b64_kv1024", "bfloat16"),
            "rpa_decode_mla_288": ("decode_b64_kv1024", "bfloat16"),
            "rpa_extend_mla_288": ("extend_b8_q256_kv2048", "bfloat16"),
-           "rpa_decode_stream_mla_288": ("decode_b64_kv1024", "bfloat16")}
+           "rpa_decode_stream_mla_288": ("decode_b64_kv1024", "bfloat16"),
+           "rpa_decode_aligned_256": ("decode_b64_kv1024", "bfloat16"),
+           "rpa_extend_aligned_256": ("extend_b8_q256_kv2048", "bfloat16"),
+           "rpa_decode_stream_aligned_256": ("decode_b64_kv1024", "bfloat16")}
     idle = [k for k in KERNELS if not main_launches[k]]
     if idle:
         raise AssertionError(f"kernels no serving run launched: {idle}")

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Times block shapes of the warpgroup extend kernel at head_dim 64 on one GPU.
+"""Times block shapes of the warpgroup extend kernel at head_dim 64 or 256 on one GPU.
 
     python3 extend_shapes.py                 # the shapes below, from the repo root
     python3 extend_shapes.py --source parent=DIR   # and DIR's sources, as "parent"
     python3 extend_shapes.py --shapes a=NCW:3,TK:64 b=TK:128,STAGES:3
     python3 extend_shapes.py --shapes a+nocopy=TK:128   # a part removed
+    python3 extend_shapes.py --head-dim 256  # the head_dim-256 block's shapes
 
 A shape is a set of the ``WG64_*`` constants of
 semi_pd_tpu_torch/csrc/rpa_extend.cu (the head_dim-64 block of
-``rpa_extend_wgmma_kernel``): NCW consumer warpgroups of 64 packed rows, TK
+``rpa_extend_wgmma_kernel``; with ``--head-dim 256`` the ``WG256_*`` ones,
+Gemma-2's block, whose S is m64nTKk16 with Q by descriptor, so TK is 32 or
+48): NCW consumer warpgroups of 64 packed rows, TK
 KV positions per tile, STAGES tiles in the ring, LAG (fp8: tiles copied
 raw ahead of the one being widened), PRODUCER_REGS and CONSUMER_REGS (the
 setmaxnreg split); a constant a shape leaves out keeps the source's value.
@@ -19,10 +22,12 @@ that part costs; such a shape computes something else, so it is timed
 and not checked.
 For each shape a copy of the sources with those constants goes to
 semi_pd_tpu_torch/_build/shapes/<shape>/ and is built as the chunked
-(``rpa_extend``) and the merged (``rpa_extend_merged``) kernel, one nvcc
-each, all started together. Then ``chip_smoke.py``'s phase-2 extend cases
-(b8 x q256 / kv2048, ragged q 64-512 / kv1024, b2 x q2048 / kv2048; bf16
-KV, and fp8 e4m3 for the merged build) run through the port's wrappers
+(``rpa_extend``) and the merged (``rpa_extend_merged``) kernel (at head_dim
+256: ``rpa_extend_aligned_256``), one nvcc each, all started together.
+Then ``chip_smoke.py``'s phase-2 extend cases (b8 x q256 / kv2048, ragged
+q 64-512 / kv1024, b2 x q2048 / kv2048; bf16 KV, and fp8 e4m3 for the
+merged build; at head_dim 256 Gemma-2-9B's pool, bf16 and e4m3 KV) run
+through the port's wrappers
 with each shape's library loaded in turn, on the same inputs for every
 shape, each held against its plain version at ``chip_smoke.py``'s
 tolerance. Every case is timed twice, the shapes in order and then in
@@ -52,20 +57,32 @@ ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "semi_pd_tpu_torch" / "csrc"
 OUT = ROOT / "semi_pd_tpu_torch" / "_build" / "shapes"
 
-# (NCW, TK, STAGES, LAG, PRODUCER_REGS, CONSUMER_REGS): two consumer
-# warpgroups (384 threads, 168 registers a thread at launch) or three (512,
-# 128), 64- or 128-position tiles, 3 to 8 stages
+# (NCW, TK, STAGES, LAG, PRODUCER_REGS, CONSUMER_REGS) by head_dim. At 64:
+# two consumer warpgroups (384 threads, 168 registers a thread at launch) or
+# three (512, 128), 64- or 128-position tiles, 3 to 8 stages. At 256 every
+# shape must also fit fp8 KV's raw tiles beside Q's 64 KB (227 KB a block):
+# 32-position tiles with 2 or 3 stages and a lag of 1 or 2, 48-position
+# ones with 2 stages and a lag of 1
 SHAPES = {
-    "w2_tk64_s4": (2, 64, 4, 2, 56, 224),
-    "w2_tk64_s8": (2, 64, 8, 2, 56, 224),
-    "w2_tk128_s3": (2, 128, 3, 2, 56, 224),
-    "w2_tk128_s4": (2, 128, 4, 2, 56, 224),
-    "w2_tk128_s5_lag1": (2, 128, 5, 1, 56, 224),
-    "w3_tk64_s4": (3, 64, 4, 2, 32, 160),
-    "w3_tk64_s6": (3, 64, 6, 2, 32, 160),
+    64: {
+        "w2_tk64_s4": (2, 64, 4, 2, 56, 224),
+        "w2_tk64_s8": (2, 64, 8, 2, 56, 224),
+        "w2_tk128_s3": (2, 128, 3, 2, 56, 224),
+        "w2_tk128_s4": (2, 128, 4, 2, 56, 224),
+        "w2_tk128_s5_lag1": (2, 128, 5, 1, 56, 224),
+        "w3_tk64_s4": (3, 64, 4, 2, 32, 160),
+        "w3_tk64_s6": (3, 64, 6, 2, 32, 160),
+    },
+    256: {
+        "tk32_s3": (2, 32, 3, 2, 56, 224),
+        "tk32_s3_lag1": (2, 32, 3, 1, 56, 224),
+        "tk32_s2_lag1": (2, 32, 2, 1, 56, 224),
+        "tk48_s2_lag1": (2, 48, 2, 1, 56, 224),
+    },
 }
 KEYS = ("NCW", "TK", "STAGES", "LAG", "PRODUCER_REGS", "CONSUMER_REGS")
-BUILDS = ("rpa_extend", "rpa_extend_merged")
+PREFIX = {64: "WG64_", 256: "WG256_"}
+BUILDS = {64: ("rpa_extend", "rpa_extend_merged"), 256: ("rpa_extend_aligned_256",)}
 # parts of rpa_extend_wgmma_kernel a shape may remove: (source text, what
 # replaces it, times it occurs)
 ABLATIONS = {
@@ -93,10 +110,10 @@ def parse_shapes(items):
     return shapes
 
 
-def write_sources(name: str, src: Path, consts: dict) -> Path:
-    """A copy of ``src``'s headers and rpa_extend.cu with the WG64_*
-    constants replaced and the name's ``+PART``s removed; returns the .cu's
-    path."""
+def write_sources(name: str, src: Path, consts: dict, prefix: str = "WG64_") -> Path:
+    """A copy of ``src``'s headers and rpa_extend.cu with the ``prefix``
+    block's constants replaced and the name's ``+PART``s removed; returns
+    the .cu's path."""
     d = OUT / name
     d.mkdir(parents=True, exist_ok=True)
     for f in src.glob("*.cuh"):
@@ -108,10 +125,11 @@ def write_sources(name: str, src: Path, consts: dict) -> Path:
                 raise SystemExit(f"shape {name}: {old!r} is not {n} place(s) of the source")
             text = text.replace(old, new)
     for k, v in consts.items():
-        text, n = re.subn(rf"^constexpr int WG64_{k} = [^;]+;", f"constexpr int WG64_{k} = {v};",
-                          text, flags=re.M)
+        text, n = re.subn(rf"^constexpr int {prefix}{k} = [^;]+;",
+                          f"constexpr int {prefix}{k} = {v};", text, flags=re.M)
         if n != 1:
-            raise SystemExit(f"shape {name}: WG64_{k} is not one line of {src}/rpa_extend.cu")
+            raise SystemExit(f"shape {name}: {prefix}{k} is not one line of "
+                             f"{src}/rpa_extend.cu")
     (d / "rpa_extend.cu").write_text(text)
     return d / "rpa_extend.cu"
 
@@ -142,7 +160,10 @@ def main() -> int:
     ap.add_argument("--source", nargs="*", default=[],
                     help="NAME=DIR: another checkout, timed as shape NAME")
     ap.add_argument("--shapes", nargs="*", help="NAME=KEY:VALUE,... (default: the SHAPES table)")
+    ap.add_argument("--head-dim", type=int, default=64, choices=sorted(SHAPES),
+                    help="the block whose shapes are timed")
     args = ap.parse_args()
+    hd = args.head_dim
 
     import numpy as np
     import torch
@@ -160,14 +181,14 @@ def main() -> int:
     build_all()  # the tree's own libraries: the wrappers' defaults
 
     shapes = (parse_shapes(args.shapes) if args.shapes else
-              {n: dict(zip(KEYS, v)) for n, v in SHAPES.items()})
-    sources = {n: write_sources(n, CSRC, c) for n, c in shapes.items()}
+              {n: dict(zip(KEYS, v)) for n, v in SHAPES[hd].items()})
+    sources = {n: write_sources(n, CSRC, c, PREFIX[hd]) for n, c in shapes.items()}
     for item in args.source:
         name, _, d = item.partition("=")
         sources[name] = write_sources(name, Path(d) / "semi_pd_tpu_torch" / "csrc", {})
     libs = {}  # (shape, build) -> CudaKernel
     for shape, src in sources.items():
-        for build in BUILDS:
+        for build in BUILDS[hd]:
             base = KERNELS[build]
             libs[shape, build] = CudaKernel(f"{build}-{shape}", str(src), base.symbol,
                                             base.argtypes, base.replaces, base.defines)
@@ -199,7 +220,8 @@ def main() -> int:
     cases = [("extend_b8_q256_kv2048", [256] * 8, [2048] * 8),
              ("extend_ragged_kv1024", [512, 256, 128, 64, 384, 448, 192, 64], [1024] * 8),
              ("extend_b2_q2048_kv2048", [2048] * 2, [2048] * 2)]
-    runs = [(pool, kdt) for pool, kdt in (("chunked", bf), ("merged", bf), ("merged", e4m3))]
+    runs = {64: [("chunked", bf), ("merged", bf), ("merged", e4m3)],
+            256: [("aligned256", bf), ("aligned256", e4m3)]}[hd]
     order = list(sources)
     tol = cs.TOL["bfloat16"]
     for ci, (case, ql, kl) in enumerate(cases):

@@ -1,8 +1,9 @@
 """Model configuration (trimmed copy of semi_pd_tpu/config/model_config.py).
 
 Holds the ModelConfig fields a Llama-family dense decoder, a
-DeepSeek-V2/V3 (MLA + MoE) model and MiniCPM3 (MLA, dense, with its three
-scalings) use. HF-config parsing (``from_hf_config``
+DeepSeek-V2/V3 (MLA + MoE) model, MiniCPM3 (MLA, dense, with its three
+scalings) and Gemma-2 (its per-layer windows, softcaps and query scalar)
+use. HF-config parsing (``from_hf_config``
 / ``from_model_path``) and the multimodal fields are not part of the port
 yet (ROADMAP A13-A14): configs are built directly, as ``bench.py`` and
 ``__graft_entry__.py`` do; an MLA config sets ``use_mla`` and
@@ -13,7 +14,7 @@ yet (ROADMAP A13-A14): configs are built directly, as ``bench.py`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 
 @dataclasses.dataclass
@@ -35,6 +36,12 @@ class ModelConfig:
     logit_softcap: Optional[float] = None
     attn_logit_softcap: Optional[float] = None
     sliding_window: Optional[int] = None
+    # per-layer "full_attention" / "sliding_attention" (HF layer_types)
+    layer_types: Optional[List[str]] = None
+    # Gemma-2's attention scale is query_pre_attn_scalar ** -0.5, which the
+    # JAX package reads from the HF config (semi_pd_tpu/models/gemma2.py:40);
+    # None: head_dim, as there
+    query_pre_attn_scalar: Optional[float] = None
 
     # Positional encoding
     max_position_embeddings: int = 4096

@@ -11,7 +11,7 @@
 //   chunked [L, S, CT, 128]: one row of CT*128 = 2*Hkv*D elements per slot,
 //     K of all heads first, then V; v_pool = k_pool + Hkv*D, row_stride
 //     = CT*128.
-//   5D [L, 2, S, Hkv, D] (the "aligned" layout, at head_dim 128 or below):
+//   5D [L, 2, S, Hkv, D] (the "aligned" layout, at head_dim 64, 128, 256):
 //     K and V each in their own S x Hkv x D plane; v_pool = k_pool +
 //     S*Hkv*D, row_stride = Hkv*D.
 // Slot = page * page_size + offset, with the page read from the request's
@@ -42,8 +42,9 @@ enum TypeCode { F32 = 0, BF16 = 1, E4M3 = 2, E5M2 = 3 };
 // What a build instantiates: (q, KV) = (bf16, bf16), (f32, f32), (bf16,
 // fp8 e4m3) and (bf16, fp8 e5m2), fp8 KV widened exactly to bf16, at the
 // head_dim of its pool: 128 for the 5D pool's kernels (-DRPA_ALIGNED), or
-// the RPA_HEAD_DIM the build sets (64 for the merged kernels), and 64 for
-// the chunked pool's. X(q code, q type, KV code, KV type).
+// the RPA_HEAD_DIM the build sets (64 for the merged kernels, 256 for the
+// _256 builds), and 64 for the chunked pool's. X(q code, q type, KV code,
+// KV type).
 #ifndef RPA_HEAD_DIM
 #ifdef RPA_ALIGNED
 #define RPA_HEAD_DIM 128
@@ -84,6 +85,15 @@ __device__ __forceinline__ bool spec_ok(const SpecTree& tree, int wb, unsigned b
   const int wk = pos - wb;
   return wk < 0 || wk >= tree.w || ((bits >> wk) & 1u);
 }
+
+// Whether a build holds the extends' TREE instantiations: not with
+// -DRPA_NO_TREE (the _288 and _256 extends: no draft of those geometries
+// speculates over a tree), which refuse a tree.
+#ifdef RPA_NO_TREE
+constexpr bool TREE_BUILT = false;
+#else
+constexpr bool TREE_BUILT = true;
+#endif
 
 // The C entries' tree arguments (spec_w masks in HOST memory at spec_anc,
 // win_base on the card) as the kernels' SpecTree; false for a tree of more

@@ -7,7 +7,8 @@
 //   chunked pool, head_dim 64 (rpa_decode): semi_pd_tpu/ops/attention/
 //     rpa_packed.py _rpa_kernel_chunked_packed (called from
 //     ragged_paged_attention_chunked_packed);
-//   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_decode_aligned):
+//   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_decode_aligned) and 256
+//     (-DRPA_ALIGNED -DRPA_HEAD_DIM=256, rpa_decode_aligned_256, Gemma-2's):
 //     semi_pd_tpu/ops/attention/rpa_packed.py _rpa_kernel_packed (called from
 //     ragged_paged_attention_packed; its GQA branch, the MLA branch is
 //     rpa_decode_mla.cu);
@@ -36,10 +37,10 @@
 // rpa_decode_kernel (float32 q): one block of 128 threads per (request, KV
 // head). The block stages its G query rows in shared memory once, then
 // walks the request's pages through the page table in tiles of 4096 / D
-// positions (64 at D 64, 32 at D 128, so the float32 K and V tiles stay at
-// ~34 KB of shared memory for both): each thread issues the 16-byte loads
-// of its share of the NEXT tile into registers before the block computes on
-// the current one (a two-deep pipeline without cp.async), so a KV byte is
+// positions (64 at D 64, 32 at D 128, 16 at D 256, so the float32 K and V
+// tiles stay at ~34 KB of shared memory at every width): each thread issues
+// the 16-byte loads of its share of the NEXT tile into registers before the
+// block computes on the current one (a two-deep pipeline without cp.async), so a KV byte is
 // read once and the load latency overlaps the score / softmax / P.V work
 // (rpa_decode.cuh). Positions at or past kv_len are never read (the TPU
 // kernels gathered whole sections and relied on the dump page being
@@ -65,8 +66,12 @@
 //     stages, two tiles in flight while it computes on the third; fp8 KV
 //     loaded into registers a tile ahead and widened exactly on its way into
 //     one of two bf16 tiles. A warp needs only __syncwarp, never the block.
-//     SD_TK is 32 positions at head_dim 64 and 16 at 128, so that a block's
-//     rings take about 105 KB at either width and two blocks share an SM.
+//     SD_TK is 32 positions at head_dim 64, 16 at 128 and 8 at 256 (P V as
+//     m16n8k8), so that a block's rings take about 105 KB at every width
+//     and two blocks share an SM. At 256 the block also stages its Q rows
+//     once in shared memory (8 KB), and every warp reads its A fragments
+//     from there a k-step at a time (rpa_decode_mma.cuh MmaQ): O alone is
+//     128 registers a thread there.
 //   - Grid (n_split, Hkv, B): the host's split plan (rpa_packed.py
 //     decode_split_plan) cuts [0, maxP * page_size) into n_split ranges of
 //     split_len positions, from the shapes, the build and the SM count only
@@ -142,7 +147,7 @@ rpa_decode_kernel(const float* __restrict__ q,         // [B, Hq, D]
 // equal.
 constexpr int SD_NT = 128;  // 4 warps
 constexpr int SD_WARPS = SD_NT / 32;
-constexpr int SD_TK = 2048 / RPA_HEAD_DIM;  // KV positions per warp tile
+constexpr int SD_TK = 2048 / RPA_HEAD_DIM;  // KV positions per warp tile (8 at 256)
 constexpr int SD_STEP = SD_WARPS * SD_TK;   // split_len must be a multiple of this
 constexpr int SD_BLOCKS_PER_SM = 2;         // blocks an SM holds with bf16 KV (SdLayout)
 
@@ -153,12 +158,14 @@ struct SdLayout {
   static constexpr int TILE = SD_TK * LD;          // elements of one K or V tile
   static constexpr int STAGE_BYTES = 2 * TILE * 2;  // a K and a V tile in bf16
   static constexpr int NST = WIDEN ? 2 : 3;         // bf16 tiles per warp
-  static constexpr int SMEM = SD_WARPS * NST * STAGE_BYTES;
+  static constexpr int Q0 = SD_WARPS * NST * STAGE_BYTES;  // the Q tile (MmaQ<D>::SMEM)
+  static constexpr int SMEM = Q0 + MmaQ<D>::BYTES;
   static constexpr int VE = 16 / (int)sizeof(TKV);  // KV elements per 16-byte vector
   static constexpr int VPR = D / VE;                // vectors per K or V row
   static constexpr int NV = SD_TK * VPR / 32;       // of K (and of V) per lane
   static constexpr int VSTEP = 32 / VPR;            // rows between a lane's vectors
-  static_assert(D == RPA_HEAD_DIM && D % 16 == 0 && SD_TK % 16 == 0, "tile shape");
+  static_assert(D == RPA_HEAD_DIM && D % 32 == 0 && (SD_TK == 8 || SD_TK % 16 == 0),
+                "tile shape");
   static_assert(32 % VPR == 0 && (SD_TK * VPR) % 32 == 0, "tile shape");
   // the block's merge: each warp's 16 rows of O and (m, l)
   static_assert(SD_WARPS * 16 * (D + 2) * 4 <= SMEM, "merge staging");
@@ -183,7 +190,7 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
                       float cap, int window, int split_len) {
   using bf16 = __nv_bfloat16;
   using Lay = SdLayout<TKV, D>;
-  constexpr int LD = Lay::LD, TK = SD_TK, KS = D / 16;
+  constexpr int LD = Lay::LD, TK = SD_TK;
   extern __shared__ __align__(16) unsigned char sd_smem[];  // not rpa_decode_kernel's smem
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x, B = gridDim.z;
@@ -200,10 +207,18 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   const int ntiles = s1 > first ? (s1 - first + TK - 1) / TK : 0;
   const int nw = ntiles > warp ? (ntiles - warp + SD_WARPS - 1) / SD_WARPS : 0;  // this warp's
 
-  // this warp's A fragments of Q: row g of the m16 tile is query head h G + g
+  // Q: row g of the m16 tile is query head h G + g; this warp's A
+  // fragments, or at head_dim 256 the block's tile in shared memory
   const int tig = lane & 3;
-  uint32_t qa[KS][4];
-  mma_load_q<D>(qa, q + ((int64_t)b * Hq + (int64_t)h * G) * D, G, lane);
+  MmaQ<D> qf;
+  if constexpr (MmaQ<D>::SMEM) {
+    bf16* qt = reinterpret_cast<bf16*>(sd_smem + Lay::Q0);
+    mma_store_q<D>(qt, q + ((int64_t)b * Hq + (int64_t)h * G) * D, G, tid, SD_NT);
+    __syncthreads();
+    qf.point(qt, lane);
+  } else {
+    mma_load_q<D>(qf.qa, q + ((int64_t)b * Hq + (int64_t)h * G) * D, G, lane);
+  }
 
   // this warp's bf16 tiles (stage s: K, then V)
   bf16* wt = reinterpret_cast<bf16*>(sd_smem) + warp * Lay::NST * 2 * Lay::TILE;
@@ -299,7 +314,7 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
     __syncwarp();
     issue(i + 2, s == 0 ? Lay::NST - 1 : s - 1);
     const uint32_t sK = s_w + s * Lay::STAGE_BYTES, sV = sK + Lay::TILE * 2;
-    mma_tile<D, LD, TK>(ms, qa, sK, sV, k_lane, v_lane, tile_start(i), lo, s1, scale, cap,
+    mma_tile<D, LD, TK>(ms, qf, sK, sV, k_lane, v_lane, tile_start(i), lo, s1, scale, cap,
                         capped, c, tig);
     if constexpr (Lay::WIDEN) {
       if (i + 1 < nw) put(s ^ 1);

@@ -15,8 +15,14 @@
 //     two bf16 parts hi + lo (split_bf16, rpa_common.cuh: two products, P
 //     kept float32 to 2^-18). The running sum l adds the unrounded p.
 // A tile is 16, 32 or more positions (m16n8k16 for P V, k = 16 positions),
-// or 8 (m16n8k8): the streaming decode's tile at head_dim 128, which keeps
-// its four-deep rings at two blocks per SM.
+// or 8 (m16n8k8): the streaming decode's tile at head_dim 128 and 256, and
+// the packed decode's at 256, which keeps the rings' bytes per tile as at
+// the narrower widths.
+//
+// Q's A fragments stay in registers up to head_dim 128. At 256, where O
+// alone takes 128 registers a thread and Q's fragments would take 64 more,
+// Q's 16 rows go to a bf16 tile in shared memory and each k-step's
+// fragment is read by ldmatrix where S needs it (MmaQ).
 //
 // A warp's partial (m c, l, O) of its 16 rows is staged in shared memory
 // (mma_stage) and partials are merged in a fixed order in log-sum-exp form
@@ -59,6 +65,51 @@ __device__ __forceinline__ void mma_load_q(uint32_t (&qa)[D / 16][4],
       const int r = gid + 8 * (e & 1), c = ks * 16 + 8 * (e >> 1) + 2 * tig;
       qa[ks][e] = r < G ? *reinterpret_cast<const uint32_t*>(qb + r * D + c) : 0u;
     }
+}
+
+// A warp's Q operand of S = Q K^T: the A fragments in registers (qa, from
+// mma_load_q), or with SMEM (head_dim 256) a 16-row bf16 tile in shared
+// memory, rows LD elements apart (ldmatrix without bank conflicts), written
+// by mma_store_q and read a k-step at a time (frag).
+template <int D>
+struct MmaQ {
+  static constexpr bool SMEM = D > 128;
+  static constexpr int LD = D + 8;
+  static constexpr int BYTES = SMEM ? 16 * LD * 2 : 0;  // the shared tile
+  uint32_t qa[SMEM ? 1 : D / 16][4];
+  uint32_t s_lane;  // SMEM: this lane's ldmatrix row address at k-step 0
+
+  // SMEM: the tile at `tile` (l16 / l8: matrices 2-3 the upper 8 dims,
+  // 1 and 3 rows 8-15, as mma.sync's A fragment orders them)
+  __device__ __forceinline__ void point(const __nv_bfloat16* tile, int lane) {
+    const int l7 = lane & 7, l8 = ((lane >> 3) & 1) * 8, l16 = ((lane >> 4) & 1) * 8;
+    s_lane = static_cast<uint32_t>(__cvta_generic_to_shared(tile)) + ((l7 + l8) * LD + l16) * 2;
+  }
+  // the A fragment of k-step ks (dims 16 ks .. 16 ks + 15)
+  __device__ __forceinline__ void frag(int ks, uint32_t (&a)[4]) const {
+    if constexpr (SMEM) {
+      ldmatrix_x4(a, s_lane + ks * 32);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = qa[ks][e];
+    }
+  }
+};
+
+// Writes the 16 rows of an m16 tile of Q, query rows g < G of qb (G rows
+// of D) and zeros past G, into the shared tile of MmaQ<D>; thread t of nt
+// copies every nt-th 16-byte vector. The caller synchronises before the
+// tile is read.
+template <int D>
+__device__ __forceinline__ void mma_store_q(__nv_bfloat16* tile,
+                                            const __nv_bfloat16* __restrict__ qb, int G, int t,
+                                            int nt) {
+  constexpr int VR = D / 8;  // vectors a row
+  for (int v = t; v < 16 * VR; v += nt) {
+    const int r = v / VR, c = v - r * VR;
+    *reinterpret_cast<uint4*>(tile + r * MmaQ<D>::LD + c * 8) =
+        r < G ? *reinterpret_cast<const uint4*>(qb + r * D + c * 8) : make_uint4(0u, 0u, 0u, 0u);
+  }
 }
 
 // A warp's softmax state: O (rows gid and gid + 8, columns d * 8 + 2 tig
@@ -192,10 +243,10 @@ __device__ __forceinline__ void mma_softmax_pv(MmaState<D>& s, float (&sc)[(TK +
 // One tile of TK positions starting at position st, K and V at the shared
 // addresses sK and sV: S = Q K^T, then mma_softmax_pv.
 template <int D, int LD, int TK>
-__device__ __forceinline__ void mma_tile(MmaState<D>& s, const uint32_t (&qa)[D / 16][4],
-                                         uint32_t sK, uint32_t sV, uint32_t k_lane,
-                                         uint32_t v_lane, int st, int lo, int hi, float scale,
-                                         float cap, bool capped, float c, int tig) {
+__device__ __forceinline__ void mma_tile(MmaState<D>& s, const MmaQ<D>& q, uint32_t sK,
+                                         uint32_t sV, uint32_t k_lane, uint32_t v_lane, int st,
+                                         int lo, int hi, float scale, float cap, bool capped,
+                                         float c, int tig) {
   constexpr int KS = D / 16, NJ = (TK + 7) / 8;
   // S = Q K^T: TK / 8 n8 tiles of 8 positions
   float sc[NJ][4];
@@ -204,21 +255,25 @@ __device__ __forceinline__ void mma_tile(MmaState<D>& s, const uint32_t (&qa)[D 
   if constexpr (TK % 16 == 0) {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      q.frag(ks, a);
 #pragma unroll
       for (int np = 0; np < TK / 16; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, sK + k_lane + (np * 16 * LD + ks * 16) * 2);
-        mma_bf16_16816(sc[2 * np], qa[ks], kf[0], kf[1]);
-        mma_bf16_16816(sc[2 * np + 1], qa[ks], kf[2], kf[3]);
+        mma_bf16_16816(sc[2 * np], a, kf[0], kf[1]);
+        mma_bf16_16816(sc[2 * np + 1], a, kf[2], kf[3]);
       }
     }
   } else {  // TK 8: one x4 load covers two k16 steps of the dims
 #pragma unroll
     for (int kp = 0; kp < KS / 2; ++kp) {
-      uint32_t kf[4];
+      uint32_t kf[4], a0[4], a1[4];
       ldmatrix_x4(kf, sK + k_lane + kp * 32 * 2);
-      mma_bf16_16816(sc[0], qa[2 * kp], kf[0], kf[1]);
-      mma_bf16_16816(sc[0], qa[2 * kp + 1], kf[2], kf[3]);
+      q.frag(2 * kp, a0);
+      q.frag(2 * kp + 1, a1);
+      mma_bf16_16816(sc[0], a0, kf[0], kf[1]);
+      mma_bf16_16816(sc[0], a1, kf[2], kf[3]);
     }
   }
   mma_softmax_pv<D, LD, TK>(s, sc, sV, v_lane, st, lo, hi, scale, cap, capped, c, tig);

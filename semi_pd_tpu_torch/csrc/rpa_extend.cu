@@ -7,10 +7,11 @@
 //   chunked pool, head_dim 64 (rpa_extend): semi_pd_tpu/ops/attention/
 //     ragged_paged_attention.py _rpa_kernel_chunked (called from
 //     ragged_paged_attention_chunked);
-//   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_extend_aligned):
-//     semi_pd_tpu/ops/attention/ragged_paged_attention.py _rpa_kernel
-//     (called from ragged_paged_attention; its GQA branch, the MLA v_dim branch
-//     is rpa_extend_mla.cu);
+//   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_extend_aligned) and 256
+//     (-DRPA_ALIGNED -DRPA_HEAD_DIM=256 -DRPA_NO_TREE, rpa_extend_aligned_256,
+//     Gemma-2's): semi_pd_tpu/ops/attention/ragged_paged_attention.py
+//     _rpa_kernel (called from ragged_paged_attention; its GQA branch, the
+//     MLA v_dim branch is rpa_extend_mla.cu);
 //   5D pool, head_dim 64 (-DRPA_ALIGNED -DRPA_HEAD_DIM=64 -DRPA_P_F32,
 //     rpa_extend_merged): the extend of semi_pd_tpu/ops/attention/
 //     ragged_paged_attention.py _rpa_kernel_merged (D % 128 != 0 on that
@@ -60,8 +61,10 @@
 //     it (empty barrier);
 //   - NCW consumer warpgroups of 64 packed rows (wgmma's M) each: Q goes
 //     to shared memory once and, by ldmatrix, into the warps' A fragments
-//     (D / 16 k-steps, kept in registers); per tile, S = Q K^T by D / 16
-//     m64nTKk16 with K read K-major; scale, softcap, the masks (causal by
+//     (D / 16 k-steps, kept in registers; at head_dim 256 Q stays in shared
+//     memory, swizzled, and is read by descriptor: see below); per tile,
+//     S = Q K^T by D / 16 m64nTKk16 with K read K-major; scale, softcap,
+//     the masks (causal by
 //     each packed row's own query position, kv_len, window; tiles inside
 //     every row of a warp skip them) and the online softmax on the S
 //     accumulators in registers (a row lives in the 4 lanes of a quad: two
@@ -102,6 +105,27 @@
 //     in all but one case; 3 stages ran slower than 4, 5 no faster. The
 //     fp8 producer's thread map is the identity here (fp8_lane: its two
 //     rows per quarter warp already fall in other banks).
+//   - head_dim 256 (the aligned _256 build, Gemma-2's): O alone is 64 x 256
+//     float32, 128 registers a consumer thread; Q's A fragments would take
+//     64 more and S 32 more at the 128 build's 64-position tiles. So Q is
+//     staged once in the 128-byte swizzled layout (ROWS rows, four column
+//     blocks) and S = Q K^T takes it by descriptor (wgmma's SS form, A
+//     K-major like K), and the tile is 32 positions (S as m64n32k16, 16
+//     registers; P V as m64n256k16 over V's four column blocks, LBO apart):
+//     FlashAttention-3's head_dim-256 arrangement (Q from shared memory, a
+//     shorter KV tile), named as prior art. 2 consumer warpgroups, 3 stages
+//     (32 KB each), 224 / 56 as above: 160 KB of shared memory with bf16
+//     KV, 208 KB with fp8 (its 3 raw tiles of 16 KB); 4 stages would leave
+//     fp8 no room. Each warp stages its O through its own Q rows (no other
+//     warp reads them). A 256-wide row is 32 chunks: a producer thread
+//     takes rows 4 apart (VSTEP 4), so that 32 threads copy one row.
+//     Chosen on the card from the four shapes that fit fp8 KV
+//     (extend_shapes.py --head-dim 256; PERF.md §6): 32 positions x 3
+//     stages ran 0.220 ms at b8 x q256 / kv2048 with bf16 and with e4m3
+//     KV (a lag of 1 the same with bf16, 2% slower with fp8); 2 stages
+//     lost 13-58%, 48-position tiles at 2 stages 7-40%. This build holds
+//     no speculation-tree instantiation (-DRPA_NO_TREE; no draft of this
+//     geometry speculates over a tree): a tree is refused.
 //   Not TMA: a TMA box of a page would read the page's slots past kv_len,
 //   which no kernel here reads. Each K or V byte read from shared memory
 //   feeds 64 rows, and each tile copied serves ROWS.
@@ -109,13 +133,15 @@
 // float32 q: rpa_extend_kernel, on the CUDA cores. TF32 mma would not be
 //   the float32 dot the float32 pair computes. One block per (entry, query
 //   head), EXTEND_QBLK query rows per block and TPR = D / 64 threads per row
-//   (1 at D 64, 2 at D 128): each thread keeps 64 head dims of its row's
-//   query and float32 output in registers, and the TPR partial dot products
+//   (1 at D 64, 2 at D 128, 4 at D 256): each thread keeps 64 head dims of
+//   its row's query and float32 output in registers (at D 256, 512 threads
+//   a block leave 128 registers a thread, and the kernel spills), and the TPR partial dot products
 //   of a score are summed with __shfl_xor_sync among the row's lanes. A
 //   thread's dims are float4 chunks j * TPR + part, so the lanes of a row
 //   read neighbouring 16-byte words of a K or V row. KV tiles of 32
-//   positions go through shared memory as float32, every row reading each K
-//   and V row as a broadcast; the next tile's loads are issued into
+//   positions (16 at D 256, within the 48 KB of static shared memory) go
+//   through shared memory as float32, every row reading each K and V row
+//   as a broadcast; the next tile's loads are issued into
 //   registers before the current one is computed.
 //
 // The speculation tree (SpecTree and its rule in rpa_common.cuh; ops/
@@ -157,8 +183,9 @@ namespace rpa {
 // The CUDA-core kernel (float32 q).
 
 constexpr int EXT_DPT = 64;  // head dims per thread
-constexpr int EXT_TK = 32;   // KV positions per tile
 
+template <int D>
+__host__ __device__ constexpr int ext_tk() { return D > 128 ? 16 : 32; }  // KV positions per tile
 template <int D>
 __host__ __device__ constexpr int ext_tpr() { return D / EXT_DPT; }  // threads per row
 template <int D>
@@ -181,7 +208,7 @@ rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
                   float scale, float cap, int window,
                   const int* __restrict__ win_base,       // [B], read when tree.w > 0
                   const SpecTree tree) {
-  constexpr int TPR = ext_tpr<D>(), NT = ext_nt<D>(), TK = EXT_TK;
+  constexpr int TPR = ext_tpr<D>(), NT = ext_nt<D>(), TK = ext_tk<D>();
   constexpr int NC = EXT_DPT / 4;  // float4 chunks per thread
   using Tile = KVTile<TKV, D, TK, NT>;
   __shared__ __align__(16) float sK[TK * D];
@@ -352,19 +379,31 @@ constexpr int WG64_PRODUCER_REGS = 56;
 constexpr int WG64_CONSUMER_REGS = 224;
 constexpr int WG64_NT = 128 * (WG64_NCW + 1);
 constexpr int WG64_ROWS = 64 * WG64_NCW;
+// head_dim 256 (the aligned _256 build): Q by descriptor
+constexpr int WG256_NCW = 2;
+constexpr int WG256_TK = 32;
+constexpr int WG256_STAGES = 3;
+constexpr int WG256_LAG = 2;
+constexpr int WG256_PRODUCER_REGS = 56;
+constexpr int WG256_CONSUMER_REGS = 224;
+constexpr int WG256_NT = 128 * (WG256_NCW + 1);
+constexpr int WG256_ROWS = 64 * WG256_NCW;
 
 template <typename TKV, int D>
 struct WgLayout {
-  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
   static constexpr bool D64 = D == 64;
-  static constexpr int NCW = D64 ? WG64_NCW : WG_NCW;
-  static constexpr int NT = D64 ? WG64_NT : WG_NT;
-  static constexpr int ROWS = D64 ? WG64_ROWS : WG_ROWS;
-  static constexpr int TK = D64 ? WG64_TK : WG_TK;
-  static constexpr int STAGES = D64 ? WG64_STAGES : WG_STAGES;
-  static constexpr int LAG = D64 ? WG64_LAG : WG_LAG;
-  static constexpr int PRODUCER_REGS = D64 ? WG64_PRODUCER_REGS : WG_PRODUCER_REGS;
-  static constexpr int CONSUMER_REGS = D64 ? WG64_CONSUMER_REGS : WG_CONSUMER_REGS;
+  static constexpr bool QSS = D == 256;  // Q read by descriptor (wgmma's SS form)
+  static constexpr int NCW = D64 ? WG64_NCW : QSS ? WG256_NCW : WG_NCW;
+  static constexpr int NT = D64 ? WG64_NT : QSS ? WG256_NT : WG_NT;
+  static constexpr int ROWS = D64 ? WG64_ROWS : QSS ? WG256_ROWS : WG_ROWS;
+  static constexpr int TK = D64 ? WG64_TK : QSS ? WG256_TK : WG_TK;
+  static constexpr int STAGES = D64 ? WG64_STAGES : QSS ? WG256_STAGES : WG_STAGES;
+  static constexpr int LAG = D64 ? WG64_LAG : QSS ? WG256_LAG : WG_LAG;
+  static constexpr int PRODUCER_REGS =
+      D64 ? WG64_PRODUCER_REGS : QSS ? WG256_PRODUCER_REGS : WG_PRODUCER_REGS;
+  static constexpr int CONSUMER_REGS =
+      D64 ? WG64_CONSUMER_REGS : QSS ? WG256_CONSUMER_REGS : WG_CONSUMER_REGS;
   static constexpr int LAUNCH_REGS = 65536 / NT / 8 * 8;  // one block per SM
   static constexpr bool WIDEN = sizeof(TKV) == 1;  // fp8 KV: widened by the producer
   static constexpr int TILE = TK * D * 2;          // bytes of a K or a V tile (bf16, swizzled)
@@ -374,14 +413,17 @@ struct WgLayout {
   static constexpr int RAW0 = STAGES * STAGE;
   static constexpr int Q0 = RAW0 + NRAW * RAW;     // Q (then O) staging
   static constexpr int QLD = D + 8;                // its row stride, padded for ldmatrix
-  static constexpr int BAR0 = Q0 + ROWS * QLD * 2;  // full[STAGES], empty[STAGES]
+  // QSS: swizzled like a KV tile (ROWS rows, D / 64 column blocks)
+  static constexpr int QBYTES = QSS ? ROWS * D * 2 : ROWS * QLD * 2;
+  static constexpr int BAR0 = Q0 + QBYTES;         // full[STAGES], empty[STAGES]
   static constexpr int SMEM = BAR0 + 2 * STAGES * 8 + 1024;  // + the atoms' alignment
   static constexpr int VE = 16 / (int)sizeof(TKV);  // KV elements per 16-byte vector
   static constexpr int VPR = D / VE;                // vectors per K or V row
   static constexpr int VSTEP = 128 / VPR;           // rows between a producer thread's vectors
   static constexpr int NV = TK / VSTEP;             // of K (and of V) per producer thread
   static_assert(NT == 128 * (NCW + 1) && ROWS == 64 * NCW, "warpgroups");
-  static_assert(VSTEP % 8 == 0 && TK % VSTEP == 0 && TK % 16 == 0, "tile shape");
+  static_assert(VSTEP >= 1 && TK % VSTEP == 0 && TK % 16 == 0, "tile shape");
+  static_assert(Q0 % 1024 == 0 && BAR0 % 8 == 0, "atoms and barriers aligned");
   static_assert(NCW * (CONSUMER_REGS - LAUNCH_REGS) <= LAUNCH_REGS - PRODUCER_REGS,
                 "register moves");
   static_assert(SMEM <= 232448, "shared memory of one block");
@@ -439,13 +481,18 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
     }
     wg::mbar_init_fence();
   }
-  // Q of the block's packed rows (zeros past n_rows), in padded rows for
-  // ldmatrix, copied by the whole block
-  bf16* sQ = reinterpret_cast<bf16*>(smem + Lay::Q0);
+  // Q of the block's packed rows (zeros past n_rows), copied by the whole
+  // block: in padded rows for ldmatrix, or with QSS swizzled for wgmma's
+  // descriptor. q_off(m, c): the byte offset of row m's 16-byte chunk c
+  // (the epilogue stages O there too)
+  auto q_off = [](int m, int c) {
+    return Lay::QSS ? wg::sw128(Lay::ROWS, m, c) : (m * QLD + c * 8) * 2;
+  };
+  unsigned char* sQ = smem + Lay::Q0;
   for (int v = tid; v < Lay::ROWS * QV; v += Lay::NT) {
     const int m = v / QV, c = v % QV;
     const int pm = m_lo + m, r = pm / G, g = pm - r * G;
-    bf16* dst = sQ + m * QLD + c * 8;
+    unsigned char* dst = sQ + q_off(m, c);
     if (r < n_rows)
       cp_async16(dst, q + ((int64_t)(row0 + r) * Hq + h * G + g) * D + c * 8);
     else
@@ -453,15 +500,18 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
   }
   cp_async_commit();
   cp_async_wait<0>();
+  // wgmma reads Q through the async proxy: the copies and stores are
+  // fenced for it before the barrier hands Q over
+  if constexpr (Lay::QSS) wg::fence_proxy_async();
   __syncthreads();
   const uint32_t s_smem = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
   if (tid >= NC) {
     // ---- The producer warpgroup: keeps the ring full. Thread p copies
     // chunk vc of the rows vt0 + k VSTEP of K and, from the same slot, of V
-    // (neighbouring threads copy neighbouring 16 bytes of a row; VSTEP is a
-    // multiple of 8, so all of a thread's rows sit at the same row of their
-    // swizzle atoms). Tile t goes to stage t % NS once the consumers have
+    // (neighbouring threads copy neighbouring 16 bytes of a row; below
+    // head_dim 256 VSTEP is a multiple of 8, so all of a thread's rows sit
+    // at the same row of their swizzle atoms). Tile t goes to stage t % NS once the consumers have
     // released the tile before it there. bf16 KV is copied by cp.async
     // straight to its swizzled offsets, and the thread's arrival on full
     // fires when its copies land. fp8 KV is copied raw into one of NRAW raw
@@ -540,10 +590,12 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
     wg::regs_inc<Lay::CONSUMER_REGS>();
     const int warp = tid / 32, lane = tid % 32;
     // the warp's A fragments of Q, by ldmatrix: wgmma's register A is
-    // mma.sync's A fragment
+    // mma.sync's A fragment; with QSS, the warpgroup's 64 rows of the
+    // swizzled Q tile, read by descriptor
     const int l7 = lane & 7, l8 = ((lane >> 3) & 1) * 8, l16 = ((lane >> 4) & 1) * 8;
-    uint32_t qa[KS][4];
-    {
+    uint32_t qa[Lay::QSS ? 1 : KS][4];
+    const uint32_t s_qwg = s_smem + Lay::Q0 + (warp / 4) * 64 * 128;
+    if constexpr (!Lay::QSS) {
       const uint32_t a = s_smem + Lay::Q0 + warp * 16 * QLD * 2 + ((l7 + l8) * QLD + l16) * 2;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qa[ks], a + ks * 32);
@@ -605,7 +657,12 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
                           (TREE && st < wb + tree.w && st + TK > wb);
       wg::fence();
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) wg::mma_rs<0>(sc, qa[ks], wg::desc_k(sK, TK, ks), ks);
+      for (int ks = 0; ks < KS; ++ks) {
+        if constexpr (Lay::QSS)
+          wg::mma_ss<0>(sc, wg::desc_k(s_qwg, Lay::ROWS, ks), wg::desc_k(sK, TK, ks), ks);
+        else
+          wg::mma_rs<0>(sc, qa[ks], wg::desc_k(sK, TK, ks), ks);
+      }
       wg::commit();
       // O += P V by k-step: P rounded to bf16 (pa), or with P_SPLIT its
       // bf16 parts, hi (pa) then lo (pl), two products against the same V
@@ -699,8 +756,10 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
     }
 
     // Epilogue: O / l (0 for a row that saw no position) staged per warp in
-    // the Q staging (each warp its own 16 rows), then written as 16-byte
-    // vectors to the rows the entry owns
+    // the Q staging (each warp its own 16 rows, which no other warp reads:
+    // with QSS its own swizzled Q rows, whose last reader, the warpgroup's
+    // last S, is done), then written as 16-byte vectors to the rows the
+    // entry owns
     float inv[2];
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -709,22 +768,22 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv[rr] = l > 0.f ? 1.f / l : 0.f;
     }
-    bf16* sO = sQ + warp * 16 * QLD;
+    const int mw = warp * 16;  // the warp's first row of the staging
 #pragma unroll
     for (int d = 0; d < D / 8; ++d) {
-      *reinterpret_cast<uint32_t*>(sO + gid * QLD + d * 8 + 2 * tig) =
+      *reinterpret_cast<uint32_t*>(sQ + q_off(mw + gid, d) + 4 * tig) =
           pack_bf16(o[4 * d] * inv[0], o[4 * d + 1] * inv[0]);
-      *reinterpret_cast<uint32_t*>(sO + (gid + 8) * QLD + d * 8 + 2 * tig) =
+      *reinterpret_cast<uint32_t*>(sQ + q_off(mw + gid + 8, d) + 4 * tig) =
           pack_bf16(o[4 * d + 2] * inv[1], o[4 * d + 3] * inv[1]);
     }
     __syncwarp();
 #pragma unroll
     for (int k = 0; k < 16 * QV / 32; ++k) {
       const int v = lane + k * 32, m = v / QV, cc = v % QV;
-      const int pm = m_lo + warp * 16 + m, r = pm / G, g = pm - r * G;
+      const int pm = m_lo + mw + m, r = pm / G, g = pm - r * G;
       if (r < n_rows)
         *reinterpret_cast<uint4*>(out + ((int64_t)(row0 + r) * Hq + h * G + g) * D + cc * 8) =
-            *reinterpret_cast<const uint4*>(sO + m * QLD + cc * 8);
+            *reinterpret_cast<const uint4*>(sQ + q_off(mw + m, cc));
     }
   }
 }
@@ -769,7 +828,8 @@ static int launch_extend_wgmma(const void* q, const void* k_pool, const void* v_
 
 // bf16 q: the warpgroup kernel, with P split into hi + lo in the builds
 // that keep P in float32 (-DRPA_P_F32: the merged build); float32 q: the
-// CUDA-core kernel. Each in its TREE instantiation only with a tree.
+// CUDA-core kernel. Each in its TREE instantiation only with a tree; a
+// build without them (-DRPA_NO_TREE: the _256 one) refuses a tree.
 template <typename TQ, typename TKV, int D>
 static int launch(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                   const void* kv_lens, const void* q_lens, const void* q_start,
@@ -780,12 +840,18 @@ static int launch(const void* q, const void* k_pool, const void* v_pool, const v
 #define RPA_EXT_ARGS                                                                     \
   q, k_pool, v_pool, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out, NQB, \
       Hq, Hkv, row_stride, maxP, page_size, scale, cap, window, win_base, tree, stream
+  if (tree.w > 0) {
+    if constexpr (!TREE_BUILT)
+      return (int)cudaErrorInvalidValue;
+    else if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+      return launch_extend_wgmma<TKV, D, P_F32_BUILD, true>(RPA_EXT_ARGS);
+    else
+      return launch_extend<TQ, TKV, D, true>(RPA_EXT_ARGS);
+  }
   if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
-    return tree.w > 0 ? launch_extend_wgmma<TKV, D, P_F32_BUILD, true>(RPA_EXT_ARGS)
-                      : launch_extend_wgmma<TKV, D, P_F32_BUILD, false>(RPA_EXT_ARGS);
+    return launch_extend_wgmma<TKV, D, P_F32_BUILD, false>(RPA_EXT_ARGS);
   else
-    return tree.w > 0 ? launch_extend<TQ, TKV, D, true>(RPA_EXT_ARGS)
-                      : launch_extend<TQ, TKV, D, false>(RPA_EXT_ARGS);
+    return launch_extend<TQ, TKV, D, false>(RPA_EXT_ARGS);
 #undef RPA_EXT_ARGS
 }
 
@@ -799,8 +865,9 @@ static int launch(const void* q, const void* k_pool, const void* v_pool, const v
 // window. spec_w: the speculation tree's node count (0: no tree), spec_anc
 // its masks in HOST memory (spec_w of them, copied here into the kernel's
 // parameters), win_base its window start per request on the card. Returns
-// cudaError_t; a head_dim or type pair this build lacks, or a tree of more
-// than SPEC_MAX_NODES nodes, is cudaErrorInvalidValue.
+// cudaError_t; a head_dim or type pair this build lacks, a tree of more
+// than SPEC_MAX_NODES nodes, or any tree in a build without the tree's
+// instantiations (-DRPA_NO_TREE), is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                                 const void* page_table, const void* kv_lens, const void* q_lens,
                                 const void* q_start, const void* block_seq,

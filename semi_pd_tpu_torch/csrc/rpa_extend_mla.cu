@@ -11,7 +11,7 @@
 // builds: rpa_extend_mla at DeepSeek-V2's latent 576 / V 512, and
 // rpa_extend_mla_288 (-DRPA_MLA_DL=288 -DRPA_MLA_DV=256) at MiniCPM3's 288 /
 // 256, whose wrapper refuses a speculation tree (MiniCPM3 has no NextN
-// draft; the TREE instantiations are not compiled there, -DRPA_MLA_NO_TREE).
+// draft; the TREE instantiations are not compiled there, -DRPA_NO_TREE).
 // With a speculation tree (spec_anc / win_base: the TPU kernel's
 // _spec_tree_mask, which it applies after the MLA branch loads the latent
 // rows, so to GQA and MLA alike; SpecTree in rpa_common.cuh) a position
@@ -506,14 +506,6 @@ static int launch_extend_mla_wgmma(const void* q, const void* lat, const void* p
   return (int)cudaGetLastError();
 }
 
-// Whether this build holds the TREE instantiations (not at 288: no draft
-// model of that geometry speculates over a tree).
-#ifdef RPA_MLA_NO_TREE
-constexpr bool MLA_TREE_BUILT = false;
-#else
-constexpr bool MLA_TREE_BUILT = true;
-#endif
-
 // bf16 q over bf16 or fp8 latent rows on the warpgroups; float32 on the
 // CUDA cores (TF32 would not be the float32 dot the float32 pair computes).
 // Each in its TREE instantiation only with a tree; a tree is refused by a
@@ -528,7 +520,7 @@ static int launch(const void* q, const void* lat, const void* pt, const void* kv
   q, lat, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out, NQB, Hq, maxP, \
       page_size, scale, cap, window, win_base, tree, stream
   if (tree.w > 0) {
-    if constexpr (!MLA_TREE_BUILT)
+    if constexpr (!TREE_BUILT)
       return (int)cudaErrorInvalidValue;
     else if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
       return launch_extend_mla_wgmma<TKV, true>(RPA_MLA_ARGS);
@@ -555,7 +547,7 @@ static int launch(const void* q, const void* lat, const void* pt, const void* kv
 // its masks in HOST memory, win_base its window start per request on the
 // card. Returns cudaError_t; another geometry or type pair, a tree of more
 // than SPEC_MAX_NODES nodes, or a tree in a build without the TREE
-// instantiations (-DRPA_MLA_NO_TREE), is cudaErrorInvalidValue.
+// instantiations (-DRPA_NO_TREE), is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                               const void* page_table, const void* kv_lens, const void* q_lens,
                               const void* q_start, const void* block_seq,

@@ -6,8 +6,10 @@
 // under float32 q):
 //   chunked pool, head_dim 64 (rpa_decode_stream): semi_pd_tpu/ops/attention/
 //     rpa_stream.py _rpa_kernel_chunked_stream;
-//   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_decode_stream_aligned):
-//     rpa_stream.py _rpa_kernel_stream, its GQA branch;
+//   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_decode_stream_aligned) and
+//     256 (-DRPA_ALIGNED -DRPA_HEAD_DIM=256, rpa_decode_stream_aligned_256,
+//     Gemma-2's full-attention layers): rpa_stream.py _rpa_kernel_stream,
+//     its GQA branch;
 //   latent pool, DeepSeek-V2's 512 + 64 with V its first 512 (-DRPA_MLA
 //     -DRPA_P_F32, rpa_decode_stream_mla), and MiniCPM3's 256 + 32 with V
 //     its first 256 (also -DRPA_MLA_DL=288 -DRPA_MLA_DV=256,
@@ -52,7 +54,11 @@
 // STREAM_TK = 1024 / D positions (16 at head_dim 64, 8 at 128, where P V
 // takes mma m16n8k8), so that the four rings of two blocks (bf16 KV) or
 // three (fp8 KV) fit an SM at both widths (StreamLayout): the more tiles in
-// flight per SM, the closer to the bytes' time.
+// flight per SM, the closer to the bytes' time. At head_dim 256 the tile
+// stays at 8 positions (m16n8k8 needs 8), so a warp's ring is 33 KB and one
+// block an SM, either KV type; each warp keeps its request's Q rows in a
+// shared tile of its own and reads its A fragments from there (MmaQ, as
+// the packed decode at 256).
 //
 // bf16 q on the latent pool: rpa_stream_mla_mma_kernel, on the tensor cores
 // with the packed MLA decode's block tile (rpa_mla_mma.cuh: the query heads
@@ -372,15 +378,19 @@ static int launch_stream_mla(const void* q, const void* lat, const void* pt, con
 // STREAM_WARPS, STREAM_BLOCKS_PER_SM and STREAM_BLOCKS_PER_SM_FP8), and a
 // CPU test (tests/test_torch_stream_split.py) evaluates these lines to hold
 // the two equal.
-constexpr int STREAM_TK = 1024 / RPA_HEAD_DIM;  // KV positions per warp tile
+constexpr int STREAM_D256 = RPA_HEAD_DIM / 256;  // 1 at head_dim 256, 0 below
+// KV positions per warp tile: 1024 / head_dim, and 8 at 256
+constexpr int STREAM_TK = 1024 / RPA_HEAD_DIM + 4 * STREAM_D256;
 constexpr int STREAM_WARPS = STREAM_NT / 32;
-constexpr int STREAM_BLOCKS_PER_SM = 2;      // blocks an SM holds with bf16 KV (StreamLayout)
-constexpr int STREAM_BLOCKS_PER_SM_FP8 = 3;  // and with fp8 KV
+// blocks an SM holds with bf16 KV (StreamLayout), and with fp8 KV: one at 256
+constexpr int STREAM_BLOCKS_PER_SM = 2 - STREAM_D256;
+constexpr int STREAM_BLOCKS_PER_SM_FP8 = 3 - 2 * STREAM_D256;
 
 // A warp's shared memory: its ring of STREAM_NBUF stages (bf16 KV: K and V
 // tiles in bf16 with padded rows, read by ldmatrix in place; fp8 KV: the
-// pool's raw bytes, then two bf16 tiles it is widened into). Once the ring
-// is idle it holds the warp's two partials for the block's merge: slot 1
+// pool's raw bytes, then two bf16 tiles it is widened into); after the
+// four rings, each warp's Q tile (MmaQ<D>::SMEM, head_dim 256). Once the
+// ring is idle it holds the warp's two partials for the block's merge: slot 1
 // (a request cut at the warp's last tile), then slot 0 (cut at its first
 // tile, kept in the scratch while the ring streams).
 template <typename TKV, int D>
@@ -393,7 +403,8 @@ struct StreamLayout {
   static constexpr int STAGE_BYTES = WIDEN ? 2 * TK * D : BF_BYTES;  // one ring stage
   static constexpr int RING_BYTES = STREAM_NBUF * STAGE_BYTES + (WIDEN ? 2 * BF_BYTES : 0);
   static constexpr int PART = 16 * (D + 2);         // floats of a partial: O [16][D], (m c, l) [16][2]
-  static constexpr int SMEM = STREAM_WARPS * RING_BYTES;
+  static constexpr int Q0 = STREAM_WARPS * RING_BYTES;  // the warps' Q tiles
+  static constexpr int SMEM = Q0 + STREAM_WARPS * MmaQ<D>::BYTES;
   static constexpr int BLOCKS = WIDEN ? STREAM_BLOCKS_PER_SM_FP8 : STREAM_BLOCKS_PER_SM;
   static constexpr int VE = 16 / (int)sizeof(TKV);  // KV elements per 16-byte vector
   static constexpr int VPR = D / VE;                // vectors per K or V row
@@ -402,6 +413,7 @@ struct StreamLayout {
   static_assert(D == RPA_HEAD_DIM && D % 32 == 0 && (TK == 8 || TK % 16 == 0), "tile shape");
   static_assert(32 % VPR == 0 && (TK * VPR) % 32 == 0 && NV >= 1, "tile shape");
   static_assert(2 * PART * 4 <= RING_BYTES && RING_BYTES % 16 == 0, "partials in the ring");
+  static_assert(MmaQ<D>::BYTES % 16 == 0, "Q tiles aligned");
   // BLOCKS blocks fit in an SM's 228 KB of shared memory (1 KB of it
   // reserved per block, and the kernel's static shared memory). More
   // blocks keep more tiles in flight: fp8 KV, at half the bytes per tile,
@@ -591,7 +603,9 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   // the segment began at tile ct0 of the request
   int cr = fr, ct = ft, climit = flim, cn = fn, ct0 = 0;
   bool staged0 = false, staged1 = false;
-  uint32_t qa[D / 16][4];
+  MmaQ<D> qf;
+  bf16* wq = reinterpret_cast<bf16*>(st_smem + Lay::Q0 + warp * MmaQ<D>::BYTES);
+  if constexpr (MmaQ<D>::SMEM) qf.point(wq, lane);
   MmaState<D> ms;
   // a whole request's rows go straight to the output
   auto write_out = [&]() {
@@ -633,12 +647,20 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
     }
     if (i == 0 || ct == 0) {  // a segment begins
       ct0 = ct;
-      mma_load_q<D>(qa, q + ((int64_t)cr * Hq + (int64_t)h * G) * D, G, lane);
+      const bf16* qb = q + ((int64_t)cr * Hq + (int64_t)h * G) * D;
+      if constexpr (MmaQ<D>::SMEM) {
+        // every lane is past its reads of the previous request's tile (the
+        // __syncwarp above); the new one is visible after the next
+        mma_store_q<D>(wq, qb, G, lane, 32);
+        __syncwarp();
+      } else {
+        mma_load_q<D>(qf.qa, qb, G, lane);
+      }
       ms.reset();
     }
     const uint32_t sK = s_w + (Lay::WIDEN ? (i & 1) * Lay::BF_BYTES
                                           : (i % STREAM_NBUF) * Lay::STAGE_BYTES);
-    mma_tile<D, LD, TK>(ms, qa, sK, sK + Lay::TILE * 2, k_lane, v_lane, ct * TK, 0, climit,
+    mma_tile<D, LD, TK>(ms, qf, sK, sK + Lay::TILE * 2, k_lane, v_lane, ct * TK, 0, climit,
                         scale, cap, capped, c, tig);
     ++ct;
     if (ct == cn || i + 1 == ntiles) {  // a segment ends

@@ -1,6 +1,6 @@
 // Hopper's warpgroup tensor cores (wgmma) for the extend kernels
-// (rpa_extend.cu's rpa_extend_wgmma_kernel, every GQA pool at head_dim 64 and
-// 128, and rpa_extend_mla.cu's rpa_extend_mla_wgmma_kernel, the latent
+// (rpa_extend.cu's rpa_extend_wgmma_kernel, every GQA pool at head_dim 64,
+// 128 and 256, and rpa_extend_mla.cu's rpa_extend_mla_wgmma_kernel, the latent
 // pool): the 128-byte swizzled shared-memory layout, wgmma's matrix
 // descriptors of it, the fences, and the wgmma.mma_async
 // m64nNk16 bf16 x bf16 -> float32 forms the two kernels issue. sm_90a only
@@ -218,8 +218,9 @@ template <int N> __device__ __forceinline__ void regs_inc() {
 // d[64 x N] (+)= a[64 x 16] . b[16 x N], bf16 operands, float32 accumulate;
 // scale_d 0 overwrites d. mma_rs: A from registers (the fragment above),
 // B by descriptor; mma_ss: A and B by descriptor (A K-major). TRANS_B 0:
-// B K-major; 1: B MN-major. The forms the kernels issue: N 64 and 128
-// (rpa_extend_wgmma_kernel), 48 and 256 (rpa_extend_mla_wgmma_kernel).
+// B K-major; 1: B MN-major. The forms the kernels issue: N 64, 128 and, at
+// head_dim 256, 32 (S, mma_ss) and 256 (P V) (rpa_extend_wgmma_kernel),
+// 48 and 256 (rpa_extend_mla_wgmma_kernel).
 template <int TRANS_B>
 __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
                                        int scale_d) {
@@ -290,6 +291,18 @@ __device__ __forceinline__ void mma_rs(float (&d)[128], const uint32_t (&a)[4], 
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TRANS_B), "r"(scale_d));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %19, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %18;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "n"(TRANS_B), "r"(scale_d));
 }
 
 template <int TRANS_B>

@@ -9,8 +9,10 @@ parameters live, one ``torch.Generator`` per leaf seeded from
 ``(seed, leaf index)`` as the JAX version folds the leaf index into its key,
 and casts to the leaf's dtype. Leaves stacked on a leading layer axis
 (Llama's ``layers.<name>``) are drawn one layer at a time, so the transient
-float32 stays at one layer of a leaf; per-layer leaves (DeepSeek's
-``layers.<l>.<name>``) are one layer already and are drawn whole.
+float32 stays at one layer of a leaf (Gemma-2's sandwich norms,
+``layers.post_attn_norm`` / ``post_ffw_norm`` / ``pre_ffw_norm``, are such
+leaves); per-layer leaves (DeepSeek's ``layers.<l>.<name>``) are one layer
+already and are drawn whole.
 
 The numbers differ from ``jax.random``'s (and between a CUDA and a CPU
 generator), as the JAX package's own ``device_init_params`` differs from

@@ -35,7 +35,10 @@ _ATTR = {
     "layers.gate_up.w": "gate_up",
     "layers.input_norm": "input_norm",
     "layers.o_proj.w": "o_proj",
+    "layers.post_attn_norm": "post_attn_norm",  # Gemma-2's sandwich norms
+    "layers.post_ffw_norm": "post_ffw_norm",
     "layers.post_norm": "post_norm",
+    "layers.pre_ffw_norm": "pre_ffw_norm",
     "layers.qkv_proj.w": "qkv_proj",
     "lm_head.w": "lm_head",
 }
@@ -60,6 +63,8 @@ class LlamaForCausalLM(TreeParams):
         self.dtype = DTYPES[c.dtype]
         self.act = ACT2FN[c.hidden_act]
         self.page_size = 16  # set by the runner: a property of the pool
+        # each layer's sliding window (None: full attention)
+        self.layer_windows = [c.sliding_window] * c.num_hidden_layers
         self.rope = RotaryEmbedding(
             head_dim=self.head_dim,
             rotary_dim=int(self.head_dim * c.partial_rotary_factor),
@@ -138,6 +143,6 @@ class LlamaForCausalLM(TreeParams):
         out = paged_attention(
             q, k, v, kv_cache, layer, fb, page_size=self.page_size,
             scale=self.scale, logit_cap=c.attn_logit_softcap,
-            sliding_window=c.sliding_window, attention=attention,
+            sliding_window=self.layer_windows[layer], attention=attention,
         )
         return apply_linear(out.reshape(T, self.q_size), self.o_proj[layer])

@@ -7,7 +7,8 @@ ragged_paged_attention.py:
 - ``ragged_paged_attention_chunked``: the chunked pool ``[L, S, CT, 128]``
   (TPU kernel _rpa_kernel_chunked, :803);
 - ``ragged_paged_attention``: the aligned (5D) pool ``[L, 2, S, Hkv, D]``
-  (TPU kernel _rpa_kernel, :59, its GQA branch, at head_dim 128; below 128
+  (TPU kernel _rpa_kernel, :59, its GQA branch, at head_dim 128 and 256, a
+  build each; below 128
   the extend of _rpa_kernel_merged, :300), and with ``v_dim`` the MLA
   latent pool ``[L, 1, S, 1, Dlat]`` (the same TPU kernel's MLA ``v_dim``
   branch; output [T, Hq, v_dim]).
@@ -57,8 +58,8 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    F, I, P, TYPE_CODES, check_cuda, check_pool_args, check_spec, gather_kv,
-    kernel_family, kv_planes, latent_defines, layer_kv, pick_kernel, pool_heads,
+    F, I, P, TYPE_CODES, aligned_defines, check_cuda, check_pool_args, check_spec,
+    gather_kv, kernel_family, kv_planes, latent_defines, layer_kv, pick_kernel, pool_heads,
     spec_tree_mask,
 )
 from semi_pd_tpu_torch.ops.attention.rpa_packed import (
@@ -101,7 +102,21 @@ EXTEND_ALIGNED_KERNEL = register(CudaKernel(
     symbol="rpa_extend_aligned",
     argtypes=_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel (GQA branch)",
-    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_ALIGNED"),
+    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", *aligned_defines(128)),
+))
+
+# Gemma-2's head_dim 256 on the 5D pool (csrc/rpa_extend.cu's WG256_*
+# shape: Q read by descriptor), without the speculation tree's
+# instantiations: no draft of that geometry speculates over a tree, so the
+# wrapper refuses a tree there (ROADMAP B8's 256 part)
+EXTEND_ALIGNED_256_KERNEL = register(CudaKernel(
+    name="rpa_extend_aligned_256",
+    source="csrc/rpa_extend.cu",
+    symbol="rpa_extend_aligned_256",
+    argtypes=_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel "
+             "(GQA branch, head_dim 256)",
+    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", *aligned_defines(256), "RPA_NO_TREE"),
 ))
 
 # The TPU kernel's MLA branch upcasts q and the latent rows to float32 and
@@ -128,7 +143,7 @@ EXTEND_MLA_288_KERNEL = register(CudaKernel(
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel "
              "(MLA v_dim branch, latent 288 / v_dim 256)",
     defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_P_F32", *latent_defines(288),
-             "RPA_MLA_NO_TREE"),
+             "RPA_NO_TREE"),
 ))
 # the latent extends by latent width
 EXTEND_MLA_KERNELS = {576: EXTEND_MLA_KERNEL, 288: EXTEND_MLA_288_KERNEL}
@@ -145,8 +160,8 @@ EXTEND_MERGED_KERNEL = register(CudaKernel(
 
 # The extend kernel of each kernel family of the 5D and the latent pool
 # (rpa_common.kernel_family; rpa_common.pick_kernel)
-EXTEND_KERNELS = {"aligned": EXTEND_ALIGNED_KERNEL, "merged": EXTEND_MERGED_KERNEL,
-                  "latent": EXTEND_MLA_KERNELS}
+EXTEND_KERNELS = {"aligned": {128: EXTEND_ALIGNED_KERNEL, 256: EXTEND_ALIGNED_256_KERNEL},
+                  "merged": EXTEND_MERGED_KERNEL, "latent": EXTEND_MLA_KERNELS}
 
 
 def _decodes(q, page_table, spec_anc) -> bool:
@@ -158,10 +173,14 @@ def _decodes(q, page_table, spec_anc) -> bool:
 
 def _streams(stream: bool, kv_cache, sliding_window) -> bool:
     """Whether a decode batch takes the streaming decode: asked for, and
-    none of the JAX routing's exceptions (a sliding window keeps the packed
-    decode, ragged_paged_attention.py:589-594 and 1086-1110; the 5D pool
-    below head_dim 128 keeps its merged kernel, :548; a batch with
-    ``spec_anc`` is no decode, ``_decodes``)."""
+    none of the JAX routing's exceptions (the 5D pool below head_dim 128
+    keeps its merged kernel, :548; a batch with ``spec_anc`` is no decode,
+    ``_decodes``). A sliding window keeps the packed decode here: the
+    chunked router does the same (:1086-1110), while the 5D router skips
+    both its packed (:569-571) and its stream branch (:589-595) for such a
+    batch and runs _rpa_kernel, at QBLK 16; both compute the same
+    function, so this routing stays (Gemma-2's windowed layers take the
+    packed decode under ``stream``, its full ones the stream)."""
     return stream and not sliding_window and kernel_family(kv_cache) != "merged"
 
 
@@ -265,12 +284,13 @@ def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_s
     check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
                     v_dim)
     check_spec(spec_anc, win_base, page_table.shape[0])
-    if spec_anc and "RPA_MLA_NO_TREE" in kernel.defines:
+    if spec_anc and "RPA_NO_TREE" in kernel.defines:
         # on every device, so that the CPU runs what the card runs
         raise NotImplementedError(
-            f"{kernel.name}: a speculation tree over the latent width {q.shape[-1]}; this "
-            f"build has no tree instantiations (no draft of that geometry speculates "
-            f"over a tree: NextN's tree runs at DeepSeek's 576)")
+            f"{kernel.name}: a speculation tree at width {q.shape[-1]}; this build has no "
+            f"tree instantiations (no draft of that geometry speculates over a tree: "
+            f"NextN's tree runs at DeepSeek's 576, EAGLE's on the GQA pools at head_dim "
+            f"64 and 128; ROADMAP B8)")
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
     if q.device.type == "cpu":
@@ -347,9 +367,9 @@ def ragged_paged_attention_extend(
     spec_anc: Optional[tuple] = None,
     win_base: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Extend attention over the aligned pool (the merged kernel below
-    head_dim 128; with ``spec_anc`` / ``win_base`` a speculation tree's
-    mask), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
+    """Extend attention over the aligned pool (the build of its head_dim,
+    128 or 256; the merged kernel below 128; with ``spec_anc`` /
+    ``win_base`` a speculation tree's mask), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
     v_dim]; the tree's mask there too); rows no work-list entry owns stay
     0."""
     Hkv, D = pool_heads(kv_cache)

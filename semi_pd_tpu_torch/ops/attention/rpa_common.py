@@ -10,7 +10,9 @@ first ``v_dim`` elements). The kernels address all three through a K base,
 a V base and one row stride (csrc/rpa_common.cuh); on the latent pool the V
 base is the K base. The 5D pool below head_dim 128 has kernels of its own,
 the "merged" family (the counterparts of the TPU kernel
-_rpa_kernel_merged). ``spec_tree_mask`` is the speculation-tree mask the
+_rpa_kernel_merged); at head_dim 128 and 256 (Gemma-2's) the "aligned"
+family has a build each, as the latent family has one per latent width
+(``pick_kernel``). ``spec_tree_mask`` is the speculation-tree mask the
 extend kernels and their plain versions apply (``spec_anc``).
 """
 
@@ -35,10 +37,12 @@ TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
               torch.float8_e5m2: 3}
 
 # What each family of kernels is instantiated for (kernel_family): the
-# head_dim of the GQA families, and the (q, KV) dtype pairs of every build
-# (csrc/rpa_common.cuh RPA_FOR_EACH_PAIR): fp8 KV (the latent rows on the
-# latent pool) goes with bf16 q, widened exactly to bf16 inside the kernels
-KERNEL_HEAD_DIM = {"chunked": 64, "aligned": 128, "merged": 64}
+# head dims of the GQA families (one build per head_dim: the aligned
+# family's 128 and, for Gemma-2, 256), and the (q, KV) dtype pairs of every
+# build (csrc/rpa_common.cuh RPA_FOR_EACH_PAIR): fp8 KV (the latent rows on
+# the latent pool) goes with bf16 q, widened exactly to bf16 inside the
+# kernels
+KERNEL_HEAD_DIMS = {"chunked": (64,), "aligned": (128, 256), "merged": (64,)}
 KERNEL_PAIRS = frozenset({(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
                           (torch.bfloat16, torch.float8_e4m3fn),
                           (torch.bfloat16, torch.float8_e5m2)})
@@ -56,14 +60,21 @@ def latent_defines(width: int) -> tuple:
     return (f"RPA_MLA_DL={width}", f"RPA_MLA_DV={LATENT_BUILDS[width]}")
 
 
+def aligned_defines(head_dim: int) -> tuple:
+    """The nvcc defines of the aligned family's build at ``head_dim``
+    (RPA_ALIGNED alone at 128, the sources' default)."""
+    return ("RPA_ALIGNED",) if head_dim == 128 else ("RPA_ALIGNED", f"RPA_HEAD_DIM={head_dim}")
+
+
 def pick_kernel(kernels: dict, kv_cache: torch.Tensor):
     """The build serving the pool from ``kernels`` (kernel_family -> kernel,
-    or on the latent pool -> {latent width: kernel}). A latent width with no
-    build gets DeepSeek-V2's (576) build: the CPU runs the plain version at
-    any width, and on the card check_cuda refuses the width before any
-    launch."""
+    or for a family with a build per width -> {width: kernel}: the aligned
+    pool's head_dim, the latent pool's latent width). A width with no build
+    gets the family's first one (the aligned 128, DeepSeek-V2's 576): the
+    CPU runs the plain version at any width, and on the card check_cuda
+    refuses the width before any launch."""
     k = kernels.get(kernel_family(kv_cache))
-    return k.get(kv_cache.shape[-1], k[576]) if isinstance(k, dict) else k
+    return k.get(kv_cache.shape[-1], next(iter(k.values()))) if isinstance(k, dict) else k
 
 
 def spec_tree_mask(valid: torch.Tensor, spec_anc, win_base, q_abs: torch.Tensor,
@@ -202,10 +213,11 @@ def check_cuda(q, kv_cache, *ints, v_dim=None) -> None:
                 f"latent width {q.shape[-1]} with v_dim {v_dim}: the latent pool's "
                 f"kernels are built for (width, v_dim) {sorted(LATENT_BUILDS.items())} "
                 f"(DeepSeek-V2's, MiniCPM3's); other MLA geometries are ROADMAP B9.4")
-    elif q.shape[-1] != KERNEL_HEAD_DIM[family]:
+    elif q.shape[-1] not in KERNEL_HEAD_DIMS[family]:
         raise NotImplementedError(
-            f"head_dim {q.shape[-1]}: the {family} kernels are built for "
-            f"{KERNEL_HEAD_DIM[family]} only; other head dims are ROADMAP A9")
+            f"head_dim {q.shape[-1]}: the {family} kernels are built for head_dim "
+            f"{', '.join(map(str, KERNEL_HEAD_DIMS[family]))}; other head dims are ROADMAP A9 "
+            f"(their builds B9.4)")
 
 
 def kv_planes(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int,
@@ -214,8 +226,8 @@ def kv_planes(kv_cache: torch.Tensor, layer_idx: int, num_kv_heads: int,
     ``layer_idx``: K and V of slot s, head h sit at base + (s * row_stride
     + h * D) elements. Computed in Python ints: a full pool can exceed
     2**31 elements. The kernels' 16-byte loads stay aligned for every KV
-    dtype, fp8 included: at the head dims they are built for (64, 128, and
-    the latent 576 and 288)
+    dtype, fp8 included: at the head dims they are built for (64, 128, 256,
+    and the latent 576 and 288)
     the V offset, the row stride and a head's offset are multiples of 16
     bytes (on the chunked pool at Hkv 8, D 64 and fp8, V sits 512 bytes into
     the slot's 1024-byte row)."""

@@ -8,7 +8,7 @@ Ports of four TPU kernels (branches):
   _rpa_kernel_chunked_packed);
 - ``ragged_paged_attention_packed``: the aligned pool ``[L, 2, S, Hkv, D]``
   (TPU kernel rpa_packed.py:349 _rpa_kernel_packed, its GQA branch, at
-  head_dim 128; below 128 the decode
+  head_dim 128 and 256, a build each; below 128 the decode
   of ragged_paged_attention.py:300 _rpa_kernel_merged, which the JAX
   dispatcher runs for every D % 128 != 0 batch on that pool), and with
   ``v_dim`` the MLA latent pool ``[L, 1, S, 1, Dlat]`` (_rpa_kernel_packed's
@@ -37,8 +37,8 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    F, I, P, TYPE_CODES, check_cuda, check_pool_args, gather_kv, kv_planes, latent_defines,
-    layer_kv, pick_kernel, pool_heads,
+    F, I, P, TYPE_CODES, aligned_defines, check_cuda, check_pool_args, gather_kv, kv_planes,
+    latent_defines, layer_kv, pick_kernel, pool_heads,
 )
 
 # The decode kernels' arguments up to the CUDA stream (the streaming
@@ -63,7 +63,19 @@ DECODE_ALIGNED_KERNEL = register(CudaKernel(
     symbol="rpa_decode_aligned",
     argtypes=SPLIT_DECODE_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (GQA branch)",
-    defines=("RPA_ALIGNED",),
+    defines=aligned_defines(128),
+))
+
+# Gemma-2's head_dim 256 on the 5D pool: the same kernels, Q's fragments
+# read from shared memory (csrc/rpa_decode.cu)
+DECODE_ALIGNED_256_KERNEL = register(CudaKernel(
+    name="rpa_decode_aligned_256",
+    source="csrc/rpa_decode.cu",
+    symbol="rpa_decode_aligned_256",
+    argtypes=SPLIT_DECODE_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed "
+             "(GQA branch, head_dim 256)",
+    defines=aligned_defines(256),
 ))
 
 # The TPU kernel's MLA branch upcasts q and the latent rows to float32 and
@@ -107,8 +119,8 @@ DECODE_MERGED_KERNEL = register(CudaKernel(
 
 # The decode kernel of each kernel family of the 5D and the latent pool
 # (rpa_common.kernel_family; rpa_common.pick_kernel)
-DECODE_KERNELS = {"aligned": DECODE_ALIGNED_KERNEL, "merged": DECODE_MERGED_KERNEL,
-                  "latent": DECODE_MLA_KERNELS}
+DECODE_KERNELS = {"aligned": {128: DECODE_ALIGNED_KERNEL, 256: DECODE_ALIGNED_256_KERNEL},
+                  "merged": DECODE_MERGED_KERNEL, "latent": DECODE_MLA_KERNELS}
 
 # The split plan's constants of each packed decode build's tensor-core
 # kernel, as its source states them (tests/test_torch_decode_split.py and
@@ -117,12 +129,13 @@ DECODE_KERNELS = {"aligned": DECODE_ALIGNED_KERNEL, "merged": DECODE_MERGED_KERN
 # KV). The GQA builds (csrc/rpa_decode.cu, for the build's head_dim):
 # SD_STEP, the positions a block walks per round, 4 warps x SD_TK = 2048 /
 # head_dim, and SD_BLOCKS_PER_SM, about 105 KB of shared memory a block at
-# head_dim 64 and 128. The latent builds (csrc/rpa_mla_mma.cuh):
+# head_dim 64 and 128, 107 KB at 256 (8-position tiles and the block's Q
+# tile). The latent builds (csrc/rpa_mla_mma.cuh):
 # MLA_MMA_CHUNK, the fixed chunk they split every request at, and
 # MLA_MMA_BLOCKS_PER_SM, as many blocks as the shared memory holds (81 KB a
 # block at 576, 45 KB at 288).
 DECODE_SPLIT = {DECODE_KERNEL.name: (128, 2), DECODE_ALIGNED_KERNEL.name: (64, 2),
-                DECODE_MERGED_KERNEL.name: (128, 2), DECODE_MLA_KERNEL.name: (256, 2),
+                DECODE_ALIGNED_256_KERNEL.name: (32, 2), DECODE_MERGED_KERNEL.name: (128, 2), DECODE_MLA_KERNEL.name: (256, 2),
                 DECODE_MLA_288_KERNEL.name: (256, 4)}
 # the latent builds' names (their plan is the fixed chunk)
 MLA_DECODES = frozenset(k.name for k in DECODE_MLA_KERNELS.values())
@@ -259,7 +272,7 @@ def ragged_paged_attention_packed(
     v_dim: Optional[int] = None,
 ) -> torch.Tensor:
     """Decode attention over the aligned pool (Hkv and D from its shape;
-    the merged kernel below head_dim 128), or with ``v_dim`` over the MLA
+    the build of its head_dim, 128 or 256; the merged kernel below 128), or with ``v_dim`` over the MLA
     latent pool: returns [B, Hq, D] (or [B, Hq, v_dim]); rows with kv_len
     == 0 are 0."""
     Hkv, D = pool_heads(kv_cache)

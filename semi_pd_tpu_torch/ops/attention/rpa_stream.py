@@ -5,7 +5,8 @@ Ports of the two TPU kernels of semi_pd_tpu/ops/attention/rpa_stream.py:
 - ``ragged_paged_attention_chunked_stream``: the chunked pool
   ``[L, S, CT, 128]`` (TPU kernel _rpa_kernel_chunked_stream, :241);
 - ``ragged_paged_attention_stream``: the aligned pool ``[L, 2, S, Hkv, D]``
-  at head_dim 128 (TPU kernel _rpa_kernel_stream, :28, its GQA branch),
+  at head_dim 128 and 256, a build each (TPU kernel _rpa_kernel_stream,
+  :28, its GQA branch),
   and with ``v_dim`` the MLA latent pool (the same kernel's MLA branch).
 
 Each pool takes bf16, float32 or fp8 (e4m3, e5m2) KV, as the packed
@@ -40,7 +41,7 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    FP8, I, P, kernel_family, latent_defines, pick_kernel, pool_heads,
+    FP8, I, P, aligned_defines, kernel_family, latent_defines, pick_kernel, pool_heads,
 )
 from semi_pd_tpu_torch.ops.attention.rpa_packed import (
     DECODE_ARGTYPES, DECODE_MLA_KERNELS, DECODE_SPLIT, decode_split_plan, decode_with,
@@ -65,7 +66,18 @@ STREAM_ALIGNED_KERNEL = register(CudaKernel(
     symbol="rpa_decode_stream_aligned",
     argtypes=STREAM_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/rpa_stream.py:28 _rpa_kernel_stream (GQA branch)",
-    defines=("RPA_ALIGNED",),
+    defines=aligned_defines(128),
+))
+
+# Gemma-2's head_dim 256 (its full-attention layers under decode_stream)
+STREAM_ALIGNED_256_KERNEL = register(CudaKernel(
+    name="rpa_decode_stream_aligned_256",
+    source="csrc/rpa_stream.cu",
+    symbol="rpa_decode_stream_aligned_256",
+    argtypes=STREAM_ARGTYPES,
+    replaces="semi_pd_tpu/ops/attention/rpa_stream.py:28 _rpa_kernel_stream "
+             "(GQA branch, head_dim 256)",
+    defines=aligned_defines(256),
 ))
 
 # The TPU kernel's MLA branch upcasts q and the latent rows to float32 and
@@ -98,24 +110,27 @@ STREAM_MLA_DECODE = {STREAM_MLA_KERNELS[w].name: DECODE_MLA_KERNELS[w].name
 # The streaming decode of each kernel family (rpa_common.kernel_family;
 # rpa_common.pick_kernel); the merged family (the 5D pool below head_dim
 # 128) has none, as in JAX
-STREAM_KERNELS = {"chunked": STREAM_KERNEL, "aligned": STREAM_ALIGNED_KERNEL,
+STREAM_KERNELS = {"chunked": STREAM_KERNEL,
+                  "aligned": {128: STREAM_ALIGNED_KERNEL, 256: STREAM_ALIGNED_256_KERNEL},
                   "latent": STREAM_MLA_KERNELS}
 
 
 # The tensor-core streams' schedules (tests/test_torch_stream_split.py and
 # tests/test_torch_mla_decode_split.py hold them equal to the sources'
 # constants): the KV positions of the unit a share is cut in, a warp tile
-# of 1024 / head_dim in the GQA builds (16 at 64, 8 at 128; csrc/rpa_stream.cu
-# STREAM_TK) and the packed MLA decode's fixed chunk in the latent build
-# (csrc/rpa_mla_mma.cuh MLA_MMA_CHUNK); the ring depth of each GQA warp,
-# the warps of a block and the blocks an SM holds at once, with bf16 KV and
-# with fp8 KV (the latent build's: rpa_packed.DECODE_SPLIT)
+# of 1024 / head_dim in the GQA builds (16 at 64, 8 at 128, and 8 at 256,
+# mma's least; csrc/rpa_stream.cu STREAM_TK) and the packed MLA decode's
+# fixed chunk in the latent build (csrc/rpa_mla_mma.cuh MLA_MMA_CHUNK); the
+# ring depth of each GQA warp, the warps of a block and, per GQA build, the
+# blocks an SM holds at once with bf16 KV and with fp8 KV (one at head_dim
+# 256, where a warp's ring is 33 KB; the latent build's: rpa_packed.DECODE_SPLIT)
 STREAM_TILE = {STREAM_KERNEL.name: 16, STREAM_ALIGNED_KERNEL.name: 8,
+               STREAM_ALIGNED_256_KERNEL.name: 8,
                **{s: DECODE_SPLIT[d][0] for s, d in STREAM_MLA_DECODE.items()}}
 STREAM_NBUF = 4
 STREAM_WARPS = 4
-STREAM_BLOCKS_PER_SM = 2
-STREAM_BLOCKS_PER_SM_FP8 = 3
+STREAM_BLOCKS_PER_SM = {STREAM_KERNEL.name: (2, 3), STREAM_ALIGNED_KERNEL.name: (2, 3),
+                        STREAM_ALIGNED_256_KERNEL.name: (1, 1)}
 
 
 def stream_blocks(build: str, B: int, Hkv: int, max_kv: int, num_sms: int,
@@ -131,8 +146,7 @@ def stream_blocks(build: str, B: int, Hkv: int, max_kv: int, num_sms: int,
     if build in STREAM_MLA_DECODE:
         per_sm, shares = DECODE_SPLIT[STREAM_MLA_DECODE[build]][1], 1
     else:
-        per_sm = STREAM_BLOCKS_PER_SM_FP8 if fp8 else STREAM_BLOCKS_PER_SM
-        shares = STREAM_WARPS
+        per_sm, shares = STREAM_BLOCKS_PER_SM[build][fp8], STREAM_WARPS
     most = B * -(-max_kv // STREAM_TILE[build])
     return max(1, min(per_sm * num_sms // max(Hkv, 1), -(-most // shares)))
 
@@ -203,7 +217,7 @@ def ragged_paged_attention_chunked_stream(
 
 def ragged_paged_attention_stream(
     q: torch.Tensor,  # [B, Hq, D] one row per request (D = Dlat with v_dim)
-    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, 128], or [L, 1, S, 1, Dlat] with v_dim
+    kv_cache: torch.Tensor,  # [L, 2, S, Hkv, 128 or 256], or [L, 1, S, 1, Dlat] with v_dim
     layer_idx: int,
     page_table: torch.Tensor,  # [B, maxP] int32
     kv_lens: torch.Tensor,  # [B] int32
@@ -213,8 +227,8 @@ def ragged_paged_attention_stream(
     logit_cap: Optional[float] = None,
     v_dim: Optional[int] = None,
 ) -> torch.Tensor:
-    """Streaming decode over the aligned pool at head_dim 128 (Hkv and D
-    from its shape), or with ``v_dim`` over the MLA latent pool: returns
+    """Streaming decode over the aligned pool at head_dim 128 or 256 (Hkv
+    and D from its shape), or with ``v_dim`` over the MLA latent pool: returns
     [B, Hq, D] (or [B, Hq, v_dim]); rows with kv_len == 0 are 0."""
     Hkv, D = pool_heads(kv_cache)
     return _stream(q, kv_cache, layer_idx, page_table, kv_lens, page_size=page_size,

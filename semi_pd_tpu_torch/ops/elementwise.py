@@ -27,4 +27,11 @@ def silu_and_mul(x: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
-ACT2FN = {"silu": silu_and_mul}
+def gelu_and_mul(x: torch.Tensor) -> torch.Tensor:
+    """GELU(gate) * up with GELU's tanh approximation (JAX ``jax.nn.gelu(...,
+    approximate=True)``, HF's ``gelu_pytorch_tanh``): Gemma's GeGLU."""
+    gate, up = x.chunk(2, dim=-1)
+    return F.gelu(gate, approximate="tanh") * up
+
+
+ACT2FN = {"silu": silu_and_mul, "gelu": gelu_and_mul, "gelu_pytorch_tanh": gelu_and_mul}

@@ -12,13 +12,15 @@ and returns device tensors without waiting for them. ``read_results``
 brings a whole flush of steps back in one device->host copy.
 
 The model class follows the architecture (``ARCHITECTURES``: Llama,
-DeepSeek-V2/V3 with MLA + MoE, and MiniCPM3, MLA with a dense MLP, whose
-288-wide latent rows take the latent kernels' _288 builds). The KV pool's layout follows the model's
-geometry (``kv_pool_layout``, the JAX runner's rule): the chunked pool for
-head_dim 64 when a slot row holds a multiple of 8 chunks of 128 (e.g.
-Llama-3.2-1B's 8 KV heads), the 5D pool otherwise (head_dim 128, and
-head_dim 64 with fewer KV heads, e.g. TinyLlama's 4), the latent pool for
-MLA models. Every pool holds KV in the model dtype or in fp8 (e4m3, e5m2;
+DeepSeek-V2/V3 with MLA + MoE, MiniCPM3, MLA with a dense MLP, whose
+288-wide latent rows take the latent kernels' _288 builds, and Gemma-2,
+head_dim 256 with per-layer windows and softcaps). The KV pool's layout
+follows the model's geometry (``kv_pool_layout``, the JAX runner's rule):
+the chunked pool for head_dim 64 when a slot row holds a multiple of 8
+chunks of 128 (e.g. Llama-3.2-1B's 8 KV heads), the 5D pool otherwise
+(head_dim 128 and 256, whose GQA kernels have a build each, and head_dim
+64 with fewer KV heads, e.g. TinyLlama's 4), the latent pool for MLA
+models. Every pool holds KV in the model dtype or in fp8 (e4m3, e5m2;
 ``ServerArgs.kv_cache_dtype``); calibrated per-layer KV scales
 (``quantization_param_path``) apply to the GQA pools and are refused for
 MLA, as in JAX. ``ServerArgs.decode_stream`` sends decode batches to the
@@ -68,6 +70,7 @@ from semi_pd_tpu_torch.layers.attention import pool_attention
 from semi_pd_tpu_torch.mem.pool import KVCache, KVCacheSpec, PageAllocator, ReqToPagePool
 from semi_pd_tpu_torch.model_loader.loader import device_init_params
 from semi_pd_tpu_torch.models.deepseek_v2 import DeepseekV2ForCausalLM
+from semi_pd_tpu_torch.models.gemma2 import Gemma2ForCausalLM
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
 from semi_pd_tpu_torch.models.minicpm3 import MiniCPM3ForCausalLM
 from semi_pd_tpu_torch.ops.sampling import SamplingArrays, compute_logprobs, sample
@@ -82,6 +85,7 @@ ARCHITECTURES = {
     "DeepseekV2ForCausalLM": DeepseekV2ForCausalLM,
     "DeepseekV3ForCausalLM": DeepseekV2ForCausalLM,
     "MiniCPM3ForCausalLM": MiniCPM3ForCausalLM,
+    "Gemma2ForCausalLM": Gemma2ForCausalLM,
 }
 
 KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
@@ -127,18 +131,19 @@ def kv_pool_layout(num_kv_heads: int, head_dim: int, use_mla: bool = False) -> s
     counterparts of _rpa_kernel_merged, Hkv*D == 128 included (the JAX
     layer sends those to its reference attention for a TPU tiling limit
     that has no meaning on the card). The KV dtype does not enter the rule:
-    fp8 KV takes the layout of the model dtype. Raises for the geometries
-    the port has no kernels for: head_dim 256 and other widths (ROADMAP
-    A9)."""
+    fp8 KV takes the layout of the model dtype. At head_dim 128 and 256
+    the 5D pool's GQA kernels have a build each (Gemma-2's 256: the _256
+    builds). Raises for the geometries the port has no kernels for (ROADMAP
+    A9, B9.4)."""
     D, Hkv = head_dim, num_kv_heads
     if use_mla:
         return "latent"
     if D % 128 and 128 % D == 0 and (2 * Hkv * D) % 1024 == 0:
         return "chunked"
-    if D not in (64, 128):
+    if D not in (64, 128, 256):
         raise NotImplementedError(
-            f"head_dim {D} on the 5D pool: its kernels are built for 128 and (merged) 64; "
-            f"other head dims, gemma2's 256 among them, are ROADMAP A9")
+            f"head_dim {D} on the 5D pool: its kernels are built for 128, 256 and (merged) "
+            f"64; other head dims are ROADMAP A9 (their kernel builds B9.4)")
     return "aligned"
 
 

@@ -314,7 +314,8 @@ LAYOUTS = [
     ((8, 128), "aligned"),  # Llama-3-8B, Qwen2.5-7B, Mistral-7B
     ((2, 128), "aligned"),
     ((1, 128), "aligned"),
-    ((8, 256), "A9"),  # gemma2
+    ((8, 256), "aligned"),  # Gemma-2-9B: the _256 builds
+    ((4, 256), "aligned"),
     ((4, 512), "A9"),
     ((1, 32), "A9"),
     ((2, 16), "A9"),

@@ -18,7 +18,13 @@ eager step, bitwise, on each decode path, the fp8 ones included (with no
 host sync in either); the four extends with a speculation tree's masks
 (the MLA one's TREE and tree-less instantiations on the same inputs), and
 the speculating Engines (NGRAM, EAGLE chain and tree on a Llama target,
-NEXTN chain and tree on a DeepSeek-V2 one) against the CPU. Every kernel is held with each (q, KV) pair it is
+NEXTN chain and tree on a DeepSeek-V2 one) against the CPU; the three
+_256 builds at Gemma-2's head_dim 256 (decode, stream and extend against
+their plain versions with softcap and window, every dead slot NaN, the
+stream's requests cut across warps and blocks, the extend at 1, 2 and 4
+query heads per KV head, their tensor-core instructions, the extend's
+refusal of a tree) and a small Gemma-2 Engine, packed and streamed, against
+the CPU. Every kernel is held with each (q, KV) pair it is
 built for, fp8 e4m3 and e5m2 under bf16 q included. This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
@@ -83,12 +89,12 @@ def _unaligned(a: np.ndarray, dev) -> torch.Tensor:
 
 def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
           kv_dtype=None, latent=False, merged=False, hq=HQ, hkv=HKV, dlat=DLAT,
-          hq_mla=HQ_MLA):
+          hq_mla=HQ_MLA, aligned_dim=D_ALIGNED):
     """Queries, a pool (chunked [L, S, CT, 128], aligned [L, 2, S, Hkv,
-    128], merged [L, 2, S, Hkv, 64] or latent [L, 1, S, 1, dlat], in
-    ``kv_dtype``, default ``dtype``; ``hq`` query and ``hkv`` KV heads
-    outside the latent pool, ``hq_mla`` on it) and a shuffled page
-    table."""
+    aligned_dim] (128, or Gemma-2's 256), merged [L, 2, S, Hkv, 64] or
+    latent [L, 1, S, 1, dlat], in ``kv_dtype``, default ``dtype``; ``hq``
+    query and ``hkv`` KV heads outside the latent pool, ``hq_mla`` on it)
+    and a shuffled page table."""
     rng = np.random.default_rng(seed)
     B = len(kv_lens) + pad_B
     n_pages = [-(-k // PS) for k in kv_lens]
@@ -104,7 +110,7 @@ def _case(seed, q_lens, kv_lens, dev, dtype, pad_T=0, pad_B=0, aligned=False,
     ql[: len(q_lens)] = q_lens
     kl = np.zeros(B, np.int32)
     kl[: len(kv_lens)] = kv_lens
-    d = D_ALIGNED if aligned else D
+    d = aligned_dim if aligned else D
     shape = (L, 2, total * PS, hkv, d) if aligned else (L, total * PS, 2 * hkv * D // 128, 128)
     if merged:
         shape = (L, 2, total * PS, hkv, D)
@@ -563,7 +569,11 @@ SPLIT_CASES = [("rpa_decode", {}, D, "bfloat16"),
                ("rpa_decode_merged", {"merged": True}, D, "bfloat16"),
                ("rpa_decode_merged", {"merged": True}, D, "fp8_e4m3"),
                ("rpa_decode_mla", {"latent": True}, DLAT, "bfloat16"),
-               ("rpa_decode_mla", {"latent": True}, DLAT, "fp8_e4m3")]
+               ("rpa_decode_mla", {"latent": True}, DLAT, "fp8_e4m3"),
+               ("rpa_decode_aligned_256", {"aligned": True, "aligned_dim": 256}, 256,
+                "bfloat16"),
+               ("rpa_decode_aligned_256", {"aligned": True, "aligned_dim": 256}, 256,
+                "fp8_e4m3")]
 
 
 def _long_decode(dev, extra, kv):
@@ -1564,7 +1574,7 @@ def test_mla288_builds_run_on_the_tensor_cores(cuda_device):
     decode's bf16-q instantiations (bf16, e4m3 and e5m2 rows) run HMMA in
     their block-tile kernels and their float32 pair's CUDA-core kernel
     none; the extend's three run HGMMA in its warpgroup kernel, and the
-    build holds no speculation-tree instantiation (-DRPA_MLA_NO_TREE)."""
+    build holds no speculation-tree instantiation (-DRPA_NO_TREE)."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     for name, mma_fn, core_fn, op in (
@@ -1632,3 +1642,152 @@ def test_engine_minicpm3_latent288_on_cuda_matches_cpu(cuda_device, decode_strea
     dec = "rpa_decode_stream_mla_288" if decode_stream else "rpa_decode_mla_288"
     _engines_agree(cuda_device, _minicpm3_cfg(), [dec, "rpa_extend_mla_288"],
                    decode_stream=decode_stream)
+
+
+# ------------------------------------------------- head_dim 256 (Gemma-2)
+# the three _256 builds at Gemma-2-9B's heads (Hq 16, Hkv 8: G = 2) on the
+# 5D pool [L, 2, S, 8, 256], every slot that holds no live position NaN
+HQ256, HKV256, D256 = 16, 8, 256
+CASES256 = [(k, o) for k in ("decode", "extend") for o in ("plain", "softcap", "window")] + [
+    ("stream", "plain"), ("stream", "softcap")]
+
+
+def _case256(case, dev, dtype, kv_dtype):
+    q, pool, pt, kvl, meta = case(dev, dtype, aligned=True, aligned_dim=D256, hq=HQ256,
+                                  hkv=HKV256, kv_dtype=kv_dtype)
+    _poison_dead_slots(pool, pt, kvl, 1)
+    return q, pool, pt, kvl, meta
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("kind,opt", CASES256, ids=[f"{k}-{o}" for k, o in CASES256])
+def test_aligned256_kernel_matches_plain(cuda_device, kind, opt, dtype):
+    """rpa_decode_aligned_256, rpa_extend_aligned_256 and
+    rpa_decode_stream_aligned_256 against their plain versions on layer 1
+    of the pool, with every (q, KV) pair they are built for, softcap 1.0 and
+    a window of 24 (the stream has none): one launch each, zeros on kv_len-0
+    rows, a second run bitwise equal."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    case = _extend_case if kind == "extend" else _decode_case
+    q, pool, pt, kvl, meta = _case256(case, cuda_device, dt, FP8.get(dtype, dt))
+    kw = _opts(opt, D256 ** -0.5)
+    name = {"decode": "rpa_decode_aligned_256", "extend": "rpa_extend_aligned_256",
+            "stream": "rpa_decode_stream_aligned_256"}[kind]
+    if kind == "decode":
+        fn = rpa_packed.ragged_paged_attention_packed
+        plain = rpa_packed.ragged_paged_attention_packed_plain
+    elif kind == "stream":
+        kw.pop("sliding_window")
+        fn = rpa_stream.ragged_paged_attention_stream
+        plain = rpa_packed.ragged_paged_attention_packed_plain
+    else:
+        fn = functools.partial(rpa.ragged_paged_attention_extend, meta=meta)
+        plain = functools.partial(rpa.ragged_paged_attention_extend_plain, meta=meta)
+    k = KERNELS[name]
+    before = k.launches
+    out = fn(q, pool, 1, pt, kvl, **kw)
+    again = fn(q, pool, 1, pt, kvl, **kw)
+    ref = plain(q, pool, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 2
+    assert torch.equal(out, again)
+    if kind != "extend":
+        assert not out[kvl == 0].any()
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("batch", ["many", *STREAM_BATCHES])
+@pytest.mark.parametrize("dtype", ["bfloat16", "fp8_e4m3"])
+def test_aligned256_stream_cuts_requests_across_warps_and_blocks(cuda_device, dtype, batch):
+    """The 256 stream's tensor-core kernel (one block an SM) over batches
+    whose requests it cuts across warps and blocks, against the plain
+    version, with NaN in every dead slot."""
+    dt = torch.bfloat16
+    kv_dt = FP8.get(dtype, dt)
+    if batch in STREAM_BATCHES:
+        lens = STREAM_BATCHES[batch]
+        q, pool, pt, kvl, _ = _case(11, [1] * len(lens), lens, cuda_device, dt,
+                                    kv_dtype=kv_dt, aligned=True, aligned_dim=D256,
+                                    hq=HQ256, hkv=HKV256)
+        _poison_dead_slots(pool, pt, kvl, 1)
+    else:
+        q, pool, pt, kvl, _ = _case256(_many_case, cuda_device, dt, kv_dt)
+    kw = dict(page_size=PS, scale=D256 ** -0.5, logit_cap=1.0)
+    out = rpa_stream.ragged_paged_attention_stream(q, pool, 1, pt, kvl, **kw)
+    ref = rpa_packed.ragged_paged_attention_packed_plain(q, pool, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert not out[kvl == 0].any()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("kv", ["bfloat16", "fp8_e4m3"])
+def test_aligned256_extend_heads_per_kv_head(cuda_device, kv, G):
+    """The 256 extend's warpgroup kernel at 1, 2 and 4 query heads per KV
+    head (Hkv 4), a window that cuts, against the plain version."""
+    dt = torch.bfloat16
+    q, pool, pt, kvl, meta = _case(13, MMA_Q_LENS, [140, 60, 9, 300, 700], cuda_device, dt,
+                                   pad_T=9, aligned=True, aligned_dim=D256, hq=4 * G, hkv=4,
+                                   kv_dtype=FP8.get(kv, dt))
+    _poison_dead_slots(pool, pt, kvl, 1)
+    kw = dict(page_size=PS, scale=D256 ** -0.5, logit_cap=1.0, sliding_window=100)
+    out = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, **kw)
+    ref = rpa.ragged_paged_attention_extend_plain(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert not out[sum(MMA_Q_LENS):].any()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_aligned256_builds_run_on_the_tensor_cores(cuda_device):
+    """The _256 libraries disassembled: the extend's bf16-q instantiations
+    (bf16, e4m3, e5m2 KV) run HGMMA in its warpgroup kernel, the packed and
+    the streaming decode's run HMMA; each float32 pair's CUDA-core kernel
+    none; the extend holds no speculation-tree instantiation."""
+    from semi_pd_tpu_torch.kernels import sass_mma_counts
+
+    for name, mma_fn, core_fn, op in (
+            ("rpa_decode_aligned_256", "rpa_decode_mma_kernel", "rpa_decode_kernel", r"HG?MMA"),
+            ("rpa_decode_stream_aligned_256", "rpa_stream_mma_kernel", "rpa_stream_kernel",
+             r"HG?MMA"),
+            ("rpa_extend_aligned_256", "rpa_extend_wgmma_kernel", "rpa_extend_kernel", "HGMMA")):
+        KERNELS[name].fn()
+        counts = sass_mma_counts(KERNELS[name], op=op)
+        mma = [n for f, n in counts.items() if mma_fn in f]
+        assert len(mma) == 3 and all(mma), (name, counts)
+        core = [n for f, n in counts.items() if core_fn in f]
+        assert len(core) == 1 and not any(core), (name, counts)
+        if name == "rpa_extend_aligned_256":
+            assert not [f for f in counts if "Lb1E" in f], counts  # no TREE = true
+
+
+def test_aligned256_extend_refuses_a_tree(cuda_device):
+    """A speculation tree on the 256 extend is refused before any launch."""
+    q, pool, pt, kvl, meta = _case256(_extend_case, cuda_device, torch.bfloat16, torch.bfloat16)
+    k = KERNELS["rpa_extend_aligned_256"]
+    before = k.launches
+    win = torch.zeros(pt.shape[0], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="no tree instantiations"):
+        rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, page_size=PS,
+                                          scale=D256 ** -0.5, spec_anc=(1, 3), win_base=win)
+    assert k.launches == before
+
+
+def _gemma2_cfg():
+    return dict(architecture="Gemma2ForCausalLM", vocab_size=512, hidden_size=256,
+                intermediate_size=512, num_hidden_layers=3, num_attention_heads=8,
+                num_key_value_heads=HKV, head_dim=256, context_length=512,
+                sliding_window=24, query_pre_attn_scalar=128, attn_logit_softcap=1.0,
+                logit_softcap=5.0, hidden_act="gelu_pytorch_tanh", dtype="float32")
+
+
+@pytest.mark.parametrize("decode_stream", [False, True], ids=["packed", "stream"])
+def test_engine_gemma2_on_cuda_matches_cpu(cuda_device, decode_stream):
+    """A small Gemma-2 in float32 (head_dim 256, a window of 24 on the even
+    layers, softcaps) on the card through the _256 builds gives the CPU
+    Engine's greedy tokens; with decode_stream its windowed layers keep the
+    packed decode and its full ones stream."""
+    kernels = ["rpa_decode_aligned_256", "rpa_extend_aligned_256"]
+    if decode_stream:
+        kernels.append("rpa_decode_stream_aligned_256")
+    _engines_agree(cuda_device, _gemma2_cfg(), kernels, decode_stream=decode_stream)

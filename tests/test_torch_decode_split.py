@@ -1,7 +1,8 @@
 """The split plan of the GQA decode builds' tensor-core kernel
 (csrc/rpa_decode.cu rpa_decode_mma_kernel), on the CPU: every build of that
 file (``rpa_decode``, the chunked pool at head_dim 64; ``rpa_decode_aligned``,
-the 5D pool at head_dim 128; ``rpa_decode_merged``, the 5D pool at head_dim
+the 5D pool at head_dim 128; ``rpa_decode_aligned_256``, the 5D pool at
+Gemma-2's head_dim 256; ``rpa_decode_merged``, the 5D pool at head_dim
 64) takes the same entry point and a plan computed from the shapes, the
 build and the SM count alone. The shapes are the 1B-class and 8B paths'
 (Hkv 8) decode buckets 8/32/64 and the long-KV b16 x kv8192 case, and
@@ -79,9 +80,12 @@ def test_decode_split_plan_covers_every_position_once(build, B, Hkv, max_kv, sms
     ("rpa_decode_aligned", 8, 8192, (4, 2048)),
     ("rpa_decode_aligned", 64, 1024, (1, 1024)),
     ("rpa_decode_aligned", 128, 2048, (1, 2048)),
+    ("rpa_decode_aligned_256", 16, 8192, (2, 4096)),
+    ("rpa_decode_aligned_256", 64, 1024, (1, 1024)),
+    ("rpa_decode_aligned_256", 64, 6016, (1, 6016)),
 ])
 def test_decode_split_plan_at_the_8_kv_head_paths(build, B, max_kv, plan):
-    """With Hkv 8 (the 1B-class and 8B paths): b16 x kv8192 is 128
+    """With Hkv 8 (the 1B-class, 8B and Gemma-2-9B paths): b16 x kv8192 is 128
     (request, KV head) pairs, so two splits each fill the card's 264 block
     slots (2 per SM on 132 SMs) once; b8 takes four; at b64 and b128 the
     pairs fill the card already and take one split."""

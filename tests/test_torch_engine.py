@@ -130,14 +130,16 @@ def test_port_imports_no_jax(target):
 
 
 def test_kernel_registry_and_sources():
-    """The fourteen kernels (decode and extend on the chunked, the aligned,
+    """The seventeen kernels (decode and extend on the chunked, the aligned,
     the merged and the latent pool, and the three streaming decodes; the
-    latent pool's three again at MiniCPM3's 288 / 256) are
+    latent pool's three again at MiniCPM3's 288 / 256, the aligned pool's
+    three again at Gemma-2's head_dim 256) are
     registered with a source in the checkout, the TPU kernel they replace
     (a function that reaches pl.pallas_call), their own build library, the
     entry point the build names and a launch count; every extend kernel is
     built with the work list's q-block; the 5D pool's builds (aligned and
-    merged) are -DRPA_ALIGNED, the merged ones at head_dim 64; the merged
+    merged) are -DRPA_ALIGNED, the merged ones at head_dim 64, the _256
+    ones at 256; the merged
     and every MLA build keep P in float32 (-DRPA_P_F32), as
     _rpa_kernel_merged and the MLA branches of the TPU kernels compute;
     the _288 builds name their latent geometry."""
@@ -149,7 +151,8 @@ def test_kernel_registry_and_sources():
                             "rpa_decode_merged", "rpa_extend_merged", "rpa_decode_stream",
                             "rpa_decode_stream_aligned", "rpa_decode_stream_mla",
                             "rpa_decode_mla_288", "rpa_extend_mla_288",
-                            "rpa_decode_stream_mla_288"}
+                            "rpa_decode_stream_mla_288", "rpa_decode_aligned_256",
+                            "rpa_extend_aligned_256", "rpa_decode_stream_aligned_256"}
     for k in KERNELS.values():
         assert k.source.exists() and k.source.suffix == ".cu"
         path, line = k.replaces.split()[0].split(":")
@@ -157,13 +160,14 @@ def test_kernel_registry_and_sources():
         assert src[int(line) - 1].startswith(f"def {k.replaces.split()[1]}(")
         flags = " ".join(k.flags())
         assert "sm_90a" in flags and f"-DRPA_ENTRY={k.symbol}" in flags
-        five_d = k.name.endswith(("_aligned", "_merged"))
+        five_d = k.name.endswith(("_aligned", "_merged", "_aligned_256"))
         assert ("-DRPA_ALIGNED" in k.flags()) == five_d
         assert ("-DRPA_P_F32" in k.flags()) == (k.name.endswith("_merged") or "_mla" in k.name)
         assert ("-DRPA_MLA_DL=288" in k.flags()) == k.name.endswith("_288")
-    assert len({k.lib_path() for k in KERNELS.values()}) == 14
+        assert ("-DRPA_HEAD_DIM=256" in k.flags()) == k.name.endswith("_256")
+    assert len({k.lib_path() for k in KERNELS.values()}) == 17
     for name in ("rpa_extend", "rpa_extend_aligned", "rpa_extend_mla", "rpa_extend_merged",
-                 "rpa_extend_mla_288"):
+                 "rpa_extend_mla_288", "rpa_extend_aligned_256"):
         assert "EXTEND_QBLK=128" in " ".join(KERNELS[name].flags())
     for name in ("rpa_decode_merged", "rpa_extend_merged"):
         assert "-DRPA_HEAD_DIM=64" in KERNELS[name].flags()

@@ -1,7 +1,8 @@
 """The schedules of the two warpgroup (wgmma) extend kernels, on the CPU:
 ``rpa_extend_wgmma_kernel`` (csrc/rpa_extend.cu: every bf16-q pair of the
-GQA builds, the aligned build at head_dim 128 and the chunked and merged
-builds at head_dim 64, each head_dim with its own block shape) and
+GQA builds, the aligned builds at head_dim 128 and 256 (Gemma-2's, Q read
+by descriptor) and the chunked and merged builds at head_dim 64, each
+head_dim with its own block shape) and
 ``rpa_extend_mla_wgmma_kernel`` (csrc/rpa_extend_mla.cu, the latent pool).
 Each schedule is stated here in Python: which packed rows a block and each
 of its consumer warpgroups own, which KV positions a block walks, how the
@@ -55,8 +56,9 @@ MLA = MLA_C[576]
 
 def _layout(head_dim: int) -> dict:
     """rpa_extend.cu's WgLayout<TKV, head_dim> block shape: the WG_*
-    constants at head_dim 128, the WG64_* ones at head_dim 64."""
-    pre = {128: "WG_", 64: "WG64_"}[head_dim]
+    constants at head_dim 128, the WG64_* ones at head_dim 64, the WG256_*
+    ones at head_dim 256."""
+    pre = {128: "WG_", 64: "WG64_", 256: "WG256_"}[head_dim]
     keys = ("NCW", "NT", "ROWS", "TK", "STAGES", "LAG", "PRODUCER_REGS", "CONSUMER_REGS")
     return {k: GQA[pre + k] for k in keys}
 
@@ -76,10 +78,11 @@ FP8_LANE = _wgmma_fn("fp8_lane", "p vpr")
 
 # ---------------------------------------------------------------- swizzle
 @pytest.mark.parametrize("rows,width", [(64, 128), (48, 576), (64, 576), (128, 128), (64, 64),
-                                        (128, 64), (48, 320), (64, 320)],
+                                        (128, 64), (48, 320), (64, 320), (32, 256),
+                                        (128, 256)],
                          ids=["gqa-kv-tile", "mla-latent-tile", "mla-q-tile", "gqa-128-rows",
                               "gqa-d64-kv-tile", "gqa-d64-128-rows", "mla288-latent-tile",
-                              "mla288-q-tile"])
+                              "mla288-q-tile", "gqa-d256-kv-tile", "gqa-d256-q-tile"])
 def test_sw128_is_the_hardware_swizzle_and_a_bijection(rows, width):
     """Every 16-byte chunk c of row r lands where 128-byte swizzling puts it:
     column block c // 8 (rows x 128 bytes each, so each block starts on a
@@ -199,6 +202,38 @@ def test_head_dim_64_descriptors_stay_in_one_column_block(rows):
                 assert hw(start, p % 8, n) == SW128(rows, 16 * kk + p, n)
 
 
+@pytest.mark.parametrize("wg", [0, 1])
+def test_head_dim_256_descriptors_cross_the_four_column_blocks(wg):
+    """At head_dim 256 a bf16 row is four swizzle column blocks. S = Q K^T's
+    16 k-steps (desc_k) start 32 (ks % 4) bytes into column block ks // 4,
+    for K (a tile of TK rows) and for Q, which the kernel reads by
+    descriptor from its swizzled ROWS-row tile at warpgroup wg's first row
+    (64 wg rows, 8192 wg bytes, on): the hardware's address of each chunk
+    is where the copies wrote it. O += P V (desc_mn, N = 256) reads V's
+    four column blocks LBO = TK 128 bytes apart, a k-step 16 rows on."""
+    lay = _layout(256)
+    tk, rows = lay["TK"], lay["ROWS"]
+
+    def hw(start, r, j):
+        a = start + 128 * r + 16 * j
+        return a ^ (((a >> 7) & 7) << 4)
+
+    for ks in range(256 // 16):
+        k_start = (ks >> 2) * tk * 128 + (ks & 3) * 32
+        for r in range(tk):
+            for j in range(2):
+                assert hw(k_start, r, j) == SW128(tk, r, 2 * ks + j)
+        q_start = wg * 64 * 128 + (ks >> 2) * rows * 128 + (ks & 3) * 32
+        for r in range(64):
+            for j in range(2):
+                assert hw(q_start, r, j) == SW128(rows, 64 * wg + r, 2 * ks + j)
+    for kk in range(tk // 16):
+        for p in range(16):
+            for n in range(0, 256, 8):
+                start = kk * 2048 + (n // 64) * tk * 128 + (p // 8) * 1024
+                assert hw(start, p % 8, (n % 64) // 8) == SW128(tk, 16 * kk + p, n // 8)
+
+
 # ---------------------------------------------------------------- shapes
 # (q_lens, kv_lens, Hq, Hkv or None for the latent pool, window, head_dim):
 # q_len 1, 100, 140, 200 and 2048, prefixes, a padded batch row (kv_len 0),
@@ -227,6 +262,13 @@ SHAPES = [
     ([256] * 8, [2048] * 8, 32, 4, 0, 64),
     ([2048, 2048], [2048, 2048], 32, 8, 0, 64),
     ([37, 300], [37, 365], 32, 8, 64, 64),
+    ([1], [1], 16, 8, 0, 256),
+    ([140, 20, 1, 7], [140, 60, 9, 300], 16, 8, 0, 256),
+    ([256] * 8, [2048] * 8, 16, 8, 0, 256),
+    ([2048, 2048], [2048, 2048], 16, 8, 0, 256),
+    ([2048, 1], [6000, 4500], 16, 8, 4096, 256),
+    ([200, 1], [1000, 1], 8, 8, 512, 256),
+    ([100], [100], 16, 4, 24, 256),
     ([140, 20, 1, 7], [140, 60, 9, 300], 16, None, 0, 576),
     ([2048], [2048], 16, None, 0, 576),
     ([256] * 8, [2048] * 8, 16, None, 0, 576),
@@ -237,7 +279,7 @@ SHAPES = [
     ([200, 1], [1000, 1], 40, None, 100, 288),
     ([3, 5, 1], [3, 70, 1], 40, None, 0, 288),
 ]
-IDS = [f"{'d64-' if d == 64 else ''}{'mla288-' if d == 288 else ''}"
+IDS = [f"{'d64-' if d == 64 else ''}{'d256-' if d == 256 else ''}{'mla288-' if d == 288 else ''}"
        f"{'mla' if h is None else f'g{hq // h}'}"
        f"-q{'_'.join(map(str, q))}-w{w}" for q, _, hq, h, w, d in SHAPES]
 GQA_SHAPES = [(sh, i) for sh, i in zip(SHAPES, IDS) if sh[3] is not None]
@@ -524,13 +566,15 @@ def test_head_dim_64_ring_neither_deadlocks_nor_refills_a_stage_in_use(ntiles, w
 
 
 def _budget(head_dim: int, fp8: bool) -> dict:
-    """Registers and shared memory of the block at head_dim (WgLayout)."""
+    """Registers and shared memory of the block at head_dim (WgLayout): the
+    Q staging in padded rows, or at head_dim 256 swizzled (QSS)."""
     lay = _layout(head_dim)
     launch = 65536 // lay["NT"] // 8 * 8  # a thread's registers at one block per SM
     tk, d = lay["TK"], head_dim
     ring = lay["STAGES"] * 2 * tk * d * 2
     raw = (lay["LAG"] + 1) * tk * d * 2 if fp8 else 0
-    smem = ring + raw + lay["ROWS"] * (d + 8) * 2 + 2 * lay["STAGES"] * 8 + 1024
+    q = lay["ROWS"] * (d if d == 256 else d + 8) * 2
+    smem = ring + raw + q + 2 * lay["STAGES"] * 8 + 1024
     return dict(lay, launch=launch, smem=smem, per_sm=65536 // (lay["NT"] * launch))
 
 
@@ -550,6 +594,40 @@ def test_gqa_kernel_constants_and_budgets():
     for mla in MLA_C.values():
         assert mla["MLA_WG_SMEM"] <= SMEM_PER_BLOCK
     assert (MLA_C[576]["MLA_WG_SMEM"], MLA_C[288]["MLA_WG_SMEM"]) == (209920, 128000)
+
+
+@pytest.mark.parametrize("ntiles", [1, 2, 3, 4, 5, 7, 9, 33])
+@pytest.mark.parametrize("widen", [False, True], ids=["bf16", "fp8"])
+def test_head_dim_256_ring_neither_deadlocks_nor_refills_a_stage_in_use(ntiles, widen):
+    """The ring of the head_dim-256 block (3 stages), with its lag and
+    consumer warpgroups, in 200 random interleavings."""
+    lay = _layout(256)
+    for seed in range(200):
+        assert _ring(ntiles, widen, lay["STAGES"], lay["LAG"], seed, lay["NCW"]) > 0
+
+
+@pytest.mark.parametrize("fp8", [False, True], ids=["bf16", "fp8"])
+def test_head_dim_256_constants_and_budgets(fp8):
+    """The head_dim-256 block (the aligned _256 build): two consumer
+    warpgroups of 64 packed rows and a producer warpgroup, setmaxnreg as at
+    128 (224 / 56 of 168); a consumer's accumulators, O (64 x 256 float32:
+    128 a thread) and S (64 x TK: TK / 2) with P's fragments (TK / 8), leave
+    room in its 224 registers with Q read by descriptor; shared memory (3
+    stages of 32-position K and V tiles, fp8's LAG + 1 raw tiles, the
+    swizzled 64 KB Q tile, barriers, alignment) fits one block, and a
+    fourth stage would not with fp8 KV; Gemma-2's G = 2 fills whole 64-row
+    warpgroups (an entry's 256 packed rows are two blocks)."""
+    b = _budget(256, fp8)
+    assert (b["NCW"], b["NT"], b["ROWS"], b["TK"]) == (2, 384, 128, 32)
+    assert b["launch"] == 168 and b["per_sm"] == 1
+    assert b["NCW"] * (b["CONSUMER_REGS"] - b["launch"]) <= b["launch"] - b["PRODUCER_REGS"]
+    assert (b["CONSUMER_REGS"], b["PRODUCER_REGS"]) == (224, 56)
+    assert 256 // 2 + b["TK"] // 2 + b["TK"] // 8 <= b["CONSUMER_REGS"] - 48
+    assert b["smem"] <= SMEM_PER_BLOCK, b
+    assert b["TK"] % 16 == 0 and b["LAG"] + 1 <= b["STAGES"] == 3
+    if fp8:
+        assert b["smem"] + 2 * b["TK"] * 256 * 2 > SMEM_PER_BLOCK
+    assert rpa.EXTEND_Q_BLOCK * 2 % b["ROWS"] == 0
 
 
 @pytest.mark.parametrize("fp8", [False, True], ids=["bf16", "fp8"])
@@ -576,23 +654,25 @@ def test_head_dim_64_constants_and_budgets(fp8):
         assert rpa.EXTEND_Q_BLOCK * G % 64 == 0
 
 
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
 @pytest.mark.parametrize("fp8", [False, True], ids=["bf16", "fp8"])
 def test_producer_thread_map_covers_the_tile_once(head_dim, fp8):
     """The producer's 128 threads copy every 16-byte vector of a K (and a V)
     tile exactly once: thread p the vector l % VPR of the rows l / VPR + k
     VSTEP, k < NV (l = fp8_lane(p, VPR) with fp8 KV, else p; VPR vectors a
-    row, 8 with bf16 KV at head_dim 64, 4 with fp8 there, 16 and 8 at 128).
-    With fp8, the widening stores of each quarter warp (8 lanes, one
+    row, 8 with bf16 KV at head_dim 64, 4 with fp8 there, 16 and 8 at 128,
+    32 and 16 at 256, where a bf16 row takes a whole warp and its rows are
+    4 apart). With fp8, the widening stores of each quarter warp (8 lanes, one
     128-byte wavefront) land in 8 different 16-byte bank groups after the
     swizzle, both of a thread's two stores: the map fp8_lane gives is free
     of bank conflicts at VPR 4 and 8, where the plain map p at 8 and the
-    bit swap at 4 are not."""
+    bit swap at 4 are not (at 256 it is the identity, with a 2-way
+    conflict between a quarter warp's column blocks, not tuned yet)."""
     tk = _layout(head_dim)["TK"]
     vpr = head_dim // (16 if fp8 else 8)
     vstep = 128 // vpr
     nv = tk // vstep
-    assert vstep % 8 == 0 and tk % vstep == 0
+    assert tk % vstep == 0 and (vstep % 8 == 0 or head_dim == 256)
 
     def chunks(lane_of):
         return [[((lane_of(p) // vpr) + k * vstep, lane_of(p) % vpr) for k in range(nv)]
@@ -615,6 +695,9 @@ def test_producer_thread_map_covers_the_tile_once(head_dim, fp8):
                         return False
         return True
 
+    if head_dim == 256:
+        assert all(FP8_LANE(p, vpr) == p for p in range(128))
+        return
     assert conflict_free(lane)
     swap = lambda p: p ^ (12 * (((p >> 2) ^ (p >> 3)) & 1))  # noqa: E731
     assert not conflict_free(lambda p: p if vpr == 8 else swap(p))
@@ -640,7 +723,7 @@ def test_builds_name_their_warpgroup_kernels():
     mla288 = KERNELS["rpa_extend_mla_288"]
     assert mla288.source == mla.source and rpa.EXTEND_MLA_KERNELS == {576: mla, 288: mla288}
     assert set(mla.defines) < set(mla288.defines)
-    assert {"RPA_MLA_DL=288", "RPA_MLA_DV=256", "RPA_MLA_NO_TREE"} <= set(mla288.defines)
+    assert {"RPA_MLA_DL=288", "RPA_MLA_DV=256", "RPA_NO_TREE"} <= set(mla288.defines)
     src = aligned.source.read_text()
     assert chunked.source == merged.source == aligned.source
     assert "rpa_extend_wgmma_kernel" in src and "rpa_extend_mma_kernel" not in src
@@ -649,3 +732,9 @@ def test_builds_name_their_warpgroup_kernels():
     assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD, true>", src)
     assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD, false>", src)
     assert "rpa_extend_mla_wgmma_kernel" in mla.source.read_text()
+    # head_dim 256: the same source and kernel, no tree instantiations
+    a256 = KERNELS["rpa_extend_aligned_256"]
+    assert a256.source == aligned.source and rpa.EXTEND_KERNELS["aligned"] == {
+        128: aligned, 256: a256}
+    assert set(aligned.defines) | {"RPA_HEAD_DIM=256", "RPA_NO_TREE"} == set(a256.defines)
+    assert "if constexpr (!TREE_BUILT)" in src

@@ -1,8 +1,9 @@
 """The schedule of the GQA streaming decodes' tensor-core kernel
 (csrc/rpa_stream.cu rpa_stream_mma_kernel), on the CPU: its constants, which
 Python (``rpa_stream.STREAM_TILE``, ``STREAM_NBUF``, ``STREAM_WARPS``,
-``STREAM_BLOCKS_PER_SM``, ``STREAM_BLOCKS_PER_SM_FP8``) and the CUDA source (its ``constexpr`` lines) both
-state, and a plain Python statement of what each warp and block of the
+``STREAM_BLOCKS_PER_SM`` per build, with bf16 and with fp8 KV) and the CUDA
+source (its ``constexpr`` lines, for each build's head_dim: 64, 128 and
+Gemma-2's 256) both state, and a plain Python statement of what each warp and block of the
 persistent grid computes: the batch's KV tiles in one request-major
 sequence, cut into equal contiguous shares, one per warp; segments of a
 request written whole, merged between the warps of a block in warp order,
@@ -31,13 +32,18 @@ from semi_pd_tpu_torch.ops.attention import rpa_stream
 BUILDS = sorted(b for b in rpa_stream.STREAM_TILE if b not in rpa_stream.STREAM_MLA_DECODE)
 # (build, fp8 KV): both pools take bf16 and fp8 KV
 PLANS = [("rpa_decode_stream", False), ("rpa_decode_stream", True),
-         ("rpa_decode_stream_aligned", False), ("rpa_decode_stream_aligned", True)]
+         ("rpa_decode_stream_aligned", False), ("rpa_decode_stream_aligned", True),
+         ("rpa_decode_stream_aligned_256", False), ("rpa_decode_stream_aligned_256", True)]
 WARPS = rpa_stream.STREAM_WARPS
 
 
 def _head_dim(kernel) -> int:
-    """The head_dim a GQA stream build instantiates (rpa_common.cuh): 128 on
-    the 5D pool (-DRPA_ALIGNED), 64 on the chunked pool."""
+    """The head_dim a GQA stream build instantiates (rpa_common.cuh):
+    RPA_HEAD_DIM where the build sets it (256), else 128 on the 5D pool
+    (-DRPA_ALIGNED), 64 on the chunked pool."""
+    for d in kernel.defines:
+        if d.startswith("RPA_HEAD_DIM="):
+            return int(d.split("=")[1])
     return 128 if "RPA_ALIGNED" in kernel.defines else 64
 
 
@@ -52,22 +58,46 @@ def _source_constants(kernel) -> dict:
     return env
 
 
+def _stream_smem(head_dim: int, fp8: bool) -> int:
+    """StreamLayout's shared memory of one block: 4 warps' rings (bf16 KV:
+    4 stages of a padded bf16 K and V tile; fp8: 4 raw stages and two bf16
+    tiles) and, at head_dim 256, each warp's padded 16-row Q tile."""
+    tk = max(8, 1024 // head_dim)
+    bf = 2 * tk * (head_dim + 8) * 2
+    ring = 4 * (2 * tk * head_dim) + 2 * bf if fp8 else 4 * bf
+    q_tile = 16 * (head_dim + 8) * 2 if head_dim > 128 else 0
+    return WARPS * (ring + q_tile)
+
+
 def test_stream_schedule_constants_match_the_source():
-    """Each GQA stream build's warp tile, ring depth, warps per block and
-    blocks per SM, as csrc/rpa_stream.cu states them for its head_dim,
-    equal rpa_stream's; the two builds and the latent one share one entry
+    """Each GQA stream build's warp tile (1024 / head_dim positions, and 8
+    at 256, the least mma takes), ring depth, warps per block and blocks
+    per SM with bf16 and with fp8 KV, as csrc/rpa_stream.cu states them for
+    its head_dim, equal rpa_stream's; the blocks an SM holds fit its
+    shared memory and one more would not (two and three below 256, one at
+    256, where a warp's ring of 8-position tiles is 33 KB and still holds
+    its two partials); the builds and the latent one share one entry
     signature (the decode's, then the plan)."""
+    assert BUILDS == ["rpa_decode_stream", "rpa_decode_stream_aligned",
+                      "rpa_decode_stream_aligned_256"]
     for build in BUILDS:
-        c = _source_constants(KERNELS[build])
-        assert c["STREAM_TK"] == rpa_stream.STREAM_TILE[build] == 1024 // _head_dim(
-            KERNELS[build]), build
+        c, hd = _source_constants(KERNELS[build]), _head_dim(KERNELS[build])
+        assert c["STREAM_TK"] == rpa_stream.STREAM_TILE[build] == max(8, 1024 // hd), build
         assert c["STREAM_NBUF"] == rpa_stream.STREAM_NBUF == 4
         assert c["STREAM_WARPS"] == WARPS == c["STREAM_NT"] // 32
-        assert c["STREAM_BLOCKS_PER_SM"] == rpa_stream.STREAM_BLOCKS_PER_SM
-        assert c["STREAM_BLOCKS_PER_SM_FP8"] == rpa_stream.STREAM_BLOCKS_PER_SM_FP8
+        per_sm = (c["STREAM_BLOCKS_PER_SM"], c["STREAM_BLOCKS_PER_SM_FP8"])
+        assert per_sm == rpa_stream.STREAM_BLOCKS_PER_SM[build] == (
+            (1, 1) if hd == 256 else (2, 3)), build
+        for fp8, n in zip((False, True), per_sm):
+            need = _stream_smem(hd, fp8) + 1024 + 128
+            assert n * need <= 233472
+            if hd == 256 or fp8:
+                assert (n + 1) * need > 233472, (build, fp8)
+            ring = need - 1152 - (WARPS * 16 * (hd + 8) * 2 if hd > 128 else 0)
+            assert 2 * 16 * (hd + 2) * 4 <= ring // WARPS  # the two partials
     assert {KERNELS[n].argtypes == rpa_stream.STREAM_ARGTYPES
             for n in ("rpa_decode_stream", "rpa_decode_stream_aligned",
-                      "rpa_decode_stream_mla")} == {True}
+                      "rpa_decode_stream_aligned_256", "rpa_decode_stream_mla")} == {True}
 
 
 def _tiles(kv_lens, max_kv, tk):
@@ -189,7 +219,7 @@ def test_stream_shares_cover_every_tile_once(build, fp8, name, kv_lens, max_kv, 
     every warp's slot 0 and two slots of every block, with their
     descriptors, for every KV head."""
     tk = rpa_stream.STREAM_TILE[build]
-    G, D = 4, 1024 // tk
+    G, D = 4, _head_dim(KERNELS[build])
     B = len(kv_lens)
     P = rpa_stream.stream_blocks(build, B, hkv, max_kv, 132, fp8)
     bounds, warps, blocks, combines = schedule(kv_lens, max_kv, tk, P)
@@ -290,11 +320,15 @@ def test_stream_merges_give_the_full_softmax(build, fp8, name, kv_lens, max_kv, 
     ("rpa_decode_stream_aligned", True, 3, 8, 16, 2),
     ("rpa_decode_stream", True, 64, 8, 1024, 49),
     ("rpa_decode_stream", True, 1, 8, 16, 1),
+    ("rpa_decode_stream_aligned_256", False, 64, 8, 1024, 16),
+    ("rpa_decode_stream_aligned_256", True, 64, 8, 1024, 16),
+    ("rpa_decode_stream_aligned_256", False, 1, 8, 16, 1),
 ])
 def test_stream_blocks_at_the_paths_shapes(build, fp8, B, hkv, max_kv, P):
     """With 8 KV heads on 132 SMs the grid is 33 x 8 blocks with bf16 KV
     (two per SM) and 49 x 8 with fp8 KV (three per SM), on either pool,
-    whatever the batch;
+    whatever the batch; at head_dim 256 (Gemma-2-9B's 8 KV heads) 16 x 8,
+    one per SM, either KV type;
     a batch whose page tables hold fewer tiles than 4 P warps takes fewer
     blocks."""
     assert rpa_stream.stream_blocks(build, B, hkv, max_kv, 132, fp8) == P

@@ -36,7 +36,13 @@ each (any failure raises and exits non-zero):
              CUDA cores. The three _256 builds (Gemma-2's head_dim 256 on
              the 5D pool) are among them: the extend's HGMMA, the packed
              and the streaming decode's HMMA, with their registers and
-             spills (the warpgroup extend gets a ``wgmma`` line).
+             spills (the warpgroup extend gets a ``wgmma`` line). The _256
+             and _288 extends hold the speculation tree's instantiations
+             beside the unmasked ones, as every extend does: a
+             ``tree_functions`` line per (q, KV) pair sets the TREE = false
+             and TREE = true functions' registers, spills and HGMMA side
+             by side; a TREE = false warpgroup function that spills, or a
+             TREE = true one without HGMMA, fails the run.
 2. kernels — each kernel's wrapper on the card against its plain PyTorch
              version on the same inputs, at the geometry of its path (page
              16; Hq 32, Hkv 8: chunked pool [1, S, 8, 128] at D 64, aligned
@@ -72,7 +78,20 @@ each (any failure raises and exits non-zero):
              unmasked instantiation, as ``causal_ms``) and the level-1 draft
              step on the one-layer latent draft pool (bf16, float32); the
              library call of a masked case is SDPA with the boolean tree
-             mask. Last, the _288 builds at MiniCPM3-4B's geometry (latent
+             mask; then the _256 and _288 extends' tree instantiations:
+             EAGLE's tree verify on Gemma-2-9B through
+             rpa_extend_aligned_256 (Hq 16 / Hkv 8 / D 256, softcap 50;
+             bf16, e4m3 and float32), again with the windowed layers' 4096
+             window over prefixes of 4100-6000 (each row's window start its
+             own slot-order position - 4095), and the level-1 draft step on
+             the one-layer draft pool (no cap, no window), and NextN's on
+             MiniCPM3-4B through rpa_extend_mla_288 (Hq 40): the tree
+             verify (bf16 and e4m3 rows under bf16 q, float32) and the
+             level-1 draft step, each row with its TREE = true function's
+             registers and spills and ``causal_ms``, the TREE = false
+             instantiation's time on the same inputs (the library call of
+             a capped case SDPA uncapped). Last, the _288 builds at
+             MiniCPM3-4B's geometry (latent
              pool [1, 1, S, 1, 288], V its first 256, Hq 40): decode b64 /
              kv1024 (packed and streamed) and extend b8 x q256 / kv2048,
              bf16, e4m3 and e5m2 rows under bf16 q and float32, every dead
@@ -191,8 +210,31 @@ each (any failure raises and exits non-zero):
              8 requests of 4500-6000 prompt tokens x 32 greedy tokens)
              through the _256 kernels, then on the same engine through the
              plain attention: the tokens must be equal.
+4m. minicpm3 spec — MiniCPM3-4B at full width speculating with its NextN
+             draft (a dense layer mirroring the last, over a one-layer
+             latent pool [1, 1, S, 1, 288]), as 4n: a tree and a chain
+             round kernels vs plain, then NEXTN tree and chain serving the
+             32 prompts colocated and semi-PD on predictive weights:
+             rpa_extend_mla_288 launches L times per prefill chunk and per
+             verify and once per tree draft step, rpa_decode_mla_288 once
+             per chain draft or refresh step, nothing else; every serve
+             fails if no draft was accepted. Each spec_serve line counts
+             the extend's TREE = true launches (``tree_launches``).
+4mf. its float32 gate — MiniCPM3-4B in float32 at 4 layers (8 requests x
+             32 tokens) served with the NextN tree through the kernels,
+             then on the same engine through the plain attention (target
+             and draft pool): the tokens must be equal.
+4e. gemma2 spec — Gemma-2-9B at full width speculating with the EAGLE
+             draft (a llama layer at its geometry over a one-layer 5D pool
+             at head_dim 256), as 4m with EAGLE tree and chain:
+             rpa_extend_aligned_256 (the verify with softcap 50 and the
+             even layers' 4096 window, the tree draft steps without) and
+             rpa_decode_aligned_256, nothing else.
+4ef. its float32 gate — Gemma-2-9B in float32 at 4 layers, prompts of
+             4500-6000 (the window cuts in the tree verify), as 4mf with
+             the EAGLE tree.
 
-Then one JSON line listing the kernels (the four extends with
+Then one JSON line listing the kernels (the six extends with
 ``masked_max_abs_err``, the largest error of their masked cases), the
 nvidia-smi name/power-limit line, and the result line {"ok": true,
 "device": {...}}.
@@ -621,9 +663,10 @@ def phase_kernels():
 
 
 # ------------------------------------------------------- phase 2, the tree
-def tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level=None, B=64):
+def tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level=None, B=64,
+              prefix_range=(520, 1001)):
     """A speculation tree's attention on the card: B requests of 520-1000
-    committed positions on SHUFFLED pages, each followed by the window of
+    (``prefix_range``) committed positions on SHUFFLED pages, each followed by the window of
     the tree's N nodes (slot-order positions prefix + j). Without
     ``draft_level``: the tree verify, N rows per request (q_start = prefix).
     With it: that level's draft step, B * n rows of q_len 1 over the page
@@ -637,7 +680,7 @@ def tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level=None, B=64):
 
     HQ, HKV, D, _ = GEOMETRY[pool]
     N = tree.num_nodes
-    prefix = rng.integers(520, 1001, size=B)
+    prefix = rng.integers(*prefix_range, size=B)
     lens = prefix + N
     n_pages = [-(-int(k) // PAGE) for k in lens]
     total = sum(n_pages) + 1
@@ -650,8 +693,8 @@ def tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level=None, B=64):
         used += n
         pos = np.arange(lens[b])
         live[pt[b, pos // PAGE] * PAGE + pos % PAGE] = True
-    shape = {"chunked": (1, total * PAGE, 2 * HKV * D // 128, 128),
-             "latent": (1, 1, total * PAGE, 1, D)}.get(pool, (1, 2, total * PAGE, HKV, D))
+    shape = ((1, total * PAGE, 2 * HKV * D // 128, 128) if pool == "chunked" else
+             (1, 1, total * PAGE, 1, D) if pool in LATENT else (1, 2, total * PAGE, HKV, D))
     kv = torch.randn(shape, generator=gen, device="cuda")
     dead = torch.as_tensor(~live, device="cuda")
     if pool == "chunked":
@@ -684,15 +727,18 @@ def tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level=None, B=64):
                 unique_rows=int(prefix.sum()) + B * window_rows)
 
 
-def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None):
+def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None, cap=None,
+                  window=None, prefix_range=(520, 1001), beside=None):
     """One masked case of phase 2: the extend of ``pool`` (a GQA build, or
-    on the latent pool the MLA one) with the tree's masks against its plain
-    version, timed beside the plain version, one
+    on a latent pool an MLA one) with the tree's masks (and ``cap`` /
+    ``window``, a window tested against each row's slot-order position)
+    against its plain version, timed beside the plain version, one
     scaled_dot_product_attention over pre-gathered KV with the boolean tree
-    mask (upcast to bf16 for fp8 KV), and the bound; on the latent pool
-    also the same inputs without the tree (the unmasked instantiation:
-    ``causal_ms``). Its row is a ``kernel_case`` line with ``spec_tree``
-    set."""
+    mask (the window in it, no softcap; upcast to bf16 for fp8 KV), and the
+    bound; on the latent pools and at head_dim 256 also the same inputs
+    without the tree (the unmasked instantiation: ``causal_ms``). Its row
+    is a ``kernel_case`` line with ``spec_tree`` set; ``beside``: more
+    fields for it."""
     import torch
     import torch.nn.functional as F
 
@@ -701,10 +747,11 @@ def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None)
     from semi_pd_tpu_torch.ops.attention.rpa_common import spec_tree_mask
 
     HQ, HKV, D, DV = GEOMETRY[pool]
-    c = tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level)
+    c = tree_case(gen, rng, pool, dtype, kv_dtype, tree, draft_level, prefix_range=prefix_range)
     anc = tuple(int(a) for a in tree.anc_bits)
-    kw = dict(page_size=PAGE, scale=D ** -0.5, spec_anc=anc, win_base=c["win_base"])
-    if pool == "latent":
+    kw = dict(page_size=PAGE, scale=D ** -0.5, spec_anc=anc, win_base=c["win_base"],
+              logit_cap=cap, sliding_window=window)
+    if pool in LATENT:
         kw["v_dim"] = DV
     args = (c["q"], c["kv"], 0, c["pt"], c["kvl"], c["meta"])
     if pool == "chunked":
@@ -730,22 +777,30 @@ def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None)
     ms = cuda_ms(kern, 20)
     launches = counter.launches - before + 1
     plain_ms = cuda_ms(plain, 2)
-    beside = {}
-    if pool == "latent":  # the tree-less instantiation on the same inputs
+    beside = dict(beside or {})
+    if pool in ("latent", "latent288", "aligned256"):  # the tree-less instantiation
         causal = lambda: rpa.ragged_paged_attention_extend(
             *args, **{k: v for k, v in kw.items() if k not in ("spec_anc", "win_base")})
         beside["causal_ms"] = cuda_ms(causal, 20)
 
     # the work these inputs need: each row sees the prefix before its window
-    # and its ancestors in it; the KV rows some row sees, read once per request
-    popc = np.array([bin(a).count("1") for a in anc])
-    pairs = int(sum(int(c["prefix"][r]) + popc[qa - c["prefix"][r]]
-                    for r, qa in zip(c["req"], c["q_abs"])))
+    # and its ancestors in it (with ``window``, those above its slot-order
+    # position - window); the KV rows some row sees, read once per request
+    w = window or 1 << 30
+    pairs = 0
+    for r, qa in zip(c["req"], c["q_abs"]):
+        p0 = int(c["prefix"][r])
+        bits = anc[qa - p0]
+        pairs += max(p0 - max(qa - w + 1, 0), 0) + sum(
+            1 for j in range(len(anc)) if (bits >> j) & 1 and p0 + j > qa - w)
+    unique_rows = c["unique_rows"]
+    if window:  # a verify's: each request's rows from its first row's window start
+        unique_rows -= int(np.maximum(c["prefix"] - window + 1, 0).sum())
     flops = 2.0 * pairs * HQ * (D + DV)
     q, kv = c["q"], c["kv"]
-    ncomp = 1 if pool == "latent" else 2  # the latent row is K and V at once
+    ncomp = 1 if pool in LATENT else 2  # the latent row is K and V at once
     nbytes = (q.numel() * q.element_size() + q.shape[0] * HQ * DV * q.element_size()
-              + c["unique_rows"] * ncomp * HKV * D * kv.element_size()
+              + unique_rows * ncomp * HKV * D * kv.element_size()
               + c["pt"].numel() * 4 + c["kvl"].numel() * 4 + c["win_base"].numel() * 4)
     bw, bf16_peak, f32_peak = PEAKS
     t_bytes = nbytes / bw * 1e3
@@ -765,15 +820,19 @@ def run_tree_case(name, gen, rng, pool, dtype, kv_dtype, tree, draft_level=None)
         qd = q[:, :, None, :]
         qa = torch.as_tensor(c["q_abs"], device="cuda")[:, None, None]
         wb = c["win_base"].long()[:, None, None]
-    mask = spec_tree_mask((pos[None, None] <= qa) & (pos[None, None] < c["kvl"].long()[:, None, None]),
-                          anc, wb, qa, pos[None, None])[:, None]
+    valid = (pos[None, None] <= qa) & (pos[None, None] < c["kvl"].long()[:, None, None])
+    if window:
+        valid &= pos[None, None] > qa - window
+    mask = spec_tree_mask(valid, anc, wb, qa, pos[None, None])[:, None]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qd, K, V, attn_mask=mask, scale=D ** -0.5, enable_gqa=True), 20)
     row = dict(case=name, kernel=counter.name, pool=pool, dtype=dtype_name(dtype),
                kv_dtype=dtype_name(kv_dtype), spec_tree=list(tree.branching),
                draft_level=draft_level, rows=int(q.shape[0]), max_abs_err=max_err,
                kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               library="sdpa_tree_mask" + ("_over_kv_upcast_to_bf16" if kv_dtype != dtype else ""),
+               library="sdpa_tree_mask" + ("_uncapped" if cap else "")
+               + ("_over_kv_upcast_to_bf16" if kv_dtype != dtype else ""),
+               logit_cap=cap, sliding_window=window,
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                launches=launches, **beside)
     print("kernel_case " + json.dumps(row), flush=True)
@@ -793,7 +852,19 @@ def phase_spec_kernels():
     those, NextN's on DeepSeek-V2-Lite's latent pool: the tree verify
     through rpa_extend_mla (bf16 and e4m3 rows under bf16 q, float32) and
     the tree's level-1 draft step on the one-layer draft pool (bf16,
-    float32; its chain draft steps are phase 2's latent decode)."""
+    float32; its chain draft steps are phase 2's latent decode). Last, the
+    TREE instantiations of the _256 and _288 extends: EAGLE's tree verify on
+    Gemma-2-9B through rpa_extend_aligned_256 (Hq 16 / Hkv 8 / D 256,
+    softcap 50, as every Gemma-2 layer; bf16, e4m3 and float32), again with
+    the windowed layers' 4096 window over prefixes of 4100-6000 (each of a
+    request's 29 rows its own window start, tested against its slot-order
+    position; bf16 and float32), and its level-1 draft step on the
+    one-layer draft pool (no cap, no window; bf16, float32); then NextN's on
+    MiniCPM3-4B through rpa_extend_mla_288 (Hq 40 over the 288 latent row):
+    the tree verify (bf16 and e4m3 rows under bf16 q, float32) and the
+    level-1 draft step (bf16, float32). Each of these rows carries its TREE
+    = true function's registers and spills and ``causal_ms``, the TREE =
+    false instantiation on the same inputs."""
     import torch
 
     from semi_pd_tpu_torch.speculative.tree import default_tree_template
@@ -821,13 +892,38 @@ def phase_spec_kernels():
     for dt in (bf, f32):
         rows.append(run_tree_case("tree_draft_b64x4", gen, rng, "latent", dt, dt, tree,
                                   draft_level=1))
+    # after every case above, so that those draw the inputs they drew
+    # before: the _256 and _288 extends' TREE instantiations
+    k256, k288 = kernel_name("extend", "aligned256"), kernel_name("extend", "latent288")
+    for dt, kdt in ((bf, bf), (bf, e4m3), (f32, f32)):
+        rows.append(run_tree_case("tree_verify_b64_n29_softcap50", gen, rng, "aligned256", dt,
+                                  kdt, tree, cap=50.0, beside=gqa_function_props(
+                                      k256, "extend", dt, kdt, tree=True)))
+    for dt in (bf, f32):
+        rows.append(run_tree_case("tree_verify_b64_n29_softcap50_window4096", gen, rng,
+                                  "aligned256", dt, dt, tree, cap=50.0, window=4096,
+                                  prefix_range=(4100, 6001),
+                                  beside=gqa_function_props(k256, "extend", dt, dt, tree=True)))
+    for dt in (bf, f32):
+        rows.append(run_tree_case("tree_draft_b64x4", gen, rng, "aligned256", dt, dt, tree,
+                                  draft_level=1,
+                                  beside=gqa_function_props(k256, "extend", dt, dt, tree=True)))
+    for dt, kdt in ((bf, bf), (bf, e4m3), (f32, f32)):
+        rows.append(run_tree_case("tree_verify_b64_n29", gen, rng, "latent288", dt, kdt, tree,
+                                  beside=latent_function_props(k288, "extend", dt, kdt,
+                                                               tree=True)))
+    for dt in (bf, f32):
+        rows.append(run_tree_case("tree_draft_b64x4", gen, rng, "latent288", dt, dt, tree,
+                                  draft_level=1,
+                                  beside=latent_function_props(k288, "extend", dt, dt,
+                                                               tree=True)))
     return rows
 
 
 # -------------------------------------------- phase 2, the latent 288 builds
 # each (kind, q dtype)'s kernel function in the latent builds, and the
-# mangled template arguments of its latent row type (TREE = false in the
-# extends), to read its registers and spills from nvcc's log
+# mangled template arguments of its latent row type (the extends' TREE the
+# last), to read its registers and spills from nvcc's log
 LATENT_FUNCTIONS = {("decode", "bfloat16"): "rpa_decode_mla_mma_kernel",
                     ("stream", "bfloat16"): "rpa_stream_mla_mma_kernel",
                     ("extend", "bfloat16"): "rpa_extend_mla_wgmma_kernel",
@@ -838,14 +934,15 @@ MANGLED_ROWS = {"bfloat16": "I13__nv_bfloat16", "float8_e4m3fn": "I13__nv_fp8_e4
                 "float8_e5m2": "I13__nv_fp8_e5m2", "float32": "Iff"}
 
 
-def latent_function_props(kname, kind, dtype, kv_dtype):
+def latent_function_props(kname, kind, dtype, kv_dtype, tree=False):
     """Registers and spill bytes (nvcc -Xptxas -v) of the function the
     latent build ``kname`` runs for ``kind`` with q ``dtype`` over rows of
-    ``kv_dtype``."""
+    ``kv_dtype`` (an extend's TREE = ``tree`` instantiation)."""
     from semi_pd_tpu_torch.kernels import KERNELS
 
     fn = LATENT_FUNCTIONS[kind, dtype_name(dtype)]
-    want = fn + MANGLED_ROWS[dtype_name(kv_dtype)] + ("Lb0E" if kind == "extend" else "E")
+    want = fn + MANGLED_ROWS[dtype_name(kv_dtype)] + (
+        ("Lb1EE" if tree else "Lb0EE") if kind == "extend" else "E")
     props = ptxas_summary(KERNELS[kname].build_log)
     return next((dict(function=f, **p) for f, p in props.items() if want in f), {})
 
@@ -884,7 +981,8 @@ def phase_kernels_288():
 
 # ---------------------------------------- phase 2, the head_dim-256 builds
 # each (kind, q dtype)'s kernel function in the GQA builds (its mangled
-# name holds the KV type after it with bf16 q; TREE = false in the extend)
+# name holds the KV type after it with bf16 q; the extend's TREE the last
+# template argument)
 GQA_FUNCTIONS = {("decode", "bfloat16"): "rpa_decode_mma_kernel",
                  ("stream", "bfloat16"): "rpa_stream_mma_kernel",
                  ("extend", "bfloat16"): "rpa_extend_wgmma_kernel",
@@ -893,17 +991,19 @@ GQA_FUNCTIONS = {("decode", "bfloat16"): "rpa_decode_mma_kernel",
                  ("extend", "float32"): "rpa_extend_kernel"}
 
 
-def gqa_function_props(kname, kind, dtype, kv_dtype):
+def gqa_function_props(kname, kind, dtype, kv_dtype, tree=False):
     """Registers and spill bytes (nvcc -Xptxas -v) of the function the GQA
-    build ``kname`` runs for ``kind`` with q ``dtype`` over ``kv_dtype``."""
+    build ``kname`` runs for ``kind`` with q ``dtype`` over ``kv_dtype`` (an
+    extend's TREE = ``tree`` instantiation)."""
     from semi_pd_tpu_torch.kernels import KERNELS
 
     fn = GQA_FUNCTIONS[kind, dtype_name(dtype)]
     # with bf16 q the KV type is the template's first argument
     want = fn + ("I" if dtype_name(dtype) == "float32" else MANGLED_ROWS[dtype_name(kv_dtype)])
+    tag = "Lb1EE" if tree else "Lb0EE"  # the extend's last template argument, TREE
     props = ptxas_summary(KERNELS[kname].build_log)
     return next((dict(function=f, **p) for f, p in props.items()
-                 if want in f and (kind != "extend" or "Lb0E" in f)), {})
+                 if want in f and (kind != "extend" or tag in f)), {})
 
 
 def phase_kernels_256():
@@ -1446,14 +1546,31 @@ def make_predictive(runner, gain=EMBED_GAIN):
     draft's head sees mostly that embedding. The untied lm_head stays: both
     the target and the draft read it from that embedding, so their argmaxes
     meet. Every engine whose tokens are compared with another's gets it,
-    NGRAM's and the plain one's too."""
+    NGRAM's and the plain one's too.
+
+    Gemma-2 reads its norms as (1 + w), so its final norm's "ones" is w = 0.
+    Its head is the embedding (tied), so the gain scales the head too, and
+    its final softcap (30 tanh(x / 30)) squeezes the logits; neither moves
+    the argmax. Drafts are accepted there because the target's last hidden
+    state is the token's embedding times gain x sqrt(hidden) plus 84
+    sandwich-normed branches of unit scale in directions no embedding row
+    shares: after the final norm the token's own row of the tied head
+    scores far above every other, and the EAGLE draft (a plain llama layer,
+    its norms drawn at 0.02, no softcap), passing the raw embedding through
+    its fc, picks the same row. So the target repeats its last token and
+    the drafts of it are accepted: the rounds run their accepted paths (the
+    compaction and the refresh), while its tokens no longer depend on
+    attention, which phase 2's tree cases and the spec_model rounds
+    (logits, kernels against plain) check instead."""
     import torch
 
+    from semi_pd_tpu_torch.models.gemma2 import Gemma2ForCausalLM
     from semi_pd_tpu_torch.speculative.nextn import NextNDraftModel
 
     H = runner.model_config.hidden_size
     with torch.no_grad():
-        runner.model.leaf("final_norm").fill_(1.0)
+        gemma = isinstance(runner.model, Gemma2ForCausalLM)
+        runner.model.leaf("final_norm").fill_(0.0 if gemma else 1.0)
         runner.model.leaf("embed.w").mul_(gain)
         draft = runner.draft_model
         if draft is not None:
@@ -1577,7 +1694,6 @@ def spec_serve(eng, algo, semi_pd, prompts, max_new=64):
     import torch
 
     from semi_pd_tpu_torch.kernels import KERNELS
-    from semi_pd_tpu_torch.ops.attention.rpa_common import kernel_family
     from semi_pd_tpu_torch.runtime.scheduler import Scheduler
     from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
@@ -1614,13 +1730,14 @@ def spec_serve(eng, algo, semi_pd, prompts, max_new=64):
         if not all(0 <= t < vocab for t in o["output_ids"]):
             raise AssertionError(f"{algo}: request {o['rid']}: token out of range")
     L = runner.model_config.num_hidden_layers
-    pool = PATH_KERNELS[kernel_family(runner.kv_cache.buffer)]
+    pool = path_kernels(runner.kv_cache.buffer)
     want = {pool[1]: L * (steps["extend"] + spec["verify"])}
     if algo != "ngram":
         # the draft pool's decode and extend: the merged builds for EAGLE's
-        # 5D pool, the MLA ones (the extend shared with the target) for
-        # NextN's latent pool
-        draft_dec, draft_ext = PATH_KERNELS[kernel_family(runner.draft_kv.buffer)]
+        # 5D pool at head_dim 64, the _256 ones (shared with the target) at
+        # Gemma-2's 256, the latent ones of the target's width (the extend
+        # shared with the target) for NextN's latent pool
+        draft_dec, draft_ext = path_kernels(runner.draft_kv.buffer)
         want[draft_dec] = want.get(draft_dec, 0) + spec["draft_decode"]
         want[draft_ext] = want.get(draft_ext, 0) + spec["draft_tree"]
     bad = {k: (n, want.get(k, 0)) for k, n in launches.items() if n != want.get(k, 0)}
@@ -1642,8 +1759,23 @@ def spec_serve(eng, algo, semi_pd, prompts, max_new=64):
                rounds=s.n_spec_steps, accepted=s.n_spec_accepted,
                accepted_per_round=s.n_spec_accepted / max(s.n_spec_steps, 1),
                prefill_chunks=steps["extend"], steps=steps, spec_steps=spec,
-               launches={k: n for k, n in launches.items() if n})
+               launches={k: n for k, n in launches.items() if n},
+               # the target's extend launches by instantiation: TREE = true
+               # for a tree's verify layers and draft steps, TREE = false
+               # for the prefill chunks (and a chain's verify)
+               tree_launches=(L * spec["verify"] + spec["draft_tree"]) if tree else 0)
     return res, [o["output_ids"] for o in outs]
+
+
+def path_kernels(kv_cache):
+    """The (decode, extend) builds serving a pool (PATH_KERNELS), by its
+    kernel family and, for the families with a build per width, its width:
+    Gemma-2's head_dim 256, MiniCPM3's latent 288."""
+    from semi_pd_tpu_torch.ops.attention.rpa_common import kernel_family
+
+    family = kernel_family(kv_cache)
+    width = {"aligned": 256, "latent": 288}.get(family)
+    return PATH_KERNELS[family + (str(width) if kv_cache.shape[-1] == width else "")]
 
 
 def first_diffs(eng, prompts, a_runs, b_runs):
@@ -1732,6 +1864,29 @@ def main() -> int:
         if not [n for f, n in hgmma.items() if wg_fn in f] or not all(
                 n for f, n in hgmma.items() if wg_fn in f):
             raise AssertionError(f"{kname}: HGMMA per function {hgmma}")
+    # the _256 and _288 extends' two instantiations side by side, per (q, KV)
+    # pair: registers, spills and HGMMA of TREE = false and TREE = true; the
+    # TREE = false warpgroup functions must not spill (they did not before
+    # the tree's instantiations were built beside them)
+    tree_pairs = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float8_e4m3fn),
+                  (torch.bfloat16, torch.float8_e5m2), (torch.float32, torch.float32)]
+    for kname, props_of in (("rpa_extend_aligned_256", gqa_function_props),
+                            ("rpa_extend_mla_288", latent_function_props)):
+        hgmma = sass_mma_counts(KERNELS[kname], op="HGMMA")
+        for dt, kdt in tree_pairs:
+            row = dict(kernel=kname, dtype=dtype_name(dt), kv_dtype=dtype_name(kdt))
+            for tree in (False, True):
+                p = props_of(kname, "extend", dt, kdt, tree=tree)
+                if not p:
+                    raise AssertionError(f"{kname}: no TREE = {tree} function for "
+                                         f"{row['dtype']}/{row['kv_dtype']}")
+                row["tree" if tree else "causal"] = dict(p, hgmma=hgmma.get(p["function"]))
+            print("tree_functions " + json.dumps(row), flush=True)
+            c = row["causal"]
+            if dt == torch.bfloat16 and (c.get("spill_stores") or c.get("spill_loads")):
+                raise AssertionError(f"{kname}: the TREE = false function spills: {c}")
+            if dt == torch.bfloat16 and not row["tree"]["hgmma"]:
+                raise AssertionError(f"{kname}: no HGMMA in the TREE = true function")
     # the latent decodes' block tile (mma.sync): registers, spills and HMMA
     # count of each instantiation; a spill fails the run
     for kname, mma_fn in (("rpa_decode_mla", "rpa_decode_mla_mma_kernel"),
@@ -1779,8 +1934,8 @@ def main() -> int:
     # 2. kernels against their plain versions
     t0 = time.monotonic()
     rows = phase_kernels()
-    # the speculation cases: the three GQA extends with the tree's masks
-    # (spec_rows) and the draft pool's decode
+    # the speculation cases: every extend with the tree's masks (spec_rows)
+    # and the draft pool's decode
     spec = phase_spec_kernels()
     spec_rows = [r for r in spec if "spec_tree" in r]
     rows += [r for r in spec if "spec_tree" not in r]
@@ -1957,23 +2112,22 @@ def main() -> int:
             raise AssertionError(f"float32: the tree serve's tokens differ from the plain "
                                  f"serve's ({same:.3f} of requests the same)")
 
-    def nextn_phase():
-        """Phase 4n: DeepSeek-V2-Lite at full width speculating with NextN
-        (one MoE layer, its latent draft pool), each algorithm on an Engine
-        of its own on predictive weights: the tree engine first runs the
-        speculation model phase (a tree and a chain round, kernels vs plain
-        attention), then the chain and the tree serve colocated and
-        semi-PD; every serve fails if no draft was accepted."""
+    def target_spec_phase(phase, label, cfg, algos):
+        """A full-width target speculating with its draft (EAGLE's or
+        NextN's, as the runner picks it), each algorithm of ``algos`` (the
+        tree first) on an Engine of its own on predictive weights: the tree
+        engine first runs the speculation model phase (a tree and a chain
+        round, kernels vs plain attention), then each algorithm serves the
+        32 prompts colocated and semi-PD; every serve fails if no draft was
+        accepted. Ends with the line ``phase``."""
         t0 = time.monotonic()
-        label = "deepseek-v2-lite nextn"
-        cfg = deepseek_v2_lite_config()
         prompts = prompts_for(cfg.vocab_size)
-        for algo in ("nextn_tree", "nextn_chain"):
+        for algo in algos:
             t1 = time.monotonic()
             eng = spec_engine(algo, cfg)
             torch.cuda.synchronize()
             init_s = time.monotonic() - t1
-            if algo == "nextn_tree":
+            if algo.endswith("tree"):
                 phase_spec_model(eng, label)
             for semi in (False, True):
                 r, _ = spec_serve(eng, algo, semi, prompts)
@@ -1984,8 +2138,47 @@ def main() -> int:
                                                       draft_gib=eng.runner.draft_weight_bytes
                                                       / 2 ** 30)), flush=True)
             release(eng)
-        print("nextn_phase " + json.dumps(dict(model=label, seconds=time.monotonic() - t0)),
+        print(phase + " " + json.dumps(dict(model=label, seconds=time.monotonic() - t0)),
               flush=True)
+
+    def nextn_phase():
+        """Phase 4n: DeepSeek-V2-Lite at full width speculating with NextN
+        (one MoE layer, its latent draft pool), NEXTN tree and chain."""
+        target_spec_phase("nextn_phase", "deepseek-v2-lite nextn", deepseek_v2_lite_config(),
+                          ("nextn_tree", "nextn_chain"))
+
+    def spec_plain_gate(label, cfg, algo, prompts, max_total_tokens):
+        """Phases 4mf and 4ef: a tree serve of ``prompts`` (32 greedy tokens
+        each) on the float32 ``cfg`` at a small depth, on predictive
+        weights, through the kernels (spec_serve: its launch checks, drafts
+        accepted), then on the same engine and weights through the plain
+        attention, target and draft pool: the tokens must be equal."""
+        from semi_pd_tpu_torch.layers.attention import pool_attention
+        from semi_pd_tpu_torch.runtime.scheduler import Scheduler
+        from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+        t0 = time.monotonic()
+        eng = spec_engine(algo, cfg, max_total_tokens=max_total_tokens)
+        r, kern = spec_serve(eng, algo, False, prompts, max_new=32)
+        for k, v in r["launches"].items():
+            main_launches[k] += v
+        runner = eng.runner
+        runner.attention = pool_attention(runner.kv_cache.buffer, plain=True)
+        runner.draft_attention = pool_attention(runner.draft_kv.buffer, plain=True)
+        runner.graphs = None
+        eng.scheduler = Scheduler(eng.server_args, runner)
+        outs = eng.generate(input_ids=prompts, sampling_params=SamplingParams(
+            max_new_tokens=32, temperature=0.0, ignore_eos=True))
+        plain = [o["output_ids"] for o in outs]
+        plain_accepted = eng.scheduler.n_spec_accepted
+        release(eng)
+        same = float(np.mean([a == b for a, b in zip(kern, plain)]))
+        print("spec_f32 " + json.dumps(dict(r, model=label, gpu=smi, same_as_plain=same,
+                                            plain_accepted=plain_accepted,
+                                            seconds=time.monotonic() - t0)), flush=True)
+        if same != 1.0:
+            raise AssertionError(f"{label}: the tree serve's tokens through the kernels differ "
+                                 f"from the plain attention's ({same:.3f} of requests the same)")
 
     def nextn_f32_gate():
         """Phase 4nf: DeepSeek-V2-Lite in float32 at NEXTN_F32_LAYERS layers
@@ -2155,6 +2348,23 @@ def main() -> int:
     serve_phase(eng, label, "aligned256")
     release(eng)
     gemma2_f32_gate()
+    # speculation over a chain and a tree on the two targets whose tree
+    # verify takes the _288 and the _256 extend's TREE instantiations: NextN
+    # on MiniCPM3-4B (phases 4m, 4mf) and EAGLE on Gemma-2-9B (4e, 4ef); the
+    # float32 gates at 4 layers, Gemma-2's with prompts past its window
+    target_spec_phase("minicpm3_spec_phase", "minicpm3-4b nextn", minicpm3_4b_config(),
+                      ("nextn_tree", "nextn_chain"))
+    cfg = minicpm3_4b_config()
+    cfg.dtype, cfg.num_hidden_layers = "float32", 4
+    spec_plain_gate("minicpm3-4b float32 4 layers nextn tree", cfg, "nextn_tree",
+                    prompts_for(cfg.vocab_size, 1024)[:8], 32768)
+    target_spec_phase("gemma2_spec_phase", "gemma-2-9b eagle", gemma2_9b_config(),
+                      ("tree", "chain"))
+    rng = np.random.default_rng(6)
+    spec_plain_gate("gemma-2-9b float32 4 layers eagle tree",
+                    gemma2_9b_config(num_hidden_layers=4, dtype="float32"), "tree",
+                    [rng.integers(0, 256000, size=int(n)).tolist()
+                     for n in rng.integers(4500, 6001, size=8)], 65536)
 
     # 5. the kernels line: each kernel's case at its path's representative
     # shape and types (the 8B path serves with fp8_e4m3 KV); every kernel
@@ -2191,7 +2401,7 @@ def main() -> int:
             ms=row["kernel_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
         masked = [r["max_abs_err"] for r in spec_rows if r["kernel"] == kname]
-        if masked:  # the three GQA extends' cases with a speculation tree
+        if masked:  # every extend's cases with a speculation tree
             kernels[-1]["masked_max_abs_err"] = max(masked)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

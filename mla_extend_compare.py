@@ -1,29 +1,34 @@
 #!/usr/bin/env python3
 """Times the latent pool's DeepSeek-V2 (576-wide) builds of this checkout
 against other checkouts' on one GPU: the MLA extend (``rpa_extend_mla``),
-and with ``--kernels`` the packed and the streaming latent decode; and the
+and with ``--kernels`` the packed and the streaming latent decode, the
+MiniCPM3 latent extend (``rpa_extend_mla_288``, Hq 40) and Gemma-2's
+head_dim-256 extend (``rpa_extend_aligned_256``, Hq 16 / Hkv 8); and each
 extend's tree-masked instantiation against its unmasked one.
 
     python3 mla_extend_compare.py                        # this checkout only
     python3 mla_extend_compare.py --source parent=DIR    # and DIR's sources
     python3 mla_extend_compare.py --source parent=DIR \
         --kernels rpa_extend_mla rpa_decode_mla rpa_decode_stream_mla
+    python3 mla_extend_compare.py --source parent=DIR \
+        --kernels rpa_extend_mla_288 rpa_extend_aligned_256
 
 Each source (this checkout as "this", and every ``--source NAME=DIR``: DIR's
 semi_pd_tpu_torch/csrc, unchanged) is built as each kernel with the build's
 own flags, one nvcc each, all started together; a source whose C entry
 takes no speculation tree (an older extend) is called with its own
-signature. ``chip_smoke.py``'s phase-2 latent cases then run through the
+signature. ``chip_smoke.py``'s phase-2 cases then run through the
 port's wrapper with each library loaded in turn, on the same inputs for
 every source, each held against the plain version at ``chip_smoke.py``'s
-tolerance: for the extend b8 x q256 / kv2048 with bf16, e4m3 and float32
-latent rows (float32 q for float32 rows), and the ragged q 64-512 / kv1024
-case in bf16; for each decode b64 x kv1024 with bf16, e4m3 and float32
-rows and b16 x kv4096 in bf16. Every case is timed in the order of the
-sources, then in reverse (this, parent, parent, this). Last, with the
-extend, on this checkout alone, the NextN tree verify (b64 x 29 rows of
+tolerance: for each extend b8 x q256 / kv2048 with bf16, e4m3 and float32
+rows (float32 q for float32 rows), and the ragged q 64-512 / kv1024 case
+in bf16; for each decode b64 x kv1024 with bf16, e4m3 and float32 rows and
+b16 x kv4096 in bf16. Every case is timed in the order of the sources,
+then in reverse (this, parent, parent, this). Last, for each extend, on
+this checkout alone, the tree verify (b64 x 29 rows of
 default_tree_template(4, 4) over prefixes 520-1000 on shuffled pages) with
-and without the tree, in bf16 and e4m3.
+and without the tree, in bf16 and e4m3 (at head_dim 256 with Gemma-2's
+softcap 50).
 
 Prints the card's nvidia-smi name and power limit, one ``mla_build`` JSON
 line per kernel, source and function (registers and spills from ``nvcc
@@ -57,10 +62,17 @@ def entry_argtypes(source: Path):
     return kinds
 
 
+# each kernel's pool (chip_smoke.py's GEOMETRY key)
+POOLS = {"rpa_extend_mla": "latent", "rpa_decode_mla": "latent",
+         "rpa_decode_stream_mla": "latent", "rpa_extend_mla_288": "latent288",
+         "rpa_extend_aligned_256": "aligned256"}
+EXTENDS = ("rpa_extend_mla", "rpa_extend_mla_288", "rpa_extend_aligned_256")
+
+
 # each kernel's kind (chip_smoke.py's) and its cases: (case, q_lens,
 # kv_lens or the ragged batch's (B, kv), q dtype, latent row dtype)
 def kernel_cases(kname, bf, f32, e4m3):
-    if kname == "rpa_extend_mla":
+    if kname in EXTENDS:
         return "extend", [("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, bf, bf),
                           ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, bf, e4m3),
                           ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8, f32, f32),
@@ -77,8 +89,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", nargs="*", default=[],
                     help="NAME=DIR: another checkout's latent builds, timed as NAME")
-    ap.add_argument("--kernels", nargs="*", default=["rpa_extend_mla"],
-                    choices=["rpa_extend_mla", "rpa_decode_mla", "rpa_decode_stream_mla"])
+    ap.add_argument("--kernels", nargs="*", default=["rpa_extend_mla"], choices=sorted(POOLS))
     args = ap.parse_args()
 
     import numpy as np
@@ -113,8 +124,13 @@ def main() -> int:
         for item in args.source:
             name, _, d = item.partition("=")
             src = Path(d).resolve() / "semi_pd_tpu_torch" / "csrc" / src_name
+            # an older checkout built its _288 and _256 extends without the
+            # tree's instantiations (-DRPA_NO_TREE): built as it was
+            old = (kname in ("rpa_extend_mla_288", "rpa_extend_aligned_256")
+                   and "RPA_NO_TREE" in (src.parent / "rpa_common.cuh").read_text())
             libs[name] = CudaKernel(f"{kname}-{name}", str(src), base.symbol,
-                                    entry_argtypes(src), base.replaces, base.defines)
+                                    entry_argtypes(src), base.replaces,
+                                    base.defines + (("RPA_NO_TREE",) if old else ()))
         started = [(k, k.start_build()) for k in libs.values()]
         for k, st in started:
             k.finish_build(st)
@@ -142,13 +158,15 @@ def main() -> int:
                     kl = lens.tolist()
                 gen = torch.Generator(device="cuda")
                 gen.manual_seed(ci)
+                pool = POOLS[kname]
                 lib = cs.run_kernel_case(case, kind, gen, np.random.default_rng(ci), ql, kl, dt,
-                                         "latent", kdt)
+                                         pool, kdt)
                 gen.manual_seed(ci)
                 q, kv, pt, kvl, meta = cs.make_case(gen, np.random.default_rng(ci), ql, kl, dt,
-                                                    "latent", kdt)
-                kw = dict(page_size=cs.PAGE, scale=cs.GEOMETRY["latent"][2] ** -0.5,
-                          v_dim=cs.GEOMETRY["latent"][3])
+                                                    pool, kdt)
+                kw = dict(page_size=cs.PAGE, scale=cs.GEOMETRY[pool][2] ** -0.5)
+                if pool in cs.LATENT:
+                    kw["v_dim"] = cs.GEOMETRY[pool][3]
                 a = (q, kv, 0, pt, kvl) + ((meta,) if kind == "extend" else ())
                 ref = pfn(*a, **kw).float()
                 t = cs.TOL[cs.dtype_name(dt)]
@@ -173,29 +191,33 @@ def main() -> int:
                 torch.cuda.empty_cache()
         finally:
             base._fn = calls["this"]
-    if "rpa_extend_mla" not in args.kernels:
-        print(cs.smi_line())
-        return 1 if failed else 0
-
-    # the tree verify against the unmasked extend on the same inputs
+    # each extend's tree verify against its unmasked instantiation on the
+    # same inputs (this checkout's library)
     tree = default_tree_template(4, 4)
     anc = tuple(int(a) for a in tree.anc_bits)
-    for ci, kdt in enumerate((bf, e4m3)):
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(100 + ci)
-        c = cs.tree_case(gen, np.random.default_rng(100 + ci), "latent", bf, kdt, tree)
-        args_ = (c["q"], c["kv"], 0, c["pt"], c["kvl"], c["meta"])
-        kw = dict(page_size=cs.PAGE, scale=cs.GEOMETRY["latent"][2] ** -0.5,
-                  v_dim=cs.GEOMETRY["latent"][3])
-        fns = {"tree_ms": lambda: rpa.ragged_paged_attention_extend(
-                   *args_, spec_anc=anc, win_base=c["win_base"], **kw),
-               "causal_ms": lambda: rpa.ragged_paged_attention_extend(*args_, **kw)}
-        ms = {k: [] for k in fns}
-        for k in list(fns) + list(fns)[::-1]:
-            ms[k].append(cs.cuda_ms(fns[k], 20))
-        print("mla_tree " + json.dumps(dict(case="tree_verify_b64_n29",
-                                            kv_dtype=cs.dtype_name(kdt), rows=int(c["q"].shape[0]),
-                                            **ms)), flush=True)
+    for kname in (k for k in EXTENDS if k in args.kernels):
+        pool = POOLS[kname]
+        for ci, kdt in enumerate((bf, e4m3)):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(100 + ci)
+            c = cs.tree_case(gen, np.random.default_rng(100 + ci), pool, bf, kdt, tree)
+            args_ = (c["q"], c["kv"], 0, c["pt"], c["kvl"], c["meta"])
+            kw = dict(page_size=cs.PAGE, scale=cs.GEOMETRY[pool][2] ** -0.5)
+            if pool in cs.LATENT:
+                kw["v_dim"] = cs.GEOMETRY[pool][3]
+            else:  # Gemma-2's softcap, on every layer
+                kw["logit_cap"] = 50.0
+            fns = {"tree_ms": lambda: rpa.ragged_paged_attention_extend(
+                       *args_, spec_anc=anc, win_base=c["win_base"], **kw),
+                   "causal_ms": lambda: rpa.ragged_paged_attention_extend(*args_, **kw)}
+            ms = {k: [] for k in fns}
+            for k in list(fns) + list(fns)[::-1]:
+                ms[k].append(cs.cuda_ms(fns[k], 20))
+            print("mla_tree " + json.dumps(dict(kernel=kname, case="tree_verify_b64_n29",
+                                                kv_dtype=cs.dtype_name(kdt),
+                                                rows=int(c["q"].shape[0]), **ms)), flush=True)
+            del c
+            torch.cuda.empty_cache()
     print(cs.smi_line())
     return 1 if failed else 0
 

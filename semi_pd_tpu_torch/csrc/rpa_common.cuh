@@ -86,15 +86,6 @@ __device__ __forceinline__ bool spec_ok(const SpecTree& tree, int wb, unsigned b
   return wk < 0 || wk >= tree.w || ((bits >> wk) & 1u);
 }
 
-// Whether a build holds the extends' TREE instantiations: not with
-// -DRPA_NO_TREE (the _288 and _256 extends: no draft of those geometries
-// speculates over a tree), which refuse a tree.
-#ifdef RPA_NO_TREE
-constexpr bool TREE_BUILT = false;
-#else
-constexpr bool TREE_BUILT = true;
-#endif
-
 // The C entries' tree arguments (spec_w masks in HOST memory at spec_anc,
 // win_base on the card) as the kernels' SpecTree; false for a tree of more
 // than SPEC_MAX_NODES nodes or a missing array.

@@ -8,8 +8,8 @@
 //     ragged_paged_attention.py _rpa_kernel_chunked (called from
 //     ragged_paged_attention_chunked);
 //   5D pool, head_dim 128 (-DRPA_ALIGNED, rpa_extend_aligned) and 256
-//     (-DRPA_ALIGNED -DRPA_HEAD_DIM=256 -DRPA_NO_TREE, rpa_extend_aligned_256,
-//     Gemma-2's): semi_pd_tpu/ops/attention/ragged_paged_attention.py
+//     (-DRPA_ALIGNED -DRPA_HEAD_DIM=256, rpa_extend_aligned_256, Gemma-2's):
+//     semi_pd_tpu/ops/attention/ragged_paged_attention.py
 //     _rpa_kernel (called from ragged_paged_attention; its GQA branch, the
 //     MLA v_dim branch is rpa_extend_mla.cu);
 //   5D pool, head_dim 64 (-DRPA_ALIGNED -DRPA_HEAD_DIM=64 -DRPA_P_F32,
@@ -123,9 +123,12 @@
 //     (extend_shapes.py --head-dim 256; PERF.md §6): 32 positions x 3
 //     stages ran 0.220 ms at b8 x q256 / kv2048 with bf16 and with e4m3
 //     KV (a lag of 1 the same with bf16, 2% slower with fp8); 2 stages
-//     lost 13-58%, 48-position tiles at 2 stages 7-40%. This build holds
-//     no speculation-tree instantiation (-DRPA_NO_TREE; no draft of this
-//     geometry speculates over a tree): a tree is refused.
+//     lost 13-58%, 48-position tiles at 2 stages 7-40%. Its TREE = true
+//     instantiation (EAGLE's tree verify on a Gemma-2 target, with the
+//     softcap and each layer's window, and the tree's draft steps on the
+//     one-layer draft pool) adds each lane's two ancestor masks, the window
+//     start and the tile test to the same 224 registers; the TREE = false
+//     function is compiled as it was without it.
 //   Not TMA: a TMA box of a page would read the page's slots past kv_len,
 //   which no kernel here reads. Each K or V byte read from shared memory
 //   feeds 64 rows, and each tile copied serves ROWS.
@@ -146,16 +149,20 @@
 //
 // The speculation tree (SpecTree and its rule in rpa_common.cuh; ops/
 // attention/ragged_paged_attention.py spec_anc / win_base): a query row's
-// slot-order position is q_abs = q_start + qofs + r. The table travels by
-// value in the kernel's parameters, so it needs no device buffer. W == 0 is
-// no tree: the launch picks each kernel's TREE = false instantiation, the
-// code without any of this (the tree's registers and tests cost the others
-// nothing). In the warpgroup kernel a packed row m = r * G + g takes query
-// row r's mask, each lane computing
-// its two rows' masks once; a tile that meets the window takes the mask
-// pass, whatever else it skips. Masked scores are NEG_INF (finite) as the
-// others, so p = 0 exactly, and no row's max meets NEG_INF - NEG_INF as a
-// NaN: every row sees its own root and the causal prefix before it.
+// slot-order position is q_abs = q_start + qofs + r. The causal test, the
+// sliding window and the walk's first tile all read that q_abs, as
+// _rpa_kernel does (it tests the window against q_abs, not against the
+// row's rope depth): tree node i of a request whose tree starts at b sees
+// positions above b + i - window (Gemma-2's windowed layers), which may
+// cut its own root. The table travels by value in the kernel's
+// parameters, so it needs no device buffer. W == 0 is no tree: the launch
+// picks each kernel's TREE = false instantiation, the code without any of
+// this (the tree's registers and tests cost the others nothing). In the
+// warpgroup kernel a packed row m = r * G + g takes query row r's mask,
+// each lane computing its two rows' masks once; a tile that meets the
+// window takes the mask pass, whatever else it skips. Masked scores are
+// NEG_INF (finite) as the others, so p = 0 exactly, and no row's max meets
+// NEG_INF - NEG_INF as a NaN: every row sees itself.
 //
 // Both walk [lo, min(kv_len, the block's last row's position + 1)), lo from
 // the window; entries launch in reverse in the warpgroup kernel (a
@@ -828,8 +835,7 @@ static int launch_extend_wgmma(const void* q, const void* k_pool, const void* v_
 
 // bf16 q: the warpgroup kernel, with P split into hi + lo in the builds
 // that keep P in float32 (-DRPA_P_F32: the merged build); float32 q: the
-// CUDA-core kernel. Each in its TREE instantiation only with a tree; a
-// build without them (-DRPA_NO_TREE: the _256 one) refuses a tree.
+// CUDA-core kernel. Each in its TREE instantiation only with a tree.
 template <typename TQ, typename TKV, int D>
 static int launch(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                   const void* kv_lens, const void* q_lens, const void* q_start,
@@ -841,9 +847,7 @@ static int launch(const void* q, const void* k_pool, const void* v_pool, const v
   q, k_pool, v_pool, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out, NQB, \
       Hq, Hkv, row_stride, maxP, page_size, scale, cap, window, win_base, tree, stream
   if (tree.w > 0) {
-    if constexpr (!TREE_BUILT)
-      return (int)cudaErrorInvalidValue;
-    else if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+    if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
       return launch_extend_wgmma<TKV, D, P_F32_BUILD, true>(RPA_EXT_ARGS);
     else
       return launch_extend<TQ, TKV, D, true>(RPA_EXT_ARGS);
@@ -865,9 +869,8 @@ static int launch(const void* q, const void* k_pool, const void* v_pool, const v
 // window. spec_w: the speculation tree's node count (0: no tree), spec_anc
 // its masks in HOST memory (spec_w of them, copied here into the kernel's
 // parameters), win_base its window start per request on the card. Returns
-// cudaError_t; a head_dim or type pair this build lacks, a tree of more
-// than SPEC_MAX_NODES nodes, or any tree in a build without the tree's
-// instantiations (-DRPA_NO_TREE), is cudaErrorInvalidValue.
+// cudaError_t; a head_dim or type pair this build lacks, or a tree of more
+// than SPEC_MAX_NODES nodes, is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                                 const void* page_table, const void* kv_lens, const void* q_lens,
                                 const void* q_start, const void* block_seq,

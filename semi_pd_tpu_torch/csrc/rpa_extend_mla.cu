@@ -10,8 +10,8 @@
 // [T, Hq, MLA_DV]. What it computes and its bound are in rpa_mla.cuh. Two
 // builds: rpa_extend_mla at DeepSeek-V2's latent 576 / V 512, and
 // rpa_extend_mla_288 (-DRPA_MLA_DL=288 -DRPA_MLA_DV=256) at MiniCPM3's 288 /
-// 256, whose wrapper refuses a speculation tree (MiniCPM3 has no NextN
-// draft; the TREE instantiations are not compiled there, -DRPA_NO_TREE).
+// 256, both with the TREE instantiations (NextN's tree verify and tree
+// draft steps on a DeepSeek-V2 or a MiniCPM3 target).
 // With a speculation tree (spec_anc / win_base: the TPU kernel's
 // _spec_tree_mask, which it applies after the MLA branch loads the latent
 // rows, so to GQA and MLA alike; SpecTree in rpa_common.cuh) a position
@@ -508,8 +508,7 @@ static int launch_extend_mla_wgmma(const void* q, const void* lat, const void* p
 
 // bf16 q over bf16 or fp8 latent rows on the warpgroups; float32 on the
 // CUDA cores (TF32 would not be the float32 dot the float32 pair computes).
-// Each in its TREE instantiation only with a tree; a tree is refused by a
-// build without them.
+// Each in its TREE instantiation only with a tree.
 template <typename TQ, typename TKV>
 static int launch(const void* q, const void* lat, const void* pt, const void* kv_lens,
                   const void* q_lens, const void* q_start, const void* block_seq,
@@ -520,9 +519,7 @@ static int launch(const void* q, const void* lat, const void* pt, const void* kv
   q, lat, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out, NQB, Hq, maxP, \
       page_size, scale, cap, window, win_base, tree, stream
   if (tree.w > 0) {
-    if constexpr (!TREE_BUILT)
-      return (int)cudaErrorInvalidValue;
-    else if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+    if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
       return launch_extend_mla_wgmma<TKV, true>(RPA_MLA_ARGS);
     else
       return launch_extend_mla<TQ, TKV, true>(RPA_MLA_ARGS);
@@ -545,9 +542,8 @@ static int launch(const void* q, const void* lat, const void* pt, const void* kv
 // padding) are left untouched. cap <= 0: no softcap; window <= 0: no
 // window. spec_w: the speculation tree's node count (0: no tree), spec_anc
 // its masks in HOST memory, win_base its window start per request on the
-// card. Returns cudaError_t; another geometry or type pair, a tree of more
-// than SPEC_MAX_NODES nodes, or a tree in a build without the TREE
-// instantiations (-DRPA_NO_TREE), is cudaErrorInvalidValue.
+// card. Returns cudaError_t; another geometry or type pair, or a tree of
+// more than SPEC_MAX_NODES nodes, is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                               const void* page_table, const void* kv_lens, const void* q_lens,
                               const void* q_start, const void* block_seq,

@@ -33,10 +33,13 @@ built with the work list's EXTEND_Q_BLOCK.
 
 Speculation trees: ``spec_anc`` (the static ancestor masks of the tree's
 nodes, speculative/tree.py) with ``win_base`` [B] (each request's window
-start) refine the causal mask in every extend kernel, the three GQA builds
-and the MLA one, and in their plain version (rpa_common.spec_tree_mask, the
-TPU kernels' _spec_tree_mask, which _rpa_kernel applies to its GQA and MLA
-branches alike). A batch with ``spec_anc`` always takes the extend kernel,
+start) refine the causal mask in every extend kernel, the four GQA builds
+and the two MLA ones, and in their plain version (rpa_common.spec_tree_mask,
+the TPU kernels' _spec_tree_mask, which _rpa_kernel applies to its GQA and
+MLA branches alike). A sliding window inside a tree is tested against the
+row's slot-order position, as _rpa_kernel tests it (:220-224): tree node i
+of a request whose tree starts at b sees positions above b + i - window.
+A batch with ``spec_anc`` always takes the extend kernel,
 a decode-shaped one (T == B, the tree's draft steps) included, as the JAX
 routing does (:569, :1092-1101), on the latent pool too: never a decode or
 a stream; the work list's q_start is then the slot-order start the causal
@@ -106,9 +109,8 @@ EXTEND_ALIGNED_KERNEL = register(CudaKernel(
 ))
 
 # Gemma-2's head_dim 256 on the 5D pool (csrc/rpa_extend.cu's WG256_*
-# shape: Q read by descriptor), without the speculation tree's
-# instantiations: no draft of that geometry speculates over a tree, so the
-# wrapper refuses a tree there (ROADMAP B8's 256 part)
+# shape: Q read by descriptor); EAGLE's tree verify and tree draft steps on
+# a Gemma-2 target take its TREE instantiations
 EXTEND_ALIGNED_256_KERNEL = register(CudaKernel(
     name="rpa_extend_aligned_256",
     source="csrc/rpa_extend.cu",
@@ -116,7 +118,7 @@ EXTEND_ALIGNED_256_KERNEL = register(CudaKernel(
     argtypes=_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel "
              "(GQA branch, head_dim 256)",
-    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", *aligned_defines(256), "RPA_NO_TREE"),
+    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", *aligned_defines(256)),
 ))
 
 # The TPU kernel's MLA branch upcasts q and the latent rows to float32 and
@@ -131,10 +133,9 @@ EXTEND_MLA_KERNEL = register(CudaKernel(
     defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_P_F32"),
 ))
 
-# MiniCPM3's latent geometry (rpa_common.LATENT_BUILDS), without the
-# speculation tree's instantiations: no draft of that geometry speculates
-# over a tree (the port's tree drafts are EAGLE's on the 5D pool and
-# NextN's at DeepSeek's 576), so the wrapper refuses a tree there
+# MiniCPM3's latent geometry (rpa_common.LATENT_BUILDS); NextN's tree
+# verify and tree draft steps on a MiniCPM3 target take its TREE
+# instantiations
 EXTEND_MLA_288_KERNEL = register(CudaKernel(
     name="rpa_extend_mla_288",
     source="csrc/rpa_extend_mla.cu",
@@ -142,8 +143,7 @@ EXTEND_MLA_288_KERNEL = register(CudaKernel(
     argtypes=_ARGTYPES,
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel "
              "(MLA v_dim branch, latent 288 / v_dim 256)",
-    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_P_F32", *latent_defines(288),
-             "RPA_NO_TREE"),
+    defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", "RPA_P_F32", *latent_defines(288)),
 ))
 # the latent extends by latent width
 EXTEND_MLA_KERNELS = {576: EXTEND_MLA_KERNEL, 288: EXTEND_MLA_288_KERNEL}
@@ -284,13 +284,6 @@ def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_s
     check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
                     v_dim)
     check_spec(spec_anc, win_base, page_table.shape[0])
-    if spec_anc and "RPA_NO_TREE" in kernel.defines:
-        # on every device, so that the CPU runs what the card runs
-        raise NotImplementedError(
-            f"{kernel.name}: a speculation tree at width {q.shape[-1]}; this build has no "
-            f"tree instantiations (no draft of that geometry speculates over a tree: "
-            f"NextN's tree runs at DeepSeek's 576, EAGLE's on the GQA pools at head_dim "
-            f"64 and 128; ROADMAP B8)")
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
     if q.device.type == "cpu":

@@ -39,13 +39,15 @@ host-drafted chains (``spec_step``); EAGLE and NEXTN (``_init_draft_model``,
 ``_init_eagle``) add the one-layer draft model, drawn from the seed + 1 as
 the JAX runner draws it, by the target's architecture as the JAX runner
 picks it: DeepSeek's NextN head (speculative/nextn.py) for a DeepSeek
-target under either name, the llama EAGLE draft otherwise. Its draft pool
-is one layer of the target pool's layout, sharing the target's slot space,
-page table and KV dtype: the 5D pool for a Llama target (at head_dim 64
-the merged kernels serve it), the latent pool ``[1, 1, S, 1, Dlat]`` for
-a DeepSeek target (its chain draft and refresh steps take
-``rpa_decode_mla``, its tree draft steps ``rpa_extend_mla`` with the
-tree's masks); it is re-made with the target pool (``resume_kv_memory``).
+target under either name (MiniCPM3 among them), the llama EAGLE draft for
+every other target (Gemma-2 among them). Its draft pool is one layer of
+the target pool's layout, sharing the target's slot space, page table and
+KV dtype: the 5D pool for an EAGLE draft (at head_dim 64 the merged
+kernels serve it, at 256 the ``_256`` builds), the latent pool ``[1, 1, S,
+1, Dlat]`` for a NextN draft (its chain draft and refresh steps take the
+latent decode of the pool's width, its tree draft steps the latent
+extend with the tree's masks); it is re-made with the target pool
+(``resume_kv_memory``).
 The draft's weights are made, and its pool's bytes per token counted,
 before the target pool is sized from free memory. ``eagle_step`` runs a
 chain round and ``eagle_tree_step`` a tree round (speculative/eagle.py),
@@ -321,9 +323,12 @@ class ModelRunner:
     # ------------------------------------------------------------- speculation
     def _init_draft_model(self) -> None:
         """The draft net of EAGLE or NEXTN, by the target's architecture as
-        the JAX runner's _init_eagle picks it: NextN (DeepSeek's
-        multi-token-prediction head, one MoE layer) for a DeepSeek target,
-        the llama EAGLE draft for a Llama target; drawn from the seed + 1."""
+        the JAX runner's _init_eagle picks it
+        (semi_pd_tpu/runtime/model_runner.py:997-1004):
+        NextN (DeepSeek's multi-token-prediction head, a layer mirroring the
+        target's last) for a DeepSeek target, MiniCPM3 included, and the
+        llama EAGLE draft at the target's geometry for every other target,
+        Gemma-2 included; drawn from the seed + 1."""
         from semi_pd_tpu_torch.speculative.eagle import EagleDraftModel
         from semi_pd_tpu_torch.speculative.nextn import NextNDraftModel
 

@@ -21,14 +21,17 @@ EAGLE draft below, or DeepSeek's NextN (speculative/nextn.py). Which
 kernel each step takes on the card: the verify goes to the target pool's
 extend (with the tree's ``spec_anc`` for a tree, and unmasked for a
 chain); the draft pool is one layer of the target's slot space:
-- EAGLE (a Llama target): the 5D layout at the target's head_dim, so at
-  head_dim 64 a chain draft or refresh step (decode-shaped) takes
-  ``rpa_decode_merged`` and a tree draft step (decode-shaped, with
-  ``spec_anc``) ``rpa_extend_merged``;
-- NextN (a DeepSeek target): the latent layout ``[1, 1, S, 1, Dlat]``, so
-  a chain draft or refresh step takes ``rpa_decode_mla`` and a tree draft
-  step ``rpa_extend_mla`` with the tree's masks, as the target's tree
-  verify does.
+- EAGLE (every target but DeepSeek's): the 5D layout at the target's
+  head_dim, so a chain draft or refresh step (decode-shaped) takes the
+  pool's packed decode and a tree draft step (decode-shaped, with
+  ``spec_anc``) its extend: ``rpa_decode_merged`` / ``rpa_extend_merged``
+  at head_dim 64, ``rpa_decode_aligned_256`` / ``rpa_extend_aligned_256``
+  at Gemma-2's 256;
+- NextN (a DeepSeek target, MiniCPM3 included): the latent layout ``[1,
+  1, S, 1, Dlat]``, so a chain draft or refresh step takes the latent
+  decode of the pool's width (``rpa_decode_mla``, ``rpa_decode_mla_288``)
+  and a tree draft step its extend with the tree's masks, as the target's
+  tree verify does.
 
 Unified storage extends to the draft: the draft pool uses the SAME slot
 space and page table as the target pool, so allocation, retraction and
@@ -68,7 +71,12 @@ class EagleDraftModel(TreeParams):
     """One llama decoder layer + fc([embed; hidden] -> hidden). Shares the
     target's embedding and lm_head. Its leaves are the JAX draft's
     parameter tree (``init_params(seed)`` draws the JAX numbers; the
-    runners seed it with the server seed + 1)."""
+    runners seed it with the server seed + 1). It is the same plain llama
+    layer for every target, as in JAX: on a Gemma-2 target it takes the
+    target's widths (head_dim 256, its intermediate size) with a SiLU MLP,
+    plain RMSNorms, the scale ``head_dim ** -0.5``, no softcap and no
+    window, the raw (unscaled) embedding rows and the tied head, and no
+    final softcap on its logits."""
 
     def __init__(self, config: ModelConfig, device):
         super().__init__()

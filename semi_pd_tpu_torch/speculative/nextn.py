@@ -5,14 +5,18 @@ The multi-token-prediction module of DeepSeek (reference
 srt/models/deepseek_nextn.py): token embedding and lm_head are SHARED with
 the target; the draft is enorm / hnorm -> eh_proj([norm(embed);
 norm(hidden)]) -> one full DeepseekV2 decoder layer (MLA attention and, as
-the target's last layer, MoE) -> shared_head.norm. It plugs into the same
+the target's last layer, MoE or dense, run by the target's own layer code,
+so on MiniCPM3 with its dense SiLU MLP, its residual scaling and its NeoX
+longrope) -> shared_head.norm. It plugs into the same
 EAGLE rounds as the llama draft (speculative/eagle.py ``eagle_round`` /
 ``eagle_tree_round``): chain or top-k tree drafting. Its draft pool is the
 target's latent layout with one layer, ``[1, 1, S, 1, Dlat]``, sharing the
 target's slot space and page table (the runner's ``_init_eagle``), so a
-chain draft or refresh step (decode-shaped) takes ``rpa_decode_mla`` and a
-tree draft step (decode-shaped, with the tree's ``spec_anc``)
-``rpa_extend_mla`` with the tree's masks.
+chain draft or refresh step (decode-shaped) takes the latent decode of the
+pool's width (``rpa_decode_mla``; ``rpa_decode_mla_288`` on MiniCPM3) and
+a tree draft step (decode-shaped, with the tree's ``spec_anc``) its
+extend (``rpa_extend_mla``, ``rpa_extend_mla_288``) with the tree's
+masks.
 
 Not ported: ``hf_weight_plan`` (NextN checkpoints wait for checkpoint
 loading, ROADMAP A13; the runner refuses a draft checkpoint).

@@ -1213,11 +1213,19 @@ SPEC_BUILDS = {  # build: (pool layout, Hq, Hkv, head_dim)
     "rpa_extend_aligned": ("aligned", 8, 2, D_ALIGNED),
     "rpa_extend_merged": ("aligned", 32, 8, D),  # the 1B-class draft pool's geometry
     "rpa_extend_mla": ("latent", HQ_MLA, 1, DLAT),  # DeepSeek-V2's latent row, NextN's
+    # Gemma-2-9B's heads at head_dim 256 (EAGLE's verify and tree draft steps)
+    "rpa_extend_aligned_256": ("aligned", 16, 8, 256),
+    # MiniCPM3-4B's 40 heads over the 288 latent row (NextN's)
+    "rpa_extend_mla_288": ("latent", 40, 1, 288),
 }
 SPEC_TYPES = {"rpa_extend": ["float32", "bfloat16"],
               "rpa_extend_aligned": ["float32", "bfloat16", "fp8_e4m3"],
               "rpa_extend_merged": ["float32", "bfloat16", "fp8_e4m3"],
-              "rpa_extend_mla": ["float32", "bfloat16", "fp8_e4m3"]}
+              "rpa_extend_mla": ["float32", "bfloat16", "fp8_e4m3"],
+              "rpa_extend_aligned_256": ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"],
+              "rpa_extend_mla_288": ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"]}
+# V's width on each latent build
+SPEC_V = {DLAT: V_DIM, 288: 256}
 SPEC_CASES = [(b, t) for b, ts in SPEC_TYPES.items() for t in ts]
 
 
@@ -1278,7 +1286,7 @@ def _tree_fns(build, c):
     args = (c["q"], c["pool"], 1, c["pt"], c["kvl"], c["meta"])
     kw = dict(page_size=PS, scale=d ** -0.5, spec_anc=c["anc"], win_base=c["win_base"])
     if layout == "latent":
-        kw["v_dim"] = V_DIM
+        kw["v_dim"] = SPEC_V[d]
     if layout == "chunked":
         return (lambda **o: rpa.ragged_paged_attention_chunked_extend(
                     *args, num_kv_heads=hkv, head_dim=d, **{**kw, **o}),
@@ -1291,8 +1299,8 @@ def _tree_fns(build, c):
 @pytest.mark.parametrize("draft_level", [None, 1, 3], ids=["verify", "draft1", "draft3"])
 @pytest.mark.parametrize("build,dtype", SPEC_CASES, ids=[f"{b}-{t}" for b, t in SPEC_CASES])
 def test_tree_masked_extend_matches_plain(cuda_device, build, dtype, draft_level):
-    """The four extends (the three GQA builds and the MLA one, NextN's) with
-    a speculation tree's masks against their plain version: the verify and
+    """The six extends (the four GQA builds and the two MLA ones, NextN's)
+    with a speculation tree's masks against their plain version: the verify and
     two draft steps (decode-shaped, taken by the extend), on layer 1, every
     dead slot NaN; the tree changes the answer (a chain over the same
     window gives another), and the kernel with the chain matches its plain
@@ -1318,6 +1326,82 @@ def test_tree_masked_extend_repeats_bitwise(cuda_device, build):
     c = _tree_case(cuda_device, build, "bfloat16")
     kern, _ = _tree_fns(build, c)
     assert torch.equal(kern(), kern())
+
+
+TREE_WINDOW_TYPES = ["float32", "bfloat16", "fp8_e4m3", "fp8_e5m2"]
+
+
+@pytest.mark.parametrize("dtype", TREE_WINDOW_TYPES)
+def test_tree_verify_at_256_with_softcap_and_a_window_inside_the_tree(cuda_device, dtype):
+    """rpa_extend_aligned_256's TREE instantiations as Gemma-2's windowed
+    layers run them in EAGLE's tree verify: softcap 1.0 and a window of 24,
+    shorter than the 29-node tree, so that node i of a request whose tree
+    starts at b sees positions above b + i - 24 (its slot-order position,
+    as _rpa_kernel tests it) and the deepest nodes lose their root; every
+    type pair, every dead slot NaN, against the plain version; a second run
+    bitwise equal; the window and the cap each change the answer."""
+    c = _tree_case(cuda_device, "rpa_extend_aligned_256", dtype)
+    kern, plain = _tree_fns("rpa_extend_aligned_256", c)
+    k = KERNELS["rpa_extend_aligned_256"]
+    o = dict(logit_cap=1.0, sliding_window=24)
+    before = k.launches
+    out, again, ref = kern(**o), kern(**o), plain(**o)
+    torch.cuda.synchronize()
+    assert k.launches == before + 2
+    assert torch.isfinite(out).all() and torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=c["tol"], atol=c["tol"])
+    for other in (dict(logit_cap=1.0), dict(sliding_window=24)):
+        assert (kern(**other).float() - out.float()).abs().max() > 1e-2
+
+
+def _tree_functions(name, kernel_fn, core_fn):
+    """The warpgroup and the CUDA-core kernel functions of an extend build,
+    each split into its TREE = false and TREE = true instantiations (the
+    template's last argument), with their HGMMA counts and their resource
+    use (``cuobjdump -res-usage`` of the built library: REG, and STACK, the
+    bytes a thread spills to; the library may come from an earlier build,
+    whose nvcc log this process never saw)."""
+    import os
+    import re
+    import subprocess
+
+    from semi_pd_tpu_torch.kernels import find_nvcc, sass_mma_counts
+
+    k = KERNELS[name]
+    k.fn()
+    counts = sass_mma_counts(k, op="HGMMA")
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-res-usage", str(k.lib_path())], capture_output=True,
+                          text=True, check=True).stdout
+    usage = {m.group(1): dict(registers=int(m.group(2)), stack=int(m.group(3)))
+             for m in re.finditer(r"Function (\S+):\s+REG:(\d+) STACK:(\d+)", text)}
+    out = {}
+    for fn in (kernel_fn, core_fn):
+        for tree in (False, True):
+            tag = "Lb1EE" if tree else "Lb0EE"
+            out[fn, tree] = {f: (counts.get(f), usage.get(f, {})) for f in counts
+                             if fn + "I" in f and tag in f}
+    return out
+
+
+@pytest.mark.parametrize("name,kernel_fn,core_fn", [
+    ("rpa_extend_aligned_256", "rpa_extend_wgmma_kernel", "rpa_extend_kernel"),
+    ("rpa_extend_mla_288", "rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel")])
+def test_tree_instantiations_of_the_256_and_288_extends(cuda_device, name, kernel_fn, core_fn):
+    """The _256 and _288 extends hold both instantiations of each kernel:
+    the bf16-q pairs' warpgroup kernel (bf16, e4m3, e5m2 KV) with HGMMA in
+    its TREE = false and its TREE = true functions alike, the float32
+    pair's CUDA-core kernel without; the TREE = false warpgroup functions
+    use no stack, so spill nothing (the tree's code leaves them as they
+    were)."""
+    fns = _tree_functions(name, kernel_fn, core_fn)
+    for tree in (False, True):
+        wg = fns[kernel_fn, tree]
+        assert len(wg) == 3 and all(n for n, _ in wg.values()), (tree, wg)
+        core = fns[core_fn, tree]
+        assert len(core) == 1 and not any(n for n, _ in core.values()), (tree, core)
+    for f, (_, u) in fns[kernel_fn, False].items():
+        assert u and u["stack"] == 0, (f, u)
 
 
 @pytest.mark.parametrize("build", ["rpa_extend", "rpa_extend_mla"])
@@ -1573,8 +1657,9 @@ def test_mla288_builds_run_on_the_tensor_cores(cuda_device):
     """The _288 libraries disassembled: the packed and the streaming
     decode's bf16-q instantiations (bf16, e4m3 and e5m2 rows) run HMMA in
     their block-tile kernels and their float32 pair's CUDA-core kernel
-    none; the extend's three run HGMMA in its warpgroup kernel, and the
-    build holds no speculation-tree instantiation (-DRPA_NO_TREE)."""
+    none; the extend's three run HGMMA in its warpgroup kernel, in its
+    TREE = false and its TREE = true instantiation alike (six functions,
+    the CUDA-core kernel two)."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     for name, mma_fn, core_fn, op in (
@@ -1586,27 +1671,31 @@ def test_mla288_builds_run_on_the_tensor_cores(cuda_device):
              "HGMMA")):
         KERNELS[name].fn()
         counts = sass_mma_counts(KERNELS[name], op=op)
+        extend = name == "rpa_extend_mla_288"
         mma = [n for f, n in counts.items() if mma_fn in f]
-        assert len(mma) == 3 and all(mma), (name, counts)
+        assert len(mma) == (6 if extend else 3) and all(mma), (name, counts)
         core = [n for f, n in counts.items() if core_fn in f]
-        assert len(core) == 1 and not any(core), (name, counts)
-        if name == "rpa_extend_mla_288":
-            assert not [f for f in counts if "Lb1E" in f], counts  # no TREE = true
+        assert len(core) == (2 if extend else 1) and not any(core), (name, counts)
+        if extend:  # the TREE = true instantiations
+            assert len([f for f in counts if mma_fn in f and "Lb1E" in f]) == 3, counts
 
 
 def test_mla288_extend_refuses_a_tree(cuda_device):
-    """A speculation tree on the 288 extend is refused before any launch,
-    with its reason."""
+    """No longer refused: a speculation tree on the 288 extend launches its
+    TREE instantiation once, on an extend batch at Hq 40 (q_len 140 > 128,
+    a padded row), and matches the plain masked extend."""
     q, pool, pt, kvl, meta = _case288(_extend_case, cuda_device, torch.bfloat16,
                                       torch.bfloat16, 40)
     k = KERNELS["rpa_extend_mla_288"]
     before = k.launches
-    win = torch.zeros(pt.shape[0], dtype=torch.int32, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="no tree instantiations"):
-        rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, page_size=PS,
-                                          scale=DLAT288 ** -0.5, v_dim=V288,
-                                          spec_anc=(1, 3), win_base=win)
-    assert k.launches == before
+    win = (kvl - meta.q_lens).clamp(min=0).to(torch.int32)  # each request's first new row
+    kw = dict(page_size=PS, scale=DLAT288 ** -0.5, v_dim=V288, spec_anc=(1, 3, 5),
+              win_base=win)
+    out = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, **kw)
+    ref = rpa.ragged_paged_attention_extend_plain(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.parametrize("kind", ["decode", "stream"])
@@ -1741,9 +1830,10 @@ def test_aligned256_extend_heads_per_kv_head(cuda_device, kv, G):
 
 def test_aligned256_builds_run_on_the_tensor_cores(cuda_device):
     """The _256 libraries disassembled: the extend's bf16-q instantiations
-    (bf16, e4m3, e5m2 KV) run HGMMA in its warpgroup kernel, the packed and
-    the streaming decode's run HMMA; each float32 pair's CUDA-core kernel
-    none; the extend holds no speculation-tree instantiation."""
+    (bf16, e4m3, e5m2 KV) run HGMMA in its warpgroup kernel, in its TREE =
+    false and its TREE = true instantiation alike, the packed and the
+    streaming decode's run HMMA; each float32 pair's CUDA-core kernel
+    none."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     for name, mma_fn, core_fn, op in (
@@ -1753,24 +1843,31 @@ def test_aligned256_builds_run_on_the_tensor_cores(cuda_device):
             ("rpa_extend_aligned_256", "rpa_extend_wgmma_kernel", "rpa_extend_kernel", "HGMMA")):
         KERNELS[name].fn()
         counts = sass_mma_counts(KERNELS[name], op=op)
+        extend = name == "rpa_extend_aligned_256"
         mma = [n for f, n in counts.items() if mma_fn in f]
-        assert len(mma) == 3 and all(mma), (name, counts)
+        assert len(mma) == (6 if extend else 3) and all(mma), (name, counts)
         core = [n for f, n in counts.items() if core_fn in f]
-        assert len(core) == 1 and not any(core), (name, counts)
-        if name == "rpa_extend_aligned_256":
-            assert not [f for f in counts if "Lb1E" in f], counts  # no TREE = true
+        assert len(core) == (2 if extend else 1) and not any(core), (name, counts)
+        if extend:  # the TREE = true instantiations
+            assert len([f for f in counts if mma_fn in f and "Lb1E" in f]) == 3, counts
 
 
 def test_aligned256_extend_refuses_a_tree(cuda_device):
-    """A speculation tree on the 256 extend is refused before any launch."""
+    """No longer refused: a speculation tree on the 256 extend launches its
+    TREE instantiation once, on an extend batch (q_len 140 > 128, a padded
+    row) with softcap 1.0 and a window of 24, and matches the plain masked
+    extend."""
     q, pool, pt, kvl, meta = _case256(_extend_case, cuda_device, torch.bfloat16, torch.bfloat16)
     k = KERNELS["rpa_extend_aligned_256"]
     before = k.launches
-    win = torch.zeros(pt.shape[0], dtype=torch.int32, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="no tree instantiations"):
-        rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, page_size=PS,
-                                          scale=D256 ** -0.5, spec_anc=(1, 3), win_base=win)
-    assert k.launches == before
+    win = (kvl - meta.q_lens).clamp(min=0).to(torch.int32)  # each request's first new row
+    kw = dict(page_size=PS, scale=D256 ** -0.5, logit_cap=1.0, sliding_window=24,
+              spec_anc=(1, 3, 5), win_base=win)
+    out = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, **kw)
+    ref = rpa.ragged_paged_attention_extend_plain(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
 
 
 def _gemma2_cfg():
@@ -1791,3 +1888,65 @@ def test_engine_gemma2_on_cuda_matches_cpu(cuda_device, decode_stream):
     if decode_stream:
         kernels.append("rpa_decode_stream_aligned_256")
     _engines_agree(cuda_device, _gemma2_cfg(), kernels, decode_stream=decode_stream)
+
+
+@pytest.mark.parametrize("algo", ["EAGLE-gemma2", "EAGLE-tree-gemma2", "NEXTN-minicpm3",
+                                  "NEXTN-tree-minicpm3"])
+def test_spec_engine_gemma2_and_minicpm3_on_cuda_matches_cpu(cuda_device, algo):
+    """Speculating Engines on the card (float32) with the two targets whose
+    tree verify takes the _256 and _288 extends: a small Gemma-2 (head_dim
+    256, a window of 24, softcaps) with the EAGLE draft on a one-layer 5D
+    pool at head_dim 256, and a small MiniCPM3 (40 heads over the 288
+    latent row, longrope) with its NextN draft on a one-layer latent pool;
+    chain and tree (topk 4, 4 draft tokens: 29 nodes, longer than the
+    window). Each gives the greedy tokens and the accepted drafts of the
+    same Engine on the CPU holding the same target and draft parameters,
+    and launches only its path's builds: the target's extend per prefill
+    chunk and per verify, the draft pool's decode per chain draft or
+    refresh step and its extend per tree draft step (the same _256 or _288
+    extend), never another kernel. The weights are made predictive (the
+    final norm the identity: Gemma-2's (1 + w) at w = 0 with its embedding,
+    and so its tied head, times 4; the draft's fc or eh_proj passing the
+    token embedding, NextN's norms ones)."""
+    tree = "-tree" in algo
+    gemma = algo.endswith("gemma2")
+    spec = dict(speculative_algorithm=algo.split("-")[0], speculative_num_draft_tokens=4,
+                speculative_eagle_topk=4 if tree else 1)
+    serve = dict(random_weights=True, page_size=PS, max_total_tokens=2048,
+                 chunked_prefill_size=64, **spec)
+    cfg = _gemma2_cfg() if gemma else _minicpm3_cfg()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (20, 100, 37)]
+    sp = SamplingParams(max_new_tokens=16, temperature=0.0, ignore_eos=True)
+    gpu = Engine(ServerArgs(**serve), ModelConfig(**cfg))
+    cpu = Engine(ServerArgs(device="cpu", **serve), ModelConfig(**cfg), device="cpu")
+    params = gpu.runner.model.params_tree()
+    if gemma:
+        params["final_norm"] = np.zeros_like(params["final_norm"])
+        params["embed"]["w"] = params["embed"]["w"] * 4.0
+    else:
+        params["final_norm"] = np.ones_like(params["final_norm"])
+    H = cfg["hidden_size"]
+    draft = gpu.runner.draft_model.params_tree()
+    fc = draft["fc" if gemma else "eh_proj"]["w"]
+    fc[H:] *= 0.01
+    fc[:H] = np.eye(H)
+    if not gemma:
+        for k in ("enorm", "hnorm", "head_norm"):
+            draft[k] = np.ones_like(draft[k])
+    for eng in (gpu, cpu):
+        eng.runner.model.load_jax_params(params)
+        eng.runner.draft_model.load_jax_params(draft)
+        eng.runner.set_spec_thresholds()
+    for k in KERNELS.values():
+        k.launches = 0
+    got = gpu.generate(input_ids=prompts, sampling_params=sp)
+    launched = {n for n, k in KERNELS.items() if k.launches}
+    width = "aligned_256" if gemma else "mla_288"
+    assert launched == {f"rpa_extend_{width}", f"rpa_decode_{width}"}, launched
+    ref = cpu.generate(input_ids=prompts, sampling_params=sp)
+    assert [o["output_ids"] for o in got] == [o["output_ids"] for o in ref]
+    assert gpu.scheduler.n_spec_accepted == cpu.scheduler.n_spec_accepted > 0
+    if tree:
+        assert gpu.runner.spec_counts["draft_tree"] > 0
+    assert gpu.flush_cache() and cpu.flush_cache()

@@ -705,7 +705,7 @@ def test_producer_thread_map_covers_the_tile_once(head_dim, fp8):
 
 def test_builds_name_their_warpgroup_kernels():
     """Every GQA extend build (the chunked and the merged one at head_dim
-    64, the aligned one at 128) and the MLA build launch the warpgroup
+    64, the aligned ones at 128 and 256) and the MLA builds launch the warpgroup
     kernels for bf16 q: their sources hold them, the entry passes the
     build's P_F32_BUILD (the merged build's -DRPA_P_F32) as the kernel's
     P_SPLIT (to the instantiation with a speculation tree and the one
@@ -723,7 +723,8 @@ def test_builds_name_their_warpgroup_kernels():
     mla288 = KERNELS["rpa_extend_mla_288"]
     assert mla288.source == mla.source and rpa.EXTEND_MLA_KERNELS == {576: mla, 288: mla288}
     assert set(mla.defines) < set(mla288.defines)
-    assert {"RPA_MLA_DL=288", "RPA_MLA_DV=256", "RPA_NO_TREE"} <= set(mla288.defines)
+    assert {"RPA_MLA_DL=288", "RPA_MLA_DV=256"} <= set(mla288.defines)
+    assert set(mla288.defines) - set(mla.defines) == {"RPA_MLA_DL=288", "RPA_MLA_DV=256"}
     src = aligned.source.read_text()
     assert chunked.source == merged.source == aligned.source
     assert "rpa_extend_wgmma_kernel" in src and "rpa_extend_mma_kernel" not in src
@@ -732,9 +733,13 @@ def test_builds_name_their_warpgroup_kernels():
     assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD, true>", src)
     assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD, false>", src)
     assert "rpa_extend_mla_wgmma_kernel" in mla.source.read_text()
-    # head_dim 256: the same source and kernel, no tree instantiations
+    # head_dim 256: the same source and kernel, with the tree's
+    # instantiations as every extend build (no build leaves them out)
     a256 = KERNELS["rpa_extend_aligned_256"]
     assert a256.source == aligned.source and rpa.EXTEND_KERNELS["aligned"] == {
         128: aligned, 256: a256}
-    assert set(aligned.defines) | {"RPA_HEAD_DIM=256", "RPA_NO_TREE"} == set(a256.defines)
-    assert "if constexpr (!TREE_BUILT)" in src
+    assert set(aligned.defines) | {"RPA_HEAD_DIM=256"} == set(a256.defines)
+    for text in (src, mla.source.read_text(), (mla.source.parent / "rpa_common.cuh").read_text()):
+        assert "TREE_BUILT" not in text and "RPA_NO_TREE" not in text
+    assert all("RPA_NO_TREE" not in k.defines for k in KERNELS.values())
+    assert re.search(r"launch_extend_mla_wgmma<TKV, true>", mla.source.read_text())

@@ -22,7 +22,9 @@ numpy inputs:
 - the routing: ``pick_kernel`` gives the ``_256`` builds; under
   ``decode_stream`` a windowed batch stays on the packed decode and equals
   the JAX router's (``_rpa_kernel``, RPA_DECODE_STREAM=1); head_dim 512 is
-  refused; a speculation tree on the 256 extend is refused.
+  refused; a speculation tree on the 256 extend takes its routing and
+  equals the TPU kernel's (the rest of the tree's tests are in
+  tests/test_torch_gemma2_spec.py).
 """
 
 import types
@@ -452,12 +454,24 @@ def test_a_windowed_decode_stays_packed_under_stream(monkeypatch):
 
 
 def test_a_tree_on_the_256_extend_is_refused():
-    """rpa_extend_aligned_256 has no speculation-tree instantiations: its
-    wrapper refuses a tree, on the CPU as on the card, and says why."""
+    """No longer refused: a speculation tree on the 256 pool takes the
+    extend's routing (rpa_extend_aligned_256, its TREE instantiations on the
+    card; the plain masked extend here) and equals _rpa_kernel's GQA branch
+    in interpret mode with the same tree, softcap and window; the tree
+    changes the answer."""
     d = _setup(7, [3, 2], [10, 6], "float32", "float32")
     T, kvl = d["T"], d["kv_lens"].astype(np.int32)
     meta = build_attn_meta(d["q_lens"], d["kv_lens"], T)
-    with pytest.raises(NotImplementedError, match="no tree instantiations"):
-        rpa.ragged_paged_attention(d["tq"], d["tpool"], 0, _t(d["pt"]), _t(kvl), meta,
-                                   page_size=PS, scale=SCALE, spec_anc=(1, 3, 5),
-                                   win_base=torch.tensor([7, 3], dtype=torch.int32))
+    assert pick_kernel(rpa.EXTEND_KERNELS, d["tpool"]).name == "rpa_extend_aligned_256"
+    assert "RPA_NO_TREE" not in rpa.EXTEND_ALIGNED_256_KERNEL.defines
+    wb = np.array([7, 3], np.int32)
+    kw = dict(page_size=PS, scale=SCALE, logit_cap=CAP, sliding_window=WINDOW)
+    out = rpa.ragged_paged_attention(d["tq"], d["tpool"], 0, _t(d["pt"]), _t(kvl), meta,
+                                     spec_anc=(1, 3, 5), win_base=_t(wb), **kw)
+    ref = jax_rpa(d["jq"], d["jpool"], 0, jnp.asarray(d["pt"]), jnp.asarray(kvl),
+                  jax_meta(d["q_lens"], d["kv_lens"], T), interpret=True, spec_anc=(1, 3, 5),
+                  win_base=jnp.asarray(wb), **kw)
+    _close(out, ref, slice(0, 5), 2e-5)
+    causal = rpa.ragged_paged_attention(d["tq"], d["tpool"], 0, _t(d["pt"]), _t(kvl), meta,
+                                        **kw)
+    assert (out - causal).abs().max() > 1e-3

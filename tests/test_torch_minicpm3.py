@@ -23,8 +23,10 @@ same numpy inputs:
   compute in float32 and round the output to bf16, so they differ by at
   most a bf16 step at these magnitudes) and fp8_e4m3 rows under float32
   q (2e-5) and bf16 q (1e-2);
-- the refusals: a latent width without a build names ROADMAP B9.4; a
-  speculation tree on the 288 extend names its reason.
+- the refusal of a latent width without a build (naming ROADMAP B9.4), and
+  a speculation tree on the 288 extend taking its routing and equalling
+  the TPU kernel's (the rest of the tree's tests are in
+  tests/test_torch_minicpm3_spec.py).
 """
 
 import types
@@ -60,7 +62,7 @@ from semi_pd_tpu_torch.models.minicpm3 import MiniCPM3ForCausalLM
 from semi_pd_tpu_torch.ops import rope
 from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
 from semi_pd_tpu_torch.ops.attention import rpa_packed
-from semi_pd_tpu_torch.ops.attention.rpa_common import check_cuda
+from semi_pd_tpu_torch.ops.attention.rpa_common import check_cuda, pick_kernel
 from semi_pd_tpu_torch.runtime.batch import build_decode_batch, build_extend_batch
 from semi_pd_tpu_torch.runtime.engine import Engine
 from semi_pd_tpu_torch.runtime.forward_batch import build_attn_meta
@@ -413,18 +415,30 @@ def test_latent_widths_without_a_build_are_refused():
 
 
 def test_a_tree_on_the_288_extend_is_refused():
-    """rpa_extend_mla_288 has no speculation-tree instantiations: its
-    wrapper refuses a tree, on the CPU as on the card, and says why; the
-    576 build's plain route takes the same tree."""
+    """No longer refused: a speculation tree on the 288 pool takes the
+    latent extend's routing (rpa_extend_mla_288, its TREE instantiations on
+    the card; the plain masked extend here) and equals _rpa_kernel's MLA
+    branch in interpret mode at Hq 40 with the same tree; the 576 build's
+    plain route takes the same tree."""
     d = _setup(7, [3, 2], [10, 6], "float32", "float32")
     T, kvl = d["T"], d["kv_lens"].astype(np.int32)
     meta = build_attn_meta(d["q_lens"], d["kv_lens"], T)
-    tree = dict(spec_anc=(1, 3, 5), win_base=torch.tensor([7, 3], dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="no tree instantiations"):
-        rpa.ragged_paged_attention(d["tq"], d["tpool"], 0, _t(d["pt"]), _t(kvl), meta,
-                                   page_size=PS, scale=SCALE, v_dim=LORA, **tree)
+    assert pick_kernel(rpa.EXTEND_KERNELS, d["tpool"]).name == "rpa_extend_mla_288"
+    assert "RPA_NO_TREE" not in rpa.EXTEND_MLA_288_KERNEL.defines
+    wb = np.array([7, 3], np.int32)
+    out = rpa.ragged_paged_attention(d["tq"], d["tpool"], 0, _t(d["pt"]), _t(kvl), meta,
+                                     page_size=PS, scale=SCALE, v_dim=LORA,
+                                     spec_anc=(1, 3, 5), win_base=_t(wb))
+    ref = jax_rpa(d["jq"], d["jpool"], 0, jnp.asarray(d["pt"]), jnp.asarray(kvl),
+                  jax_meta(d["q_lens"], d["kv_lens"], T), page_size=PS, scale=SCALE,
+                  v_dim=LORA, interpret=True, spec_anc=(1, 3, 5), win_base=jnp.asarray(wb))
+    _close(out, ref, slice(0, 5), 2e-5)
+    causal = rpa.ragged_paged_attention(d["tq"], d["tpool"], 0, _t(d["pt"]), _t(kvl), meta,
+                                        page_size=PS, scale=SCALE, v_dim=LORA)
+    assert (out - causal).abs().max() > 1e-3
     wide = torch.zeros((1, 1, d["tpool"].shape[2], 1, 576))
     q = torch.zeros((T, HQ, 576))
     out = rpa.ragged_paged_attention(q, wide, 0, _t(d["pt"]), _t(kvl), meta, page_size=PS,
-                                     scale=SCALE, v_dim=512, **tree)
+                                     scale=SCALE, v_dim=512, spec_anc=(1, 3, 5),
+                                     win_base=_t(wb))
     assert out.shape == (T, HQ, 512)

@@ -340,13 +340,21 @@ def test_reference_matches_jax_reference(level):
 
 
 @pytest.mark.parametrize("tk,G,prefix", [(128, 4, 100), (128, 1, 127), (64, 4, 60),
-                                         (64, 8, 200), (128, 2, 0)])
+                                         (64, 8, 200), (128, 2, 0),
+                                         # the _256 build: 32-position tiles, G 2
+                                         (32, 2, 100), (32, 2, 31), (32, 2, 0),
+                                         # the MLA extends' packed rows at Hq 40
+                                         # (the 288 build), 48-position tiles
+                                         (48, 40, 100), (48, 40, 47), (48, 40, 0)])
 def test_warp_mask_decision_covers_the_tree(tk, G, prefix):
     """csrc/rpa_extend.cu, rpa_extend_wgmma_kernel: a warp's 16 packed rows
     span query positions wq_lo .. wq_hi; a tile at st is left unmasked only
     if no causal, length or window test can fail AND it does not meet the
     tree's window [wb, wb + W). Replayed for a tree verify: every tile the
-    decision leaves unmasked is visible whole to every row of the warp."""
+    decision leaves unmasked is visible whole to every row of the warp. The
+    MLA extends (csrc/rpa_extend_mla.cu) decide alike over packed rows
+    m = r Hq + g, G = Hq: at Hq 40 a warp's 16 rows lie within one or two
+    tokens, and a 64-row tile may start and end inside a token."""
     N = TREE.num_nodes
     limit = prefix + N
     rows = [prefix + j for j in range(N)]  # slot-order positions of the entry's rows
@@ -389,7 +397,8 @@ def _c_entry_types(source: str):
 
 
 @pytest.mark.parametrize("name", ["rpa_extend", "rpa_extend_aligned", "rpa_extend_merged",
-                                  "rpa_extend_mla"])
+                                  "rpa_extend_mla", "rpa_extend_aligned_256",
+                                  "rpa_extend_mla_288"])
 def test_extend_entry_argtypes_match_the_c_signature(name):
     """The ctypes argtypes of each extend build, parameter for parameter, as
     its C entry declares them: the tree's count, host table and win_base

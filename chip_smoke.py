@@ -171,18 +171,47 @@ each (any failure raises and exits non-zero):
              kernels and again through the plain attention (target and
              draft pool), the target's logits within 5% on the rows both
              verified alike; accept_len and next_tok of both printed.
+3r. round graphs — on that engine, after 3s, and on every speculating
+             target's tree engine after its 3s: for each round kind it
+             serves (the 1B-class model EAGLE tree, chain and NGRAM's
+             verify; the 8B model and Gemma-2-9B EAGLE tree and chain;
+             V2-Lite and MiniCPM3-4B NextN tree and chain), a round batch
+             of 32 requests (prefixes 520-1000, pages from the allocator,
+             prefix rows random, random hidden states) run eagerly
+             (``decode_graphs`` off) and replayed from its round graph
+             from the same pools and generator state, then a second batch
+             of the same key: accept lengths, next tokens, tokens, hidden
+             states and both pools' window rows bitwise equal, one
+             capture, drafts accepted; one replay under
+             ``torch.cuda.set_sync_debug_mode("error")``. One
+             ``round_graphs`` line per (target, kind): captures, capture
+             seconds, the graph pool's bytes, kernel launches per replay,
+             and the eager and replayed round wall (5 rounds a turn, turns
+             eager, graph, graph, eager).
 4s. spec serve — that engine serves the 32 prompts (64 greedy tokens,
              the bench's settings, bf16 KV) with NGRAM, EAGLE chain and
-             EAGLE tree, colocated and semi-PD: only the speculating
+             EAGLE tree, colocated and semi-PD, every round replayed from
+             its round graph (replays == rounds, printed with the graphs'
+             captures and pool): only the speculating
              path's builds launch (rpa_extend L times per prefill chunk
              and per verify; rpa_decode_merged once per chain draft or
              refresh step, rpa_extend_merged once per tree draft step;
              rpa_decode never); rounds, accepted tokens per round, tok/s,
              TTFT and ITL p50 and the prefill chunks printed. The tree
-             serve runs again and must give its own tokens exactly. Then a
+             serve runs again and must give its own tokens exactly, and
+             once more with its rounds run eagerly, which must give them
+             too. Then a
              non-speculating serve on the same weights; each speculating
              serve's share of requests with its tokens, and the log-prob
              gap at each first difference, are printed, not gated.
+4a. 8B spec — Meta-Llama-3-8B at full width on the aligned pool with
+             fp8_e4m3 KV speculating with the EAGLE draft (a llama layer at
+             its geometry over a one-layer 5D pool at head_dim 128, fp8
+             too), as 4e: 3s, 3r, then EAGLE tree and chain serving the 32
+             prompts in both modes: rpa_extend_aligned (the verify, L
+             times, and, in its TREE instantiation, the tree's verify and
+             draft steps) and rpa_decode_aligned, nothing else; 4af, its
+             float32 gate at 4 layers, as 4mf.
 4f. f32 gate — the 1B-class model in float32 (8 requests x 32 tokens)
              served with the EAGLE tree and without speculation: the tokens
              must be equal.
@@ -197,7 +226,9 @@ each (any failure raises and exits non-zero):
              norms ones): rpa_extend_mla launches L times per prefill
              chunk and per verify and once per tree draft step,
              rpa_decode_mla once per chain draft or refresh step, nothing
-             else; every serve fails if no draft was accepted.
+             else; every serve fails if no draft was accepted. The tree
+             serves colocated once more with its rounds run eagerly, which
+             must give the same tokens.
 4nf. nextn f32 gate — V2-Lite in float32 at 4 layers (8 requests x 32
              tokens) served with the NextN tree and without speculation:
              the tokens must be equal.
@@ -1530,6 +1561,10 @@ def spec_server_args(semi_pd: bool, algo: str, **kw):
 # engine, and the plain one it is compared with, keep 1.
 EMBED_GAIN = 3.0
 SPEC_GAIN = {"ngram": 1.0, "chain": EMBED_GAIN, "tree": EMBED_GAIN}
+# Meta-Llama-3-8B's: its 32 layers at hidden 4096 outweigh the embedding
+# at 3 (its EAGLE serves accepted 0.008-0.041 drafts a round there, on an
+# H100 80GB HBM3 at 700 W)
+LLAMA3_8B_GAIN = 10.0
 # the float32 V2-Lite gate's depth: its dense layer and three MoE layers
 NEXTN_F32_LAYERS = 4
 
@@ -1683,14 +1718,187 @@ def phase_spec_model(eng, label):
     return out
 
 
-def spec_serve(eng, algo, semi_pd, prompts, max_new=64):
+def round_call(eng, kind, seed):
+    """A round batch of 32 requests of 520-1000 committed positions on
+    pages from the allocator (shuffled by its state), their prefix rows in
+    both pools random, random last tokens and hidden states: a function
+    running the round of ``kind`` through the runner's host form (NGRAM:
+    drafts of 0-4 tokens, the last token repeated for every other
+    request), the requests, and the slots the round may write (each
+    request's window; not the dump page)."""
+    import torch
+
+    from semi_pd_tpu_torch.runtime import batch as port_batch
+    from semi_pd_tpu_torch.runtime.req import Req
+    from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner, s = eng.runner, eng.scheduler
+    rng = np.random.default_rng(seed)
+    vocab, H = runner.model_config.vocab_size, runner.model_config.hidden_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    reqs, prefix = [], []
+    for i, n in enumerate(rng.integers(520, 1001, size=32)):
+        r = Req(rid=f"r{seed}-{i}", input_ids=rng.integers(0, vocab, size=int(n)).tolist(),
+                sampling_params=SamplingParams(temperature=0.0))
+        r.req_slot = runner.req_pool.alloc()
+        pages = runner.page_allocator.alloc(-(-(int(n) + 32) // PAGE))
+        r.pages = pages.tolist()
+        runner.req_pool.write(r.req_slot, 0, pages)
+        r.prefilled_len = r.prompt_len
+        r.output_ids.append(int(rng.integers(0, vocab)))
+        reqs.append(r)
+        pos = np.arange(r.kv_len)
+        prefix.append(pages[pos // PAGE] * PAGE + pos % PAGE)
+    slots = torch.as_tensor(np.concatenate(prefix), device="cuda").long()
+    n = len(slots)
+    for buf in (runner.kv_cache.buffer, runner.draft_kv.buffer):
+        shape = ((n, *buf.shape[2:]) if buf.dim() == 4
+                 else (buf.shape[1], n, *buf.shape[3:]))
+        for layer in range(buf.shape[0]):  # one layer at a time: no full-pool temporary
+            noise = (torch.randn(shape, generator=gen, device="cuda") * 0.1).to(buf.dtype)
+            if buf.dim() == 4:
+                buf[layer, slots] = noise
+            else:
+                buf[layer, :, slots] = noise
+    table, gamma = runner.req_pool.page_table, s.spec_gamma
+    if kind == "tree":
+        hb = port_batch.build_tree_verify_batch(reqs, runner.tree_template, table, PAGE,
+                                                s.b_buckets, s.p_buckets)
+    else:
+        drafts = [[0] * gamma] * len(reqs)
+        if kind == "ngram":
+            drafts = [[r.output_ids[-1]] * int(rng.integers(0, gamma + 1)) if i % 2 == 0
+                      else rng.integers(0, vocab, size=int(rng.integers(0, gamma + 1))).tolist()
+                      for i, r in enumerate(reqs)]
+        hb, dp, dl = port_batch.build_spec_verify_batch(reqs, drafts, gamma, table, PAGE,
+                                                        s.b_buckets, s.p_buckets)
+    prev = rng.normal(size=(hb.B, H)).astype(np.float32)
+    call = {"chain": lambda: runner.eagle_step_host(hb, prev, gamma),
+            "tree": lambda: runner.eagle_tree_step_host(hb, prev),
+            "ngram": lambda: runner.spec_step_host(hb, dp, dl, gamma)}[kind]
+    window = hb.out_slots[: len(reqs) * (hb.T // hb.B)]
+    return call, reqs, torch.as_tensor(window[window >= PAGE], device="cuda").long()
+
+
+def window_rows(runner, slots):
+    """Both pools' rows at ``slots``, as bytes."""
+    import torch
+
+    out = []
+    for buf in (runner.kv_cache.buffer, runner.draft_kv.buffer):
+        rows = buf[:, slots] if buf.dim() == 4 else buf[:, :, slots]
+        out.append(rows.contiguous().view(torch.uint8))
+    return out
+
+
+def round_phase(eng, label, kinds):
+    """Phase 3r on the speculating engine at full width, for each round
+    kind: a round batch (``round_call``) run eagerly (``decode_graphs``
+    off) and replayed from its round graph from the same pools and
+    generator state, then a second batch of the same key the same way:
+    accept lengths, next tokens, tokens, hidden states and both pools'
+    window rows bitwise equal, no second capture; one replay under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); the eager
+    and the replayed round's wall (5 rounds a turn, turns eager, graph,
+    graph, eager). One ``round_graphs`` line per kind."""
+    import torch
+
+    runner = eng.runner
+    if not eng.flush_cache():
+        raise AssertionError("engine not idle before the round graph phase")
+    graphs = runner.round_graphs
+
+    def eager(call):
+        runner.round_graphs = None
+        try:
+            return call()
+        finally:
+            runner.round_graphs = graphs
+
+    out = []
+    for kind in kinds:
+        t0 = time.monotonic()
+        graphs.clear()  # this phase counts its own capture
+        stats0 = dict(graphs.stats)
+        checks, all_reqs = [], []
+        for seed in (11, 12):
+            call, reqs, slots = round_call(eng, kind, seed)
+            all_reqs += reqs
+            start = window_rows(runner, slots)
+            state = runner.generator.get_state()
+            want = eager(call)
+            want_rows = window_rows(runner, slots)
+            for buf, rows in zip((runner.kv_cache.buffer, runner.draft_kv.buffer), start):
+                dst = buf[:, slots] if buf.dim() == 4 else buf[:, :, slots]
+                restored = rows.view(buf.dtype).reshape(dst.shape)
+                if buf.dim() == 4:
+                    buf[:, slots] = restored
+                else:
+                    buf[:, :, slots] = restored
+            runner.generator.set_state(state)
+            got = call()
+            torch.cuda.synchronize()
+            same = [bool(torch.equal(a.contiguous().view(torch.uint8),
+                                     b.contiguous().view(torch.uint8)))
+                    for a, b in zip(got, want)]
+            pools = [bool(torch.equal(a, b)) for a, b in zip(window_rows(runner, slots),
+                                                              want_rows)]
+            checks.append(dict(batch=seed - 10, outputs_bitwise=same, pools_bitwise=pools,
+                               accepted=int(got[0].sum())))
+        captures = graphs.stats["captures"] - stats0["captures"]
+        (key, g), = graphs.graphs.items()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            run = (lambda: eager(call)) if mode == "eager" else call
+            run()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(5):
+                run()
+            torch.cuda.synchronize()
+            wall[mode].append(1e3 * (time.perf_counter() - t1) / 5)
+        for r in all_reqs:
+            runner.page_allocator.free(np.asarray(r.pages, np.int32))
+            runner.req_pool.free(r.req_slot)
+        res = dict(model=label, kind=kind, key=dict(B=key.B, maxP=key.maxP, T=key.T,
+                                                    spec=key.spec, refresh=key.refresh),
+                   checks=checks, captures=captures,
+                   capture_s=graphs.stats["capture_s"] - stats0["capture_s"],
+                   graph_pool_bytes=graphs.pool_bytes(), launches_per_replay=g.tally,
+                   eager_round_ms=wall["eager"], graph_round_ms=wall["graph"],
+                   seconds=time.monotonic() - t0)
+        print("round_graphs " + json.dumps(res), flush=True)
+        out.append(res)
+        bad = [c for c in checks if not (all(c["outputs_bitwise"]) and all(c["pools_bitwise"]))]
+        if bad:
+            raise AssertionError(f"{label} {kind}: replayed rounds differ from the eager "
+                                 f"round: {bad}")
+        if captures != 1:
+            raise AssertionError(f"{label} {kind}: {captures} captures for one key")
+        if kind != "ngram" and not sum(c["accepted"] for c in checks):
+            raise AssertionError(f"{label} {kind}: no draft accepted in the round batches")
+    if not eng.flush_cache():
+        raise AssertionError("engine not idle after the round graph phase")
+    return out
+
+
+def spec_serve(eng, algo, semi_pd, prompts, max_new=64, eager=False):
     """One speculating serve of ``prompts`` (greedy, ``max_new`` tokens) on
     ``eng``, an Engine built for ``algo`` (spec_server_args); launch
     counters set to 0 just before and read just after. Only the builds of
     the speculating path may launch, each L times per step of its kind: the
     target's extend per prefill chunk and per verify (L layers), the draft
     pool's decode per chain draft or refresh step and its extend per tree
-    draft step (one layer); never the target's decode."""
+    draft step (one layer); never the target's decode. Every round is
+    replayed from its round graph (replays == rounds), or with ``eager``
+    run eagerly (the runner's graphs off for this serve)."""
     import torch
 
     from semi_pd_tpu_torch.kernels import KERNELS
@@ -1709,17 +1917,31 @@ def spec_serve(eng, algo, semi_pd, prompts, max_new=64):
                             max_total_tokens=eng.server_args.max_total_tokens)
     eng.server_args = args
     eng.scheduler = Scheduler(args, runner)
+    if runner.draft_kv is not None:
+        # the draft attends its pool at the prompt's positions, which no
+        # step writes (the JAX package's EAGLE and NextN, ROADMAP C12): what
+        # earlier serves left there moves acceptance, so each serve starts
+        # from a zeroed draft pool, as on a new engine
+        runner.draft_kv.buffer.zero_()
     runner.step_counts = {"decode": 0, "extend": 0}
     runner.spec_counts = {k: 0 for k in runner.spec_counts}
+    graphs = (runner.graphs, runner.round_graphs)
+    if eager:
+        runner.graphs = runner.round_graphs = None
+    rounds0 = dict(graphs[1].stats)
     for k in KERNELS.values():
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    outs = eng.generate(input_ids=prompts, sampling_params=SamplingParams(
-        max_new_tokens=max_new, temperature=0.0, ignore_eos=True))
+    try:
+        outs = eng.generate(input_ids=prompts, sampling_params=SamplingParams(
+            max_new_tokens=max_new, temperature=0.0, ignore_eos=True))
+    finally:
+        runner.graphs, runner.round_graphs = graphs
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: k.launches for name, k in KERNELS.items()}
+    rounds = {k: graphs[1].stats[k] - rounds0[k] for k in rounds0}
     steps, spec = dict(runner.step_counts), dict(runner.spec_counts)
     s = eng.scheduler
     vocab = runner.model_config.vocab_size
@@ -1748,17 +1970,21 @@ def spec_serve(eng, algo, semi_pd, prompts, max_new=64):
                              f"speculation steps {spec}")
     if not s.n_spec_accepted:  # the rounds' accepted paths must run
         raise AssertionError(f"{algo} serve: no draft accepted in {s.n_spec_steps} rounds")
+    if rounds["replays"] != (0 if eager else spec["verify"]):
+        raise AssertionError(f"{algo} serve: {rounds['replays']} round replays for "
+                             f"{spec['verify']} rounds (eager: {eager})")
     if not eng.flush_cache():  # runs check_memory()
         raise AssertionError("engine not idle after a speculating serve")
     ttft = [r.first_token_time - r.queue_time for r in reqs]
     itl = [(r.finish_time - r.first_token_time) / (len(r.output_ids) - 1) for r in reqs]
-    res = dict(algo=algo, mode="semi_pd" if semi_pd else "colocated",
+    res = dict(algo=algo, mode="semi_pd" if semi_pd else "colocated", eager_rounds=eager,
                kv_dtype=str(runner.kv_cache.buffer.dtype).replace("torch.", ""),
                requests=len(outs), wall_s=wall, tok_s=len(outs) * max_new / wall,
                ttft_p50_s=statistics.median(ttft), itl_p50_ms=1e3 * statistics.median(itl),
                rounds=s.n_spec_steps, accepted=s.n_spec_accepted,
                accepted_per_round=s.n_spec_accepted / max(s.n_spec_steps, 1),
                prefill_chunks=steps["extend"], steps=steps, spec_steps=spec,
+               round_graphs=dict(rounds, pool_bytes=graphs[1].pool_bytes()),
                launches={k: n for k, n in launches.items() if n},
                # the target's extend launches by instantiation: TREE = true
                # for a tree's verify layers and draft steps, TREE = false
@@ -2037,11 +2263,12 @@ def main() -> int:
     def spec_phase(label):
         """The speculating serves (phase 4s), each algorithm on an Engine
         built for it: NGRAM, EAGLE chain and EAGLE tree, colocated and
-        semi-PD, the tree colocated once more (its own tokens exactly; the
-        tree engine first runs the speculation model phase), then the
-        non-speculating serve on an Engine of its own for each embedding
-        gain (SPEC_GAIN), which the serves on its weights are compared with
-        (printed, not gated)."""
+        semi-PD, the tree colocated once more (its own tokens exactly) and
+        once with its rounds run eagerly (the same tokens; the tree engine
+        first runs the speculation model phase and phase 3r, its three
+        round kinds), then the non-speculating serve on an Engine of its
+        own for each embedding gain (SPEC_GAIN), which the serves on its
+        weights are compared with (printed, not gated)."""
         t0 = time.monotonic()
         vocab = llama_1b_config().vocab_size
         prompts = prompts_for(vocab)
@@ -2050,15 +2277,20 @@ def main() -> int:
             eng = spec_engine(algo, gain=SPEC_GAIN[algo])
             if algo == "tree":
                 phase_spec_model(eng, label)
-            for semi in (False, True) + ((False,) if algo == "tree" else ()):
-                r, out = spec_serve(eng, algo, semi, prompts)
+                round_phase(eng, label, ("tree", "chain", "ngram"))
+            tree_runs = ((False, False), (True, False)) + (
+                ((False, False), (False, True)) if algo == "tree" else ())
+            for semi, eager in tree_runs:
+                r, out = spec_serve(eng, algo, semi, prompts, eager=eager)
                 for k, v in r["launches"].items():
                     main_launches[k] += v
                 key = f"{algo}_{r['mode']}"
                 print("spec_serve " + json.dumps(dict(r, model=label, gpu=smi,
                                                       embed_gain=SPEC_GAIN[algo],
                                                       repeat=key in runs)), flush=True)
-                if key in runs:
+                if eager:
+                    eager_same = float(np.mean([a == b for a, b in zip(runs[key], out)]))
+                elif key in runs:
                     again = float(np.mean([a == b for a, b in zip(runs[key], out)]))
                 else:
                     runs[key] = out
@@ -2075,13 +2307,16 @@ def main() -> int:
                             if SPEC_GAIN[k.split("_")[0]] == gain})
             release(eng)
         print("spec_serve_phase " + json.dumps(dict(
-            model=label, tree_repeat_same_tokens=again,
+            model=label, tree_repeat_same_tokens=again, tree_eager_same_tokens=eager_same,
             same_as_plain={k: w["same_requests"] for k, w in witness.items()},
             first_diffs={k: w["diffs"] for k, w in witness.items()},
             seconds=time.monotonic() - t0)), flush=True)
         if again != 1.0:
             raise AssertionError(f"{label}: the tree serve repeated gave other tokens "
                                  f"({again:.3f} of requests the same)")
+        if eager_same != 1.0:
+            raise AssertionError(f"{label}: the tree serve with eager rounds gave other "
+                                 f"tokens than on round graphs ({eager_same:.3f} the same)")
 
     def spec_f32_gate():
         """Phase 4f: the float32 1B-class model (8 requests x 32 tokens,
@@ -2112,31 +2347,48 @@ def main() -> int:
             raise AssertionError(f"float32: the tree serve's tokens differ from the plain "
                                  f"serve's ({same:.3f} of requests the same)")
 
-    def target_spec_phase(phase, label, cfg, algos):
+    def target_spec_phase(phase, label, cfg, algos, eager=False, gain=EMBED_GAIN, **kw):
         """A full-width target speculating with its draft (EAGLE's or
         NextN's, as the runner picks it), each algorithm of ``algos`` (the
-        tree first) on an Engine of its own on predictive weights: the tree
-        engine first runs the speculation model phase (a tree and a chain
-        round, kernels vs plain attention), then each algorithm serves the
-        32 prompts colocated and semi-PD; every serve fails if no draft was
-        accepted. Ends with the line ``phase``."""
+        tree first) on an Engine of its own on predictive weights (the
+        embedding x ``gain``; ``kw``: more server settings, the KV dtype):
+        the tree engine first runs the
+        speculation model phase (a tree and a chain round, kernels vs plain
+        attention) and phase 3r (its tree and chain rounds replayed against
+        eager ones), then each algorithm serves the 32 prompts colocated
+        and semi-PD on round graphs, and with ``eager`` the tree colocated
+        once more with its rounds run eagerly, which must give the same
+        tokens; every serve fails if no draft was accepted. Ends with the
+        line ``phase``."""
         t0 = time.monotonic()
         prompts = prompts_for(cfg.vocab_size)
         for algo in algos:
             t1 = time.monotonic()
-            eng = spec_engine(algo, cfg)
+            eng = spec_engine(algo, cfg, gain=gain, **kw)
             torch.cuda.synchronize()
             init_s = time.monotonic() - t1
-            if algo.endswith("tree"):
+            tree = algo.endswith("tree")
+            if tree:
                 phase_spec_model(eng, label)
-            for semi in (False, True):
-                r, _ = spec_serve(eng, algo, semi, prompts)
+                round_phase(eng, label, ("tree", "chain"))
+            outs = []
+            for semi, run_eager in ((False, False), (True, False)) + (
+                    ((False, True),) if tree and eager else ()):
+                r, out = spec_serve(eng, algo, semi, prompts, eager=run_eager)
+                outs.append(out)
                 for k, v in r["launches"].items():
                     main_launches[k] += v
                 print("spec_serve " + json.dumps(dict(r, model=label, gpu=smi,
-                                                      embed_gain=EMBED_GAIN, init_s=init_s,
+                                                      embed_gain=gain, init_s=init_s,
                                                       draft_gib=eng.runner.draft_weight_bytes
                                                       / 2 ** 30)), flush=True)
+            if len(outs) == 3:
+                same = float(np.mean([a == b for a, b in zip(outs[0], outs[2])]))
+                print("spec_eager " + json.dumps(dict(model=label, algo=algo,
+                                                      same_tokens=same)), flush=True)
+                if same != 1.0:
+                    raise AssertionError(f"{label} {algo}: the serve with eager rounds gave "
+                                         f"other tokens than on round graphs ({same:.3f})")
             release(eng)
         print(phase + " " + json.dumps(dict(model=label, seconds=time.monotonic() - t0)),
               flush=True)
@@ -2145,10 +2397,10 @@ def main() -> int:
         """Phase 4n: DeepSeek-V2-Lite at full width speculating with NextN
         (one MoE layer, its latent draft pool), NEXTN tree and chain."""
         target_spec_phase("nextn_phase", "deepseek-v2-lite nextn", deepseek_v2_lite_config(),
-                          ("nextn_tree", "nextn_chain"))
+                          ("nextn_tree", "nextn_chain"), eager=True)
 
     def spec_plain_gate(label, cfg, algo, prompts, max_total_tokens):
-        """Phases 4mf and 4ef: a tree serve of ``prompts`` (32 greedy tokens
+        """Phases 4af, 4mf and 4ef: a tree serve of ``prompts`` (32 greedy tokens
         each) on the float32 ``cfg`` at a small depth, on predictive
         weights, through the kernels (spec_serve: its launch checks, drafts
         accepted), then on the same engine and weights through the plain
@@ -2165,7 +2417,7 @@ def main() -> int:
         runner = eng.runner
         runner.attention = pool_attention(runner.kv_cache.buffer, plain=True)
         runner.draft_attention = pool_attention(runner.draft_kv.buffer, plain=True)
-        runner.graphs = None
+        runner.graphs = runner.round_graphs = None  # the plain versions read the host
         eng.scheduler = Scheduler(eng.server_args, runner)
         outs = eng.generate(input_ids=prompts, sampling_params=SamplingParams(
             max_new_tokens=32, temperature=0.0, ignore_eos=True))
@@ -2301,6 +2553,16 @@ def main() -> int:
     packed = serve_phase(eng, "meta-llama-3-8b", "aligned")
     stream_phase(eng, "meta-llama-3-8b", "aligned", "fp8_e4m3", packed)
     release(eng)  # the 8B model's 16 GB go before V2-Lite's 31 GB arrive
+    # Meta-Llama-3-8B speculating with the EAGLE draft (a llama layer at its
+    # geometry over a one-layer 5D pool at head_dim 128) on fp8_e4m3 KV, tree
+    # and chain (phases 3s, 3r, 4a), then its float32 gate at 4 layers (4af)
+    target_spec_phase("llama3_8b_spec_phase", "meta-llama-3-8b eagle fp8_e4m3",
+                      llama3_8b_config(), ("tree", "chain"), gain=LLAMA3_8B_GAIN,
+                      kv_cache_dtype="fp8_e4m3")
+    cfg = llama3_8b_config()
+    cfg.dtype, cfg.num_hidden_layers = "float32", 4
+    spec_plain_gate("meta-llama-3-8b float32 4 layers eagle tree", cfg, "tree",
+                    prompts_for(cfg.vocab_size, 1024)[:8], 32768)
     eng = model_phase("deepseek-v2-lite", deepseek_v2_lite_config(), "auto")
     graph_phase(eng, "deepseek-v2-lite", "latent")
     packed = serve_phase(eng, "deepseek-v2-lite", "latent", repeat=True, eager=True)

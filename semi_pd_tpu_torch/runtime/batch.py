@@ -3,10 +3,13 @@
 All bookkeeping is numpy on the controller; batches pad to static buckets.
 ``HostBatch.pack()`` concatenates every per-step array into ONE int32 and
 ONE float32 vector (two host->device copies per step); the runner's
-``_unpack_fb`` re-slices them with the same layout. The speculative verify
-batches (``build_spec_verify_batch``, ``build_tree_verify_batch``) go to the
-device with ``to_device``. LoRA, multimodal and m-rope batches are later
-slices (ROADMAP A14).
+``_unpack_fb`` re-slices them with the same layout (``pack_len``). The
+speculative verify batches (``build_spec_verify_batch``,
+``build_tree_verify_batch``) pack too, a logits row per verify row and a
+tree's slot-order positions and window starts included: a round graph's
+static buffers take them in two copies (runtime/cuda_graph_runner.py);
+an eager round takes ``to_device``'s tensors, one copy per array. LoRA,
+multimodal and m-rope batches are later slices (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -87,16 +90,19 @@ class HostBatch:
 
     def pack(self) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int, int, int]]:
         """Pack every per-step array into ONE int32 vector and ONE float32
-        vector (layout of the JAX package's HostBatch.pack). The runner
-        re-slices them with the static layout (T, B, maxP, NQB)."""
+        vector (layout of the JAX package's HostBatch.pack; a tree batch's
+        ``mask_pos`` and ``win_base`` after ``top_k``, and the request count
+        last). The runner re-slices them with the static layout (T, B,
+        maxP, NQB; ``pack_len``)."""
         T = self.T
         q_lens = self.q_lens()
         bs, br, bq = make_attn_meta_host(q_lens, T)
         s = self.sampling
+        tree = [] if self.mask_pos is None else [self.mask_pos, self.win_base]
         ints = np.concatenate([
             self.input_ids, self.q_req_idx, self.q_pos, self.out_slots,
             self.page_table.reshape(-1), self.kv_lens, self.logits_idx,
-            q_lens, self.q_starts(), bs, br, bq, s.top_k,
+            q_lens, self.q_starts(), bs, br, bq, s.top_k, *tree,
             np.array([len(self.reqs)], np.int32),
         ]).astype(np.int32)
         floats = np.concatenate([
@@ -104,6 +110,15 @@ class HostBatch:
             s.frequency_penalty, s.repetition_penalty,
         ]).astype(np.float32)
         return ints, floats, (T, self.B, self.maxP, len(bs))
+
+
+def pack_len(T: int, B: int, maxP: int, NQB: int, n_logits: Optional[int] = None,
+             tree: bool = False) -> int:
+    """Length of ``HostBatch.pack()``'s int vector: ``n_logits`` logits
+    rows (B by default; a verify batch's T), and with ``tree`` the tree's
+    ``mask_pos`` [T] and ``win_base`` [B]."""
+    n_logits = B if n_logits is None else n_logits
+    return 4 * T + B * maxP + n_logits + 4 * B + 3 * NQB + 1 + (T + B if tree else 0)
 
 
 def _sampling_arrays_np(reqs: List[Req], B: int) -> SamplingArrays:

@@ -1,8 +1,9 @@
-"""Decode steps replayed from CUDA graphs, one per decode shape key: the
-card's counterpart of the JAX runner's compiled bucket programs
+"""Decode steps and speculating rounds replayed from CUDA graphs, one per
+shape key: the card's counterpart of the JAX runner's compiled programs
 (semi_pd_tpu/runtime/model_runner.py ``_step_packed_jit`` and
 ``_step_packed_chained_jit``, one XLA program per static (T, B, maxP,
-NQB), compiled at first use).
+NQB); ``_eagle_jit``, ``_eagle_tree_jit`` and ``_spec_step_jit``, one per
+round shape; each compiled at first use).
 
 ``DecodeGraphs.step`` takes a decode step (T == B) of
 ``ModelRunner.step_packed_raw``. Its key is ``(B, maxP, NQB, all_greedy)``:
@@ -18,22 +19,46 @@ dispatch. The captured body is the runner's eager ``_step`` over
 ``_unpack_fb``'s views of those buffers, the KV pool and the KV scales
 being the tensors the eager step uses.
 
-At a key's first use the step runs once eagerly on the capture stream
+``RoundGraphs.round`` takes a speculating round of the runner
+(``eagle_step``, ``eagle_tree_step``, ``spec_step`` and their ``_host``
+forms): a chain or a tree round of the EAGLE or the NextN draft, or
+NGRAM's verify. Its key, ``RoundShape``, holds what the round's launches
+depend on: the round kind, the verify batch's packed shapes, all_greedy,
+gamma or the tree's branching, the draft refresh and the FR-Spec hot
+vocabulary (the hot head is a captured tensor). A key's static buffers are
+the round's packed int vector (``HostBatch.pack()``'s, a tree's slot-order
+positions and window starts included, then NGRAM's drafts and their
+lengths) and float vector (the sampling parameters, then the float32
+hidden states seeding the draft): two host->device copies a round, where
+``to_device`` makes one per array. A round given on the device copies
+each of its arrays into the views of those buffers instead. The captured
+body is the runner's eager round (``ModelRunner._round_body``) over those
+views. A round graph's outputs are (accept_len, next_tok, tokens,
+next_hidden), NGRAM's the first two: the verify's float32 logits and the
+round's window are freed at the capture's end, so the memory pool keeps
+them for no key (at B 64 a tree verify's logits alone are 0.95 GB at a
+128256-token vocabulary).
+
+At a key's first use the body runs once eagerly on the capture stream
 (building the kernels, setting their shared-memory attributes,
 initialising cuBLAS; its launches are recorded and dropped), then is
 captured, then replayed; the runner's generator is registered with every
 graph and its state restored around the warm-up, so a replay draws what
-the eager step would and advances the generator as it does. A replay
+the eager body would and advances the generator as it does. A replay
 overwrites its graph's output tensors, while the scheduler's ring holds up
 to ``max_overlap_depth`` steps' tokens and chains step N's tokens into step
-N + 1, so every replay's tokens and log-probs are copied into fresh
-tensors. All graphs share one memory pool, which is safe because they run
-one at a time on one stream and nothing returned lives in it.
+N + 1, so every replay's outputs are copied into fresh tensors. The decode
+and the round graphs share one backend and so one memory pool, which is
+safe because they run one at a time on one stream and nothing returned
+lives in it. A round's warm-up runs the round on the live pools, and the
+replay runs it again: a round is idempotent over its pools (every window
+slot it reads was written earlier in the same round; the prefix is only
+read).
 
 The capture and the replay are an injected ``backend``: ``CudaGraphBackend``
 on the card; the CPU tests inject an object that runs the body eagerly
 over the same static buffers. A failed capture or replay raises: nothing
-runs the eager step in its place.
+runs the eager step or round in its place.
 """
 
 from __future__ import annotations
@@ -41,12 +66,13 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from semi_pd_tpu_torch.kernels import add_launches, record_launches
+from semi_pd_tpu_torch.runtime.batch import pack_len
 
 Key = Tuple[int, int, int, bool]
 
@@ -57,6 +83,38 @@ def decode_key(shapes: Tuple[int, int, int, int], all_greedy: bool) -> Key:
     if T != B:
         raise ValueError(f"a decode graph takes T == B, got T {T}, B {B}")
     return B, maxP, NQB, bool(all_greedy)
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundShape:
+    """The key of a round graph. ``kind``: "chain" (EAGLE or NextN chain),
+    "tree" (their tree) or "ngram" (NGRAM's verify); the verify batch's
+    packed shapes (T = B x rows a request); whether every live row samples
+    greedily; ``spec``: gamma, or the tree's branching; the draft refresh,
+    the FR-Spec hot vocabulary, and ``hidden``, the width of the states
+    seeding the draft (0 for NGRAM)."""
+
+    kind: str
+    T: int
+    B: int
+    maxP: int
+    NQB: int
+    all_greedy: bool
+    spec: Hashable
+    refresh: bool = False
+    hot: bool = False
+    hidden: int = 0
+
+    def n_ints(self) -> int:
+        """The packed int vector: ``HostBatch.pack()``'s, a logits row per
+        verify row, then NGRAM's drafts [B, gamma] and lengths [B]."""
+        n = pack_len(self.T, self.B, self.maxP, self.NQB, n_logits=self.T,
+                     tree=self.kind == "tree")
+        return n + (self.B * (self.spec + 1) if self.kind == "ngram" else 0)
+
+    def n_floats(self) -> int:
+        """The six sampling arrays [B], then the hidden states [B, hidden]."""
+        return self.B * (6 + self.hidden)
 
 
 class CudaGraphBackend:
@@ -112,67 +170,56 @@ class _Graph:
     ints: torch.Tensor  # static packed int vector
     floats: torch.Tensor  # static packed float vector
     handle: object = None  # the backend's graph
-    outputs: Tuple[torch.Tensor, torch.Tensor] = None  # overwritten by each replay
+    outputs: Tuple[torch.Tensor, ...] = None  # overwritten by each replay
     tally: Dict[str, int] = None  # kernel launches one replay runs
 
 
-class DecodeGraphs:
-    """The runner's decode graphs, by key; ``stats``: captures, capture
+class GraphCache:
+    """Graphs by key over one backend; ``stats``: captures, capture
     seconds (warm-up included), replays."""
 
     def __init__(self, runner, backend):
         self.runner = runner
         self.backend = backend
-        self.graphs: Dict[Key, _Graph] = {}
+        self.graphs: Dict[Hashable, _Graph] = {}
         self.stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
 
     def pool_bytes(self) -> int:
-        """Bytes the graphs' memory pool holds."""
+        """Bytes the graphs' memory pool holds (shared by every cache on
+        the backend)."""
         return self.backend.pool_bytes()
 
     def clear(self) -> None:
-        """Drop every graph (their memory returns to the shared pool): the
-        runner's attention changed, and the graphs hold the old one's
-        launches."""
+        """Drop every graph (their memory returns to the shared pool): a
+        tensor they captured, or a routing whose launches they hold, has
+        changed."""
         self.graphs.clear()
 
-    def step(self, ints_np: np.ndarray, floats_np: np.ndarray, shapes, all_greedy: bool,
-             prev_tokens: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One decode step through its key's graph (captured first if the
-        key is new). ``prev_tokens``: the chained input ids. Returns fresh
-        device (tokens [B] i32, logprobs [B] f32)."""
-        key = decode_key(shapes, all_greedy)
-        B = key[0]
+    def run(self, key: Hashable, n_ints: int, n_floats: int,
+            fill: Callable[[torch.Tensor, torch.Tensor], None],
+            body: Callable[[torch.Tensor, torch.Tensor], tuple]) -> tuple:
+        """``fill(ints, floats)`` writes the inputs into the key's static
+        buffers, then the key's graph of ``body(ints, floats)`` (captured
+        first if the key is new) replays. Returns fresh copies of its
+        outputs."""
         with torch.inference_mode():
             g = self.graphs.get(key)
             new = g is None
             if new:
                 dev = self.runner.device
-                g = _Graph(ints=torch.empty(len(ints_np), dtype=torch.int32, device=dev),
-                           floats=torch.empty(len(floats_np), dtype=torch.float32,
-                                              device=dev))
-            g.ints.copy_(torch.from_numpy(ints_np), non_blocking=True)
-            g.floats.copy_(torch.from_numpy(floats_np), non_blocking=True)
-            if prev_tokens is not None:
-                g.ints[:B].copy_(prev_tokens)
+                g = _Graph(ints=torch.empty(n_ints, dtype=torch.int32, device=dev),
+                           floats=torch.empty(n_floats, dtype=torch.float32, device=dev))
+            fill(g.ints, g.floats)
             if new:
-                self._capture(g, shapes, all_greedy)
+                self._capture(g, lambda: body(g.ints, g.floats))
                 self.graphs[key] = g
             self.backend.replay(g.handle)
             add_launches(g.tally)
             self.stats["replays"] += 1
-            tokens, logprobs = g.outputs
-            return tokens.clone(), logprobs.clone()
+            return tuple(t.clone() for t in g.outputs)
 
-    def _capture(self, g: _Graph, shapes, all_greedy: bool) -> None:
-        T, B, maxP, NQB = shapes
+    def _capture(self, g: _Graph, body: Callable) -> None:
         runner = self.runner
-
-        def body():
-            fb = runner._unpack_fb(g.ints, g.floats, T, B, maxP, NQB, B, all_greedy)
-            return runner._step(fb)
-
         t0 = time.monotonic()
         state = runner.generator.get_state()
         with record_launches():  # the warm-up's launches are not a served step's
@@ -184,3 +231,37 @@ class DecodeGraphs:
         g.tally = dict(tally)
         self.stats["captures"] += 1
         self.stats["capture_s"] += time.monotonic() - t0
+
+
+class DecodeGraphs(GraphCache):
+    """The runner's decode graphs, by ``decode_key``."""
+
+    def step(self, ints_np: np.ndarray, floats_np: np.ndarray, shapes, all_greedy: bool,
+             prev_tokens: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One decode step through its key's graph (captured first if the
+        key is new). ``prev_tokens``: the chained input ids. Returns fresh
+        device (tokens [B] i32, logprobs [B] f32)."""
+        key = decode_key(shapes, all_greedy)
+        T, B, maxP, NQB = shapes
+        runner = self.runner
+
+        def fill(ints, floats):
+            ints.copy_(torch.from_numpy(ints_np), non_blocking=True)
+            floats.copy_(torch.from_numpy(floats_np), non_blocking=True)
+            if prev_tokens is not None:
+                ints[:B].copy_(prev_tokens)
+
+        def body(ints, floats):
+            return runner._step(runner._unpack_fb(ints, floats, T, B, maxP, NQB, B, all_greedy))
+
+        tokens, logprobs = self.run(key, len(ints_np), len(floats_np), fill, body)
+        return tokens, logprobs
+
+
+class RoundGraphs(GraphCache):
+    """The runner's speculating rounds, by ``RoundShape``: ``run(shape,
+    fill, body)`` with the shape's buffer sizes."""
+
+    def round(self, shape: RoundShape, fill, body) -> tuple:
+        return self.run(shape, shape.n_ints(), shape.n_floats(), fill, body)

@@ -28,11 +28,17 @@ pool's streaming decode. Random weights are drawn on the step device
 (model_loader/loader.py::device_init_params).
 
 On a CUDA device every decode step (T == B) of ``step_packed_raw`` is
-replayed from a CUDA graph, one per decode shape key, captured at the key's
-first use (runtime/cuda_graph_runner.py), as the JAX runner compiles one
-program per static shape; ``decode_graphs=False`` runs them eagerly, to
-hold replays against the eager step. Extend steps, ``step_host`` and every
-step of a CPU runner run eagerly.
+replayed from a CUDA graph, one per decode shape key, and every
+speculating round from a CUDA graph, one per round key (``RoundShape``),
+each captured at the key's first use (runtime/cuda_graph_runner.py), as
+the JAX runner compiles one program per static shape and one per round
+(``_eagle_jit``, ``_eagle_tree_jit``, ``_spec_step_jit``);
+``decode_graphs=False`` runs both eagerly, to hold replays against the
+eager step and round. The round graphs are dropped wherever the JAX runner
+rebuilds its round or a tensor they captured changes: new acceptance
+thresholds (constants of its trace), a re-sliced hot head, another routing
+of either pool, the pools released or re-made. Extend steps, ``step_host``
+and every step and round of a CPU runner run eagerly.
 
 Speculative decoding (``ServerArgs.speculative_algorithm``): NGRAM verifies
 host-drafted chains (``spec_step``); EAGLE and NEXTN (``_init_draft_model``,
@@ -49,10 +55,12 @@ latent decode of the pool's width, its tree draft steps the latent
 extend with the tree's masks); it is re-made with the target pool
 (``resume_kv_memory``).
 The draft's weights are made, and its pool's bytes per token counted,
-before the target pool is sized from free memory. ``eagle_step`` runs a
-chain round and ``eagle_tree_step`` a tree round (speculative/eagle.py),
-eagerly, never through the decode graphs; ``step_with_hidden`` is the
-extend step that also returns the hidden state seeding the draft.
+before the target pool is sized from free memory, less the graphs' pool
+(the rounds' verify logits). ``eagle_step`` runs a chain round and
+``eagle_tree_step`` a tree round (speculative/eagle.py), ``spec_step``
+NGRAM's verify, each through its round graph on a CUDA runner;
+``step_with_hidden`` is the extend step that also returns the hidden
+state seeding the draft.
 """
 
 from __future__ import annotations
@@ -76,9 +84,15 @@ from semi_pd_tpu_torch.models.gemma2 import Gemma2ForCausalLM
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
 from semi_pd_tpu_torch.models.minicpm3 import MiniCPM3ForCausalLM
 from semi_pd_tpu_torch.ops.sampling import SamplingArrays, compute_logprobs, sample
-from semi_pd_tpu_torch.runtime.cuda_graph_runner import CudaGraphBackend, DecodeGraphs
-from semi_pd_tpu_torch.runtime.forward_batch import AttnMeta, ForwardArrays, ForwardMode
+from semi_pd_tpu_torch.runtime.batch import HostBatch, pack_len
+from semi_pd_tpu_torch.runtime.cuda_graph_runner import (
+    CudaGraphBackend, DecodeGraphs, RoundGraphs, RoundShape,
+)
+from semi_pd_tpu_torch.runtime.forward_batch import (
+    AttnMeta, ForwardArrays, ForwardMode, num_q_blocks,
+)
 from semi_pd_tpu_torch.runtime.speculative import verify_and_accept
+from semi_pd_tpu_torch.speculative.tree import default_tree_template
 
 logger = logging.getLogger(__name__)
 
@@ -91,10 +105,15 @@ ARCHITECTURES = {
 }
 
 KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
-# the decode graphs' memory left out of the KV pool, in float32 logits of
-# the largest decode bucket (the runner reports what the pool took:
-# ``graphs.pool_bytes()``)
+# the graphs' memory left out of the KV pool, in float32 logits of the
+# largest decode bucket (the runner reports what the pool took:
+# ``graphs.pool_bytes()``); a speculating runner's, in float32 logits of
+# its round's verify at that bucket (B x W rows): the verify's logits, the
+# model-dtype product they are cast from, a final softcap's copies and
+# verify_and_accept's (scaled, softmax); 2.4 to 4.3 such copies on an H100
+# (the 1B-class tree verify to Gemma-2-9B's softcapped one)
 GRAPH_POOL_LOGITS = 8
+ROUND_POOL_LOGITS = 5
 
 
 def _load_kv_cache_scales(path: str, num_layers: int) -> np.ndarray:
@@ -170,8 +189,9 @@ class ModelRunner:
         device: Optional[str] = None,
         decode_graphs: bool = True,
     ):
-        """``decode_graphs``: on a CUDA device, replay decode steps from
-        CUDA graphs (False: run them eagerly, for comparisons)."""
+        """``decode_graphs``: on a CUDA device, replay decode steps and
+        speculating rounds from CUDA graphs (False: run them eagerly, for
+        comparisons)."""
         self.server_args = server_args
         self.device = resolve_device(device or server_args.device)
         self._graphs_on = decode_graphs and self.device.type == "cuda"
@@ -219,28 +239,51 @@ class ModelRunner:
         # decode-shaped draft steps (chain drafts and refreshes: the draft
         # pool's decode) and tree draft steps (the draft pool's extend)
         self.spec_counts = {"verify": 0, "draft_decode": 0, "draft_tree": 0}
-        # the decode graphs (None: decode runs eagerly)
-        self.graphs = (DecodeGraphs(self, CudaGraphBackend(self.device, self.generator))
-                       if self._graphs_on else None)
+        # the decode graphs and, speculating, the round graphs, on one
+        # backend and its memory pool (None: decode steps and rounds run
+        # eagerly)
+        backend = CudaGraphBackend(self.device, self.generator) if self._graphs_on else None
+        self.graphs = DecodeGraphs(self, backend) if backend else None
+        self.round_graphs = (RoundGraphs(self, backend)
+                             if backend and server_args.speculative_algorithm else None)
         if self.draft_model is not None:
             self._init_eagle()
 
     @property
     def attention(self):
         """What every layer runs over the pool after its KV write; setting
-        it to another routing drops the decode graphs, which captured the
-        old one's launches."""
+        it to another routing drops the decode and the round graphs, which
+        captured the old one's launches."""
         return self._attention
 
     @attention.setter
     def attention(self, fn) -> None:
+        self._set_routing("_attention", fn, "graphs", "round_graphs")
+
+    @property
+    def draft_attention(self):
+        """The draft pool's routing; setting it to another drops the round
+        graphs."""
+        return self._draft_attention
+
+    @draft_attention.setter
+    def draft_attention(self, fn) -> None:
+        self._set_routing("_draft_attention", fn, "round_graphs")
+
+    def _set_routing(self, name: str, fn, *caches: str) -> None:
         def routing(f):  # a function, or a partial of one (the stream's)
             return getattr(f, "func", f), sorted(getattr(f, "keywords", {}).items())
 
-        old = getattr(self, "_attention", None)
-        self._attention = fn
-        if getattr(self, "graphs", None) is not None and routing(old) != routing(fn):
-            self.graphs.clear()
+        old = getattr(self, name, None)
+        setattr(self, name, fn)
+        if routing(old) != routing(fn):
+            self._drop_graphs(*caches)
+
+    def _drop_graphs(self, *caches: str) -> None:
+        """Drop the graphs of the named caches ("graphs", "round_graphs")."""
+        for c in caches:
+            if getattr(self, c, None) is not None:
+                getattr(self, c).clear()
 
     # ------------------------------------------------------------- weights
     def _load_weights(self) -> None:
@@ -279,13 +322,11 @@ class ModelRunner:
                     kv_dtype, self.max_running_requests)
 
     def _profile_kv_tokens(self, kv_dtype: torch.dtype) -> int:
-        """Size the KV pool from free device memory, less the decode graphs'
-        pool (sized before any graph exists: GRAPH_POOL_LOGITS float32
-        logits of the largest decode bucket, the sampler's copies of them
-        being the largest tensors a decode step makes). A speculating
-        runner's draft weights are already made (they are not free), and
-        its draft pool, one more layer of the target's per slot, is counted
-        in each token's bytes."""
+        """Size the KV pool from free device memory, less the graphs' pool
+        (``_graph_pool_reserve``, sized before any graph exists). A
+        speculating runner's draft weights are already made (they are not
+        free), and its draft pool, one more layer of the target's per slot,
+        is counted in each token's bytes."""
         mc = self.model_config
         layers = mc.num_hidden_layers + (1 if self.draft_model is not None else 0)
         per_token = (layers * mc.num_kv_heads_total * mc.kv_head_dim
@@ -294,17 +335,33 @@ class ModelRunner:
             return 32768  # CPU: a small pool for tests
         free, _ = torch.cuda.mem_get_info(self.device)
         if self._graphs_on:
-            free -= (GRAPH_POOL_LOGITS * max(self.server_args.decode_bs_buckets)
-                     * mc.vocab_size * 4)
+            free -= self._graph_pool_reserve()
         frac = self.server_args.mem_fraction_static or 0.9
         return max(int(free * frac // per_token), 4096)
+
+    def _graph_pool_reserve(self) -> int:
+        """Bytes of the graphs' shared pool, in float32 logits of the
+        largest decode bucket B: GRAPH_POOL_LOGITS x B rows, the sampler's
+        copies of a decode step's logits being the largest tensors a decode
+        step makes; speculating, at least ROUND_POOL_LOGITS of the round's
+        verify, B x W rows (W: gamma + 1, or the tree's nodes). The pool
+        holds the largest capture's transients, each capture reusing what
+        the earlier ones freed."""
+        args = self.server_args
+        B = max(args.decode_bs_buckets)
+        rows = GRAPH_POOL_LOGITS * B
+        if args.speculative_algorithm:
+            n = args.speculative_num_draft_tokens
+            tree = args.speculative_algorithm != "NGRAM" and args.speculative_eagle_topk > 1
+            W = default_tree_template(args.speculative_eagle_topk, n).num_nodes if tree else n + 1
+            rows = max(rows, ROUND_POOL_LOGITS * B * W)
+        return rows * self.model_config.vocab_size * 4
 
     def release_kv_memory(self) -> None:
         """Free the KV pool's (and the draft pool's) device memory between
         rollout phases; the caller has flushed every request. The decode
-        graphs captured the old pool and go with it."""
-        if self.graphs is not None:
-            self.graphs.clear()
+        and the round graphs captured the old pools and go with them."""
+        self._drop_graphs("graphs", "round_graphs")
         self.kv_cache.buffer = None
         if self.draft_kv is not None:
             self.draft_kv.buffer = None
@@ -316,6 +373,7 @@ class ModelRunner:
         pool with the target's."""
         if self.kv_cache.buffer is not None:
             return  # not released
+        self._drop_graphs("graphs", "round_graphs")
         self.kv_cache = KVCache(self.kv_spec, self.device)
         if self.draft_model is not None:
             self._init_draft_pool()
@@ -352,12 +410,12 @@ class ModelRunner:
         options and the tree (speculative/eagle.py), the rest of the JAX
         runner's _init_eagle."""
         from semi_pd_tpu_torch.speculative.eagle import load_token_map
-        from semi_pd_tpu_torch.speculative.tree import default_tree_template
 
         args, mc = self.server_args, self.model_config
         self._init_draft_pool()
         self.spec_refresh = not args.speculative_disable_draft_refresh
         self.spec_hot_ids = None
+        self.spec_hot_head = None
         if args.speculative_token_map:
             # FR-Spec: the draft head runs over the hot-vocab subset only
             hot = load_token_map(args.speculative_token_map)
@@ -367,6 +425,7 @@ class ModelRunner:
         if args.speculative_eagle_topk > 1:
             self.tree_template = default_tree_template(
                 args.speculative_eagle_topk, args.speculative_num_draft_tokens)
+            self.tree_template.device_tables(self.device)  # made here, not in a round
 
     def _init_draft_pool(self) -> None:
         """The draft pool: one layer of the target pool's geometry, slots
@@ -382,20 +441,24 @@ class ModelRunner:
         """Slice the lm_head to the FR-Spec hot vocab ONCE (a gather inside
         every round would re-read the whole [H, V] head); again after the
         target's weights change, as the JAX runner re-slices when it
-        rebuilds its round."""
+        rebuilds its round. A new slice is a new tensor: the round graphs
+        captured the old one and go."""
         from semi_pd_tpu_torch.speculative.eagle import _hot_head
 
+        self._drop_graphs("round_graphs")
         self.spec_hot_head = (None if self.spec_hot_ids is None
                               else _hot_head(self.model.head(), self.spec_hot_ids))
 
     def set_spec_thresholds(self, single=None, acc=None) -> None:
-        """Update the relaxed-acceptance thresholds (an eager round reads
-        them at each call) and re-slice the hot head, as the JAX runner's
-        rebuild of its round does."""
+        """Update the relaxed-acceptance thresholds and re-slice the hot
+        head, as the JAX runner's rebuild of its round does: a round reads
+        the thresholds when it is run or captured (constants of the JAX
+        round's trace), so the round graphs go."""
         if single is not None:
             self.server_args.speculative_accept_threshold_single = float(single)
         if acc is not None:
             self.server_args.speculative_accept_threshold_acc = float(acc)
+        self._drop_graphs("round_graphs")
         if self.draft_model is not None:
             self._slice_hot_head()
 
@@ -403,43 +466,140 @@ class ModelRunner:
         """This runner's own fp8-KV scales on a target step's batch."""
         return fb if self.kv_scales is None else fb._replace(kv_scales=self.kv_scales)
 
+    # ------------------------------------------------------------- rounds
     def eagle_step(self, fb: ForwardArrays, prev_hidden, gamma: int):
         """EAGLE chain round. Returns device (accept_len [B], next_tok [B],
         drafts [B, gamma], next_hidden [B, H])."""
-        from semi_pd_tpu_torch.speculative.eagle import eagle_round
-
-        args = self.server_args
-        res = eagle_round(
-            self.model, self.draft_model, self.kv_cache.buffer, self.draft_kv.buffer,
-            self._stamp(fb), self._hidden_in(prev_hidden), gamma, self.generator,
-            refresh=self.spec_refresh,
-            threshold_single=args.speculative_accept_threshold_single,
-            threshold_acc=args.speculative_accept_threshold_acc,
-            hot_ids=self.spec_hot_ids, hot_head=self.spec_hot_head,
-            attention=self.attention, draft_attention=self.draft_attention)
+        out = self._round(self._round_shape("chain", fb, gamma), fb, prev_hidden)
         self.spec_counts["verify"] += 1
         self.spec_counts["draft_decode"] += gamma * (2 if self.spec_refresh else 1)
-        return res.accept_len, res.next_tok, res.tokens, res.next_hidden
+        return out
 
     def eagle_tree_step(self, fb: ForwardArrays, prev_hidden):
         """EAGLE tree round over ``tree_template``. Returns device
         (accept_len [B], next_tok [B], path_tokens [B, depth], next_hidden
         [B, H])."""
-        from semi_pd_tpu_torch.speculative.eagle import eagle_tree_round
-
         tree = self.tree_template
-        res = eagle_tree_round(
-            self.model, self.draft_model, self.kv_cache.buffer, self.draft_kv.buffer,
-            self._stamp(fb), self._hidden_in(prev_hidden), tree, refresh=self.spec_refresh,
-            hot_ids=self.spec_hot_ids, hot_head=self.spec_hot_head,
-            attention=self.attention, draft_attention=self.draft_attention)
+        out = self._round(self._round_shape("tree", fb, tree.branching), fb, prev_hidden)
         self.spec_counts["verify"] += 1
         self.spec_counts["draft_tree"] += len(tree.level_nodes)
         self.spec_counts["draft_decode"] += tree.depth if self.spec_refresh else 0
-        return res.accept_len, res.next_tok, res.tokens, res.next_hidden
+        return out
 
-    def _hidden_in(self, prev_hidden) -> torch.Tensor:
-        return torch.as_tensor(prev_hidden, device=self.device).to(self.model.dtype)
+    def spec_step(self, fb: ForwardArrays, drafts, draft_lens, gamma: int):
+        """Speculative verify step (runtime/speculative.py). Returns device
+        (accept_len [B], next_token [B])."""
+        out = self._round(self._round_shape("ngram", fb, gamma), fb, drafts=drafts,
+                          draft_lens=draft_lens)
+        self.spec_counts["verify"] += 1
+        return out
+
+    # host-batch forms of the four (a round graph's two packed copies, or
+    # eagerly one copy per array, as step_host)
+    def step_with_hidden_host(self, hb):
+        return self.step_with_hidden(hb.to_device(self.device))
+
+    def eagle_step_host(self, hb, prev_hidden, gamma: int):
+        return self.eagle_step(hb, prev_hidden, gamma)
+
+    def eagle_tree_step_host(self, hb, prev_hidden):
+        return self.eagle_tree_step(hb, prev_hidden)
+
+    def spec_step_host(self, hb, drafts, draft_lens, gamma: int):
+        return self.spec_step(hb, drafts, draft_lens, gamma)
+
+    def _round_shape(self, kind: str, batch, spec) -> RoundShape:
+        """The round key of a verify batch (a HostBatch, or ForwardArrays
+        on the device): its packed shapes and all_greedy, ``spec`` (gamma
+        or the tree's branching), and the draft's refresh, hot vocabulary
+        and hidden width."""
+        if isinstance(batch, HostBatch):
+            T, B, maxP = batch.T, batch.B, batch.maxP
+            all_greedy = bool(np.all(batch.sampling.temperature[: len(batch.reqs)] <= 0.0))
+        else:
+            T, B = batch.input_ids.shape[0], batch.page_table.shape[0]
+            maxP, all_greedy = batch.page_table.shape[1], batch.all_greedy
+        draft = kind != "ngram"
+        return RoundShape(kind, T, B, maxP, num_q_blocks(T, B), all_greedy, spec,
+                          refresh=draft and self.spec_refresh,
+                          hot=draft and self.spec_hot_ids is not None,
+                          hidden=self.model_config.hidden_size if draft else 0)
+
+    def _round(self, shape: RoundShape, batch, prev_hidden=None, drafts=None,
+               draft_lens=None):
+        """One round of ``shape.kind`` over ``batch`` (a HostBatch, or
+        ForwardArrays on the device), ``prev_hidden`` [B, H] seeding the
+        draft (NGRAM: ``drafts`` [B, gamma] and ``draft_lens`` [B]):
+        replayed from the key's round graph, or with graphs off run eagerly
+        over ``to_device``'s tensors."""
+        if self.round_graphs is None:
+            fb = batch.to_device(self.device) if isinstance(batch, HostBatch) else batch
+            dev = lambda a: None if a is None else torch.as_tensor(a, device=self.device)
+            return self._round_body(shape, fb, dev(prev_hidden), dev(drafts), dev(draft_lens))
+
+        def fill(ints, floats):
+            if isinstance(batch, HostBatch):  # two host->device copies
+                pi, pf, _ = batch.pack()
+                tail = ([np.asarray(drafts, np.int32).reshape(-1),
+                         np.asarray(draft_lens, np.int32)] if shape.kind == "ngram" else [])
+                ints.copy_(torch.from_numpy(np.concatenate([pi, *tail])), non_blocking=True)
+                if shape.hidden:
+                    pf = np.concatenate([pf, np.asarray(prev_hidden, np.float32).reshape(-1)])
+                floats.copy_(torch.from_numpy(pf), non_blocking=True)
+                return
+            views, prev, d, lens = self._unpack_round(ints, floats, shape)
+            for dst, src in _batch_arrays(views, batch):
+                dst.copy_(src)
+            for dst, src in ((prev, prev_hidden), (d, drafts), (lens, draft_lens)):
+                if dst is not None:
+                    dst.copy_(torch.as_tensor(src).reshape(dst.shape))
+
+        def body(ints, floats):
+            return self._round_body(shape, *self._unpack_round(ints, floats, shape))
+
+        return self.round_graphs.round(shape, fill, body)
+
+    def _unpack_round(self, ints: torch.Tensor, floats: torch.Tensor, shape: RoundShape):
+        """A round's packed vectors as (ForwardArrays, prev_hidden [B, H],
+        drafts [B, gamma], draft_lens [B]) of views, None where the kind
+        has none."""
+        T, B, tree = shape.T, shape.B, shape.kind == "tree"
+        fb = self._unpack_fb(ints, floats, T, B, shape.maxP, shape.NQB, B, shape.all_greedy,
+                             n_logits=T, tree=tree)
+        if shape.kind == "ngram":
+            o, g = pack_len(T, B, shape.maxP, shape.NQB, n_logits=T), shape.spec
+            return fb, None, ints[o : o + B * g].view(B, g), ints[o + B * g : o + B * g + B]
+        return fb, floats[6 * B :].view(B, shape.hidden), None, None
+
+    def _round_body(self, shape: RoundShape, fb: ForwardArrays, prev_hidden, drafts,
+                    draft_lens):
+        """The eager round (and the body a round graph captures): the chain
+        or tree round of speculative/eagle.py with this runner's draft,
+        pools, routings and options, or NGRAM's verify and acceptance.
+        Returns (accept_len, next_tok, tokens, next_hidden), NGRAM's first
+        two."""
+        from semi_pd_tpu_torch.speculative.eagle import eagle_round, eagle_tree_round
+
+        args = self.server_args
+        thresholds = dict(threshold_single=args.speculative_accept_threshold_single,
+                          threshold_acc=args.speculative_accept_threshold_acc)
+        fb = self._stamp(fb)
+        with torch.inference_mode():
+            if shape.kind == "ngram":
+                logits = self.model(fb, self.kv_cache.buffer,
+                                    attention=self.attention)  # logits_idx covers all rows
+                return verify_and_accept(logits, drafts, draft_lens, fb.sampling,
+                                         self.generator, shape.spec, **thresholds)
+            pools = (self.model, self.draft_model, self.kv_cache.buffer, self.draft_kv.buffer,
+                     fb, prev_hidden.to(self.model.dtype))
+            opts = dict(refresh=self.spec_refresh, hot_ids=self.spec_hot_ids,
+                        hot_head=self.spec_hot_head, attention=self.attention,
+                        draft_attention=self.draft_attention)
+            if shape.kind == "chain":
+                res = eagle_round(*pools, shape.spec, self.generator, **thresholds, **opts)
+            else:
+                res = eagle_tree_round(*pools, self.tree_template, **opts)
+        return res.accept_len, res.next_tok, res.tokens, res.next_hidden
 
     def step_with_hidden(self, fb: ForwardArrays):
         """Like the step, and also returns the last tokens' hidden states
@@ -447,35 +607,6 @@ class ModelRunner:
         tokens, logprobs, hidden = self._step(fb, return_hidden=True)
         self._count(fb.input_ids.shape[0], fb.page_table.shape[0])
         return tokens, logprobs, hidden
-
-    def spec_step(self, fb: ForwardArrays, drafts, draft_lens, gamma: int):
-        """Speculative verify step (runtime/speculative.py). Returns device
-        (accept_len [B], next_token [B])."""
-        args = self.server_args
-        with torch.inference_mode():
-            logits = self.model(self._stamp(fb), self.kv_cache.buffer,
-                                attention=self.attention)  # logits_idx covers all rows
-            accept_len, next_tok = verify_and_accept(
-                logits, torch.as_tensor(drafts, device=self.device),
-                torch.as_tensor(draft_lens, device=self.device), fb.sampling,
-                self.generator, gamma,
-                threshold_single=args.speculative_accept_threshold_single,
-                threshold_acc=args.speculative_accept_threshold_acc)
-        self.spec_counts["verify"] += 1
-        return accept_len, next_tok
-
-    # host-batch forms of the four (one copy per array, as step_host)
-    def step_with_hidden_host(self, hb):
-        return self.step_with_hidden(hb.to_device(self.device))
-
-    def eagle_step_host(self, hb, prev_hidden, gamma: int):
-        return self.eagle_step(hb.to_device(self.device), prev_hidden, gamma)
-
-    def eagle_tree_step_host(self, hb, prev_hidden):
-        return self.eagle_tree_step(hb.to_device(self.device), prev_hidden)
-
-    def spec_step_host(self, hb, drafts, draft_lens, gamma: int):
-        return self.spec_step(hb.to_device(self.device), drafts, draft_lens, gamma)
 
     # ------------------------------------------------------------- step
     def _step(self, fb: ForwardArrays, return_hidden: bool = False):
@@ -495,8 +626,11 @@ class ModelRunner:
 
     def _unpack_fb(self, ints: torch.Tensor, floats: torch.Tensor, T: int, B: int,
                    maxP: int, NQB: int, num_reqs: int, all_greedy: bool,
-                   input_override: Optional[torch.Tensor] = None) -> ForwardArrays:
-        """Inverse of HostBatch.pack(): static-offset slices (views)."""
+                   input_override: Optional[torch.Tensor] = None,
+                   n_logits: Optional[int] = None, tree: bool = False) -> ForwardArrays:
+        """Inverse of HostBatch.pack(): static-offset slices (views).
+        ``n_logits``: the logits rows (B; a verify batch's T); ``tree``: the
+        batch carries a tree's ``mask_pos`` [T] and ``win_base`` [B]."""
         o = [0]
 
         def take(n):
@@ -510,13 +644,14 @@ class ModelRunner:
         out_slots = take(T)
         page_table = take(B * maxP).reshape(B, maxP)
         kv_lens = take(B)
-        logits_idx = take(B)
+        logits_idx = take(B if n_logits is None else n_logits)
         q_lens = take(B)
         q_start = take(B)
         block_seq = take(NQB)
         block_row = take(NQB)
         block_qofs = take(NQB)
         top_k = take(B)
+        mask_pos, win_base = (take(T), take(B)) if tree else (None, None)
         f = [floats[i * B : (i + 1) * B] for i in range(6)]
         if input_override is not None:
             input_ids = input_override
@@ -532,7 +667,7 @@ class ModelRunner:
             num_reqs=num_reqs,
             attn_meta=AttnMeta(q_lens=q_lens, q_start=q_start, block_seq=block_seq,
                                block_row=block_row, block_qofs=block_qofs),
-            all_greedy=all_greedy,
+            all_greedy=all_greedy, mask_pos=mask_pos, win_base=win_base,
         )
 
     def step_packed(self, hb, prev_tokens=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -581,6 +716,25 @@ class ModelRunner:
             self._chain_tokens = tok
         return tok, lp
 
+    @staticmethod
+    def read_round(*arrays):
+        """Read back a round's device tensors in ONE device->host copy:
+        integer tensors as int32, floating ones as float32, each returned
+        as a numpy array of its shape; anything else (a host array, None)
+        is returned as it is."""
+        dev = [a for a in arrays if isinstance(a, torch.Tensor)]
+        bits = lambda a: (a.float().reshape(-1).view(torch.int32) if a.is_floating_point()
+                          else a.reshape(-1).to(torch.int32))
+        flat = torch.cat([bits(a) for a in dev]).cpu().numpy() if dev else None
+        out, o = [], 0
+        for a in arrays:
+            if isinstance(a, torch.Tensor):
+                x = flat[o : o + a.numel()].reshape(tuple(a.shape))
+                o += a.numel()
+                a = x.view(np.float32) if a.is_floating_point() else x
+            out.append(a)
+        return out
+
     def read_results(self, toks: List[torch.Tensor], lps: List[torch.Tensor],
                      want_logprobs: bool = True):
         """Read back N steps' (tokens, logprobs) in ONE device->host copy.
@@ -600,3 +754,14 @@ class ModelRunner:
             out_l.append(li[o : o + n] if li is not None else None)
             o += n
         return out_t, out_l
+
+
+def _batch_arrays(dst: ForwardArrays, src: ForwardArrays):
+    """(dst, src) pairs of the tensors of two batches of one shape: the
+    packed arrays, the work list and the sampling arrays, and a tree's
+    positions and window starts."""
+    names = ("input_ids", "q_req_idx", "q_pos", "out_slots", "page_table", "kv_lens",
+             "logits_idx", "mask_pos", "win_base")
+    pairs = [(getattr(dst, n), getattr(src, n)) for n in names]
+    pairs += list(zip(dst.attn_meta, src.attn_meta)) + list(zip(dst.sampling, src.sampling))
+    return [(d, s) for d, s in pairs if d is not None]

@@ -24,8 +24,9 @@ split flush, chained decode, cost accounting, adaptive ring depth,
 ``check_memory`` and speculative decoding (``speculative_algorithm``):
 NGRAM and EAGLE chain and tree rounds (NEXTN taken as EAGLE, with the
 runner's NextN draft on a DeepSeek target), each decode tick flushing the
-ring and then speculating for the whole running batch, EAGLE's extends
-returning the hidden state that seeds the draft. Not in this slice: HiCache
+ring and then speculating for the whole running batch (each round's
+results read back in one device->host copy), EAGLE's extends returning
+the hidden state that seeds the draft. Not in this slice: HiCache
 (ROADMAP A15), grammar masks,
 jump-forward, penalties, top-k logprobs and logit processors (A10) —
 requests needing them are refused at ``add_request`` — and DP-attention
@@ -704,12 +705,10 @@ class Scheduler:
                      next_hidden=None) -> List[Tuple[Req, int]]:
         """Append each request's accepted drafts and its correction/bonus
         token (stopping at a finish), then release the finished. One
-        device->host copy of the round's results."""
-        accept_len = accept_len.cpu().numpy()
-        next_tok = next_tok.cpu().numpy()
-        drafts = np.asarray(drafts.cpu().numpy() if hasattr(drafts, "cpu") else drafts)
-        if next_hidden is not None:
-            next_hidden = next_hidden.float().cpu().numpy()
+        device->host copy of the round's results (NGRAM's drafts are the
+        host's already)."""
+        accept_len, next_tok, drafts, next_hidden = self.runner.read_round(
+            accept_len, next_tok, drafts, next_hidden)
         out = []
         still = []
         for i, req in enumerate(reqs):

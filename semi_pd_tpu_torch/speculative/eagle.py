@@ -14,9 +14,12 @@ A round, as the JAX package's fused program computes it:
   4. with ``refresh``, the accepted rows of the draft KV rewritten from the
      target's hidden states (the reference's draft-extend after decode).
 
-The JAX round is one jitted program; here a round runs eagerly, launch by
-launch (one CUDA graph per round key is ROADMAP A11's rest). The rounds
-take any draft with ``step`` and ``pre_head`` (``DraftModel``): the llama
+The JAX round is one jitted program; here the runner replays a round from
+a CUDA graph per round key (runtime/cuda_graph_runner.py ``RoundGraphs``),
+so both rounds hold to what a capture needs: no host sync and no shape
+that depends on data (the tree's levels are static, its tables
+``device_tables`` made before any round, the compaction an index copy,
+each acceptance a device op). The rounds take any draft with ``step`` and ``pre_head`` (``DraftModel``): the llama
 EAGLE draft below, or DeepSeek's NextN (speculative/nextn.py). Which
 kernel each step takes on the card: the verify goes to the target pool's
 extend (with the tree's ``spec_anc`` for a tree, and unmasked for a
@@ -366,7 +369,7 @@ def eagle_tree_round(
         p = int(tree.parents[j])
         acc.append(acc[p] & (window[:, j] == g[:, p]))
     acc = torch.stack(acc, dim=1)  # [B, N]
-    depths = torch.as_tensor(tree.depths, dtype=torch.int64, device=dev)
+    depths, anc_at_depth = tree.device_tables(dev)
     score = torch.where(acc, depths[None, :], torch.full_like(acc, -1, dtype=torch.int64))
     best = torch.argmax(score, dim=1)  # the first deepest accepted
     ar = torch.arange(B, device=dev)
@@ -374,7 +377,6 @@ def eagle_tree_round(
     next_tok = g[ar, best]
 
     # the accepted path: the ancestor of `best` at each depth
-    anc_at_depth = torch.as_tensor(tree.anc_at_depth, dtype=torch.int64, device=dev)
     path_nodes = anc_at_depth[best]  # [B, D+1]; column 0 = root
     path_tokens = window.gather(1, path_nodes[:, 1:])
 

@@ -16,7 +16,11 @@ chain draft or refresh step (decode-shaped) takes the latent decode of the
 pool's width (``rpa_decode_mla``; ``rpa_decode_mla_288`` on MiniCPM3) and
 a tree draft step (decode-shaped, with the tree's ``spec_anc``) its
 extend (``rpa_extend_mla``, ``rpa_extend_mla_288``) with the tree's
-masks.
+masks. Its step holds to what a round graph's capture needs: no host sync
+(the MoE layer's bf16 ``torch._grouped_mm`` counts rows on the device,
+float32 on the card takes the dense grouped product; only the CPU's loop,
+``grouped_matmul_plain``, reads the group sizes on the host) and no shape
+that depends on data.
 
 Not ported: ``hf_weight_plan`` (NextN checkpoints wait for checkpoint
 loading, ROADMAP A13; the runner refuses a draft checkpoint).

@@ -1,5 +1,5 @@
 """Static speculation-tree template for EAGLE top-k tree drafting (copy of
-semi_pd_tpu/speculative/tree.py; numpy only).
+semi_pd_tpu/speculative/tree.py in numpy, with its tables' device copies).
 
 The tree SHAPE is a constant (node -> parent edges, per-node top-k rank),
 as in the JAX package, where it keeps the round one statically shaped
@@ -21,9 +21,10 @@ kernels take the table by value, ops/attention/ragged_paged_attention.py
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 MAX_TREE_NODES = 31  # masks stay positive int32
 
@@ -37,6 +38,20 @@ class TreeTemplate:
     anc_bits: Tuple[int, ...]  # [N] ancestor bitmask incl. self + root
     anc_at_depth: np.ndarray  # [N, max_depth+1] ancestor node at depth d
     level_nodes: Tuple[Tuple[int, ...], ...]  # node ids per level (level 0 = (0,))
+    # device copies of depths and anc_at_depth, by device (device_tables)
+    _tables: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    def device_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``depths`` [N] and ``anc_at_depth`` [N, depth + 1] as int64 on
+        ``device``, copied there once: a tree round reads them without a
+        host->device copy, which a CUDA graph cannot capture and which
+        waits for the card."""
+        key = str(torch.device(device))
+        if key not in self._tables:
+            self._tables[key] = tuple(torch.as_tensor(a, dtype=torch.int64, device=device)
+                                      for a in (self.depths, self.anc_at_depth))
+        return self._tables[key]
 
     @property
     def num_nodes(self) -> int:

@@ -2,13 +2,17 @@
 
 A ``@warmup("name")`` decorator registry plus ``execute_warmups(names,
 engine)``, run against the in-process Engine. On the card a warmup's job
-is to capture the decode graphs before traffic arrives: the first decode
-step at a new (B, maxP) key runs a warm-up step and a capture
-(runtime/cuda_graph_runner.py), as the first JAX step at a new bucket pays
-its XLA compile. ``all_buckets`` serves every prefill token bucket and
-every decode batch bucket up to ``max_running_requests``, so each decode
-bucket is captured at the smallest maxP bucket; other maxP buckets are
-captured at first use. On the CPU the same requests run eagerly.
+is to capture the graphs before traffic arrives: the first decode step at
+a new (B, maxP) key, and the first speculating round at a new round key,
+runs a warm-up and a capture (runtime/cuda_graph_runner.py), as the first
+JAX step or round at a new bucket pays its XLA compile. ``all_buckets``
+serves every prefill token bucket and every decode batch bucket up to
+``max_running_requests``, so each decode bucket is captured at the
+smallest maxP bucket; on a speculating runner the decode batches
+speculate (two greedy tokens: the prefill's and one round), so each
+bucket's greedy round is captured instead (the tree round where the
+runner has a tree). Other maxP buckets, and sampling rounds, are captured
+at first use. On the CPU the same requests run eagerly.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ def execute_warmups(names: List[str], engine) -> None:
 @warmup("all_buckets")
 def all_buckets(engine) -> None:
     """Serve every prefill token bucket and every decode batch bucket (the
-    sweep of decode-graph captures over batch sizes)."""
+    sweep of decode-graph captures over batch sizes; a speculating
+    runner's round graphs)."""
     args = engine.server_args
     for t in args.prefill_token_buckets:
         prompt = [[1] * max(1, min(t, engine.runner.model_config.context_length - 8))]

@@ -24,7 +24,12 @@ their plain versions with softcap and window, every dead slot NaN, the
 stream's requests cut across warps and blocks, the extend at 1, 2 and 4
 query heads per KV head, their tensor-core instructions, the extend's
 refusal of a tree) and a small Gemma-2 Engine, packed and streamed, against
-the CPU. Every kernel is held with each (q, KV) pair it is
+the CPU; and the speculating rounds replayed from round graphs against the
+eager round, bitwise, pools included (EAGLE chain and tree, NextN chain and
+tree, NGRAM's verify; a small target and the pool geometry of each
+full-width speculating path), with no host sync in a replay, the
+speculating Engine on round graphs against its eager serve, and a round
+whose capture fails raising. Every kernel is held with each (q, KV) pair it is
 built for, fp8 e4m3 and e5m2 under bf16 q included. This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
@@ -1950,3 +1955,243 @@ def test_spec_engine_gemma2_and_minicpm3_on_cuda_matches_cpu(cuda_device, algo):
     if tree:
         assert gpu.runner.spec_counts["draft_tree"] > 0
     assert gpu.flush_cache() and cpu.flush_cache()
+
+
+# ------------------------------------------------ rounds replayed from graphs
+# (model config, ServerArgs fields, the target's extend, the draft pool's
+# decode and extend): a small target (the first) and the pool geometry of
+# each full-width speculating path, one layer deep, in bf16
+ROUND_PATHS = {
+    "llama_small": (dict(_llama_cfg(D, num_kv_heads=8), dtype="bfloat16"), {},
+                    "rpa_extend", "rpa_decode_merged", "rpa_extend_merged"),
+    # the 1B-class model's pools: Hq 32, Hkv 8, head_dim 64
+    "llama_1b_pools": (dict(_llama_cfg(D, num_kv_heads=8), num_attention_heads=32,
+                            hidden_size=2048, num_hidden_layers=1, dtype="bfloat16"), {},
+                       "rpa_extend", "rpa_decode_merged", "rpa_extend_merged"),
+    # Meta-Llama-3-8B's: Hq 32, Hkv 8, head_dim 128, fp8_e4m3 KV
+    "llama3_8b_pools": (dict(_llama_cfg(D_ALIGNED, num_kv_heads=8), num_attention_heads=32,
+                             hidden_size=4096, num_hidden_layers=1, dtype="bfloat16"),
+                        {"kv_cache_dtype": "fp8_e4m3"},
+                        "rpa_extend_aligned", "rpa_decode_aligned", "rpa_extend_aligned"),
+    # DeepSeek-V2-Lite's latent row (576, Hq 16) under NextN, MoE
+    "deepseek_latent": (_deepseek_cfg("bfloat16"), {},
+                        "rpa_extend_mla", "rpa_decode_mla", "rpa_extend_mla"),
+    # MiniCPM3-4B's (288, Hq 40) under NextN
+    "minicpm3_latent288": (_minicpm3_cfg("bfloat16"), {},
+                           "rpa_extend_mla_288", "rpa_decode_mla_288", "rpa_extend_mla_288"),
+    # Gemma-2-9B's: Hq 16, Hkv 8, head_dim 256, softcaps, a window
+    "gemma2_256": (dict(_gemma2_cfg(), num_attention_heads=16, num_key_value_heads=8,
+                        num_hidden_layers=2, dtype="bfloat16"), {},
+                   "rpa_extend_aligned_256", "rpa_decode_aligned_256",
+                   "rpa_extend_aligned_256"),
+}
+ROUND_CASES = ([("llama_small", k) for k in ("chain", "tree", "ngram")]
+               + [(p, k) for p in sorted(ROUND_PATHS) if p != "llama_small"
+                  for k in ("chain", "tree")])
+
+
+def _round_engine(path):
+    """A speculating Engine on the card (EAGLE, or NextN on a DeepSeek
+    target; the (4, 2, 1, 1) tree, 4 draft tokens) on predictive weights:
+    the target's final norm the identity and its embedding x 4, the
+    draft's fc (NextN: eh_proj, its norms ones) passing the token
+    embedding, so that drafts are accepted."""
+    cfg, extra = ROUND_PATHS[path][:2]
+    eng = Engine(ServerArgs(random_weights=True, page_size=PS, max_total_tokens=8192,
+                            chunked_prefill_size=64, speculative_algorithm="EAGLE",
+                            speculative_num_draft_tokens=4, speculative_eagle_topk=4, **extra),
+                 ModelConfig(**cfg))
+    runner = eng.runner
+    assert runner.round_graphs is not None
+    H = cfg["hidden_size"]
+    gemma = cfg["architecture"] == "Gemma2ForCausalLM"
+    with torch.no_grad():
+        runner.model.leaf("final_norm").fill_(0.0 if gemma else 1.0)
+        runner.model.leaf("embed.w").mul_(4.0)
+        nextn = cfg["architecture"] != "LlamaForCausalLM" and not gemma
+        fc = runner.draft_model.leaf("eh_proj.w" if nextn else "fc.w")
+        fc[H:] *= 0.01
+        fc[:H] = torch.eye(H, dtype=fc.dtype, device=fc.device)
+        if nextn:
+            for k in ("enorm", "hnorm", "head_norm"):
+                runner.draft_model.leaf(k).fill_(1.0)
+    runner.set_spec_thresholds()
+    return eng
+
+
+def _round_call(eng, kind, lens, seed):
+    """Pools refilled, requests of ``lens`` committed positions on pages
+    from the allocator, and a function running the round of ``kind`` over
+    them through the runner's host form (NGRAM: drafts of 0-4 tokens, the
+    last token repeated for every other request), the number of requests
+    (the rows past it pad the batch bucket), and a function running the
+    eager round's body over the same batch already on the card."""
+    from semi_pd_tpu_torch.runtime import batch as port_batch
+    from semi_pd_tpu_torch.runtime.req import Req
+
+    runner, s = eng.runner, eng.scheduler
+    dev = runner.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    for buf in (runner.kv_cache.buffer, runner.draft_kv.buffer):
+        buf.copy_((torch.randn(buf.shape, generator=g, device=dev) * 0.1).to(buf.dtype))
+    rng = np.random.default_rng(seed)
+    vocab = runner.model_config.vocab_size
+    reqs = []
+    for i, n in enumerate(lens):
+        r = Req(rid=f"r{seed}-{i}", input_ids=rng.integers(0, vocab, size=int(n)).tolist(),
+                sampling_params=SamplingParams(temperature=0.0))
+        r.req_slot = runner.req_pool.alloc()
+        pages = runner.page_allocator.alloc(-(-(int(n) + 32) // PS))
+        r.pages = pages.tolist()
+        runner.req_pool.write(r.req_slot, 0, pages)
+        r.prefilled_len = r.prompt_len
+        r.output_ids.append(int(rng.integers(0, vocab)))
+        reqs.append(r)
+    table, gamma = runner.req_pool.page_table, s.spec_gamma
+    if kind == "tree":
+        hb = port_batch.build_tree_verify_batch(reqs, runner.tree_template, table, PS,
+                                                s.b_buckets, s.p_buckets)
+    else:
+        drafts = [[0] * gamma] * len(reqs)
+        if kind == "ngram":
+            drafts = [[r.output_ids[-1]] * int(rng.integers(0, gamma + 1)) if i % 2 == 0
+                      else rng.integers(0, vocab, size=int(rng.integers(0, gamma + 1))).tolist()
+                      for i, r in enumerate(reqs)]
+        hb, dp, dl = port_batch.build_spec_verify_batch(reqs, drafts, gamma, table, PS,
+                                                        s.b_buckets, s.p_buckets)
+    prev = rng.normal(size=(hb.B, runner.model_config.hidden_size)).astype(np.float32)
+    call = {"chain": lambda: runner.eagle_step_host(hb, prev, gamma),
+            "tree": lambda: runner.eagle_tree_step_host(hb, prev),
+            "ngram": lambda: runner.spec_step_host(hb, dp, dl, gamma)}[kind]
+    if kind == "ngram":
+        extra = (None, torch.as_tensor(dp, device=dev), torch.as_tensor(dl, device=dev))
+    else:
+        extra = (torch.as_tensor(prev, device=dev), None, None)
+    spec = runner.tree_template.branching if kind == "tree" else gamma
+    fb = hb.to_device(dev)
+    # the eager round over tensors already on the card (the body a graph
+    # captures: speculative/eagle.py's rounds, or NGRAM's verify)
+    body = lambda: runner._round_body(runner._round_shape(kind, fb, spec), fb, *extra)
+    return call, len(reqs), body
+
+
+def _live(pool):
+    """The bytes of the pool but its dump page (slots 0 to PS - 1), where
+    the padded rows' scatter to one slot has no defined winner on the
+    card."""
+    live = pool[:, PS:] if pool.dim() == 4 else pool[:, :, PS:]
+    return live.contiguous().view(torch.uint8)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("path,kind", ROUND_CASES)
+def test_round_graph_replays_the_eager_round_bitwise(cuda_device, path, kind):
+    """A round replayed from its graph gives the eager round's accept
+    lengths, next tokens, tokens and hidden states bitwise and leaves both
+    pools as it does, on two batches of one key (other lengths, pages,
+    pool contents; the requests' rows: a padding row's draft steps read
+    the dump page, which every padding row writes at one slot with no
+    defined winner, and its results are dropped); the second does not
+    capture; EAGLE's and NextN's drafts are accepted; a replay counts the
+    launches its capture recorded, the path's builds only: the target's
+    extend L times a verify, the draft pool's decode once a chain draft or
+    refresh step, its extend once a tree level; neither a replay nor the
+    eager round over tensors on the card (speculative/eagle.py's rounds,
+    NGRAM's verify) syncs with the host."""
+    eng = _round_engine(path)
+    runner = eng.runner
+    ext, dec, dext = ROUND_PATHS[path][2:]
+    L, tree = runner.model_config.num_hidden_layers, runner.tree_template
+    want_tally = {"chain": {ext: L, dec: 2 * 4}, "ngram": {ext: L},
+                  "tree": {ext: L, dec: tree.depth}}[kind]
+    if kind == "tree":
+        want_tally[dext] = want_tally.get(dext, 0) + len(tree.level_nodes)
+    accepted = 0
+    for seed, lens in ((1, [33, 260, 9, 77, 140]), (2, [300, 17, 64, 2, 199, 80])):
+        call, n, body = _round_call(eng, kind, lens, seed)
+        pools = [runner.kv_cache.buffer, runner.draft_kv.buffer]
+        start = [p.clone() for p in pools]
+        graphs, runner.round_graphs = runner.round_graphs, None
+        try:
+            want = call()
+        finally:
+            runner.round_graphs = graphs
+        want_pools = [_live(p).clone() for p in pools]
+        for p, s0 in zip(pools, start):
+            p.copy_(s0)
+        for k in KERNELS.values():
+            k.launches = 0
+        got = call()
+        torch.cuda.synchronize()
+        assert {n: k.launches for n, k in KERNELS.items() if k.launches} == want_tally
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(_bits(a[:n]), _bits(b[:n]))
+        for p, w in zip(pools, want_pools):
+            assert torch.equal(_live(p), w)
+        if kind != "ngram":
+            assert torch.isfinite(got[3][:n].float()).all()
+        accepted += int(got[0][:n].sum())
+    (key, g), = runner.round_graphs.graphs.items()
+    assert key.kind == kind and g.tally == want_tally
+    # the rounds' accepted paths ran (NGRAM's random pools reject its drafts
+    # at bf16; acceptance is a value there, not a path)
+    assert accepted > 0 or kind == "ngram"
+    assert runner.round_graphs.stats["captures"] == 1 and runner.round_graphs.pool_bytes() > 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+        body()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_spec_engine_serves_the_same_tokens_on_round_graphs_and_eagerly(cuda_device):
+    """The speculating Engine on round graphs (the default) and with
+    decode_graphs=False give the same greedy tokens and accepted drafts,
+    every round replayed, on the 1B-class pools with the tree."""
+    cfg, _ = ROUND_PATHS["llama_1b_pools"][:2]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (20, 100, 37, 250)]
+    sp = SamplingParams(max_new_tokens=24, temperature=0.0, ignore_eos=True)
+    outs = []
+    for graphs in (True, False):
+        eng = _round_engine("llama_1b_pools")
+        if not graphs:
+            eng.runner.round_graphs = eng.runner.graphs = None
+        outs.append(([o["output_ids"] for o in eng.generate(input_ids=prompts,
+                                                             sampling_params=sp)],
+                     eng.scheduler.n_spec_accepted))
+        if graphs:
+            rg = eng.runner.round_graphs
+            assert rg.stats["replays"] == eng.runner.spec_counts["verify"] > 0
+    assert outs[0] == outs[1] and outs[0][1] > 0
+
+
+def test_a_failed_round_capture_raises(cuda_device, monkeypatch):
+    """A round whose body syncs with the host cannot be captured: the round
+    raises and keeps no graph, and nothing runs it eagerly in its place.
+    (Last in this file: a failed capture leaves nothing behind, but no
+    later test depends on that.)"""
+    eng = _round_engine("llama_small")
+    runner = eng.runner
+    body = runner._round_body
+    calls = []
+
+    def syncing(shape, fb, *args):
+        calls.append(shape)
+        int(fb.kv_lens.sum())  # a device->host read
+        return body(shape, fb, *args)
+
+    monkeypatch.setattr(runner, "_round_body", syncing)
+    call = _round_call(eng, "chain", [33, 260, 9], 3)[0]
+    with pytest.raises(RuntimeError):
+        call()
+    torch.cuda.synchronize()
+    assert not runner.round_graphs.graphs and runner.round_graphs.stats["replays"] == 0
+    assert len(calls) == 2  # the warm-up and the capture; no eager round after

@@ -72,6 +72,7 @@ from semi_pd_tpu_torch.models.gemma2 import Gemma2ForCausalLM
 from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa
 from semi_pd_tpu_torch.ops.attention.rpa_common import pick_kernel
 from semi_pd_tpu_torch.runtime import batch as port_batch
+from semi_pd_tpu_torch.runtime.cuda_graph_runner import RoundGraphs
 from semi_pd_tpu_torch.runtime.engine import Engine
 from semi_pd_tpu_torch.runtime.forward_batch import build_attn_meta
 from semi_pd_tpu_torch.runtime.req import Req
@@ -79,6 +80,7 @@ from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 from semi_pd_tpu_torch.speculative import eagle as port_eagle
 from semi_pd_tpu_torch.speculative.eagle import EagleDraftModel
 from semi_pd_tpu_torch.speculative.tree import default_tree_template
+from test_torch_round_graphs import EagerRounds
 
 PS = 16
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
@@ -502,10 +504,18 @@ def _prompts():
 SP = dict(max_new_tokens=16, temperature=0.0, ignore_eos=True)
 
 
-@pytest.mark.parametrize("semi_pd", [False, True], ids=["colocated", "semi_pd"])
+# the rounds run eagerly, or replayed from round graphs ("-graphs")
+@pytest.mark.parametrize("semi_pd,rounds", [(False, "eager"), (True, "eager"),
+                                            (False, "graphs"), (True, "graphs")],
+                         ids=["colocated", "semi_pd", "colocated-graphs", "semi_pd-graphs"])
 @pytest.mark.parametrize("algo", sorted(ALGOS))
-def test_engine_tokens_and_acceptance_match_jax(algo, semi_pd, pairs):
+def test_engine_tokens_and_acceptance_match_jax(algo, semi_pd, rounds, pairs):
+    """The port's Engine gives the JAX Engine's greedy tokens and accepted
+    drafts, its rounds run eagerly or replayed from round graphs (the
+    ``EagerRounds`` double of tests/test_torch_round_graphs.py)."""
     jeng, teng = _serve(pairs(algo), semi_pd)
+    teng.runner.round_graphs = (RoundGraphs(teng.runner, EagerRounds())
+                                if rounds == "graphs" else None)
     counts0 = dict(teng.runner.step_counts), dict(teng.runner.spec_counts)
     jout = jeng.generate(input_ids=_prompts(), sampling_params=JaxSamplingParams(**SP))
     tout = teng.generate(input_ids=_prompts(), sampling_params=SamplingParams(**SP))
@@ -525,6 +535,10 @@ def test_engine_tokens_and_acceptance_match_jax(algo, semi_pd, pairs):
         assert spec["draft_tree"] > counts0[1]["draft_tree"]
     else:
         assert spec["draft_decode"] > counts0[1]["draft_decode"]
+    if rounds == "graphs":  # every round replayed, a capture per key
+        rg = teng.runner.round_graphs
+        assert rg.stats["replays"] == spec["verify"] - counts0[1]["verify"]
+        assert rg.stats["captures"] == len(rg.graphs) >= 1
     assert teng.flush_cache() and jeng.flush_cache()  # check_memory() inside
     # the same engine without speculation gives the same greedy tokens
     s.spec_gamma = 0

@@ -60,11 +60,13 @@ from semi_pd_tpu_torch.config.server_args import ServerArgs
 from semi_pd_tpu_torch.ops.sampling import SamplingArrays
 from semi_pd_tpu_torch.runtime import batch as port_batch
 from semi_pd_tpu_torch.runtime import speculative as port_spec
+from semi_pd_tpu_torch.runtime.cuda_graph_runner import RoundGraphs
 from semi_pd_tpu_torch.runtime.engine import Engine
 from semi_pd_tpu_torch.runtime.req import Req
 from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 from semi_pd_tpu_torch.speculative import eagle as port_eagle
 from semi_pd_tpu_torch.speculative.tree import default_tree_template
+from test_torch_round_graphs import EagerRounds
 
 CFG = dict(architecture="LlamaForCausalLM", vocab_size=64, hidden_size=256,
            intermediate_size=512, num_hidden_layers=2, num_attention_heads=8,
@@ -360,10 +362,18 @@ def _prompts():
     return short + [rng.integers(0, 64, size=66).tolist()]  # three chunks of 32
 
 
-@pytest.mark.parametrize("semi_pd", [False, True], ids=["colocated", "semi_pd"])
+# the rounds run eagerly, or replayed from round graphs ("-graphs")
+@pytest.mark.parametrize("semi_pd,rounds", [(False, "eager"), (True, "eager"),
+                                            (False, "graphs"), (True, "graphs")],
+                         ids=["colocated", "semi_pd", "colocated-graphs", "semi_pd-graphs"])
 @pytest.mark.parametrize("algo", MAIN_ALGOS)
-def test_engine_tokens_and_acceptance_match_jax(algo, semi_pd, pairs):
+def test_engine_tokens_and_acceptance_match_jax(algo, semi_pd, rounds, pairs):
+    """The port's Engine gives the JAX Engine's greedy tokens and accepted
+    drafts, its rounds run eagerly or replayed from round graphs (the
+    ``EagerRounds`` double of tests/test_torch_round_graphs.py)."""
     jeng, teng = _serve(pairs(algo), semi_pd)
+    teng.runner.round_graphs = (RoundGraphs(teng.runner, EagerRounds())
+                                if rounds == "graphs" else None)
     counts0 = dict(teng.runner.step_counts), dict(teng.runner.spec_counts)
     sp = dict(max_new_tokens=16, temperature=0.0, ignore_eos=True)
     jout = jeng.generate(input_ids=_prompts(), sampling_params=JaxSamplingParams(**sp))
@@ -378,6 +388,10 @@ def test_engine_tokens_and_acceptance_match_jax(algo, semi_pd, pairs):
     if algo == "tree":
         assert teng.runner.tree_template.num_nodes == 29
         assert teng.runner.spec_counts["draft_tree"] > counts0[1]["draft_tree"]
+    if rounds == "graphs":  # every round replayed, a capture per key
+        rg = teng.runner.round_graphs
+        assert rg.stats["replays"] == teng.runner.spec_counts["verify"] - counts0[1]["verify"]
+        assert rg.stats["captures"] == len(rg.graphs) >= 1
     assert teng.flush_cache() and jeng.flush_cache()  # check_memory() inside
     # the same engine without speculation gives the same greedy tokens
     s.spec_gamma = 0

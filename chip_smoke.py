@@ -210,8 +210,36 @@ each (any failure raises and exits non-zero):
              too), as 4e: 3s, 3r, then EAGLE tree and chain serving the 32
              prompts in both modes: rpa_extend_aligned (the verify, L
              times, and, in its TREE instantiation, the tree's verify and
-             draft steps) and rpa_decode_aligned, nothing else; 4af, its
-             float32 gate at 4 layers, as 4mf.
+             draft steps) and rpa_decode_aligned, nothing else; the tree
+             engine (built with the 8B's tokenizer object) then serves 8
+             requests, one under a regex, which take plain decode steps
+             while it runs (``spec_fallback`` line: fallback decode steps,
+             rounds, accepted drafts, the regex text); 4af, its float32
+             gate at 4 layers, as 4mf.
+4c. constrained — on the 8B fp8 engine after its Path S serve (the packed
+             decode's routing again), built with ``SmokeTokenizer``, a
+             tokenizer object over the 128256 ids made here (no
+             download): each decode step variant (plain, a grammar's bool
+             mask, a float32 logit bias, the penalty histogram, top-k 5)
+             at B 32 and 64 eager and replayed from its own key's graph,
+             bitwise, one capture a key, a replay without host sync, the
+             walls (``constrained_steps`` lines); then 8 requests
+             (prompts 256-1024, 48 new tokens) in one batch, MIX_4C: two
+             penalized (repetition 1.2, frequency 0.5), two under a regex,
+             one under a small JSON schema, one ``logit_bias``, one top-k
+             5, one plain; served colocated and semi-PD on graphs,
+             colocated once more with eager decode steps (the same tokens),
+             and the same prompts served plain in both modes
+             (``constrained_serve`` lines: ITL, tok/s, decode steps, jump
+             tokens); every constrained output must match its grammar;
+             ``score`` of the unconstrained requests' served tokens within
+             1e-2 of the serve's log-probs, and ``encode`` of 4 prompts
+             within 1e-3 of their last tokens' final-normed hidden states
+             (``step_with_hidden``), normalized here; the grammar compiler's
+             seconds at vocab 128256 (the token-string table, each DFA, the
+             token-level state tables); only rpa_decode_aligned and
+             rpa_extend_aligned launch, L times a step of their kind
+             (``constrained_phase`` line).
 4f. f32 gate — the 1B-class model in float32 (8 requests x 32 tokens)
              served with the EAGLE tree and without speculation: the tokens
              must be equal.
@@ -273,6 +301,7 @@ nvidia-smi name/power-limit line, and the result line {"ok": true,
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -1546,8 +1575,6 @@ def spec_server_args(semi_pd: bool, algo: str, **kw):
     draft tokens, EAGLE and NEXTN chains with 4, EAGLE and NEXTN trees with
     topk 4 and 4 draft tokens (default_tree_template(4, 4): branching (4, 2,
     1, 1), 29 nodes)."""
-    import dataclasses
-
     return dataclasses.replace(bench_server_args(semi_pd), **SPEC_ALGOS[algo], **kw)
 
 
@@ -1993,6 +2020,437 @@ def spec_serve(eng, algo, semi_pd, prompts, max_new=64, eager=False):
     return res, [o["output_ids"] for o in outs]
 
 
+# ------------------------------------------- constrained sampling (phase 4c)
+LLAMA3_EOS = 128001  # Meta-Llama-3's <|end_of_text|>
+REGEX_4C = r"(ab|cd)=[0-9]{2,4};(x|yz)"
+SCHEMA_4C = {"type": "object",
+             "properties": {"ok": {"type": "boolean"},
+                            "tag": {"type": "string", "enum": ["xy", "zz"]}},
+             "required": ["ok", "tag"]}
+# the JSON grammar's whitespace (constrained_json_whitespace_pattern): at
+# most one space, so that the schema's longest text fits in 48 tokens
+JSON_WS_4C = "[ ]?"
+# absolute limits of the phase's card checks: ``score`` of the served
+# tokens against the serve's log-probs (the same kernels and fp8 KV on
+# both sides; 4.9e-4 measured on an H100), and ``encode``'s rows against
+# the same prompts' final-normed hidden states, normalized here
+SCORE_TOL_4C = 1e-2
+ENCODE_TOL_4C = 1e-3
+# the 8 requests of a phase-4c serve: sampling parameters and top-k
+MIX_4C = [
+    (dict(repetition_penalty=1.2, frequency_penalty=0.5, ignore_eos=True), 0),
+    (dict(repetition_penalty=1.2, frequency_penalty=0.5, ignore_eos=True), 0),
+    (dict(regex=REGEX_4C), 0),
+    (dict(regex=REGEX_4C), 0),
+    (dict(json_schema=json.dumps(SCHEMA_4C)), 0),
+    (dict(custom_logit_processor="logit_bias", ignore_eos=True,
+          custom_params={"logit_bias": {"33": 4.0, "66": 2.5, "1000": -100.0}}), 0),
+    (dict(ignore_eos=True), 5),
+    (dict(ignore_eos=True), 0),
+]
+
+
+class SmokeTokenizer:
+    """A tokenizer object over ``n`` ids, built here (no download): id i <
+    95 is the printable character chr(32 + i); the ids above are 2-4
+    character strings over lower-case letters, digits and JSON punctuation
+    drawn from a seed, so most tokens are several characters long, as in a
+    BPE vocabulary; Llama-3's EOS id and its begin-of-text id decode to
+    nothing."""
+
+    ALPHABET = "abcdefghijklmnopqrstuvwxyz0123456789{}\":,[] _=;"
+
+    def __init__(self, n: int, eos: int = LLAMA3_EOS, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(2, 5, size=n)
+        picks = rng.integers(0, len(self.ALPHABET), size=(n, 4))
+        self.strs = [chr(32 + i) if i < 95 else
+                     "".join(self.ALPHABET[j] for j in picks[i, : lens[i]]) for i in range(n)]
+        self.vocab_size = n
+        self.eos_token_id = eos
+        self.all_special_ids = [eos - 1, eos]
+        for s in self.all_special_ids:
+            self.strs[s] = ""
+
+    def __len__(self):
+        return self.vocab_size
+
+    def decode(self, ids, **kw):
+        return "".join(self.strs[i] for i in ids)
+
+
+def grammar_ok(sp: dict, text: str) -> bool:
+    """The text of a finished constrained request matches its grammar."""
+    if "regex" in sp:
+        return re.fullmatch(sp["regex"], text) is not None
+    doc = json.loads(text)
+    return (set(doc) == {"ok", "tag"} and isinstance(doc["ok"], bool)
+            and doc["tag"] in ("xy", "zz"))
+
+
+def variant_batch(eng, B: int, seed: int):
+    """A decode batch of B requests of 520-1000 prompt tokens and 8 output
+    tokens each (repetition 1.2, frequency 0.5: a full penalty histogram),
+    pages from the allocator, and the requests."""
+    from semi_pd_tpu_torch.runtime.batch import build_decode_batch
+    from semi_pd_tpu_torch.runtime.req import Req
+    from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner, sched = eng.runner, eng.scheduler
+    vocab = runner.model_config.vocab_size
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, n in enumerate(rng.integers(520, 1001, size=B)):
+        r = Req(rid=f"v{seed}-{i}", input_ids=rng.integers(0, vocab, size=int(n)).tolist(),
+                sampling_params=SamplingParams(temperature=0.0, repetition_penalty=1.2,
+                                               frequency_penalty=0.5))
+        r.req_slot = runner.req_pool.alloc()
+        pages = runner.page_allocator.alloc(-(-(int(n) + 8) // PAGE))
+        r.pages = pages.tolist()
+        runner.req_pool.write(r.req_slot, 0, pages)
+        r.prefilled_len = r.prompt_len - 7
+        r.output_ids = rng.integers(0, vocab, size=8).tolist()
+        reqs.append(r)
+    hb = build_decode_batch(reqs, runner.req_pool.page_table, PAGE, sched.b_buckets,
+                            sched.p_buckets)
+    return hb, reqs
+
+
+VARIANTS_4C = ("plain", "bool", "bias", "penalties", "top_k5")
+
+
+def variant_steps(eng, label):
+    """Each decode step variant at B 32 and 64 on the 8B's path: the step
+    with the plain key, a grammar's bool mask, a float32 logit bias, the
+    penalty histogram, top-k 5 log-probs; the replay bitwise against the
+    eager step (tokens, log-probs, top-k), one capture a key, no host sync
+    in a replay; the replayed and the eager step's wall (10 steps a turn,
+    turns eager, graph, graph)."""
+    import torch
+
+    runner = eng.runner
+    graphs = runner.graphs
+    vocab = runner.model_config.vocab_size
+    rows = []
+    for B in (32, 64):
+        hb, reqs = variant_batch(eng, B, seed=B)
+        rng = np.random.default_rng(B)
+        bool_mask = rng.random((hb.B, vocab)) < 0.2
+        bias = rng.uniform(-4, 4, (hb.B, vocab)).astype(np.float32)
+        bias[rng.random((hb.B, vocab)) < 0.3] = -np.inf
+        pen = eng.scheduler._penalty_arrays(reqs, hb.B)
+        steps = {"plain": lambda: runner.step_host(hb),
+                 "bool": lambda: runner.step_host(hb, bool_mask),
+                 "bias": lambda: runner.step_host(hb, bias),
+                 "penalties": lambda: runner.step_host(hb, None, pen),
+                 "top_k5": lambda: runner.step_topk_host(hb, 5)}
+        for name in VARIANTS_4C:
+            step = steps[name]
+            cap0 = graphs.stats["captures"]
+            runner.graphs = None
+            try:
+                want = step()
+            finally:
+                runner.graphs = graphs
+            got = step()
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            wall = {"eager": [], "graph": []}
+            for mode in ("eager", "graph", "graph"):
+                runner.graphs = None if mode == "eager" else graphs
+                try:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    for _ in range(10):
+                        step()
+                    torch.cuda.synchronize()
+                finally:
+                    runner.graphs = graphs
+                wall[mode].append(1e3 * (time.perf_counter() - t1) / 10)
+            row = dict(model=label, B=B, variant=name, bitwise=bitwise,
+                       captures=graphs.stats["captures"] - cap0,
+                       eager_step_ms=wall["eager"], graph_step_ms=wall["graph"])
+            print("constrained_steps " + json.dumps(row), flush=True)
+            if not bitwise or row["captures"] != 1:
+                raise AssertionError(f"{label} {name} B {B}: replay vs eager {row}")
+            rows.append(row)
+        for r in reqs:
+            runner.page_allocator.free(np.asarray(r.pages, np.int32))
+            runner.req_pool.free(r.req_slot)
+    return rows
+
+
+def constrained_serve(eng, semi_pd, prompts, mix, eager=False, max_new=48):
+    """One serve of ``prompts`` with the per-request sampling of ``mix``
+    ((sampling dict, top-k) each; greedy, ``max_new`` tokens) in one batch,
+    as concurrent clients send them; ``eager``: the decode steps run
+    eagerly. The constrained requests must end in their grammar, the others
+    run to ``max_new`` with finite log-probs (top-k lists of their k)."""
+    import torch
+
+    from semi_pd_tpu_torch.runtime.scheduler import Scheduler
+    from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner = eng.runner
+    args = dataclasses.replace(bench_server_args(semi_pd, eng.server_args.kv_cache_dtype),
+                               constrained_json_whitespace_pattern=JSON_WS_4C,
+                               disable_outlines_disk_cache=True)
+    if not eng.flush_cache():
+        raise AssertionError("engine not idle before a constrained serve")
+    eng.server_args = args
+    eng.scheduler = Scheduler(args, runner)
+    from semi_pd_tpu_torch.layers.attention import pool_attention
+
+    runner.attention = pool_attention(runner.kv_cache.buffer)
+    graphs = runner.graphs
+    stats0 = dict(graphs.stats)
+    d0 = runner.step_counts["decode"]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [eng.make_request(p, SamplingParams(max_new_tokens=max_new, temperature=0.0, **sp),
+                             return_logprob=True, top_logprobs_num=k)
+            for p, (sp, k) in zip(prompts, mix)]
+    make_s = time.monotonic() - t0
+    if eager:
+        runner.graphs = None
+    try:
+        for r in reqs:
+            eng.scheduler.add_request(r)
+        eng._run_until_done(reqs)
+        torch.cuda.synchronize()
+    finally:
+        runner.graphs = graphs
+    wall = time.monotonic() - t0
+    outs = [eng._to_output(r) for r in reqs]
+    decode_steps = runner.step_counts["decode"] - d0
+    replays = graphs.stats["replays"] - stats0["replays"]
+    if replays != (0 if eager else decode_steps):
+        raise AssertionError(f"{replays} decode steps replayed of {decode_steps}")
+    tok = eng.tokenizer
+    for (sp, k), o in zip(mix, outs):
+        m = o["meta_info"]
+        if "regex" in sp or "json_schema" in sp:
+            text = tok.decode(o["output_ids"])
+            if m["finish_reason"] != "stop_token" or not grammar_ok(sp, text):
+                raise AssertionError(f"constrained output {text!r} ({m['finish_reason']}) does "
+                                     f"not match its grammar {sp}")
+        elif m["finish_reason"] != "length" or len(o["output_ids"]) != max_new:
+            raise AssertionError(f"request {o['rid']} did not complete: {m['finish_reason']}")
+        if not all(math.isfinite(x) for x in m["output_logprobs"]):
+            raise AssertionError(f"request {o['rid']}: NaN log-probs")
+        if k and not (len(m["output_top_logprobs"]) == max_new
+                      and all(len(v) == k for v, _ in m["output_top_logprobs"])):
+            raise AssertionError(f"request {o['rid']}: top-{k} log-probs missing")
+    if not eng.flush_cache():  # runs check_memory()
+        raise AssertionError("engine not idle after a constrained serve")
+    itl = [(r.finish_time - r.first_token_time) / max(len(r.full_output_ids()) - 1, 1)
+           for r in reqs]
+    ttft = [r.first_token_time - r.queue_time for r in reqs]
+    n_tok = sum(len(o["output_ids"]) for o in outs)
+    res = dict(mode="semi_pd" if semi_pd else "colocated", decode_graphs=not eager,
+               requests=len(outs), output_tokens=n_tok, wall_s=wall, tok_s=n_tok / wall,
+               make_request_s=make_s, ttft_p50_s=statistics.median(ttft),
+               itl_p50_ms=1e3 * statistics.median(itl), decode_steps=decode_steps,
+               jump_tokens=eng.scheduler.n_jump_tokens,
+               graph_keys=sorted({len(k) for k in graphs.graphs}))
+    return res, outs
+
+
+def constrained_phase(eng, label, main_launches, smi):
+    """Phase 4c on the 8B's fp8 engine: the decode step variants replayed
+    against eager ones (``variant_steps``), then the mixed batch of 8
+    requests (MIX_4C: prompts 256-1024, 48 new tokens) served colocated and
+    semi-PD on graphs, colocated once more with eager decode steps (the
+    same tokens), and a plain serve of the same prompts in each mode (the
+    ITL and tok/s they are compared with); ``score`` of the served tokens
+    against the serves' log-probs, ``encode`` of 4 prompts against their
+    final-normed hidden states from an extend, normalized; the grammar
+    compile seconds at the 128256-token vocabulary; only the path's two
+    kernels launch."""
+    import torch
+
+    from semi_pd_tpu_torch.constrained import grammar
+    from semi_pd_tpu_torch.kernels import KERNELS
+
+    from semi_pd_tpu_torch.layers.attention import pool_attention
+
+    t0 = time.monotonic()
+    runner = eng.runner
+    vocab = runner.model_config.vocab_size
+    if not eng.flush_cache():
+        raise AssertionError("engine not idle before phase 4c")
+    # the packed decode's routing (the streaming serve before set its own;
+    # a new routing drops the graphs: every key of the phase is captured here)
+    runner.attention = pool_attention(runner.kv_cache.buffer)
+    runner.step_counts = {"decode": 0, "extend": 0}
+    for k in KERNELS.values():
+        k.launches = 0
+    # host seconds of the token-level state tables (each walks the 128256
+    # token strings once per DFA state reached)
+    tables = {"s": 0.0, "states": 0}
+    state_table = grammar.TokenDFA.state_table
+
+    def timed(self, state):
+        new = state not in self._cache
+        t1 = time.perf_counter()
+        out = state_table(self, state)
+        if new:
+            tables["s"] += time.perf_counter() - t1
+            tables["states"] += 1
+        return out
+
+    grammar.TokenDFA.state_table = timed
+    try:
+        eng.server_args = dataclasses.replace(eng.server_args,
+                                              constrained_json_whitespace_pattern=JSON_WS_4C,
+                                              disable_outlines_disk_cache=True)
+        t1 = time.monotonic()
+        gc_ = eng._get_grammar_compiler()
+        vocab_s = time.monotonic() - t1
+        compile_s = {}
+        for kind, spec in (("regex", REGEX_4C), ("json_schema", json.dumps(SCHEMA_4C))):
+            t1 = time.monotonic()
+            tdfa = gc_.compile(kind, spec)
+            tdfa.state_table(0)
+            compile_s[kind] = time.monotonic() - t1
+        steps_rows = variant_steps(eng, label)
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, vocab, size=int(n)).tolist()
+                   for n in rng.integers(256, 1025, size=len(MIX_4C))]
+        plain_mix = [(dict(ignore_eos=True), 0)] * len(MIX_4C)
+        serves, outs = {}, {}
+        for semi, eager, mix in ((False, False, MIX_4C), (False, True, MIX_4C),
+                                 (True, False, MIX_4C), (False, False, plain_mix),
+                                 (True, False, plain_mix)):
+            r, out = constrained_serve(eng, semi, prompts, mix, eager=eager)
+            key = ("plain_" if mix is plain_mix else "mixed_") + r["mode"] + (
+                "_eager" if eager else "")
+            serves[key], outs[key] = r, out
+            print("constrained_serve " + json.dumps(dict(r, model=label, serve=key, gpu=smi)),
+                  flush=True)
+    finally:
+        grammar.TokenDFA.state_table = state_table
+    same_eager = float(np.mean([a["output_ids"] == b["output_ids"] for a, b in zip(
+        outs["mixed_colocated"], outs["mixed_colocated_eager"])]))
+    # score: the served tokens' log-probs from one teacher-forced extend,
+    # against the serve's (the unconstrained requests: a jumped token has no
+    # log-prob of its own)
+    score_diff = 0.0
+    for p, (sp, _), o in zip(prompts, MIX_4C, outs["mixed_colocated"]):
+        if "regex" in sp or "json_schema" in sp:
+            continue
+        got = [lp for lp, _ in eng.score(input_ids=p + o["output_ids"],
+                                         logprob_start_len=len(p))]
+        want = o["meta_info"]["output_logprobs"]
+        if len(got) != len(want):
+            raise AssertionError(f"score: {len(got)} log-probs for {len(want)} served")
+        score_diff = max(score_diff, float(np.max(np.abs(np.subtract(got, want)))))
+    # encode, against the last tokens' final-normed hidden states of an
+    # extend of the same prompts (step_with_hidden), normalized here
+    emb = np.asarray(eng.encode(input_ids=prompts[:4]))
+    reqs, hb, _ = eng._prefill_whole(prompts[:4])
+    hidden = runner.step_with_hidden_host(hb)[2][: len(reqs)].float().cpu().numpy()
+    for r in reqs:
+        eng.scheduler._free_req_memory(r)
+    ref = hidden / np.linalg.norm(hidden, axis=-1, keepdims=True)
+    encode_diff = float(np.max(np.abs(emb - ref)))
+    torch.cuda.synchronize()
+    steps = dict(runner.step_counts)
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    for k, v in launches.items():
+        main_launches[k] += v
+    want = expected_launches(runner, "aligned", False, steps)
+    bad = {k: (n, want.get(k, 0)) for k, n in launches.items() if n != want.get(k, 0)}
+    res = dict(model=label, gpu=smi, vocab=vocab, tokenizer_table_s=vocab_s,
+               grammar_compile_s=compile_s, state_tables=tables,
+               eager_same_tokens=same_eager, score_max_abs_diff=score_diff,
+               score_tolerance=SCORE_TOL_4C, encode_shape=list(emb.shape),
+               encode_max_abs_diff=encode_diff, encode_tolerance=ENCODE_TOL_4C,
+               graph_pool_bytes=runner.graphs.pool_bytes(),
+               graph_pool_reserve_bytes=runner._graph_pool_reserve(),
+               steps=steps, launches={k: n for k, n in launches.items() if n},
+               seconds=time.monotonic() - t0)
+    print("constrained_phase " + json.dumps(res), flush=True)
+    if bad:
+        raise AssertionError(f"phase 4c launches (got, want): {bad}, steps {steps}")
+    if same_eager != 1.0:
+        raise AssertionError(f"the eager masked serve gave other tokens ({same_eager:.3f})")
+    if not score_diff <= SCORE_TOL_4C:
+        raise AssertionError(f"score vs the serve's log-probs: {score_diff} > {SCORE_TOL_4C}")
+    if not (emb.shape == hidden.shape and np.isfinite(emb).all()
+            and encode_diff <= ENCODE_TOL_4C):
+        raise AssertionError(f"encode {emb.shape} vs the normalized hidden states "
+                             f"{hidden.shape}: {encode_diff} > {ENCODE_TOL_4C}")
+    return res
+
+
+def spec_fallback_serve(eng, algo, prompts, main_launches, smi, label, max_new=24):
+    """A speculating serve with one regex request among plain ones (phase
+    4a): while it runs each round falls back to a plain decode step (the
+    target's decode launches), after it the rounds resume; the regex output
+    matches; launches as spec_serve's plus the fallback decodes'."""
+    import torch
+
+    from semi_pd_tpu_torch.kernels import KERNELS
+    from semi_pd_tpu_torch.runtime.scheduler import Scheduler
+    from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner = eng.runner
+    if not eng.flush_cache():
+        raise AssertionError("engine not idle before the fallback serve")
+    args = spec_server_args(False, algo, kv_cache_dtype=eng.server_args.kv_cache_dtype,
+                            max_total_tokens=eng.server_args.max_total_tokens,
+                            disable_outlines_disk_cache=True)
+    eng.server_args = args
+    eng.scheduler = Scheduler(args, runner)
+    runner.draft_kv.buffer.zero_()
+    runner.step_counts = {"decode": 0, "extend": 0}
+    runner.spec_counts = {k: 0 for k in runner.spec_counts}
+    for k in KERNELS.values():
+        k.launches = 0
+    sps = [dict(regex=REGEX_4C)] + [dict(ignore_eos=True)] * (len(prompts) - 1)
+    t0 = time.monotonic()
+    reqs = [eng.make_request(p, SamplingParams(max_new_tokens=max_new, temperature=0.0, **sp))
+            for p, sp in zip(prompts, sps)]
+    for r in reqs:
+        eng.scheduler.add_request(r)
+    eng._run_until_done(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    text = eng.tokenizer.decode(reqs[0].full_output_ids())
+    steps, spec = dict(runner.step_counts), dict(runner.spec_counts)
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    for k, v in launches.items():
+        main_launches[k] += v
+    L = runner.model_config.num_hidden_layers
+    dec, ext = path_kernels(runner.kv_cache.buffer)
+    draft_dec, draft_ext = path_kernels(runner.draft_kv.buffer)
+    want = {ext: L * (steps["extend"] + spec["verify"]), dec: L * steps["decode"]}
+    want[draft_dec] = want.get(draft_dec, 0) + spec["draft_decode"]
+    want[draft_ext] = want.get(draft_ext, 0) + spec["draft_tree"]
+    bad = {k: (n, want.get(k, 0)) for k, n in launches.items() if n != want.get(k, 0)}
+    s = eng.scheduler
+    res = dict(model=label, algo=algo, gpu=smi, requests=len(reqs), wall_s=wall,
+               fallback_decode_steps=steps["decode"], rounds=s.n_spec_steps,
+               accepted=s.n_spec_accepted, regex_text=text,
+               regex_finish=reqs[0].finish_reason.value,
+               launches={k: n for k, n in launches.items() if n})
+    print("spec_fallback " + json.dumps(res), flush=True)
+    if bad or not steps["decode"] or not spec["verify"]:
+        raise AssertionError(f"fallback serve: launches (got, want) {bad}, steps {steps}, "
+                             f"speculation steps {spec}")
+    if reqs[0].finish_reason.value != "stop_token" or not grammar_ok(sps[0], text):
+        raise AssertionError(f"fallback serve: regex output {text!r}")
+    if not eng.flush_cache():
+        raise AssertionError("engine not idle after the fallback serve")
+    return res
+
+
 def path_kernels(kv_cache):
     """The (decode, extend) builds serving a pool (PATH_KERNELS), by its
     kernel family and, for the families with a build per width, its width:
@@ -2176,11 +2634,12 @@ def main() -> int:
     # those of its own serving run, counters zeroed just before each mode
     main_launches = {k: 0 for k in KERNELS}
 
-    def model_phase(label, cfg, kv_dtype, eng=None, stream=False):
-        """A new engine (or ``eng``, on its weights) and its model phase."""
+    def model_phase(label, cfg, kv_dtype, eng=None, stream=False, tokenizer=None):
+        """A new engine (or ``eng``, on its weights) and its model phase;
+        ``tokenizer``: the new engine's (its grammar compiler and EOS)."""
         t0 = time.monotonic()
         if eng is None:
-            eng = Engine(bench_server_args(False, kv_dtype), cfg)
+            eng = Engine(bench_server_args(False, kv_dtype), cfg, tokenizer=tokenizer)
         torch.cuda.synchronize()
         init_s = time.monotonic() - t0
         res = phase_model(eng, stream)
@@ -2247,16 +2706,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    def spec_engine(algo, cfg=None, gain=EMBED_GAIN, **kw):
+    def spec_engine(algo, cfg=None, gain=EMBED_GAIN, tokenizer=None, **kw):
         """An Engine of its own for ``algo`` (spec_server_args; None: the
         bench's settings without speculation) on predictive weights: every
         one draws the same target weights from the seed, and EAGLE's draft
         from the seed + 1."""
-        import dataclasses
-
         args = (spec_server_args(False, algo, **kw) if algo
                 else dataclasses.replace(bench_server_args(False), **kw))
-        eng = Engine(args, cfg or llama_1b_config())
+        eng = Engine(args, cfg or llama_1b_config(), tokenizer=tokenizer)
         make_predictive(eng.runner, gain)
         return eng
 
@@ -2347,7 +2804,8 @@ def main() -> int:
             raise AssertionError(f"float32: the tree serve's tokens differ from the plain "
                                  f"serve's ({same:.3f} of requests the same)")
 
-    def target_spec_phase(phase, label, cfg, algos, eager=False, gain=EMBED_GAIN, **kw):
+    def target_spec_phase(phase, label, cfg, algos, eager=False, gain=EMBED_GAIN,
+                          fallback_tokenizer=None, **kw):
         """A full-width target speculating with its draft (EAGLE's or
         NextN's, as the runner picks it), each algorithm of ``algos`` (the
         tree first) on an Engine of its own on predictive weights (the
@@ -2358,16 +2816,20 @@ def main() -> int:
         eager ones), then each algorithm serves the 32 prompts colocated
         and semi-PD on round graphs, and with ``eager`` the tree colocated
         once more with its rounds run eagerly, which must give the same
-        tokens; every serve fails if no draft was accepted. Ends with the
+        tokens; every serve fails if no draft was accepted. With
+        ``fallback_tokenizer`` the tree engine (built with it) then serves 8
+        requests, one of them under a regex, which falls back to plain
+        decode steps while it runs (``spec_fallback_serve``). Ends with the
         line ``phase``."""
         t0 = time.monotonic()
         prompts = prompts_for(cfg.vocab_size)
         for algo in algos:
             t1 = time.monotonic()
-            eng = spec_engine(algo, cfg, gain=gain, **kw)
+            tree = algo.endswith("tree")
+            eng = spec_engine(algo, cfg, gain=gain,
+                              tokenizer=fallback_tokenizer if tree else None, **kw)
             torch.cuda.synchronize()
             init_s = time.monotonic() - t1
-            tree = algo.endswith("tree")
             if tree:
                 phase_spec_model(eng, label)
                 round_phase(eng, label, ("tree", "chain"))
@@ -2389,6 +2851,9 @@ def main() -> int:
                 if same != 1.0:
                     raise AssertionError(f"{label} {algo}: the serve with eager rounds gave "
                                          f"other tokens than on round graphs ({same:.3f})")
+            if tree and fallback_tokenizer is not None:
+                spec_fallback_serve(eng, algo, prompts_for(cfg.vocab_size, 1024)[:8],
+                                    main_launches, smi, label)
             release(eng)
         print(phase + " " + json.dumps(dict(model=label, seconds=time.monotonic() - t0)),
               flush=True)
@@ -2492,8 +2957,6 @@ def main() -> int:
         through the kernels (decode replayed from graphs), then on the same
         weights and engine through the plain attention (eagerly): the
         tokens must be equal."""
-        import dataclasses
-
         from semi_pd_tpu_torch.layers.attention import pool_attention
         from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
@@ -2548,17 +3011,24 @@ def main() -> int:
     stream_phase(eng, label, "chunked", "fp8_e4m3", packed)
     release(eng)
     release(model_phase("meta-llama-3-8b", llama3_8b_config(), "bfloat16"))
-    eng = model_phase("meta-llama-3-8b", llama3_8b_config(), "fp8_e4m3")
+    # the 8B engine gets a tokenizer object over its 128256 ids (phase 4c's
+    # grammar compiler and EOS; the other serves ignore EOS)
+    tok8b = SmokeTokenizer(llama3_8b_config().vocab_size)
+    eng = model_phase("meta-llama-3-8b", llama3_8b_config(), "fp8_e4m3", tokenizer=tok8b)
     graph_phase(eng, "meta-llama-3-8b", "aligned")
     packed = serve_phase(eng, "meta-llama-3-8b", "aligned")
     stream_phase(eng, "meta-llama-3-8b", "aligned", "fp8_e4m3", packed)
+    # constrained and penalized sampling, top-k, score and encode (4c)
+    constrained_phase(eng, "meta-llama-3-8b fp8_e4m3", main_launches, smi)
     release(eng)  # the 8B model's 16 GB go before V2-Lite's 31 GB arrive
     # Meta-Llama-3-8B speculating with the EAGLE draft (a llama layer at its
     # geometry over a one-layer 5D pool at head_dim 128) on fp8_e4m3 KV, tree
-    # and chain (phases 3s, 3r, 4a), then its float32 gate at 4 layers (4af)
+    # and chain (phases 3s, 3r, 4a; the tree engine also serves a regex
+    # request, which falls back to plain decode), then its float32 gate at 4
+    # layers (4af)
     target_spec_phase("llama3_8b_spec_phase", "meta-llama-3-8b eagle fp8_e4m3",
                       llama3_8b_config(), ("tree", "chain"), gain=LLAMA3_8B_GAIN,
-                      kv_cache_dtype="fp8_e4m3")
+                      fallback_tokenizer=tok8b, kv_cache_dtype="fp8_e4m3")
     cfg = llama3_8b_config()
     cfg.dtype, cfg.num_hidden_layers = "float32", 4
     spec_plain_gate("meta-llama-3-8b float32 4 layers eagle tree", cfg, "tree",

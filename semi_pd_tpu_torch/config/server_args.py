@@ -3,12 +3,13 @@
 Keeps the ServerArgs fields the main serving path reads (memory sizing,
 bucket tables, the colocated and semi-PD scheduling knobs, the overlap
 ring, the KV dtype and its fp8 scales, speculative decoding: NGRAM, and
-EAGLE and NEXTN chain and tree) with the JAX package's defaults and
+EAGLE and NEXTN chain and tree; constrained decoding, custom logit
+processors and embedding mode) with the JAX package's defaults and
 comments' meaning, and adds ``device`` and ``decode_stream`` (the JAX
 package's RPA_DECODE_STREAM environment switch as an argument). A draft
 checkpoint is refused by the runner (ROADMAP A13). The CLI,
-HTTP, LoRA, parallelism, weight quantization and grammar flags belong to
-later slices of the port (ROADMAP queue A).
+HTTP, LoRA, parallelism and weight quantization flags belong to later
+slices of the port (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ class ServerArgs:
     schedule_policy: str = "lpm"  # lpm | fcfs | lof | random | dfs-weight
     enable_mixed_chunk: bool = False
     num_continuous_decode_steps: Optional[int] = None
+    # Serve pooling / encode only; the generation entry points refuse
+    is_embedding: bool = False
     disable_overlap_schedule: bool = False
     # In-flight step ring: results are read back in one fused device->host
     # copy every ``overlap_depth`` steps (see Scheduler._ring)
@@ -78,6 +81,17 @@ class ServerArgs:
     prefill_token_buckets: Optional[List[int]] = None
 
     decode_log_interval: float = 10.0  # seconds between decode-stats lines
+
+    # Constrained decoding and custom logit processors
+    # Grammar jump-forward: emit forced tokens without model forwards
+    # (their KV back-filled by an extend). Disable to force one-step decoding.
+    disable_jump_forward: bool = False
+    # Disable the on-disk compiled-DFA cache (~/.cache/semi_pd_tpu_torch/grammar):
+    # regex / schema -> DFA compilation for deep schemas costs seconds
+    disable_outlines_disk_cache: bool = False
+    # Override the bounded-whitespace regex inside JSON-schema grammars
+    # (default [ \n\t]{0,4})
+    constrained_json_whitespace_pattern: Optional[str] = None
 
     # Speculative decoding
     speculative_algorithm: Optional[str] = None  # EAGLE | NEXTN | NGRAM

@@ -159,13 +159,15 @@ class DeepseekV2ForCausalLM(TreeParams):
         return getattr(self, path.replace(".", "__"))
 
     # ------------------------------------------------------------- forward
-    def forward(self, fb, kv_cache: torch.Tensor, attention=None, return_hidden: bool = False):
+    def forward(self, fb, kv_cache: torch.Tensor, attention=None, return_hidden: bool = False,
+                all_logits: bool = False):
         """One step over the flat batch ``fb``; writes this step's latent
         rows into ``kv_cache`` (the latent pool [L, 1, S, 1, Dlat]) and
         returns float32 logits [B, V] of the rows ``fb.logits_idx`` picks
         (each request's last token; every row of a speculative verify
-        batch). ``attention`` runs over the pool after each layer's write
-        (default: the latent pool's routing to the kernels).
+        batch), or with ``all_logits`` of every flat token row [T, V].
+        ``attention`` runs over the pool after each layer's write (default:
+        the latent pool's routing to the kernels).
         ``return_hidden``: also return those rows' hidden states [B, H]
         AFTER the final norm, (logits, hidden), the state that seeds the
         NextN draft (JAX ``return_hidden``'s ``last_h``; NextN normalises it
@@ -177,7 +179,7 @@ class DeepseekV2ForCausalLM(TreeParams):
         for l in range(c.num_hidden_layers):
             h = self._layer(self.lp[l], l, h, fb, kv_cache, attention)
         h = rms_norm(h, self.final_norm, c.rms_norm_eps)
-        last_h = h[fb.logits_idx.long()]
+        last_h = h if all_logits else h[fb.logits_idx.long()]
         logits = lm_head_logits(last_h, self.head(), c.logit_softcap)
         if self.logits_div is not None:
             logits = logits / self.logits_div

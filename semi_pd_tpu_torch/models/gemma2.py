@@ -39,7 +39,7 @@ import math
 import torch
 
 from semi_pd_tpu_torch.config.model_config import ModelConfig
-from semi_pd_tpu_torch.layers.linear import apply_linear, lm_head_logits
+from semi_pd_tpu_torch.layers.linear import apply_linear
 from semi_pd_tpu_torch.models.llama import LlamaForCausalLM
 from semi_pd_tpu_torch.ops.elementwise import gelu_and_mul
 
@@ -92,9 +92,10 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
                  for n in ("post_attn_norm", "post_ffw_norm", "pre_ffw_norm")]
         return sorted(super().param_specs() + norms)
 
-    def forward(self, fb, kv_cache: torch.Tensor, attention=None, return_hidden: bool = False):
-        """As LlamaForCausalLM.forward, with Gemma-2's block: every norm
-        gemma_rms, the sandwich norms, each layer's own window."""
+    def _final_hidden(self, fb, kv_cache, attention) -> torch.Tensor:
+        """As LlamaForCausalLM's, with Gemma-2's block: the scaled
+        embedding, every norm gemma_rms, the sandwich norms, each layer's
+        own window."""
         c = self.config
         eps = c.rms_norm_eps
         h = self.embed[fb.input_ids.long()]
@@ -106,7 +107,4 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
             y = gemma_rms(h, self.pre_ffw_norm[layer], eps)
             mlp = apply_linear(self.act(apply_linear(y, self.gate_up[layer])), self.down[layer])
             h = h + gemma_rms(mlp, self.post_ffw_norm[layer], eps)
-        h = gemma_rms(h, self.final_norm, eps)
-        last_h = h[fb.logits_idx.long()]
-        logits = lm_head_logits(last_h, self.head(), c.logit_softcap)
-        return (logits, last_h) if return_hidden else logits
+        return gemma_rms(h, self.final_norm, eps)

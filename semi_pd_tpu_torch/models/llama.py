@@ -104,16 +104,34 @@ class LlamaForCausalLM(TreeParams):
         return getattr(self, _ATTR[path])
 
     # ------------------------------------------------------------- forward
-    def forward(self, fb, kv_cache: torch.Tensor, attention=None, return_hidden: bool = False):
+    def forward(self, fb, kv_cache: torch.Tensor, attention=None, return_hidden: bool = False,
+                all_logits: bool = False):
         """One step over the flat batch ``fb``; writes this step's K/V into
         ``kv_cache`` (chunked [L, S, CT, 128] or aligned [L, 2, S, Hkv, D])
         and returns float32 logits [B, V] of the rows ``fb.logits_idx``
         picks (each request's last token; every row of a speculative verify
-        batch). ``attention`` runs over the pool after each layer's KV write
-        (default: the pool layout's routing to the kernels).
-        ``return_hidden``: also return those rows' final-normed hidden
-        states [B, H] in the model dtype, (logits, hidden), the state that
+        batch), or with ``all_logits`` of every flat token row [T, V]
+        (input-logprob scoring). ``attention`` runs over the pool after each
+        layer's KV write (default: the pool layout's routing to the
+        kernels). ``return_hidden``: also return those rows' final-normed
+        hidden states in the model dtype, (logits, hidden), the state that
         seeds the EAGLE draft (JAX ``return_hidden``)."""
+        h = self._final_hidden(fb, kv_cache, attention)
+        last_h = h if all_logits else h[fb.logits_idx.long()]
+        logits = lm_head_logits(last_h, self.head(), self.config.logit_softcap)
+        return (logits, last_h) if return_hidden else logits
+
+    def forward_embedding(self, fb, kv_cache: torch.Tensor, attention=None) -> torch.Tensor:
+        """Pooled sequence embedding: the final-normed hidden state of each
+        request's last token (``fb.logits_idx``), float32 [B, H], divided by
+        its L2 norm (at least 1e-12), as the JAX model's forward_embedding."""
+        emb = self._final_hidden(fb, kv_cache, attention)[fb.logits_idx.long()].float()
+        return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True),
+                                 min=1e-12)
+
+    def _final_hidden(self, fb, kv_cache, attention) -> torch.Tensor:
+        """Every flat row's hidden state after the last layer and the final
+        norm [T, H], in the model dtype."""
         c = self.config
         h = self.embed[fb.input_ids.long()]
         for layer in range(c.num_hidden_layers):
@@ -122,10 +140,7 @@ class LlamaForCausalLM(TreeParams):
             mlp_in = rms_norm(h, self.post_norm[layer], c.rms_norm_eps)
             h = h + apply_linear(self.act(apply_linear(mlp_in, self.gate_up[layer])),
                                  self.down[layer])
-        h = rms_norm(h, self.final_norm, c.rms_norm_eps)
-        last_h = h[fb.logits_idx.long()]
-        logits = lm_head_logits(last_h, self.head(), c.logit_softcap)
-        return (logits, last_h) if return_hidden else logits
+        return rms_norm(h, self.final_norm, c.rms_norm_eps)
 
     def head(self) -> torch.Tensor:
         """The lm_head [H, V] (the embedding's transpose when tied)."""

@@ -6,17 +6,23 @@ NQB); ``_eagle_jit``, ``_eagle_tree_jit`` and ``_spec_step_jit``, one per
 round shape; each compiled at first use).
 
 ``DecodeGraphs.step`` takes a decode step (T == B) of
-``ModelRunner.step_packed_raw``. Its key is ``(B, maxP, NQB, all_greedy)``:
-the shapes of the packed step, and whether every live row samples
-greedily, which the eager step knows on the host and uses to skip the
-sampler's sort (``ops/sampling.py``), so a graph holds the same launches as
-the eager step of its batch. Each key owns static device buffers for the
-two packed vectors of ``HostBatch.pack()``; a step copies the host vectors
-into them (the same two host->device copies as the eager step) and, when
-chained, copies the previous step's device tokens over the input ids at
-the head of the int vector, so one graph serves the plain and the chained
-dispatch. The captured body is the runner's eager ``_step`` over
-``_unpack_fb``'s views of those buffers, the KV pool and the KV scales
+``ModelRunner.step_packed_raw``, and of ``step_host`` / ``step_topk_host``
+(the decode steps that carry a grammar mask, a logit bias, penalties or
+top-k log-probs, as the JAX runner compiles ``_step_masked_jit`` and
+``_step_topk_jit``). Its key is ``(B, maxP, NQB, all_greedy)``: the
+shapes of the packed step, and whether every live row samples greedily,
+which the eager step knows on the host and uses to skip the sampler's sort
+(``ops/sampling.py``), so a graph holds the same launches as the eager step
+of its batch; a step with a ``StepVariant`` other than ``PLAIN`` adds it
+to the key. Each key owns static device buffers for the two packed vectors
+of ``HostBatch.pack()``; a step copies the host vectors into them (the
+same two host->device copies as the eager step) and, when chained, copies
+the previous step's device tokens over the input ids at the head of the
+int vector, so one graph serves the plain and the chained dispatch. A
+variant's host arrays (the [B, V] bool mask or float32 bias, the [B, H]
+penalty histogram) go to static buffers shared by every key of their shape
+and type, one copy each. The captured body is the runner's eager ``_step``
+over ``_unpack_fb``'s views of those buffers, the KV pool and the KV scales
 being the tensors the eager step uses.
 
 ``RoundGraphs.round`` takes a speculating round of the runner
@@ -66,23 +72,42 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from typing import Callable, Dict, Hashable, Optional, Tuple
+from typing import Callable, Dict, Hashable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from semi_pd_tpu_torch.kernels import add_launches, record_launches
+from semi_pd_tpu_torch.ops.sampling import PenaltyArrays
 from semi_pd_tpu_torch.runtime.batch import pack_len
 
-Key = Tuple[int, int, int, bool]
+Key = Tuple
 
 
-def decode_key(shapes: Tuple[int, int, int, int], all_greedy: bool) -> Key:
-    """The graph key of a decode step's packed shapes (T, B, maxP, NQB)."""
+class StepVariant(NamedTuple):
+    """What a decode step carries besides its packed batch: ``mask``, None,
+    "bool" (a grammar mask [B, V]) or "bias" (a float32 logit bias [B, V]);
+    ``penalties``, a penalty histogram (three [B, H] arrays); ``top_k``, the
+    k of its top-k log-probs (0: none)."""
+
+    mask: Optional[str] = None
+    penalties: bool = False
+    top_k: int = 0
+
+
+PLAIN = StepVariant()
+
+
+def decode_key(shapes: Tuple[int, int, int, int], all_greedy: bool,
+               variant: StepVariant = PLAIN) -> Key:
+    """The graph key of a decode step's packed shapes (T, B, maxP, NQB):
+    ``(B, maxP, NQB, all_greedy)``, and the variant after it when it is not
+    ``PLAIN``."""
     T, B, maxP, NQB = shapes
     if T != B:
         raise ValueError(f"a decode graph takes T == B, got T {T}, B {B}")
-    return B, maxP, NQB, bool(all_greedy)
+    key = (B, maxP, NQB, bool(all_greedy))
+    return key if variant == PLAIN else key + (variant,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +194,7 @@ class CudaGraphBackend:
 class _Graph:
     ints: torch.Tensor  # static packed int vector
     floats: torch.Tensor  # static packed float vector
+    extras: Tuple[torch.Tensor, ...] = ()  # a variant's static [B, ...] inputs
     handle: object = None  # the backend's graph
     outputs: Tuple[torch.Tensor, ...] = None  # overwritten by each replay
     tally: Dict[str, int] = None  # kernel launches one replay runs
@@ -183,6 +209,8 @@ class GraphCache:
         self.backend = backend
         self.graphs: Dict[Hashable, _Graph] = {}
         self.stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+        # static input buffers shared by every key, by (name, shape, dtype)
+        self._shared: Dict[Tuple[str, Tuple[int, ...], torch.dtype], torch.Tensor] = {}
 
     def pool_bytes(self) -> int:
         """Bytes the graphs' memory pool holds (shared by every cache on
@@ -194,29 +222,44 @@ class GraphCache:
         tensor they captured, or a routing whose launches they hold, has
         changed."""
         self.graphs.clear()
+        self._shared.clear()
 
     def run(self, key: Hashable, n_ints: int, n_floats: int,
-            fill: Callable[[torch.Tensor, torch.Tensor], None],
-            body: Callable[[torch.Tensor, torch.Tensor], tuple]) -> tuple:
-        """``fill(ints, floats)`` writes the inputs into the key's static
-        buffers, then the key's graph of ``body(ints, floats)`` (captured
-        first if the key is new) replays. Returns fresh copies of its
-        outputs."""
+            fill: Callable[..., None], body: Callable[..., tuple],
+            extras: Sequence[Tuple[str, Tuple[int, ...], torch.dtype]] = ()) -> tuple:
+        """``fill(ints, floats, *extra)`` writes the inputs into the key's
+        static buffers (``extras``: the names, shapes and types of more
+        inputs, buffers shared by every key), then the key's graph of ``body(ints,
+        floats, *extra)`` (captured first if the key is new) replays.
+        Returns fresh copies of its outputs."""
         with torch.inference_mode():
             g = self.graphs.get(key)
             new = g is None
             if new:
                 dev = self.runner.device
                 g = _Graph(ints=torch.empty(n_ints, dtype=torch.int32, device=dev),
-                           floats=torch.empty(n_floats, dtype=torch.float32, device=dev))
-            fill(g.ints, g.floats)
+                           floats=torch.empty(n_floats, dtype=torch.float32, device=dev),
+                           extras=tuple(self._buffer(*e) for e in extras))
+            fill(g.ints, g.floats, *g.extras)
             if new:
-                self._capture(g, lambda: body(g.ints, g.floats))
+                self._capture(g, lambda: body(g.ints, g.floats, *g.extras))
                 self.graphs[key] = g
             self.backend.replay(g.handle)
             add_launches(g.tally)
             self.stats["replays"] += 1
             return tuple(t.clone() for t in g.outputs)
+
+    def _buffer(self, name: str, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+        """The static input buffer ``name`` of ``shape`` and ``dtype`` that
+        every key shares: graphs replay one at a time on one stream, each
+        right after its own fill (the name keeps two inputs of one graph
+        apart)."""
+        key = (name, shape, dtype)
+        buf = self._shared.get(key)
+        if buf is None:
+            buf = torch.empty(shape, dtype=dtype, device=self.runner.device)
+            self._shared[key] = buf
+        return buf
 
     def _capture(self, g: _Graph, body: Callable) -> None:
         runner = self.runner
@@ -237,26 +280,43 @@ class DecodeGraphs(GraphCache):
     """The runner's decode graphs, by ``decode_key``."""
 
     def step(self, ints_np: np.ndarray, floats_np: np.ndarray, shapes, all_greedy: bool,
-             prev_tokens: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             prev_tokens: Optional[torch.Tensor] = None, vocab_mask: Optional[np.ndarray] = None,
+             penalties: Optional[PenaltyArrays] = None, top_k: int = 0) -> tuple:
         """One decode step through its key's graph (captured first if the
-        key is new). ``prev_tokens``: the chained input ids. Returns fresh
-        device (tokens [B] i32, logprobs [B] f32)."""
-        key = decode_key(shapes, all_greedy)
+        key is new). ``prev_tokens``: the chained input ids; ``vocab_mask``
+        (a bool grammar mask or a float32 bias [B, V]), ``penalties`` (the
+        numpy histogram [B, H]) and ``top_k`` make the step's variant.
+        Returns fresh device (tokens [B] i32, logprobs [B] f32), and with a
+        top-k (values [B, k] f32, ids [B, k] i32)."""
+        variant = StepVariant(
+            mask=None if vocab_mask is None else ("bool" if vocab_mask.dtype == bool else "bias"),
+            penalties=penalties is not None, top_k=top_k)
+        key = decode_key(shapes, all_greedy, variant)
         T, B, maxP, NQB = shapes
         runner = self.runner
+        named = ([] if vocab_mask is None else [("mask", vocab_mask)]) + (
+            [] if penalties is None else list(zip(PenaltyArrays._fields, penalties)))
+        host_extras = [np.ascontiguousarray(a) for _, a in named]
 
-        def fill(ints, floats):
+        def fill(ints, floats, *extra):
             ints.copy_(torch.from_numpy(ints_np), non_blocking=True)
             floats.copy_(torch.from_numpy(floats_np), non_blocking=True)
             if prev_tokens is not None:
                 ints[:B].copy_(prev_tokens)
+            for dst, src in zip(extra, host_extras):
+                dst.copy_(torch.from_numpy(src), non_blocking=True)
 
-        def body(ints, floats):
-            return runner._step(runner._unpack_fb(ints, floats, T, B, maxP, NQB, B, all_greedy))
+        def body(ints, floats, *extra):
+            fb = runner._unpack_fb(ints, floats, T, B, maxP, NQB, B, all_greedy)
+            if variant == PLAIN:
+                return runner._step(fb)
+            mask = extra[0] if variant.mask else None
+            pen = PenaltyArrays(*extra[-3:]) if variant.penalties else None
+            return runner._step(fb, vocab_mask=mask, penalties=pen, top_k=top_k)
 
-        tokens, logprobs = self.run(key, len(ints_np), len(floats_np), fill, body)
-        return tokens, logprobs
+        extras = [(n, a.shape, torch.from_numpy(a[:0]).dtype)
+                  for (n, _), a in zip(named, host_extras)]
+        return self.run(key, len(ints_np), len(floats_np), fill, body, extras)
 
 
 class RoundGraphs(GraphCache):

@@ -1,25 +1,41 @@
 """Offline in-process Engine API (trimmed port of
 semi_pd_tpu/runtime/engine.py).
 
-``Engine(server_args, model_config, device=...)`` builds the runner and the
-scheduler; ``generate(input_ids=..., sampling_params=...)`` runs requests to
-completion and returns dicts shaped like the JAX engine's. Text prompts,
-tokenizers, sessions, LoRA, images, encode/score and weight updates are
-later slices (ROADMAP A14, A16).
+``Engine(server_args, model_config, tokenizer=..., device=...)`` builds the
+runner and the scheduler; ``generate(input_ids=..., sampling_params=...)``
+runs requests to completion and returns dicts shaped like the JAX engine's,
+with per-token and top-k log-probs on request, and with ``return_logprob``
+and ``max_new_tokens=0`` scores the prompts instead. ``score`` gives
+teacher-forced input log-probs (with a top-k), ``encode`` pooled
+embeddings (``is_embedding`` engines refuse to generate). The tokenizer
+object builds the grammar compiler of constrained requests (json_schema,
+regex, ebnf, structural_tag) and gives its EOS id, as in the JAX engine.
+Text prompts, detokenization, sessions, LoRA, images and weight updates
+are later slices (ROADMAP A14, A16).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import uuid
 from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
+
 from semi_pd_tpu_torch.config.model_config import ModelConfig
 from semi_pd_tpu_torch.config.server_args import ServerArgs
+from semi_pd_tpu_torch.runtime.batch import build_extend_batch
 from semi_pd_tpu_torch.runtime.model_runner import ModelRunner
 from semi_pd_tpu_torch.runtime.req import FinishReason, Req
 from semi_pd_tpu_torch.runtime.scheduler import Scheduler
 from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+
+def _refuse_text(prompt) -> None:
+    if prompt is not None:
+        raise NotImplementedError("text prompts are ROADMAP A16 (the tokenizer object serves "
+                                  "the grammar compiler only); pass input_ids")
 
 
 class Engine:
@@ -27,13 +43,17 @@ class Engine:
         self,
         server_args: Optional[ServerArgs] = None,
         model_config: Optional[ModelConfig] = None,
+        tokenizer=None,
         device: Optional[str] = None,
         decode_graphs: bool = True,
         **kwargs,
     ):
-        """``decode_graphs``: ModelRunner's (on a CUDA device, decode steps
-        replay CUDA graphs; False runs them eagerly); other keywords build
-        the ServerArgs when none is given."""
+        """``tokenizer``: an object with ``decode(ids)`` and a vocabulary
+        size (``vocab_size`` / ``len``), and optionally ``eos_token_id`` and
+        ``all_special_ids``, for the grammar compiler; ``decode_graphs``:
+        ModelRunner's (on a CUDA device, decode steps replay CUDA graphs;
+        False runs them eagerly); other keywords build the ServerArgs when
+        none is given."""
         if model_config is None:
             raise NotImplementedError("loading a ModelConfig from a checkpoint "
                                       "path is ROADMAP A13; pass model_config")
@@ -43,8 +63,29 @@ class Engine:
         self.runner = ModelRunner(server_args, model_config, device=device,
                                   decode_graphs=decode_graphs)
         self.scheduler = Scheduler(server_args, self.runner)
-        self._eos_ids: List[int] = []  # no tokenizer / HF config in this slice
+        self.tokenizer = tokenizer
+        # the tokenizer's EOS (no HF config in this slice: ROADMAP A13)
+        eos = getattr(tokenizer, "eos_token_id", None)
+        self._eos_ids: List[int] = [] if eos is None else [int(eos)]
         self._lock = threading.Lock()
+        self._grammar_compiler = None  # lazy: the vocab's string table is costly
+
+    def _get_grammar_compiler(self):
+        if self._grammar_compiler is None:
+            if self.tokenizer is None:
+                raise ValueError("grammar-constrained decoding needs a tokenizer")
+            from semi_pd_tpu_torch.constrained.grammar import GrammarCompiler
+
+            cache_dir = None
+            if not self.server_args.disable_outlines_disk_cache:
+                cache_dir = os.path.join(os.path.expanduser("~"), ".cache",
+                                         "semi_pd_tpu_torch", "grammar")
+            self._grammar_compiler = GrammarCompiler(
+                self.tokenizer, self._eos_ids,
+                json_whitespace_pattern=self.server_args.constrained_json_whitespace_pattern,
+                disk_cache_dir=cache_dir,
+            )
+        return self._grammar_compiler
 
     # ---------------------------------------------------------------- API
     def make_request(
@@ -57,6 +98,9 @@ class Engine:
         if isinstance(sampling_params, dict):
             sampling_params = SamplingParams.from_dict(sampling_params)
         sampling_params = sampling_params or SamplingParams()
+        if self.server_args.is_embedding and sampling_params.max_new_tokens:
+            # encode() / score() requests carry max_new_tokens=0 and pass
+            raise ValueError("engine is in embedding mode (is_embedding); use encode()")
         if not input_ids:
             raise ValueError("input is empty (no prompt tokens)")
         req = Req(
@@ -64,9 +108,26 @@ class Engine:
             input_ids=list(input_ids),
             sampling_params=sampling_params,
             eos_token_ids=self._eos_ids,
-            return_logprob=return_logprob,
-            top_logprobs_num=int(top_logprobs_num or 0),
+            # top-k log-probs imply per-token log-probs; k capped at 32
+            return_logprob=return_logprob or top_logprobs_num > 0,
+            top_logprobs_num=min(max(int(top_logprobs_num or 0), 0), 32),
         )
+        sp = sampling_params
+        if sp.json_schema or sp.regex or sp.ebnf or sp.structural_tag:
+            gc = self._get_grammar_compiler()
+            if sp.regex:
+                req.grammar = gc.matcher("regex", sp.regex)
+            elif sp.json_schema:
+                req.grammar = gc.matcher("json_schema", sp.json_schema)
+            elif sp.structural_tag:
+                req.grammar = gc.matcher("structural_tag", sp.structural_tag)
+            else:
+                req.grammar = gc.matcher("ebnf", sp.ebnf)
+        if sp.custom_logit_processor is not None:
+            # every registered processor is served (no pickled callables)
+            from semi_pd_tpu_torch.sampling.logit_processor import resolve_processor
+
+            resolve_processor(sp.custom_logit_processor)  # fail fast on a typo
         return req
 
     def generate(
@@ -77,10 +138,21 @@ class Engine:
         return_logprob: bool = False,
         top_logprobs_num: int = 0,
     ) -> Union[Dict, List[Dict]]:
-        """Synchronous batch generation over token ids."""
-        if prompt is not None:
-            raise NotImplementedError("text prompts need a tokenizer (ROADMAP A16); "
-                                      "pass input_ids")
+        """Synchronous batch generation over token ids. With
+        ``return_logprob`` and ``max_new_tokens=0`` it scores the prompts
+        (``score``) instead."""
+        if self.server_args.is_embedding:
+            raise ValueError("engine is in embedding mode (is_embedding); use encode()")
+        sp = sampling_params
+        mnt = (sp.get("max_new_tokens") if isinstance(sp, dict)
+               else getattr(sp, "max_new_tokens", None))
+        if return_logprob and mnt == 0:
+            lps = self.score(prompt=prompt, input_ids=input_ids)
+            mk = lambda l: {"text": "", "output_ids": [],
+                            "meta_info": {"input_token_logprobs": l}}
+            return mk(lps) if input_ids and isinstance(input_ids[0], int) else [
+                mk(l) for l in lps]
+        _refuse_text(prompt)
         if input_ids is None:
             raise ValueError("provide input_ids")
         single = bool(input_ids) and isinstance(input_ids[0], int)
@@ -127,9 +199,91 @@ class Engine:
                 "finish_reason": req.finish_reason.value,
                 "cached_tokens": req.cached_tokens,
                 "output_logprobs": req.output_logprobs if req.return_logprob else None,
-                "output_top_logprobs": None,
+                # per position: ([top-k logprobs], [top-k token ids])
+                "output_top_logprobs": (
+                    req.output_top_logprobs if req.top_logprobs_num else None),
             },
         }
+
+    # ------------------------------------------------------ encode / score
+    def _prefill_whole(self, input_ids):
+        """Requests of ``input_ids`` (one list, or a list of lists) that
+        take no new token, each given a slot and the pages of its whole
+        prompt, and the extend batch of them all. Returns (reqs, hb,
+        single)."""
+        if input_ids is None:
+            raise ValueError("provide input_ids")
+        single = bool(input_ids) and isinstance(input_ids[0], int)
+        if single:
+            input_ids = [input_ids]
+        sched = self.scheduler
+        reqs = []
+        for ids in input_ids:
+            r = self.make_request(ids, SamplingParams(max_new_tokens=0))
+            slot = self.runner.req_pool.alloc()
+            pages = sched._alloc_pages(-(-len(ids) // sched.page_size))
+            if slot is None or pages is None:
+                raise RuntimeError("out of KV memory for encode / score")
+            r.req_slot = slot
+            r.pages = pages.tolist()
+            self.runner.req_pool.write(slot, 0, pages)
+            reqs.append(r)
+        hb = build_extend_batch([(r, r.prompt_len) for r in reqs],
+                                self.runner.req_pool.page_table, sched.page_size,
+                                sched.t_buckets, sched.b_buckets, sched.p_buckets)
+        return reqs, hb, single
+
+    def encode(self, prompt=None, input_ids=None):
+        """Embeddings: per request the normalized final hidden state of its
+        last token, a list of ``hidden_size`` floats."""
+        _refuse_text(prompt)
+        with self._lock:
+            reqs, hb, single = self._prefill_whole(input_ids)
+            emb = self.runner.encode_step_host(hb).cpu().numpy()
+            out = [emb[i].tolist() for i in range(len(reqs))]
+            for r in reqs:
+                self.scheduler._free_req_memory(r)
+        return out[0] if single else out
+
+    def score(self, prompt=None, input_ids=None, logprob_start_len: int = 0,
+              top_logprobs_num: int = 0):
+        """Teacher-forced input-token log-probs: per request a list of
+        (logprob, token_id) for input positions >= logprob_start_len
+        (position 0 has none; the start is clamped to 1). With
+        ``top_logprobs_num`` > 0 (capped at 32) each entry is (logprob,
+        token_id, ([top-k logprobs], [top-k ids]))."""
+        _refuse_text(prompt)
+        with self._lock:
+            reqs, hb, single = self._prefill_whole(input_ids)
+            # targets[t]: the next input token of the same request (rows are
+            # the requests' prompts in order)
+            targets = np.zeros(hb.T, np.int32)
+            off = 0
+            for r in reqs:
+                n = r.prompt_len
+                targets[off : off + n - 1] = r.input_ids[1:]
+                off += n
+            k = min(max(int(top_logprobs_num or 0), 0), 32)
+            if k > 0:
+                lp, tv, ti = self.runner.read_round(*self.runner.score_topk_host(hb, targets, k))
+            else:
+                (lp,) = self.runner.read_round(self.runner.score_step_host(hb, targets))
+            out = []
+            off = 0
+            start = max(1, logprob_start_len)
+            for r in reqs:
+                n = r.prompt_len
+                # the log-prob of the token at position i sits at row off + i - 1
+                if k > 0:
+                    out.append([(float(lp[off + i - 1]), int(r.input_ids[i]),
+                                 (tv[off + i - 1].tolist(), ti[off + i - 1].tolist()))
+                                for i in range(start, n)])
+                else:
+                    out.append([(float(lp[off + i - 1]), int(r.input_ids[i]))
+                                for i in range(start, n)])
+                off += n
+                self.scheduler._free_req_memory(r)
+        return out[0] if single else out
 
     # ---------------------------------------------------------- maintenance
     def flush_cache(self) -> bool:

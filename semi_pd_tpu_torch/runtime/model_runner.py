@@ -4,7 +4,10 @@ semi_pd_tpu/runtime/model_runner.py for the main path).
 The runner exposes the surface the scheduler calls: ``page_allocator``,
 ``req_pool``, ``max_context_len``, ``max_running_requests``,
 ``model_config``, ``step_packed`` / ``step_packed_raw`` (with chained
-``prev_tokens``), ``step_host`` and ``read_results``. A step decodes the
+``prev_tokens``), ``step_host`` (a grammar mask or logit bias, penalties),
+``step_topk_host`` (top-k log-probs too), ``score_step_host`` /
+``score_topk_host`` (teacher-forced input log-probs), ``encode_step_host``
+(pooled embeddings) and ``read_results``. A step decodes the
 two packed host vectors of ``HostBatch.pack()`` (one host->device copy
 each), runs the model over the shared KV pool (updated in place: prefill
 and decode are two shapes of one step on one pool), samples on the device
@@ -27,8 +30,10 @@ MLA, as in JAX. ``ServerArgs.decode_stream`` sends decode batches to the
 pool's streaming decode. Random weights are drawn on the step device
 (model_loader/loader.py::device_init_params).
 
-On a CUDA device every decode step (T == B) of ``step_packed_raw`` is
-replayed from a CUDA graph, one per decode shape key, and every
+On a CUDA device every decode step (T == B) of ``step_packed_raw``,
+``step_host`` and ``step_topk_host`` is replayed from a CUDA graph, one per
+decode shape key and step variant (a mask or a bias, penalties, a top-k),
+and every
 speculating round from a CUDA graph, one per round key (``RoundShape``),
 each captured at the key's first use (runtime/cuda_graph_runner.py), as
 the JAX runner compiles one program per static shape and one per round
@@ -37,8 +42,8 @@ the JAX runner compiles one program per static shape and one per round
 eager step and round. The round graphs are dropped wherever the JAX runner
 rebuilds its round or a tensor they captured changes: new acceptance
 thresholds (constants of its trace), a re-sliced hot head, another routing
-of either pool, the pools released or re-made. Extend steps, ``step_host``
-and every step and round of a CPU runner run eagerly.
+of either pool, the pools released or re-made. Extend steps, score and
+encode steps and every step and round of a CPU runner run eagerly.
 
 Speculative decoding (``ServerArgs.speculative_algorithm``): NGRAM verifies
 host-drafted chains (``spec_step``); EAGLE and NEXTN (``_init_draft_model``,
@@ -83,7 +88,9 @@ from semi_pd_tpu_torch.models.deepseek_v2 import DeepseekV2ForCausalLM
 from semi_pd_tpu_torch.models.gemma2 import Gemma2ForCausalLM
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
 from semi_pd_tpu_torch.models.minicpm3 import MiniCPM3ForCausalLM
-from semi_pd_tpu_torch.ops.sampling import SamplingArrays, compute_logprobs, sample
+from semi_pd_tpu_torch.ops.sampling import (
+    PENALTY_HIST, PenaltyArrays, SamplingArrays, compute_logprobs, sample, top_logprobs,
+)
 from semi_pd_tpu_torch.runtime.batch import HostBatch, pack_len
 from semi_pd_tpu_torch.runtime.cuda_graph_runner import (
     CudaGraphBackend, DecodeGraphs, RoundGraphs, RoundShape,
@@ -111,8 +118,11 @@ KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8
 # its round's verify at that bucket (B x W rows): the verify's logits, the
 # model-dtype product they are cast from, a final softcap's copies and
 # verify_and_accept's (scaled, softmax); 2.4 to 4.3 such copies on an H100
-# (the 1B-class tree verify to Gemma-2-9B's softcapped one)
-GRAPH_POOL_LOGITS = 8
+# (the 1B-class tree verify to Gemma-2-9B's softcapped one). The decode
+# rows: 8.6 on an H100 with every decode step variant of Meta-Llama-3-8B
+# captured at B 64 (a mask, a bias, penalties, a top-k: chip_smoke.py's
+# phase 4c)
+GRAPH_POOL_LOGITS = 9
 ROUND_POOL_LOGITS = 5
 
 
@@ -342,12 +352,17 @@ class ModelRunner:
     def _graph_pool_reserve(self) -> int:
         """Bytes of the graphs' shared pool, in float32 logits of the
         largest decode bucket B: GRAPH_POOL_LOGITS x B rows, the sampler's
-        copies of a decode step's logits being the largest tensors a decode
-        step makes; speculating, at least ROUND_POOL_LOGITS of the round's
-        verify, B x W rows (W: gamma + 1, or the tree's nodes). The pool
-        holds the largest capture's transients, each capture reusing what
-        the earlier ones freed."""
+        copies of a decode step's logits (with a mask and penalties) being
+        the largest tensors a decode step makes; speculating, at least
+        ROUND_POOL_LOGITS of the round's verify, B x W rows (W: gamma + 1,
+        or the tree's nodes). The pool holds the largest capture's
+        transients, each capture reusing what the earlier ones freed. Then
+        the masked steps' static inputs, shared by the keys of a bucket: a
+        float32 bias and a bool mask [B, V] and the penalty histogram [B,
+        PENALTY_HIST] (two int32 arrays and a bool one), for every decode
+        bucket."""
         args = self.server_args
+        V = self.model_config.vocab_size
         B = max(args.decode_bs_buckets)
         rows = GRAPH_POOL_LOGITS * B
         if args.speculative_algorithm:
@@ -355,7 +370,8 @@ class ModelRunner:
             tree = args.speculative_algorithm != "NGRAM" and args.speculative_eagle_topk > 1
             W = default_tree_template(args.speculative_eagle_topk, n).num_nodes if tree else n + 1
             rows = max(rows, ROUND_POOL_LOGITS * B * W)
-        return rows * self.model_config.vocab_size * 4
+        static = sum(args.decode_bs_buckets) * (V * (4 + 1) + PENALTY_HIST * (4 + 4 + 1))
+        return rows * V * 4 + static
 
     def release_kv_memory(self) -> None:
         """Free the KV pool's (and the draft pool's) device memory between
@@ -496,8 +512,9 @@ class ModelRunner:
 
     # host-batch forms of the four (a round graph's two packed copies, or
     # eagerly one copy per array, as step_host)
-    def step_with_hidden_host(self, hb):
-        return self.step_with_hidden(hb.to_device(self.device))
+    def step_with_hidden_host(self, hb, vocab_mask=None):
+        mask = None if vocab_mask is None else self._upload(vocab_mask)
+        return self.step_with_hidden(hb.to_device(self.device), mask)
 
     def eagle_step_host(self, hb, prev_hidden, gamma: int):
         return self.eagle_step(hb, prev_hidden, gamma)
@@ -601,25 +618,35 @@ class ModelRunner:
                 res = eagle_tree_round(*pools, self.tree_template, **opts)
         return res.accept_len, res.next_tok, res.tokens, res.next_hidden
 
-    def step_with_hidden(self, fb: ForwardArrays):
-        """Like the step, and also returns the last tokens' hidden states
-        [B, H] (seeding the EAGLE draft after a prefill)."""
-        tokens, logprobs, hidden = self._step(fb, return_hidden=True)
+    def step_with_hidden(self, fb: ForwardArrays, vocab_mask=None):
+        """Like the step (``vocab_mask``: a grammar mask or a logit bias
+        [B, V], on the device), and also returns the last tokens' hidden
+        states [B, H] (seeding the EAGLE draft after a prefill)."""
+        tokens, logprobs, hidden = self._step(fb, return_hidden=True, vocab_mask=vocab_mask)
         self._count(fb.input_ids.shape[0], fb.page_table.shape[0])
         return tokens, logprobs, hidden
 
     # ------------------------------------------------------------- step
-    def _step(self, fb: ForwardArrays, return_hidden: bool = False):
-        """The eager step (and the body a decode graph captures); with
-        ``return_hidden`` also the rows' hidden states."""
+    def _step(self, fb: ForwardArrays, return_hidden: bool = False, vocab_mask=None,
+              penalties: Optional[PenaltyArrays] = None, top_k: int = 0):
+        """The eager step (and the body a decode graph captures): (tokens,
+        logprobs), then with ``return_hidden`` the rows' hidden states, then
+        with ``top_k`` the top-k log-probs' values and ids. ``vocab_mask``
+        (a bool mask or a float32 bias [B, V]) and ``penalties`` shape the
+        sampling; the log-probs are those of the model's logits."""
         fb = self._stamp(fb)  # this runner's own scales, every step
         with torch.inference_mode():
             out = self.model(fb, self.kv_cache.buffer, attention=self.attention,
                              **({"return_hidden": True} if return_hidden else {}))
             logits, hidden = out if return_hidden else (out, None)
-            tokens = sample(logits, fb.sampling, self.generator, fb.all_greedy)
-            logprobs = compute_logprobs(logits, tokens)
-        return (tokens, logprobs, hidden) if return_hidden else (tokens, logprobs)
+            tokens = sample(logits, fb.sampling, self.generator, fb.all_greedy,
+                            vocab_mask, penalties)
+            res = (tokens, compute_logprobs(logits, tokens))
+            if return_hidden:
+                res += (hidden,)
+            if top_k:
+                res += top_logprobs(logits, top_k)
+        return res
 
     def _count(self, T: int, B: int) -> None:
         self.step_counts["decode" if T == B else "extend"] += 1
@@ -706,15 +733,91 @@ class ModelRunner:
         return tok, lp
 
     def step_host(self, hb, vocab_mask=None, penalties=None):
-        """Host-batch dispatch (one copy per array), always eager. Grammar
-        masks and penalties are ROADMAP A10."""
-        if vocab_mask is not None or penalties is not None:
-            raise NotImplementedError("vocab masks and penalties are ROADMAP A10")
-        tok, lp = self._step(hb.to_device(self.device))
+        """Host-batch dispatch of a step with host arrays: ``vocab_mask``, a
+        bool grammar mask or a float32 logit bias [B, V]; ``penalties``, a
+        ``PenaltyArrays`` histogram [B, H]: two packed copies and one per
+        array, as ``step_packed_raw``. A decode step replays its key's graph
+        on a CUDA runner, an extend runs eagerly. Returns device (tokens
+        [B], logprobs [B])."""
+        return self._step_host(hb, vocab_mask, penalties, 0)
+
+    def step_topk_host(self, hb, k: int, vocab_mask=None, penalties=None):
+        """``step_host`` that also returns the top-k log-prob values and ids
+        of each request's next-token distribution, for batches holding a
+        request with top_logprobs_num > 0. Returns device (tokens [B],
+        logprobs [B], tk_vals [B, k] f32, tk_ids [B, k] i32)."""
+        return self._step_host(hb, vocab_mask, penalties, int(k))
+
+    def _step_host(self, hb, vocab_mask, penalties, k: int):
+        ints, floats, shapes = hb.pack()
+        all_greedy = bool(np.all(hb.sampling.temperature[: len(hb.reqs)] <= 0.0))
+        if self.graphs is not None and hb.T == hb.B:
+            out = self.graphs.step(ints, floats, shapes, all_greedy, vocab_mask=vocab_mask,
+                                   penalties=penalties, top_k=k)
+        else:
+            dev = self._upload
+            fb = self._unpack_fb(dev(ints), dev(floats), *shapes, len(hb.reqs), all_greedy)
+            out = self._step(fb, vocab_mask=None if vocab_mask is None else dev(vocab_mask),
+                             penalties=(None if penalties is None
+                                        else PenaltyArrays(*map(dev, penalties))),
+                             top_k=k)
         self._count(hb.T, hb.B)
         if hb.mode == ForwardMode.DECODE:
-            self._chain_tokens = tok
-        return tok, lp
+            self._chain_tokens = out[0]
+        return out
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device, copied without waiting on the host
+        (``torch.as_tensor(a, device=...)`` synchronizes)."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, non_blocking=True)
+
+    # ------------------------------------------------------------- score / encode
+    def score_step(self, fb: ForwardArrays, targets) -> torch.Tensor:
+        """Teacher-forced input log-probs: log p(targets[t] | tokens <= t)
+        for every flat row t of an extend batch, [T] float32 (rows whose
+        target is the next request's first token, or padding, are dropped
+        on the host). Eager; writes the batch's KV."""
+        return self._score(fb, targets, 0)[0]
+
+    def score_step_host(self, hb, targets) -> torch.Tensor:
+        return self.score_step(hb.to_device(self.device), targets)
+
+    def score_topk_host(self, hb, targets, k: int):
+        """Teacher-forced input log-probs with each row's top-k: (tok_lp
+        [T], tk_vals [T, k], tk_ids [T, k])."""
+        return self._score(hb.to_device(self.device), targets, int(k))
+
+    def _score(self, fb: ForwardArrays, targets, k: int):
+        targets = torch.as_tensor(np.asarray(targets), device=self.device).long()
+        fb = self._stamp(fb)
+        with torch.inference_mode():
+            logits = self.model(fb, self.kv_cache.buffer, attention=self.attention,
+                                all_logits=True)
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            tok_lp = torch.gather(lp, 1, targets[:, None])[:, 0]
+            res = (tok_lp,)
+            if k:
+                vals, idx = torch.topk(lp, k, dim=-1)
+                res += (vals, idx.to(torch.int32))
+        self._count(fb.input_ids.shape[0], fb.page_table.shape[0])
+        return res
+
+    def encode_step(self, fb: ForwardArrays) -> torch.Tensor:
+        """Embedding forward: [B, H] float32 pooled embeddings, each
+        request's last token's final-normed hidden state over its L2 norm
+        (``forward_embedding``). Eager; writes the batch's KV."""
+        if not hasattr(self.model, "forward_embedding"):
+            raise NotImplementedError(
+                f"{self.model_config.architecture} has no embedding forward (encode)")
+        fb = self._stamp(fb)
+        with torch.inference_mode():
+            emb = self.model.forward_embedding(fb, self.kv_cache.buffer,
+                                               attention=self.attention)
+        self._count(fb.input_ids.shape[0], fb.page_table.shape[0])
+        return emb
+
+    def encode_step_host(self, hb) -> torch.Tensor:
+        return self.encode_step(hb.to_device(self.device))
 
     @staticmethod
     def read_round(*arrays):

@@ -3,8 +3,10 @@ semi_pd_tpu/runtime/req.py).
 
 Host-side only: tokens and page lists are python/numpy; device state lives
 in the shared KV pool addressed through ``pages``. ``spec_hidden`` seeds
-EAGLE's draft. The grammar, LoRA, multimodal and DP-attention fields are
-not in this slice.
+EAGLE's draft; ``grammar`` is the request's grammar cursor
+(constrained/grammar.py), ``kv_debt`` the jump-forward tokens whose KV is
+owed. The LoRA, multimodal, detokenizer and DP-attention fields are not in
+this slice.
 """
 
 from __future__ import annotations
@@ -37,7 +39,9 @@ class Req:  # batch membership by object, and dicts key on rid
     output_ids: List[int] = dataclasses.field(default_factory=list)
     output_logprobs: List[float] = dataclasses.field(default_factory=list)
     return_logprob: bool = False
-    top_logprobs_num: int = 0  # refused by the scheduler (ROADMAP A10)
+    top_logprobs_num: int = 0
+    # per generated position: ([top-k logprobs], [top-k token ids])
+    output_top_logprobs: List[Any] = dataclasses.field(default_factory=list)
 
     # Memory state (single-owner: assigned by the scheduler)
     req_slot: Optional[int] = None  # row in ReqToPagePool
@@ -48,12 +52,15 @@ class Req:  # batch membership by object, and dicts key on rid
     # Prefill progress (chunked prefill)
     prefilled_len: int = 0  # prompt tokens whose KV is already in the pool
     cached_tokens: int = 0  # prefix tokens reused from the radix cache
+    # Output tokens emitted WITHOUT a model forward (grammar jump-forward);
+    # their KV is owed and back-filled by an extend before the next decode.
+    kv_debt: int = 0
 
     # Lifecycle
     finish_reason: FinishReason = FinishReason.NONE
     # Bumped whenever host state diverges from in-flight device steps
-    # (retraction): ring entries capture the epoch at dispatch and discard
-    # rows whose request has since moved on.
+    # (retraction, jump-forward re-queue): ring entries capture the epoch at
+    # dispatch and discard rows whose request has since moved on.
     epoch: int = 0
     n_retracted_output: int = 0  # generated tokens folded into input by retraction
     queue_time: float = dataclasses.field(default_factory=time.monotonic)
@@ -61,6 +68,10 @@ class Req:  # batch membership by object, and dicts key on rid
     finish_time: Optional[float] = None
 
     decoded_text: str = ""
+
+    # Grammar-constrained decoding state (set when sampling_params has a
+    # json_schema / regex / ebnf / structural_tag)
+    grammar: Any = None
 
     # EAGLE: the target's hidden state [H] (float32 numpy) at the last
     # committed token, which seeds the next round's draft; None until the
@@ -89,7 +100,7 @@ class Req:  # batch membership by object, and dicts key on rid
         """Tokens whose KV currently sits in the pool. The most recently
         sampled token's KV is written by the *next* decode step (its embedding
         is that step's input), hence the -1."""
-        return self.prefilled_len + max(0, len(self.output_ids) - 1)
+        return self.prefilled_len + max(0, len(self.output_ids) - 1) - self.kv_debt
 
     @property
     def prefill_remaining(self) -> int:
@@ -112,6 +123,12 @@ class Req:  # batch membership by object, and dicts key on rid
             return
         if n_out < sp.min_new_tokens:
             return
+        if self.grammar is not None and self.grammar.finished:
+            # the matcher terminated: no further token is grammatical (the
+            # sampler skips a finished grammar's mask, so decoding on would
+            # append unconstrained tokens to a valid match)
+            self.finish_reason = FinishReason.STOP_TOKEN
+            return
         last = self.output_ids[-1] if self.output_ids else None
         if last is not None:
             if not sp.ignore_eos and last in self.eos_token_ids:
@@ -128,6 +145,7 @@ class Req:  # batch membership by object, and dicts key on rid
         self.n_retracted_output += len(self.output_ids)
         self.output_ids = []
         self.prefilled_len = 0
+        self.kv_debt = 0
         self.pages = []
         self.n_prefix_pages = 0
         self.req_slot = None

@@ -26,11 +26,18 @@ NGRAM and EAGLE chain and tree rounds (NEXTN taken as EAGLE, with the
 runner's NextN draft on a DeepSeek target), each decode tick flushing the
 ring and then speculating for the whole running batch (each round's
 results read back in one device->host copy), EAGLE's extends returning
-the hidden state that seeds the draft. Not in this slice: HiCache
-(ROADMAP A15), grammar masks,
-jump-forward, penalties, top-k logprobs and logit processors (A10) —
-requests needing them are refused at ``add_request`` — and DP-attention
-partitions (A15).
+the hidden state that seeds the draft. Constrained and penalized
+sampling: a batch holding a grammar request carries the [B, V] vocab mask
+(``_vocab_mask``; a float32 bias instead when a custom logit processor is
+active, the grammar's bans folded in as -inf), a penalized one the [B,
+PENALTY_HIST] token histogram (``_penalty_arrays``); such steps and top-k
+log-prob steps run synchronously (``runner.step_host`` /
+``step_topk_host``), their decode batches never chained; a speculating
+batch holding such a request falls back to a plain decode step; a grammar
+whose next tokens are forced emits them without forwards (jump-forward,
+``_maybe_jump_forward``) and the request re-queues as a partial prefill
+owing their KV (``_fold_refill_parked``). Not in this slice: HiCache and
+DP-attention partitions (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from collections import deque
+from collections import Counter, deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,6 +53,7 @@ import numpy as np
 from semi_pd_tpu_torch.config.server_args import ServerArgs
 from semi_pd_tpu_torch.mem.chunk_cache import ChunkCache
 from semi_pd_tpu_torch.mem.radix_cache import RadixCache
+from semi_pd_tpu_torch.ops.sampling import PENALTY_HIST, PenaltyArrays
 from semi_pd_tpu_torch.runtime.batch import (
     HostBatch,
     build_decode_batch,
@@ -57,6 +65,7 @@ from semi_pd_tpu_torch.runtime.forward_batch import ForwardMode
 from semi_pd_tpu_torch.runtime.req import FinishReason, Req
 from semi_pd_tpu_torch.runtime.schedule_policy import PrefillAdder, sort_waiting_queue
 from semi_pd_tpu_torch.runtime.speculative import ngram_draft
+from semi_pd_tpu_torch.sampling.logit_processor import resolve_processor
 
 logger = logging.getLogger(__name__)
 
@@ -74,20 +83,15 @@ class _RingEntry:
     done_flags: Optional[List[bool]] = None  # extend only: prompt completed
     t_dispatch: float = 0.0
     hidden: Optional[np.ndarray] = None  # EAGLE extend: [B, H] hidden states
+    tk_vals: Optional[np.ndarray] = None  # [B, k] top-k logprobs (sync only)
+    tk_ids: Optional[np.ndarray] = None  # [B, k] top-k token ids
 
 
-def unsupported_reason(req: Req) -> Optional[str]:
-    """Why this slice cannot serve ``req`` as asked, or None."""
-    sp = req.sampling_params
-    if sp.needs_penalties:
-        return "frequency/presence/repetition penalties are ROADMAP A10"
-    if sp.needs_grammar:
-        return "grammar-constrained decoding (json_schema/regex/ebnf/structural_tag) is ROADMAP A10"
-    if sp.custom_logit_processor is not None:
-        return "custom logit processors are ROADMAP A10"
-    if req.top_logprobs_num:
-        return "top_logprobs are ROADMAP A10"
-    return None
+def _host_step(req: Req) -> bool:
+    """A request whose next step needs host state the device does not have
+    (its grammar's mask, its penalty histogram, a processor's bias): its
+    decode steps are never chained and never speculated."""
+    return req.grammar is not None or req.sampling_params.needs_per_step_host
 
 
 class Scheduler:
@@ -180,15 +184,17 @@ class Scheduler:
         self._last_stats_log = time.monotonic()
         self.n_finished = 0
         self.n_retracted = 0
+        self.n_jump_tokens = 0
+        # Reqs that emitted grammar-forced tokens without forwards; folded
+        # into a KV back-fill extend at the top of the next tick
+        self._refill_parked: List[Req] = []
+        self._penalty_trunc_warned = False
         self.n_cached_prefix_tokens = 0
         self.n_prefill_tokens = 0
         self.n_decode_tokens = 0
 
     # ================================================================ API
     def add_request(self, req: Req) -> None:
-        reason = unsupported_reason(req)
-        if reason is not None:
-            raise NotImplementedError(f"rid={req.rid}: {reason}")
         if len(req.input_ids) >= self.runner.max_context_len:
             if self.args.allow_auto_truncate:
                 keep = self.runner.max_context_len - 1
@@ -204,11 +210,15 @@ class Scheduler:
         self.waiting.append(req)
 
     def has_work(self) -> bool:
-        return bool(self.waiting or self.running or self._ring or self._held)
+        return bool(self.waiting or self.running or self._ring or self._held
+                    or self._refill_parked)
 
     def drain(self) -> None:
-        """Read back in-flight steps whose requests have all finished."""
-        if (self._ring or self._held) and not (self.running or self.waiting):
+        """Release the requests a jump-forward finished (the next tick would)
+        and read back in-flight steps whose requests have all finished."""
+        self._fold_refill_parked()
+        if (self._ring or self._held) and not (
+                self.running or self.waiting or self._refill_parked):
             self._flush_ring()
 
     # ================================================================ tick
@@ -229,6 +239,7 @@ class Scheduler:
                 self.n_cached_prefix_tokens, self.n_retracted,
             )
             self._last_stats_log = now
+        self._fold_refill_parked()
         if self.args.enable_semi_pd:
             return self._tick_semi_pd()
         return self._tick_colocated()
@@ -428,9 +439,82 @@ class Scheduler:
             req.pages.extend(pages.tolist())
         return True
 
+    PENALTY_HIST = PENALTY_HIST  # token-histogram width (ops/sampling.py)
+
+    def _penalty_arrays(self, reqs: List[Req], B: int) -> Optional[PenaltyArrays]:
+        """Compact per-request token histograms (numpy [B, H]) for a
+        penalized batch, or None when no request uses penalties."""
+        if not any(r.sampling_params.needs_penalties for r in reqs):
+            return None
+        H = self.PENALTY_HIST
+        ids = np.full((B, H), -1, np.int32)
+        counts = np.zeros((B, H), np.int32)
+        in_prompt = np.zeros((B, H), bool)
+        for i, r in enumerate(reqs):
+            if not r.sampling_params.needs_penalties:
+                continue
+            out_c = Counter(r.full_output_ids())
+            prompt_set = set(r.input_ids[: r.origin_prompt_len])
+            # generated-token counts first: truncation drops prompt-set
+            # entries, keeping frequency penalties exact for long outputs
+            all_toks = list(dict.fromkeys(list(out_c.keys()) + list(prompt_set)))
+            toks = all_toks[:H]
+            if len(all_toks) > H and not self._penalty_trunc_warned:
+                self._penalty_trunc_warned = True
+                logger.warning("penalty histogram truncated to %d of %d distinct tokens "
+                               "(prompt-set entries dropped first)", H, len(all_toks))
+            for j, t in enumerate(toks):
+                ids[i, j] = t
+                counts[i, j] = out_c.get(t, 0)
+                in_prompt[i, j] = t in prompt_set
+        return PenaltyArrays(hist_ids=ids, hist_counts=counts, hist_prompt=in_prompt)
+
+    def _vocab_mask(self, reqs: List[Req], B: int) -> Optional[np.ndarray]:
+        """Dense [B, V] grammar mask (bool), or None when no request is
+        constrained or processed. When a custom logit processor is active
+        the return is a float32 additive bias instead, the grammar's bans
+        folded in as -inf; the sampler picks where-vs-add by dtype."""
+        has_grammar = any(r.grammar is not None for r in reqs)
+        has_custom = any(r.sampling_params.custom_logit_processor is not None for r in reqs)
+        if not has_grammar and not has_custom:
+            return None
+        V = self.runner.model_config.vocab_size
+        if not has_custom:
+            mask = np.ones((B, V), dtype=bool)
+            for i, r in enumerate(reqs):
+                if r.grammar is not None and not r.grammar.finished:
+                    m = r.grammar.vocab_mask()
+                    mask[i, : len(m)] = m
+                    mask[i, len(m):] = False
+            return mask
+        bias = np.zeros((B, V), dtype=np.float32)
+        for i, r in enumerate(reqs):
+            if r.grammar is not None and not r.grammar.finished:
+                m = r.grammar.vocab_mask()
+                bias[i, : len(m)][~m] = -np.inf
+                bias[i, len(m):] = -np.inf
+            name = r.sampling_params.custom_logit_processor
+            if name is not None:
+                row = resolve_processor(name).bias(r.output_ids, r.sampling_params.custom_params, V)
+                if row is not None:
+                    merged = bias[i] + row
+                    if np.isneginf(merged).all():
+                        # grammar x processor bans everything (a thinking
+                        # budget forcing a token the grammar forbids): the
+                        # grammar wins, an all -inf row would NaN the softmax
+                        logger.warning("custom logit processor %r bans every grammar-legal "
+                                       "token for rid=%s; ignoring its bias this step",
+                                       name, r.rid)
+                    else:
+                        bias[i] = merged
+        return bias
+
     def _run_extend(self, admitted: List[Tuple[Req, int]]) -> List[Tuple[Req, int]]:
-        """Dispatch a prefill/extend step onto the in-flight ring; under
-        EAGLE synchronously, with the hidden states that seed the draft."""
+        """Dispatch a prefill/extend step. The common (unconstrained) path
+        pushes the result onto the in-flight ring; the grammar, penalty,
+        top-k and EAGLE paths stay synchronous (their host state depends on
+        the tokens), EAGLE's returning the hidden states that seed the
+        draft."""
         hb = build_extend_batch(
             admitted,
             self.runner.req_pool.page_table,
@@ -439,14 +523,27 @@ class Scheduler:
             self.b_buckets,
             self.p_buckets,
         )
+        reqs = [r for r, _ in admitted]
+        mask = self._vocab_mask(reqs, hb.B)
+        pen = self._penalty_arrays(reqs, hb.B)
+        topk = max((r.top_logprobs_num for r in reqs), default=0)
         out = []
-        hidden = None
-        if self.spec_algo == "EAGLE":
+        hidden = tkv = tki = None
+        sync = True
+        if self.spec_algo == "EAGLE" and pen is None and topk == 0:
             out += self._flush_ring()  # keep the token stream in order
-            tokens, logprobs, hidden = self.runner.step_with_hidden_host(hb)
-            hidden = hidden.float().cpu().numpy()
-        else:
+            tokens, logprobs, hidden = self.runner.step_with_hidden_host(hb, mask)
+        elif mask is None and pen is None and topk == 0:
             tokens, logprobs = self.runner.step_packed(hb)
+            sync = False
+        elif topk > 0:
+            # top-k log-probs ride their own step variant, synchronously:
+            # the [B, k] extras stay off the ring's readback
+            out += self._flush_ring()
+            tokens, logprobs, tkv, tki = self.runner.step_topk_host(hb, topk, mask, pen)
+        else:
+            out += self._flush_ring()
+            tokens, logprobs = self.runner.step_host(hb, mask, pen)
         self._note_dispatch()
         self.n_prefill_tokens += sum(n for _, n in admitted)
 
@@ -461,12 +558,13 @@ class Scheduler:
                 self.waiting.appendleft(req)
         entry = _RingEntry(
             kind="extend", hb=hb, tokens=tokens, logprobs=logprobs,
-            epochs=[r.epoch for r, _ in admitted], admitted=list(admitted),
-            done_flags=done_flags, hidden=hidden,
+            epochs=[r.epoch for r in reqs], admitted=list(admitted),
+            done_flags=done_flags,
         )
-        if hidden is not None:
-            toks, lps = self.runner.read_results([tokens], [logprobs])
-            return out + self._process_extend_entry(entry, toks[0], lps[0])
+        if sync:  # one device->host copy of the step's results
+            toks, lps, entry.hidden, entry.tk_vals, entry.tk_ids = self.runner.read_round(
+                tokens, logprobs, hidden, tkv, tki)
+            return out + self._process_extend_entry(entry, toks, lps)
         return self._push_entry(entry)
 
     def _process_extend_entry(
@@ -483,8 +581,9 @@ class Scheduler:
             req.output_ids.append(tok)
             if e.hidden is not None:
                 req.spec_hidden = e.hidden[i]
-            if req.return_logprob and logprobs is not None:
-                req.output_logprobs.append(float(logprobs[i]))
+            if req.grammar is not None:
+                req.grammar.accept_token(tok)
+            self._record_logprobs(req, e, i, logprobs)
             if req.first_token_time is None:
                 req.first_token_time = time.monotonic()
             req.check_finished()
@@ -493,7 +592,20 @@ class Scheduler:
             else:
                 self.running.append(req)
             out.append((req, tok))
+            self._maybe_jump_forward(req, out)
         return out
+
+    @staticmethod
+    def _record_logprobs(req: Req, e: _RingEntry, i: int,
+                         logprobs: Optional[np.ndarray]) -> None:
+        """Row ``i``'s log-prob, and its top-k (values, ids) when the step
+        extracted them, on a request that asked."""
+        if req.return_logprob and logprobs is not None:
+            req.output_logprobs.append(float(logprobs[i]))
+            if req.top_logprobs_num and e.tk_vals is not None:
+                n = req.top_logprobs_num
+                req.output_top_logprobs.append(
+                    (e.tk_vals[i][:n].tolist(), e.tk_ids[i][:n].tolist()))
 
     # ================================================================ ring
     def _note_dispatch(self) -> None:
@@ -620,7 +732,15 @@ class Scheduler:
         """When the running batch is unchanged since the newest in-flight
         decode, dispatch the NEXT step chained to its on-device tokens;
         otherwise flush, then dispatch fresh from host state. Speculating,
-        flush, then run one speculative round for the running batch."""
+        flush, then run one speculative round for the running batch. A
+        batch with a top-k log-prob request runs a synchronous top-k step
+        instead, before speculation (no per-draft top-k is extracted)."""
+        topk = max((r.top_logprobs_num for r in self.running), default=0)
+        if topk > 0:
+            out = self._flush_ring()
+            if self.running:
+                out += self._decode_topk(topk)
+            return out
         if self.spec_gamma > 0:
             out = self._flush_ring()
             if self.running:
@@ -644,9 +764,11 @@ class Scheduler:
     def _run_eagle_decode(self) -> List[Tuple[Req, int]]:
         """EAGLE round (speculative/eagle.py). Same batch geometry as the
         NGRAM verify window; drafts are generated on the device. A tree
-        round when the runner has a tree and every request is greedy."""
+        round when the runner has a tree and every request is greedy. A
+        batch holding a grammar, penalized or processed request, or one
+        whose draft has no hidden state yet, takes a plain decode step."""
         g = self.spec_gamma
-        if any(r.spec_hidden is None for r in self.running):
+        if any(_host_step(r) or r.spec_hidden is None for r in self.running):
             return self._fallback_plain_decode()
 
         tree = self.runner.tree_template
@@ -746,8 +868,12 @@ class Scheduler:
     def _run_spec_decode(self) -> List[Tuple[Req, int]]:
         """NGRAM speculative step: draft, verify in one forward, accept up to
         gamma+1 tokens per request (chain drafts, no tree, no draft
-        model)."""
+        model). A batch holding a grammar, penalized or processed request
+        takes a plain decode step: its masks depend on each accepted
+        token."""
         g = self.spec_gamma
+        if any(_host_step(r) for r in self.running):
+            return self._fallback_plain_decode()
         drafts = [ngram_draft(r, g) for r in self.running]
         # pages covering the last token + the drafts; even an empty draft
         # needs a page for the bonus token at a page boundary: plain decode
@@ -763,9 +889,35 @@ class Scheduler:
         accept_len, next_tok = self.runner.spec_step_host(hb, drafts_np, draft_lens, g)
         return self._commit_spec(hb.reqs, accept_len, next_tok, drafts_np)
 
+    def _decode_topk(self, k: int) -> List[Tuple[Req, int]]:
+        """Synchronous decode step with the top-k log-probs extracted on the
+        device. Called with the ring flushed; its results are processed at
+        once (the ring's readback carries tokens and log-probs only)."""
+        if not self._prepare_decode_pages(lag=0):
+            return []
+        hb = build_decode_batch(
+            self.running,
+            self.runner.req_pool.page_table,
+            self.page_size,
+            self.b_buckets,
+            self.p_buckets,
+        )
+        mask = self._vocab_mask(self.running, hb.B)
+        pen = self._penalty_arrays(self.running, hb.B)
+        out = self.runner.step_topk_host(hb, k, mask, pen)
+        self._note_dispatch()
+        toks, lps, tkv, tki = self.runner.read_round(*out)
+        e = _RingEntry(kind="decode", hb=hb, tokens=out[0], logprobs=out[1],
+                       epochs=[r.epoch for r in hb.reqs], tk_vals=tkv, tk_ids=tki)
+        # a synchronous step's wall is no flush cycle: keep it out of the
+        # cost EWMAs that drive the semi-PD chunk budget
+        self._cycle_t0 = None
+        return self._process_decode_entry(e, toks, lps)
+
     def _dispatch_decode(self) -> Optional[_RingEntry]:
-        """Build + dispatch a decode step from host state. Called with the
-        ring flushed."""
+        """Build + dispatch a decode step from host state: with a grammar
+        mask, a logit bias or penalties through ``step_host``. Called with
+        the ring flushed."""
         if not self._prepare_decode_pages(lag=0):
             return None
         hb = build_decode_batch(
@@ -775,7 +927,12 @@ class Scheduler:
             self.b_buckets,
             self.p_buckets,
         )
-        tokens, logprobs = self.runner.step_packed(hb)
+        mask = self._vocab_mask(self.running, hb.B)
+        pen = self._penalty_arrays(self.running, hb.B)
+        if mask is None and pen is None:
+            tokens, logprobs = self.runner.step_packed(hb)
+        else:
+            tokens, logprobs = self.runner.step_host(hb, mask, pen)
         self._last_decode = (hb, tokens)
         self._decode_lag = 1
         return _RingEntry(
@@ -785,12 +942,16 @@ class Scheduler:
 
     def _try_dispatch_chained(self) -> Optional[_RingEntry]:
         """Dispatch step N+1 with step N's device tokens as inputs, when the
-        batch is provably identical. ``lag`` is the number of in-flight
-        decode steps this batch is ahead of host state."""
+        batch is provably identical and needs no host state (a grammar's
+        or a penalty's inputs depend on step N's token, which the host has
+        not read). ``lag`` is the number of in-flight decode steps this
+        batch is ahead of host state."""
         if self._last_decode is None or not self.running:
             return None
         hb_prev, dev_tokens = self._last_decode
         if hb_prev.mode != ForwardMode.DECODE or hb_prev.reqs != self.running:
+            return None
+        if any(_host_step(r) for r in self.running):
             return None
         lag = self._decode_lag
         if not self._prepare_decode_pages(lag=lag, allow_retract=False):
@@ -819,20 +980,23 @@ class Scheduler:
         out = []
         for i, req in enumerate(e.hb.reqs):
             if req.epoch != e.epochs[i] or req.finished:
-                # finished/aborted/retracted at an earlier in-flight step:
+                # finished/retracted/jumped at an earlier in-flight step:
                 # this step's token for it is discarded
                 continue
             tok = int(tokens[i])
             req.output_ids.append(tok)
             self.n_decode_tokens += 1
-            if req.return_logprob and logprobs is not None:
-                req.output_logprobs.append(float(logprobs[i]))
+            if req.grammar is not None:
+                req.grammar.accept_token(tok)
+            self._record_logprobs(req, e, i, logprobs)
             req.check_finished()
             out.append((req, tok))
             if req.finished:
                 if req in self.running:
                     self.running.remove(req)
                 self._release_finished(req)
+            else:
+                self._maybe_jump_forward(req, out)
         return out
 
     def _prepare_decode_pages(self, lag: int = 0, allow_retract: bool = True) -> bool:
@@ -893,6 +1057,63 @@ class Scheduler:
         req.n_prefix_pages = 0
         req.req_slot = None
         req.last_node = None
+
+    # ================================================================ jump-forward
+    def _maybe_jump_forward(self, req: Req, out: list) -> None:
+        """After a sampled token advanced the grammar, emit its forced-token
+        chain without model forwards. The request is parked; its KV debt is
+        back-filled by an extend before it decodes again."""
+        if (
+            self.args.disable_jump_forward
+            or req.grammar is None
+            or req.grammar.finished
+            or req.finished
+            # a custom logit processor must see every emitted position; the
+            # grammar's forced chain would bypass its bias
+            or req.sampling_params.custom_logit_processor is not None
+        ):
+            return
+        jf = req.grammar.jump_forward_tokens()
+        if len(jf) < 2:
+            return
+        for tok in jf:
+            req.output_ids.append(tok)
+            req.kv_debt += 1
+            req.grammar.accept_token(tok)
+            self.n_jump_tokens += 1
+            out.append((req, tok))
+            req.check_finished()
+            if req.finished:
+                break
+        if req in self.running:
+            self.running.remove(req)
+        # any in-flight step that sampled for this request is stale: the
+        # jumped tokens supersede the chained continuation
+        req.epoch += 1
+        self._refill_parked.append(req)
+
+    def _fold_refill_parked(self) -> None:
+        """Move jump-forward requests to the waiting queue as partial
+        prefills: generated tokens fold into the input (as in retraction)
+        but memory and valid KV are kept; only the debt tokens get
+        prefilled."""
+        if not self._refill_parked:
+            return
+        for req in self._refill_parked:
+            if req.finished:
+                # finished during the jump: release with kv_len already
+                # debt-adjusted for the radix insert
+                self._release_finished(req)
+                continue
+            kv_valid = req.kv_len
+            req.input_ids = req.all_token_ids()
+            req.n_retracted_output += len(req.output_ids)
+            req.output_ids = []
+            req.prefilled_len = kv_valid
+            req.kv_debt = 0
+            req.spec_hidden = None
+            self.waiting.appendleft(req)
+        self._refill_parked = []
 
     def _release_finished(self, req: Req) -> None:
         """Finished: re-insert KV into the prefix cache, release the rest."""

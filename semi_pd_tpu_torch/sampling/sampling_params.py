@@ -1,9 +1,10 @@
 """User-facing sampling parameters (copy of
 semi_pd_tpu/sampling/sampling_params.py).
 
-The grammar, penalty and logit-processor fields are kept so that a request
-carrying them is recognised and rejected by the scheduler (ROADMAP A10)
-instead of being silently served without them."""
+Validation and defaults; the same field names as the reference's, so
+OpenAI-adapter code maps 1:1. The grammar, penalty and logit-processor
+fields are served: ``needs_penalties`` and ``needs_per_step_host`` route a
+request to the masked or penalized step (runtime/scheduler.py)."""
 
 from __future__ import annotations
 
@@ -25,14 +26,19 @@ class SamplingParams:
     stop: Optional[Union[str, List[str]]] = None
     stop_token_ids: Optional[List[int]] = None
     ignore_eos: bool = False
-    no_stop_trim: bool = False
+    no_stop_trim: bool = False  # keep matched stop token/str in the text
     skip_special_tokens: bool = True
     spaces_between_special_tokens: bool = True
     n: int = 1
+    # Constrained decoding (reference srt/constrained/)
     json_schema: Optional[str] = None
     regex: Optional[str] = None
     ebnf: Optional[str] = None
+    # JSON string {"structures": [{begin, schema, end}], "triggers": [...]}
+    # (reference sampling_params.py:72 + xgrammar_backend.py:162)
     structural_tag: Optional[str] = None
+    # Named custom logit processor + its per-request params (TPU-native form
+    # of reference custom_logit_processor.py — see sampling/logit_processor.py)
     custom_logit_processor: Optional[str] = None
     custom_params: Optional[Dict[str, Any]] = None
 
@@ -66,17 +72,16 @@ class SamplingParams:
         return cls(**{k: v for k, v in d.items() if k in fields})
 
     @property
+    def needs_per_step_host(self) -> bool:
+        """True when sampling needs host-computed per-step inputs (penalty
+        histograms or a custom logit-processor bias) — such requests take the
+        synchronous decode path instead of the chained overlap ring."""
+        return self.needs_penalties or self.custom_logit_processor is not None
+
+    @property
     def needs_penalties(self) -> bool:
         return (
             self.frequency_penalty != 0.0
             or self.presence_penalty != 0.0
             or self.repetition_penalty != 1.0
-        )
-
-    @property
-    def needs_grammar(self) -> bool:
-        return any(
-            x is not None
-            for x in (self.json_schema, self.regex, self.ebnf,
-                      self.structural_tag)
         )

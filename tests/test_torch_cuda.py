@@ -29,7 +29,10 @@ eager round, bitwise, pools included (EAGLE chain and tree, NextN chain and
 tree, NGRAM's verify; a small target and the pool geometry of each
 full-width speculating path), with no host sync in a replay, the
 speculating Engine on round graphs against its eager serve, and a round
-whose capture fails raising. Every kernel is held with each (q, KV) pair it is
+whose capture fails raising; the decode step variants (a grammar mask, a
+logit bias, penalties, a top-k, and all at once) replayed bitwise against
+their eager steps, the plain key unchanged beside them, and a constrained
+batch served on graphs as eagerly. Every kernel is held with each (q, KV) pair it is
 built for, fp8 e4m3 and e5m2 under bf16 q included. This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
@@ -1210,6 +1213,188 @@ def test_engine_serves_the_same_tokens_on_graphs_and_eagerly(cuda_device):
         else:
             assert eng.runner.graphs is None
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------------------------ step variants
+# a decode step's grammar mask, logit bias, penalties and top-k (the
+# scheduler's step_host / step_topk_host), each replayed under its own key
+STEP_VARIANTS = {
+    "bool": dict(mask="bool"), "bias": dict(mask="bias"), "penalties": dict(penalties=True),
+    "top_k": dict(top_k=5), "all": dict(mask="bias", penalties=True, top_k=3),
+    "sampled_all": dict(mask="bool", penalties=True, top_k=2, sampled=True),
+}
+
+
+def _variant_step(eng, lens, seed, mask=None, penalties=False, top_k=0, sampled=False):
+    """A decode batch of requests with the given KV lengths (three
+    generated tokens each, penalized), and a step function running it with
+    the variant's host arrays: ``step()`` -> the runner's outputs."""
+    from semi_pd_tpu_torch.runtime.batch import build_decode_batch
+    from semi_pd_tpu_torch.runtime.req import Req
+
+    runner, sched = eng.runner, eng.scheduler
+    V = runner.model_config.vocab_size
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, n in enumerate(lens):
+        r = Req(rid=f"v{seed}-{i}", input_ids=rng.integers(0, V, size=int(n)).tolist(),
+                sampling_params=SamplingParams(temperature=1.0 if sampled else 0.0,
+                                               repetition_penalty=1.3, frequency_penalty=0.2))
+        r.req_slot = runner.req_pool.alloc()
+        pages = runner.page_allocator.alloc(-(-(int(n) + 1) // PS))
+        r.pages = pages.tolist()
+        runner.req_pool.write(r.req_slot, 0, pages)
+        r.prefilled_len = r.prompt_len - 2
+        r.output_ids = rng.integers(0, V, size=3).tolist()
+        reqs.append(r)
+    hb = build_decode_batch(reqs, runner.req_pool.page_table, PS, sched.b_buckets,
+                            sched.p_buckets)
+    vm = None
+    if mask == "bool":
+        vm = rng.random((hb.B, V)) < 0.2
+    elif mask == "bias":
+        vm = rng.uniform(-4, 4, (hb.B, V)).astype(np.float32)
+        vm[rng.random((hb.B, V)) < 0.3] = -np.inf
+    pen = sched._penalty_arrays(reqs, hb.B) if penalties else None
+    if top_k:
+        return hb, lambda: runner.step_topk_host(hb, top_k, vm, pen)
+    return hb, lambda: runner.step_host(hb, vm, pen)
+
+
+def _eager_variant(runner, step):
+    graphs, runner.graphs = runner.graphs, None
+    try:
+        return step()
+    finally:
+        runner.graphs = graphs
+
+
+@pytest.mark.parametrize("variant", sorted(STEP_VARIANTS))
+def test_step_variant_replays_the_eager_step_bitwise(cuda_device, variant):
+    """On the 8B's path (the 5D pool at head_dim 128, fp8_e4m3 KV) a decode
+    step with a grammar mask, a logit bias, penalties, a top-k, or several
+    at once, replayed from its own key's graph, gives the eager step's
+    outputs bitwise (sampled rows from the same generator state), on two
+    batches of one key; the capture counts nothing and its replay the
+    path's L decode launches; the key is the plain one with the variant
+    after it; neither the eager step nor a replay syncs the host."""
+    from semi_pd_tpu_torch.runtime.cuda_graph_runner import StepVariant, decode_key
+
+    eng = _graph_engine(cuda_device, "aligned_fp8")
+    runner = eng.runner
+    dec = GRAPH_PATHS["aligned_fp8"][2]
+    L = runner.model_config.num_hidden_layers
+    kw = STEP_VARIANTS[variant]
+    for k in KERNELS.values():
+        k.launches = 0
+    for seed, lens in ((1, [33, 260, 9, 77, 3, 140]), (2, [300, 17, 64, 4, 199])):
+        hb, step = _variant_step(eng, lens, seed, **kw)
+        state = runner.generator.get_state()
+        want = _eager_variant(runner, step)
+        runner.generator.set_state(state)
+        got = step()
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == (4 if kw.get("top_k") else 2)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert torch.isfinite(got[1]).all()
+    key = decode_key(hb.pack()[2], not kw.get("sampled"),
+                     StepVariant(kw.get("mask"), kw.get("penalties", False), kw.get("top_k", 0)))
+    assert list(runner.graphs.graphs) == [key] and len(key) == 5
+    (g,) = runner.graphs.graphs.values()
+    assert g.tally == {dec: L} and KERNELS[dec].launches == 4 * L
+    assert runner.graphs.stats["captures"] == 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _eager_variant(runner, step)
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_plain_key_unchanged_beside_the_variants(cuda_device):
+    """The plain decode step keeps its four-field key, its graph and its
+    launch tally when variant keys are captured beside it, and still
+    replays the eager step bitwise."""
+    from semi_pd_tpu_torch.runtime.cuda_graph_runner import decode_key
+
+    eng = _graph_engine(cuda_device, "aligned_fp8")
+    runner = eng.runner
+    dec = GRAPH_PATHS["aligned_fp8"][2]
+    L = runner.model_config.num_hidden_layers
+    plain = _graph_batch(eng, [33, 260, 9, 77, 1, 140], seed=1)
+    first = runner.step_packed_raw(*plain, is_decode=True)
+    key = decode_key(plain[2], True)
+    g = runner.graphs.graphs[key]
+    tally, handle = dict(g.tally), g.handle
+    for kw in STEP_VARIANTS.values():
+        hb, step = _variant_step(eng, [40, 7, 90], 3, **kw)
+        step()
+        for r in hb.reqs:  # the slots and pages go back for the next variant
+            runner.page_allocator.free(np.asarray(r.pages, np.int32))
+            runner.req_pool.free(r.req_slot)
+    assert len(runner.graphs.graphs) == 1 + len(STEP_VARIANTS)
+    assert runner.graphs.graphs[key] is g and g.handle is handle and g.tally == tally == {dec: L}
+    want = _eager_step(runner, *plain, is_decode=True)
+    got = runner.step_packed_raw(*plain, is_decode=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], first[0])
+
+
+def test_engine_serves_constrained_requests_on_graphs_as_eagerly(cuda_device):
+    """A batch of a regex, a penalized, a logit-bias and a top-k request
+    beside a plain one on the card: every decode step replayed (masked keys
+    among the graphs), and the tokens, log-probs and top-k of the same
+    Engine with decode_graphs=False; the regex output matches its
+    grammar."""
+    import re
+
+    class Tok:  # printable ASCII, then EOS
+        vocab_size = 512
+        eos_token_id = 95
+        all_special_ids = [95]
+
+        def __len__(self):
+            return 512
+
+        def decode(self, ids, **kw):
+            return "".join(chr(32 + i) for i in ids if i < 95)
+
+    cfg = dict(_llama_cfg(D_ALIGNED), dtype="bfloat16")
+    regex = r"(ab|cd)=[0-9]{2,4};"
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (20, 100, 37, 64, 9)]
+    base = dict(max_new_tokens=12, temperature=0.0)
+    sps = [dict(base, regex=regex), dict(base, repetition_penalty=1.3, ignore_eos=True),
+           dict(base, custom_logit_processor="logit_bias", ignore_eos=True,
+                custom_params={"logit_bias": {"33": 3.0}}),
+           dict(base, ignore_eos=True), dict(base, ignore_eos=True)]
+    topk = [0, 0, 0, 4, 0]
+    outs = []
+    for graphs in (True, False):
+        eng = Engine(ServerArgs(random_weights=True, page_size=PS, max_total_tokens=4096,
+                                chunked_prefill_size=64, kv_cache_dtype="fp8_e4m3",
+                                disable_outlines_disk_cache=True),
+                     ModelConfig(**cfg), tokenizer=Tok(), decode_graphs=graphs)
+        reqs = [eng.make_request(p, SamplingParams(**sp), return_logprob=True,
+                                 top_logprobs_num=k) for p, sp, k in zip(prompts, sps, topk)]
+        for r in reqs:
+            eng.scheduler.add_request(r)
+        eng._run_until_done(reqs)
+        outs.append([eng._to_output(r) for r in reqs])
+        if graphs:
+            assert eng.runner.graphs.stats["replays"] == eng.runner.step_counts["decode"] > 0
+            assert any(len(k) == 5 for k in eng.runner.graphs.graphs)
+        assert eng.flush_cache()
+    a, b = outs
+    assert [o["output_ids"] for o in a] == [o["output_ids"] for o in b]
+    for x, y in zip(a, b):
+        assert x["meta_info"]["output_logprobs"] == y["meta_info"]["output_logprobs"]
+        assert x["meta_info"]["output_top_logprobs"] == y["meta_info"]["output_top_logprobs"]
+    if a[0]["meta_info"]["finish_reason"] == "stop_token":
+        assert re.fullmatch(regex, Tok().decode(a[0]["output_ids"]))
 
 
 # ------------------------------------------------------------ speculation trees

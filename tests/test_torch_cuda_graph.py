@@ -61,16 +61,14 @@ class EagerGraphs:
         body()
 
     def capture(self, body):
-        tokens, logprobs = body()
-        outputs = (tokens.clone(), logprobs.clone())
+        outputs = tuple(t.clone() for t in body())
         return (body, outputs), outputs
 
     def replay(self, handle):
         body, outputs = handle
         with record_launches():
-            tokens, logprobs = body()
-        outputs[0].copy_(tokens)
-        outputs[1].copy_(logprobs)
+            for dst, src in zip(outputs, body()):
+                dst.copy_(src)
 
     def pool_bytes(self):
         return 0  # no graph memory on the CPU

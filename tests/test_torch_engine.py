@@ -77,15 +77,46 @@ def test_engine_greedy_tokens_match_jax(semi_pd, num_kv_heads, pool_dims):
 
 
 def test_engine_refuses_unported_sampling():
-    teng = Engine(ServerArgs(random_weights=True, device="cpu", **SERVE),
-                  ModelConfig(**CFG), device="cpu")
-    for kw in ({"repetition_penalty": 1.2}, {"regex": "a+"},
-               {"custom_logit_processor": "logit_bias"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            teng.generate(input_ids=[1, 2, 3], sampling_params=SamplingParams(**kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        teng.generate(input_ids=[1, 2, 3], top_logprobs_num=2)
-    assert teng.flush_cache()
+    """The requests this test once saw refused (a repetition penalty, a
+    regex, a logit_bias processor, top-k log-probs) are served, each beside
+    a plain request, with the JAX Engine's tokens, log-probs (1e-4) and
+    top-k ids; no request is refused for its sampling any more."""
+    from test_torch_constrained import CharTokenizer
+
+    tok = CharTokenizer(512)
+    serve = dict(SERVE, disable_outlines_disk_cache=True)
+    jeng = JaxEngine(server_args=JaxServerArgs(model_path="", random_weights=True, **serve),
+                     model_config=JaxModelConfig(**CFG), tokenizer=tok)
+    teng = Engine(ServerArgs(random_weights=True, device="cpu", **serve), ModelConfig(**CFG),
+                  tokenizer=tok, device="cpu")
+    teng.runner.model.load_jax_params(jax.tree.map(np.asarray, jeng.runner.params))
+    first, _ = _prompts()
+    for kw, k in (({"repetition_penalty": 1.2}, 0), ({"regex": "a+"}, 0),
+                  ({"custom_logit_processor": "logit_bias",
+                    "custom_params": {"logit_bias": {"65": 5.0}}}, 0), ({}, 2)):
+        sp = dict(max_new_tokens=6, temperature=0.0, **kw)
+        outs = []
+        for eng, SP in ((jeng, JaxSamplingParams), (teng, SamplingParams)):
+            reqs = [eng.make_request(input_ids=first[0], sampling_params=SP(**sp),
+                                     return_logprob=True, top_logprobs_num=k),
+                    eng.make_request(input_ids=first[2], sampling_params=SP(max_new_tokens=4, temperature=0.0),
+                                     return_logprob=True)]
+            with eng._lock:
+                for r in reqs:
+                    eng.scheduler.add_request(r)
+                eng._run_until_done(reqs)
+            outs.append([eng._to_output(r) for r in reqs])
+        jout, tout = outs
+        assert [o["output_ids"] for o in tout] == [o["output_ids"] for o in jout]
+        for j, t in zip(jout, tout):
+            np.testing.assert_allclose(t["meta_info"]["output_logprobs"],
+                                       j["meta_info"]["output_logprobs"], atol=1e-4)
+            jt, tt = j["meta_info"]["output_top_logprobs"], t["meta_info"]["output_top_logprobs"]
+            assert (tt is None) == (jt is None)
+            assert [ids for _, ids in tt or []] == [ids for _, ids in jt or []]
+        if "regex" in kw:
+            assert set(tout[0]["output_ids"]) <= {ord("a") - 32, 95}  # "a"s, then EOS
+    assert teng.flush_cache() and jeng.flush_cache()
 
 
 def test_engine_without_device_needs_cuda():
@@ -113,10 +144,18 @@ def _imports(path: pathlib.Path):
                                     "mla_decode_plans",
                                     "semi_pd_tpu_torch/runtime/cuda_graph_runner",
                                     "semi_pd_tpu_torch/utils/warmup",
-                                    "semi_pd_tpu_torch/bench_one_batch"])
+                                    "semi_pd_tpu_torch/bench_one_batch",
+                                    "semi_pd_tpu_torch/constrained/grammar",
+                                    "semi_pd_tpu_torch/constrained/regex_dfa",
+                                    "semi_pd_tpu_torch/constrained/json_schema",
+                                    "semi_pd_tpu_torch/constrained/ebnf",
+                                    "semi_pd_tpu_torch/constrained/structural_tag",
+                                    "semi_pd_tpu_torch/sampling/logit_processor",
+                                    "semi_pd_tpu_torch/ops/sampling"])
 def test_port_imports_no_jax(target):
-    """No file of the port (the decode graphs, the warmup registry and
-    bench_one_batch named on their own), and none of its card scripts
+    """No file of the port (the decode graphs, the warmup registry,
+    bench_one_batch, the constrained-decoding copies, the logit processors
+    and the sampler named on their own), and none of its card scripts
     (chip_smoke.py, serve_witness.py, fidelity_witness.py,
     decode_trace.py, extend_shapes.py, mla_decode_plans.py), imports jax
     or anything of the JAX package."""

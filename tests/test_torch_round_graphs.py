@@ -524,8 +524,11 @@ def test_pool_reserve_counts_the_round_verify(monkeypatch):
     """On the card the KV pool is sized from free memory less the graphs'
     pool: a speculating runner's holds its round's verify logits, B x W
     rows of float32 at the largest decode bucket (5 such copies; W the
-    tree's nodes, or gamma + 1), in place of the decode graphs' 8 rows a
-    request."""
+    tree's nodes, or gamma + 1), where they exceed the decode graphs' 9
+    rows a request (a decode step with a mask and penalties); and the
+    masked steps' static inputs, a float32 bias and a bool mask [B, V] and
+    the penalty histogram [B, 512] (two int32 arrays, one bool), for every
+    decode bucket."""
     import types
 
     from semi_pd_tpu_torch.runtime.model_runner import ModelRunner
@@ -534,7 +537,8 @@ def test_pool_reserve_counts_the_round_verify(monkeypatch):
     free = 40 * 2 ** 30
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (free, 80 * 2 ** 30))
     V, per_token = 64, 3 * 8 * 64 * 4 * 2  # 2 layers + the draft's, K and V
-    for spec, rows in (({}, 8 * 8), (dict(speculative_algorithm="NGRAM"), 5 * 8 * 5),
+    static = (2 + 8) * (V * (4 + 1) + 512 * (4 + 4 + 1))
+    for spec, rows in (({}, 9 * 8), (dict(speculative_algorithm="NGRAM"), 5 * 8 * 5),
                        (dict(speculative_algorithm="EAGLE", speculative_num_draft_tokens=4,
                              speculative_eagle_topk=4), 5 * 8 * 29),
                        (dict(speculative_algorithm="EAGLE", speculative_num_draft_tokens=1),
@@ -544,6 +548,6 @@ def test_pool_reserve_counts_the_round_verify(monkeypatch):
         stub = types.SimpleNamespace(model_config=cfg, device=torch.device("cuda"),
                                      _graphs_on=True, draft_model=object(), server_args=args)
         stub._graph_pool_reserve = lambda s=stub: ModelRunner._graph_pool_reserve(s)
-        assert ModelRunner._graph_pool_reserve(stub) == rows * V * 4
+        assert ModelRunner._graph_pool_reserve(stub) == rows * V * 4 + static
         got = ModelRunner._profile_kv_tokens(stub, torch.float32)
-        assert got == max(int((free - rows * V * 4) * 0.5 // per_token), 4096)
+        assert got == max(int((free - rows * V * 4 - static) * 0.5 // per_token), 4096)

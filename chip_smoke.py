@@ -104,7 +104,12 @@ each (any failure raises and exits non-zero):
              where it cuts, on the packed decode (b64, kv 4500-6000) and the
              extend (b2 x q2048 over kv 6000); each row with its
              function's registers and spills, and SDPA uncapped and
-             unwindowed as its library time.
+             unwindowed as its library time. Last, the aligned builds and
+             the _256 builds at one query head per KV head (Hq = Hkv = 16:
+             G = 1) and the aligned builds at eight (Hq 32 / Hkv 4: G =
+             8), decode b64 / kv1024 (packed and streamed) and extend b8 x
+             q256 / kv2048, bf16 and e4m3 KV under bf16 q, every dead slot
+             NaN (``phase_kernels_heads``).
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
              chunked pool with bf16 KV, then with fp8_e4m3 KV, the
@@ -124,6 +129,27 @@ each (any failure raises and exits non-zero):
              the same layers run with the plain attention functions; after
              each path's serving but TinyLlama's (and the 8B bf16 one,
              which does not serve), once more with the streaming decode.
+             Each step also runs with the attention's output zeroed and
+             with twice its scale (``moves``: how far the logits move, in
+             the gate's measure); on random weights, whose norms at 0.02
+             N(0, 1) leave every head attending near-uniformly, a wrong
+             scale hardly moves them, so every model's phase runs once
+             more, with one of its KV dtypes at least, on
+             ``make_attentive`` weights (the attention's norms at 1),
+             where both moves must exceed the gate (ROADMAP C15). At the end, from the published
+             config.json literals of ``PUBLISHED``, full width and depth:
+             Qwen3-8B (per-head q/k norms, G = 4) with bf16 KV, then
+             fp8_e4m3 KV (also streamed), Qwen1.5-MoE-A2.7B (qkv
+             bias, 60 experts top-4 and a shared expert, G = 1), Gemma-7B
+             (G = 1 at head_dim 256: the _256 builds) with bf16 KV on a
+             65536-token pool, then fp8_e4m3 KV on 131072, OLMoE-1B-7B
+             (full-width q/k norms, 64 experts top-8, G = 1), each served
+             in both modes (phases 3g, 4); then phase 3 alone for
+             Mistral-7B-v0.1 (prompts of 5000 and 4200 tokens prefilled in
+             4096-token chunks: its 4096 window cuts), Mixtral-8x7B-v0.1 at
+             4 of 32 layers, Qwen3-30B-A3B at 8 of 48 (G = 8) and Gemma-7B
+             in float32 at 4 layers (gate 1e-3), each with its cut
+             (``reduced``) in its line.
 3g. graphs — after each path's model phase (and its streaming one), at full
              width: one decode batch of 64 requests (kv 520-1000, shuffled
              pages) through the eager step (``decode_graphs`` off) and
@@ -326,7 +352,19 @@ GEOMETRY = {"chunked": (32, 8, 64, 64), "aligned": (32, 8, 128, 128),
             "aligned256": (16, 8, 256, 256),
             # the 1B-class model's EAGLE draft pool: its 5D pool at head_dim
             # 64 with Hkv 8 takes the merged kernels
-            "draft": (32, 8, 64, 64)}
+            "draft": (32, 8, 64, 64),
+            # one query head per KV head (G = 1) at head_dim 128
+            # (Qwen1.5-MoE-A2.7B's, OLMoE-1B-7B's 16 / 16) and 256 (Gemma-7B's
+            # 16 / 16), and eight (G = 8, Qwen3-30B-A3B's 32 / 4): the aligned
+            # and _256 builds at other head groups
+            "aligned_g1": (16, 16, 128, 128), "aligned256_g1": (16, 16, 256, 256),
+            "aligned_g8": (32, 4, 128, 128)}
+
+# the build each pool of GEOMETRY runs (kernel_name's suffix)
+POOL_BUILD = {"chunked": "", "aligned": "_aligned", "merged": "_merged", "draft": "_merged",
+              "latent": "_mla", "latent288": "_mla_288", "aligned256": "_aligned_256",
+              "aligned_g1": "_aligned", "aligned_g8": "_aligned",
+              "aligned256_g1": "_aligned_256"}
 
 # the latent pools' paths
 LATENT = ("latent", "latent288")
@@ -414,13 +452,12 @@ def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype, nan_dead=False):
         pt[b, :n] = perm[used:used + n]
         used += n
     dev = "cuda"
-    shape = {"chunked": (1, total * PAGE, 2 * HKV * D // 128, 128),
-             "aligned": (1, 2, total * PAGE, HKV, D),
-             "aligned256": (1, 2, total * PAGE, HKV, D),
-             "merged": (1, 2, total * PAGE, HKV, D),
-             "draft": (1, 2, total * PAGE, HKV, D),
-             "latent": (1, 1, total * PAGE, 1, D),
-             "latent288": (1, 1, total * PAGE, 1, D)}[pool]
+    if pool == "chunked":
+        shape = (1, total * PAGE, 2 * HKV * D // 128, 128)
+    elif pool in LATENT:
+        shape = (1, 1, total * PAGE, 1, D)
+    else:  # the 5D pools
+        shape = (1, 2, total * PAGE, HKV, D)
     kv = torch.randn(shape, generator=gen, device=dev)
     if nan_dead:
         live = np.zeros(total * PAGE, bool)
@@ -464,9 +501,7 @@ def dense_kv(kv, pt, kv_lens, pool, dtype):
 def kernel_name(kind, pool):
     """kind: "decode", "extend" or "stream" (the streaming decode)."""
     base = "rpa_decode_stream" if kind == "stream" else f"rpa_{kind}"
-    return base + {"chunked": "", "aligned": "_aligned", "merged": "_merged",
-                   "draft": "_merged", "latent": "_mla", "latent288": "_mla_288",
-                   "aligned256": "_aligned_256"}[pool]
+    return base + POOL_BUILD[pool]
 
 
 def dtype_name(dt):
@@ -1119,6 +1154,44 @@ def phase_kernels_256():
     return rows
 
 
+# --------------------------------------------- phase 2, other head groups
+def phase_kernels_heads():
+    """Phase 2 at the head groups the GQA builds had not run before, after
+    every other case (so that those draw the inputs they drew before),
+    every dead slot NaN: one query head per KV head (G = 1: Hq = Hkv = 16)
+    at head_dim 128 through the three aligned builds and at 256 through the
+    three _256 builds, and eight (G = 8: Hq 32 / Hkv 4) at head_dim 128
+    through the aligned builds; decode b64 / kv1024 through the packed and
+    the streaming decode and extend b8 x q256 / kv2048, each with bf16 and
+    e4m3 KV under bf16 q. Each row carries its function's registers and
+    spills and SDPA's time."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    rng = np.random.default_rng(21)
+    bf = torch.bfloat16
+    pairs = [(bf, bf), (bf, torch.float8_e4m3fn)]
+    lens = rng.integers(512, 1025, size=64)
+    lens[0], lens[-1] = 1024, 0  # one padded row
+    rows, packed = [], {}
+    for pool in ("aligned_g1", "aligned256_g1", "aligned_g8"):
+        for kind, name, ql, kl in (("decode", "decode_b64_kv1024", [1] * 64, lens.tolist()),
+                                   ("stream", "decode_b64_kv1024", [1] * 64, lens.tolist()),
+                                   ("extend", "extend_b8_q256_kv2048", [256] * 8, [2048] * 8)):
+            for dt, kdt in pairs:
+                beside = gqa_function_props(kernel_name(kind, pool), kind, dt, kdt)
+                HQ, HKV = GEOMETRY[pool][:2]
+                beside["G"] = HQ // HKV
+                if kind == "stream":
+                    beside["packed_kernel_ms"] = packed[pool, dt, kdt]
+                rows.append(run_kernel_case(name, kind, gen, rng, ql, kl, dt, pool, kdt,
+                                            beside=beside, nan_dead=True))
+                if kind == "decode":
+                    packed[pool, dt, kdt] = rows[-1]["kernel_ms"]
+    return rows
+
+
 # --------------------------------------------------------------- phase 3/4
 def llama_1b_config():
     from semi_pd_tpu_torch.config.model_config import ModelConfig
@@ -1161,13 +1234,14 @@ def tinyllama_config():
     )
 
 
-def deepseek_v2_lite_config():
+def deepseek_v2_lite_config(**kw):
     """DeepSeek-V2-Lite's published config.json (15.7 B parameters; MLA with
     kv_lora 512 + rope 64, one dense layer then 26 MoE layers of 64 routed
-    experts, top-6 softmax greedy, and 2 shared experts; yarn x40)."""
+    experts, top-6 softmax greedy, and 2 shared experts; yarn x40); ``kw``
+    overrides fields (the float32 gates' depth)."""
     from semi_pd_tpu_torch.config.model_config import ModelConfig
 
-    return ModelConfig(
+    cfg = ModelConfig(
         architecture="DeepseekV2ForCausalLM", vocab_size=102400, hidden_size=2048,
         intermediate_size=10944, num_hidden_layers=27, num_attention_heads=16,
         num_key_value_heads=16, head_dim=192, rms_norm_eps=1e-6, rope_theta=10000.0,
@@ -1181,6 +1255,9 @@ def deepseek_v2_lite_config():
         topk_method="greedy", norm_topk_prob=False, routed_scaling_factor=1.0,
         scoring_func="softmax", tie_word_embeddings=False, dtype="bfloat16",
     )
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
 
 
 # Stand-ins for MiniCPM3-4B's two 16-entry longrope factor lists: the
@@ -1192,7 +1269,7 @@ MINICPM3_STANDIN_SHORT = [round(1.0 + 0.05 * i, 2) for i in range(16)]
 MINICPM3_STANDIN_LONG = [round(1.0 + 0.5 * i, 2) for i in range(16)]
 
 
-def minicpm3_4b_config():
+def minicpm3_4b_config(**kw):
     """MiniCPM3-4B's published config.json widths (openbmb/MiniCPM3-4B:
     MiniCPM3ForCausalLM, vocab 73448, hidden 2560, intermediate 6400, 62
     layers, 40 attention and 40 KV heads, q_lora 768, kv_lora 256, qk_nope
@@ -1202,10 +1279,11 @@ def minicpm3_4b_config():
     = 288 wide, V its first 256: the latent kernels' _288 builds. The rope
     is longrope with original_max_position_embeddings 32768 and two
     16-entry factor lists, which here are STAND-INS
-    (MINICPM3_STANDIN_SHORT / _LONG), not the published values."""
+    (MINICPM3_STANDIN_SHORT / _LONG), not the published values. ``kw``
+    overrides fields (the float32 gate's)."""
     from semi_pd_tpu_torch.config.model_config import ModelConfig
 
-    return ModelConfig(
+    cfg = dict(
         architecture="MiniCPM3ForCausalLM", vocab_size=73448, hidden_size=2560,
         intermediate_size=6400, num_hidden_layers=62, num_attention_heads=40,
         num_key_value_heads=40, head_dim=96, rms_norm_eps=1e-5, rope_theta=10000.0,
@@ -1215,8 +1293,9 @@ def minicpm3_4b_config():
         max_position_embeddings=32768, context_length=32768, use_mla=True,
         q_lora_rank=768, kv_lora_rank=256, qk_nope_head_dim=64, qk_rope_head_dim=32,
         v_head_dim=64, scale_emb=12.0, scale_depth=1.4, dim_model_base=256.0,
-        tie_word_embeddings=False, dtype="bfloat16",
-    )
+        tie_word_embeddings=False, dtype="bfloat16")
+    cfg.update(kw)
+    return ModelConfig(**cfg)
 
 
 def gemma2_9b_config(**kw):
@@ -1241,14 +1320,93 @@ def gemma2_9b_config(**kw):
     return ModelConfig(**cfg)
 
 
+# The published config.json of each model this script serves or runs
+# through phase 3 from the JAX package's Llama-family strings, Gemma-1 and
+# the GQA MoE families: every key that describes the model (those
+# ModelConfig.from_hf_config reads among them; training-only keys such as
+# dropout, initializer range and the router's loss coefficient left out).
+# The Hugging Face repository of each is its key.
+PUBLISHED = {
+    "Qwen/Qwen3-8B": dict(
+        architectures=["Qwen3ForCausalLM"], attention_bias=False, bos_token_id=151643,
+        eos_token_id=151645, head_dim=128, hidden_act="silu", hidden_size=4096,
+        intermediate_size=12288, max_position_embeddings=40960, max_window_layers=36,
+        model_type="qwen3", num_attention_heads=32, num_hidden_layers=36,
+        num_key_value_heads=8, rms_norm_eps=1e-6, rope_scaling=None, rope_theta=1000000,
+        sliding_window=None, tie_word_embeddings=False, torch_dtype="bfloat16",
+        use_sliding_window=False, vocab_size=151936),
+    "Qwen/Qwen1.5-MoE-A2.7B": dict(
+        architectures=["Qwen2MoeForCausalLM"], bos_token_id=151643, decoder_sparse_step=1,
+        eos_token_id=151643, hidden_act="silu", hidden_size=2048, intermediate_size=5632,
+        max_position_embeddings=8192, max_window_layers=21, model_type="qwen2_moe",
+        moe_intermediate_size=1408, norm_topk_prob=False, num_attention_heads=16,
+        num_experts=60, num_experts_per_tok=4, num_hidden_layers=24, num_key_value_heads=16,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, shared_expert_intermediate_size=5632,
+        sliding_window=32768, tie_word_embeddings=False, torch_dtype="bfloat16",
+        use_sliding_window=False, vocab_size=151936),
+    "google/gemma-7b": dict(
+        architectures=["GemmaForCausalLM"], attention_bias=False, bos_token_id=2,
+        eos_token_id=1, head_dim=256, hidden_act="gelu", hidden_size=3072,
+        intermediate_size=24576, max_position_embeddings=8192, model_type="gemma",
+        num_attention_heads=16, num_hidden_layers=28, num_key_value_heads=16, pad_token_id=0,
+        rms_norm_eps=1e-6, rope_scaling=None, rope_theta=10000.0, torch_dtype="bfloat16",
+        vocab_size=256000),
+    "allenai/OLMoE-1B-7B-0924": dict(
+        architectures=["OlmoeForCausalLM"], attention_bias=False, clip_qkv=None,
+        eos_token_id=50279, hidden_act="silu", hidden_size=2048, intermediate_size=1024,
+        max_position_embeddings=4096, model_type="olmoe", norm_topk_prob=False,
+        num_attention_heads=16, num_experts=64, num_experts_per_tok=8, num_hidden_layers=16,
+        num_key_value_heads=16, pad_token_id=1, rms_norm_eps=1e-5, rope_scaling=None,
+        rope_theta=10000.0, tie_word_embeddings=False, torch_dtype="float32",
+        vocab_size=50304),
+    "mistralai/Mistral-7B-v0.1": dict(
+        architectures=["MistralForCausalLM"], bos_token_id=1, eos_token_id=2,
+        hidden_act="silu", hidden_size=4096, intermediate_size=14336,
+        max_position_embeddings=32768, model_type="mistral", num_attention_heads=32,
+        num_hidden_layers=32, num_key_value_heads=8, rms_norm_eps=1e-5, rope_theta=10000.0,
+        sliding_window=4096, tie_word_embeddings=False, torch_dtype="bfloat16",
+        vocab_size=32000),
+    "mistralai/Mixtral-8x7B-v0.1": dict(
+        architectures=["MixtralForCausalLM"], bos_token_id=1, eos_token_id=2,
+        hidden_act="silu", hidden_size=4096, intermediate_size=14336,
+        max_position_embeddings=32768, model_type="mixtral", num_attention_heads=32,
+        num_experts_per_tok=2, num_hidden_layers=32, num_key_value_heads=8,
+        num_local_experts=8, rms_norm_eps=1e-5, rope_theta=1000000.0, sliding_window=None,
+        tie_word_embeddings=False, torch_dtype="bfloat16", vocab_size=32000),
+    "Qwen/Qwen3-30B-A3B": dict(
+        architectures=["Qwen3MoeForCausalLM"], attention_bias=False, bos_token_id=151643,
+        decoder_sparse_step=1, eos_token_id=151645, head_dim=128, hidden_act="silu",
+        hidden_size=2048, intermediate_size=6144, max_position_embeddings=40960,
+        max_window_layers=48, mlp_only_layers=[], model_type="qwen3_moe",
+        moe_intermediate_size=768, norm_topk_prob=True, num_attention_heads=32,
+        num_experts=128, num_experts_per_tok=8, num_hidden_layers=48, num_key_value_heads=4,
+        rms_norm_eps=1e-6, rope_scaling=None, rope_theta=1000000.0, sliding_window=None,
+        tie_word_embeddings=False, torch_dtype="bfloat16", use_sliding_window=False,
+        vocab_size=151936),
+}
+
+
+def published_config(repo: str, context_length: int = 8192, **kw):
+    """``repo``'s published config.json (PUBLISHED) through
+    ``ModelConfig.from_hf_config`` at ``context_length`` (the pool and the
+    rope table need no more), bf16; ``kw`` overrides fields (a cut depth,
+    the float32 gates)."""
+    from semi_pd_tpu_torch.config.model_config import ModelConfig
+
+    cfg = ModelConfig.from_hf_config(PUBLISHED[repo], context_length=context_length)
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
 def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto",
-                      decode_stream: bool = False):
+                      decode_stream: bool = False, max_total_tokens: int = 131072):
     """The bench's server settings (bench.py make_server_args) with a
-    131072-token pool."""
+    131072-token pool (``max_total_tokens``)."""
     from semi_pd_tpu_torch.config.server_args import ServerArgs
 
     return ServerArgs(
-        random_weights=True, seed=0, page_size=16, max_total_tokens=131072,
+        random_weights=True, seed=0, page_size=16, max_total_tokens=max_total_tokens,
         chunked_prefill_size=4096, enable_semi_pd=semi_pd, decode_slo_ms=50.0,
         max_running_requests=64, decode_bs_buckets=[8, 32, 64],
         prefill_token_buckets=[512, 2048, 4096], kv_cache_dtype=kv_cache_dtype,
@@ -1293,10 +1451,49 @@ def expected_launches(runner, pool, stream, steps):
     return want
 
 
-def phase_model(eng, stream: bool = False):
-    """One extend step + two decode steps at full width, kernels (with
-    ``stream`` the streaming decode) vs the same layers with the plain
-    attention functions."""
+# the attention path's norm leaves (Llama's and the MoE classes' input and
+# q/k norms, DeepSeek's and MiniCPM3's input, q and kv norms)
+ATTN_NORMS = ("input_norm", "q_norm", "k_norm", "kv_norm")
+
+
+def make_attentive(model):
+    """Set the attention path's norms to the identity (1, or 0 under
+    Gemma's (1 + w) convention) so that random weights give scores of
+    about unit spread: at 0.02 N(0, 1) they shrink q and k so far that
+    every head attends near-uniformly and a wrong scale or softcap leaves
+    the logits where they were (ROADMAP C15). Returns the leaves' old
+    values for ``restore``."""
+    gemma = type(model).__name__.startswith("Gemma")
+    saved = {}
+    for path, _ in model.param_specs():
+        if path.split(".")[-1] in ATTN_NORMS:
+            leaf = model.leaf(path)
+            saved[path] = leaf.detach().clone()
+            leaf.data.fill_(0.0 if gemma else 1.0)
+    return saved
+
+
+def restore(model, saved):
+    for path, old in saved.items():
+        model.leaf(path).data.copy_(old)
+
+
+# the model phase's gate: kernels vs plain within 5% of the logit range
+MODEL_GATE = 0.05
+
+
+def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=False,
+                gate=MODEL_GATE):
+    """The prompts of ``lens`` tokens prefilled in extend steps of up to the
+    largest token bucket (4096), then two decode steps, at full width,
+    kernels (with ``stream`` the streaming decode) vs the same layers with
+    the plain attention functions. Each step also runs the kernels with
+    their output zeroed and with twice the scale, and reports how far the
+    logits move (``moves``, in the gate's measure): a gate that the
+    attention moves less than 5% cannot see a wrong scale or softcap
+    (ROADMAP C15). With ``attentive`` the steps run on make_attentive's
+    weights (restored after), and every step's moves must pass the
+    gate."""
     import torch
 
     from semi_pd_tpu_torch.layers.attention import pool_attention
@@ -1309,7 +1506,7 @@ def phase_model(eng, stream: bool = False):
     vocab = runner.model_config.vocab_size
     rng = np.random.default_rng(1)
     reqs = []
-    for i, n in enumerate((700, 300, 1500, 37)):
+    for i, n in enumerate(lens):
         r = Req(rid=f"m{i}", input_ids=rng.integers(0, vocab, size=n).tolist(),
                 sampling_params=SamplingParams(temperature=0.0))
         r.req_slot = runner.req_pool.alloc()
@@ -1320,46 +1517,89 @@ def phase_model(eng, stream: bool = False):
     pool = runner.kv_cache.buffer
     kernels = pool_attention(pool, stream=stream)
     plain = pool_attention(pool, plain=True)
+
+    def zeroed(*a, **kw):
+        return torch.zeros_like(kernels(*a, **kw))
+
+    def scaled(*a, scale, **kw):
+        return kernels(*a, scale=2.0 * scale, **kw)
+
     model = runner.model
+    saved = make_attentive(model) if attentive else {}
     worst = 0.0
     steps = []
-    with torch.inference_mode():
-        hb = build_extend_batch([(r, r.prompt_len) for r in reqs], runner.req_pool.page_table,
-                                PAGE, sched.t_buckets, sched.b_buckets, sched.p_buckets)
-        for step in range(3):
-            fb = hb.to_device(runner.device)
-            lk = model(fb, pool, attention=kernels)
-            lp = model(fb, pool, attention=plain)
-            n = len(reqs)
-            lk, lp = lk[:n].float(), lp[:n].float()
-            if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-                raise AssertionError(f"model step {step}: non-finite logits")
-            rel = float((lk - lp).abs().max() / lp.abs().max())
-            agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-            worst = max(worst, rel)
-            steps.append(dict(mode=hb.mode.value, T=hb.T, rel_err=rel, argmax_agree=agree))
-            toks = lk.argmax(-1).tolist()
-            for r, t in zip(reqs, toks):
-                if step == 0:
-                    r.prefilled_len = r.prompt_len
-                r.output_ids.append(int(t))
-            hb = build_decode_batch(reqs, runner.req_pool.page_table, PAGE,
-                                    sched.b_buckets, sched.p_buckets)
-    torch.cuda.synchronize()
-    for r in reqs:
-        runner.page_allocator.free(np.asarray(r.pages, np.int32))
-        runner.req_pool.free(r.req_slot)
+    # the extend steps: each request's prompt in chunks, up to the largest
+    # token bucket a step
+    todo = [r.prompt_len for r in reqs]
+    batches = []
+    while any(todo):
+        budget, admitted = max(sched.t_buckets), []
+        for i, r in enumerate(reqs):
+            n = min(todo[i], budget)
+            if n:
+                admitted.append((i, n))
+                budget -= n
+        batches.append(admitted)
+        for i, n in admitted:
+            todo[i] -= n
+    batches += [None, None]  # two decode steps
+    try:
+        with torch.inference_mode():
+            for admitted in batches:
+                if admitted:
+                    rs = [reqs[i] for i, _ in admitted]
+                    hb = build_extend_batch([(reqs[i], n) for i, n in admitted],
+                                            runner.req_pool.page_table, PAGE, sched.t_buckets,
+                                            sched.b_buckets, sched.p_buckets)
+                else:
+                    rs = reqs
+                    hb = build_decode_batch(reqs, runner.req_pool.page_table, PAGE,
+                                            sched.b_buckets, sched.p_buckets)
+                fb = hb.to_device(runner.device)
+                n = len(rs)
+                lk = model(fb, pool, attention=kernels)[:n].float()
+                lp = model(fb, pool, attention=plain)[:n].float()
+                if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+                    raise AssertionError(f"model step {len(steps)}: non-finite logits")
+                span = lp.abs().max()
+                rel = float((lk - lp).abs().max() / span)
+                moves = {name: float((model(fb, pool, attention=fn)[:n].float() - lk).abs().max()
+                                     / span) for name, fn in (("zero", zeroed),
+                                                               ("scale2x", scaled))}
+                agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+                worst = max(worst, rel)
+                steps.append(dict(mode=hb.mode.value, T=hb.T, B=n,
+                                  kv_max=int(hb.kv_lens.max()), rel_err=rel,
+                                  argmax_agree=agree, moves=moves))
+                toks = lk.argmax(-1).tolist()
+                for i, (r, t) in enumerate(zip(rs, toks)):
+                    if admitted:
+                        r.prefilled_len += admitted[i][1]
+                        if r.prefilled_len < r.prompt_len:
+                            continue  # a chunk within the prompt: no token yet
+                    r.output_ids.append(int(t))
+        torch.cuda.synchronize()
+    finally:
+        restore(model, saved)
+        for r in reqs:
+            runner.page_allocator.free(np.asarray(r.pages, np.int32))
+            runner.req_pool.free(r.req_slot)
     # bf16 tolerance: the two paths differ only in attention (the GQA kernels
     # of the chunked and aligned pools round P to bf16 before P.V, and every
     # kernel sums in another order); over 16 to 32
     # layers that stays within 5% of the logit range, and moves the argmax
     # of at most one of the 4 rows per step (a near tie among random logits)
-    if worst > 0.05:
-        raise AssertionError(f"full-width logits: kernels vs plain rel err {worst:.3g} > 0.05")
+    if worst > gate:
+        raise AssertionError(f"full-width logits: kernels vs plain rel err {worst:.3g} > "
+                             f"{gate}")
     if min(s["argmax_agree"] for s in steps) < 0.75:
         raise AssertionError(f"full-width argmax: kernels vs plain agree on fewer than 3 of "
                              f"4 rows in a step: {steps}")
-    return dict(steps=steps, worst_rel_err=worst)
+    blind = [s for s in steps if min(s["moves"].values()) <= gate]
+    if attentive and blind:
+        raise AssertionError(f"the gate does not see the attention in these steps: {blind}")
+    return dict(steps=steps, worst_rel_err=worst, attentive=attentive, gate=gate,
+                min_moves={k: min(s["moves"][k] for s in steps) for k in ("zero", "scale2x")})
 
 
 def graph_batch(eng, seed: int):
@@ -1427,6 +1667,12 @@ def graph_phase(eng, label, pool, stream: bool = False):
         reqs += batch
         for r in batch:  # the request slots go to the next batch; the pages stay
             runner.req_pool.free(r.req_slot)
+        # unless the pool cannot hold a second batch (Gemma-7B's bf16 pool of
+        # 65536 tokens): the second batch then takes the first one's pages
+        if runner.page_allocator.available_pages() < 64 * (-(-1001 // PAGE)):
+            for r in batch:
+                runner.page_allocator.free(np.asarray(r.pages, np.int32))
+            reqs = [r for r in reqs if r not in batch]
     step1, step2 = steps
     if step1[2] != step2[2]:
         raise AssertionError(f"the two graph batches have other keys: {step1[2]} {step2[2]}")
@@ -1495,7 +1741,8 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False,
     from semi_pd_tpu_torch.runtime.scheduler import Scheduler
     from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
-    args = bench_server_args(semi_pd, eng.server_args.kv_cache_dtype, stream)
+    args = bench_server_args(semi_pd, eng.server_args.kv_cache_dtype, stream,
+                             eng.server_args.max_total_tokens)
     if not eng.flush_cache():
         raise AssertionError("engine not idle before serving")
     eng.server_args = args
@@ -2627,6 +2874,8 @@ def main() -> int:
     rows += phase_kernels_288()
     # the _256 builds at Gemma-2-9B's geometry
     rows += phase_kernels_256()
+    # the aligned and _256 builds at G = 1 and 8 query heads per KV head
+    rows += phase_kernels_heads()
     print("kernels_phase " + json.dumps(dict(cases=len(rows) + len(spec_rows),
                                              seconds=time.monotonic() - t0)), flush=True)
 
@@ -2634,19 +2883,27 @@ def main() -> int:
     # those of its own serving run, counters zeroed just before each mode
     main_launches = {k: 0 for k in KERNELS}
 
-    def model_phase(label, cfg, kv_dtype, eng=None, stream=False, tokenizer=None):
+    def model_phase(label, cfg, kv_dtype, eng=None, stream=False, tokenizer=None,
+                    tokens=131072, reduced=None, **kw):
         """A new engine (or ``eng``, on its weights) and its model phase;
-        ``tokenizer``: the new engine's (its grammar compiler and EOS)."""
+        ``tokenizer``: the new engine's (its grammar compiler and EOS);
+        ``tokens``: its pool's size; ``reduced``: the cut printed with the
+        line; ``kw``: phase_model's (prompt lengths, attentive weights)."""
         t0 = time.monotonic()
         if eng is None:
-            eng = Engine(bench_server_args(False, kv_dtype), cfg, tokenizer=tokenizer)
+            eng = Engine(bench_server_args(False, kv_dtype, max_total_tokens=tokens), cfg,
+                         tokenizer=tokenizer)
         torch.cuda.synchronize()
         init_s = time.monotonic() - t0
-        res = phase_model(eng, stream)
-        print("model " + json.dumps(dict(res, model=label, kv_dtype=kv_dtype, init_s=init_s,
-                                         decode_stream=stream,
-                                         kv_pool_gib=eng.runner.kv_spec.bytes_total() / 2 ** 30,
-                                         seconds=time.monotonic() - t0)), flush=True)
+        res = phase_model(eng, stream, **kw)
+        runner = eng.runner
+        params = sum(p.numel() for p in runner.model.parameters())
+        print("model " + json.dumps(dict(
+            res, model=label, kv_dtype=kv_dtype, init_s=init_s, decode_stream=stream,
+            params=params, weight_gib=runner.weight_bytes / 2 ** 30,
+            kv_pool_slots=runner.kv_spec.num_slots,
+            kv_pool_gib=runner.kv_spec.bytes_total() / 2 ** 30, reduced=reduced,
+            seconds=time.monotonic() - t0)), flush=True)
         return eng
 
     def serve_phase(eng, label, pool, repeat=False, max_len=3072, eager=False):
@@ -2861,7 +3118,8 @@ def main() -> int:
     def nextn_phase():
         """Phase 4n: DeepSeek-V2-Lite at full width speculating with NextN
         (one MoE layer, its latent draft pool), NEXTN tree and chain."""
-        target_spec_phase("nextn_phase", "deepseek-v2-lite nextn", deepseek_v2_lite_config(),
+        target_spec_phase("nextn_phase", "deepseek-v2-lite nextn",
+                          deepseek_v2_lite_config(),
                           ("nextn_tree", "nextn_chain"), eager=True)
 
     def spec_plain_gate(label, cfg, algo, prompts, max_total_tokens):
@@ -2995,6 +3253,8 @@ def main() -> int:
                                  f"attention's ({same:.3f} of requests the same)")
 
     eng = model_phase("llama-3.2-1b-class", llama_1b_config(), "auto")
+    # every path's gate once more on attentive weights (C15)
+    model_phase("llama-3.2-1b-class", None, "auto", eng=eng, attentive=True)
     graph_phase(eng, "llama-3.2-1b-class", "chunked")
     packed = serve_phase(eng, "llama-3.2-1b-class", "chunked", repeat=True, eager=True)
     stream_phase(eng, "llama-3.2-1b-class", "chunked", "auto", packed)
@@ -3015,6 +3275,7 @@ def main() -> int:
     # grammar compiler and EOS; the other serves ignore EOS)
     tok8b = SmokeTokenizer(llama3_8b_config().vocab_size)
     eng = model_phase("meta-llama-3-8b", llama3_8b_config(), "fp8_e4m3", tokenizer=tok8b)
+    model_phase("meta-llama-3-8b", None, "fp8_e4m3", eng=eng, attentive=True)
     graph_phase(eng, "meta-llama-3-8b", "aligned")
     packed = serve_phase(eng, "meta-llama-3-8b", "aligned")
     stream_phase(eng, "meta-llama-3-8b", "aligned", "fp8_e4m3", packed)
@@ -3034,6 +3295,7 @@ def main() -> int:
     spec_plain_gate("meta-llama-3-8b float32 4 layers eagle tree", cfg, "tree",
                     prompts_for(cfg.vocab_size, 1024)[:8], 32768)
     eng = model_phase("deepseek-v2-lite", deepseek_v2_lite_config(), "auto")
+    model_phase("deepseek-v2-lite", None, "auto", eng=eng, attentive=True)
     graph_phase(eng, "deepseek-v2-lite", "latent")
     packed = serve_phase(eng, "deepseek-v2-lite", "latent", repeat=True, eager=True)
     stream_phase(eng, "deepseek-v2-lite", "latent", "auto", packed)
@@ -3052,6 +3314,8 @@ def main() -> int:
     for kv_dtype in ("auto", "fp8_e4m3"):
         label = "minicpm3-4b" + ("" if kv_dtype == "auto" else f" {kv_dtype}")
         eng = model_phase(label, minicpm3_4b_config(), kv_dtype)
+        if kv_dtype == "auto":
+            model_phase(label, None, kv_dtype, eng=eng, attentive=True)
         graph_phase(eng, label, "latent288")
         packed = serve_phase(eng, label, "latent288")
         stream_phase(eng, label, "latent288", kv_dtype, packed)
@@ -3061,6 +3325,7 @@ def main() -> int:
     nextn_f32_gate()
     release(model_phase("tinyllama-1.1b", tinyllama_config(), "fp8_e4m3"))
     eng = model_phase("tinyllama-1.1b", tinyllama_config(), "auto")
+    model_phase("tinyllama-1.1b", None, "auto", eng=eng, attentive=True)
     graph_phase(eng, "tinyllama-1.1b", "merged")
     serve_phase(eng, "tinyllama-1.1b", "merged", max_len=2048 - 64)
     release(eng)
@@ -3069,6 +3334,7 @@ def main() -> int:
     # fp8_e4m3 KV; then the float32 gate at 4 layers
     label = "gemma-2-9b"
     eng = model_phase(label, gemma2_9b_config(), "auto")
+    model_phase(label, None, "auto", eng=eng, attentive=True)
     graph_phase(eng, label, "aligned256")
     packed = serve_phase(eng, label, "aligned256")
     stream_phase(eng, label, "aligned256", "auto", packed)
@@ -3086,8 +3352,7 @@ def main() -> int:
     # float32 gates at 4 layers, Gemma-2's with prompts past its window
     target_spec_phase("minicpm3_spec_phase", "minicpm3-4b nextn", minicpm3_4b_config(),
                       ("nextn_tree", "nextn_chain"))
-    cfg = minicpm3_4b_config()
-    cfg.dtype, cfg.num_hidden_layers = "float32", 4
+    cfg = minicpm3_4b_config(dtype="float32", num_hidden_layers=4)
     spec_plain_gate("minicpm3-4b float32 4 layers nextn tree", cfg, "nextn_tree",
                     prompts_for(cfg.vocab_size, 1024)[:8], 32768)
     target_spec_phase("gemma2_spec_phase", "gemma-2-9b eagle", gemma2_9b_config(),
@@ -3097,6 +3362,54 @@ def main() -> int:
                     gemma2_9b_config(num_hidden_layers=4, dtype="float32"), "tree",
                     [rng.integers(0, 256000, size=int(n)).tolist()
                      for n in rng.integers(4500, 6001, size=8)], 65536)
+
+    # the Llama-family strings, Gemma-1 and the GQA MoE families at full
+    # width and depth, from their published config.json (PUBLISHED): phases
+    # 3, 3g and 4, each model phase once more on attentive weights (C15)
+    def family_path(label, cfg, kv_dtype, pool, tokens=131072, stream=False):
+        eng = model_phase(label, cfg, kv_dtype, tokens=tokens)
+        model_phase(label, None, kv_dtype, eng=eng, attentive=True)
+        graph_phase(eng, label, pool)
+        packed = serve_phase(eng, label, pool)
+        if stream:
+            stream_phase(eng, label, pool, kv_dtype, packed)
+        release(eng)
+
+    family_path("qwen3-8b", published_config("Qwen/Qwen3-8B"), "auto", "aligned")
+    family_path("qwen3-8b fp8_e4m3", published_config("Qwen/Qwen3-8B"), "fp8_e4m3", "aligned",
+                stream=True)
+    family_path("qwen1.5-moe-a2.7b", published_config("Qwen/Qwen1.5-MoE-A2.7B"), "auto",
+                "aligned")
+    # Gemma-7B's KV is 448 KiB a token in bf16: 65536 tokens (28 GiB) beside
+    # its 16 GiB of weights; 131072 in fp8_e4m3
+    gemma7b = "google/gemma-7b"
+    family_path("gemma-7b", published_config(gemma7b), "auto", "aligned256", tokens=65536)
+    family_path("gemma-7b fp8_e4m3", published_config(gemma7b), "fp8_e4m3", "aligned256")
+    family_path("olmoe-1b-7b", published_config("allenai/OLMoE-1B-7B-0924", context_length=4096),
+                "auto", "aligned")
+
+    # phase 3 alone at published widths: Mistral-7B at full depth with
+    # prompts past its 4096 window (prefilled in chunks of 4096: the window
+    # cuts in the second chunk and in decode), Mixtral-8x7B and
+    # Qwen3-30B-A3B at cut depths
+    def model_only(label, cfg, reduced=None, lens=(700, 300, 1500, 37), gate=MODEL_GATE):
+        eng = model_phase(label, cfg, "auto", reduced=reduced, lens=lens, gate=gate)
+        model_phase(label, None, "auto", eng=eng, reduced=reduced, lens=lens, attentive=True,
+                    gate=gate)
+        release(eng)
+
+    model_only("mistral-7b-v0.1", published_config("mistralai/Mistral-7B-v0.1"),
+               lens=(5000, 4200, 1500, 37))
+    model_only("mixtral-8x7b-v0.1", published_config("mistralai/Mixtral-8x7B-v0.1",
+                                                     num_hidden_layers=4),
+               reduced="4 of 32 layers (the whole model is 93 GB in bf16)")
+    model_only("qwen3-30b-a3b", published_config("Qwen/Qwen3-30B-A3B", num_hidden_layers=8),
+               reduced="8 of 48 layers")
+    # Gemma-7B's kernels vs plain in float32 (its bf16 gate reads the
+    # largest error of any path, 3-3.5%): summation order alone
+    model_only("gemma-7b float32", published_config(gemma7b, num_hidden_layers=4,
+                                                    dtype="float32"),
+               reduced="4 of 28 layers, float32", gate=1e-3)
 
     # 5. the kernels line: each kernel's case at its path's representative
     # shape and types (the 8B path serves with fp8_e4m3 KV); every kernel

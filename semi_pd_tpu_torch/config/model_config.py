@@ -1,20 +1,28 @@
 """Model configuration (trimmed copy of semi_pd_tpu/config/model_config.py).
 
-Holds the ModelConfig fields a Llama-family dense decoder, a
-DeepSeek-V2/V3 (MLA + MoE) model, MiniCPM3 (MLA, dense, with its three
-scalings) and Gemma-2 (its per-layer windows, softcaps and query scalar)
-use. HF-config parsing (``from_hf_config``
-/ ``from_model_path``) and the multimodal fields are not part of the port
-yet (ROADMAP A13-A14): configs are built directly, as ``bench.py`` and
-``__graft_entry__.py`` do; an MLA config sets ``use_mla`` and
-``head_dim = qk_nope_head_dim + qk_rope_head_dim`` itself, as
-``from_hf_config`` would.
+Holds the ModelConfig fields the port's families use: the Llama-family
+dense decoders (Llama, Mistral, Xverse, Qwen2 with its qkv bias, Qwen3
+with its per-head q/k norms), Gemma-1 and Gemma-2 (per-layer windows,
+softcaps and the query scalar), the GQA MoE families (Mixtral, Qwen2-MoE,
+Qwen3-MoE, OLMoE), DeepSeek-V2/V3 (MLA + MoE) and MiniCPM3 (MLA, dense,
+with its three scalings). ``from_hf_config`` reads a HuggingFace
+``config.json`` (a dict, or any object with its keys as attributes) for
+these architectures by the JAX package's rules; ``from_model_path`` and
+the multimodal fields are not part of the port (ROADMAP A13-A14). Configs
+may also be built directly, as ``bench.py`` and ``__graft_entry__.py`` do;
+an MLA config then sets ``use_mla`` and ``head_dim = qk_nope_head_dim +
+qk_rope_head_dim`` itself, as ``from_hf_config`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Optional
+
+# Architectures whose attention is Multi-head Latent Attention (the latent
+# pool), as in the JAX package
+MLA_ARCHS = {"DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM", "MiniCPM3ForCausalLM"}
+
 
 
 @dataclasses.dataclass
@@ -96,3 +104,116 @@ class ModelConfig:
     @property
     def num_kv_heads_total(self) -> int:
         return 1 if self.use_mla else self.num_key_value_heads
+
+    @classmethod
+    def from_hf_config(cls, hf_config, context_length: Optional[int] = None,
+                       dtype: str = "bfloat16") -> "ModelConfig":
+        """A ModelConfig from a HuggingFace config (a dict, or an object
+        with the keys as attributes): the JAX ``from_hf_config``'s common
+        part and its clauses for the served architectures
+        (semi_pd_tpu/config/model_config.py:107-286), rule for rule:
+
+        - ``architectures[0]``, or for an object without it its class name
+          (FooConfig -> FooForCausalLM);
+        - a ``Qwen*`` architecture that is not MoE takes a qkv bias unless
+          the config sets ``attention_bias``;
+        - MoE detection from ``num_local_experts`` / ``n_routed_experts`` /
+          ``num_experts``; the MLA clause for DeepSeek-V2/V3 and MiniCPM3;
+        - ``sliding_window`` is taken as the config gives it, also where a
+          Qwen config turns it off with ``use_sliding_window: false`` (the
+          JAX package reads no such switch, so Qwen1.5-MoE-A2.7B's 32768
+          window applies to every layer).
+
+        What the JAX models read from their HF config at build time is a
+        field here: Gemma's ``query_pre_attn_scalar`` and Gemma-2's
+        softcaps (``attn_logit_softcapping``, ``final_logit_softcapping``;
+        a key the config leaves out is None, which Gemma2ForCausalLM
+        resolves to the JAX default), MiniCPM3's ``scale_emb``,
+        ``scale_depth`` and ``dim_model_base``, and Qwen2-MoE's shared
+        expert, ``num_shared_experts = shared_expert_intermediate_size //
+        moe_intermediate_size`` (at least 1), which the JAX
+        ``Qwen2MoeForCausalLM.__init__`` sets. Other architectures raise,
+        naming ROADMAP A14."""
+        if isinstance(hf_config, dict):
+            g = lambda k, d=None: hf_config.get(k, d)  # noqa: E731
+        else:
+            g = lambda k, d=None: getattr(hf_config, k, d)  # noqa: E731
+        arch_list = g("architectures")
+        if arch_list:
+            arch = arch_list[0]
+        else:
+            name = type(hf_config).__name__
+            arch = (name[: -len("Config")] + "ForCausalLM"
+                    if name.endswith("Config") and name != "Config" else "LlamaForCausalLM")
+        # the runner's table is the one list of what the port serves (imported
+        # here: the runner imports this module)
+        from semi_pd_tpu_torch.runtime.model_runner import ARCHITECTURES
+
+        if arch not in ARCHITECTURES:
+            raise NotImplementedError(f"{arch}: the port reads the configs of "
+                                      f"{sorted(ARCHITECTURES)}; other families are ROADMAP A14")
+        num_heads = g("num_attention_heads", 32)
+        hidden = g("hidden_size", 4096)
+        cfg = cls(
+            architecture=arch,
+            vocab_size=g("vocab_size", 32000),
+            hidden_size=hidden,
+            intermediate_size=g("intermediate_size") or 4 * hidden,
+            num_hidden_layers=g("num_hidden_layers", 32),
+            num_attention_heads=num_heads,
+            num_key_value_heads=g("num_key_value_heads") or num_heads,
+            head_dim=g("head_dim") or hidden // num_heads,
+            rms_norm_eps=(g("rms_norm_eps") or g("norm_epsilon") or g("layer_norm_eps")
+                          or g("layer_norm_epsilon") or 1e-6),
+            hidden_act=g("hidden_act", "silu"),
+            tie_word_embeddings=g("tie_word_embeddings", False),
+            attention_bias=g("attention_bias", g("qkv_bias", False)),
+            sliding_window=g("sliding_window"),
+            layer_types=g("layer_types"),
+            max_position_embeddings=g("max_position_embeddings", 4096),
+            rope_theta=g("rope_theta", 10000.0),
+            rope_scaling=g("rope_scaling"),
+            partial_rotary_factor=g("partial_rotary_factor", 1.0),
+            dtype=dtype,
+        )
+        cfg.context_length = context_length or g("max_position_embeddings", 4096)
+        # Qwen2 puts a bias on qkv but not on o / the MLP
+        if arch.startswith("Qwen") and "Moe" not in arch:
+            cfg.attention_bias = True if g("attention_bias") is None else cfg.attention_bias
+        n_experts = g("num_local_experts") or g("n_routed_experts") or g("num_experts")
+        if n_experts:
+            cfg.num_experts = n_experts
+            cfg.num_experts_per_tok = g("num_experts_per_tok", 2)
+            cfg.moe_intermediate_size = g("moe_intermediate_size") or cfg.intermediate_size
+            cfg.num_shared_experts = g("n_shared_experts") or 0
+            cfg.first_k_dense_replace = g("first_k_dense_replace", 0)
+            cfg.moe_layer_freq = g("moe_layer_freq", 1)
+            cfg.n_group = g("n_group")
+            cfg.topk_group = g("topk_group")
+            cfg.topk_method = g("topk_method")
+            cfg.routed_scaling_factor = g("routed_scaling_factor", 1.0)
+            cfg.norm_topk_prob = g("norm_topk_prob", False)
+            cfg.scoring_func = g("scoring_func", "softmax")
+        if arch in MLA_ARCHS and g("kv_lora_rank"):
+            cfg.use_mla = True
+            cfg.q_lora_rank = g("q_lora_rank")
+            cfg.kv_lora_rank = g("kv_lora_rank")
+            cfg.qk_nope_head_dim = g("qk_nope_head_dim", 128)
+            cfg.qk_rope_head_dim = g("qk_rope_head_dim", 64)
+            cfg.v_head_dim = g("v_head_dim", 128)
+            cfg.head_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        # what the JAX models read from the HF config when they are built
+        if arch in ("GemmaForCausalLM", "Gemma2ForCausalLM"):
+            cfg.query_pre_attn_scalar = g("query_pre_attn_scalar")
+        if arch == "Gemma2ForCausalLM":
+            cfg.attn_logit_softcap = g("attn_logit_softcapping")
+            cfg.logit_softcap = g("final_logit_softcapping")
+        if arch == "MiniCPM3ForCausalLM":
+            cfg.scale_emb = g("scale_emb")
+            cfg.scale_depth = g("scale_depth")
+            cfg.dim_model_base = g("dim_model_base")
+        if arch == "Qwen2MoeForCausalLM" and not cfg.num_shared_experts:
+            ses = g("shared_expert_intermediate_size")
+            if ses:
+                cfg.num_shared_experts = max(1, ses // cfg.moe_intermediate_size)
+        return cfg

@@ -10,8 +10,9 @@ parameters live, one ``torch.Generator`` per leaf seeded from
 and casts to the leaf's dtype. Leaves stacked on a leading layer axis
 (Llama's ``layers.<name>``) are drawn one layer at a time, so the transient
 float32 stays at one layer of a leaf (Gemma-2's sandwich norms,
-``layers.post_attn_norm`` / ``post_ffw_norm`` / ``pre_ffw_norm``, are such
-leaves); per-layer leaves (DeepSeek's ``layers.<l>.<name>``) are one layer
+``layers.post_attn_norm`` / ``post_ffw_norm`` / ``pre_ffw_norm``, and the
+MoE classes' expert stacks, ``layers.experts.gate_up`` [L, E, H, 2F] and
+``layers.experts.down``, are such leaves); per-layer leaves (DeepSeek's ``layers.<l>.<name>``) are one layer
 already and are drawn whole.
 
 The numbers differ from ``jax.random``'s (and between a CUDA and a CPU

@@ -1,6 +1,8 @@
-"""Gemma-2 (port of semi_pd_tpu/models/gemma2.py:28-129,
-Gemma2ForCausalLM): the Llama decoder with Gemma-2's changes, all set here
-on a ``LlamaForCausalLM``:
+"""Gemma-2 and Gemma-1 (port of semi_pd_tpu/models/gemma2.py: ``:35
+Gemma2ForCausalLM`` and ``:132 GemmaForCausalLM``).
+
+Gemma-2 is the Llama decoder with Gemma-2's changes, all set here on a
+``LlamaForCausalLM``:
 
 - RMSNorm in float32 times ``(1 + w)``, then cast (``gemma_rms``);
 - the embedding times ``sqrt(hidden_size)``, the scale rounded to the model
@@ -28,8 +30,16 @@ JAX layer never reads (semi_pd_tpu/models/llama.py:140-141), so that
 ``init_params(seed)`` draws the JAX numbers in the JAX order and
 ``load_jax_params`` carries a JAX tree across. At Gemma-2's head_dim 256
 the runner puts KV in the 5D pool ``[L, 2, S, Hkv, 256]``, which the GQA
-kernels' ``_256`` builds serve. Gemma-1 (``GemmaForCausalLM``) is ROADMAP
-A14.
+kernels' ``_256`` builds serve.
+
+Gemma-1 is Llama's block and parameter tree (tied: no lm_head) with
+Gemma's conventions set through Llama's hooks: every norm ``gemma_rms``,
+the embedding times ``sqrt(hidden_size)`` rounded to the model dtype,
+GeGLU and the scale ``query_pre_attn_scalar ** -0.5`` (head_dim's when
+None); no sandwich norms and no softcaps. Its attention takes the config's
+``sliding_window`` on every layer, as the JAX class, whose layer is
+Llama's, does (Gemma-7B's config sets none). Gemma-7B is multi-head at
+head_dim 256 (16 / 16): the ``_256`` builds at one query head per KV head.
 """
 
 from __future__ import annotations
@@ -47,6 +57,13 @@ from semi_pd_tpu_torch.ops.elementwise import gelu_and_mul
 DEFAULT_ATTN_SOFTCAP = 50.0
 DEFAULT_FINAL_SOFTCAP = 30.0
 DEFAULT_SLIDING_WINDOW = 4096
+
+
+def embed_scale(hidden_size: int, dtype: torch.dtype) -> float:
+    """sqrt(hidden_size) rounded to the model dtype, as the JAX models round
+    it (gemma2.py:95), kept as a Python number: a step replayed from a CUDA
+    graph makes no tensor from the host."""
+    return float(torch.tensor(math.sqrt(hidden_size)).to(dtype))
 
 
 def gemma_rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -77,10 +94,7 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
             sliding = [i % 2 == 0 for i in range(c.num_hidden_layers)]
         self.layer_windows = [window if s else None for s in sliding]
         self.act = gelu_and_mul
-        # sqrt(hidden_size) rounded to the model dtype, as the JAX model
-        # rounds it (gemma2.py:95), and kept as a Python number: a step
-        # replayed from a CUDA graph makes no tensor from the host
-        self.embed_scale = float(torch.tensor(math.sqrt(c.hidden_size)).to(self.dtype))
+        self.embed_scale = embed_scale(c.hidden_size, self.dtype)
 
     def param_specs(self):
         """Llama's leaves (tied: no lm_head) and the three sandwich norms,
@@ -108,3 +122,14 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
             mlp = apply_linear(self.act(apply_linear(y, self.gate_up[layer])), self.down[layer])
             h = h + gemma_rms(mlp, self.post_ffw_norm[layer], eps)
         return gemma_rms(h, self.final_norm, eps)
+
+
+class GemmaForCausalLM(LlamaForCausalLM):
+    def __init__(self, config: ModelConfig, device):
+        config.tie_word_embeddings = True
+        config.attn_logit_softcap = config.logit_softcap = None
+        super().__init__(config, device)
+        self.scale = (config.query_pre_attn_scalar or self.head_dim) ** -0.5
+        self.act = gelu_and_mul
+        self.norm_fn = gemma_rms
+        self.embed_scale = embed_scale(config.hidden_size, self.dtype)

@@ -1,5 +1,17 @@
-"""Llama-family causal LM (dense decoder, GQA, RoPE, SiLU-gated MLP): port of
-semi_pd_tpu/models/llama.py::LlamaForCausalLM for the main path.
+"""Llama-family causal LM (dense decoder, GQA, RoPE, gated MLP): port of
+semi_pd_tpu/models/llama.py::LlamaForCausalLM.
+
+One class serves the five strings the JAX registry maps to it
+(semi_pd_tpu/models/registry.py:51-58): Llama, Mistral and Xverse are
+config only (Mistral's window is ``ModelConfig.sliding_window``), Qwen2
+adds a qkv bias (``attention_bias``: the leaf ``layers.qkv_proj.b``) and
+Qwen3 a per-head q/k RMSNorm after the head split and before rope
+(``layers.q_norm`` / ``layers.k_norm`` [L, head_dim]). The family hooks
+the JAX class gives its subclasses are here too: ``QK_NORM_FULL`` (OLMoE:
+the norms over the whole q / k projection, [L, q_size] / [L, kv_size],
+before the split), ``_mlp_specs`` / ``_mlp`` (the MoE classes'
+experts, models/qwen2_moe.py), ``norm_fn`` and ``embed_scale`` (Gemma-1,
+models/gemma2.py).
 
 An ``nn.Module`` whose per-layer weights are stacked on a leading [L, ...]
 axis, leaf for leaf the JAX package's parameter tree: ``init_params(seed)``
@@ -8,8 +20,8 @@ carries a JAX parameter tree (numpy leaves) into the module
 (models/params.py; the runner's random weights come from
 model_loader/loader.py::device_init_params instead). Linear weights are
 [din, dout]. The forward pass updates the KV pool, chunked or aligned, in
-place. qkv bias, q/k norms, LoRA, other families and
-tensor parallelism are ROADMAP A13-A15.
+place. LoRA, other activations and families, and tensor parallelism are
+ROADMAP A13-A15.
 """
 
 from __future__ import annotations
@@ -33,23 +45,36 @@ _ATTR = {
     "final_norm": "final_norm",
     "layers.down.w": "down",
     "layers.gate_up.w": "gate_up",
+    "layers.experts.down": "experts_down",  # the MoE classes' (qwen2_moe.py)
+    "layers.experts.gate_up": "experts_gate_up",
     "layers.input_norm": "input_norm",
+    "layers.k_norm": "k_norm",  # Qwen3's per-head, OLMoE's full-width
     "layers.o_proj.w": "o_proj",
     "layers.post_attn_norm": "post_attn_norm",  # Gemma-2's sandwich norms
     "layers.post_ffw_norm": "post_ffw_norm",
     "layers.post_norm": "post_norm",
     "layers.pre_ffw_norm": "pre_ffw_norm",
+    "layers.q_norm": "q_norm",
+    "layers.qkv_proj.b": "qkv_bias",  # Qwen2's
     "layers.qkv_proj.w": "qkv_proj",
+    "layers.router.w": "router",
+    "layers.shared.down.w": "shared_down",  # Qwen2-MoE's shared expert
+    "layers.shared.gate.w": "shared_gate",
+    "layers.shared.gate_up.w": "shared_gate_up",
     "lm_head.w": "lm_head",
 }
 
+# the architectures with Qwen3's per-head q/k RMSNorm (JAX llama.py:65-69)
+QK_NORM_ARCHS = ("Qwen3ForCausalLM", "Qwen3MoeForCausalLM")
+
 
 class LlamaForCausalLM(TreeParams):
+    # q/k RMSNorm over the whole projections, before the head split (OLMoE)
+    QK_NORM_FULL = False
+
     def __init__(self, config: ModelConfig, device):
         super().__init__()
         c = self.config = config
-        if c.attention_bias:
-            raise NotImplementedError("qkv bias (qwen2-style) is ROADMAP A14")
         if c.hidden_act not in ACT2FN:
             raise NotImplementedError(f"activation {c.hidden_act!r} is ROADMAP A14")
         if c.dtype not in DTYPES:
@@ -62,6 +87,10 @@ class LlamaForCausalLM(TreeParams):
         self.scale = self.head_dim ** -0.5
         self.dtype = DTYPES[c.dtype]
         self.act = ACT2FN[c.hidden_act]
+        # the family hooks (set before the leaves are made: they shape them)
+        self.use_qk_norm = self.QK_NORM_FULL or c.architecture in QK_NORM_ARCHS
+        self.norm_fn = rms_norm
+        self.embed_scale = None  # a Python number (Gemma: rounded to the dtype)
         self.page_size = 16  # set by the runner: a property of the pool
         # each layer's sliding window (None: full attention)
         self.layer_windows = [c.sliding_window] * c.num_hidden_layers
@@ -82,22 +111,35 @@ class LlamaForCausalLM(TreeParams):
     # ------------------------------------------------------------- params
     def param_specs(self) -> List[Tuple[str, Tuple[int, ...]]]:
         """(JAX tree path, shape) of every leaf, in the order jax.tree.map
-        visits the JAX package's parameter tree (sorted dict keys)."""
+        visits the JAX package's parameter tree: its dict keys sorted at
+        every level, which for these dotted paths is their sorted order."""
         c = self.config
-        L, H, I = c.num_hidden_layers, c.hidden_size, c.intermediate_size
+        L, H = c.num_hidden_layers, c.hidden_size
+        qkv_out = self.q_size + 2 * self.kv_size
         specs = [
             ("embed.w", (c.vocab_size, H)),
             ("final_norm", (H,)),
-            ("layers.down.w", (L, I, H)),
-            ("layers.gate_up.w", (L, H, 2 * I)),
             ("layers.input_norm", (L, H)),
             ("layers.o_proj.w", (L, self.q_size, H)),
             ("layers.post_norm", (L, H)),
-            ("layers.qkv_proj.w", (L, H, self.q_size + 2 * self.kv_size)),
+            ("layers.qkv_proj.w", (L, H, qkv_out)),
+            *self._mlp_specs(),
         ]
+        if c.attention_bias:
+            specs.append(("layers.qkv_proj.b", (L, qkv_out)))
+        if self.use_qk_norm:
+            full = self.QK_NORM_FULL
+            specs.append(("layers.q_norm", (L, self.q_size if full else self.head_dim)))
+            specs.append(("layers.k_norm", (L, self.kv_size if full else self.head_dim)))
         if not c.tie_word_embeddings:
             specs.append(("lm_head.w", (H, c.vocab_size)))
-        return specs
+        return sorted(specs)
+
+    def _mlp_specs(self) -> List[Tuple[str, Tuple[int, ...]]]:
+        """The MLP's leaves (the MoE classes override it)."""
+        c = self.config
+        L, H, I = c.num_hidden_layers, c.hidden_size, c.intermediate_size
+        return [("layers.down.w", (L, I, H)), ("layers.gate_up.w", (L, H, 2 * I))]
 
     def leaf(self, path: str) -> torch.nn.Parameter:
         """The parameter of JAX tree path ``path`` (e.g. "layers.qkv_proj.w")."""
@@ -132,15 +174,19 @@ class LlamaForCausalLM(TreeParams):
     def _final_hidden(self, fb, kv_cache, attention) -> torch.Tensor:
         """Every flat row's hidden state after the last layer and the final
         norm [T, H], in the model dtype."""
-        c = self.config
+        eps = self.config.rms_norm_eps
         h = self.embed[fb.input_ids.long()]
-        for layer in range(c.num_hidden_layers):
-            attn_in = rms_norm(h, self.input_norm[layer], c.rms_norm_eps)
+        if self.embed_scale is not None:
+            h = h * self.embed_scale
+        for layer in range(self.config.num_hidden_layers):
+            attn_in = self.norm_fn(h, self.input_norm[layer], eps)
             h = h + self._attn(layer, attn_in, fb, kv_cache, attention)
-            mlp_in = rms_norm(h, self.post_norm[layer], c.rms_norm_eps)
-            h = h + apply_linear(self.act(apply_linear(mlp_in, self.gate_up[layer])),
-                                 self.down[layer])
-        return rms_norm(h, self.final_norm, c.rms_norm_eps)
+            h = h + self._mlp(layer, self.norm_fn(h, self.post_norm[layer], eps))
+        return self.norm_fn(h, self.final_norm, eps)
+
+    def _mlp(self, layer: int, x: torch.Tensor) -> torch.Tensor:
+        """The gated MLP of ``layer`` (the MoE classes route to experts)."""
+        return apply_linear(self.act(apply_linear(x, self.gate_up[layer])), self.down[layer])
 
     def head(self) -> torch.Tensor:
         """The lm_head [H, V] (the embedding's transpose when tied)."""
@@ -149,11 +195,18 @@ class LlamaForCausalLM(TreeParams):
     def _attn(self, layer, attn_in, fb, kv_cache, attention):
         c = self.config
         T = attn_in.shape[0]
-        qkv = apply_linear(attn_in, self.qkv_proj[layer])
+        bias = self.qkv_bias[layer] if c.attention_bias else None
+        qkv = apply_linear(attn_in, self.qkv_proj[layer], bias)
         q, k, v = qkv.split([self.q_size, self.kv_size, self.kv_size], dim=-1)
+        if self.QK_NORM_FULL:  # OLMoE: before the head split
+            q = self.norm_fn(q, self.q_norm[layer], c.rms_norm_eps)
+            k = self.norm_fn(k, self.k_norm[layer], c.rms_norm_eps)
         q = q.reshape(T, self.num_heads, self.head_dim)
         k = k.reshape(T, self.num_kv_heads, self.head_dim)
         v = v.reshape(T, self.num_kv_heads, self.head_dim)
+        if self.use_qk_norm and not self.QK_NORM_FULL:  # Qwen3: per head
+            q = self.norm_fn(q, self.q_norm[layer], c.rms_norm_eps)
+            k = self.norm_fn(k, self.k_norm[layer], c.rms_norm_eps)
         q, k = self.rope(fb.q_pos, q, k)
         out = paged_attention(
             q, k, v, kv_cache, layer, fb, page_size=self.page_size,

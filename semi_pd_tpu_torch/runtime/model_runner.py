@@ -14,10 +14,13 @@ and decode are two shapes of one step on one pool), samples on the device
 and returns device tensors without waiting for them. ``read_results``
 brings a whole flush of steps back in one device->host copy.
 
-The model class follows the architecture (``ARCHITECTURES``: Llama,
-DeepSeek-V2/V3 with MLA + MoE, MiniCPM3, MLA with a dense MLP, whose
-288-wide latent rows take the latent kernels' _288 builds, and Gemma-2,
-head_dim 256 with per-layer windows and softcaps). The KV pool's layout
+The model class follows the architecture (``ARCHITECTURES``: the Llama
+family's five strings, Mistral, Xverse, Qwen2 with its qkv bias and Qwen3
+with its q/k norms among them; Gemma-1 and Gemma-2 at head_dim 256, the
+latter with per-layer windows and softcaps; the GQA MoE families Mixtral,
+Qwen2-MoE, Qwen3-MoE and OLMoE; DeepSeek-V2/V3 with MLA + MoE; MiniCPM3,
+MLA with a dense MLP, whose 288-wide latent rows take the latent kernels'
+_288 builds). The KV pool's layout
 follows the model's geometry (``kv_pool_layout``, the JAX runner's rule):
 the chunked pool for head_dim 64 when a slot row holds a multiple of 8
 chunks of 128 (e.g. Llama-3.2-1B's 8 KV heads), the 5D pool otherwise
@@ -85,9 +88,12 @@ from semi_pd_tpu_torch.layers.attention import pool_attention
 from semi_pd_tpu_torch.mem.pool import KVCache, KVCacheSpec, PageAllocator, ReqToPagePool
 from semi_pd_tpu_torch.model_loader.loader import device_init_params
 from semi_pd_tpu_torch.models.deepseek_v2 import DeepseekV2ForCausalLM
-from semi_pd_tpu_torch.models.gemma2 import Gemma2ForCausalLM
+from semi_pd_tpu_torch.models.gemma2 import Gemma2ForCausalLM, GemmaForCausalLM
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
 from semi_pd_tpu_torch.models.minicpm3 import MiniCPM3ForCausalLM
+from semi_pd_tpu_torch.models.qwen2_moe import (
+    MixtralForCausalLM, OlmoeForCausalLM, Qwen2MoeForCausalLM, Qwen3MoeForCausalLM,
+)
 from semi_pd_tpu_torch.ops.sampling import (
     PENALTY_HIST, PenaltyArrays, SamplingArrays, compute_logprobs, sample, top_logprobs,
 )
@@ -103,12 +109,24 @@ from semi_pd_tpu_torch.speculative.tree import default_tree_template
 
 logger = logging.getLogger(__name__)
 
+# the JAX registry's classes for these strings (semi_pd_tpu/models/registry.py)
 ARCHITECTURES = {
+    # the five strings of one Llama class: Qwen2's bias and Qwen3's q/k
+    # norms follow from the config and the string (models/llama.py)
     "LlamaForCausalLM": LlamaForCausalLM,
+    "MistralForCausalLM": LlamaForCausalLM,
+    "Qwen2ForCausalLM": LlamaForCausalLM,
+    "Qwen3ForCausalLM": LlamaForCausalLM,
+    "XverseForCausalLM": LlamaForCausalLM,
+    "GemmaForCausalLM": GemmaForCausalLM,
+    "Gemma2ForCausalLM": Gemma2ForCausalLM,
+    "MixtralForCausalLM": MixtralForCausalLM,
+    "Qwen2MoeForCausalLM": Qwen2MoeForCausalLM,
+    "Qwen3MoeForCausalLM": Qwen3MoeForCausalLM,
+    "OlmoeForCausalLM": OlmoeForCausalLM,
     "DeepseekV2ForCausalLM": DeepseekV2ForCausalLM,
     "DeepseekV3ForCausalLM": DeepseekV2ForCausalLM,
     "MiniCPM3ForCausalLM": MiniCPM3ForCausalLM,
-    "Gemma2ForCausalLM": Gemma2ForCausalLM,
 }
 
 KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}

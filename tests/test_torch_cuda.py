@@ -24,7 +24,10 @@ their plain versions with softcap and window, every dead slot NaN, the
 stream's requests cut across warps and blocks, the extend at 1, 2 and 4
 query heads per KV head, their tensor-core instructions, the extend's
 refusal of a tree) and a small Gemma-2 Engine, packed and streamed, against
-the CPU; and the speculating rounds replayed from round graphs against the
+the CPU; the aligned and _256 builds at 1 and 8 query heads per KV head,
+Engines of the Llama-family strings, Gemma-1 and the GQA MoE families
+against the CPU and a MoE decode step with 60 experts replayed bitwise;
+and the speculating rounds replayed from round graphs against the
 eager round, bitwise, pools included (EAGLE chain and tree, NextN chain and
 tree, NGRAM's verify; a small target and the pool geometry of each
 full-width speculating path), with no host sync in a replay, the
@@ -2058,6 +2061,116 @@ def test_aligned256_extend_refuses_a_tree(cuda_device):
     torch.cuda.synchronize()
     assert k.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+# ------------------------- the Llama-family strings, Gemma-1, the GQA MoE families
+# the GQA builds at the head groups of those models: one query head per KV
+# head (G = 1: Qwen1.5-MoE-A2.7B's and OLMoE-1B-7B's 16 / 16 at head_dim 128,
+# Gemma-7B's at 256) and eight (G = 8: Qwen3-30B-A3B's 32 / 4 at 128)
+HEAD_GROUPS = [(128, 16, 16), (256, 16, 16), (128, 32, 4)]
+GQA_BUILDS = {"decode": "rpa_decode_aligned", "stream": "rpa_decode_stream_aligned",
+              "extend": "rpa_extend_aligned"}
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "fp8_e4m3"])
+@pytest.mark.parametrize("kind", ["decode", "stream", "extend"])
+@pytest.mark.parametrize("dim,hq,hkv", HEAD_GROUPS, ids=["g1-d128", "g1-d256", "g8-d128"])
+def test_gqa_builds_at_one_and_eight_heads_per_kv_head(cuda_device, dim, hq, hkv, kind, kv):
+    """The aligned builds (head_dim 128) and their _256 twins at G = 1 and
+    the aligned builds at G = 8, bf16 q over bf16 and e4m3 KV, every dead
+    slot NaN, against their plain versions: one launch, zeros on kv_len-0
+    rows."""
+    dt = torch.bfloat16
+    case = _extend_case if kind == "extend" else _decode_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt, aligned=True, aligned_dim=dim, hq=hq,
+                                  hkv=hkv, kv_dtype=FP8.get(kv, dt))
+    _poison_dead_slots(pool, pt, kvl, 1)
+    kw = dict(page_size=PS, scale=dim ** -0.5)
+    if kind == "decode":
+        fn = rpa_packed.ragged_paged_attention_packed
+        plain = rpa_packed.ragged_paged_attention_packed_plain
+    elif kind == "stream":
+        fn = rpa_stream.ragged_paged_attention_stream
+        plain = rpa_packed.ragged_paged_attention_packed_plain
+    else:
+        fn = functools.partial(rpa.ragged_paged_attention_extend, meta=meta)
+        plain = functools.partial(rpa.ragged_paged_attention_extend_plain, meta=meta)
+    k = KERNELS[GQA_BUILDS[kind] + ("_256" if dim == 256 else "")]
+    before = k.launches
+    out = fn(q, pool, 1, pt, kvl, **kw)
+    ref = plain(q, pool, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert torch.isfinite(out).all()
+    if kind != "extend":
+        assert not out[kvl == 0].any()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+def _family_cfg(arch, **kw):
+    """A small config of one of the slice's architectures (2 layers, hidden
+    256, head_dim 128, 4 / 4 heads), float32."""
+    return {**dict(architecture=arch, vocab_size=512, hidden_size=256, intermediate_size=512,
+                   num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=4,
+                   head_dim=128, context_length=512, dtype="float32"), **kw}
+
+
+# Qwen1.5-MoE-A2.7B's routing: 60 experts, top-4, a shared expert
+QWEN2_MOE = dict(num_experts=60, num_experts_per_tok=4, moe_intermediate_size=64,
+                 num_shared_experts=2)
+FAMILY_ENGINES = {
+    "qwen3": (_family_cfg("Qwen3ForCausalLM", num_key_value_heads=1), "aligned"),
+    "qwen2_bias": (_family_cfg("Qwen2ForCausalLM", attention_bias=True), "aligned"),
+    "gemma": (_family_cfg("GemmaForCausalLM", head_dim=256, hidden_act="gelu"), "256"),
+    "qwen2_moe": (_family_cfg("Qwen2MoeForCausalLM", **QWEN2_MOE), "aligned"),
+    "olmoe": (_family_cfg("OlmoeForCausalLM", num_experts=8, num_experts_per_tok=4,
+                          moe_intermediate_size=64), "aligned"),
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILY_ENGINES))
+def test_engine_families_on_cuda_match_cpu(cuda_device, family):
+    """Qwen3 (G = 4, per-head q/k norms), Qwen2 (its bias, G = 1), Gemma-1
+    (G = 1 at head_dim 256), Qwen2-MoE (60 experts, top-4, the shared
+    expert; G = 1) and OLMoE (full-width q/k norms) in float32 on the card
+    give the CPU Engine's greedy tokens through the aligned (or _256)
+    builds alone."""
+    cfg, build = FAMILY_ENGINES[family]
+    suffix = "_256" if build == "256" else ""
+    _engines_agree(cuda_device, cfg, ["rpa_decode_aligned" + suffix,
+                                      "rpa_extend_aligned" + suffix])
+
+
+def test_moe_decode_graph_replays_the_eager_step_bitwise(cuda_device):
+    """A bf16 Qwen2-MoE with Qwen1.5-MoE-A2.7B's 60 experts (top-4, the
+    shared expert behind its gate) at G = 1: a replayed decode step gives
+    the eager step's tokens and log-probs bitwise, the capture counts no
+    launch and the replay its L decode launches, and neither syncs the
+    host (the experts' row counts are made on the card)."""
+    cfg = dict(_family_cfg("Qwen2MoeForCausalLM", **QWEN2_MOE), dtype="bfloat16")
+    eng = Engine(ServerArgs(random_weights=True, page_size=PS, max_total_tokens=4096,
+                            chunked_prefill_size=64), ModelConfig(**cfg))
+    _fill_pool(eng, cuda_device, seed=0)
+    runner = eng.runner
+    L = cfg["num_hidden_layers"]
+    for k in KERNELS.values():
+        k.launches = 0
+    step = _graph_batch(eng, [33, 260, 9, 77, 1, 140], seed=1)
+    want = _eager_step(runner, *step, is_decode=True)
+    got = runner.step_packed_raw(*step, is_decode=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isfinite(got[1]).all()
+    (g,) = runner.graphs.graphs.values()
+    assert g.tally == {"rpa_decode_aligned": L}
+    assert KERNELS["rpa_decode_aligned"].launches == 2 * L
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _eager_step(runner, *step, is_decode=True)
+        runner.step_packed_raw(*step, is_decode=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def _gemma2_cfg():

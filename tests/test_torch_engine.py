@@ -151,11 +151,16 @@ def _imports(path: pathlib.Path):
                                     "semi_pd_tpu_torch/constrained/ebnf",
                                     "semi_pd_tpu_torch/constrained/structural_tag",
                                     "semi_pd_tpu_torch/sampling/logit_processor",
-                                    "semi_pd_tpu_torch/ops/sampling"])
+                                    "semi_pd_tpu_torch/ops/sampling",
+                                    "semi_pd_tpu_torch/config/model_config",
+                                    "semi_pd_tpu_torch/models/llama",
+                                    "semi_pd_tpu_torch/models/gemma2",
+                                    "semi_pd_tpu_torch/models/qwen2_moe"])
 def test_port_imports_no_jax(target):
     """No file of the port (the decode graphs, the warmup registry,
-    bench_one_batch, the constrained-decoding copies, the logit processors
-    and the sampler named on their own), and none of its card scripts
+    bench_one_batch, the constrained-decoding copies, the logit processors,
+    the sampler, the config parser and the Llama, Gemma and MoE family
+    modules named on their own), and none of its card scripts
     (chip_smoke.py, serve_witness.py, fidelity_witness.py,
     decode_trace.py, extend_shapes.py, mla_decode_plans.py), imports jax
     or anything of the JAX package."""

@@ -42,7 +42,13 @@ each (any failure raises and exits non-zero):
              ``tree_functions`` line per (q, KV) pair sets the TREE = false
              and TREE = true functions' registers, spills and HGMMA side
              by side; a TREE = false warpgroup function that spills, or a
-             TREE = true one without HGMMA, fails the run.
+             TREE = true one without HGMMA, fails the run. The
+             aligned decode's and extend's libraries also hold their ALIBI
+             instantiations (counted apart as rpa_decode_aligned_alibi and
+             rpa_extend_aligned_alibi); an ``alibi_functions`` line per
+             kind and (q, KV) pair sets their functions' registers,
+             spills and tensor-core instructions beside the ALIBI = false
+             ones.
 2. kernels — each kernel's wrapper on the card against its plain PyTorch
              version on the same inputs, at the geometry of its path (page
              16; Hq 32, Hkv 8: chunked pool [1, S, 8, 128] at D 64, aligned
@@ -109,7 +115,14 @@ each (any failure raises and exits non-zero):
              G = 1) and the aligned builds at eight (Hq 32 / Hkv 4: G =
              8), decode b64 / kv1024 (packed and streamed) and extend b8 x
              q256 / kv2048, bf16 and e4m3 KV under bf16 q, every dead slot
-             NaN (``phase_kernels_heads``).
+             NaN (``phase_kernels_heads``). Then the Llama variants'
+             attention (``phase_kernels_variants``): the aligned builds
+             at G = 6 (48 / 8) and 16 (32 / 2), decode, stream and
+             extend, the merged builds at Hkv 36 (MiniCPM-2B's 36 / 36),
+             bf16 and e4m3 KV, and the ALiBi instantiations at
+             Baichuan2-13B's 40 / 40 with its slopes (bf16, e4m3 and
+             float32; extend also b2 x q2048), SDPA taking the bias as a
+             float mask as their library time.
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
              chunked pool with bf16 KV, then with fp8_e4m3 KV, the
@@ -149,7 +162,21 @@ each (any failure raises and exits non-zero):
              4096-token chunks: its 4096 window cuts), Mixtral-8x7B-v0.1 at
              4 of 32 layers, Qwen3-30B-A3B at 8 of 48 (G = 8) and Gemma-7B
              in float32 at 4 layers (gate 1e-3), each with its cut
-             (``reduced``) in its line.
+             (``reduced``) in its line. Last, the Llama-computation
+             variants from ``PUBLISHED``: ChatGLM3-6B (G = 16, half-dim
+             interleaved rope), Baichuan2-13B (ALiBi through the ALiBi
+             instantiations, bf16 KV on a 57344-token pool), MiniCPM-2B
+             (the merged builds at 36 KV heads, context 2048) and
+             deepseek-moe-16b (dense first layer, 64 experts top-6 and 2
+             shared) through phases 3, 3g and 4 (each serve phase prints
+             the log-prob gap at each request's first difference between
+             the modes); InternLM2-7B-reward's rewards and input log-probs
+             through the kernels against the plain attention, raw and
+             attentive (``reward`` line); phase 3 alone for InternLM2-20B
+             (G = 6), GLM-4-9B (then fp8_e4m3 KV with the streaming
+             decode), EXAONE-3.0-7.8B, Qwen-7B, Baichuan2-7B,
+             Phi-3-medium-4k (prompts past its 2047 window) and
+             Granite-3.0-8B at full depth and Grok-1 at 4 of 64 layers.
 3g. graphs — after each path's model phase (and its streaming one), at full
              width: one decode batch of 64 requests (kv 520-1000, shuffled
              pages) through the eager step (``decode_graphs`` off) and
@@ -327,6 +354,7 @@ nvidia-smi name/power-limit line, and the result line {"ok": true,
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -358,13 +386,22 @@ GEOMETRY = {"chunked": (32, 8, 64, 64), "aligned": (32, 8, 128, 128),
             # 16 / 16), and eight (G = 8, Qwen3-30B-A3B's 32 / 4): the aligned
             # and _256 builds at other head groups
             "aligned_g1": (16, 16, 128, 128), "aligned256_g1": (16, 16, 256, 256),
-            "aligned_g8": (32, 4, 128, 128)}
+            "aligned_g8": (32, 4, 128, 128),
+            # six (G = 6: InternLM2-20B's and Grok-1's 48 / 8) and sixteen (G =
+            # 16: ChatGLM3-6B's and GLM-4-9B's 32 / 2) at head_dim 128, the
+            # merged pool at MiniCPM-2B's 36 / 36 (head_dim 64), and
+            # Baichuan2-13B's 40 / 40 with ALiBi (the aligned builds' ALiBi
+            # instantiations)
+            "aligned_g6": (48, 8, 128, 128), "aligned_g16": (32, 2, 128, 128),
+            "merged_h36": (36, 36, 64, 64), "aligned_alibi": (40, 40, 128, 128)}
 
 # the build each pool of GEOMETRY runs (kernel_name's suffix)
 POOL_BUILD = {"chunked": "", "aligned": "_aligned", "merged": "_merged", "draft": "_merged",
               "latent": "_mla", "latent288": "_mla_288", "aligned256": "_aligned_256",
               "aligned_g1": "_aligned", "aligned_g8": "_aligned",
-              "aligned256_g1": "_aligned_256"}
+              "aligned256_g1": "_aligned_256", "aligned_g6": "_aligned",
+              "aligned_g16": "_aligned", "merged_h36": "_merged",
+              "aligned_alibi": "_aligned_alibi"}
 
 # the latent pools' paths
 LATENT = ("latent", "latent288")
@@ -528,6 +565,12 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
     q, kv, pt, kvl, meta = make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype,
                                      nan_dead)
     kw = dict(page_size=PAGE, scale=scale, logit_cap=cap, sliding_window=window)
+    slopes = None
+    if pool == "aligned_alibi":  # Baichuan2-13B's slopes of its 40 heads
+        from semi_pd_tpu_torch.models.llama_variants import alibi_slopes
+
+        slopes = torch.from_numpy(alibi_slopes(HQ)).to("cuda")
+        kw["alibi_slopes"] = slopes
     if pool in LATENT:
         kw.update(v_dim=DV)
     if kind == "stream":  # no sliding window: the routing keeps it on the packed decode
@@ -607,6 +650,8 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
         if library_always and (cap or window):  # the yardstick uncapped and unwindowed
             library += "_uncapped_unwindowed"
             window = None
+        if slopes is not None:  # ALiBi as a float mask: the bias, -inf where masked
+            library += "_alibi_float_mask"
         B = len(lens)
         if kind != "extend":
             qd = q[:, :, None, :]  # [B, Hq, 1, D]
@@ -616,6 +661,10 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
             if window:
                 mask &= pos >= n - window
             mask = mask[:, None, None, :]
+            if slopes is not None:
+                bias = -slopes[None, :, None, None] * (n - 1 - pos).float()[:, None, None, :]
+                mask = torch.where(mask, bias, torch.tensor(float("-inf"), device="cuda"))
+                mask = mask.to(q.dtype)
         else:
             qmax = max(ql)
             qd = torch.zeros((B, HQ, qmax, D), device="cuda", dtype=q.dtype)
@@ -631,12 +680,22 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
                     m &= pos > qa - window
                 mask[b, 0] = m
                 off += ql[b]
+            if slopes is not None:
+                qa = (torch.as_tensor(qs, device="cuda")[:, None]
+                      + rows[None, :])[:, None, :, None]  # [B, 1, qmax, 1]
+                bias = -slopes[None, :, None, None] * (qa - pos[None, None]).float()
+                mask = torch.where(mask, bias, torch.tensor(float("-inf"), device="cuda"))
+                mask = mask.to(q.dtype)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qd, K, V, attn_mask=mask, scale=scale, enable_gqa=True), 20)
     row = dict(case=name, kernel=counter.name, pool=pool, dtype=dtype_name(dtype),
                kv_dtype=dtype_name(kv_dtype), max_abs_err=max_err, kernel_ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, library=library,
                bound_ms=bound_ms, bound_by=bound_by, launches=launches)
+    if slopes is not None:  # the build's ALIBI = false kernels on the same inputs
+        kw.pop("alibi_slopes")
+        row["without_alibi_ms"] = cuda_ms(kern, 20)
+        row["alibi_over_without"] = ms / row["without_alibi_ms"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # the tensor-core kernels' second grid dimension: KV heads, or the
     # latent pool's head groups
@@ -1088,17 +1147,22 @@ GQA_FUNCTIONS = {("decode", "bfloat16"): "rpa_decode_mma_kernel",
 
 def gqa_function_props(kname, kind, dtype, kv_dtype, tree=False):
     """Registers and spill bytes (nvcc -Xptxas -v) of the function the GQA
-    build ``kname`` runs for ``kind`` with q ``dtype`` over ``kv_dtype`` (an
-    extend's TREE = ``tree`` instantiation)."""
+    kernel ``kname`` runs for ``kind`` with q ``dtype`` over ``kv_dtype`` (an
+    extend's TREE = ``tree`` instantiation; a decode's and an extend's
+    ALIBI = true one where ``kname`` is an ALiBi instantiation, else its
+    ALIBI = false one)."""
     from semi_pd_tpu_torch.kernels import KERNELS
 
+    k = KERNELS[kname]
     fn = GQA_FUNCTIONS[kind, dtype_name(dtype)]
     # with bf16 q the KV type is the template's first argument
     want = fn + ("I" if dtype_name(dtype) == "float32" else MANGLED_ROWS[dtype_name(kv_dtype)])
-    tag = "Lb1EE" if tree else "Lb0EE"  # the extend's last template argument, TREE
-    props = ptxas_summary(KERNELS[kname].build_log)
-    return next((dict(function=f, **p) for f, p in props.items()
-                 if want in f and (kind != "extend" or tag in f)), {})
+    # the last template arguments: the extend's TREE, then ALIBI (decode and extend)
+    alibi = int(k.library is not None)
+    tag = {"extend": f"Lb{int(tree)}ELb{alibi}EE", "decode": f"Lb{alibi}EE"}.get(kind, "")
+    props = ptxas_summary(k.build_log)
+    return next((dict(function=f, **p) for f, p in props.items() if want in f and tag in f),
+                {})
 
 
 def phase_kernels_256():
@@ -1189,6 +1253,58 @@ def phase_kernels_heads():
                                             beside=beside, nan_dead=True))
                 if kind == "decode":
                     packed[pool, dt, kdt] = rows[-1]["kernel_ms"]
+    return rows
+
+
+# ------------------------------- phase 2, the Llama variants' attention
+def phase_kernels_variants():
+    """Phase 2 at the attention of the Llama-variant slice, after every
+    other case (so that those draw the inputs they drew before), every dead
+    slot NaN: the aligned builds at six (G = 6: Hq 48 / Hkv 8) and sixteen
+    (G = 16: Hq 32 / Hkv 2) query heads per KV head, decode b64 / kv1024
+    through the packed and the streaming decode and extend b8 x q256 /
+    kv2048, bf16 and e4m3 KV under bf16 q; the merged builds at 36 KV heads
+    (Hq = Hkv = 36, head_dim 64), decode and extend, bf16 and e4m3; then
+    the ALiBi instantiations at Baichuan2-13B's 40 / 40 with its 40 slopes,
+    decode b64 / kv1024 and extend b8 x q256 / kv2048 (a prompt's last
+    chunk over its cached prefix) with bf16, e4m3 and float32 KV (float32
+    q for float32), and extend b2 x q2048 / kv2048 (two fresh prompts in
+    one chunked-prefill step) in bf16. Each row carries its function's
+    registers and spills, G, and SDPA's time (with ALiBi, SDPA takes the
+    bias as a float mask over the pre-gathered KV); an ALiBi row also times
+    the same inputs without the slopes (``without_alibi_ms``: the aligned
+    build's ALIBI = false kernels) and their ratio."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    rng = np.random.default_rng(22)
+    bf, f32, e4m3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+    lens = rng.integers(512, 1025, size=64)
+    lens[0], lens[-1] = 1024, 0  # one padded row
+    dec = ("decode_b64_kv1024", [1] * 64, lens.tolist())
+    ext = ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8)
+    ext2 = ("extend_b2_q2048_kv2048", [2048] * 2, [2048] * 2)
+    plan = [(pool, kind, *case, [(bf, bf), (bf, e4m3)])
+            for pool, kinds in (("aligned_g6", ("decode", "stream", "extend")),
+                                ("aligned_g16", ("decode", "stream", "extend")),
+                                ("merged_h36", ("decode", "extend")))
+            for kind in kinds for case in ((dec,) if kind != "extend" else (ext,))]
+    plan += [("aligned_alibi", "decode", *dec, [(bf, bf), (bf, e4m3), (f32, f32)]),
+             ("aligned_alibi", "extend", *ext, [(bf, bf), (bf, e4m3), (f32, f32)]),
+             ("aligned_alibi", "extend", *ext2, [(bf, bf)])]
+    rows, packed = [], {}
+    for pool, kind, name, ql, kl, pairs in plan:
+        for dt, kdt in pairs:
+            beside = gqa_function_props(kernel_name(kind, pool), kind, dt, kdt)
+            HQ, HKV = GEOMETRY[pool][:2]
+            beside["G"] = HQ // HKV
+            if kind == "stream":
+                beside["packed_kernel_ms"] = packed[pool, dt, kdt]
+            rows.append(run_kernel_case(name, kind, gen, rng, ql, kl, dt, pool, kdt,
+                                        beside=beside, nan_dead=True))
+            if kind == "decode":
+                packed[pool, dt, kdt] = rows[-1]["kernel_ms"]
     return rows
 
 
@@ -1321,11 +1437,12 @@ def gemma2_9b_config(**kw):
 
 
 # The published config.json of each model this script serves or runs
-# through phase 3 from the JAX package's Llama-family strings, Gemma-1 and
-# the GQA MoE families: every key that describes the model (those
-# ModelConfig.from_hf_config reads among them; training-only keys such as
-# dropout, initializer range and the router's loss coefficient left out).
-# The Hugging Face repository of each is its key.
+# through phase 3 from the JAX package's Llama-family strings, Gemma-1,
+# the GQA MoE families and the Llama-computation variants: every key that
+# describes the model (those ModelConfig.from_hf_config reads among them;
+# training-only keys such as dropout, initializer range and the router's
+# loss coefficient, and the remote-code auto_map, left out). The Hugging
+# Face repository of each is its key.
 PUBLISHED = {
     "Qwen/Qwen3-8B": dict(
         architectures=["Qwen3ForCausalLM"], attention_bias=False, bos_token_id=151643,
@@ -1383,6 +1500,108 @@ PUBLISHED = {
         rms_norm_eps=1e-6, rope_scaling=None, rope_theta=1000000.0, sliding_window=None,
         tie_word_embeddings=False, torch_dtype="bfloat16", use_sliding_window=False,
         vocab_size=151936),
+    # the Llama-computation variants (ROADMAP A14: the JAX package's
+    # llama_variants.py, glm.py, phi3.py, granite.py, grok.py)
+    "THUDM/chatglm3-6b": dict(
+        architectures=["ChatGLMModel"], add_bias_linear=False, add_qkv_bias=True,
+        apply_query_key_layer_scaling=True, apply_residual_connection_post_layernorm=False,
+        attention_softmax_in_fp32=True, eos_token_id=2, ffn_hidden_size=13696,
+        fp32_residual_connection=False, hidden_size=4096, kv_channels=128,
+        layernorm_epsilon=1e-5, model_type="chatglm", multi_query_attention=True,
+        multi_query_group_num=2, num_attention_heads=32, num_layers=28, original_rope=True,
+        pad_token_id=0, padded_vocab_size=65024, post_layer_norm=True, rmsnorm=True,
+        seq_length=8192, tie_word_embeddings=False, torch_dtype="float16"),
+    "THUDM/glm-4-9b-chat": dict(
+        architectures=["ChatGLMModel"], add_bias_linear=False, add_qkv_bias=True,
+        apply_query_key_layer_scaling=True, apply_residual_connection_post_layernorm=False,
+        attention_softmax_in_fp32=True, eos_token_id=[151329, 151336, 151338],
+        ffn_hidden_size=13696, fp32_residual_connection=False, hidden_size=4096,
+        kv_channels=128, layernorm_epsilon=1.5625e-07, model_type="chatglm",
+        multi_query_attention=True, multi_query_group_num=2, num_attention_heads=32,
+        num_hidden_layers=40, num_layers=40, original_rope=True, pad_token_id=151329,
+        padded_vocab_size=151552, post_layer_norm=True, rmsnorm=True, rope_ratio=500,
+        seq_length=131072, tie_word_embeddings=False, torch_dtype="bfloat16"),
+    "baichuan-inc/Baichuan2-13B-Chat": dict(
+        architectures=["BaichuanForCausalLM"], bos_token_id=1, eos_token_id=2,
+        hidden_act="silu", hidden_size=5120, intermediate_size=13696, model_max_length=4096,
+        model_type="baichuan", num_attention_heads=40, num_hidden_layers=40, pad_token_id=0,
+        rms_norm_eps=1e-6, tie_word_embeddings=False, torch_dtype="bfloat16",
+        vocab_size=125696),
+    "baichuan-inc/Baichuan2-7B-Base": dict(
+        architectures=["BaichuanForCausalLM"], bos_token_id=1, eos_token_id=2,
+        hidden_act="silu", hidden_size=4096, intermediate_size=11008,
+        max_position_embeddings=4096, model_max_length=4096, model_type="baichuan",
+        num_attention_heads=32, num_hidden_layers=32, pad_token_id=0, rms_norm_eps=1e-6,
+        tie_word_embeddings=False, torch_dtype="bfloat16", vocab_size=125696),
+    "openbmb/MiniCPM-2B-sft-bf16": dict(
+        architectures=["MiniCPMForCausalLM"], bos_token_id=1, dim_model_base=256,
+        eos_token_id=2, hidden_act="silu", hidden_size=2304, intermediate_size=5760,
+        max_position_embeddings=2048, model_type="minicpm", num_attention_heads=36,
+        num_hidden_layers=40, num_key_value_heads=36, rms_norm_eps=1e-5, rope_scaling=None,
+        scale_depth=1.4, scale_emb=12, tie_word_embeddings=True, torch_dtype="bfloat16",
+        vocab_size=122753),
+    "deepseek-ai/deepseek-moe-16b-base": dict(
+        architectures=["DeepseekForCausalLM"], attention_bias=False, bos_token_id=100000,
+        eos_token_id=100001, first_k_dense_replace=1, hidden_act="silu", hidden_size=2048,
+        intermediate_size=10944, max_position_embeddings=4096, model_type="deepseek",
+        moe_intermediate_size=1408, moe_layer_freq=1, n_routed_experts=64, n_shared_experts=2,
+        norm_topk_prob=False, num_attention_heads=16, num_experts_per_tok=6,
+        num_hidden_layers=28, num_key_value_heads=16, rms_norm_eps=1e-6, rope_scaling=None,
+        rope_theta=10000, scoring_func="softmax", tie_word_embeddings=False,
+        torch_dtype="bfloat16", vocab_size=102400),
+    "internlm/internlm2-20b": dict(
+        architectures=["InternLM2ForCausalLM"], bias=False, bos_token_id=1, eos_token_id=2,
+        hidden_act="silu", hidden_size=6144, intermediate_size=16384,
+        max_position_embeddings=32768, model_type="internlm2", num_attention_heads=48,
+        num_hidden_layers=48, num_key_value_heads=8, pad_token_id=2, rms_norm_eps=1e-5,
+        rope_scaling={"type": "dynamic", "factor": 2.0}, rope_theta=1000000,
+        tie_word_embeddings=False, torch_dtype="bfloat16", vocab_size=92544),
+    "internlm/internlm2-7b-reward": dict(
+        architectures=["InternLM2ForRewardModel"], bias=False, bos_token_id=1,
+        eos_token_id=2, hidden_act="silu", hidden_size=4096, intermediate_size=14336,
+        max_position_embeddings=32768, model_type="internlm2", num_attention_heads=32,
+        num_hidden_layers=32, num_key_value_heads=8, pad_token_id=2, rms_norm_eps=1e-5,
+        rope_scaling={"type": "dynamic", "factor": 2.0}, rope_theta=1000000,
+        tie_word_embeddings=False, torch_dtype="bfloat16", vocab_size=92544),
+    "LGAI-EXAONE/EXAONE-3.0-7.8B-Instruct": dict(
+        activation_function="silu", architectures=["ExaoneForCausalLM"], bos_token_id=1,
+        eos_token_id=361, head_dim=128, hidden_size=4096, intermediate_size=14336,
+        layer_norm_epsilon=1e-5, max_position_embeddings=4096, model_type="exaone",
+        num_attention_heads=32, num_key_value_heads=8, num_layers=32, pad_token_id=0,
+        rope_scaling=None, rope_theta=500000.0, tie_word_embeddings=False,
+        torch_dtype="float32", vocab_size=102400),
+    "Qwen/Qwen-7B": dict(
+        architectures=["QWenLMHeadModel"], bf16=False, fp16=False, fp32=False,
+        hidden_size=4096, intermediate_size=22016, kv_channels=128, layer_norm_epsilon=1e-6,
+        max_position_embeddings=32768, model_type="qwen", no_bias=True,
+        num_attention_heads=32, num_hidden_layers=32, rotary_emb_base=10000, rotary_pct=1.0,
+        scale_attn_weights=True, seq_length=8192, tie_word_embeddings=False,
+        use_dynamic_ntk=True, use_logn_attn=True, vocab_size=151936),
+    "microsoft/Phi-3-medium-4k-instruct": dict(
+        architectures=["Phi3ForCausalLM"], attention_bias=False, bos_token_id=1,
+        eos_token_id=32000, hidden_act="silu", hidden_size=5120, intermediate_size=17920,
+        max_position_embeddings=4096, model_type="phi3", num_attention_heads=40,
+        num_hidden_layers=40, num_key_value_heads=10, original_max_position_embeddings=4096,
+        pad_token_id=32000, rms_norm_eps=1e-5, rope_scaling=None, rope_theta=10000.0,
+        sliding_window=2047, tie_word_embeddings=False, torch_dtype="bfloat16",
+        vocab_size=32064),
+    "ibm-granite/granite-3.0-8b-instruct": dict(
+        architectures=["GraniteForCausalLM"], attention_bias=False,
+        attention_multiplier=0.0078125, bos_token_id=0, embedding_multiplier=12.0,
+        eos_token_id=0, hidden_act="silu", hidden_size=4096, intermediate_size=12800,
+        logits_scaling=16.0, max_position_embeddings=4096, mlp_bias=False,
+        model_type="granite", num_attention_heads=32, num_hidden_layers=40,
+        num_key_value_heads=8, pad_token_id=0, residual_multiplier=0.22, rms_norm_eps=1e-5,
+        rope_scaling=None, rope_theta=10000.0, tie_word_embeddings=True,
+        torch_dtype="bfloat16", vocab_size=49155),
+    "xai-org/grok-1": dict(
+        architectures=["Grok1ForCausalLM"], attn_output_multiplier=0.08838834764831845,
+        bos_token_id=1, embedding_multiplier_scale=78.38367176906169, eos_token_id=2,
+        hidden_size=6144, intermediate_size=32768, max_attn_value=30.0,
+        max_position_embeddings=8192, model_type="grok-1", num_attention_heads=48,
+        num_experts_per_tok=2, num_hidden_layers=64, num_key_value_heads=8,
+        num_local_experts=8, output_multiplier_scale=0.5773502691896257, pad_token_id=0,
+        rms_norm_eps=1e-5, torch_dtype="bfloat16", vocab_size=131072),
 }
 
 
@@ -1419,6 +1638,8 @@ def bench_server_args(semi_pd: bool, kv_cache_dtype: str = "auto",
 # expected_launches)
 PATH_KERNELS = {"chunked": ("rpa_decode", "rpa_extend"),
                 "aligned": ("rpa_decode_aligned", "rpa_extend_aligned"),
+                # Baichuan2-13B's ALiBi: the aligned builds' ALiBi instantiations
+                "aligned_alibi": ("rpa_decode_aligned_alibi", "rpa_extend_aligned_alibi"),
                 "aligned256": ("rpa_decode_aligned_256", "rpa_extend_aligned_256"),
                 "merged": ("rpa_decode_merged", "rpa_extend_merged"),
                 "latent": ("rpa_decode_mla", "rpa_extend_mla"),
@@ -1452,8 +1673,10 @@ def expected_launches(runner, pool, stream, steps):
 
 
 # the attention path's norm leaves (Llama's and the MoE classes' input and
-# q/k norms, DeepSeek's and MiniCPM3's input, q and kv norms)
-ATTN_NORMS = ("input_norm", "q_norm", "k_norm", "kv_norm")
+# q/k norms, DeepSeek's and MiniCPM3's input, q and kv norms, and the
+# sandwich norm on the attention's output of Glm4 and Grok-1, whose 0.02
+# weights would hide the attention beside Grok-1's embedding x 78.5)
+ATTN_NORMS = ("input_norm", "q_norm", "k_norm", "kv_norm", "post_attn_sandwich")
 
 
 def make_attentive(model):
@@ -1461,15 +1684,20 @@ def make_attentive(model):
     Gemma's (1 + w) convention) so that random weights give scores of
     about unit spread: at 0.02 N(0, 1) they shrink q and k so far that
     every head attends near-uniformly and a wrong scale or softcap leaves
-    the logits where they were (ROADMAP C15). Returns the leaves' old
-    values for ``restore``."""
+    the logits where they were (ROADMAP C15). A model whose attention
+    scale is below head_dim ** -0.5 (Granite's attention_multiplier of
+    1/128, a ninth of it) gets its norms at sqrt(head_dim ** -0.5 /
+    scale) instead: q and k grow by that, the scores by its square, to a
+    Llama's spread. Returns the leaves' old values for ``restore``."""
     gemma = type(model).__name__.startswith("Gemma")
+    D, scale = getattr(model, "head_dim", None), getattr(model, "scale", None)
+    level = math.sqrt(D ** -0.5 / scale) if D and scale and scale < D ** -0.5 else 1.0
     saved = {}
     for path, _ in model.param_specs():
         if path.split(".")[-1] in ATTN_NORMS:
             leaf = model.leaf(path)
             saved[path] = leaf.detach().clone()
-            leaf.data.fill_(0.0 if gemma else 1.0)
+            leaf.data.fill_(0.0 if gemma else level)
     return saved
 
 
@@ -2698,6 +2926,77 @@ def spec_fallback_serve(eng, algo, prompts, main_launches, smi, label, max_new=2
     return res
 
 
+def reward_phase(label, cfg, main_launches, smi):
+    """InternLM2's reward model at full width (tied, with its v_head): the
+    rewards of 4 prompts (700, 300, 1500 and 37 tokens; ``Engine.encode``,
+    the v_head on each last final-normed hidden state) and their input
+    log-probs (``Engine.score``) through the kernels, then through the plain
+    attention on the same engine, on random and on ``make_attentive``
+    weights: each within the model gate of the plain version (in the
+    gate's measure: the largest difference over the largest plain value),
+    the attentive rewards moved past the gate by a zeroed attention. Only
+    rpa_extend_aligned launches (encode and score are extend steps)."""
+    import torch
+
+    from semi_pd_tpu_torch.kernels import KERNELS
+    from semi_pd_tpu_torch.layers.attention import pool_attention
+    from semi_pd_tpu_torch.runtime.engine import Engine
+
+    t0 = time.monotonic()
+    eng = Engine(bench_server_args(False, max_total_tokens=65536), cfg)
+    runner = eng.runner
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (700, 300, 1500, 37)]
+    kernels = runner.attention
+    plain = pool_attention(runner.kv_cache.buffer, plain=True)
+
+    def zeroed(*a, **kw):
+        return torch.zeros_like(kernels(*a, **kw))
+
+    def run(attention):
+        runner.attention = attention
+        try:
+            rewards = np.asarray(eng.encode(input_ids=prompts), np.float64)
+            lps = np.concatenate([[lp for lp, _ in r] for r in eng.score(input_ids=prompts)])
+        finally:
+            runner.attention = kernels
+        return rewards, lps
+
+    res = dict(model=label, gpu=smi, params=sum(p.numel() for p in runner.model.parameters()))
+    launches = collections.Counter()
+    for attentive in (False, True):
+        saved = make_attentive(runner.model) if attentive else {}
+        try:
+            for k in KERNELS.values():
+                k.launches = 0
+            rk, lk = run(kernels)
+            launches.update({n: k.launches for n, k in KERNELS.items() if k.launches})
+            rp, lp = run(plain)
+            rz, _ = run(zeroed)
+        finally:
+            restore(runner.model, saved)
+        key = "attentive" if attentive else "raw"
+        res[key] = dict(
+            rewards=rk[:, 0].tolist(), reward_rel_err=float(np.abs(rk - rp).max()
+                                                          / np.abs(rp).max()),
+            logprob_rel_err=float(np.abs(lk - lp).max() / np.abs(lp).max()),
+            zero_moves_reward=float(np.abs(rz - rk).max() / np.abs(rp).max()))
+        if (res[key]["reward_rel_err"] > MODEL_GATE or res[key]["logprob_rel_err"] > MODEL_GATE
+                or not np.isfinite(rk).all()):
+            raise AssertionError(f"{label}: kernels vs plain {res[key]}")
+        if attentive and res[key]["zero_moves_reward"] <= MODEL_GATE:
+            raise AssertionError(f"{label}: the rewards do not see the attention {res[key]}")
+    if set(launches) != {"rpa_extend_aligned"}:
+        raise AssertionError(f"{label}: other kernels launched: {launches}")
+    for n, v in launches.items():
+        main_launches[n] += v
+    del eng.scheduler, eng.runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("reward " + json.dumps(dict(res, launches=dict(launches), seconds=time.monotonic() - t0)),
+          flush=True)
+
+
 def path_kernels(kv_cache):
     """The (decode, extend) builds serving a pool (PATH_KERNELS), by its
     kernel family and, for the families with a build per width, its width:
@@ -2768,14 +3067,16 @@ def main() -> int:
     nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()
     build_s = build_all()
-    for kname, k in KERNELS.items():  # each function's registers and spills
+    # each library once (an ALiBi instantiation's is its build's)
+    builds = {n: k for n, k in KERNELS.items() if k.library is None}
+    for kname, k in builds.items():  # each function's registers and spills
         for ln in k.build_log.splitlines():
             if ("Function properties" in ln or "registers" in ln or "spill" in ln
                     or "wgmma" in ln):
                 print(f"ptxas {kname} {ln.strip()}")
     # tensor-core instructions per kernel library and function
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
-        sass = dict(zip(KERNELS, ex.map(sass_mma_counts, KERNELS.values())))
+    with ThreadPoolExecutor(len(builds)) as ex:
+        sass = dict(zip(builds, ex.map(sass_mma_counts, builds.values())))
     for kname, counts in sass.items():
         print("sass " + json.dumps(dict(kernel=kname, mma=sum(counts.values()),
                                         functions=counts)))
@@ -2818,6 +3119,22 @@ def main() -> int:
                 raise AssertionError(f"{kname}: the TREE = false function spills: {c}")
             if dt == torch.bfloat16 and not row["tree"]["hgmma"]:
                 raise AssertionError(f"{kname}: no HGMMA in the TREE = true function")
+    # the aligned decode's and extend's ALIBI = true functions beside their
+    # ALIBI = false ones, per kind and (q, KV) pair: registers, spills and
+    # tensor-core instructions
+    for kind in ("decode", "extend"):
+        alibi, base = f"rpa_{kind}_aligned_alibi", f"rpa_{kind}_aligned"
+        for dt, kdt in tree_pairs:
+            row = dict(kernel=alibi, kind=kind, dtype=dtype_name(dt), kv_dtype=dtype_name(kdt))
+            for key, kname in (("alibi", alibi), ("without", base)):
+                p = gqa_function_props(kname, kind, dt, kdt)
+                if not p:
+                    raise AssertionError(f"{kname}: no {kind} function for "
+                                         f"{row['dtype']}/{row['kv_dtype']}")
+                row[key] = dict(p, mma=sass[base].get(p["function"]))
+            print("alibi_functions " + json.dumps(row), flush=True)
+            if dt == torch.bfloat16 and not row["alibi"]["mma"]:
+                raise AssertionError(f"{alibi}: no tensor-core instruction in {row['alibi']}")
     # the latent decodes' block tile (mma.sync): registers, spills and HMMA
     # count of each instantiation; a spill fails the run
     for kname, mma_fn in (("rpa_decode_mla", "rpa_decode_mla_mma_kernel"),
@@ -2876,6 +3193,8 @@ def main() -> int:
     rows += phase_kernels_256()
     # the aligned and _256 builds at G = 1 and 8 query heads per KV head
     rows += phase_kernels_heads()
+    # G = 6 and 16, the merged builds at Hkv 36, the ALiBi instantiations
+    rows += phase_kernels_variants()
     print("kernels_phase " + json.dumps(dict(cases=len(rows) + len(spec_rows),
                                              seconds=time.monotonic() - t0)), flush=True)
 
@@ -2925,6 +3244,9 @@ def main() -> int:
             print("serve " + json.dumps(dict(r, model=label, gpu=smi)), flush=True)
         same = np.mean([a == b for a, b in zip(outputs[0], outputs[1])])
         res = dict(model=label, modes_same_tokens=float(same))
+        if same < 1.0:  # the log-prob gap of each first difference (C8: near ties)
+            res["first_diffs"] = first_diffs(eng, prompts_for(vocab, max_len), outputs[0],
+                                             outputs[1])["diffs"]
         if repeat:
             res["repeat_same_tokens"] = float(np.mean(
                 [a == b for a, b in zip(outputs[0], outputs[2])]))
@@ -3366,11 +3688,11 @@ def main() -> int:
     # the Llama-family strings, Gemma-1 and the GQA MoE families at full
     # width and depth, from their published config.json (PUBLISHED): phases
     # 3, 3g and 4, each model phase once more on attentive weights (C15)
-    def family_path(label, cfg, kv_dtype, pool, tokens=131072, stream=False):
+    def family_path(label, cfg, kv_dtype, pool, tokens=131072, stream=False, max_len=3072):
         eng = model_phase(label, cfg, kv_dtype, tokens=tokens)
         model_phase(label, None, kv_dtype, eng=eng, attentive=True)
         graph_phase(eng, label, pool)
-        packed = serve_phase(eng, label, pool)
+        packed = serve_phase(eng, label, pool, max_len=max_len)
         if stream:
             stream_phase(eng, label, pool, kv_dtype, packed)
         release(eng)
@@ -3392,8 +3714,10 @@ def main() -> int:
     # prompts past its 4096 window (prefilled in chunks of 4096: the window
     # cuts in the second chunk and in decode), Mixtral-8x7B and
     # Qwen3-30B-A3B at cut depths
-    def model_only(label, cfg, reduced=None, lens=(700, 300, 1500, 37), gate=MODEL_GATE):
-        eng = model_phase(label, cfg, "auto", reduced=reduced, lens=lens, gate=gate)
+    def model_only(label, cfg, reduced=None, lens=(700, 300, 1500, 37), gate=MODEL_GATE,
+                   tokens=131072):
+        eng = model_phase(label, cfg, "auto", reduced=reduced, lens=lens, gate=gate,
+                          tokens=tokens)
         model_phase(label, None, "auto", eng=eng, reduced=reduced, lens=lens, attentive=True,
                     gate=gate)
         release(eng)
@@ -3410,6 +3734,49 @@ def main() -> int:
     model_only("gemma-7b float32", published_config(gemma7b, num_hidden_layers=4,
                                                     dtype="float32"),
                reduced="4 of 28 layers, float32", gate=1e-3)
+
+    # the Llama-computation variants (the JAX package's llama_variants.py,
+    # glm.py, phi3.py, granite.py, grok.py) from their published config.json
+    # (PUBLISHED): ChatGLM3-6B (G = 16), Baichuan2-13B (ALiBi: the aligned
+    # builds' ALiBi instantiations; its bf16 KV is 800 KiB a token, so a
+    # 57344-token pool beside its 27.8 GB of weights), MiniCPM-2B (the
+    # merged builds at 36 KV heads; context 2048) and deepseek-moe-16b
+    # (dense first layer, 64 experts top-6 and 2 shared; every layer holds
+    # both stacks) at full depth through phases 3, 3g and 4
+    P = "baichuan-inc/Baichuan2-13B-Chat"
+    family_path("chatglm3-6b", published_config("THUDM/chatglm3-6b"), "auto", "aligned")
+    family_path("baichuan2-13b-chat", published_config(P, context_length=4096), "auto",
+                "aligned_alibi", tokens=57344)
+    family_path("minicpm-2b", published_config("openbmb/MiniCPM-2B-sft-bf16",
+                                               context_length=2048), "auto", "merged",
+                max_len=2048 - 64)
+    family_path("deepseek-moe-16b", published_config("deepseek-ai/deepseek-moe-16b-base",
+                                                     context_length=4096), "auto", "aligned",
+                tokens=98304)
+    # InternLM2-7B's reward model: its scores (encode) and input log-probs
+    # (score) through the kernels against the plain attention
+    reward_phase("internlm2-7b-reward", published_config("internlm/internlm2-7b-reward"),
+                 main_launches, smi)
+    # phase 3 alone, full depth: InternLM2-20B (G = 6), GLM-4-9B (G = 16;
+    # then fp8_e4m3 KV through the streaming decode), EXAONE-3.0-7.8B,
+    # Qwen-7B and Baichuan2-7B (multi-head: 512 KiB of bf16 KV a token, so
+    # 65536-token pools), Phi-3-medium-4k (prompts past its 2047 window),
+    # Granite-3.0-8B (its four multipliers); Grok-1 at 4 of 64 layers
+    model_only("internlm2-20b", published_config("internlm/internlm2-20b"), tokens=65536)
+    glm4 = published_config("THUDM/glm-4-9b-chat")
+    model_only("glm-4-9b-chat", glm4)
+    release(model_phase("glm-4-9b-chat fp8_e4m3", glm4, "fp8_e4m3", stream=True))
+    model_only("exaone-3.0-7.8b", published_config("LGAI-EXAONE/EXAONE-3.0-7.8B-Instruct"))
+    model_only("qwen-7b", published_config("Qwen/Qwen-7B"), tokens=65536)
+    model_only("baichuan2-7b", published_config("baichuan-inc/Baichuan2-7B-Base",
+                                                context_length=4096), tokens=65536)
+    model_only("phi-3-medium-4k", published_config("microsoft/Phi-3-medium-4k-instruct",
+                                                   context_length=4096),
+               lens=(2600, 300, 1500, 37))
+    model_only("granite-3.0-8b", published_config("ibm-granite/granite-3.0-8b-instruct",
+                                                  context_length=4096))
+    model_only("grok-1", published_config("xai-org/grok-1", num_hidden_layers=4),
+               reduced="4 of 64 layers (one layer's experts are 9.7 GB in bf16)")
 
     # 5. the kernels line: each kernel's case at its path's representative
     # shape and types (the 8B path serves with fp8_e4m3 KV); every kernel
@@ -3430,7 +3797,9 @@ def main() -> int:
            "rpa_decode_stream_mla_288": ("decode_b64_kv1024", "bfloat16"),
            "rpa_decode_aligned_256": ("decode_b64_kv1024", "bfloat16"),
            "rpa_extend_aligned_256": ("extend_b8_q256_kv2048", "bfloat16"),
-           "rpa_decode_stream_aligned_256": ("decode_b64_kv1024", "bfloat16")}
+           "rpa_decode_stream_aligned_256": ("decode_b64_kv1024", "bfloat16"),
+           "rpa_decode_aligned_alibi": ("decode_b64_kv1024", "bfloat16"),
+           "rpa_extend_aligned_alibi": ("extend_b8_q256_kv2048", "bfloat16")}
     idle = [k for k in KERNELS if not main_launches[k]]
     if idle:
         raise AssertionError(f"kernels no serving run launched: {idle}")

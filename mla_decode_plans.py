@@ -136,7 +136,7 @@ def main() -> int:
             scratch = torch.empty(n_chunk * b * hq * (dv + 2), device="cuda")
             chosen = min(consts["MLA_MMA_BLOCKS_PER_SM"] * sms, b * n_chunk)
             plans = [("rpa_decode_mla", dict(n_split=n_chunk, split_len=chunk),
-                      (n_chunk, chunk, scratch.data_ptr()))]
+                      (n_chunk, chunk, scratch.data_ptr(), None))]
             plans += [("rpa_decode_stream_mla", dict(n_blocks=n, chosen=n == chosen),
                        (n, scratch.data_ptr())) for n in sorted({*BLOCKS, chosen})]
             for kname, label, extra in plans:

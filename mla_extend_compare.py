@@ -12,6 +12,7 @@ extend's tree-masked instantiation against its unmasked one.
         --kernels rpa_extend_mla rpa_decode_mla rpa_decode_stream_mla
     python3 mla_extend_compare.py --source parent=DIR \
         --kernels rpa_extend_mla_288 rpa_extend_aligned_256
+    python3 mla_extend_compare.py --ptxas --source parent=DIR [--kernels NAME ...]
 
 Each source (this checkout as "this", and every ``--source NAME=DIR``: DIR's
 semi_pd_tpu_torch/csrc, unchanged) is built as each kernel with the build's
@@ -29,6 +30,18 @@ this checkout alone, the tree verify (b64 x 29 rows of
 default_tree_template(4, 4) over prefixes 520-1000 on shuffled pages) with
 and without the tree, in bf16 and e4m3 (at head_dim 256 with Gemma-2's
 softcap 50).
+
+With ``--ptxas`` it times nothing and needs no GPU, only nvcc: every
+build library (``semi_pd_tpu_torch.kernels.KERNELS`` less the ALiBi
+instantiations, which live in their build's library; or those of
+``--kernels``) is built anew with its own flags from this checkout's
+sources and from each DIR's, all nvcc started together, and each function
+is matched to the other side's by its mangled name up to its parameter
+list (the part before the first ``Ev``), or, for a kernel that gained a
+trailing ``bool`` template argument set false (ALIBI), by that name
+without it. One ``ptxas_function`` line per (kernel, function) gives both
+sides' registers and spill bytes and ``same``; one ``ptxas_summary`` line
+per DIR the functions compared, changed, and those only one side has.
 
 Prints the card's nvidia-smi name and power limit, one ``mla_build`` JSON
 line per kernel, source and function (registers and spills from ``nvcc
@@ -85,12 +98,75 @@ def kernel_cases(kname, bf, f32, e4m3):
                   ("decode_b16_kv4096", [1] * 16, (16, 4096), bf, bf)]
 
 
+def ptxas_compare(sources, kernels) -> int:
+    """``--ptxas``: every build's registers and spills against each other
+    checkout's (the module docstring)."""
+    import chip_smoke as cs
+    from semi_pd_tpu_torch.kernels import KERNELS, CudaKernel
+
+    import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
+    import semi_pd_tpu_torch.ops.attention.rpa_packed  # noqa: F401
+    import semi_pd_tpu_torch.ops.attention.rpa_stream  # noqa: F401
+
+    builds = {n: k for n, k in KERNELS.items()
+              if k.library is None and (not kernels or n in kernels)}
+    twins = []  # (source name, kernel name, this checkout's build, the other's)
+    for item in sources:
+        name, _, d = item.partition("=")
+        for kname, k in builds.items():
+            src = Path(d).resolve() / "semi_pd_tpu_torch" / "csrc" / k.source.name
+            if src.exists():
+                twins.append((name, kname, k, CudaKernel(f"{kname}-{name}", str(src), k.symbol,
+                                                         k.argtypes, k.replaces, k.defines)))
+    libs = list(builds.values()) + [t for *_, t in twins]
+    for k in libs:  # built anew, so that every build leaves its ptxas log
+        k.lib_path().unlink(missing_ok=True)
+    started = [(k, k.start_build()) for k in libs]
+    for k, st in started:
+        k.finish_build(st)
+    key = lambda fn: fn.split("Ev", 1)[0]  # noqa: E731
+    for name in dict.fromkeys(n for n, *_ in twins):
+        compared = changed = 0
+        only = []
+        for _, kname, this, twin in (t for t in twins if t[0] == name):
+            a = {key(f): (f, p) for f, p in cs.ptxas_summary(this.build_log).items()}
+            b = {key(f): (f, p) for f, p in cs.ptxas_summary(twin.build_log).items()}
+            matched = set()
+            for fk, (fn, pa) in sorted(a.items()):
+                bk = fk if fk in b else re.sub(r"Lb0E(E+)$", r"\1", fk)
+                if bk not in b:
+                    only.append(dict(kernel=kname, function=fn, side="this"))
+                    continue
+                matched.add(bk)
+                pb = b[bk][1]
+                compared += 1
+                changed += pa != pb
+                print("ptxas_function " + json.dumps(dict(kernel=kname, function=fn, this=pa,
+                                                          **{name: pb}, same=pa == pb)))
+            only += [dict(kernel=kname, function=f, side=name)
+                     for bk, (f, _) in sorted(b.items()) if bk not in matched]
+        print("ptxas_summary " + json.dumps(dict(source=name, kernels=len(builds),
+                                                 compared=compared, changed=changed,
+                                                 one_side_only=only)), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", nargs="*", default=[],
                     help="NAME=DIR: another checkout's latent builds, timed as NAME")
-    ap.add_argument("--kernels", nargs="*", default=["rpa_extend_mla"], choices=sorted(POOLS))
+    ap.add_argument("--kernels", nargs="*", default=None,
+                    help=f"timed: of {sorted(POOLS)} (default rpa_extend_mla); with --ptxas "
+                         f"any build (default all)")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="compare every build's registers and spills, time nothing")
     args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    if args.ptxas:
+        return ptxas_compare(args.source, args.kernels)
+    args.kernels = args.kernels or ["rpa_extend_mla"]
+    if set(args.kernels) - set(POOLS):
+        ap.error(f"--kernels: timed kernels are {sorted(POOLS)}")
 
     import numpy as np
     import torch
@@ -99,7 +175,6 @@ def main() -> int:
         print("mla_extend_compare: torch.cuda.is_available() is false; this needs a GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from semi_pd_tpu_torch.kernels import KERNELS, CudaKernel, build_all
     from semi_pd_tpu_torch.ops.attention import ragged_paged_attention as rpa

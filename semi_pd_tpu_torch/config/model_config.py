@@ -4,8 +4,12 @@ Holds the ModelConfig fields the port's families use: the Llama-family
 dense decoders (Llama, Mistral, Xverse, Qwen2 with its qkv bias, Qwen3
 with its per-head q/k norms), Gemma-1 and Gemma-2 (per-layer windows,
 softcaps and the query scalar), the GQA MoE families (Mixtral, Qwen2-MoE,
-Qwen3-MoE, OLMoE), DeepSeek-V2/V3 (MLA + MoE) and MiniCPM3 (MLA, dense,
-with its three scalings). ``from_hf_config`` reads a HuggingFace
+Qwen3-MoE, OLMoE), DeepSeek-V2/V3 (MLA + MoE), MiniCPM3 (MLA, dense, with
+its three scalings) and the Llama-computation variants of the JAX
+package's models/llama_variants.py, glm.py, phi3.py, granite.py and
+grok.py (InternLM2 and its reward model, ExaOne, Baichuan, QWen v1,
+MiniCPM, XverseMoe, DeepSeek-V1, Glm, Glm4, ChatGLM, Phi-3, Granite,
+Grok-1). ``from_hf_config`` reads a HuggingFace
 ``config.json`` (a dict, or any object with its keys as attributes) for
 these architectures by the JAX package's rules; ``from_model_path`` and
 the multimodal fields are not part of the port (ROADMAP A13-A14). Configs
@@ -22,7 +26,20 @@ from typing import Any, Dict, List, Optional
 # Architectures whose attention is Multi-head Latent Attention (the latent
 # pool), as in the JAX package
 MLA_ARCHS = {"DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM", "MiniCPM3ForCausalLM"}
-
+# ChatGLM's three strings (the JAX clause's)
+CHATGLM_ARCHS = ("ChatGLMModel", "ChatGLMForConditionalGeneration", "ChatGLMForCausalLM")
+# the HF keys a class reads when it is built, kept as fields of their own
+# name (ModelConfig above), by architecture
+BUILD_KEYS = {
+    "BaichuanForCausalLM": ("position_embedding",),
+    "BaiChuanForCausalLM": ("position_embedding",),
+    **{a: ("add_qkv_bias", "add_bias_linear") for a in CHATGLM_ARCHS},
+    "GraniteForCausalLM": ("embedding_multiplier", "attention_multiplier",
+                           "residual_multiplier", "logits_scaling"),
+    **{a: ("attn_logit_softcapping", "router_logit_softcapping",
+           "embedding_multiplier_scale", "output_multiplier_scale")
+       for a in ("Grok1ForCausalLM", "Grok1ModelForCausalLM")},
+}
 
 
 @dataclasses.dataclass
@@ -91,6 +108,30 @@ class ModelConfig:
     scale_depth: Optional[float] = None
     dim_model_base: Optional[float] = None
 
+    # What the other variant classes read from their HF config when they
+    # are built (None: the key is absent, and the class takes the JAX
+    # class's default): Baichuan's position_embedding ("ALIBI" or "ROPE";
+    # semi_pd_tpu/models/llama_variants.py:144-148), ChatGLM's
+    # add_qkv_bias / add_bias_linear (glm.py:84-87), Granite's four
+    # multipliers (granite.py:16-20) and Grok-1's softcaps and multipliers
+    # (grok.py:39-44)
+    position_embedding: Optional[str] = None
+    add_qkv_bias: Optional[bool] = None
+    add_bias_linear: Optional[bool] = None
+    embedding_multiplier: Optional[float] = None
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: Optional[float] = None
+    logits_scaling: Optional[float] = None
+    attn_logit_softcapping: Optional[float] = None
+    router_logit_softcapping: Optional[float] = None
+    embedding_multiplier_scale: Optional[float] = None
+    output_multiplier_scale: Optional[float] = None
+
+    # embedding / reward models: *Model, *Classification and *Reward*
+    # architecture strings, as the JAX rule sets it (the port's Engine
+    # reads ServerArgs.is_embedding)
+    is_embedding: bool = False
+
     dtype: str = "bfloat16"
 
     @property
@@ -124,16 +165,30 @@ class ModelConfig:
           JAX package reads no such switch, so Qwen1.5-MoE-A2.7B's 32768
           window applies to every layer).
 
+        - the variants' clauses (JAX :221-258): ExaOne's ``num_layers`` and
+          ``activation_function``; QWen v1's halved intermediate size,
+          ``rotary_emb_base`` and ``seq_length``; ChatGLM's ``num_layers``,
+          ``padded_vocab_size``, ``ffn_hidden_size``, ``kv_channels``,
+          ``multi_query_group_num``, ``layernorm_epsilon``, ``seq_length``,
+          rope base ``10000 * rope_ratio`` over half of head_dim;
+          XverseMoe's ``moe_top_k`` and shared experts, before the MoE
+          clause sets them again;
+        - ``is_embedding`` for the *Model, *Classification and *Reward*
+          strings (ChatGLMModel and QWenLMHeadModel among them, which the
+          JAX rule flags too; nothing but the Engine's ServerArgs acts on
+          it).
+
         What the JAX models read from their HF config at build time is a
         field here: Gemma's ``query_pre_attn_scalar`` and Gemma-2's
         softcaps (``attn_logit_softcapping``, ``final_logit_softcapping``;
         a key the config leaves out is None, which Gemma2ForCausalLM
-        resolves to the JAX default), MiniCPM3's ``scale_emb``,
-        ``scale_depth`` and ``dim_model_base``, and Qwen2-MoE's shared
-        expert, ``num_shared_experts = shared_expert_intermediate_size //
-        moe_intermediate_size`` (at least 1), which the JAX
-        ``Qwen2MoeForCausalLM.__init__`` sets. Other architectures raise,
-        naming ROADMAP A14."""
+        resolves to the JAX default), MiniCPM's and MiniCPM3's
+        ``scale_emb``, ``scale_depth`` and ``dim_model_base``, the keys of
+        ``BUILD_KEYS`` (Baichuan, ChatGLM, Granite, Grok-1), and
+        Qwen2-MoE's shared expert, ``num_shared_experts =
+        shared_expert_intermediate_size // moe_intermediate_size`` (at
+        least 1), which the JAX ``Qwen2MoeForCausalLM.__init__`` sets.
+        Other architectures raise, naming ROADMAP A14."""
         if isinstance(hf_config, dict):
             g = lambda k, d=None: hf_config.get(k, d)  # noqa: E731
         else:
@@ -180,6 +235,36 @@ class ModelConfig:
         # Qwen2 puts a bias on qkv but not on o / the MLP
         if arch.startswith("Qwen") and "Moe" not in arch:
             cfg.attention_bias = True if g("attention_bias") is None else cfg.attention_bias
+        if arch == "ExaoneForCausalLM":  # its own names for depth and activation
+            cfg.num_hidden_layers = g("num_layers", cfg.num_hidden_layers)
+            cfg.hidden_act = g("activation_function", "silu")
+        if arch == "QWenLMHeadModel":
+            # QWen v1 stores the fused w1 + w2 width; its rope base and
+            # length under keys of its own
+            cfg.intermediate_size //= 2
+            cfg.rope_theta = g("rotary_emb_base", 10000.0)
+            cfg.max_position_embeddings = g("seq_length", 8192)
+            cfg.context_length = context_length or cfg.max_position_embeddings
+        if arch in CHATGLM_ARCHS:  # ChatGLM's own names; rope over half of head_dim
+            cfg.num_hidden_layers = g("num_layers", cfg.num_hidden_layers)
+            cfg.vocab_size = g("padded_vocab_size", cfg.vocab_size)
+            cfg.intermediate_size = g("ffn_hidden_size", cfg.intermediate_size)
+            cfg.head_dim = g("kv_channels") or cfg.head_dim
+            if g("multi_query_attention", False):
+                cfg.num_key_value_heads = g("multi_query_group_num", 2)
+            cfg.rms_norm_eps = g("layernorm_epsilon", 1e-5)
+            cfg.max_position_embeddings = g("seq_length", 8192)
+            cfg.context_length = context_length or cfg.max_position_embeddings
+            cfg.rope_theta = 10000.0 * g("rope_ratio", 1.0)
+            cfg.partial_rotary_factor = 0.5
+            cfg.tie_word_embeddings = g("tie_word_embeddings", False)
+        if arch == "XverseMoeForCausalLM":
+            # read before the MoE clause, which sets all but the expert width
+            # again (the JAX order)
+            cfg.num_experts_per_tok = g("moe_top_k", 2)
+            cfg.moe_intermediate_size = cfg.intermediate_size
+            cfg.num_shared_experts = g("num_shared_experts") or 0
+            cfg.norm_topk_prob = g("norm_topk_prob", True)
         n_experts = g("num_local_experts") or g("n_routed_experts") or g("num_experts")
         if n_experts:
             cfg.num_experts = n_experts
@@ -202,13 +287,17 @@ class ModelConfig:
             cfg.qk_rope_head_dim = g("qk_rope_head_dim", 64)
             cfg.v_head_dim = g("v_head_dim", 128)
             cfg.head_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        if arch.endswith(("EmbeddingModel", "Model", "Classification")) or "Reward" in arch:
+            cfg.is_embedding = True
         # what the JAX models read from the HF config when they are built
+        for key in BUILD_KEYS.get(arch, ()):
+            setattr(cfg, key, g(key))
         if arch in ("GemmaForCausalLM", "Gemma2ForCausalLM"):
             cfg.query_pre_attn_scalar = g("query_pre_attn_scalar")
         if arch == "Gemma2ForCausalLM":
             cfg.attn_logit_softcap = g("attn_logit_softcapping")
             cfg.logit_softcap = g("final_logit_softcapping")
-        if arch == "MiniCPM3ForCausalLM":
+        if arch in ("MiniCPMForCausalLM", "MiniCPM3ForCausalLM"):
             cfg.scale_emb = g("scale_emb")
             cfg.scale_depth = g("scale_depth")
             cfg.dim_model_base = g("dim_model_base")

@@ -58,6 +58,24 @@ enum TypeCode { F32 = 0, BF16 = 1, E4M3 = 2, E5M2 = 3 };
   X(BF16, __nv_bfloat16, E4M3, __nv_fp8_e4m3)  \
   X(BF16, __nv_bfloat16, E5M2, __nv_fp8_e5m2)
 
+// ALiBi (Baichuan2-13B's position bias; the JAX reference's alibi_slopes,
+// semi_pd_tpu/ops/attention/reference.py): the ALIBI instantiations of the
+// decode and extend kernels, which their C entries launch when given the
+// slopes (float32 [Hq] on the card; null: none). Query head hq's score of
+// position pos, after the scale and the softcap and before the mask and
+// the running max, is
+//     score - slopes[hq] * (q_pos - pos)
+// in float32, q_pos the query's position (kv_len - 1 in a decode). Only
+// the 5D pool's head_dim-128 build instantiates them (rpa_decode_aligned,
+// rpa_extend_aligned), without the speculation tree; every other build's
+// entry refuses slopes, and its ALIBI = false kernels hold no line of it,
+// so their registers and spills are those they had before.
+#if defined(RPA_ALIGNED) && RPA_HEAD_DIM == 128 && !defined(RPA_P_F32)
+constexpr bool HAS_ALIBI = true;
+#else
+constexpr bool HAS_ALIBI = false;
+#endif
+
 // The speculation tree of the extend kernels (rpa_extend.cu,
 // rpa_extend_mla.cu): the TPU kernels' _spec_tree_mask (rpa_common.py). A
 // query row at slot-order position q_abs sits at window offset q_abs -

@@ -83,6 +83,17 @@
 //     bitwise equal.
 //   Positions outside [lo, kv_len) are zero-filled and never read; a row
 //   with no position (kv_len 0) writes zeros.
+//
+// ALiBi (the ALIBI instantiations of both kernels, in the aligned
+// head_dim-128 build only: Baichuan2-13B, whose JAX model runs the XLA
+// reference attention with alibi_slopes): each score takes -slopes[hq] *
+// (kv_len - 1 - pos) in float32 after the scale and the softcap, before the
+// mask and the running max (rpa_common.cuh). The tensor-core kernel then
+// scales each dot before the bias (p = 2^(v log2 e - m log2 e)); its lanes
+// read their two rows' slopes once. The entry launches them only when
+// given slopes; the ALIBI = false kernels hold no line of it, so they keep
+// their registers and spills. Bound by bytes as above: the bias is a
+// multiply-add a score.
 #include <type_traits>
 
 #include "rpa_decode.cuh"
@@ -90,7 +101,7 @@
 
 namespace rpa {
 
-template <int D>
+template <int D, bool ALIBI>
 __global__ void __launch_bounds__(DEC_NT)
 rpa_decode_kernel(const float* __restrict__ q,         // [B, Hq, D]
                   const float* __restrict__ k_pool,    // K of this layer at slot 0
@@ -99,7 +110,8 @@ rpa_decode_kernel(const float* __restrict__ q,         // [B, Hq, D]
                   const int* __restrict__ kv_lens,     // [B]
                   float* __restrict__ out,             // [B, Hq, D]
                   int Hq, int Hkv, int row_stride, int maxP, int page_size,
-                  float scale, float cap, int window) {
+                  float scale, float cap, int window,
+                  const float* __restrict__ alibi) {  // [Hq] slopes (ALIBI)
   constexpr int NT = DEC_NT, TK = dec_tk<D>(), LD = dec_ld<D>();
   using Tile = KVTile<float, D, TK, NT>;
   extern __shared__ __align__(16) float smem[];
@@ -132,7 +144,8 @@ rpa_decode_kernel(const float* __restrict__ q,         // [B, Hq, D]
     __syncthreads();
     if (start + TK < limit)
       tile.load(kb, v_off, pt_row, page_size, row_stride, start + TK, limit, tid);
-    decode_tile<float, D>(s, acc, G, start, limit, scale, cap, tid);
+    decode_tile<float, D, ALIBI>(s, acc, G, start, limit, scale, cap, tid,
+                                 ALIBI ? alibi + h * G : nullptr, kv_len - 1);
   }
   __syncthreads();
   decode_end<float, D>(s, acc, o, G, tid);
@@ -177,7 +190,7 @@ struct SdLayout {
   static_assert(WIDEN || (SD_BLOCKS_PER_SM + 1) * (SMEM + 1024) > 233472, "SD_BLOCKS_PER_SM");
 };
 
-template <typename TKV, int D>
+template <typename TKV, int D, bool ALIBI>
 __global__ void __launch_bounds__(SD_NT)
 rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
                       const TKV* __restrict__ k_pool,       // K of this layer at slot 0
@@ -187,7 +200,8 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
                       __nv_bfloat16* __restrict__ out,      // [B, Hq, D]
                       float* __restrict__ part,  // n_split > 1: O [n_split, B, Hq, D], ML [..., 2]
                       int Hq, int Hkv, int row_stride, int maxP, int page_size, float scale,
-                      float cap, int window, int split_len) {
+                      float cap, int window, int split_len,
+                      const float* __restrict__ alibi) {  // [Hq] slopes (ALIBI)
   using bf16 = __nv_bfloat16;
   using Lay = SdLayout<TKV, D>;
   constexpr int LD = Lay::LD, TK = SD_TK;
@@ -290,9 +304,19 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   const uint32_t s_w = static_cast<uint32_t>(__cvta_generic_to_shared(wt));
   uint32_t k_lane, v_lane;
   mma_lanes<LD, TK>(lane, k_lane, v_lane);
-  // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
+  // p = 2^(v c - m c): v the raw dot (c folds in the scale), or the capped
+  // or ALiBi-biased score
   const bool capped = cap > 0.f;
-  const float c = capped ? LOG2E : scale * LOG2E;
+  const float c = (capped || ALIBI) ? LOG2E : scale * LOG2E;
+  // ALiBi: the slopes of this lane's rows gid and gid + 8 (query heads
+  // h G + row), the query at kv_len - 1
+  MmaAlibi al{};
+  if constexpr (ALIBI) {
+    const int gid = lane >> 2;
+    al.slope[0] = gid < G ? alibi[h * G + gid] : 0.f;
+    al.slope[1] = gid + 8 < G ? alibi[h * G + gid + 8] : 0.f;
+    al.qpos = kv_len - 1;
+  }
 
   MmaState<D> ms;
   ms.reset();
@@ -314,8 +338,8 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
     __syncwarp();
     issue(i + 2, s == 0 ? Lay::NST - 1 : s - 1);
     const uint32_t sK = s_w + s * Lay::STAGE_BYTES, sV = sK + Lay::TILE * 2;
-    mma_tile<D, LD, TK>(ms, qf, sK, sV, k_lane, v_lane, tile_start(i), lo, s1, scale, cap,
-                        capped, c, tig);
+    mma_tile<D, LD, TK, ALIBI>(ms, qf, sK, sV, k_lane, v_lane, tile_start(i), lo, s1, scale,
+                               cap, capped, c, tig, al);
     if constexpr (Lay::WIDEN) {
       if (i + 1 < nw) put(s ^ 1);
       fetch(i + 2);
@@ -385,18 +409,18 @@ rpa_decode_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __restr
   out[idx] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
 }
 
-template <typename TKV, int D>
+template <typename TKV, int D, bool ALIBI>
 static int launch_decode_mma(const void* q, const void* k_pool, const void* v_pool,
                              const void* pt, const void* kv_lens, void* out, int B, int Hq,
                              int Hkv, int row_stride, int maxP, int page_size, float scale,
                              float cap, int window, int n_split, int split_len, void* scratch,
-                             cudaStream_t stream) {
+                             const void* alibi, cudaStream_t stream) {
   using Lay = SdLayout<TKV, D>;
   if (Hq / Hkv > 16 || n_split < 1 || split_len <= 0 || split_len % SD_STEP ||
       (int64_t)n_split * split_len < (int64_t)maxP * page_size ||
       (n_split > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  auto kernel = rpa_decode_mma_kernel<TKV, D>;
+  auto kernel = rpa_decode_mma_kernel<TKV, D, ALIBI>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::SMEM);
   if (attr != cudaSuccess) return (int)attr;
@@ -405,7 +429,7 @@ static int launch_decode_mma(const void* q, const void* k_pool, const void* v_po
       static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(scratch), Hq, Hkv, row_stride, maxP, page_size, scale, cap, window,
-      split_len);
+      split_len, static_cast<const float*>(alibi));
   if (n_split > 1) {
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -416,13 +440,16 @@ static int launch_decode_mma(const void* q, const void* k_pool, const void* v_po
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool ALIBI>
 static int launch_decode(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                          const void* kv_lens, void* out, int B, int Hq, int Hkv, int row_stride,
                          int maxP, int page_size, float scale, float cap, int window,
-                         cudaStream_t stream) {
+                         const void* alibi, cudaStream_t stream) {
+  // the CUDA-core kernel holds G * D outputs a block (DEC_MAXO a thread);
+  // the tensor-core one takes any G <= 16
+  if ((Hq / Hkv) * D > DEC_MAXO * DEC_NT) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * dec_smem_floats<D>(Hq / Hkv);
-  auto kernel = rpa_decode_kernel<D>;
+  auto kernel = rpa_decode_kernel<D, ALIBI>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -432,26 +459,29 @@ static int launch_decode(const void* q, const void* k_pool, const void* v_pool, 
       static_cast<const float*>(q), static_cast<const float*>(k_pool),
       static_cast<const float*>(v_pool), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<float*>(out), Hq, Hkv, row_stride, maxP,
-      page_size, scale, cap, window);
+      page_size, scale, cap, window, static_cast<const float*>(alibi));
   return (int)cudaGetLastError();
 }
 
 // The tensor-core decode for bf16 q, the CUDA-core kernel for float32 q
-// (which takes no plan).
-template <typename TQ, typename TKV, int D>
+// (which takes no plan); their ALIBI instantiations where this build has
+// them (HAS_ALIBI), else refused.
+template <typename TQ, typename TKV, int D, bool ALIBI>
 static int launch(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                   const void* kv_lens, void* out, int B, int Hq, int Hkv, int row_stride,
                   int maxP, int page_size, float scale, float cap, int window, int n_split,
-                  int split_len, void* scratch, cudaStream_t stream) {
-  if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
-    return launch_decode_mma<TKV, D>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv,
-                                     row_stride, maxP, page_size, scale, cap, window, n_split,
-                                     split_len, scratch, stream);
+                  int split_len, void* scratch, const void* alibi, cudaStream_t stream) {
+  if constexpr (ALIBI && !HAS_ALIBI)
+    return (int)cudaErrorInvalidValue;
+  else if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+    return launch_decode_mma<TKV, D, ALIBI>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv,
+                                            row_stride, maxP, page_size, scale, cap, window,
+                                            n_split, split_len, scratch, alibi, stream);
   else {
     static_assert(std::is_same<TQ, float>::value && std::is_same<TKV, float>::value,
                   "the CUDA-core kernel takes the float32 pair only");
-    return launch_decode<D>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv, row_stride, maxP,
-                            page_size, scale, cap, window, stream);
+    return launch_decode<D, ALIBI>(q, k_pool, v_pool, pt, kv_lens, out, B, Hq, Hkv, row_stride,
+                                   maxP, page_size, scale, cap, window, alibi, stream);
   }
 }
 
@@ -465,24 +495,26 @@ static int launch(const void* q, const void* k_pool, const void* v_pool, const v
 // bf16-q pairs (n_split ranges of split_len positions, a multiple of
 // SD_STEP, that cover [0, maxP * page_size)); scratch: with n_split > 1, a
 // float32 scratch of n_split * B * Hq * (D + 2) elements. The float32 pair
-// ignores the three.
-// Returns cudaError_t; a head_dim, type pair or plan this build does not
-// take is cudaErrorInvalidValue.
+// ignores the three. alibi_slopes: null, or ALiBi's slopes (float32 [Hq] on
+// the card), which the aligned head_dim-128 build alone takes.
+// Returns cudaError_t; a head_dim, type pair, plan or slopes this build
+// does not take is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                          const void* page_table, const void* kv_lens, void* out, int B, int Hq,
                          int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
                          float cap, int window, int q_type, int kv_type, int n_split,
-                         int split_len, void* scratch, void* stream) {
+                         int split_len, void* scratch, const void* alibi_slopes,
+                         void* stream) {
   using namespace rpa;
   if (B == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM)
-    return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv || D != RPA_HEAD_DIM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RPA_DEC(QC, TQ, KC, TKV)                                                          \
-  if (q_type == QC && kv_type == KC)                                                      \
-    return launch<TQ, TKV, RPA_HEAD_DIM>(q, k_pool, v_pool, page_table, kv_lens, out, B, Hq, \
-                                         Hkv, row_stride, maxP, page_size, scale, cap,      \
-                                         window, n_split, split_len, scratch, s);
+#define RPA_DEC(QC, TQ, KC, TKV)                                                            \
+  if (q_type == QC && kv_type == KC)                                                        \
+    return (alibi_slopes ? launch<TQ, TKV, RPA_HEAD_DIM, true>                              \
+                         : launch<TQ, TKV, RPA_HEAD_DIM, false>)(                           \
+        q, k_pool, v_pool, page_table, kv_lens, out, B, Hq, Hkv, row_stride, maxP, page_size, \
+        scale, cap, window, n_split, split_len, scratch, alibi_slopes, s);
   RPA_FOR_EACH_PAIR(RPA_DEC)
 #undef RPA_DEC
   return (int)cudaErrorInvalidValue;

@@ -69,11 +69,14 @@ __device__ __forceinline__ void decode_begin(const DecodeSmem& s, const TQ* __re
 }
 
 // One staged tile of positions [start, start + TK). Every thread calls it
-// after the tile and the query rows are visible (a __syncthreads).
-template <typename TQ, int D>
+// after the tile and the query rows are visible (a __syncthreads). With
+// ALIBI, query head g's scores take its slope alibi[g] times the distance
+// to the query at qpos (rpa_common.cuh), after the scale and the softcap.
+template <typename TQ, int D, bool ALIBI = false>
 __device__ __forceinline__ void decode_tile(const DecodeSmem& s, float (&acc)[DEC_MAXO], int G,
                                             int start, int limit, float scale, float cap,
-                                            int tid) {
+                                            int tid, const float* __restrict__ alibi = nullptr,
+                                            int qpos = 0) {
   constexpr int NT = DEC_NT, TK = dec_tk<D>(), LD = dec_ld<D>();
   const int warp = tid / 32, lane = tid % 32;
   // scores s[g][t] = q_g . k_t * scale (softcapped)
@@ -94,6 +97,7 @@ __device__ __forceinline__ void decode_tile(const DecodeSmem& s, float (&acc)[DE
       }
       sc = a * scale;
       if (cap > 0.f) sc = cap * tanhf(sc / cap);
+      if constexpr (ALIBI) sc -= alibi[g] * static_cast<float>(qpos - (start + t));
     }
     s.sS[i] = sc;
   }

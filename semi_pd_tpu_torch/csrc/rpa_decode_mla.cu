@@ -225,16 +225,19 @@ static int launch(const void* q, const void* lat, const void* pt, const void* kv
 // the split plan of the bf16-q pairs (n_split ranges of split_len =
 // MLA_MMA_CHUNK positions that cover [0, maxP * page_size)); scratch: with
 // n_split > 1, a float32 scratch of n_split * B * Hq * (MLA_DV + 2)
-// elements. The float32 pair ignores the three. Returns cudaError_t;
-// another geometry, type pair or plan is cudaErrorInvalidValue.
+// elements. The float32 pair ignores the three. alibi_slopes must be null
+// (MLA takes no ALiBi). Returns cudaError_t; another geometry, type pair,
+// plan or slopes is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                          const void* page_table, const void* kv_lens, void* out, int B, int Hq,
                          int Hkv, int D, int row_stride, int maxP, int page_size, float scale,
                          float cap, int window, int q_type, int kv_type, int n_split,
-                         int split_len, void* scratch, void* stream) {
+                         int split_len, void* scratch, const void* alibi_slopes,
+                         void* stream) {
   using namespace rpa;
   if (B == 0) return 0;
-  if (Hq <= 0 || Hkv != 1 || D != MLA_DL || row_stride != MLA_DL || v_pool != k_pool)
+  if (Hq <= 0 || Hkv != 1 || D != MLA_DL || row_stride != MLA_DL || v_pool != k_pool ||
+      alibi_slopes != nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RPA_DEC(QC, TQ, KC, TKV)                                                             \

@@ -128,22 +128,32 @@ struct MmaState {
   }
 };
 
+// ALiBi's state of one lane (an ALIBI instantiation; rpa_common.cuh): the
+// slopes of its two rows (gid and gid + 8 of the m16 tile; 0 past G) and
+// the position of the query they belong to.
+struct MmaAlibi {
+  float slope[2];
+  int qpos;
+};
+
 // The second half of a tile of TK positions starting at position st, given
 // its scores sc (the C fragments of S = Q K^T: TK / 8 n8 tiles of 8
 // positions): the softcap, the mask, the online softmax and O += P V, with
 // V at the shared address sV (rows LD elements apart, its first D columns
 // O's). Positions outside [lo, hi) score nothing (only a tile that crosses
 // lo or hi is masked). p = 2^(v c - m c), v the raw dot (c = scale log2 e)
-// or, with cap > 0, the capped score (c = log2 e). The MLA decodes' block
-// tile (rpa_mla_mma.cuh) runs it on the scores its warps add up, with D
-// the 128 of V's columns a warp owns.
-template <int D, int LD, int TK>
+// or, with cap > 0, the capped score (c = log2 e). With ALIBI every score
+// is scaled (and capped), then biased by its row's slope times the
+// distance to the query (c = log2 e). The MLA decodes' block tile
+// (rpa_mla_mma.cuh) runs it on the scores its warps add up, with D the 128
+// of V's columns a warp owns.
+template <int D, int LD, int TK, bool ALIBI = false>
 __device__ __forceinline__ void mma_softmax_pv(MmaState<D>& s, float (&sc)[(TK + 7) / 8][4],
                                                uint32_t sV, uint32_t v_lane, int st, int lo,
                                                int hi, float scale, float cap, bool capped,
-                                               float c, int tig) {
+                                               float c, int tig, const MmaAlibi& al = {}) {
   constexpr int NJ = (TK + 7) / 8;
-  // softcap, mask (only a tile that crosses lo or hi) and the row max
+  // softcap, ALiBi, mask (only a tile that crosses lo or hi) and the row max
   const bool masked = st < lo || st + TK > hi;
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -151,7 +161,13 @@ __device__ __forceinline__ void mma_softmax_pv(MmaState<D>& s, float (&sc)[(TK +
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float v = sc[j][e];
-      if (capped) v = cap * tanhf(v * scale / cap);
+      if constexpr (ALIBI) {
+        v = capped ? cap * tanhf(v * scale / cap) : v * scale;
+        const int pos = st + j * 8 + 2 * tig + (e & 1);
+        v -= al.slope[e >> 1] * static_cast<float>(al.qpos - pos);
+      } else if (capped) {
+        v = cap * tanhf(v * scale / cap);
+      }
       if (masked) {
         const int pos = st + j * 8 + 2 * tig + (e & 1);
         v = (pos >= lo && pos < hi) ? v : NEG_INF;
@@ -241,12 +257,13 @@ __device__ __forceinline__ void mma_softmax_pv(MmaState<D>& s, float (&sc)[(TK +
 }
 
 // One tile of TK positions starting at position st, K and V at the shared
-// addresses sK and sV: S = Q K^T, then mma_softmax_pv.
-template <int D, int LD, int TK>
+// addresses sK and sV: S = Q K^T, then mma_softmax_pv (with ALIBI, its
+// ALiBi instantiation).
+template <int D, int LD, int TK, bool ALIBI = false>
 __device__ __forceinline__ void mma_tile(MmaState<D>& s, const MmaQ<D>& q, uint32_t sK,
                                          uint32_t sV, uint32_t k_lane, uint32_t v_lane, int st,
                                          int lo, int hi, float scale, float cap, bool capped,
-                                         float c, int tig) {
+                                         float c, int tig, const MmaAlibi& al = {}) {
   constexpr int KS = D / 16, NJ = (TK + 7) / 8;
   // S = Q K^T: TK / 8 n8 tiles of 8 positions
   float sc[NJ][4];
@@ -276,7 +293,8 @@ __device__ __forceinline__ void mma_tile(MmaState<D>& s, const MmaQ<D>& q, uint3
       mma_bf16_16816(sc[0], a1, kf[2], kf[3]);
     }
   }
-  mma_softmax_pv<D, LD, TK>(s, sc, sV, v_lane, st, lo, hi, scale, cap, capped, c, tig);
+  mma_softmax_pv<D, LD, TK, ALIBI>(s, sc, sV, v_lane, st, lo, hi, scale, cap, capped, c, tig,
+                                   al);
 }
 
 // l of row rr, summed over the four lanes of a quad

@@ -164,6 +164,16 @@
 // NEG_INF (finite) as the others, so p = 0 exactly, and no row's max meets
 // NEG_INF - NEG_INF as a NaN: every row sees itself.
 //
+// ALiBi (the ALIBI instantiations of both kernels, in the aligned
+// head_dim-128 build only: Baichuan2-13B): every score takes -slopes[hq] *
+// (q_abs - pos) in float32 after the scale and the softcap, before the
+// masks and the running max (rpa_common.cuh); a packed row m = r G + g
+// reads the slope of head h G + g, each lane its two rows' once; the
+// warpgroup kernel scales each dot before the bias, on every tile (p =
+// 2^(v log2 e - m log2 e)). The entry launches them only when given slopes,
+// never with a tree (no TREE x ALIBI instantiation); the ALIBI = false
+// kernels hold no line of it.
+//
 // Both walk [lo, min(kv_len, the block's last row's position + 1)), lo from
 // the window; entries launch in reverse in the warpgroup kernel (a
 // request's later entries walk more positions: started first, they leave
@@ -198,7 +208,7 @@ __host__ __device__ constexpr int ext_tpr() { return D / EXT_DPT; }  // threads 
 template <int D>
 __host__ __device__ constexpr int ext_nt() { return EXTEND_QBLK * ext_tpr<D>(); }
 
-template <typename TQ, typename TKV, int D, bool TREE>
+template <typename TQ, typename TKV, int D, bool TREE, bool ALIBI>
 __global__ void __launch_bounds__(ext_nt<D>())
 rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
                   const TKV* __restrict__ k_pool,         // K of this layer at slot 0
@@ -214,7 +224,8 @@ rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
                   int Hq, int Hkv, int row_stride, int maxP, int page_size,
                   float scale, float cap, int window,
                   const int* __restrict__ win_base,       // [B], read when tree.w > 0
-                  const SpecTree tree) {
+                  const SpecTree tree,
+                  const float* __restrict__ alibi) {      // [Hq] slopes (ALIBI)
   constexpr int TPR = ext_tpr<D>(), NT = ext_nt<D>(), TK = ext_tk<D>();
   constexpr int NC = EXT_DPT / 4;  // float4 chunks per thread
   using Tile = KVTile<TKV, D, TK, NT>;
@@ -236,6 +247,7 @@ rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
   const int lo = window > 0 ? max(q_abs_lo - window + 1, 0) : 0;
   const int wb = TREE ? win_base[b] : 0;
   const unsigned bits = TREE ? spec_bits(tree, q_abs - wb) : 0u;
+  const float slope = ALIBI ? alibi[hq] : 0.f;
   // the TPR lanes of this row (consecutive lanes of one warp); a row is
   // active or not as a whole, so its lanes meet at every shuffle
   const unsigned lane = tid % 32;
@@ -306,6 +318,7 @@ rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
                       (!TREE || spec_ok(tree, wb, bits, pos));
       float v = s[t] * scale;
       if (cap > 0.f) v = cap * tanhf(v / cap);
+      if constexpr (ALIBI) v -= slope * static_cast<float>(q_abs - pos);
       s[t] = ok ? v : NEG_INF;
       valid |= (ok ? 1u : 0u) << t;
       mx = fmaxf(mx, s[t]);
@@ -345,21 +358,22 @@ rpa_extend_kernel(const TQ* __restrict__ q,               // [T, Hq, D]
                                                    o[4 * j + 2] / ls, o[4 * j + 3] / ls));
 }
 
-template <typename TQ, typename TKV, int D, bool TREE>
+template <typename TQ, typename TKV, int D, bool TREE, bool ALIBI>
 static int launch_extend(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                          const void* kv_lens, const void* q_lens, const void* q_start,
                          const void* block_seq, const void* block_row, const void* block_qofs,
                          void* out, int NQB, int Hq, int Hkv, int row_stride, int maxP,
                          int page_size, float scale, float cap, int window,
-                         const void* win_base, const SpecTree& tree, cudaStream_t stream) {
-  rpa_extend_kernel<TQ, TKV, D, TREE><<<dim3(NQB, Hq), ext_nt<D>(), 0, stream>>>(
+                         const void* win_base, const SpecTree& tree, const void* alibi,
+                         cudaStream_t stream) {
+  rpa_extend_kernel<TQ, TKV, D, TREE, ALIBI><<<dim3(NQB, Hq), ext_nt<D>(), 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
       static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
       static_cast<const int*>(q_start), static_cast<const int*>(block_seq),
       static_cast<const int*>(block_row), static_cast<const int*>(block_qofs),
       static_cast<TQ*>(out), Hq, Hkv, row_stride, maxP, page_size, scale, cap, window,
-      static_cast<const int*>(win_base), tree);
+      static_cast<const int*>(win_base), tree, static_cast<const float*>(alibi));
   return (int)cudaGetLastError();
 }
 
@@ -436,7 +450,7 @@ struct WgLayout {
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
-template <typename TKV, int D, bool P_SPLIT, bool TREE>
+template <typename TKV, int D, bool P_SPLIT, bool TREE, bool ALIBI>
 __global__ void __launch_bounds__(WgLayout<TKV, D>::NT, 1)
 rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
                         const TKV* __restrict__ k_pool,       // K of this layer at slot 0
@@ -452,7 +466,8 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
                         int Hq, int Hkv, int row_stride, int maxP, int page_size,
                         float scale, float cap, int window,
                         const int* __restrict__ win_base,     // [B], read when tree.w > 0
-                        const SpecTree tree) {
+                        const SpecTree tree,
+                        const float* __restrict__ alibi) {    // [Hq] slopes (ALIBI)
   using bf16 = __nv_bfloat16;
   using Lay = WgLayout<TKV, D>;
   constexpr int TK = Lay::TK, NS = Lay::STAGES, KS = D / 16, QV = D / 8, QLD = Lay::QLD;
@@ -622,9 +637,17 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
 #pragma unroll
       for (int j = 0; j < 2; ++j) sbits[j] = spec_bits(tree, qpos[j] - wb);
     }
-    // p = 2^(v c - m c): v the raw dot (c folds in the scale) or the capped score
+    // p = 2^(v c - m c): v the raw dot (c folds in the scale), or the capped
+    // or ALiBi-biased score
     const bool capped = cap > 0.f;
-    const float c = capped ? LOG2E : scale * LOG2E;
+    const float c = (capped || ALIBI) ? LOG2E : scale * LOG2E;
+    // ALiBi: the slopes of this lane's two packed rows (query head h G + g
+    // of row m = r G + g)
+    float slope[2] = {0.f, 0.f};
+    if constexpr (ALIBI) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) slope[j] = alibi[h * G + (m_lo + warp * 16 + gid + 8 * j) % G];
+    }
 
     float sc[TK / 2], o[D / 2];        // S and O accumulators (rpa_wgmma.cuh's fragment)
     uint32_t pa[TK / 16][4];           // P of the previous tile: the A of its P V
@@ -684,7 +707,15 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
       // softcap, mask and the row max (over the 4 lanes of a quad), each a
       // pass of its own: the two block-uniform branches taken once a tile,
       // not once a score (8% of the head_dim-64 kernel's time on the card)
-      if (capped) {
+      if constexpr (ALIBI) {  // scale, cap, then the bias of each score
+#pragma unroll
+        for (int e = 0; e < TK / 2; ++e) {
+          const int rr = (e >> 1) & 1;
+          const int pos = st + 8 * (e >> 2) + 2 * tig + (e & 1);
+          const float v = capped ? cap * tanhf(sc[e] * scale / cap) : sc[e] * scale;
+          sc[e] = v - slope[rr] * static_cast<float>(qpos[rr] - pos);
+        }
+      } else if (capped) {
 #pragma unroll
         for (int e = 0; e < TK / 2; ++e) sc[e] = cap * tanhf(sc[e] * scale / cap);
       }
@@ -795,16 +826,16 @@ rpa_extend_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [T, Hq, D]
   }
 }
 
-template <typename TKV, int D, bool P_SPLIT, bool TREE>
+template <typename TKV, int D, bool P_SPLIT, bool TREE, bool ALIBI>
 static int launch_extend_wgmma(const void* q, const void* k_pool, const void* v_pool,
                                const void* pt, const void* kv_lens, const void* q_lens,
                                const void* q_start, const void* block_seq, const void* block_row,
                                const void* block_qofs, void* out, int NQB, int Hq, int Hkv,
                                int row_stride, int maxP, int page_size, float scale, float cap,
                                int window, const void* win_base, const SpecTree& tree,
-                               cudaStream_t stream) {
+                               const void* alibi, cudaStream_t stream) {
   using Lay = WgLayout<TKV, D>;
-  const cudaError_t attr = cudaFuncSetAttribute(rpa_extend_wgmma_kernel<TKV, D, P_SPLIT, TREE>,
+  const cudaError_t attr = cudaFuncSetAttribute(rpa_extend_wgmma_kernel<TKV, D, P_SPLIT, TREE, ALIBI>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                 Lay::SMEM);
   if (attr != cudaSuccess) return (int)attr;
@@ -813,7 +844,7 @@ static int launch_extend_wgmma(const void* q, const void* k_pool, const void* v_
   // ever, so such a build is refused instead
   static const int launch_regs = [] {
     cudaFuncAttributes fa{};
-    return cudaFuncGetAttributes(&fa, rpa_extend_wgmma_kernel<TKV, D, P_SPLIT, TREE>) ==
+    return cudaFuncGetAttributes(&fa, rpa_extend_wgmma_kernel<TKV, D, P_SPLIT, TREE, ALIBI>) ==
                    cudaSuccess
                ? fa.numRegs
                : 0;
@@ -822,40 +853,48 @@ static int launch_extend_wgmma(const void* q, const void* k_pool, const void* v_
     return (int)cudaErrorLaunchOutOfResources;
   const int G = Hq / Hkv;
   const dim3 grid((EXTEND_QBLK * G + Lay::ROWS - 1) / Lay::ROWS, Hkv, NQB);
-  rpa_extend_wgmma_kernel<TKV, D, P_SPLIT, TREE><<<grid, Lay::NT, Lay::SMEM, stream>>>(
+  rpa_extend_wgmma_kernel<TKV, D, P_SPLIT, TREE, ALIBI><<<grid, Lay::NT, Lay::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k_pool),
       static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
       static_cast<const int*>(q_start), static_cast<const int*>(block_seq),
       static_cast<const int*>(block_row), static_cast<const int*>(block_qofs),
       static_cast<__nv_bfloat16*>(out), Hq, Hkv, row_stride, maxP, page_size, scale, cap,
-      window, static_cast<const int*>(win_base), tree);
+      window, static_cast<const int*>(win_base), tree, static_cast<const float*>(alibi));
   return (int)cudaGetLastError();
 }
 
 // bf16 q: the warpgroup kernel, with P split into hi + lo in the builds
 // that keep P in float32 (-DRPA_P_F32: the merged build); float32 q: the
-// CUDA-core kernel. Each in its TREE instantiation only with a tree.
-template <typename TQ, typename TKV, int D>
+// CUDA-core kernel. Each in its TREE instantiation only with a tree, and in
+// its ALIBI one only with slopes (never both), where this build has it
+// (HAS_ALIBI), else refused.
+template <typename TQ, typename TKV, int D, bool ALIBI>
 static int launch(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                   const void* kv_lens, const void* q_lens, const void* q_start,
                   const void* block_seq, const void* block_row, const void* block_qofs,
                   void* out, int NQB, int Hq, int Hkv, int row_stride, int maxP,
                   int page_size, float scale, float cap, int window, const void* win_base,
-                  const SpecTree& tree, cudaStream_t stream) {
+                  const SpecTree& tree, const void* alibi, cudaStream_t stream) {
 #define RPA_EXT_ARGS                                                                     \
   q, k_pool, v_pool, pt, kv_lens, q_lens, q_start, block_seq, block_row, block_qofs, out, NQB, \
-      Hq, Hkv, row_stride, maxP, page_size, scale, cap, window, win_base, tree, stream
-  if (tree.w > 0) {
+      Hq, Hkv, row_stride, maxP, page_size, scale, cap, window, win_base, tree, alibi, stream
+  if constexpr (ALIBI && !HAS_ALIBI) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (tree.w > 0) {
+      if constexpr (ALIBI)
+        return (int)cudaErrorInvalidValue;
+      else if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+        return launch_extend_wgmma<TKV, D, P_F32_BUILD, true, false>(RPA_EXT_ARGS);
+      else
+        return launch_extend<TQ, TKV, D, true, false>(RPA_EXT_ARGS);
+    }
     if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
-      return launch_extend_wgmma<TKV, D, P_F32_BUILD, true>(RPA_EXT_ARGS);
+      return launch_extend_wgmma<TKV, D, P_F32_BUILD, false, ALIBI>(RPA_EXT_ARGS);
     else
-      return launch_extend<TQ, TKV, D, true>(RPA_EXT_ARGS);
+      return launch_extend<TQ, TKV, D, false, ALIBI>(RPA_EXT_ARGS);
   }
-  if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
-    return launch_extend_wgmma<TKV, D, P_F32_BUILD, false>(RPA_EXT_ARGS);
-  else
-    return launch_extend<TQ, TKV, D, false>(RPA_EXT_ARGS);
 #undef RPA_EXT_ARGS
 }
 
@@ -870,7 +909,9 @@ static int launch(const void* q, const void* k_pool, const void* v_pool, const v
 // its masks in HOST memory (spec_w of them, copied here into the kernel's
 // parameters), win_base its window start per request on the card. Returns
 // cudaError_t; a head_dim or type pair this build lacks, or a tree of more
-// than SPEC_MAX_NODES nodes, is cudaErrorInvalidValue.
+// than SPEC_MAX_NODES nodes, is cudaErrorInvalidValue. alibi_slopes: null,
+// or ALiBi's slopes (float32 [Hq] on the card), which the aligned
+// head_dim-128 build alone takes, and without a tree.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                                 const void* page_table, const void* kv_lens, const void* q_lens,
                                 const void* q_start, const void* block_seq,
@@ -878,7 +919,8 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                                 int NQB, int Hq, int Hkv, int D, int row_stride, int maxP,
                                 int page_size, float scale, float cap, int window, int q_type,
                                 int kv_type, int spec_w, const void* spec_anc,
-                                const void* win_base, void* stream) {
+                                const void* win_base, const void* alibi_slopes,
+                                void* stream) {
   using namespace rpa;
   if (NQB == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv || D != RPA_HEAD_DIM) return (int)cudaErrorInvalidValue;
@@ -887,10 +929,11 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RPA_EXT(QC, TQ, KC, TKV)                                                             \
   if (q_type == QC && kv_type == KC)                                                         \
-    return launch<TQ, TKV, RPA_HEAD_DIM>(q, k_pool, v_pool, page_table, kv_lens, q_lens,     \
-                                         q_start, block_seq, block_row, block_qofs, out, NQB, \
-                                         Hq, Hkv, row_stride, maxP, page_size, scale, cap,    \
-                                         window, win_base, tree, s);
+    return (alibi_slopes ? launch<TQ, TKV, RPA_HEAD_DIM, true>                                 \
+                         : launch<TQ, TKV, RPA_HEAD_DIM, false>)(                              \
+        q, k_pool, v_pool, page_table, kv_lens, q_lens, q_start, block_seq, block_row,         \
+        block_qofs, out, NQB, Hq, Hkv, row_stride, maxP, page_size, scale, cap, window,        \
+        win_base, tree, alibi_slopes, s);
   RPA_FOR_EACH_PAIR(RPA_EXT)
 #undef RPA_EXT
   return (int)cudaErrorInvalidValue;

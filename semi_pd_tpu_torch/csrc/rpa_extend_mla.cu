@@ -542,8 +542,9 @@ static int launch(const void* q, const void* lat, const void* pt, const void* kv
 // padding) are left untouched. cap <= 0: no softcap; window <= 0: no
 // window. spec_w: the speculation tree's node count (0: no tree), spec_anc
 // its masks in HOST memory, win_base its window start per request on the
-// card. Returns cudaError_t; another geometry or type pair, or a tree of
-// more than SPEC_MAX_NODES nodes, is cudaErrorInvalidValue.
+// card. alibi_slopes must be null (MLA takes no ALiBi). Returns
+// cudaError_t; another geometry or type pair, slopes, or a tree of more
+// than SPEC_MAX_NODES nodes, is cudaErrorInvalidValue.
 extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                               const void* page_table, const void* kv_lens, const void* q_lens,
                               const void* q_start, const void* block_seq,
@@ -551,11 +552,12 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                               int NQB, int Hq, int Hkv, int D, int row_stride,
                               int maxP, int page_size, float scale, float cap, int window,
                               int q_type, int kv_type, int spec_w, const void* spec_anc,
-                              const void* win_base, void* stream) {
+                              const void* win_base, const void* alibi_slopes,
+                              void* stream) {
   using namespace rpa;
   if (NQB == 0) return 0;
   if (Hq <= 0 || Hkv != 1 || D != MLA_DL || row_stride != MLA_DL ||
-      v_pool != k_pool)
+      v_pool != k_pool || alibi_slopes != nullptr)
     return (int)cudaErrorInvalidValue;
   SpecTree tree;
   if (!spec_tree_from(spec_w, spec_anc, win_base, tree)) return (int)cudaErrorInvalidValue;

@@ -338,6 +338,9 @@ template <typename TQ, typename TKV, int D>
 static int launch_stream(const void* q, const void* k_pool, const void* v_pool, const void* pt,
                          const void* kv_lens, void* out, int B, int Hq, int Hkv, int row_stride,
                          int maxP, int page_size, float scale, float cap, cudaStream_t stream) {
+  // the CUDA-core kernel holds G * D outputs a block (DEC_MAXO a thread);
+  // the tensor-core one takes any G <= 16
+  if ((Hq / Hkv) * D > DEC_MAXO * DEC_NT) return (int)cudaErrorInvalidValue;
   using Tile = KVTile<TKV, D, dec_tk<D>(), STREAM_NT>;
   const size_t smem =
       sizeof(uint4) * STREAM_NBUF * Tile::NVEC + sizeof(float) * dec_smem_floats<D>(Hq / Hkv);
@@ -1069,8 +1072,7 @@ extern "C" int RPA_ENTRY(const void* q, const void* k_pool, const void* v_pool,
                                scale, cap, n_blocks, scratch, s);
   RPA_FOR_EACH_PAIR(RPA_STREAM)
 #else
-  if (Hkv <= 0 || Hq % Hkv || (Hq / Hkv) * D > DEC_MAXO * DEC_NT || D != RPA_HEAD_DIM)
-    return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv || D != RPA_HEAD_DIM) return (int)cudaErrorInvalidValue;
 #define RPA_STREAM(QC, TQ, KC, TKV)                                                        \
   if (q_type == QC && kv_type == KC)                                                       \
     return launch_gqa<TQ, TKV, RPA_HEAD_DIM>(q, k_pool, v_pool, page_table, kv_lens, out, B, \

@@ -11,6 +11,11 @@ and a hash of the source and the flags, so an edited source rebuilds.
 Pointers and the CUDA stream cross as ``c_void_p``; every entry returns
 ``cudaGetLastError()`` and the Python wrapper raises when it is not 0.
 
+A kernel may also be an instantiation of another build's library
+(``CudaKernel.instantiation``: ALiBi's, which the aligned build's entry
+launches when given slopes): it builds nothing of its own and has a name,
+a TPU kernel and a launch count of its own.
+
 A kernel's ``launches`` counts the launches that ran on the card. Under
 a CUDA-graph capture (``record_launches``) a launch only records itself in
 the capture's tally; each replay of the graph adds that tally
@@ -86,8 +91,22 @@ class CudaKernel:
         self.replaces = replaces
         self.defines = tuple(defines)
         self.launches = 0
-        self.build_log = ""
+        self._build_log = ""
         self._fn = None
+        self.library: Optional[CudaKernel] = None  # the build it is an instantiation of
+
+    def instantiation(self, name: str, replaces: str) -> "CudaKernel":
+        """A kernel of this build's library that its C entry picks from its
+        arguments (a template instantiation), counted apart: same source,
+        flags, entry and argtypes; building it builds this one."""
+        k = CudaKernel(name, str(self.source.relative_to(_PKG)), self.symbol, self.argtypes,
+                       replaces, self.defines)
+        k.library = self
+        return k
+
+    @property
+    def build_log(self) -> str:
+        return self.library.build_log if self.library else self._build_log
 
     @property
     def source_rel(self) -> str:
@@ -104,6 +123,8 @@ class CudaKernel:
         return source_constants([self.source.parent / f for f in files], self.defines)
 
     def lib_path(self) -> Path:
+        if self.library:
+            return self.library.lib_path()
         h = hashlib.sha256(self.source.read_bytes())
         for header in sorted(self.source.parent.glob("*.cuh")):
             h.update(header.read_bytes())
@@ -114,7 +135,7 @@ class CudaKernel:
         """Start nvcc for this kernel unless its library is already built;
         returns (process, temporary output path) or None."""
         out = self.lib_path()
-        if out.exists():
+        if self.library or out.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -129,7 +150,7 @@ class CudaKernel:
             return
         proc, tmp = started
         log, _ = proc.communicate()
-        self.build_log = log
+        self._build_log = log
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {self.source_rel}:\n{log}")
@@ -137,6 +158,8 @@ class CudaKernel:
 
     def fn(self):
         """The loaded C entry point, building the library first if needed."""
+        if self.library:
+            return self.library.fn()
         if self._fn is None:
             self.finish_build(self.start_build())
             lib = ctypes.CDLL(str(self.lib_path()))

@@ -80,10 +80,16 @@ def paged_attention(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     attention=None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns attn_out [T, Hq, D]. ``attention`` is the function run over
     the pool after the write, with the signature of the pool layout's
-    routing function; the default (None) is that routing, to the kernels."""
+    routing function; the default (None) is that routing, to the kernels.
+    ``alibi_slopes`` (float32 [Hq], Baichuan2-13B's ALiBi) goes to the
+    routing, which biases the scores with it (the JAX layer sends such a
+    model to its reference attention, semi_pd_tpu/layers/attention.py:137;
+    here the aligned head_dim-128 decode and extend have an ALiBi
+    instantiation)."""
     # Per-layer fp8-KV scales: store k/k_s and v/v_s (so calibrated scales
     # use the fp8 range), read with q*k_s (logits exact: (q*k_s).(k/k_s) =
     # q.k) and out*v_s, in the JAX layer's order of casts
@@ -102,6 +108,8 @@ def paged_attention(
              if pool_layout(kv_cache) == "chunked" else {})
     if fb.spec_anc is not None:  # a speculation tree's draft or verify step
         heads.update(spec_anc=fb.spec_anc, win_base=fb.win_base)
+    if alibi_slopes is not None:
+        heads["alibi_slopes"] = alibi_slopes
     out = (attention or pool_attention(kv_cache))(
         q.contiguous(), kv_cache, layer_idx, fb.page_table, fb.kv_lens,
         fb.attn_meta, page_size=page_size, scale=scale, logit_cap=logit_cap,

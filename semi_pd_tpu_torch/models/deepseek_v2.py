@@ -36,7 +36,7 @@ import torch
 from semi_pd_tpu_torch.config.model_config import ModelConfig
 from semi_pd_tpu_torch.layers.attention import paged_attention_mla
 from semi_pd_tpu_torch.layers.linear import apply_linear, lm_head_logits
-from semi_pd_tpu_torch.models.llama import DTYPES
+from semi_pd_tpu_torch.models.llama import DTYPES, dtype_scalar
 from semi_pd_tpu_torch.models.params import TreeParams
 from semi_pd_tpu_torch.ops.elementwise import rms_norm, silu_and_mul
 from semi_pd_tpu_torch.ops.moe import moe_ffn, route_topk
@@ -51,12 +51,6 @@ def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     if isinstance(tree, list):
         return [x for i, v in enumerate(tree) for x in _flatten(v, f"{prefix}{i}.")]
     return [(prefix[:-1], tree)]
-
-
-def dtype_scalar(v: float, dtype: torch.dtype) -> float:
-    """``v`` rounded to ``dtype``, as JAX's ``jnp.asarray(v, x.dtype)`` rounds
-    a scale before multiplying a tensor of that dtype by it."""
-    return torch.tensor(v, dtype=dtype).item()
 
 
 class DeepseekV2ForCausalLM(TreeParams):

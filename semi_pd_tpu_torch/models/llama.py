@@ -11,7 +11,24 @@ the JAX class gives its subclasses are here too: ``QK_NORM_FULL`` (OLMoE:
 the norms over the whole q / k projection, [L, q_size] / [L, kv_size],
 before the split), ``_mlp_specs`` / ``_mlp`` (the MoE classes'
 experts, models/qwen2_moe.py), ``norm_fn`` and ``embed_scale`` (Gemma-1,
-models/gemma2.py).
+models/gemma2.py), and those of the variant classes
+(models/llama_variants.py, glm.py, phi3.py, granite.py, grok.py), leaf
+for leaf the JAX class's (semi_pd_tpu/models/llama.py):
+
+- ``residual_mult``: both residual branches times it, before their adds
+  (MiniCPM, Granite; JAX :342-349);
+- ``logits_div``: the float32 logits divided by it after the final softcap
+  (MiniCPM, Granite, Grok-1; JAX :297-298);
+- ``scale``: the attention scale (Granite's ``attention_multiplier``);
+- ``no_rope`` with ``alibi_slopes`` (float32 [Hq]): no rope, ALiBi's bias
+  in the attention instead (Baichuan2-13B; JAX :87, :99, :377, :401);
+- ``ROPE_NEOX``: the rope's rotation, GPT-J interleaved for the GLM family
+  (glm.py:30-39);
+- ``_layer``: one decoder layer, which the sandwich-norm classes (Glm4,
+  Grok-1) replace.
+
+The scalars are rounded to the dtype they multiply, as JAX's
+``jnp.asarray(v, x.dtype)`` rounds them (``dtype_scalar``).
 
 An ``nn.Module`` whose per-layer weights are stacked on a leading [L, ...]
 axis, leaf for leaf the JAX package's parameter tree: ``init_params(seed)``
@@ -43,6 +60,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _ATTR = {
     "embed.w": "embed",
     "final_norm": "final_norm",
+    "layers.dense_down.w": "dense_down",  # DeepSeek-V1's dense layers (llama_variants.py)
+    "layers.dense_gate_up.w": "dense_gate_up",
     "layers.down.w": "down",
     "layers.gate_up.w": "gate_up",
     "layers.experts.down": "experts_down",  # the MoE classes' (qwen2_moe.py)
@@ -51,7 +70,10 @@ _ATTR = {
     "layers.k_norm": "k_norm",  # Qwen3's per-head, OLMoE's full-width
     "layers.o_proj.w": "o_proj",
     "layers.post_attn_norm": "post_attn_norm",  # Gemma-2's sandwich norms
+    "layers.post_attn_sandwich": "post_attn_sandwich",  # Glm4's and Grok-1's
     "layers.post_ffw_norm": "post_ffw_norm",
+    "layers.post_mlp_sandwich": "post_mlp_sandwich",
+    "layers.post_moe_sandwich": "post_moe_sandwich",
     "layers.post_norm": "post_norm",
     "layers.pre_ffw_norm": "pre_ffw_norm",
     "layers.q_norm": "q_norm",
@@ -62,15 +84,24 @@ _ATTR = {
     "layers.shared.gate.w": "shared_gate",
     "layers.shared.gate_up.w": "shared_gate_up",
     "lm_head.w": "lm_head",
+    "v_head.w": "v_head",  # InternLM2's reward head
 }
 
 # the architectures with Qwen3's per-head q/k RMSNorm (JAX llama.py:65-69)
 QK_NORM_ARCHS = ("Qwen3ForCausalLM", "Qwen3MoeForCausalLM")
 
 
+def dtype_scalar(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as JAX's ``jnp.asarray(v, x.dtype)`` rounds
+    a scale before multiplying a tensor of that dtype by it."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
 class LlamaForCausalLM(TreeParams):
     # q/k RMSNorm over the whole projections, before the head split (OLMoE)
     QK_NORM_FULL = False
+    # the rope's rotation: GPT-NeoX halves, or GPT-J interleaved pairs (GLM)
+    ROPE_NEOX = True
 
     def __init__(self, config: ModelConfig, device):
         super().__init__()
@@ -91,6 +122,11 @@ class LlamaForCausalLM(TreeParams):
         self.use_qk_norm = self.QK_NORM_FULL or c.architecture in QK_NORM_ARCHS
         self.norm_fn = rms_norm
         self.embed_scale = None  # a Python number (Gemma: rounded to the dtype)
+        self.residual_mult = None  # a Python number in the model dtype
+        self.logits_div = None  # a Python number in float32
+        self.no_rope = False
+        # ALiBi's slopes, float32 [Hq] on the device (Baichuan2-13B)
+        self.register_buffer("alibi_slopes", None, persistent=False)
         self.page_size = 16  # set by the runner: a property of the pool
         # each layer's sliding window (None: full attention)
         self.layer_windows = [c.sliding_window] * c.num_hidden_layers
@@ -100,6 +136,7 @@ class LlamaForCausalLM(TreeParams):
             max_position=c.context_length,
             theta=c.rope_theta,
             rope_scaling=c.rope_scaling,
+            is_neox_style=self.ROPE_NEOX,
         ).to(device)
         for path, shape in self.param_specs():
             setattr(self, _ATTR[path], torch.nn.Parameter(
@@ -161,6 +198,8 @@ class LlamaForCausalLM(TreeParams):
         h = self._final_hidden(fb, kv_cache, attention)
         last_h = h if all_logits else h[fb.logits_idx.long()]
         logits = lm_head_logits(last_h, self.head(), self.config.logit_softcap)
+        if self.logits_div is not None:
+            logits = logits / self.logits_div
         return (logits, last_h) if return_hidden else logits
 
     def forward_embedding(self, fb, kv_cache: torch.Tensor, attention=None) -> torch.Tensor:
@@ -174,15 +213,27 @@ class LlamaForCausalLM(TreeParams):
     def _final_hidden(self, fb, kv_cache, attention) -> torch.Tensor:
         """Every flat row's hidden state after the last layer and the final
         norm [T, H], in the model dtype."""
-        eps = self.config.rms_norm_eps
         h = self.embed[fb.input_ids.long()]
         if self.embed_scale is not None:
             h = h * self.embed_scale
         for layer in range(self.config.num_hidden_layers):
-            attn_in = self.norm_fn(h, self.input_norm[layer], eps)
-            h = h + self._attn(layer, attn_in, fb, kv_cache, attention)
-            h = h + self._mlp(layer, self.norm_fn(h, self.post_norm[layer], eps))
-        return self.norm_fn(h, self.final_norm, eps)
+            h = self._layer(layer, h, fb, kv_cache, attention)
+        return self.norm_fn(h, self.final_norm, self.config.rms_norm_eps)
+
+    def _layer(self, layer: int, h: torch.Tensor, fb, kv_cache, attention) -> torch.Tensor:
+        """One decoder layer: attention and the MLP, each on its normed
+        input, each branch times ``residual_mult`` (when set) before its
+        residual add."""
+        eps = self.config.rms_norm_eps
+        attn = self._attn(layer, self.norm_fn(h, self.input_norm[layer], eps), fb, kv_cache,
+                          attention)
+        if self.residual_mult is not None:
+            attn = attn * self.residual_mult
+        h = h + attn
+        mlp = self._mlp(layer, self.norm_fn(h, self.post_norm[layer], eps))
+        if self.residual_mult is not None:
+            mlp = mlp * self.residual_mult
+        return h + mlp
 
     def _mlp(self, layer: int, x: torch.Tensor) -> torch.Tensor:
         """The gated MLP of ``layer`` (the MoE classes route to experts)."""
@@ -207,10 +258,12 @@ class LlamaForCausalLM(TreeParams):
         if self.use_qk_norm and not self.QK_NORM_FULL:  # Qwen3: per head
             q = self.norm_fn(q, self.q_norm[layer], c.rms_norm_eps)
             k = self.norm_fn(k, self.k_norm[layer], c.rms_norm_eps)
-        q, k = self.rope(fb.q_pos, q, k)
+        if not self.no_rope:
+            q, k = self.rope(fb.q_pos, q, k)
         out = paged_attention(
             q, k, v, kv_cache, layer, fb, page_size=self.page_size,
             scale=self.scale, logit_cap=c.attn_logit_softcap,
             sliding_window=self.layer_windows[layer], attention=attention,
+            alibi_slopes=self.alibi_slopes,
         )
         return apply_linear(out.reshape(T, self.q_size), self.o_proj[layer])

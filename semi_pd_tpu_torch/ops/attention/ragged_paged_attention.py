@@ -61,9 +61,9 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    F, I, P, TYPE_CODES, aligned_defines, check_cuda, check_pool_args, check_spec,
-    gather_kv, kernel_family, kv_planes, latent_defines, layer_kv, pick_kernel, pool_heads,
-    spec_tree_mask,
+    F, I, P, TYPE_CODES, alibi_bias, alibi_build, aligned_defines, check_alibi, check_cuda,
+    check_pool_args, check_spec, gather_kv, kernel_family, kv_planes, latent_defines, layer_kv,
+    pick_kernel, pool_heads, spec_tree_mask,
 )
 from semi_pd_tpu_torch.ops.attention.rpa_packed import (
     MERGED_DEFINES,
@@ -86,9 +86,9 @@ EXTEND_Q_BLOCK = 128
 # the pointers, the shapes, scale and cap, window and the types, then the
 # speculation tree (its node count W, its masks as a host array of
 # MAX_TREE_NODES int32 the C entry copies into the kernel's parameters,
-# win_base on the card) and the stream: every extend build, the MLA one
-# included
-_ARGTYPES = [P] * 11 + [I] * 7 + [F, F, I, I, I, I, P, P, P]
+# win_base on the card), ALiBi's slopes (null: none) and the stream: every
+# extend build, the MLA one included
+_ARGTYPES = [P] * 11 + [I] * 7 + [F, F, I, I, I, I, P, P, P, P]
 
 EXTEND_KERNEL = register(CudaKernel(
     name="rpa_extend",
@@ -107,6 +107,18 @@ EXTEND_ALIGNED_KERNEL = register(CudaKernel(
     replaces="semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel (GQA branch)",
     defines=(f"EXTEND_QBLK={EXTEND_Q_BLOCK}", *aligned_defines(128)),
 ))
+
+# ALiBi (Baichuan2-13B): the aligned build's ALIBI instantiation, which its
+# entry launches when given the slopes, never with a tree. The JAX layer
+# runs ALiBi through its reference attention
+# (semi_pd_tpu/layers/attention.py:137, ops/attention/reference.py:86-90):
+# this is that function on the extend's schedule
+EXTEND_ALIGNED_ALIBI_KERNEL = register(EXTEND_ALIGNED_KERNEL.instantiation(
+    "rpa_extend_aligned_alibi",
+    "semi_pd_tpu/ops/attention/ragged_paged_attention.py:59 _rpa_kernel (GQA branch, with the "
+    "ALiBi bias of ops/attention/reference.py:86-90)"))
+# build -> its ALiBi instantiation (rpa_common.alibi_build)
+EXTEND_ALIBI = {EXTEND_ALIGNED_KERNEL.name: EXTEND_ALIGNED_ALIBI_KERNEL}
 
 # Gemma-2's head_dim 256 on the 5D pool (csrc/rpa_extend.cu's WG256_*
 # shape: Q read by descriptor); EAGLE's tree verify and tree draft steps on
@@ -240,18 +252,26 @@ def ragged_paged_attention(
     spec_anc: Optional[tuple] = None,
     win_base: Optional[torch.Tensor] = None,
     stream: bool = False,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention of q [T, Hq, D] over the aligned pool (Hkv and D from its
     shape), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
     v_dim]): T == B batches without ``spec_anc`` take the pool's decode
     kernel (with ``stream`` its streaming decode, except below head_dim
     128), all others, a tree's decode-shaped draft steps included, its
-    extend kernel."""
+    extend kernel. ``alibi_slopes`` (float32 [Hq]): ALiBi's bias, in the
+    decode's and the extend's ALiBi instantiations; not with ``stream`` or
+    ``spec_anc`` (ROADMAP B9.6)."""
     kw = dict(page_size=page_size, scale=scale, logit_cap=logit_cap,
               sliding_window=sliding_window, v_dim=v_dim)
+    if alibi_slopes is not None:
+        kw["alibi_slopes"] = alibi_slopes
     if _decodes(q, page_table, spec_anc):
         check_spec(None, win_base, page_table.shape[0])
         if _streams(stream, kv_cache, sliding_window):
+            if alibi_slopes is not None:
+                raise NotImplementedError("ALiBi with decode_stream: the streaming decodes "
+                                          "take no slopes (ROADMAP B9.6)")
             return ragged_paged_attention_stream(
                 q, kv_cache, layer_idx, page_table, kv_lens, page_size=page_size,
                 scale=scale, logit_cap=logit_cap, v_dim=v_dim)
@@ -264,11 +284,12 @@ def ragged_paged_attention(
 def ragged_paged_attention_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size, scale,
     logit_cap=None, sliding_window=None, v_dim=None, spec_anc=None, win_base=None,
+    alibi_slopes=None,
 ) -> torch.Tensor:
     """The aligned and the latent pool's routing over the two plain
     versions, on any device."""
     kw = dict(page_size=page_size, scale=scale, logit_cap=logit_cap,
-              sliding_window=sliding_window, v_dim=v_dim)
+              sliding_window=sliding_window, v_dim=v_dim, alibi_slopes=alibi_slopes)
     check_spec(spec_anc, win_base, page_table.shape[0])
     if _decodes(q, page_table, spec_anc):
         return ragged_paged_attention_packed_plain(q, kv_cache, layer_idx, page_table,
@@ -280,17 +301,21 @@ def ragged_paged_attention_plain(
 
 def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size,
             num_kv_heads, head_dim, scale, logit_cap, sliding_window, v_dim=None,
-            spec_anc=None, win_base=None):
+            spec_anc=None, win_base=None, alibi_slopes=None):
     check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
                     v_dim)
     check_spec(spec_anc, win_base, page_table.shape[0])
+    check_alibi(alibi_slopes, q, spec_anc, v_dim)
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
     if q.device.type == "cpu":
         return extend_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, meta,
-                                      spec_anc=spec_anc, win_base=win_base, **kw)
+                                      spec_anc=spec_anc, win_base=win_base,
+                                      alibi_slopes=alibi_slopes, **kw)
     if q.device.type != "cuda":
         raise RuntimeError(f"no extend kernel for device {q.device}")
+    if alibi_slopes is not None:
+        kernel = alibi_build(kernel, EXTEND_ALIBI)
     ints = (meta.q_lens, meta.q_start, meta.block_seq, meta.block_row, meta.block_qofs)
     if any(a.dtype != torch.int32 for a in ints):
         raise ValueError("work-list arrays must be int32")
@@ -314,6 +339,7 @@ def _extend(kernel, q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_s
         args += [len(spec_anc), ctypes.addressof(anc), win_base.data_ptr()]
     else:
         args += [0, None, None]
+    args.append(None if alibi_slopes is None else alibi_slopes.data_ptr())
     kernel.launch(*args, cuda_stream_ptr(q.device))
     return out
 
@@ -359,10 +385,13 @@ def ragged_paged_attention_extend(
     v_dim: Optional[int] = None,
     spec_anc: Optional[tuple] = None,
     win_base: Optional[torch.Tensor] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Extend attention over the aligned pool (the build of its head_dim,
     128 or 256; the merged kernel below 128; with ``spec_anc`` /
-    ``win_base`` a speculation tree's mask), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
+    ``win_base`` a speculation tree's mask; with ``alibi_slopes`` ALiBi's
+    bias, the aligned head_dim-128 build's ALiBi instantiation on the
+    card), or with ``v_dim`` over the MLA latent pool (output [T, Hq,
     v_dim]; the tree's mask there too); rows no work-list entry owns stay
     0."""
     Hkv, D = pool_heads(kv_cache)
@@ -370,12 +399,13 @@ def ragged_paged_attention_extend(
                    page_table, kv_lens, meta, page_size=page_size, num_kv_heads=Hkv,
                    head_dim=D, scale=scale, logit_cap=logit_cap,
                    sliding_window=sliding_window, v_dim=v_dim, spec_anc=spec_anc,
-                   win_base=win_base)
+                   win_base=win_base, alibi_slopes=alibi_slopes)
 
 
 def ragged_paged_attention_extend_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size, scale,
     logit_cap=None, sliding_window=None, v_dim=None, spec_anc=None, win_base=None,
+    alibi_slopes=None,
 ) -> torch.Tensor:
     """Plain version of the aligned, the merged and the MLA extend
     kernels."""
@@ -384,19 +414,21 @@ def ragged_paged_attention_extend_plain(
                                   page_size=page_size, num_kv_heads=Hkv, head_dim=D,
                                   scale=scale, logit_cap=logit_cap,
                                   sliding_window=sliding_window, v_dim=v_dim,
-                                  spec_anc=spec_anc, win_base=win_base)
+                                  spec_anc=spec_anc, win_base=win_base,
+                                  alibi_slopes=alibi_slopes)
 
 
 def extend_attention_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, meta, *, page_size,
     num_kv_heads, head_dim, scale, logit_cap=None, sliding_window=None, v_dim=None,
-    spec_anc=None, win_base=None,
+    spec_anc=None, win_base=None, alibi_slopes=None,
 ) -> torch.Tensor:
     """Plain version of the extend kernels, on any pool: a loop over the
     work-list entries, each gathering its request's pages up to its last
     row's position, then a causal float32 softmax over them (with
     ``spec_anc`` refined by the speculation tree's ancestor masks inside the
-    request's window from ``win_base``)."""
+    request's window from ``win_base``; with ``alibi_slopes`` ALiBi's bias
+    by each row's position, after the scale and the softcap)."""
     T, Hq, D = q.shape
     Hkv = num_kv_heads
     G = Hq // Hkv
@@ -424,6 +456,8 @@ def extend_attention_plain(
         if logit_cap:
             s = logit_cap * torch.tanh(s / logit_cap)
         pos = torch.arange(n, device=q.device)[None, :]
+        if alibi_slopes is not None:
+            s = s + alibi_bias(alibi_slopes, Hkv, q_abs[:, None], pos)
         valid = pos <= q_abs[:, None]
         if sliding_window:
             valid &= pos > q_abs[:, None] - sliding_window

@@ -13,7 +13,9 @@ the "merged" family (the counterparts of the TPU kernel
 _rpa_kernel_merged); at head_dim 128 and 256 (Gemma-2's) the "aligned"
 family has a build each, as the latent family has one per latent width
 (``pick_kernel``). ``spec_tree_mask`` is the speculation-tree mask the
-extend kernels and their plain versions apply (``spec_anc``).
+extend kernels and their plain versions apply (``spec_anc``); ``alibi_bias``
+ALiBi's bias (``alibi_slopes``), which the aligned head_dim-128 decode and
+extend have in an instantiation of their own (``alibi_build``).
 """
 
 from __future__ import annotations
@@ -96,6 +98,48 @@ def spec_tree_mask(valid: torch.Tensor, spec_anc, win_base, q_abs: torch.Tensor,
     in_win = (win_kv >= 0) & (win_kv < W)
     tree_ok = ((bits >> win_kv.clamp(0, 31)) & 1) > 0
     return valid & (~in_win | tree_ok)
+
+
+def alibi_bias(alibi_slopes: torch.Tensor, num_kv_heads: int, q_pos: torch.Tensor,
+               kv_pos: torch.Tensor) -> torch.Tensor:
+    """ALiBi's float32 bias of the scores [rows, Hkv, G, n] of the plain
+    versions: -slope[h G + g] * (q_pos - kv_pos), as the JAX reference adds
+    it (semi_pd_tpu/ops/attention/reference.py:86-90), after the scale and
+    the softcap and before the mask. ``q_pos`` [rows, 1] and ``kv_pos``
+    [1, n] broadcast to the rows' distances."""
+    dist = (q_pos - kv_pos).float()  # [rows, n]
+    slopes = alibi_slopes.float().reshape(1, num_kv_heads, -1, 1)
+    return -(slopes * dist[:, None, None, :])
+
+
+def check_alibi(alibi_slopes, q: torch.Tensor, spec_anc=None, v_dim=None) -> None:
+    """ALiBi's slopes: float32 [Hq] on q's device, contiguous; not with a
+    speculation tree (ROADMAP B9.6) nor on the latent pool."""
+    if alibi_slopes is None:
+        return
+    if spec_anc is not None:
+        raise NotImplementedError("ALiBi with a speculation tree: the ALiBi instantiation has "
+                                  "no tree (ROADMAP B9.6)")
+    if v_dim is not None:
+        raise ValueError("ALiBi on the latent pool: MLA attention takes no slopes")
+    if (alibi_slopes.dtype != torch.float32 or alibi_slopes.shape != (q.shape[1],)
+            or alibi_slopes.device != q.device or not alibi_slopes.is_contiguous()):
+        raise ValueError(f"alibi_slopes must be float32 [{q.shape[1]}] on {q.device}, got "
+                         f"{alibi_slopes.dtype} {tuple(alibi_slopes.shape)} on "
+                         f"{alibi_slopes.device}")
+
+
+def alibi_build(kernel, builds: dict):
+    """The ALiBi instantiation of ``kernel`` (``builds``: build name -> its
+    ALIBI instantiation, counted apart). Only the 5D pool's head_dim-128
+    decode and extend have one (Baichuan2-13B's); any other build raises,
+    naming ROADMAP B9.6."""
+    if kernel.name not in builds:
+        raise NotImplementedError(
+            f"{kernel.name} has no ALiBi instantiation: only the 5D pool's head_dim-128 "
+            f"builds have one (rpa_decode_aligned, rpa_extend_aligned); other builds are "
+            f"ROADMAP B9.6")
+    return builds[kernel.name]
 
 
 def check_spec(spec_anc, win_base, batch: int) -> None:

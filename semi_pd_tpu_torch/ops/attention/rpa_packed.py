@@ -37,8 +37,8 @@ import torch
 
 from semi_pd_tpu_torch.kernels import CudaKernel, cuda_stream_ptr, register
 from semi_pd_tpu_torch.ops.attention.rpa_common import (
-    F, I, P, TYPE_CODES, aligned_defines, check_cuda, check_pool_args, gather_kv, kv_planes,
-    latent_defines, layer_kv, pick_kernel, pool_heads,
+    F, I, P, TYPE_CODES, alibi_bias, alibi_build, aligned_defines, check_alibi, check_cuda,
+    check_pool_args, gather_kv, kv_planes, latent_defines, layer_kv, pick_kernel, pool_heads,
 )
 
 # The decode kernels' arguments up to the CUDA stream (the streaming
@@ -46,8 +46,9 @@ from semi_pd_tpu_torch.ops.attention.rpa_common import (
 DECODE_ARGTYPES = [P] * 6 + [I] * 7 + [F, F, I, I, I, P]
 # The packed decode builds (csrc/rpa_decode.cu, csrc/rpa_decode_mla.cu)
 # share one entry point, which also takes the split plan of their
-# tensor-core kernel (decode_split_plan) and a scratch pointer
-SPLIT_DECODE_ARGTYPES = DECODE_ARGTYPES[:-1] + [I, I, P, P]
+# tensor-core kernel (decode_split_plan), a scratch pointer and ALiBi's
+# slopes (null: none)
+SPLIT_DECODE_ARGTYPES = DECODE_ARGTYPES[:-1] + [I, I, P, P, P]
 
 DECODE_KERNEL = register(CudaKernel(
     name="rpa_decode",
@@ -65,6 +66,18 @@ DECODE_ALIGNED_KERNEL = register(CudaKernel(
     replaces="semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (GQA branch)",
     defines=aligned_defines(128),
 ))
+
+# ALiBi (Baichuan2-13B): the aligned build's ALIBI instantiation, which its
+# entry launches when given the slopes. The JAX layer runs ALiBi through its
+# reference attention (semi_pd_tpu/layers/attention.py:137,
+# ops/attention/reference.py:86-90): this is that function on the packed
+# decode's schedule
+DECODE_ALIGNED_ALIBI_KERNEL = register(DECODE_ALIGNED_KERNEL.instantiation(
+    "rpa_decode_aligned_alibi",
+    "semi_pd_tpu/ops/attention/rpa_packed.py:349 _rpa_kernel_packed (GQA branch, with the "
+    "ALiBi bias of ops/attention/reference.py:86-90)"))
+# build -> its ALiBi instantiation (rpa_common.alibi_build)
+DECODE_ALIBI = {DECODE_ALIGNED_KERNEL.name: DECODE_ALIGNED_ALIBI_KERNEL}
 
 # Gemma-2's head_dim 256 on the 5D pool: the same kernels, Q's fragments
 # read from shared memory (csrc/rpa_decode.cu)
@@ -135,8 +148,12 @@ DECODE_KERNELS = {"aligned": {128: DECODE_ALIGNED_KERNEL, 256: DECODE_ALIGNED_25
 # MLA_MMA_BLOCKS_PER_SM, as many blocks as the shared memory holds (81 KB a
 # block at 576, 45 KB at 288).
 DECODE_SPLIT = {DECODE_KERNEL.name: (128, 2), DECODE_ALIGNED_KERNEL.name: (64, 2),
-                DECODE_ALIGNED_256_KERNEL.name: (32, 2), DECODE_MERGED_KERNEL.name: (128, 2), DECODE_MLA_KERNEL.name: (256, 2),
-                DECODE_MLA_288_KERNEL.name: (256, 4)}
+                DECODE_ALIGNED_ALIBI_KERNEL.name: (64, 2),
+                DECODE_ALIGNED_256_KERNEL.name: (32, 2), DECODE_MERGED_KERNEL.name: (128, 2),
+                DECODE_MLA_KERNEL.name: (256, 2), DECODE_MLA_288_KERNEL.name: (256, 4)}
+# the GQA decodes' and streams' float32 (CUDA-core) kernels: G * head_dim
+# outputs of a block, at most DEC_MAXO * DEC_NT (csrc/rpa_decode.cuh)
+F32_DECODE_MAX_GD = 8 * 128
 # the latent builds' names (their plan is the fixed chunk)
 MLA_DECODES = frozenset(k.name for k in DECODE_MLA_KERNELS.values())
 # a GQA build's split covers at least SPLIT_MIN positions (unless the page
@@ -203,23 +220,36 @@ def split_args(kernel, q, kv_dtype, num_kv_heads, max_kv, dv):
 
 def decode_with(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_size,
                 num_kv_heads, head_dim, scale, logit_cap, sliding_window, v_dim=None,
-                plan=None):
+                plan=None, alibi_slopes=None):
     """Checks the arguments, then the plain version on the CPU or the
     kernel on the card. ``plan(kernel, q, kv dtype, num_kv_heads, maxP *
     page_size, output width)`` gives the entry's arguments between the
     element types and the stream, and a tensor to keep alive over the
-    launch; packed decode builds default to their split plan."""
+    launch; packed decode builds default to their split plan, and their
+    entries take ALiBi's slopes after it (null without ``alibi_slopes``),
+    which launch the kernel's ALIBI instantiation (DECODE_ALIBI)."""
     check_pool_args(q, kv_cache, layer_idx, page_table, kv_lens, num_kv_heads, head_dim,
                     v_dim)
+    check_alibi(alibi_slopes, q, v_dim=v_dim)
     if q.shape[0] != page_table.shape[0]:
         raise ValueError("decode takes one query row per request (T == B)")
     kw = dict(page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
               scale=scale, logit_cap=logit_cap, sliding_window=sliding_window, v_dim=v_dim)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens, **kw)
+        return decode_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens,
+                                      alibi_slopes=alibi_slopes, **kw)
     if q.device.type != "cuda":
         raise RuntimeError(f"no decode kernel for device {q.device}")
+    if alibi_slopes is not None:
+        kernel = alibi_build(kernel, DECODE_ALIBI)
     check_cuda(q, kv_cache, page_table, kv_lens, v_dim=v_dim)
+    if v_dim is None and q.dtype == torch.float32 and (
+            q.shape[1] // num_kv_heads) * head_dim > F32_DECODE_MAX_GD:
+        raise NotImplementedError(
+            f"float32 decode at {q.shape[1] // num_kv_heads} query heads per KV head and "
+            f"head_dim {head_dim}: the GQA decodes' float32 kernels hold G * head_dim <= "
+            f"{F32_DECODE_MAX_GD} outputs a block (ChatGLM's G = 16 at 128 is bf16 only); "
+            f"ROADMAP B9.7")
     B, Hq, D = q.shape
     Dv = v_dim or D
     k_ptr, v_ptr, row_stride = kv_planes(kv_cache, layer_idx, num_kv_heads, D)
@@ -229,6 +259,8 @@ def decode_with(kernel, q, kv_cache, layer_idx, page_table, kv_lens, *, page_siz
         plan = split_args
     extra, _scratch = (plan(kernel, q, kv_cache.dtype, num_kv_heads, maxP * page_size, Dv)
                        if plan else ((), None))
+    if kernel.name in DECODE_SPLIT:
+        extra = (*extra, None if alibi_slopes is None else alibi_slopes.data_ptr())
     kernel.launch(
         q.data_ptr(), k_ptr, v_ptr, page_table.data_ptr(), kv_lens.data_ptr(),
         out.data_ptr(), B, Hq, num_kv_heads, D, row_stride, maxP,
@@ -270,21 +302,23 @@ def ragged_paged_attention_packed(
     logit_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     v_dim: Optional[int] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention over the aligned pool (Hkv and D from its shape;
     the build of its head_dim, 128 or 256; the merged kernel below 128), or with ``v_dim`` over the MLA
     latent pool: returns [B, Hq, D] (or [B, Hq, v_dim]); rows with kv_len
-    == 0 are 0."""
+    == 0 are 0. ``alibi_slopes`` (float32 [Hq]): ALiBi's bias, in the
+    aligned head_dim-128 build's ALiBi instantiation on the card."""
     Hkv, D = pool_heads(kv_cache)
     return decode_with(pick_kernel(DECODE_KERNELS, kv_cache), q, kv_cache, layer_idx,
                        page_table, kv_lens, page_size=page_size, num_kv_heads=Hkv, head_dim=D,
                        scale=scale, logit_cap=logit_cap, sliding_window=sliding_window,
-                       v_dim=v_dim)
+                       v_dim=v_dim, alibi_slopes=alibi_slopes)
 
 
 def ragged_paged_attention_packed_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, *, page_size, scale,
-    logit_cap=None, sliding_window=None, v_dim=None,
+    logit_cap=None, sliding_window=None, v_dim=None, alibi_slopes=None,
 ) -> torch.Tensor:
     """Plain version of the aligned, the merged and the MLA decode
     kernels."""
@@ -292,15 +326,18 @@ def ragged_paged_attention_packed_plain(
     return decode_attention_plain(q, kv_cache, layer_idx, page_table, kv_lens,
                                   page_size=page_size, num_kv_heads=Hkv, head_dim=D,
                                   scale=scale, logit_cap=logit_cap,
-                                  sliding_window=sliding_window, v_dim=v_dim)
+                                  sliding_window=sliding_window, v_dim=v_dim,
+                                  alibi_slopes=alibi_slopes)
 
 
 def decode_attention_plain(
     q, kv_cache, layer_idx, page_table, kv_lens, *, page_size, num_kv_heads,
-    head_dim, scale, logit_cap=None, sliding_window=None, v_dim=None,
+    head_dim, scale, logit_cap=None, sliding_window=None, v_dim=None, alibi_slopes=None,
 ) -> torch.Tensor:
     """Plain version of the decode kernels, on any pool: a loop over
-    requests, each gathering its pages, then a full float32 softmax."""
+    requests, each gathering its pages, then a full float32 softmax (with
+    ``alibi_slopes`` ALiBi's bias after the scale and the softcap, the
+    query at kv_len - 1)."""
     B, Hq, D = q.shape
     Hkv = num_kv_heads
     G = Hq // Hkv
@@ -317,8 +354,11 @@ def decode_attention_plain(
         s = torch.einsum("hgd,nhd->hgn", q[b].float().reshape(Hkv, G, D), k) * scale
         if logit_cap:
             s = logit_cap * torch.tanh(s / logit_cap)
+        pos = torch.arange(n, device=q.device)
+        if alibi_slopes is not None:
+            s = s + alibi_bias(alibi_slopes, Hkv, torch.full((1, 1), lens[b] - 1,
+                                                             device=q.device), pos[None])[0]
         if sliding_window:
-            pos = torch.arange(n, device=q.device)
             s = s.masked_fill(pos <= lens[b] - 1 - sliding_window, float("-inf"))
         p = torch.softmax(s, dim=-1)
         out[b] = torch.einsum("hgn,nhd->hgd", p, v).reshape(Hq, Dv).to(q.dtype)

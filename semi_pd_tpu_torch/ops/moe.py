@@ -126,8 +126,10 @@ def moe_ffn(
     weights: torch.Tensor,  # [T, K] float32 routing weights
     expert_idx: torch.Tensor,  # [T, K] int32
     matmul=grouped_matmul,
+    act=silu_and_mul,  # the gated activation over [.., 2f] (Grok-1: gelu_and_mul)
 ) -> torch.Tensor:
-    """Sort-by-expert grouped MoE forward with SiLU gating, [T, d] -> [T, d],
+    """Sort-by-expert grouped MoE forward with gated ``act`` (SiLU unless
+    the caller passes another), [T, d] -> [T, d],
     in the JAX order of casts: rows gathered in the experts' dtype, both
     products and the weighted sum in that dtype, cast back to x's.
     ``matmul`` is the grouped product (``grouped_matmul_plain`` holds the
@@ -146,7 +148,7 @@ def moe_ffn(
     order = torch.argsort(flat, stable=True)
     token_of = order // K  # source token of each sorted row
     group_sizes = expert_counts(flat, E)
-    h = silu_and_mul(matmul(x[token_of].to(gate_up.dtype), gate_up, group_sizes))
+    h = act(matmul(x[token_of].to(gate_up.dtype), gate_up, group_sizes))
     out_rows = matmul(h, down, group_sizes)  # [T*K, d], sorted by expert
     w_rows = weights.reshape(T * K)[order].to(out_rows.dtype)
     rows = torch.empty_like(out_rows)

@@ -1,5 +1,5 @@
 """Rotary position embeddings (port of semi_pd_tpu/ops/rope.py: the default,
-llama3, yarn / deepseek_yarn and longrope / su frequency families).
+llama3, linear, yarn / deepseek_yarn and longrope / su frequency families).
 
 The float32 cos/sin table is computed once in float64 numpy, exactly as the
 JAX package does, and gathered by absolute position per step. yarn scales
@@ -10,9 +10,11 @@ frequencies by a per-channel short factor below
 ``original_max_position_embeddings`` and a long one from there on, and
 scales the table by sqrt(1 + ln(s) / ln(orig)) when the table reaches past
 orig (s = its length / orig), or by explicit ``short_mscale`` /
-``long_mscale`` per position. Rotation is GPT-NeoX style (two halves,
-Llama, MiniCPM3's pe head) or GPT-J interleaved (``is_neox_style=False``,
-DeepSeek). linear and m-rope are ROADMAP A14.
+``long_mscale`` per position. linear divides the frequencies by
+its factor. "dynamic" is served as the base table, as the JAX package
+serves it. Rotation is GPT-NeoX style (two halves, Llama, MiniCPM3's pe
+head) or GPT-J interleaved (``is_neox_style=False``, DeepSeek, the GLM
+family over the first ``rotary_dim`` dims). m-rope is ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -105,6 +107,8 @@ class RotaryEmbedding(torch.nn.Module):
                 inv_freq, self.mscale = _yarn_inv_freq(self.rotary_dim, theta, rope_scaling)
                 max_pos = int(rope_scaling.get("original_max_position_embeddings", max_pos)
                               * rope_scaling.get("factor", 1.0))
+            elif rtype == "linear":  # positions interpolated by the factor
+                inv_freq = inv_freq / rope_scaling.get("factor", 1.0)
             elif rtype in ("longrope", "su"):
                 freqs, pos_mscale = self._longrope(inv_freq, max_pos, max_position,
                                                    rope_scaling)

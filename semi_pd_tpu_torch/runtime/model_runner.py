@@ -20,7 +20,11 @@ with its q/k norms among them; Gemma-1 and Gemma-2 at head_dim 256, the
 latter with per-layer windows and softcaps; the GQA MoE families Mixtral,
 Qwen2-MoE, Qwen3-MoE and OLMoE; DeepSeek-V2/V3 with MLA + MoE; MiniCPM3,
 MLA with a dense MLP, whose 288-wide latent rows take the latent kernels'
-_288 builds). The KV pool's layout
+_288 builds; the Llama-computation variants InternLM2 and its reward
+model, ExaOne, Baichuan (ALiBi at Baichuan2-13B's hidden 5120, refused
+with ``decode_stream``, speculation or another pool than the 5D one at
+head_dim 128: ROADMAP B9.6), QWen v1, MiniCPM, XverseMoe, DeepSeek-V1,
+the GLM family, Phi-3, Granite and Grok-1). The KV pool's layout
 follows the model's geometry (``kv_pool_layout``, the JAX runner's rule):
 the chunked pool for head_dim 64 when a slot row holds a multiple of 8
 chunks of 128 (e.g. Llama-3.2-1B's 8 KV heads), the 5D pool otherwise
@@ -89,8 +93,16 @@ from semi_pd_tpu_torch.mem.pool import KVCache, KVCacheSpec, PageAllocator, ReqT
 from semi_pd_tpu_torch.model_loader.loader import device_init_params
 from semi_pd_tpu_torch.models.deepseek_v2 import DeepseekV2ForCausalLM
 from semi_pd_tpu_torch.models.gemma2 import Gemma2ForCausalLM, GemmaForCausalLM
+from semi_pd_tpu_torch.models.glm import ChatGLMForCausalLM, Glm4ForCausalLM, GlmForCausalLM
+from semi_pd_tpu_torch.models.granite import GraniteForCausalLM
+from semi_pd_tpu_torch.models.grok import Grok1ForCausalLM
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
+from semi_pd_tpu_torch.models.llama_variants import (
+    BaichuanForCausalLM, DeepseekForCausalLM, ExaoneForCausalLM, InternLM2ForCausalLM,
+    InternLM2ForRewardModel, MiniCPMForCausalLM, QWenLMHeadModel, XverseMoeForCausalLM,
+)
 from semi_pd_tpu_torch.models.minicpm3 import MiniCPM3ForCausalLM
+from semi_pd_tpu_torch.models.phi3 import Phi3ForCausalLM
 from semi_pd_tpu_torch.models.qwen2_moe import (
     MixtralForCausalLM, OlmoeForCausalLM, Qwen2MoeForCausalLM, Qwen3MoeForCausalLM,
 )
@@ -127,6 +139,25 @@ ARCHITECTURES = {
     "DeepseekV2ForCausalLM": DeepseekV2ForCausalLM,
     "DeepseekV3ForCausalLM": DeepseekV2ForCausalLM,
     "MiniCPM3ForCausalLM": MiniCPM3ForCausalLM,
+    # the Llama-computation variants (registry.py:72-84, :94-101, :118-119)
+    "InternLM2ForCausalLM": InternLM2ForCausalLM,
+    "InternLM2ForRewardModel": InternLM2ForRewardModel,
+    "ExaoneForCausalLM": ExaoneForCausalLM,
+    "BaichuanForCausalLM": BaichuanForCausalLM,
+    "BaiChuanForCausalLM": BaichuanForCausalLM,
+    "QWenLMHeadModel": QWenLMHeadModel,
+    "MiniCPMForCausalLM": MiniCPMForCausalLM,
+    "XverseMoeForCausalLM": XverseMoeForCausalLM,
+    "DeepseekForCausalLM": DeepseekForCausalLM,
+    "Grok1ForCausalLM": Grok1ForCausalLM,
+    "Grok1ModelForCausalLM": Grok1ForCausalLM,
+    "GlmForCausalLM": GlmForCausalLM,
+    "Glm4ForCausalLM": Glm4ForCausalLM,
+    "ChatGLMModel": ChatGLMForCausalLM,
+    "ChatGLMForConditionalGeneration": ChatGLMForCausalLM,
+    "ChatGLMForCausalLM": ChatGLMForCausalLM,
+    "Phi3ForCausalLM": Phi3ForCausalLM,
+    "GraniteForCausalLM": GraniteForCausalLM,
 }
 
 KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
@@ -232,6 +263,8 @@ class ModelRunner:
         self.model_config = model_config
         self.model = ARCHITECTURES[model_config.architecture](model_config, device=self.device)
         self.model.page_size = server_args.page_size
+        if getattr(self.model, "alibi_slopes", None) is not None:
+            self._check_alibi()
         self.kv_scales = None
         if model_config.use_mla and server_args.quantization_param_path:
             # as the JAX runner refuses them (model_runner.py:161-165): the
@@ -312,6 +345,27 @@ class ModelRunner:
         for c in caches:
             if getattr(self, c, None) is not None:
                 getattr(self, c).clear()
+
+    def _check_alibi(self) -> None:
+        """ALiBi (Baichuan2-13B) runs on the 5D pool at head_dim 128, whose
+        decode and extend have an ALiBi instantiation; the streaming decodes
+        and the speculation tree have none, and other pools no build
+        (ROADMAP B9.6)."""
+        mc, args = self.model_config, self.server_args
+        if kv_pool_layout(mc.num_kv_heads_total, mc.kv_head_dim, mc.use_mla) != "aligned" or (
+                mc.head_dim != 128):
+            raise NotImplementedError(
+                f"ALiBi at head_dim {mc.head_dim} with {mc.num_key_value_heads} KV heads: the "
+                f"ALiBi instantiation is built for the 5D pool at head_dim 128; other pools "
+                f"are ROADMAP B9.6")
+        if args.decode_stream:
+            raise NotImplementedError("ALiBi with decode_stream: the streaming decodes take "
+                                      "no slopes (ROADMAP B9.6)")
+        if args.speculative_algorithm:
+            raise NotImplementedError(
+                f"ALiBi with speculative_algorithm {args.speculative_algorithm}: the ALiBi "
+                f"instantiation has no speculation tree and the drafts no slopes "
+                f"(ROADMAP B9.6)")
 
     # ------------------------------------------------------------- weights
     def _load_weights(self) -> None:

@@ -388,6 +388,12 @@ class Scheduler:
                 continue
             admitted.append((req, n))
         if not admitted:
+            # nothing runs and the radix cache holds the pages the head of the
+            # queue needs (a pool nearly full of finished requests' prefixes;
+            # the admission counts free pages only): evict for it, or it waits
+            # for ever (ROADMAP C16)
+            if not self.running and self._evict_for(ordered[0], token_budget):
+                return self._form_extend_batch(token_budget)
             return None
         # Allocate slots + pages NOW (decode-owned pre-allocation)
         final: List[Tuple[Req, int]] = []
@@ -396,6 +402,16 @@ class Scheduler:
                 self.waiting.remove(req)
                 final.append((req, n))
         return final or None
+
+    def _evict_for(self, req: Req, token_budget: int) -> bool:
+        """Evict unlocked radix-cache pages so that ``req``'s next chunk (up
+        to ``token_budget`` tokens) and the admission's decode headroom fit;
+        True if any page was freed."""
+        n = min(req.prefill_remaining, token_budget)
+        need = (-(-(req.prefilled_len + n) // self.page_size) - len(req.pages)
+                + -(-self.args.retract_decode_steps // self.page_size) + 1)
+        short = need - self.runner.page_allocator.available_pages()
+        return short > 0 and self.tree_cache.evict(short) > 0
 
     def _attach_prefix(self, req: Req) -> int:
         """First-time admission: radix prefix reuse."""

@@ -35,7 +35,14 @@ speculating Engine on round graphs against its eager serve, and a round
 whose capture fails raising; the decode step variants (a grammar mask, a
 logit bias, penalties, a top-k, and all at once) replayed bitwise against
 their eager steps, the plain key unchanged beside them, and a constrained
-batch served on graphs as eagerly. Every kernel is held with each (q, KV) pair it is
+batch served on graphs as eagerly; the ALiBi instantiations of the aligned
+decode and extend against their plain versions (one and four query heads
+per KV head, with a softcap, a prefix hit and two-entry prompts), their
+refusal on the other builds and the stream, the aligned builds at 6 and
+16 query heads per KV head, the float32 decodes' refusal at G = 16, the
+merged builds at 36 KV heads, and Engines of the Llama-variant forwards
+(Baichuan's ALiBi, MiniCPM, ChatGLM, Glm4, DeepSeek-V1, Grok-1, Granite)
+against the CPU. Every kernel is held with each (q, KV) pair it is
 built for, fp8 e4m3 and e5m2 under bf16 q included. This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
@@ -430,16 +437,17 @@ def test_extend_builds_run_on_the_tensor_cores(cuda_device):
     extend and decode runs tensor-core instructions (HGMMA in the extends'
     warpgroup kernels, HMMA in the decodes'); their float32 pairs stay on
     the CUDA cores. The four extends hold each kernel twice: with a
-    speculation tree (TREE) and without."""
+    speculation tree (TREE) and without; the aligned decode and extend
+    hold each once more, as its ALiBi instantiation (ALIBI)."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs, float32 ones)
         "rpa_extend": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 6, 2),
-        "rpa_extend_aligned": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 6, 2),
+        "rpa_extend_aligned": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 9, 3),
         "rpa_extend_mla": ("rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel", 6, 2),
         "rpa_extend_merged": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 6, 2),
         "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3, 1),
-        "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3, 1),
+        "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 6, 2),
         "rpa_decode_merged": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3, 1),
         "rpa_decode_mla": ("rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel", 3, 1),
     }
@@ -665,7 +673,7 @@ def test_decode_refuses_an_invalid_split_plan(cuda_device, build):
         with pytest.raises(RuntimeError, match="cudaError 1$"):
             k.launch(q.data_ptr(), k_ptr, v_ptr, pt.data_ptr(), kvl.data_ptr(), out.data_ptr(),
                      16, q.shape[1], hkv, head_dim, row_stride, pt.shape[1], PS, 1.0, 0.0, 0,
-                     code[q.dtype], code[kv_t.dtype], n_split, split_len, scr,
+                     code[q.dtype], code[kv_t.dtype], n_split, split_len, scr, None,
                      torch.cuda.current_stream().cuda_stream)
 
 
@@ -1550,7 +1558,8 @@ def test_tree_verify_at_256_with_softcap_and_a_window_inside_the_tree(cuda_devic
 def _tree_functions(name, kernel_fn, core_fn):
     """The warpgroup and the CUDA-core kernel functions of an extend build,
     each split into its TREE = false and TREE = true instantiations (the
-    template's last argument), with their HGMMA counts and their resource
+    template's last argument; in the GQA kernels the last but ALIBI, here
+    false), with their HGMMA counts and their resource
     use (``cuobjdump -res-usage`` of the built library: REG, and STACK, the
     bytes a thread spills to; the library may come from an earlier build,
     whose nvcc log this process never saw)."""
@@ -1571,7 +1580,7 @@ def _tree_functions(name, kernel_fn, core_fn):
     out = {}
     for fn in (kernel_fn, core_fn):
         for tree in (False, True):
-            tag = "Lb1EE" if tree else "Lb0EE"
+            tag = f"Lb{int(tree)}E" + ("Lb0EE" if kernel_fn == "rpa_extend_wgmma_kernel" else "E")
             out[fn, tree] = {f: (counts.get(f), usage.get(f, {})) for f in counts
                              if fn + "I" in f and tag in f}
     return out
@@ -2253,6 +2262,185 @@ def test_spec_engine_gemma2_and_minicpm3_on_cuda_matches_cpu(cuda_device, algo):
     if tree:
         assert gpu.runner.spec_counts["draft_tree"] > 0
     assert gpu.flush_cache() and cpu.flush_cache()
+
+
+# --------------------------- the Llama variants: ALiBi, G = 6 and 16, Hkv 36
+def _alibi(hq, dev):
+    from semi_pd_tpu_torch.models.llama_variants import alibi_slopes
+
+    return torch.from_numpy(alibi_slopes(hq)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3"])
+@pytest.mark.parametrize("kind", ["decode", "extend"])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 2)], ids=["g1", "g4"])
+@pytest.mark.parametrize("opt", ["plain", "softcap"])
+def test_alibi_kernels_match_plain(cuda_device, kind, dtype, hq, hkv, opt):
+    """The aligned builds' ALiBi instantiations (rpa_decode_aligned_alibi,
+    rpa_extend_aligned_alibi; fp8 = bf16 q over an e4m3 pool) against their
+    plain versions with the same slopes, every dead slot NaN: the decode
+    with a padded row, the extend with a prompt of 140 in two work-list
+    entries, a chunk of 20 behind a cached prefix of 40 (a prefix hit) and
+    a padded entry; with a softcap of 1 the bias comes after it. One launch
+    of the ALiBi build and none of the aligned one."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    case = _decode_case if kind == "decode" else _extend_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt, aligned=True, hq=hq, hkv=hkv,
+                                  kv_dtype=FP8.get(dtype, dt))
+    _poison_dead_slots(pool, pt, kvl, 1)
+    kw = dict(_opts(opt, D_ALIGNED ** -0.5), alibi_slopes=_alibi(hq, cuda_device))
+    if kind == "decode":
+        fn, plain = rpa_packed.ragged_paged_attention_packed, rpa_packed.ragged_paged_attention_packed_plain
+    else:
+        fn = functools.partial(rpa.ragged_paged_attention_extend, meta=meta)
+        plain = functools.partial(rpa.ragged_paged_attention_extend_plain, meta=meta)
+    k, base = KERNELS[f"rpa_{kind}_aligned_alibi"], KERNELS[f"rpa_{kind}_aligned"]
+    before, before_base = k.launches, base.launches
+    out = fn(q, pool, 1, pt, kvl, **kw)
+    ref = plain(q, pool, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1 and base.launches == before_base
+    assert torch.isfinite(out).all()
+    if kind == "decode":
+        assert not out[kvl == 0].any()
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    # the bias shows: the aligned build without it lands elsewhere
+    kw.pop("alibi_slopes")
+    assert (fn(q, pool, 1, pt, kvl, **kw).float() - ref.float()).abs().max() > 10 * tol
+
+
+def test_alibi_is_refused_where_no_build_has_it(cuda_device):
+    """A CUDA tensor with slopes on a build without an ALiBi instantiation
+    raises, naming ROADMAP B9.6: the merged and _256 decodes and extends,
+    the streaming decode; nothing launches."""
+    before = {n: k.launches for n, k in KERNELS.items()}
+    for kw in (dict(merged=True), dict(aligned=True, aligned_dim=256)):
+        for case, fn in ((_decode_case, rpa_packed.ragged_paged_attention_packed),
+                         (_extend_case, rpa.ragged_paged_attention_extend)):
+            q, pool, pt, kvl, meta = case(cuda_device, torch.bfloat16, **kw)
+            args = (q, pool, 1, pt, kvl) + ((meta,) if case is _extend_case else ())
+            with pytest.raises(NotImplementedError, match="ROADMAP B9.6"):
+                fn(*args, page_size=PS, scale=0.1, alibi_slopes=_alibi(HQ, cuda_device))
+    q, pool, pt, kvl, meta = _decode_case(cuda_device, torch.bfloat16, aligned=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP B9.6"):
+        rpa.ragged_paged_attention(q, pool, 1, pt, kvl, meta, page_size=PS, scale=0.1,
+                                   stream=True, alibi_slopes=_alibi(HQ, cuda_device))
+    assert {n: k.launches for n, k in KERNELS.items()} == before
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "fp8_e4m3"])
+@pytest.mark.parametrize("kind", ["decode", "stream", "extend"])
+@pytest.mark.parametrize("hq,hkv", [(12, 2), (32, 2)], ids=["g6", "g16"])
+def test_gqa_builds_at_six_and_sixteen_heads_per_kv_head(cuda_device, hq, hkv, kind, kv):
+    """The aligned builds at G = 6 (a query row's packed extend rows m = r *
+    6 + g cut across the 16-row warp tiles) and G = 16 (the decodes' m16
+    tile full), bf16 q over bf16 and e4m3 KV, every dead slot NaN, against
+    their plain versions: one launch, zeros on kv_len-0 rows."""
+    dt = torch.bfloat16
+    case = _extend_case if kind == "extend" else _decode_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt, aligned=True, hq=hq, hkv=hkv,
+                                  kv_dtype=FP8.get(kv, dt))
+    _poison_dead_slots(pool, pt, kvl, 1)
+    kw = dict(page_size=PS, scale=D_ALIGNED ** -0.5)
+    if kind == "decode":
+        fn = rpa_packed.ragged_paged_attention_packed
+    elif kind == "stream":
+        fn = rpa_stream.ragged_paged_attention_stream
+    else:
+        fn = functools.partial(rpa.ragged_paged_attention_extend, meta=meta)
+    plain = (functools.partial(rpa.ragged_paged_attention_extend_plain, meta=meta)
+             if kind == "extend" else rpa_packed.ragged_paged_attention_packed_plain)
+    k = KERNELS[GQA_BUILDS[kind]]
+    before = k.launches
+    out = fn(q, pool, 1, pt, kvl, **kw)
+    ref = plain(q, pool, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert torch.isfinite(out).all()
+    if kind != "extend":
+        assert not out[kvl == 0].any()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_float32_decode_at_sixteen_heads_per_kv_head_is_refused(cuda_device):
+    """float32 q at G = 16 and head_dim 128 (2048 outputs a block) is more
+    than the GQA decodes' float32 kernels hold: refused naming ROADMAP B9.7,
+    the packed decode and the stream alike; the extend takes it."""
+    q, pool, pt, kvl, meta = _decode_case(cuda_device, torch.float32, aligned=True, hq=32,
+                                          hkv=2)
+    for fn in (rpa_packed.ragged_paged_attention_packed, rpa_stream.ragged_paged_attention_stream):
+        with pytest.raises(NotImplementedError, match="ROADMAP B9.7"):
+            fn(q, pool, 1, pt, kvl, page_size=PS, scale=0.1)
+    q, pool, pt, kvl, meta = _extend_case(cuda_device, torch.float32, aligned=True, hq=32,
+                                          hkv=2)
+    out = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, page_size=PS, scale=0.1)
+    ref = rpa.ragged_paged_attention_extend_plain(q, pool, 1, pt, kvl, meta, page_size=PS,
+                                                  scale=0.1)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "fp8_e4m3"])
+@pytest.mark.parametrize("kind", ["decode", "extend"])
+def test_merged_builds_at_36_kv_heads(cuda_device, kind, dtype):
+    """The merged builds at MiniCPM-2B's 36 KV heads (Hq 36, head_dim 64, G
+    = 1; fp8 = bf16 q over an e4m3 pool), every dead slot NaN, against
+    their plain versions."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    case = _extend_case if kind == "extend" else _decode_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt, merged=True, hq=36, hkv=36,
+                                  kv_dtype=FP8.get(dtype, dt))
+    _poison_dead_slots(pool, pt, kvl, 1)
+    kw = dict(page_size=PS, scale=D ** -0.5)
+    if kind == "decode":
+        out = rpa_packed.ragged_paged_attention_packed(q, pool, 1, pt, kvl, **kw)
+        ref = rpa_packed.ragged_paged_attention_packed_plain(q, pool, 1, pt, kvl, **kw)
+    else:
+        out = rpa.ragged_paged_attention_extend(q, pool, 1, pt, kvl, meta, **kw)
+        ref = rpa.ragged_paged_attention_extend_plain(q, pool, 1, pt, kvl, meta, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# one small config per distinct forward of the slice (float32), and the
+# two kernels each runs on the card
+VARIANT_ENGINES = {
+    "baichuan_alibi": (_family_cfg("BaichuanForCausalLM", position_embedding="ALIBI"),
+                       ("rpa_decode_aligned_alibi", "rpa_extend_aligned_alibi")),
+    "minicpm": (_family_cfg("MiniCPMForCausalLM", head_dim=64, scale_emb=12.0,
+                            scale_depth=1.4, dim_model_base=64),
+                ("rpa_decode_merged", "rpa_extend_merged")),
+    "chatglm": (_family_cfg("ChatGLMModel", num_attention_heads=8, num_key_value_heads=2,
+                            partial_rotary_factor=0.5),
+                ("rpa_decode_aligned", "rpa_extend_aligned")),
+    "glm4": (_family_cfg("Glm4ForCausalLM", partial_rotary_factor=0.5),
+             ("rpa_decode_aligned", "rpa_extend_aligned")),
+    "deepseek_v1": (_family_cfg("DeepseekForCausalLM", num_experts=8, num_experts_per_tok=2,
+                                moe_intermediate_size=64, num_shared_experts=2,
+                                first_k_dense_replace=1),
+                    ("rpa_decode_aligned", "rpa_extend_aligned")),
+    "grok": (_family_cfg("Grok1ForCausalLM", num_attention_heads=12, num_key_value_heads=2,
+                         num_experts=4, num_experts_per_tok=2, moe_intermediate_size=64,
+                         embedding_multiplier_scale=8.0, output_multiplier_scale=0.5),
+             ("rpa_decode_aligned", "rpa_extend_aligned")),
+    "granite": (_family_cfg("GraniteForCausalLM", embedding_multiplier=12.0,
+                            attention_multiplier=0.0078125, residual_multiplier=0.22,
+                            logits_scaling=16.0), ("rpa_decode_aligned", "rpa_extend_aligned")),
+}
+
+
+@pytest.mark.parametrize("family", list(VARIANT_ENGINES))
+def test_engine_variants_on_cuda_match_cpu(cuda_device, family):
+    """Each distinct forward of the slice (Baichuan's ALiBi through the
+    ALiBi instantiations, MiniCPM on the merged pool, ChatGLM's interleaved
+    half rope, Glm4's sandwich norms, DeepSeek-V1's dense first layer,
+    Grok-1's capped router, GELU experts and softcap at G = 6, Granite's
+    multipliers) in float32 on the card gives the CPU Engine's greedy tokens
+    through its pool's two kernels alone."""
+    cfg, kernels = VARIANT_ENGINES[family]
+    _engines_agree(cuda_device, cfg, list(kernels))
 
 
 # ------------------------------------------------ rounds replayed from graphs

@@ -93,15 +93,17 @@ def test_decode_split_plan_at_the_8_kv_head_paths(build, B, max_kv, plan):
 
 
 def test_gqa_decode_builds_share_one_entry_and_the_source_constants():
-    """The three GQA decode builds of csrc/rpa_decode.cu are bound with one
-    argtypes list (the split plan and a scratch pointer before the stream),
-    and each build's (SD_STEP, SD_BLOCKS_PER_SM), as the source states them
-    for its head_dim, equal rpa_packed.DECODE_SPLIT's; the step is 4 warps
-    of SD_TK = 2048 / head_dim positions."""
+    """The GQA decode builds of csrc/rpa_decode.cu, and the aligned build's
+    ALiBi instantiation, are bound with one argtypes list (the split plan,
+    a scratch pointer and ALiBi's slopes before the stream), and each
+    build's (SD_STEP, SD_BLOCKS_PER_SM), as the source states them for its
+    head_dim, equal rpa_packed.DECODE_SPLIT's; the step is 4 warps of SD_TK
+    = 2048 / head_dim positions."""
     kernels = [KERNELS[b] for b in BUILDS]
     assert {k.source.name for k in kernels} == {"rpa_decode.cu"}
     assert all(k.argtypes == rpa_packed.SPLIT_DECODE_ARGTYPES for k in kernels)
-    assert rpa_packed.SPLIT_DECODE_ARGTYPES[:-4] == rpa_packed.DECODE_ARGTYPES[:-1]
+    assert "rpa_decode_aligned_alibi" in BUILDS
+    assert rpa_packed.SPLIT_DECODE_ARGTYPES[:-5] == rpa_packed.DECODE_ARGTYPES[:-1]
     for k in kernels:
         c = _source_constants(k)
         assert c["SD_TK"] == 2048 // _head_dim(k) and c["SD_WARPS"] == 4

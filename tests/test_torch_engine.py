@@ -141,7 +141,7 @@ def _imports(path: pathlib.Path):
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke", "serve_witness",
                                     "fidelity_witness", "decode_trace", "extend_shapes",
-                                    "mla_decode_plans",
+                                    "mla_decode_plans", "mla_extend_compare",
                                     "semi_pd_tpu_torch/runtime/cuda_graph_runner",
                                     "semi_pd_tpu_torch/utils/warmup",
                                     "semi_pd_tpu_torch/bench_one_batch",
@@ -155,15 +155,20 @@ def _imports(path: pathlib.Path):
                                     "semi_pd_tpu_torch/config/model_config",
                                     "semi_pd_tpu_torch/models/llama",
                                     "semi_pd_tpu_torch/models/gemma2",
-                                    "semi_pd_tpu_torch/models/qwen2_moe"])
+                                    "semi_pd_tpu_torch/models/qwen2_moe",
+                                    "semi_pd_tpu_torch/models/llama_variants",
+                                    "semi_pd_tpu_torch/models/glm",
+                                    "semi_pd_tpu_torch/models/phi3",
+                                    "semi_pd_tpu_torch/models/granite",
+                                    "semi_pd_tpu_torch/models/grok"])
 def test_port_imports_no_jax(target):
     """No file of the port (the decode graphs, the warmup registry,
     bench_one_batch, the constrained-decoding copies, the logit processors,
-    the sampler, the config parser and the Llama, Gemma and MoE family
-    modules named on their own), and none of its card scripts
-    (chip_smoke.py, serve_witness.py, fidelity_witness.py,
-    decode_trace.py, extend_shapes.py, mla_decode_plans.py), imports jax
-    or anything of the JAX package."""
+    the sampler, the config parser and the Llama, Gemma, MoE and
+    Llama-variant family modules named on their own), and none of its card
+    scripts (chip_smoke.py, serve_witness.py, fidelity_witness.py,
+    decode_trace.py, extend_shapes.py, mla_decode_plans.py,
+    mla_extend_compare.py), imports jax or anything of the JAX package."""
     files = (sorted((ROOT / "semi_pd_tpu_torch").rglob("*.py")) if target == "package"
              else [ROOT / f"{target}.py"])
     assert files
@@ -174,12 +179,14 @@ def test_port_imports_no_jax(target):
 
 
 def test_kernel_registry_and_sources():
-    """The seventeen kernels (decode and extend on the chunked, the aligned,
+    """The nineteen kernels (decode and extend on the chunked, the aligned,
     the merged and the latent pool, and the three streaming decodes; the
     latent pool's three again at MiniCPM3's 288 / 256, the aligned pool's
-    three again at Gemma-2's head_dim 256) are
-    registered with a source in the checkout, the TPU kernel they replace
-    (a function that reaches pl.pallas_call), their own build library, the
+    three again at Gemma-2's head_dim 256; the aligned decode and extend
+    again as their ALiBi instantiations, in the aligned builds' libraries)
+    are registered with a source in the checkout, the TPU kernel they
+    replace (a function that reaches pl.pallas_call), a build library (the
+    seventeen builds' own), the
     entry point the build names and a launch count; every extend kernel is
     built with the work list's q-block; the 5D pool's builds (aligned and
     merged) are -DRPA_ALIGNED, the merged ones at head_dim 64, the _256
@@ -196,7 +203,8 @@ def test_kernel_registry_and_sources():
                             "rpa_decode_stream_aligned", "rpa_decode_stream_mla",
                             "rpa_decode_mla_288", "rpa_extend_mla_288",
                             "rpa_decode_stream_mla_288", "rpa_decode_aligned_256",
-                            "rpa_extend_aligned_256", "rpa_decode_stream_aligned_256"}
+                            "rpa_extend_aligned_256", "rpa_decode_stream_aligned_256",
+                            "rpa_decode_aligned_alibi", "rpa_extend_aligned_alibi"}
     for k in KERNELS.values():
         assert k.source.exists() and k.source.suffix == ".cu"
         path, line = k.replaces.split()[0].split(":")
@@ -204,14 +212,15 @@ def test_kernel_registry_and_sources():
         assert src[int(line) - 1].startswith(f"def {k.replaces.split()[1]}(")
         flags = " ".join(k.flags())
         assert "sm_90a" in flags and f"-DRPA_ENTRY={k.symbol}" in flags
-        five_d = k.name.endswith(("_aligned", "_merged", "_aligned_256"))
+        five_d = k.name.endswith(("_aligned", "_merged", "_aligned_256", "_aligned_alibi"))
+        assert (k.library is not None) == k.name.endswith("_alibi")
         assert ("-DRPA_ALIGNED" in k.flags()) == five_d
         assert ("-DRPA_P_F32" in k.flags()) == (k.name.endswith("_merged") or "_mla" in k.name)
         assert ("-DRPA_MLA_DL=288" in k.flags()) == k.name.endswith("_288")
         assert ("-DRPA_HEAD_DIM=256" in k.flags()) == k.name.endswith("_256")
     assert len({k.lib_path() for k in KERNELS.values()}) == 17
     for name in ("rpa_extend", "rpa_extend_aligned", "rpa_extend_mla", "rpa_extend_merged",
-                 "rpa_extend_mla_288", "rpa_extend_aligned_256"):
+                 "rpa_extend_mla_288", "rpa_extend_aligned_256", "rpa_extend_aligned_alibi"):
         assert "EXTEND_QBLK=128" in " ".join(KERNELS[name].flags())
     for name in ("rpa_decode_merged", "rpa_extend_merged"):
         assert "-DRPA_HEAD_DIM=64" in KERNELS[name].flags()

@@ -729,9 +729,10 @@ def test_builds_name_their_warpgroup_kernels():
     assert chunked.source == merged.source == aligned.source
     assert "rpa_extend_wgmma_kernel" in src and "rpa_extend_mma_kernel" not in src
     assert "MmaLayout" not in src and "launch_extend_mma" not in src
-    # both instantiations, with a speculation tree and without (TREE)
-    assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD, true>", src)
-    assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD, false>", src)
+    # both instantiations, with a speculation tree and without (TREE; the
+    # one without also as ALiBi's where the build has it, never the tree's)
+    assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD, true, false>", src)
+    assert re.search(r"launch_extend_wgmma<TKV, D, P_F32_BUILD, false, ALIBI>", src)
     assert "rpa_extend_mla_wgmma_kernel" in mla.source.read_text()
     # head_dim 256: the same source and kernel, with the tree's
     # instantiations as every extend build (no build leaves them out)

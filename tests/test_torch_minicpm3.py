@@ -124,10 +124,18 @@ def test_longrope_tables_equal_jax(case):
 
 
 def test_rope_still_refuses_linear_and_mrope():
-    """linear and m-rope stay unported (ROADMAP A14)."""
-    for scaling in (dict(type="linear", factor=2.0), dict(type="mrope")):
-        with pytest.raises(NotImplementedError, match="A14"):
-            rope.RotaryEmbedding(32, rope_scaling=scaling)
+    """m-rope stays unported (ROADMAP A14); linear, refused here until the
+    GLM / Llama-variant slice ported it, now gives the JAX table bitwise
+    (the frequencies divided by the factor)."""
+    with pytest.raises(NotImplementedError, match="A14"):
+        rope.RotaryEmbedding(32, rope_scaling=dict(type="mrope"))
+    scaling = dict(type="linear", factor=2.0)
+    ours = rope.RotaryEmbedding(32, max_position=64, rope_scaling=scaling)
+    ref = jax_rope.RotaryEmbedding(32, max_position=64, rope_scaling=scaling)
+    np.testing.assert_array_equal(ours.cos.numpy(), np.asarray(ref.cos))
+    np.testing.assert_array_equal(ours.sin.numpy(), np.asarray(ref.sin))
+    base = rope.RotaryEmbedding(32, max_position=64)
+    np.testing.assert_array_equal(ours.cos.numpy()[10], base.cos.numpy()[5])
 
 
 # ------------------------------------------------------------------ model

@@ -402,13 +402,14 @@ def _c_entry_types(source: str):
 def test_extend_entry_argtypes_match_the_c_signature(name):
     """The ctypes argtypes of each extend build, parameter for parameter, as
     its C entry declares them: the tree's count, host table and win_base
-    sit between the types and the stream, where the wrapper passes them (a
-    pointer in an int's place would be cut to 32 bits)."""
+    sit between the types and ALiBi's slopes, the slopes before the stream,
+    where the wrapper passes them (a pointer in an int's place would be cut
+    to 32 bits)."""
     from semi_pd_tpu_torch.kernels import KERNELS
 
     k = KERNELS[name]
     assert k.argtypes == _c_entry_types(k.source_rel.split("/", 1)[1])
-    assert len(k.argtypes) == 27 and k.argtypes[-4] is __import__("ctypes").c_int
+    assert len(k.argtypes) == 28 and k.argtypes[-5] is __import__("ctypes").c_int
     # the kernels' parameter struct holds as many masks as a tree has nodes
     import re
 

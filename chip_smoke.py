@@ -122,7 +122,15 @@ each (any failure raises and exits non-zero):
              bf16 and e4m3 KV, and the ALiBi instantiations at
              Baichuan2-13B's 40 / 40 with its slopes (bf16, e4m3 and
              float32; extend also b2 x q2048), SDPA taking the bias as a
-             float mask as their library time.
+             float mask as their library time. Then the LayerNorm
+             families' attention (``phase_kernels_layernorm``), bf16 and
+             e4m3 KV, each row with its head groups: StarCoder's 48 / 1
+             (decode, stream, extend) and StarCoder2-7B's 36 / 4 (decode
+             and extend, also with its 4096 window where it cuts) on the
+             aligned builds, Falcon-7B's 71 / 1 and GPT-2-large's
+             20 / 20 (decode, extend) on the merged builds,
+             StableLM-2-1.6B's 32 / 32 (decode, stream, extend) on the
+             chunked ones.
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
              chunked pool with bf16 KV, then with fp8_e4m3 KV, the
@@ -158,8 +166,9 @@ each (any failure raises and exits non-zero):
              65536-token pool, then fp8_e4m3 KV on 131072, OLMoE-1B-7B
              (full-width q/k norms, 64 experts top-8, G = 1), each served
              in both modes (phases 3g, 4); then phase 3 alone for
-             Mistral-7B-v0.1 (prompts of 5000 and 4200 tokens prefilled in
-             4096-token chunks: its 4096 window cuts), Mixtral-8x7B-v0.1 at
+             Mistral-7B-v0.1 at 8 of 32 layers (prompts of 5000 and 4200
+             tokens prefilled in 4096-token chunks: its 4096 window cuts),
+             Mixtral-8x7B-v0.1 at
              4 of 32 layers, Qwen3-30B-A3B at 8 of 48 (G = 8) and Gemma-7B
              in float32 at 4 layers (gate 1e-3), each with its cut
              (``reduced``) in its line. Last, the Llama-computation
@@ -176,7 +185,21 @@ each (any failure raises and exits non-zero):
              (G = 6), GLM-4-9B (then fp8_e4m3 KV with the streaming
              decode), EXAONE-3.0-7.8B, Qwen-7B, Baichuan2-7B,
              Phi-3-medium-4k (prompts past its 2047 window) and
-             Granite-3.0-8B at full depth and Grok-1 at 4 of 64 layers.
+             Granite-3.0-8B at a quarter of their depth and Grok-1 at 4 of
+             64 layers.
+             Then the LayerNorm families from ``PUBLISHED_LN`` (their
+             aliases and class defaults read by ModelConfig's own table):
+             StarCoder (multi-query G = 48 on the aligned pool, three head
+             groups a KV head; phase 3 also with the streaming decode),
+             Falcon-7B (G = 71 over one 64-element slot row on the merged
+             pool, context 2048), StableLM-2-1.6B (the chunked pool at Hkv
+             32; also streamed) and GPT-2-large (the merged pool at Hkv 20,
+             1024 learned positions: context 1024, prompts under 960)
+             through phases 3, 3g and 4; phase 3 alone for phi-1_5,
+             aya-23-8B,
+             OLMo-2-1124-7B, OLMo-1B, Phi-3-small-8k at full depth and
+             DBRX at 4 of 40 layers. ``make_attentive`` lifts a LayerNorm's
+             weight ``.w`` and keeps its bias.
 3g. graphs — after each path's model phase (and its streaming one), at full
              width: one decode batch of 64 requests (kv 520-1000, shuffled
              pages) through the eager step (``decode_graphs`` off) and
@@ -257,7 +280,8 @@ each (any failure raises and exits non-zero):
              non-speculating serve on the same weights; each speculating
              serve's share of requests with its tokens, and the log-prob
              gap at each first difference, are printed, not gated.
-4a. 8B spec — Meta-Llama-3-8B at full width on the aligned pool with
+4a. 8B spec — Meta-Llama-3-8B at full width (16 of its 32 layers:
+             SPEC_LAYERS) on the aligned pool with
              fp8_e4m3 KV speculating with the EAGLE draft (a llama layer at
              its geometry over a one-layer 5D pool at head_dim 128, fp8
              too), as 4e: 3s, 3r, then EAGLE tree and chain serving the 32
@@ -296,7 +320,8 @@ each (any failure raises and exits non-zero):
 4f. f32 gate — the 1B-class model in float32 (8 requests x 32 tokens)
              served with the EAGLE tree and without speculation: the tokens
              must be equal.
-4n. nextn   — DeepSeek-V2-Lite at full width speculating with its NextN
+4n. nextn   — DeepSeek-V2-Lite at full width (14 of its 27 layers)
+             speculating with its NextN
              draft (one MoE layer mirroring the last, drawn from seed + 1,
              over a one-layer latent pool [1, 1, S, 1, 576]): one tree and
              one chain round kernels vs plain attention (``spec_model``
@@ -322,7 +347,8 @@ each (any failure raises and exits non-zero):
              8 requests of 4500-6000 prompt tokens x 32 greedy tokens)
              through the _256 kernels, then on the same engine through the
              plain attention: the tokens must be equal.
-4m. minicpm3 spec — MiniCPM3-4B at full width speculating with its NextN
+4m. minicpm3 spec — MiniCPM3-4B at full width (31 of its 62 layers)
+             speculating with its NextN
              draft (a dense layer mirroring the last, over a one-layer
              latent pool [1, 1, S, 1, 288]), as 4n: a tree and a chain
              round kernels vs plain, then NEXTN tree and chain serving the
@@ -336,7 +362,8 @@ each (any failure raises and exits non-zero):
              32 tokens) served with the NextN tree through the kernels,
              then on the same engine through the plain attention (target
              and draft pool): the tokens must be equal.
-4e. gemma2 spec — Gemma-2-9B at full width speculating with the EAGLE
+4e. gemma2 spec — Gemma-2-9B at full width (21 of its 42 layers)
+             speculating with the EAGLE
              draft (a llama layer at its geometry over a one-layer 5D pool
              at head_dim 256), as 4m with EAGLE tree and chain:
              rpa_extend_aligned_256 (the verify with softcap 50 and the
@@ -393,7 +420,18 @@ GEOMETRY = {"chunked": (32, 8, 64, 64), "aligned": (32, 8, 128, 128),
             # Baichuan2-13B's 40 / 40 with ALiBi (the aligned builds' ALiBi
             # instantiations)
             "aligned_g6": (48, 8, 128, 128), "aligned_g16": (32, 2, 128, 128),
-            "merged_h36": (36, 36, 64, 64), "aligned_alibi": (40, 40, 128, 128)}
+            "merged_h36": (36, 36, 64, 64), "aligned_alibi": (40, 40, 128, 128),
+            # the LayerNorm families: StarCoder's multi-query 48 / 1 at head_dim
+            # 128 (three head groups of 16 a KV head) and StarCoder2-7B's 36 /
+            # 4 (G = 9), Falcon-7B's 71 / 1 at 64 (a 64-element slot row on the
+            # merged pool, five head groups) and GPT-2-large's 20 / 20 on the
+            # merged pool, StableLM-2-1.6B's and phi-1_5's 32 / 32 at 64 on the
+            # chunked pool (a 4096-element slot row)
+            "aligned_g48": (48, 1, 128, 128), "aligned_g9": (36, 4, 128, 128),
+            "merged_g71": (71, 1, 64, 64), "merged_h20": (20, 20, 64, 64),
+            "chunked_h32": (32, 32, 64, 64)}
+# the chunked pools of GEOMETRY
+CHUNKED = ("chunked", "chunked_h32")
 
 # the build each pool of GEOMETRY runs (kernel_name's suffix)
 POOL_BUILD = {"chunked": "", "aligned": "_aligned", "merged": "_merged", "draft": "_merged",
@@ -401,7 +439,9 @@ POOL_BUILD = {"chunked": "", "aligned": "_aligned", "merged": "_merged", "draft"
               "aligned_g1": "_aligned", "aligned_g8": "_aligned",
               "aligned256_g1": "_aligned_256", "aligned_g6": "_aligned",
               "aligned_g16": "_aligned", "merged_h36": "_merged",
-              "aligned_alibi": "_aligned_alibi"}
+              "aligned_alibi": "_aligned_alibi", "aligned_g48": "_aligned",
+              "aligned_g9": "_aligned", "merged_g71": "_merged", "merged_h20": "_merged",
+              "chunked_h32": ""}
 
 # the latent pools' paths
 LATENT = ("latent", "latent288")
@@ -489,7 +529,7 @@ def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype, nan_dead=False):
         pt[b, :n] = perm[used:used + n]
         used += n
     dev = "cuda"
-    if pool == "chunked":
+    if pool in CHUNKED:
         shape = (1, total * PAGE, 2 * HKV * D // 128, 128)
     elif pool in LATENT:
         shape = (1, 1, total * PAGE, 1, D)
@@ -502,7 +542,7 @@ def make_case(gen, rng, q_lens, kv_lens, dtype, pool, kv_dtype, nan_dead=False):
             pos = np.arange(n)
             live[pt[b, pos // PAGE] * PAGE + pos % PAGE] = True
         dead = torch.as_tensor(~live, device=dev)
-        if pool == "chunked":
+        if pool in CHUNKED:
             kv[:, dead] = float("nan")
         else:
             kv[:, :, dead] = float("nan")
@@ -575,7 +615,7 @@ def run_kernel_case(name, kind, gen, rng, q_lens, kv_lens, dtype, pool="chunked"
         kw.update(v_dim=DV)
     if kind == "stream":  # no sliding window: the routing keeps it on the packed decode
         kw.pop("sliding_window")
-    if pool == "chunked":
+    if pool in CHUNKED:
         kw.update(num_kv_heads=HKV, head_dim=D)
         fns = {"decode": (rpa_packed.ragged_paged_attention_chunked_packed,
                           rpa_packed.decode_attention_plain),
@@ -1145,21 +1185,26 @@ GQA_FUNCTIONS = {("decode", "bfloat16"): "rpa_decode_mma_kernel",
                  ("extend", "float32"): "rpa_extend_kernel"}
 
 
-def gqa_function_props(kname, kind, dtype, kv_dtype, tree=False):
+def gqa_function_props(kname, kind, dtype, kv_dtype, tree=False, groups=False):
     """Registers and spill bytes (nvcc -Xptxas -v) of the function the GQA
     kernel ``kname`` runs for ``kind`` with q ``dtype`` over ``kv_dtype`` (an
     extend's TREE = ``tree`` instantiation; a decode's and an extend's
     ALIBI = true one where ``kname`` is an ALiBi instantiation, else its
-    ALIBI = false one)."""
+    ALIBI = false one; a bf16 decode's or stream's GROUPS = ``groups`` one,
+    which cuts G > 16 query heads a KV head into head groups)."""
     from semi_pd_tpu_torch.kernels import KERNELS
 
     k = KERNELS[kname]
     fn = GQA_FUNCTIONS[kind, dtype_name(dtype)]
     # with bf16 q the KV type is the template's first argument
     want = fn + ("I" if dtype_name(dtype) == "float32" else MANGLED_ROWS[dtype_name(kv_dtype)])
-    # the last template arguments: the extend's TREE, then ALIBI (decode and extend)
-    alibi = int(k.library is not None)
-    tag = {"extend": f"Lb{int(tree)}ELb{alibi}EE", "decode": f"Lb{alibi}EE"}.get(kind, "")
+    # the last template arguments: the extend's TREE, then ALIBI (decode and
+    # extend), then the bf16 decode's and stream's GROUPS
+    alibi, g = int(k.library is not None), int(groups)
+    bf16 = dtype_name(dtype) == "bfloat16"
+    tag = {"extend": f"Lb{int(tree)}ELb{alibi}EE",
+           "decode": f"Lb{alibi}E" + (f"Lb{g}EE" if bf16 else "E"),
+           "stream": f"Lb{g}EE" if bf16 else ""}[kind]
     props = ptxas_summary(k.build_log)
     return next((dict(function=f, **p) for f, p in props.items() if want in f and tag in f),
                 {})
@@ -1303,6 +1348,65 @@ def phase_kernels_variants():
                 beside["packed_kernel_ms"] = packed[pool, dt, kdt]
             rows.append(run_kernel_case(name, kind, gen, rng, ql, kl, dt, pool, kdt,
                                         beside=beside, nan_dead=True))
+            if kind == "decode":
+                packed[pool, dt, kdt] = rows[-1]["kernel_ms"]
+    return rows
+
+
+# -------------------------- phase 2, the LayerNorm families' attention
+def phase_kernels_layernorm():
+    """Phase 2 at the attention of the LayerNorm families, after every other
+    case (so that those draw the inputs they drew before), every dead slot
+    NaN, decode b64 / kv 512-1024 and extend b8 x q256 / kv2048, bf16 and
+    e4m3 KV under bf16 q: StarCoder's multi-query 48 / 1 through the
+    aligned packed and streaming decode (three head groups of 16 a KV head,
+    each reading the KV head's tiles) and extend; StarCoder2-7B's 36 / 4
+    through the aligned decode and extend, also with its 4096 window where
+    it cuts (decode over kv 4500-6000, extend b2 x q2048 over 6000);
+    Falcon-7B's 71 / 1 (five head groups over
+    one 64-element slot row) and GPT-2-large's 20 / 20 through the merged
+    decode and extend; StableLM-2-1.6B's 32 / 32 through the chunked
+    decode, stream and extend. Each row carries its function's registers
+    and spills, G, its head groups and SDPA's time."""
+    import torch
+
+    from semi_pd_tpu_torch.kernels import KERNELS
+    from semi_pd_tpu_torch.ops.attention import rpa_packed
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    rng = np.random.default_rng(23)
+    bf, e4m3 = torch.bfloat16, torch.float8_e4m3fn
+    lens = rng.integers(512, 1025, size=64)
+    lens[0], lens[-1] = 1024, 0  # one padded row
+    dec = ("decode_b64_kv1024", [1] * 64, lens.tolist())
+    ext = ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8)
+    plan = [(pool, kind, dec if kind != "extend" else ext, None) for pool, kinds in (
+        ("aligned_g48", ("decode", "stream", "extend")), ("aligned_g9", ("decode", "extend")),
+        ("merged_g71", ("decode", "extend")), ("merged_h20", ("decode", "extend")),
+        ("chunked_h32", ("decode", "stream", "extend"))) for kind in kinds]
+    # StarCoder2-7B's 4096 window where it cuts: the decode over kv
+    # 4500-6000, the extend of two 2048-token chunks over 6000
+    long_lens = rng.integers(4500, 6001, size=64)
+    long_lens[0] = 6000
+    plan += [("aligned_g9", "decode", ("decode_b64_kv4500_6000", [1] * 64, long_lens.tolist()),
+              4096),
+             ("aligned_g9", "extend", ("extend_b2_q2048_kv6000", [2048] * 2, [6000] * 2), 4096)]
+    rows, packed = [], {}
+    for pool, kind, (name, ql, kl), window in plan:
+        if window:
+            name += f"_window{window}"
+        for dt, kdt in ((bf, bf), (bf, e4m3)):
+            kname = kernel_name(kind, pool)
+            HQ, HKV = GEOMETRY[pool][:2]
+            beside = gqa_function_props(kname, kind, dt, kdt, groups=HQ // HKV > 16)
+            beside["G"] = HQ // HKV
+            beside["head_groups"] = rpa_packed.head_groups(KERNELS[kname], HQ, HKV)
+            if kind == "stream":
+                beside["packed_kernel_ms"] = packed[pool, dt, kdt]
+            rows.append(run_kernel_case(name, kind, gen, rng, ql, kl, dt, pool, kdt,
+                                        window=window, beside=beside, nan_dead=True,
+                                        library_always=True))
             if kind == "decode":
                 packed[pool, dt, kdt] = rows[-1]["kernel_ms"]
     return rows
@@ -1604,15 +1708,110 @@ PUBLISHED = {
         rms_norm_eps=1e-5, torch_dtype="bfloat16", vocab_size=131072),
 }
 
+# The LayerNorm families (ROADMAP A14: the JAX package's
+# layernorm_families.py, gpt2.py, olmo_falcon_dbrx.py), typed in as above.
+# The JAX package reads these through transformers' config classes, whose
+# aliases (GPT-2's n_embd, DBRX's d_model) and defaults a dict lacks:
+# ModelConfig.from_hf_config keeps its own table of both
+# (HF_ALIASES, HF_DEFAULTS). Phi-3-small's config (remote code, no
+# transformers class) names its MLP width ff_intermediate_size, which
+# neither package reads (ROADMAP C); its dummy_token_indices is a property
+# of the remote class, not a key, so neither package masks them here.
+PUBLISHED_LN = {
+    "bigcode/starcoder": dict(
+        activation_function="gelu", architectures=["GPTBigCodeForCausalLM"],
+        attention_softmax_in_fp32=True, bos_token_id=0, eos_token_id=0,
+        layer_norm_epsilon=1e-5, model_type="gpt_bigcode", multi_query=True, n_embd=6144,
+        n_head=48, n_inner=24576, n_layer=40, n_positions=8192,
+        scale_attention_softmax_in_fp32=True, scale_attn_weights=True,
+        torch_dtype="float32", vocab_size=49152),
+    "tiiuae/falcon-7b": dict(
+        alibi=False, apply_residual_connection_post_layernorm=False,
+        architectures=["FalconForCausalLM"], bias=False, bos_token_id=11, eos_token_id=11,
+        hidden_size=4544, layer_norm_epsilon=1e-5, model_type="falcon", multi_query=True,
+        new_decoder_architecture=False, num_attention_heads=71, num_hidden_layers=32,
+        parallel_attn=True, torch_dtype="bfloat16", vocab_size=65024),
+    "stabilityai/stablelm-2-1_6b": dict(
+        architectures=["StableLmForCausalLM"], bos_token_id=100257, eos_token_id=100257,
+        hidden_act="silu", hidden_size=2048, intermediate_size=5632, layer_norm_eps=1e-5,
+        max_position_embeddings=4096, model_type="stablelm", num_attention_heads=32,
+        num_hidden_layers=24, num_key_value_heads=32, partial_rotary_factor=0.25,
+        qk_layernorm=False, rope_scaling=None, rope_theta=10000, tie_word_embeddings=False,
+        torch_dtype="bfloat16", use_parallel_residual=False, use_qkv_bias=True,
+        vocab_size=100352),
+    "openai-community/gpt2-large": dict(
+        activation_function="gelu_new", architectures=["GPT2LMHeadModel"],
+        bos_token_id=50256, eos_token_id=50256, layer_norm_epsilon=1e-5, model_type="gpt2",
+        n_ctx=1024, n_embd=1280, n_head=20, n_layer=36, n_positions=1024,
+        vocab_size=50257),
+    "bigcode/starcoder2-7b": dict(
+        architectures=["Starcoder2ForCausalLM"], bos_token_id=0, eos_token_id=0,
+        hidden_act="gelu_pytorch_tanh", hidden_size=4608, intermediate_size=18432,
+        max_position_embeddings=16384, mlp_type="default", model_type="starcoder2",
+        norm_epsilon=1e-5, norm_type="layer_norm", num_attention_heads=36,
+        num_hidden_layers=32, num_key_value_heads=4, rope_theta=1000000,
+        sliding_window=4096, torch_dtype="bfloat16", use_bias=True, vocab_size=49152),
+    "microsoft/phi-1_5": dict(
+        architectures=["PhiForCausalLM"], hidden_act="gelu_new", hidden_size=2048,
+        intermediate_size=8192, layer_norm_eps=1e-5, max_position_embeddings=2048,
+        model_type="phi", num_attention_heads=32, num_hidden_layers=24,
+        num_key_value_heads=None, partial_rotary_factor=0.5, qk_layernorm=False,
+        rope_scaling=None, rope_theta=10000.0, tie_word_embeddings=False,
+        torch_dtype="float16", vocab_size=51200),
+    "CohereForAI/aya-23-8B": dict(
+        architectures=["CohereForCausalLM"], attention_bias=False, bos_token_id=5,
+        eos_token_id=255001, hidden_act="silu", hidden_size=4096, intermediate_size=14336,
+        layer_norm_eps=1e-5, logit_scale=0.0625, max_position_embeddings=8192,
+        model_type="cohere", num_attention_heads=32, num_hidden_layers=32,
+        num_key_value_heads=8, pad_token_id=0, rope_theta=10000, torch_dtype="float16",
+        use_qk_norm=False, vocab_size=256000),
+    "allenai/OLMo-2-1124-7B": dict(
+        architectures=["Olmo2ForCausalLM"], attention_bias=False, eos_token_id=100257,
+        hidden_act="silu", hidden_size=4096, intermediate_size=11008,
+        max_position_embeddings=4096, model_type="olmo2", num_attention_heads=32,
+        num_hidden_layers=32, num_key_value_heads=32, pad_token_id=100277,
+        rms_norm_eps=1e-6, rope_scaling=None, rope_theta=500000,
+        tie_word_embeddings=False, torch_dtype="float32", vocab_size=100352),
+    "allenai/OLMo-1B-hf": dict(
+        architectures=["OlmoForCausalLM"], attention_bias=False, clip_qkv=None,
+        eos_token_id=50279, hidden_act="silu", hidden_size=2048, intermediate_size=8192,
+        max_position_embeddings=2048, model_type="olmo", num_attention_heads=16,
+        num_hidden_layers=16, num_key_value_heads=16, pad_token_id=1, rope_scaling=None,
+        rope_theta=10000.0, tie_word_embeddings=True, torch_dtype="float32",
+        vocab_size=50304),
+    "microsoft/Phi-3-small-8k-instruct": dict(
+        architectures=["Phi3SmallForCausalLM"], blocksparse_block_size=64,
+        blocksparse_homo_head_pattern=False, blocksparse_num_local_blocks=16,
+        blocksparse_triton_kernel_block_size=64, blocksparse_vert_stride=8,
+        bos_token_id=100257, dense_attention_every_n_layers=2, eos_token_id=100257,
+        ff_dim_multiplier=None, ff_intermediate_size=14336, gegelu_limit=20.0,
+        gegelu_pad_to_256=True, hidden_act="gegelu", hidden_size=4096,
+        layer_norm_epsilon=1e-5, max_position_embeddings=8192, model_type="phi3small",
+        mup_attn_multiplier=1.0, mup_embedding_multiplier=10.0, mup_use_scaling=True,
+        mup_width_multiplier=8.0, num_attention_heads=32, num_hidden_layers=32,
+        num_key_value_heads=8, pad_sequence_to_multiple_of_64=True,
+        rope_embedding_base=1000000, rope_position_scale=1.0, rope_scaling=None,
+        torch_dtype="bfloat16", vocab_size=100352),
+    "databricks/dbrx-base": dict(
+        architectures=["DbrxForCausalLM"],
+        attn_config=dict(clip_qkv=8, kv_n_heads=8, rope_theta=500000),
+        d_model=6144,
+        ffn_config=dict(ffn_hidden_size=10752, moe_jitter_eps=0, moe_num_experts=16,
+                        moe_top_k=4),
+        max_seq_len=32768, model_type="dbrx", n_heads=48, n_layers=40,
+        tie_word_embeddings=False, torch_dtype="bfloat16", vocab_size=100352),
+}
+
 
 def published_config(repo: str, context_length: int = 8192, **kw):
-    """``repo``'s published config.json (PUBLISHED) through
+    """``repo``'s published config.json (PUBLISHED or PUBLISHED_LN) through
     ``ModelConfig.from_hf_config`` at ``context_length`` (the pool and the
     rope table need no more), bf16; ``kw`` overrides fields (a cut depth,
     the float32 gates)."""
     from semi_pd_tpu_torch.config.model_config import ModelConfig
 
-    cfg = ModelConfig.from_hf_config(PUBLISHED[repo], context_length=context_length)
+    hf = PUBLISHED[repo] if repo in PUBLISHED else PUBLISHED_LN[repo]
+    cfg = ModelConfig.from_hf_config(hf, context_length=context_length)
     for k, v in kw.items():
         setattr(cfg, k, v)
     return cfg
@@ -1677,6 +1876,8 @@ def expected_launches(runner, pool, stream, steps):
 # sandwich norm on the attention's output of Glm4 and Grok-1, whose 0.02
 # weights would hide the attention beside Grok-1's embedding x 78.5)
 ATTN_NORMS = ("input_norm", "q_norm", "k_norm", "kv_norm", "post_attn_sandwich")
+# (the LayerNorm families' {"w", "b"} norms: their weight ``.w`` is lifted,
+# their bias kept)
 
 
 def make_attentive(model):
@@ -1688,13 +1889,21 @@ def make_attentive(model):
     scale is below head_dim ** -0.5 (Granite's attention_multiplier of
     1/128, a ninth of it) gets its norms at sqrt(head_dim ** -0.5 /
     scale) instead: q and k grow by that, the scores by its square, to a
-    Llama's spread. Returns the leaves' old values for ``restore``."""
+    Llama's spread. A model narrower than 2048 (GPT-2-large's 1280) gets
+    them times sqrt(4096 / hidden): q and k sum 0.02 N(0, 1) weights over
+    fewer inputs, and the scores' spread (hidden x 0.0004 at unit
+    inputs) is that of a 4096-wide model again. Returns the leaves' old
+    values for ``restore``."""
     gemma = type(model).__name__.startswith("Gemma")
     D, scale = getattr(model, "head_dim", None), getattr(model, "scale", None)
     level = math.sqrt(D ** -0.5 / scale) if D and scale and scale < D ** -0.5 else 1.0
+    H = model.config.hidden_size
+    if H < 2048:
+        level *= math.sqrt(4096 / H)
     saved = {}
     for path, _ in model.param_specs():
-        if path.split(".")[-1] in ATTN_NORMS:
+        keys = path.split(".")
+        if keys[-1] in ATTN_NORMS or (keys[-1] == "w" and keys[-2] in ATTN_NORMS):
             leaf = model.leaf(path)
             saved[path] = leaf.detach().clone()
             leaf.data.fill_(0.0 if gemma else level)
@@ -1795,10 +2004,14 @@ def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=
                                      / span) for name, fn in (("zero", zeroed),
                                                                ("scale2x", scaled))}
                 agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+                # the plain logits' closest top-2 gap over the rows, in the
+                # gate's measure: an argmax that rel_err can flip is a near tie
+                top2 = lp.topk(2, dim=-1).values
+                gap = float((top2[:, 0] - top2[:, 1]).min() / span)
                 worst = max(worst, rel)
                 steps.append(dict(mode=hb.mode.value, T=hb.T, B=n,
                                   kv_max=int(hb.kv_lens.max()), rel_err=rel,
-                                  argmax_agree=agree, moves=moves))
+                                  argmax_agree=agree, top2_gap=gap, moves=moves))
                 toks = lk.argmax(-1).tolist()
                 for i, (r, t) in enumerate(zip(rs, toks)):
                     if admitted:
@@ -2069,6 +2282,10 @@ SPEC_GAIN = {"ngram": 1.0, "chain": EMBED_GAIN, "tree": EMBED_GAIN}
 LLAMA3_8B_GAIN = 10.0
 # the float32 V2-Lite gate's depth: its dense layer and three MoE layers
 NEXTN_F32_LAYERS = 4
+# the speculating phases' target depths (4n, 4a, 4m, 4e), half of each
+# model's (their main paths serve at full depth): the script's whole run has
+# to stay inside its time limit as the families grow
+SPEC_LAYERS = {"deepseek": 14, "llama3_8b": 16, "minicpm3": 31, "gemma2": 21}
 
 
 def make_predictive(runner, gain=EMBED_GAIN):
@@ -3195,6 +3412,9 @@ def main() -> int:
     rows += phase_kernels_heads()
     # G = 6 and 16, the merged builds at Hkv 36, the ALiBi instantiations
     rows += phase_kernels_variants()
+    # the LayerNorm families' heads: G = 48, 9 and 71 (head groups past 16),
+    # the merged pool at Hkv 20, the chunked pool at Hkv 32
+    rows += phase_kernels_layernorm()
     print("kernels_phase " + json.dumps(dict(cases=len(rows) + len(spec_rows),
                                              seconds=time.monotonic() - t0)), flush=True)
 
@@ -3384,7 +3604,7 @@ def main() -> int:
                                  f"serve's ({same:.3f} of requests the same)")
 
     def target_spec_phase(phase, label, cfg, algos, eager=False, gain=EMBED_GAIN,
-                          fallback_tokenizer=None, **kw):
+                          fallback_tokenizer=None, reduced=None, **kw):
         """A full-width target speculating with its draft (EAGLE's or
         NextN's, as the runner picks it), each algorithm of ``algos`` (the
         tree first) on an Engine of its own on predictive weights (the
@@ -3434,15 +3654,17 @@ def main() -> int:
                 spec_fallback_serve(eng, algo, prompts_for(cfg.vocab_size, 1024)[:8],
                                     main_launches, smi, label)
             release(eng)
-        print(phase + " " + json.dumps(dict(model=label, seconds=time.monotonic() - t0)),
+        print(phase + " " + json.dumps(dict(model=label, reduced=reduced,
+                                            seconds=time.monotonic() - t0)),
               flush=True)
 
     def nextn_phase():
         """Phase 4n: DeepSeek-V2-Lite at full width speculating with NextN
         (one MoE layer, its latent draft pool), NEXTN tree and chain."""
         target_spec_phase("nextn_phase", "deepseek-v2-lite nextn",
-                          deepseek_v2_lite_config(),
-                          ("nextn_tree", "nextn_chain"), eager=True)
+                          deepseek_v2_lite_config(num_hidden_layers=SPEC_LAYERS["deepseek"]),
+                          ("nextn_tree", "nextn_chain"), eager=True,
+                          reduced=f"{SPEC_LAYERS['deepseek']} of 27 layers")
 
     def spec_plain_gate(label, cfg, algo, prompts, max_total_tokens):
         """Phases 4af, 4mf and 4ef: a tree serve of ``prompts`` (32 greedy tokens
@@ -3609,9 +3831,12 @@ def main() -> int:
     # and chain (phases 3s, 3r, 4a; the tree engine also serves a regex
     # request, which falls back to plain decode), then its float32 gate at 4
     # layers (4af)
+    cfg = llama3_8b_config()
+    cfg.num_hidden_layers = SPEC_LAYERS["llama3_8b"]
     target_spec_phase("llama3_8b_spec_phase", "meta-llama-3-8b eagle fp8_e4m3",
-                      llama3_8b_config(), ("tree", "chain"), gain=LLAMA3_8B_GAIN,
-                      fallback_tokenizer=tok8b, kv_cache_dtype="fp8_e4m3")
+                      cfg, ("tree", "chain"), gain=LLAMA3_8B_GAIN,
+                      fallback_tokenizer=tok8b, kv_cache_dtype="fp8_e4m3",
+                      reduced=f"{SPEC_LAYERS['llama3_8b']} of 32 layers")
     cfg = llama3_8b_config()
     cfg.dtype, cfg.num_hidden_layers = "float32", 4
     spec_plain_gate("meta-llama-3-8b float32 4 layers eagle tree", cfg, "tree",
@@ -3672,13 +3897,16 @@ def main() -> int:
     # verify takes the _288 and the _256 extend's TREE instantiations: NextN
     # on MiniCPM3-4B (phases 4m, 4mf) and EAGLE on Gemma-2-9B (4e, 4ef); the
     # float32 gates at 4 layers, Gemma-2's with prompts past its window
-    target_spec_phase("minicpm3_spec_phase", "minicpm3-4b nextn", minicpm3_4b_config(),
-                      ("nextn_tree", "nextn_chain"))
+    target_spec_phase("minicpm3_spec_phase", "minicpm3-4b nextn",
+                      minicpm3_4b_config(num_hidden_layers=SPEC_LAYERS["minicpm3"]),
+                      ("nextn_tree", "nextn_chain"),
+                      reduced=f"{SPEC_LAYERS['minicpm3']} of 62 layers")
     cfg = minicpm3_4b_config(dtype="float32", num_hidden_layers=4)
     spec_plain_gate("minicpm3-4b float32 4 layers nextn tree", cfg, "nextn_tree",
                     prompts_for(cfg.vocab_size, 1024)[:8], 32768)
-    target_spec_phase("gemma2_spec_phase", "gemma-2-9b eagle", gemma2_9b_config(),
-                      ("tree", "chain"))
+    target_spec_phase("gemma2_spec_phase", "gemma-2-9b eagle",
+                      gemma2_9b_config(num_hidden_layers=SPEC_LAYERS["gemma2"]),
+                      ("tree", "chain"), reduced=f"{SPEC_LAYERS['gemma2']} of 42 layers")
     rng = np.random.default_rng(6)
     spec_plain_gate("gemma-2-9b float32 4 layers eagle tree",
                     gemma2_9b_config(num_hidden_layers=4, dtype="float32"), "tree",
@@ -3688,9 +3916,14 @@ def main() -> int:
     # the Llama-family strings, Gemma-1 and the GQA MoE families at full
     # width and depth, from their published config.json (PUBLISHED): phases
     # 3, 3g and 4, each model phase once more on attentive weights (C15)
-    def family_path(label, cfg, kv_dtype, pool, tokens=131072, stream=False, max_len=3072):
-        eng = model_phase(label, cfg, kv_dtype, tokens=tokens)
-        model_phase(label, None, kv_dtype, eng=eng, attentive=True)
+    def family_path(label, cfg, kv_dtype, pool, tokens=131072, stream=False, max_len=3072,
+                    lens=(700, 300, 1500, 37), model_stream=False):
+        """Phases 3 (raw and attentive weights), 3g and 4; ``stream``: Path S
+        too; ``model_stream``: phase 3 once more with decode_stream."""
+        eng = model_phase(label, cfg, kv_dtype, tokens=tokens, lens=lens)
+        model_phase(label, None, kv_dtype, eng=eng, attentive=True, lens=lens)
+        if model_stream:
+            model_phase(label, None, kv_dtype, eng=eng, stream=True, lens=lens)
         graph_phase(eng, label, pool)
         packed = serve_phase(eng, label, pool, max_len=max_len)
         if stream:
@@ -3710,10 +3943,10 @@ def main() -> int:
     family_path("olmoe-1b-7b", published_config("allenai/OLMoE-1B-7B-0924", context_length=4096),
                 "auto", "aligned")
 
-    # phase 3 alone at published widths: Mistral-7B at full depth with
-    # prompts past its 4096 window (prefilled in chunks of 4096: the window
-    # cuts in the second chunk and in decode), Mixtral-8x7B and
-    # Qwen3-30B-A3B at cut depths
+    # phase 3 alone at published widths and cut depths: Mistral-7B at 8 of 32
+    # layers with prompts past its 4096 window (prefilled in chunks of 4096:
+    # the window cuts in the second chunk and in decode), Mixtral-8x7B and
+    # Qwen3-30B-A3B
     def model_only(label, cfg, reduced=None, lens=(700, 300, 1500, 37), gate=MODEL_GATE,
                    tokens=131072):
         eng = model_phase(label, cfg, "auto", reduced=reduced, lens=lens, gate=gate,
@@ -3722,8 +3955,9 @@ def main() -> int:
                     gate=gate)
         release(eng)
 
-    model_only("mistral-7b-v0.1", published_config("mistralai/Mistral-7B-v0.1"),
-               lens=(5000, 4200, 1500, 37))
+    model_only("mistral-7b-v0.1", published_config("mistralai/Mistral-7B-v0.1",
+                                                   num_hidden_layers=8),
+               lens=(5000, 4200, 1500, 37), reduced="8 of 32 layers")
     model_only("mixtral-8x7b-v0.1", published_config("mistralai/Mixtral-8x7B-v0.1",
                                                      num_hidden_layers=4),
                reduced="4 of 32 layers (the whole model is 93 GB in bf16)")
@@ -3757,26 +3991,67 @@ def main() -> int:
     # (score) through the kernels against the plain attention
     reward_phase("internlm2-7b-reward", published_config("internlm/internlm2-7b-reward"),
                  main_launches, smi)
-    # phase 3 alone, full depth: InternLM2-20B (G = 6), GLM-4-9B (G = 16;
-    # then fp8_e4m3 KV through the streaming decode), EXAONE-3.0-7.8B,
-    # Qwen-7B and Baichuan2-7B (multi-head: 512 KiB of bf16 KV a token, so
-    # 65536-token pools), Phi-3-medium-4k (prompts past its 2047 window),
-    # Granite-3.0-8B (its four multipliers); Grok-1 at 4 of 64 layers
-    model_only("internlm2-20b", published_config("internlm/internlm2-20b"), tokens=65536)
-    glm4 = published_config("THUDM/glm-4-9b-chat")
-    model_only("glm-4-9b-chat", glm4)
-    release(model_phase("glm-4-9b-chat fp8_e4m3", glm4, "fp8_e4m3", stream=True))
-    model_only("exaone-3.0-7.8b", published_config("LGAI-EXAONE/EXAONE-3.0-7.8B-Instruct"))
-    model_only("qwen-7b", published_config("Qwen/Qwen-7B"), tokens=65536)
-    model_only("baichuan2-7b", published_config("baichuan-inc/Baichuan2-7B-Base",
-                                                context_length=4096), tokens=65536)
-    model_only("phi-3-medium-4k", published_config("microsoft/Phi-3-medium-4k-instruct",
-                                                   context_length=4096),
-               lens=(2600, 300, 1500, 37))
-    model_only("granite-3.0-8b", published_config("ibm-granite/granite-3.0-8b-instruct",
-                                                  context_length=4096))
+    # phase 3 alone at a quarter of their depth (the script's run has to stay
+    # inside its time limit as the families grow): InternLM2-20B (G = 6),
+    # GLM-4-9B (G = 16; then fp8_e4m3 KV through the streaming decode),
+    # EXAONE-3.0-7.8B, Qwen-7B and Baichuan2-7B (multi-head: 512 KiB of bf16
+    # KV a token, so 65536-token pools), Phi-3-medium-4k (prompts past its
+    # 2047 window), Granite-3.0-8B (its four multipliers); Grok-1 at 4 of 64
+    # layers
+    def cut(repo, of, **kw):
+        """``repo``'s published config at a quarter of its ``of`` layers."""
+        return published_config(repo, num_hidden_layers=of // 4, **kw), f"{of // 4} of {of} layers"
+
+    cfg, red = cut("internlm/internlm2-20b", 48)
+    model_only("internlm2-20b", cfg, reduced=red, tokens=65536)
+    glm4, red = cut("THUDM/glm-4-9b-chat", 40)
+    model_only("glm-4-9b-chat", glm4, reduced=red)
+    release(model_phase("glm-4-9b-chat fp8_e4m3", glm4, "fp8_e4m3", stream=True, reduced=red))
+    model_only("exaone-3.0-7.8b", *cut("LGAI-EXAONE/EXAONE-3.0-7.8B-Instruct", 32))
+    cfg, red = cut("Qwen/Qwen-7B", 32)
+    model_only("qwen-7b", cfg, reduced=red, tokens=65536)
+    cfg, red = cut("baichuan-inc/Baichuan2-7B-Base", 32, context_length=4096)
+    model_only("baichuan2-7b", cfg, reduced=red, tokens=65536)
+    cfg, red = cut("microsoft/Phi-3-medium-4k-instruct", 40, context_length=4096)
+    model_only("phi-3-medium-4k", cfg, reduced=red, lens=(2600, 300, 1500, 37))
+    model_only("granite-3.0-8b", *cut("ibm-granite/granite-3.0-8b-instruct", 40,
+                                      context_length=4096))
     model_only("grok-1", published_config("xai-org/grok-1", num_hidden_layers=4),
                reduced="4 of 64 layers (one layer's experts are 9.7 GB in bf16)")
+
+    # the LayerNorm families (the JAX package's layernorm_families.py,
+    # gpt2.py, olmo_falcon_dbrx.py) from their published config.json
+    # (PUBLISHED_LN), served at full depth through phases 3, 3g and 4:
+    # StarCoder (multi-query G = 48 on the aligned pool: three head groups
+    # a KV head; 31 GB of weights; phase 3 also with decode_stream),
+    # Falcon-7B (G = 71 over one 64-element slot row on the merged pool,
+    # parallel attention), StableLM-2-1.6B (the chunked pool at Hkv 32;
+    # phase 3 also streamed), GPT-2-large (the merged pool at Hkv 20, its
+    # 1024 learned positions: context 1024, prompts under it)
+    family_path("starcoder", published_config("bigcode/starcoder"), "auto", "aligned",
+                model_stream=True)
+    family_path("falcon-7b", published_config("tiiuae/falcon-7b", context_length=2048),
+                "auto", "merged", max_len=2048 - 64)
+    family_path("stablelm-2-1.6b", published_config("stabilityai/stablelm-2-1_6b",
+                                                    context_length=4096),
+                "auto", "chunked", model_stream=True)
+    family_path("gpt2-large", published_config("openai-community/gpt2-large",
+                                               context_length=1024),
+                "auto", "merged", max_len=1024 - 64, lens=(700, 300, 900, 37))
+    # phase 3 alone, full depth: phi-1_5 (parallel block, chunked pool),
+    # aya-23-8B (Cohere: 256000 vocab, tied, logit scale 1/16), OLMo-2-7B
+    # (G = 1, full-width q/k norms; multi-head: 512 KiB of bf16 KV a token,
+    # so a 65536-token pool), OLMo-1B, Phi-3-small-8k (muP, gegelu);
+    # DBRX at 4 of 40 layers (16 experts top-4, clip_qkv 8, G = 6)
+    model_only("phi-1_5", published_config("microsoft/phi-1_5", context_length=2048),
+               lens=(700, 300, 1500, 37))
+    model_only("aya-23-8b", published_config("CohereForAI/aya-23-8B"))
+    model_only("olmo-2-1124-7b", published_config("allenai/OLMo-2-1124-7B",
+                                                  context_length=4096), tokens=65536)
+    model_only("olmo-1b", published_config("allenai/OLMo-1B-hf", context_length=2048))
+    model_only("phi-3-small-8k", published_config("microsoft/Phi-3-small-8k-instruct"))
+    model_only("dbrx-base", published_config("databricks/dbrx-base", num_hidden_layers=4),
+               reduced="4 of 40 layers (one layer's experts are 6.3 GB in bf16)")
 
     # 5. the kernels line: each kernel's case at its path's representative
     # shape and types (the 8B path serves with fp8_e4m3 KV); every kernel

@@ -9,7 +9,10 @@ its three scalings) and the Llama-computation variants of the JAX
 package's models/llama_variants.py, glm.py, phi3.py, granite.py and
 grok.py (InternLM2 and its reward model, ExaOne, Baichuan, QWen v1,
 MiniCPM, XverseMoe, DeepSeek-V1, Glm, Glm4, ChatGLM, Phi-3, Granite,
-Grok-1). ``from_hf_config`` reads a HuggingFace
+Grok-1), and the LayerNorm families of layernorm_families.py, gpt2.py and
+olmo_falcon_dbrx.py (StableLM, Starcoder2, Phi, Cohere, OLMo-2,
+Phi-3-small, GPT-2, GPT-BigCode, OLMo-1, Falcon, DBRX). ``from_hf_config``
+reads a HuggingFace
 ``config.json`` (a dict, or any object with its keys as attributes) for
 these architectures by the JAX package's rules; ``from_model_path`` and
 the multimodal fields are not part of the port (ROADMAP A13-A14). Configs
@@ -39,7 +42,74 @@ BUILD_KEYS = {
     **{a: ("attn_logit_softcapping", "router_logit_softcapping",
            "embedding_multiplier_scale", "output_multiplier_scale")
        for a in ("Grok1ForCausalLM", "Grok1ModelForCausalLM")},
+    # the LayerNorm families (the JAX package's layernorm_families.py,
+    # gpt2.py, olmo_falcon_dbrx.py)
+    "StableLmForCausalLM": ("use_qkv_bias",),
+    "StableLmEpochForCausalLM": ("use_qkv_bias",),
+    "Starcoder2ForCausalLM": ("use_bias",),
+    "CohereForCausalLM": ("logit_scale",),
+    "Phi3SmallForCausalLM": ("mup_use_scaling", "mup_attn_multiplier",
+                             "mup_embedding_multiplier", "mup_width_multiplier",
+                             "gegelu_limit", "dummy_token_indices"),
+    "GPTBigCodeForCausalLM": ("activation_function",),
+    "OlmoForCausalLM": ("clip_qkv",),
+    **{a: ("parallel_attn", "bias", "new_decoder_architecture", "alibi")
+       for a in ("FalconForCausalLM", "RWForCausalLM")},
 }
+# What a HuggingFace config class resolves and a config.json dict does not
+# (the JAX package reads these families through transformers' classes):
+# other names of a key (the class's attribute_map, or a key its __init__
+# takes for another, as FalconConfig's n_embed), by architecture
+HF_ALIASES = {
+    **{a: {"n_embd": "hidden_size", "n_head": "num_attention_heads",
+           "n_layer": "num_hidden_layers", "n_positions": "max_position_embeddings"}
+       for a in ("GPT2LMHeadModel", "GPTBigCodeForCausalLM")},
+    **{a: {"n_embed": "hidden_size"} for a in ("FalconForCausalLM", "RWForCausalLM")},
+    "DbrxForCausalLM": {"d_model": "hidden_size", "n_heads": "num_attention_heads",
+                        "n_layers": "num_hidden_layers", "max_seq_len": "max_position_embeddings"},
+}
+# and the class's defaults of the keys read here, where they differ from this
+# module's own fallbacks (transformers' StableLmConfig, Starcoder2Config,
+# PhiConfig, CohereConfig, Olmo2Config, GPT2Config, GPTBigCodeConfig,
+# OlmoConfig, FalconConfig, DbrxConfig)
+_STABLELM = dict(vocab_size=50304, hidden_size=2560, intermediate_size=6912,
+                 layer_norm_eps=1e-5, partial_rotary_factor=0.25, use_qkv_bias=False)
+_GPT2 = dict(vocab_size=50257, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+             layer_norm_epsilon=1e-5, tie_word_embeddings=True, max_position_embeddings=1024)
+_FALCON = dict(vocab_size=65024, hidden_size=4544, num_attention_heads=71,
+               layer_norm_epsilon=1e-5, tie_word_embeddings=True, max_position_embeddings=2048,
+               multi_query=True, parallel_attn=True, bias=False,
+               new_decoder_architecture=False, alibi=False)
+HF_DEFAULTS = {
+    "StableLmForCausalLM": _STABLELM,
+    "StableLmEpochForCausalLM": _STABLELM,
+    "Starcoder2ForCausalLM": dict(vocab_size=49152, hidden_size=3072, intermediate_size=12288,
+                                  num_hidden_layers=30, num_attention_heads=24,
+                                  num_key_value_heads=2, norm_epsilon=1e-5,
+                                  hidden_act="gelu_pytorch_tanh", tie_word_embeddings=True,
+                                  use_bias=True),
+    "PhiForCausalLM": dict(vocab_size=51200, hidden_size=2048, intermediate_size=8192,
+                           num_hidden_layers=24, layer_norm_eps=1e-5, hidden_act="gelu_new",
+                           max_position_embeddings=2048, partial_rotary_factor=0.5),
+    "CohereForCausalLM": dict(vocab_size=256000, hidden_size=8192, intermediate_size=22528,
+                              num_hidden_layers=40, num_attention_heads=64,
+                              layer_norm_eps=1e-5, tie_word_embeddings=True,
+                              max_position_embeddings=8192, logit_scale=0.0625),
+    "Olmo2ForCausalLM": dict(vocab_size=50304, intermediate_size=11008, rms_norm_eps=1e-5,
+                             max_position_embeddings=2048),
+    "GPT2LMHeadModel": dict(_GPT2, activation_function="gelu_new"),
+    "GPTBigCodeForCausalLM": dict(_GPT2, multi_query=True,
+                                  activation_function="gelu_pytorch_tanh"),
+    "OlmoForCausalLM": dict(vocab_size=50304, intermediate_size=11008,
+                            max_position_embeddings=2048),
+    "FalconForCausalLM": _FALCON,
+    "RWForCausalLM": _FALCON,
+    "DbrxForCausalLM": dict(hidden_size=2048, num_hidden_layers=24, num_attention_heads=16,
+                            max_position_embeddings=2048),
+}
+# DBRX's nested configs' defaults (DbrxAttentionConfig, DbrxFFNConfig)
+DBRX_SUB_DEFAULTS = dict(kv_n_heads=1, rope_theta=10000.0, clip_qkv=None, ffn_hidden_size=3584,
+                         moe_num_experts=4, moe_top_k=1)
 
 
 @dataclasses.dataclass
@@ -132,6 +202,32 @@ class ModelConfig:
     # reads ServerArgs.is_embedding)
     is_embedding: bool = False
 
+    # a bias on the attention's output projection (o_proj / dense / c_proj)
+    o_proj_bias: bool = False
+    # What the LayerNorm families read from their HF config when they are
+    # built (BUILD_KEYS; None: the key is absent, and the class takes the
+    # JAX class's default): StableLM's use_qkv_bias, Starcoder2's use_bias
+    # (layernorm_families.py:70-96), Cohere's logit_scale (:146), Phi-3-small's
+    # mup_* scalings, gegelu_limit and dummy_token_indices (:212-238),
+    # GPT-BigCode's activation_function (gpt2.py:70), OLMo-1's clip_qkv
+    # (DBRX's comes from its attn_config), Falcon's parallel_attn, bias,
+    # new_decoder_architecture and alibi (olmo_falcon_dbrx.py:59-75)
+    use_qkv_bias: Optional[bool] = None
+    use_bias: Optional[bool] = None
+    logit_scale: Optional[float] = None
+    mup_use_scaling: Optional[bool] = None
+    mup_attn_multiplier: Optional[float] = None
+    mup_embedding_multiplier: Optional[float] = None
+    mup_width_multiplier: Optional[float] = None
+    gegelu_limit: Optional[float] = None
+    dummy_token_indices: Optional[List[int]] = None
+    activation_function: Optional[str] = None
+    clip_qkv: Optional[float] = None
+    parallel_attn: Optional[bool] = None
+    bias: Optional[bool] = None
+    new_decoder_architecture: Optional[bool] = None
+    alibi: Optional[bool] = None
+
     dtype: str = "bfloat16"
 
     @property
@@ -173,6 +269,19 @@ class ModelConfig:
           rope base ``10000 * rope_ratio`` over half of head_dim;
           XverseMoe's ``moe_top_k`` and shared experts, before the MoE
           clause sets them again;
+        - the LayerNorm families' clauses (JAX :182-215): one KV head for
+          GPT-BigCode and Falcon under ``multi_query``, Falcon's gelu,
+          DBRX's nested ``attn_config`` / ``ffn_config`` (top-k weights
+          renormalized, untied, eps 1e-5), Phi-3-small's
+          ``rope_embedding_base`` and linear ``rope_position_scale``; keys
+          read through their HF class's aliases and defaults (HF_ALIASES,
+          HF_DEFAULTS: GPT-2's ``n_embd`` / ``n_positions``, DBRX's
+          ``d_model``, GPT-2's and Falcon's tied embeddings, Cohere's
+          ``logit_scale``, StableLM's and Phi's partial rotary factors), as
+          the JAX package reads them through transformers' config classes.
+          Phi-3-small has no such class: its width is ``intermediate_size``
+          or 4 x hidden, as JAX reads it (its config.json names the width
+          ``ff_intermediate_size``: ROADMAP C);
         - ``is_embedding`` for the *Model, *Classification and *Reward*
           strings (ChatGLMModel and QWenLMHeadModel among them, which the
           JAX rule flags too; nothing but the Engine's ServerArgs acts on
@@ -184,22 +293,39 @@ class ModelConfig:
         a key the config leaves out is None, which Gemma2ForCausalLM
         resolves to the JAX default), MiniCPM's and MiniCPM3's
         ``scale_emb``, ``scale_depth`` and ``dim_model_base``, the keys of
-        ``BUILD_KEYS`` (Baichuan, ChatGLM, Granite, Grok-1), and
+        ``BUILD_KEYS`` (Baichuan, ChatGLM, Granite, Grok-1, the LayerNorm
+        families), and
         Qwen2-MoE's shared expert, ``num_shared_experts =
         shared_expert_intermediate_size // moe_intermediate_size`` (at
         least 1), which the JAX ``Qwen2MoeForCausalLM.__init__`` sets.
         Other architectures raise, naming ROADMAP A14."""
-        if isinstance(hf_config, dict):
-            g = lambda k, d=None: hf_config.get(k, d)  # noqa: E731
-        else:
-            g = lambda k, d=None: getattr(hf_config, k, d)  # noqa: E731
-        arch_list = g("architectures")
+        def raw(cfg, k):
+            """(present, value) of key ``k`` of a dict or an object."""
+            if isinstance(cfg, dict):
+                return k in cfg, cfg.get(k)
+            return hasattr(cfg, k), getattr(cfg, k, None)
+
+        present, arch_list = raw(hf_config, "architectures")
         if arch_list:
             arch = arch_list[0]
         else:
             name = type(hf_config).__name__
             arch = (name[: -len("Config")] + "ForCausalLM"
                     if name.endswith("Config") and name != "Config" else "LlamaForCausalLM")
+        aliases = {v: k for k, v in HF_ALIASES.get(arch, {}).items()}
+        defaults = HF_DEFAULTS.get(arch, {})
+
+        def g(k, d=None):
+            """Key ``k`` as the family's HF class reads it: the config's own
+            key, else its alias (HF_ALIASES), else the class's default
+            (HF_DEFAULTS), else ``d``."""
+            for key in (k, aliases.get(k)):
+                if key is not None:
+                    present, v = raw(hf_config, key)
+                    if present:
+                        return v
+            return defaults.get(k, d)
+
         # the runner's table is the one list of what the port serves (imported
         # here: the runner imports this module)
         from semi_pd_tpu_torch.runtime.model_runner import ARCHITECTURES
@@ -301,6 +427,34 @@ class ModelConfig:
             cfg.scale_emb = g("scale_emb")
             cfg.scale_depth = g("scale_depth")
             cfg.dim_model_base = g("dim_model_base")
+        # GPT-BigCode's and Falcon's multi-query attention: one shared KV
+        # head (the JAX clause names these two strings, not RWForCausalLM);
+        # Falcon's MLP is gelu
+        if arch in ("GPTBigCodeForCausalLM", "FalconForCausalLM") and g("multi_query", True):
+            cfg.num_key_value_heads = 1
+        if arch == "FalconForCausalLM":
+            cfg.hidden_act = "gelu"
+        if arch == "DbrxForCausalLM":  # attention and experts in nested configs
+            def sub(name, k):
+                present, v = raw(g(name) or {}, k)
+                return v if present else DBRX_SUB_DEFAULTS[k]
+
+            cfg.num_key_value_heads = sub("attn_config", "kv_n_heads")
+            cfg.rope_theta = sub("attn_config", "rope_theta")
+            cfg.clip_qkv = sub("attn_config", "clip_qkv")
+            cfg.num_experts = sub("ffn_config", "moe_num_experts")
+            cfg.num_experts_per_tok = sub("ffn_config", "moe_top_k")
+            cfg.moe_intermediate_size = sub("ffn_config", "ffn_hidden_size")
+            cfg.norm_topk_prob = True
+            cfg.tie_word_embeddings = False
+            cfg.rms_norm_eps = 1e-5  # nn.LayerNorm's default
+        if arch == "Phi3SmallForCausalLM":
+            # its rope under keys of its own; without rope_scaling, linear
+            # scaling by rope_position_scale
+            cfg.rope_theta = g("rope_embedding_base", 1000000.0)
+            if cfg.rope_scaling is None:
+                cfg.rope_scaling = {"rope_type": "linear",
+                                    "factor": g("rope_position_scale", 1.0)}
         if arch == "Qwen2MoeForCausalLM" and not cfg.num_shared_experts:
             ses = g("shared_expert_intermediate_size")
             if ses:

@@ -50,10 +50,17 @@
 // the tensor cores (the warp tile, shared with the streaming decode, is in
 // rpa_decode_mma.cuh), and a split of each request's positions over warps
 // and blocks (flash-decoding).
-//   - The G <= 16 query heads of a KV head are the rows of one m16 tile
-//     (rows past G are zero and written nowhere; G is 4 on the 1B-class and
-//     8B paths, and the kernel is bytes-bound, so the empty rows cost no
-//     time). S = Q K^T is mma.sync m16n8k16 bf16 -> f32 with K fragments by
+//   - The query heads of a KV head are cut into head groups of at most 16,
+//     the rows of one m16 tile each: group j of KV head h is the heads
+//     [h G + 16 j, h G + min(16 j + 16, G)), so G <= 16 is one group a KV
+//     head and StarCoder's multi-query G = 48 three, Falcon-7B's 71 five
+//     (16 x 4 + 7). Rows past the group's end are zero and written nowhere
+//     (G is 4 on the 1B-class and 8B paths, and the kernel is bytes-bound,
+//     so the empty rows cost no time). Each group's block reads its KV
+//     head's tiles itself: at G > 16 a KV tile is read once per group
+//     (ROADMAP B7). The cut is the kernel's GROUPS instantiation (G > 16),
+//     so the G <= 16 kernels are the code they were before groups (hg = h).
+//     S = Q K^T is mma.sync m16n8k16 bf16 -> f32 with K fragments by
 //     ldmatrix: exact products, float32 sums. O += P V against V fragments
 //     by ldmatrix.trans: the chunked and aligned builds take P rounded to
 //     bf16 (to nearest, as astype rounds it), one product, as their TPU
@@ -72,7 +79,7 @@
 //     once in shared memory (8 KB), and every warp reads its A fragments
 //     from there a k-step at a time (rpa_decode_mma.cuh MmaQ): O alone is
 //     128 registers a thread there.
-//   - Grid (n_split, Hkv, B): the host's split plan (rpa_packed.py
+//   - Grid (n_split, Hkv * ceil(G / 16), B): the host's split plan (rpa_packed.py
 //     decode_split_plan) cuts [0, maxP * page_size) into n_split ranges of
 //     split_len positions, from the shapes, the build and the SM count only
 //     (no kv_lens on the host), so a small batch still fills the card. A
@@ -190,7 +197,7 @@ struct SdLayout {
   static_assert(WIDEN || (SD_BLOCKS_PER_SM + 1) * (SMEM + 1024) > 233472, "SD_BLOCKS_PER_SM");
 };
 
-template <typename TKV, int D, bool ALIBI>
+template <typename TKV, int D, bool ALIBI, bool GROUPS>
 __global__ void __launch_bounds__(SD_NT)
 rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
                       const TKV* __restrict__ k_pool,       // K of this layer at slot 0
@@ -206,10 +213,11 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   using Lay = SdLayout<TKV, D>;
   constexpr int LD = Lay::LD, TK = SD_TK;
   extern __shared__ __align__(16) unsigned char sd_smem[];  // not rpa_decode_kernel's smem
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
   const int n_split = gridDim.x, B = gridDim.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int G = Hq / Hkv;
+  int h, hq0, GB;  // head group blockIdx.y: KV head h's query heads [hq0, hq0 + GB)
+  mma_head_group<GROUPS>(Hq, Hkv, blockIdx.y, h, hq0, GB);
 
   const int kv_len = kv_lens[b];
   const int limit = min(kv_len, maxP * page_size);
@@ -221,17 +229,17 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   const int ntiles = s1 > first ? (s1 - first + TK - 1) / TK : 0;
   const int nw = ntiles > warp ? (ntiles - warp + SD_WARPS - 1) / SD_WARPS : 0;  // this warp's
 
-  // Q: row g of the m16 tile is query head h G + g; this warp's A
+  // Q: row g of the m16 tile is query head hq0 + g; this warp's A
   // fragments, or at head_dim 256 the block's tile in shared memory
   const int tig = lane & 3;
   MmaQ<D> qf;
   if constexpr (MmaQ<D>::SMEM) {
     bf16* qt = reinterpret_cast<bf16*>(sd_smem + Lay::Q0);
-    mma_store_q<D>(qt, q + ((int64_t)b * Hq + (int64_t)h * G) * D, G, tid, SD_NT);
+    mma_store_q<D>(qt, q + ((int64_t)b * Hq + hq0) * D, GB, tid, SD_NT);
     __syncthreads();
     qf.point(qt, lane);
   } else {
-    mma_load_q<D>(qf.qa, q + ((int64_t)b * Hq + (int64_t)h * G) * D, G, lane);
+    mma_load_q<D>(qf.qa, q + ((int64_t)b * Hq + hq0) * D, GB, lane);
   }
 
   // this warp's bf16 tiles (stage s: K, then V)
@@ -309,12 +317,12 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   const bool capped = cap > 0.f;
   const float c = (capped || ALIBI) ? LOG2E : scale * LOG2E;
   // ALiBi: the slopes of this lane's rows gid and gid + 8 (query heads
-  // h G + row), the query at kv_len - 1
+  // hq0 + row), the query at kv_len - 1
   MmaAlibi al{};
   if constexpr (ALIBI) {
     const int gid = lane >> 2;
-    al.slope[0] = gid < G ? alibi[h * G + gid] : 0.f;
-    al.slope[1] = gid + 8 < G ? alibi[h * G + gid + 8] : 0.f;
+    al.slope[0] = gid < GB ? alibi[hq0 + gid] : 0.f;
+    al.slope[1] = gid + 8 < GB ? alibi[hq0 + gid + 8] : 0.f;
     al.qpos = kv_len - 1;
   }
 
@@ -362,8 +370,8 @@ rpa_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
     po[w] = sO + w * 16 * D;
     pml[w] = sML + w * 32;
   }
-  const int64_t row0 = (int64_t)b * Hq + (int64_t)h * G;  // the block's first output row
-  for (int idx = tid; idx < G * D; idx += SD_NT) {
+  const int64_t row0 = (int64_t)b * Hq + hq0;  // the block's first output row
+  for (int idx = tid; idx < GB * D; idx += SD_NT) {
     const int r = idx / D, d = idx - r * D;
     float m, l, acc;
     merge_partials<D, SD_WARPS>(po, pml, SD_WARPS, r, d, m, l, acc);
@@ -416,15 +424,18 @@ static int launch_decode_mma(const void* q, const void* k_pool, const void* v_po
                              float cap, int window, int n_split, int split_len, void* scratch,
                              const void* alibi, cudaStream_t stream) {
   using Lay = SdLayout<TKV, D>;
-  if (Hq / Hkv > 16 || n_split < 1 || split_len <= 0 || split_len % SD_STEP ||
+  if (n_split < 1 || split_len <= 0 || split_len % SD_STEP ||
       (int64_t)n_split * split_len < (int64_t)maxP * page_size ||
       (n_split > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  auto kernel = rpa_decode_mma_kernel<TKV, D, ALIBI>;
+  const bool grouped = Hq / Hkv > 16;  // head groups of at most 16 query heads
+  auto kernel = grouped ? rpa_decode_mma_kernel<TKV, D, ALIBI, true>
+                        : rpa_decode_mma_kernel<TKV, D, ALIBI, false>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  kernel<<<dim3(n_split, Hkv, B), SD_NT, Lay::SMEM, stream>>>(
+  const int groups = Hkv * ((Hq / Hkv + 15) / 16);
+  kernel<<<dim3(n_split, groups, B), SD_NT, Lay::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k_pool),
       static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out),
@@ -446,7 +457,7 @@ static int launch_decode(const void* q, const void* k_pool, const void* v_pool, 
                          int maxP, int page_size, float scale, float cap, int window,
                          const void* alibi, cudaStream_t stream) {
   // the CUDA-core kernel holds G * D outputs a block (DEC_MAXO a thread);
-  // the tensor-core one takes any G <= 16
+  // the tensor-core one takes any G, in head groups of at most 16
   if ((Hq / Hkv) * D > DEC_MAXO * DEC_NT) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * dec_smem_floats<D>(Hq / Hkv);
   auto kernel = rpa_decode_kernel<D, ALIBI>;

@@ -3,8 +3,9 @@
 // over warps and blocks) and rpa_stream.cu's rpa_stream_mma_kernel (the
 // streaming decode, each warp an equal share of the batch's KV tiles).
 //
-// One warp computes the G <= 16 query heads of one KV head, the rows of one
-// m16 tile (rows past G are zero and written nowhere), against tiles of TK
+// One warp computes a head group, at most 16 query heads of one KV head
+// (all G of them at G <= 16), the rows of one m16 tile (rows past the
+// group's end are zero and written nowhere), against tiles of TK
 // KV positions staged as bf16 in shared memory, rows LD elements apart:
 //   - S = Q K^T by mma.sync m16n8k16 bf16 -> f32, K fragments by ldmatrix:
 //     exact products, float32 sums;
@@ -49,6 +50,21 @@ __device__ __forceinline__ void mma_lanes(int lane, uint32_t& k_lane, uint32_t& 
     static_assert(TK == 8, "a warp tile is 8 positions or a multiple of 16");
     k_lane = v_lane = (l7 * LD + (lane >> 3) * 8) * 2;
   }
+}
+
+// Head group hg of the Hkv ceil(G / 16) a grid of the tensor-core decodes
+// spans, G = Hq / Hkv: KV head h's query heads [hq0, hq0 + GB), group j of
+// h the heads [h G + 16 j, h G + min(16 j + 16, G)). The kernels take
+// GROUPS (G > 16) as a template argument, so that at G <= 16, one group a
+// KV head (hg = h), they keep the code and registers they had before head
+// groups.
+template <bool GROUPS>
+__device__ __forceinline__ void mma_head_group(int Hq, int Hkv, int hg, int& h, int& hq0,
+                                               int& GB) {
+  const int G = Hq / Hkv, NG = GROUPS ? (G + 15) >> 4 : 1;
+  h = GROUPS ? hg / NG : hg;
+  hq0 = h * G + 16 * (hg - h * NG);
+  GB = GROUPS ? min(16, h * G + G - hq0) : G;
 }
 
 // The A fragments of Q for one warp: row g of the m16 tile is query row g

@@ -31,12 +31,14 @@
 // zeros; no slot at or past kv_len is read.
 //
 // bf16 q on the GQA pools: rpa_stream_mma_kernel, on the tensor cores with
-// the packed decode's warp tile (rpa_decode_mma.cuh: the G <= 16 query
-// heads of a KV head as the rows of one m16 tile, P rounded to bf16 as the
-// TPU kernels round it). P = STREAM_BLOCKS_PER_SM * SMs / Hkv blocks per KV
-// head (rpa_stream.py stream_blocks, from shapes, the KV type and the SM
-// count: two blocks per SM with bf16 KV, three with fp8 KV, the card filled
-// once), and the 4 P warps of a KV head's
+// the packed decode's warp tile (rpa_decode_mma.cuh: a head group of at most
+// 16 query heads of a KV head as the rows of one m16 tile, P rounded to bf16
+// as the TPU kernels round it; G <= 16 is one group a KV head, StarCoder's
+// multi-query G = 48 three, each reading the KV head's tiles itself). P =
+// STREAM_BLOCKS_PER_SM * SMs / (Hkv ceil(G / 16)) blocks per head group
+// (rpa_stream.py stream_blocks, from shapes, the KV type and the SM count:
+// two blocks per SM with bf16 KV, three with fp8 KV, the card filled once),
+// and the 4 P warps of a head group's
 // column take equal contiguous shares of the tile sequence, cut at tile
 // boundaries (not whole requests, so one long request spreads over the
 // card). Each warp walks its share through its own ring of STREAM_NBUF
@@ -339,7 +341,7 @@ static int launch_stream(const void* q, const void* k_pool, const void* v_pool, 
                          const void* kv_lens, void* out, int B, int Hq, int Hkv, int row_stride,
                          int maxP, int page_size, float scale, float cap, cudaStream_t stream) {
   // the CUDA-core kernel holds G * D outputs a block (DEC_MAXO a thread);
-  // the tensor-core one takes any G <= 16
+  // the tensor-core one takes any G, in head groups of at most 16
   if ((Hq / Hkv) * D > DEC_MAXO * DEC_NT) return (int)cudaErrorInvalidValue;
   using Tile = KVTile<TKV, D, dec_tk<D>(), STREAM_NT>;
   const size_t smem =
@@ -424,16 +426,17 @@ struct StreamLayout {
   static_assert(BLOCKS * (SMEM + 1024 + 128) <= 233472, "blocks per SM");
 };
 
-// The caller's float32 scratch (P blocks per KV head, G query heads per KV
-// head): each warp's slot-0 partial, G rows per (KV head, warp) of O, then
-// of (m c, l); each block's two partials for the combine pass, G rows per
-// (KV head, block, slot), likewise; one int4 descriptor per (KV head,
-// block). P * (6 * Hq * (D + 2) + 4 * Hkv) floats in all.
+// The caller's float32 scratch (P blocks per head group, HG = Hkv ceil(G /
+// 16) head groups of GS = min(G, 16) rows): each warp's slot-0 partial, GS
+// rows per (head group, warp) of O, then of (m c, l); each block's two
+// partials for the combine pass, GS rows per (head group, block, slot),
+// likewise; one int4 descriptor per (head group, block). P * (6 * HG * GS *
+// (D + 2) + 4 * HG) floats in all (HG GS = Hq at G <= 16).
 struct StreamScratch {
   float *wo, *wml, *bo, *bml;
   int4* desc;
-  __device__ __forceinline__ StreamScratch(float* part, int Hkv, int P, int G, int D) {
-    const int64_t nw = (int64_t)Hkv * STREAM_WARPS * P * G, nb = (int64_t)Hkv * P * 2 * G;
+  __device__ __forceinline__ StreamScratch(float* part, int HG, int P, int GS, int D) {
+    const int64_t nw = (int64_t)HG * STREAM_WARPS * P * GS, nb = (int64_t)HG * P * 2 * GS;
     wo = part;
     wml = wo + nw * D;
     bo = wml + nw * 2;
@@ -442,8 +445,9 @@ struct StreamScratch {
   }
 };
 
-// Block (p, KV head h) of P x Hkv, warp w of 4: the batch's tiles of TK
-// positions, request-major (each request's ceil(min(kv_len, maxP *
+// Block (p, head group hg) of P x Hkv ceil(G / 16), warp w of 4: the query
+// heads [hq0, hq0 + GB) of KV head h (mma_head_group; GROUPS: G > 16),
+// and the batch's tiles of TK positions, request-major (each request's ceil(min(kv_len, maxP *
 // page_size) / TK) tiles in order), form one sequence of T tiles; global
 // warp v = 4 p + w walks [s_v, s_v+1), s_v = floor(v T / (4 P)): equal
 // shares cut at tile boundaries, differing by at most one tile. A warp
@@ -456,7 +460,7 @@ struct StreamScratch {
 // at its last tile, going on in a later one), and rpa_stream_combine_kernel
 // merges them in block order. Rows with no position are written as zeros
 // by block r % P.
-template <typename TKV, int D>
+template <typename TKV, int D, bool GROUPS>
 __global__ void __launch_bounds__(STREAM_NT, StreamLayout<TKV, D>::BLOCKS)
 rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
                       const TKV* __restrict__ k_pool,       // K of this layer at slot 0
@@ -474,10 +478,15 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   // boundary k of the block's shares, the request holding its tile and that
   // request's first tile
   __shared__ int sb[NW + 1], s_req[NW + 1], s_first[NW + 1];
-  const int p = blockIdx.x, P = gridDim.x, h = blockIdx.y;
+  const int p = blockIdx.x, P = gridDim.x, hg = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gid = lane >> 2,
             tig = lane & 3;
-  const int G = Hq / Hkv, max_len = maxP * page_size;
+  const int max_len = maxP * page_size;
+  int h, hq0, GB;
+  mma_head_group<GROUPS>(Hq, Hkv, hg, h, hq0, GB);
+  // the scratch's head groups and rows a group (without GROUPS: the KV
+  // heads and their G)
+  const int HG = GROUPS ? (int)gridDim.y : Hkv, GS = GROUPS ? 16 : GB;
 
   // the tile sequence and the block's boundaries s_k = s_(4 p + k), k = 0..4;
   // the thread whose chunk holds tile s_k finds its request
@@ -508,11 +517,11 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   __syncthreads();
   // boundary k cuts its request when that request began before it
   auto cut = [&](int k) { return sb[k] < T && s_first[k] < sb[k]; };
-  const StreamScratch scr(part, Hkv, P, G, D);
+  const StreamScratch scr(part, HG, P, GS, D);
 
   // this warp's ring, and its slot-0 partial in the scratch
   unsigned char* wbase = st_smem + warp * Lay::RING_BYTES;
-  const int64_t wrow = ((int64_t)h * NW * P + NW * p + warp) * G;
+  const int64_t wrow = ((int64_t)hg * NW * P + NW * p + warp) * GS;
   const TKV* kb = k_pool + (int64_t)h * D;
   const int64_t v_off = v_pool - k_pool;
   const int pshift = (page_size & (page_size - 1)) ? -1 : __ffs(page_size) - 1;
@@ -534,8 +543,8 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
       ft = 0;
       flim = min(kv_lens[fr], max_len);
       fn = flim > 0 ? (flim + TK - 1) / TK : 0;
-      if (lane * 32 < G * D * 2)
-        prefetch_l2(reinterpret_cast<const char*>(q + ((int64_t)fr * Hq + (int64_t)h * G) * D) +
+      if (lane * 32 < GB * D * 2)
+        prefetch_l2(reinterpret_cast<const char*>(q + ((int64_t)fr * Hq + hq0) * D) +
                     lane * 32);
     }
     const int* pt_row = page_table + (int64_t)fr * maxP;
@@ -612,13 +621,13 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   MmaState<D> ms;
   // a whole request's rows go straight to the output
   auto write_out = [&]() {
-    const int64_t row0 = (int64_t)cr * Hq + (int64_t)h * G;
+    const int64_t row0 = (int64_t)cr * Hq + hq0;
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const float l = mma_row_sum(ms, rr);
       const float inv = l > 0.f ? 1.f / l : 0.f;
       const int r = gid + 8 * rr;
-      if (r < G) {
+      if (r < GB) {
 #pragma unroll
         for (int d = 0; d < D / 8; ++d)
           *reinterpret_cast<uint32_t*>(out + (row0 + r) * D + d * 8 + 2 * tig) =
@@ -650,14 +659,14 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
     }
     if (i == 0 || ct == 0) {  // a segment begins
       ct0 = ct;
-      const bf16* qb = q + ((int64_t)cr * Hq + (int64_t)h * G) * D;
+      const bf16* qb = q + ((int64_t)cr * Hq + hq0) * D;
       if constexpr (MmaQ<D>::SMEM) {
         // every lane is past its reads of the previous request's tile (the
         // __syncwarp above); the new one is visible after the next
-        mma_store_q<D>(wq, qb, G, lane, 32);
+        mma_store_q<D>(wq, qb, GB, lane, 32);
         __syncwarp();
       } else {
-        mma_load_q<D>(qf.qa, qb, G, lane);
+        mma_load_q<D>(qf.qa, qb, GB, lane);
       }
       ms.reset();
     }
@@ -670,7 +679,7 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
       if (ct0 == 0 && ct == cn)
         write_out();
       else if (ct0 > 0) {  // cut at the warp's first tile: to the scratch
-        mma_stage<D, true>(ms, scr.wo + wrow * D, scr.wml + wrow * 2, 0, c, lane, G);
+        mma_stage<D, true>(ms, scr.wo + wrow * D, scr.wml + wrow * 2, 0, c, lane, GB);
         staged0 = true;
       } else {  // cut at the warp's last tile: staged once the ring is idle
         staged1 = true;
@@ -688,8 +697,8 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
   float* slot0 = slot1 + Lay::PART;
   if (staged1) mma_stage(ms, slot1, slot1 + 16 * D, 0, c, lane);
   if (staged0) {
-    for (int i = lane; i < G * D; i += 32) slot0[i] = scr.wo[wrow * D + i];
-    for (int i = lane; i < G * 2; i += 32) slot0[16 * D + i] = scr.wml[wrow * 2 + i];
+    for (int i = lane; i < GB * D; i += 32) slot0[i] = scr.wo[wrow * D + i];
+    for (int i = lane; i < GB * 2; i += 32) slot0[16 * D + i] = scr.wml[wrow * 2 + i];
   }
   __syncthreads();
 
@@ -720,9 +729,9 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
       continue;
     }
     const bool whole = k_lo >= 1 && k_hi < NW;
-    const int64_t row0 = (int64_t)r * Hq + (int64_t)h * G;
-    const int64_t brow = (((int64_t)h * P + p) * 2 + (k_lo == 0 ? 0 : 1)) * G;
-    for (int idx = tid; idx < G * D; idx += STREAM_NT) {
+    const int64_t row0 = (int64_t)r * Hq + hq0;
+    const int64_t brow = (((int64_t)hg * P + p) * 2 + (k_lo == 0 ? 0 : 1)) * GS;
+    for (int idx = tid; idx < GB * D; idx += STREAM_NT) {
       const int g = idx / D, d = idx - g * D;
       float m, l, acc;
       merge_partials<D, NW>(po, pml, n, g, d, m, l, acc);
@@ -750,38 +759,43 @@ rpa_stream_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
       dsc.x = s_req[0];
       dsc.y = pf;
     }
-    scr.desc[(int64_t)h * P + p] = dsc;
+    scr.desc[(int64_t)hg * P + p] = dsc;
   }
   for (int r = p; r < B; r += P)  // rows with no position
     if (stream_tiles(kv_lens[r], max_len, TK) == 0)
-      for (int i = tid; i < G * D; i += STREAM_NT)
-        out[((int64_t)r * Hq + (int64_t)h * G) * D + i] = __float2bfloat16(0.f);
+      for (int i = tid; i < GB * D; i += STREAM_NT)
+        out[((int64_t)r * Hq + hq0) * D + i] = __float2bfloat16(0.f);
 }
 
-// Merges the partials of each request cut across blocks, block (p, h) the
+// Merges the partials of each request cut across blocks, block (p, hg) the
 // request whose last tile lies in block p (rpa_stream_mma_kernel's
 // descriptor): slot 1 of its first block pf, then slot 0 of every later
 // block up to p that holds a tile, in block order, in log-sum-exp form. One
-// pass, a thread per output (G * D <= 512 on the 1B-class and 8B paths), so
+// pass, a thread per output (GB * D <= 512 on the 1B-class and 8B paths), so
 // that the loads of every block are in flight together.
 constexpr int STREAM_COMBINE_NT = 512;
 
-template <int D>
+template <int D, bool GROUPS>
 __global__ void __launch_bounds__(STREAM_COMBINE_NT)
 rpa_stream_combine_kernel(float* __restrict__ part, __nv_bfloat16* __restrict__ out, int Hq,
                           int Hkv) {
-  const int p = blockIdx.x, P = gridDim.x, h = blockIdx.y, G = Hq / Hkv;
-  const StreamScratch scr(part, Hkv, P, G, D);
-  const int4 dsc = scr.desc[(int64_t)h * P + p];
+  const int p = blockIdx.x, P = gridDim.x, hg = blockIdx.y;
+  int h, hq0, GB;
+  mma_head_group<GROUPS>(Hq, Hkv, hg, h, hq0, GB);
+  // the scratch's head groups and rows a group (without GROUPS: the KV
+  // heads and their G)
+  const int HG = GROUPS ? (int)gridDim.y : Hkv, GS = GROUPS ? 16 : GB;
+  const StreamScratch scr(part, HG, P, GS, D);
+  const int4 dsc = scr.desc[(int64_t)hg * P + p];
   if (dsc.x < 0) return;
   const int pf = dsc.y, T = dsc.z;
-  const int64_t row0 = (int64_t)dsc.x * Hq + (int64_t)h * G;
-  for (int idx = threadIdx.x; idx < G * D; idx += STREAM_COMBINE_NT) {
+  const int64_t row0 = (int64_t)dsc.x * Hq + hq0;
+  for (int idx = threadIdx.x; idx < GB * D; idx += STREAM_COMBINE_NT) {
     const int g = idx / D, d = idx - g * D;
     float m = NEG_INF, l = 0.f, acc = 0.f;
 #pragma unroll 4
     for (int b = pf; b <= p; ++b) {
-      const int64_t row = (((int64_t)h * P + b) * 2 + (b == pf ? 1 : 0)) * G + g;
+      const int64_t row = (((int64_t)hg * P + b) * 2 + (b == pf ? 1 : 0)) * GS + g;
       const float mb = scr.bml[row * 2], lb = scr.bml[row * 2 + 1], ob = scr.bo[row * D + d];
       const bool held = b == pf || (int64_t)b * T / P < (int64_t)(b + 1) * T / P;
       if (held && lb > 0.f) {
@@ -802,12 +816,15 @@ static int launch_stream_mma(const void* q, const void* k_pool, const void* v_po
                              int Hkv, int row_stride, int maxP, int page_size, float scale,
                              float cap, int n_blocks, void* scratch, cudaStream_t stream) {
   using Lay = StreamLayout<TKV, D>;
-  if (Hq / Hkv > 16 || n_blocks < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
-  auto kernel = rpa_stream_mma_kernel<TKV, D>;
+  if (n_blocks < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const bool grouped = Hq / Hkv > 16;  // head groups of at most 16 query heads
+  auto kernel =
+      grouped ? rpa_stream_mma_kernel<TKV, D, true> : rpa_stream_mma_kernel<TKV, D, false>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  kernel<<<dim3(n_blocks, Hkv), STREAM_NT, Lay::SMEM, stream>>>(
+  const int groups = Hkv * ((Hq / Hkv + 15) / 16);
+  kernel<<<dim3(n_blocks, groups), STREAM_NT, Lay::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k_pool),
       static_cast<const TKV*>(v_pool), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out),
@@ -815,7 +832,9 @@ static int launch_stream_mma(const void* q, const void* k_pool, const void* v_po
   if (n_blocks > 1) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    rpa_stream_combine_kernel<D><<<dim3(n_blocks, Hkv), STREAM_COMBINE_NT, 0, stream>>>(
+    auto combine = grouped ? rpa_stream_combine_kernel<D, true>
+                           : rpa_stream_combine_kernel<D, false>;
+    combine<<<dim3(n_blocks, groups), STREAM_COMBINE_NT, 0, stream>>>(
         static_cast<float*>(scratch), static_cast<__nv_bfloat16*>(out), Hq, Hkv);
   }
   return (int)cudaGetLastError();

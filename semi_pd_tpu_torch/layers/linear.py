@@ -21,10 +21,10 @@ def apply_linear(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def lm_head_logits(h: torch.Tensor, w: torch.Tensor,
-                   softcap: Optional[float] = None) -> torch.Tensor:
-    """h [B, d] @ lm_head [d, V] -> [B, V] float32."""
-    logits = apply_linear(h, w).float()
+def lm_head_logits(h: torch.Tensor, w: torch.Tensor, softcap: Optional[float] = None,
+                   b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h [B, d] @ lm_head [d, V] (+ its bias b, Phi's) -> [B, V] float32."""
+    logits = apply_linear(h, w, b).float()
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

@@ -25,7 +25,21 @@ for leaf the JAX class's (semi_pd_tpu/models/llama.py):
 - ``ROPE_NEOX``: the rope's rotation, GPT-J interleaved for the GLM family
   (glm.py:30-39);
 - ``_layer``: one decoder layer, which the sandwich-norm classes (Glm4,
-  Grok-1) replace.
+  Grok-1) and OLMo-2 replace;
+- the LayerNorm families' hooks (models/layernorm_families.py, gpt2.py,
+  olmo_falcon_dbrx.py; JAX :80-89, 111-127, 264-267, 299-300, 335-341,
+  361-362): ``NORM_BIAS`` (every norm a {"w", "b"} leaf) with ``norm_fn``
+  a LayerNorm, weight-only or without parameters (``ops/elementwise.py``);
+  ``PARALLEL_BLOCK`` (attention and MLP both from the one input norm, h +
+  attn + mlp, no ``post_norm``: Phi, Cohere, Falcon); ``POS_EMBED``
+  (learned positions ``pos_embed.w`` [max_position_embeddings, H] added to
+  the embedding at ``q_pos``: GPT-2, with ``no_rope``); ``LM_HEAD_BIAS``
+  (Phi); ``logit_bias`` (float32 [V] on the device, added after
+  ``logits_div``: Phi-3-small's dummy tokens); ``o_proj_bias`` (a config
+  field: ``layers.o_proj.b``); ``qkv_clip`` (the fused qkv clipped to
+  [-c, c] before the split: OLMo, DBRX); ``ACT_FROM_CONFIG`` False for the
+  classes whose MLP does not take ``hidden_act`` (the non-gated fc1 -> act
+  -> fc2 MLP of NonGatedMLPMixin, Phi-3-small's gegelu).
 
 The scalars are rounded to the dtype they multiply, as JAX's
 ``jnp.asarray(v, x.dtype)`` rounds them (``dtype_scalar``).
@@ -60,14 +74,25 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _ATTR = {
     "embed.w": "embed",
     "final_norm": "final_norm",
+    "final_norm.b": "final_norm_b",  # the LayerNorm families' {"w", "b"} norms
+    "final_norm.w": "final_norm",
     "layers.dense_down.w": "dense_down",  # DeepSeek-V1's dense layers (llama_variants.py)
     "layers.dense_gate_up.w": "dense_gate_up",
+    "layers.down.b": "down_b",  # Phi-3-small's
     "layers.down.w": "down",
+    "layers.fc1.b": "fc1_b",  # the non-gated MLP's (layernorm_families.py)
+    "layers.fc1.w": "fc1",
+    "layers.fc2.b": "fc2_b",
+    "layers.fc2.w": "fc2",
+    "layers.gate_up.b": "gate_up_b",
     "layers.gate_up.w": "gate_up",
     "layers.experts.down": "experts_down",  # the MoE classes' (qwen2_moe.py)
     "layers.experts.gate_up": "experts_gate_up",
     "layers.input_norm": "input_norm",
+    "layers.input_norm.b": "input_norm_b",
+    "layers.input_norm.w": "input_norm",
     "layers.k_norm": "k_norm",  # Qwen3's per-head, OLMoE's full-width
+    "layers.o_proj.b": "o_proj_b",
     "layers.o_proj.w": "o_proj",
     "layers.post_attn_norm": "post_attn_norm",  # Gemma-2's sandwich norms
     "layers.post_attn_sandwich": "post_attn_sandwich",  # Glm4's and Grok-1's
@@ -75,6 +100,8 @@ _ATTR = {
     "layers.post_mlp_sandwich": "post_mlp_sandwich",
     "layers.post_moe_sandwich": "post_moe_sandwich",
     "layers.post_norm": "post_norm",
+    "layers.post_norm.b": "post_norm_b",
+    "layers.post_norm.w": "post_norm",
     "layers.pre_ffw_norm": "pre_ffw_norm",
     "layers.q_norm": "q_norm",
     "layers.qkv_proj.b": "qkv_bias",  # Qwen2's
@@ -83,7 +110,9 @@ _ATTR = {
     "layers.shared.down.w": "shared_down",  # Qwen2-MoE's shared expert
     "layers.shared.gate.w": "shared_gate",
     "layers.shared.gate_up.w": "shared_gate_up",
+    "lm_head.b": "lm_head_b",  # Phi's
     "lm_head.w": "lm_head",
+    "pos_embed.w": "pos_embed",  # GPT-2's learned positions
     "v_head.w": "v_head",  # InternLM2's reward head
 }
 
@@ -102,11 +131,17 @@ class LlamaForCausalLM(TreeParams):
     QK_NORM_FULL = False
     # the rope's rotation: GPT-NeoX halves, or GPT-J interleaved pairs (GLM)
     ROPE_NEOX = True
+    # the LayerNorm families' structure (module docstring)
+    NORM_BIAS = False
+    PARALLEL_BLOCK = False
+    POS_EMBED = False
+    LM_HEAD_BIAS = False
+    ACT_FROM_CONFIG = True
 
     def __init__(self, config: ModelConfig, device):
         super().__init__()
         c = self.config = config
-        if c.hidden_act not in ACT2FN:
+        if self.ACT_FROM_CONFIG and c.hidden_act not in ACT2FN:
             raise NotImplementedError(f"activation {c.hidden_act!r} is ROADMAP A14")
         if c.dtype not in DTYPES:
             raise ValueError(f"model dtype {c.dtype!r}: bfloat16 or float32")
@@ -117,7 +152,7 @@ class LlamaForCausalLM(TreeParams):
         self.kv_size = self.num_kv_heads * self.head_dim
         self.scale = self.head_dim ** -0.5
         self.dtype = DTYPES[c.dtype]
-        self.act = ACT2FN[c.hidden_act]
+        self.act = ACT2FN.get(c.hidden_act)
         # the family hooks (set before the leaves are made: they shape them)
         self.use_qk_norm = self.QK_NORM_FULL or c.architecture in QK_NORM_ARCHS
         self.norm_fn = rms_norm
@@ -125,6 +160,9 @@ class LlamaForCausalLM(TreeParams):
         self.residual_mult = None  # a Python number in the model dtype
         self.logits_div = None  # a Python number in float32
         self.no_rope = False
+        self.qkv_clip = None  # OLMo's and DBRX's clip_qkv
+        # float32 [V] added to the logits (Phi-3-small's dummy tokens)
+        self.register_buffer("logit_bias", None, persistent=False)
         # ALiBi's slopes, float32 [Hq] on the device (Baichuan2-13B)
         self.register_buffer("alibi_slopes", None, persistent=False)
         self.page_size = 16  # set by the runner: a property of the pool
@@ -155,22 +193,46 @@ class LlamaForCausalLM(TreeParams):
         qkv_out = self.q_size + 2 * self.kv_size
         specs = [
             ("embed.w", (c.vocab_size, H)),
-            ("final_norm", (H,)),
-            ("layers.input_norm", (L, H)),
+            *self._norm_specs("final_norm", H),
+            *self._norm_specs("layers.input_norm", L, H),
             ("layers.o_proj.w", (L, self.q_size, H)),
-            ("layers.post_norm", (L, H)),
             ("layers.qkv_proj.w", (L, H, qkv_out)),
             *self._mlp_specs(),
         ]
+        if not self.PARALLEL_BLOCK:
+            specs += self._norm_specs("layers.post_norm", L, H)
         if c.attention_bias:
             specs.append(("layers.qkv_proj.b", (L, qkv_out)))
+        if c.o_proj_bias:
+            specs.append(("layers.o_proj.b", (L, H)))
+        if self.POS_EMBED:
+            specs.append(("pos_embed.w", (c.max_position_embeddings, H)))
         if self.use_qk_norm:
             full = self.QK_NORM_FULL
             specs.append(("layers.q_norm", (L, self.q_size if full else self.head_dim)))
             specs.append(("layers.k_norm", (L, self.kv_size if full else self.head_dim)))
         if not c.tie_word_embeddings:
             specs.append(("lm_head.w", (H, c.vocab_size)))
+            if self.LM_HEAD_BIAS:
+                specs.append(("lm_head.b", (c.vocab_size,)))
         return sorted(specs)
+
+    def _norm_specs(self, path: str, *shape: int) -> List[Tuple[str, Tuple[int, ...]]]:
+        """A norm's leaves: its weight, or with NORM_BIAS ``.w`` and ``.b``."""
+        if self.NORM_BIAS:
+            return [(path + ".b", shape), (path + ".w", shape)]
+        return [(path, shape)]
+
+    def norm_leaf(self, name: str, layer=None):
+        """The ``norm_fn`` parameter of norm ``name`` (of ``layer``, for a
+        stacked norm): its weight, or with NORM_BIAS {"w", "b"}."""
+        w = getattr(self, name)
+        if layer is not None:
+            w = w[layer]
+        if not self.NORM_BIAS:
+            return w
+        b = getattr(self, name + "_b")
+        return {"w": w, "b": b if layer is None else b[layer]}
 
     def _mlp_specs(self) -> List[Tuple[str, Tuple[int, ...]]]:
         """The MLP's leaves (the MoE classes override it)."""
@@ -197,9 +259,12 @@ class LlamaForCausalLM(TreeParams):
         seeds the EAGLE draft (JAX ``return_hidden``)."""
         h = self._final_hidden(fb, kv_cache, attention)
         last_h = h if all_logits else h[fb.logits_idx.long()]
-        logits = lm_head_logits(last_h, self.head(), self.config.logit_softcap)
+        logits = lm_head_logits(last_h, self.head(), self.config.logit_softcap,
+                                self.lm_head_b if self.LM_HEAD_BIAS else None)
         if self.logits_div is not None:
             logits = logits / self.logits_div
+        if self.logit_bias is not None:
+            logits = logits + self.logit_bias
         return (logits, last_h) if return_hidden else logits
 
     def forward_embedding(self, fb, kv_cache: torch.Tensor, attention=None) -> torch.Tensor:
@@ -216,21 +281,26 @@ class LlamaForCausalLM(TreeParams):
         h = self.embed[fb.input_ids.long()]
         if self.embed_scale is not None:
             h = h * self.embed_scale
+        if self.POS_EMBED:
+            h = h + self.pos_embed[fb.q_pos.long()]
         for layer in range(self.config.num_hidden_layers):
             h = self._layer(layer, h, fb, kv_cache, attention)
-        return self.norm_fn(h, self.final_norm, self.config.rms_norm_eps)
+        return self.norm_fn(h, self.norm_leaf("final_norm"), self.config.rms_norm_eps)
 
     def _layer(self, layer: int, h: torch.Tensor, fb, kv_cache, attention) -> torch.Tensor:
         """One decoder layer: attention and the MLP, each on its normed
         input, each branch times ``residual_mult`` (when set) before its
-        residual add."""
+        residual add; with PARALLEL_BLOCK both on the one input norm, h +
+        attn + mlp."""
         eps = self.config.rms_norm_eps
-        attn = self._attn(layer, self.norm_fn(h, self.input_norm[layer], eps), fb, kv_cache,
-                          attention)
+        attn_in = self.norm_fn(h, self.norm_leaf("input_norm", layer), eps)
+        attn = self._attn(layer, attn_in, fb, kv_cache, attention)
+        if self.PARALLEL_BLOCK:
+            return h + attn + self._mlp(layer, attn_in)
         if self.residual_mult is not None:
             attn = attn * self.residual_mult
         h = h + attn
-        mlp = self._mlp(layer, self.norm_fn(h, self.post_norm[layer], eps))
+        mlp = self._mlp(layer, self.norm_fn(h, self.norm_leaf("post_norm", layer), eps))
         if self.residual_mult is not None:
             mlp = mlp * self.residual_mult
         return h + mlp
@@ -248,6 +318,8 @@ class LlamaForCausalLM(TreeParams):
         T = attn_in.shape[0]
         bias = self.qkv_bias[layer] if c.attention_bias else None
         qkv = apply_linear(attn_in, self.qkv_proj[layer], bias)
+        if self.qkv_clip is not None:
+            qkv = qkv.clamp(-self.qkv_clip, self.qkv_clip)
         q, k, v = qkv.split([self.q_size, self.kv_size, self.kv_size], dim=-1)
         if self.QK_NORM_FULL:  # OLMoE: before the head split
             q = self.norm_fn(q, self.q_norm[layer], c.rms_norm_eps)
@@ -266,4 +338,5 @@ class LlamaForCausalLM(TreeParams):
             sliding_window=self.layer_windows[layer], attention=attention,
             alibi_slopes=self.alibi_slopes,
         )
-        return apply_linear(out.reshape(T, self.q_size), self.o_proj[layer])
+        return apply_linear(out.reshape(T, self.q_size), self.o_proj[layer],
+                            self.o_proj_b[layer] if c.o_proj_bias else None)

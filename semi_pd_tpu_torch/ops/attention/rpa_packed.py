@@ -159,26 +159,37 @@ MLA_DECODES = frozenset(k.name for k in DECODE_MLA_KERNELS.values())
 # a GQA build's split covers at least SPLIT_MIN positions (unless the page
 # table is shorter)
 SPLIT_MIN = 512
-# query heads per block of the latent builds' tensor-core kernels (the rows
-# of one m16 tile, csrc/rpa_mla_mma.cuh MLA_MMA_ROWS)
+# query heads per block of the tensor-core decodes and streams (the rows of
+# one m16 tile: csrc/rpa_mla_mma.cuh MLA_MMA_ROWS, csrc/rpa_decode_mma.cuh
+# mma_head_group)
 MLA_ROWS = 16
 
 
 def head_groups(kernel, Hq: int, num_kv_heads: int) -> int:
-    """The second grid dimension of a tensor-core decode: the KV heads of a
-    GQA build, or on the latent pool (one latent head) the groups of at most
-    MLA_ROWS query heads, group h the heads [16 h, min(16 h + 16, Hq)): one
-    for DeepSeek-V2-Lite's 16, three (16 / 16 / 8) for MiniCPM3's 40."""
+    """The second grid dimension of a tensor-core decode or stream: the
+    head groups of at most MLA_ROWS query heads. On the latent pool (one
+    latent head) group h is the heads [16 h, min(16 h + 16, Hq)): one for
+    DeepSeek-V2-Lite's 16, three (16 / 16 / 8) for MiniCPM3's 40. A GQA
+    build cuts each KV head's G = Hq / Hkv heads alike, group j of KV head
+    h the heads [h G + 16 j, h G + min(16 j + 16, G)): Hkv groups at G <=
+    16, three a KV head at StarCoder's multi-query G = 48, five (16 x 4 + 7)
+    at Falcon-7B's 71."""
     if "_mla" in kernel.name:
         return -(-Hq // MLA_ROWS)
-    return num_kv_heads
+    return num_kv_heads * -(-(Hq // num_kv_heads) // MLA_ROWS)
+
+
+def group_rows(Hq: int, num_kv_heads: int) -> int:
+    """Rows a GQA build's head group keeps in a scratch: G = Hq / Hkv up to
+    MLA_ROWS, else MLA_ROWS (the last group of a KV head may use fewer)."""
+    return min(Hq // num_kv_heads, MLA_ROWS)
 
 
 def decode_split_plan(build: str, B: int, Hkv: int, max_kv: int, num_sms: int):
     """(n_split, split_len) of a packed decode build's tensor-core kernel
-    (``build``: a key of DECODE_SPLIT; ``Hkv``: its head_groups): [0,
-    max_kv) cut in order into n_split ranges [s * split_len, min((s + 1) *
-    split_len, max_kv)). From the shapes, the build and the card's SM count
+    (``build``: a key of DECODE_SPLIT; ``Hkv``: its head_groups, the KV
+    heads at G <= 16): [0, max_kv) cut in order into n_split ranges [s *
+    split_len, min((s + 1) * split_len, max_kv)). From the shapes, the build and the card's SM count
     only (max_kv = maxP * page_size; no kv_lens), so the wrapper never waits
     for the card. A GQA build takes enough splits that the B * Hkv *
     n_split blocks fill the card once at its blocks per SM, split_len at

@@ -19,10 +19,11 @@ batches on the packed decode, as the JAX routing does). The KV tiles of
 many requests form one sequence fetched a fixed depth ahead across request
 boundaries (csrc/rpa_stream.cu). With bf16 q the GQA builds cut that
 sequence into equal shares of tiles, one per warp of a persistent grid of
-``stream_blocks`` blocks per KV head, on the tensor cores, and the latent
-build into shares of whole 256-position chunks, one per block (its four
-warps share each latent tile); requests cut across blocks leave float32
-partials in a scratch that a combine pass merges. The JAX package selects
+``stream_blocks`` blocks per head group (rpa_packed.head_groups), on the
+tensor cores, and the latent build into shares of whole 256-position
+chunks, one per block (its four warps share each latent tile); requests
+cut across blocks leave float32 partials in a scratch that a combine pass
+merges. The JAX package selects
 the stream with ``RPA_DECODE_STREAM=1`` and sets the ring depth with
 ``RPA_STREAM_NBUF``; the port selects it with ``ServerArgs.decode_stream``
 and builds the depth in (STREAM_NBUF = 4, the JAX default). Its plain version is the decode's,
@@ -45,11 +46,11 @@ from semi_pd_tpu_torch.ops.attention.rpa_common import (
 )
 from semi_pd_tpu_torch.ops.attention.rpa_packed import (
     DECODE_ARGTYPES, DECODE_MLA_KERNELS, DECODE_SPLIT, decode_split_plan, decode_with,
-    head_groups, sm_count,
+    group_rows, head_groups, sm_count,
 )
 
 # The streaming decodes' entry point: the decode's, then the tensor-core
-# stream's plan (blocks per KV head, scratch pointer) before the CUDA stream
+# stream's plan (blocks per head group, scratch pointer) before the CUDA stream
 STREAM_ARGTYPES = DECODE_ARGTYPES[:-1] + [I, P, P]
 
 STREAM_KERNEL = register(CudaKernel(
@@ -135,8 +136,8 @@ STREAM_BLOCKS_PER_SM = {STREAM_KERNEL.name: (2, 3), STREAM_ALIGNED_KERNEL.name: 
 
 def stream_blocks(build: str, B: int, Hkv: int, max_kv: int, num_sms: int,
                   fp8: bool = False) -> int:
-    """P, the blocks per KV head (per head group on the latent pool:
-    ``Hkv`` is rpa_packed.head_groups) of a build's tensor-core stream
+    """P, the blocks per head group (``Hkv`` is rpa_packed.head_groups: the
+    KV heads at G <= 16) of a build's tensor-core stream
     (``build``: a key of STREAM_TILE; ``fp8``: fp8 KV): as many as the card
     holds at once beside the other columns, but no more than a batch of
     full page tables (max_kv = maxP * page_size positions each) gives each
@@ -151,13 +152,14 @@ def stream_blocks(build: str, B: int, Hkv: int, max_kv: int, num_sms: int,
     return max(1, min(per_sm * num_sms // max(Hkv, 1), -(-most // shares)))
 
 
-def stream_scratch_floats(n_blocks: int, Hq: int, Hkv: int, D: int) -> int:
-    """Float32 elements of a GQA build's tensor-core stream scratch: one
-    partial of G rows (O, D wide, then m and l) per warp and KV head (a
-    request cut at the warp's first tile), two per block and KV head
-    (requests cut across blocks), then one int4 descriptor per block and KV
-    head."""
-    return n_blocks * (6 * Hq * (D + 2) + 4 * Hkv)
+def stream_scratch_floats(n_blocks: int, rows: int, groups: int, D: int) -> int:
+    """Float32 elements of a GQA build's tensor-core stream scratch over
+    ``groups`` head groups of ``rows`` rows in all (rpa_packed.group_rows
+    each; Hq rows at G <= 16): one partial of a group's rows (O, D wide,
+    then m and l) per warp and head group (a request cut at the warp's
+    first tile), two per block and head group (requests cut across
+    blocks), then one int4 descriptor per block and head group."""
+    return n_blocks * (6 * rows * (D + 2) + 4 * groups)
 
 
 def stream_args(kernel, q, kv_dtype, num_kv_heads, max_kv, dv):
@@ -176,7 +178,7 @@ def stream_args(kernel, q, kv_dtype, num_kv_heads, max_kv, dv):
         n_chunk, _ = decode_split_plan(STREAM_MLA_DECODE[kernel.name], B, heads, max_kv, sms)
         floats = n_chunk * B * Hq * (dv + 2)
     else:
-        floats = stream_scratch_floats(n, Hq, heads, dv)
+        floats = stream_scratch_floats(n, heads * group_rows(Hq, num_kv_heads), heads, dv)
     scratch = q.new_empty(floats, dtype=torch.float32)
     return (n, scratch.data_ptr()), scratch
 

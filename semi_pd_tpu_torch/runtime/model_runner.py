@@ -24,7 +24,11 @@ _288 builds; the Llama-computation variants InternLM2 and its reward
 model, ExaOne, Baichuan (ALiBi at Baichuan2-13B's hidden 5120, refused
 with ``decode_stream``, speculation or another pool than the 5D one at
 head_dim 128: ROADMAP B9.6), QWen v1, MiniCPM, XverseMoe, DeepSeek-V1,
-the GLM family, Phi-3, Granite and Grok-1). The KV pool's layout
+the GLM family, Phi-3, Granite and Grok-1; the LayerNorm families
+StableLM, Starcoder2, Phi, Cohere, OLMo-2, Phi-3-small, GPT-2, GPT-BigCode,
+OLMo-1, Falcon and DBRX, with GPT-2's context held to its learned
+positions and Falcon's new decoder architecture and ALiBi refused, as the
+JAX classes refuse them). The KV pool's layout
 follows the model's geometry (``kv_pool_layout``, the JAX runner's rule):
 the chunked pool for head_dim 64 when a slot row holds a multiple of 8
 chunks of 128 (e.g. Llama-3.2-1B's 8 KV heads), the 5D pool otherwise
@@ -94,14 +98,22 @@ from semi_pd_tpu_torch.model_loader.loader import device_init_params
 from semi_pd_tpu_torch.models.deepseek_v2 import DeepseekV2ForCausalLM
 from semi_pd_tpu_torch.models.gemma2 import Gemma2ForCausalLM, GemmaForCausalLM
 from semi_pd_tpu_torch.models.glm import ChatGLMForCausalLM, Glm4ForCausalLM, GlmForCausalLM
+from semi_pd_tpu_torch.models.gpt2 import GPT2LMHeadModel, GPTBigCodeForCausalLM
 from semi_pd_tpu_torch.models.granite import GraniteForCausalLM
 from semi_pd_tpu_torch.models.grok import Grok1ForCausalLM
+from semi_pd_tpu_torch.models.layernorm_families import (
+    CohereForCausalLM, Olmo2ForCausalLM, Phi3SmallForCausalLM, PhiForCausalLM,
+    StableLmForCausalLM, Starcoder2ForCausalLM,
+)
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
 from semi_pd_tpu_torch.models.llama_variants import (
     BaichuanForCausalLM, DeepseekForCausalLM, ExaoneForCausalLM, InternLM2ForCausalLM,
     InternLM2ForRewardModel, MiniCPMForCausalLM, QWenLMHeadModel, XverseMoeForCausalLM,
 )
 from semi_pd_tpu_torch.models.minicpm3 import MiniCPM3ForCausalLM
+from semi_pd_tpu_torch.models.olmo_falcon_dbrx import (
+    DbrxForCausalLM, FalconForCausalLM, OlmoForCausalLM,
+)
 from semi_pd_tpu_torch.models.phi3 import Phi3ForCausalLM
 from semi_pd_tpu_torch.models.qwen2_moe import (
     MixtralForCausalLM, OlmoeForCausalLM, Qwen2MoeForCausalLM, Qwen3MoeForCausalLM,
@@ -158,6 +170,20 @@ ARCHITECTURES = {
     "ChatGLMForCausalLM": ChatGLMForCausalLM,
     "Phi3ForCausalLM": Phi3ForCausalLM,
     "GraniteForCausalLM": GraniteForCausalLM,
+    # the LayerNorm families (registry.py:140-152, :170-173)
+    "Phi3SmallForCausalLM": Phi3SmallForCausalLM,
+    "StableLmForCausalLM": StableLmForCausalLM,
+    "StableLmEpochForCausalLM": StableLmForCausalLM,
+    "Starcoder2ForCausalLM": Starcoder2ForCausalLM,
+    "PhiForCausalLM": PhiForCausalLM,
+    "CohereForCausalLM": CohereForCausalLM,
+    "Olmo2ForCausalLM": Olmo2ForCausalLM,
+    "GPT2LMHeadModel": GPT2LMHeadModel,
+    "GPTBigCodeForCausalLM": GPTBigCodeForCausalLM,
+    "OlmoForCausalLM": OlmoForCausalLM,
+    "FalconForCausalLM": FalconForCausalLM,
+    "RWForCausalLM": FalconForCausalLM,
+    "DbrxForCausalLM": DbrxForCausalLM,
 }
 
 KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
@@ -261,7 +287,19 @@ class ModelRunner:
         if server_args.context_length:
             model_config.context_length = server_args.context_length
         self.model_config = model_config
-        self.model = ARCHITECTURES[model_config.architecture](model_config, device=self.device)
+        mc = model_config
+        # refused before any weight is made: a geometry without kernels (A9),
+        # a context past learned positions
+        kv_pool_layout(mc.num_kv_heads_total, mc.kv_head_dim, mc.use_mla)
+        if getattr(ARCHITECTURES[mc.architecture], "POS_EMBED", False) and (
+                mc.context_length > mc.max_position_embeddings):
+            # GPT-2's learned positions end at n_positions: no checkpoint has
+            # a row for a later position, so no item of the ROADMAP lifts this
+            raise ValueError(
+                f"context_length {mc.context_length} past the {mc.max_position_embeddings} "
+                f"learned positions of {mc.architecture} (n_positions); serve it at "
+                f"context_length <= {mc.max_position_embeddings}")
+        self.model = ARCHITECTURES[mc.architecture](mc, device=self.device)
         self.model.page_size = server_args.page_size
         if getattr(self.model, "alibi_slopes", None) is not None:
             self._check_alibi()

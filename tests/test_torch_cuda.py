@@ -42,7 +42,13 @@ refusal on the other builds and the stream, the aligned builds at 6 and
 16 query heads per KV head, the float32 decodes' refusal at G = 16, the
 merged builds at 36 KV heads, and Engines of the Llama-variant forwards
 (Baichuan's ALiBi, MiniCPM, ChatGLM, Glm4, DeepSeek-V1, Grok-1, Granite)
-against the CPU. Every kernel is held with each (q, KV) pair it is
+against the CPU; the GQA decodes and streams in head groups past 16
+query heads a KV head (StarCoder's 48 / 1, Falcon-7B's 71 / 1 over a
+64-element slot row, G = 17 and 20), with the extends at those G, over
+long KV (splits, streams cut across blocks) and with ALiBi, the float32
+decodes' refusal there, and Engines of the LayerNorm families (StableLM,
+Starcoder2, Phi, Cohere, OLMo-2, Phi-3-small, GPT-2, GPT-BigCode, OLMo-1,
+Falcon, DBRX) against the CPU. Every kernel is held with each (q, KV) pair it is
 built for, fp8 e4m3 and e5m2 under bf16 q included. This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
@@ -438,7 +444,9 @@ def test_extend_builds_run_on_the_tensor_cores(cuda_device):
     warpgroup kernels, HMMA in the decodes'); their float32 pairs stay on
     the CUDA cores. The four extends hold each kernel twice: with a
     speculation tree (TREE) and without; the aligned decode and extend
-    hold each once more, as its ALiBi instantiation (ALIBI)."""
+    hold each once more, as its ALiBi instantiation (ALIBI); every GQA
+    decode's tensor-core kernel twice, with head groups past 16 query heads
+    a KV head (GROUPS) and without."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     expect = {  # library: (tensor-core kernel, CUDA-core kernel, bf16-q pairs, float32 ones)
@@ -446,9 +454,9 @@ def test_extend_builds_run_on_the_tensor_cores(cuda_device):
         "rpa_extend_aligned": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 9, 3),
         "rpa_extend_mla": ("rpa_extend_mla_wgmma_kernel", "rpa_extend_mla_kernel", 6, 2),
         "rpa_extend_merged": ("rpa_extend_wgmma_kernel", "rpa_extend_kernel", 6, 2),
-        "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3, 1),
-        "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 6, 2),
-        "rpa_decode_merged": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 3, 1),
+        "rpa_decode": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 6, 1),
+        "rpa_decode_aligned": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 12, 2),
+        "rpa_decode_merged": ("rpa_decode_mma_kernel", "rpa_decode_kernel", 6, 1),
         "rpa_decode_mla": ("rpa_decode_mla_mma_kernel", "rpa_decode_mla_kernel", 3, 1),
     }
     for name, (mma_fn, core_fn, n_mma, n_core) in expect.items():
@@ -794,14 +802,15 @@ def test_mla_decodes_agree_bit_for_bit_whatever_the_batch(cuda_device, opt, batc
 def test_stream_builds_run_on_the_tensor_cores(cuda_device):
     """The disassembled libraries of the streaming decodes: every bf16-q
     instantiation (bf16, e4m3 and e5m2 KV) of the chunked and the aligned
-    build runs HMMA instructions in rpa_stream_mma_kernel, and the latent
+    build runs HMMA instructions in rpa_stream_mma_kernel (with and without
+    head groups: GROUPS), and the latent
     build's in rpa_stream_mla_mma_kernel; their float32 pair's CUDA-core
     kernel (rpa_stream_kernel, rpa_stream_mla_kernel) none."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     for name, mma_fn, core_fn, n_mma in (
-            ("rpa_decode_stream", "rpa_stream_mma_kernel", "rpa_stream_kernel", 3),
-            ("rpa_decode_stream_aligned", "rpa_stream_mma_kernel", "rpa_stream_kernel", 3),
+            ("rpa_decode_stream", "rpa_stream_mma_kernel", "rpa_stream_kernel", 6),
+            ("rpa_decode_stream_aligned", "rpa_stream_mma_kernel", "rpa_stream_kernel", 6),
             ("rpa_decode_stream_mla", "rpa_stream_mla_mma_kernel", "rpa_stream_mla_kernel", 3)):
         KERNELS[name].fn()
         counts = sass_mma_counts(KERNELS[name])
@@ -2034,8 +2043,8 @@ def test_aligned256_builds_run_on_the_tensor_cores(cuda_device):
     """The _256 libraries disassembled: the extend's bf16-q instantiations
     (bf16, e4m3, e5m2 KV) run HGMMA in its warpgroup kernel, in its TREE =
     false and its TREE = true instantiation alike, the packed and the
-    streaming decode's run HMMA; each float32 pair's CUDA-core kernel
-    none."""
+    streaming decode's run HMMA, with head groups (GROUPS) and without;
+    each float32 pair's CUDA-core kernel none."""
     from semi_pd_tpu_torch.kernels import sass_mma_counts
 
     for name, mma_fn, core_fn, op in (
@@ -2047,7 +2056,7 @@ def test_aligned256_builds_run_on_the_tensor_cores(cuda_device):
         counts = sass_mma_counts(KERNELS[name], op=op)
         extend = name == "rpa_extend_aligned_256"
         mma = [n for f, n in counts.items() if mma_fn in f]
-        assert len(mma) == (6 if extend else 3) and all(mma), (name, counts)
+        assert len(mma) == 6 and all(mma), (name, counts)
         core = [n for f, n in counts.items() if core_fn in f]
         assert len(core) == (2 if extend else 1) and not any(core), (name, counts)
         if extend:  # the TREE = true instantiations
@@ -2440,6 +2449,211 @@ def test_engine_variants_on_cuda_match_cpu(cuda_device, family):
     multipliers) in float32 on the card gives the CPU Engine's greedy tokens
     through its pool's two kernels alone."""
     cfg, kernels = VARIANT_ENGINES[family]
+    _engines_agree(cuda_device, cfg, list(kernels))
+
+
+# ------------------------------------- head groups past 16 heads a KV head
+# (build, pool case options, query heads, KV heads, head_dim): StarCoder's
+# multi-query 48 / 1 and two KV heads of 48 on the aligned build, Falcon-7B's
+# 71 / 1 at head_dim 64 on the merged one (a 64-element slot row), G = 17 on
+# the chunked pool (8 KV heads at 64), G = 20 on the _256 build
+GROUP_CASES = [("aligned", {"aligned": True}, 48, 1, D_ALIGNED),
+               ("aligned", {"aligned": True}, 96, 2, D_ALIGNED),
+               ("merged", {"merged": True}, 71, 1, D),
+               ("chunked", {}, 136, 8, D),
+               ("aligned256", {"aligned": True, "aligned_dim": 256}, 40, 2, 256)]
+GROUP_BUILDS = {"aligned": ("rpa_decode_aligned", "rpa_decode_stream_aligned",
+                            "rpa_extend_aligned"),
+                "merged": ("rpa_decode_merged", None, "rpa_extend_merged"),
+                "chunked": ("rpa_decode", "rpa_decode_stream", "rpa_extend"),
+                "aligned256": ("rpa_decode_aligned_256", "rpa_decode_stream_aligned_256",
+                               "rpa_extend_aligned_256")}
+
+
+def _group_fns(pool, kind, hkv, head_dim, meta):
+    """The wrapper and the plain version of ``kind`` on ``pool``'s build."""
+    chunked = dict(num_kv_heads=hkv, head_dim=head_dim) if pool == "chunked" else {}
+    if kind == "extend":
+        if chunked:
+            return (functools.partial(rpa.ragged_paged_attention_chunked_extend, meta=meta,
+                                      **chunked),
+                    functools.partial(rpa.extend_attention_plain, meta=meta, **chunked))
+        return (functools.partial(rpa.ragged_paged_attention_extend, meta=meta),
+                functools.partial(rpa.ragged_paged_attention_extend_plain, meta=meta))
+    if chunked:
+        fn = (rpa_packed.ragged_paged_attention_chunked_packed if kind == "decode"
+              else rpa_stream.ragged_paged_attention_chunked_stream)
+        return (functools.partial(fn, **chunked),
+                functools.partial(rpa_packed.decode_attention_plain, **chunked))
+    fn = (rpa_packed.ragged_paged_attention_packed if kind == "decode"
+          else rpa_stream.ragged_paged_attention_stream)
+    return fn, rpa_packed.ragged_paged_attention_packed_plain
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "fp8_e4m3"])
+@pytest.mark.parametrize("kind", ["decode", "stream", "extend"])
+@pytest.mark.parametrize("pool,extra,hq,hkv,head_dim", GROUP_CASES,
+                         ids=[f"{p}-{q}x{k}" for p, _, q, k, _ in GROUP_CASES])
+def test_gqa_kernels_past_sixteen_heads_per_kv_head(cuda_device, pool, extra, hq, hkv,
+                                                   head_dim, kind, kv):
+    """The GQA decodes and streams in head groups of at most 16 query heads
+    (G 48, 71, 17, 20: three, five, two and two groups a KV head), and the
+    extends' packed rows m = r G + g at those G (at 71 a 128-row block
+    holds less than two query rows), bf16 q over bf16 and e4m3 KV, every
+    dead slot NaN, against their plain versions: one launch, zeros on
+    kv_len-0 rows; the decode bitwise on a second call. The merged pool
+    has no stream (its routing decodes packed)."""
+    build = GROUP_BUILDS[pool][("decode", "stream", "extend").index(kind)]
+    if build is None:
+        pytest.skip("the merged family has no streaming decode (the JAX routing's)")
+    dt = torch.bfloat16
+    case = _extend_case if kind == "extend" else _decode_case
+    q, kv_t, pt, kvl, meta = case(cuda_device, dt, hq=hq, hkv=hkv,
+                                  kv_dtype=FP8.get(kv, dt), **extra)
+    _poison_dead_slots(kv_t, pt, kvl, 1)
+    fn, plain = _group_fns(pool, kind, hkv, head_dim, meta)
+    kw = dict(page_size=PS, scale=head_dim ** -0.5)
+    k = KERNELS[build]
+    before = k.launches
+    out = fn(q, kv_t, 1, pt, kvl, **kw)
+    ref = plain(q, kv_t, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    if kind != "extend":
+        assert not out[kvl == 0].any()
+        assert torch.equal(fn(q, kv_t, 1, pt, kvl, **kw), out)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("kind", ["decode", "stream"])
+@pytest.mark.parametrize("pool,extra,hq,hkv,head_dim", GROUP_CASES[:3],
+                         ids=[f"{p}-{q}x{k}" for p, _, q, k, _ in GROUP_CASES[:3]])
+def test_head_groups_split_and_stream_long_kv(cuda_device, pool, extra, hq, hkv, head_dim,
+                                              kind):
+    """At StarCoder's and Falcon-7B's head groups over 16 requests of
+    2048-4096 positions: the packed decode's plan splits each request over
+    blocks (the combine pass merging every group's rows), the stream cuts
+    requests across warps and blocks (its combine pass over every group's
+    scratch rows); against the plain version, bitwise on a second call,
+    with a window crossing the splits on the decode."""
+    build = GROUP_BUILDS[pool][0 if kind == "decode" else 1]
+    if build is None:
+        pytest.skip("the merged family has no streaming decode (the JAX routing's)")
+    lens = np.random.default_rng(3).integers(2048, 4097, size=16)
+    lens[0], lens[-1] = 4096, 0
+    q, kv_t, pt, kvl, meta = _case(5, [1] * 16, lens.tolist(), cuda_device, torch.bfloat16,
+                                   hq=hq, hkv=hkv, **extra)
+    groups = rpa_packed.head_groups(KERNELS[build], hq, hkv)
+    assert groups == hkv * -(-(hq // hkv) // 16) and groups > hkv
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if kind == "decode":
+        assert rpa_packed.decode_split_plan(build, 16, groups, pt.shape[1] * PS, sms)[0] > 1
+    fn, plain = _group_fns(pool, kind, hkv, head_dim, meta)
+    kw = dict(page_size=PS, scale=head_dim ** -0.5)
+    if kind == "decode":
+        kw["sliding_window"] = 1000
+    k = KERNELS[build]
+    before = k.launches
+    out = fn(q, kv_t, 1, pt, kvl, **kw)
+    again = fn(q, kv_t, 1, pt, kvl, **kw)
+    ref = plain(q, kv_t, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 2
+    assert torch.equal(out, again) and not out[kvl == 0].any()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("kind", ["decode", "extend"])
+@pytest.mark.parametrize("hq,hkv", [(36, 4), (12, 2), (48, 1)], ids=["g9", "g6", "g48"])
+def test_aligned_kernels_with_a_window_at_new_head_groups(cuda_device, hq, hkv, kind):
+    """StarCoder2-7B's G = 9 with its sliding window, G = 6 and StarCoder's
+    48: the aligned decode and extend with a window of 24 that cuts every
+    long request (an extend row m = r G + g of a query row r whose 16-row
+    warp tile holds two query rows at G = 9 and 6), bf16, every dead slot
+    NaN, against their plain versions."""
+    case = _extend_case if kind == "extend" else _decode_case
+    q, kv_t, pt, kvl, meta = case(cuda_device, torch.bfloat16, aligned=True, hq=hq, hkv=hkv)
+    _poison_dead_slots(kv_t, pt, kvl, 1)
+    fn, plain = _group_fns("aligned", kind, hkv, D_ALIGNED, meta)
+    kw = _opts("window", D_ALIGNED ** -0.5)
+    out = fn(q, kv_t, 1, pt, kvl, **kw)
+    ref = plain(q, kv_t, 1, pt, kvl, **kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_alibi_decode_past_sixteen_heads_per_kv_head(cuda_device):
+    """The aligned decode's ALiBi instantiation at G = 17 (34 / 2): each
+    group's rows read their own heads' slopes."""
+    q, kv_t, pt, kvl, _ = _decode_case(cuda_device, torch.bfloat16, aligned=True, hq=34,
+                                       hkv=2)
+    kw = dict(page_size=PS, scale=D_ALIGNED ** -0.5, alibi_slopes=_alibi(34, cuda_device))
+    out = rpa_packed.ragged_paged_attention_packed(q, kv_t, 1, pt, kvl, **kw)
+    ref = rpa_packed.ragged_paged_attention_packed_plain(q, kv_t, 1, pt, kvl, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_float32_decode_past_sixteen_heads_is_refused(cuda_device):
+    """float32 q at StarCoder's G = 48 (6144 outputs a block) and Falcon's
+    71 at 64 (4544) is past the float32 decodes' 1024: refused naming
+    ROADMAP B9.7."""
+    for extra, hq in (({"aligned": True}, 48), ({"merged": True}, 71)):
+        q, kv_t, pt, kvl, _ = _decode_case(cuda_device, torch.float32, hq=hq, hkv=1, **extra)
+        with pytest.raises(NotImplementedError, match="ROADMAP B9.7"):
+            rpa_packed.ragged_paged_attention_packed(q, kv_t, 1, pt, kvl, page_size=PS,
+                                                     scale=0.1)
+
+
+# one small config per class of the LayerNorm families (float32), and the
+# two kernels each runs on the card: GPT-BigCode multi-query (8 / 1) and
+# Falcon over one KV head at 64 (16 / 1, the merged pool), StableLM on the
+# chunked pool, GPT-2 and Phi on the merged one. float32 decodes hold G x
+# head_dim <= 1024 (B9.7): the head groups past 16 run in bf16, in the
+# kernel tests above and in chip_smoke.py's StarCoder and Falcon-7B serves
+LN_ENGINES = {
+    "stablelm": (_family_cfg("StableLmForCausalLM", head_dim=64, num_attention_heads=8,
+                             num_key_value_heads=8, use_qkv_bias=True,
+                             partial_rotary_factor=0.25), ("rpa_decode", "rpa_extend")),
+    "starcoder2": (_family_cfg("Starcoder2ForCausalLM", num_key_value_heads=2,
+                               hidden_act="gelu_pytorch_tanh", sliding_window=24),
+                   ("rpa_decode_aligned", "rpa_extend_aligned")),
+    "phi": (_family_cfg("PhiForCausalLM", head_dim=64, partial_rotary_factor=0.5),
+            ("rpa_decode_merged", "rpa_extend_merged")),
+    "cohere": (_family_cfg("CohereForCausalLM", num_key_value_heads=2, logit_scale=0.25),
+               ("rpa_decode_aligned", "rpa_extend_aligned")),
+    "olmo2": (_family_cfg("Olmo2ForCausalLM"), ("rpa_decode_aligned", "rpa_extend_aligned")),
+    "phi3small": (_family_cfg("Phi3SmallForCausalLM", num_key_value_heads=2,
+                              hidden_act="gegelu", mup_use_scaling=True,
+                              mup_attn_multiplier=1.0, mup_embedding_multiplier=10.0,
+                              mup_width_multiplier=8.0, gegelu_limit=0.05,
+                              dummy_token_indices=[3, 100]),
+                  ("rpa_decode_aligned", "rpa_extend_aligned")),
+    "gpt2": (_family_cfg("GPT2LMHeadModel", head_dim=64, max_position_embeddings=512),
+             ("rpa_decode_merged", "rpa_extend_merged")),
+    "gpt_bigcode": (_family_cfg("GPTBigCodeForCausalLM", num_attention_heads=8,
+                                num_key_value_heads=1, max_position_embeddings=512,
+                                activation_function="gelu"),
+                    ("rpa_decode_aligned", "rpa_extend_aligned")),
+    "olmo": (_family_cfg("OlmoForCausalLM", clip_qkv=0.1),
+             ("rpa_decode_aligned", "rpa_extend_aligned")),
+    "falcon": (_family_cfg("FalconForCausalLM", head_dim=64, num_attention_heads=16,
+                           num_key_value_heads=1), ("rpa_decode_merged", "rpa_extend_merged")),
+    "dbrx": (_family_cfg("DbrxForCausalLM", num_key_value_heads=2, num_experts=4,
+                         num_experts_per_tok=2, moe_intermediate_size=64,
+                         norm_topk_prob=True, clip_qkv=0.1),
+             ("rpa_decode_aligned", "rpa_extend_aligned")),
+}
+
+
+@pytest.mark.parametrize("family", list(LN_ENGINES))
+def test_engine_layernorm_families_on_cuda_match_cpu(cuda_device, family):
+    """Each class of the LayerNorm families in float32 on the card gives the
+    CPU Engine's greedy tokens through its pool's two kernels alone: the
+    LayerNorms, parallel blocks, learned positions, clips, muP scalings and
+    logit bias around them, multi-query attention on the aligned and the
+    merged pool."""
+    cfg, kernels = LN_ENGINES[family]
     _engines_agree(cuda_device, cfg, list(kernels))
 
 

@@ -342,7 +342,7 @@ def test_published_configs_read_as_documented():
     gem = ModelConfig.from_hf_config(P["google/gemma-7b"])
     assert gem.head_dim == 256 and gem.query_pre_attn_scalar is None
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        ModelConfig.from_hf_config(hf_config("PhiForCausalLM"))
+        ModelConfig.from_hf_config(hf_config("LlavaForConditionalGeneration"))
 
 
 # --------------------------------------- the plain attention at G = 1

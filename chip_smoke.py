@@ -372,6 +372,30 @@ each (any failure raises and exits non-zero):
 4ef. its float32 gate — Gemma-2-9B in float32 at 4 layers, prompts of
              4500-6000 (the window cuts in the tree verify), as 4mf with
              the EAGLE tree.
+4v. images  — after the families' phases (see the calls in ``main``), the
+             image path from PUBLISHED_VLM: LLaVA-1.5-7B and Qwen2-VL-7B
+             at full depth through phase 3 (three of its four prompts with
+             an image, encoded and spliced; raw and attentive weights,
+             Qwen2-VL also streamed), the image gate (``image_gate``: two
+             images on one prompt must move the logits at its last row past
+             the 5% gate on the attentive weights, where make_attentive
+             also sets the towers' and projector's norms to 1), the tower's
+             time a image (``tower``), 3g (Qwen2-VL's decode with its rope
+             positions shifted, as images shift them, replayed bitwise) and
+             4 (32 requests with an image each, both modes), then
+             ``image_checks``: two images in a prompt, an input_embeds
+             prompt giving its ids' tokens, and ROADMAP C19 (an image
+             prompt's ids cached as text, then two images on them: the
+             second gives its fresh-cache tokens and log-probs, nothing
+             cached). Qwen2.5-VL-7B (the window tower) and Yi-VL-6B
+             (ViT-H/14 at 448, 1024 tokens an image) through phase 3, the
+             gate and the tower's time. Then the sequence classifiers
+             (Skywork-Reward-Llama-3.1-8B, Skywork-Reward-Gemma-2-27B at 11
+             of 46 layers, Qwen2.5-Math-RM-72B at 8 of 80): their scores
+             through Engine.encode, kernels vs plain (``reward`` lines).
+             Phase 2 holds G = 7 (28 / 4) and Gemma-2's 32 / 16 at
+             head_dim 128 with softcap 50 and its 4096 window
+             (``phase_kernels_vlm``).
 
 Then one JSON line listing the kernels (the six extends with
 ``masked_max_abs_err``, the largest error of their masked cases), the
@@ -429,7 +453,11 @@ GEOMETRY = {"chunked": (32, 8, 64, 64), "aligned": (32, 8, 128, 128),
             # chunked pool (a 4096-element slot row)
             "aligned_g48": (48, 1, 128, 128), "aligned_g9": (36, 4, 128, 128),
             "merged_g71": (71, 1, 64, 64), "merged_h20": (20, 20, 64, 64),
-            "chunked_h32": (32, 32, 64, 64)}
+            "chunked_h32": (32, 32, 64, 64),
+            # the image path's and the classifiers' heads: Qwen2-VL-7B's 28 / 4
+            # (G = 7) and Skywork-Reward-Gemma-2-27B's 32 / 16 at head_dim 128
+            # (G = 2, softcap 50, a 4096 window on alternate layers)
+            "aligned_g7": (28, 4, 128, 128), "aligned_g2": (32, 16, 128, 128)}
 # the chunked pools of GEOMETRY
 CHUNKED = ("chunked", "chunked_h32")
 
@@ -441,7 +469,7 @@ POOL_BUILD = {"chunked": "", "aligned": "_aligned", "merged": "_merged", "draft"
               "aligned_g16": "_aligned", "merged_h36": "_merged",
               "aligned_alibi": "_aligned_alibi", "aligned_g48": "_aligned",
               "aligned_g9": "_aligned", "merged_g71": "_merged", "merged_h20": "_merged",
-              "chunked_h32": ""}
+              "chunked_h32": "", "aligned_g7": "_aligned", "aligned_g2": "_aligned"}
 
 # the latent pools' paths
 LATENT = ("latent", "latent288")
@@ -1412,6 +1440,54 @@ def phase_kernels_layernorm():
     return rows
 
 
+# ------------------- phase 2, the image path's and the classifiers' heads
+def phase_kernels_vlm():
+    """Phase 2 at the head groups of the image path and the classifiers,
+    after every other case (so that those draw the inputs they drew
+    before), every dead slot NaN, bf16 and e4m3 KV under bf16 q: Qwen2-VL-7B's
+    28 / 4 (G = 7) through the aligned packed and streaming decode (b64 /
+    kv 512-1024) and extend (b8 x q256 / kv2048); Skywork-Reward-Gemma-2-27B's
+    32 / 16 at head_dim 128 with softcap 50 through the aligned decode and
+    extend, then with its 4096 window where it cuts (decode over kv
+    4500-6000, extend b2 x q2048 over 6000). Each row carries its
+    function's registers and spills, G, and SDPA's time (uncapped and
+    unwindowed where the case caps or windows)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    rng = np.random.default_rng(24)
+    bf, e4m3 = torch.bfloat16, torch.float8_e4m3fn
+    lens = rng.integers(512, 1025, size=64)
+    lens[0], lens[-1] = 1024, 0  # one padded row
+    dec = ("decode_b64_kv1024", [1] * 64, lens.tolist())
+    ext = ("extend_b8_q256_kv2048", [256] * 8, [2048] * 8)
+    long_lens = rng.integers(4500, 6001, size=64)
+    long_lens[0] = 6000
+    plan = [("aligned_g7", kind, dec if kind != "extend" else ext, None, None)
+            for kind in ("decode", "stream", "extend")]
+    plan += [("aligned_g2", "decode", dec, 50.0, None), ("aligned_g2", "extend", ext, 50.0, None),
+             ("aligned_g2", "decode", ("decode_b64_kv4500_6000", [1] * 64, long_lens.tolist()),
+              50.0, 4096),
+             ("aligned_g2", "extend", ("extend_b2_q2048_kv6000", [2048] * 2, [6000] * 2),
+              50.0, 4096)]
+    rows, packed = [], {}
+    for pool, kind, (name, ql, kl), cap, window in plan:
+        name += (f"_cap{cap:g}" if cap else "") + (f"_window{window}" if window else "")
+        for dt, kdt in ((bf, bf), (bf, e4m3)):
+            beside = gqa_function_props(kernel_name(kind, pool), kind, dt, kdt)
+            HQ, HKV = GEOMETRY[pool][:2]
+            beside["G"] = HQ // HKV
+            if kind == "stream":
+                beside["packed_kernel_ms"] = packed[pool, dt, kdt]
+            rows.append(run_kernel_case(name, kind, gen, rng, ql, kl, dt, pool, kdt, cap=cap,
+                                        window=window, beside=beside, nan_dead=True,
+                                        library_always=True))
+            if kind == "decode" and not window:
+                packed[pool, dt, kdt] = rows[-1]["kernel_ms"]
+    return rows
+
+
 # --------------------------------------------------------------- phase 3/4
 def llama_1b_config():
     from semi_pd_tpu_torch.config.model_config import ModelConfig
@@ -1803,14 +1879,112 @@ PUBLISHED_LN = {
 }
 
 
+# The image path's models and the sequence classifiers (ROADMAP A14: the JAX
+# package's llava.py, qwen2_vl.py, classify.py), typed in as above. A
+# config.json of a LLaVA-style repository leaves the defaults of its
+# text_config's and vision_config's classes out (llava-1.5-7b-hf's
+# text_config gives only its vocabulary, length and eps): they are written
+# out here (LlamaConfig's 4096 / 11008 / 32 layers / 32 heads; CLIP's eps
+# 1e-5), as transformers' classes fill them in. Yi-VL-6B's config.json is
+# flat (LlavaLlamaForCausalLM with mm_* keys and a path to its ViT-H/14 at
+# 448 pixels); the JAX YiVLForCausalLM reads a text_config and a
+# vision_config, so its literal is that structure with the published
+# numbers (the language model's from its config.json, the tower's from
+# the ViT's), and its image token is the vocabulary's last id (the
+# repository marks images with -200, which no embedding row has).
+_LLAMA2_TEXT = dict(architectures=["LlamaForCausalLM"], hidden_act="silu", hidden_size=4096,
+                    intermediate_size=11008, num_attention_heads=32, num_hidden_layers=32,
+                    num_key_value_heads=32, rope_theta=10000.0, tie_word_embeddings=False)
+PUBLISHED_VLM = {
+    "llava-hf/llava-1.5-7b-hf": dict(
+        architectures=["LlavaForConditionalGeneration"], ignore_index=-100,
+        image_token_index=32000, model_type="llava", pad_token_id=32001,
+        projector_hidden_act="gelu",
+        text_config=dict(_LLAMA2_TEXT, max_position_embeddings=4096, model_type="llama",
+                         rms_norm_eps=1e-5, torch_dtype="float16", vocab_size=32064),
+        tie_word_embeddings=False, torch_dtype="float16",
+        vision_config=dict(hidden_size=1024, image_size=336, intermediate_size=4096,
+                           layer_norm_eps=1e-5, model_type="clip_vision_model",
+                           num_attention_heads=16, num_hidden_layers=24, patch_size=14,
+                           projection_dim=768, vocab_size=32000),
+        vision_feature_layer=-2, vision_feature_select_strategy="default", vocab_size=32064),
+    "01-ai/Yi-VL-6B": dict(
+        architectures=["YiVLForCausalLM"], image_token_index=63999, model_type="llava",
+        text_config=dict(_LLAMA2_TEXT, num_key_value_heads=4, max_position_embeddings=4096,
+                         rms_norm_eps=1e-5, rope_theta=5000000.0, vocab_size=64000),
+        vision_config=dict(hidden_size=1280, image_size=448, intermediate_size=5120,
+                           layer_norm_eps=1e-5, num_attention_heads=16, num_hidden_layers=32,
+                           patch_size=14),
+        vision_feature_layer=-2),
+    "Qwen/Qwen2-VL-7B-Instruct": dict(
+        architectures=["Qwen2VLForConditionalGeneration"], attention_dropout=0.0,
+        bos_token_id=151643, eos_token_id=151645, vision_start_token_id=151652,
+        vision_end_token_id=151653, vision_token_id=151654, image_token_id=151655,
+        video_token_id=151656, hidden_act="silu", hidden_size=3584, intermediate_size=18944,
+        max_position_embeddings=32768, max_window_layers=28, model_type="qwen2_vl",
+        num_attention_heads=28, num_hidden_layers=28, num_key_value_heads=4,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, sliding_window=32768,
+        tie_word_embeddings=False, torch_dtype="bfloat16", use_sliding_window=False,
+        vision_config=dict(depth=32, embed_dim=1280, mlp_ratio=4, num_heads=16, in_chans=3,
+                           hidden_size=3584, patch_size=14, spatial_merge_size=2,
+                           spatial_patch_size=14, temporal_patch_size=2),
+        rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]}, vocab_size=152064),
+    "Qwen/Qwen2.5-VL-7B-Instruct": dict(
+        architectures=["Qwen2_5_VLForConditionalGeneration"], attention_dropout=0.0,
+        bos_token_id=151643, eos_token_id=151645, vision_start_token_id=151652,
+        vision_end_token_id=151653, vision_token_id=151654, image_token_id=151655,
+        video_token_id=151656, hidden_act="silu", hidden_size=3584, intermediate_size=18944,
+        max_position_embeddings=128000, max_window_layers=28, model_type="qwen2_5_vl",
+        num_attention_heads=28, num_hidden_layers=28, num_key_value_heads=4,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, sliding_window=32768,
+        tie_word_embeddings=False, torch_dtype="bfloat16", use_sliding_window=False,
+        vision_config=dict(depth=32, hidden_act="silu", hidden_size=1280,
+                           intermediate_size=3420, num_heads=16, in_chans=3,
+                           out_hidden_size=3584, patch_size=14, spatial_merge_size=2,
+                           spatial_patch_size=14, window_size=112,
+                           fullatt_block_indexes=[7, 15, 23, 31], tokens_per_second=2,
+                           temporal_patch_size=2),
+        rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]}, vocab_size=152064),
+    "Skywork/Skywork-Reward-Llama-3.1-8B-v0.2": dict(
+        architectures=["LlamaForSequenceClassification"], attention_bias=False,
+        bos_token_id=128000, eos_token_id=128009, hidden_act="silu", hidden_size=4096,
+        id2label={"0": "LABEL_0"}, intermediate_size=14336, label2id={"LABEL_0": 0},
+        max_position_embeddings=131072, mlp_bias=False, model_type="llama",
+        num_attention_heads=32, num_hidden_layers=32, num_key_value_heads=8,
+        pad_token_id=128256, rms_norm_eps=1e-5,
+        rope_scaling=dict(factor=8.0, high_freq_factor=4.0, low_freq_factor=1.0,
+                          original_max_position_embeddings=8192, rope_type="llama3"),
+        rope_theta=500000.0, tie_word_embeddings=False, torch_dtype="bfloat16",
+        vocab_size=128257),
+    "Skywork/Skywork-Reward-Gemma-2-27B-v0.2": dict(
+        architectures=["Gemma2ForSequenceClassification"], attention_bias=False,
+        attn_logit_softcapping=50.0, final_logit_softcapping=30.0, head_dim=128,
+        hidden_act="gelu_pytorch_tanh", hidden_activation="gelu_pytorch_tanh",
+        hidden_size=4608, id2label={"0": "LABEL_0"}, intermediate_size=36864,
+        label2id={"LABEL_0": 0}, max_position_embeddings=8192, model_type="gemma2",
+        num_attention_heads=32, num_hidden_layers=46, num_key_value_heads=16, pad_token_id=0,
+        query_pre_attn_scalar=144, rms_norm_eps=1e-6, rope_theta=10000.0,
+        sliding_window=4096, torch_dtype="bfloat16", vocab_size=256000),
+    "Qwen/Qwen2.5-Math-RM-72B": dict(
+        architectures=["Qwen2ForRewardModel"], bos_token_id=151643, eos_token_id=151645,
+        hidden_act="silu", hidden_size=8192, intermediate_size=29568,
+        max_position_embeddings=4096, max_window_layers=80, model_type="qwen2",
+        num_attention_heads=64, num_hidden_layers=80, num_key_value_heads=8,
+        rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=4096,
+        tie_word_embeddings=False, torch_dtype="bfloat16", use_sliding_window=False,
+        vocab_size=152064),
+}
+
+
 def published_config(repo: str, context_length: int = 8192, **kw):
-    """``repo``'s published config.json (PUBLISHED or PUBLISHED_LN) through
+    """``repo``'s published config.json (PUBLISHED, PUBLISHED_LN or
+    PUBLISHED_VLM) through
     ``ModelConfig.from_hf_config`` at ``context_length`` (the pool and the
     rope table need no more), bf16; ``kw`` overrides fields (a cut depth,
     the float32 gates)."""
     from semi_pd_tpu_torch.config.model_config import ModelConfig
 
-    hf = PUBLISHED[repo] if repo in PUBLISHED else PUBLISHED_LN[repo]
+    hf = next(t[repo] for t in (PUBLISHED, PUBLISHED_LN, PUBLISHED_VLM) if repo in t)
     cfg = ModelConfig.from_hf_config(hf, context_length=context_length)
     for k, v in kw.items():
         setattr(cfg, k, v)
@@ -1876,6 +2050,11 @@ def expected_launches(runner, pool, stream, steps):
 # sandwich norm on the attention's output of Glm4 and Grok-1, whose 0.02
 # weights would hide the attention beside Grok-1's embedding x 78.5)
 ATTN_NORMS = ("input_norm", "q_norm", "k_norm", "kv_norm", "post_attn_sandwich")
+# the vision towers' and projectors' norms (CLIP's pre_ln, ln1, ln2; the
+# Qwen towers' ln1, ln2 and merger ln_q; Yi-VL's projector ln1, ln2): at
+# 0.02 their features are about the projector's bias, the same for every
+# image, and the model cannot see the image (the image gate)
+VISION_NORMS = ("pre_ln", "ln1", "ln2", "ln_q")
 # (the LayerNorm families' {"w", "b"} norms: their weight ``.w`` is lifted,
 # their bias kept)
 
@@ -1892,8 +2071,10 @@ def make_attentive(model):
     Llama's spread. A model narrower than 2048 (GPT-2-large's 1280) gets
     them times sqrt(4096 / hidden): q and k sum 0.02 N(0, 1) weights over
     fewer inputs, and the scores' spread (hidden x 0.0004 at unit
-    inputs) is that of a 4096-wide model again. Returns the leaves' old
-    values for ``restore``."""
+    inputs) is that of a 4096-wide model again. A vision-language model's
+    tower and projector norms (VISION_NORMS, under ``vision.`` / ``proj.``)
+    go to 1 too, so that the features carry the image. Returns the
+    leaves' old values for ``restore``."""
     gemma = type(model).__name__.startswith("Gemma")
     D, scale = getattr(model, "head_dim", None), getattr(model, "scale", None)
     level = math.sqrt(D ** -0.5 / scale) if D and scale and scale < D ** -0.5 else 1.0
@@ -1907,6 +2088,11 @@ def make_attentive(model):
             leaf = model.leaf(path)
             saved[path] = leaf.detach().clone()
             leaf.data.fill_(0.0 if gemma else level)
+        elif keys[0] in ("vision", "proj") and (
+                keys[-1] in VISION_NORMS or (keys[-1] == "w" and keys[-2] in VISION_NORMS)):
+            leaf = model.leaf(path)
+            saved[path] = leaf.detach().clone()
+            leaf.data.fill_(1.0)
     return saved
 
 
@@ -1920,7 +2106,7 @@ MODEL_GATE = 0.05
 
 
 def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=False,
-                gate=MODEL_GATE):
+                gate=MODEL_GATE, mm=None):
     """The prompts of ``lens`` tokens prefilled in extend steps of up to the
     largest token bucket (4096), then two decode steps, at full width,
     kernels (with ``stream`` the streaming decode) vs the same layers with
@@ -1930,12 +2116,13 @@ def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=
     attention moves less than 5% cannot see a wrong scale or softcap
     (ROADMAP C15). With ``attentive`` the steps run on make_attentive's
     weights (restored after), and every step's moves must pass the
-    gate."""
+    gate. ``mm``: (input_ids, image_data) per request in place of
+    ``lens``'s random prompts (a vision-language model: its images encoded
+    and spliced, Qwen-VL's M-RoPE positions)."""
     import torch
 
     from semi_pd_tpu_torch.layers.attention import pool_attention
     from semi_pd_tpu_torch.runtime.batch import build_decode_batch, build_extend_batch
-    from semi_pd_tpu_torch.runtime.req import Req
     from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
     runner = eng.runner
@@ -1943,9 +2130,13 @@ def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=
     vocab = runner.model_config.vocab_size
     rng = np.random.default_rng(1)
     reqs = []
-    for i, n in enumerate(lens):
-        r = Req(rid=f"m{i}", input_ids=rng.integers(0, vocab, size=n).tolist(),
-                sampling_params=SamplingParams(temperature=0.0))
+    if callable(mm):  # made from the engine (its image token, its tower)
+        mm = mm(eng)
+    prompts = mm or [(rng.integers(0, vocab, size=n).tolist(), None) for n in lens]
+    for i, (ids, images) in enumerate(prompts):
+        r = eng.make_request(ids, SamplingParams(temperature=0.0), image_data=images)
+        r.rid = f"m{i}"
+        n = r.prompt_len
         r.req_slot = runner.req_pool.alloc()
         pages = runner.page_allocator.alloc(-(-(n + 8) // PAGE))
         r.pages = pages.tolist()
@@ -2045,7 +2236,11 @@ def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=
 
 def graph_batch(eng, seed: int):
     """The packed decode step of 64 requests of 520-1000 KV positions
-    (pages from the allocator, random last tokens), and the requests."""
+    (pages from the allocator, random last tokens), and the requests. On an
+    M-RoPE runner (Qwen2-VL) each request's rope position is shifted as an
+    image shifts it (``mrope_delta`` of -1 to -400, drawn after the rest),
+    and the step's pack carries it; the same step unshifted is
+    returned third (else None)."""
     from semi_pd_tpu_torch.runtime.batch import build_decode_batch
     from semi_pd_tpu_torch.runtime.req import Req
     from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
@@ -2064,9 +2259,18 @@ def graph_batch(eng, seed: int):
         r.prefilled_len = r.prompt_len
         r.output_ids.append(int(rng.integers(0, vocab)))
         reqs.append(r)
+    if not runner.mrope:
+        hb = build_decode_batch(reqs, runner.req_pool.page_table, PAGE, sched.b_buckets,
+                                sched.p_buckets)
+        return hb.pack(), reqs, None
+    for r in reqs:
+        r.mrope_pos = np.zeros((r.prompt_len, 3), np.int32)  # decode reads only the delta
+        r.mrope_delta = -int(rng.integers(1, 401))
     hb = build_decode_batch(reqs, runner.req_pool.page_table, PAGE, sched.b_buckets,
                             sched.p_buckets)
-    return hb.pack(), reqs
+    shifted = hb.pack(mrope=True)
+    hb.mrope_pos = None  # the rope at q_pos
+    return shifted, reqs, hb.pack(mrope=True)
 
 
 def graph_phase(eng, label, pool, stream: bool = False):
@@ -2097,12 +2301,20 @@ def graph_phase(eng, label, pool, stream: bool = False):
         return runner.step_packed_raw(*args, is_decode=True, **kw)
 
     results, reqs, steps = [], [], []
+    shift_moves = None
     for seed in (1, 2):  # the second batch chained to the first's tokens
-        step, batch = graph_batch(eng, seed)
+        step, batch, unshifted = graph_batch(eng, seed)
+        if unshifted is not None and not results:
+            # the shifted rope reaches the step: the same step at q_pos
+            # gives other log-probs
+            plain_rope = eager(*unshifted)
+            torch.cuda.synchronize()
         kw = dict(chained=True, prev_tokens=results[0][0][0]) if results else {}
         want = eager(*step, **kw)
         got = graph(*step, **kw)
         torch.cuda.synchronize()
+        if unshifted is not None and not results:
+            shift_moves = float((want[1] - plain_rope[1]).abs().max())
         results.append((want, got))
         steps.append(step)
         reqs += batch
@@ -2148,7 +2360,7 @@ def graph_phase(eng, label, pool, stream: bool = False):
     for r in reqs:
         runner.page_allocator.free(np.asarray(r.pages, np.int32))
     res = dict(model=label, pool=pool, decode_stream=stream, key=list(step1[2][1:]),
-               checks=checks, captures=captures,
+               checks=checks, captures=captures, mrope_shift_logprob_moves=shift_moves,
                capture_s=graphs.stats["capture_s"] - stats0["capture_s"],
                graph_pool_bytes=graphs.pool_bytes(),
                eager_step_ms=wall["eager"], graph_step_ms=wall["graph"],
@@ -2159,6 +2371,8 @@ def graph_phase(eng, label, pool, stream: bool = False):
         raise AssertionError(f"{label}: replays differ from the eager step: {bad}")
     if captures != 1:
         raise AssertionError(f"{label}: {captures} captures for one key")
+    if shift_moves is not None and not shift_moves > 0:
+        raise AssertionError(f"{label}: the shifted M-RoPE position does not reach the step")
     return res
 
 
@@ -2172,9 +2386,10 @@ def prompts_for(vocab: int, max_len: int = 3072):
 
 
 def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False,
-               eager: bool = False):
+               eager: bool = False, images=None):
     """One serve of the 32 prompts; ``eager``: the decode steps run eagerly
-    instead of replaying the runner's graphs."""
+    instead of replaying the runner's graphs; ``images``: each request's
+    ``image_data`` (its images are encoded inside the serve)."""
     import torch
 
     from semi_pd_tpu_torch.kernels import KERNELS
@@ -2202,7 +2417,8 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False,
     torch.cuda.synchronize()
     t0 = time.monotonic()
     try:
-        outs = eng.generate(input_ids=prompts, sampling_params=sp, return_logprob=True)
+        outs = eng.generate(input_ids=prompts, sampling_params=sp, return_logprob=True,
+                            image_data=images)
         torch.cuda.synchronize()
     finally:
         runner.graphs = graphs
@@ -3143,7 +3359,7 @@ def spec_fallback_serve(eng, algo, prompts, main_launches, smi, label, max_new=2
     return res
 
 
-def reward_phase(label, cfg, main_launches, smi):
+def reward_phase(label, cfg, main_launches, smi, scores=True, reduced=None):
     """InternLM2's reward model at full width (tied, with its v_head): the
     rewards of 4 prompts (700, 300, 1500 and 37 tokens; ``Engine.encode``,
     the v_head on each last final-normed hidden state) and their input
@@ -3152,7 +3368,9 @@ def reward_phase(label, cfg, main_launches, smi):
     weights: each within the model gate of the plain version (in the
     gate's measure: the largest difference over the largest plain value),
     the attentive rewards moved past the gate by a zeroed attention. Only
-    rpa_extend_aligned launches (encode and score are extend steps)."""
+    rpa_extend_aligned launches (encode and score are extend steps). A
+    sequence classifier (``scores`` False) has no logits: its scores
+    alone."""
     import torch
 
     from semi_pd_tpu_torch.kernels import KERNELS
@@ -3174,12 +3392,14 @@ def reward_phase(label, cfg, main_launches, smi):
         runner.attention = attention
         try:
             rewards = np.asarray(eng.encode(input_ids=prompts), np.float64)
-            lps = np.concatenate([[lp for lp, _ in r] for r in eng.score(input_ids=prompts)])
+            lps = (np.concatenate([[lp for lp, _ in r] for r in eng.score(input_ids=prompts)])
+                   if scores else np.ones(1))
         finally:
             runner.attention = kernels
         return rewards, lps
 
-    res = dict(model=label, gpu=smi, params=sum(p.numel() for p in runner.model.parameters()))
+    res = dict(model=label, gpu=smi, params=sum(p.numel() for p in runner.model.parameters()),
+               reduced=reduced)
     launches = collections.Counter()
     for attentive in (False, True):
         saved = make_attentive(runner.model) if attentive else {}
@@ -3212,6 +3432,195 @@ def reward_phase(label, cfg, main_launches, smi):
     torch.cuda.empty_cache()
     print("reward " + json.dumps(dict(res, launches=dict(launches), seconds=time.monotonic() - t0)),
           flush=True)
+
+
+# ------------------------------------------------------------ the image path
+def text_ids(ids, model):
+    """Random text ids without the image token (each of its occurrences
+    would take an image's placeholders, and the prompt another image)."""
+    tok = model.image_token_index
+    return [t - 1 if t == tok else t for t in ids]
+
+
+def vlm_image(model, rng, h=None, w=None):
+    """A random normalized image [3, H, W] at the model's resolution (LLaVA's
+    and Yi-VL's tower size; Qwen-VL: ``h`` x ``w``, 448 x 448 by default: 256
+    merged tokens)."""
+    if hasattr(model, "patchify"):
+        h, w = h or 448, w or 448
+    else:
+        h = w = model.tower.image_size
+    return rng.standard_normal((3, h, w), dtype=np.float32)
+
+
+def vlm_prompts(eng, seed=0, max_len=3072):
+    """The 32 prompts of ``prompts_for`` with one ``<image>`` token each, at
+    a random position, and their images (Qwen-VL: the 9th a 672 x 448
+    image, the rest 448 x 448)."""
+    model = eng.runner.model
+    rng = np.random.default_rng(seed + 100)
+    prompts, images = [], []
+    for i, ids in enumerate(prompts_for(eng.runner.model_config.vocab_size, max_len)):
+        ids = text_ids(ids, model)
+        at = int(rng.integers(0, len(ids)))
+        prompts.append(ids[:at] + [model.image_token_index] + ids[at:])
+        images.append(vlm_image(model, rng, 672, 448) if i == 8 and hasattr(model, "patchify")
+                      else vlm_image(model, rng))
+    return prompts, images
+
+
+def vlm_model_prompts(eng):
+    """Phase 3's four prompts (700, 300, 1500, 37 text tokens) on a
+    vision-language model: an image in the first three (the second's
+    first token, the first's and third's in their middle), none in the
+    last."""
+    model = eng.runner.model
+    rng = np.random.default_rng(11)
+    vocab = eng.runner.model_config.vocab_size
+    out = []
+    for n, at in ((700, 350), (300, 0), (1500, 750), (37, None)):
+        ids = text_ids(rng.integers(0, vocab, size=n).tolist(), model)
+        if at is None:
+            out.append((ids, None))
+        else:
+            out.append((ids[:at] + [model.image_token_index] + ids[at:], vlm_image(model, rng)))
+    return out
+
+
+def image_gate(eng, label, smi):
+    """The image gate (as C15's attention gate): one prompt of 40 text
+    tokens (an instruction's length) with an image in its middle, with two
+    different images, through
+    the kernels in one extend step; the largest move of the logits at the
+    prompt's last row between the two images, over the largest logit, must
+    pass MODEL_GATE on the model phase's attentive weights (make_attentive:
+    the towers' and projector's norms at 1); on the raw weights it is
+    printed. Returns the attentive move."""
+    import torch
+
+    from semi_pd_tpu_torch.runtime.batch import build_extend_batch
+    from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner, sched = eng.runner, eng.scheduler
+    model = runner.model
+    rng = np.random.default_rng(12)
+    ids = text_ids(rng.integers(0, runner.model_config.vocab_size, size=40).tolist(), model)
+    ids = ids[:20] + [model.image_token_index] + ids[20:]
+    res = dict(model=label, gpu=smi)
+    for attentive in (False, True):
+        saved = make_attentive(model) if attentive else {}
+        reqs = []
+        try:
+            for img in (vlm_image(model, rng), vlm_image(model, rng)):
+                r = eng.make_request(ids, SamplingParams(temperature=0.0), image_data=img)
+                r.req_slot = runner.req_pool.alloc()
+                pages = runner.page_allocator.alloc(-(-r.prompt_len // PAGE))
+                r.pages = pages.tolist()
+                runner.req_pool.write(r.req_slot, 0, pages)
+                reqs.append(r)
+            hb = build_extend_batch([(r, r.prompt_len) for r in reqs], runner.req_pool.page_table,
+                                    PAGE, sched.t_buckets, sched.b_buckets, sched.p_buckets)
+            with torch.inference_mode():
+                lg = model(hb.to_device(runner.device), runner.kv_cache.buffer,
+                           attention=runner.attention)[:2].float()
+            move = float((lg[0] - lg[1]).abs().max() / lg[0].abs().max())
+        finally:
+            restore(model, saved)
+            for r in reqs:
+                runner.page_allocator.free(np.asarray(r.pages, np.int32))
+                runner.req_pool.free(r.req_slot)
+        res["attentive" if attentive else "raw"] = move
+    print("image_gate " + json.dumps(res), flush=True)
+    if not res["attentive"] > MODEL_GATE:
+        raise AssertionError(f"{label}: another image moves the logits {res['attentive']:.3g} "
+                             f"<= {MODEL_GATE} on attentive weights: the gate cannot see it")
+    return res["attentive"]
+
+
+def tower_time(eng, label, smi):
+    """The vision tower's (and projector's) time per image on the card:
+    ``encode_images`` of one image, CUDA events over 5 calls after one
+    warm-up; tokens per image beside it."""
+    import torch
+
+    runner, model = eng.runner, eng.runner.model
+    rng = np.random.default_rng(13)
+    img = vlm_image(model, rng)
+    if hasattr(model, "patchify"):
+        patches, grid = model.patchify(img)
+        call = lambda: runner.encode_images_patches(patches, grid)
+    else:
+        call = lambda: runner.encode_images(img[None])
+    out = call()
+    ms = cuda_ms(call, 5)
+    tokens = int(np.prod(out.shape[:-1]))
+    res = dict(model=label, gpu=smi, tower_ms=ms, tokens_per_image=tokens,
+               dtype=str(out.dtype).replace("torch.", ""),
+               image=list(img.shape))
+    print("tower " + json.dumps(res), flush=True)
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: non-finite image features")
+    return res
+
+
+def vlm_checks(eng, label, smi):
+    """On the model phase's attentive weights, colocated, 16 greedy tokens
+    each: a request with two images; an ``input_embeds`` request whose rows
+    are the embedding rows of an ``input_ids`` request, which must give its
+    tokens; and ROADMAP C19: the ids of an image prompt served first as
+    text (the radix tree now holds their pages), then with image A, then
+    with image B: B must give the tokens and log-probs it gives on a
+    flushed cache, with nothing cached, and A other log-probs than B (the
+    image reaches the output)."""
+    import torch
+
+    from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
+
+    runner, model = eng.runner, eng.runner.model
+    rng = np.random.default_rng(14)
+    vocab = runner.model_config.vocab_size
+    sp = SamplingParams(max_new_tokens=16, temperature=0.0, ignore_eos=True)
+    tok = model.image_token_index
+    saved = make_attentive(model)
+    try:
+        if not eng.flush_cache():
+            raise AssertionError("engine not idle before the image checks")
+        ids = text_ids(rng.integers(0, vocab, size=400).tolist(), model)
+        two = eng.generate(input_ids=ids[:100] + [tok] + ids[100:300] + [tok] + ids[300:],
+                           image_data=[vlm_image(model, rng), vlm_image(model, rng)],
+                           sampling_params=sp)
+        text = text_ids(rng.integers(0, vocab, size=300).tolist(), model)
+        by_ids = eng.generate(input_ids=text, sampling_params=sp)["output_ids"]
+        rows = model.embed[torch.as_tensor(text, device=runner.device)].float().cpu().numpy()
+        by_rows = eng.generate(input_embeds=rows, sampling_params=sp)["output_ids"]
+        img_ids = ids[:150] + [tok] + ids[150:]
+        expanded = eng._expand_image_tokens(img_ids, vlm_image(model, np.random.default_rng(1)))
+        eng.generate(input_ids=expanded, sampling_params=sp)  # the ids' pages in the tree
+        lp = dict(sampling_params=sp, return_logprob=True)
+        a = eng.generate(input_ids=img_ids, image_data=vlm_image(model, rng), **lp)
+        img_b = vlm_image(model, rng)
+        b = eng.generate(input_ids=img_ids, image_data=img_b, **lp)
+        if not eng.flush_cache():
+            raise AssertionError("engine not idle after the image checks")
+        b_fresh = eng.generate(input_ids=img_ids, image_data=img_b, **lp)
+    finally:
+        restore(model, saved)
+    res = dict(model=label, gpu=smi, two_images_tokens=len(two["output_ids"]),
+               input_embeds_same_tokens=by_rows == by_ids,
+               c19=dict(cached_tokens=b["meta_info"]["cached_tokens"],
+                        warm_equals_fresh=(b["output_ids"] == b_fresh["output_ids"] and
+                                           b["meta_info"]["output_logprobs"]
+                                           == b_fresh["meta_info"]["output_logprobs"]),
+                        a_b_tokens_differ=a["output_ids"] != b["output_ids"],
+                        a_b_logprob_max_diff=float(np.max(np.abs(
+                            np.subtract(a["meta_info"]["output_logprobs"],
+                                        b["meta_info"]["output_logprobs"]))))))
+    print("image_checks " + json.dumps(res), flush=True)
+    if len(two["output_ids"]) != 16 or not res["input_embeds_same_tokens"]:
+        raise AssertionError(f"{label}: {res}")
+    c = res["c19"]
+    if c["cached_tokens"] or not c["warm_equals_fresh"] or not c["a_b_logprob_max_diff"] > 0:
+        raise AssertionError(f"{label}: C19 {c}")
 
 
 def path_kernels(kv_cache):
@@ -3415,6 +3824,8 @@ def main() -> int:
     # the LayerNorm families' heads: G = 48, 9 and 71 (head groups past 16),
     # the merged pool at Hkv 20, the chunked pool at Hkv 32
     rows += phase_kernels_layernorm()
+    # the image path's G = 7 and the Gemma-2 classifier's 32 / 16 at head_dim 128
+    rows += phase_kernels_vlm()
     print("kernels_phase " + json.dumps(dict(cases=len(rows) + len(spec_rows),
                                              seconds=time.monotonic() - t0)), flush=True)
 
@@ -4052,6 +4463,71 @@ def main() -> int:
     model_only("phi-3-small-8k", published_config("microsoft/Phi-3-small-8k-instruct"))
     model_only("dbrx-base", published_config("databricks/dbrx-base", num_hidden_layers=4),
                reduced="4 of 40 layers (one layer's experts are 6.3 GB in bf16)")
+
+    # the image path (the JAX package's vision.py, llava.py, qwen2_vl.py) from
+    # PUBLISHED_VLM at full depth: LLaVA-1.5-7B (CLIP ViT-L/14-336, 576
+    # tokens an image, float32 tower; Llama-2-7B at 32 / 32 heads: 512 KiB of
+    # bf16 KV a token, a 65536-token pool) and Qwen2-VL-7B (G = 7, M-RoPE;
+    # its 32768 window never cuts at this context, and left out it lets
+    # decode_stream reach the streaming decode, which the routing keeps off
+    # a windowed layer) through phases 3 (raw, attentive, Qwen2-VL also
+    # streamed), the image gate, the tower's time, 3g (Qwen2-VL's rope
+    # positions shifted) and 4 (32 requests with an image each, both
+    # modes), then the image checks (two images, input_embeds, C19)
+    def vlm_path(label, cfg, pool, tokens, stream=False):
+        eng = model_phase(label, cfg, "auto", tokens=tokens, mm=vlm_model_prompts)
+        model_phase(label, None, "auto", eng=eng, mm=vlm_model_prompts, attentive=True)
+        if stream:
+            model_phase(label, None, "auto", eng=eng, mm=vlm_model_prompts, stream=True)
+        image_gate(eng, label, smi)
+        tower_time(eng, label, smi)
+        graph_phase(eng, label, pool)
+        t0 = time.monotonic()
+        prompts, images = vlm_prompts(eng)
+        outs = []
+        for semi in (False, True):
+            r, out = serve_mode(eng, semi, prompts, cfg.vocab_size, pool, images=images)
+            outs.append(out)
+            for k, v in r["launches"].items():
+                main_launches[k] += v
+            print("serve " + json.dumps(dict(r, model=label, gpu=smi, images=len(images))),
+                  flush=True)
+        same = float(np.mean([a == b for a, b in zip(*outs)]))
+        print("serve_phase " + json.dumps(dict(model=label, modes_same_tokens=same,
+                                               seconds=time.monotonic() - t0)), flush=True)
+        vlm_checks(eng, label, smi)
+        release(eng)
+
+    def vlm_model_only(label, cfg, tokens=65536):
+        """Phase 3 (raw and attentive), the image gate and the tower's time."""
+        eng = model_phase(label, cfg, "auto", tokens=tokens, mm=vlm_model_prompts)
+        model_phase(label, None, "auto", eng=eng, mm=vlm_model_prompts, attentive=True)
+        image_gate(eng, label, smi)
+        tower_time(eng, label, smi)
+        release(eng)
+
+    vlm_path("llava-1.5-7b", published_config("llava-hf/llava-1.5-7b-hf", context_length=4096),
+             "aligned", tokens=65536)
+    vlm_path("qwen2-vl-7b", published_config("Qwen/Qwen2-VL-7B-Instruct", sliding_window=None),
+             "aligned", tokens=131072, stream=True)
+    # phase 3 alone at full depth: Qwen2.5-VL-7B (the window tower) and
+    # Yi-VL-6B (CLIP ViT-H/14 at 448 pixels: 1024 tokens an image; G = 8)
+    vlm_model_only("qwen2.5-vl-7b", published_config("Qwen/Qwen2.5-VL-7B-Instruct",
+                                                     sliding_window=None))
+    vlm_model_only("yi-vl-6b", published_config("01-ai/Yi-VL-6B", context_length=4096))
+    # the sequence classifiers (classify.py): their scores through
+    # Engine.encode, kernels vs plain, raw and attentive (reward_phase)
+    reward_phase("skywork-reward-llama-3.1-8b",
+                 published_config("Skywork/Skywork-Reward-Llama-3.1-8B-v0.2"), main_launches,
+                 smi, scores=False)
+    reward_phase("skywork-reward-gemma-2-27b",
+                 published_config("Skywork/Skywork-Reward-Gemma-2-27B-v0.2",
+                                  num_hidden_layers=11), main_launches, smi, scores=False,
+                 reduced="11 of 46 layers")
+    reward_phase("qwen2.5-math-rm-72b",
+                 published_config("Qwen/Qwen2.5-Math-RM-72B", context_length=4096,
+                                  num_hidden_layers=8), main_launches, smi, scores=False,
+                 reduced="8 of 80 layers (the whole model is 145 GB in bf16)")
 
     # 5. the kernels line: each kernel's case at its path's representative
     # shape and types (the 8B path serves with fp8_e4m3 KV); every kernel

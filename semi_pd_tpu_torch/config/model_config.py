@@ -11,11 +11,13 @@ grok.py (InternLM2 and its reward model, ExaOne, Baichuan, QWen v1,
 MiniCPM, XverseMoe, DeepSeek-V1, Glm, Glm4, ChatGLM, Phi-3, Granite,
 Grok-1), and the LayerNorm families of layernorm_families.py, gpt2.py and
 olmo_falcon_dbrx.py (StableLM, Starcoder2, Phi, Cohere, OLMo-2,
-Phi-3-small, GPT-2, GPT-BigCode, OLMo-1, Falcon, DBRX). ``from_hf_config``
-reads a HuggingFace
-``config.json`` (a dict, or any object with its keys as attributes) for
-these architectures by the JAX package's rules; ``from_model_path`` and
-the multimodal fields are not part of the port (ROADMAP A13-A14). Configs
+Phi-3-small, GPT-2, GPT-BigCode, OLMo-1, Falcon, DBRX), the sequence
+classifiers of classify.py and the vision-language models of llava.py and
+qwen2_vl.py (``is_multimodal``, with the whole HF config kept in
+``hf_config`` for their vision towers). ``from_hf_config`` reads a
+HuggingFace ``config.json`` (a dict, or any object with its keys as
+attributes) for these architectures by the JAX package's rules;
+``from_model_path`` is not part of the port (ROADMAP A13). Configs
 may also be built directly, as ``bench.py`` and ``__graft_entry__.py`` do;
 an MLA config then sets ``use_mla`` and ``head_dim = qk_nope_head_dim +
 qk_rope_head_dim`` itself, as ``from_hf_config`` does.
@@ -29,6 +31,10 @@ from typing import Any, Dict, List, Optional
 # Architectures whose attention is Multi-head Latent Attention (the latent
 # pool), as in the JAX package
 MLA_ARCHS = {"DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM", "MiniCPM3ForCausalLM"}
+# the vision-language models (models/llava.py, models/qwen2_vl.py)
+MULTIMODAL_ARCHS = ("LlavaForConditionalGeneration", "LlavaLlamaForCausalLM", "YiVLForCausalLM",
+                    "LlavaVidForCausalLM", "Qwen2VLForConditionalGeneration",
+                    "Qwen2_5_VLForConditionalGeneration")
 # ChatGLM's three strings (the JAX clause's)
 CHATGLM_ARCHS = ("ChatGLMModel", "ChatGLMForConditionalGeneration", "ChatGLMForCausalLM")
 # the HF keys a class reads when it is built, kept as fields of their own
@@ -107,6 +113,14 @@ HF_DEFAULTS = {
     "DbrxForCausalLM": dict(hidden_size=2048, num_hidden_layers=24, num_attention_heads=16,
                             max_position_embeddings=2048),
 }
+
+def _with_architecture(cfg, arch: str):
+    """A dict copy of config ``cfg`` (a dict or an object) naming ``arch``."""
+    d = dict(cfg) if isinstance(cfg, dict) else (
+        cfg.to_dict() if hasattr(cfg, "to_dict") else dict(vars(cfg)))
+    return {**d, "architectures": [arch]}
+
+
 # DBRX's nested configs' defaults (DbrxAttentionConfig, DbrxFFNConfig)
 DBRX_SUB_DEFAULTS = dict(kv_n_heads=1, rope_theta=10000.0, clip_qkv=None, ffn_hidden_size=3584,
                          moe_num_experts=4, moe_top_k=1)
@@ -230,6 +244,14 @@ class ModelConfig:
 
     dtype: str = "bfloat16"
 
+    # the vision-language models (the JAX fields): the outer architecture of
+    # a config that wraps a text_config, whose whole HF config (a dict or an
+    # object) is kept for the vision tower and the image token; hf_config is
+    # kept for every config (a classifier's num_labels, a Qwen-VL's flat
+    # vision_config)
+    is_multimodal: bool = False
+    hf_config: Optional[Any] = dataclasses.field(default=None, repr=False)
+
     @property
     def kv_head_dim(self) -> int:
         """Per-token per-head KV width as stored in the pool: the latent
@@ -282,6 +304,12 @@ class ModelConfig:
           Phi-3-small has no such class: its width is ``intermediate_size``
           or 4 x hidden, as JAX reads it (its config.json names the width
           ``ff_intermediate_size``: ROADMAP C);
+        - the VLM clause (JAX :117-131): a config with a ``text_config``
+          (LLaVA's, Yi-VL's, LLaVA-Vid's) is read from its text config,
+          then takes the outer architecture (``LlavaForConditionalGeneration``
+          for a ``LlavaConfig`` without one), ``is_multimodal`` and the
+          whole config as ``hf_config``; Qwen2-VL's flat config.json is
+          read as it is (``is_multimodal`` from the architecture);
         - ``is_embedding`` for the *Model, *Classification and *Reward*
           strings (ChatGLMModel and QWenLMHeadModel among them, which the
           JAX rule flags too; nothing but the Engine's ServerArgs acts on
@@ -305,6 +333,26 @@ class ModelConfig:
                 return k in cfg, cfg.get(k)
             return hasattr(cfg, k), getattr(cfg, k, None)
 
+        # the runner's table is the one list of what the port serves (imported
+        # here: the runner imports this module)
+        from semi_pd_tpu_torch.runtime.model_runner import ARCHITECTURES
+
+        present, inner = raw(hf_config, "text_config")
+        if inner is not None and raw(inner, "num_hidden_layers")[0]:
+            # the text config, read as the JAX package reads it: its own
+            # architecture if it names one, else a Llama trunk (a text
+            # config class the JAX rule names after itself has no clause)
+            if (raw(inner, "architectures")[1] or [None])[0] not in ARCHITECTURES:
+                inner = _with_architecture(inner, "LlamaForCausalLM")
+            cfg = cls.from_hf_config(inner, context_length=context_length, dtype=dtype)
+            outer = raw(hf_config, "architectures")[1]
+            if outer:
+                cfg.architecture = outer[0]
+            elif type(hf_config).__name__ == "LlavaConfig":
+                cfg.architecture = "LlavaForConditionalGeneration"
+            cfg.is_multimodal = True
+            cfg.hf_config = hf_config
+            return cfg
         present, arch_list = raw(hf_config, "architectures")
         if arch_list:
             arch = arch_list[0]
@@ -325,10 +373,6 @@ class ModelConfig:
                     if present:
                         return v
             return defaults.get(k, d)
-
-        # the runner's table is the one list of what the port serves (imported
-        # here: the runner imports this module)
-        from semi_pd_tpu_torch.runtime.model_runner import ARCHITECTURES
 
         if arch not in ARCHITECTURES:
             raise NotImplementedError(f"{arch}: the port reads the configs of "
@@ -418,9 +462,9 @@ class ModelConfig:
         # what the JAX models read from the HF config when they are built
         for key in BUILD_KEYS.get(arch, ()):
             setattr(cfg, key, g(key))
-        if arch in ("GemmaForCausalLM", "Gemma2ForCausalLM"):
+        if arch in ("GemmaForCausalLM", "Gemma2ForCausalLM", "Gemma2ForSequenceClassification"):
             cfg.query_pre_attn_scalar = g("query_pre_attn_scalar")
-        if arch == "Gemma2ForCausalLM":
+        if arch in ("Gemma2ForCausalLM", "Gemma2ForSequenceClassification"):
             cfg.attn_logit_softcap = g("attn_logit_softcapping")
             cfg.logit_softcap = g("final_logit_softcapping")
         if arch in ("MiniCPMForCausalLM", "MiniCPM3ForCausalLM"):
@@ -459,4 +503,6 @@ class ModelConfig:
             ses = g("shared_expert_intermediate_size")
             if ses:
                 cfg.num_shared_experts = max(1, ses // cfg.moe_intermediate_size)
+        cfg.is_multimodal = arch in MULTIMODAL_ARCHS
+        cfg.hf_config = hf_config
         return cfg

@@ -13,7 +13,9 @@ float32 stays at one layer of a leaf (Gemma-2's sandwich norms,
 ``layers.post_attn_norm`` / ``post_ffw_norm`` / ``pre_ffw_norm``, and the
 MoE classes' expert stacks, ``layers.experts.gate_up`` [L, E, H, 2F] and
 ``layers.experts.down``, are such leaves); per-layer leaves (DeepSeek's ``layers.<l>.<name>``) are one layer
-already and are drawn whole.
+already and are drawn whole; so are the stacks of a child's tree
+(LLaVA's ``lm.layers.<name>``, the vision towers' ``layers`` and
+``blocks``).
 
 The numbers differ from ``jax.random``'s (and between a CUDA and a CPU
 generator), as the JAX package's own ``device_init_params`` differs from
@@ -43,7 +45,10 @@ def device_init_params(model: torch.nn.Module, seed: int, device=None) -> None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(leaf_seed(seed, index))
         keys = path.split(".")
-        stacked = keys[0] == "layers" and not keys[1].isdigit()
+        # a stack's key: "layers" (a tower's "blocks"), at the root or in a
+        # child's tree (LLaVA's "lm.layers", "vision.layers")
+        at = next((i for i, k in enumerate(keys[:-1]) if k in ("layers", "blocks")), None)
+        stacked = at is not None and not keys[at + 1].isdigit()
         parts = param if stacked else param[None]
         for part in parts:  # one layer (or the whole leaf) at a time
             a = torch.randn(part.shape, generator=gen, dtype=torch.float32, device=dev)

@@ -114,10 +114,27 @@ _ATTR = {
     "lm_head.w": "lm_head",
     "pos_embed.w": "pos_embed",  # GPT-2's learned positions
     "v_head.w": "v_head",  # InternLM2's reward head
+    "score.w": "score",  # the sequence classifiers' head (classify.py)
+    "score.fc1.b": "score_fc1_b",  # Qwen2's reward head
+    "score.fc1.w": "score_fc1",
+    "score.fc2.b": "score_fc2_b",
+    "score.fc2.w": "score_fc2",
 }
 
 # the architectures with Qwen3's per-head q/k RMSNorm (JAX llama.py:65-69)
 QK_NORM_ARCHS = ("Qwen3ForCausalLM", "Qwen3MoeForCausalLM")
+
+
+def splice_embeds(h: torch.Tensor, fb) -> torch.Tensor:
+    """``h`` [T, H] with the rows ``fb.embed_rows`` replaced by
+    ``fb.embed_vals`` cast to h's dtype (the JAX ``jnp.where(mask,
+    override.astype(h.dtype), h)``); ``h`` itself where the batch splices
+    nothing."""
+    if fb.embed_rows is None:
+        return h
+    h = h.clone()
+    h[fb.embed_rows] = fb.embed_vals.to(h.dtype)
+    return h
 
 
 def dtype_scalar(v: float, dtype: torch.dtype) -> float:
@@ -137,6 +154,8 @@ class LlamaForCausalLM(TreeParams):
     POS_EMBED = False
     LM_HEAD_BIAS = False
     ACT_FROM_CONFIG = True
+    # Qwen2-VL's M-RoPE position ([T, 3] ``fb.mrope_pos``) for the rope
+    uses_mrope = False
 
     def __init__(self, config: ModelConfig, device):
         super().__init__()
@@ -168,20 +187,25 @@ class LlamaForCausalLM(TreeParams):
         self.page_size = 16  # set by the runner: a property of the pool
         # each layer's sliding window (None: full attention)
         self.layer_windows = [c.sliding_window] * c.num_hidden_layers
-        self.rope = RotaryEmbedding(
-            head_dim=self.head_dim,
-            rotary_dim=int(self.head_dim * c.partial_rotary_factor),
-            max_position=c.context_length,
-            theta=c.rope_theta,
-            rope_scaling=c.rope_scaling,
-            is_neox_style=self.ROPE_NEOX,
-        ).to(device)
+        self.rope = self.make_rope().to(device)
         for path, shape in self.param_specs():
             setattr(self, _ATTR[path], torch.nn.Parameter(
                 torch.zeros(shape, dtype=self.dtype, device=device),
                 requires_grad=False))
         if c.tie_word_embeddings:
             self.lm_head = None
+
+    def make_rope(self) -> RotaryEmbedding:
+        """The rope of the config (Qwen2-VL: its M-RoPE)."""
+        c = self.config
+        return RotaryEmbedding(
+            head_dim=self.head_dim,
+            rotary_dim=int(self.head_dim * c.partial_rotary_factor),
+            max_position=c.context_length,
+            theta=c.rope_theta,
+            rope_scaling=c.rope_scaling,
+            is_neox_style=self.ROPE_NEOX,
+        )
 
     # ------------------------------------------------------------- params
     def param_specs(self) -> List[Tuple[str, Tuple[int, ...]]]:
@@ -283,6 +307,7 @@ class LlamaForCausalLM(TreeParams):
             h = h * self.embed_scale
         if self.POS_EMBED:
             h = h + self.pos_embed[fb.q_pos.long()]
+        h = splice_embeds(h, fb)
         for layer in range(self.config.num_hidden_layers):
             h = self._layer(layer, h, fb, kv_cache, attention)
         return self.norm_fn(h, self.norm_leaf("final_norm"), self.config.rms_norm_eps)
@@ -331,7 +356,8 @@ class LlamaForCausalLM(TreeParams):
             q = self.norm_fn(q, self.q_norm[layer], c.rms_norm_eps)
             k = self.norm_fn(k, self.k_norm[layer], c.rms_norm_eps)
         if not self.no_rope:
-            q, k = self.rope(fb.q_pos, q, k)
+            pos = fb.mrope_pos if self.uses_mrope and fb.mrope_pos is not None else fb.q_pos
+            q, k = self.rope(pos, q, k)
         out = paged_attention(
             q, k, v, kv_cache, layer, fb, page_size=self.page_size,
             scale=self.scale, logit_cap=c.attn_logit_softcap,

@@ -5,7 +5,9 @@ pairs in the order ``jax.tree`` visits the JAX tree: dict keys sorted,
 list items in order; a path's parts are dict keys, or list indices written
 as digits, e.g. ``"layers.3.kv_a.w"``) and returns each leaf's parameter
 from ``leaf(path)``. This base gives it the JAX ``init_params(seed)``
-numbers, ``load_jax_params`` and ``params_tree``.
+numbers, ``load_jax_params`` and ``params_tree``. ``make_leaves`` gives a
+module one parameter per leaf of its ``param_specs`` (named after the path,
+"." as "__"), which the default ``leaf`` returns.
 """
 
 from __future__ import annotations
@@ -21,8 +23,14 @@ class TreeParams(torch.nn.Module):
         raise NotImplementedError
 
     def leaf(self, path: str) -> torch.nn.Parameter:
-        raise NotImplementedError
+        return getattr(self, path.replace(".", "__"))
 
+    def make_leaves(self, dtype: torch.dtype, device) -> None:
+        """A zero parameter per leaf of ``param_specs`` that ``leaf`` reads
+        by its own name."""
+        for path, shape in self.param_specs():
+            self.register_parameter(path.replace(".", "__"), torch.nn.Parameter(
+                torch.zeros(shape, dtype=dtype, device=device), requires_grad=False))
     @torch.no_grad()
     def init_params(self, seed: int = 0) -> None:
         """Random init drawing the JAX ``init_params(seed)`` numbers: one

@@ -14,7 +14,9 @@ orig (s = its length / orig), or by explicit ``short_mscale`` /
 its factor. "dynamic" is served as the base table, as the JAX package
 serves it. Rotation is GPT-NeoX style (two halves, Llama, MiniCPM3's pe
 head) or GPT-J interleaved (``is_neox_style=False``, DeepSeek, the GLM
-family over the first ``rotary_dim`` dims). m-rope is ROADMAP A14.
+family over the first ``rotary_dim`` dims). ``MRotaryEmbedding`` is
+Qwen2-VL's multimodal rope: (t, h, w) positions, each frequency section
+reading its own row.
 """
 
 from __future__ import annotations
@@ -171,3 +173,39 @@ def _apply_rope(x, cos, sin, rotary_dim: int, neox: bool = True):
     if rest.shape[-1]:
         out = torch.cat([out, rest.to(dtype)], dim=-1)
     return out
+
+
+class MRotaryEmbedding(RotaryEmbedding):
+    """Multimodal 3D rope (Qwen2-VL; port of semi_pd_tpu/ops/rope.py:186-212
+    MRotaryEmbedding): the frequency channels are cut into ``mrope_section``
+    [t, h, w] (summing to rotary_dim / 2), each section reading its cos/sin
+    from its own component of a [T, 3] position; a [T] position is
+    broadcast to all three, which gives the 1D rope. The table is the
+    default one: a config's ``{"type": "mrope", "mrope_section": ...}``
+    names this class and no other scaling (``rope_scaling`` of another type
+    raises, as in RotaryEmbedding)."""
+
+    def __init__(self, *args, mrope_section=None, rope_scaling=None, **kwargs):
+        if rope_scaling and rope_scaling.get("rope_type", rope_scaling.get("type")) == "mrope":
+            rope_scaling = None
+        super().__init__(*args, rope_scaling=rope_scaling, **kwargs)
+        if mrope_section is None or sum(mrope_section) != self.rotary_dim // 2:
+            raise ValueError(f"mrope_section {mrope_section} must sum to rotary_dim / 2 = "
+                             f"{self.rotary_dim // 2}")
+        self.mrope_section = list(mrope_section)
+        sel = np.repeat(np.arange(3), self.mrope_section)  # component per channel
+        self.register_buffer("section", torch.from_numpy(sel), persistent=False)
+
+    def forward(self, positions: torch.Tensor, q: torch.Tensor,
+                k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """positions: [T, 3] (or [T], broadcast); q: [T, Hq, D]; k: [T, Hk, D]."""
+        p = positions.long()
+        if p.dim() == 1:
+            p = p[:, None].expand(-1, 3)
+        # each channel's row from its section's component: [T, rot/2]
+        rows = torch.gather(p, 1, self.section[None, :].expand(p.shape[0], -1))
+        chan = torch.arange(self.cos.shape[1], device=p.device)
+        cos = self.cos[rows, chan][:, None, :]
+        sin = self.sin[rows, chan][:, None, :]
+        return (_apply_rope(q, cos, sin, self.rotary_dim, self.is_neox_style),
+                _apply_rope(k, cos, sin, self.rotary_dim, self.is_neox_style))

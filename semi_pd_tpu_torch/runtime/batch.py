@@ -8,8 +8,20 @@ speculative verify batches (``build_spec_verify_batch``,
 ``build_tree_verify_batch``) pack too, a logits row per verify row and a
 tree's slot-order positions and window starts included: a round graph's
 static buffers take them in two copies (runtime/cuda_graph_runner.py);
-an eager round takes ``to_device``'s tensors, one copy per array. LoRA,
-multimodal and m-rope batches are later slices (ROADMAP A14).
+an eager round takes ``to_device``'s tensors, one copy per array.
+
+The image path (JAX batch.py:280-311, :374-383): an extend batch splices
+the rows of its chunk that a request's ``mm_positions`` name (each image
+straddling chunks is spliced in each), as ``embed_rows`` (flat row
+indices) and ``embed_vals`` (those rows of the requests' ``mm_embeds``,
+slices of the device tensors the towers made), where the JAX batch uploads
+a dense [T, H] float32 override and a mask; an M-RoPE batch carries
+``mrope_pos`` [T, 3]: a Qwen-VL request's own rows in its prompt, ``pos +
+mrope_delta`` past it (decode). ``pack(mrope=True)`` (a runner whose model
+ropes by M-RoPE) appends ``mrope_pos``, or ``q_pos`` on all three
+components where the batch has none, before the request count, so every
+decode step of such a runner packs alike and one decode graph per key
+replays the shifted position. LoRA batches are a later slice (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -57,6 +69,10 @@ class HostBatch:
     # [B] slot-order position of each request's first row, where it is not
     # kv_lens - q_lens (a verify's rows past a short draft)
     q_start: np.ndarray = None
+    # the image path (module docstring)
+    mrope_pos: np.ndarray = None  # [T, 3] i32
+    embed_rows: np.ndarray = None  # [n] i64
+    embed_vals: object = None  # [n, H] device tensor
 
     def q_lens(self) -> np.ndarray:
         q_lens = np.zeros(self.B, np.int32)
@@ -86,12 +102,32 @@ class HostBatch:
                                       self.q_starts()),
             all_greedy=bool(np.all(s.temperature[: len(self.reqs)] <= 0.0)),
             mask_pos=opt(self.mask_pos), win_base=opt(self.win_base),
+            mrope_pos=opt(self.mrope_pos), **self.splice(device),
         )
 
-    def pack(self) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int, int, int]]:
+    def splice(self, device) -> dict:
+        """The ForwardArrays fields of the batch's splice (``embed_rows``,
+        ``embed_vals`` on ``device``); none where it splices nothing."""
+        if self.embed_rows is None:
+            return {}
+        import torch
+
+        return dict(embed_rows=torch.from_numpy(self.embed_rows).to(device, non_blocking=True),
+                    embed_vals=self.embed_vals.to(device))
+
+    def rope_rows(self) -> np.ndarray:
+        """The M-RoPE positions [T, 3]: ``mrope_pos``, or ``q_pos`` on all
+        three components."""
+        if self.mrope_pos is not None:
+            return self.mrope_pos
+        return np.repeat(self.q_pos[:, None], 3, axis=1)
+
+    def pack(self, mrope: bool = False
+             ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int, int, int]]:
         """Pack every per-step array into ONE int32 vector and ONE float32
         vector (layout of the JAX package's HostBatch.pack; a tree batch's
-        ``mask_pos`` and ``win_base`` after ``top_k``, and the request count
+        ``mask_pos`` and ``win_base`` after ``top_k``, with ``mrope`` the
+        M-RoPE positions [T, 3] (``rope_rows``), and the request count
         last). The runner re-slices them with the static layout (T, B,
         maxP, NQB; ``pack_len``)."""
         T = self.T
@@ -99,10 +135,11 @@ class HostBatch:
         bs, br, bq = make_attn_meta_host(q_lens, T)
         s = self.sampling
         tree = [] if self.mask_pos is None else [self.mask_pos, self.win_base]
+        rope = [self.rope_rows().reshape(-1)] if mrope else []
         ints = np.concatenate([
             self.input_ids, self.q_req_idx, self.q_pos, self.out_slots,
             self.page_table.reshape(-1), self.kv_lens, self.logits_idx,
-            q_lens, self.q_starts(), bs, br, bq, s.top_k, *tree,
+            q_lens, self.q_starts(), bs, br, bq, s.top_k, *tree, *rope,
             np.array([len(self.reqs)], np.int32),
         ]).astype(np.int32)
         floats = np.concatenate([
@@ -113,12 +150,14 @@ class HostBatch:
 
 
 def pack_len(T: int, B: int, maxP: int, NQB: int, n_logits: Optional[int] = None,
-             tree: bool = False) -> int:
+             tree: bool = False, mrope: bool = False) -> int:
     """Length of ``HostBatch.pack()``'s int vector: ``n_logits`` logits
-    rows (B by default; a verify batch's T), and with ``tree`` the tree's
-    ``mask_pos`` [T] and ``win_base`` [B]."""
+    rows (B by default; a verify batch's T), with ``tree`` the tree's
+    ``mask_pos`` [T] and ``win_base`` [B], with ``mrope`` the M-RoPE
+    positions [T, 3]."""
     n_logits = B if n_logits is None else n_logits
-    return 4 * T + B * maxP + n_logits + 4 * B + 3 * NQB + 1 + (T + B if tree else 0)
+    return (4 * T + B * maxP + n_logits + 4 * B + 3 * NQB + 1 + (T + B if tree else 0)
+            + (3 * T if mrope else 0))
 
 
 def _sampling_arrays_np(reqs: List[Req], B: int) -> SamplingArrays:
@@ -177,10 +216,23 @@ def build_extend_batch(
     out_slots = np.zeros(T, np.int32)
     kv_lens = np.zeros(B, np.int32)
     logits_idx = np.zeros(B, np.int32)
+    mrope = None
+    if any(r.mrope_pos is not None for r in reqs):
+        mrope = np.zeros((T, 3), np.int32)
+    rows, vals = [], []
 
     t = 0
     for i, (r, n) in enumerate(admitted):
         start = r.prefilled_len
+        if mrope is not None:
+            mrope[t : t + n] = _mrope_rows(r, start, n)
+        if r.mm_embeds is not None:
+            # the rows of this chunk's positions [start, start + n) that the
+            # request splices: a slice of its rows (mm_positions is sorted)
+            lo, hi = np.searchsorted(r.mm_positions, [start, start + n])
+            if hi > lo:
+                rows.append(t + r.mm_positions[lo:hi] - start)
+                vals.append(r.mm_embeds[lo:hi])
         input_ids[t : t + n] = r.input_ids[start : start + n]
         q_req_idx[t : t + n] = i
         q_pos[t : t + n] = np.arange(start, start + n, dtype=np.int32)
@@ -198,8 +250,31 @@ def build_extend_batch(
         out_slots=out_slots,
         page_table=_page_table_block(reqs, B, maxP, page_table_host),
         kv_lens=kv_lens, logits_idx=logits_idx,
-        sampling=_sampling_arrays_np(reqs, B), T=T, B=B, maxP=maxP,
+        sampling=_sampling_arrays_np(reqs, B), T=T, B=B, maxP=maxP, mrope_pos=mrope,
+        **_splice_fields(rows, vals),
     )
+
+
+def _mrope_rows(r: Req, start: int, n: int) -> np.ndarray:
+    """The M-RoPE positions [n, 3] of ``r``'s positions [start, start + n):
+    its ``mrope_pos`` rows inside the prompt, ``pos + mrope_delta`` past it."""
+    pos = np.arange(start, start + n)
+    out = np.repeat((pos + r.mrope_delta)[:, None], 3, axis=1)
+    mp = r.mrope_pos
+    if mp is not None:
+        inside = pos < len(mp)
+        out[inside] = mp[pos[inside]]
+    return out
+
+
+def _splice_fields(rows: list, vals: list) -> dict:
+    """HostBatch's ``embed_rows`` / ``embed_vals`` of the requests' parts."""
+    if not rows:
+        return {}
+    import torch
+
+    return dict(embed_rows=np.concatenate(rows).astype(np.int64),
+                embed_vals=vals[0] if len(vals) == 1 else torch.cat(vals))
 
 
 def build_decode_batch(
@@ -229,9 +304,14 @@ def build_decode_batch(
     out_slots = np.zeros(T, np.int32)
     kv_lens = np.zeros(B, np.int32)
     logits_idx = np.arange(B, dtype=np.int32)
+    mrope = None
+    if any(r.mrope_pos is not None for r in reqs):
+        mrope = np.zeros((T, 3), np.int32)
 
     for i, r in enumerate(reqs):
         pos = r.kv_len + lag  # writing token at this index (0-based)
+        if mrope is not None:  # the rope's position; the kernels keep q_pos
+            mrope[i] = pos + r.mrope_delta
         if lag == 0:
             input_ids[i] = r.output_ids[-1] if r.output_ids else r.input_ids[-1]
         q_req_idx[i] = i
@@ -245,7 +325,7 @@ def build_decode_batch(
         out_slots=out_slots,
         page_table=_page_table_block(reqs, B, maxP, page_table_host),
         kv_lens=kv_lens, logits_idx=logits_idx,
-        sampling=_sampling_arrays_np(reqs, B), T=T, B=B, maxP=maxP,
+        sampling=_sampling_arrays_np(reqs, B), T=T, B=B, maxP=maxP, mrope_pos=mrope,
     )
 
 

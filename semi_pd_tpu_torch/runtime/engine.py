@@ -10,8 +10,20 @@ teacher-forced input log-probs (with a top-k), ``encode`` pooled
 embeddings (``is_embedding`` engines refuse to generate). The tokenizer
 object builds the grammar compiler of constrained requests (json_schema,
 regex, ebnf, structural_tag) and gives its EOS id, as in the JAX engine.
-Text prompts, detokenization, sessions, LoRA, images and weight updates
-are later slices (ROADMAP A14, A16).
+
+Images (JAX engine.py:159-245, :279-357): ``generate(..., image_data=)``
+takes, per request, an image or a list of them, each a normalized numpy
+``[3, H, W]`` array (a Qwen-VL model patchifies it) or, for Qwen-VL, the
+HF processor's dict of ``pixel_values`` / ``image_grid_thw``; LLaVA-Vid
+takes its frames as one request's list. Each ``<image>`` token of the
+prompt becomes ``n_image_tokens`` placeholders (a Qwen-VL image's
+``n_image_tokens_for(grid)``), the runner's tower encodes the images on
+the device, and the prefill splices the features over the placeholders;
+Qwen-VL requests carry their M-RoPE positions. ``input_embeds`` gives a
+prompt as embedding rows [n, hidden] (no ids), spliced the same way.
+Encoded images (a base64 string, bytes, a PIL image) need the checkpoint's
+image processor, which is ROADMAP A13. Text prompts, detokenization,
+sessions, LoRA and weight updates are later slices (ROADMAP A13-A16).
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ import uuid
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from semi_pd_tpu_torch.config.model_config import ModelConfig
 from semi_pd_tpu_torch.config.server_args import ServerArgs
@@ -90,10 +103,12 @@ class Engine:
     # ---------------------------------------------------------------- API
     def make_request(
         self,
-        input_ids: List[int],
+        input_ids: Optional[List[int]],
         sampling_params: Optional[Union[SamplingParams, Dict]] = None,
         return_logprob: bool = False,
         top_logprobs_num: int = 0,
+        image_data=None,
+        input_embeds=None,
     ) -> Req:
         if isinstance(sampling_params, dict):
             sampling_params = SamplingParams.from_dict(sampling_params)
@@ -101,6 +116,27 @@ class Engine:
         if self.server_args.is_embedding and sampling_params.max_new_tokens:
             # encode() / score() requests carry max_new_tokens=0 and pass
             raise ValueError("engine is in embedding mode (is_embedding); use encode()")
+        if input_embeds is not None:
+            # a prompt given as embedding rows: placeholder ids, every row
+            # spliced, kept out of the radix cache (the JAX checks)
+            if image_data is not None:
+                raise ValueError("input_embeds and image_data are exclusive")
+            if input_ids is not None:
+                raise ValueError("input_embeds replaces the prompt; do not pass "
+                                 "prompt/input_ids alongside it")
+            embeds = np.asarray(input_embeds, dtype=np.float32)
+            if embeds.ndim != 2 or embeds.shape[0] == 0:
+                raise ValueError(f"input_embeds must be [num_tokens, hidden], got "
+                                 f"{embeds.shape}")
+            hidden = self.runner.model_config.hidden_size
+            if embeds.shape[1] != hidden:
+                raise ValueError(f"input_embeds hidden dim {embeds.shape[1]} != model "
+                                 f"hidden size {hidden}")
+            input_ids = [0] * embeds.shape[0]
+        if input_ids is None:
+            raise ValueError("provide input_ids")
+        if image_data is not None:
+            input_ids = self._expand_image_tokens(list(input_ids), image_data)
         if not input_ids:
             raise ValueError("input is empty (no prompt tokens)")
         req = Req(
@@ -112,6 +148,12 @@ class Engine:
             return_logprob=return_logprob or top_logprobs_num > 0,
             top_logprobs_num=min(max(int(top_logprobs_num or 0), 0), 32),
         )
+        if input_embeds is not None:
+            req.input_embeds = True
+            req.mm_embeds = torch.from_numpy(embeds).to(self.runner.device)
+            req.mm_positions = np.arange(embeds.shape[0])
+        if image_data is not None:
+            self._attach_images(req, image_data)
         sp = sampling_params
         if sp.json_schema or sp.regex or sp.ebnf or sp.structural_tag:
             gc = self._get_grammar_compiler()
@@ -130,6 +172,73 @@ class Engine:
             resolve_processor(sp.custom_logit_processor)  # fail fast on a typo
         return req
 
+    # ---------------------------------------------------------------- images
+    def _expand_image_tokens(self, ids: List[int], image_data) -> List[int]:
+        """Each ``<image>`` placeholder repeated ``n_image_tokens`` times (a
+        Qwen-VL image: its grid's merged tokens), so that the prompt's
+        length is that of the spliced features."""
+        model = self.runner.model
+        if not getattr(model, "is_multimodal", False):
+            raise ValueError("model is not multimodal")
+        tok_id = model.image_token_index
+        if hasattr(model, "patchify"):
+            imgs = image_data if isinstance(image_data, list) else [image_data]
+            grids = [self._qwen_vl_patches(i)[1] for i in imgs]
+            out, k = [], 0
+            for t in ids:
+                if t == tok_id and k < len(grids):
+                    out.extend([tok_id] * model.n_image_tokens_for(grids[k]))
+                    k += 1
+                else:
+                    out.append(t)
+            return out
+        out = []
+        for t in ids:
+            out.extend([tok_id] * model.n_image_tokens if t == tok_id else [t])
+        return out
+
+    def _qwen_vl_patches(self, item):
+        """(flattened patches, grid) of a Qwen-VL image: the HF processor's
+        dict as it is, a raw array patchified."""
+        if isinstance(item, dict):
+            grid = tuple(int(x) for x in np.asarray(item["image_grid_thw"]).reshape(-1)[:3])
+            return np.asarray(item["pixel_values"], np.float32), grid
+        return self.runner.model.patchify(self._load_image(item))
+
+    @staticmethod
+    def _load_image(item) -> np.ndarray:
+        """A normalized pixel array [3, H, W]; an encoded image needs the
+        checkpoint's image processor (ROADMAP A13)."""
+        if isinstance(item, np.ndarray):
+            return item.astype(np.float32)
+        raise NotImplementedError(
+            f"an image given as {type(item).__name__}: decoding and normalizing it needs the "
+            f"checkpoint's image processor (ROADMAP A13); pass a normalized numpy "
+            f"[3, H, W] array")
+
+    def _attach_images(self, req: Req, image_data) -> None:
+        """Encode the request's images on the device and map their rows to
+        the prompt's placeholders (row k at the k-th one), with a Qwen-VL
+        request's M-RoPE positions."""
+        model = self.runner.model
+        imgs = image_data if isinstance(image_data, list) else [image_data]
+        if hasattr(model, "patchify"):
+            feats, grids = [], []
+            for i in imgs:
+                patches, grid = self._qwen_vl_patches(i)
+                grids.append(grid)
+                feats.append(self.runner.encode_images_patches(patches, grid))
+            flat = torch.cat(feats, dim=0)
+            req.mrope_pos, req.mrope_delta = model.get_mrope_positions(req.input_ids, grids)
+        else:
+            px = np.stack([self._load_image(i) for i in imgs])
+            embeds = self.runner.encode_images(px)  # [N, n_patches, H]
+            flat = embeds.reshape(-1, embeds.shape[-1])
+        ids = np.asarray(req.input_ids)
+        positions = np.flatnonzero(ids == model.image_token_index)[: flat.shape[0]]
+        req.mm_embeds = flat
+        req.mm_positions = positions
+
     def generate(
         self,
         prompt: Optional[Union[str, List[str]]] = None,
@@ -137,8 +246,12 @@ class Engine:
         sampling_params: Optional[Union[SamplingParams, Dict]] = None,
         return_logprob: bool = False,
         top_logprobs_num: int = 0,
+        image_data=None,
+        input_embeds=None,
     ) -> Union[Dict, List[Dict]]:
-        """Synchronous batch generation over token ids. With
+        """Synchronous batch generation over token ids (or embedding rows:
+        ``input_embeds``, one [n, hidden] prompt or a list of them), with
+        ``image_data`` per request (module docstring). With
         ``return_logprob`` and ``max_new_tokens=0`` it scores the prompts
         (``score``) instead."""
         if self.server_args.is_embedding:
@@ -153,15 +266,29 @@ class Engine:
             return mk(lps) if input_ids and isinstance(input_ids[0], int) else [
                 mk(l) for l in lps]
         _refuse_text(prompt)
-        if input_ids is None:
+        if input_embeds is not None:
+            first = input_embeds[0]
+            single = np.ndim(first) == 1 or not isinstance(first, (list, np.ndarray))
+            input_embeds = [np.asarray(e, np.float32)
+                            for e in ([input_embeds] if single else input_embeds)]
+            if input_ids is not None:
+                raise ValueError("input_embeds replaces the prompt; do not pass "
+                                 "prompt/input_ids alongside it")
+            input_ids = [None] * len(input_embeds)
+        elif input_ids is None:
             raise ValueError("provide input_ids")
-        single = bool(input_ids) and isinstance(input_ids[0], int)
-        if single:
-            input_ids = [input_ids]
+        else:
+            single = bool(input_ids) and isinstance(input_ids[0], int)
+            if single:
+                input_ids = [input_ids]
         reqs = [
-            self.make_request(ids, sampling_params, return_logprob=return_logprob,
-                              top_logprobs_num=top_logprobs_num)
-            for ids in input_ids
+            self.make_request(
+                ids, sampling_params, return_logprob=return_logprob,
+                top_logprobs_num=top_logprobs_num,
+                image_data=(image_data[i] if isinstance(image_data, list) and not single
+                            else image_data),
+                input_embeds=None if input_embeds is None else input_embeds[i])
+            for i, ids in enumerate(input_ids)
         ]
         with self._lock:
             for r in reqs:

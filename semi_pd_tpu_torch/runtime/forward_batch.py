@@ -71,6 +71,13 @@ class ForwardArrays(NamedTuple):
     mask_pos: Optional[torch.Tensor] = None  # [T] i32
     win_base: Optional[torch.Tensor] = None  # [B] i32
     spec_anc: Optional[tuple] = None  # [W] python ints
+    # The image path (the JAX embed_override / embed_mask / mrope_pos): the
+    # flat rows whose embedding is replaced, and their rows (image features
+    # or input_embeds, on the device, cast to the model dtype at the
+    # splice); Qwen2-VL's (t, h, w) rope positions. None outside it.
+    embed_rows: Optional[torch.Tensor] = None  # [n] i64
+    embed_vals: Optional[torch.Tensor] = None  # [n, H]
+    mrope_pos: Optional[torch.Tensor] = None  # [T, 3] i32
 
 
 def num_q_blocks(T: int, B: int) -> int:

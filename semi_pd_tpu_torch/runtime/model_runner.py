@@ -28,7 +28,13 @@ the GLM family, Phi-3, Granite and Grok-1; the LayerNorm families
 StableLM, Starcoder2, Phi, Cohere, OLMo-2, Phi-3-small, GPT-2, GPT-BigCode,
 OLMo-1, Falcon and DBRX, with GPT-2's context held to its learned
 positions and Falcon's new decoder architecture and ALiBi refused, as the
-JAX classes refuse them). The KV pool's layout
+JAX classes refuse them; the sequence classifiers and the embedding
+trunks, served through ``encode_step``; the vision-language models LLaVA,
+Yi-VL, LLaVA-Vid, Qwen2-VL and Qwen2.5-VL, whose towers ``encode_images``
+/ ``encode_images_patches`` run on the step device, their features
+spliced into the prefill (``HostBatch.splice``), the Qwen models' M-RoPE
+positions packed into every step, ``mrope``, and refused with
+speculation, ROADMAP A11). The KV pool's layout
 follows the model's geometry (``kv_pool_layout``, the JAX runner's rule):
 the chunked pool for head_dim 64 when a slot row holds a multiple of 8
 chunks of 128 (e.g. Llama-3.2-1B's 8 KV heads), the 5D pool otherwise
@@ -95,6 +101,9 @@ from semi_pd_tpu_torch.config.server_args import ServerArgs
 from semi_pd_tpu_torch.layers.attention import pool_attention
 from semi_pd_tpu_torch.mem.pool import KVCache, KVCacheSpec, PageAllocator, ReqToPagePool
 from semi_pd_tpu_torch.model_loader.loader import device_init_params
+from semi_pd_tpu_torch.models.classify import (
+    Gemma2ForSequenceClassification, LlamaForSequenceClassification, Qwen2ForRewardModel,
+)
 from semi_pd_tpu_torch.models.deepseek_v2 import DeepseekV2ForCausalLM
 from semi_pd_tpu_torch.models.gemma2 import Gemma2ForCausalLM, GemmaForCausalLM
 from semi_pd_tpu_torch.models.glm import ChatGLMForCausalLM, Glm4ForCausalLM, GlmForCausalLM
@@ -106,6 +115,9 @@ from semi_pd_tpu_torch.models.layernorm_families import (
     StableLmForCausalLM, Starcoder2ForCausalLM,
 )
 from semi_pd_tpu_torch.models.llama import DTYPES, LlamaForCausalLM
+from semi_pd_tpu_torch.models.llava import (
+    LlavaForConditionalGeneration, LlavaVidForCausalLM, YiVLForCausalLM,
+)
 from semi_pd_tpu_torch.models.llama_variants import (
     BaichuanForCausalLM, DeepseekForCausalLM, ExaoneForCausalLM, InternLM2ForCausalLM,
     InternLM2ForRewardModel, MiniCPMForCausalLM, QWenLMHeadModel, XverseMoeForCausalLM,
@@ -117,6 +129,9 @@ from semi_pd_tpu_torch.models.olmo_falcon_dbrx import (
 from semi_pd_tpu_torch.models.phi3 import Phi3ForCausalLM
 from semi_pd_tpu_torch.models.qwen2_moe import (
     MixtralForCausalLM, OlmoeForCausalLM, Qwen2MoeForCausalLM, Qwen3MoeForCausalLM,
+)
+from semi_pd_tpu_torch.models.qwen2_vl import (
+    Qwen2_5_VLForConditionalGeneration, Qwen2VLForConditionalGeneration,
 )
 from semi_pd_tpu_torch.ops.sampling import (
     PENALTY_HIST, PenaltyArrays, SamplingArrays, compute_logprobs, sample, top_logprobs,
@@ -184,6 +199,21 @@ ARCHITECTURES = {
     "FalconForCausalLM": FalconForCausalLM,
     "RWForCausalLM": FalconForCausalLM,
     "DbrxForCausalLM": DbrxForCausalLM,
+    # the sequence classifiers (registry.py:154-162) and the embedding
+    # trunks the JAX registry sends to its Llama (:190-195)
+    "LlamaForSequenceClassification": LlamaForSequenceClassification,
+    "Gemma2ForSequenceClassification": Gemma2ForSequenceClassification,
+    "Qwen2ForRewardModel": Qwen2ForRewardModel,
+    "LlamaEmbeddingModel": LlamaForCausalLM,
+    "MistralModel": LlamaForCausalLM,
+    "LlamaModel": LlamaForCausalLM,
+    # the vision-language models (registry.py:174-186, :196-203)
+    "LlavaForConditionalGeneration": LlavaForConditionalGeneration,
+    "LlavaLlamaForCausalLM": LlavaForConditionalGeneration,
+    "YiVLForCausalLM": YiVLForCausalLM,
+    "LlavaVidForCausalLM": LlavaVidForCausalLM,
+    "Qwen2VLForConditionalGeneration": Qwen2VLForConditionalGeneration,
+    "Qwen2_5_VLForConditionalGeneration": Qwen2_5_VLForConditionalGeneration,
 }
 
 KV_DTYPES = {**DTYPES, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
@@ -299,8 +329,15 @@ class ModelRunner:
                 f"context_length {mc.context_length} past the {mc.max_position_embeddings} "
                 f"learned positions of {mc.architecture} (n_positions); serve it at "
                 f"context_length <= {mc.max_position_embeddings}")
+        if server_args.speculative_algorithm and getattr(
+                ARCHITECTURES[mc.architecture], "is_multimodal", False):
+            raise NotImplementedError(
+                f"speculative_algorithm {server_args.speculative_algorithm} on the multimodal "
+                f"{mc.architecture}: the drafts take no image features (ROADMAP A11)")
         self.model = ARCHITECTURES[mc.architecture](mc, device=self.device)
         self.model.page_size = server_args.page_size
+        # the M-RoPE models' steps pack their [T, 3] rope positions
+        self.mrope = bool(getattr(self.model, "uses_mrope", False))
         if getattr(self.model, "alibi_slopes", None) is not None:
             self._check_alibi()
         self.kv_scales = None
@@ -789,6 +826,7 @@ class ModelRunner:
         block_qofs = take(NQB)
         top_k = take(B)
         mask_pos, win_base = (take(T), take(B)) if tree else (None, None)
+        mrope_pos = take(3 * T).view(T, 3) if self.mrope else None
         f = [floats[i * B : (i + 1) * B] for i in range(6)]
         if input_override is not None:
             input_ids = input_override
@@ -805,6 +843,7 @@ class ModelRunner:
             attn_meta=AttnMeta(q_lens=q_lens, q_start=q_start, block_seq=block_seq,
                                block_row=block_row, block_qofs=block_qofs),
             all_greedy=all_greedy, mask_pos=mask_pos, win_base=win_base,
+            mrope_pos=mrope_pos,
         )
 
     def step_packed(self, hb, prev_tokens=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -814,21 +853,23 @@ class ModelRunner:
         (overlap scheduling). Returns device (tokens [B] i32, logprobs [B]
         f32); does not wait for the device."""
         return self.step_packed_raw(
-            *hb.pack(), chained=prev_tokens is not None, prev_tokens=prev_tokens,
-            is_decode=hb.mode == ForwardMode.DECODE,
+            *hb.pack(mrope=self.mrope), chained=prev_tokens is not None,
+            prev_tokens=prev_tokens, is_decode=hb.mode == ForwardMode.DECODE,
+            splice=hb.splice(self.device),
         )
 
     def step_packed_raw(self, ints_np: np.ndarray, floats_np: np.ndarray, shapes,
                         chained: bool = False, prev_tokens=None,
-                        is_decode: bool = False):
+                        is_decode: bool = False, splice: Optional[dict] = None):
         """A packed step; on a CUDA device a decode step (T == B) replays its
-        key's graph."""
+        key's graph. ``splice``: ``HostBatch.splice``'s rows of an image
+        prompt's extend (such a step runs eagerly, also at T == B)."""
         T, B, maxP, NQB = shapes
         num_reqs = int(ints_np[-1])
         all_greedy = bool(np.all(floats_np[:num_reqs] <= 0.0))  # temperatures
         if chained and prev_tokens is None:
             prev_tokens = self._chain_tokens
-        if self.graphs is not None and T == B:
+        if self.graphs is not None and T == B and not splice:
             tok, lp = self.graphs.step(ints_np, floats_np, shapes, all_greedy,
                                        prev_tokens if chained else None)
         else:
@@ -836,7 +877,7 @@ class ModelRunner:
             floats = torch.from_numpy(floats_np).to(self.device, non_blocking=True)
             fb = self._unpack_fb(ints, floats, T, B, maxP, NQB, num_reqs, all_greedy,
                                  input_override=prev_tokens if chained else None)
-            tok, lp = self._step(fb)
+            tok, lp = self._step(fb._replace(**(splice or {})))
         self._count(T, B)
         if is_decode:
             self._chain_tokens = tok
@@ -859,15 +900,17 @@ class ModelRunner:
         return self._step_host(hb, vocab_mask, penalties, int(k))
 
     def _step_host(self, hb, vocab_mask, penalties, k: int):
-        ints, floats, shapes = hb.pack()
+        ints, floats, shapes = hb.pack(mrope=self.mrope)
         all_greedy = bool(np.all(hb.sampling.temperature[: len(hb.reqs)] <= 0.0))
-        if self.graphs is not None and hb.T == hb.B:
+        splice = hb.splice(self.device)
+        if self.graphs is not None and hb.T == hb.B and not splice:
             out = self.graphs.step(ints, floats, shapes, all_greedy, vocab_mask=vocab_mask,
                                    penalties=penalties, top_k=k)
         else:
             dev = self._upload
             fb = self._unpack_fb(dev(ints), dev(floats), *shapes, len(hb.reqs), all_greedy)
-            out = self._step(fb, vocab_mask=None if vocab_mask is None else dev(vocab_mask),
+            out = self._step(fb._replace(**splice),
+                             vocab_mask=None if vocab_mask is None else dev(vocab_mask),
                              penalties=(None if penalties is None
                                         else PenaltyArrays(*map(dev, penalties))),
                              top_k=k)
@@ -928,6 +971,23 @@ class ModelRunner:
 
     def encode_step_host(self, hb) -> torch.Tensor:
         return self.encode_step(hb.to_device(self.device))
+
+    # ------------------------------------------------------------- vision
+    def encode_images(self, pixel_values: np.ndarray) -> torch.Tensor:
+        """LLaVA's family: [N, 3, H, W] pixels -> projected patch features
+        [N, n_patches, H] on the device (float32), left there for the
+        splice (the JAX runner brings them to the host)."""
+        px = torch.from_numpy(np.ascontiguousarray(pixel_values, np.float32)).to(self.device)
+        with torch.inference_mode():
+            return self.model.encode_images(px)
+
+    def encode_images_patches(self, patches: np.ndarray, grid) -> torch.Tensor:
+        """Qwen2-VL's variable-resolution patches [n, C * tp * ps * ps] of
+        grid (t, h, w) -> merged features [n / merge^2, H] on the device, in
+        the model dtype."""
+        px = torch.from_numpy(np.ascontiguousarray(patches, np.float32)).to(self.device)
+        with torch.inference_mode():
+            return self.model.encode_images(px, tuple(int(g) for g in grid))
 
     @staticmethod
     def read_round(*arrays):

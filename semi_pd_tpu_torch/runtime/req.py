@@ -5,8 +5,10 @@ Host-side only: tokens and page lists are python/numpy; device state lives
 in the shared KV pool addressed through ``pages``. ``spec_hidden`` seeds
 EAGLE's draft; ``grammar`` is the request's grammar cursor
 (constrained/grammar.py), ``kv_debt`` the jump-forward tokens whose KV is
-owed. The LoRA, multimodal, detokenizer and DP-attention fields are not in
-this slice.
+owed; ``mm_embeds`` / ``mm_positions`` / ``input_embeds`` /
+``mrope_pos`` / ``mrope_delta`` carry an image prompt (or one given as
+embeddings) and Qwen-VL's M-RoPE positions. The LoRA, detokenizer and
+DP-attention fields are not in this slice.
 """
 
 from __future__ import annotations
@@ -77,6 +79,20 @@ class Req:  # batch membership by object, and dicts key on rid
     # committed token, which seeds the next round's draft; None until the
     # prompt's last chunk ran with the hidden state returned
     spec_hidden: Any = None
+
+    # The image path (JAX req.py:56-57, :98-104): the rows that replace the
+    # placeholder tokens' embeddings ([n_mm, H], a tensor on the step device:
+    # image features as the tower made them, or an input_embeds prompt in
+    # float32), the sorted prompt positions they replace (row k at
+    # mm_positions[k]; the JAX request keeps a {position: row} dict), and
+    # whether the prompt was given as embeddings; Qwen-VL's (t, h, w) rope
+    # positions of the prompt [len, 3] and the decode offset (rope position
+    # = position + mrope_delta past the prompt)
+    mm_embeds: Any = None
+    mm_positions: Any = None
+    input_embeds: bool = False
+    mrope_pos: Any = None
+    mrope_delta: int = 0
 
     # Original prompt length (input_ids grows when retraction folds generated
     # tokens back into the prefill input).

@@ -414,9 +414,15 @@ class Scheduler:
         return short > 0 and self.tree_cache.evict(short) > 0
 
     def _attach_prefix(self, req: Req) -> int:
-        """First-time admission: radix prefix reuse."""
+        """First-time admission: radix prefix reuse. A request whose prompt
+        splices rows (images, input_embeds) bypasses the tree, which keys
+        on token ids only: its placeholder ids are the same for every image
+        (ROADMAP C19; the JAX scheduler bypasses input_embeds requests
+        only)."""
         if req.req_slot is not None or req.prefilled_len > 0 or req.pages:
             return len(req.pages)
+        if req.mm_embeds is not None:
+            return 0
         pages, node = self.tree_cache.match_prefix(req.input_ids)
         # leave >= 1 uncached token to produce logits
         max_pages = (req.prompt_len - 1) // self.page_size
@@ -1135,7 +1141,8 @@ class Scheduler:
         """Finished: re-insert KV into the prefix cache, release the rest."""
         self.n_finished += 1
         req.finish_time = time.monotonic()
-        if isinstance(self.tree_cache, ChunkCache):
+        if isinstance(self.tree_cache, ChunkCache) or req.mm_embeds is not None:
+            # a spliced prompt's KV is not its ids' (C19): not inserted
             self._free_req_memory(req)
             return
         n_full = req.kv_len // self.page_size

@@ -2895,3 +2895,159 @@ def test_a_failed_round_capture_raises(cuda_device, monkeypatch):
     torch.cuda.synchronize()
     assert not runner.round_graphs.graphs and runner.round_graphs.stats["replays"] == 0
     assert len(calls) == 2  # the warm-up and the capture; no eager round after
+
+
+# ---------------------------------- the image path and the classifiers' heads
+@pytest.mark.parametrize("kv", ["bfloat16", "fp8_e4m3"])
+@pytest.mark.parametrize("kind", ["decode", "stream", "extend"])
+def test_gqa_builds_at_seven_heads_per_kv_head(cuda_device, kind, kv):
+    """Qwen2-VL-7B's 28 / 4 (G = 7: a KV head's 7 query heads in one m16
+    tile of the decodes, an extend row m = r * 7 + g cut across the 16-row
+    warp tiles) through the aligned builds, bf16 q over bf16 and e4m3 KV,
+    every dead slot NaN, against their plain versions: one launch, zeros
+    on kv_len-0 rows."""
+    dt = torch.bfloat16
+    case = _extend_case if kind == "extend" else _decode_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt, aligned=True, hq=28, hkv=4,
+                                  kv_dtype=FP8.get(kv, dt))
+    _poison_dead_slots(pool, pt, kvl, 1)
+    fn, plain = _group_fns("aligned", kind, 4, D_ALIGNED, meta)
+    kw = dict(page_size=PS, scale=D_ALIGNED ** -0.5)
+    k = KERNELS[GQA_BUILDS[kind]]
+    before = k.launches
+    out = fn(q, pool, 1, pt, kvl, **kw)
+    ref = plain(q, pool, 1, pt, kvl, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert torch.isfinite(out).all()
+    if kind != "extend":
+        assert not out[kvl == 0].any()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "fp8_e4m3"])
+@pytest.mark.parametrize("opt", ["softcap", "softcap_window"])
+@pytest.mark.parametrize("kind", ["decode", "extend"])
+def test_gemma2_at_head_dim_128_on_the_aligned_builds(cuda_device, kind, opt, kv):
+    """Skywork-Reward-Gemma-2-27B's 32 / 16 heads at head_dim 128 (Gemma-2
+    had run on the _256 builds alone): the aligned decode and extend with
+    softcap 50, and with a window of 24 that cuts the long requests,
+    scale 144 ** -0.5, bf16 q over bf16 and e4m3 KV, every dead slot NaN,
+    against their plain versions."""
+    dt = torch.bfloat16
+    case = _extend_case if kind == "extend" else _decode_case
+    q, pool, pt, kvl, meta = case(cuda_device, dt, aligned=True, hq=32, hkv=16,
+                                  kv_dtype=FP8.get(kv, dt))
+    _poison_dead_slots(pool, pt, kvl, 1)
+    fn, plain = _group_fns("aligned", kind, 16, D_ALIGNED, meta)
+    kw = dict(page_size=PS, scale=144 ** -0.5, logit_cap=50.0,
+              sliding_window=24 if opt == "softcap_window" else None)
+    out = fn(q, pool, 1, pt, kvl, **kw)
+    ref = plain(q, pool, 1, pt, kvl, **kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+def _vlm_hf(arch):
+    """A tiny vision-language config.json dict (float32 tests): a 2-layer
+    text model at head_dim 128 (G = 2; Qwen2-VL's G = 7: 14 / 2), a 2-layer
+    tower."""
+    text = dict(architectures=["LlamaForCausalLM"], hidden_size=256, intermediate_size=512,
+                num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                head_dim=128, vocab_size=512, max_position_embeddings=512, rms_norm_eps=1e-5)
+    if arch == "llava":
+        return dict(architectures=["LlavaForConditionalGeneration"], image_token_index=500,
+                    text_config=text, vision_feature_layer=-2,
+                    vision_config=dict(hidden_size=64, image_size=56, intermediate_size=128,
+                                       num_attention_heads=4, num_hidden_layers=2,
+                                       patch_size=14))
+    return dict(dict(text, num_attention_heads=14, num_key_value_heads=2),
+                architectures=["Qwen2VLForConditionalGeneration"], image_token_id=500,
+                rope_theta=1e6, rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]},
+                vision_config=dict(depth=2, embed_dim=32, mlp_ratio=2, num_heads=2, in_chans=3,
+                                   hidden_size=256, patch_size=14, spatial_merge_size=2,
+                                   temporal_patch_size=2))
+
+
+def _lift_vlm(model):
+    """Norm weights of the text model and the tower at 1 (the image reaches
+    the tokens)."""
+    with torch.no_grad():
+        for path, _ in model.param_specs():
+            keys = path.split(".")
+            name = keys[-2] if keys[-1] in ("w", "b") else keys[-1]
+            if ("norm" in name or name in ("pre_ln", "ln1", "ln2", "ln_q")) and keys[-1] != "b":
+                model.leaf(path).fill_(1.0)
+
+
+@pytest.mark.parametrize("arch", ["llava", "qwen2vl"])
+def test_engine_vlm_on_cuda_matches_cpu(cuda_device, arch):
+    """A tiny LLaVA and Qwen2-VL (float32) on the card serve image prompts
+    (an image across a 64-token chunk boundary, two images in one prompt)
+    with the CPU Engine's greedy tokens on the same parameters, through the
+    aligned decode and extend alone (the towers are plain torch ops)."""
+    serve = dict(random_weights=True, page_size=PS, max_total_tokens=4096,
+                 chunked_prefill_size=64, enable_semi_pd=True)
+    cfg = lambda: ModelConfig.from_hf_config(_vlm_hf(arch), dtype="float32")
+    gpu = Engine(ServerArgs(**serve), cfg())
+    _lift_vlm(gpu.runner.model)
+    cpu = Engine(ServerArgs(device="cpu", **serve), cfg(), device="cpu")
+    cpu.runner.model.load_jax_params(gpu.runner.model.params_tree())
+    rng = np.random.default_rng(0)
+    size = (3, 56, 56) if arch == "llava" else (3, 56, 84)
+    img = lambda: rng.standard_normal(size, dtype=np.float32)
+    prompts = [list(range(3, 60)) + [500, 7, 8], [5, 500, 6, 500, 9], [9, 500, 11]]
+    images = [img(), [img(), img()], img()]
+    sp = SamplingParams(max_new_tokens=6, temperature=0.0, ignore_eos=True)
+    for k in KERNELS.values():
+        k.launches = 0
+    got = gpu.generate(input_ids=prompts, image_data=images, sampling_params=sp)
+    assert {n for n, k in KERNELS.items() if k.launches} == {"rpa_decode_aligned",
+                                                             "rpa_extend_aligned"}
+    want = cpu.generate(input_ids=prompts, image_data=images, sampling_params=sp)
+    assert [o["output_ids"] for o in got] == [o["output_ids"] for o in want]
+    assert gpu.flush_cache() and cpu.flush_cache()
+
+
+def test_mrope_decode_graph_replays_the_shifted_position_bitwise(cuda_device):
+    """A bf16 Qwen2-VL decode step whose requests' rope positions are
+    shifted (kv_len - 1 + mrope_delta, as their images shift them) while
+    the kernels read kv_len: the replay gives the eager step's tokens and
+    log-probs bitwise, one capture, and the same step at the unshifted
+    position gives other log-probs (the shift reaches the rope)."""
+    from semi_pd_tpu_torch.runtime.batch import build_decode_batch
+    from semi_pd_tpu_torch.runtime.req import Req
+
+    cfg = ModelConfig.from_hf_config(_vlm_hf("qwen2vl"), dtype="bfloat16")
+    eng = Engine(ServerArgs(random_weights=True, page_size=PS, max_total_tokens=4096,
+                            chunked_prefill_size=64), cfg)
+    runner, sched = eng.runner, eng.scheduler
+    assert runner.mrope
+    _fill_pool(eng, cuda_device, seed=0)
+    rng = np.random.default_rng(1)
+    reqs = []
+    for i, n in enumerate([33, 260, 9, 77, 1, 140]):
+        r = Req(rid=f"m{i}", input_ids=[1] * n, sampling_params=SamplingParams(temperature=0.0))
+        r.req_slot = runner.req_pool.alloc()
+        pages = runner.page_allocator.alloc(-(-(n + 1) // PS))
+        r.pages = pages.tolist()
+        runner.req_pool.write(r.req_slot, 0, pages)
+        r.prefilled_len = n
+        r.output_ids.append(int(rng.integers(0, 512)))
+        r.mrope_pos = np.zeros((n, 3), np.int32)
+        r.mrope_delta = -int(rng.integers(1, 200))
+        reqs.append(r)
+    hb = build_decode_batch(reqs, runner.req_pool.page_table, PS, sched.b_buckets,
+                            sched.p_buckets)
+    shifted = hb.pack(mrope=True)
+    hb.mrope_pos = None
+    plain_rope = hb.pack(mrope=True)
+    want = _eager_step(runner, *shifted, is_decode=True)
+    got = runner.step_packed_raw(*shifted, is_decode=True)
+    again = runner.step_packed_raw(*shifted, is_decode=True)
+    other = _eager_step(runner, *plain_rope, is_decode=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(again[1], want[1])
+    assert runner.graphs.stats["captures"] == 1
+    assert not torch.equal(other[1], want[1])

@@ -165,7 +165,10 @@ def test_port_imports_no_jax(target):
     """No file of the port (the decode graphs, the warmup registry,
     bench_one_batch, the constrained-decoding copies, the logit processors,
     the sampler, the config parser and the Llama, Gemma, MoE and
-    Llama-variant family modules named on their own), and none of its card
+    Llama-variant family modules named on their own; the classifiers'
+    models/classify.py, the CLIP tower's models/vision.py, models/llava.py
+    and models/qwen2_vl.py with their towers, and ops/rope.py's
+    MRotaryEmbedding), and none of its card
     scripts (chip_smoke.py, serve_witness.py, fidelity_witness.py,
     decode_trace.py, extend_shapes.py, mla_decode_plans.py,
     mla_extend_compare.py), imports jax or anything of the JAX package."""

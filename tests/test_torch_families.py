@@ -285,8 +285,11 @@ def test_engine_greedy_tokens_match_jax(family, semi_pd, engines):
 
 # ------------------------------------------------------- from_hf_config
 # the JAX ModelConfig's fields the port's shares (all the port's but the
-# four that the JAX models read from hf_config: checked through the models)
-READ_BY_MODEL = {"query_pre_attn_scalar", "scale_emb", "scale_depth", "dim_model_base"}
+# four that the JAX models read from hf_config: checked through the models;
+# and hf_config itself, the config as each package was given it: a
+# namespace on the JAX side, the dict on the port's)
+READ_BY_MODEL = {"query_pre_attn_scalar", "scale_emb", "scale_depth", "dim_model_base",
+                 "hf_config"}
 
 
 def shared_fields():
@@ -342,7 +345,7 @@ def test_published_configs_read_as_documented():
     gem = ModelConfig.from_hf_config(P["google/gemma-7b"])
     assert gem.head_dim == 256 and gem.query_pre_attn_scalar is None
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        ModelConfig.from_hf_config(hf_config("LlavaForConditionalGeneration"))
+        ModelConfig.from_hf_config(hf_config("MllamaForConditionalGeneration"))
 
 
 # --------------------------------------- the plain attention at G = 1

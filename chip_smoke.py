@@ -131,6 +131,22 @@ each (any failure raises and exits non-zero):
              20 / 20 (decode, extend) on the merged builds,
              StableLM-2-1.6B's 32 / 32 (decode, stream, extend) on the
              chunked ones.
+2q. quant  — each weight-only dequant kernel (csrc/wo_gemm.cu; setup
+             prints its instantiations' registers, spills and HMMA, and
+             every one must have HMMA) against its plain version at the
+             quantized paths' shapes: Meta-Llama-3-8B's four fp8 linears at
+             T = 8, 64, 928 and 4096 (wo_gemm), DeepSeek-V2-Lite's five
+             blockwise fp8 linears at T = 64 and 928 (wo_gemm_block; kv_a's
+             N = 576 and the dense down's K = 10944 end in part blocks)
+             and its fp8 expert stacks at B 64 x top-6 and 928 x top-6
+             (wo_gemm_experts), Meta-Llama-3-70B's four AWQ int4 linears at
+             T = 64 and 928 (wo_gemm_awq), Qwen1.5-MoE-A2.7B's int8 linears
+             and expert stacks at B 64: ``quant_kernel`` lines with the
+             kernel's, the plain version's and one PyTorch call's time over
+             a bf16 weight of the same shape (torch.matmul, or
+             torch._grouped_mm for the experts: the unquantized layer's
+             cost), the bound (the weight's bytes read once, or bf16
+             operations), registers and spills.
 3. model   — the full-width models (random weights drawn on the card, seed
              0, 131072-token pool): the Llama-3.2-1B-class model on the
              chunked pool with bf16 KV, then with fp8_e4m3 KV, the
@@ -200,6 +216,21 @@ each (any failure raises and exits non-zero):
              OLMo-2-1124-7B, OLMo-1B, Phi-3-small-8k at full depth and
              DBRX at 4 of 40 layers. ``make_attentive`` lifts a LayerNorm's
              weight ``.w`` and keeps its bias.
+             Quantized weights (quantized on the card as they are drawn):
+             Meta-Llama-3-8B with fp8 weights and fp8_e4m3 KV (BASELINE
+             config 2) and DeepSeek-V2-Lite with blockwise fp8 (dense
+             linears 128 x 128 blockwise, expert stacks per-channel fp8)
+             at full depth through phases 3, 3g (a ``quant_step`` line sets
+             the 8B's replayed B-64 step beside its bf16-weight one) and 4;
+             Meta-Llama-3-70B with awq_int4 at 40 of 80 layers through
+             phase 3 and an 8-request serve, Qwen1.5-MoE-A2.7B with int8
+             through phase 3. The plain side of a quantized model's phase 3
+             also runs its linears and expert stacks through their plain
+             versions, and each step runs once more with every scale of a
+             middle layer doubled (``moves["ws2x"]``): on attentive weights
+             that move must pass the gate (the scale gate, C15's lesson).
+             A serve counts each quantized linear's kernel once a layer a
+             step of either kind, and wo_gemm_experts twice a MoE layer.
 3g. graphs — after each path's model phase (and its streaming one), at full
              width: one decode batch of 64 requests (kv 520-1000, shuffled
              pages) through the eager step (``decode_graphs`` off) and
@@ -406,6 +437,7 @@ nvidia-smi name/power-limit line, and the result line {"ok": true,
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1489,6 +1521,168 @@ def phase_kernels_vlm():
 
 
 # --------------------------------------------------------------- phase 3/4
+# --------------------------------------------------------------- phase 2q
+# the served shapes of the weight-only dequant kernels: (label, K, N) of
+# each linear, by model
+QUANT_LINEARS = {
+    # Meta-Llama-3-8B (hidden 4096, 32 / 8 heads of 128, intermediate 14336)
+    "8b": [("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672),
+           ("down", 14336, 4096)],
+    # DeepSeek-V2-Lite's dense linears (no q_lora; kv_a 512 + 64 = 576 and
+    # the dense layer's 10944 off 128: blockwise tails)
+    "v2lite": [("q_proj", 2048, 3072), ("kv_a", 2048, 576), ("o_proj", 2048, 2048),
+               ("gate_up", 2048, 21888), ("down", 10944, 2048)],
+    # Meta-Llama-3-70B (hidden 8192, 64 / 8 heads, intermediate 28672)
+    "70b": [("qkv", 8192, 10240), ("o", 8192, 8192), ("gate_up", 8192, 57344),
+            ("down", 28672, 8192)],
+    # Qwen1.5-MoE-A2.7B (hidden 2048, 16 / 16 heads, shared expert 5632)
+    "qwen_moe": [("qkv", 2048, 6144), ("o", 2048, 2048), ("shared_gate_up", 2048, 11264),
+                 ("shared_down", 5632, 2048)],
+}
+# (label, experts, K, N, rows: tokens x top-k) of each expert stack
+QUANT_EXPERTS = {
+    "v2lite": [("gate_up", 64, 2048, 2816), ("down", 64, 1408, 2048)],
+    "qwen_moe": [("gate_up", 60, 2048, 2816), ("down", 60, 1408, 2048)],
+}
+WO_MODES = {"wo_gemm": 0, "wo_gemm_block": 1, "wo_gemm_awq": 2, "wo_gemm_experts": 3}
+
+
+def wo_function_props(name: str, w_dtype, vec: bool = True) -> dict:
+    """Registers and spills of the wo_gemm_kernel instantiation that kernel
+    ``name`` launches for ``w_dtype`` weights (``vec``: 16-byte tiles)."""
+    import torch
+
+    from semi_pd_tpu_torch.kernels import KERNELS
+
+    tag = (f"wo_gemm_kernelILi{WO_MODES[name]}ELi{0 if w_dtype == torch.float8_e4m3fn else 1}"
+           f"ELb{int(vec)}E")
+    for fn, props in ptxas_summary(KERNELS["wo_gemm"].build_log).items():
+        if tag in fn:
+            return dict(props, function=fn)
+    return {}
+
+
+def run_quant_case(name, label, x, p, group_sizes=None):
+    """One weight-only dequant kernel against its plain version on the
+    card (``p``: the quantized leaves; ``group_sizes``: an expert stack's
+    rows per expert), its time, the plain version's, one PyTorch call's
+    over a bf16 weight of the same shape (torch.matmul, torch._grouped_mm
+    for the experts: the unquantized layer's cost) and the least time the
+    card could take (the weight's bytes read once, or bf16 operations)."""
+    import torch
+
+    from semi_pd_tpu_torch.kernels import KERNELS
+    from semi_pd_tpu_torch.ops.quant import wo_gemm as wg
+
+    w, ws = p["w"], p["ws"]
+    R, K = x.shape
+    N = w.shape[-1]
+    if group_sizes is not None:
+        active = int((group_sizes > 0).sum())
+        w_bytes = active * (K * N * w.element_size() + N * 4)
+        wb = torch.randn(w.shape, device="cuda", dtype=torch.bfloat16)
+        offs = torch.cumsum(group_sizes, 0).to(torch.int32)
+
+        def fn():
+            return wg.wo_gemm_experts(x, w, ws, group_sizes)
+
+        def plain():
+            return wg.wo_gemm_experts_plain(x, w, ws, group_sizes)
+
+        def library():
+            return torch._grouped_mm(x, wb, offs=offs)
+    else:
+        w_bytes = sum(t.numel() * t.element_size() for t in p.values())
+        wb = torch.randn((K, N), device="cuda", dtype=torch.bfloat16)
+
+        def fn():
+            return wg.quant_matmul(x, p)
+
+        def plain():
+            return wg.quant_matmul_plain(x, p)
+
+        def library():
+            return torch.matmul(x, wb)
+    k = KERNELS[name]
+    before = k.launches
+    out = fn()
+    torch.cuda.synchronize()
+    if k.launches != before + 1:
+        raise AssertionError(f"{name} {label}: the wrapper did not launch its kernel")
+    ref = plain().float()
+    err = float((out.float() - ref).abs().max())
+    span = float(ref.abs().max())
+    if not torch.isfinite(out).all() or out.shape != ref.shape:
+        raise AssertionError(f"{name} {label}: non-finite or misshapen output")
+    ops = 2 * R * K * N
+    iters = max(3, min(200, int(2e11 / max(ops, 1))))
+    kernel_ms = cuda_ms(fn, iters)
+    plain_ms = cuda_ms(plain, max(2, iters // 20))
+    library_ms = cuda_ms(library, iters)
+    tb, to = (w_bytes + 2 * R * K + 2 * R * N) / PEAKS[0], ops / PEAKS[1]
+    row = dict(kernel=name, case=label, dtype="bfloat16",
+               kv_dtype=str(w.dtype).replace("torch.", ""), T=R, K=K, N=N,
+               max_abs_err=err, rel_err=err / span, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=1e3 * max(tb, to),
+               bound_by="bytes" if tb >= to else "operations",
+               **wo_function_props(name, w.dtype, vec=N % 16 == 0 and K % 8 == 0))
+    print("quant_kernel " + json.dumps(row), flush=True)
+    if err > TOL["bfloat16"] * span:
+        raise AssertionError(f"{name} {label}: kernel vs plain {err:.3g} > "
+                             f"{TOL['bfloat16']} x {span:.3g}")
+    return row
+
+
+def phase_kernels_quant():
+    """Phase 2q: each weight-only dequant kernel against its plain version
+    at the served shapes: Meta-Llama-3-8B's four fp8 linears at T = 8, 64,
+    928 and 4096 (wo_gemm); DeepSeek-V2-Lite's five blockwise fp8 dense
+    linears at T = 64 and 928 (wo_gemm_block: kv_a's N = 576 and down's K =
+    10944 end in part blocks) and its fp8 expert stacks at B 64 x top-6
+    and at 928 tokens x top-6 (wo_gemm_experts); Meta-Llama-3-70B's four
+    AWQ int4 linears at T = 64 and 928 (wo_gemm_awq); Qwen1.5-MoE-A2.7B's
+    int8 linears at T = 64 (wo_gemm) and int8 expert stacks at B 64 x
+    top-4. Weights random bf16 (seed 0), quantized on the card."""
+    import torch
+
+    from semi_pd_tpu_torch.model_loader.quantize import _quant_one
+    from semi_pd_tpu_torch.ops.moe import expert_counts
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = []
+
+    def weight(*shape):
+        return (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    def leaves(w, method):
+        return dict(zip(("w", "ws", "wz"), _quant_one(w, method)))
+
+    plan = (("8b", "fp8", "wo_gemm", (8, 64, 928, 4096)),
+            ("v2lite", "blockwise_fp8", "wo_gemm_block", (64, 928)),
+            ("70b", "awq_int4", "wo_gemm_awq", (64, 928)),
+            ("qwen_moe", "int8", "wo_gemm", (64,)))
+    for model, method, name, Ts in plan:
+        for lin, K, N in QUANT_LINEARS[model]:
+            p = leaves(weight(K, N), method)
+            for T in Ts:
+                x = torch.randn((T, K), generator=gen, device="cuda").to(torch.bfloat16)
+                rows.append(run_quant_case(name, f"{model}_{lin}_t{T}", x, p))
+            del p
+    for model, method, top, tokens in (("v2lite", "fp8", 6, (64, 928)),
+                                       ("qwen_moe", "int8", 4, (64,))):
+        for lin, E, K, N in QUANT_EXPERTS[model]:
+            p = leaves(weight(E, K, N), method)
+            for B in tokens:
+                idx = torch.randint(0, E, (B * top,), generator=gen, device="cuda")
+                x = torch.randn((B * top, K), generator=gen, device="cuda").to(torch.bfloat16)
+                rows.append(run_quant_case("wo_gemm_experts", f"{model}_experts_{lin}_b{B}",
+                                           x, p, expert_counts(idx, E)))
+            del p
+    torch.cuda.empty_cache()
+    return rows
+
+
 def llama_1b_config():
     from semi_pd_tpu_torch.config.model_config import ModelConfig
 
@@ -1782,6 +1976,14 @@ PUBLISHED = {
         num_experts_per_tok=2, num_hidden_layers=64, num_key_value_heads=8,
         num_local_experts=8, output_multiplier_scale=0.5773502691896257, pad_token_id=0,
         rms_norm_eps=1e-5, torch_dtype="bfloat16", vocab_size=131072),
+    # BASELINE config 3's model (served awq_int4 through phase 3)
+    "meta-llama/Meta-Llama-3-70B": dict(
+        architectures=["LlamaForCausalLM"], attention_bias=False, bos_token_id=128000,
+        eos_token_id=128001, hidden_act="silu", hidden_size=8192, intermediate_size=28672,
+        max_position_embeddings=8192, model_type="llama", num_attention_heads=64,
+        num_hidden_layers=80, num_key_value_heads=8, pretraining_tp=1, rms_norm_eps=1e-5,
+        rope_scaling=None, rope_theta=500000.0, tie_word_embeddings=False,
+        torch_dtype="bfloat16", vocab_size=128256),
 }
 
 # The LayerNorm families (ROADMAP A14: the JAX package's
@@ -2042,6 +2244,9 @@ def expected_launches(runner, pool, stream, steps):
             want[dec] = windowed * steps["decode"]
     else:
         want[dec] = L * steps["decode"]
+    # a quantized model's weight-only dequant kernels: every step of either kind
+    for k, n in quant_launches(runner.model).items():
+        want[k] = n * (steps["extend"] + steps["decode"])
     return want
 
 
@@ -2104,9 +2309,79 @@ def restore(model, saved):
 # the model phase's gate: kernels vs plain within 5% of the logit range
 MODEL_GATE = 0.05
 
+# ---------------------------------------------------- quantized weights
+# the dense linears' kernel by quantization method (expert stacks:
+# wo_gemm_experts)
+WO_KERNEL = {"fp8": "wo_gemm", "int8": "wo_gemm", "blockwise_fp8": "wo_gemm_block",
+             "awq_int4": "wo_gemm_awq"}
+
+
+def _layer_of(path):
+    """(stacked, layer index or None) of a tree path under ``layers``."""
+    keys = path.split(".")
+    at = next((i for i, k in enumerate(keys[:-1]) if k == "layers"), None)
+    if at is None:
+        return False, None
+    return not keys[at + 1].isdigit(), (int(keys[at + 1]) if keys[at + 1].isdigit() else None)
+
+
+def quant_launches(model) -> dict:
+    """The weight-only dequant kernels' launches in one step of ``model``:
+    every quantized linear and expert stack once per layer it holds."""
+    from semi_pd_tpu_torch.layers.linear import QuantWeight
+
+    per = collections.Counter()
+    for path, shape in model.param_specs():
+        leaf = model.leaf(path)
+        if isinstance(leaf, QuantWeight):
+            stacked, _ = _layer_of(path)
+            name = WO_KERNEL[leaf.method] if path.endswith(".w") else "wo_gemm_experts"
+            per[name] += shape[0] if stacked else 1
+    return dict(per)
+
+
+@contextlib.contextmanager
+def doubled_scales(model, layer: int):
+    """Every quantized scale ``ws`` of decoder layer ``layer`` doubled inside
+    the block (the scale bug tests/test_quant_depth_gate.py pins), halved
+    back after (exact in float32)."""
+    from semi_pd_tpu_torch.layers.linear import QuantWeight
+
+    scales = []
+    for path, _ in model.param_specs():
+        leaf = model.leaf(path)
+        stacked, idx = _layer_of(path)
+        if isinstance(leaf, QuantWeight) and (stacked or idx == layer):
+            scales.append(leaf.ws[layer] if stacked else leaf.ws)
+    if not scales:
+        raise AssertionError(f"no quantized scale in layer {layer}")
+    for s in scales:
+        s.mul_(2.0)
+    try:
+        yield len(scales)
+    finally:
+        for s in scales:
+            s.div_(2.0)
+
+
+@contextlib.contextmanager
+def plain_linears():
+    """The quantized linears and expert stacks through their plain
+    versions inside the block: the reference side of a kernels-vs-plain
+    comparison (the served path never takes them on the card)."""
+    from unittest import mock
+
+    import semi_pd_tpu_torch.layers.linear as linear
+    import semi_pd_tpu_torch.ops.moe as moe
+    from semi_pd_tpu_torch.ops.quant import wo_gemm
+
+    with mock.patch.object(linear, "quant_matmul", wo_gemm.quant_matmul_plain), \
+            mock.patch.object(moe, "wo_gemm_experts", wo_gemm.wo_gemm_experts_plain):
+        yield
+
 
 def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=False,
-                gate=MODEL_GATE, mm=None):
+                gate=MODEL_GATE, mm=None, ws_layer=None):
     """The prompts of ``lens`` tokens prefilled in extend steps of up to the
     largest token bucket (4096), then two decode steps, at full width,
     kernels (with ``stream`` the streaming decode) vs the same layers with
@@ -2118,7 +2393,12 @@ def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=
     weights (restored after), and every step's moves must pass the
     gate. ``mm``: (input_ids, image_data) per request in place of
     ``lens``'s random prompts (a vision-language model: its images encoded
-    and spliced, Qwen-VL's M-RoPE positions)."""
+    and spliced, Qwen-VL's M-RoPE positions). A quantized model's plain side
+    also runs its linears and expert stacks through their plain versions
+    (``plain_linears``), so the gate holds the weight-only dequant kernels
+    too; ``ws_layer``: each step also runs with every quantized scale of
+    that layer doubled (``moves["ws2x"]``, the scale gate: on attentive
+    weights it must pass the gate like the attention's moves)."""
     import torch
 
     from semi_pd_tpu_torch.layers.attention import pool_attention
@@ -2186,7 +2466,8 @@ def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=
                 fb = hb.to_device(runner.device)
                 n = len(rs)
                 lk = model(fb, pool, attention=kernels)[:n].float()
-                lp = model(fb, pool, attention=plain)[:n].float()
+                with plain_linears():
+                    lp = model(fb, pool, attention=plain)[:n].float()
                 if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
                     raise AssertionError(f"model step {len(steps)}: non-finite logits")
                 span = lp.abs().max()
@@ -2194,6 +2475,10 @@ def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=
                 moves = {name: float((model(fb, pool, attention=fn)[:n].float() - lk).abs().max()
                                      / span) for name, fn in (("zero", zeroed),
                                                                ("scale2x", scaled))}
+                if ws_layer is not None:
+                    with doubled_scales(model, ws_layer):
+                        moves["ws2x"] = float((model(fb, pool, attention=kernels)[:n].float()
+                                               - lk).abs().max() / span)
                 agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
                 # the plain logits' closest top-2 gap over the rows, in the
                 # gate's measure: an argmax that rel_err can flip is a near tie
@@ -2231,7 +2516,7 @@ def phase_model(eng, stream: bool = False, lens=(700, 300, 1500, 37), attentive=
     if attentive and blind:
         raise AssertionError(f"the gate does not see the attention in these steps: {blind}")
     return dict(steps=steps, worst_rel_err=worst, attentive=attentive, gate=gate,
-                min_moves={k: min(s["moves"][k] for s in steps) for k in ("zero", "scale2x")})
+                min_moves={k: min(s["moves"][k] for s in steps) for k in steps[0]["moves"]})
 
 
 def graph_batch(eng, seed: int):
@@ -2397,8 +2682,10 @@ def serve_mode(eng, semi_pd: bool, prompts, vocab, pool, stream: bool = False,
     from semi_pd_tpu_torch.runtime.scheduler import Scheduler
     from semi_pd_tpu_torch.sampling.sampling_params import SamplingParams
 
-    args = bench_server_args(semi_pd, eng.server_args.kv_cache_dtype, stream,
-                             eng.server_args.max_total_tokens)
+    args = dataclasses.replace(
+        bench_server_args(semi_pd, eng.server_args.kv_cache_dtype, stream,
+                          eng.server_args.max_total_tokens),
+        quantization=eng.server_args.quantization)
     if not eng.flush_cache():
         raise AssertionError("engine not idle before serving")
     eng.server_args = args
@@ -3773,6 +4060,15 @@ def main() -> int:
                                                    hmma=sass[kname].get(fn))))
                 if props.get("spill_stores") or props.get("spill_loads"):
                     raise AssertionError(f"{kname}: {fn} spills: {props}")
+    # the weight-only dequant GEMM's instantiations (mode x weight type x
+    # 16-byte or element tiles): registers, spills and HMMA; each must run
+    # on the tensor cores
+    for fn, props in ptxas_summary(KERNELS["wo_gemm"].build_log).items():
+        if "wo_gemm_kernel" in fn:
+            print("wo_gemm_function " + json.dumps(dict(function=fn, **props,
+                                                        hmma=sass["wo_gemm"].get(fn))))
+            if not sass["wo_gemm"].get(fn):
+                raise AssertionError(f"wo_gemm: no HMMA in {fn}")
     # the tensor-core kernel of each library that has one: HMMA (HGMMA in the
     # warpgroup kernels) in each of its bf16-q instantiations, none in the
     # CUDA-core kernel's float32 pair
@@ -3826,6 +4122,8 @@ def main() -> int:
     rows += phase_kernels_layernorm()
     # the image path's G = 7 and the Gemma-2 classifier's 32 / 16 at head_dim 128
     rows += phase_kernels_vlm()
+    # the weight-only dequant kernels at the quantized paths' shapes (2q)
+    rows += phase_kernels_quant()
     print("kernels_phase " + json.dumps(dict(cases=len(rows) + len(spec_rows),
                                              seconds=time.monotonic() - t0)), flush=True)
 
@@ -3834,15 +4132,18 @@ def main() -> int:
     main_launches = {k: 0 for k in KERNELS}
 
     def model_phase(label, cfg, kv_dtype, eng=None, stream=False, tokenizer=None,
-                    tokens=131072, reduced=None, **kw):
+                    tokens=131072, reduced=None, quantization=None, **kw):
         """A new engine (or ``eng``, on its weights) and its model phase;
         ``tokenizer``: the new engine's (its grammar compiler and EOS);
         ``tokens``: its pool's size; ``reduced``: the cut printed with the
-        line; ``kw``: phase_model's (prompt lengths, attentive weights)."""
+        line; ``quantization``: the new engine's weight quantization; ``kw``:
+        phase_model's (prompt lengths, attentive weights, the scale gate's
+        layer)."""
         t0 = time.monotonic()
         if eng is None:
-            eng = Engine(bench_server_args(False, kv_dtype, max_total_tokens=tokens), cfg,
-                         tokenizer=tokenizer)
+            eng = Engine(dataclasses.replace(
+                bench_server_args(False, kv_dtype, max_total_tokens=tokens),
+                quantization=quantization), cfg, tokenizer=tokenizer)
         torch.cuda.synchronize()
         init_s = time.monotonic() - t0
         res = phase_model(eng, stream, **kw)
@@ -3850,6 +4151,7 @@ def main() -> int:
         params = sum(p.numel() for p in runner.model.parameters())
         print("model " + json.dumps(dict(
             res, model=label, kv_dtype=kv_dtype, init_s=init_s, decode_stream=stream,
+            quantization=eng.server_args.quantization,
             params=params, weight_gib=runner.weight_bytes / 2 ** 30,
             kv_pool_slots=runner.kv_spec.num_slots,
             kv_pool_gib=runner.kv_spec.bytes_total() / 2 ** 30, reduced=reduced,
@@ -4231,12 +4533,31 @@ def main() -> int:
     tok8b = SmokeTokenizer(llama3_8b_config().vocab_size)
     eng = model_phase("meta-llama-3-8b", llama3_8b_config(), "fp8_e4m3", tokenizer=tok8b)
     model_phase("meta-llama-3-8b", None, "fp8_e4m3", eng=eng, attentive=True)
-    graph_phase(eng, "meta-llama-3-8b", "aligned")
+    bf16_step = graph_phase(eng, "meta-llama-3-8b", "aligned")
+    bf16_gib = eng.runner.weight_bytes / 2 ** 30
     packed = serve_phase(eng, "meta-llama-3-8b", "aligned")
     stream_phase(eng, "meta-llama-3-8b", "aligned", "fp8_e4m3", packed)
     # constrained and penalized sampling, top-k, score and encode (4c)
     constrained_phase(eng, "meta-llama-3-8b fp8_e4m3", main_launches, smi)
     release(eng)  # the 8B model's 16 GB go before V2-Lite's 31 GB arrive
+    # BASELINE config 2: Meta-Llama-3-8B with fp8 weights (per channel:
+    # wo_gemm, 4 launches a layer a step) and fp8_e4m3 KV, full depth:
+    # phase 3 raw and attentive with the scale gate (every scale of layer
+    # 16 doubled must move the attentive logits past the gate), 3g (its
+    # replayed B-64 step beside the bf16-weight one above) and 4
+    label = "meta-llama-3-8b fp8 weights fp8_e4m3"
+    eng = model_phase(label, llama3_8b_config(), "fp8_e4m3", quantization="fp8", ws_layer=16)
+    model_phase(label, None, "fp8_e4m3", eng=eng, attentive=True, ws_layer=16)
+    fp8_step = graph_phase(eng, label, "aligned")
+    print("quant_step " + json.dumps(dict(
+        model="meta-llama-3-8b", quantization="fp8", kv_dtype="fp8_e4m3", gpu=smi,
+        graph_step_ms=fp8_step["graph_step_ms"], eager_step_ms=fp8_step["eager_step_ms"],
+        weight_gib=eng.runner.weight_bytes / 2 ** 30,
+        bf16_weights_graph_step_ms=bf16_step["graph_step_ms"],
+        bf16_weights_eager_step_ms=bf16_step["eager_step_ms"], bf16_weight_gib=bf16_gib,
+        wo_launches_per_step=quant_launches(eng.runner.model))), flush=True)
+    serve_phase(eng, label, "aligned")
+    release(eng)
     # Meta-Llama-3-8B speculating with the EAGLE draft (a llama layer at its
     # geometry over a one-layer 5D pool at head_dim 128) on fp8_e4m3 KV, tree
     # and chain (phases 3s, 3r, 4a; the tree engine also serves a regex
@@ -4264,6 +4585,23 @@ def main() -> int:
     graph_phase(eng, label, "latent")
     packed = serve_phase(eng, label, "latent")
     stream_phase(eng, label, "latent", "fp8_e4m3", packed)
+    release(eng)
+    # DeepSeek-V2-Lite with blockwise fp8 weights (the north star's
+    # "DeepSeek-V2-Lite FP8"): its dense linears 128 x 128 blockwise
+    # (wo_gemm_block, 5 a layer), its 64-expert stacks per-channel fp8
+    # (wo_gemm_experts, 2 a MoE layer); phases 3 (the scale gate at layer
+    # 13), 3g and 4
+    label = "deepseek-v2-lite blockwise_fp8"
+    eng = model_phase(label, deepseek_v2_lite_config(), "auto", quantization="blockwise_fp8",
+                      ws_layer=13)
+    model_phase(label, None, "auto", eng=eng, attentive=True, ws_layer=13)
+    step = graph_phase(eng, label, "latent")
+    print("quant_step " + json.dumps(dict(
+        model="deepseek-v2-lite", quantization="blockwise_fp8", kv_dtype="bfloat16", gpu=smi,
+        graph_step_ms=step["graph_step_ms"], eager_step_ms=step["eager_step_ms"],
+        weight_gib=eng.runner.weight_bytes / 2 ** 30,
+        wo_launches_per_step=quant_launches(eng.runner.model))), flush=True)
+    serve_phase(eng, label, "latent")
     release(eng)
     # MiniCPM3-4B on the 288-wide latent pool (the _288 builds), bf16 and
     # fp8_e4m3 rows, packed and streamed; its longrope factors are stand-ins
@@ -4374,6 +4712,31 @@ def main() -> int:
                reduced="4 of 32 layers (the whole model is 93 GB in bf16)")
     model_only("qwen3-30b-a3b", published_config("Qwen/Qwen3-30B-A3B", num_hidden_layers=8),
                reduced="8 of 48 layers")
+    # weight quantization through phase 3 (raw and attentive, the scale gate
+    # at a middle layer): Meta-Llama-3-70B with awq_int4 (BASELINE config 3;
+    # bf16 KV by awq's rule), then 8 requests served colocated, which
+    # launch wo_gemm_awq in a serving run; Qwen1.5-MoE-A2.7B with int8 at
+    # full depth (int8 linears under its qkv bias, the shared expert, int8
+    # expert stacks)
+    label = "meta-llama-3-70b awq_int4"
+    red = "40 of 80 layers (34 GB of unpacked int4 weights beside 2.1 GB of embedding and head)"
+    cfg = published_config("meta-llama/Meta-Llama-3-70B", num_hidden_layers=40)
+    lens = (900, 500, 600, 37)  # one 2048-token extend step (the plain side's float32 cost)
+    eng = model_phase(label, cfg, "auto", quantization="awq_int4", tokens=32768, reduced=red,
+                      ws_layer=20, lens=lens)
+    model_phase(label, None, "auto", eng=eng, attentive=True, reduced=red, ws_layer=20,
+                lens=lens)
+    r, _ = serve_mode(eng, False, prompts_for(cfg.vocab_size, 1024)[:8], cfg.vocab_size,
+                      "aligned")
+    for k, v in r["launches"].items():
+        main_launches[k] += v
+    print("serve " + json.dumps(dict(r, model=label, gpu=smi, reduced=red)), flush=True)
+    release(eng)
+    label = "qwen1.5-moe-a2.7b int8"
+    eng = model_phase(label, published_config("Qwen/Qwen1.5-MoE-A2.7B"), "auto",
+                      quantization="int8", ws_layer=12)
+    model_phase(label, None, "auto", eng=eng, attentive=True, ws_layer=12)
+    release(eng)
     # Gemma-7B's kernels vs plain in float32 (its bf16 gate reads the
     # largest error of any path, 3-3.5%): summation order alone
     model_only("gemma-7b float32", published_config(gemma7b, num_hidden_layers=4,
@@ -4550,7 +4913,12 @@ def main() -> int:
            "rpa_extend_aligned_256": ("extend_b8_q256_kv2048", "bfloat16"),
            "rpa_decode_stream_aligned_256": ("decode_b64_kv1024", "bfloat16"),
            "rpa_decode_aligned_alibi": ("decode_b64_kv1024", "bfloat16"),
-           "rpa_extend_aligned_alibi": ("extend_b8_q256_kv2048", "bfloat16")}
+           "rpa_extend_aligned_alibi": ("extend_b8_q256_kv2048", "bfloat16"),
+           # the weight-only dequant kernels: a decode step's gate_up (B 64)
+           "wo_gemm": ("8b_gate_up_t64", "float8_e4m3fn"),
+           "wo_gemm_block": ("v2lite_gate_up_t64", "float8_e4m3fn"),
+           "wo_gemm_awq": ("70b_gate_up_t64", "int8"),
+           "wo_gemm_experts": ("v2lite_experts_gate_up_b64", "float8_e4m3fn")}
     idle = [k for k in KERNELS if not main_launches[k]]
     if idle:
         raise AssertionError(f"kernels no serving run launched: {idle}")

@@ -50,8 +50,6 @@ def main(argv=None, model_config=None):
     p.add_argument("--bench-layers", type=int, default=16)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
-    if args.quantization:
-        raise NotImplementedError("weight quantization is ROADMAP A13")
 
     from semi_pd_tpu_torch.config.server_args import ServerArgs
     from semi_pd_tpu_torch.runtime.engine import Engine
@@ -65,6 +63,7 @@ def main(argv=None, model_config=None):
         or (args.batch_size * (args.input_len + args.output_len) + 4096),
         chunked_prefill_size=max(args.input_len * args.batch_size, 2048),
         device=args.device,
+        quantization=args.quantization,
     )
     if model_config is None:
         model_config = llama_1b_class_config(args.bench_layers)

@@ -243,6 +243,9 @@ class ModelConfig:
     alibi: Optional[bool] = None
 
     dtype: str = "bfloat16"
+    # weight quantization (ServerArgs.quantization; the runner sets it): the
+    # models make the leaves the JAX quantize_params quantizes as QuantWeight
+    quantization: Optional[str] = None
 
     # the vision-language models (the JAX fields): the outer architecture of
     # a config that wraps a text_config, whose whole HF config (a dict or an
@@ -266,7 +269,8 @@ class ModelConfig:
 
     @classmethod
     def from_hf_config(cls, hf_config, context_length: Optional[int] = None,
-                       dtype: str = "bfloat16") -> "ModelConfig":
+                       dtype: str = "bfloat16",
+                       quantization: Optional[str] = None) -> "ModelConfig":
         """A ModelConfig from a HuggingFace config (a dict, or an object
         with the keys as attributes): the JAX ``from_hf_config``'s common
         part and its clauses for the served architectures
@@ -344,7 +348,8 @@ class ModelConfig:
             # config class the JAX rule names after itself has no clause)
             if (raw(inner, "architectures")[1] or [None])[0] not in ARCHITECTURES:
                 inner = _with_architecture(inner, "LlamaForCausalLM")
-            cfg = cls.from_hf_config(inner, context_length=context_length, dtype=dtype)
+            cfg = cls.from_hf_config(inner, context_length=context_length, dtype=dtype,
+                                     quantization=quantization)
             outer = raw(hf_config, "architectures")[1]
             if outer:
                 cfg.architecture = outer[0]
@@ -400,6 +405,7 @@ class ModelConfig:
             rope_scaling=g("rope_scaling"),
             partial_rotary_factor=g("partial_rotary_factor", 1.0),
             dtype=dtype,
+            quantization=quantization,
         )
         cfg.context_length = context_length or g("max_position_embeddings", 4096)
         # Qwen2 puts a bias on qkv but not on o / the MLP

@@ -4,12 +4,14 @@ Keeps the ServerArgs fields the main serving path reads (memory sizing,
 bucket tables, the colocated and semi-PD scheduling knobs, the overlap
 ring, the KV dtype and its fp8 scales, speculative decoding: NGRAM, and
 EAGLE and NEXTN chain and tree; constrained decoding, custom logit
-processors and embedding mode) with the JAX package's defaults and
-comments' meaning, and adds ``device`` and ``decode_stream`` (the JAX
-package's RPA_DECODE_STREAM environment switch as an argument). A draft
-checkpoint is refused by the runner (ROADMAP A13). The CLI,
-HTTP, LoRA, parallelism and weight quantization flags belong to later
-slices of the port (ROADMAP queue A).
+processors and embedding mode; weight quantization, ``quantization``:
+fp8, int8, blockwise_fp8 or awq_int4, with the JAX rule that awq_int4
+serves bf16 KV under ``kv_cache_dtype="auto"``) with the JAX package's
+defaults and comments' meaning, and adds ``device`` and
+``decode_stream`` (the JAX package's RPA_DECODE_STREAM environment switch
+as an argument). A draft checkpoint is refused by the runner (ROADMAP
+A13). The CLI, HTTP, LoRA and parallelism flags belong to later slices of
+the port (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import List, Optional
 
 KV_CACHE_DTYPES = ("auto", "bfloat16", "float32", "fp8_e4m3", "fp8_e5m2")
 SPECULATIVE_ALGORITHMS = (None, "EAGLE", "NEXTN", "NGRAM")
+QUANTIZATIONS = (None, "fp8", "int8", "blockwise_fp8", "awq_int4")
 
 
 @dataclasses.dataclass
@@ -30,6 +33,7 @@ class ServerArgs:
     # Calibrated per-layer fp8-KV scales (JSON; runtime/model_runner.py
     # _load_kv_cache_scales), applied outside the kernels by linearity
     quantization_param_path: Optional[str] = None
+    quantization: Optional[str] = None  # fp8 | int8 | awq_int4 | blockwise_fp8
     random_weights: bool = False  # random-init from ``seed`` (tests/bench)
     seed: int = 0
     # Where the model, the KV pool and every step run: "cuda" unless the
@@ -129,6 +133,12 @@ class ServerArgs:
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: one of "
                              f"{KV_CACHE_DTYPES}")
+        if self.quantization == "none":  # the JAX runner's explicit opt-out
+            self.quantization = None
+        if self.quantization not in QUANTIZATIONS:
+            raise ValueError(f"quantization {self.quantization!r}: one of {QUANTIZATIONS}")
+        if self.quantization == "awq_int4" and self.kv_cache_dtype == "auto":
+            self.kv_cache_dtype = "bfloat16"
         if self.num_continuous_decode_steps is not None:
             self.overlap_depth = max(1, int(self.num_continuous_decode_steps))
             self.adaptive_overlap_depth = False  # user pinned the depth

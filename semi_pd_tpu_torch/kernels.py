@@ -240,6 +240,7 @@ def build_all() -> float:
     import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
     import semi_pd_tpu_torch.ops.attention.rpa_packed  # noqa: F401
     import semi_pd_tpu_torch.ops.attention.rpa_stream  # noqa: F401
+    import semi_pd_tpu_torch.ops.quant.wo_gemm  # noqa: F401
 
     t0 = time.monotonic()
     ks = list(KERNELS.values())

@@ -21,12 +21,18 @@ The numbers differ from ``jax.random``'s (and between a CUDA and a CPU
 generator), as the JAX package's own ``device_init_params`` differs from
 its ``init_params``: tests that compare the port with the JAX package load
 the same parameters into both (``load_jax_params``).
+
+A quantized model's leaves (``QuantWeight``, models/params.py) are
+quantized as each layer is drawn, from the model dtype: the device holds
+the quantized tree and one layer of one leaf in float32.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from semi_pd_tpu_torch.models.params import fill_leaf
 
 
 def leaf_seed(seed: int, index: int) -> int:
@@ -39,7 +45,7 @@ def device_init_params(model: torch.nn.Module, seed: int, device=None) -> None:
     """Fill every parameter of ``model`` (a module with ``param_specs()``
     and ``leaf(path)``, models/params.py) with ``0.02 * N(0, 1)`` drawn on
     ``device`` (default: where the parameters live)."""
-    for index, (path, _) in enumerate(model.param_specs()):
+    for index, (path, shape) in enumerate(model.param_specs()):
         param = model.leaf(path)
         dev = torch.device(device) if device is not None else param.device
         gen = torch.Generator(device=dev)
@@ -49,7 +55,9 @@ def device_init_params(model: torch.nn.Module, seed: int, device=None) -> None:
         # child's tree (LLaVA's "lm.layers", "vision.layers")
         at = next((i for i, k in enumerate(keys[:-1]) if k in ("layers", "blocks")), None)
         stacked = at is not None and not keys[at + 1].isdigit()
-        parts = param if stacked else param[None]
-        for part in parts:  # one layer (or the whole leaf) at a time
-            a = torch.randn(part.shape, generator=gen, dtype=torch.float32, device=dev)
-            part.copy_(a.mul_(0.02))
+        # one layer (or the whole leaf) at a time; a quantized leaf
+        # (QuantWeight) is quantized from it, a layer at a time
+        for i in (range(shape[0]) if stacked else (None,)):
+            a = torch.randn(shape[1:] if stacked else shape, generator=gen,
+                            dtype=torch.float32, device=dev)
+            fill_leaf(param, a.mul_(0.02), i)

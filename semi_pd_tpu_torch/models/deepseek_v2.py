@@ -87,11 +87,10 @@ class DeepseekV2ForCausalLM(TreeParams):
         # each leaf is the parameter "<path with . -> __>"; per-layer views
         # self.lp[l]["kv_a.w"] for the forward pass
         self.lp: List[Dict[str, torch.nn.Parameter]] = [{} for _ in range(c.num_hidden_layers)]
-        for path, shape in self.param_specs():
+        for path, shape in self.param_specs():  # quantized leaves: QuantWeight
             dtype = torch.float32 if path.endswith("e_bias") else self.dtype
-            p = torch.nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                                   requires_grad=False)
-            self.register_parameter(path.replace(".", "__"), p)
+            p = self.new_leaf(path, shape, dtype, device)
+            setattr(self, path.replace(".", "__"), p)
             if path.startswith("layers."):
                 _, l, rest = path.split(".", 2)
                 self.lp[int(l)][rest] = p

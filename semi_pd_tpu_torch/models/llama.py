@@ -50,8 +50,10 @@ draws the same numbers as the JAX ``init_params``, and ``load_jax_params``
 carries a JAX parameter tree (numpy leaves) into the module
 (models/params.py; the runner's random weights come from
 model_loader/loader.py::device_init_params instead). Linear weights are
-[din, dout]. The forward pass updates the KV pool, chunked or aligned, in
-place. LoRA, other activations and families, and tensor parallelism are
+[din, dout]; with ``config.quantization`` the linears and expert stacks
+the JAX ``quantize_params`` quantizes are ``QuantWeight`` leaves
+(models/params.py ``new_leaf``), indexed by layer as the tensors are. The
+forward pass updates the KV pool, chunked or aligned, in place. LoRA, other activations and families, and tensor parallelism are
 ROADMAP A13-A15.
 """
 
@@ -188,10 +190,8 @@ class LlamaForCausalLM(TreeParams):
         # each layer's sliding window (None: full attention)
         self.layer_windows = [c.sliding_window] * c.num_hidden_layers
         self.rope = self.make_rope().to(device)
-        for path, shape in self.param_specs():
-            setattr(self, _ATTR[path], torch.nn.Parameter(
-                torch.zeros(shape, dtype=self.dtype, device=device),
-                requires_grad=False))
+        for path, shape in self.param_specs():  # quantized leaves: QuantWeight
+            setattr(self, _ATTR[path], self.new_leaf(path, shape, self.dtype, device))
         if c.tie_word_embeddings:
             self.lm_head = None
 

@@ -50,6 +50,7 @@ class LlavaForConditionalGeneration(TreeParams):
         lm_cfg = ModelConfig.from_hf_config(cfg_get(hf, "text_config"),
                                             context_length=config.context_length,
                                             dtype=config.dtype)
+        lm_cfg.quantization = config.quantization  # the LM's linears (the tower's stay)
         self.lm = LlamaForCausalLM(lm_cfg, device)
         Hv, Ht = self.tower.hidden, lm_cfg.hidden_size
         self.proj_shapes = {"fc1.w": (Hv, Ht), "fc1.b": (Ht,), "fc2.w": (Ht, Ht),

@@ -18,8 +18,15 @@ Routing: softmax top-k (DeepSeek-V2 "greedy"), sigmoid scoring with a
 score-correction bias and grouped selection (DeepSeek-V3 noaux_tc, V2's
 group_limited_greedy), optional renormalisation and routed scaling.
 
-Not ported: expert parallelism (``moe_ffn_ep``) and quantized expert stacks
-(``expert_weights``' dict form), ROADMAP A13 and A15.
+Quantized expert stacks (``expert_weights``' dict form: ``{"w": fp8 |
+int8 [E, K, N], "ws": float32 [E, N]}``, or a ``QuantWeight`` holding it)
+run in bf16 whatever the model's dtype, as JAX dequantizes them to bf16:
+the gathered rows are cast to bf16 and both grouped products go to
+``ops/quant/wo_gemm.py wo_gemm_experts`` (on the card the kernel, which
+widens and scales each weight tile in shared memory; on the CPU the stack
+dequantized, (w * ws) rounded to bf16, then the plain loop).
+
+Not ported: expert parallelism (``moe_ffn_ep``), ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from semi_pd_tpu_torch.layers.linear import QuantWeight
 from semi_pd_tpu_torch.ops.elementwise import silu_and_mul
+from semi_pd_tpu_torch.ops.quant.wo_gemm import wo_gemm_experts, wo_gemm_experts_plain
 
 
 def route_topk(
@@ -119,10 +128,25 @@ def expert_counts(flat_idx: torch.Tensor, num_experts: int) -> torch.Tensor:
     return counts.scatter_add_(0, flat_idx.long(), torch.ones_like(flat_idx, dtype=torch.int64))
 
 
+def expert_stack(w):
+    """An expert stack as ``moe_ffn`` takes it: a tensor, or a quantized
+    stack's leaves {"w", "ws"} (from a dict or a ``QuantWeight``)."""
+    return w.leaves() if isinstance(w, QuantWeight) else w
+
+
+def _grouped(x: torch.Tensor, w, group_sizes: torch.Tensor, matmul) -> torch.Tensor:
+    """One grouped product: a quantized stack through ``wo_gemm_experts``
+    (its plain version where ``matmul`` is the plain loop), else ``matmul``."""
+    if isinstance(w, dict):
+        fn = wo_gemm_experts_plain if matmul is grouped_matmul_plain else wo_gemm_experts
+        return fn(x, w["w"], w["ws"], group_sizes)
+    return matmul(x, w, group_sizes)
+
+
 def moe_ffn(
     x: torch.Tensor,  # [T, d]
-    gate_up: torch.Tensor,  # [E, d, 2f]
-    down: torch.Tensor,  # [E, f, d]
+    gate_up,  # [E, d, 2f] (or a quantized stack: expert_stack)
+    down,  # [E, f, d]
     weights: torch.Tensor,  # [T, K] float32 routing weights
     expert_idx: torch.Tensor,  # [T, K] int32
     matmul=grouped_matmul,
@@ -130,8 +154,9 @@ def moe_ffn(
 ) -> torch.Tensor:
     """Sort-by-expert grouped MoE forward with gated ``act`` (SiLU unless
     the caller passes another), [T, d] -> [T, d],
-    in the JAX order of casts: rows gathered in the experts' dtype, both
-    products and the weighted sum in that dtype, cast back to x's.
+    in the JAX order of casts: rows gathered in the experts' dtype (bf16
+    for a quantized stack), both products and the weighted sum in that
+    dtype, cast back to x's.
     ``matmul`` is the grouped product (``grouped_matmul_plain`` holds the
     CUDA path to the plain loop).
 
@@ -139,17 +164,18 @@ def moe_ffn(
     are summed in one reduction, so a token's result is the same from run
     to run; a scatter-add (JAX's ``.at[].add``, torch's ``index_add_``)
     adds with atomics on a CUDA device, in an order that varies."""
-    if isinstance(gate_up, dict) or isinstance(down, dict):
-        raise NotImplementedError("quantized expert stacks are ROADMAP A13")
+    gate_up, down = expert_stack(gate_up), expert_stack(down)
     T, d = x.shape
-    E = gate_up.shape[0]
+    quant = isinstance(gate_up, dict)
+    E = (gate_up["w"] if quant else gate_up).shape[0]
     K = weights.shape[1]
     flat = expert_idx.reshape(T * K).long()
     order = torch.argsort(flat, stable=True)
     token_of = order // K  # source token of each sorted row
     group_sizes = expert_counts(flat, E)
-    h = act(matmul(x[token_of].to(gate_up.dtype), gate_up, group_sizes))
-    out_rows = matmul(h, down, group_sizes)  # [T*K, d], sorted by expert
+    rows_dtype = torch.bfloat16 if quant else gate_up.dtype
+    h = act(_grouped(x[token_of].to(rows_dtype), gate_up, group_sizes, matmul))
+    out_rows = _grouped(h, down, group_sizes, matmul)  # [T*K, d], sorted by expert
     w_rows = weights.reshape(T * K)[order].to(out_rows.dtype)
     rows = torch.empty_like(out_rows)
     rows[order] = out_rows * w_rows[:, None]  # row t*K + k: token t's k-th expert

@@ -316,8 +316,16 @@ class ModelRunner:
                 f"other families are ROADMAP A14")
         if server_args.context_length:
             model_config.context_length = server_args.context_length
+        # weight quantization (JAX: ModelConfig(quantization=server_args.quantization));
+        # the model makes its quantized leaves from the config
+        model_config.quantization = server_args.quantization
         self.model_config = model_config
         mc = model_config
+        if mc.quantization and mc.dtype == "float32" and self.device.type == "cuda":
+            raise NotImplementedError(
+                f"quantization {mc.quantization} on a float32 model: the weight-only dequant "
+                f"kernels take bf16 activations; float32 quantized linears on the card are "
+                f"ROADMAP B9.8 (the CPU serves them)")
         # refused before any weight is made: a geometry without kernels (A9),
         # a context past learned positions
         kv_pool_layout(mc.num_kv_heads_total, mc.kv_head_dim, mc.use_mla)
@@ -444,6 +452,12 @@ class ModelRunner:
 
     # ------------------------------------------------------------- weights
     def _load_weights(self) -> None:
+        """Random weights drawn on the device; with ``quantization`` (fp8,
+        int8, blockwise_fp8, awq_int4) the model's quantized leaves are
+        quantized as each layer is drawn, as the JAX runner quantizes
+        whatever it loaded (semi_pd_tpu/runtime/model_runner.py:240-249).
+        ``weight_bytes`` counts the leaves as held, quantized ones included,
+        so the KV pool is sized from what they leave free."""
         t0 = time.monotonic()
         if self.server_args.model_path and not self.server_args.random_weights:
             raise NotImplementedError("checkpoint loading is ROADMAP A13; use "
@@ -451,7 +465,8 @@ class ModelRunner:
         device_init_params(self.model, self.server_args.seed, self.device)
         self.weight_bytes = sum(p.numel() * p.element_size()
                                 for p in self.model.parameters())
-        logger.info("weights ready: %.2f GiB in %.1fs", self.weight_bytes / 2**30,
+        logger.info("weights ready: %.2f GiB (quantization %s) in %.1fs",
+                    self.weight_bytes / 2**30, self.model_config.quantization,
                     time.monotonic() - t0)
 
     # ------------------------------------------------------------- memory
@@ -459,6 +474,13 @@ class ModelRunner:
         args, mc = self.server_args, self.model_config
         page_size = args.page_size
         kv_dtype = KV_DTYPES[mc.dtype if args.kv_cache_dtype == "auto" else args.kv_cache_dtype]
+        if mc.dtype == "float32" and kv_dtype == torch.bfloat16:
+            # what awq_int4's rule gives a float32 model under "auto"; the
+            # pools hold KV in q's dtype or in fp8
+            raise NotImplementedError(
+                "bf16 KV under a float32 model (awq_int4 with kv_cache_dtype 'auto'): the "
+                "attention takes KV in q's dtype or fp8; pass kv_cache_dtype='float32' "
+                "(ROADMAP B9.8)")
         layout = kv_pool_layout(mc.num_kv_heads_total, mc.kv_head_dim, mc.use_mla)
         num_tokens = args.max_total_tokens or self._profile_kv_tokens(kv_dtype)
         num_pages = max(num_tokens // page_size, 8) + 1  # +1 dump page

@@ -3051,3 +3051,141 @@ def test_mrope_decode_graph_replays_the_shifted_position_bitwise(cuda_device):
     assert torch.equal(again[1], want[1])
     assert runner.graphs.stats["captures"] == 1
     assert not torch.equal(other[1], want[1])
+
+
+# ------------------------------------------------------------- quantized weights
+def _quant_leaves(dev, method, K, N, E=None, seed=0):
+    from semi_pd_tpu_torch.model_loader.quantize import _quant_one
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (K, N) if E is None else (E, K, N)
+    w = (0.02 * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+    return dict(zip(("w", "ws", "wz"), _quant_one(w, method)))
+
+
+# (method, K, N): the served tails (V2-Lite's kv_a N = 576, its dense down
+# K = 10944: blockwise part blocks; a decode-sized down splits K over
+# blocks) and shapes off 16 bytes, which take the element-wise tile loads
+WO_CASES = [("fp8", 4096, 576), ("fp8", 10944, 2048), ("fp8", 200, 300), ("int8", 2048, 576),
+            ("int8", 136, 260), ("blockwise_fp8", 2048, 576), ("blockwise_fp8", 10944, 2048),
+            ("blockwise_fp8", 200, 300), ("awq_int4", 1024, 576), ("awq_int4", 200, 300),
+            ("awq_int4", 8192, 1024)]
+WO_NAME = {"fp8": "wo_gemm", "int8": "wo_gemm", "blockwise_fp8": "wo_gemm_block",
+           "awq_int4": "wo_gemm_awq"}
+
+
+@pytest.mark.parametrize("T", [1, 37, 130])
+@pytest.mark.parametrize("method,K,N", WO_CASES, ids=[f"{m}-{k}x{n}" for m, k, n in WO_CASES])
+def test_wo_gemm_kernels_match_plain(cuda_device, method, K, N, T):
+    """Each dense weight-only dequant kernel launches (one count) and gives
+    its plain version's output within 1e-2 of the output's scale (bf16
+    out; the float32 sums run in another order), at every tail of T, K and
+    N; a second run gives the same bits (split K sums its partials in a
+    fixed order)."""
+    from semi_pd_tpu_torch.ops.quant import wo_gemm
+
+    p = _quant_leaves(cuda_device, method, K, N, seed=K + N)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(T)
+    x = torch.randn((T, K), generator=g, device=cuda_device).to(torch.bfloat16)
+    k = KERNELS[WO_NAME[method]]
+    before = k.launches
+    out = wo_gemm.quant_matmul(x, p)
+    again = wo_gemm.quant_matmul(x, p)
+    torch.cuda.synchronize()
+    assert k.launches == before + 2
+    ref = wo_gemm.quant_matmul_plain(x, p).float()
+    assert out.dtype == torch.bfloat16 and out.shape == (T, N)
+    assert torch.isfinite(out).all()
+    assert float((out.float() - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("method", ["fp8", "int8"])
+@pytest.mark.parametrize("K,N", [(2048, 2816), (200, 300)])
+def test_wo_gemm_experts_matches_plain(cuda_device, method, K, N):
+    """The quantized expert stack's grouped product over rows sorted by
+    expert (8 experts, some groups empty, ragged ones up to 150 rows)
+    against the stack dequantized to bf16 and the plain loop: within 1e-2
+    of the output's scale, one launch, no host read of the groups."""
+    from semi_pd_tpu_torch.ops.quant import wo_gemm
+
+    E = 8
+    p = _quant_leaves(cuda_device, method, K, N, E=E, seed=3)
+    sizes = torch.tensor([5, 0, 150, 1, 0, 64, 17, 0], device=cuda_device)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(1)
+    x = torch.randn((int(sizes.sum()), K), generator=g, device=cuda_device).to(torch.bfloat16)
+    k = KERNELS["wo_gemm_experts"]
+    before = k.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = wo_gemm.wo_gemm_experts(x, p["w"], p["ws"], sizes)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    ref = wo_gemm.wo_gemm_experts_plain(x, p["w"], p["ws"], sizes).float()
+    assert float((out.float() - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+
+
+def test_wo_gemm_refuses_float32_and_e5m2(cuda_device):
+    """On the card the kernels take bf16 activations and e4m3 / int8
+    weights: float32 activations, e5m2 weights and a float32 model with
+    quantized weights raise NotImplementedError naming ROADMAP B9.8, and
+    nothing falls back to the plain version."""
+    from semi_pd_tpu_torch.ops.quant import wo_gemm
+
+    p = _quant_leaves(cuda_device, "fp8", 256, 256)
+    x = torch.randn((4, 256), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="B9.8"):
+        wo_gemm.wo_gemm(x, p["w"], p["ws"])
+    with pytest.raises(NotImplementedError, match="B9.8"):
+        wo_gemm.wo_gemm(x.to(torch.bfloat16), p["w"].float().to(torch.float8_e5m2), p["ws"])
+    with pytest.raises(NotImplementedError, match="B9.8"):
+        Engine(ServerArgs(random_weights=True, page_size=PS, max_total_tokens=4096,
+                          quantization="fp8"), ModelConfig(**_family_cfg("LlamaForCausalLM")))
+
+
+QUANT_GRAPHS = {
+    "llama-fp8": (_family_cfg("LlamaForCausalLM", num_key_value_heads=2), "fp8"),
+    "llama-awq_int4": (_family_cfg("LlamaForCausalLM", num_key_value_heads=2), "awq_int4"),
+    "qwen2_moe-int8": (_family_cfg("Qwen2MoeForCausalLM", **QWEN2_MOE), "int8"),
+    "qwen2_moe-blockwise_fp8": (_family_cfg("Qwen2MoeForCausalLM", **QWEN2_MOE),
+                                "blockwise_fp8"),
+}
+
+
+@pytest.mark.parametrize("case", list(QUANT_GRAPHS))
+def test_quantized_decode_graph_replays_the_eager_step_bitwise(cuda_device, case):
+    """A bf16 model with quantized weights: a replayed decode step gives
+    the eager step's tokens and log-probs bitwise; the capture records the
+    weight-only dequant kernels' launches (4 dense linears a layer, and a
+    MoE layer's shared expert and 2 expert stacks) beside the decode's, and
+    neither the eager step nor a replay syncs the host."""
+    cfg, method = QUANT_GRAPHS[case]
+    cfg = dict(cfg, dtype="bfloat16")
+    eng = Engine(ServerArgs(random_weights=True, page_size=PS, max_total_tokens=4096,
+                            chunked_prefill_size=64, quantization=method), ModelConfig(**cfg))
+    _fill_pool(eng, cuda_device, seed=0)
+    runner = eng.runner
+    L = cfg["num_hidden_layers"]
+    step = _graph_batch(eng, [33, 260, 9, 77, 1, 140], seed=1)
+    want = _eager_step(runner, *step, is_decode=True)
+    got = runner.step_packed_raw(*step, is_decode=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isfinite(got[1]).all()
+    (g,) = runner.graphs.graphs.values()
+    want_tally = {"rpa_decode_aligned": L, WO_NAME[method]: 4 * L}
+    if "num_experts" in cfg:
+        want_tally["wo_gemm_experts"] = 2 * L
+    assert g.tally == want_tally
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _eager_step(runner, *step, is_decode=True)
+        runner.step_packed_raw(*step, is_decode=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

@@ -160,7 +160,13 @@ def _imports(path: pathlib.Path):
                                     "semi_pd_tpu_torch/models/glm",
                                     "semi_pd_tpu_torch/models/phi3",
                                     "semi_pd_tpu_torch/models/granite",
-                                    "semi_pd_tpu_torch/models/grok"])
+                                    "semi_pd_tpu_torch/models/grok",
+                                    "semi_pd_tpu_torch/ops/quant/fp8",
+                                    "semi_pd_tpu_torch/ops/quant/int4",
+                                    "semi_pd_tpu_torch/ops/quant/wo_gemm",
+                                    "semi_pd_tpu_torch/model_loader/quantize",
+                                    "semi_pd_tpu_torch/layers/linear",
+                                    "semi_pd_tpu_torch/models/params"])
 def test_port_imports_no_jax(target):
     """No file of the port (the decode graphs, the warmup registry,
     bench_one_batch, the constrained-decoding copies, the logit processors,
@@ -171,7 +177,9 @@ def test_port_imports_no_jax(target):
     MRotaryEmbedding), and none of its card
     scripts (chip_smoke.py, serve_witness.py, fidelity_witness.py,
     decode_trace.py, extend_shapes.py, mla_decode_plans.py,
-    mla_extend_compare.py), imports jax or anything of the JAX package."""
+    mla_extend_compare.py), imports jax or anything of the JAX package;
+    nor do the quantized weights' modules, named on their own (ops/quant,
+    model_loader/quantize.py, layers/linear.py, models/params.py)."""
     files = (sorted((ROOT / "semi_pd_tpu_torch").rglob("*.py")) if target == "package"
              else [ROOT / f"{target}.py"])
     assert files
@@ -196,11 +204,16 @@ def test_kernel_registry_and_sources():
     ones at 256; the merged
     and every MLA build keep P in float32 (-DRPA_P_F32), as
     _rpa_kernel_merged and the MLA branches of the TPU kernels compute;
-    the _288 builds name their latent geometry."""
+    the _288 builds name their latent geometry. The weight-only dequant
+    GEMM's four kernels (csrc/wo_gemm.cu: one build, its C entry picking
+    the kernel from its mode) replace no Pallas kernel: each names the JAX
+    function whose XLA fusion it stands for (a def line) and says so."""
     from semi_pd_tpu_torch.kernels import KERNELS
     import semi_pd_tpu_torch.ops.attention.ragged_paged_attention  # noqa: F401
+    import semi_pd_tpu_torch.ops.quant.wo_gemm  # noqa: F401
 
-    assert set(KERNELS) == {"rpa_decode", "rpa_extend", "rpa_decode_aligned",
+    wo = {"wo_gemm", "wo_gemm_block", "wo_gemm_awq", "wo_gemm_experts"}
+    assert set(KERNELS) == wo | {"rpa_decode", "rpa_extend", "rpa_decode_aligned",
                             "rpa_extend_aligned", "rpa_decode_mla", "rpa_extend_mla",
                             "rpa_decode_merged", "rpa_extend_merged", "rpa_decode_stream",
                             "rpa_decode_stream_aligned", "rpa_decode_stream_mla",
@@ -213,15 +226,17 @@ def test_kernel_registry_and_sources():
         path, line = k.replaces.split()[0].split(":")
         src = (ROOT / path).read_text().splitlines()
         assert src[int(line) - 1].startswith(f"def {k.replaces.split()[1]}(")
+        assert ("no Pallas kernel" in k.replaces) == (k.name in wo)
         flags = " ".join(k.flags())
         assert "sm_90a" in flags and f"-DRPA_ENTRY={k.symbol}" in flags
         five_d = k.name.endswith(("_aligned", "_merged", "_aligned_256", "_aligned_alibi"))
-        assert (k.library is not None) == k.name.endswith("_alibi")
+        assert (k.library is not None) == (k.name.endswith("_alibi") or k.name in wo - {"wo_gemm"})
         assert ("-DRPA_ALIGNED" in k.flags()) == five_d
         assert ("-DRPA_P_F32" in k.flags()) == (k.name.endswith("_merged") or "_mla" in k.name)
         assert ("-DRPA_MLA_DL=288" in k.flags()) == k.name.endswith("_288")
         assert ("-DRPA_HEAD_DIM=256" in k.flags()) == k.name.endswith("_256")
-    assert len({k.lib_path() for k in KERNELS.values()}) == 17
+    assert len({k.lib_path() for k in KERNELS.values()}) == 18
+    assert {k.source.name for k in KERNELS.values() if k.name in wo} == {"wo_gemm.cu"}
     for name in ("rpa_extend", "rpa_extend_aligned", "rpa_extend_mla", "rpa_extend_merged",
                  "rpa_extend_mla_288", "rpa_extend_aligned_256", "rpa_extend_aligned_alibi"):
         assert "EXTEND_QBLK=128" in " ".join(KERNELS[name].flags())

@@ -342,7 +342,10 @@ def test_route_topk_and_moe_ffn_match_jax(route):
     out = moe.moe_ffn(_t(x), _t(gate_up), _t(down), w, idx)
     jout = jax_moe.moe_ffn(jnp.asarray(x), jnp.asarray(gate_up), jnp.asarray(down), jw, jidx)
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    # quantized stacks ({"w", "ws"}, the JAX expert_weights' dict form) are
+    # served now, in bf16 as JAX serves them (tests/test_torch_quant.py
+    # holds them to JAX's moe_ffn); a stack without its scales is refused
+    with pytest.raises(KeyError, match="ws"):
         moe.moe_ffn(_t(x), {"w": _t(gate_up)}, _t(down), w, idx)
 
 
